@@ -1,0 +1,475 @@
+"""The continuous-time SAT engine in PyTorch: batched Euler integration.
+
+The port of ``odesat_tpu.models.ode``, with the same state, integrators
+and entry points:
+
+* **Trajectories are a batch axis**: the state ``(v, xs, xl, dt, done)``
+  carries a leading batch dimension, and the reference's ``inter`` mode
+  is the same code path with B > 1.
+* **Per-trajectory adaptive dt** by default; ``dt_mode="shared"`` adapts
+  one dt from the batch-max error like the reference's inter mode.
+* **Early exit between chunks**: the host runs chunks of steps and checks
+  the per-trajectory ``done`` flags after each; solved trajectories are
+  frozen inside a chunk, so their satisfying sign pattern is kept exactly.
+* **On CUDA the chunk is one kernel launch** (ops/fused_chunk.py) when the
+  formula and config allow it; otherwise a Python loop of single steps of
+  the torch twin (ops/rhs.py) runs on whatever device holds the state.
+
+Step semantics preserved from the reference:
+
+* fixed step: the clamped update is applied **even on the step where
+  allsat is detected**, then the trajectory freezes
+  (src/system.rs:141-154);
+* adaptive step (step doubling): one full-dt trial step vs two half-dt
+  steps with a mid-point derivative re-evaluation; inf-norm error over
+  all three state arrays; ``dt <- clip(dt*sqrt(tol/err), 2^-7, 1e3)``;
+  a satisfied state is *not* advanced (src/system.rs:111-139).
+
+Not ported yet, and refused with ``NotImplementedError``: device meshes,
+checkpoint and resume, and profiler traces.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import os
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from odesat_tpu_torch.cnf.arrays import FormulaArrays, compile_formula
+from odesat_tpu_torch.cnf.formula import CNFFormula
+from odesat_tpu_torch.constants import DT_INIT, DT_MAX, DT_MIN, EPSILON, XL_CAP_PER_CLAUSE
+from odesat_tpu_torch.ops import rhs as rhs_ops
+from odesat_tpu_torch.utils.config import ODEConfig, SolverConfig
+from odesat_tpu_torch.utils.logging import logger
+
+
+class ODEState(NamedTuple):
+    """Integrator state, batched over the leading axis.
+
+    v: (B, Np) variable values; xs/xl: (B, Mp) clause memories;
+    dt: (B,) per-trajectory step size; done: (B,) bool allsat latches.
+    """
+
+    v: torch.Tensor
+    xs: torch.Tensor
+    xl: torch.Tensor
+    dt: torch.Tensor
+    done: torch.Tensor
+
+
+class FormulaDevice(NamedTuple):
+    """The formula's incidence arrays on the state's device, passed to the
+    step function (index arrays int64 for torch indexing)."""
+
+    lit_var: torch.Tensor  # (K, Mp) int64
+    sign: torch.Tensor  # (K, Mp)
+    lit_mask: torch.Tensor  # (K, Mp)
+    clause_mask: torch.Tensor  # (Mp,)
+    var_occ: torch.Tensor  # (Np, D) int64
+    occ_mask: torch.Tensor  # (Np, D)
+
+
+def state_dtype(ode: ODEConfig) -> torch.dtype:
+    """The state dtype; unlike the JAX package, float64 needs no
+    process-wide switch."""
+    return torch.float64 if ode.dtype == "float64" else torch.float32
+
+
+def formula_device(fa: FormulaArrays, device, dtype=torch.float32) -> FormulaDevice:
+    def put(a, dt):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device=device, dtype=dt)
+
+    return FormulaDevice(
+        lit_var=put(fa.lit_var, torch.int64),
+        sign=put(fa.sign, dtype),
+        lit_mask=put(fa.lit_mask, dtype),
+        clause_mask=put(fa.clause_mask, dtype),
+        var_occ=put(fa.var_occ, torch.int64),
+        occ_mask=put(fa.occ_mask, dtype),
+    )
+
+
+@dataclass
+class SolveResult:
+    """Outcome of a batched solve."""
+
+    assignment: np.ndarray  # (B, n_vars) bool readout sign(v) > 0
+    done: np.ndarray  # (B,) bool — trajectory reached allsat
+    steps: int  # steps run per trajectory
+    solved_index: Optional[int]  # first done trajectory, else None
+    wall_time_s: float = 0.0
+
+    @property
+    def any_solved(self) -> bool:
+        return self.solved_index is not None
+
+    def best_assignment(self) -> np.ndarray:
+        """First satisfied trajectory's readout, else trajectory 0
+        (reference: src/system.rs:353-358)."""
+        idx = self.solved_index if self.solved_index is not None else 0
+        return self.assignment[idx]
+
+
+def init_state(
+    fa: FormulaArrays,
+    batch_size: int,
+    generator: Optional[torch.Generator],
+    ode: ODEConfig,
+    device,
+    v0: Optional[np.ndarray] = None,
+) -> ODEState:
+    """Fresh trajectory batch: v ~ U(-1, 1) drawn from ``generator`` (a
+    ``torch.Generator`` on ``device``), xs from the all-false clause
+    valuation, xl = 1, dt = 0.01 (reference: src/main.rs:170-174,
+    src/system.rs:205, 362-372). ``v0`` (numpy) replaces the draw and is
+    broadcast over the batch."""
+    dtype = state_dtype(ode)
+    shape = (batch_size, fa.n_vars_padded)
+    if v0 is not None:
+        v = torch.as_tensor(np.asarray(v0)).to(device=device, dtype=dtype).expand(shape).clone()
+    else:
+        u = torch.rand(shape, generator=generator, device=device, dtype=dtype)
+        v = 2.0 * u - 1.0
+    xs = (
+        torch.as_tensor(fa.xs_init)
+        .to(device=device, dtype=dtype)
+        .expand(batch_size, fa.n_clauses_padded)
+        .clone()
+    )
+    xl = torch.ones(batch_size, fa.n_clauses_padded, device=device, dtype=dtype)
+    dt = torch.full((batch_size,), DT_INIT, device=device, dtype=dtype)
+    done = torch.zeros(batch_size, device=device, dtype=torch.bool)
+    return ODEState(v, xs, xl, dt, done)
+
+
+def _scan_strategy(fa: FormulaArrays) -> str:
+    # wide occurrence tables make the variable-major gather pay N*D >> nnz;
+    # scatter-add wins there (measured on the TPU; kept for parity)
+    return "segment_sum" if fa.max_occ > 32 else "gather"
+
+
+def make_step_fn(fa: FormulaArrays, zeta: float, ode: ODEConfig):
+    """Build ``step(state, dev) -> state`` for a batched ODEState, using
+    the torch twin of the RHS on the state's device."""
+    xl_cap = XL_CAP_PER_CLAUSE * fa.n_clauses  # real clause count (src/system.rs:95)
+    zeta = float(zeta)
+    dv_strategy = ode.dv_strategy
+    if dv_strategy in ("fused", "auto"):
+        # 'fused' is a whole-chunk kernel (make_chunk_runner handles it);
+        # a single step picks between the scan accumulators
+        dv_strategy = _scan_strategy(fa)
+    buckets = fa.bucket_slices if len(fa.bucket_slices) > 1 else None
+
+    def derivs(v, xs, xl, dev: FormulaDevice):
+        return rhs_ops.compute_derivatives(
+            v, xs, xl,
+            lit_var=dev.lit_var, sign=dev.sign, lit_mask=dev.lit_mask,
+            clause_mask=dev.clause_mask, var_occ=dev.var_occ, occ_mask=dev.occ_mask,
+            zeta=zeta, rigidity=ode.rigidity, dv_strategy=dv_strategy,
+            bucket_slices=buckets,
+        )
+
+    def update(v, xs, xl, dv, dxs, dxl, dt):
+        """Clamped Euler update (reference: src/system.rs:93-97); dt is
+        (B,). fmax/fmin ignore NaN like Rust's f64::max/min, so a NaN
+        update (conflicting unit clauses summing +inf and -inf) clamps to
+        the lower bound instead of poisoning the state."""
+        dt_c = dt.unsqueeze(-1)
+
+        def clamp(x, lo, hi):
+            return torch.fmin(torch.fmax(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+        xs2 = clamp(xs + dt_c * dxs, EPSILON, 1.0 - EPSILON)
+        xl2 = clamp(xl + dt_c * dxl, 1.0, xl_cap)
+        v2 = clamp(v + dt_c * dv, -1.0, 1.0)
+        return v2, xs2, xl2
+
+    def freeze(cond, new, old):
+        return torch.where(cond.unsqueeze(-1), new, old)
+
+    if ode.step_size is not None:
+        dt_fixed = float(ode.step_size)
+
+        def step(state: ODEState, dev: FormulaDevice) -> ODEState:
+            dv, dxs, dxl, allsat = derivs(state.v, state.xs, state.xl, dev)
+            dt_b = torch.where(state.done, 0.0, state.v.new_tensor(dt_fixed))
+            v, xs, xl = update(state.v, state.xs, state.xl, dv, dxs, dxl, dt_b)
+            return ODEState(v, xs, xl, state.dt, state.done | allsat)
+
+        return step
+
+    tol = float(ode.tolerance)
+
+    def step(state: ODEState, dev: FormulaDevice) -> ODEState:
+        dv, dxs, dxl, allsat = derivs(state.v, state.xs, state.xl, dev)
+        advance = ~state.done & ~allsat  # src/system.rs:122: no update when allsat
+        dt = state.dt
+
+        # one full step (trial) vs two half steps (kept)
+        fv, fxs, fxl = update(state.v, state.xs, state.xl, dv, dxs, dxl, dt)
+        hv, hxs, hxl = update(state.v, state.xs, state.xl, dv, dxs, dxl, 0.5 * dt)
+        dv2, dxs2, dxl2, _ = derivs(hv, hxs, hxl, dev)
+        tv, txs, txl = update(hv, hxs, hxl, dv2, dxs2, dxl2, 0.5 * dt)
+
+        err = torch.maximum(
+            (fv - tv).abs().amax(dim=-1),
+            torch.maximum((fxs - txs).abs().amax(dim=-1), (fxl - txl).abs().amax(dim=-1)),
+        )
+        if ode.dt_mode == "shared":
+            # reference inter parity: one dt for the whole batch, adapted
+            # from the batch-max error of the trajectories that advance
+            # (src/system.rs:122-136,314)
+            err = torch.where(advance, err, 0.0).amax().expand_as(err)
+        # err == 0 -> dt hits the ceiling, like the reference's dt*inf
+        # clamped at 1e3 (src/system.rs:132-135)
+        # a tensor numerator: `float / tensor` is reciprocal-then-multiply
+        # in torch, which rounds twice where jnp divides once
+        ratio = err.new_tensor(tol) / err.clamp_min(1e-30)
+        new_dt = torch.clamp(dt * torch.sqrt(ratio), DT_MIN, DT_MAX)
+
+        v = freeze(advance, tv, state.v)
+        xs = freeze(advance, txs, state.xs)
+        xl = freeze(advance, txl, state.xl)
+        dt = torch.where(advance, new_dt, state.dt)
+        return ODEState(v, xs, xl, dt, state.done | allsat)
+
+    return step
+
+
+def resolve_strategy(fa: FormulaArrays, ode: ODEConfig, device) -> str:
+    """The port's ``auto`` ladder. ``fused`` (the CUDA chunk kernel) when
+    the state lives on CUDA, the dtype is float32, the adaptive dt is not
+    batch-shared and the formula passes the kernel's gate; otherwise the
+    twin's ``segment_sum`` or ``gather`` on the state's device. The JAX
+    ladder gates the same way on the TPU backend (models/ode.py:375-401)."""
+    if ode.dv_strategy != "auto":
+        return ode.dv_strategy
+    from odesat_tpu_torch.ops.fused_chunk import fused_supported
+
+    shared_adaptive = ode.dt_mode == "shared" and ode.step_size is None
+    if (
+        torch.device(device).type == "cuda"
+        and ode.dtype == "float32"
+        and not shared_adaptive
+        and fused_supported(fa, fixed=ode.step_size is not None)
+    ):
+        return "fused"
+    return _scan_strategy(fa)
+
+
+def make_chunk_runner(
+    fa: FormulaArrays, zeta: float, ode: ODEConfig, chunk_steps: int, device
+):
+    """``run(state, dev) -> state`` advancing every trajectory by
+    ``chunk_steps`` steps (solved trajectories stay frozen).
+
+    ``dv_strategy='fused'`` runs the whole chunk as one launch of the CUDA
+    kernel (ops/fused_chunk.py); it raises for what the kernel cannot
+    take, as the JAX package does. ``'auto'`` resolves through
+    :func:`resolve_strategy`. Other strategies loop single twin steps."""
+    if ode.dt_mode == "shared" and ode.step_size is None and ode.dv_strategy == "fused":
+        raise ValueError(
+            "dt_mode='shared' is not supported by the chunk kernel; "
+            "use dv_strategy='auto' (scan path) or per-trajectory dt"
+        )
+    strategy = resolve_strategy(fa, ode, device)
+    if strategy == "fused":
+        from odesat_tpu_torch.ops.fused_chunk import make_fused_chunk
+
+        return make_fused_chunk(fa, zeta, ode, chunk_steps, device)
+
+    step = make_step_fn(fa, zeta, dataclasses.replace(ode, dv_strategy=strategy))
+
+    def run_chunk(state: ODEState, dev: FormulaDevice) -> ODEState:
+        for _ in range(chunk_steps):
+            state = step(state, dev)
+        return state
+
+    return run_chunk
+
+
+def make_multi_chunk_runner(
+    fa: FormulaArrays,
+    zeta: float,
+    ode: ODEConfig,
+    chunk_steps: int,
+    max_chunks: int,
+    device,
+    stop_on: str = "any",
+    chunk=None,
+):
+    """``run(state, dev) -> (state, steps_advanced)`` running up to
+    ``max_chunks`` chunks of ``chunk_steps``, stopping after the first
+    chunk that leaves any (``stop_on="any"``) or every (``"all"``)
+    trajectory done. The JAX package runs this loop on the device; here
+    it is a host loop with one ``done`` check per chunk, which keeps the
+    same early-exit window and an exact ``steps_advanced``. ``chunk``
+    reuses an already built chunk runner."""
+    if chunk is None:
+        chunk = make_chunk_runner(fa, zeta, ode, chunk_steps, device)
+    stop_all = stop_on == "all"
+
+    def run(state: ODEState, dev=None):
+        n = 0
+        while n < max_chunks:
+            state = chunk(state, dev)
+            n += 1
+            if bool(state.done.all() if stop_all else state.done.any()):
+                break
+        return state, n * chunk_steps
+
+    return run
+
+
+def _readout(state: ODEState, n_vars: int) -> np.ndarray:
+    """Boolean readout: v > 0 (reference: src/system.rs:238)."""
+    return (state.v[:, :n_vars] > 0.0).cpu().numpy()
+
+
+def _generator(config: SolverConfig, device) -> torch.Generator:
+    seed = config.seed if config.seed is not None else int.from_bytes(os.urandom(4), "little")
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def _refuse_unported(config: SolverConfig, mesh) -> None:
+    for what, value in (
+        ("mesh", mesh),
+        ("checkpoint_path", config.checkpoint_path),
+        ("resume_from", config.resume_from),
+        ("profile_dir", config.profile_dir),
+    ):
+        if value:
+            raise NotImplementedError(f"{what} is not ported to odesat_tpu_torch yet")
+
+
+def simulate_batch(
+    formula_or_arrays,
+    config: SolverConfig,
+    *,
+    device,
+    generator: Optional[torch.Generator] = None,
+    v0: Optional[np.ndarray] = None,
+    stop_on: str = "any",
+    harvest=None,
+    mesh=None,
+) -> SolveResult:
+    """Run ``config.batch_size`` trajectories on ``device`` to completion
+    or budget.
+
+    ``stop_on``: "any" stops as soon as one trajectory reaches allsat
+    (reference inter semantics, src/system.rs:291); "all" runs until every
+    trajectory is done or the budget is exhausted. ``harvest(state, done)
+    -> bool`` is called between chunks with the host-pulled done flags;
+    returning True stops the run. ``generator`` (a ``torch.Generator`` on
+    ``device``) draws the initial state; by default one is seeded from
+    ``config.seed``. ``mesh`` is not ported and must be None.
+    """
+    _refuse_unported(config, mesh)
+    device = torch.device(device)
+    if isinstance(formula_or_arrays, FormulaArrays):
+        fa = formula_or_arrays
+    else:
+        formula = formula_or_arrays
+        bucket = config.bucket == "on" or (
+            config.bucket == "auto"
+            and formula.num_clauses >= 512
+            and formula.max_clause_width
+            > min((len(c) for c in formula.clauses), default=1)
+        )
+        fa = compile_formula(
+            formula,
+            clause_pad=config.clause_pad,
+            var_pad=config.var_pad,
+            bucket=bucket,
+            window_sort=config.window_sort,
+        )
+    strategy = resolve_strategy(fa, config.ode, device)
+    if config.ode.dv_strategy == "auto":
+        logger.info("dv_strategy auto -> %s on %s", strategy, device)
+    ode = dataclasses.replace(config.ode, dv_strategy=strategy)
+    zeta = ode.resolve_zeta(fa.density)
+    if generator is None:
+        generator = _generator(config, device)
+    state = init_state(fa, config.batch_size, generator, ode, device, v0=v0)
+    dev = formula_device(fa, device, dtype=state_dtype(ode))
+
+    from odesat_tpu_torch.models.loop import device_dispatch_plan, drive_chunks
+
+    inner = config.chunk_steps
+    chunk_steps = inner
+    dispatch_ok, dispatch_steps = device_dispatch_plan(config, ode.steps)
+    use_multi = harvest is None and dispatch_ok
+
+    # chunk runners by length, bounded: a solve needs its inner chunk, a
+    # few tail lengths and the grown chunks
+    @functools.lru_cache(maxsize=8)
+    def chunk_runner(n):
+        return make_chunk_runner(fa, zeta, ode, n, device)
+
+    if use_multi:
+        chunk_steps = dispatch_steps  # nominal slice between host decisions
+
+        def make_runner(n):
+            if n <= inner:
+                r = chunk_runner(n)
+                return lambda st: r(st, dev)
+            m = make_multi_chunk_runner(
+                fa, zeta, ode, inner, n // inner, device, stop_on=stop_on,
+                chunk=chunk_runner(inner),
+            )
+            return lambda st: m(st, dev)
+    else:
+        def make_runner(n):
+            r = chunk_runner(n)
+            return lambda st: r(st, dev)
+
+    def should_stop(st, done):
+        # harvest first: the oracle-verified exit must run even on the
+        # chunk where every trajectory converges
+        if harvest is not None and harvest(st, done):
+            return True
+        if stop_on == "any" and done.any():
+            return True
+        return bool(done.all())
+
+    state, steps_run, wall_time = drive_chunks(
+        state,
+        make_runner,
+        config,
+        budget=ode.steps,  # None => unbounded
+        should_stop=should_stop,
+        chunk_steps=chunk_steps,
+    )
+
+    done = state.done.cpu().numpy()
+    solved = np.flatnonzero(done)
+    return SolveResult(
+        assignment=_readout(state, fa.n_vars),
+        done=done,
+        steps=steps_run,
+        solved_index=int(solved[0]) if solved.size else None,
+        wall_time_s=wall_time,
+    )
+
+
+def simulate(
+    formula: CNFFormula,
+    config: Optional[SolverConfig] = None,
+    *,
+    device,
+    generator: Optional[torch.Generator] = None,
+    v0: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """Single-trajectory solve returning the boolean readout of length
+    ``varnum`` (reference: src/system.rs:156-239). The formula must be
+    normalized (dense variable indices)."""
+    config = config or SolverConfig()
+    if config.batch_size != 1:
+        config = dataclasses.replace(config, batch_size=1)
+    result = simulate_batch(formula, config, device=device, generator=generator, v0=v0)
+    return result.assignment[0]
