@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch port (odesat_tpu_torch) runs on an
-NVIDIA GPU: builds the CUDA chunk kernel from this checkout, holds it
-against its plain torch version, and drives the port's main path
-(``python -m odesat_tpu_torch inter``, in process) through it.
+NVIDIA GPU: builds the CUDA kernels from this checkout, holds each against
+its plain torch version, and drives the port's two main paths
+(``python -m odesat_tpu_torch inter`` and ``stoch``, in process) through
+them.
 
 Run from the root of a checkout on a machine with one Hopper GPU and nvcc:
 
@@ -11,7 +12,9 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc:
 Phases, each printing its lines; the first failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name;
-2. build: nvcc of csrc/fused_chunk.cu, seconds and ptxas's resource lines;
+2. build: nvcc of csrc/fused_chunk.cu and csrc/stoch_chunk.cu and g++ of
+   the native preprocessor, all started together; seconds, ptxas's
+   registers and spills, and whether the preprocessor runs native;
 3. kernel vs plain: random 3- and 4-SAT formulas, a formula of widths 2,
    3 and 5 (plain and width-bucketed), hard.cnf at B=16384, uf250 at
    B=4096 and an odd B=1000, both integrators, both rigidity gates,
@@ -29,7 +32,23 @@ Phases, each printing its lines; the first failure exits non-zero:
    float32 and bf16: verdict false after exactly 4096 steps, kernel
    launched; prints traj*steps/s;
 7. timing: the kernel's and the plain version's device time per 256-step
-   chunk at hard.cnf B=16384 and uf250 B=4096 (CUDA events).
+   chunk at hard.cnf B=16384 and uf250 B=4096 (CUDA events);
+8. stoch kernel vs plain: B3 (resident) and B4 (tables in L2) on the
+   formulas of phase 3, and B4 on the preprocessed n=1k
+   instance (run_benchmarks.py config 4) at B=8192, f32 and bf16, random
+   v and xl up to 3000; then a planted 3-SAT (n=200, m=700) at B=4096
+   until a compared chunk holds chains done before it, chains that
+   finish in it and chains still running. Exact equality of v, xl and
+   done; B3 and B4 equal on every formula both take;
+9. stoch determinism: two launches give bit-identical outputs;
+10. stoch main path: stoch on easy.cnf at -b 4096 verifies true through
+    B3; stoch --no-preprocess on hard.cnf at -b 16384 -n 4096 (f32 and
+    bf16) gives false after exactly 4096 steps; stoch on the n=1k
+    instance at -b 8192 runs B4 (a solved chain must verify); stoch on a
+    planted 5-SAT (n=2000, m=8000, past B3's gate) verifies true
+    through B4; each prints chain*steps/s;
+11. stoch timing: kernel and plain version in turns over the same steps,
+    B3 and B4 at hard.cnf B=16384, B4 at the n=1k instance B=8192.
 
 The last two lines are one JSON object per kernel and then
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -74,15 +93,34 @@ def phase_device(torch):
     return card
 
 
-def phase_build(fc):
+def phase_build(fc, sc):
+    """Build both CUDA sources and the native host library at once (one
+    nvcc per source, all started together), then report each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from odesat_tpu_torch import native
+
     t0 = time.perf_counter()
-    _, build = fc.load_library()
-    say(f"[build] csrc/fused_chunk.cu -> {os.path.relpath(build['path'], ROOT)} "
-        f"nvcc {build['seconds']:.1f} s (cached={build['cached']}), "
-        f"load {time.perf_counter() - t0:.1f} s")
-    for line in build["log"].splitlines():
-        if "registers" in line or "bytes stack frame" in line:
-            say(f"[build] ptxas {line.strip()}")
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        jobs = {name: pool.submit(fn) for name, fn in (
+            ("fused_chunk", fc.load_library), ("stoch_chunk", sc.load_library),
+            ("native", native.build_info))}
+        results = {name: job.result() for name, job in jobs.items()}
+    for name in ("fused_chunk", "stoch_chunk"):
+        _, build = results[name]
+        say(f"[build] csrc/{name}.cu -> {os.path.relpath(build['path'], ROOT)} "
+            f"nvcc {build['seconds']:.1f} s (cached={build['cached']})")
+        for line in build["log"].splitlines():
+            if "registers" in line or "bytes stack frame" in line:
+                say(f"[build] {name} ptxas {line.strip()}")
+    info = results["native"]
+    if info["available"]:
+        say(f"[build] native preprocessor {os.path.relpath(info['path'], ROOT)} g++ "
+            f"{info['seconds']:.1f} s (cached={info['cached']}); the preprocessor runs native")
+    else:
+        say(f"[build] native preprocessor unavailable ({info['error']}); "
+            "the preprocessor runs in Python")
+    say(f"[build] all builds {time.perf_counter() - t0:.1f} s")
 
 
 def load_cases():
@@ -249,27 +287,39 @@ def phase_determinism(torch, fc, hard, uf250):
         say(f"[determinism] {label}: two launches bit-identical")
 
 
-def run_inter(fc, args):
-    """The port's CLI in process, its kernel launch count reset first;
-    returns (verdict, launches, steps, solved, seconds)."""
+def run_cli(counters, cmd, args):
+    """The port's CLI in process, every kernel launch count set to 0 just
+    before and read just after. ``counters`` maps a kernel name to its
+    (module, attribute). Returns (verdict, launches by kernel, steps,
+    solved, seconds, output)."""
     from odesat_tpu_torch import cli
 
-    fc.launches = 0
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = cli.main(["inter", *args])
-    launches = fc.launches
+        rc = cli.main([cmd, *args])
+    launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
     out = buf.getvalue()
     if rc != 0:
-        fail(f"inter {' '.join(args)} exited {rc}:\n{out}")
-    m = re.search(r"Steps run: (\d+) \| trajectories solved: (\d+)/(\d+) \| ([0-9.]+) s", out)
+        fail(f"{cmd} {' '.join(args)} exited {rc}:\n{out}")
+    m = re.search(r"Steps run: (\d+) \| (?:trajectories|chains) solved: (\d+)/(\d+) \| "
+                  r"([0-9.]+) s", out)
     if m is None:
-        fail(f"inter printed no steps line:\n{out}")
+        fail(f"{cmd} printed no steps line:\n{out}")
     steps, solved, seconds = int(m.group(1)), int(m.group(2)), float(m.group(4))
     verdict = re.search(r"Checking if solution vector satisfies formula: (true|false)", out)
     if verdict is None:
-        fail(f"inter printed no verdict:\n{out}")
-    return verdict.group(1), launches, steps, solved, seconds
+        fail(f"{cmd} printed no verdict:\n{out}")
+    return verdict.group(1), launches, steps, solved, seconds, out
+
+
+def run_inter(fc, args):
+    """``inter`` through :func:`run_cli`; returns (verdict, launches,
+    steps, solved, seconds)."""
+    verdict, launches, steps, solved, seconds, _ = run_cli(
+        {"fused_chunk": (fc, "launches")}, "inter", args)
+    return verdict, launches["fused_chunk"], steps, solved, seconds
 
 
 def phase_main_sat(fc):
@@ -345,6 +395,259 @@ def phase_timing(torch, fc, hard, uf250, card):
     return times
 
 
+# ------------------------------------------------------------ stoch (B3, B4)
+
+STOCH_KERNELS = ("fused", "stream")
+
+
+def stoch_counters(fc, sc):
+    return {"fused_chunk": (fc, "launches"), "stoch_fused": (sc, "fused_launches"),
+            "stoch_stream": (sc, "stream_launches")}
+
+
+def n1k_instance():
+    """run_benchmarks.py config 4: planted random 3-SAT n=1000 m=4300."""
+    from odesat_tpu_torch.utils.generate import random_ksat
+
+    return random_ksat(1000, 4300, k=3, seed=7, planted=True)
+
+
+def sat5_instance():
+    """A SAT instance past B3's gate that B4 solves: planted random 5-SAT,
+    n=2000, m=8000 (ratio 4), seed 11. Preprocessed it has 1892 variables
+    and 13,239 clauses of widths up to 8, about 1.3 MB of B3 tables.
+    (The engine's parallel flips stall on this family from ratio 6 on.)"""
+    from odesat_tpu_torch.utils.generate import random_ksat
+
+    return random_ksat(2000, 8000, k=5, seed=11, planted=True)
+
+
+def load_stoch_cases(cases, hard):
+    """The ODE phase's formulas, then the preprocessed n=1k instance
+    (K=9, Mp=6528: past B3's gate) at B=8192, the main path's shapes."""
+    from odesat_tpu_torch.cnf import compile_formula, normalize_cnf_variables
+    from odesat_tpu_torch.preprocess import preprocess_formula
+
+    t0 = time.perf_counter()
+    reduced, _ = preprocess_formula(n1k_instance(), 7.0)
+    say(f"[stoch] n=1k instance preprocessed in {time.perf_counter() - t0:.3f} s: "
+        f"{reduced.num_clauses} clauses, {reduced.varnum} vars")
+    n1k = compile_formula(normalize_cnf_variables(reduced)[1], bucket=True)
+    stoch_cases = [*cases, ("n1k preprocessed B=8192", n1k, 8192)]
+    return stoch_cases, n1k
+
+
+def stoch_state(fa, B, seed, xl_hi=3000):
+    """Chains on the card: v random bits, xl random in [1, xl_hi] (past
+    256, so bf16 rounds), nothing done; from NumPy."""
+    import numpy as np
+
+    from odesat_tpu_torch.interop import stoch_state_from_numpy
+
+    rng = np.random.default_rng(seed)
+    v = rng.random((B, fa.n_vars_padded)) < 0.5
+    xl = rng.integers(1, xl_hi + 1, (B, fa.n_clauses_padded)).astype(np.int32)
+    return stoch_state_from_numpy(v, xl, np.zeros(B, bool), device="cuda")
+
+
+def stoch_compare(torch, out, ref):
+    """Exact equality of v, xl and done; returns (max abs error, why)."""
+    worst = 0
+    for name in ("v", "xl", "done"):
+        a, b = getattr(out, name), getattr(ref, name)
+        if not torch.equal(a, b):
+            return None, f"{name} differs in {int((a != b).sum())} entries"
+        worst = max(worst, int((a.long() - b.long()).abs().max()) if a.numel() else 0)
+    return float(worst), None
+
+
+def stoch_kernels_for(sc, fa):
+    return [k for k in STOCH_KERNELS if k == "stream" or sc.stoch_fused_supported(fa)]
+
+
+def phase_stoch_compare(torch, sc, stoch_cases):
+    from odesat_tpu_torch.ops.stoch_chunk import make_stoch_chunk, stoch_chunk_plain, traj_block
+
+    lib, _ = sc.load_library()
+    worst = dict.fromkeys(STOCH_KERNELS, 0.0)
+    for label, fa, B in stoch_cases:
+        nnz = int((fa.lit_mask > 0).sum())
+        K, Mp = fa.lit_var.shape
+        Np = fa.n_vars_padded
+        if lib.stoch_fused_smem_bytes(Np, Mp, K, nnz) != sc.stoch_fused_smem_bytes(fa) or \
+                lib.stoch_stream_smem_bytes(Np, Mp) != sc.stoch_stream_smem_bytes(fa):
+            fail(f"{label}: a stoch shared-memory gate differs from the kernel's")
+        steps = 8 if B * Mp > 2**24 else 32
+        state = stoch_state(fa, B, seed=B)
+        outs = {}
+        for kernel in stoch_kernels_for(sc, fa):
+            for mm in ("float32", "bfloat16"):
+                fn = make_stoch_chunk(fa, steps, kernel, mm, "cuda")
+                out = fn(state, 1234567)
+                ref = stoch_chunk_plain(state, fn.spec, steps, 1234567, traj_block(B),
+                                        mm == "bfloat16")
+                torch.cuda.synchronize()
+                err, why = stoch_compare(torch, out, ref)
+                tag = f"{label} {kernel} {mm} {steps} steps"
+                if why:
+                    fail(f"stoch kernel vs plain, {tag}: {why}")
+                worst[kernel] = max(worst[kernel], err)
+                outs[(kernel, mm)] = out
+                say(f"[stoch compare] {tag}: equal (max abs err {err:.1f}), "
+                    f"flips {int((out.v != state.v).sum())}, done {int(out.done.sum())}/{B}")
+        for mm in ("float32", "bfloat16"):
+            if ("fused", mm) in outs:
+                _, why = stoch_compare(torch, outs[("fused", mm)], outs[("stream", mm)])
+                if why:
+                    fail(f"B3 vs B4, {label} {mm}: {why}")
+                say(f"[stoch B3 vs B4] {label} {mm}: equal")
+    return worst
+
+
+def phase_stoch_finishing(torch, sc, planted):
+    """Kernel vs plain on chunks in which chains finish: from the all-false
+    start the kernel advances a planted formula until some chains are
+    done; then 8-step chunks are compared, each from the kernel's last
+    output, until one holds chains done before it, chains that finish in
+    it and chains still running. Done chains must come out unchanged."""
+    from odesat_tpu_torch.models.stoch import init_stoch_state
+    from odesat_tpu_torch.ops.stoch_chunk import make_stoch_chunk, stoch_chunk_plain, traj_block
+
+    B, worst = 4096, dict.fromkeys(STOCH_KERNELS, 0.0)
+    for kernel in STOCH_KERNELS:
+        for mm in ("float32", "bfloat16"):
+            feed = make_stoch_chunk(planted, 32, kernel, mm, "cuda")
+            fn = make_stoch_chunk(planted, 8, kernel, mm, "cuda")
+            tag = f"planted 3-SAT n=200 m=700 B={B} {kernel} {mm}"
+            state, steps, seed = init_stoch_state(planted, B, "cuda"), 0, 1
+            while not bool(state.done.any()):
+                if steps >= 20000:
+                    fail(f"stoch finishing, {tag}: no chain solved in {steps} steps")
+                state, steps, seed = feed(state, seed), steps + 32, seed + 1
+            for _ in range(256):
+                out = fn(state, seed)
+                ref = stoch_chunk_plain(state, fn.spec, 8, seed, traj_block(B), mm == "bfloat16")
+                torch.cuda.synchronize()
+                err, why = stoch_compare(torch, out, ref)
+                if why:
+                    fail(f"stoch kernel vs plain, {tag} from step {steps}: {why}")
+                worst[kernel] = max(worst[kernel], err)
+                was = state.done
+                for name in ("v", "xl"):
+                    if not torch.equal(getattr(out, name)[was], getattr(state, name)[was]):
+                        fail(f"stoch finishing, {tag}: the kernel moved {name} of a done chain")
+                before, after = int(was.sum()), int(out.done.sum())
+                state, steps, seed = out, steps + 8, seed + 1
+                if 0 < before < after < B:
+                    say(f"[stoch compare] {tag}, chunk ending at step {steps}: done {before} -> "
+                        f"{after}/{B}, equal (max abs err {err:.1f})")
+                    break
+            else:
+                fail(f"stoch finishing, {tag}: no chain finished inside a compared chunk "
+                     f"by step {steps}")
+    return worst
+
+
+def phase_stoch_determinism(torch, sc, hard, n1k):
+    from odesat_tpu_torch.ops.stoch_chunk import make_stoch_chunk
+
+    for label, fa, B, kernel, steps in (("hard.cnf B=16384", hard, 16384, "fused", 256),
+                                        ("hard.cnf B=16384", hard, 16384, "stream", 256),
+                                        ("n1k B=8192", n1k, 8192, "stream", 32)):
+        state = stoch_state(fa, B, seed=7)
+        fn = make_stoch_chunk(fa, steps, kernel, "float32", "cuda")
+        a, b = fn(state, 99), fn(state, 99)
+        torch.cuda.synchronize()
+        for x, y, name in zip(a, b, a._fields):
+            if not torch.equal(x, y):
+                fail(f"stoch determinism, {label} {kernel}: {name} differs between two launches")
+        say(f"[stoch determinism] {label} {kernel}: two launches bit-identical")
+
+
+def phase_stoch_main(fc, sc, card):
+    """The stoch main path through the CLI; returns launches by kernel."""
+    from odesat_tpu_torch.cnf import cnf_to_dimacs
+
+    os.makedirs(OUT, exist_ok=True)
+    n1k_path = os.path.join(OUT, "ksat_n1000_m4300_seed7_planted.cnf")
+    sat5_path = os.path.join(OUT, "ksat5_n2000_m8000_seed11_planted.cnf")
+    for path, formula in ((n1k_path, n1k_instance()), (sat5_path, sat5_instance())):
+        with open(path, "w", encoding="utf-8") as fh:
+            fh.write(cnf_to_dimacs(formula))
+    counters = stoch_counters(fc, sc)
+    total = {name: 0 for name in counters}
+    hard = os.path.join(ROOT, "tests", "data", "hard.cnf")
+    easy = os.path.join(ROOT, "tests", "data", "easy.cnf")
+    runs = (
+        # label, args, kernel that must run, expected verdict (None: any)
+        ("easy.cnf B=4096", ["-f", easy, "-b", "4096", "-n", "20000", "--seed", "1"],
+         "stoch_fused", "true"),
+        ("hard.cnf B=16384 f32 --no-preprocess", ["-f", hard, "--no-preprocess", "-b", "16384",
+                                                  "-n", "4096", "--seed", "0"],
+         "stoch_fused", "false"),
+        ("hard.cnf B=16384 bf16 --no-preprocess", ["-f", hard, "--no-preprocess", "-b", "16384",
+                                                   "-n", "4096", "--seed", "0",
+                                                   "--matmul-dtype", "bfloat16"],
+         "stoch_fused", "false"),
+        ("n1k preprocessed B=8192", ["-f", n1k_path, "-b", "8192", "-n", "4096", "--seed", "0"],
+         "stoch_stream", None),
+        ("5-SAT n=2000 m=8000 B=1024", ["-f", sat5_path, "-b", "1024", "-n", "20000",
+                                         "--seed", "0"],
+         "stoch_stream", "true"),
+    )
+    for label, args, kernel, want in runs:
+        verdict, launches, steps, solved, seconds, out = run_cli(counters, "stoch", args)
+        B = int(args[args.index("-b") + 1])
+        shape = re.search(r"Clauses: (\d+) \| Vars: (\d+)", out)
+        shape = f", preprocessed to {shape.group(1)} clauses / {shape.group(2)} vars" \
+            if shape else ""
+        say(f"[stoch main] {label}{shape}: verdict {verdict}, {solved} solved after {steps} "
+            f"steps in {seconds:.6f} s = {B * steps / seconds:.6e} chain*steps/s, launches "
+            f"{launches} ({card})")
+        if launches[kernel] == 0:
+            fail(f"stoch {label}: the main path never launched {kernel}")
+        if want == "false" and (verdict != "false" or steps != 4096 or solved != 0):
+            fail(f"stoch {label}: expected false after exactly 4096 steps")
+        if want == "true" and verdict != "true":
+            fail(f"stoch {label}: the port did not verify a satisfying assignment")
+        if solved and verdict != "true":
+            fail(f"stoch {label}: a chain solved but its assignment did not verify")
+        for name in total:
+            total[name] += launches[name]
+    return total
+
+
+def phase_stoch_timing(torch, sc, hard, n1k, card):
+    """Kernel and plain version in turns (plain, kernel, kernel, plain) on
+    the same input and the same number of steps; each time is the mean of
+    its two turns."""
+    from odesat_tpu_torch.ops.stoch_chunk import make_stoch_chunk, stoch_chunk_plain, traj_block
+    from odesat_tpu_torch.utils.timing import cuda_ms
+
+    times = {}
+    for label, fa, B, kernel, steps in (("hard.cnf B=16384", hard, 16384, "fused", 64),
+                                        ("hard.cnf B=16384", hard, 16384, "stream", 64),
+                                        ("n1k B=8192", n1k, 8192, "stream", 8)):
+        state = stoch_state(fa, B, seed=3, xl_hi=1)
+        fn = make_stoch_chunk(fa, steps, kernel, "float32", "cuda")
+        Bb = traj_block(B)
+
+        def plain_turn():
+            return cuda_ms(lambda: stoch_chunk_plain(state, fn.spec, steps, 5, Bb, False), 2,
+                           warmup=1)
+
+        def kernel_turn():
+            return cuda_ms(lambda: fn(state, 5), iters=10, warmup=2)
+
+        p1, k1, k2, p2 = plain_turn(), kernel_turn(), kernel_turn(), plain_turn()
+        kern, plain = (k1 + k2) / 2, (p1 + p2) / 2
+        times[(label, kernel)] = (kern, plain)
+        say(f"[stoch timing] {label} {kernel} f32, {steps}-step chunk: kernel {k1:.6f} / "
+            f"{k2:.6f} ms, plain {p1:.6f} / {p2:.6f} ms ({plain / kern:.3f}x), kernel "
+            f"{B * steps / kern * 1e3:.6e} chain*steps/s ({card})")
+    return times
+
+
 def main():
     import torch
 
@@ -354,6 +657,7 @@ def main():
     sys.path.insert(0, ROOT)
     import odesat_tpu_torch
     from odesat_tpu_torch.ops import fused_chunk as fc
+    from odesat_tpu_torch.ops import stoch_chunk as sc
 
     if not os.path.abspath(odesat_tpu_torch.__file__).startswith(ROOT + os.sep):
         fail(f"odesat_tpu_torch came from {odesat_tpu_torch.__file__}, not this checkout")
@@ -364,7 +668,7 @@ def main():
 
     t0 = time.perf_counter()
     card = phase_device(torch)
-    phase_build(fc)
+    phase_build(fc, sc)
     cases, hard, uf250 = load_cases()
     worst = phase_compare(torch, fc, cases)
     worst = max(worst, phase_compare_finishing(torch, fc, uf250))
@@ -373,21 +677,59 @@ def main():
     launches = phase_main_sat(fc)
     launches += phase_main_unsat(fc, card)
     times = phase_timing(torch, fc, hard, uf250, card)
+
+    from odesat_tpu_torch.cnf import compile_formula, normalize_cnf_variables
+    from odesat_tpu_torch.utils.generate import random_ksat
+
+    stoch_cases, n1k = load_stoch_cases(cases, hard)
+    stoch_worst = phase_stoch_compare(torch, sc, stoch_cases)
+    planted = compile_formula(normalize_cnf_variables(random_ksat(200, 700, seed=3,
+                                                                  planted=True))[1])
+    finishing = phase_stoch_finishing(torch, sc, planted)
+    stoch_worst = {k: max(stoch_worst[k], finishing[k]) for k in STOCH_KERNELS}
+    say(f"[stoch compare] every case equal; max abs err {stoch_worst}")
+    phase_stoch_determinism(torch, sc, hard, n1k)
+    stoch_launches = phase_stoch_main(fc, sc, card)
+    stoch_times = phase_stoch_timing(torch, sc, hard, n1k, card)
     if "jax" in sys.modules:
         fail("jax was imported")
     say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     kernel_ms, plain_ms = times[("hard.cnf B=16384", "fixed")]
-    say(json.dumps({"kernels": [{
-        "name": "fused_chunk",
-        "route": "cuda",
-        "source": "odesat_tpu_torch/csrc/fused_chunk.cu",
-        "replaces": "odesat_tpu/ops/fused_pallas.py:66",
-        "launches": launches,
-        "max_abs_err": worst,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+    b3_ms, b3_plain = stoch_times[("hard.cnf B=16384", "fused")]
+    b4_ms, b4_plain = stoch_times[("n1k B=8192", "stream")]
+    say(json.dumps({"kernels": [
+        {
+            "name": "fused_chunk",
+            "route": "cuda",
+            "source": "odesat_tpu_torch/csrc/fused_chunk.cu",
+            "replaces": "odesat_tpu/ops/fused_pallas.py:66",
+            "launches": launches,
+            "max_abs_err": worst,
+            "ms": kernel_ms,
+            "plain_ms": plain_ms,
+        },
+        {
+            "name": "stoch_fused",
+            "route": "cuda",
+            "source": "odesat_tpu_torch/csrc/stoch_chunk.cu",
+            "replaces": "odesat_tpu/ops/stoch_pallas.py:75",
+            "launches": stoch_launches["stoch_fused"],
+            "max_abs_err": stoch_worst["fused"],
+            "ms": b3_ms,
+            "plain_ms": b3_plain,
+        },
+        {
+            "name": "stoch_stream",
+            "route": "cuda",
+            "source": "odesat_tpu_torch/csrc/stoch_chunk.cu",
+            "replaces": "odesat_tpu/ops/stoch_pallas.py:345",
+            "launches": stoch_launches["stoch_stream"],
+            "max_abs_err": stoch_worst["stream"],
+            "ms": b4_ms,
+            "plain_ms": b4_plain,
+        },
+    ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -50,6 +50,26 @@ def device_dispatch_plan(config, steps_budget):
     return eligible, dispatch
 
 
+def run_chunks(chunk, chunk_steps: int, max_chunks: int, stop_all: bool = False):
+    """``run(state) -> (state, steps_advanced)`` running up to
+    ``max_chunks`` calls of ``chunk(state) -> state`` of ``chunk_steps``
+    steps each, stopping after the first that leaves any (or, with
+    ``stop_all``, every) row done. The JAX package runs this loop on the
+    device; here it is a host loop with one ``done`` read per chunk, which
+    keeps the same early-exit window and an exact ``steps_advanced``."""
+
+    def run(state):
+        n = 0
+        while n < max_chunks:
+            state = chunk(state)
+            n += 1
+            if bool(state.done.all() if stop_all else state.done.any()):
+                break
+        return state, n * chunk_steps
+
+    return run
+
+
 def drive_chunks(
     state,
     make_runner,

@@ -306,22 +306,17 @@ def make_multi_chunk_runner(
     """``run(state, dev) -> (state, steps_advanced)`` running up to
     ``max_chunks`` chunks of ``chunk_steps``, stopping after the first
     chunk that leaves any (``stop_on="any"``) or every (``"all"``)
-    trajectory done. The JAX package runs this loop on the device; here
-    it is a host loop with one ``done`` check per chunk, which keeps the
-    same early-exit window and an exact ``steps_advanced``. ``chunk``
-    reuses an already built chunk runner."""
+    trajectory done: the host loop of ``models/loop.run_chunks``, with an
+    exact ``steps_advanced``. ``chunk`` reuses an already built chunk
+    runner."""
+    from odesat_tpu_torch.models.loop import run_chunks
+
     if chunk is None:
         chunk = make_chunk_runner(fa, zeta, ode, chunk_steps, device)
-    stop_all = stop_on == "all"
 
     def run(state: ODEState, dev=None):
-        n = 0
-        while n < max_chunks:
-            state = chunk(state, dev)
-            n += 1
-            if bool(state.done.all() if stop_all else state.done.any()):
-                break
-        return state, n * chunk_steps
+        return run_chunks(lambda st: chunk(st, dev), chunk_steps, max_chunks,
+                          stop_all=stop_on == "all")(state)
 
     return run
 
@@ -331,12 +326,37 @@ def _readout(state: ODEState, n_vars: int) -> np.ndarray:
     return (state.v[:, :n_vars] > 0.0).cpu().numpy()
 
 
-def _generator(config: SolverConfig, device) -> torch.Generator:
+def compile_for_config(formula_or_arrays, config: SolverConfig) -> FormulaArrays:
+    """The formula's arrays as the config lays them out (arrays pass
+    through): width buckets when ``config.bucket`` is "on", or "auto" on
+    a formula of at least 512 clauses of mixed widths."""
+    if isinstance(formula_or_arrays, FormulaArrays):
+        return formula_or_arrays
+    formula = formula_or_arrays
+    bucket = config.bucket == "on" or (
+        config.bucket == "auto"
+        and formula.num_clauses >= 512
+        and formula.max_clause_width > min((len(c) for c in formula.clauses), default=1)
+    )
+    return compile_formula(
+        formula,
+        clause_pad=config.clause_pad,
+        var_pad=config.var_pad,
+        bucket=bucket,
+        window_sort=config.window_sort,
+    )
+
+
+def seeded_generator(config: SolverConfig, device) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded from ``config.seed`` (from
+    the OS when it is None)."""
     seed = config.seed if config.seed is not None else int.from_bytes(os.urandom(4), "little")
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def _refuse_unported(config: SolverConfig, mesh) -> None:
+def refuse_unported(config: SolverConfig, mesh) -> None:
+    """Raise ``NotImplementedError`` for the options the port does not run
+    yet: a mesh, checkpoint and resume, a profile directory."""
     for what, value in (
         ("mesh", mesh),
         ("checkpoint_path", config.checkpoint_path),
@@ -369,32 +389,16 @@ def simulate_batch(
     ``device``) draws the initial state; by default one is seeded from
     ``config.seed``. ``mesh`` is not ported and must be None.
     """
-    _refuse_unported(config, mesh)
+    refuse_unported(config, mesh)
     device = torch.device(device)
-    if isinstance(formula_or_arrays, FormulaArrays):
-        fa = formula_or_arrays
-    else:
-        formula = formula_or_arrays
-        bucket = config.bucket == "on" or (
-            config.bucket == "auto"
-            and formula.num_clauses >= 512
-            and formula.max_clause_width
-            > min((len(c) for c in formula.clauses), default=1)
-        )
-        fa = compile_formula(
-            formula,
-            clause_pad=config.clause_pad,
-            var_pad=config.var_pad,
-            bucket=bucket,
-            window_sort=config.window_sort,
-        )
+    fa = compile_for_config(formula_or_arrays, config)
     strategy = resolve_strategy(fa, config.ode, device)
     if config.ode.dv_strategy == "auto":
         logger.info("dv_strategy auto -> %s on %s", strategy, device)
     ode = dataclasses.replace(config.ode, dv_strategy=strategy)
     zeta = ode.resolve_zeta(fa.density)
     if generator is None:
-        generator = _generator(config, device)
+        generator = seeded_generator(config, device)
     state = init_state(fa, config.batch_size, generator, ode, device, v0=v0)
     dev = formula_device(fa, device, dtype=state_dtype(ode))
 

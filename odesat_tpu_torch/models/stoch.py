@@ -1,0 +1,266 @@
+"""Stochastic discrete engine in PyTorch: clause-weighted randomized local
+search.
+
+The port of ``odesat_tpu.models.stoch`` (reference: src/stoch.rs:1-110),
+with the same state and step. Per step:
+
+* every clause is evaluated against the boolean assignment;
+* clause weights update: satisfied -> max(xl-1, 1), unsatisfied ->
+  min(xl+20, 2**24);
+* every variable sums ``total = sum xl`` over the clauses holding it and
+  ``unsat = sum xl`` over the unsatisfied ones, from the post-update
+  weights;
+* each variable flips with probability ``unsat/total``; done chains stay
+  frozen, and a chain is done once every clause holds.
+
+On CUDA a chunk of steps is one launch of a hand-written kernel
+(ops/stoch_chunk.py): B3 with the formula resident in shared memory, else
+B4 with it in L2, else (past both gates, logged) the torch scan twin of
+:func:`make_stoch_step`. On the CPU ``auto`` runs the twin, as the JAX
+package does off the TPU; ``fused="on"`` runs the kernels' plain version.
+
+Randomness is explicit: one CPU ``torch.Generator`` seeded from
+``config.seed`` draws a 31-bit seed for every kernel launch on the host
+(no device round trip) and the seed of the twin's device generator, from
+which the twin draws its uniforms. Kernels and twin therefore draw
+different flip streams for one seed, as in the JAX package.
+
+Not ported yet, and refused with ``NotImplementedError``: device meshes,
+checkpoint and resume, and profiler traces.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from odesat_tpu_torch.cnf.arrays import FormulaArrays, slot_clause_map
+from odesat_tpu_torch.constants import STOCH_ALPHA
+from odesat_tpu_torch.utils.config import SolverConfig
+from odesat_tpu_torch.utils.logging import logger
+
+XL_CAP = 2**24
+
+
+class StochState(NamedTuple):
+    """Chains, batched over the leading axis: v (B, Np) bool assignment,
+    xl (B, Mp) int32 clause weights, done (B,) bool latches. The JAX
+    state's PRNG key is the runner's generator here."""
+
+    v: torch.Tensor
+    xl: torch.Tensor
+    done: torch.Tensor
+
+
+@dataclass
+class StochResult:
+    assignment: np.ndarray  # (B, n_vars) bool
+    done: np.ndarray  # (B,)
+    steps: int
+    solved_index: Optional[int]
+    wall_time_s: float = 0.0
+
+    def best_assignment(self) -> np.ndarray:
+        idx = self.solved_index if self.solved_index is not None else 0
+        return self.assignment[idx]
+
+
+def init_stoch_state(fa: FormulaArrays, batch_size: int, device) -> StochState:
+    """All-false start, unit weights (reference: src/stoch.rs:84-87)."""
+    return StochState(
+        v=torch.zeros((batch_size, fa.n_vars_padded), dtype=torch.bool, device=device),
+        xl=torch.ones((batch_size, fa.n_clauses_padded), dtype=torch.int32, device=device),
+        done=torch.zeros((batch_size,), dtype=torch.bool, device=device),
+    )
+
+
+def make_stoch_step(fa: FormulaArrays, device):
+    """The scan twin's step ``step(state, u) -> state`` with the uniforms
+    ``u`` (B, Np) f32 given, so that tests can inject the JAX package's
+    draws. The weight gather composes ``var_occ`` with the slot-to-clause
+    map, so it is right for bucketed layouts too (JAX :74-120)."""
+
+    def put(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+
+    lit_var = put(fa.lit_var, torch.int64)  # (K, M)
+    pos = put(fa.sign > 0, torch.bool)
+    lit_mask = put(fa.lit_mask > 0, torch.bool)
+    clause_mask = put(fa.clause_mask > 0, torch.bool)  # (M,)
+    occ_clause = put(slot_clause_map(fa)[fa.var_occ], torch.int64)  # (N, D)
+    occ_mask = put(fa.occ_mask > 0, torch.float32)
+    has_occ = put(fa.occ_mask.sum(axis=-1) > 0, torch.bool)
+
+    def step(state: StochState, u: torch.Tensor) -> StochState:
+        lit_true = state.v[:, lit_var] == pos  # (B, K, M)
+        sat = (lit_true & lit_mask).any(dim=-2)  # (B, M)
+        xl = torch.where(sat, (state.xl - 1).clamp_min(1),
+                         (state.xl + STOCH_ALPHA).clamp_max(XL_CAP))
+        xl = torch.where(clause_mask, xl, 0)
+        xl_f = xl.to(torch.float32)
+        unsat_f = xl_f * (~sat)
+        total = (xl_f[:, occ_clause] * occ_mask).sum(dim=-1)  # (B, N)
+        unsat_w = (unsat_f[:, occ_clause] * occ_mask).sum(dim=-1)
+        flip = (u * total < unsat_w) & has_occ
+        active = ~state.done
+        all_sat = (sat | ~clause_mask).all(dim=-1)
+        v = torch.where(active.unsqueeze(1) & flip, ~state.v, state.v)
+        xl = torch.where(active.unsqueeze(1), xl, state.xl)
+        return StochState(v, xl, state.done | all_sat)
+
+    return step
+
+
+def stoch_core_supported(fa: FormulaArrays, device, fused: str = "auto") -> bool:
+    """Build-free check that :func:`make_stoch_chunk_runner` would take a
+    kernel (B3 or B4) over the scan twin."""
+    from odesat_tpu_torch.ops.stoch_chunk import stoch_fused_supported, stoch_stream_supported
+
+    if fused == "off" or (fused == "auto" and torch.device(device).type != "cuda"):
+        return False
+    return stoch_fused_supported(fa) or stoch_stream_supported(fa)
+
+
+def resolve_kernel(fa: FormulaArrays, device, fused: str = "auto") -> str:
+    """The ``fused`` ladder: "fused" (B3) when its gate takes the formula,
+    else "stream" (B4), else "scan" (the twin). ``auto`` takes a kernel
+    only for CUDA states, like the JAX ladder on the TPU backend
+    (JAX :203-235); ``on`` raises when neither gate takes the formula;
+    ``off`` is the twin."""
+    from odesat_tpu_torch.ops.stoch_chunk import stoch_fused_supported, stoch_stream_supported
+
+    if fused not in ("auto", "on", "off"):
+        raise ValueError(f"fused must be 'auto', 'on' or 'off', not {fused!r}")
+    if stoch_core_supported(fa, device, fused):
+        return "fused" if stoch_fused_supported(fa) else "stream"
+    if fused == "on":
+        raise ValueError(
+            "fused='on' but neither stoch kernel takes this formula (its chain state "
+            "is past the shared-memory gate); use fused='auto' or 'off'"
+        )
+    return "scan"
+
+
+def make_stoch_chunk_runner(
+    fa: FormulaArrays,
+    chunk_steps: int,
+    device,
+    generator: torch.Generator,
+    fused: str = "auto",
+    matmul_dtype: str = "float32",
+):
+    """``run(state) -> state`` advancing every chain ``chunk_steps`` steps.
+
+    Kernels (B3 or B4, :func:`resolve_kernel`) take one 31-bit seed per
+    launch from ``generator``, a CPU ``torch.Generator``. The scan twin
+    draws its uniforms from a device generator seeded once from
+    ``generator``. ``matmul_dtype="bfloat16"`` rounds each weight to bf16
+    in the kernels (the twin, like the JAX scan path, sums in f32)."""
+    kind = resolve_kernel(fa, device, fused)
+    if kind != "scan":
+        from odesat_tpu_torch.ops.stoch_chunk import make_stoch_chunk
+
+        fn = make_stoch_chunk(fa, chunk_steps, kind, matmul_dtype, device)
+
+        def run_kernel(state: StochState) -> StochState:
+            seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
+            return fn(state, seed)
+
+        return run_kernel
+
+    step = make_stoch_step(fa, device)
+    dev_gen = torch.Generator(device=device)
+    dev_gen.manual_seed(int(torch.randint(0, 2**63 - 1, (1,), generator=generator)))
+    shape = (fa.n_vars_padded,)
+
+    def run_scan(state: StochState) -> StochState:
+        for _ in range(chunk_steps):
+            u = torch.rand((state.v.shape[0], *shape), generator=dev_gen, device=device)
+            state = step(state, u)
+        return state
+
+    return run_scan
+
+
+def make_multi_stoch_runner(chunk, chunk_steps: int, max_chunks: int):
+    """``run(state) -> (state, steps_advanced)`` running up to
+    ``max_chunks`` chunks of the chunk runner ``chunk``, stopping after the
+    first chunk that leaves any chain done: the host-loop twin of the JAX
+    package's on-device loop (JAX :267-309), with the same early-exit
+    window and an exact ``steps_advanced`` (``models/loop.run_chunks``,
+    which the ODE engine's multi-chunk runner uses too)."""
+    from odesat_tpu_torch.models.loop import run_chunks
+
+    return run_chunks(chunk, chunk_steps, max_chunks)
+
+
+def search(
+    formula_or_arrays,
+    config: Optional[SolverConfig] = None,
+    *,
+    device,
+    generator: Optional[torch.Generator] = None,
+    fused: str = "auto",
+    mesh=None,
+) -> StochResult:
+    """Batched stochastic search (reference: src/stoch.rs:80-110 runs one
+    chain; here ``config.batch_size`` chains run as a batch and the search
+    stops after the chunk in which any chain satisfies every clause).
+
+    Runs over the shared chunk driver (models/loop.drive_chunks): step and
+    wall-clock budgets, chunk escalation and progress logs as in the ODE
+    engine. ``generator`` is a CPU ``torch.Generator``; by default one is
+    seeded from ``config.seed``. The formula is compiled with the ODE
+    engine's width-bucket rule; the dynamics do not depend on the clause
+    layout."""
+    from odesat_tpu_torch.models.ode import compile_for_config, refuse_unported, seeded_generator
+
+    config = config or SolverConfig()
+    refuse_unported(config, mesh)
+    device = torch.device(device)
+    fa = compile_for_config(formula_or_arrays, config)
+    if generator is None:
+        generator = seeded_generator(config, "cpu")
+    matmul_dtype = config.ode.matmul_dtype
+    kind = resolve_kernel(fa, device, fused)
+    logger.info("stoch chunk runner %s -> %s on %s", fused, kind, device)
+
+    from odesat_tpu_torch.models.loop import device_dispatch_plan, drive_chunks
+
+    inner = config.chunk_steps
+    use_multi, dispatch_steps = device_dispatch_plan(config, config.ode.steps)
+
+    # chunk runners by length, bounded: a search needs its inner chunk, a
+    # few tail lengths and the grown chunks
+    @functools.lru_cache(maxsize=8)
+    def chunk_runner(n):
+        return make_stoch_chunk_runner(fa, n, device, generator, fused=fused,
+                                       matmul_dtype=matmul_dtype)
+
+    def make_runner(n):
+        if use_multi and n > inner:
+            return make_multi_stoch_runner(chunk_runner(inner), inner, n // inner)
+        return chunk_runner(n)
+
+    state = init_stoch_state(fa, config.batch_size, device)
+    state, steps_run, wall_time = drive_chunks(
+        state,
+        make_runner,
+        config,
+        budget=config.ode.steps,
+        should_stop=lambda st, done: bool(done.any()),
+        chunk_steps=dispatch_steps if use_multi else None,
+    )
+    done = state.done.cpu().numpy()
+    solved = np.flatnonzero(done)
+    return StochResult(
+        assignment=state.v[:, : fa.n_vars].cpu().numpy(),
+        done=done,
+        steps=steps_run,
+        solved_index=int(solved[0]) if solved.size else None,
+        wall_time_s=wall_time,
+    )

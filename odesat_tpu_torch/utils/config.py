@@ -10,10 +10,11 @@ the reference flags (`-t` tolerance, `-n` steps, `-s` step_size, `-l`
 learning_rate/zeta, `-r` ctv_ratio, `-b` batch_size).
 
 Fields the port does not run yet (``shard_chunk``, ``checkpoint_*``,
-``resume_from``, ``profile_dir``, ``ctv_ratio``/``preprocess``) are kept
-for parity: ``models/ode.simulate_batch`` raises ``NotImplementedError``
-for a checkpoint path, a resume snapshot or a profile directory, and the
-others have no effect on the ported path.
+``resume_from``, ``profile_dir``) are kept for parity:
+``models/ode.simulate_batch`` and ``models/stoch.search`` raise
+``NotImplementedError`` for a checkpoint path, a resume snapshot or a
+profile directory, and ``shard_chunk`` has no effect on the ported path.
+``ctv_ratio``/``preprocess`` drive the ``stoch`` command's preprocessing.
 """
 
 from __future__ import annotations

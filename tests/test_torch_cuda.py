@@ -138,3 +138,91 @@ def test_twin_on_cuda_matches_the_cpu(cuda, dv_strategy):
         torch.testing.assert_close(getattr(outs[1], name).cpu(), getattr(outs[0], name),
                                    rtol=1e-4, atol=1e-5)
     assert torch.equal(outs[1].done.cpu(), outs[0].done)
+
+
+# ------------------------------------------------ stoch kernels B3 and B4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fused", "stream"])
+@pytest.mark.parametrize("matmul_dtype", ["float32", "bfloat16"])
+def test_stoch_kernel_matches_plain_as_chains_finish(cuda, kernel, matmul_dtype):
+    """From the all-false start on a small planted formula, 8-step chunks
+    until one holds chains done before it, chains finishing in it and
+    chains running: kernel and plain version agree exactly, done chains
+    stay put, and a repeat is bit-identical."""
+    from odesat_tpu_torch.models.stoch import init_stoch_state
+    from odesat_tpu_torch.ops import stoch_chunk as sc
+
+    fa = compile_formula(normalize_cnf_variables(random_ksat(40, 140, seed=3, planted=True))[1])
+    fn = sc.make_stoch_chunk(fa, 8, kernel, matmul_dtype, cuda)
+    B, bf16, seen = 200, matmul_dtype == "bfloat16", False
+    state = init_stoch_state(fa, B, cuda)
+    counter = "fused_launches" if kernel == "fused" else "stream_launches"
+    for seed in range(1, 500):
+        before_launches = getattr(sc, counter)
+        out = fn(state, seed)
+        again = fn(state, seed)
+        ref = sc.stoch_chunk_plain(state, fn.spec, 8, seed, sc.traj_block(B), bf16)
+        torch.cuda.synchronize()
+        assert getattr(sc, counter) == before_launches + 2
+        for a, b, c in zip(out, ref, again):
+            assert torch.equal(a, b) and torch.equal(a, c)
+        was = state.done
+        assert torch.equal(out.v[was], state.v[was]) and torch.equal(out.xl[was], state.xl[was])
+        before, after = int(was.sum()), int(out.done.sum())
+        state = out
+        if 0 < before < after < B:
+            seen = True
+            break
+    assert seen, "no chunk had chains done before it, chains finishing in it and chains running"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", [(3,), (1, 2, 5)])
+def test_stoch_b3_equals_b4_and_the_gates_match_the_kernel(cuda, widths):
+    from odesat_tpu_torch.interop import stoch_state_from_numpy
+    from odesat_tpu_torch.ops import stoch_chunk as sc
+
+    fa = compile_formula(_formula(widths=widths), bucket=True, min_bucket=32)
+    lib, _ = sc.load_library()
+    K, Mp = fa.lit_var.shape
+    nnz = int((fa.lit_mask > 0).sum())
+    assert lib.stoch_fused_smem_bytes(fa.n_vars_padded, Mp, K, nnz) == sc.stoch_fused_smem_bytes(fa)
+    assert lib.stoch_stream_smem_bytes(fa.n_vars_padded, Mp) == sc.stoch_stream_smem_bytes(fa)
+    rng = np.random.default_rng(1)
+    B = 1000  # two PRNG blocks of 512
+    state = stoch_state_from_numpy(rng.random((B, fa.n_vars_padded)) < 0.5,
+                                   rng.integers(1, 3000, (B, Mp)), np.zeros(B, bool), cuda)
+    outs = [sc.make_stoch_chunk(fa, 16, k, "float32", cuda)(state, 77) for k in ("fused", "stream")]
+    ref = sc.stoch_chunk_plain(state, sc.stoch_spec(fa, cuda), 16, 77, 512, False)
+    torch.cuda.synchronize()
+    for a, b, c in zip(*outs, ref):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_stoch_search_goes_through_the_kernel(cuda):
+    from odesat_tpu_torch.models.stoch import search
+    from odesat_tpu_torch.ops import stoch_chunk as sc
+
+    formula = normalize_cnf_variables(random_ksat(40, 140, seed=3, planted=True))[1]
+    before = sc.fused_launches
+    config = SolverConfig(ode=ODEConfig(steps=4000), batch_size=64, seed=0)
+    result = search(formula, config, device=cuda)
+    assert sc.fused_launches > before
+    assert result.solved_index is not None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["small", "easy"])
+def test_stoch_cli_verifies_on_the_card(cuda, name, capsys):
+    """The stoch main path on the card; small.cnf preprocesses to no
+    clause at all, so B3 runs a formula of padding only."""
+    import os
+
+    from odesat_tpu_torch import cli
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", f"{name}.cnf")
+    assert cli.main(["stoch", "-f", path, "-b", "256", "-n", "20000", "--seed", "2"]) == 0
+    assert "Checking if solution vector satisfies formula: true" in capsys.readouterr().out
