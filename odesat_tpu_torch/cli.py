@@ -1,15 +1,21 @@
-"""Command-line entry point: ``python -m odesat_tpu_torch {inter,stoch}``.
+"""Command-line entry point: ``python -m odesat_tpu_torch {solve,batch,inter,stoch,gen}``.
 
-The port of two subcommands of ``odesat_tpu.cli``:
+The port of five subcommands of ``odesat_tpu.cli``:
 
+* ``solve`` (reference: src/main.rs:143-204): preprocess to ratio ``-r``
+  (unless ``--no-preprocess``), race ``--solve-batch`` ODE trajectories,
+  stop when any reaches allsat, reconstruct the witness through the
+  preprocessing trace;
+* ``batch`` (reference: src/main.rs:253-323): no preprocessing; B random
+  restarts in parallel, stop at the first trajectory whose readout the
+  oracle verifies, with a ``\r`` progress line per chunk;
 * ``inter`` (reference: src/main.rs:325-386): no preprocessing; B
   interlaced ODE trajectories, stop when any reaches allsat;
-* ``stoch`` (reference: src/main.rs:206-251): preprocess to ratio ``-r``
-  (unless ``--no-preprocess``), B chains of the stochastic engine, stop
-  when any satisfies every clause, reconstruct the witness through the
-  preprocessing trace.
+* ``stoch`` (reference: src/main.rs:206-251): preprocess like ``solve``,
+  B chains of the stochastic engine, stop when any satisfies every clause;
+* ``gen``: write a random CNF instance (utils/generate.py).
 
-Both verify the readout against the ORIGINAL formula and print
+The solvers verify the readout against the ORIGINAL formula and print
 ``Checking if solution vector satisfies formula: {true|false}`` with exit
 code 0 either way, like the reference. A missing input file, a malformed
 formula or a library ``ValueError`` exits 2. The formula is read with the
@@ -17,8 +23,9 @@ native parser when its library builds (odesat_tpu_torch/native).
 
 One flag beyond the JAX CLI: ``--device {cuda,cpu}``, default ``cuda``.
 Without a CUDA device the CLI stops with an error unless ``--device cpu``
-is given: it never moves a run to the CPU on its own. The other
-subcommands (solve, batch, hybrid, gen) are not ported yet and exit 2.
+is given: it never moves a run to the CPU on its own. Mesh, checkpoint,
+resume and profile flags are not ported and not accepted; the ``hybrid``
+subcommand is not ported yet and exits 2.
 """
 
 from __future__ import annotations
@@ -37,28 +44,29 @@ from odesat_tpu_torch.cnf import (
 )
 from odesat_tpu_torch.utils.config import ODEConfig, SolverConfig
 
-NOT_PORTED = ("solve", "batch", "hybrid", "gen")
+NOT_PORTED = ("hybrid",)
+DV_STRATEGIES = ["auto", "gather", "segment_sum", "fused", "stream", "pallas"]
 
 
-def _build_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(prog="odesat_tpu_torch", description=__doc__,
-                                     formatter_class=argparse.RawDescriptionHelpFormatter)
-    sub = parser.add_subparsers(dest="cmd", required=True)
-    p = sub.add_parser("inter", help="Run a batch of interlaced simulations")
+def _add_ode(p: argparse.ArgumentParser, batch_required: bool) -> None:
+    """The flags of the ODE subcommands (solve, batch, inter)."""
     p.add_argument("-f", "--input", required=True, help="input DIMACS CNF file")
     p.add_argument("-o", "--output", default=None, help="optional output file")
     p.add_argument("-t", "--tolerance", type=float, default=None)
-    p.add_argument("-n", "--step-number", type=int, default=None)
+    p.add_argument("-n", "--step-number", type=int, default=None, required=batch_required)
     p.add_argument("-s", "--step-size", type=float, default=None)
-    p.add_argument("-b", "--batch-size", type=int, required=True)
+    if batch_required:
+        p.add_argument("-b", "--batch-size", type=int, required=True)
     p.add_argument("-l", "--learning-rate", type=float, default=None)
     p.add_argument("--seed", type=int, default=None, help="PRNG seed (reproducible runs)")
     p.add_argument("--chunk-steps", type=int, default=256, help="Euler steps per kernel launch")
     p.add_argument("--rigidity", choices=["paper", "reference"], default="paper")
     p.add_argument(
-        "--dv-strategy", choices=["auto", "gather", "segment_sum", "fused"], default="auto",
-        help="'fused' is the CUDA chunk kernel; 'auto' takes it for CUDA float32 runs "
-        "the kernel supports, else the torch scan path",
+        "--dv-strategy", choices=DV_STRATEGIES, default="auto",
+        help="'fused' and 'stream' are the CUDA chunk kernels (resident, and for "
+        "formulas past the resident kernel's gate), 'pallas' single steps through "
+        "the CUDA RHS kernel; 'auto' takes fused, then stream, for CUDA float32 "
+        "runs, else the torch scan path",
     )
     p.add_argument("--dtype", choices=["float32", "float64"], default="float32")
     p.add_argument(
@@ -68,16 +76,45 @@ def _build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--var-order", choices=["natural", "bandwidth"], default="natural",
                    help="variable layout: 'bandwidth' relabels via reverse Cuthill-McKee")
-    p.add_argument(
-        "--dt-mode", choices=["per-trajectory", "shared"], default="per-trajectory",
-        help="adaptive-dt coupling across the batch: 'shared' adapts one dt from "
-        "the batch-max error like the reference inter mode (src/system.rs:314)",
-    )
     p.add_argument("--log-every", type=int, default=0, help="chunks between progress logs")
     p.add_argument("--wall-clock-budget", type=float, default=None, help="seconds budget")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the trajectories run (default cuda; no silent CPU fallback)")
 
+
+def _add_dt_mode(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
+        "--dt-mode", choices=["per-trajectory", "shared"], default="per-trajectory",
+        help="adaptive-dt coupling across the batch: 'shared' adapts one dt from "
+        "the batch-max error like the reference inter mode (src/system.rs:314)",
+    )
+
+
+def _build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog="odesat_tpu_torch", description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    solve = sub.add_parser("solve", help="Run a single simulation")
+    _add_ode(solve, batch_required=False)
+    solve.add_argument("-r", "--ctv-ratio", type=float, default=None,
+                       help="preprocessing target clause-to-variable ratio (default 7.0)")
+    solve.add_argument(
+        "--solve-batch", type=int, default=8, metavar="B",
+        help="race B random initializations and return the first winner "
+        "(pass 1 for the reference's single-trajectory solve)",
+    )
+    solve.add_argument("--no-preprocess", action="store_true",
+                       help="skip the resolution preprocessor")
+
+    batch = sub.add_parser("batch", help="Run a batch of simulations (parallel restarts)")
+    _add_ode(batch, batch_required=True)
+    _add_dt_mode(batch)
+
+    p = sub.add_parser("inter", help="Run a batch of interlaced simulations")
+    _add_ode(p, batch_required=False)
+    p.add_argument("-b", "--batch-size", type=int, required=True)
+    _add_dt_mode(p)
     s = sub.add_parser("stoch", help="Run a stochastic search")
     s.add_argument("-f", "--input", required=True, help="input DIMACS CNF file")
     s.add_argument("-o", "--output", default=None, help="optional output file")
@@ -100,10 +137,25 @@ def _build_parser() -> argparse.ArgumentParser:
     s.add_argument("--wall-clock-budget", type=float, default=None, help="seconds budget")
     s.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the chains run (default cuda; no silent CPU fallback)")
+
+    gen = sub.add_parser("gen", help="Generate a random CNF instance (benchmark families)")
+    gen.add_argument("-o", "--output", required=True, help="output DIMACS file")
+    gen.add_argument("-n", "--n-vars", type=int, required=True)
+    gen.add_argument("-m", "--n-clauses", type=int, default=None,
+                     help="default: round(4.26 * n)")
+    gen.add_argument("-k", "--clause-width", type=int, default=3)
+    gen.add_argument("--seed", type=int, default=0)
+    gen.add_argument("--planted", action="store_true",
+                     help="plant a hidden satisfying assignment (guaranteed SAT)")
+    gen.add_argument("--locality", type=int, default=None,
+                     help="draw each clause's variables from a window this wide "
+                     "(locally-structured instances; implies --planted)")
     return parser
 
 
-def _config_from_args(args) -> SolverConfig:
+def _config_from_args(args, batch_size: int) -> SolverConfig:
+    """The ODE subcommands' config; only ``solve`` preprocesses."""
+    ratio = getattr(args, "ctv_ratio", None)
     ode = ODEConfig(
         # `is not None`, not truthiness: an explicit 0 must stick
         tolerance=args.tolerance if args.tolerance is not None else 1e-3,
@@ -114,12 +166,14 @@ def _config_from_args(args) -> SolverConfig:
         dtype=args.dtype,
         dv_strategy=args.dv_strategy,
         matmul_dtype=args.matmul_dtype,
-        dt_mode=args.dt_mode,
+        dt_mode=getattr(args, "dt_mode", "per-trajectory"),
     )
     return SolverConfig(
         ode=ode,
-        preprocess=False,  # inter never preprocesses (src/main.rs:341)
-        batch_size=args.batch_size,
+        ctv_ratio=ratio if ratio is not None else 7.0,
+        # batch and inter never preprocess (src/main.rs:269,341)
+        preprocess=args.cmd == "solve" and not args.no_preprocess,
+        batch_size=batch_size,
         seed=args.seed,
         chunk_steps=args.chunk_steps,
         log_every_chunks=args.log_every,
@@ -204,22 +258,112 @@ def _device(name: str):
     return torch.device(name)
 
 
-def cmd_inter(args) -> int:
-    device = _device(args.device)
-    formula = _load(args.input)
-    config = _config_from_args(args)
-
-    print("Normalizing CNF formula...")
+def _normalize(formula, args):
+    """Normalize (and optionally relabel) a formula; prints nothing."""
     var_mapping, normalized = normalize_cnf_variables(formula)
     if args.var_order == "bandwidth":
         var_mapping, normalized = bandwidth_reorder(var_mapping, normalized)
+    return var_mapping, normalized
+
+
+def _steps_line(result, what: str = "trajectories") -> None:
+    print(f"Steps run: {result.steps} | {what} solved: {int(result.done.sum())}"
+          f"/{result.done.size} | {result.wall_time_s:.6f} s")
+
+
+def cmd_solve(args) -> int:
+    device = _device(args.device)
+    formula = _load(args.input)
+    # race a micro-batch of random inits; the reference solve draws one
+    # (src/system.rs:171), and the first winner keeps its contract
+    config = _config_from_args(args, batch_size=max(1, args.solve_batch))
+
+    reduced, trace = _maybe_preprocess(formula, config)
+    var_mapping, normalized = _normalize(reduced, args)
+
+    print("Simulating...")
+    from odesat_tpu_torch.models.ode import simulate_batch
+
+    result = _or_exit(simulate_batch, normalized, config, device=device)
+    _steps_line(result)
+
+    print("Mapping values...")
+    from odesat_tpu_torch.preprocess import reconstruct_witness
+
+    mapped_values = map_values_by_indices(var_mapping, result.best_assignment())
+    reconstruct_witness(mapped_values, trace)
+    _finish(mapped_values, formula, args.output)
+    return 0
+
+
+def cmd_batch(args) -> int:
+    device = _device(args.device)
+    formula = _load(args.input)
+    config = _config_from_args(args, batch_size=args.batch_size)
+
+    print("Normalizing CNF formula...")
+    var_mapping, normalized = _normalize(formula, args)
+
+    print("Simulating...")
+    from odesat_tpu_torch.cnf import compile_formula
+    from odesat_tpu_torch.models.ode import simulate_batch
+
+    # the JAX CLI's layout for batch: no width buckets
+    fa = compile_formula(normalized, clause_pad=config.clause_pad, var_pad=config.var_pad)
+    verified = {}
+    chunks = 0
+
+    def harvest(state, done) -> bool:
+        # oracle-verified early exit: the reference gates batch termination
+        # on the verifier, not the allsat flag (src/main.rs:302-307); the
+        # \r progress line stands for its per-trial line (src/main.rs:279)
+        nonlocal chunks
+        chunks += 1
+        print(f"\rRunning batch: {int(done.sum())}/{done.size} trajectories converged",
+              end="", flush=True)
+        converged = done.nonzero()[0]
+        if converged.size:
+            readout = (state.v[:, : fa.n_vars] > 0.0).cpu().numpy()
+            for idx in converged:
+                mapped = map_values_by_indices(var_mapping, readout[idx])
+                if evaluate_cnf(mapped, formula):
+                    verified["mapped"] = mapped
+                    return True
+        return False
+
+    result = _or_exit(simulate_batch, fa, config, device=device, stop_on="all",
+                      harvest=harvest)
+    if chunks:
+        print()  # end the \r progress line
+    _steps_line(result)
+
+    if "mapped" not in verified:
+        # budget exhausted: check every readout like the reference checks
+        # every trial (verified or not, the last mapping is kept)
+        mapped = {}
+        for row in result.assignment:
+            mapped = map_values_by_indices(var_mapping, row)
+            if evaluate_cnf(dict(mapped), formula):
+                verified["mapped"] = mapped
+                break
+        verified.setdefault("mapped", mapped)
+    _finish(verified["mapped"], formula, args.output)
+    return 0
+
+
+def cmd_inter(args) -> int:
+    device = _device(args.device)
+    formula = _load(args.input)
+    config = _config_from_args(args, batch_size=args.batch_size)
+
+    print("Normalizing CNF formula...")
+    var_mapping, normalized = _normalize(formula, args)
 
     print("Simulating...")
     from odesat_tpu_torch.models.ode import simulate_batch
 
     result = _or_exit(simulate_batch, normalized, config, device=device, stop_on="any")
-    print(f"Steps run: {result.steps} | trajectories solved: {int(result.done.sum())}"
-          f"/{result.done.size} | {result.wall_time_s:.6f} s")
+    _steps_line(result)
 
     mapped_values = map_values_by_indices(var_mapping, result.best_assignment())
     _finish(mapped_values, formula, args.output)
@@ -244,16 +388,13 @@ def cmd_stoch(args) -> int:
     config = _stoch_config(args)
 
     reduced, trace = _maybe_preprocess(formula, config)
-    var_mapping, normalized = normalize_cnf_variables(reduced)
-    if args.var_order == "bandwidth":
-        var_mapping, normalized = bandwidth_reorder(var_mapping, normalized)
+    var_mapping, normalized = _normalize(reduced, args)
 
     print("Simulating...")
     from odesat_tpu_torch.models.stoch import search
 
     result = _or_exit(search, normalized, config, device=device)
-    print(f"Steps run: {result.steps} | chains solved: {int(result.done.sum())}"
-          f"/{result.done.size} | {result.wall_time_s:.6f} s")
+    _steps_line(result, "chains")
 
     print("Mapping values...")
     from odesat_tpu_torch.preprocess import reconstruct_witness
@@ -264,14 +405,36 @@ def cmd_stoch(args) -> int:
     return 0
 
 
+def cmd_gen(args) -> int:
+    from odesat_tpu_torch.cnf import cnf_to_dimacs
+    from odesat_tpu_torch.utils.generate import random_ksat, random_local_ksat
+
+    m = args.n_clauses if args.n_clauses is not None else int(round(4.26 * args.n_vars))
+    # a narrow --locality surfaces as the generator's ValueError
+    if args.locality is not None:
+        formula = _or_exit(random_local_ksat, args.n_vars, m, k=args.clause_width,
+                           locality=args.locality, seed=args.seed, planted=True)
+    else:
+        formula = _or_exit(random_ksat, args.n_vars, m, k=args.clause_width, seed=args.seed,
+                           planted=args.planted)
+    with open(args.output, "w", encoding="utf-8") as fh:
+        fh.write(cnf_to_dimacs(formula))
+    print(f"wrote {args.output}: {formula.varnum} vars, {formula.num_clauses} clauses")
+    return 0
+
+
+COMMANDS = {"solve": cmd_solve, "batch": cmd_batch, "inter": cmd_inter, "stoch": cmd_stoch,
+            "gen": cmd_gen}
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] in NOT_PORTED:
         print(f"error: '{argv[0]}' is not yet ported to odesat_tpu_torch "
-              "(only 'inter' and 'stoch' are); use python -m odesat_tpu", file=sys.stderr)
+              f"(only {', '.join(COMMANDS)} are); use python -m odesat_tpu", file=sys.stderr)
         return 2
     args = _build_parser().parse_args(argv)
-    return cmd_stoch(args) if args.cmd == "stoch" else cmd_inter(args)
+    return COMMANDS[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -11,9 +11,12 @@ and entry points:
 * **Early exit between chunks**: the host runs chunks of steps and checks
   the per-trajectory ``done`` flags after each; solved trajectories are
   frozen inside a chunk, so their satisfying sign pattern is kept exactly.
-* **On CUDA the chunk is one kernel launch** (ops/fused_chunk.py) when the
-  formula and config allow it; otherwise a Python loop of single steps of
-  the torch twin (ops/rhs.py) runs on whatever device holds the state.
+* **On CUDA the chunk is one kernel launch** when the formula and config
+  allow it: the resident kernel B1 (ops/fused_chunk.py), else the
+  large-formula kernel B2 (ops/stream_chunk.py); otherwise a Python loop
+  of single steps of the torch twin (ops/rhs.py) runs on whatever device
+  holds the state. ``dv_strategy="pallas"`` runs that loop with the
+  single-step RHS kernel B10 (ops/rhs_kernel.py) on CUDA.
 
 Step semantics preserved from the reference:
 
@@ -159,13 +162,21 @@ def make_step_fn(fa: FormulaArrays, zeta: float, ode: ODEConfig):
     xl_cap = XL_CAP_PER_CLAUSE * fa.n_clauses  # real clause count (src/system.rs:95)
     zeta = float(zeta)
     dv_strategy = ode.dv_strategy
-    if dv_strategy in ("fused", "auto"):
-        # 'fused' is a whole-chunk kernel (make_chunk_runner handles it);
-        # a single step picks between the scan accumulators
+    if dv_strategy in ("fused", "stream", "auto"):
+        # 'fused'/'stream' are whole-chunk kernels (make_chunk_runner
+        # handles them); a single step picks between the scan accumulators
         dv_strategy = _scan_strategy(fa)
     buckets = fa.bucket_slices if len(fa.bucket_slices) > 1 else None
 
+    rhs_kernel = None
+    if dv_strategy == "pallas":
+        from odesat_tpu_torch.ops.rhs_kernel import make_rhs_kernel
+
+        rhs_kernel = make_rhs_kernel(fa, zeta, ode.rigidity, ode.dtype)
+
     def derivs(v, xs, xl, dev: FormulaDevice):
+        if rhs_kernel is not None:
+            return rhs_kernel(v, xs, xl, dev)
         return rhs_ops.compute_derivatives(
             v, xs, xl,
             lit_var=dev.lit_var, sign=dev.sign, lit_mask=dev.lit_mask,
@@ -242,23 +253,25 @@ def make_step_fn(fa: FormulaArrays, zeta: float, ode: ODEConfig):
 
 
 def resolve_strategy(fa: FormulaArrays, ode: ODEConfig, device) -> str:
-    """The port's ``auto`` ladder. ``fused`` (the CUDA chunk kernel) when
-    the state lives on CUDA, the dtype is float32, the adaptive dt is not
-    batch-shared and the formula passes the kernel's gate; otherwise the
-    twin's ``segment_sum`` or ``gather`` on the state's device. The JAX
-    ladder gates the same way on the TPU backend (models/ode.py:375-401)."""
+    """The port's ``auto`` ladder. When the state lives on CUDA, the dtype
+    is float32 and the adaptive dt is not batch-shared: ``fused`` (the
+    resident chunk kernel B1) if the formula passes its gate, else
+    ``stream`` (the large-formula chunk kernel B2) if it passes that one.
+    Otherwise the twin's ``segment_sum`` or ``gather`` on the state's
+    device. The JAX ladder is the same with a TPU-backend gate
+    (models/ode.py:375-401)."""
     if ode.dv_strategy != "auto":
         return ode.dv_strategy
     from odesat_tpu_torch.ops.fused_chunk import fused_supported
+    from odesat_tpu_torch.ops.stream_chunk import stream_supported
 
     shared_adaptive = ode.dt_mode == "shared" and ode.step_size is None
-    if (
-        torch.device(device).type == "cuda"
-        and ode.dtype == "float32"
-        and not shared_adaptive
-        and fused_supported(fa, fixed=ode.step_size is not None)
-    ):
-        return "fused"
+    fixed = ode.step_size is not None
+    if torch.device(device).type == "cuda" and ode.dtype == "float32" and not shared_adaptive:
+        if fused_supported(fa, fixed):
+            return "fused"
+        if stream_supported(fa, fixed):
+            return "stream"
     return _scan_strategy(fa)
 
 
@@ -268,13 +281,16 @@ def make_chunk_runner(
     """``run(state, dev) -> state`` advancing every trajectory by
     ``chunk_steps`` steps (solved trajectories stay frozen).
 
-    ``dv_strategy='fused'`` runs the whole chunk as one launch of the CUDA
-    kernel (ops/fused_chunk.py); it raises for what the kernel cannot
-    take, as the JAX package does. ``'auto'`` resolves through
-    :func:`resolve_strategy`. Other strategies loop single twin steps."""
-    if ode.dt_mode == "shared" and ode.step_size is None and ode.dv_strategy == "fused":
+    ``dv_strategy='fused'`` runs the whole chunk as one launch of the
+    resident CUDA kernel B1 (ops/fused_chunk.py), ``'stream'`` as one launch
+    of the large-formula kernel B2 (ops/stream_chunk.py); each raises for
+    what its kernel cannot take, as the JAX package does. ``'auto'``
+    resolves through :func:`resolve_strategy`. Other strategies loop
+    single steps (``'pallas'`` with the RHS kernel B10 on CUDA)."""
+    shared_adaptive = ode.dt_mode == "shared" and ode.step_size is None
+    if shared_adaptive and ode.dv_strategy in ("fused", "stream"):
         raise ValueError(
-            "dt_mode='shared' is not supported by the chunk kernel; "
+            "dt_mode='shared' is not supported by the chunk kernels; "
             "use dv_strategy='auto' (scan path) or per-trajectory dt"
         )
     strategy = resolve_strategy(fa, ode, device)
@@ -282,6 +298,10 @@ def make_chunk_runner(
         from odesat_tpu_torch.ops.fused_chunk import make_fused_chunk
 
         return make_fused_chunk(fa, zeta, ode, chunk_steps, device)
+    if strategy == "stream":
+        from odesat_tpu_torch.ops.stream_chunk import make_stream_chunk
+
+        return make_stream_chunk(fa, zeta, ode, chunk_steps, device)
 
     step = make_step_fn(fa, zeta, dataclasses.replace(ode, dv_strategy=strategy))
 

@@ -147,40 +147,44 @@ class ChunkSpec:
         return self.dt_fixed is not None
 
 
-def chunk_spec(fa: FormulaArrays, zeta: float, ode, device) -> ChunkSpec:
-    """Check ``ode`` against what the kernel takes and move the tables to
-    ``device``. Raises ValueError for float64, a batch-shared adaptive dt
-    and formulas outside the gate."""
+def check_chunk_config(ode, kernel: str) -> None:
+    """Raise ValueError for what no chunk kernel takes: float64 and a
+    batch-shared adaptive dt. ``kernel`` names the kernel in the message."""
     if ode.dtype == "float64":
         # the kernel carries f32 state; silently downcasting a requested
         # f64 run would betray the reference-parity dtype
         raise ValueError(
-            "dtype='float64' is not supported by the fused chunk kernel; "
+            f"dtype='float64' is not supported by the {kernel}; "
             "use dv_strategy='gather'/'segment_sum' (the scan path) for f64"
         )
-    fixed = ode.step_size is not None
-    if ode.dt_mode == "shared" and not fixed:
+    if ode.dt_mode == "shared" and ode.step_size is None:
         raise ValueError(
-            "dt_mode='shared' is not supported by the fused chunk kernel (it "
+            f"dt_mode='shared' is not supported by the {kernel} (it "
             "carries one dt per trajectory); use dv_strategy='auto' or "
             "per-trajectory dt"
         )
-    if not fused_supported(fa, fixed):
-        raise ValueError(
-            "fused chunk kernel unsupported for this formula (unit clauses, or "
-            f"{fused_smem_bytes(fa, fixed)} bytes of shared memory per CTA "
-            f"exceed {SMEM_LIMIT_BYTES}); use the scan path"
-        )
+
+
+def cuda_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a bare ``cuda`` becomes the current
+    ``cuda:N``, which is what tensors report, so checks compare like with
+    like."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
-        # tensors report cuda:N; compare like with like in _check
         device = torch.device("cuda", torch.cuda.current_device())
-    t = chunk_tables(fa)
+    return device
+
+
+def spec_fields(fa: FormulaArrays, zeta: float, ode, device: torch.device,
+                t: ChunkTables) -> dict:
+    """The fields of a :class:`ChunkSpec` for ``fa`` with tables ``t`` on
+    ``device`` (no gate is checked here)."""
 
     def put(a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
 
-    return ChunkSpec(
+    fixed = ode.step_size is not None
+    return dict(
         device=device,
         lit_code=put(t.lit_code, torch.int32),
         occ_ptr=put(t.occ_ptr, torch.int32),
@@ -196,6 +200,21 @@ def chunk_spec(fa: FormulaArrays, zeta: float, ode, device) -> ChunkSpec:
         paper=ode.rigidity == "paper",
         bf16=ode.matmul_dtype == "bfloat16",
     )
+
+
+def chunk_spec(fa: FormulaArrays, zeta: float, ode, device) -> ChunkSpec:
+    """Check ``ode`` against what the kernel takes and move the tables to
+    ``device``. Raises ValueError for float64, a batch-shared adaptive dt
+    and formulas outside the gate."""
+    check_chunk_config(ode, "fused chunk kernel")
+    fixed = ode.step_size is not None
+    if not fused_supported(fa, fixed):
+        raise ValueError(
+            "fused chunk kernel unsupported for this formula (unit clauses, or "
+            f"{fused_smem_bytes(fa, fixed)} bytes of shared memory per CTA "
+            f"exceed {SMEM_LIMIT_BYTES}); use the scan path"
+        )
+    return ChunkSpec(**spec_fields(fa, zeta, ode, cuda_device(device), chunk_tables(fa)))
 
 
 # ---------------------------------------------------------------- plain
@@ -342,7 +361,10 @@ def kernel_threads(Mp: int) -> int:
     return min(256, max(64, 32 * -(-Mp // 64)))
 
 
-def _check(state, spec: ChunkSpec) -> None:
+def check_state(state, spec: ChunkSpec) -> None:
+    """Raise ValueError unless the state is what the chunk kernels take:
+    on the formula's device, float32 (done bool), the formula's shapes,
+    contiguous."""
     B = state.v.shape[0]
     want = {
         "v": ((B, spec.Np), torch.float32),
@@ -370,7 +392,7 @@ def fused_chunk_cuda(state, spec: ChunkSpec, chunk_steps: int):
     global launches
     if spec.device.type != "cuda":
         raise ValueError(f"the fused chunk kernel runs on CUDA tensors, not {spec.device}")
-    _check(state, spec)
+    check_state(state, spec)
     B = state.v.shape[0]
     if B == 0:
         return state

@@ -44,12 +44,16 @@ class ODEConfig:
     rigidity: str = "paper"  # "paper" (argmin gate) | "reference" (exact-zero gate), SURVEY.md §2a
     dtype: str = "float32"  # "float32" | "float64" (reference is f64)
     # per-variable derivative accumulation:
-    #   "auto"        - the CUDA chunk kernel for CUDA f32 states the
-    #                   kernel supports, else gather / segment_sum
+    #   "auto"        - a CUDA chunk kernel (fused, then stream) for CUDA
+    #                   f32 states one supports, else gather / segment_sum
     #   "gather"      - variable-major gather+sum (any formula, any device)
     #   "segment_sum" - scatter-add baseline
     #   "fused"       - the multi-step CUDA chunk kernel, state resident
     #                   in shared memory (ops/fused_chunk.py)
+    #   "stream"      - the multi-step CUDA chunk kernel for formulas past
+    #                   fused's gate, tables in L2 (ops/stream_chunk.py)
+    #   "pallas"      - single steps through the CUDA RHS kernel
+    #                   (ops/rhs_kernel.py); float32 or float64
     dv_strategy: str = "auto"
     # chunk-kernel rounding: "float32" (exact parity) or "bfloat16" (v is
     # rounded to bf16 before the literal values and the per-slot

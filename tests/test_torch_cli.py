@@ -81,14 +81,19 @@ def test_library_value_error_exits_2(data_dir, capsys):
 
 @pytest.mark.parametrize("sub", ["solve", "stoch", "batch", "hybrid", "gen"])
 def test_unported_subcommands_exit_2(sub, capsys):
-    if sub not in cli.NOT_PORTED:  # ported since (stoch): it reaches the file check
-        with pytest.raises(SystemExit) as e:
-            cli.main([sub, "-f", "x.cnf", "--device", "cpu"])
-        assert e.value.code == 2
-        assert "input file not found" in capsys.readouterr().err
+    if sub in cli.NOT_PORTED:
+        assert cli.main([sub, "-f", "x.cnf"]) == 2
+        assert "not yet ported" in capsys.readouterr().err
         return
-    assert cli.main([sub, "-f", "x.cnf"]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as e:
+        if sub == "gen":  # no input file; a missing -n is argparse's exit 2
+            cli.main([sub, "-o", "x.cnf"])
+        else:  # ported since: each reaches the file check
+            extra = ["-b", "2", "-n", "10"] if sub == "batch" else []
+            cli.main([sub, "-f", "x.cnf", *extra, "--device", "cpu"])
+    assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert ("required: -n" in err) if sub == "gen" else ("input file not found" in err)
 
 
 def test_no_cuda_without_device_cpu_is_an_error(data_dir, capsys, monkeypatch):

@@ -226,3 +226,139 @@ def test_stoch_cli_verifies_on_the_card(cuda, name, capsys):
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", f"{name}.cnf")
     assert cli.main(["stoch", "-f", path, "-b", "256", "-n", "20000", "--seed", "2"]) == 0
     assert "Checking if solution vector satisfies formula: true" in capsys.readouterr().out
+
+
+# ------------------------------------ B2 (large-formula chunk) and B10 (RHS)
+
+
+def _past_b1(seed=11, m=8000):
+    """Planted random 3-SAT n=2000: Mp=8064, past B1's gate in both
+    integrators, inside B2's."""
+    return normalize_cnf_variables(random_ksat(2000, m, k=3, seed=seed, planted=True))[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fixed", "adaptive"])
+@pytest.mark.parametrize("rigidity", ["paper", "reference"])
+@pytest.mark.parametrize("matmul_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("widths", [(3,), (2, 4)])
+def test_stream_kernel_equals_plain_and_b1(cuda, mode, rigidity, matmul_dtype, widths):
+    """B2 computes exactly what B1 computes: bit for bit its plain version
+    (B1's) and B1 itself, and a repeat is bit-identical."""
+    from odesat_tpu_torch.ops import stream_chunk as sc
+
+    fa = compile_formula(_formula(widths=widths), bucket=True, min_bucket=32)
+    ode = ODEConfig(step_size=0.02 if mode == "fixed" else None, rigidity=rigidity,
+                    matmul_dtype=matmul_dtype)
+    fn = sc.make_stream_chunk(fa, 0.05, ode, 32, cuda)
+    state = _state(fa, 37, 0, cuda)
+    before = sc.launches
+    out, again = fn(state), fn(state)
+    ref = sc.stream_chunk_plain(state, fn.spec, 32)
+    b1 = fc.make_fused_chunk(fa, 0.05, ode, 32, cuda)(state)
+    torch.cuda.synchronize()
+    assert sc.launches == before + 2
+    for a, b, c, d in zip(out, again, ref, b1):
+        assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fixed", "adaptive"])
+def test_stream_kernel_matches_plain_as_trajectories_finish(cuda, mode):
+    from odesat_tpu_torch.ops import stream_chunk as sc
+
+    formula = normalize_cnf_variables(random_ksat(50, 200, seed=3, planted=True))[1]
+    fa = compile_formula(formula)
+    fn = sc.make_stream_chunk(fa, 0.05, ODEConfig(step_size=0.05 if mode == "fixed" else None),
+                              8, cuda)
+    state, seen = _state(fa, 64, 2, cuda), False
+    for _ in range(2000):
+        out = fn(state)
+        ref = sc.stream_chunk_plain(state, fn.spec, 8)
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b)
+        for name in ("v", "xs", "xl", "dt"):
+            assert torch.equal(getattr(out, name)[state.done], getattr(state, name)[state.done])
+        before, after = int(state.done.sum()), int(out.done.sum())
+        state = out
+        if 0 < before < after < 64:
+            seen = True
+            break
+    assert seen, "no chunk had rows done before it, rows finishing in it and rows running"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fixed", "adaptive"])
+def test_stream_gate_matches_the_kernel(cuda, mode):
+    """The gate's shared-memory limit is the card's, and the kernel runs
+    the largest layout the gate makes: the locally-structured n=4096
+    instance (Mp=17280), whose clause arrays spill to the scratch rows."""
+    from odesat_tpu_torch.ops import stream_chunk as sc
+    from odesat_tpu_torch.utils.generate import random_local_ksat
+
+    lib, _ = sc.load_library()
+    assert lib.stream_chunk_smem_limit() == sc.SMEM_LIMIT_BYTES
+    fa = compile_formula(normalize_cnf_variables(
+        random_local_ksat(4096, 17203, k=3, locality=256, seed=3))[1], window_sort=True)
+    fixed = mode == "fixed"
+    assert sc.stream_supported(fa, fixed) and not fc.fused_supported(fa, fixed)
+    fn = sc.make_stream_chunk(fa, 0.01, ODEConfig(step_size=0.01 if fixed else None), 4, cuda)
+    assert fn.spec.layout.row_words > 0 and fn.spec.layout.smem_bytes <= sc.SMEM_LIMIT_BYTES
+    state = _state(fa, 3, 5, cuda)
+    out, ref = fn(state), sc.stream_chunk_plain(state, fn.spec, 4)
+    torch.cuda.synchronize()
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_simulate_batch_and_solve_go_through_b2(cuda, capsys, tmp_path):
+    from odesat_tpu_torch import cli
+    from odesat_tpu_torch.cnf import cnf_to_dimacs
+    from odesat_tpu_torch.ops import stream_chunk as sc
+
+    formula = _past_b1()
+    assert tode.resolve_strategy(compile_formula(formula), ODEConfig(step_size=0.01),
+                                 cuda) == "stream"
+    before = sc.launches
+    config = SolverConfig(ode=ODEConfig(step_size=0.01, steps=20000), batch_size=256, seed=0)
+    result = simulate_batch(formula, config, device=cuda)
+    assert sc.launches > before and result.any_solved
+
+    path = tmp_path / "planted_n2000_m7000.cnf"
+    path.write_text(cnf_to_dimacs(random_ksat(2000, 7000, k=3, seed=11, planted=True)))
+    before = sc.launches
+    assert cli.main(["solve", "-f", str(path), "-s", "0.01", "-n", "20000", "--seed", "0"]) == 0
+    assert sc.launches > before
+    assert "Checking if solution vector satisfies formula: true" in capsys.readouterr().out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rigidity", ["paper", "reference"])
+@pytest.mark.parametrize("bucket", [False, True])
+def test_rhs_kernel_matches_the_twin(cuda, dtype, rigidity, bucket):
+    """B10 against the twin's gather RHS (the plain version): f32 to rtol
+    2e-4 / atol 2e-5, f64 to 1e-12; the two sum in other orders."""
+    from odesat_tpu_torch.ops import rhs_kernel as rk
+
+    fa = compile_formula(_formula(widths=(2, 3, 5)), bucket=bucket, min_bucket=32)
+    rng = np.random.default_rng(4)
+    B = 33
+    v = torch.as_tensor(rng.uniform(-1, 1, (B, fa.n_vars_padded)), dtype=dtype, device=cuda)
+    xs = torch.as_tensor(rng.uniform(0.001, 0.999, (B, fa.n_clauses_padded)), dtype=dtype,
+                         device=cuda)
+    xl = torch.as_tensor(rng.uniform(1, 50, (B, fa.n_clauses_padded)), dtype=dtype, device=cuda)
+    name = "float64" if dtype == torch.float64 else "float32"
+    fn = rk.make_rhs_kernel(fa, 0.05, rigidity, name)
+    dev = tode.formula_device(fa, cuda, dtype)
+    before = rk.launches
+    out = fn(v, xs, xl, dev)
+    buckets = fa.bucket_slices if len(fa.bucket_slices) > 1 else None
+    ref = rk.rhs_plain(v, xs, xl, dev, 0.05, rigidity, buckets)
+    torch.cuda.synchronize()
+    assert rk.launches == before + 1
+    tol = F32 if dtype == torch.float32 else dict(rtol=1e-12, atol=1e-12)
+    for a, b in zip(out[:3], ref[:3]):
+        torch.testing.assert_close(a, b, **tol)
+    assert torch.equal(out[3], ref[3])
