@@ -21,10 +21,19 @@ code 0 either way, like the reference. A missing input file, a malformed
 formula or a library ``ValueError`` exits 2. The formula is read with the
 native parser when its library builds (odesat_tpu_torch/native).
 
-One flag beyond the JAX CLI: ``--device {cuda,cpu}``, default ``cuda``.
+Flags beyond the JAX CLI: ``--device {cuda,cpu}``, default ``cuda``.
 Without a CUDA device the CLI stops with an error unless ``--device cpu``
-is given: it never moves a run to the CPU on its own. Mesh, checkpoint,
-resume and profile flags are not ported and not accepted; the ``hybrid``
+is given: it never moves a run to the CPU on its own. ``--dist-backend
+{nccl,gloo}`` (default ``nccl``) goes with the mesh flags ``--devices T``
+and ``--clause-shards S`` of ``solve``, ``batch``, ``inter`` and ``stoch``:
+with ``T*S > 1`` the CLI spawns one rank per process
+(``parallel/launch.py``), the solve runs on every rank, and the parent
+prints rank 0's result, with the same lines and exit codes; a failed worker
+makes the CLI exit non-zero. NCCL takes one card per rank; ranks that share
+a card (or run on the CPU) need ``gloo``, which the caller chooses.
+``--shard-chunk {auto,on,off}`` picks the clause mesh's kernels as in the
+JAX CLI (a bare flag means ``on``). ``--pod-mesh``, ``--coordinator``,
+checkpoint, resume and profile flags are not ported and not accepted; the ``hybrid``
 subcommand is not ported yet and exits 2.
 """
 
@@ -80,6 +89,24 @@ def _add_ode(p: argparse.ArgumentParser, batch_required: bool) -> None:
     p.add_argument("--wall-clock-budget", type=float, default=None, help="seconds budget")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the trajectories run (default cuda; no silent CPU fallback)")
+    _add_mesh(p)
+
+
+def _add_mesh(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--devices", type=int, default=1, help="ranks on the trajectory mesh axis")
+    p.add_argument("--clause-shards", type=int, default=1, help="ranks on the clause mesh axis")
+    p.add_argument(
+        "--dist-backend", choices=["nccl", "gloo"], default="nccl",
+        help="torch.distributed backend of a mesh run: nccl needs one card per rank; "
+        "gloo serves ranks that share a card, and --device cpu",
+    )
+    p.add_argument(
+        "--shard-chunk", nargs="?", const="on", default="auto", choices=("auto", "on", "off"),
+        help="clause mesh kernels: the clause-sharded chunk (B6 for the ODE, B9 for stoch, "
+        "the update after each all-reduce in the next launch) or the per-step path ('off': B5 "
+        "or B8, the update in torch). Default 'auto' takes the chunk where eligible; a bare "
+        "--shard-chunk forces it on",
+    )
 
 
 def _add_dt_mode(p: argparse.ArgumentParser) -> None:
@@ -137,6 +164,7 @@ def _build_parser() -> argparse.ArgumentParser:
     s.add_argument("--wall-clock-budget", type=float, default=None, help="seconds budget")
     s.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the chains run (default cuda; no silent CPU fallback)")
+    _add_mesh(s)
 
     gen = sub.add_parser("gen", help="Generate a random CNF instance (benchmark families)")
     gen.add_argument("-o", "--output", required=True, help="output DIMACS file")
@@ -167,6 +195,7 @@ def _config_from_args(args, batch_size: int) -> SolverConfig:
         dv_strategy=args.dv_strategy,
         matmul_dtype=args.matmul_dtype,
         dt_mode=getattr(args, "dt_mode", "per-trajectory"),
+        shard_chunk=args.shard_chunk,
     )
     return SolverConfig(
         ode=ode,
@@ -183,7 +212,8 @@ def _config_from_args(args, batch_size: int) -> SolverConfig:
 
 def _stoch_config(args) -> SolverConfig:
     return SolverConfig(
-        ode=ODEConfig(steps=args.step_number, matmul_dtype=args.matmul_dtype),
+        ode=ODEConfig(steps=args.step_number, matmul_dtype=args.matmul_dtype,
+                      shard_chunk=args.shard_chunk),
         ctv_ratio=args.ctv_ratio if args.ctv_ratio is not None else 7.0,
         preprocess=not args.no_preprocess,
         batch_size=args.batch_size,
@@ -258,6 +288,78 @@ def _device(name: str):
     return torch.device(name)
 
 
+def _mesh_solve(mesh, device, engine, problem, config, kwargs):
+    """The engine's solve on one device (``mesh`` None), or a rank's part
+    of a mesh run (parallel/launch.spawn calls it in every worker; rank
+    0's result is the parent's)."""
+    if engine == "stoch":
+        from odesat_tpu_torch.models.stoch import search
+
+        return search(problem, config, device=device, mesh=mesh, **kwargs)
+    from odesat_tpu_torch.models.ode import simulate_batch
+
+    return simulate_batch(problem, config, device=device, mesh=mesh, **kwargs)
+
+
+def _solve(args, engine, normalized, config, device, **kwargs):
+    """Run the engine on one device, or spawn a ``--devices x
+    --clause-shards`` mesh and return rank 0's result."""
+    T, S = args.devices, args.clause_shards
+    if T < 1 or S < 1:
+        print(f"error: --devices and --clause-shards must be at least 1, not {T} and {S}",
+              file=sys.stderr)
+        raise SystemExit(2)
+    if args.shard_chunk == "on" and S <= 1:
+        print("error: --shard-chunk requires --clause-shards >= 2 (it is the clause mesh's "
+              "kernel)", file=sys.stderr)
+        raise SystemExit(2)
+    if T * S == 1:
+        return _or_exit(_mesh_solve, None, device, engine, normalized, config, kwargs)
+    import dataclasses
+    from types import SimpleNamespace
+
+    from odesat_tpu_torch.cnf import FormulaArrays
+    from odesat_tpu_torch.parallel.launch import spawn
+    from odesat_tpu_torch.parallel.sharded import compile_for_mesh
+
+    if config.seed is None:  # every rank must draw the same numbers
+        config = dataclasses.replace(config, seed=int.from_bytes(os.urandom(4), "little"))
+    problem = normalized
+    if not isinstance(normalized, FormulaArrays):  # compiled once, here
+        problem = _or_exit(compile_for_mesh, normalized, config, SimpleNamespace(n_clause=S),
+                           engine)
+    return _or_exit(spawn, _mesh_solve, T, S, args.dist_backend, device.type,
+                    args=(engine, problem, config, kwargs))
+
+
+class _BatchHarvest:
+    """``batch``'s oracle-verified early exit (src/main.rs:302-307), as a
+    picklable callable so that mesh ranks can run it: it returns the mapping
+    it verified, which stops the run and comes back in the result
+    (``SolveResult.harvested``), else False. Only the primary rank prints
+    the progress line."""
+
+    def __init__(self, formula, var_mapping, n_vars):
+        self.formula, self.var_mapping, self.n_vars = formula, var_mapping, n_vars
+
+    def __call__(self, state, done):
+        from odesat_tpu_torch.parallel.dist import is_primary
+
+        # the \r progress line stands for the reference's per-trial line
+        # (src/main.rs:279)
+        if is_primary():
+            print(f"\rRunning batch: {int(done.sum())}/{done.size} trajectories converged",
+                  end="", flush=True)
+        converged = done.nonzero()[0]
+        if converged.size:
+            readout = (state.v[:, : self.n_vars] > 0.0).cpu().numpy()
+            for idx in converged:
+                mapped = map_values_by_indices(self.var_mapping, readout[idx])
+                if evaluate_cnf(mapped, self.formula):
+                    return mapped
+        return False
+
+
 def _normalize(formula, args):
     """Normalize (and optionally relabel) a formula; prints nothing."""
     var_mapping, normalized = normalize_cnf_variables(formula)
@@ -282,9 +384,13 @@ def cmd_solve(args) -> int:
     var_mapping, normalized = _normalize(reduced, args)
 
     print("Simulating...")
-    from odesat_tpu_torch.models.ode import simulate_batch
+    if args.devices > 1:
+        import dataclasses
 
-    result = _or_exit(simulate_batch, normalized, config, device=device)
+        # the micro-batch must split evenly over the trajectory axis
+        config = dataclasses.replace(
+            config, batch_size=-(-config.batch_size // args.devices) * args.devices)
+    result = _solve(args, "ode", normalized, config, device)
     _steps_line(result)
 
     print("Mapping values...")
@@ -306,37 +412,20 @@ def cmd_batch(args) -> int:
 
     print("Simulating...")
     from odesat_tpu_torch.cnf import compile_formula
-    from odesat_tpu_torch.models.ode import simulate_batch
 
-    # the JAX CLI's layout for batch: no width buckets
-    fa = compile_formula(normalized, clause_pad=config.clause_pad, var_pad=config.var_pad)
-    verified = {}
-    chunks = 0
-
-    def harvest(state, done) -> bool:
-        # oracle-verified early exit: the reference gates batch termination
-        # on the verifier, not the allsat flag (src/main.rs:302-307); the
-        # \r progress line stands for its per-trial line (src/main.rs:279)
-        nonlocal chunks
-        chunks += 1
-        print(f"\rRunning batch: {int(done.sum())}/{done.size} trajectories converged",
-              end="", flush=True)
-        converged = done.nonzero()[0]
-        if converged.size:
-            readout = (state.v[:, : fa.n_vars] > 0.0).cpu().numpy()
-            for idx in converged:
-                mapped = map_values_by_indices(var_mapping, readout[idx])
-                if evaluate_cnf(mapped, formula):
-                    verified["mapped"] = mapped
-                    return True
-        return False
-
-    result = _or_exit(simulate_batch, fa, config, device=device, stop_on="all",
-                      harvest=harvest)
-    if chunks:
-        print()  # end the \r progress line
+    problem = normalized
+    if args.clause_shards == 1:
+        # the JAX CLI's layout for batch: no width buckets (a clause mesh
+        # compiles for the mesh)
+        problem = compile_formula(normalized, clause_pad=config.clause_pad,
+                                  var_pad=config.var_pad)
+    harvest = _BatchHarvest(formula, var_mapping, normalized.varnum)
+    result = _solve(args, "ode", problem, config, device, stop_on="all", harvest=harvest)
+    if result.steps:
+        print()  # end the \r progress line (one per chunk)
     _steps_line(result)
 
+    verified = {"mapped": result.harvested} if result.harvested is not None else {}
     if "mapped" not in verified:
         # budget exhausted: check every readout like the reference checks
         # every trial (verified or not, the last mapping is kept)
@@ -360,9 +449,7 @@ def cmd_inter(args) -> int:
     var_mapping, normalized = _normalize(formula, args)
 
     print("Simulating...")
-    from odesat_tpu_torch.models.ode import simulate_batch
-
-    result = _or_exit(simulate_batch, normalized, config, device=device, stop_on="any")
+    result = _solve(args, "ode", normalized, config, device, stop_on="any")
     _steps_line(result)
 
     mapped_values = map_values_by_indices(var_mapping, result.best_assignment())
@@ -391,9 +478,7 @@ def cmd_stoch(args) -> int:
     var_mapping, normalized = _normalize(reduced, args)
 
     print("Simulating...")
-    from odesat_tpu_torch.models.stoch import search
-
-    result = _or_exit(search, normalized, config, device=device)
+    result = _solve(args, "stoch", normalized, config, device)
     _steps_line(result, "chains")
 
     print("Mapping values...")

@@ -62,6 +62,9 @@ class FormulaArrays:
     # Single full-width bucket when bucketing is off.
     bucket_slices: tuple = ()
     n_slots: int = 0  # total flattened contribution slots sum(K_b * M_b)
+    # the clause-sharded compile's per-shard tables (ops/shard_stream.py
+    # ShardPlan); None for every other layout
+    shard_plan: object = None
 
     def __repr__(self) -> str:  # compact — the arrays are large
         return (

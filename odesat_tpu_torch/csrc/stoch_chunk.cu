@@ -1,4 +1,6 @@
-// Stochastic-engine chunk for Hopper (sm_90a): kernels B3 and B4.
+// Stochastic-engine chunk for Hopper (sm_90a): kernels B3 and B4, B8, one
+// clause shard's evaluation (below B4), and B9, the clause-sharded chunk's
+// launches (below B8).
 //
 // B3 (stoch_fused_launch) replaces odesat_tpu/ops/stoch_pallas.py::
 // make_fused_stoch_chunk, B4 (stoch_stream_launch) replaces
@@ -182,6 +184,185 @@ __global__ void stoch_chunk_kernel(
   if (tid == 0) done_out[chain] = done ? 1 : 0;
 }
 
+// B8 (stoch_shard_eval_launch) replaces odesat_tpu/ops/stoch_pallas.py::
+// make_stoch_shard_eval: one step's evaluation over ONE clause shard, for a
+// clause mesh whose caller all-reduces the weight sums and the sat flag
+// and then draws the flips in torch (parallel/sharded.py). One CTA per
+// chain, with B4's clause and variable phases over the shard's tables
+// (literal codes of its (K, Mp) slots, its local CSR of clause columns):
+//   clause phase   sat from the literal codes and v; xl_new = sat ?
+//                  max(xl-1, 1) : min(xl+20, 2^24), 0 for a padded
+//                  clause, kept with its sign carrying "unsatisfied" in
+//                  shared memory while Mp words fit, else in the chain's
+//                  scratch row;
+//   block AND      of sat over the shard's real clauses -> sat_out;
+//   variable phase total and unsat partial sums over each variable's local
+//                  CSR list in a fixed order (each weight rounded to bf16
+//                  first in bf16 mode): integers in f32, so every order is
+//                  exact below 2^24;
+//   write-back     xl_out = xl_new for an active chain, xl_in verbatim for
+//                  a frozen one.
+// What bounds it on the card: device-memory bytes (the shard's xl read and
+// written, v read, two (B, Np) partials written every step) and L2 reads of
+// the tables.
+template <bool BF16>
+__global__ void stoch_shard_eval_kernel(const uint8_t* __restrict__ v_in,
+                                        const uint8_t* __restrict__ active_in,
+                                        const int* __restrict__ xl_in, float* __restrict__ tot_out,
+                                        float* __restrict__ uns_out, int* __restrict__ xl_out,
+                                        uint8_t* __restrict__ sat_out, Formula f, int* scratch,
+                                        int xl_resident) {
+  const int chain = blockIdx.x;  // the grid is exactly B
+  const int Np = f.Np, Mp = f.Mp, K = f.K;
+  const int tid = threadIdx.x, T = blockDim.x;
+
+  extern __shared__ int smem[];
+  int* w = xl_resident ? smem : scratch + static_cast<size_t>(chain) * Mp;
+  uint8_t* v = reinterpret_cast<uint8_t*>(smem + (xl_resident ? Mp : 0));
+  const size_t vrow = static_cast<size_t>(chain) * Np;
+  const size_t crow = static_cast<size_t>(chain) * Mp;
+  for (int i = tid; i < Np; i += T) v[i] = v_in[vrow + i];
+  __syncthreads();
+
+  int ok = 1;
+  for (int m = tid; m < Mp; m += T) {
+    const int c0 = __ldg(f.lit_code + m);
+    if (c0 < 0) {  // padded clause: weight 0, never unsatisfied
+      w[m] = 0;
+      continue;
+    }
+    bool sat = false;
+    for (int k = 0; k < K; ++k) {
+      const int ck = k ? __ldg(f.lit_code + static_cast<size_t>(k) * Mp + m) : c0;
+      if (ck < 0) break;  // literal slots of a clause are a prefix
+      sat |= v[ck >> 1] != (ck & 1);
+    }
+    const int x = xl_in[crow + m];
+    w[m] = sat ? max(x - 1, 1) : -min(x + kAlpha, kXlCap);
+    ok &= sat;
+  }
+  const bool allsat = __syncthreads_and(ok) != 0;
+
+  for (int i = tid; i < Np; i += T) {
+    const int j1 = __ldg(f.occ_ptr + i + 1);
+    float total = 0.0f, unsat = 0.0f;
+    for (int j = __ldg(f.occ_ptr + i); j < j1; ++j) {
+      const int wj = w[__ldg(f.occ_clause + j)];
+      const float a = weight<BF16>(wj);
+      total += a;
+      if (wj < 0) unsat += a;
+    }
+    tot_out[vrow + i] = total;
+    uns_out[vrow + i] = unsat;
+  }
+  const bool active = active_in[chain] != 0;
+  for (int m = tid; m < Mp; m += T) {
+    const int wm = w[m];
+    xl_out[crow + m] = active ? (wm < 0 ? -wm : wm) : xl_in[crow + m];
+  }
+  if (tid == 0) sat_out[chain] = allsat ? 1 : 0;
+}
+
+// B9 (stoch_shard_step_launch) replaces odesat_tpu/ops/stoch_pallas.py::
+// make_stoch_shard_chunk (:868): the clause-sharded stoch chunk whose
+// (total, unsat, sat) all-reduce the TPU kernel ran inside itself over ICI
+// remote DMA (B7). A CUDA kernel cannot wait on other ranks, so on Hopper
+// the chunk is a sequence of launches with the all-reduce (torch.distributed)
+// between them, and everything else the TPU kernel did runs in them: each
+// launch first applies the previous step's reduced sums (the flip
+// u*total < unsat with the counter-hash uniform of that step, for a chain
+// that was active, then done |= allsat), then evaluates the shard for step
+// t as B8 does, writing its partials into acc = (total | unsat | 1 - sat)
+// and its weights in place. A chunk of n steps is n such launches and one
+// apply-only launch (evaluate = 0). `done` in device memory between
+// launches is the done the last evaluation ran with. What bounds it: B8's
+// bytes plus the (B, 2*Np+1) reduced buffer read back and v written.
+template <bool BF16>
+__global__ void stoch_shard_step_kernel(uint8_t* __restrict__ v_g, int* __restrict__ xl_g,
+                                        uint8_t* __restrict__ done_g, float* __restrict__ acc,
+                                        Formula f, int* scratch, int xl_resident, uint32_t seed,
+                                        int Bb, int t, int apply, int evaluate) {
+  const int chain = blockIdx.x;  // the grid is exactly B
+  const int Np = f.Np, Mp = f.Mp, K = f.K;
+  const int tid = threadIdx.x, T = blockDim.x;
+
+  extern __shared__ int smem[];
+  int* w = xl_resident ? smem : scratch + static_cast<size_t>(chain) * Mp;
+  uint8_t* v = reinterpret_cast<uint8_t*>(smem + (xl_resident ? Mp : 0));
+  const size_t vrow = static_cast<size_t>(chain) * Np;
+  const size_t crow = static_cast<size_t>(chain) * Mp;
+  float* a = acc + static_cast<size_t>(chain) * (2 * Np + 1);
+  bool done = done_g[chain] != 0;
+
+  if (apply) {
+    const bool active = !done;
+    const uint32_t row_term = static_cast<uint32_t>(chain % Bb) * 0x9E3779B1u;
+    const uint32_t step_term = seed + static_cast<uint32_t>(chain / Bb) * 0x632BE59Bu +
+                               static_cast<uint32_t>(t - 1) * 0xC2B2AE3Du;
+    for (int i = tid; i < Np; i += T) {
+      uint8_t x = v_g[vrow + i];
+      if (active) {
+        const uint32_t h =
+            mix(row_term ^ (static_cast<uint32_t>(i) * 0x85EBCA77u) ^ step_term);
+        const float u = static_cast<float>(h >> 8) * (1.0f / 16777216.0f);
+        if (u * a[i] < a[Np + i]) x ^= 1;
+        v_g[vrow + i] = x;
+      }
+      v[i] = x;
+    }
+    done = done || a[2 * Np] == 0.0f;
+  } else {
+    for (int i = tid; i < Np; i += T) v[i] = v_g[vrow + i];
+  }
+  __syncthreads();  // publishes v; every thread has read a[2*Np]
+  if (!evaluate) {
+    if (tid == 0) done_g[chain] = done ? 1 : 0;
+    return;
+  }
+
+  int ok = 1;
+  for (int m = tid; m < Mp; m += T) {
+    const int c0 = __ldg(f.lit_code + m);
+    if (c0 < 0) {  // padded clause: weight 0, never unsatisfied
+      w[m] = 0;
+      continue;
+    }
+    bool sat = false;
+    for (int k = 0; k < K; ++k) {
+      const int ck = k ? __ldg(f.lit_code + static_cast<size_t>(k) * Mp + m) : c0;
+      if (ck < 0) break;  // literal slots of a clause are a prefix
+      sat |= v[ck >> 1] != (ck & 1);
+    }
+    const int x = xl_g[crow + m];
+    w[m] = sat ? max(x - 1, 1) : -min(x + kAlpha, kXlCap);
+    ok &= sat;
+  }
+  const bool allsat = __syncthreads_and(ok) != 0;
+
+  for (int i = tid; i < Np; i += T) {
+    const int j1 = __ldg(f.occ_ptr + i + 1);
+    float total = 0.0f, unsat = 0.0f;
+    for (int j = __ldg(f.occ_ptr + i); j < j1; ++j) {
+      const int wj = w[__ldg(f.occ_clause + j)];
+      const float x = weight<BF16>(wj);
+      total += x;
+      if (wj < 0) unsat += x;
+    }
+    a[i] = total;
+    a[Np + i] = unsat;
+  }
+  if (!done) {  // a frozen chain keeps its weights verbatim
+    for (int m = tid; m < Mp; m += T) {
+      const int wm = w[m];
+      xl_g[crow + m] = wm < 0 ? -wm : wm;
+    }
+  }
+  if (tid == 0) {
+    a[2 * Np] = allsat ? 0.0f : 1.0f;
+    done_g[chain] = done ? 1 : 0;
+  }
+}
+
 }  // namespace
 
 namespace {
@@ -243,6 +424,49 @@ int stoch_stream_launch(const uint8_t* v_in, const int* xl_in, const uint8_t* do
                                chunk_steps, seed, Bb, threads, smem, st);
   return launch<false, false>(v_in, xl_in, done_in, v_out, xl_out, done_out, f, B,
                               chunk_steps, seed, Bb, threads, smem, st);
+}
+
+// B8's shared memory: v (bytes), after the shard's xl when it is resident.
+size_t stoch_shard_smem_bytes(int Np, int Mp, int xl_resident) {
+  return (xl_resident ? 4 * static_cast<size_t>(Mp) : 0) + Np;
+}
+
+// B8. `scratch` holds Mp ints a chain when xl is not resident. Returns a
+// cudaError_t code (0 = launched).
+int stoch_shard_eval_launch(const uint8_t* v_in, const uint8_t* active_in, const int* xl_in,
+                            float* tot_out, float* uns_out, int* xl_out, uint8_t* sat_out,
+                            const int* lit_code, const int* occ_ptr, const int* occ_clause,
+                            int* scratch, int B, int Np, int Mp, int K, int nnz,
+                            int xl_resident, int bf16, int threads, void* stream) {
+  const Formula f{lit_code, occ_ptr, occ_clause, Np, Mp, K, nnz};
+  const size_t smem = stoch_shard_smem_bytes(Np, Mp, xl_resident);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto kernel = bf16 ? stoch_shard_eval_kernel<true> : stoch_shard_eval_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<B, threads, smem, st>>>(v_in, active_in, xl_in, tot_out, uns_out, xl_out, sat_out, f,
+                                   scratch, xl_resident);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B9: one launch of the chunk (see stoch_shard_step_kernel); its shared
+// memory and scratch are B8's. Returns a cudaError_t code.
+int stoch_shard_step_launch(uint8_t* v, int* xl, uint8_t* done, float* acc, const int* lit_code,
+                            const int* occ_ptr, const int* occ_clause, int* scratch, int B,
+                            int Np, int Mp, int K, int nnz, int xl_resident, int bf16,
+                            int threads, unsigned int seed, int Bb, int t, int apply,
+                            int evaluate, void* stream) {
+  const Formula f{lit_code, occ_ptr, occ_clause, Np, Mp, K, nnz};
+  const size_t smem = stoch_shard_smem_bytes(Np, Mp, xl_resident);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto kernel = bf16 ? stoch_shard_step_kernel<true> : stoch_shard_step_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<B, threads, smem, st>>>(v, xl, done, acc, f, scratch, xl_resident, seed, Bb, t, apply,
+                                   evaluate);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* stoch_chunk_error_string(int code) {

@@ -1,9 +1,12 @@
-// Large-formula ODE chunk (B2) and single-step RHS (B10) for Hopper (sm_90a).
+// Large-formula ODE chunk (B2), single-step RHS (B10), one clause shard's
+// RHS (B5) and the clause-sharded chunk's launches (B6) for Hopper (sm_90a).
 //
 // B2 (stream_chunk_launch) replaces odesat_tpu/ops/stream_pallas.py::
 // make_stream_chunk; B10 (rhs_launch) replaces odesat_tpu/ops/rhs_pallas.py::
-// make_pallas_rhs. They share the clause-phase and variable-phase device
-// functions below.
+// make_pallas_rhs; B5 (shard_stream_launch, below B10) replaces
+// odesat_tpu/ops/shard_stream.py::_make_shard_call; B6 (shard_chunk_launch,
+// below B5) replaces odesat_tpu/ops/shard_chunk.py::make_shard_chunk_call.
+// They share the clause-phase and variable-phase device functions below.
 //
 // B2 computes exactly what B1 (csrc/fused_chunk.cu) computes, for formulas
 // whose tables and state do not fit one CTA's shared memory. One CTA owns
@@ -381,6 +384,267 @@ __global__ void rhs_kernel(const T* __restrict__ v_in, const T* __restrict__ xs_
   if (tid == 0) allsat_out[traj] = allsat ? 1 : 0;
 }
 
+// B5 (shard_stream_launch) replaces odesat_tpu/ops/shard_stream.py::
+// _make_shard_call (:574): one clause shard's RHS. One CTA per trajectory;
+// the tables are the shard's own (literal codes of its (K, Mp) slots, its
+// local CSR), so Mp is the shard's clause count and dv_out the shard's
+// partial dv, which the caller all-reduces over the clause group outside
+// the kernel (where the TPU kernel's caller used psum). What bounds it:
+// device-memory bytes, since v, xs and xl cross device memory every step
+// (fixed: about 0.8 GB a step at Np=10240, Mp=43,776, B=1024, 0.24 ms at
+// 3.35 TB/s), plus the scratch rows of clause words that do not fit the
+// CTA. The design fuses the clause-memory update into the launch, in
+// place, and recomputes the half-step state of kSecond instead of storing
+// it. Modes (ops/shard_stream.py):
+//   kRhs    dv, dxs, dxl, sat;
+//   kFixed  dv, sat, and xs, xl <- clamp(x + dt*dx) in place after the
+//           variable phase has read the old ones (dt is 0 for done rows);
+//   kSecond at v = hv: the half-step clause state hxs, hxl from the first
+//           launch's dxs1, dxl1 (placed like m1, m2), dv there, and
+//           xs, xl <- adv ? two half steps : unchanged, in place, plus the
+//           shard's step-doubling error over xs and xl in red_out.
+// red_out is the sat flag (1.0/0.0) in kRhs and kFixed, the error in
+// kSecond.
+enum ShardMode { kRhs = 0, kFixed = 1, kSecond = 2 };
+
+// One shard's pass in MODE over the trajectory's rows, with v (for
+// kSecond: the half step hv) already in shared memory and published.
+// Writes dv_r (the shard's partial dv), dxs_r/dxl_r (kRhs) or xs_r/xl_r in
+// place (kFixed, kSecond). Returns the sat flag as 1.0/0.0 (kRhs, kFixed)
+// or the shard's error (kSecond), the same on every thread. B5 and B6 run it.
+template <int MODE, bool PAPER, bool BF16>
+__device__ __forceinline__ float shard_pass(const Tables& f, const Scalars& s, const float* v,
+                                            float* m1, float* m2, float* hxs, float* hxl,
+                                            float* red, float* xs_r, float* xl_r,
+                                            const float* dxs1_r, const float* dxl1_r,
+                                            float* dxs_r, float* dxl_r, float* dv_r, float dt,
+                                            bool adv) {
+  using C = K_<float>;
+  const int Np = f.Np, Mp = f.Mp;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const float half = 0.5f * dt;
+
+  int ok = 1;
+  for (int m = tid; m < Mp; m += nt) {
+    float a, b;
+    const bool real = clause_min2<float, BF16>(f, v, m, &a, &b);
+    m1[m] = a;
+    m2[m] = b;
+    if (real) ok &= (0.5f * a < C::gamma);
+    if constexpr (MODE == kRhs) {
+      float dxs = 0.0f, dxl = 0.0f;
+      if (real) {
+        const float c = 0.5f * a;
+        dxs = C::beta * (xs_r[m] + C::eps) * (c - C::gamma);
+        dxl = C::alpha * (c - C::delta);
+      }
+      dxs_r[m] = dxs;
+      dxl_r[m] = dxl;
+    }
+    if constexpr (MODE == kSecond) {
+      hxs[m] = clampf(xs_r[m] + half * dxs1_r[m], C::eps, C::xs_hi);
+      hxl[m] = clampf(xl_r[m] + half * dxl1_r[m], 1.0f, s.xl_cap);
+    }
+  }
+  const bool allsat = __syncthreads_and(ok) != 0;  // also publishes m1, m2, hxs, hxl
+
+  const float* cxs = MODE == kSecond ? hxs : xs_r;
+  const float* cxl = MODE == kSecond ? hxl : xl_r;
+  for (int i = tid; i < Np; i += nt)
+    dv_r[i] = var_dv<float, PAPER, BF16>(f, i, v[i], m1, m2, cxs, cxl, s.zeta);
+  if constexpr (MODE == kRhs) return allsat ? 1.0f : 0.0f;
+
+  __syncthreads();  // every occurrence has read the clause memories it needs
+  float err = 0.0f;
+  for (int m = tid; m < Mp; m += nt) {
+    const bool real = __ldg(f.lit_code + m) >= 0;
+    const float c = 0.5f * m1[m];
+    if constexpr (MODE == kFixed) {
+      float dxs = 0.0f, dxl = 0.0f;
+      if (real) {
+        dxs = C::beta * (xs_r[m] + C::eps) * (c - C::gamma);
+        dxl = C::alpha * (c - C::delta);
+      }
+      xs_r[m] = clampf(xs_r[m] + dt * dxs, C::eps, C::xs_hi);
+      xl_r[m] = clampf(xl_r[m] + dt * dxl, 1.0f, s.xl_cap);
+    } else {
+      float dxs = 0.0f, dxl = 0.0f;
+      if (real) {
+        dxs = C::beta * (hxs[m] + C::eps) * (c - C::gamma);
+        dxl = C::alpha * (c - C::delta);
+      }
+      const float txs = clampf(hxs[m] + half * dxs, C::eps, C::xs_hi);
+      const float txl = clampf(hxl[m] + half * dxl, 1.0f, s.xl_cap);
+      const float fxs = clampf(xs_r[m] + dt * dxs1_r[m], C::eps, C::xs_hi);
+      const float fxl = clampf(xl_r[m] + dt * dxl1_r[m], 1.0f, s.xl_cap);
+      err = fmaxf(err, fmaxf(fabsf(fxs - txs), fabsf(fxl - txl)));
+      if (adv) {
+        xs_r[m] = txs;
+        xl_r[m] = txl;
+      }
+    }
+  }
+  if constexpr (MODE == kFixed) {
+    return allsat ? 1.0f : 0.0f;
+  } else {
+    return block_max(err, red);
+  }
+}
+
+template <int MODE, bool PAPER, bool BF16>
+__global__ void shard_kernel(const float* __restrict__ v_in, const float* __restrict__ dt_in,
+                             const unsigned char* __restrict__ adv_in, float* xs, float* xl,
+                             const float* __restrict__ dxs1, const float* __restrict__ dxl1,
+                             float* __restrict__ dv_out, float* __restrict__ dxs_out,
+                             float* __restrict__ dxl_out, float* __restrict__ red_out, Tables f,
+                             Scalars s, Place p, float* scratch, long long row_words) {
+  const int traj = blockIdx.x;
+  const int Np = f.Np, Mp = f.Mp;
+  const int tid = threadIdx.x, nt = blockDim.x;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  float* row = scratch + static_cast<size_t>(traj) * row_words;
+  float* v = placed(p.off[V], smem, row);
+  const size_t vrow = static_cast<size_t>(traj) * Np;
+  const size_t crow = static_cast<size_t>(traj) * Mp;
+  const float dt = MODE == kRhs ? 0.0f : dt_in[traj];
+  const bool adv = MODE == kSecond && adv_in[traj] != 0;
+
+  for (int i = tid; i < Np; i += nt) v[i] = v_in[vrow + i];
+  __syncthreads();
+  const bool rhs = MODE == kRhs, second = MODE == kSecond;
+  const float r = shard_pass<MODE, PAPER, BF16>(
+      f, s, v, placed(p.off[M1], smem, row), placed(p.off[M2], smem, row),
+      placed(p.off[HXS], smem, row), placed(p.off[HXL], smem, row), smem, xs + crow,
+      xl + crow, second ? dxs1 + crow : nullptr, second ? dxl1 + crow : nullptr,
+      rhs ? dxs_out + crow : nullptr, rhs ? dxl_out + crow : nullptr, dv_out + vrow, dt, adv);
+  if (tid == 0) red_out[traj] = r;
+}
+
+// B6 (shard_chunk_launch) replaces odesat_tpu/ops/shard_chunk.py::
+// make_shard_chunk_call (:158): the clause-sharded ODE chunk whose dv
+// all-reduce the TPU kernel ran inside itself, over ICI remote DMA (B7,
+// odesat_tpu/ops/butterfly.py). A CUDA kernel cannot wait on other ranks, so
+// on Hopper the chunk is a sequence of launches with the all-reduce
+// (torch.distributed, NCCL or gloo) between them, where the TPU kernel ran
+// its butterfly; everything else the TPU kernel did in VMEM runs in these
+// launches: each applies the reduced result of the launch before it (the v
+// update, the done latch, and for the adaptive integrator the commit, the
+// step-doubling error and the dt control) to the trajectory's v, dt and
+// done, then runs the shard's next pass (shard_pass, B5's device code). So
+// a fixed step is one launch and one all-reduce, with no other operation
+// between them, and a chunk of n steps ends with one apply-only launch.
+// Phases (ops/shard_chunk.py):
+//   kStep    fixed: [apply the previous step] v, done; dt_c = done ? 0 : dt;
+//            the fixed pass -> acc[:, :Np] = dv partial, acc[:, Np] = 1 - sat,
+//            xs, xl in place;
+//   kApply   fixed: apply only;
+//   kFirst   adaptive: [commit the previous step] v, dt, done; pass 1 ->
+//            acc[:, :Np] = dv1 partial, acc[:, Np] = 1 - sat, dxs1, dxl1;
+//   kHalf    adaptive: hv = clamp(v + (dt_c/2) dv1) from the reduced acc;
+//            the second pass at hv -> acc2 = dv2 partial, err = the shard's
+//            error, xs, xl committed in place under the advance flag;
+//   kCommit  adaptive: commit only: tv = clamp(hv + (dt_c/2) dv2), err =
+//            max(err, |clamp(v + dt_c dv1) - tv|), dt <- clip(dt *
+//            sqrt(tol / max(err, 1e-30)), 2^-7, 1e3), v, dt under the advance
+//            flag, done |= allsat.
+// `done` in device memory between launches is the done the last pass ran
+// with; the next launch latches the reduced sat flag. What bounds it: the
+// same bytes as B5 (v, xs, xl cross device memory every step) plus the
+// (B, Np+1) reduced buffer read back, about 0.04 GB a step more at config 7.
+enum ChunkPhase { kStep = 0, kApply = 1, kFirst = 2, kHalf = 3, kCommit = 4 };
+
+template <int PHASE, bool PAPER, bool BF16>
+__global__ void shard_chunk_kernel(float* __restrict__ v_g, float* xs, float* xl,
+                                   float* __restrict__ dt_g, unsigned char* __restrict__ done_g,
+                                   float* __restrict__ acc, float* __restrict__ acc2,
+                                   float* __restrict__ err_g, float* __restrict__ dxs1,
+                                   float* __restrict__ dxl1, Tables f, Scalars s, Place p,
+                                   float* scratch, long long row_words, int apply) {
+  const int traj = blockIdx.x;
+  const int Np = f.Np, Mp = f.Mp;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const bool fixed = PHASE == kStep || PHASE == kApply;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  float* row = scratch + static_cast<size_t>(traj) * row_words;
+  float* v = placed(p.off[V], smem, row);
+  float* vg = v_g + static_cast<size_t>(traj) * Np;
+  float* a1 = acc + static_cast<size_t>(traj) * (Np + 1);
+  const size_t crow = static_cast<size_t>(traj) * Mp;
+
+  bool done = done_g[traj] != 0;
+  float dt = fixed ? s.dt_fixed : dt_g[traj];
+  if (PHASE == kApply || PHASE == kCommit || ((PHASE == kStep || PHASE == kFirst) && apply)) {
+    // the reduced result of the previous launch, applied to this row
+    const float dtc = done ? 0.0f : dt;
+    const bool allsat = a1[Np] == 0.0f;
+    if (fixed) {
+      for (int i = tid; i < Np; i += nt) {
+        const float x = clampf(vg[i] + dtc * a1[i], -1.0f, 1.0f);
+        v[i] = x;
+        vg[i] = x;
+      }
+    } else {
+      const float* a2 = acc2 + static_cast<size_t>(traj) * Np;
+      const float half = 0.5f * dtc;
+      const bool adv = !done && !allsat;
+      float e = 0.0f;
+      for (int i = tid; i < Np; i += nt) {
+        const float v0 = vg[i];
+        const float fv = clampf(v0 + dtc * a1[i], -1.0f, 1.0f);
+        const float hv = clampf(v0 + half * a1[i], -1.0f, 1.0f);
+        const float tv = clampf(hv + half * a2[i], -1.0f, 1.0f);
+        e = fmaxf(e, fabsf(fv - tv));
+        const float x = adv ? tv : v0;
+        v[i] = x;
+        vg[i] = x;
+      }
+      e = fmaxf(err_g[traj], block_max(e, smem));
+      const float ratio = s.tol / fmaxf(e, 1e-30f);
+      if (adv) dt = clampf(dt * sqrtf(ratio), kDtMin, kDtMax);
+    }
+    done = done || allsat;
+    __syncthreads();  // every thread has read a1[Np] and published v
+    if (tid == 0) {
+      done_g[traj] = done ? 1 : 0;
+      if (!fixed) dt_g[traj] = dt;
+    }
+    if (PHASE == kApply || PHASE == kCommit) return;
+  } else if (PHASE == kHalf) {
+    const float half = 0.5f * (done ? 0.0f : dt);
+    for (int i = tid; i < Np; i += nt) v[i] = clampf(vg[i] + half * a1[i], -1.0f, 1.0f);
+    __syncthreads();
+  } else {
+    for (int i = tid; i < Np; i += nt) v[i] = vg[i];
+    __syncthreads();
+  }
+
+  const float dtc = done ? 0.0f : dt;
+  float* m1 = placed(p.off[M1], smem, row);
+  float* m2 = placed(p.off[M2], smem, row);
+  if constexpr (PHASE == kStep) {
+    const float sat = shard_pass<kFixed, PAPER, BF16>(f, s, v, m1, m2, nullptr, nullptr, smem,
+                                                      xs + crow, xl + crow, nullptr, nullptr,
+                                                      nullptr, nullptr, a1, dtc, false);
+    if (tid == 0) a1[Np] = 1.0f - sat;
+  } else if constexpr (PHASE == kFirst) {
+    const float sat = shard_pass<kRhs, PAPER, BF16>(f, s, v, m1, m2, nullptr, nullptr, smem,
+                                                    xs + crow, xl + crow, nullptr, nullptr,
+                                                    dxs1 + crow, dxl1 + crow, a1, 0.0f, false);
+    if (tid == 0) a1[Np] = 1.0f - sat;
+  } else if constexpr (PHASE == kHalf) {
+    const bool adv = !done && a1[Np] != 0.0f;
+    const float e = shard_pass<kSecond, PAPER, BF16>(
+        f, s, v, m1, m2, placed(p.off[HXS], smem, row), placed(p.off[HXL], smem, row), smem,
+        xs + crow, xl + crow, dxs1 + crow, dxl1 + crow, nullptr, nullptr,
+        acc2 + static_cast<size_t>(traj) * Np, dtc, adv);
+    if (tid == 0) err_g[traj] = e;
+  }
+}
+
 // Refuse a placement that would run off the shared memory it is launched
 // with: every used item placed there must lie inside it, past the
 // reduction scratch.
@@ -490,6 +754,98 @@ int rhs_launch(int is_double, const void* v_in, const void* xs_in, const void* x
   if (paper) ODESAT_RHS(float, true);
   ODESAT_RHS(float, false);
 #undef ODESAT_RHS
+}
+
+// B5 in mode 0 (rhs), 1 (fixed) or 2 (second). Pointers a mode does not
+// use may be null. Returns a cudaError_t code.
+int shard_stream_launch(int mode, const float* v_in, const float* dt_in,
+                        const unsigned char* adv_in, float* xs, float* xl, const float* dxs1,
+                        const float* dxl1, float* dv_out, float* dxs_out, float* dxl_out,
+                        float* red_out, const int* lit_code, const int* occ_ptr,
+                        const int* occ_code, float* scratch, const long long* place,
+                        long long row_words, int smem_bytes, int B, int Np, int Mp, int K,
+                        int paper, int bf16, int threads, float zeta, float xl_cap,
+                        void* stream) {
+  Place p;
+  for (int i = 0; i < kItems; ++i) p.off[i] = place[i];
+  bool used[kItems] = {};
+  used[V] = used[M1] = used[M2] = true;
+  used[HXS] = used[HXL] = mode == kSecond;
+  const size_t smem = static_cast<size_t>(smem_bytes);
+  if (mode < kRhs || mode > kSecond || smem_bytes > smem_optin() ||
+      !placement_ok(p, used, Np, Mp, smem, sizeof(float)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Tables f{lit_code, occ_ptr, occ_code, Np, Mp, K};
+  const Scalars s{zeta, 0.0f, 0.0f, xl_cap};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define ODESAT_SHARD(M, P, H)                                                                \
+  return launch(shard_kernel<M, P, H>, B, threads, smem, st, v_in, dt_in, adv_in, xs, xl,    \
+                dxs1, dxl1, dv_out, dxs_out, dxl_out, red_out, f, s, p, scratch, row_words)
+#define ODESAT_SHARD_MODE(M)          \
+  if (paper) {                        \
+    if (bf16) ODESAT_SHARD(M, true, true); \
+    ODESAT_SHARD(M, true, false);     \
+  }                                   \
+  if (bf16) ODESAT_SHARD(M, false, true);  \
+  ODESAT_SHARD(M, false, false)
+  if (mode == kRhs) {
+    ODESAT_SHARD_MODE(kRhs);
+  }
+  if (mode == kFixed) {
+    ODESAT_SHARD_MODE(kFixed);
+  }
+  ODESAT_SHARD_MODE(kSecond);
+#undef ODESAT_SHARD_MODE
+#undef ODESAT_SHARD
+}
+
+// B6 in phase 0 (step), 1 (apply), 2 (first), 3 (half) or 4 (commit); see
+// ChunkPhase. `apply` (phases 0 and 2) applies the previous launch's reduced
+// result first. Pointers a phase does not use may be null. Returns a
+// cudaError_t code.
+int shard_chunk_launch(int phase, float* v, float* xs, float* xl, float* dt, unsigned char* done,
+                       float* acc, float* acc2, float* err, float* dxs1, float* dxl1,
+                       const int* lit_code, const int* occ_ptr, const int* occ_code,
+                       float* scratch, const long long* place, long long row_words,
+                       int smem_bytes, int B, int Np, int Mp, int K, int paper, int bf16,
+                       int threads, float zeta, float dt_fixed, float tol, float xl_cap,
+                       int apply, void* stream) {
+  Place p;
+  for (int i = 0; i < kItems; ++i) p.off[i] = place[i];
+  bool used[kItems] = {};
+  used[V] = used[M1] = used[M2] = true;
+  used[HXS] = used[HXL] = phase == kHalf;
+  const size_t smem = static_cast<size_t>(smem_bytes);
+  if (phase < kStep || phase > kCommit || smem_bytes > smem_optin() ||
+      !placement_ok(p, used, Np, Mp, smem, sizeof(float)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Tables f{lit_code, occ_ptr, occ_code, Np, Mp, K};
+  const Scalars s{zeta, dt_fixed, tol, xl_cap};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define ODESAT_CHUNK(PH, P, H)                                                                \
+  return launch(shard_chunk_kernel<PH, P, H>, B, threads, smem, st, v, xs, xl, dt, done, acc, \
+                acc2, err, dxs1, dxl1, f, s, p, scratch, row_words, apply)
+#define ODESAT_CHUNK_PHASE(PH)             \
+  if (paper) {                             \
+    if (bf16) ODESAT_CHUNK(PH, true, true); \
+    ODESAT_CHUNK(PH, true, false);         \
+  }                                        \
+  if (bf16) ODESAT_CHUNK(PH, false, true);  \
+  ODESAT_CHUNK(PH, false, false)
+  switch (phase) {
+    case kStep:
+      ODESAT_CHUNK_PHASE(kStep);
+    case kApply:
+      ODESAT_CHUNK_PHASE(kApply);
+    case kFirst:
+      ODESAT_CHUNK_PHASE(kFirst);
+    case kHalf:
+      ODESAT_CHUNK_PHASE(kHalf);
+    default:
+      ODESAT_CHUNK_PHASE(kCommit);
+  }
+#undef ODESAT_CHUNK_PHASE
+#undef ODESAT_CHUNK
 }
 
 const char* stream_chunk_error_string(int code) {

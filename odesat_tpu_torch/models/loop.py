@@ -11,6 +11,12 @@ GROW_AFTER further chunks without stopping the chunk grows 16x up to
 GROW_CAP; long runs approach the kernel's rate while fast solves keep the
 fine early-exit window. Log cadence disables growth so the interval stays
 what the user asked for.
+
+On a mesh every rank runs this loop, and a rank that built another chunk
+or stopped after another chunk would hang in the next collective. So with
+``sync`` (``parallel/dist.MeshSync``) every decision is made from global
+facts: the done flags of every rank, and the elapsed times all-reduced
+with MAX; chunk sizes then follow from values that are equal everywhere.
 """
 
 from __future__ import annotations
@@ -50,20 +56,26 @@ def device_dispatch_plan(config, steps_budget):
     return eligible, dispatch
 
 
-def run_chunks(chunk, chunk_steps: int, max_chunks: int, stop_all: bool = False):
+def run_chunks(chunk, chunk_steps: int, max_chunks: int, stop_all: bool = False, sync=None):
     """``run(state) -> (state, steps_advanced)`` running up to
     ``max_chunks`` calls of ``chunk(state) -> state`` of ``chunk_steps``
     steps each, stopping after the first that leaves any (or, with
     ``stop_all``, every) row done. The JAX package runs this loop on the
     device; here it is a host loop with one ``done`` read per chunk, which
-    keeps the same early-exit window and an exact ``steps_advanced``."""
+    keeps the same early-exit window and an exact ``steps_advanced``. With
+    ``sync`` the stop flag is all-reduced over the world every chunk."""
+
+    def stop(done):
+        if sync is not None:
+            return sync.all(done) if stop_all else sync.any(done)
+        return bool(done.all() if stop_all else done.any())
 
     def run(state):
         n = 0
         while n < max_chunks:
             state = chunk(state)
             n += 1
-            if bool(state.done.all() if stop_all else state.done.any()):
+            if stop(state.done):
                 break
         return state, n * chunk_steps
 
@@ -78,6 +90,7 @@ def drive_chunks(
     should_stop,
     steps_resumed: int = 0,
     chunk_steps: int | None = None,
+    sync=None,
 ):
     """Run ``state = runner(state)`` chunks until ``should_stop(state,
     done)`` (done arrives as a host numpy array), the step budget, or the
@@ -86,7 +99,17 @@ def drive_chunks(
     ``(state, steps_advanced)`` when it stops early (models/ode.
     make_multi_chunk_runner), and the actual advance is then credited
     instead of the nominal n. Returns ``(state, steps_run, wall_time_s)``.
+    ``sync`` (a ``parallel/dist.MeshSync``) makes the done flags and the
+    clocks global on a mesh.
     """
+
+    def read_done(st):
+        return sync.done(st.done) if sync is not None else st.done.cpu().numpy()
+
+    def seconds(t):  # elapsed since t, the slowest rank's on a mesh
+        s = time.perf_counter() - t
+        return sync.max(s) if sync is not None else s
+
     chunk_steps = chunk_steps if chunk_steps is not None else config.chunk_steps
     can_grow = not config.wants_chunk_cadence()
 
@@ -118,7 +141,7 @@ def drive_chunks(
         else:
             steps_run += nominal
         chunks += 1
-        done = state.done.cpu().numpy()  # waits for the chunk
+        done = read_done(state)  # waits for the chunk
         if can_grow and chunks % GROW_AFTER == 0 and chunk_steps < GROW_CAP:
             bigger = min(chunk_steps * 16, GROW_CAP)
             if budget is not None:
@@ -126,8 +149,8 @@ def drive_chunks(
             if config.wall_clock_budget_s is not None:
                 # the budget is only checked between chunks, so bound the
                 # grown chunk's predicted duration by the remaining seconds
-                last_chunk_s = time.perf_counter() - chunk_t0
-                remaining_s = config.wall_clock_budget_s - (time.perf_counter() - t0)
+                last_chunk_s = seconds(chunk_t0)
+                remaining_s = config.wall_clock_budget_s - seconds(t0)
                 if last_chunk_s > 0 and remaining_s > 0:
                     cap = int(remaining_s * chunk_steps / last_chunk_s)
                     bigger = min(bigger, max(cap, 1))
@@ -141,7 +164,7 @@ def drive_chunks(
             break
         if (
             config.wall_clock_budget_s is not None
-            and time.perf_counter() - t0 > config.wall_clock_budget_s
+            and seconds(t0) > config.wall_clock_budget_s
         ):
             break
         if config.log_every_chunks and chunks % config.log_every_chunks == 0:

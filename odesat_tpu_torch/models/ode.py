@@ -17,6 +17,11 @@ and entry points:
   of single steps of the torch twin (ops/rhs.py) runs on whatever device
   holds the state. ``dv_strategy="pallas"`` runs that loop with the
   single-step RHS kernel B10 (ops/rhs_kernel.py) on CUDA.
+* **On a mesh** (``parallel/``, one rank per process) the batch splits
+  over the ``traj`` axis and the clause axis over the ``clause`` axis; a
+  clause mesh steps through the clause-shard kernel B5
+  (ops/shard_stream.py) or the twin's clause step, with the partial dv
+  all-reduced over the clause group.
 
 Step semantics preserved from the reference:
 
@@ -28,8 +33,8 @@ Step semantics preserved from the reference:
   all three state arrays; ``dt <- clip(dt*sqrt(tol/err), 2^-7, 1e3)``;
   a satisfied state is *not* advanced (src/system.rs:111-139).
 
-Not ported yet, and refused with ``NotImplementedError``: device meshes,
-checkpoint and resume, and profiler traces.
+Not ported yet, and refused with ``NotImplementedError``: checkpoint and
+resume, and profiler traces.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ import dataclasses
 import functools
 import os
 from dataclasses import dataclass
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -47,6 +52,7 @@ from odesat_tpu_torch.cnf.arrays import FormulaArrays, compile_formula
 from odesat_tpu_torch.cnf.formula import CNFFormula
 from odesat_tpu_torch.constants import DT_INIT, DT_MAX, DT_MIN, EPSILON, XL_CAP_PER_CLAUSE
 from odesat_tpu_torch.ops import rhs as rhs_ops
+from odesat_tpu_torch.parallel.dist import fetch
 from odesat_tpu_torch.utils.config import ODEConfig, SolverConfig
 from odesat_tpu_torch.utils.logging import logger
 
@@ -106,6 +112,7 @@ class SolveResult:
     steps: int  # steps run per trajectory
     solved_index: Optional[int]  # first done trajectory, else None
     wall_time_s: float = 0.0
+    harvested: Any = None  # what the harvest hook returned when it stopped the run
 
     @property
     def any_solved(self) -> bool:
@@ -156,9 +163,19 @@ def _scan_strategy(fa: FormulaArrays) -> str:
     return "segment_sum" if fa.max_occ > 32 else "gather"
 
 
-def make_step_fn(fa: FormulaArrays, zeta: float, ode: ODEConfig):
+def make_step_fn(fa: FormulaArrays, zeta: float, ode: ODEConfig, clause_group=None,
+                 traj_group=None):
     """Build ``step(state, dev) -> state`` for a batched ODEState, using
-    the torch twin of the RHS on the state's device."""
+    the torch twin of the RHS on the state's device.
+
+    ``clause_group`` (a ``torch.distributed`` group): the state holds one
+    clause segment of a clause mesh and ``dev`` that segment's formula
+    tensors; the partial dv is all-reduced (SUM), allsat ANDed and the
+    adaptive error MAX-reduced over the group (JAX :246-274, :324-335).
+    ``traj_group``: the ranks whose rows share a batch-wide dt
+    (``dt_mode="shared"``); its error max reduces over them too."""
+    from odesat_tpu_torch.parallel.dist import all_reduce
+
     xl_cap = XL_CAP_PER_CLAUSE * fa.n_clauses  # real clause count (src/system.rs:95)
     zeta = float(zeta)
     dv_strategy = ode.dv_strategy
@@ -166,6 +183,15 @@ def make_step_fn(fa: FormulaArrays, zeta: float, ode: ODEConfig):
         # 'fused'/'stream' are whole-chunk kernels (make_chunk_runner
         # handles them); a single step picks between the scan accumulators
         dv_strategy = _scan_strategy(fa)
+    if clause_group is not None and dv_strategy in ("gather", "pallas"):
+        # the occurrence tables index the global clause slots; a clause
+        # shard holds only its segment, so it sums by segment and reduces
+        dv_strategy = "segment_sum"
+    if clause_group is not None and len(fa.bucket_slices) > 1:
+        raise ValueError(
+            "width-bucketed formulas need the clause-shard kernel (ops/shard_stream.py); "
+            "the scan fallback requires bucket=False on a clause mesh"
+        )
     buckets = fa.bucket_slices if len(fa.bucket_slices) > 1 else None
 
     rhs_kernel = None
@@ -177,13 +203,18 @@ def make_step_fn(fa: FormulaArrays, zeta: float, ode: ODEConfig):
     def derivs(v, xs, xl, dev: FormulaDevice):
         if rhs_kernel is not None:
             return rhs_kernel(v, xs, xl, dev)
-        return rhs_ops.compute_derivatives(
+        dv, dxs, dxl, allsat = rhs_ops.compute_derivatives(
             v, xs, xl,
             lit_var=dev.lit_var, sign=dev.sign, lit_mask=dev.lit_mask,
             clause_mask=dev.clause_mask, var_occ=dev.var_occ, occ_mask=dev.occ_mask,
             zeta=zeta, rigidity=ode.rigidity, dv_strategy=dv_strategy,
             bucket_slices=buckets,
         )
+        if clause_group is not None:
+            buf = all_reduce(torch.cat([dv, (~allsat).to(dv.dtype).unsqueeze(-1)], dim=-1),
+                             clause_group)
+            dv, allsat = buf[..., :-1], buf[..., -1] == 0
+        return dv, dxs, dxl, allsat
 
     def update(v, xs, xl, dv, dxs, dxl, dt):
         """Clamped Euler update (reference: src/system.rs:93-97); dt is
@@ -231,11 +262,16 @@ def make_step_fn(fa: FormulaArrays, zeta: float, ode: ODEConfig):
             (fv - tv).abs().amax(dim=-1),
             torch.maximum((fxs - txs).abs().amax(dim=-1), (fxl - txl).abs().amax(dim=-1)),
         )
+        if clause_group is not None:
+            err = all_reduce(err, clause_group, op="max")
         if ode.dt_mode == "shared":
             # reference inter parity: one dt for the whole batch, adapted
             # from the batch-max error of the trajectories that advance
             # (src/system.rs:122-136,314)
-            err = torch.where(advance, err, 0.0).amax().expand_as(err)
+            err = torch.where(advance, err, 0.0).amax().reshape(1)
+            if traj_group is not None:
+                err = all_reduce(err, traj_group, op="max")
+            err = err.expand(advance.shape)
         # err == 0 -> dt hits the ceiling, like the reference's dt*inf
         # clamped at 1e3 (src/system.rs:132-135)
         # a tensor numerator: `float / tensor` is reciprocal-then-multiply
@@ -341,11 +377,6 @@ def make_multi_chunk_runner(
     return run
 
 
-def _readout(state: ODEState, n_vars: int) -> np.ndarray:
-    """Boolean readout: v > 0 (reference: src/system.rs:238)."""
-    return (state.v[:, :n_vars] > 0.0).cpu().numpy()
-
-
 def compile_for_config(formula_or_arrays, config: SolverConfig) -> FormulaArrays:
     """The formula's arrays as the config lays them out (arrays pass
     through): width buckets when ``config.bucket`` is "on", or "auto" on
@@ -374,11 +405,10 @@ def seeded_generator(config: SolverConfig, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def refuse_unported(config: SolverConfig, mesh) -> None:
+def refuse_unported(config: SolverConfig) -> None:
     """Raise ``NotImplementedError`` for the options the port does not run
-    yet: a mesh, checkpoint and resume, a profile directory."""
+    yet: checkpoint and resume, a profile directory."""
     for what, value in (
-        ("mesh", mesh),
         ("checkpoint_path", config.checkpoint_path),
         ("resume_from", config.resume_from),
         ("profile_dir", config.profile_dir),
@@ -403,24 +433,52 @@ def simulate_batch(
 
     ``stop_on``: "any" stops as soon as one trajectory reaches allsat
     (reference inter semantics, src/system.rs:291); "all" runs until every
-    trajectory is done or the budget is exhausted. ``harvest(state, done)
-    -> bool`` is called between chunks with the host-pulled done flags;
-    returning True stops the run. ``generator`` (a ``torch.Generator`` on
+    trajectory is done or the budget is exhausted. ``harvest(state, done)``
+    is called between chunks with the host-pulled done flags; a return
+    value other than None or False stops the run and comes back in
+    ``SolveResult.harvested`` (on a mesh, rank 0's is the parent's). ``generator`` (a ``torch.Generator`` on
     ``device``) draws the initial state; by default one is seeded from
-    ``config.seed``. ``mesh`` is not ported and must be None.
+    ``config.seed``.
+
+    ``mesh`` (``parallel/mesh.Mesh``): call on every rank of the world. A
+    formula is compiled for the mesh (``parallel/sharded.compile_for_mesh``);
+    every rank draws the global initial state and keeps its rows and clause
+    segment; the result holds the global batch on every rank.
     """
-    refuse_unported(config, mesh)
+    refuse_unported(config)
     device = torch.device(device)
-    fa = compile_for_config(formula_or_arrays, config)
-    strategy = resolve_strategy(fa, config.ode, device)
-    if config.ode.dv_strategy == "auto":
-        logger.info("dv_strategy auto -> %s on %s", strategy, device)
-    ode = dataclasses.replace(config.ode, dv_strategy=strategy)
+    n_clause = 1 if mesh is None else mesh.n_clause
+    if mesh is not None and not isinstance(formula_or_arrays, FormulaArrays):
+        from odesat_tpu_torch.parallel.sharded import compile_for_mesh
+
+        fa = compile_for_mesh(formula_or_arrays, config, mesh)
+    else:
+        fa = compile_for_config(formula_or_arrays, config)
+    ode = config.ode
+    if n_clause == 1:
+        strategy = resolve_strategy(fa, ode, device)
+        if ode.dv_strategy == "auto":
+            logger.info("dv_strategy auto -> %s on %s", strategy, device)
+        ode = dataclasses.replace(ode, dv_strategy=strategy)
     zeta = ode.resolve_zeta(fa.density)
     if generator is None:
+        if mesh is not None and config.seed is None:
+            raise ValueError("a mesh run needs a seed: every rank draws the same initial state")
         generator = seeded_generator(config, device)
     state = init_state(fa, config.batch_size, generator, ode, device, v0=v0)
     dev = formula_device(fa, device, dtype=state_dtype(ode))
+    sync = None
+    if mesh is not None:
+        from odesat_tpu_torch.parallel.dist import MeshSync
+        from odesat_tpu_torch.parallel.sharded import shard_inputs
+
+        if config.batch_size % mesh.n_traj or fa.n_clauses_padded % n_clause:
+            raise ValueError(
+                f"batch_size={config.batch_size} and {fa.n_clauses_padded} padded clauses must "
+                f"divide across a {mesh.n_traj}x{n_clause} mesh"
+            )
+        state, dev = shard_inputs(state, dev, mesh)
+        sync = MeshSync(mesh, device)
 
     from odesat_tpu_torch.models.loop import device_dispatch_plan, drive_chunks
 
@@ -433,30 +491,41 @@ def simulate_batch(
     # few tail lengths and the grown chunks
     @functools.lru_cache(maxsize=8)
     def chunk_runner(n):
-        return make_chunk_runner(fa, zeta, ode, n, device)
+        if mesh is None:
+            return make_chunk_runner(fa, zeta, ode, n, device)
+        from odesat_tpu_torch.parallel.sharded import make_sharded_chunk_runner
+
+        return make_sharded_chunk_runner(fa, zeta, ode, n, mesh, device)
+
+    def make_runner(n):
+        r = chunk_runner(min(n, inner) if use_multi else n)
+        if not use_multi or n <= inner:
+            return lambda st: r(st, dev)
+        if mesh is None:
+            m = make_multi_chunk_runner(fa, zeta, ode, inner, n // inner, device,
+                                        stop_on=stop_on, chunk=r)
+            return lambda st: m(st, dev)
+        from odesat_tpu_torch.parallel.sharded import make_sharded_multi_runner
+
+        return make_sharded_multi_runner(lambda st: r(st, dev), inner, n // inner, mesh, device,
+                                         stop_on)
 
     if use_multi:
         chunk_steps = dispatch_steps  # nominal slice between host decisions
 
-        def make_runner(n):
-            if n <= inner:
-                r = chunk_runner(n)
-                return lambda st: r(st, dev)
-            m = make_multi_chunk_runner(
-                fa, zeta, ode, inner, n // inner, device, stop_on=stop_on,
-                chunk=chunk_runner(inner),
-            )
-            return lambda st: m(st, dev)
-    else:
-        def make_runner(n):
-            r = chunk_runner(n)
-            return lambda st: r(st, dev)
+    harvested = []
 
     def should_stop(st, done):
         # harvest first: the oracle-verified exit must run even on the
         # chunk where every trajectory converges
-        if harvest is not None and harvest(st, done):
-            return True
+        if harvest is not None:
+            view = st
+            if sync is not None and done.any():  # the global rows, on every rank
+                view = st._replace(v=torch.as_tensor(fetch(st.v, mesh)))
+            got = harvest(view, done)
+            if got is not None and got is not False:
+                harvested.append(got)
+                return True
         if stop_on == "any" and done.any():
             return True
         return bool(done.all())
@@ -468,16 +537,22 @@ def simulate_batch(
         budget=ode.steps,  # None => unbounded
         should_stop=should_stop,
         chunk_steps=chunk_steps,
+        sync=sync,
     )
 
-    done = state.done.cpu().numpy()
+    if mesh is not None:
+        from odesat_tpu_torch.parallel.sharded import check_replicated
+
+        check_replicated(state.v, mesh)
+    done = fetch(state.done, mesh)
     solved = np.flatnonzero(done)
     return SolveResult(
-        assignment=_readout(state, fa.n_vars),
+        assignment=fetch(state.v[:, : fa.n_vars] > 0.0, mesh),
         done=done,
         steps=steps_run,
         solved_index=int(solved[0]) if solved.size else None,
         wall_time_s=wall_time,
+        harvested=harvested[0] if harvested else None,
     )
 
 

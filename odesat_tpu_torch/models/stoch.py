@@ -25,8 +25,14 @@ Randomness is explicit: one CPU ``torch.Generator`` seeded from
 which the twin draws its uniforms. Kernels and twin therefore draw
 different flip streams for one seed, as in the JAX package.
 
-Not ported yet, and refused with ``NotImplementedError``: device meshes,
-checkpoint and resume, and profiler traces.
+On a mesh (``parallel/``) the chains split over the ``traj`` axis, each
+row with its own generator; a ``clause`` axis splits the clauses, and each
+step's weight sums are all-reduced over the clause group before the flips
+are drawn: in the next launch of B9 (ops/stoch_chunk.py, the default), or
+in torch after B8 or the twin's evaluation (:func:`make_stoch_clause_step`).
+
+Not ported yet, and refused with ``NotImplementedError``: checkpoint and
+resume, and profiler traces.
 """
 
 from __future__ import annotations
@@ -111,6 +117,67 @@ def make_stoch_step(fa: FormulaArrays, device):
         v = torch.where(active.unsqueeze(1) & flip, ~state.v, state.v)
         xl = torch.where(active.unsqueeze(1), xl, state.xl)
         return StochState(v, xl, state.done | all_sat)
+
+    return step
+
+
+def make_stoch_clause_eval(fa: FormulaArrays, device, shard: int = 0, n_shards: int = 1):
+    """The twin's evaluation over clause segment ``shard`` of ``n_shards``,
+    with B8's interface: ``ev(v, xl, active) -> (total, unsat, xl_new,
+    sat)``, the weight sums by index_add over the segment's literal slots
+    (JAX make_stoch_clause_step :139-170). Masked slots add nothing, so any
+    layout works."""
+    from odesat_tpu_torch.ops.shard_stream import shard_slice
+
+    seg = shard_slice(fa.n_clauses_padded, n_shards, shard)
+
+    def put(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a[..., seg])).to(device=device, dtype=dtype)
+
+    lit_var = put(fa.lit_var, torch.int64)  # (K, M_local)
+    pos = put(fa.sign > 0, torch.bool)
+    lit_mask = put(fa.lit_mask > 0, torch.bool)
+    clause_mask = put(fa.clause_mask > 0, torch.bool)
+    ids = lit_var.reshape(-1)
+    Np = fa.n_vars_padded
+
+    def ev(v, xl, active):
+        B = v.shape[0]
+        sat = ((v[:, lit_var] == pos) & lit_mask).any(dim=-2)  # (B, M_local)
+        xl_new = torch.where(sat, (xl - 1).clamp_min(1), (xl + STOCH_ALPHA).clamp_max(XL_CAP))
+        xl_new = torch.where(clause_mask, xl_new, 0)
+        w = xl_new.to(torch.float32).unsqueeze(1) * lit_mask  # (B, K, M_local)
+        u = (xl_new.to(torch.float32) * ~sat).unsqueeze(1) * lit_mask
+        total = w.new_zeros(B, Np).index_add_(1, ids, w.reshape(B, -1))
+        unsat = w.new_zeros(B, Np).index_add_(1, ids, u.reshape(B, -1))
+        allsat = (sat | ~clause_mask).all(dim=-1)
+        return total, unsat, torch.where(active.unsqueeze(1), xl_new, xl), allsat
+
+    return ev
+
+
+def make_stoch_clause_step(ev, clause_group=None):
+    """The clause-mesh stoch step ``step(state, u) -> state`` (JAX
+    :123-180): ``ev`` evaluates this rank's clause segment (B8's
+    ``make_stoch_shard_eval`` or :func:`make_stoch_clause_eval`); the
+    (total, unsat) partial sums and the negated sat flag are all-reduced
+    over ``clause_group`` in one call, then every rank of the group draws
+    the same flips from the same uniforms ``u``. The sums are integers in
+    f32, so the partition cannot change a flip below 2**24."""
+    from odesat_tpu_torch.parallel.dist import all_reduce
+
+    def step(state: StochState, u: torch.Tensor) -> StochState:
+        active = ~state.done
+        total, unsat, xl, allsat = ev(state.v, state.xl, active)
+        if clause_group is not None:
+            Np = total.shape[1]
+            buf = all_reduce(torch.cat([total, unsat, (~allsat).to(total.dtype).unsqueeze(1)],
+                                       dim=1), clause_group)
+            total, unsat, allsat = buf[:, :Np], buf[:, Np:2 * Np], buf[:, -1] == 0
+        # total == 0 for a variable in no clause: 0 < 0 never flips
+        flip = u * total < unsat
+        v = torch.where(active.unsqueeze(1) & flip, ~state.v, state.v)
+        return StochState(v, xl, state.done | allsat)
 
     return step
 
@@ -216,18 +283,48 @@ def search(
     engine. ``generator`` is a CPU ``torch.Generator``; by default one is
     seeded from ``config.seed``. The formula is compiled with the ODE
     engine's width-bucket rule; the dynamics do not depend on the clause
-    layout."""
+    layout.
+
+    ``mesh`` (``parallel/mesh.Mesh``, call on every rank): chains split over
+    the traj axis, each row drawing from its own generator seeded with
+    (seed, row) (``parallel/sharded.row_generator``); a clause axis runs
+    the clause path (``parallel/sharded.make_sharded_stoch_runner``). The
+    streams differ from the unsharded run's, as the JAX package's do."""
     from odesat_tpu_torch.models.ode import compile_for_config, refuse_unported, seeded_generator
+    from odesat_tpu_torch.parallel.dist import fetch
 
     config = config or SolverConfig()
-    refuse_unported(config, mesh)
+    refuse_unported(config)
     device = torch.device(device)
-    fa = compile_for_config(formula_or_arrays, config)
-    if generator is None:
-        generator = seeded_generator(config, "cpu")
+    n_clause = 1 if mesh is None else mesh.n_clause
+    if mesh is not None and not isinstance(formula_or_arrays, FormulaArrays):
+        from odesat_tpu_torch.parallel.sharded import compile_for_mesh
+
+        fa = compile_for_mesh(formula_or_arrays, config, mesh, engine="stoch")
+    else:
+        fa = compile_for_config(formula_or_arrays, config)
     matmul_dtype = config.ode.matmul_dtype
-    kind = resolve_kernel(fa, device, fused)
-    logger.info("stoch chunk runner %s -> %s on %s", fused, kind, device)
+    sync = None
+    if mesh is None:
+        if generator is None:
+            generator = seeded_generator(config, "cpu")
+        kind = resolve_kernel(fa, device, fused)
+        logger.info("stoch chunk runner %s -> %s on %s", fused, kind, device)
+    else:
+        from odesat_tpu_torch.parallel.dist import MeshSync
+        from odesat_tpu_torch.parallel.sharded import row_generator
+
+        if config.batch_size % mesh.n_traj or fa.n_clauses_padded % n_clause:
+            raise ValueError(
+                f"batch_size={config.batch_size} and {fa.n_clauses_padded} padded clauses must "
+                f"divide across a {mesh.n_traj}x{n_clause} mesh"
+            )
+        if generator is None:
+            if config.seed is None:
+                raise ValueError("a mesh run needs a seed: every rank of a row draws the same "
+                                 "numbers")
+            generator = row_generator(config.seed, mesh)
+        sync = MeshSync(mesh, device)
 
     from odesat_tpu_torch.models.loop import device_dispatch_plan, drive_chunks
 
@@ -238,15 +335,28 @@ def search(
     # few tail lengths and the grown chunks
     @functools.lru_cache(maxsize=8)
     def chunk_runner(n):
-        return make_stoch_chunk_runner(fa, n, device, generator, fused=fused,
-                                       matmul_dtype=matmul_dtype)
+        if mesh is None:
+            return make_stoch_chunk_runner(fa, n, device, generator, fused=fused,
+                                           matmul_dtype=matmul_dtype)
+        from odesat_tpu_torch.parallel.sharded import make_sharded_stoch_runner
+
+        return make_sharded_stoch_runner(fa, n, mesh, device, generator, matmul_dtype, fused,
+                                         config.ode.shard_chunk)
 
     def make_runner(n):
         if use_multi and n > inner:
-            return make_multi_stoch_runner(chunk_runner(inner), inner, n // inner)
+            if mesh is None:
+                return make_multi_stoch_runner(chunk_runner(inner), inner, n // inner)
+            from odesat_tpu_torch.parallel.sharded import make_sharded_multi_runner
+
+            return make_sharded_multi_runner(chunk_runner(inner), inner, n // inner, mesh, device)
         return chunk_runner(n)
 
     state = init_stoch_state(fa, config.batch_size, device)
+    if mesh is not None:
+        from odesat_tpu_torch.parallel.sharded import shard_stoch_inputs
+
+        state = shard_stoch_inputs(state, mesh)
     state, steps_run, wall_time = drive_chunks(
         state,
         make_runner,
@@ -254,11 +364,16 @@ def search(
         budget=config.ode.steps,
         should_stop=lambda st, done: bool(done.any()),
         chunk_steps=dispatch_steps if use_multi else None,
+        sync=sync,
     )
-    done = state.done.cpu().numpy()
+    if mesh is not None:
+        from odesat_tpu_torch.parallel.sharded import check_replicated
+
+        check_replicated(state.v, mesh)
+    done = fetch(state.done, mesh)
     solved = np.flatnonzero(done)
     return StochResult(
-        assignment=state.v[:, : fa.n_vars].cpu().numpy(),
+        assignment=fetch(state.v[:, : fa.n_vars], mesh),
         done=done,
         steps=steps_run,
         solved_index=int(solved[0]) if solved.size else None,

@@ -1,10 +1,10 @@
-"""ctypes bindings for the native host runtime, built from the JAX
-package's C++ source by path.
+"""ctypes bindings for the native host runtime, built from the port's own
+copy of the JAX package's C++ source.
 
-The port of ``odesat_tpu.native``: the same ``odesat_native.cc`` (DIMACS
-parser and preprocessor), compiled with the same g++ flags, but never
-copied or edited and never imported through ``odesat_tpu`` (which would
-import jax). The library goes into ``odesat_tpu_torch/csrc/_build/``
+The port of ``odesat_tpu.native``: ``csrc/odesat_native.cc`` is a copy of
+``odesat_tpu/native/odesat_native.cc`` (DIMACS parser and preprocessor),
+compiled with the same g++ flags and never imported through
+``odesat_tpu`` (which would import jax). The library goes into ``odesat_tpu_torch/csrc/_build/``
 (listed in ``.gitignore``), keyed on a hash of the source, the flags and
 the host's CPU, since ``-march=native`` ties a build to the CPU that made
 it.
@@ -43,7 +43,7 @@ from odesat_tpu_torch.preprocess.trace import (
 )
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(os.path.dirname(_PKG), "odesat_tpu", "native", "odesat_native.cc")
+SOURCE = os.path.join(_PKG, "csrc", "odesat_native.cc")
 BUILD_DIR = os.path.join(_PKG, "csrc", "_build")
 GXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC", "-pthread")
 

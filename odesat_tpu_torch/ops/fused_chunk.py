@@ -251,6 +251,21 @@ def plain_tables(spec: ChunkSpec) -> PlainTables:
     return PlainTables(torch.where(on, code >> 1, 0), on & (code & 1).bool(), on, pad)
 
 
+_DECODED: dict = {}  # id(spec) -> (spec, its decoded tables), bounded
+
+
+def cached_tables(spec, decode):
+    """``decode(spec)``, kept while ``spec`` lives: the per-step plain
+    versions of the clause-shard kernels (B5, B8) would otherwise decode
+    the shard's tables every step."""
+    hit = _DECODED.get(id(spec))
+    if hit is None or hit[0] is not spec:
+        if len(_DECODED) >= 16:
+            _DECODED.clear()
+        hit = _DECODED[id(spec)] = (spec, decode(spec))
+    return hit[1]
+
+
 def _rhs_plain(v, xs, xl, spec: ChunkSpec, t: PlainTables):
     """One RHS pass; returns (dv, dxs, dxl, allsat) exactly as the
     kernel's clause and variable phases compute them."""

@@ -197,6 +197,14 @@ def _declare(lib) -> None:
         [_I] + [_P] * 11 + [ctypes.POINTER(_LL), _LL] + [_I] * 7 + [ctypes.c_double, _P]
     )
     lib.rhs_launch.restype = _I
+    lib.shard_stream_launch.argtypes = (  # B5 (ops/shard_stream.py)
+        [_I] + [_P] * 15 + [ctypes.POINTER(_LL), _LL] + [_I] * 8 + [_F] * 2 + [_P]
+    )
+    lib.shard_stream_launch.restype = _I
+    lib.shard_chunk_launch.argtypes = (  # B6 (ops/shard_chunk.py)
+        [_I] + [_P] * 14 + [ctypes.POINTER(_LL), _LL] + [_I] * 8 + [_F] * 4 + [_I, _P]
+    )
+    lib.shard_chunk_launch.restype = _I
     lib.stream_chunk_smem_limit.argtypes = []
     lib.stream_chunk_smem_limit.restype = _I
     lib.stream_chunk_error_string.argtypes = [_I]
@@ -204,7 +212,7 @@ def _declare(lib) -> None:
 
 
 def load_library():
-    """Build (at first use) and load ``csrc/stream_chunk.cu`` (B2 and B10).
+    """Build (at first use) and load ``csrc/stream_chunk.cu`` (B2, B5, B6 and B10).
     Returns ``(lib, build)``."""
     return _cuda.load("stream_chunk", _declare)
 

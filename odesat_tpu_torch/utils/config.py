@@ -9,11 +9,10 @@ users, the CLI, and tests share one config surface. Field names mirror
 the reference flags (`-t` tolerance, `-n` steps, `-s` step_size, `-l`
 learning_rate/zeta, `-r` ctv_ratio, `-b` batch_size).
 
-Fields the port does not run yet (``shard_chunk``, ``checkpoint_*``,
-``resume_from``, ``profile_dir``) are kept for parity:
-``models/ode.simulate_batch`` and ``models/stoch.search`` raise
-``NotImplementedError`` for a checkpoint path, a resume snapshot or a
-profile directory, and ``shard_chunk`` has no effect on the ported path.
+Fields the port does not run yet (``checkpoint_*``, ``resume_from``,
+``profile_dir``) are kept for parity: ``models/ode.simulate_batch`` and
+``models/stoch.search`` raise ``NotImplementedError`` for a checkpoint
+path, a resume snapshot or a profile directory.
 ``ctv_ratio``/``preprocess`` drive the ``stoch`` command's preprocessing.
 """
 
@@ -69,8 +68,10 @@ class ODEConfig:
     #                      parallel analog of the reference inter mode's
     #                      single shared dt (src/system.rs:262-272,314)
     dt_mode: str = "per-trajectory"
-    # clause-mesh whole-chunk kernel of the JAX package; kept for parity,
-    # the port has no clause mesh yet
+    # clause mesh: "auto" runs the clause-sharded chunk kernels (B6 for the
+    # ODE, B9 for stoch) where the formula and config are eligible, else
+    # the per-step path; "on" forces them (raising when ineligible); "off"
+    # takes the per-step kernels B5 and B8 (parallel/sharded.py)
     shard_chunk: str | bool = "auto"
 
     def resolve_zeta(self, density: float) -> float:

@@ -362,3 +362,224 @@ def test_rhs_kernel_matches_the_twin(cuda, dtype, rigidity, bucket):
     for a, b in zip(out[:3], ref[:3]):
         torch.testing.assert_close(a, b, **tol)
     assert torch.equal(out[3], ref[3])
+
+
+# ------------- clause shards: B5 (shard RHS), B8 (stoch eval), B6 and B9 (chunks)
+
+
+def _sharded(n_shards, widths=(2, 3, 5), seed=0):
+    from odesat_tpu_torch.ops.shard_stream import compile_stream_sharded
+
+    return compile_stream_sharded(_formula(seed=seed, widths=widths), n_shards, min_bucket=32)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [1, 2])
+@pytest.mark.parametrize("mode", ["rhs", "fixed", "second"])
+@pytest.mark.parametrize("rigidity", ["paper", "reference"])
+@pytest.mark.parametrize("matmul_dtype", ["float32", "bfloat16"])
+def test_shard_kernel_equals_plain(cuda, n_shards, mode, rigidity, matmul_dtype):
+    """B5 in each mode equals its plain version bit for bit on every shard,
+    the launch counter moves once a launch, and a repeat is identical."""
+    from odesat_tpu_torch.ops import shard_stream as ss
+
+    fa = _sharded(n_shards)
+    ode = ODEConfig(step_size=0.02, rigidity=rigidity, matmul_dtype=matmul_dtype)
+    rng = np.random.default_rng(3)
+    B, ml = 37, fa.shard_plan.mp_local
+
+    def put(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(cuda, dtype)
+
+    v = put(rng.uniform(-1, 1, (B, fa.n_vars_padded)))
+    for s in range(n_shards):
+        spec = ss.shard_spec(fa, 0.05, ode, cuda, s)
+        xs = put(rng.uniform(0.001, 0.999, (B, ml)))
+        xl = put(rng.uniform(1, 50, (B, ml)))
+        dt = put(rng.uniform(0, 0.05, B))
+        adv = put(rng.random(B) < 0.7, torch.bool)
+        dxs1, dxl1 = put(rng.uniform(-1, 1, (B, ml))), put(rng.uniform(-1, 1, (B, ml)))
+        if mode == "rhs":
+            args, plain = (v, xs, xl), ss.shard_rhs_plain
+        elif mode == "fixed":
+            args, plain = (v, dt, xs, xl), ss.shard_fixed_plain
+        else:
+            args, plain = (v, dt, adv, xs, xl, dxs1, dxl1), ss.shard_second_plain
+        ref = plain(*args, spec)
+        launch = {"rhs": ss.shard_rhs, "fixed": ss.shard_fixed, "second": ss.shard_second}[mode]
+        before = ss.launches
+        outs = [launch(*(a.clone() for a in args), spec) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert ss.launches == before + 2
+        for a, b, c in zip(outs[0], outs[1], ref):
+            assert torch.equal(a, c) and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fixed", "adaptive"])
+def test_single_device_runner_goes_through_b5(cuda, mode):
+    from odesat_tpu_torch.ops import shard_stream as ss
+
+    fa = _sharded(1, widths=(3,))
+    ode = ODEConfig(step_size=0.02 if mode == "fixed" else None)
+    state = _state(fa, 16, 1, cuda)
+    before = ss.launches
+    out = ss.make_single_device_runner(fa, 0.05, ode, 8, cuda)(state)
+    torch.cuda.synchronize()
+    assert ss.launches == before + (8 if mode == "fixed" else 16)
+    ref = ss.make_single_device_runner(fa, 0.05, ode, 8, "cpu")(
+        type(state)(*(t.cpu() for t in state)))
+    for name in ("v", "xs", "xl", "dt"):
+        torch.testing.assert_close(getattr(out, name).cpu(), getattr(ref, name), **F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [1, 2])
+@pytest.mark.parametrize("matmul_dtype", ["float32", "bfloat16"])
+def test_stoch_shard_kernel_equals_plain(cuda, n_shards, matmul_dtype):
+    from odesat_tpu_torch.ops import stoch_chunk as sc
+
+    fa = _sharded(n_shards, widths=(1, 2, 5))
+    rng = np.random.default_rng(5)
+    B, ml = 300, fa.shard_plan.mp_local
+    v = torch.as_tensor(rng.random((B, fa.n_vars_padded)) < 0.5, device=cuda)
+    active = torch.as_tensor(rng.random(B) < 0.8, device=cuda)
+    for s in range(n_shards):
+        xl = torch.as_tensor(rng.integers(1, 3001, (B, ml)).astype(np.int32), device=cuda)
+        ev = sc.make_stoch_shard_eval(fa, cuda, s, matmul_dtype)
+        before = sc.shard_launches
+        outs = [ev(v, xl, active) for _ in range(2)]
+        ref = sc.stoch_shard_eval_plain(v, xl, active, ev.spec, matmul_dtype == "bfloat16")
+        torch.cuda.synchronize()
+        assert sc.shard_launches == before + 2
+        for a, b, c in zip(outs[0], outs[1], ref):
+            assert torch.equal(a, c) and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_nccl_refuses_two_ranks_on_one_card(cuda):
+    from odesat_tpu_torch.parallel import launch
+
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match="--dist-backend gloo"):
+        launch.spawn(launch.probe, 1, n + 1, "nccl", "cuda", timeout_s=60)
+
+
+def _chunk_buffers(fa, B, fixed, seed, device, shard=0):
+    """Random B6 buffers for one shard: a state with some rows done and a
+    reduced acc whose sat count is 0 on some rows."""
+    from odesat_tpu_torch.ops.shard_chunk import ChunkBuffers
+
+    rng = np.random.default_rng(seed)
+    Np, ml = fa.n_vars_padded, fa.shard_plan.mp_local
+
+    def put(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device, dtype)
+
+    acc = rng.uniform(-2, 2, (B, Np + 1))
+    acc[:, Np] = rng.integers(0, 3, B)
+    b = ChunkBuffers(put(rng.uniform(-1, 1, (B, Np))), put(rng.uniform(0.001, 0.999, (B, ml))),
+                     put(rng.uniform(1, 50, (B, ml))), put(rng.uniform(0.01, 0.05, B)),
+                     put(rng.random(B) < 0.2, torch.bool), put(acc))
+    if not fixed:
+        b = b._replace(acc2=put(rng.uniform(-2, 2, (B, Np))), err=put(rng.uniform(0, 1e-2, B)),
+                       dxs1=put(rng.uniform(-1, 1, (B, ml))), dxl1=put(rng.uniform(-1, 1, (B, ml))))
+    return b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [1, 2])
+@pytest.mark.parametrize("mode", ["fixed", "adaptive"])
+@pytest.mark.parametrize("rigidity", ["paper", "reference"])
+@pytest.mark.parametrize("matmul_dtype", ["float32", "bfloat16"])
+def test_shard_chunk_kernel_equals_plain(cuda, n_shards, mode, rigidity, matmul_dtype):
+    """B6 in every phase of its integrator, with and without the apply
+    prologue, equals its plain version bit for bit on every shard; the
+    launch counter moves once a launch."""
+    from odesat_tpu_torch.ops import shard_chunk as sch
+    from odesat_tpu_torch.ops import shard_stream as ss
+
+    fa = _sharded(n_shards)
+    fixed = mode == "fixed"
+    ode = ODEConfig(step_size=0.02 if fixed else None, rigidity=rigidity,
+                    matmul_dtype=matmul_dtype)
+    phases = ([("step", False), ("step", True), ("apply", False)] if fixed else
+              [("first", False), ("first", True), ("half", False), ("commit", False)])
+    for s in range(n_shards):
+        spec = ss.shard_spec(fa, 0.05, ode, cuda, s)
+        for i, (phase, apply) in enumerate(phases):
+            b = _chunk_buffers(fa, 37, fixed, seed=10 * s + i, device=cuda)
+            ref = sch.shard_chunk_plain(phase, b, spec, apply)
+            before = sch.launches
+            out = sch.shard_chunk_cuda(phase, sch.ChunkBuffers(
+                *(t.clone() if t is not None else None for t in b)), spec, apply)
+            torch.cuda.synchronize()
+            assert sch.launches == before + 1
+            for name, a, c in zip(b._fields, out, ref):
+                assert (a is None and c is None) or torch.equal(a, c), (phase, apply, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fixed", "adaptive"])
+def test_shard_chunk_runner_equals_b5_runner(cuda, mode):
+    """The chunk through B6 equals the per-step path through B5 bit for
+    bit, with the launch counts of its schedule."""
+    from odesat_tpu_torch.ops import shard_chunk as sch
+    from odesat_tpu_torch.ops import shard_stream as ss
+
+    fa = _sharded(1, widths=(3,))
+    ode = ODEConfig(step_size=0.02 if mode == "fixed" else None)
+    state = _state(fa, 16, 1, cuda)
+    state = state._replace(done=torch.arange(16, device=cuda) % 5 == 0)
+    before = sch.launches
+    out = sch.make_shard_chunk(fa, 0.05, ode, 8, None, cuda)(state)
+    torch.cuda.synchronize()
+    assert sch.launches == before + (9 if mode == "fixed" else 17)
+    ref = ss.make_single_device_runner(fa, 0.05, ode, 8, cuda)(state)
+    for name, a, b in zip(state._fields, out, ref):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [1, 2])
+@pytest.mark.parametrize("matmul_dtype", ["float32", "bfloat16"])
+def test_stoch_shard_chunk_kernel_equals_plain(cuda, n_shards, matmul_dtype):
+    """B9 with and without the flip prologue, and the flip-only launch,
+    equals its plain version exactly on every shard."""
+    from odesat_tpu_torch.ops import stoch_chunk as sc
+
+    fa = _sharded(n_shards, widths=(1, 2, 5))
+    rng = np.random.default_rng(7)
+    B, ml, Np = 300, fa.shard_plan.mp_local, fa.n_vars_padded
+    bf16 = matmul_dtype == "bfloat16"
+    for s in range(n_shards):
+        spec = sc.stoch_shard_spec(fa, cuda, s)
+        for apply, evaluate in ((False, True), (True, True), (True, False)):
+            v = torch.as_tensor(rng.random((B, Np)) < 0.5, device=cuda)
+            xl = torch.as_tensor(rng.integers(1, 3001, (B, ml)).astype(np.int32), device=cuda)
+            done = torch.as_tensor(rng.random(B) < 0.2, device=cuda)
+            acc = rng.integers(0, 40, (B, 2 * Np + 1)).astype(np.float32)
+            acc[:, Np:2 * Np] = np.minimum(acc[:, Np:2 * Np], acc[:, :Np])
+            acc[:, 2 * Np] = rng.integers(0, 2, B)
+            acc = torch.as_tensor(acc, device=cuda)
+            args = (spec, bf16, 12345, sc.traj_block(B), 3, apply, evaluate)
+            ref = sc.stoch_shard_step_plain(v, xl, done, acc, *args)
+            before = sc.shard_chunk_launches
+            out = sc.stoch_shard_step_cuda(v.clone(), xl.clone(), done.clone(), acc.clone(),
+                                           *args)
+            torch.cuda.synchronize()
+            assert sc.shard_chunk_launches == before + 1
+            for a, c in zip(out, ref):
+                assert torch.equal(a, c), (apply, evaluate)
+
+
+@pytest.mark.cuda
+def test_stoch_shard_chunk_runner_equals_b8_path(cuda):
+    """The stoch clause path through B9 flips as the path through B8 does."""
+    from odesat_tpu_torch.parallel import sharded
+
+    fa = _sharded(1, widths=(3,))
+    a = sharded.run_stoch_clause(None, cuda, fa, 3, 9, 4, "float32", 64, "auto")
+    b = sharded.run_stoch_clause(None, cuda, fa, 3, 9, 4, "float32", 64, "off")
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)

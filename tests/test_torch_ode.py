@@ -187,8 +187,15 @@ def test_simulate_batch_refuses_unported_options():
     for kw in (dict(checkpoint_path="x.npz"), dict(resume_from="x.npz"), dict(profile_dir="p")):
         with pytest.raises(NotImplementedError):
             tode.simulate_batch(fa, SolverConfig(**kw), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tode.simulate_batch(fa, SolverConfig(), device="cpu", mesh=object())
+    # a mesh runs now; forcing the clause-sharded chunk kernel (B6) on a
+    # formula without a clause-shard plan is refused before any collective
+    from types import SimpleNamespace
+
+    from odesat_tpu_torch.parallel.sharded import make_sharded_chunk_runner
+
+    with pytest.raises(ValueError, match="shard_chunk='on' needs a clause-shard plan"):
+        make_sharded_chunk_runner(fa, 0.05, ODEConfig(shard_chunk="on"), 8,
+                                  SimpleNamespace(n_traj=1, n_clause=2), "cpu")
 
 
 def test_auto_ladder_takes_the_kernel_only_on_cuda():

@@ -1,8 +1,8 @@
 """The port's preprocessor (odesat_tpu_torch/preprocess) and native loader
 (odesat_tpu_torch/native) against the JAX package's Python preprocessor:
 the same reduced formula and the same trace, witnesses that reconstruct,
-and a native library, built from the JAX package's C++ source by path,
-whose trace is byte-identical to the port's Python one."""
+and a native library, built from the port's own copy of the JAX package's
+C++ source, whose trace is byte-identical to the port's Python one."""
 
 import os
 import shutil
@@ -129,7 +129,11 @@ def test_native_parse_matches_python(data_dir, name):
 def test_native_builds_the_jax_source_by_path():
     info = native.build_info()
     assert info["available"], info
-    assert native.SOURCE == os.path.join(REPO, "odesat_tpu", "native", "odesat_native.cc")
+    # the port builds its own copy of the JAX package's source, byte for byte
+    assert native.SOURCE == os.path.join(REPO, "odesat_tpu_torch", "csrc", "odesat_native.cc")
+    with open(native.SOURCE, "rb") as a, \
+            open(os.path.join(REPO, "odesat_tpu", "native", "odesat_native.cc"), "rb") as b:
+        assert a.read() == b.read()
     assert os.path.dirname(info["path"]) == native.BUILD_DIR
     assert os.path.basename(info["path"]).startswith("libodesat_native-")
 
