@@ -77,28 +77,33 @@ Phases, each printing its lines; the first failure exits non-zero:
     the config 7 instance (run_benchmarks.py:289-313, n=10240) at S=2 (both
     shards) and S=1, B=1024; modes rhs, fixed, second, both rigidity gates,
     f32 and bf16; then two launches bit-identical; then B6 (the
-    clause-sharded chunk's launches) the same way, in each of its phases
-    with and without the apply prologue;
+    clause-sharded chunk's launches, on the buffers tiled by 32
+    trajectories as its runner lays them out) the same way, in each of its
+    phases with and without the apply prologue, plus ragged batches (B =
+    1, 7, 33 on the widths 2,3,5 formula at S=2);
 19. B8 vs plain, exactly, on the same shards, random xl up to 3000 and
     frozen chains, f32 and bf16; then two launches bit-identical; then B9
-    (the stoch chunk's launches) with and without the flip prologue and
-    flip-only;
+    (the stoch chunk's launches, on tiled chains) with and without the
+    flip prologue and flip-only, plus the same ragged batches;
 20. the clause mesh through the CLI, two gloo ranks sharing the card
     (spawned; each reports its launch counts; every solve checks that its
     clause ranks' v are bit-identical and raises otherwise): a. inter on
     uf250 -b 4096 --clause-shards 2 verifies true through B6; b. inter on
-    the config 7 instance -b 1024 -n 256 ends false after exactly 256 steps
-    (or verifies), through B6 and with --shard-chunk off through B5, on
-    both ranks; the ODE clause mesh at S=2 on the config 7 instance (B6 and
+    the config 7 instance -b 1024 -n 64 ends false after exactly 64 steps
+    (or verifies) through B6 on both ranks, and the CLI's mesh solve of the
+    same command with --shard-chunk off -n 16 solves no row in its 16 steps
+    through B5; the ODE clause mesh at S=2 on the config 7 instance (B6 and
     B5, fixed 8 steps and adaptive 4) against the in-process S=1 runner row
     for row (rtol 2e-4 / atol 2e-5, xs and xl clause by clause, done
     exactly), B6 equal to B5 bit for bit and both ranks' v bit-identical;
-    c. stoch --no-preprocess on the config 7 instance for 128 steps through
-    B9 and with --shard-chunk off through B8, the clause path at S=2 equal
-    to S=1 flip for flip through each, and stoch on easy.cnf verifying true
-    through B9; d. the clause step and the B6 chunk over an NCCL world of
-    one equal the mesh-free B5 runner bit for bit; e. inter --devices 2 on
-    uf250 B=4096 through B1 equals the T=1 run row for row;
+    c. stoch --no-preprocess on the config 7 instance for 32 steps through
+    B9 and (the CLI's mesh solve) with --shard-chunk off, 16 steps, through
+    B8, the clause path at S=2 equal to S=1 flip for flip through each, and
+    stoch on easy.cnf verifying true through B9; d. the clause step and the
+    B6 chunk over an NCCL world of one equal the mesh-free B5 runner bit for
+    bit; e. inter --devices 2 on uf250 B=4096 through B1 equals the T=1 run
+    row for row; the B5 and B8 solves and parity checks of b and c, e's
+    mesh run and phase 21's all-reduce timing share one spawned world;
 21. timing at the config 7 instance, B=1024, S=1: B5 fixed and second, B6
     step, B8 and B9 per launch beside their plain versions and bounds, the
     single-device runner (B5) and the B6 chunk in traj*steps/s, and the
@@ -1304,24 +1309,40 @@ CHUNK_PHASES = {"fixed": (("step", False), ("step", True), ("apply", False)),
                              ("commit", False))}
 
 
-def copy_buffers(b):
-    return type(b)(*(t.clone() if t is not None else None for t in b))
+def tiled(b):
+    """Tiled copies of (B, X) chunk buffers, as the runner lays them out."""
+    from odesat_tpu_torch.ops.tiles import tile
+
+    return type(b)(*(None if t is None else tile(t) for t in b))
+
+
+def untiled(b, B):
+    from odesat_tpu_torch.ops.tiles import untile
+
+    return type(b)(*(None if t is None else untile(t, B) for t in b))
+
+
+def ragged_cases(shard_cases):
+    """B6's and B9's ragged batches: the widths 2,3,5 formula at S=2 with
+    B = 1, 7 and 33 (a part-filled last tile of 32)."""
+    fa = next(fa for label, fa, _ in shard_cases if label == "widths 2,3,5 n=300 m=1200 S=2")
+    return [(f"widths 2,3,5 n=300 m=1200 S=2 B={B}", fa, B) for B in (1, 7, 33)]
 
 
 def phase_shard_chunk_compare(torch, sch, ss, shard_cases):
-    """B6 vs its plain version, exactly, every shard of every case: each
-    phase of both integrators with and without the apply prologue, both
-    rigidity gates, f32 and bf16; then two launches at config 7
-    bit-identical."""
+    """B6 vs its plain version, exactly, every shard of every case (and
+    the ragged batches): each phase of both integrators with and without
+    the apply prologue, both rigidity gates, f32 and bf16, the kernel on
+    the tiled buffers; then two launches at config 7 bit-identical."""
     from odesat_tpu_torch.utils.config import ODEConfig
 
     n = 0
-    for label, fa, B in shard_cases:
+    for label, fa, B in shard_cases + ragged_cases(shard_cases):
         for s in range(fa.shard_plan.n_shards):
             for mode, phases in CHUNK_PHASES.items():
                 fixed = mode == "fixed"
                 # one draw a shard and integrator: the plain version writes nothing,
-                # the kernel runs on copies
+                # the kernel runs on tiled copies
                 b = chunk_buffers(torch, fa, B, fixed, seed=B + 10 * s + fixed)
                 for rigidity in ("paper", "reference"):
                     for mm in ("float32", "bfloat16"):
@@ -1330,7 +1351,7 @@ def phase_shard_chunk_compare(torch, sch, ss, shard_cases):
                         spec = ss.shard_spec(fa, ode.resolve_zeta(fa.density), ode, "cuda", s)
                         for ph, apply in phases:
                             ref = sch.shard_chunk_plain(ph, b, spec, apply)
-                            out = sch.shard_chunk_cuda(ph, copy_buffers(b), spec, apply)
+                            out = untiled(sch.shard_chunk_cuda(ph, tiled(b), spec, apply), B)
                             torch.cuda.synchronize()
                             for name, x, y in zip(b._fields, out, ref):
                                 if not ((x is None and y is None) or torch.equal(x, y)):
@@ -1347,8 +1368,8 @@ def phase_shard_chunk_compare(torch, sch, ss, shard_cases):
         spec = ss.shard_spec(fa7, ode.resolve_zeta(fa7.density), ode, "cuda", 0)
         b = chunk_buffers(torch, fa7, B, mode == "fixed", seed=8)
         for ph, apply in phases:
-            x = sch.shard_chunk_cuda(ph, copy_buffers(b), spec, apply)
-            y = sch.shard_chunk_cuda(ph, copy_buffers(b), spec, apply)
+            x = sch.shard_chunk_cuda(ph, tiled(b), spec, apply)
+            y = sch.shard_chunk_cuda(ph, tiled(b), spec, apply)
             torch.cuda.synchronize()
             if not all((p is None and q is None) or torch.equal(p, q) for p, q in zip(x, y)):
                 fail(f"B6 determinism, {label} {ph}: two launches differ")
@@ -1377,11 +1398,14 @@ STOCH_CHUNK_CASES = ((False, True), (True, True), (True, False))  # (apply, eval
 
 
 def phase_stoch_shard_chunk_compare(torch, sc, shard_cases):
-    """B9 vs its plain version, exactly, every shard: with and without the
-    flip prologue and flip-only, f32 and bf16; then two launches at config
-    7 bit-identical."""
+    """B9 vs its plain version, exactly, every shard (and the ragged
+    batches): with and without the flip prologue and flip-only, f32 and
+    bf16, the kernel on tiled chains; then two launches at config 7
+    bit-identical."""
+    from odesat_tpu_torch.ops.tiles import tile, untile
+
     n = 0
-    for label, fa, B in shard_cases:
+    for label, fa, B in shard_cases + ragged_cases(shard_cases):
         for s in range(fa.shard_plan.n_shards):
             spec = sc.stoch_shard_spec(fa, "cuda", s)
             inp = stoch_chunk_inputs(torch, fa, B, seed=B + 10 * s)  # one draw a shard
@@ -1390,10 +1414,10 @@ def phase_stoch_shard_chunk_compare(torch, sc, shard_cases):
                     args = (spec, mm == "bfloat16", 987654 + i, sc.traj_block(B), 5, apply,
                             evaluate)
                     ref = sc.stoch_shard_step_plain(*inp, *args)
-                    out = sc.stoch_shard_step_cuda(*(t.clone() for t in inp), *args)
+                    out = sc.stoch_shard_step_cuda(*(tile(t) for t in inp), *args)
                     torch.cuda.synchronize()
                     for name, x, y in zip(("v", "xl", "done", "acc"), out, ref):
-                        if not torch.equal(x, y):
+                        if not torch.equal(untile(x, B), y):
                             fail(f"B9 vs plain, {label} shard {s} apply={apply} "
                                  f"evaluate={evaluate} {mm}: {name} differs")
                     n += 1
@@ -1403,8 +1427,8 @@ def phase_stoch_shard_chunk_compare(torch, sc, shard_cases):
     spec = sc.stoch_shard_spec(fa7, "cuda", 0)
     inp = stoch_chunk_inputs(torch, fa7, B, seed=9)
     args = (spec, False, 4321, sc.traj_block(B), 5, True, True)
-    x = sc.stoch_shard_step_cuda(*(t.clone() for t in inp), *args)
-    y = sc.stoch_shard_step_cuda(*(t.clone() for t in inp), *args)
+    x = sc.stoch_shard_step_cuda(*(tile(t) for t in inp), *args)
+    y = sc.stoch_shard_step_cuda(*(tile(t) for t in inp), *args)
     torch.cuda.synchronize()
     if not all(torch.equal(p, q) for p, q in zip(x, y)):
         fail(f"B9 determinism, {label}: two launches differ")
@@ -1425,11 +1449,15 @@ def run_cli_mesh(cmd, args):
 
 def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
     """Phase 20: the clause-mesh main path (gloo ranks sharing the card)
-    and the trajectory mesh; returns launches of B5, B6, B8 and B9 summed
-    over the ranks of the main-path runs. The parity checks after the CLI
-    runs use 256 rows (ODE) and 32 steps (stoch) of the config 7 instance:
-    every spawn pays about 10 s of start-up and gloo stages every
-    collective through the host."""
+    and the trajectory mesh; returns the launches of B5, B6, B8 and B9
+    summed over the ranks of the main-path runs, and the gloo all-reduce's
+    ms a step at S=2 (phase 21's number, timed in this phase's world). The
+    CLI runs on the config 7 instance are 64 steps (B6) and 32 (B9); the
+    CLI's mesh solves through B5 and B8 (16 steps each) and the parity
+    checks (256 rows for the ODE, 32 steps for stoch) run in one spawned
+    world with the trajectory mesh's run and the all-reduce timing: every
+    spawn pays its ranks' start-up and gloo stages every collective
+    through the host."""
     import numpy as np
 
     from odesat_tpu_torch import cli
@@ -1454,26 +1482,24 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
         ("a. inter uf250 B=4096", "inter",
          ["-f", uf_path, "-b", "4096", "-s", "0.01", "-n", "20000", "--seed", "0"],
          "shard_chunk", 4096, "true"),
-        ("b. inter config 7 B=1024", "inter", c7_inter + ["-n", "256"], "shard_chunk", 1024,
+        ("b. inter config 7 B=1024", "inter", c7_inter + ["-n", "64"], "shard_chunk", 1024,
          None),
-        ("b. inter config 7 B=1024 --shard-chunk off", "inter", c7_inter + ["-n", "64"] + off,
-         "shard_stream", 1024, None),
-        ("c. stoch config 7 B=1024 --no-preprocess", "stoch", c7_stoch + ["-n", "128"],
+        ("c. stoch config 7 B=1024 --no-preprocess", "stoch", c7_stoch + ["-n", "32"],
          "stoch_shard_chunk", 1024, None),
-        ("c. stoch config 7 B=1024 --no-preprocess --shard-chunk off", "stoch",
-         c7_stoch + ["-n", "64"] + off, "stoch_shard_eval", 1024, None),
         ("c. stoch easy.cnf B=256", "stoch", ["-f", easy, "-b", "256", "-n", "20000", "--seed", "1"],
          "stoch_shard_chunk", 256, "true"),
     )
     for label, cmd, args, kernel, B, want in runs:
+        t_run = time.perf_counter()
         verdict, reports, steps, solved, seconds, _ = run_cli_mesh(cmd, [*args, *gloo])
+        t_run = time.perf_counter() - t_run
         counts = [r[kernel] for r in reports]
         others = {k: [r[k] for r in reports] for k in totals if k != kernel}
         say(f"[mesh main] {label} --clause-shards 2 (gloo, staged through the host): verdict "
             f"{verdict}, {solved} solved after {steps} steps in {seconds:.6f} s = "
             f"{B * steps / seconds:.6e} steps*rows/s (a correctness run, not the port's rate), "
             f"{kernel} launches per rank {counts}, other clause kernels {others}, v replicated "
-            f"(every rank checked it) ({card})")
+            f"(every rank checked it); the whole run {t_run:.1f} s ({card})")
         if len(counts) != 2 or min(counts) == 0:
             fail(f"{label}: {kernel} was not launched on both ranks")
         if any(sum(c) for c in others.values()):
@@ -1486,8 +1512,9 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
             fail(f"{label}: expected false after exactly {budget} steps or a verified solution")
         totals[kernel] += sum(counts)
 
-    # b. the ODE clause mesh at S=2 against the S=1 runner, row for row, and
-    # c. the stoch clause path at S=2 against S=1, flip for flip: one world
+    # b. the ODE clause mesh at S=2 against the S=1 runner, row for row, c.
+    # the stoch clause path at S=2 against S=1, flip for flip, e. the
+    # trajectory mesh T=2 against T=1, and phase 21's all-reduce: one world
     from odesat_tpu_torch.interop import state_from_numpy
     from odesat_tpu_torch.ops import shard_stream as ss
     from odesat_tpu_torch.utils.config import ODEConfig
@@ -1509,14 +1536,44 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
     cases += [(fa7_2, zeta, ODEConfig(step_size=ode.step_size, shard_chunk="off"), n, arrays2)
               for _, ode, n in odes]
     stoch_modes = (("auto", "stoch_shard_chunk"), ("off", "stoch_shard_eval"))
+    from odesat_tpu_torch.models.ode import simulate_batch
+    from odesat_tpu_torch.parallel.dist import time_all_reduce
+    from odesat_tpu_torch.utils.config import SolverConfig
+
+    config = SolverConfig(ode=ODEConfig(step_size=0.01, steps=20000), batch_size=4096, seed=0)
     calls = [(sharded.run_ode_cases, (cases,))]
     calls += [(sharded.run_stoch_clause, (fa7_2, 4, 8, 5, "float32", 1024, mode))
               for mode, _ in stoch_modes]
-    two, *stoch_two = launch.spawn(launch.run_all, 1, 2, "gloo", "cuda", timeout_s=600,
-                                   args=(calls,))
-    counts = {k: [r[k] for r in launch.last_reports] for k in totals}
-    if min(min(c) for c in counts.values()) == 0:
-        fail(f"the parity world: every clause kernel must run on both ranks, counts {counts}")
+    calls += [(launch.on_mesh, ((2, 1), cli._mesh_solve, "ode", uf250_formula, config,
+                                {"stop_on": "any"})),
+              (time_all_reduce, ((1024, fa7_1.n_vars_padded + 1), 10))]
+    # b, c through B5 and B8: the CLI's mesh solves with --shard-chunk off,
+    # in this world rather than a world each (a spawn costs its ranks'
+    # start-up, most of it importing torch)
+    off_runs = (("b. inter", "inter", c7_inter + ["-n", "16"] + off + gloo, "shard_stream"),
+                ("c. stoch", "stoch", c7_stoch + ["-n", "16"] + off + gloo, "stoch_shard_eval"))
+    calls += [cli.mesh_call([cmd, *args]) for _, cmd, args, _ in off_runs]
+    two, *stoch_two, traj_two, allreduce_ms, b_off, c_off = launch.spawn(
+        launch.run_all, 1, 2, "gloo", "cuda", timeout_s=600, args=(calls,))
+    # run_all zeroes every count before each call: each call's launches per rank
+    per_call = [{k: [r["calls"][i][k] for r in launch.last_reports]
+                 for k in (*totals, "fused_chunk")} for i in range(len(calls))]
+    ran = (("shard_chunk", "shard_stream"), ("stoch_shard_chunk",), ("stoch_shard_eval",),
+           ("fused_chunk",), (), ("shard_stream",), ("stoch_shard_eval",))
+    for i, (kernels, counts) in enumerate(zip(ran, per_call)):
+        if any(len(counts[k]) != 2 or min(counts[k]) == 0 for k in kernels) or \
+                any(sum(c) for k, c in counts.items() if k not in kernels):
+            fail(f"the parity world's call {i}: expected {kernels or 'no kernel'} on both ranks "
+                 f"and nothing else, launches per rank {counts}")
+    for (label, cmd, args, kernel), result, counts in zip(off_runs, (b_off, c_off), per_call[5:]):
+        budget = int(args[args.index("-n") + 1])
+        if result.steps != budget or result.done.any():
+            fail(f"{label} config 7 --shard-chunk off: expected no solve after exactly {budget} "
+                 f"steps, got {int(result.done.sum())} after {result.steps}")
+        totals[kernel] += sum(counts[kernel])
+        say(f"[mesh main] {label} config 7 B=1024 --shard-chunk off --clause-shards 2 (the "
+            f"CLI's mesh solve, cli.mesh_call, in the parity world): no row solved after "
+            f"exactly {budget} steps, {kernel} launches per rank {counts[kernel]} ({card})")
     p2, p1 = fa7_2.shard_plan, fa7_1.shard_plan
 
     def by_clause(x, plan, dtype=np.float32):
@@ -1558,28 +1615,20 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
         say(f"[mesh main] c. stoch clause path config 7 B=1024, 32 steps through {kernel}: "
             f"S=2 (gloo) equals S=1 flip for flip (v, xl clause by clause, done; "
             f"{int(two_s[0].sum())} variables true, max weight {int(two_s[1].max())}) ({card})")
-    say(f"[mesh main] b, c. one parity world of two ranks, launches per rank {counts}, in "
-        f"{time.perf_counter() - t0:.1f} s ({card})")
-
     # e. trajectory mesh: T=2 through B1 equals T=1 row for row
-    from odesat_tpu_torch.models.ode import simulate_batch
-    from odesat_tpu_torch.utils.config import ODEConfig, SolverConfig
-
-    config = SolverConfig(ode=ODEConfig(step_size=0.01, steps=20000), batch_size=4096, seed=0)
     one = simulate_batch(uf250_formula, config, device="cuda", stop_on="any")
-    two = launch.spawn(cli._mesh_solve, 2, 1, "gloo", "cuda", timeout_s=600,
-                       args=("ode", uf250_formula, config, {"stop_on": "any"}))
-    b1 = [r["fused_chunk"] for r in launch.last_reports]
+    two = traj_two
     if not (np.array_equal(two.assignment, one.assignment) and np.array_equal(two.done, one.done)
             and two.steps == one.steps):
         rows = int((two.assignment != one.assignment).any(axis=1).sum())
         fail(f"trajectory mesh T=2 differs from T=1: {rows} rows, steps {two.steps} vs "
              f"{one.steps}, done {int(two.done.sum())} vs {int(one.done.sum())}")
-    if min(b1) == 0:
-        fail("trajectory mesh: B1 was not launched on both ranks")
-    say(f"[mesh main] e. inter --devices 2 uf250 B=4096: equals T=1 row for row ({one.steps} "
-        f"steps, {int(one.done.sum())} solved), B1 launches per rank {b1}")
-    return totals
+    say(f"[mesh main] e. inter --devices 2 uf250 B=4096 (the same world as a 2x1 mesh): equals "
+        f"T=1 row for row ({one.steps} steps, {int(one.done.sum())} solved), B1 launches per "
+        f"rank {per_call[3]['fused_chunk']}")
+    say(f"[mesh main] b, c, e and the all-reduce timing: one world of two ranks, launches per "
+        f"rank and call {per_call}, in {time.perf_counter() - t0:.1f} s ({card})")
+    return totals, allreduce_ms
 
 
 def phase_nccl_world_of_one(torch, fa7):
@@ -1621,13 +1670,13 @@ def phase_nccl_world_of_one(torch, fa7):
         dist.destroy_process_group()
 
 
-def phase_shard_timing(torch, ss, sch, sc, fa7, card):
+def phase_shard_timing(torch, ss, sch, sc, fa7, allreduce_ms, card):
     """Phase 21 at the config 7 instance, B=1024, S=1: B5 fixed and second,
     B6's fixed step, B8 and B9 per launch (kernel and plain in turns, CUDA
-    events, beside the bound), the single-device runner's (B5) and the B6
-    chunk's throughput, and the gloo all-reduce per step at S=2."""
-    from odesat_tpu_torch.parallel import launch
-    from odesat_tpu_torch.parallel.dist import time_all_reduce
+    events, beside the bound; B6 and B9 on the tiled buffers their runners
+    make), the single-device runner's (B5) and the B6 chunk's throughput,
+    and the gloo all-reduce per step at S=2 (timed in phase 20's world)."""
+    from odesat_tpu_torch.ops.tiles import tile
     from odesat_tpu_torch.utils.config import ODEConfig
     from odesat_tpu_torch.utils.timing import cuda_ms
 
@@ -1680,9 +1729,14 @@ def phase_shard_timing(torch, ss, sch, sc, fa7, card):
     b = chunk_buffers(torch, fa7, B, True, seed=6)
     b = b._replace(done=torch.zeros_like(b.done), acc=b.acc.index_fill(1, torch.tensor(
         [spec6.Np], device="cuda"), 1.0))  # no row latches done while timed
+    bt = [tiled(b)]
+    scratch = sch.chunk_scratch(bt[0], spec6)  # allocated once, as the runner does
+
+    def b6_step():  # a step returns the clause memories in the other copy
+        bt[0] = sch.shard_chunk_cuda("step", bt[0], spec6, True, scratch)
 
     def b6_turn():
-        return cuda_ms(lambda: sch.shard_chunk_cuda("step", b, spec6, True), iters=20, warmup=2)
+        return cuda_ms(b6_step, iters=20, warmup=2)
 
     def b6_plain():
         return cuda_ms(lambda: sch.shard_chunk_plain("step", b, spec6, True), 2, warmup=1)
@@ -1701,10 +1755,11 @@ def phase_shard_timing(torch, ss, sch, sc, fa7, card):
     done9.zero_()
     acc9[:, 2 * spec9.Np] = 1.0
     args9 = (spec9, False, 5555, sc.traj_block(B), 1, True, True)
+    t9 = [tile(t) for t in (v9, xl9, done9, acc9)]
+    w9 = torch.empty_like(t9[1])  # the weight scratch, as the runner allocates it once
 
     def b9_turn():
-        return cuda_ms(lambda: sc.stoch_shard_step_cuda(v9, xl9, done9, acc9, *args9), iters=20,
-                       warmup=2)
+        return cuda_ms(lambda: sc.stoch_shard_step_cuda(*t9, *args9, w=w9), iters=20, warmup=2)
 
     def b9_plain():
         return cuda_ms(lambda: sc.stoch_shard_step_plain(v9, xl9, done9, acc9, *args9), 2,
@@ -1733,12 +1788,10 @@ def phase_shard_timing(torch, ss, sch, sc, fa7, card):
         r = rates[name]
         say(f"[{name}] config 7 B={B} S=1 fixed f32, 64-step chunk: {r[0]:.6e} / {r[1]:.6e} "
             f"traj*steps/s (the counterpart of local3sat_n10240_shard_rhs) ({card})")
-    ms = launch.spawn(time_all_reduce, 1, 2, "gloo", "cuda", timeout_s=600,
-                      args=((B, fa7.n_vars_padded + 1), 10))
     say(f"[mesh timing] gloo all-reduce of the (B={B}, Np+1) f32 dv buffer at S=2, two ranks on "
-        f"one card, staged through the host: {ms:.6f} ms per step ({card})")
+        f"one card, staged through the host: {allreduce_ms:.6f} ms per step ({card})")
     times["runner"] = rates
-    times["allreduce_ms"] = ms
+    times["allreduce_ms"] = allreduce_ms
     return times
 
 
@@ -1819,10 +1872,10 @@ def main():
     b8_worst = phase_stoch_shard_compare(torch, sc, shard_cases)
     b9_worst = phase_stoch_shard_chunk_compare(torch, sc, shard_cases)
     clock("phases 18-19 (B5, B6, B8, B9 against their plain versions)")
-    mesh_launches = phase_mesh_main(torch, fa7, fa7_2, c7, specs[6][1], card)
+    mesh_launches, allreduce_ms = phase_mesh_main(torch, fa7, fa7_2, c7, specs[6][1], card)
     phase_nccl_world_of_one(torch, fa7)
     clock("phase 20 (the meshes)")
-    shard_times = phase_shard_timing(torch, ss, sch, sc, fa7, card)
+    shard_times = phase_shard_timing(torch, ss, sch, sc, fa7, allreduce_ms, card)
     if "jax" in sys.modules:
         fail("jax was imported")
     say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")

@@ -301,9 +301,11 @@ def _mesh_solve(mesh, device, engine, problem, config, kwargs):
     return simulate_batch(problem, config, device=device, mesh=mesh, **kwargs)
 
 
-def _solve(args, engine, normalized, config, device, **kwargs):
-    """Run the engine on one device, or spawn a ``--devices x
-    --clause-shards`` mesh and return rank 0's result."""
+def _mesh_call(args, engine, normalized, config, **kwargs):
+    """``_solve``'s checks of the mesh flags and its set-up: returns ``T``,
+    ``S`` and the arguments of :func:`_mesh_solve` after ``mesh`` and
+    ``device``; on a mesh with the seed drawn (every rank must draw the
+    same numbers) and the formula compiled for the mesh once, here."""
     T, S = args.devices, args.clause_shards
     if T < 1 or S < 1:
         print(f"error: --devices and --clause-shards must be at least 1, not {T} and {S}",
@@ -313,23 +315,41 @@ def _solve(args, engine, normalized, config, device, **kwargs):
         print("error: --shard-chunk requires --clause-shards >= 2 (it is the clause mesh's "
               "kernel)", file=sys.stderr)
         raise SystemExit(2)
-    if T * S == 1:
-        return _or_exit(_mesh_solve, None, device, engine, normalized, config, kwargs)
-    import dataclasses
-    from types import SimpleNamespace
-
-    from odesat_tpu_torch.cnf import FormulaArrays
-    from odesat_tpu_torch.parallel.launch import spawn
-    from odesat_tpu_torch.parallel.sharded import compile_for_mesh
-
-    if config.seed is None:  # every rank must draw the same numbers
-        config = dataclasses.replace(config, seed=int.from_bytes(os.urandom(4), "little"))
     problem = normalized
-    if not isinstance(normalized, FormulaArrays):  # compiled once, here
-        problem = _or_exit(compile_for_mesh, normalized, config, SimpleNamespace(n_clause=S),
-                           engine)
-    return _or_exit(spawn, _mesh_solve, T, S, args.dist_backend, device.type,
-                    args=(engine, problem, config, kwargs))
+    if T * S > 1:
+        import dataclasses
+        from types import SimpleNamespace
+
+        from odesat_tpu_torch.cnf import FormulaArrays
+        from odesat_tpu_torch.parallel.sharded import compile_for_mesh
+
+        if config.seed is None:
+            config = dataclasses.replace(config, seed=int.from_bytes(os.urandom(4), "little"))
+        if not isinstance(normalized, FormulaArrays):
+            problem = _or_exit(compile_for_mesh, normalized, config, SimpleNamespace(n_clause=S),
+                               engine)
+    return T, S, (engine, problem, config, kwargs)
+
+
+def _solve(args, engine, normalized, config, device, **kwargs):
+    """Run the engine on one device, or spawn a ``--devices x
+    --clause-shards`` mesh and return rank 0's result."""
+    T, S, call = _mesh_call(args, engine, normalized, config, **kwargs)
+    if T * S == 1:
+        return _or_exit(_mesh_solve, None, device, *call)
+    from odesat_tpu_torch.parallel.launch import spawn
+
+    return _or_exit(spawn, _mesh_solve, T, S, args.dist_backend, device.type, args=call)
+
+
+def mesh_call(argv):
+    """What ``python -m odesat_tpu_torch inter|stoch ...`` with mesh flags
+    runs on each rank of the world it spawns, as ``(fn, args)`` for
+    ``parallel.launch.run_all``: the CLI's own parse, set-up and checks, up
+    to the spawn. The world must have the argv's mesh shape."""
+    args = _build_parser().parse_args(argv)
+    engine, config, kwargs, _, _, normalized = _prepare(args, _load(args.input))
+    return _mesh_solve, _mesh_call(args, engine, normalized, config, **kwargs)[2]
 
 
 class _BatchHarvest:
@@ -440,16 +460,29 @@ def cmd_batch(args) -> int:
     return 0
 
 
+def _prepare(args, formula):
+    """``inter``'s and ``stoch``'s set-up before the solve: returns the
+    engine, its config and solve arguments, the preprocessing trace (None
+    for ``inter``), the variable mapping and the normalized formula."""
+    if args.cmd == "stoch":
+        engine, config, kwargs = "stoch", _stoch_config(args), {}
+        formula, trace = _maybe_preprocess(formula, config)
+    else:
+        engine, config, kwargs = "ode", _config_from_args(args, args.batch_size), \
+            {"stop_on": "any"}
+        trace = None
+        print("Normalizing CNF formula...")
+    var_mapping, normalized = _normalize(formula, args)
+    return engine, config, kwargs, trace, var_mapping, normalized
+
+
 def cmd_inter(args) -> int:
     device = _device(args.device)
     formula = _load(args.input)
-    config = _config_from_args(args, batch_size=args.batch_size)
-
-    print("Normalizing CNF formula...")
-    var_mapping, normalized = _normalize(formula, args)
+    engine, config, kwargs, _, var_mapping, normalized = _prepare(args, formula)
 
     print("Simulating...")
-    result = _solve(args, "ode", normalized, config, device, stop_on="any")
+    result = _solve(args, engine, normalized, config, device, **kwargs)
     _steps_line(result)
 
     mapped_values = map_values_by_indices(var_mapping, result.best_assignment())
@@ -472,13 +505,10 @@ def _maybe_preprocess(formula, config: SolverConfig):
 def cmd_stoch(args) -> int:
     device = _device(args.device)
     formula = _load(args.input)
-    config = _stoch_config(args)
-
-    reduced, trace = _maybe_preprocess(formula, config)
-    var_mapping, normalized = _normalize(reduced, args)
+    engine, config, kwargs, trace, var_mapping, normalized = _prepare(args, formula)
 
     print("Simulating...")
-    result = _solve(args, "stoch", normalized, config, device)
+    result = _solve(args, engine, normalized, config, device, **kwargs)
     _steps_line(result, "chains")
 
     print("Mapping values...")

@@ -1,6 +1,6 @@
 // Stochastic-engine chunk for Hopper (sm_90a): kernels B3 and B4, B8, one
 // clause shard's evaluation (below B4), and B9, the clause-sharded chunk's
-// launches (below B8).
+// launches (below B8), over the tile layout of tile.cuh.
 //
 // B3 (stoch_fused_launch) replaces odesat_tpu/ops/stoch_pallas.py::
 // make_fused_stoch_chunk, B4 (stoch_stream_launch) replaces
@@ -46,6 +46,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tile.cuh"
 
 namespace {
 
@@ -275,92 +277,131 @@ __global__ void stoch_shard_eval_kernel(const uint8_t* __restrict__ v_in,
 // t as B8 does, writing its partials into acc = (total | unsat | 1 - sat)
 // and its weights in place. A chunk of n steps is n such launches and one
 // apply-only launch (evaluate = 0). `done` in device memory between
-// launches is the done the last evaluation ran with. What bounds it: B8's
-// bytes plus the (B, 2*Np+1) reduced buffer read back and v written.
-template <bool BF16>
-__global__ void stoch_shard_step_kernel(uint8_t* __restrict__ v_g, int* __restrict__ xl_g,
-                                        uint8_t* __restrict__ done_g, float* __restrict__ acc,
-                                        Formula f, int* scratch, int xl_resident, uint32_t seed,
-                                        int Bb, int t, int apply, int evaluate) {
-  const int chain = blockIdx.x;  // the grid is exactly B
+// launches is the done the last evaluation ran with.
+//
+// Design: the buffers are in the tile layout of tile.cuh, R chains a tile:
+// v (G, Np, R) bytes, xl and the signed post-update weights w (G, Mp, R)
+// int32, acc (G, 2*Np+1, R), done (G, R). A lane group reads each table
+// word once for R chains, and each gather of v or w moves R useful words;
+// nothing of a chain lives in shared memory. A launch is up to four
+// kernels on the stream, each over (tile, span) except the head:
+//   flip    the previous step's flips, over variables;
+//   head    one thread a chain: the done latch; the sat flag cleared;
+//   clause  over clauses: sat from v, the weight update into w, xl <- |w|
+//           for a chain that is not done (a done chain keeps its xl
+//           verbatim), the sat flag;
+//   var     over variables: total and unsat sums of w over the local CSR
+//           list in a fixed order.
+// What bounds it: device-memory bytes (xl and w written, xl, w and v read,
+// the partials written every step) and the gathers of w through L2.
+template <int R>
+__global__ void __launch_bounds__(tile::kThreads)
+    stoch_tile_flip_kernel(uint8_t* __restrict__ v, const float* __restrict__ acc,
+                           const uint8_t* __restrict__ done, int Np, uint32_t seed, int Bb,
+                           int t) {
+  const int g = blockIdx.x, r = tile::lane<R>(), chain = g * R + r;
+  if (done[chain]) return;  // a done chain does not flip
+  const uint32_t row_term = static_cast<uint32_t>(chain % Bb) * 0x9E3779B1u;
+  const uint32_t step_term = seed + static_cast<uint32_t>(chain / Bb) * 0x632BE59Bu +
+                             static_cast<uint32_t>(t - 1) * 0xC2B2AE3Du;
+  uint8_t* vt = v + static_cast<size_t>(g) * Np * R;
+  const float* a = acc + static_cast<size_t>(g) * (2 * Np + 1) * R;
+  tile::for_items<R>(Np, [&](int i) {
+    const uint32_t h = mix(row_term ^ (static_cast<uint32_t>(i) * 0x85EBCA77u) ^ step_term);
+    const float u = static_cast<float>(h >> 8) * (1.0f / 16777216.0f);
+    const size_t k = static_cast<size_t>(i) * R + r;
+    if (u * a[k] < a[static_cast<size_t>(Np) * R + k]) vt[k] ^= 1;
+  });
+}
+
+// One thread a chain, after flip (`apply`) or alone.
+__global__ void stoch_tile_head_kernel(float* __restrict__ acc, uint8_t* __restrict__ done,
+                                       int Np, int R, int n, int apply, int evaluate) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+  float* flag = acc + (static_cast<size_t>(t / R) * (2 * Np + 1) + 2 * Np) * R + t % R;
+  if (apply) done[t] = (done[t] || *flag == 0.0f) ? 1 : 0;
+  if (evaluate) *flag = 0.0f;
+}
+
+template <int R>
+__global__ void __launch_bounds__(tile::kThreads)
+    stoch_tile_clause_kernel(const uint8_t* __restrict__ v, int* __restrict__ xl,
+                             int* __restrict__ w, const uint8_t* __restrict__ done,
+                             float* __restrict__ acc, Formula f) {
+  __shared__ int s_unsat[R];
+  const int g = blockIdx.x, r = tile::lane<R>();
   const int Np = f.Np, Mp = f.Mp, K = f.K;
-  const int tid = threadIdx.x, T = blockDim.x;
-
-  extern __shared__ int smem[];
-  int* w = xl_resident ? smem : scratch + static_cast<size_t>(chain) * Mp;
-  uint8_t* v = reinterpret_cast<uint8_t*>(smem + (xl_resident ? Mp : 0));
-  const size_t vrow = static_cast<size_t>(chain) * Np;
-  const size_t crow = static_cast<size_t>(chain) * Mp;
-  float* a = acc + static_cast<size_t>(chain) * (2 * Np + 1);
-  bool done = done_g[chain] != 0;
-
-  if (apply) {
-    const bool active = !done;
-    const uint32_t row_term = static_cast<uint32_t>(chain % Bb) * 0x9E3779B1u;
-    const uint32_t step_term = seed + static_cast<uint32_t>(chain / Bb) * 0x632BE59Bu +
-                               static_cast<uint32_t>(t - 1) * 0xC2B2AE3Du;
-    for (int i = tid; i < Np; i += T) {
-      uint8_t x = v_g[vrow + i];
-      if (active) {
-        const uint32_t h =
-            mix(row_term ^ (static_cast<uint32_t>(i) * 0x85EBCA77u) ^ step_term);
-        const float u = static_cast<float>(h >> 8) * (1.0f / 16777216.0f);
-        if (u * a[i] < a[Np + i]) x ^= 1;
-        v_g[vrow + i] = x;
+  if (threadIdx.x < R) s_unsat[threadIdx.x] = 0;
+  __syncthreads();
+  const bool active = !done[g * R + r];
+  const uint8_t* vt = v + static_cast<size_t>(g) * Np * R;
+  const size_t c0 = static_cast<size_t>(g) * Mp * R;
+  int unsat = 0;
+  tile::for_items<R>(Mp, [&](int m) {
+    const size_t k = c0 + static_cast<size_t>(m) * R + r;
+    const int c = __ldg(f.lit_code + m);
+    int wm = 0;  // padded clause: weight 0, never unsatisfied
+    if (c >= 0) {
+      bool sat = false;
+      for (int j = 0; j < K; ++j) {
+        const int cj = j ? __ldg(f.lit_code + static_cast<size_t>(j) * Mp + m) : c;
+        if (cj < 0) break;  // literal slots of a clause are a prefix
+        sat |= __ldg(vt + static_cast<size_t>(cj >> 1) * R + r) != (cj & 1);
       }
-      v[i] = x;
+      const int x = xl[k];
+      wm = sat ? max(x - 1, 1) : -min(x + kAlpha, kXlCap);
+      unsat |= !sat;
     }
-    done = done || a[2 * Np] == 0.0f;
-  } else {
-    for (int i = tid; i < Np; i += T) v[i] = v_g[vrow + i];
-  }
-  __syncthreads();  // publishes v; every thread has read a[2*Np]
-  if (!evaluate) {
-    if (tid == 0) done_g[chain] = done ? 1 : 0;
-    return;
-  }
+    w[k] = wm;
+    if (active) xl[k] = wm < 0 ? -wm : wm;
+  });
+  if (unsat) s_unsat[r] = 1;
+  __syncthreads();
+  if (threadIdx.x < R && s_unsat[threadIdx.x])
+    acc[(static_cast<size_t>(g) * (2 * Np + 1) + 2 * Np) * R + threadIdx.x] = 1.0f;
+}
 
-  int ok = 1;
-  for (int m = tid; m < Mp; m += T) {
-    const int c0 = __ldg(f.lit_code + m);
-    if (c0 < 0) {  // padded clause: weight 0, never unsatisfied
-      w[m] = 0;
-      continue;
-    }
-    bool sat = false;
-    for (int k = 0; k < K; ++k) {
-      const int ck = k ? __ldg(f.lit_code + static_cast<size_t>(k) * Mp + m) : c0;
-      if (ck < 0) break;  // literal slots of a clause are a prefix
-      sat |= v[ck >> 1] != (ck & 1);
-    }
-    const int x = xl_g[crow + m];
-    w[m] = sat ? max(x - 1, 1) : -min(x + kAlpha, kXlCap);
-    ok &= sat;
-  }
-  const bool allsat = __syncthreads_and(ok) != 0;
-
-  for (int i = tid; i < Np; i += T) {
+template <int R, bool BF16>
+__global__ void __launch_bounds__(tile::kThreads)
+    stoch_tile_var_kernel(const int* __restrict__ w, float* __restrict__ acc, Formula f) {
+  const int g = blockIdx.x, r = tile::lane<R>();
+  const int Np = f.Np;
+  const int* wt = w + static_cast<size_t>(g) * f.Mp * R;
+  float* at = acc + static_cast<size_t>(g) * (2 * Np + 1) * R;
+  tile::for_items<R>(Np, [&](int i) {
     const int j1 = __ldg(f.occ_ptr + i + 1);
     float total = 0.0f, unsat = 0.0f;
     for (int j = __ldg(f.occ_ptr + i); j < j1; ++j) {
-      const int wj = w[__ldg(f.occ_clause + j)];
+      const int wj = __ldg(wt + static_cast<size_t>(__ldg(f.occ_clause + j)) * R + r);
       const float x = weight<BF16>(wj);
       total += x;
       if (wj < 0) unsat += x;
     }
-    a[i] = total;
-    a[Np + i] = unsat;
+    at[static_cast<size_t>(i) * R + r] = total;
+    at[static_cast<size_t>(Np + i) * R + r] = unsat;
+  });
+}
+
+template <int R>
+int stoch_tile_step(uint8_t* v, int* xl, uint8_t* done, float* acc, int* w, const Formula& f,
+                    int G, bool bf16, uint32_t seed, int Bb, int t, bool apply, bool evaluate,
+                    cudaStream_t st) {
+  const dim3 vgrid = tile::grid(G, R, f.Np);
+  if (apply)
+    stoch_tile_flip_kernel<R><<<vgrid, tile::kThreads, 0, st>>>(v, acc, done, f.Np, seed, Bb, t);
+  const int n = G * R;
+  stoch_tile_head_kernel<<<(n + tile::kThreads - 1) / tile::kThreads, tile::kThreads, 0, st>>>(
+      acc, done, f.Np, R, n, apply, evaluate);
+  if (evaluate) {
+    stoch_tile_clause_kernel<R><<<tile::grid(G, R, f.Mp), tile::kThreads, 0, st>>>(v, xl, w, done,
+                                                                                   acc, f);
+    if (bf16)
+      stoch_tile_var_kernel<R, true><<<vgrid, tile::kThreads, 0, st>>>(w, acc, f);
+    else
+      stoch_tile_var_kernel<R, false><<<vgrid, tile::kThreads, 0, st>>>(w, acc, f);
   }
-  if (!done) {  // a frozen chain keeps its weights verbatim
-    for (int m = tid; m < Mp; m += T) {
-      const int wm = w[m];
-      xl_g[crow + m] = wm < 0 ? -wm : wm;
-    }
-  }
-  if (tid == 0) {
-    a[2 * Np] = allsat ? 0.0f : 1.0f;
-    done_g[chain] = done ? 1 : 0;
-  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -450,23 +491,19 @@ int stoch_shard_eval_launch(const uint8_t* v_in, const uint8_t* active_in, const
   return static_cast<int>(cudaGetLastError());
 }
 
-// B9: one launch of the chunk (see stoch_shard_step_kernel); its shared
-// memory and scratch are B8's. Returns a cudaError_t code.
-int stoch_shard_step_launch(uint8_t* v, int* xl, uint8_t* done, float* acc, const int* lit_code,
-                            const int* occ_ptr, const int* occ_clause, int* scratch, int B,
-                            int Np, int Mp, int K, int nnz, int xl_resident, int bf16,
-                            int threads, unsigned int seed, int Bb, int t, int apply,
-                            int evaluate, void* stream) {
+// B9: one launch of the chunk (see stoch_tile_step) on buffers in the tile
+// layout with R = tile::kR chains a tile; `w` is the chunk's (G, Mp, R) int32 scratch.
+// Returns a cudaError_t code.
+int stoch_shard_step_launch(uint8_t* v, int* xl, uint8_t* done, float* acc, int* w,
+                            const int* lit_code, const int* occ_ptr, const int* occ_clause,
+                            int G, int R, int Np, int Mp, int K, int nnz, int bf16,
+                            unsigned int seed, int Bb, int t, int apply, int evaluate,
+                            void* stream) {
   const Formula f{lit_code, occ_ptr, occ_clause, Np, Mp, K, nnz};
-  const size_t smem = stoch_shard_smem_bytes(Np, Mp, xl_resident);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto kernel = bf16 ? stoch_shard_step_kernel<true> : stoch_shard_step_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<B, threads, smem, st>>>(v, xl, done, acc, f, scratch, xl_resident, seed, Bb, t, apply,
-                                   evaluate);
-  return static_cast<int>(cudaGetLastError());
+  if (G < 1 || R != tile::kR) return static_cast<int>(cudaErrorInvalidValue);
+  return stoch_tile_step<tile::kR>(v, xl, done, acc, w, f, G, bf16 != 0, seed, Bb, t, apply != 0,
+                                   evaluate != 0, st);
 }
 
 const char* stoch_chunk_error_string(int code) {

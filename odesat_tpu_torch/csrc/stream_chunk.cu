@@ -6,7 +6,8 @@
 // make_pallas_rhs; B5 (shard_stream_launch, below B10) replaces
 // odesat_tpu/ops/shard_stream.py::_make_shard_call; B6 (shard_chunk_launch,
 // below B5) replaces odesat_tpu/ops/shard_chunk.py::make_shard_chunk_call.
-// They share the clause-phase and variable-phase device functions below.
+// They share the clause-phase and variable-phase device functions below;
+// B6 runs them over the tile layout of tile.cuh, R trajectories a CTA.
 //
 // B2 computes exactly what B1 (csrc/fused_chunk.cu) computes, for formulas
 // whose tables and state do not fit one CTA's shared memory. One CTA owns
@@ -63,6 +64,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "tile.cuh"
 
 namespace {
 
@@ -531,17 +534,16 @@ __global__ void shard_kernel(const float* __restrict__ v_in, const float* __rest
 // its butterfly; everything else the TPU kernel did in VMEM runs in these
 // launches: each applies the reduced result of the launch before it (the v
 // update, the done latch, and for the adaptive integrator the commit, the
-// step-doubling error and the dt control) to the trajectory's v, dt and
-// done, then runs the shard's next pass (shard_pass, B5's device code). So
-// a fixed step is one launch and one all-reduce, with no other operation
+// step-doubling error and the dt control), then runs the shard's next pass.
+// So a fixed step is one launch and one all-reduce, with no other operation
 // between them, and a chunk of n steps ends with one apply-only launch.
 // Phases (ops/shard_chunk.py):
 //   kStep    fixed: [apply the previous step] v, done; dt_c = done ? 0 : dt;
-//            the fixed pass -> acc[:, :Np] = dv partial, acc[:, Np] = 1 - sat,
+//            the fixed pass -> acc[:Np] = dv partial, acc[Np] = 1 - sat,
 //            xs, xl in place;
 //   kApply   fixed: apply only;
 //   kFirst   adaptive: [commit the previous step] v, dt, done; pass 1 ->
-//            acc[:, :Np] = dv1 partial, acc[:, Np] = 1 - sat, dxs1, dxl1;
+//            acc[:Np] = dv1 partial, acc[Np] = 1 - sat, dxs1, dxl1;
 //   kHalf    adaptive: hv = clamp(v + (dt_c/2) dv1) from the reduced acc;
 //            the second pass at hv -> acc2 = dv2 partial, err = the shard's
 //            error, xs, xl committed in place under the advance flag;
@@ -550,99 +552,388 @@ __global__ void shard_kernel(const float* __restrict__ v_in, const float* __rest
 //            sqrt(tol / max(err, 1e-30)), 2^-7, 1e3), v, dt under the advance
 //            flag, done |= allsat.
 // `done` in device memory between launches is the done the last pass ran
-// with; the next launch latches the reduced sat flag. What bounds it: the
-// same bytes as B5 (v, xs, xl cross device memory every step) plus the
-// (B, Np+1) reduced buffer read back, about 0.04 GB a step more at config 7.
+// with; the next launch latches the reduced sat flag.
+//
+// Design: the chunk's buffers are in the tile layout of tile.cuh, (G, X,
+// R) with R trajectories a tile, so a lane group reads each table word
+// (literal codes, CSR pointers, occurrence codes) once for R trajectories
+// and each gather of v, xs, xl, dxs1 or dxl1 moves R useful words. Nothing
+// of a trajectory lives in shared memory, so many CTAs share an SM. A phase
+// is a short sequence of kernels on the stream, each over (tile, span):
+//   apply   v from the reduced acc (and acc2), over variables; adaptive:
+//           the commit's error, a max per trajectory, into `errbits`;
+//   head    one thread a trajectory: the done latch, the dt control, and
+//           the sat flag cleared for the pass that follows;
+//   hv      kHalf: the half step into a scratch tile;
+//   pass    over variables: dv over each variable's CSR list, with each
+//           occurrence's m1, m2 recomputed from v (no clause words cross
+//           memory) and its xs, xl gathered (kSecond: the half-step xs, xl
+//           recomputed from xs, dxs1, xl, dxl1); the clause side of the
+//           pass (the sat flag; dxs1, dxl1; the clause-memory update; the
+//           step-doubling error) runs at each clause's first occurrence in
+//           its slot-0 variable's list and writes the new memories to a
+//           second copy, xs2 and xl2, which the caller swaps with xs, xl;
+//   pad     the clause side for the shard's padded clauses, which have no
+//           occurrence.
+// Every value is computed with the plain version's operations in its order
+// (--fmad=false) and dv sums run in CSR order, so B6 equals its plain
+// version and B5's path bit for bit. The only reductions across threads are
+// the sat flag (stores of one value) and maxima of non-negative floats
+// (integer atomicMax on their bits), both independent of order: repeats
+// are bit-identical. What bounds it: device-memory bytes (v, xs and xl
+// cross memory every step) and the L2 traffic of the occurrence gathers.
 enum ChunkPhase { kStep = 0, kApply = 1, kFirst = 2, kHalf = 3, kCommit = 4 };
 
-template <int PHASE, bool PAPER, bool BF16>
-__global__ void shard_chunk_kernel(float* __restrict__ v_g, float* xs, float* xl,
-                                   float* __restrict__ dt_g, unsigned char* __restrict__ done_g,
-                                   float* __restrict__ acc, float* __restrict__ acc2,
-                                   float* __restrict__ err_g, float* __restrict__ dxs1,
-                                   float* __restrict__ dxl1, Tables f, Scalars s, Place p,
-                                   float* scratch, long long row_words, int apply) {
-  const int traj = blockIdx.x;
-  const int Np = f.Np, Mp = f.Mp;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const bool fixed = PHASE == kStep || PHASE == kApply;
+// clause_min2 for lane r of a tile: v is the tile's (Np, R) block.
+template <int R, bool BF16>
+__device__ __forceinline__ bool tile_min2(const Tables& f, const float* __restrict__ v, int r,
+                                          int m, float* m1o, float* m2o) {
+  const int c0 = __ldg(f.lit_code + m);
+  if (c0 < 0) {
+    *m1o = 0.0f;
+    *m2o = 0.0f;
+    return false;
+  }
+  float m1 = lit_value<float, BF16>(__ldg(v + static_cast<size_t>(c0 >> 1) * R + r), c0 & 1);
+  float m2 = __int_as_float(0x7f800000);  // +inf
+  for (int k = 1; k < f.K; ++k) {
+    const int ck = __ldg(f.lit_code + static_cast<size_t>(k) * f.Mp + m);
+    if (ck < 0) continue;  // padding slot: +inf never changes m1, m2
+    const float val = lit_value<float, BF16>(__ldg(v + static_cast<size_t>(ck >> 1) * R + r),
+                                             ck & 1);
+    m2 = vmin(m2, vmax(m1, val));
+    m1 = vmin(m1, val);
+  }
+  *m1o = m1;
+  *m2o = m2;
+  return true;
+}
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* smem = reinterpret_cast<float*>(smem_raw);
-  float* row = scratch + static_cast<size_t>(traj) * row_words;
-  float* v = placed(p.off[V], smem, row);
-  float* vg = v_g + static_cast<size_t>(traj) * Np;
-  float* a1 = acc + static_cast<size_t>(traj) * (Np + 1);
-  const size_t crow = static_cast<size_t>(traj) * Mp;
+// The word of trajectory r of tile g at row x of a (G, rows, R) buffer.
+template <int R>
+__device__ __forceinline__ size_t at(int g, int rows, int x, int r) {
+  return (static_cast<size_t>(g) * rows + x) * R + r;
+}
 
-  bool done = done_g[traj] != 0;
-  float dt = fixed ? s.dt_fixed : dt_g[traj];
-  if (PHASE == kApply || PHASE == kCommit || ((PHASE == kStep || PHASE == kFirst) && apply)) {
-    // the reduced result of the previous launch, applied to this row
-    const float dtc = done ? 0.0f : dt;
-    const bool allsat = a1[Np] == 0.0f;
-    if (fixed) {
-      for (int i = tid; i < Np; i += nt) {
-        const float x = clampf(vg[i] + dtc * a1[i], -1.0f, 1.0f);
-        v[i] = x;
-        vg[i] = x;
-      }
-    } else {
-      const float* a2 = acc2 + static_cast<size_t>(traj) * Np;
-      const float half = 0.5f * dtc;
-      const bool adv = !done && !allsat;
-      float e = 0.0f;
-      for (int i = tid; i < Np; i += nt) {
-        const float v0 = vg[i];
-        const float fv = clampf(v0 + dtc * a1[i], -1.0f, 1.0f);
-        const float hv = clampf(v0 + half * a1[i], -1.0f, 1.0f);
-        const float tv = clampf(hv + half * a2[i], -1.0f, 1.0f);
-        e = fmaxf(e, fabsf(fv - tv));
-        const float x = adv ? tv : v0;
-        v[i] = x;
-        vg[i] = x;
-      }
-      e = fmaxf(err_g[traj], block_max(e, smem));
-      const float ratio = s.tol / fmaxf(e, 1e-30f);
-      if (adv) dt = clampf(dt * sqrtf(ratio), kDtMin, kDtMax);
-    }
-    done = done || allsat;
-    __syncthreads();  // every thread has read a1[Np] and published v
-    if (tid == 0) {
-      done_g[traj] = done ? 1 : 0;
-      if (!fixed) dt_g[traj] = dt;
-    }
-    if (PHASE == kApply || PHASE == kCommit) return;
-  } else if (PHASE == kHalf) {
-    const float half = 0.5f * (done ? 0.0f : dt);
-    for (int i = tid; i < Np; i += nt) v[i] = clampf(vg[i] + half * a1[i], -1.0f, 1.0f);
-    __syncthreads();
+// Publish a per-trajectory max of non-negative floats: the CTA's maxima
+// meet in shared memory, then one global atomicMax a trajectory.
+template <int R>
+__device__ __forceinline__ void publish_max(int* s_max, float e, int* out) {
+  if (e != 0.0f) atomicMax(s_max + tile::lane<R>(), __float_as_int(e));
+  __syncthreads();
+  if (threadIdx.x < R && s_max[threadIdx.x] != 0) atomicMax(out + threadIdx.x, s_max[threadIdx.x]);
+}
+
+template <int R, bool FIXED>
+__global__ void __launch_bounds__(tile::kThreads)
+    chunk_apply_kernel(float* __restrict__ v, const float* __restrict__ acc,
+                       const float* __restrict__ acc2, const float* __restrict__ dt,
+                       const unsigned char* __restrict__ done, int* __restrict__ errbits,
+                       float dt_fixed, int Np) {
+  __shared__ int s_max[R];
+  const int g = blockIdx.x, r = tile::lane<R>(), t = g * R + r;
+  if (!FIXED && threadIdx.x < R) s_max[threadIdx.x] = 0;
+  const bool d = done[t] != 0;
+  const float dtc = d ? 0.0f : (FIXED ? dt_fixed : dt[t]);
+  float* vt = v + at<R>(g, Np, 0, 0);
+  const float* a1 = acc + at<R>(g, Np + 1, 0, 0);
+  if constexpr (FIXED) {
+    tile::for_items<R>(Np, [&](int i) {
+      const size_t k = static_cast<size_t>(i) * R + r;
+      vt[k] = clampf(vt[k] + dtc * a1[k], -1.0f, 1.0f);
+    });
   } else {
-    for (int i = tid; i < Np; i += nt) v[i] = vg[i];
-    __syncthreads();
+    const float* a2 = acc2 + at<R>(g, Np, 0, 0);
+    const bool adv = !d && a1[static_cast<size_t>(Np) * R + r] != 0.0f;  // !allsat
+    const float half = 0.5f * dtc;
+    float e = 0.0f;
+    __syncthreads();  // s_max cleared
+    tile::for_items<R>(Np, [&](int i) {
+      const size_t k = static_cast<size_t>(i) * R + r;
+      const float v0 = vt[k];
+      const float fv = clampf(v0 + dtc * a1[k], -1.0f, 1.0f);
+      const float hv = clampf(v0 + half * a1[k], -1.0f, 1.0f);
+      const float tv = clampf(hv + half * a2[k], -1.0f, 1.0f);
+      e = fmaxf(e, fabsf(fv - tv));
+      if (adv) vt[k] = tv;
+    });
+    publish_max<R>(s_max, e, errbits + g * R);
   }
+}
 
-  const float dtc = done ? 0.0f : dt;
-  float* m1 = placed(p.off[M1], smem, row);
-  float* m2 = placed(p.off[M2], smem, row);
-  if constexpr (PHASE == kStep) {
-    const float sat = shard_pass<kFixed, PAPER, BF16>(f, s, v, m1, m2, nullptr, nullptr, smem,
-                                                      xs + crow, xl + crow, nullptr, nullptr,
-                                                      nullptr, nullptr, a1, dtc, false);
-    if (tid == 0) a1[Np] = 1.0f - sat;
-  } else if constexpr (PHASE == kFirst) {
-    const float sat = shard_pass<kRhs, PAPER, BF16>(f, s, v, m1, m2, nullptr, nullptr, smem,
-                                                    xs + crow, xl + crow, nullptr, nullptr,
-                                                    dxs1 + crow, dxl1 + crow, a1, 0.0f, false);
-    if (tid == 0) a1[Np] = 1.0f - sat;
-  } else if constexpr (PHASE == kHalf) {
-    const bool adv = !done && a1[Np] != 0.0f;
-    const float e = shard_pass<kSecond, PAPER, BF16>(
-        f, s, v, m1, m2, placed(p.off[HXS], smem, row), placed(p.off[HXL], smem, row), smem,
-        xs + crow, xl + crow, dxs1 + crow, dxl1 + crow, nullptr, nullptr,
-        acc2 + static_cast<size_t>(traj) * Np, dtc, adv);
-    if (tid == 0) err_g[traj] = e;
+// One thread a trajectory, after apply (`applied`) or alone.
+template <bool FIXED>
+__global__ void chunk_head_kernel(float* __restrict__ acc, float* __restrict__ dt,
+                                  unsigned char* __restrict__ done,
+                                  const float* __restrict__ err, int* __restrict__ errbits,
+                                  float tol, int Np, int R, int n, int applied, int clear_flag) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+  float* flag = acc + (static_cast<size_t>(t / R) * (Np + 1) + Np) * R + t % R;
+  if (applied) {
+    const bool d = done[t] != 0;
+    const bool allsat = *flag == 0.0f;
+    if (!FIXED) {
+      const float e = fmaxf(err[t], __int_as_float(errbits[t]));
+      errbits[t] = 0;
+      const float ratio = tol / fmaxf(e, 1e-30f);
+      if (!d && !allsat) dt[t] = clampf(dt[t] * sqrtf(ratio), kDtMin, kDtMax);
+    }
+    done[t] = (d || allsat) ? 1 : 0;
   }
+  if (clear_flag) *flag = 0.0f;
+}
+
+template <int R>
+__global__ void __launch_bounds__(tile::kThreads)
+    chunk_hv_kernel(const float* __restrict__ v, const float* __restrict__ acc,
+                    const float* __restrict__ dt, const unsigned char* __restrict__ done,
+                    float* __restrict__ hv, float* __restrict__ err, int Np) {
+  const int g = blockIdx.x, r = tile::lane<R>(), t = g * R + r;
+  const float half = 0.5f * (done[t] ? 0.0f : dt[t]);
+  const float* vt = v + at<R>(g, Np, 0, 0);
+  const float* a1 = acc + at<R>(g, Np + 1, 0, 0);
+  float* ht = hv + at<R>(g, Np, 0, 0);
+  tile::for_items<R>(Np, [&](int i) {
+    const size_t k = static_cast<size_t>(i) * R + r;
+    ht[k] = clampf(vt[k] + half * a1[k], -1.0f, 1.0f);
+  });
+  if (blockIdx.y == 0 && threadIdx.x < R) err[t] = 0.0f;  // the pass's max starts at 0
+}
+
+// The clause side of a pass in MODE (ShardMode) for the clause word k of
+// one trajectory, from its running min m1 (`real`: the clause has a
+// literal), its memories x0, l0 and, for kSecond, the first pass's d1s,
+// d1l and the half-step memories hxs, hxl: kFixed writes the Euler update
+// to xs_out, xl_out; kRhs writes dxs1, dxl1; kSecond writes the two half
+// steps (the memories unchanged unless `adv`) to xs_out, xl_out and takes
+// the step-doubling error into e. Returns whether the clause is
+// unsatisfied. B5's arithmetic (shard_pass), operation for operation.
+template <int MODE>
+__device__ __forceinline__ bool clause_side(bool real, float m1, float x0, float l0, float d1s,
+                                            float d1l, float hxs, float hxl, size_t k, float dtc,
+                                            bool adv, float* xs_out, float* xl_out, float* dxs1,
+                                            float* dxl1, const Scalars& s, float& e) {
+  using C = K_<float>;
+  const float c = 0.5f * m1;
+  float dxs = 0.0f, dxl = 0.0f;
+  if (real) {
+    dxs = C::beta * ((MODE == kSecond ? hxs : x0) + C::eps) * (c - C::gamma);
+    dxl = C::alpha * (c - C::delta);
+  }
+  if constexpr (MODE == kFixed) {
+    xs_out[k] = clampf(x0 + dtc * dxs, C::eps, C::xs_hi);
+    xl_out[k] = clampf(l0 + dtc * dxl, 1.0f, s.xl_cap);
+  } else if constexpr (MODE == kRhs) {
+    dxs1[k] = dxs;
+    dxl1[k] = dxl;
+  } else {
+    const float half = 0.5f * dtc;
+    const float txs = clampf(hxs + half * dxs, C::eps, C::xs_hi);
+    const float txl = clampf(hxl + half * dxl, 1.0f, s.xl_cap);
+    const float fxs = clampf(x0 + dtc * d1s, C::eps, C::xs_hi);
+    const float fxl = clampf(l0 + dtc * d1l, 1.0f, s.xl_cap);
+    e = fmaxf(e, fmaxf(fabsf(fxs - txs), fabsf(fxl - txl)));
+    xs_out[k] = adv ? txs : x0;
+    xl_out[k] = adv ? txl : l0;
+  }
+  return real && !(c < C::gamma);
+}
+
+// The step a trajectory's pass takes (0 when done) and, for kSecond, its
+// advance flag (not done and not all satisfied after the first pass).
+template <int MODE>
+__device__ __forceinline__ float pass_dt(const unsigned char* done, const float* dt,
+                                         const float* flag, const Scalars& s, int t, bool* adv) {
+  const bool d = done[t] != 0;
+  *adv = MODE == kSecond && !d && *flag != 0.0f;
+  return d ? 0.0f : (MODE == kFixed ? s.dt_fixed : (MODE == kSecond ? dt[t] : 0.0f));
+}
+
+// Publish the CTA's sat flags (kFixed, kRhs: acc[Np] = 1 where a clause
+// was unsatisfied) or its error maxima (kSecond) per trajectory.
+template <int R, int MODE>
+__device__ __forceinline__ void publish(int* s_red, int unsat, float e, float* acc, float* err,
+                                        int g, int Np) {
+  if constexpr (MODE == kSecond) {
+    publish_max<R>(s_red, e, reinterpret_cast<int*>(err) + g * R);
+  } else {
+    if (unsat) s_red[tile::lane<R>()] = 1;
+    __syncthreads();
+    if (threadIdx.x < R && s_red[threadIdx.x]) acc[at<R>(g, Np + 1, Np, threadIdx.x)] = 1.0f;
+  }
+}
+
+// A pass in MODE over the span's variables: dv of each variable over its
+// CSR list into `out` (rows: Np + 1 for acc, Np for acc2; v is hv for
+// kSecond, whose clause memories are the half step's, recomputed per
+// occurrence from xs, dxs1, xl, dxl1). The clause side runs once for each
+// real clause, at the first occurrence in its slot-0 variable's list (the
+// lists run in clause, then slot order); kFixed and kSecond write the new
+// memories to xs_out, xl_out, the chunk's second copy, since other
+// occurrences still read the old ones.
+template <int R, int MODE, bool PAPER, bool BF16>
+__global__ void __launch_bounds__(tile::kThreads)
+    chunk_pass_kernel(const float* __restrict__ v, const float* __restrict__ xs,
+                      const float* __restrict__ xl, float* __restrict__ xs_out,
+                      float* __restrict__ xl_out, float* dxs1, float* dxl1,
+                      const float* __restrict__ dt, const unsigned char* __restrict__ done,
+                      float* out, int rows, float* acc, float* __restrict__ err, Tables f,
+                      Scalars s) {
+  using C = K_<float>;
+  __shared__ int s_red[R];
+  const int g = blockIdx.x, r = tile::lane<R>();
+  const int Np = f.Np;
+  if (threadIdx.x < R) s_red[threadIdx.x] = 0;
+  __syncthreads();
+  bool adv;
+  const float dtc = pass_dt<MODE>(done, dt, acc + at<R>(g, Np + 1, Np, r), s, g * R + r, &adv);
+  const float half = 0.5f * dtc;
+  const float* vt = v + at<R>(g, Np, 0, 0);
+  const size_t c0 = at<R>(g, f.Mp, 0, 0);
+  float* ot = out + at<R>(g, rows, 0, 0);
+  int unsat = 0;
+  float e = 0.0f;
+  tile::for_items<R>(Np, [&](int i) {
+    const float vi = vt[static_cast<size_t>(i) * R + r];
+    float dv = 0.0f;
+    int prev = -1;
+    const int end = __ldg(f.occ_ptr + i + 1);
+    for (int j = __ldg(f.occ_ptr + i); j < end; ++j) {
+      const int oc = __ldg(f.occ_code + j);
+      const int m = oc >> 1;
+      float m1, m2;
+      tile_min2<R, BF16>(f, vt, r, m, &m1, &m2);
+      const size_t k = c0 + static_cast<size_t>(m) * R + r;
+      const float x0 = __ldg(xs + k), l0 = __ldg(xl + k);
+      float cxs = x0, cxl = l0, d1s = 0.0f, d1l = 0.0f;
+      if constexpr (MODE == kSecond) {
+        d1s = __ldg(dxs1 + k);
+        d1l = __ldg(dxl1 + k);
+        cxs = clampf(x0 + half * d1s, C::eps, C::xs_hi);
+        cxl = clampf(l0 + half * d1l, 1.0f, s.xl_cap);
+      }
+      const float val = lit_value<float, BF16>(vi, oc & 1);
+      dv += contribution<float, PAPER, BF16>(val, m1, m2, cxs, cxl, s.zeta, oc & 1);
+      if (m != prev && (__ldg(f.lit_code + m) >> 1) == i &&
+          clause_side<MODE>(true, m1, x0, l0, d1s, d1l, cxs, cxl, k, dtc, adv, xs_out, xl_out,
+                            dxs1, dxl1, s, e))
+        unsat = 1;
+      prev = m;
+    }
+    ot[static_cast<size_t>(i) * R + r] = dv;
+  });
+  publish<R, MODE>(s_red, unsat, e, acc, err, g, Np);
+}
+
+// The clause side of a pass for the shard's padded clauses (`pads`, n of
+// them), which have no occurrence.
+template <int R, int MODE>
+__global__ void __launch_bounds__(tile::kThreads)
+    chunk_pad_kernel(const float* __restrict__ xs, const float* __restrict__ xl,
+                     float* __restrict__ xs_out, float* __restrict__ xl_out, float* dxs1,
+                     float* dxl1, const float* __restrict__ dt,
+                     const unsigned char* __restrict__ done, float* acc,
+                     float* __restrict__ err, const int* __restrict__ pads, int n, int Np, int Mp,
+                     Scalars s) {
+  using C = K_<float>;
+  __shared__ int s_red[R];
+  const int g = blockIdx.x, r = tile::lane<R>();
+  if (threadIdx.x < R) s_red[threadIdx.x] = 0;
+  __syncthreads();
+  bool adv;
+  const float dtc = pass_dt<MODE>(done, dt, acc + at<R>(g, Np + 1, Np, r), s, g * R + r, &adv);
+  const float half = 0.5f * dtc;
+  const size_t c0 = at<R>(g, Mp, 0, 0);
+  float e = 0.0f;
+  tile::for_items<R>(n, [&](int p) {
+    const size_t k = c0 + static_cast<size_t>(__ldg(pads + p)) * R + r;
+    const float x0 = xs[k], l0 = xl[k];
+    float hxs = 0.0f, hxl = 0.0f, d1s = 0.0f, d1l = 0.0f;
+    if constexpr (MODE == kSecond) {
+      d1s = dxs1[k];
+      d1l = dxl1[k];
+      hxs = clampf(x0 + half * d1s, C::eps, C::xs_hi);
+      hxl = clampf(l0 + half * d1l, 1.0f, s.xl_cap);
+    }
+    clause_side<MODE>(false, 0.0f, x0, l0, d1s, d1l, hxs, hxl, k, dtc, adv, xs_out, xl_out, dxs1,
+                      dxl1, s, e);
+  });
+  publish<R, MODE>(s_red, 0, e, acc, err, g, Np);
+}
+
+// The pointers and sizes of one B6 launch (null where a phase reads none).
+struct ChunkArgs {
+  float *v, *xs, *xl, *xs2, *xl2, *dt;
+  unsigned char* done;
+  float *acc, *acc2, *err, *dxs1, *dxl1, *hv;
+  int* errbits;
+  const int* pads;
+  int n_pads;
+  Tables f;
+  Scalars s;
+  int G;
+  bool paper, bf16;
+};
+
+// A pass in MODE: chunk_pass_kernel over the variables, then
+// chunk_pad_kernel over the padded clauses.
+template <int R, int MODE>
+void launch_pass(const ChunkArgs& a, const float* v, float* out, int rows, cudaStream_t st) {
+  const dim3 grid = tile::grid(a.G, R, a.f.Np);
+#define ODESAT_PASS(P, H)                                                                  \
+  chunk_pass_kernel<R, MODE, P, H><<<grid, tile::kThreads, 0, st>>>(                       \
+      v, a.xs, a.xl, a.xs2, a.xl2, a.dxs1, a.dxl1, a.dt, a.done, out, rows, a.acc, a.err, a.f, \
+      a.s)
+  if (a.paper) {
+    if (a.bf16) ODESAT_PASS(true, true); else ODESAT_PASS(true, false);
+  } else {
+    if (a.bf16) ODESAT_PASS(false, true); else ODESAT_PASS(false, false);
+  }
+#undef ODESAT_PASS
+  if (a.n_pads > 0)
+    chunk_pad_kernel<R, MODE><<<tile::grid(a.G, R, a.n_pads), tile::kThreads, 0, st>>>(
+        a.xs, a.xl, a.xs2, a.xl2, a.dxs1, a.dxl1, a.dt, a.done, a.acc, a.err, a.pads, a.n_pads,
+        a.f.Np, a.f.Mp, a.s);
+}
+
+// One B6 launch in `phase`: the kernel sequence above on stream `st`.
+template <int R>
+int shard_chunk_phase(int phase, bool apply, const ChunkArgs& a, cudaStream_t st) {
+  const int Np = a.f.Np;
+  const bool fixed = phase == kStep || phase == kApply;
+  const bool tail = phase == kApply || phase == kCommit;
+  const bool applied = tail || ((phase == kStep || phase == kFirst) && apply);
+  const dim3 vgrid = tile::grid(a.G, R, Np);
+  if (applied) {
+    if (fixed)
+      chunk_apply_kernel<R, true><<<vgrid, tile::kThreads, 0, st>>>(
+          a.v, a.acc, nullptr, nullptr, a.done, nullptr, a.s.dt_fixed, Np);
+    else
+      chunk_apply_kernel<R, false><<<vgrid, tile::kThreads, 0, st>>>(
+          a.v, a.acc, a.acc2, a.dt, a.done, a.errbits, 0.0f, Np);
+  }
+  if (phase != kHalf) {
+    const int n = a.G * R;
+    const int blocks = (n + tile::kThreads - 1) / tile::kThreads;
+    if (fixed)
+      chunk_head_kernel<true><<<blocks, tile::kThreads, 0, st>>>(
+          a.acc, nullptr, a.done, nullptr, nullptr, 0.0f, Np, R, n, applied, !tail);
+    else
+      chunk_head_kernel<false><<<blocks, tile::kThreads, 0, st>>>(
+          a.acc, a.dt, a.done, a.err, a.errbits, a.s.tol, Np, R, n, applied, !tail);
+  }
+  if (tail) return static_cast<int>(cudaGetLastError());
+  if (phase == kHalf) {
+    chunk_hv_kernel<R><<<vgrid, tile::kThreads, 0, st>>>(a.v, a.acc, a.dt, a.done, a.hv, a.err,
+                                                         Np);
+    launch_pass<R, kSecond>(a, a.hv, a.acc2, Np, st);
+  } else if (phase == kStep) {
+    launch_pass<R, kFixed>(a, a.v, a.acc, Np + 1, st);
+  } else {
+    launch_pass<R, kRhs>(a, a.v, a.acc, Np + 1, st);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Refuse a placement that would run off the shared memory it is launched
@@ -800,52 +1091,33 @@ int shard_stream_launch(int mode, const float* v_in, const float* dt_in,
 }
 
 // B6 in phase 0 (step), 1 (apply), 2 (first), 3 (half) or 4 (commit); see
-// ChunkPhase. `apply` (phases 0 and 2) applies the previous launch's reduced
-// result first. Pointers a phase does not use may be null. Returns a
-// cudaError_t code.
-int shard_chunk_launch(int phase, float* v, float* xs, float* xl, float* dt, unsigned char* done,
-                       float* acc, float* acc2, float* err, float* dxs1, float* dxl1,
-                       const int* lit_code, const int* occ_ptr, const int* occ_code,
-                       float* scratch, const long long* place, long long row_words,
-                       int smem_bytes, int B, int Np, int Mp, int K, int paper, int bf16,
-                       int threads, float zeta, float dt_fixed, float tol, float xl_cap,
-                       int apply, void* stream) {
-  Place p;
-  for (int i = 0; i < kItems; ++i) p.off[i] = place[i];
-  bool used[kItems] = {};
-  used[V] = used[M1] = used[M2] = true;
-  used[HXS] = used[HXL] = phase == kHalf;
-  const size_t smem = static_cast<size_t>(smem_bytes);
-  if (phase < kStep || phase > kCommit || smem_bytes > smem_optin() ||
-      !placement_ok(p, used, Np, Mp, smem, sizeof(float)))
+// ChunkPhase. The buffers are in the tile layout of tile.cuh with R =
+// tile::kR trajectories a tile: v, hv (G, Np, R); xs, xl, xs2, xl2, dxs1,
+// dxl1 (G, Mp, R); acc (G, Np+1, R); acc2 (G, Np, R); dt, done, err,
+// errbits (G, R). `apply` (phases 0 and 2) applies the previous launch's
+// reduced result first. step and half write the new clause memories to
+// xs2, xl2 (the caller swaps the two copies); `pads` lists the shard's
+// n_pads padded clauses. `hv` and `errbits` are the adaptive chunk's
+// scratch (errbits zero between launches). Pointers a phase does not use
+// may be null. Returns a cudaError_t code (0 = launched).
+int shard_chunk_launch(int phase, int apply, float* v, float* xs, float* xl, float* dt,
+                       unsigned char* done, float* acc, float* acc2, float* err, float* dxs1,
+                       float* dxl1, float* xs2, float* xl2, float* hv, int* errbits,
+                       const int* pads, int n_pads, const int* lit_code, const int* occ_ptr,
+                       const int* occ_code, int G, int R, int Np, int Mp, int K, int paper,
+                       int bf16, float zeta, float dt_fixed, float tol, float xl_cap,
+                       void* stream) {
+  if (phase < kStep || phase > kCommit || G < 1 || R != tile::kR || n_pads < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Tables f{lit_code, occ_ptr, occ_code, Np, Mp, K};
-  const Scalars s{zeta, dt_fixed, tol, xl_cap};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define ODESAT_CHUNK(PH, P, H)                                                                \
-  return launch(shard_chunk_kernel<PH, P, H>, B, threads, smem, st, v, xs, xl, dt, done, acc, \
-                acc2, err, dxs1, dxl1, f, s, p, scratch, row_words, apply)
-#define ODESAT_CHUNK_PHASE(PH)             \
-  if (paper) {                             \
-    if (bf16) ODESAT_CHUNK(PH, true, true); \
-    ODESAT_CHUNK(PH, true, false);         \
-  }                                        \
-  if (bf16) ODESAT_CHUNK(PH, false, true);  \
-  ODESAT_CHUNK(PH, false, false)
-  switch (phase) {
-    case kStep:
-      ODESAT_CHUNK_PHASE(kStep);
-    case kApply:
-      ODESAT_CHUNK_PHASE(kApply);
-    case kFirst:
-      ODESAT_CHUNK_PHASE(kFirst);
-    case kHalf:
-      ODESAT_CHUNK_PHASE(kHalf);
-    default:
-      ODESAT_CHUNK_PHASE(kCommit);
-  }
-#undef ODESAT_CHUNK_PHASE
-#undef ODESAT_CHUNK
+  const ChunkArgs a{v,       xs,     xl,
+                    xs2,     xl2,    dt,
+                    done,    acc,    acc2,
+                    err,     dxs1,   dxl1,
+                    hv,      errbits, pads,
+                    n_pads,  Tables{lit_code, occ_ptr, occ_code, Np, Mp, K},
+                    Scalars{zeta, dt_fixed, tol, xl_cap},
+                    G,       paper != 0, bf16 != 0};
+  return shard_chunk_phase<tile::kR>(phase, apply != 0, a, static_cast<cudaStream_t>(stream));
 }
 
 const char* stream_chunk_error_string(int code) {

@@ -2,8 +2,8 @@
 
 Each ``csrc/*.cu`` file is compiled on its own into a shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds), for
-Hopper only (``sm_90a``). The library is keyed on a hash of the source
-and the compiler flags, the way ``odesat_tpu/native`` keys its g++ build,
+Hopper only (``sm_90a``). The library is keyed on a hash of the source,
+the ``csrc/*.cuh`` headers and the compiler flags, the way ``odesat_tpu/native`` keys its g++ build,
 and cached under ``csrc/_build/`` (listed in ``.gitignore``), so a process
 reuses an earlier process's build of the same source.
 
@@ -53,9 +53,13 @@ def find_nvcc() -> str:
 
 
 def _source_key(path: str) -> str:
+    """A hash of the source, the headers beside it (``csrc/*.cuh``) and the
+    flags."""
     h = hashlib.sha256()
-    with open(path, "rb") as fh:
-        h.update(fh.read())
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    for name in [path, *(os.path.join(_CSRC, f) for f in headers)]:
+        with open(name, "rb") as fh:
+            h.update(fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 

@@ -13,7 +13,7 @@ with one all-reduce after each pass. Everything else the TPU kernel did
 runs in those launches: each one first applies the previous launch's
 reduced result to the trajectory (the v update and done latch; for the
 adaptive integrator the commit, the step-doubling error and the dt
-control), then runs the shard's next pass with B5's device code. A fixed
+control), then runs the shard's next pass with B5's arithmetic. A fixed
 step is therefore one launch and one all-reduce with no torch operation
 between them; an adaptive step is two launches and three all-reduces (dv1
 with the sat count; dv2; the error with MAX); a chunk ends with one
@@ -22,13 +22,13 @@ apply-only launch.
 Phases (:data:`PHASES`; buffers of :class:`ChunkBuffers`):
 
 * ``step``: fixed; [apply] then the fixed pass: ``acc`` = (dv partial |
-  1 - sat), xs and xl updated in place;
+  1 - sat), xs and xl updated;
 * ``apply``: fixed; apply only (the chunk's last launch);
 * ``first``: adaptive; [commit] then pass 1: ``acc`` = (dv1 partial | 1 -
   sat), ``dxs1``/``dxl1`` staged;
 * ``half``: adaptive; the half step ``hv`` from the reduced ``acc``, pass 2
   there: ``acc2`` = dv2 partial, ``err`` = the shard's error, xs and xl
-  committed in place under the advance flag;
+  committed under the advance flag;
 * ``commit``: adaptive; commit only (the chunk's last launch).
 
 ``done`` between launches is the done the last pass ran with: the next
@@ -38,15 +38,30 @@ same state bit for bit; the all-reduce returns the same bytes to every
 rank, so ``v`` stays replicated (``parallel/sharded.check_replicated``
 checks it).
 
+Design for the card: the runner interleaves the chunk's buffers by tiles
+of ``TILE`` = 32 trajectories (``ops/tiles.py``) once at entry and once
+at exit, and every launch and all-reduce in between works on the tiled
+buffers (the all-reduce is elementwise). A launch is a short sequence of
+kernels over (tile, span of clauses or variables), with a tile's
+trajectories on the lanes of a group: each table word is read once for 32
+trajectories and each gather moves a whole 128-byte line; the clause words
+m1, m2 are recomputed from ``v`` for every occurrence instead of being
+stored, the clause side of a pass runs inside the variable pass, at each
+clause's first occurrence, and nothing of a trajectory lives in shared
+memory (``csrc/stream_chunk.cu``). The chunk's scratch, allocated once a
+chunk (:func:`chunk_scratch`), is a second copy of xs and xl, into which a
+pass writes the new clause memories while other occurrences still read
+the old ones, and for the adaptive integrator the half step ``hv`` and an
+error word a trajectory.
+
 What bounds it: device-memory bytes, as for B5 (v, xs and xl cross device
-memory every step), plus the reduced (B, Np+1) buffer read back. The design
-removes the torch operations B5's step ran on (B, Np) tensors between
-launches (the v update, dt control and done latch), which cost about as
-much as the kernel's own v traffic.
+memory every step), plus the reduced (B, Np+1) buffer read back.
 
 The plain version (:func:`shard_chunk_plain`) is the same phases in torch
-ops over B5's plain versions. The wrappers launch the kernel for CUDA
-tensors and the plain version for CPU tensors; anything else raises.
+ops over B5's plain versions, in the ``(B, X)`` layout;
+:func:`shard_chunk_phase` runs it on tiled CPU buffers by untiling them.
+The wrappers launch the kernel for CUDA tensors and the plain version for
+CPU tensors; anything else raises.
 """
 
 from __future__ import annotations
@@ -60,13 +75,13 @@ from odesat_tpu_torch.ops.fused_chunk import _clamp, check_chunk_config
 from odesat_tpu_torch.ops.shard_stream import (
     ShardSpec,
     shard_fixed_plain,
-    shard_layout,
     shard_rhs_plain,
     shard_second_plain,
     shard_spec,
     stream_shard_supported,
 )
-from odesat_tpu_torch.ops.stream_chunk import kernel_threads, load_library, place_arg, raise_for
+from odesat_tpu_torch.ops.stream_chunk import load_library, raise_for
+from odesat_tpu_torch.ops.tiles import TILE, n_tiles, rows_of, tile, untile
 
 # Kernel launches made through shard_chunk_cuda in this process (every
 # phase). A plain integer that callers may reset; chip_smoke.py reads it.
@@ -99,11 +114,12 @@ def shard_chunk_supported(fa, plan, ode) -> bool:
 
 
 class ChunkBuffers(NamedTuple):
-    """One rank's state and the chunk's staging, as the kernel reads them:
-    v (B, Np), xs, xl (B, Mp) f32; dt (B,) f32; done (B,) bool; acc (B,
-    Np+1) the pass's partial (dv | 1 - sat) and, once reduced, its sum;
-    adaptive only: acc2 (B, Np) dv2, err (B,), dxs1, dxl1 (B, Mp). The
-    fixed integrator reads no dt."""
+    """One rank's state and the chunk's staging: v (B, Np), xs, xl (B, Mp)
+    f32; dt (B,) f32; done (B,) bool; acc (B, Np+1) the pass's partial (dv
+    | 1 - sat) and, once reduced, its sum; adaptive only: acc2 (B, Np) dv2,
+    err (B,), dxs1, dxl1 (B, Mp). The fixed integrator reads no dt. The
+    plain version takes them in this layout, the kernel tiled
+    (``ops/tiles.py``: (G, X, R) for (B, X), (G, R) for (B,))."""
 
     v: torch.Tensor
     xs: torch.Tensor
@@ -177,37 +193,85 @@ def shard_chunk_plain(phase: str, b: ChunkBuffers, spec: ShardSpec,
     return b._replace(xs=xs, xl=xl, acc2=dv2, err=err)
 
 
+def shard_chunk_plain_tiled(phase: str, b: ChunkBuffers, spec: ShardSpec,
+                            apply: bool = False) -> ChunkBuffers:
+    """:func:`shard_chunk_plain` on tiled buffers: untiled (padding rows
+    kept), run, tiled again."""
+    R, rows = b.v.shape[-1], rows_of(b.v)
+    out = shard_chunk_plain(phase, ChunkBuffers(*(None if t is None else untile(t, rows)
+                                                  for t in b)), spec, apply)
+    return ChunkBuffers(*(None if t is None else tile(t, R) for t in out))
+
+
 # ---------------------------------------------------------------- kernel
 
 
-def shard_chunk_cuda(phase: str, b: ChunkBuffers, spec: ShardSpec,
-                     apply: bool = False) -> ChunkBuffers:
-    """Launch B6 once in ``phase`` on the current stream; the buffers are
-    updated in place and returned. Raises if a buffer is not what the
-    kernel takes or the launch is refused; never falls back."""
+class ChunkScratch:
+    """A chunk's scratch, allocated once a chunk (:func:`chunk_scratch`):
+    the second copy of the clause memories xs2, xl2 (G, Mp, R) f32 into
+    which ``step`` and ``half`` write the new ones (the launch swaps the
+    copies), the shard's padded clauses ``pads`` (int32), and, adaptive
+    only, the half step hv (G, Np, R) f32 and an error word a trajectory
+    ``errbits`` (G, R) int32, zero between launches."""
+
+    def __init__(self, xs2, xl2, pads, hv=None, errbits=None):
+        self.xs2, self.xl2, self.pads, self.hv, self.errbits = xs2, xl2, pads, hv, errbits
+
+
+def chunk_scratch(b: ChunkBuffers, spec: ShardSpec) -> ChunkScratch:
+    """The scratch for tiled buffers ``b``."""
+    pads = torch.nonzero(spec.lit_code[:spec.Mp] < 0).flatten().to(torch.int32)
+    scratch = ChunkScratch(torch.empty_like(b.xs), torch.empty_like(b.xl), pads)
+    if not spec.fixed:
+        G, R = b.v.shape[0], b.v.shape[-1]
+        scratch.hv = b.v.new_empty((G, spec.Np, R))
+        scratch.errbits = torch.zeros((G, R), dtype=torch.int32, device=b.v.device)
+    return scratch
+
+
+def shard_chunk_cuda(phase: str, b: ChunkBuffers, spec: ShardSpec, apply: bool = False,
+                     scratch: Optional[ChunkScratch] = None) -> ChunkBuffers:
+    """Launch B6 once in ``phase`` on the current stream, on tiled buffers
+    (``TILE`` trajectories a tile); returns the buffers as the launch
+    leaves them: updated in place, except that ``step`` and ``half``
+    return the new clause memories in the scratch's second copy and take
+    the old ones into the scratch. ``scratch`` comes from
+    :func:`chunk_scratch` (allocated here when None). Raises if a buffer is
+    not what the kernel takes or the launch is refused; never falls back."""
     global launches
     if spec.device.type != "cuda":
         raise ValueError(f"the shard chunk kernel runs on CUDA tensors, not {spec.device}")
     if phase not in PHASES:
         raise ValueError(f"unknown phase {phase!r}")
-    B = b.v.shape[0]
-    shapes = dict(v=(B, spec.Np), xs=(B, spec.Mp), xl=(B, spec.Mp), dt=(B,), done=(B,),
-                  acc=(B, spec.Np + 1), acc2=(B, spec.Np), err=(B,), dxs1=(B, spec.Mp),
-                  dxl1=(B, spec.Mp))
-    for name, t in b._asdict().items():
+    G, R = b.v.shape[0], b.v.shape[-1]
+    if R != TILE:
+        raise ValueError(f"tiles of {R} trajectories; the kernel takes {TILE}")
+    if scratch is None:
+        scratch = chunk_scratch(b, spec)
+    clause = (G, spec.Mp, R)
+    shapes = dict(v=(G, spec.Np, R), xs=clause, xl=clause, dt=(G, R), done=(G, R),
+                  acc=(G, spec.Np + 1, R), acc2=(G, spec.Np, R), err=(G, R), dxs1=clause,
+                  dxl1=clause, xs2=clause, xl2=clause, pads=tuple(scratch.pads.shape),
+                  hv=(G, spec.Np, R), errbits=(G, R))
+    tensors = dict(b._asdict(), xs2=scratch.xs2, xl2=scratch.xl2, pads=scratch.pads,
+                   hv=scratch.hv, errbits=scratch.errbits)
+    for name, t in tensors.items():
         if t is None:
             if not spec.fixed:
                 raise ValueError(f"the adaptive chunk needs the {name} buffer")
             continue
-        dtype = torch.bool if name == "done" else torch.float32
+        dtype = {"done": torch.bool, "errbits": torch.int32, "pads": torch.int32}.get(
+            name, torch.float32)
         if (t.device != spec.device or tuple(t.shape) != shapes[name] or t.dtype != dtype
                 or not t.is_contiguous()):
             raise ValueError(f"{name} is {tuple(t.shape)} {t.dtype} on {t.device}; the kernel "
                              f"takes a contiguous {shapes[name]} {dtype} on {spec.device}")
-    if B == 0:
+    if G and {scratch.xs2.data_ptr(), scratch.xl2.data_ptr()} & {b.xs.data_ptr(),
+                                                                  b.xl.data_ptr()}:
+        raise ValueError("the scratch's clause memories are the buffers' own: pass the "
+                         "buffers a launch returned")
+    if G == 0:
         return b
-    layout = shard_layout(spec.Np, spec.Mp, not spec.fixed)
-    scratch = torch.empty((B * layout.row_words) or 1, dtype=torch.float32, device=spec.device)
     lib, _ = load_library()
 
     def ptr(t):
@@ -216,27 +280,46 @@ def shard_chunk_cuda(phase: str, b: ChunkBuffers, spec: ShardSpec,
     with torch.cuda.device(spec.device):
         stream = torch.cuda.current_stream(spec.device).cuda_stream
         rc = lib.shard_chunk_launch(
-            PHASES[phase], *(ptr(t) for t in b), spec.lit_code.data_ptr(),
-            spec.occ_ptr.data_ptr(), spec.occ_code.data_ptr(), scratch.data_ptr(),
-            place_arg(layout), layout.row_words, layout.smem_bytes, B, spec.Np, spec.Mp, spec.K,
-            int(spec.paper), int(spec.bf16), kernel_threads(spec.Mp), spec.zeta,
-            spec.dt_fixed or 0.0, spec.tol, spec.xl_cap, int(apply), stream,
+            PHASES[phase], int(apply), *(ptr(t) for t in b), scratch.xs2.data_ptr(),
+            scratch.xl2.data_ptr(), ptr(scratch.hv), ptr(scratch.errbits),
+            scratch.pads.data_ptr(), scratch.pads.numel(), spec.lit_code.data_ptr(),
+            spec.occ_ptr.data_ptr(), spec.occ_code.data_ptr(), G, R, spec.Np, spec.Mp, spec.K,
+            int(spec.paper), int(spec.bf16), spec.zeta, spec.dt_fixed or 0.0, spec.tol,
+            spec.xl_cap, stream,
         )
     raise_for(lib, rc, f"shard chunk kernel ({phase})")
     launches += 1
+    if phase in ("step", "half"):
+        old = b.xs, b.xl
+        b = b._replace(xs=scratch.xs2, xl=scratch.xl2)
+        scratch.xs2, scratch.xl2 = old
     return b
 
 
-def shard_chunk_phase(phase: str, b: ChunkBuffers, spec: ShardSpec,
-                      apply: bool = False) -> ChunkBuffers:
-    """One launch in ``phase``: B6 for CUDA buffers, its plain version for
-    CPU buffers."""
+def shard_chunk_phase(phase: str, b: ChunkBuffers, spec: ShardSpec, apply: bool = False,
+                      scratch: Optional[ChunkScratch] = None) -> ChunkBuffers:
+    """One launch in ``phase`` on tiled buffers: B6 for CUDA buffers, its
+    plain version for CPU buffers."""
     kind = b.v.device.type
     if kind == "cuda":
-        return shard_chunk_cuda(phase, b, spec, apply)
+        return shard_chunk_cuda(phase, b, spec, apply, scratch)
     if kind == "cpu":
-        return shard_chunk_plain(phase, b, spec, apply)
+        return shard_chunk_plain_tiled(phase, b, spec, apply)
     raise ValueError(f"no shard chunk path for tensors on {b.v.device}")
+
+
+def tile_state(state, spec: ShardSpec) -> ChunkBuffers:
+    """The chunk's tiled buffers for an ODE state of B rows: copies of v,
+    xs, xl, dt and done, padded with done rows, and zeroed staging."""
+    like = state.v
+    G = n_tiles(like.shape[0])
+    b = ChunkBuffers(tile(state.v), tile(state.xs), tile(state.xl, fill=1.0), tile(state.dt),
+                     tile(state.done, fill=True), like.new_zeros((G, spec.Np + 1, TILE)))
+    if not spec.fixed:
+        b = b._replace(acc2=like.new_zeros((G, spec.Np, TILE)), err=like.new_zeros((G, TILE)),
+                       dxs1=like.new_zeros((G, spec.Mp, TILE)),
+                       dxl1=like.new_zeros((G, spec.Mp, TILE)))
+    return b
 
 
 # ---------------------------------------------------------------- chunk
@@ -247,9 +330,10 @@ def make_shard_chunk(fa, zeta: float, ode, chunk_steps: int, clause_group=None,
     """``run(state, dev=None) -> state`` advancing this rank's trajectory
     rows ``chunk_steps`` steps over its clause segment (the JAX module's
     ``make_shard_chunk_call``, :158): B6's launches with the all-reduce
-    over ``clause_group`` between them (none without a group, S=1). The
-    shard is the rank's index in the group. The caller's state is never
-    written."""
+    over ``clause_group`` between them (none without a group, S=1), on the
+    rows tiled once at entry and untiled once at exit, with the scratch
+    allocated once. The shard is the rank's index in the group. The
+    caller's state is never written."""
     import torch.distributed as dist
 
     from odesat_tpu_torch.models.ode import ODEState
@@ -275,26 +359,22 @@ def make_shard_chunk(fa, zeta: float, ode, chunk_steps: int, clause_group=None,
             all_reduce(t, clause_group, op)
 
     def run(state, dev=None):
-        B, Np, Mp = state.v.shape[0], spec.Np, spec.Mp
-        like = state.v
-        b = ChunkBuffers(state.v.clone(), state.xs.clone(), state.xl.clone(), state.dt.clone(),
-                         state.done.clone(), like.new_empty((B, Np + 1)))
-        if not spec.fixed:
-            b = b._replace(acc2=like.new_empty((B, Np)), err=like.new_empty((B,)),
-                           dxs1=like.new_empty((B, Mp)), dxl1=like.new_empty((B, Mp)))
+        B = state.v.shape[0]
+        b = tile_state(state, spec)
+        scratch = chunk_scratch(b, spec) if b.v.device.type == "cuda" else None
         for t in range(chunk_steps):
             if spec.fixed:
-                b = shard_chunk_phase("step", b, spec, apply=t > 0)
+                b = shard_chunk_phase("step", b, spec, t > 0, scratch)
                 reduce(b.acc)
             else:
-                b = shard_chunk_phase("first", b, spec, apply=t > 0)
+                b = shard_chunk_phase("first", b, spec, t > 0, scratch)
                 reduce(b.acc)
-                b = shard_chunk_phase("half", b, spec)
+                b = shard_chunk_phase("half", b, spec, False, scratch)
                 reduce(b.acc2)
                 reduce(b.err, "max")
         if chunk_steps:
-            b = shard_chunk_phase("apply" if spec.fixed else "commit", b, spec)
-        return ODEState(b.v, b.xs, b.xl, b.dt, b.done)
+            b = shard_chunk_phase("apply" if spec.fixed else "commit", b, spec, False, scratch)
+        return ODEState(*(untile(t, B) for t in b[:5]))
 
     run.spec = spec
     return run

@@ -59,6 +59,7 @@ from odesat_tpu_torch.ops.fused_chunk import (
     cuda_device,
     kernel_threads,
 )
+from odesat_tpu_torch.ops.tiles import TILE, rows_of, tile, untile
 
 XL_CAP = 2**24
 _MASK = 0xFFFFFFFF
@@ -261,7 +262,7 @@ def _declare(lib) -> None:
     lib.stoch_shard_eval_launch.argtypes = [_P] * 11 + [_I] * 8 + [_P]
     lib.stoch_shard_eval_launch.restype = _I
     lib.stoch_shard_step_launch.argtypes = (
-        [_P] * 8 + [_I] * 8 + [ctypes.c_uint] + [_I] * 4 + [_P]
+        [_P] * 8 + [_I] * 7 + [ctypes.c_uint] + [_I] * 4 + [_P]
     )
     lib.stoch_shard_step_launch.restype = _I
     lib.stoch_chunk_error_string.argtypes = [_I]
@@ -477,6 +478,13 @@ def make_stoch_shard_eval(fa: FormulaArrays, device, shard: int = 0,
 # sat). The flips and their uniforms, which B8's path drew in torch, run in
 # the kernel. Same seed, blocking and step index as B8's path, so the two
 # flip for flip; the sums are integers in f32, so S=2 flips as S=1 does.
+#
+# Design: the runner tiles the chains once a chunk (``ops/tiles.py``,
+# ``TILE`` = 32 chains a tile); a launch is a few kernels over (tile, span
+# of clauses or variables) with a tile's chains on the lanes of a warp, so
+# each table word is read once for 32 chains; the signed post-update
+# weights go to a tiled int32 scratch allocated once a chunk, from which
+# the variable sums gather.
 
 shard_chunk_launches = 0  # B9 launches, as shard_launches counts B8's
 
@@ -490,10 +498,10 @@ def stoch_shard_supported(fa: FormulaArrays) -> bool:
 
 def stoch_shard_step_plain(v, xl, done, acc, spec: StochSpec, bf16: bool, seed: int, Bb: int,
                            t: int, apply: bool, evaluate: bool = True):
-    """One launch of B9 in torch ops: returns ``(v, xl, done, acc)`` as the
-    kernel leaves them. ``acc`` (B, 2*Np+1) holds the reduced sums of step
-    ``t - 1`` on entry (read when ``apply``) and the shard's partials of
-    step ``t`` on exit (when ``evaluate``)."""
+    """One launch of B9 in torch ops, on (B, X) buffers: returns ``(v, xl,
+    done, acc)`` as the kernel leaves them. ``acc`` (B, 2*Np+1) holds the
+    reduced sums of step ``t - 1`` on entry (read when ``apply``) and the
+    shard's partials of step ``t`` on exit (when ``evaluate``)."""
     Np = spec.Np
     if apply:
         chains = torch.arange(v.shape[0], device=v.device, dtype=torch.int64)
@@ -507,35 +515,53 @@ def stoch_shard_step_plain(v, xl, done, acc, spec: StochSpec, bf16: bool, seed: 
     return v, xl, done, torch.cat([total, unsat, (~sat).to(total.dtype).unsqueeze(1)], dim=1)
 
 
+def stoch_shard_step_plain_tiled(v, xl, done, acc, spec: StochSpec, bf16: bool, seed: int,
+                                 Bb: int, t: int, apply: bool, evaluate: bool = True):
+    """:func:`stoch_shard_step_plain` on tiled buffers: untiled (padding
+    rows kept, at their chain indices), run, tiled again."""
+    R, rows = v.shape[-1], rows_of(v)
+    out = stoch_shard_step_plain(*(untile(x, rows) for x in (v, xl, done, acc)), spec, bf16,
+                                 seed, Bb, t, apply, evaluate)
+    return tuple(tile(x, R) for x in out)
+
+
 def stoch_shard_step_cuda(v, xl, done, acc, spec: StochSpec, bf16: bool, seed: int, Bb: int,
-                          t: int, apply: bool, evaluate: bool = True):
-    """Launch B9 once on the current stream; v, xl, done and acc are
-    updated in place and returned. Raises if an input is not what it takes
-    or the launch is refused; never falls back."""
+                          t: int, apply: bool, evaluate: bool = True, w=None):
+    """Launch B9 once on the current stream, on tiled buffers (``TILE``
+    chains a tile): v (G, Np, R) bool, xl (G, Mp, R) int32,
+    done (G, R) bool, acc (G, 2*Np+1, R) f32, updated in place and
+    returned. ``w`` is the (G, Mp, R) int32 weight scratch (allocated here
+    when None). Raises if an input is not what it takes or the launch is
+    refused; never falls back."""
     global shard_chunk_launches
     if spec.device.type != "cuda":
         raise ValueError(f"the stoch shard chunk kernel runs on CUDA tensors, not {spec.device}")
     if not 0 <= int(seed) < 2**32:
         raise ValueError(f"seed {seed} is not a uint32")
-    _check(SimpleNamespace(v=v, xl=xl, done=done), spec)
-    B = v.shape[0]
-    if acc.device != spec.device or tuple(acc.shape) != (B, 2 * spec.Np + 1) or \
-            acc.dtype != torch.float32 or not acc.is_contiguous():
-        raise ValueError(f"acc is {tuple(acc.shape)} {acc.dtype}; the kernel takes a contiguous "
-                         f"({B}, {2 * spec.Np + 1}) float32 on {spec.device}")
-    if B == 0:
+    G, R = v.shape[0], v.shape[-1]
+    if R != TILE:
+        raise ValueError(f"tiles of {R} chains; the kernel takes {TILE}")
+    if w is None:
+        w = torch.empty((G, spec.Mp, R), dtype=torch.int32, device=spec.device)
+    want = dict(v=((G, spec.Np, R), torch.bool), xl=((G, spec.Mp, R), torch.int32),
+                done=((G, R), torch.bool), acc=((G, 2 * spec.Np + 1, R), torch.float32),
+                w=((G, spec.Mp, R), torch.int32))
+    for name, x in dict(v=v, xl=xl, done=done, acc=acc, w=w).items():
+        shape, dtype = want[name]
+        if (x.device != spec.device or tuple(x.shape) != shape or x.dtype != dtype
+                or not x.is_contiguous()):
+            raise ValueError(f"{name} is {tuple(x.shape)} {x.dtype} on {x.device}; the kernel "
+                             f"takes a contiguous {shape} {dtype} on {spec.device}")
+    if G == 0:
         return v, xl, done, acc
-    _, resident = stoch_shard_smem_bytes(spec)
-    scratch = torch.empty(1 if resident else B * spec.Mp, dtype=torch.int32, device=spec.device)
     lib, _ = load_library()
     with torch.cuda.device(spec.device):
         stream = torch.cuda.current_stream(spec.device).cuda_stream
         rc = lib.stoch_shard_step_launch(
-            v.data_ptr(), xl.data_ptr(), done.data_ptr(), acc.data_ptr(),
+            v.data_ptr(), xl.data_ptr(), done.data_ptr(), acc.data_ptr(), w.data_ptr(),
             spec.lit_code.data_ptr(), spec.occ_ptr.data_ptr(), spec.occ_clause.data_ptr(),
-            scratch.data_ptr(), B, spec.Np, spec.Mp, spec.K, spec.occ_clause.numel(),
-            int(resident), int(bf16), kernel_threads(spec.Mp), int(seed), int(Bb), int(t),
-            int(apply), int(evaluate), stream,
+            G, R, spec.Np, spec.Mp, spec.K, spec.occ_clause.numel(), int(bf16), int(seed),
+            int(Bb), int(t), int(apply), int(evaluate), stream,
         )
     if rc != 0:
         raise RuntimeError("stoch_shard_step_launch failed: "
@@ -550,8 +576,9 @@ def make_stoch_shard_chunk(fa: FormulaArrays, chunk_steps: int, device, shard: i
     ``chunk_steps`` steps over shard ``shard`` of ``fa.shard_plan`` (JAX
     :868): B9's launches (CUDA states) or its plain version (CPU states),
     with the sums all-reduced over ``clause_group`` between them (none
-    without a group). ``seed`` is the chunk's 31-bit PRNG seed, the same
-    on every clause rank of a row. The caller's state is never written."""
+    without a group), on the chains tiled once at entry and untiled once
+    at exit. ``seed`` is the chunk's 31-bit PRNG seed, the same on every
+    clause rank of a row. The caller's state is never written."""
     from odesat_tpu_torch.parallel.dist import all_reduce
 
     if not stoch_shard_supported(fa):
@@ -562,22 +589,26 @@ def make_stoch_shard_chunk(fa: FormulaArrays, chunk_steps: int, device, shard: i
 
     def fn(state, seed: int):
         kind = state.v.device.type
-        if kind == "cuda":
-            launch = stoch_shard_step_cuda
-        elif kind == "cpu":
-            launch = stoch_shard_step_plain
-        else:
+        if kind not in ("cuda", "cpu"):
             raise ValueError(f"no stoch shard chunk path for tensors on {state.v.device}")
         B = state.v.shape[0]
         Bb = traj_block(B)
-        v, xl, done = state.v.clone(), state.xl.clone(), state.done.clone()
-        acc = torch.empty((B, 2 * spec.Np + 1), dtype=torch.float32, device=state.v.device)
+        v, xl, done = tile(state.v), tile(state.xl, fill=1), tile(state.done, fill=True)
+        G = v.shape[0]
+        acc = torch.zeros((G, 2 * spec.Np + 1, TILE), dtype=torch.float32, device=v.device)
+        if kind == "cuda":
+            w = torch.empty((G, spec.Mp, TILE), dtype=torch.int32, device=v.device)
+
+            def launch(*args, **kw):
+                return stoch_shard_step_cuda(*args, **kw, w=w)
+        else:
+            launch = stoch_shard_step_plain_tiled
         for t in range(chunk_steps + 1):
             v, xl, done, acc = launch(v, xl, done, acc, spec, bf16, seed, Bb, t, apply=t > 0,
                                       evaluate=t < chunk_steps)
             if t < chunk_steps and clause_group is not None:
                 all_reduce(acc, clause_group)
-        return state._replace(v=v, xl=xl, done=done)
+        return state._replace(v=untile(v, B), xl=untile(xl, B), done=untile(done, B))
 
     fn.spec = spec
     return fn

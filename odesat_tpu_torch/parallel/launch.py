@@ -7,19 +7,27 @@ joins the world (``multihost.initialize_distributed`` over a ``FileStore``
 in a fresh temporary directory, so concurrent runs never share a store or
 a port), builds the :class:`~odesat_tpu_torch.parallel.mesh.Mesh` and calls
 ``fn(mesh, device, *args)``. Rank 0's return value comes back to the
-parent, with every rank's report of its kernel launch counts. A worker that raises or exits non-zero, or a run that
-outlives ``timeout_s``, makes the parent kill the others and raise.
+parent, with every rank's report of its kernel launch counts (for a
+:func:`run_all` world, each call's own as well). A worker
+that raises or exits non-zero, or a run that outlives ``timeout_s``, makes
+the parent kill the others and raise.
 
 The worker entry lives in this package, so that ``fn`` and its arguments
-unpickle in a fresh interpreter anywhere the package imports. Workers
-import no jax: each one checks. With ``device="cuda"`` the parent builds
-every CUDA source first, so that the workers only load the libraries.
+unpickle in a fresh interpreter anywhere the package imports. They travel
+in a file in the run's temporary directory, not in the process's start-up
+pipe: the parent's write into that pipe blocks until the child has read
+it, and a child reads past the first pipe-full only once it has imported
+torch, which takes seconds, so large arguments would start the ranks one
+after another. Workers import no jax: each one checks. With
+``device="cuda"`` the parent builds every CUDA source first, so that the
+workers only load the libraries.
 """
 
 from __future__ import annotations
 
 import multiprocessing as mp
 import os
+import pickle
 import queue
 import shutil
 import sys
@@ -30,8 +38,11 @@ import traceback
 from odesat_tpu_torch.parallel.multihost import DEFAULT_TIMEOUT_S, check_backend
 
 # Per-rank reports of the last spawn in this process (rank order): kernel
-# launch counts. chip_smoke.py reads them.
+# launch counts, and after run_all each call's own under "calls".
+# chip_smoke.py reads them.
 last_reports: list = []
+# This process's counts of its last run_all, one dict a call.
+call_reports: list = []
 
 _COUNTERS = (
     ("fused_chunk", "odesat_tpu_torch.ops.fused_chunk", "launches"),
@@ -57,12 +68,32 @@ def _report() -> dict:
     return {name: getattr(importlib.import_module(mod), attr) for name, mod, attr in _COUNTERS}
 
 
-def _worker(rank, world, n_clause, backend, device, store_path, timeout_s, fn, args, results):
-    """One rank: join, build the mesh, run ``fn``, report, leave."""
+def _zero_counts() -> None:
+    import importlib
+
+    for _, mod, attr in _COUNTERS:
+        setattr(importlib.import_module(mod), attr, 0)
+
+
+def _rank_report() -> dict:
+    """A rank's launch counts; after run_all, summed over its calls, with
+    each call's own under ``"calls"``."""
+    if not call_reports:
+        return _report()
+    report = {name: sum(c[name] for c in call_reports) for name, _, _ in _COUNTERS}
+    report["calls"] = list(call_reports)
+    return report
+
+
+def _worker(rank, world, n_clause, backend, device, store_path, timeout_s, payload, results):
+    """One rank: read ``(fn, args)`` from the file ``payload``, join, build
+    the mesh, run ``fn``, report, leave."""
     import torch.distributed as dist
 
     code = 0
     try:
+        with open(payload, "rb") as fh:
+            fn, args = pickle.load(fh)
         if device == "cpu":  # the ranks share the host's cores
             import torch
 
@@ -78,7 +109,7 @@ def _worker(rank, world, n_clause, backend, device, store_path, timeout_s, fn, a
         value = fn(mesh, dev, *args)
         if "jax" in sys.modules:
             raise RuntimeError("jax was imported in a worker")
-        results.put(("ok", rank, value if rank == 0 else None, _report()))
+        results.put(("ok", rank, value if rank == 0 else None, _rank_report()))
     except Exception as e:  # noqa: BLE001 - the rank's failure goes back to the parent
         code = 1
         results.put(("error", rank, type(e).__name__, f"{e}\n{traceback.format_exc()}"))
@@ -121,9 +152,12 @@ def spawn(fn, n_traj: int, n_clause: int, backend: str = "nccl", device: str = "
     results = ctx.Queue()
     tmp = tempfile.mkdtemp(prefix="odesat_dist_")
     store_path = os.path.join(tmp, "store")
+    payload = os.path.join(tmp, "payload.pkl")
+    with open(payload, "wb") as fh:
+        pickle.dump((fn, args), fh, protocol=pickle.HIGHEST_PROTOCOL)
     procs = [ctx.Process(target=_worker, daemon=True,
                          args=(r, world, n_clause, backend, device, store_path,
-                               collective_timeout_s, fn, args, results))
+                               collective_timeout_s, payload, results))
              for r in range(world)]
     try:
         for p in procs:
@@ -180,8 +214,25 @@ def spawn(fn, n_traj: int, n_clause: int, backend: str = "nccl", device: str = "
 
 def run_all(mesh, device, calls):
     """``[fn(mesh, device, *args) for fn, args in calls]``: several runs in
-    one world, which pays the ranks' start-up once."""
-    return [fn(mesh, device, *args) for fn, args in calls]
+    one world, which pays the ranks' start-up once. Every launch count is
+    set to 0 before each call and read after it, into
+    :data:`call_reports`, so that each call's launches are its own."""
+    call_reports.clear()
+    values = []
+    for fn, args in calls:
+        _zero_counts()
+        values.append(fn(mesh, device, *args))
+        call_reports.append(_report())
+    return values
+
+
+def on_mesh(mesh, device, shape, fn, *args):
+    """``fn(Mesh(*shape), device, *args)``: a run on another ``(n_traj,
+    n_clause)`` mesh of the same world, for :func:`run_all` (every rank
+    builds it, in the same order)."""
+    from odesat_tpu_torch.parallel.mesh import Mesh
+
+    return fn(Mesh(*shape), device, *args)
 
 
 def probe(mesh, device):

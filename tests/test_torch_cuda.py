@@ -487,15 +487,29 @@ def _chunk_buffers(fa, B, fixed, seed, device, shard=0):
     return b
 
 
+def _tiled(buffers):
+    from odesat_tpu_torch.ops.tiles import tile
+
+    return type(buffers)(*(None if t is None else tile(t) for t in buffers))
+
+
+def _untiled(buffers, B):
+    from odesat_tpu_torch.ops.tiles import untile
+
+    return type(buffers)(*(None if t is None else untile(t, B) for t in buffers))
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 37])
 @pytest.mark.parametrize("n_shards", [1, 2])
 @pytest.mark.parametrize("mode", ["fixed", "adaptive"])
 @pytest.mark.parametrize("rigidity", ["paper", "reference"])
 @pytest.mark.parametrize("matmul_dtype", ["float32", "bfloat16"])
-def test_shard_chunk_kernel_equals_plain(cuda, n_shards, mode, rigidity, matmul_dtype):
+def test_shard_chunk_kernel_equals_plain(cuda, B, n_shards, mode, rigidity, matmul_dtype):
     """B6 in every phase of its integrator, with and without the apply
-    prologue, equals its plain version bit for bit on every shard; the
-    launch counter moves once a launch."""
+    prologue, on tiled buffers (a ragged last tile),
+    equals its plain version bit for bit on every shard; the launch
+    counter moves once a launch."""
     from odesat_tpu_torch.ops import shard_chunk as sch
     from odesat_tpu_torch.ops import shard_stream as ss
 
@@ -508,11 +522,10 @@ def test_shard_chunk_kernel_equals_plain(cuda, n_shards, mode, rigidity, matmul_
     for s in range(n_shards):
         spec = ss.shard_spec(fa, 0.05, ode, cuda, s)
         for i, (phase, apply) in enumerate(phases):
-            b = _chunk_buffers(fa, 37, fixed, seed=10 * s + i, device=cuda)
+            b = _chunk_buffers(fa, B, fixed, seed=10 * s + i, device=cuda)
             ref = sch.shard_chunk_plain(phase, b, spec, apply)
             before = sch.launches
-            out = sch.shard_chunk_cuda(phase, sch.ChunkBuffers(
-                *(t.clone() if t is not None else None for t in b)), spec, apply)
+            out = _untiled(sch.shard_chunk_cuda(phase, _tiled(b), spec, apply), B)
             torch.cuda.synchronize()
             assert sch.launches == before + 1
             for name, a, c in zip(b._fields, out, ref):
@@ -520,17 +533,19 @@ def test_shard_chunk_kernel_equals_plain(cuda, n_shards, mode, rigidity, matmul_
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [16, 19])
 @pytest.mark.parametrize("mode", ["fixed", "adaptive"])
-def test_shard_chunk_runner_equals_b5_runner(cuda, mode):
+def test_shard_chunk_runner_equals_b5_runner(cuda, B, mode):
     """The chunk through B6 equals the per-step path through B5 bit for
-    bit, with the launch counts of its schedule."""
+    bit, with the launch counts of its schedule, at a full and a ragged
+    last tile."""
     from odesat_tpu_torch.ops import shard_chunk as sch
     from odesat_tpu_torch.ops import shard_stream as ss
 
     fa = _sharded(1, widths=(3,))
     ode = ODEConfig(step_size=0.02 if mode == "fixed" else None)
-    state = _state(fa, 16, 1, cuda)
-    state = state._replace(done=torch.arange(16, device=cuda) % 5 == 0)
+    state = _state(fa, B, 1, cuda)
+    state = state._replace(done=torch.arange(B, device=cuda) % 5 == 0)
     before = sch.launches
     out = sch.make_shard_chunk(fa, 0.05, ode, 8, None, cuda)(state)
     torch.cuda.synchronize()
@@ -541,16 +556,19 @@ def test_shard_chunk_runner_equals_b5_runner(cuda, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [7, 300])
 @pytest.mark.parametrize("n_shards", [1, 2])
 @pytest.mark.parametrize("matmul_dtype", ["float32", "bfloat16"])
-def test_stoch_shard_chunk_kernel_equals_plain(cuda, n_shards, matmul_dtype):
-    """B9 with and without the flip prologue, and the flip-only launch,
-    equals its plain version exactly on every shard."""
+def test_stoch_shard_chunk_kernel_equals_plain(cuda, B, n_shards, matmul_dtype):
+    """B9 with and without the flip prologue, and the flip-only launch, on
+    tiled chains (a ragged last tile), equals its plain version
+    exactly on every shard."""
     from odesat_tpu_torch.ops import stoch_chunk as sc
+    from odesat_tpu_torch.ops.tiles import tile, untile
 
     fa = _sharded(n_shards, widths=(1, 2, 5))
     rng = np.random.default_rng(7)
-    B, ml, Np = 300, fa.shard_plan.mp_local, fa.n_vars_padded
+    ml, Np = fa.shard_plan.mp_local, fa.n_vars_padded
     bf16 = matmul_dtype == "bfloat16"
     for s in range(n_shards):
         spec = sc.stoch_shard_spec(fa, cuda, s)
@@ -565,21 +583,22 @@ def test_stoch_shard_chunk_kernel_equals_plain(cuda, n_shards, matmul_dtype):
             args = (spec, bf16, 12345, sc.traj_block(B), 3, apply, evaluate)
             ref = sc.stoch_shard_step_plain(v, xl, done, acc, *args)
             before = sc.shard_chunk_launches
-            out = sc.stoch_shard_step_cuda(v.clone(), xl.clone(), done.clone(), acc.clone(),
-                                           *args)
+            out = sc.stoch_shard_step_cuda(*(tile(t) for t in (v, xl, done, acc)), *args)
             torch.cuda.synchronize()
             assert sc.shard_chunk_launches == before + 1
             for a, c in zip(out, ref):
-                assert torch.equal(a, c), (apply, evaluate)
+                assert torch.equal(untile(a, B), c), (apply, evaluate)
 
 
 @pytest.mark.cuda
-def test_stoch_shard_chunk_runner_equals_b8_path(cuda):
-    """The stoch clause path through B9 flips as the path through B8 does."""
+@pytest.mark.parametrize("B", [64, 45])
+def test_stoch_shard_chunk_runner_equals_b8_path(cuda, B):
+    """The stoch clause path through B9 flips as the path through B8 does,
+    at a full and a ragged last tile."""
     from odesat_tpu_torch.parallel import sharded
 
     fa = _sharded(1, widths=(3,))
-    a = sharded.run_stoch_clause(None, cuda, fa, 3, 9, 4, "float32", 64, "auto")
-    b = sharded.run_stoch_clause(None, cuda, fa, 3, 9, 4, "float32", 64, "off")
+    a = sharded.run_stoch_clause(None, cuda, fa, 3, 9, 4, "float32", B, "auto")
+    b = sharded.run_stoch_clause(None, cuda, fa, 3, 9, 4, "float32", B, "off")
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x, y)

@@ -278,3 +278,82 @@ def test_run_all_runs_several_calls_in_one_world():
     seen = launch.spawn(launch.run_all, 1, 2, "gloo", "cpu", timeout_s=120,
                         args=([(launch.probe, ()), (launch.probe, ())],))
     assert [s["shape"] for s in seen] == [{"traj": 1, "clause": 2}] * 2
+    assert [len(r["calls"]) for r in launch.last_reports] == [2, 2]  # each call's counts
+
+
+def _bump(mesh, device, n):
+    """A call that counts ``n`` B6 launches (the wrappers count only on a card)."""
+    from odesat_tpu_torch.ops import shard_chunk
+
+    shard_chunk.launches += n
+    return n
+
+
+def test_run_all_counts_each_call_on_its_own(monkeypatch):
+    """``run_all`` sets every launch count to 0 before each call and keeps
+    each call's own; a rank reports their sum and each call's."""
+    import importlib
+
+    for _, mod, attr in launch._COUNTERS:  # counts from before the calls
+        module = importlib.import_module(mod)
+        monkeypatch.setattr(module, attr, getattr(module, attr) + 7)
+    monkeypatch.setattr(launch, "call_reports", [])
+    assert launch.run_all(None, "cpu", [(_bump, (3,)), (_bump, (0,)), (_bump, (2,))]) == [3, 0, 2]
+    calls = launch._rank_report()["calls"]
+    assert [c["shard_chunk"] for c in calls] == [3, 0, 2]
+    assert not any(n for c in calls for k, n in c.items() if k != "shard_chunk")
+    assert launch._rank_report()["shard_chunk"] == 5
+
+
+@pytest.mark.parametrize("cmd,extra", [
+    ("inter", ("-b", "8", "-s", "0.01", "-n", "300", "--chunk-steps", "64")),
+    ("stoch", ("-b", "8", "-n", "300", "--chunk-steps", "64")),
+])
+def test_mesh_call_is_the_cli_mesh_solve(cmd, extra):
+    """``cli.mesh_call`` hands a ``run_all`` world what the CLI's own spawn
+    runs: the same steps and solved rows as the CLI with the same flags."""
+    argv = [cmd, "-f", os.path.join(REPO, "tests", "data", "easy.cnf"), "--seed", "1", *extra,
+            *MESH]
+    with contextlib.redirect_stdout(io.StringIO()):
+        call = cli.mesh_call(argv)
+    (result,) = launch.spawn(launch.run_all, 1, 2, "gloo", "cpu", timeout_s=120, args=([call],))
+    rc, text = _cli(*argv)
+    assert rc == 0
+    what = "chains" if cmd == "stoch" else "trajectories"
+    assert (f"Steps run: {result.steps} | {what} solved: {int(result.done.sum())}"
+            f"/{result.done.size}") in text
+
+
+def test_mesh_call_refuses_as_the_cli_does(capsys):
+    easy = os.path.join(REPO, "tests", "data", "easy.cnf")
+    with pytest.raises(SystemExit) as e:
+        cli.mesh_call(["inter", "-f", easy, "-b", "8", "--shard-chunk", "--device", "cpu"])
+    assert e.value.code == 2
+    assert "--clause-shards >= 2" in capsys.readouterr().err
+
+
+def test_on_mesh_runs_another_mesh_in_the_same_world():
+    """``launch.on_mesh`` inside ``run_all``: a 2x1 mesh solve in a world
+    spawned as 1x2 equals the one-device run row for row, beside a 1x2
+    call and an all-reduce timing (the world chip_smoke.py's phase 20
+    spawns once)."""
+    from odesat_tpu_torch.cnf import normalize_cnf_variables as tnorm
+    from odesat_tpu_torch.parallel.dist import time_all_reduce
+    from odesat_tpu_torch.utils.config import SolverConfig
+    from odesat_tpu_torch.utils.generate import random_ksat as trandom
+
+    formula = tnorm(trandom(60, 250, seed=4))[1]
+    config = SolverConfig(ode=ODEConfig(step_size=0.01, steps=300), batch_size=8, seed=7,
+                          chunk_steps=64)
+    calls = [(launch.probe, ()), (launch.on_mesh, ((2, 1), launch.probe)),
+             (launch.on_mesh, ((2, 1), cli._mesh_solve, "ode", formula, config,
+                               {"stop_on": "all"})),
+             (time_all_reduce, ((4, 9), 2))]
+    seen, other, two, ms = launch.spawn(launch.run_all, 1, 2, "gloo", "cpu", timeout_s=120,
+                                        args=(calls,))
+    assert seen["shape"] == {"traj": 1, "clause": 2}
+    assert other["shape"] == {"traj": 2, "clause": 1}
+    one = tode.simulate_batch(formula, config, device="cpu", stop_on="all")
+    np.testing.assert_array_equal(two.assignment, one.assignment)
+    np.testing.assert_array_equal(two.done, one.done)
+    assert two.steps == one.steps and ms > 0
