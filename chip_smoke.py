@@ -18,13 +18,14 @@ Phases, each printing its lines; the first failure exits non-zero:
    registers and spills, and whether the preprocessor runs native;
 3. kernel vs plain: random 3- and 4-SAT formulas, a formula of widths 2,
    3 and 5 (plain and width-bucketed), hard.cnf at B=16384, uf250 at
-   B=4096 and an odd B=1000, both integrators, both rigidity gates,
-   float32 and bf16 rounding, after one 32-step chunk; then uf250 at
-   B=4096 from a partly solved state, until a compared chunk holds rows
-   done before it, rows that finish inside it and rows still running
-   (both integrators, float32 and bf16). Tolerances: float32 rtol 2e-4 /
-   atol 2e-5 (tests/test_fused.py's), bf16 rtol 1e-2 / atol 1e-2; done
-   exactly in both; rows done before a chunk come out unchanged;
+   B=4096 and an odd B=1000, and ragged batches (B = 1, 7, 33 on hard.cnf
+   and the bucketed formula: a last tile of padded lanes), both
+   integrators, both rigidity gates, float32 and bf16 rounding, after one
+   32-step chunk; then uf250 at B=4096 from a partly solved state, until a
+   compared chunk holds rows done before it, rows that finish inside it and
+   rows still running (both integrators, float32 and bf16). The kernel
+   must equal its plain version exactly (max abs error 0, done equal);
+   rows done before a chunk come out unchanged;
 4. determinism: the same input twice gives bit-identical outputs;
 5. main path, SAT: inter on uf250 (seed 0) at -b 4096 -s 0.01 -n 20000
    --seed 0, and on easy.cnf adaptive at -b 256 -n 20000 --seed 1, must
@@ -33,7 +34,8 @@ Phases, each printing its lines; the first failure exits non-zero:
    float32 and bf16: verdict false after exactly 4096 steps, kernel
    launched; prints traj*steps/s;
 7. timing: the kernel's and the plain version's device time per 256-step
-   chunk at hard.cnf B=16384 and uf250 B=4096 (CUDA events);
+   chunk at hard.cnf B=16384 and uf250 B=4096 (CUDA events), beside the
+   one-CTA-a-trajectory kernel it replaced, at hard.cnf fixed;
 8. stoch kernel vs plain: B3 (resident) and B4 (tables in L2) on the
    formulas of phase 3, and B4 on the preprocessed n=1k
    instance (run_benchmarks.py config 4) at B=8192, f32 and bf16, random
@@ -52,7 +54,8 @@ Phases, each printing its lines; the first failure exits non-zero:
     B3 and B4 at hard.cnf B=16384, B4 at the n=1k instance B=8192;
 12. B2 vs plain: the large-formula chunk kernel against its plain version
     (B1's), exactly (max abs error 0, done equal), on phase 3's formulas
-    (where it must also equal B1) and on the formulas past B1's gate at
+    and ragged batches (where it must also equal B1) and on the formulas
+    past B1's gate at
     their main-path batches: the preprocessed n=1k instance at B=10240,
     the preprocessed planted n=2000 m=7000 at B=1024 and the locally
     structured n=4096 (config 6) at B=10240; both integrators, both
@@ -66,7 +69,9 @@ Phases, each printing its lines; the first failure exits non-zero:
     exactly 4096 steps; each through B2, each printing traj*steps/s;
 14. B2 timing: B2 and plain per chunk in turns at the n=1k instance
     B=10240 (fixed, adaptive), the n=4096 instance B=10240 and hard.cnf
-    B=16384 (beside B1);
+    B=16384 (beside B1), beside the kernel it replaced at n1k fixed; then B2 alone
+    per 256-step chunk, the length phase 13's launches run, at the n=1k
+    and n=4096 instances;
 15. B10 vs the twin's gather RHS at hard.cnf B=16384, uf250 B=4096 and the
     n=1k instance B=1024, f32 (rtol 2e-4 / atol 2e-5) and f64 (1e-12);
 16. B10 main path: inter --dv-strategy pallas on hard.cnf at -b 4096 ends
@@ -128,7 +133,10 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, ".scratch", "chip_smoke")  # git-ignored
 F32_TOL = dict(rtol=2e-4, atol=2e-5)
-BF16_TOL = dict(rtol=1e-2, atol=1e-2)
+EXACT = dict(rtol=0.0, atol=0.0)  # B1 and B2 compute exactly what their plain version does
+# the one-CTA-a-trajectory B1 and B2 that the lane tiles replaced, ms a launch
+# as this script measured them (NVIDIA H100 80GB HBM3, 700 W)
+ONE_CTA_MS = {"B1 hard.cnf fixed 256": 7.368186, "B2 n1k fixed 8": 19.397267}
 
 
 def fail(msg):
@@ -251,19 +259,27 @@ def compare(torch, out, ref, tol):
     return worst, None
 
 
+def ragged_ode_cases(cases):
+    """B = 1, 7, 33 on hard.cnf and the bucketed formula of phase 3: every
+    tile of R lanes but the last is full, the last has padded lanes."""
+    pick = [c for c in cases if c[0] in ("hard.cnf B=16384", "widths 2,3,5 n=300 m=1200 bucketed")]
+    return [(f"{label.split(' B=')[0]} B={B}", fa, B) for label, fa, _ in pick for B in (1, 7, 33)]
+
+
 def phase_compare(torch, fc, cases):
     from odesat_tpu_torch.utils.config import ODEConfig
 
     worst = 0.0
     lib, _ = fc.load_library()
-    for label, fa, B in cases:
+    for label, fa, B in [*cases, *ragged_ode_cases(cases)]:
         nnz = int((fa.lit_mask > 0).sum())
         K, Mp = fa.lit_var.shape
         for fixed in (True, False):
-            c_bytes = lib.fused_chunk_smem_bytes(fa.n_vars_padded, Mp, K, nnz, int(fixed))
-            if c_bytes != fc.fused_smem_bytes(fa, fixed):
-                fail(f"{label}: shared-memory gate {fc.fused_smem_bytes(fa, fixed)} != "
-                     f"kernel's {c_bytes}")
+            for R in (1, fc.fused_lanes(fa, fixed)):
+                c_bytes = lib.fused_chunk_smem_bytes(fa.n_vars_padded, Mp, K, nnz, int(fixed), R)
+                if c_bytes != fc.fused_smem_bytes(fa, fixed, R):
+                    fail(f"{label}: shared-memory gate {fc.fused_smem_bytes(fa, fixed, R)} != "
+                         f"kernel's {c_bytes} at {R} lanes")
         state = random_state(fa, B, seed=B)
         for mode in ("fixed", "adaptive"):
             for rigidity in ("paper", "reference"):
@@ -275,17 +291,17 @@ def phase_compare(torch, fc, cases):
                     out = fn(state)
                     ref = fc.fused_chunk_plain(state, fn.spec, 32)
                     torch.cuda.synchronize()
-                    err, why = compare(torch, out, ref, F32_TOL if mm == "float32" else BF16_TOL)
+                    err, why = compare(torch, out, ref, EXACT)
                     tag = f"{label} {mode} {rigidity} {mm}"
                     if why:
                         fail(f"kernel vs plain, {tag}: {why}")
                     worst = max(worst, err)
-                    say(f"[compare] {tag}: max abs err {err:.3e}, "
-                        f"done {int(out.done.sum())}/{B}")
+                    say(f"[compare] {tag}: max abs err {err:.1f}, done {int(out.done.sum())}/{B} "
+                        f"({fn.spec.lanes} lanes a CTA at most)")
     return worst
 
 
-def phase_compare_finishing(torch, fc, uf250, make=None, tol=None, kernel="B1"):
+def phase_compare_finishing(torch, fc, uf250, make=None, kernel="B1"):
     """Kernel vs plain on chunks in which trajectories finish. uf250
     (planted SAT) at B=4096 is advanced by the kernel until some rows are
     done; then 32-step chunks are compared one after another, each from
@@ -294,7 +310,7 @@ def phase_compare_finishing(torch, fc, uf250, make=None, tol=None, kernel="B1"):
     integrator's update-then-freeze, the adaptive no-advance branch) and
     rows still running. Rows done before a chunk must come out unchanged.
     ``make`` builds the chunk (B1's by default; B2's plain version is B1's);
-    ``tol`` overrides the tolerance (B2 is held to exact equality)."""
+    both are held to exact equality."""
     from odesat_tpu_torch.utils.config import ODEConfig
 
     make = make or fc.make_fused_chunk
@@ -315,8 +331,7 @@ def phase_compare_finishing(torch, fc, uf250, make=None, tol=None, kernel="B1"):
                 out = fn(state)
                 ref = fc.fused_chunk_plain(state, fn.spec, 32)
                 torch.cuda.synchronize()
-                err, why = compare(torch, out, ref,
-                                   tol or (F32_TOL if mm == "float32" else BF16_TOL))
+                err, why = compare(torch, out, ref, EXACT)
                 if why:
                     fail(f"kernel vs plain, {tag} from step {steps}: {why}")
                 worst = max(worst, err)
@@ -328,7 +343,7 @@ def phase_compare_finishing(torch, fc, uf250, make=None, tol=None, kernel="B1"):
                 state, steps = out, steps + 32
                 if 0 < before < after < B:
                     say(f"[compare] {tag}, chunk ending at step {steps}: done {before} -> "
-                        f"{after}/{B}, max abs err {err:.3e}")
+                        f"{after}/{B}, max abs err {err:.1f}")
                     break
             else:
                 fail(f"finishing, {tag}: no trajectory finished inside a compared chunk "
@@ -399,15 +414,16 @@ def phase_main_sat(fc):
     with open(uf_path, "w", encoding="utf-8") as fh:
         fh.write(cnf_to_dimacs(uf_instance(250, seed=0)))
     total = 0
-    for label, args in (
-        ("uf250 B=4096 fixed", ["-f", uf_path, "-b", "4096", "-s", "0.01", "-n", "20000",
-                                "--seed", "0"]),
-        ("easy.cnf B=256 adaptive", ["-f", os.path.join(ROOT, "tests", "data", "easy.cnf"),
-                                     "-b", "256", "-n", "20000", "--seed", "1"]),
+    for label, B, args in (
+        ("uf250 B=4096 fixed", 4096, ["-f", uf_path, "-b", "4096", "-s", "0.01", "-n", "20000",
+                                      "--seed", "0"]),
+        ("easy.cnf B=256 adaptive", 256, ["-f", os.path.join(ROOT, "tests", "data", "easy.cnf"),
+                                          "-b", "256", "-n", "20000", "--seed", "1"]),
     ):
         verdict, launches, steps, solved, seconds = run_inter(fc, args)
         say(f"[main SAT] {label}: verdict {verdict}, {solved} solved after {steps} steps "
-            f"in {seconds:.6f} s, kernel launches {launches}")
+            f"in {seconds:.6f} s = {B * steps / seconds:.6e} traj*steps/s, kernel launches "
+            f"{launches}")
         if verdict != "true":
             fail(f"{label}: the port did not verify a satisfying assignment")
         if launches == 0:
@@ -449,7 +465,7 @@ def phase_timing(torch, fc, hard, uf250, card):
             fn = fc.make_fused_chunk(fa, ode.resolve_zeta(fa.density), ode, 256, "cuda")
 
             def plain_turn():
-                return cuda_ms(lambda: fc.fused_chunk_plain(state, fn.spec, 256), 2, warmup=1)
+                return cuda_ms(lambda: fc.fused_chunk_plain(state, fn.spec, 256), 1, warmup=0)
 
             def kernel_turn():
                 return cuda_ms(lambda: fn(state), iters=10, warmup=2)
@@ -457,8 +473,10 @@ def phase_timing(torch, fc, hard, uf250, card):
             p1, k1, k2, p2 = plain_turn(), kernel_turn(), kernel_turn(), plain_turn()
             kernel, plain = (k1 + k2) / 2, (p1 + p2) / 2
             times[(label, mode)] = (kernel, plain)
-            say(f"[timing] {label} {mode} f32, 256-step chunk: kernel {k1:.6f} / {k2:.6f} ms, "
-                f"plain {p1:.6f} / {p2:.6f} ms ({plain / kernel:.3f}x), "
+            was = ONE_CTA_MS.get(f"B1 {label.split(' B=')[0]} {mode} 256")
+            was = f" (one CTA a trajectory: {was:.6f} ms, {was / kernel:.3f}x)" if was else ""
+            say(f"[timing] {label} {mode} f32, 256-step chunk: kernel {k1:.6f} / {k2:.6f} ms"
+                f"{was}, plain {p1:.6f} / {p2:.6f} ms ({plain / kernel:.3f}x), "
                 f"kernel {B * 256 / kernel * 1e3:.6e} traj*steps/s ({card})")
     return times
 
@@ -706,8 +724,8 @@ def phase_stoch_timing(torch, sc, hard, n1k, card):
         Bb = traj_block(B)
 
         def plain_turn():
-            return cuda_ms(lambda: stoch_chunk_plain(state, fn.spec, steps, 5, Bb, False), 2,
-                           warmup=1)
+            return cuda_ms(lambda: stoch_chunk_plain(state, fn.spec, steps, 5, Bb, False), 1,
+                           warmup=0)
 
         def kernel_turn():
             return cuda_ms(lambda: fn(state, 5), iters=10, warmup=2)
@@ -722,9 +740,6 @@ def phase_stoch_timing(torch, sc, hard, n1k, card):
 
 
 # ---------------------------------------------- large formulas (B2) and B10
-
-EXACT = dict(rtol=0.0, atol=0.0)  # B2 computes exactly what its plain version (B1's) does
-
 
 def planted_n2000(m):
     """Planted random 3-SAT, n=2000, seed 11: m=7000 preprocesses (ratio 7)
@@ -772,10 +787,16 @@ def phase_stream_compare(torch, fc, stc, cases, big):
     from odesat_tpu_torch.utils.config import ODEConfig
 
     worst = 0.0
-    for label, fa, B, steps in [*((lb, f, b, 32) for lb, f, b in cases), *big]:
+    lib, _ = stc.load_library()
+    small = [*cases, *ragged_ode_cases(cases)]
+    for label, fa, B, steps in [*((lb, f, b, 32) for lb, f, b in small), *big]:
         state = random_state(fa, B, seed=B + 1)
         for fixed in (True, False):
-            lay = stc.stream_layout(fa.n_vars_padded, fa.n_clauses_padded, fixed)
+            R = stc.stream_lanes(fa.n_vars_padded, fixed)
+            c_bytes = lib.stream_chunk_smem_bytes(fa.n_vars_padded, int(fixed), R)
+            if c_bytes != stc.stream_smem_bytes(fa.n_vars_padded, fixed, R):
+                fail(f"{label}: B2's shared memory {stc.stream_smem_bytes(fa.n_vars_padded, fixed, R)}"
+                     f" != kernel's {c_bytes}")
             for rigidity in ("paper", "reference"):
                 for mm in ("float32", "bfloat16"):
                     ode = ODEConfig(step_size=0.01 if fixed else None, rigidity=rigidity,
@@ -799,8 +820,8 @@ def phase_stream_compare(torch, fc, stc, cases, big):
                         also = ", equals B1"
                     worst = max(worst, err)
                     say(f"[B2 compare] {tag}, {steps} steps: max abs err {err:.1f}{also}, "
-                        f"done {int(out.done.sum())}/{B} (shared memory {lay.smem_bytes} B, "
-                        f"scratch {lay.row_words} words a row)")
+                        f"done {int(out.done.sum())}/{B} ({R} lanes a CTA at most, shared "
+                        f"memory {c_bytes} B)")
     return worst
 
 
@@ -976,7 +997,7 @@ def phase_stream_timing(torch, fc, stc, hard, big, card):
         fn = stc.make_stream_chunk(fa, ode.resolve_zeta(fa.density), ode, steps, "cuda")
 
         def plain_turn():
-            return cuda_ms(lambda: stc.stream_chunk_plain(state, fn.spec, steps), 1, warmup=1)
+            return cuda_ms(lambda: stc.stream_chunk_plain(state, fn.spec, steps), 1, warmup=0)
 
         def kernel_turn():
             return cuda_ms(lambda: fn(state), iters=5, warmup=1)
@@ -990,9 +1011,21 @@ def phase_stream_timing(torch, fc, stc, hard, big, card):
             f1 = fc.make_fused_chunk(fa, ode.resolve_zeta(fa.density), ode, steps, "cuda")
             b1s = [cuda_ms(lambda: f1(state), iters=5, warmup=1) for _ in range(2)]
             b1 = f", B1 {b1s[0]:.6f} / {b1s[1]:.6f} ms"
-        say(f"[B2 timing] {label} {mode} f32, {steps}-step chunk: B2 {k1:.6f} / {k2:.6f} ms, "
-            f"plain {p1:.6f} / {p2:.6f} ms ({plain / kern:.3f}x){b1}, B2 "
+        was = ONE_CTA_MS.get(f"B2 {label.split(' ')[0]} {mode} {steps}")
+        was = f" (one CTA a trajectory: {was:.6f} ms, {was / kern:.3f}x)" if was else ""
+        say(f"[B2 timing] {label} {mode} f32, {steps}-step chunk: B2 {k1:.6f} / {k2:.6f} ms"
+            f"{was}, plain {p1:.6f} / {p2:.6f} ms ({plain / kern:.3f}x){b1}, B2 "
             f"{B * steps / kern * 1e3:.6e} traj*steps/s ({card})")
+    # the chunk length phase 13's launches run: B2 alone (its plain version
+    # would take about 32 times its 8-step time)
+    for label, fa, B in (n1k[:3], local[:3]):
+        ode = ODEConfig(step_size=0.01)
+        state = random_state(fa, B, seed=3)
+        fn = stc.make_stream_chunk(fa, ode.resolve_zeta(fa.density), ode, 256, "cuda")
+        ks = [cuda_ms(lambda: fn(state), iters=1, warmup=1) for _ in range(2)]
+        times[(label, "fixed 256")] = (sum(ks) / 2, None)
+        say(f"[B2 timing] {label} fixed f32, 256-step chunk: B2 {ks[0]:.6f} / {ks[1]:.6f} ms, "
+            f"{B * 256 / (sum(ks) / 2) * 1e3:.6e} traj*steps/s ({card})")
     return times
 
 
@@ -1825,7 +1858,7 @@ def main():
     cases, hard, uf250, specs = load_cases()
     worst = phase_compare(torch, fc, cases)
     worst = max(worst, phase_compare_finishing(torch, fc, uf250))
-    say(f"[compare] all cases within tolerance; max abs err {worst:.6e}")
+    say(f"[compare] every case equal to the plain version; max abs err {worst}")
     phase_determinism(torch, fc, hard, uf250)
     launches = phase_main_sat(fc)
     launches += phase_main_unsat(fc, card)
@@ -1851,11 +1884,14 @@ def main():
     big = load_stream_cases(n1k_reduced)
     b2_worst = phase_stream_compare(torch, fc, stc, cases, big)
     b2_worst = max(b2_worst, phase_compare_finishing(torch, fc, uf250, stc.make_stream_chunk,
-                                                     EXACT, "B2"))
+                                                     "B2"))
     say(f"[B2 compare] every case equal to the plain version; max abs err {b2_worst}")
     phase_stream_determinism(torch, stc, big)
+    clock("phase 12 (B2 against its plain version)")
     b2_launches = phase_stream_main(fc, stc, rk, n1k_reduced, card)
+    clock("phase 13 (B2's main path)")
     b2_times = phase_stream_timing(torch, fc, stc, hard, big, card)
+    clock("phase 14 (B2 timing)")
     b10_worst = phase_rhs_compare(torch, rk, (("hard.cnf B=16384", hard, 16384),
                                               ("uf250 B=4096", uf250, 4096),
                                               ("n1k preprocessed B=1024", big[0][1], 1024)))

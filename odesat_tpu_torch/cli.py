@@ -89,6 +89,9 @@ def _add_ode(p: argparse.ArgumentParser, batch_required: bool) -> None:
     p.add_argument("--wall-clock-budget", type=float, default=None, help="seconds budget")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the trajectories run (default cuda; no silent CPU fallback)")
+    p.add_argument("--no-preprocess", action="store_true",
+                   help="skip the resolution preprocessor in solve (batch and inter never "
+                   "preprocess, as in the reference)")
     _add_mesh(p)
 
 
@@ -131,8 +134,6 @@ def _build_parser() -> argparse.ArgumentParser:
         help="race B random initializations and return the first winner "
         "(pass 1 for the reference's single-trajectory solve)",
     )
-    solve.add_argument("--no-preprocess", action="store_true",
-                       help="skip the resolution preprocessor")
 
     batch = sub.add_parser("batch", help="Run a batch of simulations (parallel restarts)")
     _add_ode(batch, batch_required=True)
@@ -151,6 +152,13 @@ def _build_parser() -> argparse.ArgumentParser:
     s.add_argument("-b", "--batch-size", type=int, default=1, help="parallel chains")
     s.add_argument("--seed", type=int, default=None, help="PRNG seed (reproducible runs)")
     s.add_argument("--chunk-steps", type=int, default=256, help="steps per kernel launch")
+    # the ODE flags the JAX CLI gives every solver subcommand; stoch reads none of them
+    s.add_argument("--rigidity", choices=["paper", "reference"], default="paper",
+                   help="accepted as the JAX CLI accepts it; the stochastic engine ignores it")
+    s.add_argument("--dv-strategy", choices=DV_STRATEGIES, default="auto",
+                   help="accepted as the JAX CLI accepts it; the stochastic engine ignores it")
+    s.add_argument("--dtype", choices=["float32", "float64"], default="float32",
+                   help="accepted as the JAX CLI accepts it; the stochastic engine ignores it")
     s.add_argument(
         "--matmul-dtype", choices=["float32", "bfloat16"], default="float32",
         help="kernel weight sums: bfloat16 rounds each clause weight like the TPU "

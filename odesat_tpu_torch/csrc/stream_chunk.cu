@@ -6,54 +6,40 @@
 // make_pallas_rhs; B5 (shard_stream_launch, below B10) replaces
 // odesat_tpu/ops/shard_stream.py::_make_shard_call; B6 (shard_chunk_launch,
 // below B5) replaces odesat_tpu/ops/shard_chunk.py::make_shard_chunk_call.
-// They share the clause-phase and variable-phase device functions below;
-// B6 runs them over the tile layout of tile.cuh, R trajectories a CTA.
+// B10, B5 and B6 share the clause-phase and variable-phase device functions
+// below; B6 runs them over the tile layout of tile.cuh, R trajectories a CTA.
 //
 // B2 computes exactly what B1 (csrc/fused_chunk.cu) computes, for formulas
-// whose tables and state do not fit one CTA's shared memory. One CTA owns
-// one trajectory for the whole chunk. The formula's tables (a literal code
-// per (k, m) slot, each variable's CSR occurrence list) are read from
-// global memory, where every CTA reads the same bytes and they stay in the
-// 50 MB L2. The trajectory's arrays are placed by the Python wrapper: in
-// shared memory while they fit, in a per-trajectory scratch row in global
-// memory after that (ops/stream_chunk.py::stream_layout). `v` (and the
-// adaptive half step `hv`) must be in shared memory: the clause phase
-// gathers them K times per clause.
+// whose tables and state do not fit one CTA's shared memory: it is B1's
+// device code (ode_lanes.cuh) with the clause state streamed. One CTA owns
+// one tile of R trajectories for the whole chunk, one a lane of each thread
+// group; the tile's v window (and the adaptive half step hv) sits in shared
+// memory, interleaved [i][r]; xs, xl and the per-occurrence contributions
+// (and the adaptive scratch) live in a device scratch buffer, tiled [x][r],
+// so every access of a group is R neighbouring words, one 128-byte line at
+// R = 32. The contributions are stored in CSR order: the clause phase
+// writes each slot's line at its occurrence's position, and the variable
+// phase reads its list as a stream. The first step reads xs, xl from the
+// row-major input and the last writes the row-major output, so the chunk
+// needs no tiling pass. The tables (literal codes, the CSR position of
+// each slot, the CSR pointers) are read from global memory, where every
+// CTA reads the same bytes and they stay in the 50 MB L2; each word serves
+// the tile's R trajectories.
 //
-// B1 keeps one contribution per (k, m) slot, K*Mp words, which is what does
-// not scale (9 x 6528 x 4 = 235 KB for the preprocessed n=1k instance).
-// B2 keeps two words per clause instead, the running min m1 and second min
-// m2, and the variable phase recomputes each occurrence's contribution from
-// v[i], its sign, m1, m2 and the clause's xs and xl with the same operations
-// in the same order as B1's clause phase. With --fmad=false that is
-// bit-identical to B1 and to its plain version (ops/fused_chunk.py::
-// fused_chunk_plain). Because the variable phase needs the xs and xl the
-// step started from, the clause memories are updated in a third pass after
-// it.
-//
-// Fixed step, per step (two barriers):
-//   clause phase   (threads over clauses m): m1, m2 from v; satisfaction bit;
-//   block AND      (__syncthreads_and) gives allsat;
-//   variable phase (threads over variables i): dv[i] summed over i's CSR
-//                  list in a fixed order; v[i] updated;
-//   barrier; clause memories xs, xl updated from m1 and the old xs.
-// Adaptive step (step doubling), per step (five barriers):
-//   pass 1 clause phase on (v); AND; if the trajectory advances:
-//   variable phase -> full-step fv and half-step hv; clause memories ->
-//   fxs, fxl, hxs, hxl; barrier; pass 2 clause phase on (hv); barrier;
-//   variable phase on (hv, hxs, hxl) -> v, and the error against fv;
-//   clause memories -> xs, xl and the error against fxs, fxl; block max of
-//   the error; dt <- clip(dt*sqrt(tol/max(err, 1e-30)), 2^-7, 1e3).
-// No float atomics: dv sums run in the plain version's CSR order and the
-// error is a max, so repeats with the same input are bit-identical.
-//
-// What bounds it on the card: gathers (v from shared memory, m1/m2/xs/xl
-// from wherever they were placed) and L2 reads of the tables, not HBM.
-// At Mp=17280 a trajectory's adaptive state is 415 KB; what does not fit
-// the CTA lives in its scratch row and is read through L1 and L2.
+// What bounds B2 on the card: device-memory bytes. A fixed step moves xs
+// and xl (read and written) and the contributions (written and read), 4*Mp
+// + 2*nnz words a trajectory; the v gathers hit shared memory. R is the
+// largest power of two up to 32 whose v (and hv) window fits the CTA
+// (ops/stream_chunk.py::stream_lanes): 32 at the preprocessed n=1k
+// instance, 8 (4 adaptive) at the locally structured n=4096.
 //
 // B10 is one RHS pass, (v, xs, xl) -> (dv, dxs, dxl, allsat), in float or
-// double: v, m1 and m2 placed as above, xs and xl read from the inputs.
+// double, one CTA a trajectory: v and the clause words m1, m2 are placed by
+// the Python wrapper (ops/rhs_kernel.py::rhs_layout) in shared memory while
+// they fit, the rest in a per-trajectory scratch row in global memory; xs
+// and xl are read from the inputs. The variable phase recomputes each
+// occurrence's contribution from v[i], its sign, m1, m2 and the clause's xs
+// and xl with the operations of B1's clause phase in the same order.
 //
 // Unit clauses (infinite gradients), float64 chunks and a batch-shared
 // adaptive dt are rejected by the Python wrappers before launch.
@@ -65,6 +51,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "ode_lanes.cuh"
 #include "tile.cuh"
 
 namespace {
@@ -199,148 +186,6 @@ __device__ __forceinline__ float block_max(float x, float* red) {
 struct Scalars {
   float zeta, dt_fixed, tol, xl_cap;
 };
-
-template <bool FIXED, bool PAPER, bool BF16>
-__global__ void stream_chunk_kernel(
-    const float* __restrict__ v_in, const float* __restrict__ xs_in,
-    const float* __restrict__ xl_in, const float* __restrict__ dt_in,
-    const unsigned char* __restrict__ done_in, float* __restrict__ v_out,
-    float* __restrict__ xs_out, float* __restrict__ xl_out, float* __restrict__ dt_out,
-    unsigned char* __restrict__ done_out, Tables f, Scalars s, Place p, float* scratch,
-    long long row_words, int chunk_steps) {
-  using C = K_<float>;
-  const int traj = blockIdx.x;  // the grid is exactly B: no padded rows
-  const int Np = f.Np, Mp = f.Mp;
-  const int tid = threadIdx.x, T = blockDim.x;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* smem = reinterpret_cast<float*>(smem_raw);
-  float* red = smem;  // kRed floats
-  float* row = scratch + static_cast<size_t>(traj) * row_words;
-  float* v = placed(p.off[V], smem, row);
-  float* m1 = placed(p.off[M1], smem, row);
-  float* m2 = placed(p.off[M2], smem, row);
-  float* xs = placed(p.off[XS], smem, row);
-  float* xl = placed(p.off[XL], smem, row);
-  // adaptive only: half-step and full-step trial states
-  float* hv = placed(p.off[HV], smem, row);
-  float* fv = placed(p.off[FV], smem, row);
-  float* hxs = placed(p.off[HXS], smem, row);
-  float* hxl = placed(p.off[HXL], smem, row);
-  float* fxs = placed(p.off[FXS], smem, row);
-  float* fxl = placed(p.off[FXL], smem, row);
-
-  const size_t vrow = static_cast<size_t>(traj) * Np;
-  const size_t crow = static_cast<size_t>(traj) * Mp;
-  for (int i = tid; i < Np; i += T) v[i] = v_in[vrow + i];
-  for (int m = tid; m < Mp; m += T) {
-    xs[m] = xs_in[crow + m];
-    xl[m] = xl_in[crow + m];
-  }
-  float dt = dt_in[traj];
-  bool done = done_in[traj] != 0;
-  __syncthreads();
-
-  for (int step = 0; step < chunk_steps; ++step) {
-    int ok = 1;
-    for (int m = tid; m < Mp; m += T) {
-      float a, b;
-      if (clause_min2<float, BF16>(f, v, m, &a, &b)) ok &= (0.5f * a < C::gamma);
-      m1[m] = a;
-      m2[m] = b;
-    }
-    const bool allsat = __syncthreads_and(ok) != 0;
-    if (FIXED) {
-      const float dtc = done ? 0.0f : s.dt_fixed;
-      for (int i = tid; i < Np; i += T) {
-        const float dv = var_dv<float, PAPER, BF16>(f, i, v[i], m1, m2, xs, xl, s.zeta);
-        v[i] = clampf(v[i] + dtc * dv, -1.0f, 1.0f);
-      }
-      __syncthreads();  // the variable phase read xs, xl of every clause
-      for (int m = tid; m < Mp; m += T) {
-        float dxs = 0.0f, dxl = 0.0f;
-        if (__ldg(f.lit_code + m) >= 0) {
-          const float c = 0.5f * m1[m];
-          dxs = C::beta * (xs[m] + C::eps) * (c - C::gamma);
-          dxl = C::alpha * (c - C::delta);
-        }
-        xs[m] = clampf(xs[m] + dtc * dxs, C::eps, C::xs_hi);
-        xl[m] = clampf(xl[m] + dtc * dxl, 1.0f, s.xl_cap);
-      }
-      // the next clause phase reads v (published by the barrier above) and
-      // writes m1, m2 of its own clauses only
-      done = done || allsat;
-    } else {
-      const bool advance = !done && !allsat;
-      done = done || allsat;
-      if (!advance) continue;  // uniform over the block; state untouched
-
-      const float half = 0.5f * dt;
-      for (int i = tid; i < Np; i += T) {
-        const float dv = var_dv<float, PAPER, BF16>(f, i, v[i], m1, m2, xs, xl, s.zeta);
-        fv[i] = clampf(v[i] + dt * dv, -1.0f, 1.0f);
-        hv[i] = clampf(v[i] + half * dv, -1.0f, 1.0f);
-      }
-      for (int m = tid; m < Mp; m += T) {
-        float dxs = 0.0f, dxl = 0.0f;
-        if (__ldg(f.lit_code + m) >= 0) {
-          const float c = 0.5f * m1[m];
-          dxs = C::beta * (xs[m] + C::eps) * (c - C::gamma);
-          dxl = C::alpha * (c - C::delta);
-        }
-        fxs[m] = clampf(xs[m] + dt * dxs, C::eps, C::xs_hi);
-        fxl[m] = clampf(xl[m] + dt * dxl, 1.0f, s.xl_cap);
-        hxs[m] = clampf(xs[m] + half * dxs, C::eps, C::xs_hi);
-        hxl[m] = clampf(xl[m] + half * dxl, 1.0f, s.xl_cap);
-      }
-      __syncthreads();
-
-      // pass 2: derivatives at the half step; two half steps are kept
-      for (int m = tid; m < Mp; m += T) {
-        float a, b;
-        clause_min2<float, BF16>(f, hv, m, &a, &b);
-        m1[m] = a;
-        m2[m] = b;
-      }
-      __syncthreads();
-      float err = 0.0f;
-      for (int i = tid; i < Np; i += T) {
-        const float dv = var_dv<float, PAPER, BF16>(f, i, hv[i], m1, m2, hxs, hxl, s.zeta);
-        const float tv = clampf(hv[i] + half * dv, -1.0f, 1.0f);
-        err = fmaxf(err, fabsf(fv[i] - tv));
-        v[i] = tv;
-      }
-      for (int m = tid; m < Mp; m += T) {
-        float dxs = 0.0f, dxl = 0.0f;
-        if (__ldg(f.lit_code + m) >= 0) {
-          const float c = 0.5f * m1[m];
-          dxs = C::beta * (hxs[m] + C::eps) * (c - C::gamma);
-          dxl = C::alpha * (c - C::delta);
-        }
-        const float txs = clampf(hxs[m] + half * dxs, C::eps, C::xs_hi);
-        const float txl = clampf(hxl[m] + half * dxl, 1.0f, s.xl_cap);
-        err = fmaxf(err, fmaxf(fabsf(fxs[m] - txs), fabsf(fxl[m] - txl)));
-        xs[m] = txs;
-        xl[m] = txl;
-      }
-      err = block_max(err, red);  // its barrier also publishes v
-      const float ratio = s.tol / fmaxf(err, 1e-30f);
-      dt = clampf(dt * sqrtf(ratio), kDtMin, kDtMax);
-      __syncthreads();  // red[] is reused next step
-    }
-  }
-
-  // each thread writes back the entries it last wrote itself
-  for (int i = tid; i < Np; i += T) v_out[vrow + i] = v[i];
-  for (int m = tid; m < Mp; m += T) {
-    xs_out[crow + m] = xs[m];
-    xl_out[crow + m] = xl[m];
-  }
-  if (tid == 0) {
-    dt_out[traj] = dt;
-    done_out[traj] = done ? 1 : 0;
-  }
-}
 
 template <typename T, bool PAPER>
 __global__ void rhs_kernel(const T* __restrict__ v_in, const T* __restrict__ xs_in,
@@ -975,45 +820,33 @@ extern "C" {
 // The most dynamic shared memory a CTA may use on the current device.
 int stream_chunk_smem_limit(void) { return smem_optin(); }
 
-// B2. Returns a cudaError_t code (0 = launched).
+// B2's shared-memory bytes and device scratch floats a tile needs at R lanes;
+// the Python gate and wrapper use the same formulas.
+size_t stream_chunk_smem_bytes(int Np, int fixed, int R) {
+  return lanes::smem_bytes(false, fixed != 0, Np, 0, 0, 0, R);
+}
+size_t stream_chunk_scratch_floats(int Np, int Mp, int nnz, int fixed, int R) {
+  return lanes::scratch_floats(fixed != 0, Np, Mp, nnz, R);
+}
+
+// B2. `scratch` holds stream_chunk_scratch_floats(...) floats for each of
+// the ceil(B / R) tiles; `segs` as for B1 (fused_chunk_launch). Returns a cudaError_t code (0 = launched).
 int stream_chunk_launch(const float* v_in, const float* xs_in, const float* xl_in,
                         const float* dt_in, const unsigned char* done_in, float* v_out,
                         float* xs_out, float* xl_out, float* dt_out, unsigned char* done_out,
-                        const int* lit_code, const int* occ_ptr, const int* occ_code,
-                        float* scratch, const long long* place, long long row_words,
-                        int smem_bytes, int B, int Np, int Mp, int K, int chunk_steps,
-                        int fixed, int paper, int bf16, int threads, float zeta,
-                        float dt_fixed, float tol, float xl_cap, void* stream) {
-  Place p;
-  for (int i = 0; i < kItems; ++i) p.off[i] = place[i];
-  bool used[kItems];
-  for (int i = 0; i < kItems; ++i) used[i] = !fixed || i == V || i == M1 || i == M2 ||
-                                             i == XS || i == XL;
-  const size_t smem = static_cast<size_t>(smem_bytes);
-  if (smem_bytes > smem_optin() || !placement_ok(p, used, Np, Mp, smem, sizeof(float)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Tables f{lit_code, occ_ptr, occ_code, Np, Mp, K};
-  const Scalars s{zeta, dt_fixed, tol, xl_cap};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define ODESAT_LAUNCH(F, P, H)                                                                \
-  return launch(stream_chunk_kernel<F, P, H>, B, threads, smem, st, v_in, xs_in, xl_in, dt_in, \
-                done_in, v_out, xs_out, xl_out, dt_out, done_out, f, s, p, scratch, row_words, \
-                chunk_steps)
-  if (fixed) {
-    if (paper) {
-      if (bf16) ODESAT_LAUNCH(true, true, true);
-      ODESAT_LAUNCH(true, true, false);
-    }
-    if (bf16) ODESAT_LAUNCH(true, false, true);
-    ODESAT_LAUNCH(true, false, false);
-  }
-  if (paper) {
-    if (bf16) ODESAT_LAUNCH(false, true, true);
-    ODESAT_LAUNCH(false, true, false);
-  }
-  if (bf16) ODESAT_LAUNCH(false, false, true);
-  ODESAT_LAUNCH(false, false, false);
-#undef ODESAT_LAUNCH
+                        const int* lit_code, const int* occ_ptr, const int* slot_pos,
+                        const int* segs, int nseg, float* scratch, int B, int Np, int Mp, int K,
+                        int nnz, int chunk_steps, int fixed, int paper, int bf16, int R,
+                        int threads, float zeta, float dt_fixed, float tol, float xl_cap,
+                        void* stream) {
+  const size_t smem = lanes::smem_bytes(false, fixed != 0, Np, Mp, K, nnz, R);
+  if (smem > static_cast<size_t>(smem_optin())) return static_cast<int>(cudaErrorInvalidValue);
+  const lanes::State st{v_in,  xs_in,  xl_in,  dt_in,  done_in, v_out,
+                        xs_out, xl_out, dt_out, done_out, scratch};
+  const lanes::Formula f{lit_code, occ_ptr, nullptr, slot_pos, segs, Np, Mp, K, nnz, nseg};
+  const lanes::Scalars s{zeta, dt_fixed, tol, xl_cap};
+  return lanes::launch<false>(st, f, s, B, R, threads, chunk_steps, fixed != 0, paper != 0,
+                              bf16 != 0, smem, static_cast<cudaStream_t>(stream));
 }
 
 // B10, in float (is_double = 0) or double. Returns a cudaError_t code.

@@ -6,26 +6,35 @@ Replaces the TPU kernel ``odesat_tpu/ops/fused_pallas.py::make_fused_chunk``
 trajectory ``chunk_steps`` Euler steps with the state held on chip, so the
 state crosses device memory once per chunk instead of once per step.
 
-Design for the card (``csrc/fused_chunk.cu``): one CTA per trajectory.
-The formula's index tables (a literal code per ``(k, m)`` slot and a CSR
-list of each variable's slots) and the trajectory's ``v``, ``xs``, ``xl``
-live in shared memory for the whole chunk; ``dt`` and ``done`` live in
-registers. Each step is a clause phase (threads over clauses: gather
-``v``, running top-2 min, coefficients, per-slot contributions into a
-shared buffer) and a variable phase (threads over variables: a fixed-order
+Design for the card (``csrc/fused_chunk.cu`` over ``csrc/ode_lanes.cuh``):
+one CTA per tile of R trajectories, a trajectory on one lane of each of
+its thread groups. The formula's index tables (a literal code per
+``(k, m)`` slot and a CSR list of each variable's slots) and the tile's
+``v``, ``xs``, ``xl`` and per-slot contributions, interleaved ``[x][r]``,
+live in shared memory for the whole chunk; each lane's ``dt`` and the
+tile's done mask live in registers. Each step is a clause phase (groups
+over clauses: gather ``v``, running top-2 min, coefficients, per-slot
+contributions) and a variable phase (groups over variables: a fixed-order
 sum over the variable's CSR slots). The TPU kernel's sign-baked one-hot
 planes and its two matmuls per RHS pass exist because the TPU gathers
 poorly; Hopper gathers from shared memory at full speed, so the port
 gathers and never touches an ``(Np, K*Mp)`` plane.
 
-What bounds it on the card: shared-memory gathers and the two (fixed) or
-five (adaptive) block barriers per step, not device memory: a chunk of
-256 steps reads and writes each state row once. What the design does
-about it: no float atomics (the dv sum runs in a fixed order, so repeats
-are bit-identical), the state stays resident, and a ragged batch needs no
-padding rows because the grid is exactly one CTA per trajectory. Its
-support gate is its shared-memory footprint (:func:`fused_smem_bytes`,
-at most 227 KB a CTA), in place of the TPU's 8 MiB VMEM envelope.
+What bounds it on the card: shared-memory wavefronts and instruction
+issue, not device memory: a chunk of 256 steps reads and writes each state
+row once. What the design does about it: each table word is one broadcast
+read for R trajectories, each per-trajectory access is R neighbouring
+words (no bank conflicts), and the barriers (two a fixed step, four an
+adaptive one) and the table copy are shared by R trajectories. All-
+satisfied, done, dt and the step-doubling error are facts of a lane. No
+float atomics: the dv sum runs in a fixed order, so repeats are bit-
+identical. The kernel reads the row-major ``(B, .)`` state into its
+layout at entry and writes it back at exit; a ragged last tile has done
+lanes that touch nothing. R (:func:`fused_lanes`) is the largest power of
+two up to 32 whose footprint (:func:`fused_smem_bytes`) fits one CTA's
+227 KB, in place of the TPU's 8 MiB VMEM envelope; the gate is R = 1. A
+launch halves R where the last wave of tiles would leave the card idle
+(:func:`launch_lanes`).
 
 :func:`fused_chunk_plain` is the same arithmetic in torch tensor ops,
 with the same rounding points (bf16 rounding of ``v`` before the literal
@@ -56,6 +65,7 @@ from odesat_tpu_torch.constants import (
     XL_CAP_PER_CLAUSE,
 )
 from odesat_tpu_torch.ops import _cuda
+from odesat_tpu_torch.ops.tiles import TILE
 
 SMEM_LIMIT_BYTES = 232448  # 227 KB: the most dynamic shared memory an H100 CTA may use
 _INF = float("inf")
@@ -101,26 +111,97 @@ def chunk_tables(fa: FormulaArrays) -> ChunkTables:
     return ChunkTables(code.reshape(-1), ptr, slots, K, Mp, Np)
 
 
-def fused_smem_bytes(fa: FormulaArrays, fixed: bool) -> int:
-    """Shared memory one CTA needs, word for word the carve-up of
-    ``csrc/fused_chunk.cu`` (its ``fused_chunk_smem_bytes`` computes the
-    same number): literal codes, CSR lists, v/xs/xl, the contribution
-    buffer, 32 words of reduction scratch, and in adaptive mode the half-
-    and full-step trial states."""
+MAX_LANES = TILE  # trajectories a CTA at most (csrc/tile.cuh kR)
+
+
+def clause_segments(fa: FormulaArrays) -> np.ndarray:
+    """(nseg, 4) int32 rows ``(m0, m1, w, m_pad)``: the clause axis cut into
+    the formula's width buckets (one range when it has none), each with the
+    width its slots lie below, and the start of its trailing run of padded
+    clauses (``m1`` when there is none). The chunk kernels read ``w`` slots
+    of a clause of the range, so a 3-wide clause of a bucketed formula costs
+    three slots, not K; a padded clause is a fixed point of the fixed step
+    once clamped, and is left out from then on."""
+    K, Mp = fa.lit_var.shape
+    on = fa.lit_mask > 0
+    extent = np.where(on.any(axis=0), K - np.argmax(on[::-1], axis=0), 0)  # last real slot + 1
+    cuts = [(int(m0), int(m1)) for m0, m1, _ in fa.bucket_slices]
+    if not cuts or cuts[0][0] != 0 or cuts[-1][1] != Mp or any(
+            a[1] != b[0] or a[0] >= a[1] for a, b in zip(cuts, cuts[1:] + [(Mp, Mp + 1)])):
+        cuts = [(0, Mp)]
+    rows = []
+    for m0, m1 in cuts:
+        real = np.flatnonzero(extent[m0:m1])
+        m_pad = m0 + int(real[-1]) + 1 if real.size else m0
+        rows.append((m0, m1, max(1, int(extent[m0:m1].max())), m_pad))
+    return np.asarray(rows, dtype=np.int32).reshape(-1, 4)
+
+
+def fused_smem_bytes(fa: FormulaArrays, fixed: bool, lanes: int = 1) -> int:
+    """Shared memory one CTA needs at ``lanes`` trajectories, word for word
+    the carve-up of ``csrc/ode_lanes.cuh`` (``fused_chunk_smem_bytes``
+    computes the same number): the lane flags and errors (3 + 3R words),
+    literal codes, CSR lists, and per lane v/xs/xl and the contributions, in
+    adaptive mode also hv, fv and the first pass's dxs, dxl."""
     K, Mp = fa.lit_var.shape
     Np = fa.n_vars_padded
     nnz = int((fa.lit_mask > 0).sum())
-    words = K * Mp + (Np + 1) + nnz + Np + 2 * Mp + K * Mp + 32
-    if not fixed:
-        words += 2 * (Np + 2 * Mp)
-    return 4 * words
+    per_lane = Np + 2 * Mp + K * Mp + (0 if fixed else 2 * Np + 2 * Mp)
+    return 4 * (3 + 3 * lanes + K * Mp + (Np + 1) + nnz + lanes * per_lane)
+
+
+def fused_lanes(fa: FormulaArrays, fixed: bool) -> Optional[int]:
+    """The trajectories one CTA takes: the largest power of two up to
+    :data:`MAX_LANES` whose footprint fits, None when one does not."""
+    lanes = MAX_LANES
+    while lanes >= 1:
+        if fused_smem_bytes(fa, fixed, lanes) <= SMEM_LIMIT_BYTES:
+            return lanes
+        lanes //= 2
+    return None
+
+
+_SMS: dict = {}  # device -> its SMs
+
+
+def launch_lanes(lanes: int, B: int, device) -> int:
+    """The trajectories a CTA of one launch of B1 or B2 takes: ``lanes``
+    (the most that fit), or half or a quarter of it when the last of the
+    ceil(B / R) tiles' waves over the card's SMs (one CTA an SM) would leave
+    more than a tenth of the card idle; the fullest waves win. A CTA runs a
+    whole chunk, so a ragged last wave idles SMs for a whole chunk (PERF.md:
+    B2 at the n=1k instance, B=10240, is faster at 16 lanes, 640 tiles,
+    than at 32, 320 tiles on 132 SMs)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return lanes
+    sms = _SMS.get(device)
+    if sms is None:
+        sms = _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return wave_lanes(lanes, B, sms)
+
+
+def wave_lanes(lanes: int, B: int, sms: int) -> int:
+    """:func:`launch_lanes` on a card of ``sms`` SMs."""
+    best, best_fill = lanes, 0.0
+    R = lanes
+    while R >= max(1, lanes // 4):
+        tiles = -(-B // R)
+        fill = tiles / (-(-tiles // sms) * sms)
+        if fill >= 0.9:
+            return R
+        if fill > best_fill:
+            best, best_fill = R, fill
+        R //= 2
+    return best
 
 
 def fused_supported(fa: FormulaArrays, fixed: bool = False) -> bool:
     """The kernel's gate: no unit clauses (their infinite gradients are
-    the scan path's business, ops/rhs.py) and a shared-memory footprint
-    one CTA can hold. ``fixed=False`` checks the larger adaptive footprint."""
-    return fa.min_width >= 2 and fused_smem_bytes(fa, fixed) <= SMEM_LIMIT_BYTES
+    the scan path's business, ops/rhs.py) and a footprint one CTA can hold
+    at one trajectory. ``fixed=False`` checks the larger adaptive
+    footprint."""
+    return fa.min_width >= 2 and fused_lanes(fa, fixed) is not None
 
 
 @dataclass(frozen=True)
@@ -202,7 +283,16 @@ def spec_fields(fa: FormulaArrays, zeta: float, ode, device: torch.device,
     )
 
 
-def chunk_spec(fa: FormulaArrays, zeta: float, ode, device) -> ChunkSpec:
+@dataclass(frozen=True)
+class FusedSpec(ChunkSpec):
+    """A :class:`ChunkSpec` plus the clause segments and the trajectories a
+    CTA takes."""
+
+    segments: torch.Tensor  # (nseg, 4) int32, clause_segments
+    lanes: int
+
+
+def chunk_spec(fa: FormulaArrays, zeta: float, ode, device) -> FusedSpec:
     """Check ``ode`` against what the kernel takes and move the tables to
     ``device``. Raises ValueError for float64, a batch-shared adaptive dt
     and formulas outside the gate."""
@@ -211,10 +301,13 @@ def chunk_spec(fa: FormulaArrays, zeta: float, ode, device) -> ChunkSpec:
     if not fused_supported(fa, fixed):
         raise ValueError(
             "fused chunk kernel unsupported for this formula (unit clauses, or "
-            f"{fused_smem_bytes(fa, fixed)} bytes of shared memory per CTA "
+            f"{fused_smem_bytes(fa, fixed)} bytes of shared memory for one trajectory "
             f"exceed {SMEM_LIMIT_BYTES}); use the scan path"
         )
-    return ChunkSpec(**spec_fields(fa, zeta, ode, cuda_device(device), chunk_tables(fa)))
+    device = cuda_device(device)
+    return FusedSpec(**spec_fields(fa, zeta, ode, device, chunk_tables(fa)),
+                     segments=torch.as_tensor(clause_segments(fa)).to(device),
+                     lanes=fused_lanes(fa, fixed))
 
 
 # ---------------------------------------------------------------- plain
@@ -357,9 +450,9 @@ _F = ctypes.c_float
 
 
 def _declare(lib) -> None:
-    lib.fused_chunk_launch.argtypes = [_P] * 13 + [_I] * 10 + [_F] * 4 + [_P]
+    lib.fused_chunk_launch.argtypes = [_P] * 14 + [_I] * 12 + [_F] * 4 + [_P]
     lib.fused_chunk_launch.restype = _I
-    lib.fused_chunk_smem_bytes.argtypes = [_I] * 5
+    lib.fused_chunk_smem_bytes.argtypes = [_I] * 6
     lib.fused_chunk_smem_bytes.restype = ctypes.c_size_t
     lib.fused_chunk_error_string.argtypes = [_I]
     lib.fused_chunk_error_string.restype = ctypes.c_char_p
@@ -371,9 +464,21 @@ def load_library():
 
 
 def kernel_threads(Mp: int) -> int:
-    """Threads per CTA: about two clauses a thread, a whole number of
-    warps (the block reduction needs full warps), 64 to 256."""
+    """Threads per CTA of the one-CTA-a-chain stoch kernels (B3, B4, B8):
+    about two clauses a thread, a whole number of warps (the block
+    reduction needs full warps), 64 to 256."""
     return min(256, max(64, 32 * -(-Mp // 64)))
+
+
+LANE_THREADS = 1024  # threads a CTA of B1 and B2 (csrc/ode_lanes.cuh kMaxThreads)
+
+
+def lane_threads(lanes: int, Np: int, Mp: int) -> int:
+    """Threads a CTA of B1 and B2: :data:`LANE_THREADS`, fewer when the
+    formula has fewer clauses and variables than the groups of ``lanes``
+    threads would take."""
+    need = lanes * max(Np, Mp)
+    return min(LANE_THREADS, max(32, 32 * -(-need // 32)))
 
 
 def check_state(state, spec: ChunkSpec) -> None:
@@ -400,7 +505,7 @@ def check_state(state, spec: ChunkSpec) -> None:
             raise ValueError(f"state.{name} is not contiguous")
 
 
-def fused_chunk_cuda(state, spec: ChunkSpec, chunk_steps: int):
+def fused_chunk_cuda(state, spec: FusedSpec, chunk_steps: int):
     """Launch the kernel once on the current stream of the state's device.
     Raises if the state is not what the kernel takes or if the launch is
     refused; never falls back."""
@@ -409,19 +514,21 @@ def fused_chunk_cuda(state, spec: ChunkSpec, chunk_steps: int):
         raise ValueError(f"the fused chunk kernel runs on CUDA tensors, not {spec.device}")
     check_state(state, spec)
     B = state.v.shape[0]
-    if B == 0:
-        return state
+    if B == 0 or chunk_steps == 0:
+        return type(state)(*(t.clone() for t in state))
     lib, _ = load_library()
     out = [torch.empty_like(t) for t in state]
+    R = launch_lanes(spec.lanes, B, spec.device)
     with torch.cuda.device(spec.device):
         stream = torch.cuda.current_stream(spec.device).cuda_stream
         rc = lib.fused_chunk_launch(
             *(t.data_ptr() for t in state),
             *(t.data_ptr() for t in out),
             spec.lit_code.data_ptr(), spec.occ_ptr.data_ptr(), spec.occ_slot.data_ptr(),
+            spec.segments.data_ptr(), spec.segments.shape[0],
             B, spec.Np, spec.Mp, spec.K, spec.occ_slot.numel(), int(chunk_steps),
             int(spec.fixed), int(spec.paper), int(spec.bf16),
-            kernel_threads(spec.Mp),
+            R, lane_threads(R, spec.Np, spec.Mp),
             spec.zeta, spec.dt_fixed or 0.0, spec.tol, spec.xl_cap,
             stream,
         )

@@ -7,35 +7,35 @@ Replaces the TPU kernel ``odesat_tpu/ops/stream_pallas.py::make_stream_chunk``
 (B1, ops/fused_chunk.py) cannot hold, and like it, it computes exactly what
 B1 computes: :func:`stream_chunk_plain` *is* :func:`fused_chunk_plain`.
 
-Design for the card (``csrc/stream_chunk.cu``): one CTA per trajectory, the
-grid exactly B. The TPU kernel streams sign-baked one-hot planes per
-128-clause span with double-buffered DMA and runs the gather and the
-scatter as matmuls, for the TPU's VMEM and its poor gathers; none of that
-carries over. Here the formula's tables (a literal code per ``(k, m)``
-slot and, per variable, a CSR list of ``2*m + negated`` codes) are read
-from global memory, where every CTA reads the same bytes and they stay in
-the 50 MB L2. Two words per clause (the running min and second min) take
-the place of B1's K words per clause of contributions: the variable phase
-recomputes each occurrence's contribution from them, bit for bit as B1's
-clause phase computes it. The trajectory's arrays are placed by
-:func:`stream_layout`: in shared memory while they fit, the rest in a
-per-trajectory scratch row in global memory that the wrapper allocates.
+Design for the card (``csrc/stream_chunk.cu`` over ``csrc/ode_lanes.cuh``,
+B1's device code): one CTA per tile of R trajectories, a trajectory on one
+lane of each thread group, for the whole chunk. The TPU kernel streams
+sign-baked one-hot planes per 128-clause span with double-buffered DMA and
+runs the gather and the scatter as matmuls, for the TPU's VMEM and its
+poor gathers; none of that carries over. Here the tile's ``v`` window (and
+the adaptive half step) sits in shared memory, interleaved ``[i][r]``, and
+``xs``, ``xl``, the contributions and the adaptive scratch live in a device
+scratch buffer tiled ``[x][r]`` (:func:`stream_scratch_floats` floats a
+tile), so every access of a group is R neighbouring words, one 128-byte
+line at R = 32. The clause phase computes each slot's contribution as B1
+does and writes it at its occurrence's CSR position (:func:`slot_positions`),
+so the variable phase reads each variable's list as a stream. The first
+step reads ``xs``, ``xl`` from the row-major input and the last writes the
+row-major output: no tiling pass. The tables are read from global memory,
+where every CTA reads the same bytes and they stay in the 50 MB L2.
 
-What bounds it on the card: gathers from shared memory, L1 and L2 (the
-clause phase reads K literal codes and K values of ``v`` per clause, the
-variable phase four clause words per occurrence), and the block barriers
-(two a fixed step, five an adaptive one); not device memory for the
-formulas whose state fits the CTA. What the design does about it: ``v``
-and the adaptive half step are always resident, the clause words that the
-variable phase gathers come next, and the trial states that are read once
-per step last. No float atomics; dv sums in the plain version's CSR order.
+What bounds it on the card: device-memory bytes. A fixed step moves xs and
+xl (read and written) and the contributions (written and read), ``4*Mp +
+2*nnz`` words a trajectory. No float atomics; dv sums in the plain
+version's CSR order, so B2 equals B1 and the plain version bit for bit.
 
 The gate is the kernel's own (:func:`stream_supported`): no unit clauses,
-and ``v`` (and in adaptive mode the half step) plus 32 words of reduction
-scratch in at most 232,448 bytes of shared memory, about 58,000 padded
-variables for the fixed integrator and 29,000 for the adaptive one. The
-scratch rows are sized per launch (:attr:`Layout.row_words` floats per
-trajectory). The TPU kernel's budgets (8 MiB of plane staging, 2 GiB of
+and the ``v`` window (and in adaptive mode the half step) of one
+trajectory plus the lane words in at most 232,448 bytes of shared memory,
+about 58,000 padded variables for the fixed integrator and 29,000 for the
+adaptive one. R (:func:`stream_lanes`) is the largest power of two up to
+32 that fits, halved by a launch whose last wave of tiles would leave the
+card idle (:func:`launch_lanes`). The TPU kernel's budgets (8 MiB of plane staging, 2 GiB of
 planes, a 128-aligned clause axis) have no counterpart: nothing here is a
 plane.
 """
@@ -52,16 +52,21 @@ import torch
 from odesat_tpu_torch.cnf.arrays import FormulaArrays
 from odesat_tpu_torch.ops import _cuda
 from odesat_tpu_torch.ops.fused_chunk import (
+    MAX_LANES,
     SMEM_LIMIT_BYTES,
     ChunkSpec,
     ChunkTables,
     check_chunk_config,
     check_state,
     chunk_tables,
+    clause_segments,
     cuda_device,
     fused_chunk_plain,
+    lane_threads,
+    launch_lanes,
     spec_fields,
 )
+from odesat_tpu_torch.ops.tiles import n_tiles
 
 # Kernel launches made through stream_chunk_cuda in this process. A plain
 # integer that callers may reset; chip_smoke.py reads it to show that the
@@ -71,12 +76,15 @@ launches = 0
 # B2 computes what B1 computes: its plain version is B1's, under its own name.
 stream_chunk_plain = fused_chunk_plain
 
+# The placement of B10 (ops/rhs_kernel.py) and B5 (ops/shard_stream.py), one
+# CTA a trajectory: their arrays in shared memory while they fit, the rest
+# in a scratch row a trajectory.
 RED_WORDS = 32  # reduction scratch at the start of shared memory (csrc kRed)
-# the kernel's `enum Item`, in order
+# the kernels' `enum Item`, in order
 ITEMS = ("v", "hv", "fv", "m1", "m2", "xs", "xl", "hxs", "hxl", "fxs", "fxl")
-# placement order: gathered K times per clause, then per occurrence, then once a step
-_PRIORITY = ("v", "hv", "m1", "m2", "xs", "xl", "hxs", "hxl", "fv", "fxs", "fxl")
-_RESIDENT = ("v", "hv")  # must be in shared memory
+# placement order: gathered K times per clause, then per occurrence
+_PRIORITY = ("v", "m1", "m2", "hxs", "hxl")
+_RESIDENT = ("v",)  # must be in shared memory
 MAX_THREADS = 512
 
 
@@ -115,44 +123,69 @@ def place_items(sizes: dict, itemsize: int, limit: int = SMEM_LIMIT_BYTES) -> Op
     return Layout(tuple(place), smem * itemsize, row)
 
 
-def stream_layout(Np: int, Mp: int, fixed: bool, limit: int = SMEM_LIMIT_BYTES) -> Optional[Layout]:
-    """B2's placement for ``Np`` padded variables and ``Mp`` padded clauses:
-    v, m1, m2, xs, xl, and in adaptive mode the half step (hv, hxs, hxl)
-    and the full-step trial (fv, fxs, fxl)."""
-    sizes = dict(v=Np, m1=Mp, m2=Mp, xs=Mp, xl=Mp)
-    if not fixed:
-        sizes.update(hv=Np, fv=Np, hxs=Mp, hxl=Mp, fxs=Mp, fxl=Mp)
-    return place_items(sizes, 4, limit)
+def stream_smem_bytes(Np: int, fixed: bool, lanes: int = 1) -> int:
+    """B2's shared memory at ``lanes`` trajectories, as ``csrc/ode_lanes.cuh``
+    carves it (``stream_chunk_smem_bytes``): the lane flags and errors (3 +
+    3R words) and the v window, in adaptive mode also hv."""
+    return 4 * (3 + 3 * lanes + lanes * Np * (1 if fixed else 2))
+
+
+def stream_lanes(Np: int, fixed: bool, limit: int = SMEM_LIMIT_BYTES) -> Optional[int]:
+    """The trajectories one CTA of B2 can take: the largest power of two up
+    to :data:`MAX_LANES` whose windows fit, None when one trajectory's does
+    not (a launch may take fewer, :func:`launch_lanes`)."""
+    lanes = MAX_LANES
+    while lanes >= 1:
+        if stream_smem_bytes(Np, fixed, lanes) <= limit:
+            return lanes
+        lanes //= 2
+    return None
+
+
+def stream_scratch_floats(Np: int, Mp: int, nnz: int, fixed: bool, lanes: int) -> int:
+    """Device scratch a tile of B2 needs, in floats: xs, xl and the
+    contributions, in adaptive mode also dxs1, dxl1 and fv
+    (``stream_chunk_scratch_floats``)."""
+    return lanes * (2 * Mp + nnz + (0 if fixed else 2 * Mp + Np))
 
 
 def stream_supported(fa: FormulaArrays, fixed: bool = False) -> bool:
     """B2's gate: no unit clauses (their infinite gradients are the scan
-    path's business, ops/rhs.py) and a layout whose resident part fits one
-    CTA. ``fixed=False`` checks the adaptive layout."""
-    return fa.min_width >= 2 and stream_layout(fa.n_vars_padded, fa.n_clauses_padded,
-                                               fixed) is not None
+    path's business, ops/rhs.py) and a v window of one trajectory that fits
+    one CTA. ``fixed=False`` checks the adaptive one (v and hv)."""
+    return fa.min_width >= 2 and stream_lanes(fa.n_vars_padded, fixed) is not None
+
+
+def slot_positions(t: ChunkTables) -> np.ndarray:
+    """The CSR position of each ``(k, m)`` slot (-1 at padding): where the
+    clause phase writes the slot's contribution, so that each variable's
+    contributions lie in a row."""
+    pos = np.full(t.K * t.Mp, -1, dtype=np.int32)
+    pos[t.occ_slot] = np.arange(t.occ_slot.size, dtype=np.int32)
+    return pos
 
 
 def occurrence_codes(t: ChunkTables) -> np.ndarray:
     """``2*m + negated`` for each occurrence of ``t``'s CSR lists, in their
-    order: the clause column and sign the variable phase needs."""
+    order: the clause column and sign B5's and B10's variable phase needs."""
     slots = t.occ_slot.astype(np.int64)
     return (2 * (slots % t.Mp) + (t.lit_code[slots] & 1)).astype(np.int32)
 
 
 def kernel_threads(Mp: int) -> int:
-    """Threads per CTA: about two clauses a thread, whole warps, 64 to
-    ``MAX_THREADS``."""
+    """Threads per CTA of B5 and B10: about two clauses a thread, whole
+    warps, 64 to ``MAX_THREADS``."""
     return min(MAX_THREADS, max(64, 32 * -(-Mp // 64)))
 
 
 @dataclass(frozen=True)
 class StreamSpec(ChunkSpec):
-    """A :class:`ChunkSpec` (what the plain version reads) plus B2's
-    occurrence codes and its layout."""
+    """A :class:`ChunkSpec` (what the plain version reads) plus B2's slot
+    positions and the trajectories a CTA takes."""
 
-    occ_code: torch.Tensor  # (nnz,) int32, 2*m + negated
-    layout: Layout
+    slot_pos: torch.Tensor  # (K*Mp,) int32, the CSR position of each slot
+    segments: torch.Tensor  # (nseg, 4) int32, clause_segments
+    lanes: int
 
 
 def stream_spec(fa: FormulaArrays, zeta: float, ode, device) -> StreamSpec:
@@ -166,8 +199,8 @@ def stream_spec(fa: FormulaArrays, zeta: float, ode, device) -> StreamSpec:
             "stream chunk kernel cannot represent unit-clause infinite gradients; "
             "use the scan path (dv_strategy='gather')"
         )
-    layout = stream_layout(fa.n_vars_padded, fa.n_clauses_padded, fixed)
-    if layout is None:
+    lanes = stream_lanes(fa.n_vars_padded, fixed)
+    if lanes is None:
         raise ValueError(
             f"stream chunk kernel unsupported for this formula: {fa.n_vars_padded} padded "
             f"variables exceed the {SMEM_LIMIT_BYTES} bytes of shared memory a CTA may "
@@ -175,9 +208,10 @@ def stream_spec(fa: FormulaArrays, zeta: float, ode, device) -> StreamSpec:
         )
     device = cuda_device(device)
     t = chunk_tables(fa)
-    occ_code = torch.as_tensor(occurrence_codes(t)).to(device)
-    return StreamSpec(**spec_fields(fa, zeta, ode, device, t), occ_code=occ_code,
-                      layout=layout)
+    slot_pos = torch.as_tensor(slot_positions(t)).to(device)
+    segments = torch.as_tensor(clause_segments(fa)).to(device)
+    return StreamSpec(**spec_fields(fa, zeta, ode, device, t), slot_pos=slot_pos,
+                      segments=segments, lanes=lanes)
 
 
 # ---------------------------------------------------------------- kernel
@@ -189,10 +223,12 @@ _LL = ctypes.c_longlong
 
 
 def _declare(lib) -> None:
-    lib.stream_chunk_launch.argtypes = (
-        [_P] * 14 + [ctypes.POINTER(_LL), _LL] + [_I] * 10 + [_F] * 4 + [_P]
-    )
+    lib.stream_chunk_launch.argtypes = [_P] * 14 + [_I] + [_P] + [_I] * 11 + [_F] * 4 + [_P]
     lib.stream_chunk_launch.restype = _I
+    lib.stream_chunk_smem_bytes.argtypes = [_I] * 3
+    lib.stream_chunk_smem_bytes.restype = ctypes.c_size_t
+    lib.stream_chunk_scratch_floats.argtypes = [_I] * 5
+    lib.stream_chunk_scratch_floats.restype = ctypes.c_size_t
     lib.rhs_launch.argtypes = (
         [_I] + [_P] * 11 + [ctypes.POINTER(_LL), _LL] + [_I] * 7 + [ctypes.c_double, _P]
     )
@@ -231,28 +267,29 @@ def raise_for(lib, rc: int, what: str) -> None:
 
 def stream_chunk_cuda(state, spec: StreamSpec, chunk_steps: int):
     """Launch B2 once on the current stream of the state's device, with a
-    fresh scratch row per trajectory. Raises if the state is not what the
-    kernel takes or if the launch is refused; never falls back."""
+    fresh tiled scratch buffer. Raises if the state is not what the kernel
+    takes or if the launch is refused; never falls back."""
     global launches
     if spec.device.type != "cuda":
         raise ValueError(f"the stream chunk kernel runs on CUDA tensors, not {spec.device}")
     check_state(state, spec)
     B = state.v.shape[0]
-    if B == 0:
-        return state
+    if B == 0 or chunk_steps == 0:
+        return type(state)(*(t.clone() for t in state))
     lib, _ = load_library()
     out = [torch.empty_like(t) for t in state]
-    lay = spec.layout
-    scratch = torch.empty((B * lay.row_words) or 1, dtype=torch.float32, device=spec.device)
+    R, nnz = launch_lanes(spec.lanes, B, spec.device), spec.occ_slot.numel()
+    per_tile = stream_scratch_floats(spec.Np, spec.Mp, nnz, spec.fixed, R)
+    scratch = torch.empty(n_tiles(B, R) * per_tile, dtype=torch.float32, device=spec.device)
     with torch.cuda.device(spec.device):
         stream = torch.cuda.current_stream(spec.device).cuda_stream
         rc = lib.stream_chunk_launch(
             *(t.data_ptr() for t in state),
             *(t.data_ptr() for t in out),
-            spec.lit_code.data_ptr(), spec.occ_ptr.data_ptr(), spec.occ_code.data_ptr(),
-            scratch.data_ptr(), place_arg(lay), lay.row_words, lay.smem_bytes,
-            B, spec.Np, spec.Mp, spec.K, int(chunk_steps),
-            int(spec.fixed), int(spec.paper), int(spec.bf16), kernel_threads(spec.Mp),
+            spec.lit_code.data_ptr(), spec.occ_ptr.data_ptr(), spec.slot_pos.data_ptr(),
+            spec.segments.data_ptr(), spec.segments.shape[0], scratch.data_ptr(), B, spec.Np, spec.Mp, spec.K, nnz, int(chunk_steps),
+            int(spec.fixed), int(spec.paper), int(spec.bf16),
+            R, lane_threads(R, spec.Np, spec.Mp),
             spec.zeta, spec.dt_fixed or 0.0, spec.tol, spec.xl_cap,
             stream,
         )

@@ -158,21 +158,26 @@ def test_rejections():
 
 
 def test_layout_places_the_resident_arrays_first():
-    """The placement is exact word arithmetic: v (and hv) first, then the
-    clause words, spilling whole arrays to the scratch row; a formula
-    whose v does not fit is refused."""
-    small = sc.stream_layout(128, 256, fixed=True)
-    assert small.row_words == 0 and small.smem_bytes == 4 * (32 + 128 + 4 * 256)
+    """The placement of B10 and B5 (``place_items``) is exact word
+    arithmetic: v first, then the clause words, spilling whole arrays to the
+    scratch row; a formula whose v does not fit is refused. B2 keeps only
+    its v window (and hv) in shared memory, R trajectories of it, and the
+    same formulas fit at R = 1."""
+    small = sc.place_items(dict(v=128, m1=256, m2=256), 4)
+    assert small.row_words == 0 and small.smem_bytes == 4 * (32 + 128 + 2 * 256)
     assert small.place[sc.ITEMS.index("v")] == 32
-    # the locally-structured n=4096 instance: Np=4096, Mp=17280
-    fixed = sc.stream_layout(4096, 17280, fixed=True)
-    assert fixed.smem_bytes == 4 * (32 + 4096 + 3 * 17280) <= sc.SMEM_LIMIT_BYTES
-    assert fixed.place[sc.ITEMS.index("xl")] == -1 and fixed.row_words == 17280
-    adaptive = sc.stream_layout(4096, 17280, fixed=False)
-    assert adaptive.row_words == 6 * 17280
-    assert adaptive.place[sc.ITEMS.index("hv")] >= 0 and adaptive.place[sc.ITEMS.index("fv")] >= 0
-    assert sc.stream_layout((sc.SMEM_LIMIT_BYTES // 4 - 32) // 2 + 1, 128, fixed=False) is None
-    assert sc.stream_layout((sc.SMEM_LIMIT_BYTES // 4 - 32) // 2, 128, fixed=False) is not None
+    # B5's second pass at the locally-structured n=4096 instance: Np=4096, Mp=17280
+    second = sc.place_items(dict(v=4096, m1=17280, m2=17280, hxs=17280, hxl=17280), 4)
+    assert second.smem_bytes == 4 * (32 + 4096 + 3 * 17280) <= sc.SMEM_LIMIT_BYTES
+    assert second.place[sc.ITEMS.index("hxl")] == -1 and second.row_words == 17280
+    edge = sc.SMEM_LIMIT_BYTES // 4 - 32
+    assert sc.place_items(dict(v=edge + 1, m1=128), 4) is None
+    assert sc.place_items(dict(v=edge, m1=128), 4).row_words == 128
+    # B2 at the n=4096 shapes: 8 (fixed) and 4 (adaptive) trajectories a CTA
+    assert sc.stream_lanes(4096, True) == 8 and sc.stream_lanes(4096, False) == 4
+    assert sc.stream_smem_bytes(4096, True, 8) == 4 * (3 + 24 + 8 * 4096)
+    half = (sc.SMEM_LIMIT_BYTES // 4 - 32) // 2  # v and hv of one trajectory, as before
+    assert sc.stream_lanes(half, False) == 1 and sc.stream_lanes(128, False) == 32
 
 
 def test_gate_takes_formulas_past_b1():
@@ -210,7 +215,7 @@ def test_chunk_runner_dispatches_stream():
     arrays = numpy_state(fa, 8, 4)
     run = tode.make_chunk_runner(formula_arrays_from_numpy(fa), 0.05,
                                  ODEConfig(step_size=0.02, dv_strategy="stream"), 10, "cpu")
-    assert run.spec.layout.row_words == 0
+    assert run.spec.lanes == 32
     tout = run(state_from_numpy(*arrays, device="cpu"))
     jrun = jode.make_chunk_runner(fa, 0.05, JODE(step_size=0.02, dv_strategy="stream"), 10,
                                   donate=False)
