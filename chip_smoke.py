@@ -36,13 +36,16 @@ Phases, each printing its lines; the first failure exits non-zero:
 7. timing: the kernel's and the plain version's device time per 256-step
    chunk at hard.cnf B=16384 and uf250 B=4096 (CUDA events), beside the
    one-CTA-a-trajectory kernel it replaced, at hard.cnf fixed;
-8. stoch kernel vs plain: B3 (resident) and B4 (tables in L2) on the
-   formulas of phase 3, and B4 on the preprocessed n=1k
-   instance (run_benchmarks.py config 4) at B=8192, f32 and bf16, random
-   v and xl up to 3000; then a planted 3-SAT (n=200, m=700) at B=4096
-   until a compared chunk holds chains done before it, chains that
-   finish in it and chains still running. Exact equality of v, xl and
-   done; B3 and B4 equal on every formula both take;
+8. stoch kernel vs plain: B3 (resident) and B4 (tables in L2), tiles of
+   R chains a CTA, on the formulas of phase 3 and its ragged batches (B =
+   1, 7, 33 on hard.cnf and the bucketed formula: a last tile of padded
+   lanes) at every R from 1 to the most that fit, and B4 on the
+   preprocessed n=1k instance (run_benchmarks.py config 4) at B=8192 at
+   its R, f32 and bf16, random v and xl up to 3000, each R's shared
+   memory equal to the Python footprint; then a planted 3-SAT (n=200,
+   m=700) at B=4096 until a compared chunk holds chains done before it,
+   chains that finish in it and chains still running. Exact equality of
+   v, xl and done; B3 and B4 equal on every formula both take;
 9. stoch determinism: two launches give bit-identical outputs;
 10. stoch main path: stoch on easy.cnf at -b 4096 verifies true through
     B3; stoch --no-preprocess on hard.cnf at -b 16384 -n 4096 (f32 and
@@ -51,7 +54,10 @@ Phases, each printing its lines; the first failure exits non-zero:
     planted 5-SAT (n=2000, m=8000, past B3's gate) verifies true
     through B4; each prints chain*steps/s;
 11. stoch timing: kernel and plain version in turns over the same steps,
-    B3 and B4 at hard.cnf B=16384, B4 at the n=1k instance B=8192;
+    B3 and B4 at hard.cnf B=16384, B4 at the n=1k instance B=8192; then
+    B3 (hard.cnf) and B4 (n1k) alone per 256-step chunk, the length phase
+    10's launches run; then B3 (hard.cnf, B=16384 and 1000) and B4 (n1k)
+    at 512 and 1024 threads a CTA, beside the threads the wrapper takes;
 12. B2 vs plain: the large-formula chunk kernel against its plain version
     (B1's), exactly (max abs error 0, done equal), on phase 3's formulas
     and ragged batches (where it must also equal B1) and on the formulas
@@ -134,9 +140,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, ".scratch", "chip_smoke")  # git-ignored
 F32_TOL = dict(rtol=2e-4, atol=2e-5)
 EXACT = dict(rtol=0.0, atol=0.0)  # B1 and B2 compute exactly what their plain version does
-# the one-CTA-a-trajectory B1 and B2 that the lane tiles replaced, ms a launch
-# as this script measured them (NVIDIA H100 80GB HBM3, 700 W)
-ONE_CTA_MS = {"B1 hard.cnf fixed 256": 7.368186, "B2 n1k fixed 8": 19.397267}
+# the one-CTA-a-trajectory (chain) B1, B2, B3 and B4 that the lane tiles
+# replaced, ms a launch as this script measured them (NVIDIA H100 80GB HBM3,
+# 700 W)
+ONE_CTA_MS = {"B1 hard.cnf fixed 256": 7.368186, "B2 n1k fixed 8": 19.397267,
+              "B3 hard.cnf 64": 1.372734, "B4 n1k 8": 4.844923}
 
 
 def fail(msg):
@@ -556,39 +564,53 @@ def stoch_kernels_for(sc, fa):
     return [k for k in STOCH_KERNELS if k == "stream" or sc.stoch_fused_supported(fa)]
 
 
-def phase_stoch_compare(torch, sc, stoch_cases):
-    from odesat_tpu_torch.ops.stoch_chunk import make_stoch_chunk, stoch_chunk_plain, traj_block
+def stoch_lanes_to_compare(fc, most, B, Mp):
+    """The chains a CTA phase 8 compares a kernel at: every power of two
+    from 1 to ``most`` on the small cases, the most and the launch's choice
+    (``launch_lanes``) on the main-path shapes."""
+    if B * Mp > 2**22:
+        return sorted({most, fc.launch_lanes(most, B, "cuda")})
+    return [1 << k for k in range(most.bit_length())]
+
+
+def phase_stoch_compare(torch, fc, sc, stoch_cases):
+    from odesat_tpu_torch.ops.stoch_chunk import stoch_chunk_plain, stoch_spec, traj_block
 
     lib, _ = sc.load_library()
     worst = dict.fromkeys(STOCH_KERNELS, 0.0)
+    launch = {"fused": sc.stoch_fused_cuda, "stream": sc.stoch_stream_cuda}
     for label, fa, B in stoch_cases:
         nnz = int((fa.lit_mask > 0).sum())
         K, Mp = fa.lit_var.shape
         Np = fa.n_vars_padded
-        if lib.stoch_fused_smem_bytes(Np, Mp, K, nnz) != sc.stoch_fused_smem_bytes(fa) or \
-                lib.stoch_stream_smem_bytes(Np, Mp) != sc.stoch_stream_smem_bytes(fa):
-            fail(f"{label}: a stoch shared-memory gate differs from the kernel's")
+        spec = stoch_spec(fa, "cuda")
+        most = {"fused": spec.fused_lanes, "stream": spec.stream_lanes}
         steps = 8 if B * Mp > 2**24 else 32
         state = stoch_state(fa, B, seed=B)
-        outs = {}
-        for kernel in stoch_kernels_for(sc, fa):
-            for mm in ("float32", "bfloat16"):
-                fn = make_stoch_chunk(fa, steps, kernel, mm, "cuda")
-                out = fn(state, 1234567)
-                ref = stoch_chunk_plain(state, fn.spec, steps, 1234567, traj_block(B),
-                                        mm == "bfloat16")
-                torch.cuda.synchronize()
-                err, why = stoch_compare(torch, out, ref)
-                tag = f"{label} {kernel} {mm} {steps} steps"
-                if why:
-                    fail(f"stoch kernel vs plain, {tag}: {why}")
-                worst[kernel] = max(worst[kernel], err)
-                outs[(kernel, mm)] = out
-                say(f"[stoch compare] {tag}: equal (max abs err {err:.1f}), "
-                    f"flips {int((out.v != state.v).sum())}, done {int(out.done.sum())}/{B}")
         for mm in ("float32", "bfloat16"):
-            if ("fused", mm) in outs:
-                _, why = stoch_compare(torch, outs[("fused", mm)], outs[("stream", mm)])
+            ref = stoch_chunk_plain(state, spec, steps, 1234567, traj_block(B), mm == "bfloat16")
+            outs = {}
+            for kernel in stoch_kernels_for(sc, fa):
+                for R in stoch_lanes_to_compare(fc, most[kernel], B, Mp):
+                    c_bytes = lib.stoch_fused_smem_bytes(Np, Mp, K, nnz, R) \
+                        if kernel == "fused" else lib.stoch_stream_smem_bytes(Np, Mp, R)
+                    py_bytes = sc.stoch_fused_smem_bytes(fa, R) if kernel == "fused" \
+                        else sc.stoch_stream_smem_bytes(fa, R)
+                    if c_bytes != py_bytes:
+                        fail(f"{label}: {kernel}'s shared memory {py_bytes} != kernel's "
+                             f"{c_bytes} at {R} chains a CTA")
+                    out = launch[kernel](state, spec, steps, 1234567, mm == "bfloat16", lanes=R)
+                    torch.cuda.synchronize()
+                    err, why = stoch_compare(torch, out, ref)
+                    tag = f"{label} {kernel} {mm} {steps} steps, {R} chains a CTA"
+                    if why:
+                        fail(f"stoch kernel vs plain, {tag}: {why}")
+                    worst[kernel] = max(worst[kernel], err)
+                    outs[kernel] = out
+                    say(f"[stoch compare] {tag}: equal (max abs err {err:.1f}), "
+                        f"flips {int((out.v != state.v).sum())}, done {int(out.done.sum())}/{B}")
+            if "fused" in outs:
+                _, why = stoch_compare(torch, outs["fused"], outs["stream"])
                 if why:
                     fail(f"B3 vs B4, {label} {mm}: {why}")
                 say(f"[stoch B3 vs B4] {label} {mm}: equal")
@@ -722,6 +744,7 @@ def phase_stoch_timing(torch, sc, hard, n1k, card):
         state = stoch_state(fa, B, seed=3, xl_hi=1)
         fn = make_stoch_chunk(fa, steps, kernel, "float32", "cuda")
         Bb = traj_block(B)
+        R = sc.stoch_lanes(fa, kernel)
 
         def plain_turn():
             return cuda_ms(lambda: stoch_chunk_plain(state, fn.spec, steps, 5, Bb, False), 1,
@@ -733,9 +756,58 @@ def phase_stoch_timing(torch, sc, hard, n1k, card):
         p1, k1, k2, p2 = plain_turn(), kernel_turn(), kernel_turn(), plain_turn()
         kern, plain = (k1 + k2) / 2, (p1 + p2) / 2
         times[(label, kernel)] = (kern, plain)
-        say(f"[stoch timing] {label} {kernel} f32, {steps}-step chunk: kernel {k1:.6f} / "
-            f"{k2:.6f} ms, plain {p1:.6f} / {p2:.6f} ms ({plain / kern:.3f}x), kernel "
-            f"{B * steps / kern * 1e3:.6e} chain*steps/s ({card})")
+        was = ONE_CTA_MS.get(f"{'B3' if kernel == 'fused' else 'B4'} {label.split(' ')[0]} "
+                             f"{steps}")
+        was = f" (one CTA a chain: {was:.6f} ms, {was / kern:.3f}x)" if was else ""
+        say(f"[stoch timing] {label} {kernel} f32, {steps}-step chunk, {R} chains a CTA: "
+            f"kernel {k1:.6f} / {k2:.6f} ms{was}, plain {p1:.6f} / {p2:.6f} ms "
+            f"({plain / kern:.3f}x), kernel {B * steps / kern * 1e3:.6e} chain*steps/s ({card})")
+    # the chunk length phase 10's launches run: the kernel alone (its plain
+    # version would take 4 and 32 times its timed length)
+    for label, fa, B, kernel in (("hard.cnf B=16384", hard, 16384, "fused"),
+                                 ("n1k B=8192", n1k, 8192, "stream")):
+        state = stoch_state(fa, B, seed=3, xl_hi=1)
+        fn = make_stoch_chunk(fa, 256, kernel, "float32", "cuda")
+        ks = [cuda_ms(lambda: fn(state, 5), iters=1, warmup=1) for _ in range(2)]
+        say(f"[stoch timing] {label} {kernel} f32, 256-step chunk, {sc.stoch_lanes(fa, kernel)} "
+            f"chains a CTA: kernel {ks[0]:.6f} / {ks[1]:.6f} ms, "
+            f"{B * 256 / (sum(ks) / 2) * 1e3:.6e} chain*steps/s ({card})")
+    # the threads a CTA (stoch_threads): 512 and 1024 in turns, beside the
+    # wrapper's choice, where tiles share SMs (hard.cnf B=16384, 512 tiles of
+    # 42 KB), where each has an SM to itself but 1024 threads would give a
+    # group fewer than four clauses (B=1000: 125 tiles of 8) and where one
+    # CTA fills an SM (n1k)
+    from odesat_tpu_torch.ops.fused_chunk import launch_lanes, sm_count
+
+    lib, _ = sc.load_library()
+    for label, fa, B, kernel, steps in (("hard.cnf B=16384", hard, 16384, "fused", 64),
+                                        ("hard.cnf B=1000", hard, 1000, "fused", 64),
+                                        ("n1k B=8192", n1k, 8192, "stream", 8)):
+        state = stoch_state(fa, B, seed=3, xl_hi=1)
+        out = type(state)(*(torch.empty_like(t) for t in state))
+        spec = sc.stoch_spec(fa, "cuda")
+        R = launch_lanes(sc.stoch_lanes(fa, kernel), B, "cuda")
+        smem = sc.lanes_smem_bytes(kernel == "fused", spec.Np, spec.Mp, spec.K,
+                                   spec.occ_clause.numel(), R)
+        chosen = sc.stoch_threads(R, smem, -(-B // R), sm_count("cuda"), spec.Np, spec.Mp)
+
+        def launch(threads):
+            rc = getattr(lib, f"stoch_{kernel}_launch")(
+                *(t.data_ptr() for t in state), *(t.data_ptr() for t in out),
+                spec.lit_code.data_ptr(), spec.pos_ptr.data_ptr(), spec.pos_clause.data_ptr(),
+                spec.var_order.data_ptr(), spec.segments.data_ptr(), spec.segments.shape[0], B,
+                spec.Np, spec.Mp, spec.K, spec.occ_clause.numel(), steps, 5, traj_block(B), 0,
+                R, threads, torch.cuda.current_stream().cuda_stream)
+            if rc:
+                fail(f"stoch_{kernel}_launch at {threads} threads: "
+                     + lib.stoch_chunk_error_string(rc).decode())
+
+        ms = {T: [] for T in (512, 1024)}
+        for T in (512, 1024, 1024, 512):
+            ms[T].append(cuda_ms(lambda: launch(T), iters=5, warmup=1))
+        say(f"[stoch threads] {label} {kernel} f32, {steps}-step chunk, {R} chains a CTA: "
+            + ", ".join(f"{T} threads {a:.6f} / {b:.6f} ms" for T, (a, b) in ms.items())
+            + f"; the wrapper takes {chosen} ({card})")
     return times
 
 
@@ -1870,7 +1942,7 @@ def main():
 
     n1k_reduced = preprocessed_n1k()
     stoch_cases, n1k = load_stoch_cases(cases, n1k_reduced)
-    stoch_worst = phase_stoch_compare(torch, sc, stoch_cases)
+    stoch_worst = phase_stoch_compare(torch, fc, sc, [*stoch_cases, *ragged_ode_cases(cases)])
     planted = compile_formula(normalize_cnf_variables(random_ksat(200, 700, seed=3,
                                                                   planted=True))[1])
     finishing = phase_stoch_finishing(torch, sc, planted)

@@ -266,12 +266,7 @@ __device__ __forceinline__ float var_sum(const int* ptr, const int* slot, const 
   return dv;
 }
 
-// The R-bit mask of a warp's lanes for which `bit` holds on some group.
-__device__ __forceinline__ unsigned lane_mask(bool bit, int R) {
-  unsigned m = __ballot_sync(kFull, bit);
-  for (int s = R; s < 32; s <<= 1) m |= m >> s;
-  return R == 32 ? m : m & ((1u << R) - 1u);
-}
+using tile::lane_mask;  // the R-bit mask of a warp's lanes for which `bit` holds on some group
 
 // The lane's max of e over the warp's groups, published to errw[lane].
 __device__ __forceinline__ void publish_err(float e, int R, int* errw) {

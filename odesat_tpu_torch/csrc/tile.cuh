@@ -1,5 +1,6 @@
 // The interleaved tile layout of the clause-mesh chunk kernels B6
-// (stream_chunk.cu) and B9 (stoch_chunk.cu).
+// (stream_chunk.cu) and B9 (stoch_chunk.cu), and the lane mask of the lane
+// tiles of B1/B2 (ode_lanes.cuh) and B3/B4 (stoch_chunk.cu).
 //
 // A chunk's per-trajectory buffers are laid out (G, X, R): tile g holds
 // trajectories g*R .. g*R+R-1, and element x of trajectory g*R+r lies at
@@ -22,6 +23,7 @@ namespace tile {
 constexpr int kR = 32;  // trajectories a tile
 constexpr int kThreads = 128;
 constexpr int kItems = 4;  // items a lane group takes, on average, from its span
+constexpr unsigned kFull = 0xffffffffu;
 
 // The grid over G tiles and the spans of an axis of n items: spans of
 // about kThreads/R*kItems items.
@@ -47,6 +49,15 @@ __device__ __forceinline__ void for_items(int n, F&& body) {
   const int lo = static_cast<int>(blockIdx.y) * per;
   const int hi = min(n, lo + per);
   for (int item = lo + static_cast<int>(threadIdx.x) / R; item < hi; item += groups) body(item);
+}
+
+// The R-bit mask of a warp's lanes for which `bit` holds on some lane
+// group of the warp (R a power of two, at most 32; every thread of the
+// warp calls it).
+__device__ __forceinline__ unsigned lane_mask(bool bit, int R) {
+  unsigned m = __ballot_sync(kFull, bit);
+  for (int s = R; s < 32; s <<= 1) m |= m >> s;
+  return R == 32 ? m : m & ((1u << R) - 1u);
 }
 
 }  // namespace tile

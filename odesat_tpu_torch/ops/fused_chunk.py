@@ -150,35 +150,48 @@ def fused_smem_bytes(fa: FormulaArrays, fixed: bool, lanes: int = 1) -> int:
     return 4 * (3 + 3 * lanes + K * Mp + (Np + 1) + nnz + lanes * per_lane)
 
 
-def fused_lanes(fa: FormulaArrays, fixed: bool) -> Optional[int]:
-    """The trajectories one CTA takes: the largest power of two up to
-    :data:`MAX_LANES` whose footprint fits, None when one does not."""
+def largest_lanes(footprint, limit: int = SMEM_LIMIT_BYTES) -> Optional[int]:
+    """The largest power of two up to :data:`MAX_LANES` whose
+    ``footprint(lanes)`` bytes fit ``limit``, None when one lane does not:
+    the trajectories or chains a CTA of a lane-tile kernel takes."""
     lanes = MAX_LANES
     while lanes >= 1:
-        if fused_smem_bytes(fa, fixed, lanes) <= SMEM_LIMIT_BYTES:
+        if footprint(lanes) <= limit:
             return lanes
         lanes //= 2
     return None
+
+
+def fused_lanes(fa: FormulaArrays, fixed: bool) -> Optional[int]:
+    """The trajectories one CTA takes: the largest power of two up to
+    :data:`MAX_LANES` whose footprint fits, None when one does not."""
+    return largest_lanes(lambda lanes: fused_smem_bytes(fa, fixed, lanes))
 
 
 _SMS: dict = {}  # device -> its SMs
 
 
 def launch_lanes(lanes: int, B: int, device) -> int:
-    """The trajectories a CTA of one launch of B1 or B2 takes: ``lanes``
-    (the most that fit), or half or a quarter of it when the last of the
-    ceil(B / R) tiles' waves over the card's SMs (one CTA an SM) would leave
-    more than a tenth of the card idle; the fullest waves win. A CTA runs a
-    whole chunk, so a ragged last wave idles SMs for a whole chunk (PERF.md:
-    B2 at the n=1k instance, B=10240, is faster at 16 lanes, 640 tiles,
-    than at 32, 320 tiles on 132 SMs)."""
+    """The trajectories (chains) a CTA of one launch of B1 to B4 takes:
+    ``lanes`` (the most that fit), or half or a quarter of it when the last
+    of the ceil(B / R) tiles' waves over the card's SMs (one CTA an SM)
+    would leave more than a tenth of the card idle; the fullest waves win.
+    A CTA runs a whole chunk, so a ragged last wave idles SMs for a whole
+    chunk (PERF.md: B2 at the n=1k instance, B=10240, is faster at 16
+    lanes, 640 tiles, than at 32, 320 tiles on 132 SMs)."""
     device = torch.device(device)
     if device.type != "cuda":
         return lanes
+    return wave_lanes(lanes, B, sm_count(device))
+
+
+def sm_count(device) -> int:
+    """The SMs of a CUDA ``device``, asked once."""
+    device = torch.device(device)
     sms = _SMS.get(device)
     if sms is None:
         sms = _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
-    return wave_lanes(lanes, B, sms)
+    return sms
 
 
 def wave_lanes(lanes: int, B: int, sms: int) -> int:
@@ -463,14 +476,7 @@ def load_library():
     return _cuda.load("fused_chunk", _declare)
 
 
-def kernel_threads(Mp: int) -> int:
-    """Threads per CTA of the one-CTA-a-chain stoch kernels (B3, B4, B8):
-    about two clauses a thread, a whole number of warps (the block
-    reduction needs full warps), 64 to 256."""
-    return min(256, max(64, 32 * -(-Mp // 64)))
-
-
-LANE_THREADS = 1024  # threads a CTA of B1 and B2 (csrc/ode_lanes.cuh kMaxThreads)
+LANE_THREADS = 1024  # threads a CTA of B1 to B4 at most (csrc/ode_lanes.cuh kMaxThreads)
 
 
 def lane_threads(lanes: int, Np: int, Mp: int) -> int:

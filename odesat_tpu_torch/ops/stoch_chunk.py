@@ -9,22 +9,34 @@ B3 replaces ``odesat_tpu/ops/stoch_pallas.py::make_fused_stoch_chunk``
 ``chunk_steps`` steps of clause-weighted local search with the chain's
 state held on chip (reference semantics: src/stoch.rs:26-78).
 
-Design for the card (``csrc/stoch_chunk.cu``): one CTA per chain; the
-chain's ``v`` (bytes) and ``xl`` (int32) live in shared memory for the
-whole chunk. B3 also copies the formula's index tables there (a literal
-code per ``(k, m)`` slot and a CSR list of each variable's clauses, built
-by ``ops/fused_chunk.chunk_tables``); B4 reads them from global memory,
-where they stay in L2, so its gate is the chain's state alone. The TPU
-kernels' polarity-baked one-hot planes and their matmuls exist because the
-TPU gathers poorly; here every step is a clause phase (sat, weight update)
-and a variable phase (weight sums over the CSR list in a fixed order, the
-counter-hash uniform, the flip), with no float atomics.
+Design for the card (``csrc/stoch_chunk.cu``, ``stoch_lanes_kernel``):
+one CTA runs a tile of R chains for the whole chunk, a chain on one lane
+of each of its thread groups. The tile's ``v`` (bytes) and ``xl`` (int32)
+live in shared memory interleaved ``[x][r]``, so every table word a group
+reads serves R chains and every access to a chain's state is R
+neighbouring elements. B3 also copies the formula's index tables there
+once a CTA (a literal code per ``(k, m)`` slot and a CSR list of each
+variable's clauses, built by ``ops/fused_chunk.chunk_tables``); B4 reads
+them from global memory, where they stay in L2, so its footprint is the
+chains' state alone. The TPU kernels' polarity-baked one-hot planes and
+their matmuls exist because the TPU gathers poorly; here every step is a
+clause phase (sat, weight update; the clause axis walked by width bucket,
+``clause_segments``) and a variable phase (weight sums over the CSR list
+in a fixed order, the counter-hash uniform, the flip; the variables taken
+longest list first, :func:`var_order`), with no float atomics. Done is a
+per-lane fact: a done lane writes nothing, and a tile leaves its loop when
+every lane is done.
 
-What bounds them: shared-memory gathers and two block barriers per step,
-plus, for B4, L2 reads of the tables; not device memory. Gates:
-:func:`stoch_fused_smem_bytes` and :func:`stoch_stream_smem_bytes`, each at
-most 227 KB a CTA, in place of the TPU's 8 MiB VMEM and plane budgets.
-Unlike the ODE kernel, both take unit clauses.
+What bounds them: instruction issue and the latency of the gathers, plus,
+for B4, L2 reads of the tables (one for R chains); not device memory,
+which the state crosses once a chunk. R (:func:`stoch_lanes`) is the
+largest power of two up to 32 whose footprint
+(:func:`stoch_fused_smem_bytes`, :func:`stoch_stream_smem_bytes`) fits
+one CTA's 227 KB, in place of the TPU's 8 MiB VMEM and plane budgets;
+the gates are R = 1, where the footprints are the one-CTA-a-chain
+kernels' own. A launch halves R where the last wave of tiles would leave
+the card idle (``ops/fused_chunk.launch_lanes``). Unlike the ODE kernels,
+both take unit clauses.
 
 Bit-exactness: the weights are integers, so every f32 summation order
 agrees while a variable's total stays below 2**24; within that envelope
@@ -44,7 +56,7 @@ from __future__ import annotations
 import ctypes
 from dataclasses import dataclass
 from types import SimpleNamespace
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -53,11 +65,16 @@ from odesat_tpu_torch.cnf.arrays import FormulaArrays
 from odesat_tpu_torch.constants import STOCH_ALPHA
 from odesat_tpu_torch.ops import _cuda
 from odesat_tpu_torch.ops.fused_chunk import (
+    LANE_THREADS,
     SMEM_LIMIT_BYTES,
+    ChunkTables,
     cached_tables,
     chunk_tables,
+    clause_segments,
     cuda_device,
-    kernel_threads,
+    largest_lanes,
+    launch_lanes,
+    sm_count,
 )
 from odesat_tpu_torch.ops.tiles import TILE, rows_of, tile, untile
 
@@ -81,30 +98,88 @@ def traj_block(B: int, traj_block: int = 512) -> int:
     return Bb
 
 
-def stoch_fused_smem_bytes(fa: FormulaArrays) -> int:
-    """B3's shared memory per CTA, the carve-up of ``csrc/stoch_chunk.cu``
-    (its ``stoch_fused_smem_bytes`` computes the same): literal codes, CSR
-    pointers and clause lists, the chain's xl (int32) and v (bytes)."""
+def _flag_words(lanes: int) -> int:
+    """Shared words of the lane flags (``flag_words`` in the kernel): two
+    masks by step parity, none for one lane, whose flag rides the barrier."""
+    return 2 if lanes > 1 else 0
+
+
+def lanes_smem_bytes(resident: bool, Np: int, Mp: int, K: int, nnz: int, lanes: int) -> int:
+    """Shared memory of one CTA of B3 (``resident``) or B4 at ``lanes``
+    chains, word for word the carve-up of ``csrc/stoch_chunk.cu`` (its
+    ``lanes_smem_bytes``): the lane flags, B3's tables (literal codes, CSR
+    pointers and clause lists), then per chain xl (4 bytes) and v (a byte).
+    At one chain it is the one-CTA-a-chain kernels' footprint."""
+    tables = K * Mp + (Np + 1) + nnz if resident else 0
+    return 4 * (_flag_words(lanes) + tables + lanes * Mp) + lanes * Np
+
+
+def stoch_fused_smem_bytes(fa: FormulaArrays, lanes: int = 1) -> int:
+    """B3's shared memory per CTA at ``lanes`` chains (the kernel's
+    ``stoch_fused_smem_bytes`` computes the same)."""
     K, Mp = fa.lit_var.shape
-    nnz = int((fa.lit_mask > 0).sum())
-    return 4 * (K * Mp + (fa.n_vars_padded + 1) + nnz + Mp) + fa.n_vars_padded
+    return lanes_smem_bytes(True, fa.n_vars_padded, Mp, K, int((fa.lit_mask > 0).sum()), lanes)
 
 
-def stoch_stream_smem_bytes(fa: FormulaArrays) -> int:
-    """B4's shared memory per CTA (``stoch_stream_smem_bytes``): the
-    chain's xl and v; the tables stay in global memory."""
-    return 4 * fa.n_clauses_padded + fa.n_vars_padded
+def stoch_stream_smem_bytes(fa: FormulaArrays, lanes: int = 1) -> int:
+    """B4's shared memory per CTA at ``lanes`` chains
+    (``stoch_stream_smem_bytes``): the tables stay in global memory."""
+    return lanes_smem_bytes(False, fa.n_vars_padded, fa.n_clauses_padded, 0, 0, lanes)
+
+
+def stoch_lanes(fa: FormulaArrays, kernel: str) -> Optional[int]:
+    """The chains one CTA of ``kernel`` ("fused": B3, "stream": B4) takes:
+    the largest power of two up to 32 whose footprint fits, None past the
+    gate."""
+    footprint = {"fused": stoch_fused_smem_bytes, "stream": stoch_stream_smem_bytes}[kernel]
+    return largest_lanes(lambda lanes: footprint(fa, lanes))
 
 
 def stoch_fused_supported(fa: FormulaArrays) -> bool:
-    """B3's gate: formula tables and chain state fit one CTA."""
-    return stoch_fused_smem_bytes(fa) <= SMEM_LIMIT_BYTES
+    """B3's gate: formula tables and one chain's state fit one CTA."""
+    return stoch_lanes(fa, "fused") is not None
 
 
 def stoch_stream_supported(fa: FormulaArrays) -> bool:
-    """B4's gate: the chain state fits one CTA (up to ~58k padded clauses
+    """B4's gate: one chain's state fits one CTA (up to ~58k padded clauses
     at Np=128)."""
-    return stoch_stream_smem_bytes(fa) <= SMEM_LIMIT_BYTES
+    return stoch_lanes(fa, "stream") is not None
+
+
+SM_SHARED_BYTES = 233472  # shared memory of an H100 SM; each CTA also reserves 1 KB of it
+
+
+def stoch_threads(lanes: int, smem: int, tiles: int, sms: int, Np: int, Mp: int) -> int:
+    """Threads a CTA of B3 and B4: 1024 where one CTA's ``smem`` bytes leave
+    no room for a second on an SM, or the tiles are no more than the
+    ``sms`` (a tile has an SM to itself), else 512, so that CTAs share an
+    SM and each thread's fixed work a step is paid by fewer threads; and
+    never so many that a thread group gets fewer than four clauses.
+    ``chip_smoke.py`` phase 11 times each side of the rule (PERF.md
+    §6)."""
+    alone = SM_SHARED_BYTES // (smem + 1024) <= 1 or tiles <= sms
+    four_each = max(32, lanes * max(Np, Mp) // 4 // 32 * 32)
+    return min(LANE_THREADS if alone else LANE_THREADS // 2, four_each)
+
+
+def var_order(t: ChunkTables) -> np.ndarray:
+    """(Np,) int32, the order in which B3's and B4's thread groups take the
+    variables: longest occurrence list first, ties by index. A warp's groups
+    take neighbouring positions, so their lists are about as long, and the
+    kernel's snake over the rounds evens out the groups' totals."""
+    return np.argsort(-np.diff(t.occ_ptr), kind="stable").astype(np.int32)
+
+
+def position_lists(t: ChunkTables, order: np.ndarray) -> tuple:
+    """The occurrence lists in the order B3's and B4's groups walk them:
+    ``(ptr (Np+1,), clauses (nnz,))`` int32, position p's list being
+    variable ``order[p]``'s clause columns in their CSR order, so a group
+    reads a position's list bounds without first reading its variable."""
+    counts = np.diff(t.occ_ptr)[order]
+    ptr = np.zeros(t.Np + 1, dtype=np.int32)
+    np.cumsum(counts, out=ptr[1:])
+    src = np.repeat(t.occ_ptr[order] - ptr[:-1], counts) + np.arange(ptr[-1])
+    return ptr, (t.occ_slot[src] % t.Mp).astype(np.int32)
 
 
 @dataclass(frozen=True)
@@ -120,17 +195,33 @@ class StochSpec:
     Np: int
 
 
-def stoch_spec(fa: FormulaArrays, device) -> StochSpec:
+@dataclass(frozen=True)
+class StochChunkSpec(StochSpec):
+    """A :class:`StochSpec` (what the plain version reads) plus what B3 and
+    B4 read beside it, and the chains a CTA of each takes (None past its
+    gate)."""
+
+    var_order: torch.Tensor  # (Np,) int32, var_order
+    pos_ptr: torch.Tensor  # (Np+1,) int32, position_lists
+    pos_clause: torch.Tensor  # (nnz,) int32
+    segments: torch.Tensor  # (nseg, 4) int32, clause_segments
+    fused_lanes: Optional[int]
+    stream_lanes: Optional[int]
+
+
+def stoch_spec(fa: FormulaArrays, device) -> StochChunkSpec:
     """Build the kernels' tables from the formula and move them to
     ``device``. The occurrence lists are ``chunk_tables``' (variable, then
     clause, then slot order) mapped from slots to clause columns."""
     device = cuda_device(device)
     t = chunk_tables(fa)
+    order = var_order(t)
+    pos_ptr, pos_clause = position_lists(t, order)
 
     def put(a):
         return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32)).to(device)
 
-    return StochSpec(
+    return StochChunkSpec(
         device=device,
         lit_code=put(t.lit_code),
         occ_ptr=put(t.occ_ptr),
@@ -138,6 +229,12 @@ def stoch_spec(fa: FormulaArrays, device) -> StochSpec:
         K=t.K,
         Mp=t.Mp,
         Np=t.Np,
+        var_order=put(order),
+        pos_ptr=put(pos_ptr),
+        pos_clause=put(pos_clause),
+        segments=put(clause_segments(fa)),
+        fused_lanes=stoch_lanes(fa, "fused"),
+        stream_lanes=stoch_lanes(fa, "stream"),
     )
 
 
@@ -253,11 +350,11 @@ _I = ctypes.c_int
 def _declare(lib) -> None:
     for name in ("stoch_fused_launch", "stoch_stream_launch"):
         fn = getattr(lib, name)
-        fn.argtypes = [_P] * 9 + [_I] * 6 + [ctypes.c_uint] + [_I] * 3 + [_P]
+        fn.argtypes = [_P] * 11 + [_I] * 7 + [ctypes.c_uint] + [_I] * 4 + [_P]
         fn.restype = _I
-    lib.stoch_fused_smem_bytes.argtypes = [_I] * 4
+    lib.stoch_fused_smem_bytes.argtypes = [_I] * 5
     lib.stoch_fused_smem_bytes.restype = ctypes.c_size_t
-    lib.stoch_stream_smem_bytes.argtypes = [_I] * 2
+    lib.stoch_stream_smem_bytes.argtypes = [_I] * 3
     lib.stoch_stream_smem_bytes.restype = ctypes.c_size_t
     lib.stoch_shard_eval_launch.argtypes = [_P] * 11 + [_I] * 8 + [_P]
     lib.stoch_shard_eval_launch.restype = _I
@@ -293,13 +390,24 @@ def _check(state, spec: StochSpec) -> None:
             raise ValueError(f"state.{name} is not contiguous")
 
 
-def _launch(entry: str, state, spec: StochSpec, chunk_steps: int, seed: int, bf16: bool):
+def _launch(entry: str, state, spec: StochChunkSpec, chunk_steps: int, seed: int, bf16: bool,
+            most: Optional[int], lanes: Optional[int]):
+    """Launch ``entry`` at ``lanes`` chains a CTA (None: ``launch_lanes`` of
+    ``most``, the kernel's largest R)."""
     if spec.device.type != "cuda":
         raise ValueError(f"the stoch chunk kernels run on CUDA tensors, not {spec.device}")
     if not 0 <= int(seed) < 2**32:
         raise ValueError(f"seed {seed} is not a uint32")
+    if most is None:
+        raise ValueError(f"{entry}: one chain's state does not fit a CTA (shared-memory gate)")
     _check(state, spec)
     B = state.v.shape[0]
+    R = launch_lanes(most, B, spec.device) if lanes is None else int(lanes)
+    if not 1 <= R <= most or R & (R - 1):
+        raise ValueError(f"{R} chains a CTA: {entry} takes a power of two up to {most}")
+    smem = lanes_smem_bytes(entry == "stoch_fused_launch", spec.Np, spec.Mp, spec.K,
+                            spec.occ_clause.numel(), R)
+    threads = stoch_threads(R, smem, -(-B // R), sm_count(spec.device), spec.Np, spec.Mp)
     lib, _ = load_library()
     out = type(state)(*(torch.empty_like(t) for t in state))
     with torch.cuda.device(spec.device):
@@ -307,10 +415,10 @@ def _launch(entry: str, state, spec: StochSpec, chunk_steps: int, seed: int, bf1
         rc = getattr(lib, entry)(
             *(t.data_ptr() for t in state),
             *(t.data_ptr() for t in out),
-            spec.lit_code.data_ptr(), spec.occ_ptr.data_ptr(), spec.occ_clause.data_ptr(),
+            spec.lit_code.data_ptr(), spec.pos_ptr.data_ptr(), spec.pos_clause.data_ptr(),
+            spec.var_order.data_ptr(), spec.segments.data_ptr(), spec.segments.shape[0],
             B, spec.Np, spec.Mp, spec.K, spec.occ_clause.numel(), int(chunk_steps),
-            int(seed), traj_block(B), int(bf16), kernel_threads(spec.Mp),
-            stream,
+            int(seed), traj_block(B), int(bf16), R, threads, stream,
         )
     if rc != 0:
         raise RuntimeError(
@@ -319,26 +427,31 @@ def _launch(entry: str, state, spec: StochSpec, chunk_steps: int, seed: int, bf1
     return out
 
 
-def stoch_fused_cuda(state, spec: StochSpec, chunk_steps: int, seed: int, bf16: bool):
-    """Launch B3 once on the current stream. Raises if the state is not
-    what it takes or the launch is refused (a formula past its gate is:
-    the shared-memory request fails)."""
+def stoch_fused_cuda(state, spec: StochChunkSpec, chunk_steps: int, seed: int, bf16: bool,
+                     lanes: Optional[int] = None):
+    """Launch B3 once on the current stream, ``lanes`` chains a CTA (None:
+    the most that fit, halved for a ragged last wave). Raises if the state
+    is not what it takes, the formula is past its gate, or the launch is
+    refused."""
     global fused_launches
     if state.v.shape[0] == 0:
         return state
-    out = _launch("stoch_fused_launch", state, spec, chunk_steps, seed, bf16)
+    out = _launch("stoch_fused_launch", state, spec, chunk_steps, seed, bf16, spec.fused_lanes,
+                  lanes)
     fused_launches += 1
     return out
 
 
-def stoch_stream_cuda(state, spec: StochSpec, chunk_steps: int, seed: int, bf16: bool):
-    """Launch B4 once on the current stream. Raises if the state is not
-    what it takes or the launch is refused (a chain state past its gate
-    is)."""
+def stoch_stream_cuda(state, spec: StochChunkSpec, chunk_steps: int, seed: int, bf16: bool,
+                      lanes: Optional[int] = None):
+    """Launch B4 once on the current stream, ``lanes`` chains a CTA as
+    :func:`stoch_fused_cuda` takes them. Raises if the state is not what it
+    takes, one chain's state is past its gate, or the launch is refused."""
     global stream_launches
     if state.v.shape[0] == 0:
         return state
-    out = _launch("stoch_stream_launch", state, spec, chunk_steps, seed, bf16)
+    out = _launch("stoch_stream_launch", state, spec, chunk_steps, seed, bf16,
+                  spec.stream_lanes, lanes)
     stream_launches += 1
     return out
 
@@ -379,6 +492,13 @@ def stoch_shard_spec(fa: FormulaArrays, device, shard: int = 0) -> StochSpec:
         return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32)).to(device)
 
     return StochSpec(device, put(lit_code), put(occ_ptr), put(occ_clause), t.K, t.Mp, t.Np)
+
+
+def kernel_threads(Mp: int) -> int:
+    """Threads per CTA of B8, one CTA a chain: about two clauses a thread, a
+    whole number of warps (the block reduction needs full warps), 64 to
+    256."""
+    return min(256, max(64, 32 * -(-Mp // 64)))
 
 
 def stoch_shard_smem_bytes(spec: StochSpec) -> tuple:

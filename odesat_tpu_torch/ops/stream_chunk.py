@@ -52,7 +52,6 @@ import torch
 from odesat_tpu_torch.cnf.arrays import FormulaArrays
 from odesat_tpu_torch.ops import _cuda
 from odesat_tpu_torch.ops.fused_chunk import (
-    MAX_LANES,
     SMEM_LIMIT_BYTES,
     ChunkSpec,
     ChunkTables,
@@ -63,6 +62,7 @@ from odesat_tpu_torch.ops.fused_chunk import (
     cuda_device,
     fused_chunk_plain,
     lane_threads,
+    largest_lanes,
     launch_lanes,
     spec_fields,
 )
@@ -134,12 +134,7 @@ def stream_lanes(Np: int, fixed: bool, limit: int = SMEM_LIMIT_BYTES) -> Optiona
     """The trajectories one CTA of B2 can take: the largest power of two up
     to :data:`MAX_LANES` whose windows fit, None when one trajectory's does
     not (a launch may take fewer, :func:`launch_lanes`)."""
-    lanes = MAX_LANES
-    while lanes >= 1:
-        if stream_smem_bytes(Np, fixed, lanes) <= limit:
-            return lanes
-        lanes //= 2
-    return None
+    return largest_lanes(lambda lanes: stream_smem_bytes(Np, fixed, lanes), limit)
 
 
 def stream_scratch_floats(Np: int, Mp: int, nnz: int, fixed: bool, lanes: int) -> int:

@@ -204,26 +204,41 @@ def test_twin_on_cuda_matches_the_cpu(cuda, dv_strategy):
 # ------------------------------------------------ stoch kernels B3 and B4
 
 
+def _tile_kinds(was, now, R):
+    """Whether some tile of R lanes holds chains done before a chunk, chains
+    that finish in it and chains that keep running."""
+    for t in range(0, was.numel(), R):
+        a, b = was[t:t + R], now[t:t + R]
+        if a.any() and (b & ~a).any() and not b.all():
+            return True
+    return False
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [None, 8])
 @pytest.mark.parametrize("kernel", ["fused", "stream"])
 @pytest.mark.parametrize("matmul_dtype", ["float32", "bfloat16"])
-def test_stoch_kernel_matches_plain_as_chains_finish(cuda, kernel, matmul_dtype):
+def test_stoch_kernel_matches_plain_as_chains_finish(cuda, kernel, matmul_dtype, lanes):
     """From the all-false start on a small planted formula, 8-step chunks
-    until one holds chains done before it, chains finishing in it and
-    chains running: kernel and plain version agree exactly, done chains
-    stay put, and a repeat is bit-identical."""
+    until one has a tile of lanes (the most that fit, or 8) holding chains
+    done before it, chains finishing in it and chains running: kernel and
+    plain version agree exactly, done chains stay put bit for bit, and a
+    repeat is bit-identical."""
     from odesat_tpu_torch.models.stoch import init_stoch_state
     from odesat_tpu_torch.ops import stoch_chunk as sc
 
     fa = compile_formula(normalize_cnf_variables(random_ksat(40, 140, seed=3, planted=True))[1])
     fn = sc.make_stoch_chunk(fa, 8, kernel, matmul_dtype, cuda)
+    launch = sc.stoch_fused_cuda if kernel == "fused" else sc.stoch_stream_cuda
     B, bf16, seen = 200, matmul_dtype == "bfloat16", False
+    R = lanes or (fn.spec.fused_lanes if kernel == "fused" else fn.spec.stream_lanes)
+    assert R == lanes or R == 32
     state = init_stoch_state(fa, B, cuda)
     counter = "fused_launches" if kernel == "fused" else "stream_launches"
     for seed in range(1, 500):
         before_launches = getattr(sc, counter)
-        out = fn(state, seed)
-        again = fn(state, seed)
+        out = launch(state, fn.spec, 8, seed, bf16, lanes=R)
+        again = launch(state, fn.spec, 8, seed, bf16, lanes=R)
         ref = sc.stoch_chunk_plain(state, fn.spec, 8, seed, sc.traj_block(B), bf16)
         torch.cuda.synchronize()
         assert getattr(sc, counter) == before_launches + 2
@@ -231,35 +246,51 @@ def test_stoch_kernel_matches_plain_as_chains_finish(cuda, kernel, matmul_dtype)
             assert torch.equal(a, b) and torch.equal(a, c)
         was = state.done
         assert torch.equal(out.v[was], state.v[was]) and torch.equal(out.xl[was], state.xl[was])
-        before, after = int(was.sum()), int(out.done.sum())
-        state = out
-        if 0 < before < after < B:
+        state, found = out, _tile_kinds(was, out.done, R)
+        if found:
             seen = True
             break
-    assert seen, "no chunk had chains done before it, chains finishing in it and chains running"
+    assert seen, "no chunk had a tile with chains done before it, finishing in it and running"
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 7, 33, 1000])
 @pytest.mark.parametrize("widths", [(3,), (1, 2, 5)])
-def test_stoch_b3_equals_b4_and_the_gates_match_the_kernel(cuda, widths):
+def test_stoch_b3_equals_b4_and_the_gates_match_the_kernel(cuda, widths, B):
+    """At batches that leave the last tile ragged (and B = 1000, two PRNG
+    blocks of 512), B3 and B4 equal the plain version exactly at every R
+    from 1 to the most that fit, a row done before the chunk stays put,
+    B3 equals B4, and the C footprints equal the Python ones at each R."""
     from odesat_tpu_torch.interop import stoch_state_from_numpy
     from odesat_tpu_torch.ops import stoch_chunk as sc
 
     fa = compile_formula(_formula(widths=widths), bucket=True, min_bucket=32)
     lib, _ = sc.load_library()
     K, Mp = fa.lit_var.shape
-    nnz = int((fa.lit_mask > 0).sum())
-    assert lib.stoch_fused_smem_bytes(fa.n_vars_padded, Mp, K, nnz) == sc.stoch_fused_smem_bytes(fa)
-    assert lib.stoch_stream_smem_bytes(fa.n_vars_padded, Mp) == sc.stoch_stream_smem_bytes(fa)
-    rng = np.random.default_rng(1)
-    B = 1000  # two PRNG blocks of 512
-    state = stoch_state_from_numpy(rng.random((B, fa.n_vars_padded)) < 0.5,
-                                   rng.integers(1, 3000, (B, Mp)), np.zeros(B, bool), cuda)
-    outs = [sc.make_stoch_chunk(fa, 16, k, "float32", cuda)(state, 77) for k in ("fused", "stream")]
-    ref = sc.stoch_chunk_plain(state, sc.stoch_spec(fa, cuda), 16, 77, 512, False)
+    Np, nnz = fa.n_vars_padded, int((fa.lit_mask > 0).sum())
+    rng = np.random.default_rng(B)
+    done = np.zeros(B, bool)
+    done[B // 2] = B > 1
+    state = stoch_state_from_numpy(rng.random((B, Np)) < 0.5, rng.integers(1, 3000, (B, Mp)),
+                                   done, cuda)
+    spec = sc.stoch_spec(fa, cuda)
+    assert spec.fused_lanes == spec.stream_lanes == 32
+    ref = sc.stoch_chunk_plain(state, spec, 16, 77, sc.traj_block(B), False)
+    assert (ref.v != state.v).any()
+    outs = []
+    for R in (1, 2, 4, 8, 16, 32):
+        assert lib.stoch_fused_smem_bytes(Np, Mp, K, nnz, R) == sc.stoch_fused_smem_bytes(fa, R)
+        assert lib.stoch_stream_smem_bytes(Np, Mp, R) == sc.stoch_stream_smem_bytes(fa, R)
+        for launch in (sc.stoch_fused_cuda, sc.stoch_stream_cuda):
+            outs.append(launch(state, spec, 16, 77, False, lanes=R))
+    outs += [sc.make_stoch_chunk(fa, 16, k, "float32", cuda)(state, 77)
+             for k in ("fused", "stream")]
     torch.cuda.synchronize()
-    for a, b, c in zip(*outs, ref):
-        assert torch.equal(a, b) and torch.equal(a, c)
+    for out in outs:
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b)
+    was = state.done
+    assert torch.equal(outs[0].v[was], state.v[was]) and torch.equal(outs[0].xl[was], state.xl[was])
 
 
 @pytest.mark.cuda

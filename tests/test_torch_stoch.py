@@ -6,8 +6,9 @@ ops/stoch_chunk.py) against the JAX package's, on the CPU.
   uniforms (re-drawn here from the same key splits);
 * ``stoch_chunk_plain``, the plain version of kernels B3 and B4, equals
   both Pallas kernels in interpret mode exactly (v, xl, done), in f32 and
-  bf16, on bucketed mixed widths, a batch that is no multiple of 8, two
-  PRNG blocks, and chunks in which chains finish;
+  bf16, on bucketed mixed widths, batches that leave B3's and B4's last
+  tile of lanes ragged (B = 1, 7, 13, 33), two PRNG blocks (B = 520, and
+  B = 1000 with Bb = 512), and chunks in which chains finish;
 * the gates, the ``fused`` ladder, the host loop and the CLI.
 
 Every comparison is exact: the weights are integers, so the f32 sums
@@ -157,8 +158,8 @@ def test_scan_twin_matches_jax_step(data_dir, case):
 
 
 def _case(data_dir, name):
-    if name == "ksat B=13":
-        return _fa(jrandom_ksat(30, 128, seed=0)), 13
+    if name.startswith("ksat B="):  # B = 1, 7, 33: a ragged last tile; 1000: two PRNG blocks
+        return _fa(jrandom_ksat(30, 128, seed=0)), int(name.split("=")[1])
     if name == "mixed bucketed B=16":
         fa = _fa(_mixed(), bucket=True, min_bucket=32)
         assert len(fa.bucket_slices) > 1
@@ -168,16 +169,19 @@ def _case(data_dir, name):
 
 @pytest.mark.parametrize("kernel", ["fused", "stream"])
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
-@pytest.mark.parametrize("name", ["ksat B=13", "mixed bucketed B=16", "small.cnf B=520"])
+@pytest.mark.parametrize("name", ["ksat B=13", "mixed bucketed B=16", "small.cnf B=520",
+                                  "ksat B=1", "ksat B=7", "ksat B=33", "ksat B=1000"])
 def test_plain_matches_pallas(data_dir, kernel, bf16, name):
     fa, B = _case(data_dir, name)
     arrays = _numpy_chains(fa, B, seed=B)
-    arrays[2][1] = True  # a row done before the chunk comes out unchanged
+    if B > 1:
+        arrays[2][1] = True  # a row done before the chunk comes out unchanged
     key = jax.random.PRNGKey(B)
     want = _pallas(kernel, fa, arrays, 16, bf16, key)
     got = _plain(fa, arrays, 16, bf16, _raw_seed(key))
     _assert_equal(got, want)
-    assert (got[0][1] == arrays[0][1]).all() and (got[1][1] == arrays[1][1]).all()
+    if B > 1:
+        assert (got[0][1] == arrays[0][1]).all() and (got[1][1] == arrays[1][1]).all()
     assert (got[0] != arrays[0]).any(), "no flips: the case tests nothing"
 
 
