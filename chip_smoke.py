@@ -84,18 +84,20 @@ Phases, each printing its lines; the first failure exits non-zero:
     false after exactly 1024 steps, on uf250 true;
 17. B10 timing: one RHS pass, B10 and the twin in turns, hard.cnf B=16384;
 18. B5 vs plain, exactly (max abs error 0): phase 3's formulas compiled
-    with compile_stream_sharded at S=1 and S=2 (each shard on its own) and
-    the config 7 instance (run_benchmarks.py:289-313, n=10240) at S=2 (both
-    shards) and S=1, B=1024; modes rhs, fixed, second, both rigidity gates,
-    f32 and bf16; then two launches bit-identical; then B6 (the
-    clause-sharded chunk's launches, on the buffers tiled by 32
-    trajectories as its runner lays them out) the same way, in each of its
-    phases with and without the apply prologue, plus ragged batches (B =
-    1, 7, 33 on the widths 2,3,5 formula at S=2);
-19. B8 vs plain, exactly, on the same shards, random xl up to 3000 and
-    frozen chains, f32 and bf16; then two launches bit-identical; then B9
-    (the stoch chunk's launches, on tiled chains) with and without the
-    flip prologue and flip-only, plus the same ragged batches;
+    with compile_stream_sharded at S=1 and S=2 (each shard on its own), the
+    config 7 instance (run_benchmarks.py:289-313, n=10240) at S=2 (both
+    shards) and S=1, B=1024, and ragged batches (B = 1, 7, 33 on the
+    widths 2,3,5 formula at S=2: a part-filled last tile of 32); modes
+    rhs, fixed, second, both rigidity gates, f32 and bf16, through the
+    row-major wrappers (tile, launch, untile), each case printing its
+    grid; then two launches bit-identical; then B6 (the clause-sharded
+    chunk's launches, on the buffers tiled by 32 trajectories as its
+    runner lays them out) the same way, in each of its phases with and
+    without the apply prologue;
+19. B8 vs plain, exactly, on the same shards and ragged batches, random xl
+    up to 3000 and frozen chains, f32 and bf16, printing its grid; then
+    two launches bit-identical; then B9 (the stoch chunk's launches, on
+    tiled chains) with and without the flip prologue and flip-only;
 20. the clause mesh through the CLI, two gloo ranks sharing the card
     (spawned; each reports its launch counts; every solve checks that its
     clause ranks' v are bit-identical and raises otherwise): a. inter on
@@ -115,10 +117,15 @@ Phases, each printing its lines; the first failure exits non-zero:
     bit; e. inter --devices 2 on uf250 B=4096 through B1 equals the T=1 run
     row for row; the B5 and B8 solves and parity checks of b and c, e's
     mesh run and phase 21's all-reduce timing share one spawned world;
-21. timing at the config 7 instance, B=1024, S=1: B5 fixed and second, B6
-    step, B8 and B9 per launch beside their plain versions and bounds, the
-    single-device runner (B5) and the B6 chunk in traj*steps/s, and the
-    gloo all-reduce per step at S=2 (staged through the host).
+21. timing at the config 7 instance, B=1024, S=1: B5 fixed and second and
+    B8 per launch on tiled buffers allocated once, as their runners run
+    them, beside the one-CTA-a-trajectory (chain) kernels they replaced,
+    and through their row-major wrappers (tile and untile included); B6
+    step and B9 per launch; each beside its plain version and bound; the
+    single-device runner (B5) and the B6 chunk in traj*steps/s; the stoch
+    clause path through B8 and through B9 in chain*steps/s, with the
+    counter-hash uniform draw's share of a B8-path step; and the gloo
+    all-reduce per step at S=2 (staged through the host).
 
 The last two lines are the ``kernels`` JSON object (one row per kernel,
 with its bound: the larger of its bytes over 3.35 TB/s and its operations
@@ -140,11 +147,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, ".scratch", "chip_smoke")  # git-ignored
 F32_TOL = dict(rtol=2e-4, atol=2e-5)
 EXACT = dict(rtol=0.0, atol=0.0)  # B1 and B2 compute exactly what their plain version does
-# the one-CTA-a-trajectory (chain) B1, B2, B3 and B4 that the lane tiles
+# the one-CTA-a-trajectory (chain) B1, B2, B3, B4, B5 and B8 that the tiles
 # replaced, ms a launch as this script measured them (NVIDIA H100 80GB HBM3,
 # 700 W)
 ONE_CTA_MS = {"B1 hard.cnf fixed 256": 7.368186, "B2 n1k fixed 8": 19.397267,
-              "B3 hard.cnf 64": 1.372734, "B4 n1k 8": 4.844923}
+              "B3 hard.cnf 64": 1.372734, "B4 n1k 8": 4.844923,
+              "B5 config 7 fixed": 3.454327, "B5 config 7 second": 4.454574,
+              "B8 config 7": 2.935702}
 
 
 def fail(msg):
@@ -1292,25 +1301,34 @@ def shard_inputs(torch, fa, B, seed):
 SHARD_MODES = ("rhs", "fixed", "second")
 
 
+SHARD_KEYS = {"rhs": ("v", "xs", "xl"), "fixed": ("v", "dt", "xs", "xl"),
+              "second": ("v", "dt", "adv", "xs", "xl", "dxs1", "dxl1")}
+TILE_FILL = {"xs": 0.5, "xl": 1.0, "adv": False}  # the runner's padding rows
+
+
 def shard_call(ss, mode, inp, spec, plain=False):
-    """B5 (or its plain version) in ``mode`` on copies of the inputs that
-    the kernel updates in place."""
-    keys = {"rhs": ("v", "xs", "xl"), "fixed": ("v", "dt", "xs", "xl"),
-            "second": ("v", "dt", "adv", "xs", "xl", "dxs1", "dxl1")}[mode]
-    args = [inp[k] if plain or k not in ("xs", "xl") else inp[k].clone() for k in keys]
+    """B5's row-major wrapper (tile, launch, untile) or its plain version
+    in ``mode``."""
     fn = {"rhs": (ss.shard_rhs, ss.shard_rhs_plain), "fixed": (ss.shard_fixed, ss.shard_fixed_plain),
           "second": (ss.shard_second, ss.shard_second_plain)}[mode][plain]
-    return fn(*args, spec)
+    return fn(*(inp[k] for k in SHARD_KEYS[mode]), spec)
+
+
+def tile_grid(B, n):
+    """csrc/tile.cuh's grid of CTAs of 128 threads over ceil(B/32) tiles
+    and an axis of n items (spans of 16 items: 4 lane groups of 32, 4
+    items each)."""
+    return (-(-B // 32), max(1, min(-(-n // 16), 65535)))
 
 
 def phase_shard_compare(torch, ss, shard_cases):
-    """B5 vs its plain version, exactly, every shard of every case: three
-    modes, both rigidity gates, f32 and bf16; then two launches at config
-    7 bit-identical."""
+    """B5 vs its plain version, exactly, every shard of every case and the
+    ragged batches: three modes, both rigidity gates, f32 and bf16; then
+    two launches at config 7 bit-identical."""
     from odesat_tpu_torch.utils.config import ODEConfig
 
     worst, n = 0.0, 0
-    for label, fa, B in shard_cases:
+    for label, fa, B in shard_cases + ragged_cases(shard_cases):
         for s in range(fa.shard_plan.n_shards):
             inp = shard_inputs(torch, fa, B, seed=B + s)
             for rigidity in ("paper", "reference"):
@@ -1328,8 +1346,9 @@ def phase_shard_compare(torch, ss, shard_cases):
                                      f"off by {err}")
                         n += 1
             say(f"[B5 compare] {label} shard {s}/{fa.shard_plan.n_shards} B={B}: rhs, fixed, "
-                f"second x paper, reference x f32, bf16 equal (max abs err 0.0), shared memory "
-                f"{ss.shard_layout(fa.n_vars_padded, fa.shard_plan.mp_local, True).smem_bytes} B")
+                f"second x paper, reference x f32, bf16 equal (max abs err 0.0), grid: pass "
+                f"{tile_grid(B, fa.n_vars_padded)}, pad {tile_grid(B, spec.pads.numel())} CTAs "
+                f"of 128 threads, nothing of a trajectory in shared memory")
     label, fa7, B = shard_cases[-1]
     inp = shard_inputs(torch, fa7, B, seed=7)
     ode = ODEConfig(step_size=0.01)
@@ -1355,11 +1374,11 @@ def stoch_shard_inputs(torch, fa, B, shard, seed):
 
 
 def phase_stoch_shard_compare(torch, sc, shard_cases):
-    """B8 vs its plain version, exactly, every shard, f32 and bf16; then
-    two launches at config 7 bit-identical. Returns the max abs error (0.0:
-    anything else fails)."""
+    """B8 vs its plain version, exactly, every shard of every case and the
+    ragged batches, f32 and bf16; then two launches at config 7
+    bit-identical. Returns the max abs error (0.0: anything else fails)."""
     n = 0
-    for label, fa, B in shard_cases:
+    for label, fa, B in shard_cases + ragged_cases(shard_cases):
         for s in range(fa.shard_plan.n_shards):
             v, xl, active = stoch_shard_inputs(torch, fa, B, s, seed=B + s)
             for mm in ("float32", "bfloat16"):
@@ -1372,7 +1391,9 @@ def phase_stoch_shard_compare(torch, sc, shard_cases):
                         fail(f"B8 vs plain, {label} shard {s} {mm}: differs")
                 n += 1
             say(f"[B8 compare] {label} shard {s}/{fa.shard_plan.n_shards} B={B}: f32, bf16 equal "
-                f"(max abs err 0.0), xl resident {sc.stoch_shard_smem_bytes(ev.spec)[1]}")
+                f"(max abs err 0.0), grid: clause {tile_grid(B, ev.spec.Mp)}, var "
+                f"{tile_grid(B, ev.spec.Np)} CTAs of 128 threads, nothing of a chain in shared "
+                f"memory")
     label, fa7, B = shard_cases[-1]
     v, xl, active = stoch_shard_inputs(torch, fa7, B, 0, seed=9)
     ev = sc.make_stoch_shard_eval(fa7, "cuda", 0)
@@ -1776,12 +1797,18 @@ def phase_nccl_world_of_one(torch, fa7):
 
 
 def phase_shard_timing(torch, ss, sch, sc, fa7, allreduce_ms, card):
-    """Phase 21 at the config 7 instance, B=1024, S=1: B5 fixed and second,
-    B6's fixed step, B8 and B9 per launch (kernel and plain in turns, CUDA
-    events, beside the bound; B6 and B9 on the tiled buffers their runners
-    make), the single-device runner's (B5) and the B6 chunk's throughput,
-    and the gloo all-reduce per step at S=2 (timed in phase 20's world)."""
+    """Phase 21 at the config 7 instance, B=1024, S=1: B5 fixed and second
+    and B8 per launch on tiled buffers allocated once (as their runners
+    run them) and through their row-major wrappers, B6's fixed step and B9
+    per launch (kernel and plain in turns, CUDA events, beside the bound;
+    B6 and B9 on the tiled buffers their runners make), the single-device
+    runner's (B5) and the B6 chunk's throughput, the stoch clause path
+    through B8 and through B9 with the uniform draw's share of a B8-path
+    step, and the gloo all-reduce per step at S=2 (timed in phase 20's
+    world)."""
+    from odesat_tpu_torch.models.stoch import init_stoch_state
     from odesat_tpu_torch.ops.tiles import tile
+    from odesat_tpu_torch.parallel import sharded
     from odesat_tpu_torch.utils.config import ODEConfig
     from odesat_tpu_torch.utils.timing import cuda_ms
 
@@ -1790,44 +1817,60 @@ def phase_shard_timing(torch, ss, sch, sc, fa7, allreduce_ms, card):
     zeta = ode.resolve_zeta(fa7.density)
     spec = ss.shard_spec(fa7, zeta, ode, "cuda", 0)
     inp = shard_inputs(torch, fa7, B, seed=3)
+    tiled_inp = {k: tile(x, fill=TILE_FILL.get(k, 0)) for k, x in inp.items()}
+    scratch = ss.ShardScratch(spec, tiled_inp["v"].shape[0])  # allocated once, as the runner does
     times = {}
     for mode in ("fixed", "second"):
-        keys = {"fixed": ("v", "dt", "xs", "xl"),
-                "second": ("v", "dt", "adv", "xs", "xl", "dxs1", "dxl1")}[mode]
-        args = [inp[k] for k in keys]
+        args = [inp[k] for k in SHARD_KEYS[mode]]
         kern = {"fixed": ss.shard_fixed, "second": ss.shard_second}[mode]
         plain = {"fixed": ss.shard_fixed_plain, "second": ss.shard_second_plain}[mode]
+        held = dict(tiled_inp)
 
-        def kernel_turn():  # in place on xs, xl: they stay in range
-            return cuda_ms(lambda: kern(*args, spec), iters=20, warmup=2)
+        def launch():  # the new clause memories come back in the other copy, as in the runner
+            out = ss.shard_stream_cuda(mode, spec, **{k: held[k] for k in SHARD_KEYS[mode]},
+                                       scratch=scratch)
+            held["xs"], held["xl"] = out[1], out[2]
+
+        def kernel_turn():
+            return cuda_ms(launch, iters=20, warmup=2)
 
         def plain_turn():
             return cuda_ms(lambda: plain(*args, spec), 2, warmup=1)
 
         p1, k1, k2, p2 = plain_turn(), kernel_turn(), kernel_turn(), plain_turn()
+        rows = cuda_ms(lambda: kern(*args, spec), iters=10, warmup=1)
         k, p = (k1 + k2) / 2, (p1 + p2) / 2
         b, by = shard_bound(spec, B, mode)
         times[mode] = (k, p, b, by)
-        say(f"[B5 timing] config 7 B={B} S=1 {mode} f32, one launch: B5 {k1:.6f} / {k2:.6f} ms, "
-            f"plain {p1:.6f} / {p2:.6f} ms ({p / k:.3f}x), bound {b:.6f} ms by {by} "
-            f"({b / k:.3f} of it) ({card})")
+        old = ONE_CTA_MS[f"B5 config 7 {mode}"]
+        say(f"[B5 timing] config 7 B={B} S=1 {mode} f32, one launch on tiled buffers: B5 "
+            f"{k1:.6f} / {k2:.6f} ms (the one-CTA-a-trajectory kernel: {old:.6f} ms, "
+            f"{old / k:.3f}x), through the row-major wrapper (tile, launch, untile) "
+            f"{rows:.6f} ms, plain {p1:.6f} / {p2:.6f} ms ({p / k:.3f}x), bound {b:.6f} ms by "
+            f"{by} ({b / k:.3f} of it) ({card})")
     v, xl, active = stoch_shard_inputs(torch, fa7, B, 0, seed=4)
     ev = sc.make_stoch_shard_eval(fa7, "cuda", 0)
+    vt, xlt, donet = tile(v), tile(xl, fill=1), tile(~active, fill=True)
+    acc8 = torch.empty((vt.shape[0], 2 * ev.spec.Np + 1, vt.shape[-1]), device="cuda")
+    w8 = torch.empty_like(xlt)  # B8's buffers, allocated once, as the runner does
 
-    def b8_turn():
-        return cuda_ms(lambda: ev(v, xl, active), iters=20, warmup=2)
+    def b8_turn():  # the weights of active chains move in place: they stay below the cap
+        return cuda_ms(lambda: ev.tiled(vt, xlt, donet, acc8, w8), iters=20, warmup=2)
 
     def b8_plain():
         return cuda_ms(lambda: sc.stoch_shard_eval_plain(v, xl, active, ev.spec, False), 2,
                        warmup=1)
 
     p1, k1, k2, p2 = b8_plain(), b8_turn(), b8_turn(), b8_plain()
+    rows = cuda_ms(lambda: ev(v, xl, active), iters=10, warmup=1)
     k, p = (k1 + k2) / 2, (p1 + p2) / 2
     b, by = stoch_shard_bound(ev.spec, B)
     times["b8"] = (k, p, b, by)
-    say(f"[B8 timing] config 7 B={B} S=1 f32, one launch: B8 {k1:.6f} / {k2:.6f} ms, plain "
-        f"{p1:.6f} / {p2:.6f} ms ({p / k:.3f}x), bound {b:.6f} ms by {by} ({b / k:.3f} of it) "
-        f"({card})")
+    old = ONE_CTA_MS["B8 config 7"]
+    say(f"[B8 timing] config 7 B={B} S=1 f32, one launch on tiled buffers: B8 {k1:.6f} / "
+        f"{k2:.6f} ms (the one-CTA-a-chain kernel: {old:.6f} ms, {old / k:.3f}x), through the "
+        f"row-major wrapper (tile, launch, untile) {rows:.6f} ms, plain {p1:.6f} / {p2:.6f} ms "
+        f"({p / k:.3f}x), bound {b:.6f} ms by {by} ({b / k:.3f} of it) ({card})")
 
     # B6: one fixed step launch with the apply prologue, in place
     spec6 = ss.shard_spec(fa7, zeta, ode, "cuda", 0)
@@ -1893,6 +1936,31 @@ def phase_shard_timing(torch, ss, sch, sc, fa7, allreduce_ms, card):
         r = rates[name]
         say(f"[{name}] config 7 B={B} S=1 fixed f32, 64-step chunk: {r[0]:.6e} / {r[1]:.6e} "
             f"traj*steps/s (the counterpart of local3sat_n10240_shard_rhs) ({card})")
+    # the stoch clause path at S=1: B8 with the flips and their uniforms in
+    # torch ('off'), and B9 ('auto'), 64-step chunks from the all-false start
+    chains = {}
+    for name, mode in (("B8 path", "off"), ("B9 chunk", "auto")):
+        run = sharded.make_clause_stoch_runner(fa7, 64, "cuda", torch.Generator().manual_seed(7),
+                                               None, "float32", mode)
+        s0 = init_stoch_state(fa7, B, "cuda")
+        run(s0)
+        torch.cuda.synchronize()
+        chains[name] = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            run(s0)
+            torch.cuda.synchronize()
+            chains[name].append(B * 64 / (time.perf_counter() - t0))
+    G, Np = -(-B // 32), fa7.n_vars_padded
+    u_ms = cuda_ms(lambda: sc.uniform01_tiled(12345, G, sc.traj_block(B), 3, Np, "cuda"),
+                   iters=20, warmup=2)
+    step_ms = B / max(chains["B8 path"]) * 1e3
+    a, c = chains["B8 path"], chains["B9 chunk"]
+    say(f"[stoch clause runners] config 7 B={B} S=1 f32, 64-step chunks: through B8 (flips "
+        f"drawn in torch, on tiled chains) {a[0]:.6e} / {a[1]:.6e} chain*steps/s, through B9 "
+        f"{c[0]:.6e} / {c[1]:.6e}; the counter-hash uniforms of one B8-path step "
+        f"{u_ms:.6f} ms (CUDA events), {u_ms / step_ms:.3f} of its {step_ms:.6f} ms ({card})")
+    times["stoch_runner"] = chains
     say(f"[mesh timing] gloo all-reduce of the (B={B}, Np+1) f32 dv buffer at S=2, two ranks on "
         f"one card, staged through the host: {allreduce_ms:.6f} ms per step ({card})")
     times["runner"] = rates

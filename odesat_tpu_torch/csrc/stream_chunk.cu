@@ -3,11 +3,12 @@
 //
 // B2 (stream_chunk_launch) replaces odesat_tpu/ops/stream_pallas.py::
 // make_stream_chunk; B10 (rhs_launch) replaces odesat_tpu/ops/rhs_pallas.py::
-// make_pallas_rhs; B5 (shard_stream_launch, below B10) replaces
-// odesat_tpu/ops/shard_stream.py::_make_shard_call; B6 (shard_chunk_launch,
-// below B5) replaces odesat_tpu/ops/shard_chunk.py::make_shard_chunk_call.
-// B10, B5 and B6 share the clause-phase and variable-phase device functions
-// below; B6 runs them over the tile layout of tile.cuh, R trajectories a CTA.
+// make_pallas_rhs; B5 (shard_stream_launch) replaces odesat_tpu/ops/
+// shard_stream.py::_make_shard_call; B6 (shard_chunk_launch) replaces
+// odesat_tpu/ops/shard_chunk.py::make_shard_chunk_call. B10 runs the clause-
+// and variable-phase device functions below, one CTA a trajectory; B5 and B6
+// run one pass device code over the tile layout of tile.cuh, R trajectories
+// a tile on the lanes of a thread group.
 //
 // B2 computes exactly what B1 (csrc/fused_chunk.cu) computes, for formulas
 // whose tables and state do not fit one CTA's shared memory: it is B1's
@@ -172,17 +173,6 @@ __device__ __forceinline__ T var_dv(const Tables& f, int i, T vi, const T* m1, c
   return dv;
 }
 
-__device__ __forceinline__ float block_max(float x, float* red) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-  if ((threadIdx.x & 31) == 0) red[warp] = x;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < nwarps; ++w) r = fmaxf(r, red[w]);
-  return r;
-}
-
 struct Scalars {
   float zeta, dt_fixed, tol, xl_cap;
 };
@@ -233,142 +223,32 @@ __global__ void rhs_kernel(const T* __restrict__ v_in, const T* __restrict__ xs_
 }
 
 // B5 (shard_stream_launch) replaces odesat_tpu/ops/shard_stream.py::
-// _make_shard_call (:574): one clause shard's RHS. One CTA per trajectory;
-// the tables are the shard's own (literal codes of its (K, Mp) slots, its
-// local CSR), so Mp is the shard's clause count and dv_out the shard's
-// partial dv, which the caller all-reduces over the clause group outside
-// the kernel (where the TPU kernel's caller used psum). What bounds it:
-// device-memory bytes, since v, xs and xl cross device memory every step
-// (fixed: about 0.8 GB a step at Np=10240, Mp=43,776, B=1024, 0.24 ms at
-// 3.35 TB/s), plus the scratch rows of clause words that do not fit the
-// CTA. The design fuses the clause-memory update into the launch, in
-// place, and recomputes the half-step state of kSecond instead of storing
-// it. Modes (ops/shard_stream.py):
-//   kRhs    dv, dxs, dxl, sat;
-//   kFixed  dv, sat, and xs, xl <- clamp(x + dt*dx) in place after the
-//           variable phase has read the old ones (dt is 0 for done rows);
-//   kSecond at v = hv: the half-step clause state hxs, hxl from the first
-//           launch's dxs1, dxl1 (placed like m1, m2), dv there, and
-//           xs, xl <- adv ? two half steps : unchanged, in place, plus the
-//           shard's step-doubling error over xs and xl in red_out.
-// red_out is the sat flag (1.0/0.0) in kRhs and kFixed, the error in
-// kSecond.
+// _make_shard_call (:574): one clause shard's RHS, one pass a launch, for the
+// `--shard-chunk off` path, whose caller all-reduces the shard's partial dv
+// over the clause group between launches and runs the v update, the dt
+// control and the done latch in torch. Modes (ops/shard_stream.py):
+//   kRhs    out = (dv partial | 1 - sat), dxs1, dxl1 (the adaptive first
+//           evaluation);
+//   kFixed  out = (dv partial | 1 - sat), and the clamped Euler update of
+//           xs, xl into xs2, xl2 (dt is 0 for done rows);
+//   kSecond at v = hv: the half-step clause state recomputed per
+//           occurrence from the first launch's dxs1, dxl1, out = the dv
+//           partial there, xs2, xl2 = adv ? two half steps : unchanged,
+//           and err = the shard's step-doubling error over xs and xl.
+// Design: a B5 launch is B6's pass (chunk_pass_kernel, chunk_pad_kernel,
+// below) over the same tile layout, R trajectories a tile on the lanes of a
+// group, without B6's apply prologue and head: the step and the advance
+// flag are given (pass_dt's GIVEN) instead of derived from done, the fixed
+// step and the reduced sat flag; a head kernel first clears the words the
+// pass publishes into (the sat flag, or the error). So each table word
+// serves R trajectories, each gather moves R useful words, no clause word
+// of a trajectory crosses memory (m1, m2 are recomputed per occurrence) and
+// nothing of a trajectory lives in shared memory. The new clause memories
+// go to the second copy xs2, xl2, since a grid over spans has no barrier
+// between the variable and the clause side; the runner swaps the copies.
+// What bounds it: device-memory bytes (v, xs and xl cross memory every
+// step) and the L2 traffic of the occurrence gathers, as for B6.
 enum ShardMode { kRhs = 0, kFixed = 1, kSecond = 2 };
-
-// One shard's pass in MODE over the trajectory's rows, with v (for
-// kSecond: the half step hv) already in shared memory and published.
-// Writes dv_r (the shard's partial dv), dxs_r/dxl_r (kRhs) or xs_r/xl_r in
-// place (kFixed, kSecond). Returns the sat flag as 1.0/0.0 (kRhs, kFixed)
-// or the shard's error (kSecond), the same on every thread. B5 and B6 run it.
-template <int MODE, bool PAPER, bool BF16>
-__device__ __forceinline__ float shard_pass(const Tables& f, const Scalars& s, const float* v,
-                                            float* m1, float* m2, float* hxs, float* hxl,
-                                            float* red, float* xs_r, float* xl_r,
-                                            const float* dxs1_r, const float* dxl1_r,
-                                            float* dxs_r, float* dxl_r, float* dv_r, float dt,
-                                            bool adv) {
-  using C = K_<float>;
-  const int Np = f.Np, Mp = f.Mp;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const float half = 0.5f * dt;
-
-  int ok = 1;
-  for (int m = tid; m < Mp; m += nt) {
-    float a, b;
-    const bool real = clause_min2<float, BF16>(f, v, m, &a, &b);
-    m1[m] = a;
-    m2[m] = b;
-    if (real) ok &= (0.5f * a < C::gamma);
-    if constexpr (MODE == kRhs) {
-      float dxs = 0.0f, dxl = 0.0f;
-      if (real) {
-        const float c = 0.5f * a;
-        dxs = C::beta * (xs_r[m] + C::eps) * (c - C::gamma);
-        dxl = C::alpha * (c - C::delta);
-      }
-      dxs_r[m] = dxs;
-      dxl_r[m] = dxl;
-    }
-    if constexpr (MODE == kSecond) {
-      hxs[m] = clampf(xs_r[m] + half * dxs1_r[m], C::eps, C::xs_hi);
-      hxl[m] = clampf(xl_r[m] + half * dxl1_r[m], 1.0f, s.xl_cap);
-    }
-  }
-  const bool allsat = __syncthreads_and(ok) != 0;  // also publishes m1, m2, hxs, hxl
-
-  const float* cxs = MODE == kSecond ? hxs : xs_r;
-  const float* cxl = MODE == kSecond ? hxl : xl_r;
-  for (int i = tid; i < Np; i += nt)
-    dv_r[i] = var_dv<float, PAPER, BF16>(f, i, v[i], m1, m2, cxs, cxl, s.zeta);
-  if constexpr (MODE == kRhs) return allsat ? 1.0f : 0.0f;
-
-  __syncthreads();  // every occurrence has read the clause memories it needs
-  float err = 0.0f;
-  for (int m = tid; m < Mp; m += nt) {
-    const bool real = __ldg(f.lit_code + m) >= 0;
-    const float c = 0.5f * m1[m];
-    if constexpr (MODE == kFixed) {
-      float dxs = 0.0f, dxl = 0.0f;
-      if (real) {
-        dxs = C::beta * (xs_r[m] + C::eps) * (c - C::gamma);
-        dxl = C::alpha * (c - C::delta);
-      }
-      xs_r[m] = clampf(xs_r[m] + dt * dxs, C::eps, C::xs_hi);
-      xl_r[m] = clampf(xl_r[m] + dt * dxl, 1.0f, s.xl_cap);
-    } else {
-      float dxs = 0.0f, dxl = 0.0f;
-      if (real) {
-        dxs = C::beta * (hxs[m] + C::eps) * (c - C::gamma);
-        dxl = C::alpha * (c - C::delta);
-      }
-      const float txs = clampf(hxs[m] + half * dxs, C::eps, C::xs_hi);
-      const float txl = clampf(hxl[m] + half * dxl, 1.0f, s.xl_cap);
-      const float fxs = clampf(xs_r[m] + dt * dxs1_r[m], C::eps, C::xs_hi);
-      const float fxl = clampf(xl_r[m] + dt * dxl1_r[m], 1.0f, s.xl_cap);
-      err = fmaxf(err, fmaxf(fabsf(fxs - txs), fabsf(fxl - txl)));
-      if (adv) {
-        xs_r[m] = txs;
-        xl_r[m] = txl;
-      }
-    }
-  }
-  if constexpr (MODE == kFixed) {
-    return allsat ? 1.0f : 0.0f;
-  } else {
-    return block_max(err, red);
-  }
-}
-
-template <int MODE, bool PAPER, bool BF16>
-__global__ void shard_kernel(const float* __restrict__ v_in, const float* __restrict__ dt_in,
-                             const unsigned char* __restrict__ adv_in, float* xs, float* xl,
-                             const float* __restrict__ dxs1, const float* __restrict__ dxl1,
-                             float* __restrict__ dv_out, float* __restrict__ dxs_out,
-                             float* __restrict__ dxl_out, float* __restrict__ red_out, Tables f,
-                             Scalars s, Place p, float* scratch, long long row_words) {
-  const int traj = blockIdx.x;
-  const int Np = f.Np, Mp = f.Mp;
-  const int tid = threadIdx.x, nt = blockDim.x;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* smem = reinterpret_cast<float*>(smem_raw);
-  float* row = scratch + static_cast<size_t>(traj) * row_words;
-  float* v = placed(p.off[V], smem, row);
-  const size_t vrow = static_cast<size_t>(traj) * Np;
-  const size_t crow = static_cast<size_t>(traj) * Mp;
-  const float dt = MODE == kRhs ? 0.0f : dt_in[traj];
-  const bool adv = MODE == kSecond && adv_in[traj] != 0;
-
-  for (int i = tid; i < Np; i += nt) v[i] = v_in[vrow + i];
-  __syncthreads();
-  const bool rhs = MODE == kRhs, second = MODE == kSecond;
-  const float r = shard_pass<MODE, PAPER, BF16>(
-      f, s, v, placed(p.off[M1], smem, row), placed(p.off[M2], smem, row),
-      placed(p.off[HXS], smem, row), placed(p.off[HXL], smem, row), smem, xs + crow,
-      xl + crow, second ? dxs1 + crow : nullptr, second ? dxl1 + crow : nullptr,
-      rhs ? dxs_out + crow : nullptr, rhs ? dxl_out + crow : nullptr, dv_out + vrow, dt, adv);
-  if (tid == 0) red_out[traj] = r;
-}
 
 // B6 (shard_chunk_launch) replaces odesat_tpu/ops/shard_chunk.py::
 // make_shard_chunk_call (:158): the clause-sharded ODE chunk whose dv
@@ -385,13 +265,13 @@ __global__ void shard_kernel(const float* __restrict__ v_in, const float* __rest
 // Phases (ops/shard_chunk.py):
 //   kStep    fixed: [apply the previous step] v, done; dt_c = done ? 0 : dt;
 //            the fixed pass -> acc[:Np] = dv partial, acc[Np] = 1 - sat,
-//            xs, xl in place;
+//            the new xs, xl into xs2, xl2;
 //   kApply   fixed: apply only;
 //   kFirst   adaptive: [commit the previous step] v, dt, done; pass 1 ->
 //            acc[:Np] = dv1 partial, acc[Np] = 1 - sat, dxs1, dxl1;
 //   kHalf    adaptive: hv = clamp(v + (dt_c/2) dv1) from the reduced acc;
 //            the second pass at hv -> acc2 = dv2 partial, err = the shard's
-//            error, xs, xl committed in place under the advance flag;
+//            error, xs, xl committed into xs2, xl2 under the advance flag;
 //   kCommit  adaptive: commit only: tv = clamp(hv + (dt_c/2) dv2), err =
 //            max(err, |clamp(v + dt_c dv1) - tv|), dt <- clip(dt *
 //            sqrt(tol / max(err, 1e-30)), 2^-7, 1e3), v, dt under the advance
@@ -553,7 +433,8 @@ __global__ void __launch_bounds__(tile::kThreads)
 // to xs_out, xl_out; kRhs writes dxs1, dxl1; kSecond writes the two half
 // steps (the memories unchanged unless `adv`) to xs_out, xl_out and takes
 // the step-doubling error into e. Returns whether the clause is
-// unsatisfied. B5's arithmetic (shard_pass), operation for operation.
+// unsatisfied. The plain version's arithmetic (ops/shard_stream.py), operation
+// for operation.
 template <int MODE>
 __device__ __forceinline__ bool clause_side(bool real, float m1, float x0, float l0, float d1s,
                                             float d1l, float hxs, float hxl, size_t k, float dtc,
@@ -585,14 +466,24 @@ __device__ __forceinline__ bool clause_side(bool real, float m1, float x0, float
   return real && !(c < C::gamma);
 }
 
-// The step a trajectory's pass takes (0 when done) and, for kSecond, its
-// advance flag (not done and not all satisfied after the first pass).
-template <int MODE>
+// The step trajectory t = g*R + r of a pass takes and, for kSecond, its
+// advance flag. B6 derives both: the step is 0 when done, else the fixed
+// step or dt; the flag is "not done and not all satisfied after the first
+// pass" (the reduced flag in acc). B5 (GIVEN) is handed both: dt, already 0
+// for a done row, and, in the `done` pointer, the advance flag.
+template <int R, int MODE, bool GIVEN>
 __device__ __forceinline__ float pass_dt(const unsigned char* done, const float* dt,
-                                         const float* flag, const Scalars& s, int t, bool* adv) {
-  const bool d = done[t] != 0;
-  *adv = MODE == kSecond && !d && *flag != 0.0f;
-  return d ? 0.0f : (MODE == kFixed ? s.dt_fixed : (MODE == kSecond ? dt[t] : 0.0f));
+                                         const float* acc, const Scalars& s, int g, int r,
+                                         int Np, bool* adv) {
+  const int t = g * R + r;
+  if constexpr (GIVEN) {
+    *adv = MODE == kSecond && done[t] != 0;
+    return MODE == kRhs ? 0.0f : dt[t];
+  } else {
+    const bool d = done[t] != 0;
+    *adv = MODE == kSecond && !d && acc[at<R>(g, Np + 1, Np, r)] != 0.0f;
+    return d ? 0.0f : (MODE == kFixed ? s.dt_fixed : (MODE == kSecond ? dt[t] : 0.0f));
+  }
 }
 
 // Publish the CTA's sat flags (kFixed, kRhs: acc[Np] = 1 where a clause
@@ -617,7 +508,7 @@ __device__ __forceinline__ void publish(int* s_red, int unsat, float e, float* a
 // lists run in clause, then slot order); kFixed and kSecond write the new
 // memories to xs_out, xl_out, the chunk's second copy, since other
 // occurrences still read the old ones.
-template <int R, int MODE, bool PAPER, bool BF16>
+template <int R, int MODE, bool PAPER, bool BF16, bool GIVEN>
 __global__ void __launch_bounds__(tile::kThreads)
     chunk_pass_kernel(const float* __restrict__ v, const float* __restrict__ xs,
                       const float* __restrict__ xl, float* __restrict__ xs_out,
@@ -632,7 +523,7 @@ __global__ void __launch_bounds__(tile::kThreads)
   if (threadIdx.x < R) s_red[threadIdx.x] = 0;
   __syncthreads();
   bool adv;
-  const float dtc = pass_dt<MODE>(done, dt, acc + at<R>(g, Np + 1, Np, r), s, g * R + r, &adv);
+  const float dtc = pass_dt<R, MODE, GIVEN>(done, dt, acc, s, g, r, Np, &adv);
   const float half = 0.5f * dtc;
   const float* vt = v + at<R>(g, Np, 0, 0);
   const size_t c0 = at<R>(g, f.Mp, 0, 0);
@@ -673,7 +564,7 @@ __global__ void __launch_bounds__(tile::kThreads)
 
 // The clause side of a pass for the shard's padded clauses (`pads`, n of
 // them), which have no occurrence.
-template <int R, int MODE>
+template <int R, int MODE, bool GIVEN>
 __global__ void __launch_bounds__(tile::kThreads)
     chunk_pad_kernel(const float* __restrict__ xs, const float* __restrict__ xl,
                      float* __restrict__ xs_out, float* __restrict__ xl_out, float* dxs1,
@@ -687,7 +578,7 @@ __global__ void __launch_bounds__(tile::kThreads)
   if (threadIdx.x < R) s_red[threadIdx.x] = 0;
   __syncthreads();
   bool adv;
-  const float dtc = pass_dt<MODE>(done, dt, acc + at<R>(g, Np + 1, Np, r), s, g * R + r, &adv);
+  const float dtc = pass_dt<R, MODE, GIVEN>(done, dt, acc, s, g, r, Np, &adv);
   const float half = 0.5f * dtc;
   const size_t c0 = at<R>(g, Mp, 0, 0);
   float e = 0.0f;
@@ -707,7 +598,8 @@ __global__ void __launch_bounds__(tile::kThreads)
   publish<R, MODE>(s_red, 0, e, acc, err, g, Np);
 }
 
-// The pointers and sizes of one B6 launch (null where a phase reads none).
+// The pointers and sizes of one B5 or B6 launch (null where a phase reads
+// none; B5 passes its advance flags as `done`, see pass_dt).
 struct ChunkArgs {
   float *v, *xs, *xl, *xs2, *xl2, *dt;
   unsigned char* done;
@@ -722,12 +614,12 @@ struct ChunkArgs {
 };
 
 // A pass in MODE: chunk_pass_kernel over the variables, then
-// chunk_pad_kernel over the padded clauses.
-template <int R, int MODE>
+// chunk_pad_kernel over the padded clauses; GIVEN as in pass_dt.
+template <int R, int MODE, bool GIVEN>
 void launch_pass(const ChunkArgs& a, const float* v, float* out, int rows, cudaStream_t st) {
   const dim3 grid = tile::grid(a.G, R, a.f.Np);
 #define ODESAT_PASS(P, H)                                                                  \
-  chunk_pass_kernel<R, MODE, P, H><<<grid, tile::kThreads, 0, st>>>(                       \
+  chunk_pass_kernel<R, MODE, P, H, GIVEN><<<grid, tile::kThreads, 0, st>>>(                       \
       v, a.xs, a.xl, a.xs2, a.xl2, a.dxs1, a.dxl1, a.dt, a.done, out, rows, a.acc, a.err, a.f, \
       a.s)
   if (a.paper) {
@@ -737,7 +629,7 @@ void launch_pass(const ChunkArgs& a, const float* v, float* out, int rows, cudaS
   }
 #undef ODESAT_PASS
   if (a.n_pads > 0)
-    chunk_pad_kernel<R, MODE><<<tile::grid(a.G, R, a.n_pads), tile::kThreads, 0, st>>>(
+    chunk_pad_kernel<R, MODE, GIVEN><<<tile::grid(a.G, R, a.n_pads), tile::kThreads, 0, st>>>(
         a.xs, a.xl, a.xs2, a.xl2, a.dxs1, a.dxl1, a.dt, a.done, a.acc, a.err, a.pads, a.n_pads,
         a.f.Np, a.f.Mp, a.s);
 }
@@ -772,11 +664,35 @@ int shard_chunk_phase(int phase, bool apply, const ChunkArgs& a, cudaStream_t st
   if (phase == kHalf) {
     chunk_hv_kernel<R><<<vgrid, tile::kThreads, 0, st>>>(a.v, a.acc, a.dt, a.done, a.hv, a.err,
                                                          Np);
-    launch_pass<R, kSecond>(a, a.hv, a.acc2, Np, st);
+    launch_pass<R, kSecond, false>(a, a.hv, a.acc2, Np, st);
   } else if (phase == kStep) {
-    launch_pass<R, kFixed>(a, a.v, a.acc, Np + 1, st);
+    launch_pass<R, kFixed, false>(a, a.v, a.acc, Np + 1, st);
   } else {
-    launch_pass<R, kRhs>(a, a.v, a.acc, Np + 1, st);
+    launch_pass<R, kRhs, false>(a, a.v, a.acc, Np + 1, st);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One B5 launch in `mode` (ShardMode) on stream `st`: the words the pass
+// publishes into are cleared by B6's head kernel (the sat flag, row Np of
+// `out`; the error, a (G, 1, R) buffer to the head kernel), then B6's pass
+// runs with the step and the advance flag given. `out` is (G, Np+1, R) for
+// kRhs and kFixed, (G, Np, R) for kSecond.
+template <int R>
+int shard_stream_pass(int mode, const ChunkArgs& a, float* out, cudaStream_t st) {
+  const int Np = a.f.Np, n = a.G * R;
+  const int blocks = (n + tile::kThreads - 1) / tile::kThreads;
+  if (mode == kSecond) {
+    chunk_head_kernel<true><<<blocks, tile::kThreads, 0, st>>>(a.err, nullptr, nullptr, nullptr,
+                                                                nullptr, 0.0f, 0, R, n, 0, 1);
+    launch_pass<R, kSecond, true>(a, a.v, out, Np, st);
+  } else {
+    chunk_head_kernel<true><<<blocks, tile::kThreads, 0, st>>>(out, nullptr, nullptr, nullptr,
+                                                                nullptr, 0.0f, Np, R, n, 0, 1);
+    if (mode == kFixed)
+      launch_pass<R, kFixed, true>(a, a.v, out, Np + 1, st);
+    else
+      launch_pass<R, kRhs, true>(a, a.v, out, Np + 1, st);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -880,47 +796,32 @@ int rhs_launch(int is_double, const void* v_in, const void* xs_in, const void* x
 #undef ODESAT_RHS
 }
 
-// B5 in mode 0 (rhs), 1 (fixed) or 2 (second). Pointers a mode does not
-// use may be null. Returns a cudaError_t code.
-int shard_stream_launch(int mode, const float* v_in, const float* dt_in,
-                        const unsigned char* adv_in, float* xs, float* xl, const float* dxs1,
-                        const float* dxl1, float* dv_out, float* dxs_out, float* dxl_out,
-                        float* red_out, const int* lit_code, const int* occ_ptr,
-                        const int* occ_code, float* scratch, const long long* place,
-                        long long row_words, int smem_bytes, int B, int Np, int Mp, int K,
-                        int paper, int bf16, int threads, float zeta, float xl_cap,
-                        void* stream) {
-  Place p;
-  for (int i = 0; i < kItems; ++i) p.off[i] = place[i];
-  bool used[kItems] = {};
-  used[V] = used[M1] = used[M2] = true;
-  used[HXS] = used[HXL] = mode == kSecond;
-  const size_t smem = static_cast<size_t>(smem_bytes);
-  if (mode < kRhs || mode > kSecond || smem_bytes > smem_optin() ||
-      !placement_ok(p, used, Np, Mp, smem, sizeof(float)))
+// B5 in mode 0 (rhs), 1 (fixed) or 2 (second); see ShardMode. The buffers
+// are in the tile layout of tile.cuh with R = tile::kR trajectories a tile:
+// v (G, Np, R) (hv in mode 2); xs, xl, xs2, xl2, dxs1, dxl1 (G, Mp, R); dt,
+// adv, err (G, R); out (G, Np+1, R) = (dv partial | 1 - sat) in modes 0 and
+// 1, (G, Np, R) = dv partial in mode 2. rhs writes dxs1, dxl1; fixed and
+// second write the new clause memories to xs2, xl2 (the caller swaps the
+// two copies); second reads dxs1, dxl1 and adv, and writes err. `pads`
+// lists the shard's n_pads padded clauses. Pointers a mode does not use may
+// be null. Returns a cudaError_t code (0 = launched).
+int shard_stream_launch(int mode, float* v, float* dt, unsigned char* adv, float* xs, float* xl,
+                        float* xs2, float* xl2, float* dxs1, float* dxl1, float* out, float* err,
+                        const int* pads, int n_pads, const int* lit_code, const int* occ_ptr,
+                        const int* occ_code, int G, int R, int Np, int Mp, int K, int paper,
+                        int bf16, float zeta, float xl_cap, void* stream) {
+  if (mode < kRhs || mode > kSecond || G < 1 || R != tile::kR || n_pads < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Tables f{lit_code, occ_ptr, occ_code, Np, Mp, K};
-  const Scalars s{zeta, 0.0f, 0.0f, xl_cap};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define ODESAT_SHARD(M, P, H)                                                                \
-  return launch(shard_kernel<M, P, H>, B, threads, smem, st, v_in, dt_in, adv_in, xs, xl,    \
-                dxs1, dxl1, dv_out, dxs_out, dxl_out, red_out, f, s, p, scratch, row_words)
-#define ODESAT_SHARD_MODE(M)          \
-  if (paper) {                        \
-    if (bf16) ODESAT_SHARD(M, true, true); \
-    ODESAT_SHARD(M, true, false);     \
-  }                                   \
-  if (bf16) ODESAT_SHARD(M, false, true);  \
-  ODESAT_SHARD(M, false, false)
-  if (mode == kRhs) {
-    ODESAT_SHARD_MODE(kRhs);
-  }
-  if (mode == kFixed) {
-    ODESAT_SHARD_MODE(kFixed);
-  }
-  ODESAT_SHARD_MODE(kSecond);
-#undef ODESAT_SHARD_MODE
-#undef ODESAT_SHARD
+  const bool second = mode == kSecond;
+  const ChunkArgs a{v,       xs,      xl,
+                    xs2,     xl2,     dt,
+                    adv,     second ? nullptr : out, nullptr,
+                    err,     dxs1,    dxl1,
+                    nullptr, nullptr, pads,
+                    n_pads,  Tables{lit_code, occ_ptr, occ_code, Np, Mp, K},
+                    Scalars{zeta, 0.0f, 0.0f, xl_cap},
+                    G,       paper != 0, bf16 != 0};
+  return shard_stream_pass<tile::kR>(mode, a, out, static_cast<cudaStream_t>(stream));
 }
 
 // B6 in phase 0 (step), 1 (apply), 2 (first), 3 (half) or 4 (commit); see

@@ -126,7 +126,9 @@ def make_stoch_clause_eval(fa: FormulaArrays, device, shard: int = 0, n_shards: 
     with B8's interface: ``ev(v, xl, active) -> (total, unsat, xl_new,
     sat)``, the weight sums by index_add over the segment's literal slots
     (JAX make_stoch_clause_step :139-170). Masked slots add nothing, so any
-    layout works."""
+    layout works. ``ev.packed(v, xl, done) -> (xl_new, acc)`` is the same on
+    rows, with acc = (total | unsat | 1 - sat), what
+    :func:`make_stoch_clause_step` takes."""
     from odesat_tpu_torch.ops.shard_stream import shard_slice
 
     seg = shard_slice(fa.n_clauses_padded, n_shards, shard)
@@ -153,31 +155,35 @@ def make_stoch_clause_eval(fa: FormulaArrays, device, shard: int = 0, n_shards: 
         allsat = (sat | ~clause_mask).all(dim=-1)
         return total, unsat, torch.where(active.unsqueeze(1), xl_new, xl), allsat
 
+    def packed(v, xl, done):
+        total, unsat, xl, allsat = ev(v, xl, ~done)
+        return xl, torch.cat([total, unsat, (~allsat).to(total.dtype).unsqueeze(1)], dim=1)
+
+    ev.packed = packed
     return ev
 
 
 def make_stoch_clause_step(ev, clause_group=None):
     """The clause-mesh stoch step ``step(state, u) -> state`` (JAX
-    :123-180): ``ev`` evaluates this rank's clause segment (B8's
-    ``make_stoch_shard_eval`` or :func:`make_stoch_clause_eval`); the
-    (total, unsat) partial sums and the negated sat flag are all-reduced
-    over ``clause_group`` in one call, then every rank of the group draws
-    the same flips from the same uniforms ``u``. The sums are integers in
-    f32, so the partition cannot change a flip below 2**24."""
+    :123-180) on a state of rows (B, X) or of tiles (G, X, R)
+    (``ops/tiles.py``), with the uniforms ``u`` in the same layout. ``ev(v,
+    xl, done) -> (xl_new, acc)`` evaluates this rank's clause segment in
+    that layout (B8's ``make_stoch_shard_eval(...).tiled`` or the twin's
+    :func:`make_stoch_clause_eval` ``.packed``), acc = (total | unsat | 1 -
+    sat); acc is all-reduced over ``clause_group`` as it is, then every rank
+    of the group draws the same flips from the same uniforms. The sums are
+    integers in f32, so the partition cannot change a flip below 2**24."""
     from odesat_tpu_torch.parallel.dist import all_reduce
 
     def step(state: StochState, u: torch.Tensor) -> StochState:
-        active = ~state.done
-        total, unsat, xl, allsat = ev(state.v, state.xl, active)
+        xl, acc = ev(state.v, state.xl, state.done)
         if clause_group is not None:
-            Np = total.shape[1]
-            buf = all_reduce(torch.cat([total, unsat, (~allsat).to(total.dtype).unsqueeze(1)],
-                                       dim=1), clause_group)
-            total, unsat, allsat = buf[:, :Np], buf[:, Np:2 * Np], buf[:, -1] == 0
+            all_reduce(acc, clause_group)
+        Np = u.shape[1]
         # total == 0 for a variable in no clause: 0 < 0 never flips
-        flip = u * total < unsat
-        v = torch.where(active.unsqueeze(1) & flip, ~state.v, state.v)
-        return StochState(v, xl, state.done | allsat)
+        flip = u * acc[:, :Np] < acc[:, Np:2 * Np]
+        v = torch.where((~state.done).unsqueeze(1) & flip, ~state.v, state.v)
+        return StochState(v, xl, state.done | (acc[:, 2 * Np] == 0))
 
     return step
 

@@ -74,6 +74,7 @@ from odesat_tpu_torch.constants import DT_MAX, DT_MIN
 from odesat_tpu_torch.ops.fused_chunk import _clamp, check_chunk_config
 from odesat_tpu_torch.ops.shard_stream import (
     ShardSpec,
+    _flag,
     shard_fixed_plain,
     shard_rhs_plain,
     shard_second_plain,
@@ -165,10 +166,6 @@ def _apply_plain(b: ChunkBuffers, spec: ShardSpec) -> ChunkBuffers:
                       done=b.done | allsat)
 
 
-def _flag(dv, sat):
-    return torch.cat([dv, (~sat).to(dv.dtype).unsqueeze(1)], dim=1)
-
-
 def shard_chunk_plain(phase: str, b: ChunkBuffers, spec: ShardSpec,
                       apply: bool = False) -> ChunkBuffers:
     """One launch of B6 in ``phase`` in torch ops; returns the buffers as
@@ -220,8 +217,7 @@ class ChunkScratch:
 
 def chunk_scratch(b: ChunkBuffers, spec: ShardSpec) -> ChunkScratch:
     """The scratch for tiled buffers ``b``."""
-    pads = torch.nonzero(spec.lit_code[:spec.Mp] < 0).flatten().to(torch.int32)
-    scratch = ChunkScratch(torch.empty_like(b.xs), torch.empty_like(b.xl), pads)
+    scratch = ChunkScratch(torch.empty_like(b.xs), torch.empty_like(b.xl), spec.pads)
     if not spec.fixed:
         G, R = b.v.shape[0], b.v.shape[-1]
         scratch.hv = b.v.new_empty((G, spec.Np, R))

@@ -1,6 +1,6 @@
 """One clause shard's ODE right-hand side (kernel B5): the clause-sharded
 compile, a hand-written CUDA kernel for Hopper, its plain torch version and
-the clause-mesh step built on it.
+the clause-mesh step built on it (the ``--shard-chunk off`` path).
 
 Replaces the TPU kernel ``odesat_tpu/ops/shard_stream.py::_make_shard_call``
 (Pallas; call :685, kernel body ``_build_kernel`` :361). On a clause mesh
@@ -13,47 +13,52 @@ TPU summed with ``psum`` over ICI). Three modes, as on the TPU:
 * ``rhs``: dv partial, dxs, dxl of the shard's clauses and the shard's
   all-satisfied flag (the adaptive integrator's first evaluation);
 * ``fixed``: dv partial and the flag, with the clamped Euler update of the
-  shard's xs and xl written in place (dt is 0 for done rows);
+  shard's xs and xl (dt is 0 for done rows);
 * ``second``: the adaptive second evaluation at the half step ``hv``: the
   half-step clause state is recomputed from the first launch's dxs/dxl,
-  the final xs/xl are written in place under the advance flag, and the
-  shard's part of the step-doubling error comes out.
+  the final xs/xl come out under the advance flag, and so does the shard's
+  part of the step-doubling error.
 
 The v update, dt control and done latch run in torch after the all-reduce
 (:func:`make_fused_clause_step`, the port of the TPU module's :744-854).
 
-Design for the card (``shard_stream_launch`` in ``csrc/stream_chunk.cu``,
-beside B2 and B10, sharing their clause- and variable-phase device code):
-one CTA per trajectory. The TPU kernel streams sign-baked one-hot planes
-per 128-clause span through VMEM and runs the gather and the scatter as
-matmuls; none of that carries over, so the port's plan holds no planes,
-window offsets or biases. A shard's tables are a literal code per
+Design for the card (``shard_stream_launch`` in ``csrc/stream_chunk.cu``):
+a launch is the pass of the clause-sharded chunk B6 (``ops/shard_chunk.py``)
+over the same tile layout (``ops/tiles.py``: ``(B, X)`` becomes
+``(ceil(B/32), X, 32)``), with the step and the advance flag given instead
+of derived, and without B6's apply prologue. A tile's 32 trajectories sit
+on the lanes of a thread group, so each table word (a literal code per
 ``(k, m_local)`` slot and, per variable, a CSR list of its occurrences in
-the shard's clauses (``2*m_local + negated``), in the global CSR order
-restricted to the shard: what B2 reads, cut to one segment. They are read
-from global memory, where every CTA reads the same bytes and they stay in
-L2. ``v`` lives in shared memory; the clause words (running min, second
-min) and, in ``second`` mode, the half-step clause state too while they
-fit (:func:`shard_layout`), else in a scratch row per trajectory. The
-variable phase sums each variable's shard-local list in CSR order, with no
-atomics.
+the shard's clauses, ``2*m_local + negated``, in the global CSR order
+restricted to the shard) serves 32 trajectories and each gather moves a
+128-byte line; the clause words m1, m2 are recomputed per occurrence
+instead of stored, the clause side of the pass runs at each clause's first
+occurrence, and nothing of a trajectory lives in shared memory. The TPU
+kernel's sign-baked one-hot planes and matmuls have no counterpart. The
+new clause memories go to a second copy (``ShardScratch``), which the
+runner swaps with xs and xl; dv and the negated sat flag come out packed,
+``(G, Np+1, 32)``, the buffer the clause group all-reduces as it is.
 
-What bounds it: device-memory bytes. Unlike the chunk kernels, the state
-crosses device memory every step: ``fixed`` reads v, xs and xl and writes
-dv, xs and xl, about 0.8 GB a step at the config-7 instance (Np=10240,
-Mp=43,776) and B=1024, 0.24 ms at 3.35 TB/s; where the clause words do
-not fit the CTA (S=1 there: 350 KB a trajectory), their scratch rows add
-about as much again. What the design does about it: one launch a fixed
-step, with the clause-memory update fused in place (as the TPU aliases
-them) so xs and xl cross memory once each way; the half-step clause state
-of ``second`` is recomputed from the first launch's derivatives instead of
-being stored; the tables stay in L2.
+The runner (:func:`make_clause_chunk` over :func:`make_fused_clause_step`)
+tiles the state once at chunk entry and untiles it once at exit; between,
+every launch, all-reduce and torch update of a step works on tiled tensors
+and the launches write into buffers allocated once a chunk. The row-major
+functions (:func:`shard_rhs`, :func:`shard_fixed`, :func:`shard_second`,
+:func:`make_stream_shard_rhs`) keep the JAX package's ``(B, X)`` contract:
+on CUDA they tile, launch and untile.
+
+What bounds it: device-memory bytes. The state crosses device memory every
+step: ``fixed`` reads v, xs and xl and writes the partials and the new xs
+and xl, about 0.8 GB a step at the config-7 instance (Np=10240, Mp=43,776)
+and B=1024, 0.24 ms at 3.35 TB/s, plus the occurrence gathers through L2,
+as for B6.
 
 The plain version (:func:`shard_rhs_plain` and its two siblings) is B2's
 plain RHS (``ops/fused_chunk.py::_rhs_plain``) and its clamped update over
 one shard's tables, summing in the kernel's CSR order, so kernel and plain
 agree bit for bit (``--fmad=false``). The wrappers launch the kernel for
-CUDA tensors and the plain version for CPU tensors; anything else raises.
+CUDA tensors and the plain version for CPU tensors
+(:func:`shard_stream_plain_tiled` on tiled ones); anything else raises.
 """
 
 from __future__ import annotations
@@ -70,6 +75,7 @@ from odesat_tpu_torch.cnf.arrays import FormulaArrays, _make_buckets, _round_up
 from odesat_tpu_torch.cnf.formula import CNFFormula
 from odesat_tpu_torch.constants import DT_MAX, DT_MIN, EPSILON
 from odesat_tpu_torch.ops.fused_chunk import (
+    SMEM_LIMIT_BYTES,
     ChunkSpec,
     ChunkTables,
     _clamp,
@@ -82,14 +88,12 @@ from odesat_tpu_torch.ops.fused_chunk import (
     spec_fields,
 )
 from odesat_tpu_torch.ops.stream_chunk import (
-    Layout,
-    kernel_threads,
+    RED_WORDS,
     load_library,
     occurrence_codes,
-    place_arg,
-    place_items,
     raise_for,
 )
+from odesat_tpu_torch.ops.tiles import TILE, rows_of, tile, untile
 
 SPAN = 128  # the clause-segment alignment of the JAX layout, kept for array equality
 
@@ -241,28 +245,27 @@ def compile_stream_sharded(
     return dataclasses.replace(fa, shard_plan=plan), plan
 
 
-def shard_layout(Np: int, Mp: int, second: bool) -> Optional[Layout]:
-    """B5's placement: ``v`` resident in shared memory, then the clause
-    words m1 and m2, then (``second`` mode) the half-step xs and xl, each
-    in shared memory while it fits, else in the scratch row."""
-    sizes = dict(v=Np, m1=Mp, m2=Mp)
-    if second:
-        sizes.update(hxs=Mp, hxl=Mp)
-    return place_items(sizes, 4)
+def v_fits_one_cta(Np: int) -> bool:
+    """One trajectory's ``v`` (f32), beside the 32-word reduction scratch,
+    fits one CTA's shared memory: the need of the one-CTA-a-trajectory
+    design B5's and B6's gate was written for, kept so that the same
+    formulas take the kernels; the tiled kernels hold nothing of a
+    trajectory in shared memory."""
+    return 4 * (RED_WORDS + Np) <= SMEM_LIMIT_BYTES
 
 
 def stream_shard_supported(fa: FormulaArrays, plan: Optional[ShardPlan] = None,
                            dtype: str = "float32") -> bool:
     """B5's gate: a shard plan, no unit clauses (their infinite gradients
-    are the scan path's business, ops/rhs.py), float32 state, and ``v`` in
-    one CTA's shared memory. It replaces the TPU kernel's 2 GiB plane and
+    are the scan path's business, ops/rhs.py), float32 state, and
+    :func:`v_fits_one_cta`. It replaces the TPU kernel's 2 GiB plane and
     VMEM budgets (JAX :273-285); nothing here is a plane."""
     plan = plan if plan is not None else fa.shard_plan
     return (
         plan is not None
         and fa.min_width >= 2
         and dtype == "float32"
-        and shard_layout(fa.n_vars_padded, plan.mp_local, True) is not None
+        and v_fits_one_cta(fa.n_vars_padded)
     )
 
 
@@ -273,6 +276,7 @@ class ShardSpec(ChunkSpec):
     version reads, plus the kernel's occurrence codes)."""
 
     occ_code: torch.Tensor  # (nnz,) int32, 2*m_local + negated
+    pads: torch.Tensor  # (n,) int32, the shard's padded clauses, which have no occurrence
 
 
 def shard_spec(fa: FormulaArrays, zeta: float, ode, device, shard: int = 0) -> ShardSpec:
@@ -283,8 +287,10 @@ def shard_spec(fa: FormulaArrays, zeta: float, ode, device, shard: int = 0) -> S
     seg = shard_slice(fa.n_clauses_padded, plan.n_shards, shard)
     local = SimpleNamespace(clause_mask=fa.clause_mask[seg], n_clauses=fa.n_clauses)
     device = cuda_device(device)
+    pads = np.flatnonzero(t.lit_code[:t.Mp] < 0).astype(np.int32)
     return ShardSpec(**spec_fields(local, zeta, ode, device, t),
-                     occ_code=torch.as_tensor(occurrence_codes(t)).to(device))
+                     occ_code=torch.as_tensor(occurrence_codes(t)).to(device),
+                     pads=torch.as_tensor(pads).to(device))
 
 
 def _tables(spec: ShardSpec):
@@ -332,8 +338,8 @@ def shard_second_plain(hv, dt, adv, xs, xl, dxs1, dxl1, spec: ShardSpec):
 
 
 def _check(spec: ShardSpec, **tensors) -> int:
-    """Raise ValueError unless every tensor is on the spec's device,
-    contiguous and of its expected shape and dtype; returns B."""
+    """Raise ValueError unless every row-major tensor is on the spec's
+    device, contiguous and of its expected shape and dtype; returns B."""
     B = tensors["v"].shape[0]
     want = {"v": (spec.Np,), "xs": (spec.Mp,), "xl": (spec.Mp,), "dxs1": (spec.Mp,),
             "dxl1": (spec.Mp,), "dt": (), "adv": ()}
@@ -348,49 +354,153 @@ def _check(spec: ShardSpec, **tensors) -> int:
     return B
 
 
+# per mode: the tiled inputs a launch reads and the scratch buffers it writes
+_READS = {"rhs": ("v", "xs", "xl"), "fixed": ("v", "dt", "xs", "xl"),
+          "second": ("v", "dt", "adv", "xs", "xl", "dxs1", "dxl1")}
+_WRITES = {"rhs": ("acc", "dxs1", "dxl1"), "fixed": ("acc", "xs2", "xl2"),
+           "second": ("dv2", "xs2", "xl2", "err")}
+
+
+def _rows(spec: ShardSpec, name: str) -> tuple:
+    """The rows a tile of buffer ``name`` holds: (G, *rows, R)."""
+    return {"v": (spec.Np,), "acc": (spec.Np + 1,), "dv2": (spec.Np,), "dt": (), "adv": (),
+            "err": ()}.get(name, (spec.Mp,))
+
+
+class ShardScratch:
+    """The tiled buffers B5's launches write, allocated at first use and
+    kept for a chunk (:meth:`get`): ``acc`` (G, Np+1, R) = (dv partial | 1 -
+    sat) of rhs and fixed; ``dxs1``, ``dxl1`` (G, Mp, R) of rhs; ``dv2``
+    (G, Np, R) and ``err`` (G, R) of second; and ``xs2``, ``xl2`` (G, Mp,
+    R), the second copy of the clause memories that fixed and second write
+    and swap with the launch's own xs, xl."""
+
+    def __init__(self, spec: ShardSpec, G: int):
+        self.spec, self.G, self.bufs = spec, G, {}
+
+    def get(self, name: str) -> torch.Tensor:
+        t = self.bufs.get(name)
+        if t is None:
+            t = self.bufs[name] = torch.empty((self.G, *_rows(self.spec, name), TILE),
+                                              dtype=torch.float32, device=self.spec.device)
+        return t
+
+
 def shard_stream_cuda(mode: str, spec: ShardSpec, v, xs, xl, dt=None, adv=None, dxs1=None,
-                      dxl1=None):
-    """Launch B5 once in ``mode`` on the current stream of the tensors'
-    device. ``fixed`` and ``second`` write xs and xl in place. Returns the
-    mode's outputs as the plain versions do. Raises if an input is not what
-    the kernel takes or the launch is refused; never falls back."""
+                      dxl1=None, scratch: Optional[ShardScratch] = None) -> tuple:
+    """Launch B5 once in ``mode`` on the current stream, on tiled buffers
+    (``TILE`` trajectories a tile, ``ops/tiles.py``): v (hv for second)
+    (G, Np, R), xs, xl, dxs1, dxl1 (G, Mp, R), dt (G, R) f32, adv (G, R)
+    bool. Returns, tiled: rhs ``(acc, dxs1, dxl1)``, fixed ``(acc, xs',
+    xl')``, second ``(dv2, xs', xl', err)``, with acc = (dv partial | 1 -
+    sat). The outputs are ``scratch``'s buffers (a new scratch when None):
+    fixed and second return the new clause memories in its second copy and
+    take the given xs, xl into it, as B6 does. Raises if a buffer is not
+    what the kernel takes or the launch is refused; never falls back."""
     global launches
     if spec.device.type != "cuda":
         raise ValueError(f"the shard RHS kernel runs on CUDA tensors, not {spec.device}")
+    if mode not in _MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    G, R = v.shape[0], v.shape[-1]
+    if R != TILE:
+        raise ValueError(f"tiles of {R} trajectories; the kernel takes {TILE}")
+    if scratch is None:
+        scratch = ShardScratch(spec, G)
     given = dict(v=v, xs=xs, xl=xl, dt=dt, adv=adv, dxs1=dxs1, dxl1=dxl1)
+    bufs = dict(given, **{name: scratch.get(name) for name in _WRITES[mode]})
+    for name in (*_READS[mode], *_WRITES[mode]):
+        t, shape = bufs[name], (G, *_rows(spec, name), R)
+        dtype = torch.bool if name == "adv" else torch.float32
+        if t is None:
+            raise ValueError(f"B5's {mode} mode needs the {name} buffer")
+        if (t.device != spec.device or tuple(t.shape) != shape or t.dtype != dtype
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} is {tuple(t.shape)} {t.dtype} on {t.device}; the kernel "
+                             f"takes a contiguous {shape} {dtype} on {spec.device}")
+    if mode != "rhs" and G and {bufs["xs2"].data_ptr(), bufs["xl2"].data_ptr()} & {
+            xs.data_ptr(), xl.data_ptr()}:
+        raise ValueError("the scratch's clause memories are the buffers' own: pass the "
+                         "buffers a launch returned")
+    outs = tuple(bufs[name] for name in _WRITES[mode])
+    if G == 0:
+        return outs
+    lib, _ = load_library()
+
+    def ptr(name):
+        t = bufs.get(name)
+        return t.data_ptr() if t is not None else None
+
+    with torch.cuda.device(spec.device):
+        stream = torch.cuda.current_stream(spec.device).cuda_stream
+        rc = lib.shard_stream_launch(
+            _MODES[mode], v.data_ptr(), ptr("dt"), ptr("adv"), xs.data_ptr(), xl.data_ptr(),
+            ptr("xs2"), ptr("xl2"), ptr("dxs1"), ptr("dxl1"), outs[0].data_ptr(), ptr("err"),
+            spec.pads.data_ptr(), spec.pads.numel(), spec.lit_code.data_ptr(),
+            spec.occ_ptr.data_ptr(), spec.occ_code.data_ptr(), G, R, spec.Np, spec.Mp, spec.K,
+            int(spec.paper), int(spec.bf16), spec.zeta, spec.xl_cap, stream,
+        )
+    raise_for(lib, rc, f"shard RHS kernel ({mode})")
+    launches += 1
+    if mode != "rhs":
+        scratch.bufs["xs2"], scratch.bufs["xl2"] = xs, xl
+    return outs
+
+
+def _flag(dv, sat):
+    """(dv | 1 - sat), the buffer the clause group all-reduces."""
+    return torch.cat([dv, (~sat).to(dv.dtype).unsqueeze(1)], dim=1)
+
+
+def shard_stream_plain_tiled(mode: str, spec: ShardSpec, v, xs, xl, dt=None, adv=None,
+                             dxs1=None, dxl1=None) -> tuple:
+    """:func:`shard_stream_cuda`'s outputs from the plain versions: the
+    tiled buffers untiled with their padding rows, run, tiled again (new
+    tensors)."""
+    R, rows = v.shape[-1], rows_of(v)
+
+    def u(t):
+        return None if t is None else untile(t, rows)
+
+    if mode == "rhs":
+        dv, dxs, dxl, sat = shard_rhs_plain(u(v), u(xs), u(xl), spec)
+        out = (_flag(dv, sat), dxs, dxl)
+    elif mode == "fixed":
+        dv, xs2, xl2, sat = shard_fixed_plain(u(v), u(dt), u(xs), u(xl), spec)
+        out = (_flag(dv, sat), xs2, xl2)
+    elif mode == "second":
+        out = shard_second_plain(u(v), u(dt), u(adv), u(xs), u(xl), u(dxs1), u(dxl1), spec)
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    return tuple(tile(t, R) for t in out)
+
+
+def shard_stream_tiled(mode: str, spec: ShardSpec, v, xs, xl, dt=None, adv=None, dxs1=None,
+                       dxl1=None, scratch: Optional[ShardScratch] = None) -> tuple:
+    """One pass in ``mode`` on tiled buffers: B5 for CUDA buffers, its
+    plain version for CPU buffers; anything else raises."""
+    kind = v.device.type
+    if kind == "cuda":
+        return shard_stream_cuda(mode, spec, v, xs, xl, dt, adv, dxs1, dxl1, scratch)
+    if kind == "cpu":
+        return shard_stream_plain_tiled(mode, spec, v, xs, xl, dt, adv, dxs1, dxl1)
+    raise ValueError(f"no shard RHS path for tensors on {v.device}")
+
+
+_FILL = dict(xs=0.5, xl=1.0, adv=False)  # padding rows: xs inside [eps, 1 - eps], no NaN or inf
+
+
+def _rows_through_tiles(mode: str, spec: ShardSpec, **given) -> tuple:
+    """B5 on row-major CUDA tensors: tiled copies, one launch, the outputs
+    untiled, as the plain version of ``mode`` returns them."""
     B = _check(spec, **{k: t for k, t in given.items() if t is not None})
-    dv = torch.empty_like(v)
-    red = torch.empty(B, dtype=torch.float32, device=spec.device)
-    dxs = dxl = None
-    if mode == "rhs":
-        dxs, dxl = torch.empty_like(xs), torch.empty_like(xl)
-    if B:
-        layout = shard_layout(spec.Np, spec.Mp, mode == "second")
-        scratch = torch.empty((B * layout.row_words) or 1, dtype=torch.float32,
-                              device=spec.device)
-        adv_u8 = adv.to(torch.uint8) if adv is not None else None
-        lib, _ = load_library()
-
-        def ptr(t):
-            return t.data_ptr() if t is not None else None
-
-        with torch.cuda.device(spec.device):
-            stream = torch.cuda.current_stream(spec.device).cuda_stream
-            rc = lib.shard_stream_launch(
-                _MODES[mode], v.data_ptr(), ptr(dt), ptr(adv_u8), xs.data_ptr(), xl.data_ptr(),
-                ptr(dxs1), ptr(dxl1), dv.data_ptr(), ptr(dxs), ptr(dxl), red.data_ptr(),
-                spec.lit_code.data_ptr(), spec.occ_ptr.data_ptr(), spec.occ_code.data_ptr(),
-                scratch.data_ptr(), place_arg(layout), layout.row_words, layout.smem_bytes,
-                B, spec.Np, spec.Mp, spec.K, int(spec.paper), int(spec.bf16),
-                kernel_threads(spec.Mp), spec.zeta, spec.xl_cap, stream,
-            )
-        raise_for(lib, rc, f"shard RHS kernel ({mode})")
-        launches += 1
-    if mode == "rhs":
-        return dv, dxs, dxl, red > 0.5
-    if mode == "fixed":
-        return dv, xs, xl, red > 0.5
-    return dv, xs, xl, red
+    tiled = {k: None if t is None else tile(t, fill=_FILL.get(k, 0)) for k, t in given.items()}
+    out = shard_stream_cuda(mode, spec, **tiled)
+    if mode == "second":
+        return tuple(untile(t, B) for t in out)
+    acc, Np = out[0], spec.Np
+    return (untile(acc[:, :Np], B), untile(out[1], B), untile(out[2], B),
+            untile(acc[:, Np], B) == 0)
 
 
 def _route(v):
@@ -401,24 +511,25 @@ def _route(v):
 
 
 def shard_rhs(v, xs, xl, spec: ShardSpec):
-    """``rhs`` mode through B5 (CUDA tensors) or its plain version (CPU)."""
+    """``rhs`` mode on rows as they are: B5 (CUDA tensors, through tiled
+    copies) or its plain version (CPU)."""
     if _route(v):
-        return shard_stream_cuda("rhs", spec, v, xs, xl)
+        return _rows_through_tiles("rhs", spec, v=v, xs=xs, xl=xl)
     return shard_rhs_plain(v, xs, xl, spec)
 
 
 def shard_fixed(v, dt, xs, xl, spec: ShardSpec):
-    """``fixed`` mode; on CUDA xs and xl are updated in place."""
+    """``fixed`` mode on rows as they are; returns new xs, xl."""
     if _route(v):
-        return shard_stream_cuda("fixed", spec, v, xs, xl, dt=dt)
+        return _rows_through_tiles("fixed", spec, v=v, dt=dt, xs=xs, xl=xl)
     return shard_fixed_plain(v, dt, xs, xl, spec)
 
 
 def shard_second(hv, dt, adv, xs, xl, dxs1, dxl1, spec: ShardSpec):
-    """``second`` mode; on CUDA xs and xl are updated in place."""
+    """``second`` mode on rows as they are; returns new xs, xl."""
     if _route(hv):
-        return shard_stream_cuda("second", spec, hv, xs, xl, dt=dt, adv=adv, dxs1=dxs1,
-                                 dxl1=dxl1)
+        return _rows_through_tiles("second", spec, v=hv, dt=dt, adv=adv, xs=xs, xl=xl,
+                                   dxs1=dxs1, dxl1=dxl1)
     return shard_second_plain(hv, dt, adv, xs, xl, dxs1, dxl1, spec)
 
 
@@ -438,16 +549,35 @@ def make_stream_shard_rhs(fa: FormulaArrays, zeta: float, ode, device, shard: in
     return rhs
 
 
+def tile_state(state):
+    """Tiled copies of an ODE state's fields for B5's runner (``ops/tiles.
+    py``): the last tile's padding rows are done, with dt 0, xs 0.5 and xl
+    1, so that no NaN or inf enters a max or a sum; untiling drops them."""
+    return type(state)(tile(state.v), tile(state.xs, fill=_FILL["xs"]),
+                       tile(state.xl, fill=_FILL["xl"]), tile(state.dt),
+                       tile(state.done, fill=True))
+
+
+def untile_state(state, B: int):
+    return type(state)(*(untile(t, B) for t in state))
+
+
 def make_fused_clause_step(fa: FormulaArrays, zeta: float, ode, clause_group=None,
                            device="cuda"):
     """``step(state, dev=None) -> state`` for this rank's trajectory rows and
     clause segment (JAX :744-854): B5 evaluates the segment, the partial dv
-    (with the negated sat flag packed beside it) is all-reduced over
+    with the negated sat flag beside it is all-reduced over
     ``clause_group`` (SUM), and the v update, dt control and done latch run
     in torch. The adaptive error is all-reduced with MAX. Fixed mode is one
     launch a step, adaptive two with the all-reduce between them. The shard
-    is the rank's index in ``clause_group`` (0 without a group). On CUDA the
-    step writes the state's xs and xl in place."""
+    is the rank's index in ``clause_group`` (0 without a group).
+
+    The work runs on tiled state: ``step.tiled(ts, scratch=None) -> ts``
+    advances a state of tiled tensors (:func:`tile_state`) one step, with
+    dt as (G, 1, R) against the (G, X, R) rows and the error's max over the
+    row axis, writing into ``scratch`` (:class:`ShardScratch`, CUDA only);
+    ``step`` itself tiles, steps and untiles, and writes nothing of the
+    caller's state. :func:`make_clause_chunk` tiles once a chunk."""
     from odesat_tpu_torch.models.ode import ODEState
     from odesat_tpu_torch.parallel.dist import all_reduce
 
@@ -472,71 +602,77 @@ def make_fused_clause_step(fa: FormulaArrays, zeta: float, ode, clause_group=Non
             raise ValueError(f"the plan has {plan.n_shards} shards but the clause group "
                              f"{dist.get_world_size(clause_group)} ranks")
     spec = shard_spec(fa, zeta, ode, device, shard)
+    Np = spec.Np
+    # the step's constants on the device once: a scalar tensor made from the
+    # host every step would copy it there and wait for the card each time
+    c = {name: torch.tensor(float(x), dtype=torch.float32, device=spec.device) for name, x in
+         dict(lo=-1.0, hi=1.0, dt=ode.step_size or 0.0, tol=ode.tolerance, dt_min=DT_MIN,
+              dt_max=DT_MAX).items()}
 
-    def reduce_dv_sat(dv, sat):
-        if clause_group is None:
-            return dv, sat
-        buf = all_reduce(torch.cat([dv, (~sat).to(dv.dtype).unsqueeze(1)], dim=1),
-                         clause_group)
-        return buf[:, :-1], buf[:, -1] == 0
+    def reduce(t, op="sum"):
+        if clause_group is not None:
+            all_reduce(t, clause_group, op)
 
-    def clamp_v(x):
-        return _clamp(x, -1.0, 1.0)
+    def clamp_v(x):  # _clamp's operations
+        return torch.fmin(torch.fmax(x, c["lo"]), c["hi"])
 
     if ode.step_size is not None:
-        dt_fixed = float(ode.step_size)
 
-        def step(state, dev=None):
-            dt_eff = torch.where(state.done, 0.0, state.v.new_tensor(dt_fixed))
-            dv, xs2, xl2, sat = shard_fixed(state.v, dt_eff, state.xs, state.xl, spec)
-            dv, allsat = reduce_dv_sat(dv, sat)
-            v2 = clamp_v(state.v + dt_eff.unsqueeze(1) * dv)
-            return ODEState(v2, xs2, xl2, state.dt, state.done | allsat)
+        def tiled(ts, scratch=None):
+            dt_eff = torch.where(ts.done, 0.0, c["dt"])
+            acc, xs, xl = shard_stream_tiled("fixed", spec, ts.v, ts.xs, ts.xl, dt=dt_eff,
+                                             scratch=scratch)
+            reduce(acc)
+            v = clamp_v(ts.v + dt_eff.unsqueeze(1) * acc[:, :Np])
+            return ODEState(v, xs, xl, ts.dt, ts.done | (acc[:, Np] == 0))
+    else:
 
-        step.spec = spec
-        return step
-
-    tol = float(ode.tolerance)
+        def tiled(ts, scratch=None):
+            acc, dxs1, dxl1 = shard_stream_tiled("rhs", spec, ts.v, ts.xs, ts.xl,
+                                                 scratch=scratch)
+            reduce(acc)
+            dv1, allsat = acc[:, :Np], acc[:, Np] == 0
+            advance = ~ts.done & ~allsat  # src/system.rs:122
+            dt = ts.dt
+            dt_c = dt.unsqueeze(1)
+            half = 0.5 * dt_c
+            fv = clamp_v(ts.v + dt_c * dv1)
+            hv = clamp_v(ts.v + half * dv1)
+            dv2, xs, xl, err_sl = shard_stream_tiled("second", spec, hv, ts.xs, ts.xl, dt=dt,
+                                                     adv=advance, dxs1=dxs1, dxl1=dxl1,
+                                                     scratch=scratch)
+            reduce(dv2)
+            tv = clamp_v(hv + half * dv2)
+            err = torch.maximum(err_sl, (fv - tv).abs().amax(dim=1))
+            reduce(err, "max")
+            # err == 0 -> dt hits the ceiling (src/system.rs:132-135); a tensor
+            # numerator, since `float / tensor` rounds twice in torch
+            ratio = c["tol"] / err.clamp_min(1e-30)
+            new_dt = torch.fmin(torch.fmax(dt * torch.sqrt(ratio), c["dt_min"]), c["dt_max"])
+            v = torch.where(advance.unsqueeze(1), tv, ts.v)
+            return ODEState(v, xs, xl, torch.where(advance, new_dt, dt), ts.done | allsat)
 
     def step(state, dev=None):
-        dv1, dxs1, dxl1, sat = shard_rhs(state.v, state.xs, state.xl, spec)
-        dv1, allsat = reduce_dv_sat(dv1, sat)
-        advance = ~state.done & ~allsat  # src/system.rs:122
-        dt = state.dt
-        dt_c = dt.unsqueeze(1)
-        half = 0.5 * dt_c
-        fv = clamp_v(state.v + dt_c * dv1)
-        hv = clamp_v(state.v + half * dv1)
-        dv2, xs_fin, xl_fin, err_sl = shard_second(hv, dt, advance, state.xs, state.xl,
-                                                   dxs1, dxl1, spec)
-        if clause_group is not None:
-            dv2 = all_reduce(dv2, clause_group)
-        tv = clamp_v(hv + half * dv2)
-        err = torch.maximum(err_sl, (fv - tv).abs().amax(dim=1))
-        if clause_group is not None:
-            err = all_reduce(err, clause_group, op="max")
-        # err == 0 -> dt hits the ceiling (src/system.rs:132-135); a tensor
-        # numerator, since `float / tensor` rounds twice in torch
-        ratio = err.new_tensor(tol) / err.clamp_min(1e-30)
-        new_dt = _clamp(dt * torch.sqrt(ratio), DT_MIN, DT_MAX)
-        v_fin = torch.where(advance.unsqueeze(1), tv, state.v)
-        dt_fin = torch.where(advance, new_dt, dt)
-        return ODEState(v_fin, xs_fin, xl_fin, dt_fin, state.done | allsat)
+        return untile_state(tiled(tile_state(state)), state.v.shape[0])
 
+    step.tiled = tiled
     step.spec = spec
     return step
 
 
 def make_clause_chunk(step, chunk_steps: int):
     """``run(state, dev=None) -> state``: ``chunk_steps`` calls of a clause
-    step. xs and xl are copied once at the start, so the in-place updates
-    of the kernel never reach the caller's state."""
+    step's ``tiled`` on the state tiled once at entry and untiled once at
+    exit, with the launches' buffers allocated once (:class:`ShardScratch`,
+    on CUDA). The tiling copies, so the caller's state is never written."""
 
     def run(state, dev=None):
-        state = state._replace(xs=state.xs.clone(), xl=state.xl.clone())
+        B = state.v.shape[0]
+        ts = tile_state(state)
+        scratch = ShardScratch(step.spec, ts.v.shape[0]) if ts.v.device.type == "cuda" else None
         for _ in range(chunk_steps):
-            state = step(state, dev)
-        return state
+            ts = step.tiled(ts, scratch)
+        return untile_state(ts, B)
 
     run.step = step
     return run

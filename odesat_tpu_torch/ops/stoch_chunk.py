@@ -249,22 +249,40 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     return ((((hi * c) & _MASK) << 16) + lo * c) & _MASK
 
 
-def uniform01(seed: int, chains: torch.Tensor, Bb: int, step: int, Np: int) -> torch.Tensor:
-    """The counter-hash uniforms (B, Np) f32 in [0, 1) of ``_make_uniform01``
-    for chains ``chains`` (int64 global indices) at launch-local ``step``."""
+def _hash_uniform(seed: int, chains: torch.Tensor, cols: torch.Tensor, Bb: int,
+                  step: int) -> torch.Tensor:
+    """The counter-hash uniforms of chains ``chains`` and variable columns
+    ``cols`` (int64 tensors that broadcast together) at launch-local
+    ``step``, f32 in [0, 1), in their broadcast shape."""
     blk = chains // Bb
     r = chains % Bb
-    c = torch.arange(Np, device=chains.device, dtype=torch.int64)
     block_seed = (int(seed) + _mul32(blk, 0x632BE59B)) & _MASK
     base = (block_seed + _mul32(torch.full_like(blk, int(step)), 0xC2B2AE3D)) & _MASK
-    x = _mul32(r, 0x9E3779B1).unsqueeze(1) ^ _mul32(c, 0x85EBCA77).unsqueeze(0)
-    x = x ^ base.unsqueeze(1)
+    # the per-chain terms meet first, so one pass at the full shape joins the columns
+    x = (_mul32(r, 0x9E3779B1) ^ base) ^ _mul32(cols, 0x85EBCA77)
     x = x ^ (x >> 16)
     x = _mul32(x, 0x7FEB352D)
     x = x ^ (x >> 15)
     x = _mul32(x, 0x846CA68B)
     x = x ^ (x >> 16)
     return (x >> 8).to(torch.float32) * (1.0 / 16777216.0)
+
+
+def uniform01(seed: int, chains: torch.Tensor, Bb: int, step: int, Np: int) -> torch.Tensor:
+    """The counter-hash uniforms (B, Np) f32 in [0, 1) of ``_make_uniform01``
+    for chains ``chains`` (int64 global indices) at launch-local ``step``."""
+    cols = torch.arange(Np, device=chains.device, dtype=torch.int64)
+    return _hash_uniform(seed, chains.unsqueeze(1), cols.unsqueeze(0), Bb, step)
+
+
+def uniform01_tiled(seed: int, G: int, Bb: int, step: int, Np: int, device) -> torch.Tensor:
+    """:func:`uniform01` of chains ``0 .. G*TILE-1`` drawn in tile order,
+    ``(G, Np, TILE)``: the chain ids shaped ``(G, 1, TILE)``, the columns
+    ``(1, Np, 1)``. Equal to ``tile(uniform01(...))`` on the real chains;
+    a ragged last tile's padding lanes draw as the chains of their index."""
+    chains = torch.arange(G * TILE, device=device, dtype=torch.int64).view(G, 1, TILE)
+    cols = torch.arange(Np, device=device, dtype=torch.int64).view(1, Np, 1)
+    return _hash_uniform(seed, chains, cols, Bb, step)
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -356,7 +374,7 @@ def _declare(lib) -> None:
     lib.stoch_fused_smem_bytes.restype = ctypes.c_size_t
     lib.stoch_stream_smem_bytes.argtypes = [_I] * 3
     lib.stoch_stream_smem_bytes.restype = ctypes.c_size_t
-    lib.stoch_shard_eval_launch.argtypes = [_P] * 11 + [_I] * 8 + [_P]
+    lib.stoch_shard_eval_launch.argtypes = [_P] * 8 + [_I] * 7 + [_P]
     lib.stoch_shard_eval_launch.restype = _I
     lib.stoch_shard_step_launch.argtypes = (
         [_P] * 8 + [_I] * 7 + [ctypes.c_uint] + [_I] * 4 + [_P]
@@ -459,16 +477,21 @@ def stoch_stream_cuda(state, spec: StochChunkSpec, chunk_steps: int, seed: int, 
 # ------------------------------------------ one clause shard's evaluation (B8)
 #
 # B8 replaces ``odesat_tpu/ops/stoch_pallas.py::make_stoch_shard_eval``
-# (Pallas; call :814): on a clause mesh each rank evaluates one step over
-# its own clause segment; the caller all-reduces the (total, unsat) partial
-# sums and the sat flag over the clause group and draws the flips in torch
-# (parallel/sharded.py). The TPU kernel reused the ODE shard plan's
-# sign-baked planes for matmul gathers and scatters; here one CTA per chain
-# runs B4's clause and variable phases over the shard's tables (the shard
-# plan's literal codes and local CSR, ops/shard_stream.py), with the chain's
-# v and the shard's xl in shared memory while they fit. What bounds it on
-# the card: device-memory bytes, since xl (B, Mp_local) is read and written
-# and two (B, Np) partials are written every step; the tables stay in L2.
+# (Pallas; call :814): on a clause mesh with ``--shard-chunk off`` each rank
+# evaluates one step over its own clause segment; the caller all-reduces
+# the (total, unsat) partial sums and the sat flag over the clause group and
+# draws the flips in torch (parallel/sharded.py). The TPU kernel reused the
+# ODE shard plan's sign-baked planes for matmul gathers and scatters; here a
+# launch is B9's evaluation (below) without its flip prologue, over the
+# chains tiled by ``TILE`` = 32 (``ops/tiles.py``): a tile's chains on the
+# lanes of a warp, each table word (the shard plan's literal codes and local
+# CSR, ops/shard_stream.py) read once for 32 chains, each gather a whole
+# line, nothing of a chain in shared memory, the partials into one tiled
+# (total | unsat | 1 - sat) buffer that the caller all-reduces as it is.
+# What bounds it on the card: device-memory bytes (xl read and written, v
+# read, the (B, 2*Np+1) partials written every step) and the gathers of the
+# weights through L2. Its runner (parallel/sharded.make_clause_stoch_runner)
+# keeps the chains tiled for a chunk.
 
 shard_launches = 0  # B8 launches, as fused_launches counts B3's
 
@@ -494,18 +517,18 @@ def stoch_shard_spec(fa: FormulaArrays, device, shard: int = 0) -> StochSpec:
     return StochSpec(device, put(lit_code), put(occ_ptr), put(occ_clause), t.K, t.Mp, t.Np)
 
 
-def kernel_threads(Mp: int) -> int:
-    """Threads per CTA of B8, one CTA a chain: about two clauses a thread, a
-    whole number of warps (the block reduction needs full warps), 64 to
-    256."""
-    return min(256, max(64, 32 * -(-Mp // 64)))
-
-
-def stoch_shard_smem_bytes(spec: StochSpec) -> tuple:
-    """``(bytes, xl resident)``: B8 keeps the shard's xl (int32) in shared
-    memory when it fits beside v (bytes), else in a scratch row a chain."""
-    full = 4 * spec.Mp + spec.Np
-    return (full, True) if full <= SMEM_LIMIT_BYTES else (spec.Np, False)
+def _check_tiled(spec: StochSpec, G: int, R: int, **tensors) -> None:
+    """Raise ValueError unless every tiled buffer of B8 or B9 is on the
+    spec's device, contiguous and of its shape and dtype."""
+    want = dict(v=((G, spec.Np, R), torch.bool), xl=((G, spec.Mp, R), torch.int32),
+                done=((G, R), torch.bool), acc=((G, 2 * spec.Np + 1, R), torch.float32),
+                w=((G, spec.Mp, R), torch.int32))
+    for name, x in tensors.items():
+        shape, dtype = want[name]
+        if (x.device != spec.device or tuple(x.shape) != shape or x.dtype != dtype
+                or not x.is_contiguous()):
+            raise ValueError(f"{name} is {tuple(x.shape)} {x.dtype} on {x.device}; the kernel "
+                             f"takes a contiguous {shape} {dtype} on {spec.device}")
 
 
 def stoch_shard_eval_plain(v, xl, active, spec: StochSpec, bf16: bool):
@@ -528,45 +551,67 @@ def stoch_shard_eval_plain(v, xl, active, spec: StochSpec, bf16: bool):
     return total, unsat, torch.where(active.unsqueeze(1), xl_new, xl), allsat
 
 
-def stoch_shard_eval_cuda(v, xl, active, spec: StochSpec, bf16: bool):
-    """Launch B8 once on the current stream; returns what the plain version
-    returns. Raises if an input is not what it takes or the launch is
-    refused; never falls back."""
+def _partials(total, unsat, sat):
+    """(total | unsat | 1 - sat), the buffer the clause group all-reduces."""
+    return torch.cat([total, unsat, (~sat).to(total.dtype).unsqueeze(1)], dim=1)
+
+
+def stoch_shard_eval_plain_tiled(v, xl, done, spec: StochSpec, bf16: bool):
+    """:func:`stoch_shard_eval_plain` on tiled chains (a done chain is not
+    active), as the kernel returns it: ``(xl, acc)`` tiled, acc = (total |
+    unsat | 1 - sat). Untiled with the padding lanes, run, tiled again."""
+    R, rows = v.shape[-1], rows_of(v)
+    total, unsat, xl, sat = stoch_shard_eval_plain(untile(v, rows), untile(xl, rows),
+                                                   ~untile(done, rows), spec, bf16)
+    return tile(xl, R), tile(_partials(total, unsat, sat), R)
+
+
+def stoch_shard_eval_cuda(v, xl, done, spec: StochSpec, bf16: bool, acc=None, w=None):
+    """Launch B8 once on the current stream, on tiled chains (``TILE`` a
+    tile): v (G, Np, R) bool, xl (G, Mp, R) int32 (updated in place where
+    the chain is not done), done (G, R) bool; writes acc (G, 2*Np+1, R) f32
+    = (total | unsat | 1 - sat) and returns ``(xl, acc)``. ``acc`` and the
+    (G, Mp, R) int32 weight scratch ``w`` are allocated here when None.
+    Raises if an input is not what it takes or the launch is refused; never
+    falls back."""
     global shard_launches
     if spec.device.type != "cuda":
         raise ValueError(f"the stoch shard kernel runs on CUDA tensors, not {spec.device}")
-    _check(SimpleNamespace(v=v, xl=xl, done=active), spec)  # active checks as done does
-    B = v.shape[0]
-    tot = torch.empty((B, spec.Np), dtype=torch.float32, device=spec.device)
-    uns = torch.empty_like(tot)
-    xl_out = torch.empty_like(xl)
-    sat = torch.empty(B, dtype=torch.bool, device=spec.device)
-    if B == 0:
-        return tot, uns, xl_out, sat
-    smem, resident = stoch_shard_smem_bytes(spec)
-    scratch = torch.empty(1 if resident else B * spec.Mp, dtype=torch.int32, device=spec.device)
+    G, R = v.shape[0], v.shape[-1]
+    if R != TILE:
+        raise ValueError(f"tiles of {R} chains; the kernel takes {TILE}")
+    if acc is None:
+        acc = torch.empty((G, 2 * spec.Np + 1, R), dtype=torch.float32, device=spec.device)
+    if w is None:
+        w = torch.empty((G, spec.Mp, R), dtype=torch.int32, device=spec.device)
+    _check_tiled(spec, G, R, v=v, xl=xl, done=done, acc=acc, w=w)
+    if G == 0:
+        return xl, acc
     lib, _ = load_library()
     with torch.cuda.device(spec.device):
         stream = torch.cuda.current_stream(spec.device).cuda_stream
         rc = lib.stoch_shard_eval_launch(
-            v.data_ptr(), active.data_ptr(), xl.data_ptr(), tot.data_ptr(), uns.data_ptr(),
-            xl_out.data_ptr(), sat.data_ptr(), spec.lit_code.data_ptr(), spec.occ_ptr.data_ptr(),
-            spec.occ_clause.data_ptr(), scratch.data_ptr(), B, spec.Np, spec.Mp, spec.K,
-            spec.occ_clause.numel(), int(resident), int(bf16), kernel_threads(spec.Mp), stream,
+            v.data_ptr(), xl.data_ptr(), done.data_ptr(), acc.data_ptr(), w.data_ptr(),
+            spec.lit_code.data_ptr(), spec.occ_ptr.data_ptr(), spec.occ_clause.data_ptr(),
+            G, R, spec.Np, spec.Mp, spec.K, spec.occ_clause.numel(), int(bf16), stream,
         )
     if rc != 0:
         raise RuntimeError("stoch_shard_eval_launch failed: "
                            + lib.stoch_chunk_error_string(rc).decode())
     shard_launches += 1
-    return tot, uns, xl_out, sat
+    return xl, acc
 
 
 def make_stoch_shard_eval(fa: FormulaArrays, device, shard: int = 0,
                           matmul_dtype: str = "float32"):
     """``eval(v, xl, active) -> (total, unsat, xl_new, sat)`` over shard
-    ``shard`` of ``fa.shard_plan`` (JAX :605): B8 for CUDA tensors, its
-    plain version for CPU tensors; anything else raises. v (B, Np) bool,
-    xl (B, Mp_local) int32, active (B,) bool."""
+    ``shard`` of ``fa.shard_plan`` (JAX :605), on rows as they are: for
+    CUDA tensors B8 on tiled copies, untiled again; for CPU tensors its
+    plain version; anything else raises. v (B, Np) bool, xl (B, Mp_local)
+    int32, active (B,) bool. ``eval.tiled(v, xl, done, acc=None, w=None) ->
+    (xl, acc)`` is the same on tiled chains (a done chain is not active),
+    what the runner calls: B8 (:func:`stoch_shard_eval_cuda`) for CUDA
+    buffers, :func:`stoch_shard_eval_plain_tiled` for CPU buffers."""
     if fa.shard_plan is None:
         raise ValueError("needs a compile_stream_sharded formula (shard plan)")
     spec = stoch_shard_spec(fa, device, shard)
@@ -574,13 +619,27 @@ def make_stoch_shard_eval(fa: FormulaArrays, device, shard: int = 0,
 
     def ev(v, xl, active):
         kind = v.device.type
-        if kind == "cuda":
-            return stoch_shard_eval_cuda(v, xl, active, spec, bf16)
         if kind == "cpu":
             return stoch_shard_eval_plain(v, xl, active, spec, bf16)
+        if kind != "cuda":
+            raise ValueError(f"no stoch shard path for tensors on {v.device}")
+        _check(SimpleNamespace(v=v, xl=xl, done=active), spec)  # active checks as done does
+        B, Np = v.shape[0], spec.Np
+        xl_t, acc = stoch_shard_eval_cuda(tile(v), tile(xl, fill=1),
+                                          tile(~active, fill=True), spec, bf16)
+        return (untile(acc[:, :Np], B), untile(acc[:, Np:2 * Np], B), untile(xl_t, B),
+                untile(acc[:, 2 * Np], B) == 0)
+
+    def tiled(v, xl, done, acc=None, w=None):
+        kind = v.device.type
+        if kind == "cuda":
+            return stoch_shard_eval_cuda(v, xl, done, spec, bf16, acc, w)
+        if kind == "cpu":
+            return stoch_shard_eval_plain_tiled(v, xl, done, spec, bf16)
         raise ValueError(f"no stoch shard path for tensors on {v.device}")
 
     ev.spec = spec
+    ev.tiled = tiled
     return ev
 
 
@@ -610,9 +669,11 @@ shard_chunk_launches = 0  # B9 launches, as shard_launches counts B8's
 
 
 def stoch_shard_supported(fa: FormulaArrays) -> bool:
-    """B8's and B9's gate: a shard plan and a chain's v (bytes) in one CTA;
-    the shard's xl lives in shared memory or in a scratch row. Unit clauses
-    are fine."""
+    """B8's and B9's gate: a shard plan and a chain's v (bytes) within one
+    CTA's shared memory, the need of the one-CTA-a-chain design the gate
+    was written for, kept so that the same formulas take the kernels;
+    neither tiled kernel holds a chain in shared memory. Unit clauses are
+    fine."""
     return fa.shard_plan is not None and fa.n_vars_padded <= SMEM_LIMIT_BYTES
 
 
@@ -632,7 +693,7 @@ def stoch_shard_step_plain(v, xl, done, acc, spec: StochSpec, bf16: bool, seed: 
     if not evaluate:
         return v, xl, done, acc
     total, unsat, xl, sat = stoch_shard_eval_plain(v, xl, ~done, spec, bf16)
-    return v, xl, done, torch.cat([total, unsat, (~sat).to(total.dtype).unsqueeze(1)], dim=1)
+    return v, xl, done, _partials(total, unsat, sat)
 
 
 def stoch_shard_step_plain_tiled(v, xl, done, acc, spec: StochSpec, bf16: bool, seed: int,
@@ -663,15 +724,7 @@ def stoch_shard_step_cuda(v, xl, done, acc, spec: StochSpec, bf16: bool, seed: i
         raise ValueError(f"tiles of {R} chains; the kernel takes {TILE}")
     if w is None:
         w = torch.empty((G, spec.Mp, R), dtype=torch.int32, device=spec.device)
-    want = dict(v=((G, spec.Np, R), torch.bool), xl=((G, spec.Mp, R), torch.int32),
-                done=((G, R), torch.bool), acc=((G, 2 * spec.Np + 1, R), torch.float32),
-                w=((G, spec.Mp, R), torch.int32))
-    for name, x in dict(v=v, xl=xl, done=done, acc=acc, w=w).items():
-        shape, dtype = want[name]
-        if (x.device != spec.device or tuple(x.shape) != shape or x.dtype != dtype
-                or not x.is_contiguous()):
-            raise ValueError(f"{name} is {tuple(x.shape)} {x.dtype} on {x.device}; the kernel "
-                             f"takes a contiguous {shape} {dtype} on {spec.device}")
+    _check_tiled(spec, G, R, v=v, xl=xl, done=done, acc=acc, w=w)
     if G == 0:
         return v, xl, done, acc
     lib, _ = load_library()

@@ -76,9 +76,8 @@ launches = 0
 # B2 computes what B1 computes: its plain version is B1's, under its own name.
 stream_chunk_plain = fused_chunk_plain
 
-# The placement of B10 (ops/rhs_kernel.py) and B5 (ops/shard_stream.py), one
-# CTA a trajectory: their arrays in shared memory while they fit, the rest
-# in a scratch row a trajectory.
+# The placement of B10 (ops/rhs_kernel.py), one CTA a trajectory: its arrays
+# in shared memory while they fit, the rest in a scratch row a trajectory.
 RED_WORDS = 32  # reduction scratch at the start of shared memory (csrc kRed)
 # the kernels' `enum Item`, in order
 ITEMS = ("v", "hv", "fv", "m1", "m2", "xs", "xl", "hxs", "hxl", "fxs", "fxl")
@@ -162,13 +161,14 @@ def slot_positions(t: ChunkTables) -> np.ndarray:
 
 def occurrence_codes(t: ChunkTables) -> np.ndarray:
     """``2*m + negated`` for each occurrence of ``t``'s CSR lists, in their
-    order: the clause column and sign B5's and B10's variable phase needs."""
+    order: the clause column and sign that B5's and B6's pass and B10's variable
+    phase read."""
     slots = t.occ_slot.astype(np.int64)
     return (2 * (slots % t.Mp) + (t.lit_code[slots] & 1)).astype(np.int32)
 
 
 def kernel_threads(Mp: int) -> int:
-    """Threads per CTA of B5 and B10: about two clauses a thread, whole
+    """Threads per CTA of B10: about two clauses a thread, whole
     warps, 64 to ``MAX_THREADS``."""
     return min(MAX_THREADS, max(64, 32 * -(-Mp // 64)))
 
@@ -229,7 +229,7 @@ def _declare(lib) -> None:
     )
     lib.rhs_launch.restype = _I
     lib.shard_stream_launch.argtypes = (  # B5 (ops/shard_stream.py)
-        [_I] + [_P] * 15 + [ctypes.POINTER(_LL), _LL] + [_I] * 8 + [_F] * 2 + [_P]
+        [_I] + [_P] * 12 + [_I] + [_P] * 3 + [_I] * 7 + [_F] * 2 + [_P]
     )
     lib.shard_stream_launch.restype = _I
     lib.shard_chunk_launch.argtypes = (  # B6 (ops/shard_chunk.py)

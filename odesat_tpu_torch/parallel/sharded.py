@@ -275,7 +275,11 @@ def make_clause_stoch_runner(fa: FormulaArrays, chunk_steps: int, device, genera
     flip alike. Runnable at S=1 without a group."""
     import torch.distributed as dist
 
-    from odesat_tpu_torch.models.stoch import make_stoch_clause_eval, make_stoch_clause_step
+    from odesat_tpu_torch.models.stoch import (
+        StochState,
+        make_stoch_clause_eval,
+        make_stoch_clause_step,
+    )
     from odesat_tpu_torch.ops.shard_chunk import resolve_shard_chunk
     from odesat_tpu_torch.ops.stoch_chunk import (
         make_stoch_shard_chunk,
@@ -283,7 +287,9 @@ def make_clause_stoch_runner(fa: FormulaArrays, chunk_steps: int, device, genera
         stoch_shard_supported,
         traj_block,
         uniform01,
+        uniform01_tiled,
     )
+    from odesat_tpu_torch.ops.tiles import TILE, tile, untile
 
     shard = 0 if clause_group is None else dist.get_rank(clause_group)
     eligible = stoch_shard_supported(fa)
@@ -300,25 +306,43 @@ def make_clause_stoch_runner(fa: FormulaArrays, chunk_steps: int, device, genera
             return chunk(state, int(torch.randint(0, 2**31 - 1, (1,), generator=generator)))
 
         return run_chunk
-    if eligible:
-        ev = make_stoch_shard_eval(fa, device, shard, matmul_dtype)
-        logger.info("stoch clause path -> stoch_shard_eval (B8) on %s", device)
-    else:
+    Np = fa.n_vars_padded
+    if not eligible:
         n = 1 if clause_group is None else dist.get_world_size(clause_group)
-        ev = make_stoch_clause_eval(fa, device, shard, n)
+        step = make_stoch_clause_step(make_stoch_clause_eval(fa, device, shard, n).packed,
+                                      clause_group)
         logger.info("stoch clause path -> twin clause evaluation on %s", device)
         _twin_on_card(device, "the stoch formula has no clause-shard plan")
-    step = make_stoch_clause_step(ev, clause_group)
-    Np = fa.n_vars_padded
+
+        def run_twin(state):
+            seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
+            B = state.v.shape[0]
+            chains = torch.arange(B, device=state.v.device, dtype=torch.int64)
+            for t in range(chunk_steps):
+                state = step(state, uniform01(seed, chains, traj_block(B), t, Np))
+            return state
+
+        return run_twin
+    ev = make_stoch_shard_eval(fa, device, shard, matmul_dtype)
+    logger.info("stoch clause path -> stoch_shard_eval (B8) on %s", device)
 
     def run(state):
+        # the chains tiled once a chunk: B8's launches, the all-reduce, the
+        # uniforms (drawn in tile order) and the flips all work on the tiles
         seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
         B = state.v.shape[0]
-        chains = torch.arange(B, device=state.v.device, dtype=torch.int64)
-        Bb = traj_block(B)
+        tiled = StochState(tile(state.v), tile(state.xl, fill=1), tile(state.done, fill=True))
+        G = tiled.v.shape[0]
+        acc = w = None
+        if tiled.v.device.type == "cuda":  # B8's buffers, allocated once a chunk
+            acc = torch.empty((G, 2 * Np + 1, TILE), dtype=torch.float32, device=tiled.v.device)
+            w = torch.empty_like(tiled.xl)
+        step = make_stoch_clause_step(lambda v, xl, done: ev.tiled(v, xl, done, acc, w),
+                                      clause_group)
         for t in range(chunk_steps):
-            state = step(state, uniform01(seed, chains, Bb, t, Np))
-        return state
+            u = uniform01_tiled(seed, G, traj_block(B), t, Np, tiled.v.device)
+            tiled = step(tiled, u)
+        return StochState(*(untile(x, B) for x in tiled))
 
     return run
 

@@ -474,19 +474,23 @@ def _sharded(n_shards, widths=(2, 3, 5), seed=0):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 7, 33, 37])
 @pytest.mark.parametrize("n_shards", [1, 2])
 @pytest.mark.parametrize("mode", ["rhs", "fixed", "second"])
 @pytest.mark.parametrize("rigidity", ["paper", "reference"])
 @pytest.mark.parametrize("matmul_dtype", ["float32", "bfloat16"])
-def test_shard_kernel_equals_plain(cuda, n_shards, mode, rigidity, matmul_dtype):
+def test_shard_kernel_equals_plain(cuda, B, n_shards, mode, rigidity, matmul_dtype):
     """B5 in each mode equals its plain version bit for bit on every shard,
-    the launch counter moves once a launch, and a repeat is identical."""
+    through the row-major wrapper (tile, launch, untile) and the tiled
+    entry at a ragged last tile, the launch counter moves once a launch,
+    and a repeat is identical."""
     from odesat_tpu_torch.ops import shard_stream as ss
+    from odesat_tpu_torch.ops.tiles import tile
 
     fa = _sharded(n_shards)
     ode = ODEConfig(step_size=0.02, rigidity=rigidity, matmul_dtype=matmul_dtype)
-    rng = np.random.default_rng(3)
-    B, ml = 37, fa.shard_plan.mp_local
+    rng = np.random.default_rng(3 + B)
+    ml = fa.shard_plan.mp_local
 
     def put(a, dtype=torch.float32):
         return torch.as_tensor(np.ascontiguousarray(a)).to(cuda, dtype)
@@ -494,25 +498,28 @@ def test_shard_kernel_equals_plain(cuda, n_shards, mode, rigidity, matmul_dtype)
     v = put(rng.uniform(-1, 1, (B, fa.n_vars_padded)))
     for s in range(n_shards):
         spec = ss.shard_spec(fa, 0.05, ode, cuda, s)
-        xs = put(rng.uniform(0.001, 0.999, (B, ml)))
-        xl = put(rng.uniform(1, 50, (B, ml)))
-        dt = put(rng.uniform(0, 0.05, B))
-        adv = put(rng.random(B) < 0.7, torch.bool)
-        dxs1, dxl1 = put(rng.uniform(-1, 1, (B, ml))), put(rng.uniform(-1, 1, (B, ml)))
-        if mode == "rhs":
-            args, plain = (v, xs, xl), ss.shard_rhs_plain
-        elif mode == "fixed":
-            args, plain = (v, dt, xs, xl), ss.shard_fixed_plain
-        else:
-            args, plain = (v, dt, adv, xs, xl, dxs1, dxl1), ss.shard_second_plain
-        ref = plain(*args, spec)
+        rows = dict(v=v, xs=put(rng.uniform(0.001, 0.999, (B, ml))),
+                    xl=put(rng.uniform(1, 50, (B, ml))), dt=put(rng.uniform(0, 0.05, B)),
+                    adv=put(rng.random(B) < 0.7, torch.bool),
+                    dxs1=put(rng.uniform(-1, 1, (B, ml))), dxl1=put(rng.uniform(-1, 1, (B, ml))))
+        keys = {"rhs": ("v", "xs", "xl"), "fixed": ("v", "dt", "xs", "xl"),
+                "second": ("v", "dt", "adv", "xs", "xl", "dxs1", "dxl1")}[mode]
+        plain = {"rhs": ss.shard_rhs_plain, "fixed": ss.shard_fixed_plain,
+                 "second": ss.shard_second_plain}[mode]
         launch = {"rhs": ss.shard_rhs, "fixed": ss.shard_fixed, "second": ss.shard_second}[mode]
+        ref = plain(*(rows[k] for k in keys), spec)
         before = ss.launches
-        outs = [launch(*(a.clone() for a in args), spec) for _ in range(2)]
+        outs = [launch(*(rows[k] for k in keys), spec) for _ in range(2)]
+        tiled = {k: tile(rows[k], fill=True if k == "adv" else 0.5) for k in keys}
+        t_ref = ss.shard_stream_plain_tiled(mode, spec, **tiled)
+        scratch = ss.ShardScratch(spec, tiled["v"].shape[0])
+        t_out = ss.shard_stream_cuda(mode, spec, **tiled, scratch=scratch)
         torch.cuda.synchronize()
-        assert ss.launches == before + 2
+        assert ss.launches == before + 3
         for a, b, c in zip(outs[0], outs[1], ref):
             assert torch.equal(a, c) and torch.equal(a, b)
+        for a, c in zip(t_out, t_ref):
+            assert torch.equal(a, c)
 
 
 @pytest.mark.cuda
@@ -534,26 +541,37 @@ def test_single_device_runner_goes_through_b5(cuda, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 7, 33, 300])
 @pytest.mark.parametrize("n_shards", [1, 2])
 @pytest.mark.parametrize("matmul_dtype", ["float32", "bfloat16"])
-def test_stoch_shard_kernel_equals_plain(cuda, n_shards, matmul_dtype):
+def test_stoch_shard_kernel_equals_plain(cuda, B, n_shards, matmul_dtype):
+    """B8 equals its plain version exactly on every shard (unit clauses
+    among them), through the row-major wrapper and the tiled entry at a
+    ragged last tile; a repeat is identical."""
     from odesat_tpu_torch.ops import stoch_chunk as sc
+    from odesat_tpu_torch.ops.tiles import tile
 
     fa = _sharded(n_shards, widths=(1, 2, 5))
-    rng = np.random.default_rng(5)
-    B, ml = 300, fa.shard_plan.mp_local
+    rng = np.random.default_rng(5 + B)
+    ml = fa.shard_plan.mp_local
     v = torch.as_tensor(rng.random((B, fa.n_vars_padded)) < 0.5, device=cuda)
     active = torch.as_tensor(rng.random(B) < 0.8, device=cuda)
     for s in range(n_shards):
         xl = torch.as_tensor(rng.integers(1, 3001, (B, ml)).astype(np.int32), device=cuda)
         ev = sc.make_stoch_shard_eval(fa, cuda, s, matmul_dtype)
+        bf16 = matmul_dtype == "bfloat16"
         before = sc.shard_launches
         outs = [ev(v, xl, active) for _ in range(2)]
-        ref = sc.stoch_shard_eval_plain(v, xl, active, ev.spec, matmul_dtype == "bfloat16")
+        ref = sc.stoch_shard_eval_plain(v, xl, active, ev.spec, bf16)
+        tiled = (tile(v), tile(xl, fill=1), tile(~active, fill=True))
+        t_ref = sc.stoch_shard_eval_plain_tiled(*tiled, ev.spec, bf16)
+        t_out = ev.tiled(*(t.clone() for t in tiled))
         torch.cuda.synchronize()
-        assert sc.shard_launches == before + 2
+        assert sc.shard_launches == before + 3
         for a, b, c in zip(outs[0], outs[1], ref):
             assert torch.equal(a, c) and torch.equal(a, b)
+        for a, c in zip(t_out, t_ref):
+            assert torch.equal(a, c)
 
 
 @pytest.mark.cuda
@@ -653,6 +671,60 @@ def test_shard_chunk_runner_equals_b5_runner(cuda, B, mode):
     ref = ss.make_single_device_runner(fa, 0.05, ode, 8, cuda)(state)
     for name, a, b in zip(state._fields, out, ref):
         assert torch.equal(a, b), name
+
+
+def _row_major_clause_loop(fa, ode, state, steps):
+    """The ``--shard-chunk off`` ODE step loop as it ran on rows, through
+    B5's row-major wrappers (S=1)."""
+    from odesat_tpu_torch.ops import shard_stream as ss
+    from odesat_tpu_torch.ops.fused_chunk import _clamp
+
+    spec = ss.shard_spec(fa, 0.05, ode, state.v.device)
+    v, xs, xl, dt, done = state
+
+    def clamp_v(x):
+        return _clamp(x, -1.0, 1.0)
+
+    for _ in range(steps):
+        if ode.step_size is not None:
+            dt_eff = torch.where(done, 0.0, v.new_tensor(float(ode.step_size)))
+            dv, xs, xl, sat = ss.shard_fixed(v, dt_eff, xs, xl, spec)
+            v, done = clamp_v(v + dt_eff.unsqueeze(1) * dv), done | sat
+            continue
+        dv1, dxs1, dxl1, sat = ss.shard_rhs(v, xs, xl, spec)
+        advance = ~done & ~sat
+        half = 0.5 * dt.unsqueeze(1)
+        fv = clamp_v(v + dt.unsqueeze(1) * dv1)
+        hv = clamp_v(v + half * dv1)
+        dv2, xs, xl, err_sl = ss.shard_second(hv, dt, advance, xs, xl, dxs1, dxl1, spec)
+        tv = clamp_v(hv + half * dv2)
+        err = torch.maximum(err_sl, (fv - tv).abs().amax(dim=1))
+        new_dt = _clamp(dt * torch.sqrt(err.new_tensor(float(ode.tolerance)) /
+                                        err.clamp_min(1e-30)), 2.0**-7, 1000.0)
+        v = torch.where(advance.unsqueeze(1), tv, v)
+        dt, done = torch.where(advance, new_dt, dt), done | sat
+    return type(state)(v, xs, xl, dt, done)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 33])
+@pytest.mark.parametrize("mode", ["fixed", "adaptive"])
+def test_tiled_b5_runner_equals_b6_chunk_and_the_row_major_loop(cuda, B, mode):
+    """B5's runner, tiled once a chunk, equals the B6 chunk and the
+    row-major step loop it replaced bit for bit, at a ragged last tile."""
+    from odesat_tpu_torch.ops import shard_chunk as sch
+    from odesat_tpu_torch.ops import shard_stream as ss
+
+    fa = _sharded(1, widths=(3,))
+    ode = ODEConfig(step_size=0.02 if mode == "fixed" else None)
+    state = _state(fa, B, 2, cuda)
+    state = state._replace(done=torch.arange(B, device=cuda) % 4 == 1)
+    out = ss.make_single_device_runner(fa, 0.05, ode, 8, cuda)(state)
+    b6 = sch.make_shard_chunk(fa, 0.05, ode, 8, None, cuda)(state)
+    ref = _row_major_clause_loop(fa, ode, state, 8)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(state._fields, out, b6, ref):
+        assert torch.equal(a, b) and torch.equal(a, c), name
 
 
 @pytest.mark.cuda

@@ -226,16 +226,6 @@ def test_gate_and_rejections():
         tss.shard_stream_cuda("rhs", rhs.spec, *(torch.zeros(1),) * 3)
 
 
-def test_layout_places_v_first_and_spills_clause_words():
-    lay = tss.shard_layout(10240, 43776, second=False)
-    assert lay.place[0] == 32  # v right after the reduction scratch
-    assert lay.place[3] == 32 + 10240  # m1 beside v at S=1 (config 7) ...
-    assert lay.row_words == 43776  # ... m2 in the scratch row
-    lay2 = tss.shard_layout(10240, 21888, second=False)
-    assert lay2.row_words == 0  # at S=2 they do
-    assert tss.shard_layout(70000, 128, second=True) is None  # v past one CTA
-
-
 def test_fused_clause_step_keeps_state_dataclass():
     fa, _ = tss.compile_stream_sharded(port_formula(_mixed_width_formula(seed=6)), 1)
     step = tss.make_fused_clause_step(fa, ZETA, ODEConfig(step_size=0.01), device="cpu")
