@@ -78,11 +78,23 @@ Phases, each printing its lines; the first failure exits non-zero:
     B=16384 (beside B1), beside the kernel it replaced at n1k fixed; then B2 alone
     per 256-step chunk, the length phase 13's launches run, at the n=1k
     and n=4096 instances;
-15. B10 vs the twin's gather RHS at hard.cnf B=16384, uf250 B=4096 and the
-    n=1k instance B=1024, f32 (rtol 2e-4 / atol 2e-5) and f64 (1e-12);
+15. B10 vs its plain version (the kernel-order RHS), exactly (max abs
+    error 0, allsat equal), at hard.cnf B=16384, uf250 B=4096 and the n=1k
+    instance B=1024 and at ragged B = 1, 7, 33, float32 and float64, both
+    rigidity gates, at every R from 1 to the most the wrapper's form takes
+    and in the streamed form forced into windows of 64 clauses; then the
+    wrapper's own launch (its R, threads and form printed) vs the twin's
+    gather RHS, f32 rtol 2e-4 / atol 2e-5, f64 1e-12;
 16. B10 main path: inter --dv-strategy pallas on hard.cnf at -b 4096 ends
-    false after exactly 1024 steps, on uf250 true;
-17. B10 timing: one RHS pass, B10 and the twin in turns, hard.cnf B=16384;
+    false after exactly 1024 steps, on uf250 true, and adaptive with
+    --dt-mode shared on uf250 true (two B10 launches a step); then the
+    split of a fixed step at hard.cnf B=4096: its wall, its device time and
+    B10's;
+17. B10 timing: one RHS pass, B10 and its plain version in turns, device
+    time with the launches queued, at hard.cnf B=16384 (f32 and f64),
+    uf250 B=4096 and n1k B=1024, beside the one-CTA-a-trajectory design's
+    time (ONE_CTA_MS, taken with --time-b10 on the tree before the tiles)
+    and the bound;
 18. B5 vs plain, exactly (max abs error 0): phase 3's formulas compiled
     with compile_stream_sharded at S=1 and S=2 (each shard on its own), the
     config 7 instance (run_benchmarks.py:289-313, n=10240) at S=2 (both
@@ -125,11 +137,17 @@ Phases, each printing its lines; the first failure exits non-zero:
     single-device runner (B5) and the B6 chunk in traj*steps/s; the stoch
     clause path through B8 and through B9 in chain*steps/s, with the
     counter-hash uniform draw's share of a B8-path step; and the gloo
-    all-reduce per step at S=2 (staged through the host).
+    all-reduce per step at S=2 (staged through the host), beside B7's
+    bound (the buffer down and back through pinned host memory) and its
+    plain version (the two ranks' buffers summed on the card).
+
+``python3 chip_smoke.py --time-b10 ROOT`` times B10 of the checkout at ROOT
+(a parent tree unpacked beside this one) as phase 17 times this one.
 
 The last two lines are the ``kernels`` JSON object (one row per kernel,
 with its bound: the larger of its bytes over 3.35 TB/s and its operations
-over 67 TFLOP/s) and then ``{"ok": true, "device": {...}}``. Without a
+over 67 TFLOP/s; B7's, the all-reduce, its bytes through the host link) and
+then ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or without the package beside this script, it exits non-zero
 and prints no result.
 """
@@ -153,7 +171,11 @@ EXACT = dict(rtol=0.0, atol=0.0)  # B1 and B2 compute exactly what their plain v
 ONE_CTA_MS = {"B1 hard.cnf fixed 256": 7.368186, "B2 n1k fixed 8": 19.397267,
               "B3 hard.cnf 64": 1.372734, "B4 n1k 8": 4.844923,
               "B5 config 7 fixed": 3.454327, "B5 config 7 second": 4.454574,
-              "B8 config 7": 2.935702}
+              "B8 config 7": 2.935702,
+              # B10 one CTA a trajectory, device time with the launches
+              # queued: this script's --time-b10 on the tree before the tiles
+              "B10 hard.cnf f32 16384": 0.055973, "B10 uf250 f32 4096": 0.086188,
+              "B10 hard.cnf f64 16384": 0.082365, "B10 n1k f32 1024": 0.490681}
 
 
 def fail(msg):
@@ -274,6 +296,36 @@ def compare(torch, out, ref, tol):
     if not torch.equal(out.done, ref.done):
         return None, f"done differs in {int((out.done != ref.done).sum())} rows"
     return worst, None
+
+
+def device_ms(torch, fn, iters=40, warmup=1):
+    """Device milliseconds a call of ``fn()``: CUDA events around ``iters``
+    calls that the host queues behind a sleep on the stream, so the card
+    runs them back to back however long a call's host work takes (events
+    around a plain loop time the enqueue where that outlasts the kernels).
+    The sleep is lengthened until the host has queued the last call before
+    the card reaches the first."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    cycles = int(4e9 * (time.perf_counter() - t0)) + 1_000_000  # twice the enqueue at 2 GHz
+    for _ in range(4):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        queued = not start.query()
+        stop.record()
+        stop.synchronize()
+        if queued:
+            return start.elapsed_time(stop) / iters
+        cycles *= 4
+    fail("device_ms: the card kept reaching the timed calls before the host had queued them")
 
 
 def ragged_ode_cases(cases):
@@ -1001,41 +1053,82 @@ def rhs_inputs(torch, fa, B, dtype, seed):
             put(rng.uniform(1.0, 50.0, (B, fa.n_clauses_padded))))
 
 
+def rhs_lane_tries(rk, spec, itemsize):
+    """The plans phase 15 holds B10 to: every R from 1 to the most that fit
+    in the form the wrapper takes, and the streamed form forced with a
+    window of 64 clauses (several windows a pass) at up to 4 lanes."""
+    best = rk.rhs_plan(spec.Np, spec.Mp, spec.nnz, itemsize)
+    lanes = rk.rhs_lane_range(spec.Np, spec.Mp, spec.nnz, itemsize, best.resident)
+    return best, [(R, best.resident, None) for R in lanes] + [(min(lanes[0], 4), False, 64)]
+
+
 def phase_rhs_compare(torch, rk, cases):
-    """B10 vs the twin's gather RHS (its plain version) to a tolerance: the
-    two sum in other orders. f32 rtol 2e-4 / atol 2e-5, f64 1e-12."""
+    """B10 vs its plain version (the kernel-order RHS), exactly, at each
+    formula's main-path batch and at ragged B = 1, 7, 33, float32 and
+    float64, both rigidity gates, at every R and in both forms; then the
+    wrapper's own plan against the plain version and the twin's gather RHS
+    (f32 rtol 2e-4 / atol 2e-5, f64 1e-12: the twin sums in another
+    order). Returns the max abs error against the plain version."""
     from odesat_tpu_torch.models.ode import formula_device
 
-    worst = 0.0
-    for label, fa, B in cases:
+    worst, n = 0.0, 0
+    for label, fa, B0 in cases:
         buckets = fa.bucket_slices if len(fa.bucket_slices) > 1 else None
-        for dtype, tol in ((torch.float32, F32_TOL), (torch.float64, dict(rtol=1e-12, atol=1e-12))):
-            v, xs, xl = rhs_inputs(torch, fa, B, dtype, seed=B)
-            dev = formula_device(fa, "cuda", dtype)
-            for rigidity in ("paper", "reference"):
-                fn = rk.make_rhs_kernel(fa, 0.05, rigidity, str(dtype).split(".")[1])
-                out = fn(v, xs, xl, dev)
-                ref = rk.rhs_plain(v, xs, xl, dev, 0.05, rigidity, buckets)
-                torch.cuda.synchronize()
-                tag = f"{label} {str(dtype).split('.')[1]} {rigidity}"
-                err = 0.0
-                for name, a, b in zip(("dv", "dxs", "dxl"), out[:3], ref[:3]):
-                    if not torch.isfinite(a).all():
-                        fail(f"B10 vs twin, {tag}: {name} not finite")
-                    if not torch.allclose(a, b, **tol):
-                        fail(f"B10 vs twin, {tag}: {name} off by "
-                             f"{(a - b).abs().max().item()} (tolerance {tol})")
-                    err = max(err, (a - b).abs().max().item())
-                if not torch.equal(out[3], ref[3]):
-                    fail(f"B10 vs twin, {tag}: allsat differs")
-                worst = max(worst, err)
-                say(f"[B10 compare] {tag}: max abs err {err:.3e} (|dv| up to "
-                    f"{ref[0].abs().max().item():.3e}), allsat equal")
+        for B in (B0, 1, 7, 33):
+            for dtype, tol in ((torch.float32, F32_TOL),
+                               (torch.float64, dict(rtol=1e-12, atol=1e-12))):
+                name = str(dtype).split(".")[1]
+                itemsize = 8 if dtype == torch.float64 else 4
+                v, xs, xl = rhs_inputs(torch, fa, B, dtype, seed=B)
+                dev = formula_device(fa, "cuda", dtype)
+                for rigidity in ("paper", "reference"):
+                    spec = rk.rhs_spec(fa, 0.05, rigidity, "cuda")
+                    plain = rk.rhs_plain(v, xs, xl, spec)
+                    best, tries = rhs_lane_tries(rk, spec, itemsize)
+                    tag = f"{label.split(' B=')[0]} B={B} {name} {rigidity}"
+                    for R, resident, window in tries:
+                        out = rk.rhs_cuda(v, xs, xl, spec, rk.rhs_plan(
+                            spec.Np, spec.Mp, spec.nnz, itemsize, R, resident, window))
+                        torch.cuda.synchronize()
+                        for what, a, b in zip(("dv", "dxs", "dxl", "allsat"), out, plain):
+                            if not torch.equal(a, b):
+                                err = (a.double() - b.double()).abs().max().item()
+                                fail(f"B10 vs plain, {tag}, {R} lanes resident={resident} "
+                                     f"window={window}: {what} differs (max abs err {err})")
+                        n += 1
+                    plan = rk.launch_plan(spec, B, dtype)
+                    out = rk.make_rhs_kernel(fa, 0.05, rigidity, name)(v, xs, xl)
+                    twin = rk.rhs_twin(v, xs, xl, dev, 0.05, rigidity, buckets)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(a, b) for a, b in zip(out, plain)):
+                        fail(f"B10 vs plain, {tag}: the wrapper's launch differs")
+                    err = 0.0
+                    for what, a, b in zip(("dv", "dxs", "dxl"), out[:3], twin[:3]):
+                        if not torch.isfinite(a).all():
+                            fail(f"B10 vs twin, {tag}: {what} not finite")
+                        if not torch.allclose(a, b, **tol):
+                            fail(f"B10 vs twin, {tag}: {what} off by "
+                                 f"{(a - b).abs().max().item()} (tolerance {tol})")
+                        err = max(err, (a - b).abs().max().item())
+                    if not torch.equal(out[3], twin[3]):
+                        fail(f"B10 vs twin, {tag}: allsat differs")
+                    say(f"[B10 compare] {tag}: equal to the plain version at R = "
+                        f"{[t[0] for t in tries[:-1]]} ({'resident' if best.resident else 'streamed'}"
+                        f") and streamed at R = {tries[-1][0]} in windows of 64 clauses; the "
+                        f"wrapper's launch {plan.lanes} lanes, "
+                        f"{plan.threads} threads, "
+                        f"{'resident' if plan.resident else 'streamed'} (window {plan.window}), "
+                        f"{plan.smem_bytes} B of shared memory; vs the twin max abs err "
+                        f"{err:.3e} (|dv| up to {twin[0].abs().max().item():.3e}), allsat equal")
+    say(f"[B10 compare] {n} kernel launches equal to the plain version bit for bit")
     return worst
 
 
 def phase_rhs_main(fc, stc, rk, card):
-    """inter --dv-strategy pallas: single steps through B10."""
+    """inter --dv-strategy pallas: single steps through B10, fixed on
+    hard.cnf and uf250, and adaptive with a batch-shared dt on uf250 (the
+    reference inter's configuration, which B1 and B2 refuse; two B10
+    launches a step)."""
     os.makedirs(OUT, exist_ok=True)
     uf_path = os.path.join(OUT, "uf250_seed0.cnf")  # written by phase 5
     hard = os.path.join(ROOT, "tests", "data", "hard.cnf")
@@ -1045,6 +1138,9 @@ def phase_rhs_main(fc, stc, rk, card):
                              "--dv-strategy", "pallas"], 4096, "false"),
         ("uf250 B=4096", ["-f", uf_path, "-b", "4096", "-s", "0.01", "-n", "20000",
                           "--seed", "0", "--dv-strategy", "pallas"], 4096, "true"),
+        ("uf250 B=4096 adaptive --dt-mode shared", ["-f", uf_path, "-b", "4096", "-n", "20000",
+                                                    "--seed", "0", "--dt-mode", "shared",
+                                                    "--dv-strategy", "pallas"], 4096, "true"),
     ):
         verdict, launches, steps, solved, seconds, _ = run_cli(
             ode_counters(fc, stc, rk), "inter", args)
@@ -1053,12 +1149,68 @@ def phase_rhs_main(fc, stc, rk, card):
             f"launches {launches} ({card})")
         if launches["rhs"] == 0:
             fail(f"pallas {label}: the main path never launched B10")
+        if launches["fused_chunk"] or launches["stream_chunk"]:
+            fail(f"pallas {label}: a chunk kernel ran instead of B10")
         if want == "false" and (verdict != "false" or steps != 1024 or solved != 0):
             fail(f"pallas {label}: expected false after exactly 1024 steps")
         if want == "true" and verdict != "true":
             fail(f"pallas {label}: the port did not verify a satisfying assignment")
         total += launches["rhs"]
     return total
+
+
+def phase_rhs_step_split(torch, rk, hard, card):
+    """Where a fixed --dv-strategy pallas step goes at hard.cnf B=4096 (phase
+    16's first run): the step's wall (host clock over 64 steps ending in a
+    sync), the card's busy time a step and B10's part of it (torch.profiler
+    over 16 steps: the kernels' device time, by name), and B10's device time
+    alone with its launches queued. The step waits for the card each step
+    (it makes its dt from a Python float), so its launches cannot be queued
+    behind a sleep; the profiler reads the device time instead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from odesat_tpu_torch.models.ode import formula_device, make_step_fn
+    from odesat_tpu_torch.utils.config import ODEConfig
+
+    B, steps, traced = 4096, 64, 16
+    step = make_step_fn(hard, 0.05, ODEConfig(step_size=0.01, dv_strategy="pallas"))
+    dev = formula_device(hard, "cuda", torch.float32)
+    state = random_state(hard, B, seed=5)
+    for _ in range(4):
+        state = step(state, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = state
+    for _ in range(steps):
+        s = step(s, dev)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        s = state
+        for _ in range(traced):
+            s = step(s, dev)
+        torch.cuda.synchronize()
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    events = prof.key_averages()
+    busy = sum(device_us(e) for e in events) / traced / 1e3
+    rhs = sum(device_us(e) for e in events if "rhs_" in e.key) / traced / 1e3
+    fn = rk.make_rhs_kernel(hard, 0.05)
+    b10 = device_ms(torch, lambda: fn(state.v, state.xs, state.xl), iters=steps)
+    if busy <= 0.0 or rhs <= 0.0:
+        say(f"[B10 step split] hard.cnf B={B} fixed, --dv-strategy pallas: a step's wall "
+            f"{wall:.6f} ms, B10 {b10:.6f} ms with its launches queued; the profiler read no "
+            f"device time, so the rest of the step is not measured ({card})")
+        return wall, None, b10
+    say(f"[B10 step split] hard.cnf B={B} fixed, --dv-strategy pallas: a step's wall "
+        f"{wall:.6f} ms (host clock over {steps} steps); the card busy {busy:.6f} ms of it "
+        f"(torch.profiler over {traced} steps), B10 {rhs:.6f} ms of that ({b10:.6f} ms with its "
+        f"launches queued), the torch update and latch {busy - rhs:.6f} ms; the card idle "
+        f"{wall - busy:.6f} ms a step ({(wall - busy) / wall:.3f} of the wall), waiting on the "
+        f"host ({card})")
+    return wall, busy, b10
 
 
 def phase_stream_timing(torch, fc, stc, hard, big, card):
@@ -1110,27 +1262,71 @@ def phase_stream_timing(torch, fc, stc, hard, big, card):
     return times
 
 
-def phase_rhs_timing(torch, rk, hard, card):
-    """B10 and the twin per step, in turns, at hard.cnf B=16384 f32."""
+def b10_shapes(torch, hard, uf250, n1k):
+    """Phase 17's shapes: (label, formula, B, dtype)."""
+    return (("hard.cnf f32 16384", hard, 16384, torch.float32),
+            ("uf250 f32 4096", uf250, 4096, torch.float32),
+            ("hard.cnf f64 16384", hard, 16384, torch.float64),
+            ("n1k f32 1024", n1k, 1024, torch.float32))
+
+
+def phase_rhs_timing(torch, rk, shapes, card):
+    """B10 and its plain version per pass, in turns (plain, kernel, kernel,
+    plain), device time with the launches queued, beside the one-CTA-a-
+    trajectory design's time (ONE_CTA_MS, ``--time-b10`` on the tree before
+    the tiles) and the bound.
+    Returns {label: (kernel ms, plain ms)}."""
+    times = {}
+    for label, fa, B, dtype in shapes:
+        v, xs, xl = rhs_inputs(torch, fa, B, dtype, seed=3)
+        name = str(dtype).split(".")[1]
+        fn = rk.make_rhs_kernel(fa, 0.05, "paper", name)
+        spec = rk.rhs_spec(fa, 0.05, "paper", "cuda")
+        plan = rk.launch_plan(spec, B, dtype)
+
+        def plain_turn():
+            return device_ms(torch, lambda: rk.rhs_plain(v, xs, xl, spec), iters=5)
+
+        def kernel_turn():
+            return device_ms(torch, lambda: fn(v, xs, xl), iters=40)
+
+        p1, k1, k2, p2 = plain_turn(), kernel_turn(), kernel_turn(), plain_turn()
+        kern, plain = (k1 + k2) / 2, (p1 + p2) / 2
+        times[label] = (kern, plain)
+        bound_ms, by = rhs_pass_bound(fa, B, 8 if dtype == torch.float64 else 4)
+        was = ONE_CTA_MS[f"B10 {label}"]
+        say(f"[B10 timing] {label}, one RHS pass: B10 {k1:.6f} / {k2:.6f} ms ({plan.lanes} lanes, "
+            f"{plan.threads} threads, "
+            f"{'resident' if plan.resident else 'streamed'}), one CTA a trajectory {was:.6f} ms "
+            f"({was / kern:.3f}x), plain {p1:.6f} / {p2:.6f} ms ({plain / kern:.3f}x), bound "
+            f"{bound_ms:.6f} ms ({by}, {bound_ms / kern:.3f} of it) ({card})")
+    return times
+
+
+def time_b10(root):
+    """``--time-b10 ROOT``: B10 of the checkout at ROOT (the parent tree,
+    unpacked beside this one) at phase 17's shapes, device time with the
+    launches queued, as phase 17 times the current one: ONE_CTA_MS's B10
+    entries come from this mode."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script only runs on a GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(root))
     from odesat_tpu_torch.models.ode import formula_device
-    from odesat_tpu_torch.utils.timing import cuda_ms
+    from odesat_tpu_torch.ops import rhs_kernel as rk
 
-    B = 16384
-    v, xs, xl = rhs_inputs(torch, hard, B, torch.float32, seed=3)
-    dev = formula_device(hard, "cuda", torch.float32)
-    fn = rk.make_rhs_kernel(hard, 0.05)
-
-    def plain_turn():
-        return cuda_ms(lambda: rk.rhs_plain(v, xs, xl, dev, 0.05, "paper", None), 10, warmup=2)
-
-    def kernel_turn():
-        return cuda_ms(lambda: fn(v, xs, xl, dev), iters=20, warmup=2)
-
-    p1, k1, k2, p2 = plain_turn(), kernel_turn(), kernel_turn(), plain_turn()
-    kern, plain = (k1 + k2) / 2, (p1 + p2) / 2
-    say(f"[B10 timing] hard.cnf B={B} f32, one RHS pass: B10 {k1:.6f} / {k2:.6f} ms, twin "
-        f"{p1:.6f} / {p2:.6f} ms ({plain / kern:.3f}x) ({card})")
-    return kern, plain
+    _, hard, uf250, _ = load_cases()
+    n1k = load_stream_cases(preprocessed_n1k())[0][1]
+    for label, fa, B, dtype in b10_shapes(torch, hard, uf250, n1k):
+        v, xs, xl = rhs_inputs(torch, fa, B, dtype, seed=3)
+        dev = formula_device(fa, "cuda", dtype)
+        fn = rk.make_rhs_kernel(fa, 0.05, "paper", str(dtype).split(".")[1])
+        ms = [device_ms(torch, lambda: fn(v, xs, xl, dev), iters=40) for _ in range(2)]
+        say(f"[B10 of {root}] {label}: {ms[0]:.6f} / {ms[1]:.6f} ms, mean "
+            f"{sum(ms) / 2:.6f} ({torch.cuda.get_device_name(0)})")
+    return 0
 
 
 # ------------------------------------------ clause shards: B5, B8, the mesh
@@ -1175,11 +1371,11 @@ def ode_chunk_bound(fa, B, steps, fixed):
     return bound(nbytes, B * steps * ode_step_ops(nnz, Np, Mp, fixed))
 
 
-def rhs_pass_bound(fa, B):
-    """B10, one f32 RHS pass: v, xs, xl in; dv, dxs, dxl, allsat out."""
+def rhs_pass_bound(fa, B, itemsize=4):
+    """B10, one RHS pass: v, xs, xl in; dv, dxs, dxl, allsat out."""
     K, Mp = fa.lit_var.shape
     Np, nnz = fa.n_vars_padded, nnz_of(fa)
-    nbytes = 2 * 4 * B * (Np + 2 * Mp) + B + table_bytes(K, Mp, Np, nnz)
+    nbytes = 2 * itemsize * B * (Np + 2 * Mp) + B + table_bytes(K, Mp, Np, nnz)
     return bound(nbytes, B * (15 * nnz + 5 * Mp))
 
 
@@ -1599,6 +1795,7 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
     gloo = ["--clause-shards", "2", "--dist-backend", "gloo"]
     off = ["--shard-chunk", "off"]
     totals = {"shard_stream": 0, "shard_chunk": 0, "stoch_shard_eval": 0, "stoch_shard_chunk": 0}
+    allreduces = 0  # B7: the dv all-reduces between B6's and B9's launches
     c7_inter = ["-f", c7_path, "-b", "1024", "-s", "0.01", "--seed", "0"]
     c7_stoch = ["-f", c7_path, "--no-preprocess", "-b", "1024", "--seed", "0"]
     # the per-step paths (B5, B8) run fewer steps than the default chunk kernels (B6, B9)
@@ -1637,6 +1834,7 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
                 not (solved and verdict == "true"):
             fail(f"{label}: expected false after exactly {budget} steps or a verified solution")
         totals[kernel] += sum(counts)
+        allreduces += sum(r["allreduce_b6"] + r["allreduce_b9"] for r in reports)
 
     # b. the ODE clause mesh at S=2 against the S=1 runner, row for row, c.
     # the stoch clause path at S=2 against S=1, flip for flip, e. the
@@ -1663,7 +1861,7 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
               for _, ode, n in odes]
     stoch_modes = (("auto", "stoch_shard_chunk"), ("off", "stoch_shard_eval"))
     from odesat_tpu_torch.models.ode import simulate_batch
-    from odesat_tpu_torch.parallel.dist import time_all_reduce
+    from odesat_tpu_torch.parallel.dist import all_reduce_error, time_all_reduce
     from odesat_tpu_torch.utils.config import SolverConfig
 
     config = SolverConfig(ode=ODEConfig(step_size=0.01, steps=20000), batch_size=4096, seed=0)
@@ -1672,26 +1870,27 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
               for mode, _ in stoch_modes]
     calls += [(launch.on_mesh, ((2, 1), cli._mesh_solve, "ode", uf250_formula, config,
                                 {"stop_on": "any"})),
-              (time_all_reduce, ((1024, fa7_1.n_vars_padded + 1), 10))]
+              (time_all_reduce, ((1024, fa7_1.n_vars_padded + 1), 10)),
+              (all_reduce_error, ((1024, fa7_1.n_vars_padded + 1), 7))]
     # b, c through B5 and B8: the CLI's mesh solves with --shard-chunk off,
     # in this world rather than a world each (a spawn costs its ranks'
     # start-up, most of it importing torch)
     off_runs = (("b. inter", "inter", c7_inter + ["-n", "16"] + off + gloo, "shard_stream"),
                 ("c. stoch", "stoch", c7_stoch + ["-n", "16"] + off + gloo, "stoch_shard_eval"))
     calls += [cli.mesh_call([cmd, *args]) for _, cmd, args, _ in off_runs]
-    two, *stoch_two, traj_two, allreduce_ms, b_off, c_off = launch.spawn(
+    two, *stoch_two, traj_two, allreduce_ms, allreduce_err, b_off, c_off = launch.spawn(
         launch.run_all, 1, 2, "gloo", "cuda", timeout_s=600, args=(calls,))
     # run_all zeroes every count before each call: each call's launches per rank
     per_call = [{k: [r["calls"][i][k] for r in launch.last_reports]
                  for k in (*totals, "fused_chunk")} for i in range(len(calls))]
     ran = (("shard_chunk", "shard_stream"), ("stoch_shard_chunk",), ("stoch_shard_eval",),
-           ("fused_chunk",), (), ("shard_stream",), ("stoch_shard_eval",))
+           ("fused_chunk",), (), (), ("shard_stream",), ("stoch_shard_eval",))
     for i, (kernels, counts) in enumerate(zip(ran, per_call)):
         if any(len(counts[k]) != 2 or min(counts[k]) == 0 for k in kernels) or \
                 any(sum(c) for k, c in counts.items() if k not in kernels):
             fail(f"the parity world's call {i}: expected {kernels or 'no kernel'} on both ranks "
                  f"and nothing else, launches per rank {counts}")
-    for (label, cmd, args, kernel), result, counts in zip(off_runs, (b_off, c_off), per_call[5:]):
+    for (label, cmd, args, kernel), result, counts in zip(off_runs, (b_off, c_off), per_call[6:]):
         budget = int(args[args.index("-n") + 1])
         if result.steps != budget or result.done.any():
             fail(f"{label} config 7 --shard-chunk off: expected no solve after exactly {budget} "
@@ -1752,9 +1951,16 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
     say(f"[mesh main] e. inter --devices 2 uf250 B=4096 (the same world as a 2x1 mesh): equals "
         f"T=1 row for row ({one.steps} steps, {int(one.done.sum())} solved), B1 launches per "
         f"rank {per_call[3]['fused_chunk']}")
+    if allreduces == 0 or allreduce_err != 0.0:
+        fail(f"B7: {allreduces} all-reduces between B6's and B9's launches in the CLI mesh runs, "
+             f"max abs err against the ranks' buffers summed {allreduce_err}")
     say(f"[mesh main] b, c, e and the all-reduce timing: one world of two ranks, launches per "
-        f"rank and call {per_call}, in {time.perf_counter() - t0:.1f} s ({card})")
-    return totals, allreduce_ms
+        f"rank and call {per_call}, in {time.perf_counter() - t0:.1f} s; B7: {allreduces} dv "
+        f"all-reduces between B6's and B9's launches in the CLI mesh runs (both ranks), the "
+        f"(1024, {fa7_1.n_vars_padded + 1}) all-reduce equal to the two ranks' buffers summed "
+        f"(max abs err {allreduce_err}) ({card})")
+    totals["allreduce"] = allreduces
+    return totals, allreduce_ms, allreduce_err
 
 
 def phase_nccl_world_of_one(torch, fa7):
@@ -1963,12 +2169,28 @@ def phase_shard_timing(torch, ss, sch, sc, fa7, allreduce_ms, card):
     times["stoch_runner"] = chains
     say(f"[mesh timing] gloo all-reduce of the (B={B}, Np+1) f32 dv buffer at S=2, two ranks on "
         f"one card, staged through the host: {allreduce_ms:.6f} ms per step ({card})")
+    # B7's bound: one rank's buffer down to the host and the sum back up,
+    # through pinned host memory; its plain version: the two buffers summed
+    buf = torch.ones((B, fa7.n_vars_padded + 1), device="cuda")
+    other = torch.ones_like(buf)
+    host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+    nbytes = buf.numel() * buf.element_size()
+    d2h = cuda_ms(lambda: host.copy_(buf, non_blocking=True), iters=10, warmup=2)
+    h2d = cuda_ms(lambda: buf.copy_(host, non_blocking=True), iters=10, warmup=2)
+    plain = device_ms(torch, lambda: buf + other, iters=20)
+    say(f"[mesh timing] B7's bound: the {nbytes} B buffer down through pinned host memory "
+        f"{d2h:.6f} ms ({nbytes / d2h / 1e6:.3f} GB/s) and back up {h2d:.6f} ms "
+        f"({nbytes / h2d / 1e6:.3f} GB/s), {d2h + h2d:.6f} ms; the plain version (the two "
+        f"ranks' buffers summed on the card) {plain:.6f} ms ({card})")
+    times["b7"] = (allreduce_ms, plain, d2h + h2d, "bytes")
     times["runner"] = rates
     times["allreduce_ms"] = allreduce_ms
     return times
 
 
 def main():
+    if sys.argv[1:2] == ["--time-b10"]:
+        return time_b10(sys.argv[2])
     import torch
 
     if not torch.cuda.is_available():
@@ -2035,8 +2257,11 @@ def main():
     b10_worst = phase_rhs_compare(torch, rk, (("hard.cnf B=16384", hard, 16384),
                                               ("uf250 B=4096", uf250, 4096),
                                               ("n1k preprocessed B=1024", big[0][1], 1024)))
+    clock("phase 15 (B10 against its plain version)")
     b10_launches = phase_rhs_main(fc, stc, rk, card)
-    b10_ms, b10_plain = phase_rhs_timing(torch, rk, hard, card)
+    phase_rhs_step_split(torch, rk, hard, card)
+    b10_times = phase_rhs_timing(torch, rk, b10_shapes(torch, hard, uf250, big[0][1]), card)
+    b10_ms, b10_plain = b10_times["hard.cnf f32 16384"]
     clock("phases 12-17 (B2, B10)")
 
     from odesat_tpu_torch.ops import shard_chunk as sch
@@ -2048,7 +2273,8 @@ def main():
     b8_worst = phase_stoch_shard_compare(torch, sc, shard_cases)
     b9_worst = phase_stoch_shard_chunk_compare(torch, sc, shard_cases)
     clock("phases 18-19 (B5, B6, B8, B9 against their plain versions)")
-    mesh_launches, allreduce_ms = phase_mesh_main(torch, fa7, fa7_2, c7, specs[6][1], card)
+    mesh_launches, allreduce_ms, allreduce_err = phase_mesh_main(torch, fa7, fa7_2, c7,
+                                                                 specs[6][1], card)
     phase_nccl_world_of_one(torch, fa7)
     clock("phase 20 (the meshes)")
     shard_times = phase_shard_timing(torch, ss, sch, sc, fa7, allreduce_ms, card)
@@ -2061,38 +2287,44 @@ def main():
     b4_ms, b4_plain = stoch_times[("n1k B=8192", "stream")]
     b2_ms, b2_plain = b2_times[(big[0][0], "fixed")]
 
-    def row(name, source, replaces, n, err, ms, plain, bound_ms_by):
-        # no single PyTorch call computes any of these functions: no library time
-        return {"name": name, "route": "cuda", "source": f"odesat_tpu_torch/csrc/{source}",
+    def row(name, source, replaces, n, err, ms, plain, bound_ms_by, library_ms=None):
+        # no single PyTorch call computes the hand-written kernels' functions
+        return {"name": name, "route": "cuda", "source": f"odesat_tpu_torch/{source}",
                 "replaces": replaces, "launches": n, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain, "bound_ms": bound_ms_by[0], "bound_by": bound_ms_by[1],
-                "library_ms": None}
+                "library_ms": library_ms}
 
     b5_ms, b5_plain, b5_bound, b5_by = shard_times["fixed"]
     b8_ms, b8_plain, b8_bound, b8_by = shard_times["b8"]
     b6_ms, b6_plain, b6_bound, b6_by = shard_times["b6"]
     b9_ms, b9_plain, b9_bound, b9_by = shard_times["b9"]
+    b7_ms, b7_plain, b7_bound, b7_by = shard_times["b7"]
     say(json.dumps({"kernels": [
-        row("fused_chunk", "fused_chunk.cu", "odesat_tpu/ops/fused_pallas.py:66", launches,
+        row("fused_chunk", "csrc/fused_chunk.cu", "odesat_tpu/ops/fused_pallas.py:66", launches,
             worst, kernel_ms, plain_ms, ode_chunk_bound(hard, 16384, 256, True)),
-        row("stoch_fused", "stoch_chunk.cu", "odesat_tpu/ops/stoch_pallas.py:75",
+        row("stoch_fused", "csrc/stoch_chunk.cu", "odesat_tpu/ops/stoch_pallas.py:75",
             stoch_launches["stoch_fused"], stoch_worst["fused"], b3_ms, b3_plain,
             stoch_chunk_bound(hard, 16384, 64)),
-        row("stoch_stream", "stoch_chunk.cu", "odesat_tpu/ops/stoch_pallas.py:345",
+        row("stoch_stream", "csrc/stoch_chunk.cu", "odesat_tpu/ops/stoch_pallas.py:345",
             stoch_launches["stoch_stream"], stoch_worst["stream"], b4_ms, b4_plain,
             stoch_chunk_bound(n1k, 8192, 8)),
-        row("stream_chunk", "stream_chunk.cu", "odesat_tpu/ops/stream_pallas.py:166",
+        row("stream_chunk", "csrc/stream_chunk.cu", "odesat_tpu/ops/stream_pallas.py:166",
             b2_launches, b2_worst, b2_ms, b2_plain, ode_chunk_bound(big[0][1], big[0][2], 8, True)),
-        row("rhs", "stream_chunk.cu", "odesat_tpu/ops/rhs_pallas.py:62", b10_launches,
+        row("rhs", "csrc/stream_chunk.cu", "odesat_tpu/ops/rhs_pallas.py:62", b10_launches,
             b10_worst, b10_ms, b10_plain, rhs_pass_bound(hard, 16384)),
-        row("shard_stream", "stream_chunk.cu", "odesat_tpu/ops/shard_stream.py:574",
+        row("shard_stream", "csrc/stream_chunk.cu", "odesat_tpu/ops/shard_stream.py:574",
             mesh_launches["shard_stream"], b5_worst, b5_ms, b5_plain, (b5_bound, b5_by)),
-        row("shard_chunk", "stream_chunk.cu", "odesat_tpu/ops/shard_chunk.py:158",
+        row("shard_chunk", "csrc/stream_chunk.cu", "odesat_tpu/ops/shard_chunk.py:158",
             mesh_launches["shard_chunk"], b6_worst, b6_ms, b6_plain, (b6_bound, b6_by)),
-        row("stoch_shard_eval", "stoch_chunk.cu", "odesat_tpu/ops/stoch_pallas.py:605",
+        row("stoch_shard_eval", "csrc/stoch_chunk.cu", "odesat_tpu/ops/stoch_pallas.py:605",
             mesh_launches["stoch_shard_eval"], b8_worst, b8_ms, b8_plain, (b8_bound, b8_by)),
-        row("stoch_shard_chunk", "stoch_chunk.cu", "odesat_tpu/ops/stoch_pallas.py:868",
+        row("stoch_shard_chunk", "csrc/stoch_chunk.cu", "odesat_tpu/ops/stoch_pallas.py:868",
             mesh_launches["stoch_shard_chunk"], b9_worst, b9_ms, b9_plain, (b9_bound, b9_by)),
+        # B7 is torch.distributed's all-reduce between B6's and B9's launches:
+        # the library call itself
+        row("allreduce", "parallel/dist.py", "odesat_tpu/ops/butterfly.py:99",
+            mesh_launches["allreduce"], allreduce_err, b7_ms, b7_plain, (b7_bound, b7_by),
+            library_ms=b7_ms),
     ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

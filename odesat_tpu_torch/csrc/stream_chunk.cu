@@ -5,10 +5,11 @@
 // make_stream_chunk; B10 (rhs_launch) replaces odesat_tpu/ops/rhs_pallas.py::
 // make_pallas_rhs; B5 (shard_stream_launch) replaces odesat_tpu/ops/
 // shard_stream.py::_make_shard_call; B6 (shard_chunk_launch) replaces
-// odesat_tpu/ops/shard_chunk.py::make_shard_chunk_call. B10 runs the clause-
-// and variable-phase device functions below, one CTA a trajectory; B5 and B6
-// run one pass device code over the tile layout of tile.cuh, R trajectories
-// a tile on the lanes of a thread group.
+// odesat_tpu/ops/shard_chunk.py::make_shard_chunk_call. B10 runs a tile of
+// R trajectories a CTA on the lanes of its thread groups, with the tile's
+// state in shared memory (namespace rhs, below); B5 and B6 run one pass
+// device code over the tile layout of tile.cuh, R trajectories a tile on
+// the lanes of a thread group.
 //
 // B2 computes exactly what B1 (csrc/fused_chunk.cu) computes, for formulas
 // whose tables and state do not fit one CTA's shared memory: it is B1's
@@ -35,12 +36,14 @@
 // instance, 8 (4 adaptive) at the locally structured n=4096.
 //
 // B10 is one RHS pass, (v, xs, xl) -> (dv, dxs, dxl, allsat), in float or
-// double, one CTA a trajectory: v and the clause words m1, m2 are placed by
-// the Python wrapper (ops/rhs_kernel.py::rhs_layout) in shared memory while
-// they fit, the rest in a per-trajectory scratch row in global memory; xs
-// and xl are read from the inputs. The variable phase recomputes each
-// occurrence's contribution from v[i], its sign, m1, m2 and the clause's xs
-// and xl with the operations of B1's clause phase in the same order.
+// double: a tile of R trajectories a CTA, whose rows it reads and writes
+// coalesced, transposing them through shared memory into the [x][r]
+// layout; the clause phase and the variable phase in B1's arithmetic and
+// order, the contributions in CSR order in shared memory (resident) or, for
+// tiles that do not fit, in a device scratch (streamed). What bounds it:
+// device-memory bytes, each a row read or a row write. R is the largest
+// power of two up to 32 whose footprint fits (ops/rhs_kernel.py::rhs_plan):
+// 32 at hard.cnf in float, 8 at uf250.
 //
 // Unit clauses (infinite gradients), float64 chunks and a batch-shared
 // adaptive dt are rejected by the Python wrappers before launch.
@@ -52,6 +55,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <initializer_list>
+
+#include "bulk.cuh"
 #include "ode_lanes.cuh"
 #include "tile.cuh"
 
@@ -69,25 +75,12 @@ struct K_ {
 constexpr float kDtMin = 0.0078125f;  // 2^-7
 constexpr float kDtMax = 1000.0f;
 
-// Placement of the per-trajectory arrays: off >= 0 is an element offset in
-// shared memory, off < 0 is -(offset + 1) in the trajectory's scratch row.
-enum Item { V = 0, HV, FV, M1, M2, XS, XL, HXS, HXL, FXS, FXL, kItems };
-struct Place {
-  long long off[kItems];
-};
-constexpr int kRed = 32;  // elements of reduction scratch at the start of shared memory
-
 struct Tables {
   const int* lit_code;  // (K, Mp): 2*var + (negated ? 1 : 0), -1 at padding
   const int* occ_ptr;   // (Np + 1) CSR row pointers over occ_code
   const int* occ_code;  // (nnz): 2*m + negated, clause column and sign of each occurrence
   int Np, Mp, K;
 };
-
-template <typename T>
-__device__ __forceinline__ T* placed(long long off, T* smem, T* row) {
-  return off >= 0 ? smem + off : row + (-off - 1);
-}
 
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   // fmaxf/fminf ignore NaN like jnp.fmax/fmin and Rust's f64::max/min
@@ -111,32 +104,6 @@ __device__ __forceinline__ T lit_value(T vi, int negated) {
   return T(1) - qv;
 }
 
-// Clause phase for clause m: the running top-2 min over its literal values
-// (B1's loop, the reference's scan semantics). Returns false for a padded
-// clause (its slot 0 holds -1), which has no occurrences.
-template <typename T, bool BF16>
-__device__ __forceinline__ bool clause_min2(const Tables& f, const T* v, int m, T* m1o,
-                                            T* m2o) {
-  const int c0 = __ldg(f.lit_code + m);
-  if (c0 < 0) {
-    *m1o = T(0);
-    *m2o = T(0);
-    return false;
-  }
-  T m1 = lit_value<T, BF16>(v[c0 >> 1], c0 & 1);
-  T m2 = T(__int_as_float(0x7f800000));  // +inf
-  for (int k = 1; k < f.K; ++k) {
-    const int ck = __ldg(f.lit_code + static_cast<size_t>(k) * f.Mp + m);
-    if (ck < 0) continue;  // padding slot: +inf never changes m1, m2
-    const T val = lit_value<T, BF16>(v[ck >> 1], ck & 1);
-    m2 = vmin(m2, vmax(m1, val));
-    m1 = vmin(m1, val);
-  }
-  *m1o = m1;
-  *m2o = m2;
-  return true;
-}
-
 // One occurrence's signed contribution to dv: B1's clause-phase arithmetic,
 // operation for operation, from the clause's m1, m2, xs, xl.
 template <typename T, bool PAPER, bool BF16>
@@ -158,69 +125,9 @@ __device__ __forceinline__ T contribution(T val, T m1, T m2, T xs, T xl, T zeta,
   return negated ? cp : -cp;  // times -q
 }
 
-// Variable phase for variable i: dv[i] over its CSR list in a fixed order.
-template <typename T, bool PAPER, bool BF16>
-__device__ __forceinline__ T var_dv(const Tables& f, int i, T vi, const T* m1, const T* m2,
-                                    const T* xs, const T* xl, T zeta) {
-  T dv = T(0);
-  const int end = __ldg(f.occ_ptr + i + 1);
-  for (int j = __ldg(f.occ_ptr + i); j < end; ++j) {
-    const int oc = __ldg(f.occ_code + j);
-    const int m = oc >> 1;
-    const T val = lit_value<T, BF16>(vi, oc & 1);
-    dv += contribution<T, PAPER, BF16>(val, m1[m], m2[m], xs[m], xl[m], zeta, oc & 1);
-  }
-  return dv;
-}
-
 struct Scalars {
   float zeta, dt_fixed, tol, xl_cap;
 };
-
-template <typename T, bool PAPER>
-__global__ void rhs_kernel(const T* __restrict__ v_in, const T* __restrict__ xs_in,
-                           const T* __restrict__ xl_in, T* __restrict__ dv_out,
-                           T* __restrict__ dxs_out, T* __restrict__ dxl_out,
-                           unsigned char* __restrict__ allsat_out, Tables f, T zeta, Place p,
-                           T* scratch, long long row_words) {
-  using C = K_<T>;
-  const int traj = blockIdx.x;
-  const int Np = f.Np, Mp = f.Mp;
-  const int tid = threadIdx.x, nt = blockDim.x;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  T* row = scratch + static_cast<size_t>(traj) * row_words;
-  T* v = placed(p.off[V], smem, row);
-  T* m1 = placed(p.off[M1], smem, row);
-  T* m2 = placed(p.off[M2], smem, row);
-  const size_t vrow = static_cast<size_t>(traj) * Np;
-  const size_t crow = static_cast<size_t>(traj) * Mp;
-  const T* xs = xs_in + crow;
-  const T* xl = xl_in + crow;
-
-  for (int i = tid; i < Np; i += nt) v[i] = v_in[vrow + i];
-  __syncthreads();
-  int ok = 1;
-  for (int m = tid; m < Mp; m += nt) {
-    T a, b;
-    T dxs = T(0), dxl = T(0);
-    if (clause_min2<T, false>(f, v, m, &a, &b)) {
-      const T c = T(0.5) * a;
-      dxs = C::beta * (xs[m] + C::eps) * (c - C::gamma);
-      dxl = C::alpha * (c - C::delta);
-      ok &= (c < C::gamma);
-    }
-    m1[m] = a;
-    m2[m] = b;
-    dxs_out[crow + m] = dxs;
-    dxl_out[crow + m] = dxl;
-  }
-  const bool allsat = __syncthreads_and(ok) != 0;
-  for (int i = tid; i < Np; i += nt)
-    dv_out[vrow + i] = var_dv<T, PAPER, false>(f, i, v[i], m1, m2, xs, xl, zeta);
-  if (tid == 0) allsat_out[traj] = allsat ? 1 : 0;
-}
 
 // B5 (shard_stream_launch) replaces odesat_tpu/ops/shard_stream.py::
 // _make_shard_call (:574): one clause shard's RHS, one pass a launch, for the
@@ -309,7 +216,8 @@ enum ShardMode { kRhs = 0, kFixed = 1, kSecond = 2 };
 // cross memory every step) and the L2 traffic of the occurrence gathers.
 enum ChunkPhase { kStep = 0, kApply = 1, kFirst = 2, kHalf = 3, kCommit = 4 };
 
-// clause_min2 for lane r of a tile: v is the tile's (Np, R) block.
+// The running top-2 min of clause m for lane r of a tile (B1's loop, the
+// reference's scan semantics): v is the tile's (Np, R) block.
 template <int R, bool BF16>
 __device__ __forceinline__ bool tile_min2(const Tables& f, const float* __restrict__ v, int r,
                                           int m, float* m1o, float* m2o) {
@@ -697,20 +605,6 @@ int shard_stream_pass(int mode, const ChunkArgs& a, float* out, cudaStream_t st)
   return static_cast<int>(cudaGetLastError());
 }
 
-// Refuse a placement that would run off the shared memory it is launched
-// with: every used item placed there must lie inside it, past the
-// reduction scratch.
-bool placement_ok(const Place& p, const bool* used, int Np, int Mp, size_t smem,
-                  size_t itemsize) {
-  const long long elems = static_cast<long long>(smem / itemsize);
-  for (int i = 0; i < kItems; ++i) {
-    if (!used[i] || p.off[i] < 0) continue;
-    const long long n = (i == V || i == HV || i == FV) ? Np : Mp;
-    if (p.off[i] < kRed || p.off[i] + n > elems) return false;
-  }
-  return true;
-}
-
 int smem_optin() {
   int dev = 0, bytes = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return -1;
@@ -720,14 +614,514 @@ int smem_optin() {
   return bytes;
 }
 
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int B, int threads, size_t smem, cudaStream_t stream, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<B, threads, smem, stream>>>(args...);
-  return static_cast<int>(cudaGetLastError());
+// B10 (rhs_launch) replaces odesat_tpu/ops/rhs_pallas.py::make_pallas_rhs
+// (:62): one RHS pass (v, xs, xl) -> (dv, dxs, dxl, allsat), float or
+// double. A tile of R trajectories (R a power of two up to kMaxLanes) is
+// worked on by one CTA, one trajectory a lane of each group of R threads,
+// as B1 runs them, so every table word and every clause's slots serve R
+// trajectories. The tile's state lives in shared memory a row a
+// trajectory, each row whole 16-byte units and, where R > 1, a row stride
+// of 16 bytes past a multiple of 128, so that a lane group's R words of one
+// item fall on distinct banks (R <= 8). Rows arrive and leave as 1D bulk
+// copies (bulk.cuh): one thread issues a copy a row and the others wait on
+// an mbarrier, so no thread spends an instruction or a register on a word
+// of the copy. Each tile runs
+//   clause phase    (groups over clauses, by width segment): the running
+//                   top-2 min over the slots in slot order and each slot's
+//                   signed contribution, factored as B1's clause_terms
+//                   factors it, written at its occurrence's CSR position;
+//                   dxs = beta (xs + eps)(c - gamma) and dxl = alpha (c -
+//                   delta) overwrite the clause's xs and xl; the lane's
+//                   "some clause unsatisfied" folds by ballot;
+//   variable phase  (groups over variables): dv over the CSR list in four
+//                   partial sums (csr_sum), over v in place.
+// Resident form (rhs_resident_kernel): the contributions sit in shared
+// memory, a row a trajectory, and a persistent CTA walks tiles
+// blockIdx.x, + gridDim.x, ... with two buffers for the rows: the bulk
+// loads of the next tile run while the threads compute this one, and the
+// stores drain behind them. Streamed form (rhs_streamed_kernel), for tiles
+// whose footprint does not fit: a CTA a tile, only v and a window of C
+// clauses' xs and xl in shared memory, the clause axis in windows of C, and
+// the contributions in a device scratch of the wrapper's, (nnz, R) a tile,
+// R neighbouring words an occurrence; rows that are not whole 16-byte
+// units are copied by the threads. No float atomics; built with
+// --fmad=false, so B10 equals its plain version (ops/fused_chunk.py::
+// _rhs_plain over B10's tables, partial_sums=4) bit for bit. What bounds
+// it: device-memory bytes, every one a row read or a row write.
+namespace rhs {
+
+constexpr int kHeadBytes = 32;  // two mbarriers and two unsat masks
+constexpr int kMaxThreads = 512;
+constexpr int kMinBlocks = 2;  // two CTAs of kMaxThreads an SM: 64 registers a thread
+constexpr int kMaxLanes = 8;
+constexpr int kUnroll = 4;  // row elements a thread has in flight in a copy by the threads
+
+// Elements a row of n takes in the tile: whole 16-byte units and, where
+// R > 1, 16 bytes past a multiple of 128 (a lane group's words of one item
+// on distinct banks).
+__host__ __device__ inline int row_stride(int n, int itemsize, int R) {
+  int bytes = (n * itemsize + 15) / 16 * 16;
+  if (R > 1) bytes += ((16 - bytes % 128) % 128 + 128) % 128;
+  return bytes / itemsize;
 }
+
+// Shared memory of one CTA. Resident: two buffers of v, xs and xl rows and
+// one of contributions (C = Mp); streamed: v and a window of C clauses.
+inline size_t smem_bytes(int itemsize, bool resident, int Np, int C, int nnz, int R) {
+  const size_t state = static_cast<size_t>(row_stride(Np, itemsize, R)) +
+                       2 * static_cast<size_t>(row_stride(C, itemsize, R));
+  const size_t row =
+      resident ? 2 * state + static_cast<size_t>(row_stride(nnz, itemsize, R)) : state;
+  return kHeadBytes + static_cast<size_t>(itemsize) * R * row;
+}
+
+// Walk the elements (r, x) of an nr-by-w block in row order, consecutive
+// threads on consecutive elements, kUnroll of them a thread at once:
+// body(u, ok, r, x) for each, u the unroll slot.
+template <typename F>
+__device__ __forceinline__ void walk_rows(int nr, int w, F&& body) {
+  const int nt = static_cast<int>(blockDim.x), total = nr * w;
+  const int dr = nt / w, dx = nt - dr * w;
+  int r = static_cast<int>(threadIdx.x) / w, x = static_cast<int>(threadIdx.x) - r * w;
+  for (int j = static_cast<int>(threadIdx.x); j < total; j += kUnroll * nt) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      body(u, j + u * nt < total, r, x);
+      x += dx;
+      r += dr;
+      if (x >= w) {
+        x -= w;
+        ++r;
+      }
+    }
+  }
+}
+
+// Columns [c0, c0 + w) of nr rows: in device memory, rows of n elements
+// from `rows`; in shared memory, rows of P elements from `tile`.
+template <typename T>
+struct Block {
+  T* rows;
+  size_t n;
+  int c0, w;
+  T* tile;
+  int P;
+
+  // The rows move as bulk copies: 16-byte units at 16-byte addresses.
+  __device__ __forceinline__ bool bulk() const {
+    return (n * sizeof(T)) % 16 == 0 && (c0 * sizeof(T)) % 16 == 0 &&
+           (w * sizeof(T)) % 16 == 0 && reinterpret_cast<size_t>(rows) % 16 == 0;
+  }
+  __device__ __forceinline__ unsigned row_bytes() const { return static_cast<unsigned>(w * sizeof(T)); }
+  // Thread 0: the bulk copies of nr rows into the tile, completing on bar.
+  __device__ __forceinline__ void load(int nr, uint64_t* bar) const {
+    for (int r = 0; r < nr; ++r) bulk::load(tile + r * P, rows + r * n + c0, row_bytes(), bar);
+  }
+  // Thread 0: the bulk copies of nr rows out of the tile.
+  __device__ __forceinline__ void store(int nr) const {
+    for (int r = 0; r < nr; ++r) bulk::store(rows + r * n + c0, tile + r * P, row_bytes());
+  }
+};
+
+// Read N blocks of nr rows into shared memory; every thread returns once
+// they have landed. Bulk blocks come in on the mbarrier (its phase parity
+// flips), the others through the threads.
+template <typename T, int N>
+__device__ __forceinline__ void stage_in(const Block<T> (&b)[N], int nr, uint64_t* bar,
+                                         unsigned& parity) {
+  unsigned bytes = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (b[i].bulk()) {
+      bytes += nr * b[i].row_bytes();
+    } else {
+      T val[kUnroll];
+      int at[kUnroll];
+      walk_rows(nr, b[i].w, [&](int u, bool ok, int r, int x) {
+        at[u] = ok ? r * b[i].P + x : -1;
+        if (ok) val[u] = __ldcs(b[i].rows + r * b[i].n + b[i].c0 + x);
+        if (u == kUnroll - 1) {
+#pragma unroll
+          for (int q = 0; q < kUnroll; ++q)
+            if (at[q] >= 0) b[i].tile[at[q]] = val[q];
+        }
+      });
+    }
+  }
+  if (bytes && threadIdx.x == 0) {
+    bulk::fence_async();
+    bulk::expect(bar, bytes);
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      if (b[i].bulk()) b[i].load(nr, bar);
+  }
+  __syncthreads();  // the threads' copies landed
+  if (bytes) {
+    bulk::wait(bar, parity);
+    parity ^= 1u;
+  }
+}
+
+// Write N blocks of nr rows from shared memory: bulk blocks as copies that
+// thread 0 issues in one group (it waits on them before their shared memory
+// is written again and before it exits), the others through the threads.
+template <typename T, int N>
+__device__ __forceinline__ void stage_out(const Block<T> (&b)[N], int nr) {
+  bulk::fence_async();
+  __syncthreads();  // every thread's writes visible to the copies
+  bool any = false;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (b[i].bulk()) {
+      any = true;
+      if (threadIdx.x == 0) b[i].store(nr);
+    } else {
+      walk_rows(nr, b[i].w, [&](int, bool ok, int r, int x) {
+        if (ok) __stcs(b[i].rows + r * b[i].n + b[i].c0 + x, b[i].tile[r * b[i].P + x]);
+      });
+    }
+  }
+  if (any && threadIdx.x == 0) bulk::commit();
+}
+
+// Slot k's signed contribution (times -q) from its literal value and the
+// clause's coefficients: B1's clause_terms, operation for operation.
+template <typename T, bool PAPER>
+__device__ __forceinline__ T slot_term(T val, T m1, T c, T b, T A1, T A2, int negated) {
+  const bool is_min = val <= m1;
+  T cp;
+  if constexpr (PAPER) {
+    cp = is_min ? (A2 + b * val) : A1;
+  } else {
+    const T gate = (val == c) ? T(1) : T(0);
+    cp = (is_min ? A2 : A1) + b * (val * gate);
+  }
+  return negated ? cp : -cp;
+}
+
+// Clause m for one lane (v: its row; contrib: its first contribution, cs
+// apart), the slots below w (KMAX > 0: at most KMAX of them, read at once
+// into registers; KMAX = 0: any number, read as the loops need them).
+// Writes the slots' contributions at their CSR positions, replaces x (xs)
+// and l (xl) by dxs and dxl (0 for a padded clause) and returns whether
+// the clause is unsatisfied.
+template <typename T, int KMAX, bool PAPER>
+__device__ __forceinline__ bool rhs_clause(const int* __restrict__ code,
+                                           const int* __restrict__ pos, int m, int Mp, int w,
+                                           const T* v, T& x, T& l, T* contrib, int cs, T zeta) {
+  using Kc = K_<T>;
+  constexpr int N = KMAX > 0 ? KMAX : 1;
+  int cd[N], at[N];
+  T val[N];
+  T m1, m2 = T(__int_as_float(0x7f800000));  // +inf
+  if constexpr (KMAX > 0) {
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      cd[k] = k < w ? __ldg(code + k * Mp + m) : -1;
+      at[k] = k < w ? __ldg(pos + k * Mp + m) : 0;
+    }
+    if (cd[0] < 0) {
+      x = l = T(0);
+      return false;
+    }
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k)  // read at padding, unused
+      val[k] = lit_value<T, false>(v[max(cd[k], 0) >> 1], cd[k] & 1);
+    m1 = val[0];
+#pragma unroll
+    for (int k = 1; k < KMAX; ++k) {
+      if (cd[k] < 0) continue;  // padding slot: +inf never changes m1, m2
+      m2 = vmin(m2, vmax(m1, val[k]));
+      m1 = vmin(m1, val[k]);
+    }
+  } else {
+    const int c0 = __ldg(code + m);
+    if (c0 < 0) {
+      x = l = T(0);
+      return false;
+    }
+    m1 = lit_value<T, false>(v[c0 >> 1], c0 & 1);
+    for (int k = 1; k < w; ++k) {
+      const int ck = __ldg(code + k * Mp + m);
+      if (ck < 0) continue;
+      const T vk = lit_value<T, false>(v[ck >> 1], ck & 1);
+      m2 = vmin(m2, vmax(m1, vk));
+      m1 = vmin(m1, vk);
+    }
+  }
+  const T c = T(0.5) * m1;
+  const T a = T(-0.5) * (l * x);
+  const T b = T(-0.5) * ((T(1) + zeta * l) * (T(1) - x));
+  const T A1 = a * m1;
+  const T A2 = a * m2;
+  if constexpr (KMAX > 0) {
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k)
+      if (cd[k] >= 0)
+        contrib[at[k] * cs] = slot_term<T, PAPER>(val[k], m1, c, b, A1, A2, cd[k] & 1);
+  } else {
+    for (int k = 0; k < w; ++k) {
+      const int ck = __ldg(code + k * Mp + m);
+      if (ck < 0) continue;
+      const T vk = lit_value<T, false>(v[ck >> 1], ck & 1);
+      contrib[__ldg(pos + k * Mp + m) * cs] = slot_term<T, PAPER>(vk, m1, c, b, A1, A2, ck & 1);
+    }
+  }
+  x = Kc::beta * (x + Kc::eps) * (c - Kc::gamma);
+  l = Kc::alpha * (c - Kc::delta);
+  return !(c < Kc::gamma);
+}
+
+// The clauses [lo, hi) of a segment of width w that group grp of G takes,
+// for one lane; xs and xl are the lane's rows of the window whose first
+// clause is c0.
+template <typename T, int KMAX, bool PAPER>
+__device__ __forceinline__ bool rhs_clauses(const int* __restrict__ code,
+                                            const int* __restrict__ pos, int lo, int hi, int c0,
+                                            int Mp, int w, int grp, int G, const T* v, T* xs,
+                                            T* xl, T* contrib, int cs, T zeta) {
+  bool bad = false;
+  for (int m = lo + grp; m < hi; m += G) {
+    T x = xs[m - c0], l = xl[m - c0];
+    bad |= rhs_clause<T, KMAX, PAPER>(code, pos, m, Mp, w, v, x, l, contrib, cs, zeta);
+    xs[m - c0] = x;
+    xl[m - c0] = l;
+  }
+  return bad;
+}
+
+// dv of variable i for one lane: its contributions (c: the lane's first,
+// cs apart) over the CSR list in four partial sums, list positions 0, 1, 2
+// and 3 mod 4, each in list order, added as (s0 + s1) + (s2 + s3): four
+// independent chains of adds, and each about a quarter of the list's
+// rounding (the plain version sums so too).
+template <typename T>
+__device__ __forceinline__ T csr_sum(const int* __restrict__ ptr, const T* c, int cs, int i) {
+  T s0 = T(0), s1 = T(0), s2 = T(0), s3 = T(0);
+  int j = __ldg(ptr + i);
+  const int end = __ldg(ptr + i + 1);
+  for (; j + 4 <= end; j += 4) {
+    s0 += c[j * cs];
+    s1 += c[(j + 1) * cs];
+    s2 += c[(j + 2) * cs];
+    s3 += c[(j + 3) * cs];
+  }
+  if (j < end) s0 += c[j * cs];
+  if (j + 1 < end) s1 += c[(j + 1) * cs];
+  if (j + 2 < end) s2 += c[(j + 2) * cs];
+  return (s0 + s1) + (s2 + s3);
+}
+
+template <typename T>
+struct Io {
+  const T* v;
+  const T* xs;
+  const T* xl;
+  T* dv;
+  T* dxs;
+  T* dxl;
+  unsigned char* allsat;
+  T* scratch;  // streamed: the contributions, (nnz, R) a tile
+};
+
+struct Pass {
+  const int* lit_code;  // (K, Mp): 2*var + negated, -1 at padding
+  const int* occ_ptr;   // (Np + 1) CSR pointers
+  const int* slot_pos;  // (K*Mp): the CSR position of each slot
+  const int* segs;      // (nseg, 4): clause_segments
+  int nseg, Np, Mp, nnz;
+  int B, R, lg_r, C;  // C: the clauses a window holds (Mp when resident)
+};
+
+// The clause phase of one lane over the window [c0, c0 + w) (v, xs, xl:
+// the lane's rows; contrib: its first contribution, cs apart); returns
+// whether one of its clauses is unsatisfied.
+template <typename T, bool PAPER>
+__device__ __forceinline__ bool clause_window(const Pass& f, int c0, int w, int grp, int G,
+                                              const T* v, T* xs, T* xl, T* contrib, int cs,
+                                              T zeta) {
+  bool bad = false;
+  for (int q = 0; q < f.nseg; ++q) {
+    const int lo = max(__ldg(f.segs + 4 * q), c0);
+    const int hi = min(__ldg(f.segs + 4 * q + 1), c0 + w);
+    const int width = __ldg(f.segs + 4 * q + 2);
+    if (lo >= hi) continue;
+    if (width == 3)
+      bad |= rhs_clauses<T, 3, PAPER>(f.lit_code, f.slot_pos, lo, hi, c0, f.Mp, 3, grp, G, v, xs,
+                                      xl, contrib, cs, zeta);
+    else if (width <= 4)
+      bad |= rhs_clauses<T, 4, PAPER>(f.lit_code, f.slot_pos, lo, hi, c0, f.Mp, width, grp, G, v,
+                                      xs, xl, contrib, cs, zeta);
+    else
+      bad |= rhs_clauses<T, 0, PAPER>(f.lit_code, f.slot_pos, lo, hi, c0, f.Mp, width, grp, G, v,
+                                      xs, xl, contrib, cs, zeta);
+  }
+  return bad;
+}
+
+// The resident form: a persistent CTA walks its tiles with two row
+// buffers; thread 0 issues the next tile's loads (once the stores that read
+// that buffer have read it) before the threads compute this tile.
+template <typename T, bool PAPER>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks) rhs_resident_kernel(Io<T> io, Pass f, T zeta) {
+  constexpr int isz = static_cast<int>(sizeof(T));
+  const int tid = static_cast<int>(threadIdx.x), nt = static_cast<int>(blockDim.x);
+  const int R = f.R, r = tid & (R - 1), grp = tid >> f.lg_r, G = nt >> f.lg_r;
+  const int Np = f.Np, Mp = f.Mp;
+  const int Pv = row_stride(Np, isz, R), Pm = row_stride(Mp, isz, R);
+  const size_t state = static_cast<size_t>(R) * (Pv + 2 * Pm);
+  const int tiles = (f.B + R - 1) / R;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);  // [2]
+  unsigned* unsat = reinterpret_cast<unsigned*>(smem_raw + 16);  // [2]
+  T* buf = reinterpret_cast<T*>(smem_raw + kHeadBytes);  // [2] x (v, xs, xl rows)
+  T* contrib = buf + 2 * state + static_cast<size_t>(r) * row_stride(f.nnz, isz, R);
+  // Block i of tile g in buffer b: 0 v, 1 xs, 2 xl (to its rows with `out`)
+  auto block = [&](int i, int g, int b, bool out) {
+    const size_t t0 = static_cast<size_t>(g) * R;
+    T* tile = buf + b * state + (i == 0 ? 0 : R * (Pv + (i - 1) * Pm));
+    if (i == 0) return Block<T>{(out ? io.dv : const_cast<T*>(io.v)) + t0 * Np, static_cast<size_t>(Np), 0, Np, tile, Pv};
+    T* rows = i == 1 ? (out ? io.dxs : const_cast<T*>(io.xs)) : (out ? io.dxl : const_cast<T*>(io.xl));
+    return Block<T>{rows + t0 * Mp, static_cast<size_t>(Mp), 0, Mp, tile, Pm};
+  };
+  auto rows_of = [&](int g) { return min(R, f.B - g * R); };
+  auto issue = [&](int g, int b) {  // thread 0: tile g's rows into buffer b
+    const int nr = rows_of(g);
+    bulk::fence_async();
+    bulk::expect(bar + b, static_cast<unsigned>(nr * (Np + 2 * Mp) * isz));
+    for (int i = 0; i < 3; ++i) block(i, g, b, false).load(nr, bar + b);
+  };
+  if (tid == 0) {
+    unsat[0] = unsat[1] = 0;
+    bulk::init(bar);
+    bulk::init(bar + 1);
+    issue(blockIdx.x, 0);
+  }
+  __syncthreads();  // the barriers initialised
+  for (int i = 0, g = blockIdx.x; g < tiles; ++i, g += gridDim.x) {
+    const int b = i & 1, nr = rows_of(g);
+    if (tid == 0 && g + static_cast<int>(gridDim.x) < tiles) {
+      bulk::wait_read();  // the last tile's stores have read the other buffer
+      issue(g + gridDim.x, 1 - b);
+    }
+    bulk::wait(bar + b, (i >> 1) & 1);
+    T* v = buf + b * state + static_cast<size_t>(r) * Pv;
+    T* xs = buf + b * state + static_cast<size_t>(R) * Pv + static_cast<size_t>(r) * Pm;
+    T* xl = xs + static_cast<size_t>(R) * Pm;
+    const bool bad = clause_window<T, PAPER>(f, 0, Mp, grp, G, v, xs, xl, contrib, 1, zeta);
+    const unsigned m_bad = tile::lane_mask(bad, R);
+    if ((tid & 31) == 0 && m_bad) atomicOr(unsat + b, m_bad);
+    bulk::fence_async();
+    __syncthreads();  // dxs, dxl, the contributions and the flags published
+    if (tid == 0) {
+      block(1, g, b, true).store(nr);
+      block(2, g, b, true).store(nr);
+      bulk::commit();
+      unsat[1 - b] = 0;  // the next tile's flags: every read of them is behind this barrier
+    }
+    for (int i2 = grp; i2 < Np; i2 += G) v[i2] = csr_sum(f.occ_ptr, contrib, 1, i2);
+    bulk::fence_async();
+    __syncthreads();  // dv published
+    if (tid == 0) {
+      block(0, g, b, true).store(nr);
+      bulk::commit();
+    }
+    if (tid < nr) io.allsat[static_cast<size_t>(g) * R + tid] = ((unsat[b] >> tid) & 1u) ? 0 : 1;
+  }
+  if (tid == 0) bulk::wait_all();
+}
+
+// The streamed form: a CTA a tile, the clause axis in windows of C, the
+// contributions in the device scratch.
+template <typename T, bool PAPER>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks) rhs_streamed_kernel(Io<T> io, Pass f, T zeta) {
+  constexpr int isz = static_cast<int>(sizeof(T));
+  const int tid = static_cast<int>(threadIdx.x), nt = static_cast<int>(blockDim.x);
+  const int R = f.R, r = tid & (R - 1), grp = tid >> f.lg_r, G = nt >> f.lg_r;
+  const int Np = f.Np, Mp = f.Mp, C = f.C;
+  const int Pv = row_stride(Np, isz, R), Pw = row_stride(C, isz, R);
+  const size_t t0 = static_cast<size_t>(blockIdx.x) * R;
+  const int nr = min(R, static_cast<int>(f.B - t0));
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
+  unsigned* unsat = reinterpret_cast<unsigned*>(smem_raw + 16);
+  T* v = reinterpret_cast<T*>(smem_raw + kHeadBytes);
+  T* xs = v + static_cast<size_t>(R) * Pv;
+  T* xl = xs + static_cast<size_t>(R) * Pw;
+  T* contrib = io.scratch + static_cast<size_t>(blockIdx.x) * f.nnz * R + r;
+  if (tid == 0) {
+    *unsat = 0;
+    bulk::init(bar);
+  }
+  __syncthreads();  // the barrier initialised
+  unsigned parity = 0;
+  T* const v_row = v + static_cast<size_t>(r) * Pv;
+  bool bad = false;
+  for (int c0 = 0; c0 < Mp; c0 += C) {
+    const int w = min(C, Mp - c0);
+    const Block<T> in_w[2] = {
+        {const_cast<T*>(io.xs) + t0 * Mp, static_cast<size_t>(Mp), c0, w, xs, Pw},
+        {const_cast<T*>(io.xl) + t0 * Mp, static_cast<size_t>(Mp), c0, w, xl, Pw}};
+    if (c0 == 0) {
+      const Block<T> in[3] = {
+          {const_cast<T*>(io.v) + t0 * Np, static_cast<size_t>(Np), 0, Np, v, Pv}, in_w[0],
+          in_w[1]};
+      stage_in(in, nr, bar, parity);
+    } else {
+      stage_in(in_w, nr, bar, parity);
+    }
+    bad |= clause_window<T, PAPER>(f, c0, w, grp, G, v_row, xs + static_cast<size_t>(r) * Pw,
+                                   xl + static_cast<size_t>(r) * Pw, contrib, R, zeta);
+    const Block<T> out_w[2] = {{io.dxs + t0 * Mp, static_cast<size_t>(Mp), c0, w, xs, Pw},
+                               {io.dxl + t0 * Mp, static_cast<size_t>(Mp), c0, w, xl, Pw}};
+    stage_out(out_w, nr);  // also publishes the window's contributions
+    if (c0 + w < Mp) {  // the window is staged again once the stores have read it
+      if (tid == 0) bulk::wait_read();
+      __syncthreads();
+    }
+  }
+  const unsigned m_bad = tile::lane_mask(bad, R);
+  if ((tid & 31) == 0 && m_bad) atomicOr(unsat, m_bad);
+  for (int i = grp; i < Np; i += G) v_row[i] = csr_sum(f.occ_ptr, contrib, R, i);
+  const Block<T> out_v[1] = {{io.dv + t0 * Np, static_cast<size_t>(Np), 0, Np, v, Pv}};
+  stage_out(out_v, nr);  // dv and the flags published
+  if (tid < nr) io.allsat[t0 + tid] = ((*unsat >> tid) & 1u) ? 0 : 1;
+  if (tid == 0) bulk::wait_all();
+}
+
+template <typename T>
+int launch_tile(const Io<T>& io, const Pass& f, bool paper, bool resident, int threads,
+                size_t smem, T zeta, cudaStream_t st) {
+  const int tiles = (f.B + f.R - 1) / f.R;
+#define ODESAT_RHS(KERNEL, P)                                                                   \
+  {                                                                                             \
+    auto kernel = KERNEL<T, P>;                                                                 \
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, \
+                                           static_cast<int>(smem));                             \
+    if (err != cudaSuccess) return static_cast<int>(err);                                       \
+    int grid = tiles;                                                                           \
+    if (resident) {                                                                             \
+      int dev = 0, sms = 0, per_sm = 0;                                                         \
+      if ((err = cudaGetDevice(&dev)) != cudaSuccess ||                                         \
+          (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=          \
+              cudaSuccess ||                                                                    \
+          (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,        \
+                                                               smem)) != cudaSuccess)           \
+        return static_cast<int>(err);                                                           \
+      if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);                   \
+      grid = min(tiles, per_sm * sms);                                                          \
+    }                                                                                           \
+    kernel<<<grid, threads, smem, st>>>(io, f, zeta);                                           \
+    return static_cast<int>(cudaGetLastError());                                                \
+  }
+  if (resident) {
+    if (paper) ODESAT_RHS(rhs_resident_kernel, true) else ODESAT_RHS(rhs_resident_kernel, false)
+  }
+  if (paper) ODESAT_RHS(rhs_streamed_kernel, true) else ODESAT_RHS(rhs_streamed_kernel, false)
+#undef ODESAT_RHS
+}
+
+}  // namespace rhs
 
 }  // namespace
 
@@ -765,35 +1159,58 @@ int stream_chunk_launch(const float* v_in, const float* xs_in, const float* xl_i
                               bf16 != 0, smem, static_cast<cudaStream_t>(stream));
 }
 
-// B10, in float (is_double = 0) or double. Returns a cudaError_t code.
-int rhs_launch(int is_double, const void* v_in, const void* xs_in, const void* xl_in,
-               void* dv_out, void* dxs_out, void* dxl_out, unsigned char* allsat_out,
-               const int* lit_code, const int* occ_ptr, const int* occ_code, void* scratch,
-               const long long* place, long long row_words, int smem_bytes, int B, int Np,
-               int Mp, int K, int paper, int threads, double zeta, void* stream) {
-  Place p;
-  for (int i = 0; i < kItems; ++i) p.off[i] = place[i];
-  bool used[kItems] = {};
-  used[V] = used[M1] = used[M2] = true;
-  const size_t smem = static_cast<size_t>(smem_bytes);
-  const size_t itemsize = is_double ? sizeof(double) : sizeof(float);
-  if (smem_bytes > smem_optin() || !placement_ok(p, used, Np, Mp, smem, itemsize))
+// Whether a resident B10 launch takes these shapes and buffers: one
+// window, rows of whole 16-byte units at 16-byte addresses (its rows move
+// only as bulk copies).
+static bool rhs_resident_ok(int is_double, int Np, int Mp, int C,
+                            std::initializer_list<const void*> rows) {
+  const int unit = is_double ? 2 : 4;
+  for (const void* p : rows)
+    if (reinterpret_cast<size_t>(p) % 16 != 0) return false;
+  return C == Mp && Np % unit == 0 && Mp % unit == 0;
+}
+
+// B10 in float (is_double = 0) or double: tiles of R trajectories, CTAs
+// of `threads` threads, resident (the contributions in shared memory, C =
+// Mp) or streamed (windows of C clauses; `scratch` holds nnz*R elements
+// for each of the ceil(B / R) tiles); `segs` as for B1. Returns a
+// cudaError_t code (0 = launched).
+int rhs_launch(int is_double, const void* v_in, const void* xs_in, const void* xl_in, void* dv_out,
+               void* dxs_out, void* dxl_out, unsigned char* allsat_out, void* scratch,
+               const int* lit_code, const int* occ_ptr, const int* slot_pos, const int* segs,
+               int nseg, int B, int Np, int Mp, int nnz, int R, int C, int resident, int threads,
+               int paper, double zeta, void* stream) {
+  int lg = 0;
+  while (lg < 6 && (1 << lg) < R) ++lg;
+  if (R < 1 || R > rhs::kMaxLanes || (1 << lg) != R || threads < 32 || threads > rhs::kMaxThreads ||
+      threads % 32 != 0 || B < 1 || nseg < 1 || C < 1 || C > Mp ||
+      (!resident && scratch == nullptr) || (resident &&
+       !rhs_resident_ok(is_double, Np, Mp, C, {v_in, xs_in, xl_in, dv_out, dxs_out, dxl_out})))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Tables f{lit_code, occ_ptr, occ_code, Np, Mp, K};
+  const size_t smem = rhs::smem_bytes(is_double ? 8 : 4, resident != 0, Np, C, nnz, R);
+  const int optin = smem_optin();
+  if (optin < 0 || smem > static_cast<size_t>(optin))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const rhs::Pass f{lit_code, occ_ptr, slot_pos, segs, nseg, Np, Mp, nnz, B, R, lg, C};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define ODESAT_RHS(TYPE, P)                                                                  \
-  return launch(rhs_kernel<TYPE, P>, B, threads, smem, st, static_cast<const TYPE*>(v_in),  \
-                static_cast<const TYPE*>(xs_in), static_cast<const TYPE*>(xl_in),           \
-                static_cast<TYPE*>(dv_out), static_cast<TYPE*>(dxs_out),                    \
-                static_cast<TYPE*>(dxl_out), allsat_out, f, static_cast<TYPE>(zeta), p,     \
-                static_cast<TYPE*>(scratch), row_words)
-  if (is_double) {
-    if (paper) ODESAT_RHS(double, true);
-    ODESAT_RHS(double, false);
-  }
-  if (paper) ODESAT_RHS(float, true);
-  ODESAT_RHS(float, false);
-#undef ODESAT_RHS
+  if (is_double)
+    return rhs::launch_tile(
+        rhs::Io<double>{static_cast<const double*>(v_in), static_cast<const double*>(xs_in),
+                        static_cast<const double*>(xl_in), static_cast<double*>(dv_out),
+                        static_cast<double*>(dxs_out), static_cast<double*>(dxl_out), allsat_out,
+                        static_cast<double*>(scratch)},
+        f, paper != 0, resident != 0, threads, smem, zeta, st);
+  return rhs::launch_tile(
+      rhs::Io<float>{static_cast<const float*>(v_in), static_cast<const float*>(xs_in),
+                     static_cast<const float*>(xl_in), static_cast<float*>(dv_out),
+                     static_cast<float*>(dxs_out), static_cast<float*>(dxl_out), allsat_out,
+                     static_cast<float*>(scratch)},
+      f, paper != 0, resident != 0, threads, smem, static_cast<float>(zeta), st);
+}
+
+// B10's shared-memory bytes a CTA; the Python footprint uses the same formula.
+size_t rhs_smem_bytes(int is_double, int resident, int Np, int C, int nnz, int R) {
+  return rhs::smem_bytes(is_double ? 8 : 4, resident != 0, Np, C, nnz, R);
 }
 
 // B5 in mode 0 (rhs), 1 (fixed) or 2 (second); see ShardMode. The buffers

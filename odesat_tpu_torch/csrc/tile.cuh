@@ -1,6 +1,7 @@
 // The interleaved tile layout of the clause-mesh chunk kernels B6
 // (stream_chunk.cu) and B9 (stoch_chunk.cu), and the lane mask of the lane
-// tiles of B1/B2 (ode_lanes.cuh) and B3/B4 (stoch_chunk.cu).
+// tiles of B1/B2 (ode_lanes.cuh), B3/B4 (stoch_chunk.cu) and B10
+// (stream_chunk.cu).
 //
 // A chunk's per-trajectory buffers are laid out (G, X, R): tile g holds
 // trajectories g*R .. g*R+R-1, and element x of trajectory g*R+r lies at

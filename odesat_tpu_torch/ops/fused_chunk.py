@@ -372,9 +372,12 @@ def cached_tables(spec, decode):
     return hit[1]
 
 
-def _rhs_plain(v, xs, xl, spec: ChunkSpec, t: PlainTables):
+def _rhs_plain(v, xs, xl, spec: ChunkSpec, t: PlainTables, partial_sums: int = 1):
     """One RHS pass; returns (dv, dxs, dxl, allsat) exactly as the
-    kernel's clause and variable phases compute them."""
+    kernel's clause and variable phases compute them. dv sums each CSR list
+    in list order, in one running sum (B1, B2, B5, B6) or, with
+    ``partial_sums=4`` (B10), in four, taking list positions 0, 1, 2, 3 mod
+    4 and added as (s0 + s1) + (s2 + s3)."""
     B = v.shape[0]
     vv = _bf16(v) if spec.bf16 else v
     g = vv[:, t.lit_var]  # (B, K, Mp)
@@ -401,9 +404,10 @@ def _rhs_plain(v, xs, xl, spec: ChunkSpec, t: PlainTables):
     contrib = torch.where(t.lit_on, torch.where(t.negated, cp, -cp), 0.0)
     flat = torch.cat([contrib.reshape(B, -1), contrib.new_zeros(B, 1)], dim=1)
     picked = flat[:, t.occ_pad]  # (B, Np, D)
-    dv = torch.zeros_like(v)
+    acc = [torch.zeros_like(v) for _ in range(partial_sums)]
     for d in range(picked.shape[-1]):  # fixed order, as the kernel sums
-        dv = dv + picked[:, :, d]
+        acc[d % partial_sums] = acc[d % partial_sums] + picked[:, :, d]
+    dv = acc[0] if partial_sums == 1 else (acc[0] + acc[1]) + (acc[2] + acc[3])
     on = spec.clause_on
     dxs = torch.where(on, BETA * (xs + EPSILON) * (c - GAMMA), 0.0)
     dxl = torch.where(on, ALPHA * (c - DELTA), 0.0)

@@ -87,6 +87,10 @@ from odesat_tpu_torch.ops.tiles import TILE, n_tiles, rows_of, tile, untile
 # Kernel launches made through shard_chunk_cuda in this process (every
 # phase). A plain integer that callers may reset; chip_smoke.py reads it.
 launches = 0
+# The dv all-reduces the chunk runner issues between B6's launches: the
+# torch.distributed counterpart of the TPU kernel's in-kernel butterfly B7
+# (odesat_tpu/ops/butterfly.py:99), counted where they are issued.
+allreduces = 0
 
 PHASES = {"step": 0, "apply": 1, "first": 2, "half": 3, "commit": 4}
 
@@ -351,8 +355,10 @@ def make_shard_chunk(fa, zeta: float, ode, chunk_steps: int, clause_group=None,
     spec = shard_spec(fa, zeta, ode, device, shard)
 
     def reduce(t, op="sum"):
+        global allreduces
         if clause_group is not None:
             all_reduce(t, clause_group, op)
+            allreduces += 1
 
     def run(state, dev=None):
         B = state.v.shape[0]

@@ -87,12 +87,7 @@ from odesat_tpu_torch.ops.fused_chunk import (
     plain_tables,
     spec_fields,
 )
-from odesat_tpu_torch.ops.stream_chunk import (
-    RED_WORDS,
-    load_library,
-    occurrence_codes,
-    raise_for,
-)
+from odesat_tpu_torch.ops.stream_chunk import load_library, occurrence_codes, raise_for
 from odesat_tpu_torch.ops.tiles import TILE, rows_of, tile, untile
 
 SPAN = 128  # the clause-segment alignment of the JAX layout, kept for array equality
@@ -251,7 +246,7 @@ def v_fits_one_cta(Np: int) -> bool:
     design B5's and B6's gate was written for, kept so that the same
     formulas take the kernels; the tiled kernels hold nothing of a
     trajectory in shared memory."""
-    return 4 * (RED_WORDS + Np) <= SMEM_LIMIT_BYTES
+    return 4 * (32 + Np) <= SMEM_LIMIT_BYTES
 
 
 def stream_shard_supported(fa: FormulaArrays, plan: Optional[ShardPlan] = None,

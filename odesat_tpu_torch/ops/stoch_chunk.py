@@ -666,6 +666,7 @@ def make_stoch_shard_eval(fa: FormulaArrays, device, shard: int = 0,
 # the variable sums gather.
 
 shard_chunk_launches = 0  # B9 launches, as shard_launches counts B8's
+shard_allreduces = 0  # the all-reduces between B9's launches (B7), as shard_chunk.allreduces
 
 
 def stoch_shard_supported(fa: FormulaArrays) -> bool:
@@ -761,6 +762,7 @@ def make_stoch_shard_chunk(fa: FormulaArrays, chunk_steps: int, device, shard: i
     bf16 = matmul_dtype == "bfloat16"
 
     def fn(state, seed: int):
+        global shard_allreduces
         kind = state.v.device.type
         if kind not in ("cuda", "cpu"):
             raise ValueError(f"no stoch shard chunk path for tensors on {state.v.device}")
@@ -781,6 +783,7 @@ def make_stoch_shard_chunk(fa: FormulaArrays, chunk_steps: int, device, shard: i
                                       evaluate=t < chunk_steps)
             if t < chunk_steps and clause_group is not None:
                 all_reduce(acc, clause_group)
+                shard_allreduces += 1
         return state._replace(v=untile(v, B), xl=untile(xl, B), done=untile(done, B))
 
     fn.spec = spec

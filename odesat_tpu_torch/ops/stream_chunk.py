@@ -76,52 +76,6 @@ launches = 0
 # B2 computes what B1 computes: its plain version is B1's, under its own name.
 stream_chunk_plain = fused_chunk_plain
 
-# The placement of B10 (ops/rhs_kernel.py), one CTA a trajectory: its arrays
-# in shared memory while they fit, the rest in a scratch row a trajectory.
-RED_WORDS = 32  # reduction scratch at the start of shared memory (csrc kRed)
-# the kernels' `enum Item`, in order
-ITEMS = ("v", "hv", "fv", "m1", "m2", "xs", "xl", "hxs", "hxl", "fxs", "fxl")
-# placement order: gathered K times per clause, then per occurrence
-_PRIORITY = ("v", "m1", "m2", "hxs", "hxl")
-_RESIDENT = ("v",)  # must be in shared memory
-MAX_THREADS = 512
-
-
-@dataclass(frozen=True)
-class Layout:
-    """Where a trajectory's arrays live, as the kernel's ``Place`` reads
-    it: ``place[i]`` for ``ITEMS[i]`` is an element offset into shared
-    memory when >= 0, and ``-(offset + 1)`` into the trajectory's scratch
-    row when < 0 (0 for an item the mode does not use)."""
-
-    place: tuple
-    smem_bytes: int
-    row_words: int  # scratch elements per trajectory
-
-
-def place_items(sizes: dict, itemsize: int, limit: int = SMEM_LIMIT_BYTES) -> Optional[Layout]:
-    """Place the arrays ``sizes`` (name -> elements) greedily in
-    ``_PRIORITY`` order: into shared memory while the next one fits under
-    ``limit`` bytes, else into the scratch row. None when a resident array
-    does not fit."""
-    smem, row = RED_WORDS, 0
-    place = [0] * len(ITEMS)
-    for name in _PRIORITY:
-        n = sizes.get(name)
-        if n is None:
-            continue
-        i = ITEMS.index(name)
-        if (smem + n) * itemsize <= limit:
-            place[i] = smem
-            smem += n
-        elif name in _RESIDENT:
-            return None
-        else:
-            place[i] = -(row + 1)
-            row += n
-    return Layout(tuple(place), smem * itemsize, row)
-
-
 def stream_smem_bytes(Np: int, fixed: bool, lanes: int = 1) -> int:
     """B2's shared memory at ``lanes`` trajectories, as ``csrc/ode_lanes.cuh``
     carves it (``stream_chunk_smem_bytes``): the lane flags and errors (3 +
@@ -161,16 +115,9 @@ def slot_positions(t: ChunkTables) -> np.ndarray:
 
 def occurrence_codes(t: ChunkTables) -> np.ndarray:
     """``2*m + negated`` for each occurrence of ``t``'s CSR lists, in their
-    order: the clause column and sign that B5's and B6's pass and B10's variable
-    phase read."""
+    order: the clause column and sign that B5's and B6's pass read."""
     slots = t.occ_slot.astype(np.int64)
     return (2 * (slots % t.Mp) + (t.lit_code[slots] & 1)).astype(np.int32)
-
-
-def kernel_threads(Mp: int) -> int:
-    """Threads per CTA of B10: about two clauses a thread, whole
-    warps, 64 to ``MAX_THREADS``."""
-    return min(MAX_THREADS, max(64, 32 * -(-Mp // 64)))
 
 
 @dataclass(frozen=True)
@@ -214,7 +161,6 @@ def stream_spec(fa: FormulaArrays, zeta: float, ode, device) -> StreamSpec:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_LL = ctypes.c_longlong
 
 
 def _declare(lib) -> None:
@@ -224,10 +170,10 @@ def _declare(lib) -> None:
     lib.stream_chunk_smem_bytes.restype = ctypes.c_size_t
     lib.stream_chunk_scratch_floats.argtypes = [_I] * 5
     lib.stream_chunk_scratch_floats.restype = ctypes.c_size_t
-    lib.rhs_launch.argtypes = (
-        [_I] + [_P] * 11 + [ctypes.POINTER(_LL), _LL] + [_I] * 7 + [ctypes.c_double, _P]
-    )
+    lib.rhs_launch.argtypes = [_I] + [_P] * 12 + [_I] * 10 + [ctypes.c_double, _P]  # B10
     lib.rhs_launch.restype = _I
+    lib.rhs_smem_bytes.argtypes = [_I] * 6
+    lib.rhs_smem_bytes.restype = ctypes.c_size_t
     lib.shard_stream_launch.argtypes = (  # B5 (ops/shard_stream.py)
         [_I] + [_P] * 12 + [_I] + [_P] * 3 + [_I] * 7 + [_F] * 2 + [_P]
     )
@@ -246,12 +192,6 @@ def load_library():
     """Build (at first use) and load ``csrc/stream_chunk.cu`` (B2, B5, B6 and B10).
     Returns ``(lib, build)``."""
     return _cuda.load("stream_chunk", _declare)
-
-
-def place_arg(layout: Layout):
-    """The layout's placement as the ``const long long*`` the C entry
-    points take."""
-    return (_LL * len(ITEMS))(*layout.place)
 
 
 def raise_for(lib, rc: int, what: str) -> None:

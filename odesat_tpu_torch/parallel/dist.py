@@ -127,3 +127,22 @@ def time_all_reduce(mesh, device, shape, iters: int = 10) -> float:
         all_reduce(t, mesh.clause_group)
     sync()
     return (time.perf_counter() - t0) / iters * 1e3
+
+
+def all_reduce_error(mesh, device, shape, seed: int = 0) -> float:
+    """B7 against its plain version: the max abs difference between the
+    all-reduce (SUM) over this rank's clause group of a float32 buffer of
+    ``shape`` drawn from ``(seed, rank)`` and the sum, in rank order, of
+    every group rank's buffer drawn here."""
+    ranks = dist.get_process_group_ranks(mesh.clause_group)
+
+    def draw(rank):
+        gen = torch.Generator().manual_seed(seed * 1000003 + rank)
+        return torch.rand(shape, generator=gen).to(device)
+
+    t = all_reduce(draw(dist.get_rank()), mesh.clause_group)
+    plain = draw(ranks[0])
+    for rank in ranks[1:]:
+        plain = plain + draw(rank)
+    return float((t - plain).abs().max())
+

@@ -54,6 +54,8 @@ _COUNTERS = (
     ("stoch_stream", "odesat_tpu_torch.ops.stoch_chunk", "stream_launches"),
     ("stoch_shard_eval", "odesat_tpu_torch.ops.stoch_chunk", "shard_launches"),
     ("stoch_shard_chunk", "odesat_tpu_torch.ops.stoch_chunk", "shard_chunk_launches"),
+    ("allreduce_b6", "odesat_tpu_torch.ops.shard_chunk", "allreduces"),
+    ("allreduce_b9", "odesat_tpu_torch.ops.stoch_chunk", "shard_allreduces"),
 )
 CUDA_SOURCES = ("fused_chunk", "stream_chunk", "stoch_chunk")
 

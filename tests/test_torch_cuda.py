@@ -9,8 +9,9 @@ on a machine without it:
 Tolerances: the chunk kernels B1 and B2 equal their plain version exactly
 (they run its arithmetic in its order, built with --fmad=false); the torch
 twin on the card against the CPU to rtol 1e-4 / atol 1e-5 (other sum
-orders); B10 to float32 rtol 2e-4 / atol 2e-5 (tests/test_fused.py's);
-repeats bit-identical.
+orders); B10 equals its plain version (the kernel-order RHS) exactly and the
+twin to float32 rtol 2e-4 / atol 2e-5 (tests/test_fused.py's), float64
+1e-12; repeats bit-identical.
 """
 
 import numpy as np
@@ -434,34 +435,90 @@ def test_simulate_batch_and_solve_go_through_b2(cuda, capsys, tmp_path):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 7, 33, 1000])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("rigidity", ["paper", "reference"])
 @pytest.mark.parametrize("bucket", [False, True])
-def test_rhs_kernel_matches_the_twin(cuda, dtype, rigidity, bucket):
-    """B10 against the twin's gather RHS (the plain version): f32 to rtol
-    2e-4 / atol 2e-5, f64 to 1e-12; the two sum in other orders."""
+def test_rhs_kernel_matches_the_twin(cuda, B, dtype, rigidity, bucket):
+    """B10 against its plain version (the kernel-order RHS) bit for bit, at
+    every R from 1 to the most that fit in the wrapper's form and in the
+    streamed form forced into windows of 32 clauses at small R; then the
+    wrapper's own launch against the plain version and the twin's gather
+    RHS: f32 to rtol 2e-4 / atol 2e-5, f64 to 1e-12 (the twin sums in
+    another order)."""
     from odesat_tpu_torch.ops import rhs_kernel as rk
 
     fa = compile_formula(_formula(widths=(2, 3, 5)), bucket=bucket, min_bucket=32)
     rng = np.random.default_rng(4)
-    B = 33
     v = torch.as_tensor(rng.uniform(-1, 1, (B, fa.n_vars_padded)), dtype=dtype, device=cuda)
     xs = torch.as_tensor(rng.uniform(0.001, 0.999, (B, fa.n_clauses_padded)), dtype=dtype,
                          device=cuda)
     xl = torch.as_tensor(rng.uniform(1, 50, (B, fa.n_clauses_padded)), dtype=dtype, device=cuda)
     name = "float64" if dtype == torch.float64 else "float32"
+    spec = rk.rhs_spec(fa, 0.05, rigidity, cuda)
+    plain = rk.rhs_plain(v, xs, xl, spec)
+    itemsize = 8 if dtype == torch.float64 else 4
+    best = rk.rhs_plan(spec.Np, spec.Mp, spec.nnz, itemsize)
+    # every R the wrapper's form takes, and the streamed form in windows of 32
+    plans = [(R, best.resident, None)
+             for R in rk.rhs_lane_range(spec.Np, spec.Mp, spec.nnz, itemsize, best.resident)]
+    plans += [(R, False, 32) for R in (1, 2)]
+    lib, _ = rk.load_library()
+    for R, resident, window in plans:
+        plan = rk.rhs_plan(spec.Np, spec.Mp, spec.nnz, itemsize, R, resident, window)
+        assert lib.rhs_smem_bytes(int(itemsize == 8), int(plan.resident), spec.Np, plan.window,
+                                  spec.nnz, R) == plan.smem_bytes
+        before = rk.launches
+        out = rk.rhs_cuda(v, xs, xl, spec, plan)
+        torch.cuda.synchronize()
+        assert rk.launches == before + 1
+        for a, b in zip(out, plain):
+            assert torch.equal(a, b), (R, resident, window)
     fn = rk.make_rhs_kernel(fa, 0.05, rigidity, name)
     dev = tode.formula_device(fa, cuda, dtype)
-    before = rk.launches
     out = fn(v, xs, xl, dev)
     buckets = fa.bucket_slices if len(fa.bucket_slices) > 1 else None
-    ref = rk.rhs_plain(v, xs, xl, dev, 0.05, rigidity, buckets)
+    ref = rk.rhs_twin(v, xs, xl, dev, 0.05, rigidity, buckets)
     torch.cuda.synchronize()
-    assert rk.launches == before + 1
+    for a, b in zip(out, plain):
+        assert torch.equal(a, b)
     tol = F32 if dtype == torch.float32 else dict(rtol=1e-12, atol=1e-12)
     for a, b in zip(out[:3], ref[:3]):
         torch.testing.assert_close(a, b, **tol)
     assert torch.equal(out[3], ref[3])
+
+
+@pytest.mark.cuda
+def test_rhs_launch_past_the_gate_raises(cuda):
+    """Plans the kernel does not take (more shared memory than a CTA may
+    use, more lanes or threads than it is built for, a resident window
+    short of Mp) are refused at launch and launch nothing; past the gate
+    the wrapper refuses the formula instead of running the twin."""
+    from dataclasses import replace
+    from types import SimpleNamespace
+
+    from odesat_tpu_torch.ops import rhs_kernel as rk
+
+    fa = compile_formula(normalize_cnf_variables(random_ksat(2000, 8000, k=3, seed=11))[1])
+    spec = rk.rhs_spec(fa, 0.05, "paper", cuda)
+    v = torch.zeros((4, fa.n_vars_padded), device=cuda)
+    xs = torch.full((4, fa.n_clauses_padded), 0.5, device=cuda)
+    xl = torch.ones_like(xs)
+    plan = rk.launch_plan(spec, 4, torch.float32)
+    too_big = rk.RhsPlan(2, True, spec.Mp, rk.rhs_smem_bytes(spec.Np, spec.Mp, spec.nnz, 4, 2,
+                                                               True), 512)
+    assert too_big.smem_bytes > rk.SMEM_LIMIT_BYTES
+    before = rk.launches
+    for bad in (too_big, replace(plan, lanes=16), replace(plan, threads=2048),
+                rk.RhsPlan(1, True, 64, rk.rhs_smem_bytes(spec.Np, 64, spec.nnz, 4, 1, True),
+                           256)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            rk.rhs_cuda(v, xs, xl, spec, bad)
+    assert rk.launches == before
+    wide = SimpleNamespace(min_width=3, n_vars_padded=58112, n_clauses_padded=128,
+                           lit_mask=np.ones((3, 128), np.int8))
+    with pytest.raises(ValueError, match="shared memory"):
+        rk.make_rhs_kernel(wide, 0.05)
 
 
 # ------------- clause shards: B5 (shard RHS), B8 (stoch eval), B6 and B9 (chunks)

@@ -49,7 +49,6 @@ from odesat_tpu_torch.ops import shard_chunk as sch  # noqa: E402
 from odesat_tpu_torch.ops import shard_stream as ss  # noqa: E402
 from odesat_tpu_torch.ops import stoch_chunk as sc  # noqa: E402
 from odesat_tpu_torch.ops.fused_chunk import SMEM_LIMIT_BYTES, _clamp  # noqa: E402
-from odesat_tpu_torch.ops.stream_chunk import place_items  # noqa: E402
 from odesat_tpu_torch.ops.tiles import TILE, n_tiles, tile, untile  # noqa: E402
 from odesat_tpu_torch.parallel import sharded  # noqa: E402
 from odesat_tpu_torch.utils.config import ODEConfig  # noqa: E402
@@ -335,9 +334,10 @@ def test_tiled_entries_refuse_other_devices():
 @pytest.mark.parametrize("Mp", [128, 43776])
 def test_ode_gate_is_unchanged_at_the_boundary(Np, Mp):
     """B5's (and so B6's) gate takes exactly the formulas the
-    one-CTA-a-trajectory placement took: v (f32) resident beside the
-    reduction scratch, the clause words spilling where they do not fit."""
-    before = place_items(dict(v=Np, m1=Mp, m2=Mp, hxs=Mp, hxl=Mp), 4) is not None
+    one-CTA-a-trajectory placement took: v (f32) resident beside 32 words
+    of reduction scratch, the clause words spilling where they do not fit,
+    so the placement held exactly when v and the scratch fit."""
+    before = 4 * (Np + 32) <= SMEM_LIMIT_BYTES
     assert ss.v_fits_one_cta(Np) == before == (Np <= 58080)
     plan = SimpleNamespace(n_shards=1, mp_local=Mp)
     fa = SimpleNamespace(shard_plan=plan, min_width=3, n_vars_padded=Np)

@@ -1,7 +1,7 @@
 """The large-formula chunk kernel B2 (odesat_tpu_torch/ops/stream_chunk.py)
 and the single-step RHS kernel B10 (ops/rhs_kernel.py) on the CPU, where
 each wrapper runs its plain version: B2's is B1's ``fused_chunk_plain``,
-B10's the twin's ``gather`` RHS.
+B10's B1's RHS pass over B10's tables (``rhs_plain``).
 
 They are held against the JAX package's Pallas kernels run in interpret
 mode (``odesat_tpu.ops.stream_pallas.make_stream_chunk`` and
@@ -157,26 +157,14 @@ def test_rejections():
             0.01, interpret=True)
 
 
-def test_layout_places_the_resident_arrays_first():
-    """The placement of B10 and B5 (``place_items``) is exact word
-    arithmetic: v first, then the clause words, spilling whole arrays to the
-    scratch row; a formula whose v does not fit is refused. B2 keeps only
-    its v window (and hv) in shared memory, R trajectories of it, and the
-    same formulas fit at R = 1."""
-    small = sc.place_items(dict(v=128, m1=256, m2=256), 4)
-    assert small.row_words == 0 and small.smem_bytes == 4 * (32 + 128 + 2 * 256)
-    assert small.place[sc.ITEMS.index("v")] == 32
-    # B5's second pass at the locally-structured n=4096 instance: Np=4096, Mp=17280
-    second = sc.place_items(dict(v=4096, m1=17280, m2=17280, hxs=17280, hxl=17280), 4)
-    assert second.smem_bytes == 4 * (32 + 4096 + 3 * 17280) <= sc.SMEM_LIMIT_BYTES
-    assert second.place[sc.ITEMS.index("hxl")] == -1 and second.row_words == 17280
-    edge = sc.SMEM_LIMIT_BYTES // 4 - 32
-    assert sc.place_items(dict(v=edge + 1, m1=128), 4) is None
-    assert sc.place_items(dict(v=edge, m1=128), 4).row_words == 128
-    # B2 at the n=4096 shapes: 8 (fixed) and 4 (adaptive) trajectories a CTA
+def test_stream_lanes_take_the_v_window():
+    """B2 keeps only its v window (and hv) in shared memory, R trajectories
+    of it: 8 (fixed) and 4 (adaptive) a CTA at the n=4096 shapes, the lane
+    words beside them, and one trajectory where v and hv alone nearly fill
+    the CTA."""
     assert sc.stream_lanes(4096, True) == 8 and sc.stream_lanes(4096, False) == 4
     assert sc.stream_smem_bytes(4096, True, 8) == 4 * (3 + 24 + 8 * 4096)
-    half = (sc.SMEM_LIMIT_BYTES // 4 - 32) // 2  # v and hv of one trajectory, as before
+    half = (sc.SMEM_LIMIT_BYTES // 4 - 32) // 2  # v and hv of one trajectory
     assert sc.stream_lanes(half, False) == 1 and sc.stream_lanes(128, False) == 32
 
 
@@ -309,8 +297,11 @@ def test_pallas_step_matches_jax_pallas_step(mode):
 
 
 def test_rhs_gate():
+    """B10 takes the mixed fixture in both dtypes; at the n=4096 shapes the
+    float64 tile streams its clause state; one trajectory's float64 v past
+    a CTA is refused."""
     fa = formula_arrays_from_numpy(_mixed_fixture())
     assert rk.rhs_supported(fa) and rk.rhs_supported(fa, "float64")
-    lay = rk.rhs_layout(4096, 17280, 8)  # f64 clause words spill at Mp=17280
-    assert lay.place[sc.ITEMS.index("v")] == 32 and lay.row_words > 0
-    assert rk.rhs_layout(sc.SMEM_LIMIT_BYTES // 8, 128, 8) is None
+    plan = rk.rhs_plan(4096, 17280, 51609, 8)
+    assert not plan.resident and plan.lanes == 4 and plan.smem_bytes <= sc.SMEM_LIMIT_BYTES
+    assert rk.rhs_plan(sc.SMEM_LIMIT_BYTES // 8, 128, 384, 8) is None
