@@ -2,8 +2,9 @@
 """Quickest proof that the PyTorch port (odesat_tpu_torch) runs on an
 NVIDIA GPU: builds the CUDA kernels from this checkout, holds each against
 its plain torch version, and drives the port's main paths (``python -m
-odesat_tpu_torch inter``, ``stoch``, ``solve`` and ``batch``, in process)
-through them.
+odesat_tpu_torch inter``, ``stoch``, ``solve``, ``batch`` and ``hybrid``,
+in process) through them, with checkpoint and resume, a profiler trace and
+the exact time-to-solution protocol.
 
 Run from the root of a checkout on a machine with one Hopper GPU and nvcc:
 
@@ -128,7 +129,8 @@ Phases, each printing its lines; the first failure exits non-zero:
     B6 chunk over an NCCL world of one equal the mesh-free B5 runner bit for
     bit; e. inter --devices 2 on uf250 B=4096 through B1 equals the T=1 run
     row for row; the B5 and B8 solves and parity checks of b and c, e's
-    mesh run and phase 21's all-reduce timing share one spawned world;
+    mesh run and phase 21's all-reduce timing share one spawned world, as
+    do phase 23's mesh runs;
 21. timing at the config 7 instance, B=1024, S=1: B5 fixed and second and
     B8 per launch on tiled buffers allocated once, as their runners run
     them, beside the one-CTA-a-trajectory (chain) kernels they replaced,
@@ -139,7 +141,34 @@ Phases, each printing its lines; the first failure exits non-zero:
     counter-hash uniform draw's share of a B8-path step; and the gloo
     all-reduce per step at S=2 (staged through the host), beside B7's
     bound (the buffer down and back through pinned host memory) and its
-    plain version (the two ranks' buffers summed on the card).
+    plain version (the two ranks' buffers summed on the card);
+22. the hybrid main path through the CLI: hybrid --no-preprocess on
+    hard.cnf at -b 16384 -s 0.01 -n 4096 ends "Winner: none after 4096
+    steps per engine" and false through B1 and B3, with each engine's
+    traj*steps/s and chain*steps/s and the split of the engines' time (CUDA
+    events around their launches); hybrid on uf250 at -b 4096 verifies
+    true; hybrid on the n=1k instance (preprocessed) at -b 8192 -n 1024
+    runs B2 and B4 and verifies a solved row or ends false after exactly
+    1024 steps;
+23. resume equals the uninterrupted run bit for bit, in process through
+    the library calls: ODE fixed hard.cnf B=16384 (B1), ODE n1k B=512
+    (B2), stoch hard.cnf B=16384 (B3), stoch n1k B=8192 (B4) and the
+    hybrid on hard.cnf B=16384: a run stopped partway (its last snapshot),
+    resumed, ends in the final state and steps of a run with the same
+    cadence that never stopped; a --profile-dir inter solve on hard.cnf
+    (python -m odesat_tpu_torch, its own process) writes a chrome trace that
+    names B1's kernel; in phase 20's world: the
+    hybrid on uf250 at --clause-shards 2 verifies true through B6 and B9,
+    inter (B6) and stoch (B9) snapshots on hard.cnf B=1024 at S=2 resume on
+    S=2 to the very
+    snapshot of the uninterrupted mesh run and are refused on S=1 with the
+    JAX package's message;
+24. exact time to solution (odesat_tpu_torch/tools/uf250_tts.py): solve_exact on
+    uf250 seeds 0-2, B=4096, fixed dt=0.01, bf16 rounding, through B1,
+    each verified, with steps, chunks, compute / dispatch / residual
+    seconds and the kernel rate; instance 0's exact step equals the first
+    step at which one-step B1 launches from the same state leave a row
+    done.
 
 ``python3 chip_smoke.py --time-b10 ROOT`` times B10 of the checkout at ROOT
 (a parent tree unpacked beside this one) as phase 17 times this one.
@@ -1878,13 +1907,25 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
     off_runs = (("b. inter", "inter", c7_inter + ["-n", "16"] + off + gloo, "shard_stream"),
                 ("c. stoch", "stoch", c7_stoch + ["-n", "16"] + off + gloo, "stoch_shard_eval"))
     calls += [cli.mesh_call([cmd, *args]) for _, cmd, args, _ in off_runs]
-    two, *stoch_two, traj_two, allreduce_ms, allreduce_err, b_off, c_off = launch.spawn(
-        launch.run_all, 1, 2, "gloo", "cuda", timeout_s=600, args=(calls,))
+    # 23 in this world: the hybrid at S=2 through B6 and B9, and S=2 snapshots
+    # resumed on S=2 (whole, stopped and resumed runs of inter and stoch)
+    hybrid_argv = ["hybrid", "-f", uf_path, "-b", "4096", "-s", "0.01", "--seed", "0",
+                   "--no-preprocess", *gloo]
+    resume_runs = mesh_resume_argv()
+    calls += [cli.mesh_call(hybrid_argv)]
+    calls += [cli.mesh_call([*argv, *gloo]) for _, argv in resume_runs]
+    values = launch.spawn(launch.run_all, 1, 2, "gloo", "cuda", timeout_s=600, args=(calls,))
+    two, stoch_two = values[0], values[1:3]
+    traj_two, allreduce_ms, allreduce_err, b_off, c_off, hyb_two = values[3:9]
+    resumed_two = values[9:]
     # run_all zeroes every count before each call: each call's launches per rank
     per_call = [{k: [r["calls"][i][k] for r in launch.last_reports]
                  for k in (*totals, "fused_chunk")} for i in range(len(calls))]
     ran = (("shard_chunk", "shard_stream"), ("stoch_shard_chunk",), ("stoch_shard_eval",),
-           ("fused_chunk",), (), (), ("shard_stream",), ("stoch_shard_eval",))
+           ("fused_chunk",), (), (), ("shard_stream",), ("stoch_shard_eval",),
+           ("shard_chunk", "stoch_shard_chunk"),
+           *((("shard_chunk",) if argv[0] == "inter" else ("stoch_shard_chunk",))
+             for _, argv in resume_runs))
     for i, (kernels, counts) in enumerate(zip(ran, per_call)):
         if any(len(counts[k]) != 2 or min(counts[k]) == 0 for k in kernels) or \
                 any(sum(c) for k, c in counts.items() if k not in kernels):
@@ -1960,7 +2001,97 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
         f"(1024, {fa7_1.n_vars_padded + 1}) all-reduce equal to the two ranks' buffers summed "
         f"(max abs err {allreduce_err}) ({card})")
     totals["allreduce"] = allreduces
+    phase_mesh_hybrid_and_resume(hyb_two, per_call[8], uf_path, resume_runs, resumed_two,
+                                 per_call[9:], totals, card)
     return totals, allreduce_ms, allreduce_err
+
+
+def mesh_resume_argv():
+    """Phase 23's S=2 snapshot runs, for phase 20's world: inter (B6) and
+    stoch --no-preprocess (B9) on hard.cnf B=1024, 16-step chunks, a
+    snapshot every chunk: 64 steps whole, 32 stopped, 32 more resumed."""
+    hard = os.path.join(ROOT, "tests", "data", "hard.cnf")
+    folder = os.path.join(OUT, "mesh_resume")
+    os.makedirs(folder, exist_ok=True)
+    runs = []
+    for cmd, extra in (("inter", ["-s", "0.01"]), ("stoch", ["--no-preprocess"])):
+        for name, steps, resume in (("whole", 64, None), ("part", 32, None),
+                                    ("resumed", 64, "part")):
+            path = os.path.join(folder, f"{cmd}_{name}.npz")
+            argv = [cmd, "-f", hard, "-b", "1024", "--seed", "0", "--chunk-steps", "16",
+                    "-n", str(steps), *extra, "--checkpoint", path, "--checkpoint-every", "1"]
+            if resume:
+                argv += ["--resume", os.path.join(folder, f"{cmd}_{resume}.npz")]
+            runs.append((path, argv))
+    return runs
+
+
+def same_snapshot(a, b):
+    """The keys of two snapshot files on which they differ (none: equal)."""
+    import numpy as np
+
+    with np.load(a) as x, np.load(b) as y:
+        if sorted(x.files) != sorted(y.files):
+            return ["the key lists"]
+        return [k for k in x.files if not np.array_equal(x[k], y[k])]
+
+
+def phase_mesh_hybrid_and_resume(hyb, hyb_counts, uf_path, resume_runs, results, counts,
+                                 totals, card):
+    """Phase 23's mesh part, from phase 20's world: the hybrid on uf250 at
+    S=2 verifies through B6 and B9; each S=2 resumed run ends in the very
+    snapshot of the run that never stopped; the S=2 snapshots are refused
+    on S=1 with the JAX package's message."""
+    from odesat_tpu_torch import cli
+    from odesat_tpu_torch.cnf import (
+        evaluate_cnf,
+        map_values_by_indices,
+        normalize_cnf_variables,
+        parse_dimacs_file,
+    )
+
+    formula = parse_dimacs_file(uf_path)
+    mapping, _ = normalize_cnf_variables(formula)
+    ok = evaluate_cnf(map_values_by_indices(mapping, hyb.assignment), formula)
+    say(f"[mesh hybrid] hybrid uf250 B=4096 --no-preprocess --clause-shards 2 (gloo): winner "
+        f"{hyb.engine} after {hyb.steps} steps per engine, verdict {str(ok).lower()}, B6 "
+        f"launches per rank {hyb_counts['shard_chunk']}, B9 {hyb_counts['stoch_shard_chunk']} "
+        f"({card})")
+    if not (hyb.solved and ok):
+        fail("the hybrid on uf250 at S=2 did not verify a satisfying assignment")
+    totals["shard_chunk"] += sum(hyb_counts["shard_chunk"])
+    totals["stoch_shard_chunk"] += sum(hyb_counts["stoch_shard_chunk"])
+    for i in range(0, len(resume_runs), 3):
+        (whole, argv), (part, _), (resumed, _) = resume_runs[i:i + 3]
+        steps = [r.steps for r in results[i:i + 3]]
+        bad = same_snapshot(whole, resumed)
+        kernel = "shard_chunk" if argv[0] == "inter" else "stoch_shard_chunk"
+        if steps != [64, 32, 64] or bad:
+            fail(f"{argv[0]} at S=2: the resumed run's snapshot differs from the whole run's "
+                 f"in {bad} (steps {steps})")
+        what = "ODE" if argv[0] == "inter" else "stoch"
+        axes = " clause axis of the" if what == "ODE" else ""
+        want = (f"cannot resume this {what} snapshot: it was taken on a (traj=1, clause=2) mesh "
+                f"but this run uses (traj=1, clause=1); resume with the same{axes} "
+                "--devices/--clause-shards layout")
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err), contextlib.redirect_stdout(io.StringIO()):
+            try:
+                cli.main([*argv[:argv.index("--checkpoint")], "--resume", part])
+                code = 0
+            except SystemExit as e:
+                code = e.code
+        if code != 2 or want not in err.getvalue():
+            fail(f"the S=2 {what} snapshot was not refused on S=1 as JAX refuses it: exit "
+                 f"{code}, {err.getvalue().strip()}")
+        launched = [c[kernel] for c in counts[i:i + 3]]
+        say(f"[mesh resume] {argv[0]} hard.cnf B=1024 --clause-shards 2 (gloo), 16-step "
+            f"chunks, a snapshot every chunk: stopped at 32 steps and resumed to 64, the final "
+            f"snapshot (v, xs/xl whole, done, steps, generator states) equals the uninterrupted "
+            f"run's bit for bit; {kernel} launches per rank and run {launched}; on S=1 refused: "
+            f"{want!r} ({card})")
+        for path, _ in resume_runs[i:i + 3]:
+            os.remove(path)
 
 
 def phase_nccl_world_of_one(torch, fa7):
@@ -2188,6 +2319,272 @@ def phase_shard_timing(torch, ss, sch, sc, fa7, allreduce_ms, card):
     return times
 
 
+# ------------------------------ the hybrid, resume and exact time to solution
+
+
+def hybrid_counters(fc, sc, stc):
+    return {"fused_chunk": (fc, "launches"), "stream_chunk": (stc, "launches"),
+            "stoch_fused": (sc, "fused_launches"), "stoch_stream": (sc, "stream_launches")}
+
+
+def run_hybrid(counters, args):
+    """``hybrid`` through the port's CLI in process, every count in
+    ``counters`` set to 0 just before and read just after, keeping the
+    ``HybridResult`` the CLI's solve returned (a wrapper around
+    ``models.hybrid.hybrid_search``, which the CLI looks up at call time).
+    Returns (winner, steps, verdict, launches, result, output)."""
+    from odesat_tpu_torch import cli
+    from odesat_tpu_torch.models import hybrid
+
+    kept = []
+    real = hybrid.hybrid_search
+
+    def keep(*a, **k):
+        kept.append(real(*a, **k))
+        return kept[-1]
+
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    buf = io.StringIO()
+    hybrid.hybrid_search = keep
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["hybrid", *args])
+    finally:
+        hybrid.hybrid_search = real
+    launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+    out = buf.getvalue()
+    if rc != 0:
+        fail(f"hybrid {' '.join(args)} exited {rc}:\n{out}")
+    winner = re.search(r"Winner: (\w+) after (\d+) steps per engine \(([0-9.]+)s\)", out)
+    verdict = re.search(r"Checking if solution vector satisfies formula: (true|false)", out)
+    if winner is None or verdict is None:
+        fail(f"hybrid printed no Winner or verdict line:\n{out}")
+    return winner.group(1), int(winner.group(2)), verdict.group(1), launches, kept[0], out
+
+
+def phase_hybrid_main(fc, sc, stc, card):
+    """Phase 22: the hybrid through the CLI at full width; returns the
+    launches by kernel and the hard.cnf run's engine rates."""
+    counters = hybrid_counters(fc, sc, stc)
+    hard = os.path.join(ROOT, "tests", "data", "hard.cnf")
+    uf_path = os.path.join(OUT, "uf250_seed0.cnf")  # written by phase 5
+    n1k_path = os.path.join(OUT, "ksat_n1000_m4300_seed7_planted.cnf")  # phase 10
+    total = {name: 0 for name in counters}
+    runs = (
+        # label, args, B, the kernels that must run (ODE, stoch), expected (None: a verified
+        # solve or none after the budget)
+        ("hard.cnf B=16384 --no-preprocess", ["-f", hard, "--no-preprocess", "-b", "16384",
+                                              "-s", "0.01", "-n", "4096", "--seed", "0"],
+         16384, ("fused_chunk", "stoch_fused"), "false"),
+        ("uf250 B=4096", ["-f", uf_path, "-b", "4096", "-s", "0.01", "--seed", "0"], 4096,
+         None, "true"),
+        ("n1k preprocessed B=8192", ["-f", n1k_path, "-b", "8192", "-s", "0.01", "-n", "1024",
+                                     "--seed", "0"], 8192, ("stream_chunk", "stoch_stream"),
+         None),
+    )
+    rates = {}
+    for label, args, B, kernels, want in runs:
+        winner, steps, verdict, launches, res, out = run_hybrid(counters, args)
+        sec = res.engine_seconds
+        shape = re.search(r"Clauses: (\d+) \| Vars: (\d+)", out)
+        shape = f", preprocessed to {shape.group(1)} clauses / {shape.group(2)} vars" \
+            if shape else ""
+        ode_rate, stoch_rate = B * steps / sec["ode"], B * steps / sec["stoch"]
+        rates[label] = (ode_rate, stoch_rate, sec, res.wall_time_s)
+        say(f"[hybrid main] {label}{shape}: Winner {winner} after {steps} steps per engine, "
+            f"verdict {verdict}, wall {res.wall_time_s:.6f} s; the ODE engine's launches "
+            f"{sec['ode']:.6f} s ({ode_rate:.6e} traj*steps/s), the stoch engine's "
+            f"{sec['stoch']:.6f} s ({stoch_rate:.6e} chain*steps/s; CUDA events): "
+            f"{sec['ode'] / (sec['ode'] + sec['stoch']):.4f} / "
+            f"{sec['stoch'] / (sec['ode'] + sec['stoch']):.4f} of the engines' time, "
+            f"{(sec['ode'] + sec['stoch']) / res.wall_time_s:.4f} of the wall; launches "
+            f"{launches} ({card})")
+        ode_ran = launches["fused_chunk"] + launches["stream_chunk"]
+        stoch_ran = launches["stoch_fused"] + launches["stoch_stream"]
+        if kernels and min(launches[k] for k in kernels) == 0 or not (ode_ran and stoch_ran):
+            fail(f"hybrid {label}: expected launches of {kernels or 'an ODE and a stoch kernel'}"
+                 f", got {launches}")
+        if want == "false" and (winner, steps, verdict) != ("none", 4096, "false"):
+            fail(f"hybrid {label}: expected Winner none after exactly 4096 steps and false")
+        if want == "true" and verdict != "true":
+            fail(f"hybrid {label}: the port did not verify a satisfying assignment")
+        if want is None and (verdict != "true" if winner != "none" else
+                             (steps, verdict) != (1024, "false")):
+            fail(f"hybrid {label}: expected a verified solve or false after exactly 1024 steps")
+        for name in total:
+            total[name] += launches[name]
+    return total, rates
+
+
+def final_state(fn):
+    """``fn()`` with ``models.loop.drive_chunks`` wrapped (the engines look
+    it up at call time): returns (fn's result, the state drive_chunks
+    returned, whether or not the run stopped early)."""
+    from odesat_tpu_torch.models import loop
+
+    kept = []
+    real = loop.drive_chunks
+
+    def keep(*a, **k):
+        out = real(*a, **k)
+        kept.append(out[0])
+        return out
+
+    loop.drive_chunks = keep
+    try:
+        result = fn()
+    finally:
+        loop.drive_chunks = real
+    return result, kept[0]
+
+
+def state_fields(state):
+    """The tensors of an ODE, stoch or hybrid state, by name."""
+    if hasattr(state, "ode"):
+        return {**{f"ode {k}": v for k, v in state.ode._asdict().items()},
+                **{f"stoch {k}": v for k, v in state.stoch._asdict().items()}}
+    return dict(state._asdict())
+
+
+def phase_resume(torch, fc, sc, stc, n1k_reduced, card):
+    """Phase 23 on one card, in process through the library calls: for
+    each case a run with a snapshot every ``every`` chunks that never
+    stops, one stopped at ``part`` steps (its last snapshot) and one
+    resumed from that snapshot; the resumed run's final state and steps
+    equal the uninterrupted run's bit for bit. Then a ``--profile-dir``
+    solve of inter on hard.cnf names B1's kernel in its trace."""
+    from odesat_tpu_torch.cnf import normalize_cnf_variables, parse_dimacs_file
+    from odesat_tpu_torch.models.hybrid import hybrid_search
+    from odesat_tpu_torch.models.ode import simulate_batch
+    from odesat_tpu_torch.models.stoch import search
+    from odesat_tpu_torch.utils.config import ODEConfig, SolverConfig
+
+    hard_path = os.path.join(ROOT, "tests", "data", "hard.cnf")
+    hard = normalize_cnf_variables(parse_dimacs_file(hard_path))[1]
+    n1k = normalize_cnf_variables(n1k_reduced)[1]
+    counters = hybrid_counters(fc, sc, stc)
+    folder = os.path.join(OUT, "resume")
+    os.makedirs(folder, exist_ok=True)
+    fixed = dict(step_size=0.01)
+    cases = (
+        # label, engine, formula, ODE config, B, chunk, budget, stop at, every, kernels
+        ("ODE fixed hard.cnf B=16384", simulate_batch, hard, fixed, 16384, 256, 1024, 512, 2,
+         ("fused_chunk",)),
+        ("ODE fixed n1k B=512", simulate_batch, n1k, fixed, 512, 64, 192, 128, 1,
+         ("stream_chunk",)),
+        ("stoch hard.cnf B=16384", search, hard, {}, 16384, 256, 1024, 512, 2, ("stoch_fused",)),
+        ("stoch n1k B=8192", search, n1k, {}, 8192, 256, 512, 256, 1, ("stoch_stream",)),
+        ("hybrid hard.cnf B=16384", hybrid_search, hard, fixed, 16384, 256, 1024, 512, 2,
+         ("fused_chunk", "stoch_fused")),
+    )
+    for label, engine, formula, ode, B, chunk, budget, part, every, kernels in cases:
+        path = os.path.join(folder, "part.npz")
+
+        def run(steps, checkpoint=None, resume=None):
+            config = SolverConfig(ode=ODEConfig(steps=steps, **ode), batch_size=B, seed=0,
+                                  chunk_steps=chunk, checkpoint_path=checkpoint or
+                                  os.path.join(folder, "scratch.npz"),
+                                  checkpoint_every_chunks=every, resume_from=resume)
+            return final_state(lambda: engine(formula, config, device="cuda"))
+
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        t0 = time.perf_counter()
+        whole, whole_state = run(budget)
+        stopped, _ = run(part, checkpoint=path)
+        resumed, resumed_state = run(budget, resume=path)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+        a, b = state_fields(whole_state), state_fields(resumed_state)
+        bad = [k for k in a if not torch.equal(a[k], b[k])]
+        if bad or whole.steps != resumed.steps:
+            fail(f"resume {label}: the resumed run differs from the uninterrupted one in {bad}, "
+                 f"steps {resumed.steps} vs {whole.steps}")
+        if min(launches[k] for k in kernels) == 0:
+            fail(f"resume {label}: expected launches of {kernels}, got {launches}")
+        say(f"[resume] {label}, {chunk}-step chunks, a snapshot every {every}: stopped at "
+            f"{stopped.steps} steps and resumed, the final {', '.join(a)} and steps "
+            f"({resumed.steps}) equal the uninterrupted run's bit for bit; launches "
+            f"{launches}, three runs in {seconds:.1f} s ({card})")
+        for name in ("part.npz", "scratch.npz"):
+            if os.path.exists(os.path.join(folder, name)):
+                os.remove(os.path.join(folder, name))
+
+    # the profiler: a traced inter solve names B1's kernel. In its own process,
+    # as a user runs it: in a process's later profiler sessions (phase 16 opens
+    # one) the trace misses kernel launches (the first of each kernel at least)
+    prof = os.path.join(OUT, "profile")
+    trace = os.path.join(prof, "trace_rank0.json")
+    if os.path.exists(trace):
+        os.remove(trace)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "odesat_tpu_torch", "inter", "-f", hard_path, "-b", "16384",
+         "-s", "0.01", "-n", "512", "--seed", "0", "--profile-dir", prof],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    text = ""
+    if os.path.exists(trace):
+        with open(trace, encoding="utf-8") as fh:
+            text = fh.read()
+    verdict = re.search(r"satisfies formula: (true|false)", proc.stdout)
+    named = text.count("lanes_chunk_kernel")
+    if proc.returncode != 0 or not named or not verdict or "Steps run: 512 |" not in proc.stdout:
+        fail(f"--profile-dir: exit {proc.returncode}, the trace names lanes_chunk_kernel "
+             f"{named} times:\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    say(f"[profile] python -m odesat_tpu_torch inter hard.cnf B=16384 -n 512 --profile-dir: "
+        f"verdict {verdict.group(1)} after 512 steps; {os.path.relpath(trace, ROOT)} "
+        f"({len(text)} bytes) names B1's lanes_chunk_kernel {named} times; the process "
+        f"{seconds:.1f} s ({card})")
+    os.remove(trace)
+
+
+def phase_exact_tts(torch, fc, card):
+    """Phase 24: ``solve_exact`` on uf250 seeds 0-2, B=4096, fixed dt=0.01,
+    through B1 (``odesat_tpu_torch.tools.uf250_tts``); instance 0's exact
+    step equals the first step at which one-step B1 launches from the same
+    initial state leave any row done."""
+    from odesat_tpu_torch.cnf import compile_formula, normalize_cnf_variables
+    from odesat_tpu_torch.models.ode import init_state
+    from odesat_tpu_torch.tools import uf250_tts
+    from odesat_tpu_torch.utils.config import ODEConfig
+    from odesat_tpu_torch.utils.generate import uf_instance
+
+    B, chunk, dtype = 4096, 64, "bfloat16"
+    fc.launches = 0
+    out = uf250_tts.measure(3, B, chunk, 20000, dtype, "cuda")
+    launches = fc.launches
+    say(f"[exact TTS] uf250 B={B} fixed dt=0.01 {dtype} rounding, {chunk}-step chunks: "
+        f"dispatch round trip {out['dispatch_s'] * 1e3:.6f} ms, steady-state kernel rate "
+        f"{out['rate']:.6e} traj*steps/s, {launches} B1 launches ({card})")
+    for seed, res, verified, bd in out["rows"]:
+        say(f"[exact TTS] seed {seed}: solved {res.solved} (verified {verified}) at exact step "
+            f"{bd['steps']} in {res.chunks} chunks, wall {bd['wall_s']:.6f} s = compute "
+            f"{bd['compute_s']:.6f} + dispatch {bd['dispatch_s']:.6f} + residual "
+            f"{bd['residual_s']:.6f} s ({card})")
+        if not (res.solved and verified):
+            fail(f"exact TTS seed {seed}: solved {res.solved}, verified {verified}")
+    if launches == 0:
+        fail("exact TTS: B1 was never launched")
+    # instance 0 by single-step replay through B1
+    fa = compile_formula(normalize_cnf_variables(uf_instance(250, seed=0))[1])
+    ode = ODEConfig(step_size=0.01, matmul_dtype=dtype)
+    one = fc.make_fused_chunk(fa, ode.resolve_zeta(fa.density), ode, 1, "cuda")
+    state = init_state(fa, B, torch.Generator(device="cuda").manual_seed(0), ode, "cuda")
+    want, truth = out["rows"][0][1].steps, None
+    for step in range(1, want + 2):
+        state = one(state)
+        if bool(state.done.any()):
+            truth = step
+            break
+    if truth != want:
+        fail(f"exact TTS seed 0: solve_exact says step {want}, the single-step replay {truth}")
+    say(f"[exact TTS] seed 0: the single-step replay (one-step B1 launches from the same "
+        f"state) first has a row done at step {truth}, solve_exact's step ({card})")
+
+
 def main():
     if sys.argv[1:2] == ["--time-b10"]:
         return time_b10(sys.argv[2])
@@ -2278,9 +2675,21 @@ def main():
     phase_nccl_world_of_one(torch, fa7)
     clock("phase 20 (the meshes)")
     shard_times = phase_shard_timing(torch, ss, sch, sc, fa7, allreduce_ms, card)
+    clock("phases 18-21 (the clause mesh)")
+    hybrid_launches, _ = phase_hybrid_main(fc, sc, stc, card)
+    clock("phase 22 (the hybrid)")
+    phase_resume(torch, fc, sc, stc, n1k_reduced, card)
+    clock("phase 23 (resume, the profiler)")
+    phase_exact_tts(torch, fc, card)
+    clock("phase 24 (exact time to solution)")
     if "jax" in sys.modules:
         fail("jax was imported")
     say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
+    # the main paths' launches: phases 5-6, 10, 13, 16, 20 and the hybrid's (22)
+    launches += hybrid_launches["fused_chunk"]
+    b2_launches += hybrid_launches["stream_chunk"]
+    for name in ("stoch_fused", "stoch_stream"):
+        stoch_launches[name] += hybrid_launches[name]
 
     kernel_ms, plain_ms = times[("hard.cnf B=16384", "fixed")]
     b3_ms, b3_plain = stoch_times[("hard.cnf B=16384", "fused")]

@@ -10,8 +10,12 @@ package, so each counterpart sits at the same place:
 * ``ops.fused_chunk``— the resident multi-step chunk kernel (CUDA) and its
   plain torch version;
 * ``models.ode``     — state, integrators, chunk runners, ``simulate_batch``;
-* ``models.loop``    — the chunked host loop;
-* ``cli``            — ``python -m odesat_tpu_torch inter``.
+* ``models.stoch``   — the stochastic engine, ``search``;
+* ``models.hybrid``  — both engines racing, ``hybrid_search``;
+* ``models.loop``    — the chunked host loop (snapshots, profiler traces);
+* ``utils.checkpoint``, ``utils.tts`` — snapshots and exact time to solution;
+* ``tools.uf250_tts`` — the uf250 time-to-solution protocol on the card;
+* ``cli``            — ``python -m odesat_tpu_torch {solve,batch,inter,stoch,hybrid,gen}``.
 
 The package never imports jax; ``interop`` carries formulas and states to
 and from numpy so tests can hold it against the JAX package. Importing

@@ -1,6 +1,6 @@
-"""Command-line entry point: ``python -m odesat_tpu_torch {solve,batch,inter,stoch,gen}``.
+"""Command-line entry point: ``python -m odesat_tpu_torch {solve,batch,inter,stoch,hybrid,gen}``.
 
-The port of five subcommands of ``odesat_tpu.cli``:
+The port of the subcommands of ``odesat_tpu.cli``:
 
 * ``solve`` (reference: src/main.rs:143-204): preprocess to ratio ``-r``
   (unless ``--no-preprocess``), race ``--solve-batch`` ODE trajectories,
@@ -13,6 +13,10 @@ The port of five subcommands of ``odesat_tpu.cli``:
   interlaced ODE trajectories, stop when any reaches allsat;
 * ``stoch`` (reference: src/main.rs:206-251): preprocess like ``solve``,
   B chains of the stochastic engine, stop when any satisfies every clause;
+* ``hybrid``: preprocess like ``solve``, race B ODE trajectories against B
+  stochastic chains, one chunk of each in turn (models/hybrid.py); prints
+  ``Winner: {ode|stoch|none} after N steps per engine``, then reconstructs
+  the witness;
 * ``gen``: write a random CNF instance (utils/generate.py).
 
 The solvers verify the readout against the ORIGINAL formula and print
@@ -25,16 +29,20 @@ Flags beyond the JAX CLI: ``--device {cuda,cpu}``, default ``cuda``.
 Without a CUDA device the CLI stops with an error unless ``--device cpu``
 is given: it never moves a run to the CPU on its own. ``--dist-backend
 {nccl,gloo}`` (default ``nccl``) goes with the mesh flags ``--devices T``
-and ``--clause-shards S`` of ``solve``, ``batch``, ``inter`` and ``stoch``:
+and ``--clause-shards S`` of ``solve``, ``batch``, ``inter``, ``stoch`` and
+``hybrid``:
 with ``T*S > 1`` the CLI spawns one rank per process
 (``parallel/launch.py``), the solve runs on every rank, and the parent
 prints rank 0's result, with the same lines and exit codes; a failed worker
 makes the CLI exit non-zero. NCCL takes one card per rank; ranks that share
 a card (or run on the CPU) need ``gloo``, which the caller chooses.
 ``--shard-chunk {auto,on,off}`` picks the clause mesh's kernels as in the
-JAX CLI (a bare flag means ``on``). ``--pod-mesh``, ``--coordinator``,
-checkpoint, resume and profile flags are not ported and not accepted; the ``hybrid``
-subcommand is not ported yet and exits 2.
+JAX CLI (a bare flag means ``on``). Every solver subcommand takes the JAX
+CLI's ``--checkpoint PATH --checkpoint-every N`` (a snapshot every N chunks,
+rank 0 writing on a mesh), ``--resume PATH`` and ``--profile-dir DIR`` (a
+``torch.profiler`` chrome trace of the solve loop). The multi-host flags
+(``--pod-mesh``, ``--coordinator``, ``--num-processes``, ``--process-id``)
+are not ported and not accepted.
 """
 
 from __future__ import annotations
@@ -53,7 +61,6 @@ from odesat_tpu_torch.cnf import (
 )
 from odesat_tpu_torch.utils.config import ODEConfig, SolverConfig
 
-NOT_PORTED = ("hybrid",)
 DV_STRATEGIES = ["auto", "gather", "segment_sum", "fused", "stream", "pallas"]
 
 
@@ -90,9 +97,19 @@ def _add_ode(p: argparse.ArgumentParser, batch_required: bool) -> None:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the trajectories run (default cuda; no silent CPU fallback)")
     p.add_argument("--no-preprocess", action="store_true",
-                   help="skip the resolution preprocessor in solve (batch and inter never "
-                   "preprocess, as in the reference)")
+                   help="skip the resolution preprocessor in solve and hybrid (batch and inter "
+                   "never preprocess, as in the reference)")
     _add_mesh(p)
+    _add_ops(p)
+
+
+def _add_ops(p: argparse.ArgumentParser) -> None:
+    """The JAX CLI's snapshot and profiler flags."""
+    p.add_argument("--profile-dir", default=None,
+                   help="torch.profiler trace directory (a chrome trace of the solve loop)")
+    p.add_argument("--checkpoint", default=None, help="state snapshot path (.npz)")
+    p.add_argument("--checkpoint-every", type=int, default=0, help="chunks between snapshots")
+    p.add_argument("--resume", default=None, help="resume a solve from a snapshot (.npz)")
 
 
 def _add_mesh(p: argparse.ArgumentParser) -> None:
@@ -173,6 +190,14 @@ def _build_parser() -> argparse.ArgumentParser:
     s.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the chains run (default cuda; no silent CPU fallback)")
     _add_mesh(s)
+    _add_ops(s)
+
+    h = sub.add_parser("hybrid", help="Race the ODE and stochastic engines (portfolio)")
+    _add_ode(h, batch_required=False)
+    h.add_argument("-b", "--batch-size", type=int, default=256,
+                   help="trajectories and chains, each")
+    h.add_argument("-r", "--ctv-ratio", type=float, default=None,
+                   help="preprocessing target clause-to-variable ratio (default 7.0)")
 
     gen = sub.add_parser("gen", help="Generate a random CNF instance (benchmark families)")
     gen.add_argument("-o", "--output", required=True, help="output DIMACS file")
@@ -190,7 +215,8 @@ def _build_parser() -> argparse.ArgumentParser:
 
 
 def _config_from_args(args, batch_size: int) -> SolverConfig:
-    """The ODE subcommands' config; only ``solve`` preprocesses."""
+    """The ODE subcommands' and the hybrid's config; ``solve`` and
+    ``hybrid`` preprocess."""
     ratio = getattr(args, "ctv_ratio", None)
     ode = ODEConfig(
         # `is not None`, not truthiness: an explicit 0 must stick
@@ -209,13 +235,20 @@ def _config_from_args(args, batch_size: int) -> SolverConfig:
         ode=ode,
         ctv_ratio=ratio if ratio is not None else 7.0,
         # batch and inter never preprocess (src/main.rs:269,341)
-        preprocess=args.cmd == "solve" and not args.no_preprocess,
+        preprocess=args.cmd in ("solve", "hybrid") and not args.no_preprocess,
         batch_size=batch_size,
         seed=args.seed,
         chunk_steps=args.chunk_steps,
         log_every_chunks=args.log_every,
         wall_clock_budget_s=args.wall_clock_budget,
+        **_ops(args),
     )
+
+
+def _ops(args) -> dict:
+    """The snapshot and profiler fields of the config (JAX cli.py:238-241)."""
+    return dict(checkpoint_path=args.checkpoint, checkpoint_every_chunks=args.checkpoint_every,
+                resume_from=args.resume, profile_dir=args.profile_dir)
 
 
 def _stoch_config(args) -> SolverConfig:
@@ -229,6 +262,7 @@ def _stoch_config(args) -> SolverConfig:
         chunk_steps=args.chunk_steps,
         log_every_chunks=args.log_every,
         wall_clock_budget_s=args.wall_clock_budget,
+        **_ops(args),
     )
 
 
@@ -304,6 +338,10 @@ def _mesh_solve(mesh, device, engine, problem, config, kwargs):
         from odesat_tpu_torch.models.stoch import search
 
         return search(problem, config, device=device, mesh=mesh, **kwargs)
+    if engine == "hybrid":
+        from odesat_tpu_torch.models.hybrid import hybrid_search
+
+        return hybrid_search(problem, config, device=device, mesh=mesh, **kwargs)
     from odesat_tpu_torch.models.ode import simulate_batch
 
     return simulate_batch(problem, config, device=device, mesh=mesh, **kwargs)
@@ -351,7 +389,7 @@ def _solve(args, engine, normalized, config, device, **kwargs):
 
 
 def mesh_call(argv):
-    """What ``python -m odesat_tpu_torch inter|stoch ...`` with mesh flags
+    """What ``python -m odesat_tpu_torch inter|stoch|hybrid ...`` with mesh flags
     runs on each rank of the world it spawns, as ``(fn, args)`` for
     ``parallel.launch.run_all``: the CLI's own parse, set-up and checks, up
     to the spawn. The world must have the argv's mesh shape."""
@@ -469,11 +507,14 @@ def cmd_batch(args) -> int:
 
 
 def _prepare(args, formula):
-    """``inter``'s and ``stoch``'s set-up before the solve: returns the
-    engine, its config and solve arguments, the preprocessing trace (None
-    for ``inter``), the variable mapping and the normalized formula."""
-    if args.cmd == "stoch":
-        engine, config, kwargs = "stoch", _stoch_config(args), {}
+    """``inter``'s, ``stoch``'s and ``hybrid``'s set-up before the solve:
+    returns the engine, its config and solve arguments, the preprocessing
+    trace (None for ``inter``), the variable mapping and the normalized
+    formula."""
+    if args.cmd in ("stoch", "hybrid"):
+        engine, kwargs = args.cmd, {}
+        config = _stoch_config(args) if engine == "stoch" else \
+            _config_from_args(args, args.batch_size)
         formula, trace = _maybe_preprocess(formula, config)
     else:
         engine, config, kwargs = "ode", _config_from_args(args, args.batch_size), \
@@ -528,6 +569,24 @@ def cmd_stoch(args) -> int:
     return 0
 
 
+def cmd_hybrid(args) -> int:
+    """``solve``'s pipeline with both engines racing (JAX cli.py:492-515)."""
+    device = _device(args.device)
+    formula = _load(args.input)
+    engine, config, kwargs, trace, var_mapping, normalized = _prepare(args, formula)
+
+    print("Racing ODE and stochastic engines...")
+    result = _solve(args, engine, normalized, config, device, **kwargs)
+    print(f"Winner: {result.engine} after {result.steps} steps per engine "
+          f"({result.wall_time_s:.2f}s)")
+    from odesat_tpu_torch.preprocess import reconstruct_witness
+
+    mapped_values = map_values_by_indices(var_mapping, result.assignment)
+    reconstruct_witness(mapped_values, trace)
+    _finish(mapped_values, formula, args.output)
+    return 0
+
+
 def cmd_gen(args) -> int:
     from odesat_tpu_torch.cnf import cnf_to_dimacs
     from odesat_tpu_torch.utils.generate import random_ksat, random_local_ksat
@@ -547,15 +606,11 @@ def cmd_gen(args) -> int:
 
 
 COMMANDS = {"solve": cmd_solve, "batch": cmd_batch, "inter": cmd_inter, "stoch": cmd_stoch,
-            "gen": cmd_gen}
+            "hybrid": cmd_hybrid, "gen": cmd_gen}
 
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] in NOT_PORTED:
-        print(f"error: '{argv[0]}' is not yet ported to odesat_tpu_torch "
-              f"(only {', '.join(COMMANDS)} are); use python -m odesat_tpu", file=sys.stderr)
-        return 2
     args = _build_parser().parse_args(argv)
     return COMMANDS[args.cmd](args)
 

@@ -1,3 +1,3 @@
-"""Solver engines: the continuous-time ODE engine (``ode``) and its
-chunked host loop (``loop``). The stochastic and hybrid engines are not
-ported yet."""
+"""Solver engines: the continuous-time ODE engine (``ode``), the
+stochastic engine (``stoch``), the hybrid portfolio racing both
+(``hybrid``) and their chunked host loop (``loop``)."""

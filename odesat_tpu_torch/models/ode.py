@@ -33,8 +33,9 @@ Step semantics preserved from the reference:
   all three state arrays; ``dt <- clip(dt*sqrt(tol/err), 2^-7, 1e3)``;
   a satisfied state is *not* advanced (src/system.rs:111-139).
 
-Not ported yet, and refused with ``NotImplementedError``: checkpoint and
-resume, and profiler traces.
+``SolverConfig``'s checkpoint cadence, ``resume_from`` and ``profile_dir``
+work as in the JAX package (``utils/checkpoint.py``, ``models/loop.py``);
+ODE snapshots load in either package.
 """
 
 from __future__ import annotations
@@ -405,16 +406,14 @@ def seeded_generator(config: SolverConfig, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def refuse_unported(config: SolverConfig) -> None:
-    """Raise ``NotImplementedError`` for the options the port does not run
-    yet: checkpoint and resume, a profile directory."""
-    for what, value in (
-        ("checkpoint_path", config.checkpoint_path),
-        ("resume_from", config.resume_from),
-        ("profile_dir", config.profile_dir),
-    ):
-        if value:
-            raise NotImplementedError(f"{what} is not ported to odesat_tpu_torch yet")
+def check_mesh_shape(rows: int, fa: FormulaArrays, mesh) -> None:
+    """Raise unless ``rows`` trajectories and the padded clause axis divide
+    across the mesh."""
+    if rows % mesh.n_traj or fa.n_clauses_padded % mesh.n_clause:
+        raise ValueError(
+            f"batch_size={rows} and {fa.n_clauses_padded} padded clauses must divide across "
+            f"a {mesh.n_traj}x{mesh.n_clause} mesh"
+        )
 
 
 def simulate_batch(
@@ -444,8 +443,14 @@ def simulate_batch(
     formula is compiled for the mesh (``parallel/sharded.compile_for_mesh``);
     every rank draws the global initial state and keeps its rows and clause
     segment; the result holds the global batch on every rank.
+
+    ``config.resume_from`` continues a snapshot (``utils/checkpoint.py``,
+    the JAX package's format): its state replaces the initial draw, its
+    step count counts against the budget, and its mesh layout must have
+    this run's clause width (the trajectory width may differ, JAX
+    :601-616). ``config.checkpoint_path`` with ``checkpoint_every_chunks``
+    writes snapshots (rank 0 on a mesh, after every rank's gather).
     """
-    refuse_unported(config)
     device = torch.device(device)
     n_clause = 1 if mesh is None else mesh.n_clause
     if mesh is not None and not isinstance(formula_or_arrays, FormulaArrays):
@@ -461,22 +466,30 @@ def simulate_batch(
             logger.info("dv_strategy auto -> %s on %s", strategy, device)
         ode = dataclasses.replace(ode, dv_strategy=strategy)
     zeta = ode.resolve_zeta(fa.density)
-    if generator is None:
-        if mesh is not None and config.seed is None:
-            raise ValueError("a mesh run needs a seed: every rank draws the same initial state")
-        generator = seeded_generator(config, device)
-    state = init_state(fa, config.batch_size, generator, ode, device, v0=v0)
+    steps_resumed = 0
+    if config.resume_from:
+        from odesat_tpu_torch.interop import state_from_numpy
+        from odesat_tpu_torch.utils.checkpoint import load_state, validate_mesh_layout
+
+        loaded, steps_resumed, saved_layout = load_state(config.resume_from, ODEState)
+        # the clause axis changes the compiled clause layout; the traj axis
+        # is data parallelism for the ODE state and may reshard
+        validate_mesh_layout(saved_layout, mesh, what="ODE snapshot", traj_sensitive=False)
+        state = state_from_numpy(*loaded, device=device)
+    else:
+        if generator is None:
+            if mesh is not None and config.seed is None:
+                raise ValueError("a mesh run needs a seed: every rank draws the same initial "
+                                 "state")
+            generator = seeded_generator(config, device)
+        state = init_state(fa, config.batch_size, generator, ode, device, v0=v0)
     dev = formula_device(fa, device, dtype=state_dtype(ode))
     sync = None
     if mesh is not None:
         from odesat_tpu_torch.parallel.dist import MeshSync
         from odesat_tpu_torch.parallel.sharded import shard_inputs
 
-        if config.batch_size % mesh.n_traj or fa.n_clauses_padded % n_clause:
-            raise ValueError(
-                f"batch_size={config.batch_size} and {fa.n_clauses_padded} padded clauses must "
-                f"divide across a {mesh.n_traj}x{n_clause} mesh"
-            )
+        check_mesh_shape(state.v.shape[0], fa, mesh)
         state, dev = shard_inputs(state, dev, mesh)
         sync = MeshSync(mesh, device)
 
@@ -530,14 +543,19 @@ def simulate_batch(
             return True
         return bool(done.all())
 
+    from odesat_tpu_torch.utils.checkpoint import mesh_layout_of, save_state
+
     state, steps_run, wall_time = drive_chunks(
         state,
         make_runner,
         config,
         budget=ode.steps,  # None => unbounded
         should_stop=should_stop,
+        steps_resumed=steps_resumed,
         chunk_steps=chunk_steps,
         sync=sync,
+        save=lambda st, n: save_state(config.checkpoint_path, st, n,
+                                      mesh_layout=mesh_layout_of(mesh), mesh=mesh),
     )
 
     if mesh is not None:

@@ -31,8 +31,12 @@ step's weight sums are all-reduced over the clause group before the flips
 are drawn: in the next launch of B9 (ops/stoch_chunk.py, the default), or
 in torch after B8 or the twin's evaluation (:func:`make_stoch_clause_step`).
 
-Not ported yet, and refused with ``NotImplementedError``: checkpoint and
-resume, and profiler traces.
+Checkpoints store, beside the state, the state of every generator the
+runners draw from (:func:`generator_states`): the CPU generator, and the
+scan twin's device generator, one row of each per trajectory row of the
+mesh. A resumed run therefore flips as the uninterrupted run with the same
+cadence does, bit for bit. A JAX stoch snapshot (its state carries a PRNG
+key) is refused: the packages' random streams differ.
 """
 
 from __future__ import annotations
@@ -256,7 +260,60 @@ def make_stoch_chunk_runner(
             state = step(state, u)
         return state
 
+    run_scan.device_generator = dev_gen  # a checkpoint stores its state
     return run_scan
+
+
+def generator_states(generator: torch.Generator, runner, mesh=None, device=None) -> dict:
+    """The states of the generators a stoch run draws from, as NumPy uint8
+    arrays with one row per trajectory row of the mesh (one row off a
+    mesh): ``rng_cpu``, the CPU ``generator``'s, and ``rng_device``, the
+    scan twin's device generator's where ``runner`` (the run's chunk runner
+    of its inner length) has one. On a mesh a collective (every rank calls
+    it; a row's clause ranks hold the same generator) over tensors on
+    ``device``."""
+    from odesat_tpu_torch.parallel.dist import fetch
+
+    states = {"rng_cpu": generator.get_state()}
+    dev_gen = getattr(runner, "device_generator", None)
+    if dev_gen is not None:
+        states["rng_device"] = dev_gen.get_state()
+    out = {}
+    for key, st in states.items():
+        row = st.to(torch.int32).unsqueeze(0)
+        out[key] = fetch(row if mesh is None else row.to(device), mesh).astype(np.uint8)
+    return out
+
+
+def restore_generators(extra: dict, generator: torch.Generator, runner, mesh=None,
+                       what: str = "stoch snapshot") -> None:
+    """Set ``generator`` (and ``runner``'s device generator, if it has one)
+    to this rank's row of the states :func:`generator_states` saved."""
+    n_rows = 1 if mesh is None else mesh.n_traj
+    cpu = extra.get("rng_cpu")
+    if cpu is None:
+        raise ValueError(f"this {what} holds no generator states; resume it with the package "
+                         "that wrote it")
+    if cpu.shape[0] != n_rows:
+        if mesh is None:
+            raise ValueError(f"this {what} was taken on a mesh (per-row generator states); "
+                             "resume with the same --devices count")
+        raise ValueError(f"cannot resume this {what} on a {n_rows}-device mesh: it holds "
+                         f"{cpu.shape[0]} per-row generator state(s); resume with the same "
+                         "--devices count")
+    row = 0 if mesh is None else mesh.traj_index
+    generator.set_state(torch.from_numpy(np.ascontiguousarray(cpu[row])))
+    dev_gen = getattr(runner, "device_generator", None)
+    if dev_gen is None:
+        return
+    if "rng_device" not in extra:
+        raise ValueError(f"this {what} holds no state of the scan twin's device generator; "
+                         "it was taken on a run through the kernels")
+    try:
+        dev_gen.set_state(torch.from_numpy(np.ascontiguousarray(extra["rng_device"][row])))
+    except RuntimeError as e:
+        raise ValueError(f"this {what}'s device generator state does not fit this device's "
+                         f"generator ({e}); resume it on the device type that wrote it") from None
 
 
 def make_multi_stoch_runner(chunk, chunk_steps: int, max_chunks: int):
@@ -295,14 +352,17 @@ def search(
     the traj axis, each row drawing from its own generator seeded with
     (seed, row) (``parallel/sharded.row_generator``); a clause axis runs
     the clause path (``parallel/sharded.make_sharded_stoch_runner``). The
-    streams differ from the unsharded run's, as the JAX package's do."""
-    from odesat_tpu_torch.models.ode import compile_for_config, refuse_unported, seeded_generator
+    streams differ from the unsharded run's, as the JAX package's do.
+
+    ``config.resume_from`` continues a port stoch snapshot: its chains, its
+    step count and its generator states, on a mesh of its own layout (JAX
+    :454-480); ``checkpoint_path`` with ``checkpoint_every_chunks`` writes
+    them."""
+    from odesat_tpu_torch.models.ode import check_mesh_shape, compile_for_config, seeded_generator
     from odesat_tpu_torch.parallel.dist import fetch
 
     config = config or SolverConfig()
-    refuse_unported(config)
     device = torch.device(device)
-    n_clause = 1 if mesh is None else mesh.n_clause
     if mesh is not None and not isinstance(formula_or_arrays, FormulaArrays):
         from odesat_tpu_torch.parallel.sharded import compile_for_mesh
 
@@ -320,11 +380,7 @@ def search(
         from odesat_tpu_torch.parallel.dist import MeshSync
         from odesat_tpu_torch.parallel.sharded import row_generator
 
-        if config.batch_size % mesh.n_traj or fa.n_clauses_padded % n_clause:
-            raise ValueError(
-                f"batch_size={config.batch_size} and {fa.n_clauses_padded} padded clauses must "
-                f"divide across a {mesh.n_traj}x{n_clause} mesh"
-            )
+        check_mesh_shape(config.batch_size, fa, mesh)
         if generator is None:
             if config.seed is None:
                 raise ValueError("a mesh run needs a seed: every rank of a row draws the same "
@@ -358,19 +414,48 @@ def search(
             return make_sharded_multi_runner(chunk_runner(inner), inner, n // inner, mesh, device)
         return chunk_runner(n)
 
-    state = init_stoch_state(fa, config.batch_size, device)
+    from odesat_tpu_torch.interop import stoch_state_from_numpy
+    from odesat_tpu_torch.utils.checkpoint import (
+        load_generator_states,
+        load_state,
+        mesh_layout_of,
+        save_state,
+        validate_mesh_layout,
+    )
+
+    steps_resumed = 0
+    if config.resume_from:
+        loaded, steps_resumed, saved_layout = load_state(config.resume_from, StochState)
+        # the full layout: the clause axis orders the clauses, the traj axis
+        # the per-row generators
+        validate_mesh_layout(saved_layout, mesh, what="stoch snapshot")
+        state = stoch_state_from_numpy(*loaded, device=device)
+        # the inner runner draws its seeds when built; the snapshot's
+        # generator states then replace what the draw left
+        restore_generators(load_generator_states(config.resume_from), generator,
+                           chunk_runner(inner), mesh)
+    else:
+        state = init_stoch_state(fa, config.batch_size, device)
     if mesh is not None:
         from odesat_tpu_torch.parallel.sharded import shard_stoch_inputs
 
         state = shard_stoch_inputs(state, mesh)
+
+    def save(st, n):
+        extra = generator_states(generator, chunk_runner(inner), mesh, device)
+        save_state(config.checkpoint_path, st, n, mesh_layout=mesh_layout_of(mesh), mesh=mesh,
+                   extra=extra)
+
     state, steps_run, wall_time = drive_chunks(
         state,
         make_runner,
         config,
         budget=config.ode.steps,
         should_stop=lambda st, done: bool(done.any()),
+        steps_resumed=steps_resumed,
         chunk_steps=dispatch_steps if use_multi else None,
         sync=sync,
+        save=save,
     )
     if mesh is not None:
         from odesat_tpu_torch.parallel.sharded import check_replicated

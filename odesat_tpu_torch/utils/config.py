@@ -9,11 +9,10 @@ users, the CLI, and tests share one config surface. Field names mirror
 the reference flags (`-t` tolerance, `-n` steps, `-s` step_size, `-l`
 learning_rate/zeta, `-r` ctv_ratio, `-b` batch_size).
 
-Fields the port does not run yet (``checkpoint_*``, ``resume_from``,
-``profile_dir``) are kept for parity: ``models/ode.simulate_batch`` and
-``models/stoch.search`` raise ``NotImplementedError`` for a checkpoint
-path, a resume snapshot or a profile directory.
-``ctv_ratio``/``preprocess`` drive the ``stoch`` command's preprocessing.
+``checkpoint_*``, ``resume_from`` and ``profile_dir`` work in every
+engine (``utils/checkpoint.py``, ``models/loop.py``).
+``ctv_ratio``/``preprocess`` drive the ``stoch``, ``solve`` and ``hybrid``
+commands' preprocessing.
 """
 
 from __future__ import annotations

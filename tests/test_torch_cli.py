@@ -81,10 +81,7 @@ def test_library_value_error_exits_2(data_dir, capsys):
 
 @pytest.mark.parametrize("sub", ["solve", "stoch", "batch", "hybrid", "gen"])
 def test_unported_subcommands_exit_2(sub, capsys):
-    if sub in cli.NOT_PORTED:
-        assert cli.main([sub, "-f", "x.cnf"]) == 2
-        assert "not yet ported" in capsys.readouterr().err
-        return
+    """Every subcommand is ported now: each reaches its own input check."""
     with pytest.raises(SystemExit) as e:
         if sub == "gen":  # no input file; a missing -n is argparse's exit 2
             cli.main([sub, "-o", "x.cnf"])

@@ -3,11 +3,11 @@
 Every solver subcommand of the JAX CLI takes the flags of its
 ``_add_common`` (odesat_tpu/cli.py) and ignores those that do not apply:
 ``batch`` and ``inter`` never preprocess, ``stoch`` reads no ODE flag. The
-port takes the same command lines for the flags it serves; the flags of
-features it does not port (``--pod-mesh``, ``--coordinator``,
-``--num-processes``, ``--process-id``, ``--profile-dir``, ``--checkpoint``,
-``--checkpoint-every``, ``--resume``; the ``onehot`` strategy) are left out
-here, as ROADMAP.md lists them.
+port takes the same command lines for the flags it serves, ``hybrid``'s and
+the snapshot and profiler flags included; the flags of features it does not
+port (the multi-host ``--pod-mesh``, ``--coordinator``, ``--num-processes``,
+``--process-id``; the ``onehot`` strategy) are left out here, as ROADMAP.md
+lists them.
 """
 
 import os
@@ -28,7 +28,8 @@ COMMON = ["-o", "out.txt", "--seed", "3", "--chunk-steps", "64", "--rigidity", "
           "--dv-strategy", "gather", "--dtype", "float32", "--var-order", "bandwidth",
           "--matmul-dtype", "bfloat16", "--devices", "1", "--clause-shards", "1",
           "--shard-chunk", "off", "--log-every", "0", "--wall-clock-budget", "30",
-          "--no-preprocess"]
+          "--no-preprocess", "--checkpoint", "ck.npz", "--checkpoint-every", "2",
+          "--resume", "old.npz", "--profile-dir", "prof"]
 OWN = {
     "solve": ["-t", "0.001", "-n", "100", "-s", "0.01", "-l", "0.05", "-r", "7",
               "--solve-batch", "4"],
@@ -37,6 +38,7 @@ OWN = {
     "inter": ["-t", "0.001", "-n", "100", "-s", "0.01", "-b", "8", "-l", "0.05",
               "--dt-mode", "per-trajectory"],
     "stoch": ["-n", "100", "-r", "7", "-b", "4"],
+    "hybrid": ["-t", "0.001", "-n", "100", "-s", "0.01", "-b", "8", "-l", "0.05", "-r", "7"],
 }
 
 
@@ -52,8 +54,7 @@ def test_jax_command_lines_parse_under_the_port(cmd):
         if hasattr(targs, dest):
             assert getattr(targs, dest) == value, dest
     missing = sorted(d for d in vars(jargs) if not hasattr(targs, d))
-    assert missing == sorted({"pod_mesh", "coordinator", "num_processes", "process_id",
-                              "profile_dir", "checkpoint", "checkpoint_every", "resume"})
+    assert missing == sorted({"pod_mesh", "coordinator", "num_processes", "process_id"})
 
 
 @pytest.mark.parametrize("cmd, extra, verdict", [

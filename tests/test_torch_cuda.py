@@ -11,7 +11,9 @@ Tolerances: the chunk kernels B1 and B2 equal their plain version exactly
 twin on the card against the CPU to rtol 1e-4 / atol 1e-5 (other sum
 orders); B10 equals its plain version (the kernel-order RHS) exactly and the
 twin to float32 rtol 2e-4 / atol 2e-5 (tests/test_fused.py's), float64
-1e-12; repeats bit-identical.
+1e-12; repeats bit-identical; a resumed run (B1, B2, B3, B4, the hybrid)
+equals the uninterrupted one bit for bit, and solve_exact through B1 its
+single-step replay exactly.
 """
 
 import numpy as np
@@ -831,3 +833,135 @@ def test_stoch_shard_chunk_runner_equals_b8_path(cuda, B):
     b = sharded.run_stoch_clause(None, cuda, fa, 3, 9, 4, "float32", B, "off")
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x, y)
+
+
+# ------------------------------------------- resume, the hybrid, exact TTS
+
+
+def _snapshot(path):
+    with np.load(path, allow_pickle=False) as data:
+        return {k: data[k] for k in data.files}
+
+
+def _resume_equals_whole(tmp_path, run, budget, part):
+    """``run(path, steps, resume)`` with a snapshot every chunk: the run
+    that never stopped and the one stopped at ``part`` steps and resumed
+    end in the same snapshot, bit for bit."""
+    run(str(tmp_path / "whole.npz"), budget, None)
+    run(str(tmp_path / "part.npz"), part, None)
+    run(str(tmp_path / "resumed.npz"), budget, str(tmp_path / "part.npz"))
+    whole, resumed = _snapshot(tmp_path / "whole.npz"), _snapshot(tmp_path / "resumed.npz")
+    assert sorted(whole) == sorted(resumed) and int(whole["steps"]) == budget
+    for key in whole:
+        np.testing.assert_array_equal(whole[key], resumed[key], err_msg=key)
+
+
+def _hard():
+    import os
+
+    from odesat_tpu_torch.cnf import parse_dimacs_file
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "hard.cnf")
+    return normalize_cnf_variables(parse_dimacs_file(path))[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fused", "stream"])
+def test_ode_resume_equals_the_uninterrupted_run_on_the_card(cuda, tmp_path, kernel):
+    """hard.cnf B=512 fixed through B1 and through B2 (forced): a snapshot
+    at 96 steps resumed to 200 (a tail of 8) equals the run that never
+    stopped."""
+    from odesat_tpu_torch.ops import stream_chunk as stc
+
+    formula = _hard()
+    counter = (fc, "launches") if kernel == "fused" else (stc, "launches")
+    before = getattr(*counter)
+
+    def run(path, steps, resume):
+        config = SolverConfig(ode=ODEConfig(step_size=0.01, steps=steps, dv_strategy=kernel),
+                              batch_size=512, seed=2, chunk_steps=32, checkpoint_path=path,
+                              checkpoint_every_chunks=1, resume_from=resume)
+        simulate_batch(formula, config, device=cuda)
+
+    _resume_equals_whole(tmp_path, run, 200, 96)
+    assert getattr(*counter) > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["stoch_fused", "stoch_stream"])
+def test_stoch_resume_equals_the_uninterrupted_run_on_the_card(cuda, tmp_path, kernel):
+    """B3 on hard.cnf and B4 on a random 5-SAT past B3's gate (n=2000,
+    m=16000, ratio 8, where the parallel flips stall: no chain solves, so
+    every chunk is snapshotted), B=256: the resumed run draws the launches'
+    seeds from the restored generator and flips as the run that never
+    stopped."""
+    from odesat_tpu_torch.models.stoch import search
+    from odesat_tpu_torch.ops import stoch_chunk as sc
+
+    if kernel == "stoch_fused":
+        formula = _hard()
+    else:
+        formula = normalize_cnf_variables(random_ksat(2000, 16000, k=5, seed=11))[1]
+    attr = "fused_launches" if kernel == "stoch_fused" else "stream_launches"
+    before = getattr(sc, attr)
+
+    def run(path, steps, resume):
+        config = SolverConfig(ode=ODEConfig(steps=steps), batch_size=256, seed=4,
+                              chunk_steps=16, checkpoint_path=path, checkpoint_every_chunks=1,
+                              resume_from=resume)
+        search(formula, config, device=cuda)
+
+    _resume_equals_whole(tmp_path, run, 100, 48)
+    assert getattr(sc, attr) > before
+
+
+@pytest.mark.cuda
+def test_hybrid_through_b1_and_b3_and_its_resume(cuda, tmp_path):
+    """hard.cnf B=1024: the hybrid ends "none" after exactly its budget (no
+    multiple of the chunk) through B1 and B3, and its resume equals the run
+    that never stopped."""
+    from odesat_tpu_torch.models.hybrid import hybrid_search
+    from odesat_tpu_torch.ops import stoch_chunk as sc
+
+    formula = _hard()
+    b1, b3 = fc.launches, sc.fused_launches
+    config = SolverConfig(ode=ODEConfig(step_size=0.01, steps=100), batch_size=1024, seed=0,
+                          chunk_steps=32)
+    result = hybrid_search(formula, config, device=cuda)
+    assert (result.engine, result.solved, result.steps) == ("none", False, 100)
+    assert fc.launches - b1 == 4 and sc.fused_launches - b3 == 4
+    assert result.engine_seconds["ode"] > 0 and result.engine_seconds["stoch"] > 0
+
+    def run(path, steps, resume):
+        hybrid_search(formula, SolverConfig(
+            ode=ODEConfig(step_size=0.01, steps=steps), batch_size=1024, seed=0,
+            chunk_steps=32, checkpoint_path=path, checkpoint_every_chunks=1,
+            resume_from=resume), device=cuda)
+
+    _resume_equals_whole(tmp_path, run, 100, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [64, 48])
+def test_solve_exact_through_b1_equals_its_single_step_replay(cuda, chunk):
+    """uf250 seed 0, B=1024, fixed dt=0.01: the bisected step is the first
+    at which one-step B1 launches from the same state have any row done."""
+    from odesat_tpu_torch.utils.generate import uf_instance
+    from odesat_tpu_torch.utils.tts import solve_exact
+
+    fa = compile_formula(normalize_cnf_variables(uf_instance(250, seed=0))[1])
+    ode = ODEConfig(step_size=0.01)
+    before = fc.launches
+    res = solve_exact(fa, ode, 1024, torch.Generator(device=cuda).manual_seed(0), chunk, 20000,
+                      readout=True, device=cuda)
+    assert res.solved and fc.launches > before
+    one = fc.make_fused_chunk(fa, ode.resolve_zeta(fa.density), ode, 1, cuda)
+    state = tode.init_state(fa, 1024, torch.Generator(device=cuda).manual_seed(0), ode, cuda)
+    truth = None
+    for step in range(1, res.steps + 1):
+        state = one(state)
+        if bool(state.done.any()):
+            truth = step
+            break
+    assert truth == res.steps
+    assert res.chunks == -(-truth // chunk)

@@ -9,6 +9,7 @@ forward); float32 to the fused-kernel tolerance of the JAX tests, rtol
 2e-4 / atol 2e-5.
 """
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -182,12 +183,25 @@ def test_drive_chunks_budget_tail_and_escalation_match_jax(case, solve_at):
     assert _drive("torch", case, solve_at) == _drive("jax", case, solve_at)
 
 
-def test_simulate_batch_refuses_unported_options():
-    fa = _fixture(0, np.float32)
-    for kw in (dict(checkpoint_path="x.npz"), dict(resume_from="x.npz"), dict(profile_dir="p")):
-        with pytest.raises(NotImplementedError):
-            tode.simulate_batch(fa, SolverConfig(**kw), device="cpu")
-    # a mesh runs now; forcing the clause-sharded chunk kernel (B6) on a
+def test_simulate_batch_runs_checkpoint_resume_and_profile_options(tmp_path):
+    """The options the port once refused run: a snapshot path with a
+    cadence writes the state, a resume continues it to the budget, and a
+    profile directory receives a chrome trace of the loop."""
+    import json
+
+    from odesat_tpu_torch.interop import formula_arrays_from_numpy
+
+    fa = formula_arrays_from_numpy(_fixture(0, np.float32))
+    path, prof = str(tmp_path / "x.npz"), str(tmp_path / "p")
+    config = SolverConfig(ode=ODEConfig(step_size=0.05, steps=16), batch_size=2, seed=0,
+                          chunk_steps=8, checkpoint_path=path, checkpoint_every_chunks=1)
+    assert tode.simulate_batch(fa, config, device="cpu").steps == 16
+    resumed = SolverConfig(ode=ODEConfig(step_size=0.05, steps=24), batch_size=2, seed=0,
+                           chunk_steps=8, resume_from=path, profile_dir=prof)
+    assert tode.simulate_batch(fa, resumed, device="cpu").steps == 24
+    with open(os.path.join(prof, "trace_rank0.json"), encoding="utf-8") as fh:
+        assert json.load(fh)["traceEvents"]
+    # a mesh runs too; forcing the clause-sharded chunk kernel (B6) on a
     # formula without a clause-shard plan is refused before any collective
     from types import SimpleNamespace
 
