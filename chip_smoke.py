@@ -13,8 +13,9 @@ Run from the root of a checkout on a machine with one Hopper GPU and nvcc:
 Phases, each printing its lines; the first failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name;
-2. build: nvcc of csrc/fused_chunk.cu, csrc/stoch_chunk.cu (B3, B4, B8, B9)
-   and csrc/stream_chunk.cu (B2, B5, B6, B10) and g++ of the native preprocessor
+2. build: nvcc of csrc/fused_chunk.cu, csrc/stoch_chunk.cu (B3, B4, B8, B9),
+   csrc/stream_chunk.cu (B2, B5, B6, B10) and csrc/butterfly.cu (B7) and g++
+   of the native preprocessor
    (csrc/odesat_native.cc), all started together; seconds, ptxas's
    registers and spills, and whether the preprocessor runs native;
 3. kernel vs plain: random 3- and 4-SAT formulas, a formula of widths 2,
@@ -113,7 +114,9 @@ Phases, each printing its lines; the first failure exits non-zero:
     tiled chains) with and without the flip prologue and flip-only;
 20. the clause mesh through the CLI, two gloo ranks sharing the card
     (spawned; each reports its launch counts; every solve checks that its
-    clause ranks' v are bit-identical and raises otherwise): a. inter on
+    clause ranks' v are bit-identical and raises otherwise; B7 runs
+    between B6's and B9's launches over CUDA IPC buffers, gloo carries the
+    host's decisions and the handles): a. inter on
     uf250 -b 4096 --clause-shards 2 verifies true through B6; b. inter on
     the config 7 instance -b 1024 -n 64 ends false after exactly 64 steps
     (or verifies) through B6 on both ranks, and the CLI's mesh solve of the
@@ -129,8 +132,14 @@ Phases, each printing its lines; the first failure exits non-zero:
     B6 chunk over an NCCL world of one equal the mesh-free B5 runner bit for
     bit; e. inter --devices 2 on uf250 B=4096 through B1 equals the T=1 run
     row for row; the B5 and B8 solves and parity checks of b and c, e's
-    mesh run and phase 21's all-reduce timing share one spawned world, as
-    do phase 23's mesh runs;
+    mesh run, B7 against its plain version bit for bit (lengths 1, 7,
+    33*1025 and the full (1024, Np+1) buffer, with and without a max zone,
+    then 1000 back-to-back calls on fresh data) and phase 21's B7 timings
+    share one spawned world, as do phase 23's mesh runs; f. at S=4, four
+    gloo ranks in one more world: inter and stoch on config 7 through the
+    CLI's mesh solve (B6, B9, B7), the ODE clause mesh against S=1 (rtol
+    2e-4 / atol 2e-5, v bit-identical on the four ranks), the stoch clause
+    path against S=1 flip for flip, B7's checks and timings;
 21. timing at the config 7 instance, B=1024, S=1: B5 fixed and second and
     B8 per launch on tiled buffers allocated once, as their runners run
     them, beside the one-CTA-a-trajectory (chain) kernels they replaced,
@@ -138,10 +147,11 @@ Phases, each printing its lines; the first failure exits non-zero:
     step and B9 per launch; each beside its plain version and bound; the
     single-device runner (B5) and the B6 chunk in traj*steps/s; the stoch
     clause path through B8 and through B9 in chain*steps/s, with the
-    counter-hash uniform draw's share of a B8-path step; and the gloo
-    all-reduce per step at S=2 (staged through the host), beside B7's
-    bound (the buffer down and back through pinned host memory) and its
-    plain version (the two ranks' buffers summed on the card);
+    counter-hash uniform draw's share of a B8-path step; B7 a call at the
+    (1024, Np+1) buffer at S=2 and S=4 (host clock, timed in phase 20's
+    worlds) beside its plain version, its bound ((S+1) x the buffer's
+    bytes over 3.35 TB/s) and the gloo all-reduce it replaces; inter's S=2
+    step at config 7;
 22. the hybrid main path through the CLI: hybrid --no-preprocess on
     hard.cnf at -b 16384 -s 0.01 -n 4096 ends "Winner: none after 4096
     steps per engine" and false through B1 and B3, with each engine's
@@ -175,7 +185,7 @@ Phases, each printing its lines; the first failure exits non-zero:
 
 The last two lines are the ``kernels`` JSON object (one row per kernel,
 with its bound: the larger of its bytes over 3.35 TB/s and its operations
-over 67 TFLOP/s; B7's, the all-reduce, its bytes through the host link) and
+over 67 TFLOP/s; B7's at S=2, its library time the gloo all-reduce) and
 then ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or without the package beside this script, it exits non-zero
 and prints no result.
@@ -184,6 +194,7 @@ and prints no result.
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -231,19 +242,21 @@ def phase_device(torch):
 
 
 def phase_build(fc, sc, stc):
-    """Build the three CUDA sources and the native host library at once
+    """Build the four CUDA sources and the native host library at once
     (one nvcc per source, all started together), then report each."""
     from concurrent.futures import ThreadPoolExecutor
 
     from odesat_tpu_torch import native
+    from odesat_tpu_torch.ops import butterfly as bf
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with ThreadPoolExecutor(max_workers=5) as pool:
         jobs = {name: pool.submit(fn) for name, fn in (
             ("fused_chunk", fc.load_library), ("stoch_chunk", sc.load_library),
-            ("stream_chunk", stc.load_library), ("native", native.build_info))}
+            ("stream_chunk", stc.load_library), ("butterfly", bf.load_library),
+            ("native", native.build_info))}
         results = {name: job.result() for name, job in jobs.items()}
-    for name in ("fused_chunk", "stoch_chunk", "stream_chunk"):
+    for name in ("fused_chunk", "stoch_chunk", "stream_chunk", "butterfly"):
         _, build = results[name]
         say(f"[build] csrc/{name}.cu -> {os.path.relpath(build['path'], ROOT)} "
             f"nvcc {build['seconds']:.1f} s (cached={build['cached']})")
@@ -1631,9 +1644,12 @@ def phase_stoch_shard_compare(torch, sc, shard_cases):
     return 0.0
 
 
-def chunk_buffers(torch, fa, B, fixed, seed):
+def chunk_buffers(torch, fa, B, fixed, seed, split=False):
     """Random B6 buffers for one shard on the card: a state with some rows
-    done and a reduced buffer whose sat count is 0 on some rows."""
+    done and a reduced buffer whose sat count is 0 on some rows (adaptive:
+    acc2 with the error in its last column). ``split``: the reduced sums in
+    red, red2 and other values in the partials acc, acc2, as on a clause
+    mesh (else the partials hold the sums, a group of one)."""
     import numpy as np
 
     from odesat_tpu_torch.ops.shard_chunk import ChunkBuffers
@@ -1650,8 +1666,14 @@ def chunk_buffers(torch, fa, B, fixed, seed):
                      put(rng.uniform(1, 50, (B, ml))), put(rng.uniform(0.01, 0.05, B)),
                      put(rng.random(B) < 0.2, torch.bool), put(acc))
     if not fixed:
-        b = b._replace(acc2=put(rng.uniform(-2, 2, (B, Np))), err=put(rng.uniform(0, 1e-2, B)),
-                       dxs1=put(rng.uniform(-1, 1, (B, ml))), dxl1=put(rng.uniform(-1, 1, (B, ml))))
+        acc2 = rng.uniform(-2, 2, (B, Np + 1))
+        acc2[:, Np] = rng.uniform(0, 1e-2, B)
+        b = b._replace(acc2=put(acc2), dxs1=put(rng.uniform(-1, 1, (B, ml))),
+                       dxl1=put(rng.uniform(-1, 1, (B, ml))))
+    if split:
+        b = b._replace(red=b.acc, acc=put(rng.uniform(-9, 9, (B, Np + 1))))
+        if not fixed:
+            b = b._replace(red2=b.acc2, acc2=put(rng.uniform(-9, 9, (B, Np + 1))))
     return b
 
 
@@ -1684,7 +1706,9 @@ def phase_shard_chunk_compare(torch, sch, ss, shard_cases):
     """B6 vs its plain version, exactly, every shard of every case (and
     the ragged batches): each phase of both integrators with and without
     the apply prologue, both rigidity gates, f32 and bf16, the kernel on
-    the tiled buffers; then two launches at config 7 bit-identical."""
+    the tiled buffers, the reduced sums in the partials' buffers (paper
+    gate: a group of one) or apart from them (reference gate: a clause
+    mesh, B7's slots); then two launches at config 7 bit-identical."""
     from odesat_tpu_torch.utils.config import ODEConfig
 
     n = 0
@@ -1692,10 +1716,11 @@ def phase_shard_chunk_compare(torch, sch, ss, shard_cases):
         for s in range(fa.shard_plan.n_shards):
             for mode, phases in CHUNK_PHASES.items():
                 fixed = mode == "fixed"
-                # one draw a shard and integrator: the plain version writes nothing,
-                # the kernel runs on tiled copies
-                b = chunk_buffers(torch, fa, B, fixed, seed=B + 10 * s + fixed)
-                for rigidity in ("paper", "reference"):
+                # one draw a shard, integrator and layout: the plain version
+                # writes nothing, the kernel runs on tiled copies
+                draws = [chunk_buffers(torch, fa, B, fixed, seed=B + 10 * s + fixed, split=split)
+                         for split in (False, True)]
+                for rigidity, b in zip(("paper", "reference"), draws):
                     for mm in ("float32", "bfloat16"):
                         ode = ODEConfig(step_size=0.01 if fixed else None, rigidity=rigidity,
                                         matmul_dtype=mm)
@@ -1711,8 +1736,8 @@ def phase_shard_chunk_compare(torch, sch, ss, shard_cases):
                                          f"{rigidity} {mm}: {name} off by {err}")
                             n += 1
             say(f"[B6 compare] {label} shard {s}/{fa.shard_plan.n_shards} B={B}: step, apply, "
-                f"first, half, commit (with and without the prologue) x paper, reference x f32, "
-                f"bf16 equal (max abs err 0.0)")
+                f"first, half, commit (with and without the prologue) x paper (sums in the "
+                f"partials), reference (sums apart) x f32, bf16 equal (max abs err 0.0)")
     label, fa7, B = shard_cases[-1]
     for mode, phases in CHUNK_PHASES.items():
         ode = ODEConfig(step_size=0.01 if mode == "fixed" else None)
@@ -1750,9 +1775,10 @@ STOCH_CHUNK_CASES = ((False, True), (True, True), (True, False))  # (apply, eval
 
 def phase_stoch_shard_chunk_compare(torch, sc, shard_cases):
     """B9 vs its plain version, exactly, every shard (and the ragged
-    batches): with and without the flip prologue and flip-only, f32 and
-    bf16, the kernel on tiled chains; then two launches at config 7
-    bit-identical."""
+    batches): with and without the flip prologue and flip-only, f32 (the
+    reduced sums in the partials' buffer, a group of one) and bf16 (the
+    sums apart, as on a clause mesh), the kernel on tiled chains; then two
+    launches at config 7 bit-identical."""
     from odesat_tpu_torch.ops.tiles import tile, untile
 
     n = 0
@@ -1764,8 +1790,15 @@ def phase_stoch_shard_chunk_compare(torch, sc, shard_cases):
                 for mm in ("float32", "bfloat16"):
                     args = (spec, mm == "bfloat16", 987654 + i, sc.traj_block(B), 5, apply,
                             evaluate)
-                    ref = sc.stoch_shard_step_plain(*inp, *args)
-                    out = sc.stoch_shard_step_cuda(*(tile(t) for t in inp), *args)
+                    red = None
+                    if mm == "bfloat16":  # the partials' buffer holds other values
+                        red = inp[3]
+                        inp = (*inp[:3], torch.full_like(red, 7.0))
+                    ref = sc.stoch_shard_step_plain(*inp, *args, red=red)
+                    out = sc.stoch_shard_step_cuda(*(tile(t) for t in inp), *args,
+                                                   red=None if red is None else tile(red))
+                    if red is not None:
+                        inp = (*inp[:3], red)
                     torch.cuda.synchronize()
                     for name, x, y in zip(("v", "xl", "done", "acc"), out, ref):
                         if not torch.equal(untile(x, B), y):
@@ -1773,7 +1806,8 @@ def phase_stoch_shard_chunk_compare(torch, sc, shard_cases):
                                  f"evaluate={evaluate} {mm}: {name} differs")
                     n += 1
             say(f"[B9 compare] {label} shard {s}/{fa.shard_plan.n_shards} B={B}: with and "
-                f"without the flip prologue, flip-only x f32, bf16 equal (max abs err 0.0)")
+                f"without the flip prologue, flip-only x f32 (sums in the partials), bf16 (sums "
+                f"apart) equal (max abs err 0.0)")
     label, fa7, B = shard_cases[-1]
     spec = sc.stoch_shard_spec(fa7, "cuda", 0)
     inp = stoch_chunk_inputs(torch, fa7, B, seed=9)
@@ -1798,17 +1832,36 @@ def run_cli_mesh(cmd, args):
     return verdict, launch.last_reports, steps, solved, seconds, out
 
 
+def b7_checks(shape7):
+    """B7 against its plain version (parallel/dist.all_reduce_error, bit
+    for bit), as calls of a run_all world: ragged lengths 1, 7, 33*1025
+    and the full (1024, Np+1) buffer of config 7, each with and without a
+    max zone, then 1000 back-to-back calls on fresh data (the race run)."""
+    from odesat_tpu_torch.parallel.dist import all_reduce_error
+
+    calls = []
+    for i, shape in enumerate(((1,), (7,), (33 * 1025,), shape7)):
+        n = math.prod(shape)
+        # the full buffer's max zone is B6's: each tile's error row, 32 words of (Np+1)*32
+        zones = (shape[1] * 32, 32) if shape == shape7 else (min(n, shape[-1]), min(n, 3))
+        calls.append((all_reduce_error, (shape, 10 + i, None, 1)))
+        calls.append((all_reduce_error, (shape, 20 + i, zones, 1)))
+    calls.append((all_reduce_error, ((33, 1025), 30, (1025, 1), 1000)))
+    return calls
+
+
 def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
-    """Phase 20: the clause-mesh main path (gloo ranks sharing the card)
-    and the trajectory mesh; returns the launches of B5, B6, B8 and B9
-    summed over the ranks of the main-path runs, and the gloo all-reduce's
-    ms a step at S=2 (phase 21's number, timed in this phase's world). The
+    """Phase 20: the clause-mesh main path (gloo ranks sharing the card,
+    B7 between B6's and B9's launches) and the trajectory mesh; returns the
+    launches of B5, B6, B8, B9 and B7 summed over the ranks of the
+    main-path runs, and B7's numbers at S=2 (phase 21's: ms a call, the
+    plain version's, the gloo all-reduce's, an S=2 step of inter at config
+    7, timed in this phase's world; the largest error of its checks). The
     CLI runs on the config 7 instance are 64 steps (B6) and 32 (B9); the
-    CLI's mesh solves through B5 and B8 (16 steps each) and the parity
-    checks (256 rows for the ODE, 32 steps for stoch) run in one spawned
-    world with the trajectory mesh's run and the all-reduce timing: every
-    spawn pays its ranks' start-up and gloo stages every collective
-    through the host."""
+    CLI's mesh solves through B5 and B8 (16 steps each), the parity checks
+    (256 rows for the ODE, 32 steps for stoch) and B7's checks run in one
+    spawned world with the trajectory mesh's run and the timings: every
+    spawn pays its ranks' start-up."""
     import numpy as np
 
     from odesat_tpu_torch import cli
@@ -1823,8 +1876,8 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
     easy = os.path.join(ROOT, "tests", "data", "easy.cnf")
     gloo = ["--clause-shards", "2", "--dist-backend", "gloo"]
     off = ["--shard-chunk", "off"]
-    totals = {"shard_stream": 0, "shard_chunk": 0, "stoch_shard_eval": 0, "stoch_shard_chunk": 0}
-    allreduces = 0  # B7: the dv all-reduces between B6's and B9's launches
+    totals = {"shard_stream": 0, "shard_chunk": 0, "stoch_shard_eval": 0, "stoch_shard_chunk": 0,
+              "butterfly": 0}
     c7_inter = ["-f", c7_path, "-b", "1024", "-s", "0.01", "--seed", "0"]
     c7_stoch = ["-f", c7_path, "--no-preprocess", "-b", "1024", "--seed", "0"]
     # the per-step paths (B5, B8) run fewer steps than the default chunk kernels (B6, B9)
@@ -1846,14 +1899,15 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
         verdict, reports, steps, solved, seconds, _ = run_cli_mesh(cmd, [*args, *gloo])
         t_run = time.perf_counter() - t_run
         counts = [r[kernel] for r in reports]
-        others = {k: [r[k] for r in reports] for k in totals if k != kernel}
-        say(f"[mesh main] {label} --clause-shards 2 (gloo, staged through the host): verdict "
-            f"{verdict}, {solved} solved after {steps} steps in {seconds:.6f} s = "
-            f"{B * steps / seconds:.6e} steps*rows/s (a correctness run, not the port's rate), "
-            f"{kernel} launches per rank {counts}, other clause kernels {others}, v replicated "
-            f"(every rank checked it); the whole run {t_run:.1f} s ({card})")
-        if len(counts) != 2 or min(counts) == 0:
-            fail(f"{label}: {kernel} was not launched on both ranks")
+        calls_b7 = [r["butterfly"] for r in reports]
+        others = {k: [r[k] for r in reports] for k in totals if k not in (kernel, "butterfly")}
+        say(f"[mesh main] {label} --clause-shards 2 (gloo for the host's decisions, B7 on the "
+            f"card): verdict {verdict}, {solved} solved after {steps} steps in {seconds:.6f} s "
+            f"= {B * steps / seconds:.6e} steps*rows/s, {kernel} launches per rank {counts}, "
+            f"B7 {calls_b7}, other clause kernels {others}, v replicated (every rank checked "
+            f"it); the whole run {t_run:.1f} s ({card})")
+        if len(counts) != 2 or min(counts) == 0 or min(calls_b7) == 0:
+            fail(f"{label}: {kernel} or B7 was not launched on both ranks")
         if any(sum(c) for c in others.values()):
             fail(f"{label}: another clause kernel than {kernel} ran")
         if want == "true" and verdict != "true":
@@ -1863,7 +1917,7 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
                 not (solved and verdict == "true"):
             fail(f"{label}: expected false after exactly {budget} steps or a verified solution")
         totals[kernel] += sum(counts)
-        allreduces += sum(r["allreduce_b6"] + r["allreduce_b9"] for r in reports)
+        totals["butterfly"] += sum(calls_b7)
 
     # b. the ODE clause mesh at S=2 against the S=1 runner, row for row, c.
     # the stoch clause path at S=2 against S=1, flip for flip, e. the
@@ -1890,17 +1944,18 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
               for _, ode, n in odes]
     stoch_modes = (("auto", "stoch_shard_chunk"), ("off", "stoch_shard_eval"))
     from odesat_tpu_torch.models.ode import simulate_batch
-    from odesat_tpu_torch.parallel.dist import all_reduce_error, time_all_reduce
+    from odesat_tpu_torch.parallel.dist import time_all_reduce, time_butterfly
     from odesat_tpu_torch.utils.config import SolverConfig
 
     config = SolverConfig(ode=ODEConfig(step_size=0.01, steps=20000), batch_size=4096, seed=0)
+    shape7 = (1024, fa7_1.n_vars_padded + 1)  # B6's (B, Np+1) buffer at config 7, B=1024
     calls = [(sharded.run_ode_cases, (cases,))]
     calls += [(sharded.run_stoch_clause, (fa7_2, 4, 8, 5, "float32", 1024, mode))
               for mode, _ in stoch_modes]
     calls += [(launch.on_mesh, ((2, 1), cli._mesh_solve, "ode", uf250_formula, config,
                                 {"stop_on": "any"})),
-              (time_all_reduce, ((1024, fa7_1.n_vars_padded + 1), 10)),
-              (all_reduce_error, ((1024, fa7_1.n_vars_padded + 1), 7))]
+              (time_all_reduce, (shape7, 10)), (time_butterfly, (shape7, 20, 2)),
+              (sharded.time_ode_chunk, (fa7_2, zeta, odes[0][1], 16, 1024, 2))]
     # b, c through B5 and B8: the CLI's mesh solves with --shard-chunk off,
     # in this world rather than a world each (a spawn costs its ranks'
     # start-up, most of it importing torch)
@@ -1914,24 +1969,29 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
     resume_runs = mesh_resume_argv()
     calls += [cli.mesh_call(hybrid_argv)]
     calls += [cli.mesh_call([*argv, *gloo]) for _, argv in resume_runs]
+    checks = b7_checks(shape7)
+    calls += checks
     values = launch.spawn(launch.run_all, 1, 2, "gloo", "cuda", timeout_s=600, args=(calls,))
     two, stoch_two = values[0], values[1:3]
-    traj_two, allreduce_ms, allreduce_err, b_off, c_off, hyb_two = values[3:9]
-    resumed_two = values[9:]
+    traj_two, allreduce_ms, (b7_ms, b7_plain), step_ms, b_off, c_off, hyb_two = values[3:10]
+    resumed_two = values[10:10 + len(resume_runs)]
+    b7_errs = values[10 + len(resume_runs):]
     # run_all zeroes every count before each call: each call's launches per rank
     per_call = [{k: [r["calls"][i][k] for r in launch.last_reports]
                  for k in (*totals, "fused_chunk")} for i in range(len(calls))]
-    ran = (("shard_chunk", "shard_stream"), ("stoch_shard_chunk",), ("stoch_shard_eval",),
-           ("fused_chunk",), (), (), ("shard_stream",), ("stoch_shard_eval",),
-           ("shard_chunk", "stoch_shard_chunk"),
-           *((("shard_chunk",) if argv[0] == "inter" else ("stoch_shard_chunk",))
-             for _, argv in resume_runs))
+    ran = (("shard_chunk", "shard_stream", "butterfly"), ("stoch_shard_chunk", "butterfly"),
+           ("stoch_shard_eval",), ("fused_chunk",), (), ("butterfly",),
+           ("shard_chunk", "butterfly"), ("shard_stream",), ("stoch_shard_eval",),
+           ("shard_chunk", "stoch_shard_chunk", "butterfly"),
+           *((("shard_chunk", "butterfly") if argv[0] == "inter" else
+              ("stoch_shard_chunk", "butterfly")) for _, argv in resume_runs),
+           *((("butterfly",),) * len(checks)))
     for i, (kernels, counts) in enumerate(zip(ran, per_call)):
         if any(len(counts[k]) != 2 or min(counts[k]) == 0 for k in kernels) or \
                 any(sum(c) for k, c in counts.items() if k not in kernels):
             fail(f"the parity world's call {i}: expected {kernels or 'no kernel'} on both ranks "
                  f"and nothing else, launches per rank {counts}")
-    for (label, cmd, args, kernel), result, counts in zip(off_runs, (b_off, c_off), per_call[6:]):
+    for (label, cmd, args, kernel), result, counts in zip(off_runs, (b_off, c_off), per_call[7:]):
         budget = int(args[args.index("-n") + 1])
         if result.steps != budget or result.done.any():
             fail(f"{label} config 7 --shard-chunk off: expected no solve after exactly {budget} "
@@ -1992,18 +2052,130 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
     say(f"[mesh main] e. inter --devices 2 uf250 B=4096 (the same world as a 2x1 mesh): equals "
         f"T=1 row for row ({one.steps} steps, {int(one.done.sum())} solved), B1 launches per "
         f"rank {per_call[3]['fused_chunk']}")
-    if allreduces == 0 or allreduce_err != 0.0:
-        fail(f"B7: {allreduces} all-reduces between B6's and B9's launches in the CLI mesh runs, "
-             f"max abs err against the ranks' buffers summed {allreduce_err}")
-    say(f"[mesh main] b, c, e and the all-reduce timing: one world of two ranks, launches per "
-        f"rank and call {per_call}, in {time.perf_counter() - t0:.1f} s; B7: {allreduces} dv "
-        f"all-reduces between B6's and B9's launches in the CLI mesh runs (both ranks), the "
-        f"(1024, {fa7_1.n_vars_padded + 1}) all-reduce equal to the two ranks' buffers summed "
-        f"(max abs err {allreduce_err}) ({card})")
-    totals["allreduce"] = allreduces
-    phase_mesh_hybrid_and_resume(hyb_two, per_call[8], uf_path, resume_runs, resumed_two,
-                                 per_call[9:], totals, card)
-    return totals, allreduce_ms, allreduce_err
+    b7_err = report_b7_checks(2, checks, b7_errs, per_call[-len(checks):], card)
+    if totals["butterfly"] == 0:
+        fail("B7 was not launched between B6's and B9's launches in the CLI mesh runs")
+    say(f"[mesh main] b, c, e, B7's checks and the timings: one world of two ranks, launches "
+        f"per rank and call {per_call}, in {time.perf_counter() - t0:.1f} s; B7: "
+        f"{totals['butterfly']} calls between B6's and B9's launches in the CLI mesh runs "
+        f"(both ranks) ({card})")
+    phase_mesh_hybrid_and_resume(hyb_two, per_call[9], uf_path, resume_runs, resumed_two,
+                                 per_call[10:10 + len(resume_runs)], totals, card)
+    b7 = {"S=2": {"ms": b7_ms, "plain_ms": b7_plain, "library_ms": allreduce_ms,
+                  "step_ms": step_ms, "err": b7_err}}
+    return totals, b7
+
+
+def report_b7_checks(S, checks, errs, counts, card):
+    """Fail unless every B7 check read 0 and launched the kernel once a
+    call on every rank; print them; return the largest error."""
+    for (_, (shape, _, zones, n)), err, count in zip(checks, errs, counts):
+        if err != 0.0 or count["butterfly"] != [n] * S:
+            fail(f"B7 at S={S}, {shape} zones {zones}, {n} calls: max abs err {err} against the "
+                 f"plain version, launches per rank {count['butterfly']}")
+    shapes = sorted({str(c[1][0]) for c in checks})
+    say(f"[B7 compare] S={S} ranks on one card: B7 equals its plain version bit for bit (max abs "
+        f"err {max(errs)}; a NaN equal to any NaN) at {', '.join(shapes)}, each with and "
+        f"without a max zone, and over {checks[-1][1][3]} back-to-back calls on fresh data at "
+        f"{checks[-1][1][0]}, every call's result on every rank ({card})")
+    return max(errs)
+
+
+def phase_mesh_s4(torch, fa7_1, c7, b7_two, card):
+    """Phase 20f: the clause mesh at S=4 in one more spawned world of four
+    gloo ranks on the card: inter (B6) and stoch (B9) on config 7 through
+    the CLI's mesh solve, the ODE clause mesh (fixed 8 steps, adaptive 4,
+    256 rows) against the S=1 runner row for row with v bit-identical on the
+    four clause ranks, the stoch clause path against S=1 flip for flip,
+    B7's checks and timings at S=4; returns the launches per kernel summed
+    over the ranks of the CLI runs and B7's numbers at S=4."""
+    import numpy as np
+
+    from odesat_tpu_torch import cli
+    from odesat_tpu_torch.cnf import evaluate_cnf, map_values_by_indices, normalize_cnf_variables
+    from odesat_tpu_torch.interop import state_from_numpy
+    from odesat_tpu_torch.ops import shard_stream as ss
+    from odesat_tpu_torch.parallel import launch, sharded
+    from odesat_tpu_torch.parallel.dist import time_all_reduce, time_butterfly
+    from odesat_tpu_torch.utils.config import ODEConfig
+
+    t0 = time.perf_counter()
+    mapping, normalized = normalize_cnf_variables(c7)
+    fa7_4 = ss.compile_stream_sharded(normalized, 4)[0]
+    c7_path = os.path.join(OUT, "local_n10240_m43700.cnf")  # written by phase 20
+    mesh4 = ["--clause-shards", "4", "--dist-backend", "gloo"]
+    runs = (("inter", ["-f", c7_path, "-b", "1024", "-s", "0.01", "--seed", "0", "-n", "64"],
+             "shard_chunk"),
+            ("stoch", ["-f", c7_path, "--no-preprocess", "-b", "1024", "--seed", "0", "-n",
+                       "32"], "stoch_shard_chunk"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        calls = [cli.mesh_call([cmd, *args, *mesh4]) for cmd, args, _ in runs]
+    B = 256
+    rng = np.random.default_rng(31)
+    v0 = rng.uniform(-1, 1, (B, fa7_4.n_vars_padded)).astype(np.float32)
+
+    def layout(fa):
+        xs = np.broadcast_to(fa.xs_init, (B, fa.n_clauses_padded)).astype(np.float32)
+        return v0, xs, np.ones_like(xs), np.full(B, 0.01, np.float32), np.zeros(B, bool)
+
+    odes = (("fixed", ODEConfig(step_size=0.01), 8), ("adaptive", ODEConfig(), 4))
+    zeta = odes[0][1].resolve_zeta(fa7_4.density)
+    calls.append((sharded.run_ode_cases, ([(fa7_4, zeta, ode, n, layout(fa7_4))
+                                           for _, ode, n in odes],)))
+    calls.append((sharded.run_stoch_clause, (fa7_4, 4, 8, 5, "float32", 1024, "auto")))
+    shape7 = (1024, fa7_1.n_vars_padded + 1)
+    calls += [(time_all_reduce, (shape7, 10)), (time_butterfly, (shape7, 20, 2))]
+    checks = b7_checks(shape7)
+    calls += checks
+    values = launch.spawn(launch.run_all, 1, 4, "gloo", "cuda", timeout_s=600, args=(calls,))
+    per_call = [{k: [r["calls"][i][k] for r in launch.last_reports]
+                 for k in ("shard_chunk", "stoch_shard_chunk", "butterfly")}
+                for i in range(len(calls))]
+    totals = {"shard_chunk": 0, "stoch_shard_chunk": 0, "butterfly": 0}
+    for (cmd, args, kernel), result, counts in zip(runs, values[:2], per_call[:2]):
+        budget = int(args[args.index("-n") + 1])
+        if min(counts[kernel]) == 0 or min(counts["butterfly"]) == 0:
+            fail(f"{cmd} config 7 at S=4: {kernel} or B7 not launched on every rank: {counts}")
+        if result.solved_index is not None:
+            if not evaluate_cnf(map_values_by_indices(mapping, result.best_assignment()), c7):
+                fail(f"{cmd} config 7 at S=4: the solved row does not satisfy the formula")
+        elif result.steps != budget:
+            fail(f"{cmd} config 7 at S=4: expected no solve after exactly {budget} steps or a "
+                 f"solved row that verifies, got {result.steps} steps")
+        totals[kernel] += sum(counts[kernel])
+        totals["butterfly"] += sum(counts["butterfly"])
+        say(f"[mesh S=4] {cmd} config 7 B=1024 --clause-shards 4 (four gloo ranks on one card, "
+            f"the CLI's mesh solve): {int(result.done.sum())} solved after {result.steps} "
+            f"steps, {kernel} launches per rank {counts[kernel]}, B7 {counts['butterfly']}, v "
+            f"replicated (every rank checked it) ({card})")
+    worst = 0.0
+    for (mode, ode, n), out in zip(odes, values[2]):
+        one = ss.make_single_device_runner(fa7_1, zeta, ode, n, "cuda")(
+            state_from_numpy(*layout(fa7_1), device="cuda"))
+        one = [t.cpu().numpy() for t in one]
+        if not (np.isfinite(out[0]).all() and np.allclose(out[0], one[0], **F32_TOL)):
+            fail(f"config 7 {mode} S=4 vs S=1: v off by {np.abs(out[0] - one[0]).max()}")
+        worst = max(worst, float(np.abs(out[0] - one[0]).max()))
+        if not (np.array_equal(out[4], one[4]) and np.allclose(out[3], one[3], rtol=2e-4,
+                                                                atol=2e-6)):
+            fail(f"config 7 {mode} S=4 vs S=1: done or dt differ")
+        if not all(np.array_equal(c, out[5][0]) for c in out[5]):
+            fail(f"config 7 {mode} S=4: the clause ranks' v differ")
+    say(f"[mesh S=4] inter's clause mesh config 7 B={B} at S=4, fixed 8 steps and adaptive 4 "
+        f"through B6 and B7: v equal to the S=1 runner row for row within rtol 2e-4 / atol 2e-5 "
+        f"(max abs err {worst:.6e}; done exact), the four clause ranks' v bit-identical ({card})")
+    one = sharded.run_stoch_clause(None, "cuda", fa7_1, 4, 8, 5, "float32", 1024, "auto")
+    four = values[3]
+    if not (np.array_equal(four[0], one[0]) and np.array_equal(four[2], one[2])):
+        fail("stoch clause path config 7 at S=4 differs from S=1")
+    say(f"[mesh S=4] stoch clause path config 7 B=1024, 32 steps through B9 and B7: S=4 equals "
+        f"S=1 flip for flip (v, done; {int(four[0].sum())} variables true) ({card})")
+    allreduce_ms, (b7_ms, b7_plain) = values[4], values[5]
+    b7_err = report_b7_checks(4, checks, values[6:], per_call[6:], card)
+    say(f"[mesh S=4] one world of four ranks in {time.perf_counter() - t0:.1f} s ({card})")
+    b7_two["S=4"] = {"ms": b7_ms, "plain_ms": b7_plain, "library_ms": allreduce_ms,
+                     "err": b7_err}
+    return totals
 
 
 def mesh_resume_argv():
@@ -2055,12 +2227,12 @@ def phase_mesh_hybrid_and_resume(hyb, hyb_counts, uf_path, resume_runs, results,
     ok = evaluate_cnf(map_values_by_indices(mapping, hyb.assignment), formula)
     say(f"[mesh hybrid] hybrid uf250 B=4096 --no-preprocess --clause-shards 2 (gloo): winner "
         f"{hyb.engine} after {hyb.steps} steps per engine, verdict {str(ok).lower()}, B6 "
-        f"launches per rank {hyb_counts['shard_chunk']}, B9 {hyb_counts['stoch_shard_chunk']} "
-        f"({card})")
+        f"launches per rank {hyb_counts['shard_chunk']}, B9 {hyb_counts['stoch_shard_chunk']}, "
+        f"B7 {hyb_counts['butterfly']} ({card})")
     if not (hyb.solved and ok):
         fail("the hybrid on uf250 at S=2 did not verify a satisfying assignment")
-    totals["shard_chunk"] += sum(hyb_counts["shard_chunk"])
-    totals["stoch_shard_chunk"] += sum(hyb_counts["stoch_shard_chunk"])
+    for name in ("shard_chunk", "stoch_shard_chunk", "butterfly"):
+        totals[name] += sum(hyb_counts[name])
     for i in range(0, len(resume_runs), 3):
         (whole, argv), (part, _), (resumed, _) = resume_runs[i:i + 3]
         steps = [r.steps for r in results[i:i + 3]]
@@ -2133,7 +2305,7 @@ def phase_nccl_world_of_one(torch, fa7):
         dist.destroy_process_group()
 
 
-def phase_shard_timing(torch, ss, sch, sc, fa7, allreduce_ms, card):
+def phase_shard_timing(torch, ss, sch, sc, fa7, b7, card):
     """Phase 21 at the config 7 instance, B=1024, S=1: B5 fixed and second
     and B8 per launch on tiled buffers allocated once (as their runners
     run them) and through their row-major wrappers, B6's fixed step and B9
@@ -2141,8 +2313,8 @@ def phase_shard_timing(torch, ss, sch, sc, fa7, allreduce_ms, card):
     B6 and B9 on the tiled buffers their runners make), the single-device
     runner's (B5) and the B6 chunk's throughput, the stoch clause path
     through B8 and through B9 with the uniform draw's share of a B8-path
-    step, and the gloo all-reduce per step at S=2 (timed in phase 20's
-    world)."""
+    step, and B7 at S=2 and S=4 (timed in phase 20's worlds) beside its
+    plain version, its bound and the gloo all-reduce it replaces."""
     from odesat_tpu_torch.models.stoch import init_stoch_state
     from odesat_tpu_torch.ops.tiles import tile
     from odesat_tpu_torch.parallel import sharded
@@ -2298,24 +2470,25 @@ def phase_shard_timing(torch, ss, sch, sc, fa7, allreduce_ms, card):
         f"{c[0]:.6e} / {c[1]:.6e}; the counter-hash uniforms of one B8-path step "
         f"{u_ms:.6f} ms (CUDA events), {u_ms / step_ms:.3f} of its {step_ms:.6f} ms ({card})")
     times["stoch_runner"] = chains
-    say(f"[mesh timing] gloo all-reduce of the (B={B}, Np+1) f32 dv buffer at S=2, two ranks on "
-        f"one card, staged through the host: {allreduce_ms:.6f} ms per step ({card})")
-    # B7's bound: one rank's buffer down to the host and the sum back up,
-    # through pinned host memory; its plain version: the two buffers summed
-    buf = torch.ones((B, fa7.n_vars_padded + 1), device="cuda")
-    other = torch.ones_like(buf)
-    host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
-    nbytes = buf.numel() * buf.element_size()
-    d2h = cuda_ms(lambda: host.copy_(buf, non_blocking=True), iters=10, warmup=2)
-    h2d = cuda_ms(lambda: buf.copy_(host, non_blocking=True), iters=10, warmup=2)
-    plain = device_ms(torch, lambda: buf + other, iters=20)
-    say(f"[mesh timing] B7's bound: the {nbytes} B buffer down through pinned host memory "
-        f"{d2h:.6f} ms ({nbytes / d2h / 1e6:.3f} GB/s) and back up {h2d:.6f} ms "
-        f"({nbytes / h2d / 1e6:.3f} GB/s), {d2h + h2d:.6f} ms; the plain version (the two "
-        f"ranks' buffers summed on the card) {plain:.6f} ms ({card})")
-    times["b7"] = (allreduce_ms, plain, d2h + h2d, "bytes")
+    # B7 at (B, Np+1) f32: S partials read and one result written, a rank
+    nbytes = 4 * B * (fa7.n_vars_padded + 1)
+    for S in (2, 4):
+        r = b7[f"S={S}"]
+        r["bound_ms"] = (S + 1) * nbytes / HBM_BYTES_PER_S * 1e3
+        say(f"[B7 timing] config 7 B={B} (B, Np+1) = {nbytes} B f32 at S={S}, {S} ranks sharing "
+            f"the card: B7 {r['ms']:.6f} ms a call (host clock around 20 calls ending in a sync "
+            f"on every rank), plain version (gloo gather, tree on the host) "
+            f"{r['plain_ms']:.6f} ms, bound {r['bound_ms']:.6f} ms by bytes ((S+1) x {nbytes} B "
+            f"over 3.35 TB/s; {r['bound_ms'] / r['ms']:.3f} of it), the gloo all-reduce it "
+            f"replaces (library) {r['library_ms']:.6f} ms ({r['library_ms'] / r['ms']:.3f}x) "
+            f"({card})")
+    two = b7["S=2"]
+    say(f"[mesh timing] inter's step at config 7 B={B} S=2 fixed (B6 on half the clauses, B7 "
+        f"between the launches, two ranks sharing the card): {two['step_ms']:.6f} ms a step "
+        f"(host clock around 2 chunks of 16 steps), beside B7's {two['ms']:.6f} ms a call and "
+        f"B6's S=1 step {times['b6'][0]:.6f} ms ({card})")
+    times["b7"] = (two["ms"], two["plain_ms"], two["bound_ms"], "bytes", two["library_ms"])
     times["runner"] = rates
-    times["allreduce_ms"] = allreduce_ms
     return times
 
 
@@ -2670,11 +2843,12 @@ def main():
     b8_worst = phase_stoch_shard_compare(torch, sc, shard_cases)
     b9_worst = phase_stoch_shard_chunk_compare(torch, sc, shard_cases)
     clock("phases 18-19 (B5, B6, B8, B9 against their plain versions)")
-    mesh_launches, allreduce_ms, allreduce_err = phase_mesh_main(torch, fa7, fa7_2, c7,
-                                                                 specs[6][1], card)
+    mesh_launches, b7 = phase_mesh_main(torch, fa7, fa7_2, c7, specs[6][1], card)
+    for name, n in phase_mesh_s4(torch, fa7, c7, b7, card).items():
+        mesh_launches[name] += n
     phase_nccl_world_of_one(torch, fa7)
     clock("phase 20 (the meshes)")
-    shard_times = phase_shard_timing(torch, ss, sch, sc, fa7, allreduce_ms, card)
+    shard_times = phase_shard_timing(torch, ss, sch, sc, fa7, b7, card)
     clock("phases 18-21 (the clause mesh)")
     hybrid_launches, _ = phase_hybrid_main(fc, sc, stc, card)
     clock("phase 22 (the hybrid)")
@@ -2707,7 +2881,7 @@ def main():
     b8_ms, b8_plain, b8_bound, b8_by = shard_times["b8"]
     b6_ms, b6_plain, b6_bound, b6_by = shard_times["b6"]
     b9_ms, b9_plain, b9_bound, b9_by = shard_times["b9"]
-    b7_ms, b7_plain, b7_bound, b7_by = shard_times["b7"]
+    b7_ms, b7_plain, b7_bound, b7_by, b7_library = shard_times["b7"]
     say(json.dumps({"kernels": [
         row("fused_chunk", "csrc/fused_chunk.cu", "odesat_tpu/ops/fused_pallas.py:66", launches,
             worst, kernel_ms, plain_ms, ode_chunk_bound(hard, 16384, 256, True)),
@@ -2729,11 +2903,11 @@ def main():
             mesh_launches["stoch_shard_eval"], b8_worst, b8_ms, b8_plain, (b8_bound, b8_by)),
         row("stoch_shard_chunk", "csrc/stoch_chunk.cu", "odesat_tpu/ops/stoch_pallas.py:868",
             mesh_launches["stoch_shard_chunk"], b9_worst, b9_ms, b9_plain, (b9_bound, b9_by)),
-        # B7 is torch.distributed's all-reduce between B6's and B9's launches:
-        # the library call itself
-        row("allreduce", "parallel/dist.py", "odesat_tpu/ops/butterfly.py:99",
-            mesh_launches["allreduce"], allreduce_err, b7_ms, b7_plain, (b7_bound, b7_by),
-            library_ms=b7_ms),
+        # B7 at S=2 (the smoke's mesh runs); its library call is the gloo
+        # all-reduce of the same buffer, which the port no longer makes
+        row("butterfly", "csrc/butterfly.cu", "odesat_tpu/ops/butterfly.py:99",
+            mesh_launches["butterfly"], max(b7["S=2"]["err"], b7["S=4"]["err"]), b7_ms,
+            b7_plain, (b7_bound, b7_by), library_ms=b7_library),
     ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

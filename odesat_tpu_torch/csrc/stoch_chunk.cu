@@ -404,17 +404,17 @@ __global__ void __launch_bounds__(kLaneThreads)
 // B9 (stoch_shard_step_launch) replaces odesat_tpu/ops/stoch_pallas.py::
 // make_stoch_shard_chunk (:868): the clause-sharded stoch chunk whose
 // (total, unsat, sat) all-reduce the TPU kernel ran inside itself over ICI
-// remote DMA (B7). A CUDA kernel cannot wait on other ranks, so on Hopper
-// the chunk is a sequence of launches with the all-reduce (torch.distributed)
-// between them, and everything else the TPU kernel did runs in them: each
-// launch first applies the previous step's reduced sums (the flip
-// u*total < unsat with the counter-hash uniform of that step, for a chain
-// that was active, then done |= allsat), then evaluates the shard for step
-// t (the sat of each clause, the weight update, the weight sums), writing
-// its partials into acc = (total | unsat | 1 - sat) and its weights in
-// place. A chunk of n steps is n such launches and one
-// apply-only launch (evaluate = 0). `done` in device memory between
-// launches is the done the last evaluation ran with.
+// remote DMA (B7). On Hopper the chunk is a sequence of launches with B7
+// (csrc/butterfly.cu, over CUDA IPC buffers) between them, and everything
+// else the TPU kernel did runs in them: each launch first applies the
+// previous step's reduced sums `red` (the flip u*total < unsat with the
+// counter-hash uniform of that step, for a chain that was active, then done
+// |= allsat), then evaluates the shard for step t (the sat of each clause,
+// the weight update, the weight sums), writing its partials into acc =
+// (total | unsat | 1 - sat), B7's shared slot on a clause mesh (`red` is
+// `acc` in a group of one), and its weights in place. A chunk of n steps is
+// n such launches and one apply-only launch (evaluate = 0). `done` in
+// device memory between launches is the done the last evaluation ran with.
 //
 // Design: the buffers are in the tile layout of tile.cuh, R chains a tile:
 // v (G, Np, R) bytes, xl and the signed post-update weights w (G, Mp, R)
@@ -443,7 +443,7 @@ __global__ void __launch_bounds__(kLaneThreads)
 // unit clauses are taken. What bounds it: as for B9.
 template <int R>
 __global__ void __launch_bounds__(tile::kThreads)
-    stoch_tile_flip_kernel(uint8_t* __restrict__ v, const float* __restrict__ acc,
+    stoch_tile_flip_kernel(uint8_t* __restrict__ v, const float* __restrict__ red,
                            const uint8_t* __restrict__ done, int Np, uint32_t seed, int Bb,
                            int t) {
   const int g = blockIdx.x, r = tile::lane<R>(), chain = g * R + r;
@@ -452,7 +452,7 @@ __global__ void __launch_bounds__(tile::kThreads)
   const uint32_t step_term = seed + static_cast<uint32_t>(chain / Bb) * 0x632BE59Bu +
                              static_cast<uint32_t>(t - 1) * 0xC2B2AE3Du;
   uint8_t* vt = v + static_cast<size_t>(g) * Np * R;
-  const float* a = acc + static_cast<size_t>(g) * (2 * Np + 1) * R;
+  const float* a = red + static_cast<size_t>(g) * (2 * Np + 1) * R;
   tile::for_items<R>(Np, [&](int i) {
     const uint32_t h = mix(row_term ^ (static_cast<uint32_t>(i) * 0x85EBCA77u) ^ step_term);
     const float u = static_cast<float>(h >> 8) * (1.0f / 16777216.0f);
@@ -461,14 +461,17 @@ __global__ void __launch_bounds__(tile::kThreads)
   });
 }
 
-// One thread a chain, after flip (`apply`) or alone.
-__global__ void stoch_tile_head_kernel(float* __restrict__ acc, uint8_t* __restrict__ done,
-                                       int Np, int R, int n, int apply, int evaluate) {
+// One thread a chain, after flip (`apply`: the done latch from the reduced
+// flag in `red`) or alone; `evaluate` clears the flag of `acc` for the
+// evaluation that follows (`red` may be `acc`: read before cleared).
+__global__ void stoch_tile_head_kernel(const float* red, float* acc,
+                                       uint8_t* __restrict__ done, int Np, int R, int n,
+                                       int apply, int evaluate) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n) return;
-  float* flag = acc + (static_cast<size_t>(t / R) * (2 * Np + 1) + 2 * Np) * R + t % R;
-  if (apply) done[t] = (done[t] || *flag == 0.0f) ? 1 : 0;
-  if (evaluate) *flag = 0.0f;
+  const size_t flag = (static_cast<size_t>(t / R) * (2 * Np + 1) + 2 * Np) * R + t % R;
+  if (apply) done[t] = (done[t] || red[flag] == 0.0f) ? 1 : 0;
+  if (evaluate) acc[flag] = 0.0f;
 }
 
 template <int R>
@@ -531,15 +534,15 @@ __global__ void __launch_bounds__(tile::kThreads)
 }
 
 template <int R>
-int stoch_tile_step(uint8_t* v, int* xl, uint8_t* done, float* acc, int* w, const Formula& f,
-                    int G, bool bf16, uint32_t seed, int Bb, int t, bool apply, bool evaluate,
-                    cudaStream_t st) {
+int stoch_tile_step(uint8_t* v, int* xl, uint8_t* done, const float* red, float* acc, int* w,
+                    const Formula& f, int G, bool bf16, uint32_t seed, int Bb, int t, bool apply,
+                    bool evaluate, cudaStream_t st) {
   const dim3 vgrid = tile::grid(G, R, f.Np);
   if (apply)
-    stoch_tile_flip_kernel<R><<<vgrid, tile::kThreads, 0, st>>>(v, acc, done, f.Np, seed, Bb, t);
+    stoch_tile_flip_kernel<R><<<vgrid, tile::kThreads, 0, st>>>(v, red, done, f.Np, seed, Bb, t);
   const int n = G * R;
   stoch_tile_head_kernel<<<(n + tile::kThreads - 1) / tile::kThreads, tile::kThreads, 0, st>>>(
-      acc, done, f.Np, R, n, apply, evaluate);
+      red, acc, done, f.Np, R, n, apply, evaluate);
   if (evaluate) {
     stoch_tile_clause_kernel<R><<<tile::grid(G, R, f.Mp), tile::kThreads, 0, st>>>(v, xl, w, done,
                                                                                    acc, f);
@@ -632,23 +635,25 @@ int stoch_shard_eval_launch(uint8_t* v, int* xl, uint8_t* done, float* acc, int*
                             void* stream) {
   const Formula f{lit_code, occ_ptr, occ_clause, Np, Mp, K, nnz};
   if (G < 1 || R != tile::kR) return static_cast<int>(cudaErrorInvalidValue);
-  return stoch_tile_step<tile::kR>(v, xl, done, acc, w, f, G, bf16 != 0, 0u, 1, 0, false, true,
-                                   static_cast<cudaStream_t>(stream));
+  return stoch_tile_step<tile::kR>(v, xl, done, acc, acc, w, f, G, bf16 != 0, 0u, 1, 0, false,
+                                   true, static_cast<cudaStream_t>(stream));
 }
 
 // B9: one launch of the chunk (see stoch_tile_step) on buffers in the tile
-// layout with R = tile::kR chains a tile; `w` is the chunk's (G, Mp, R) int32 scratch.
-// Returns a cudaError_t code.
-int stoch_shard_step_launch(uint8_t* v, int* xl, uint8_t* done, float* acc, int* w,
-                            const int* lit_code, const int* occ_ptr, const int* occ_clause,
+// layout with R = tile::kR chains a tile; `red` (the reduced sums read when
+// `apply`) and `acc` (the partials written when `evaluate`) are (G, 2*Np+1,
+// R), the same buffer in a group of one; `w` is the chunk's (G, Mp, R)
+// int32 scratch. Returns a cudaError_t code.
+int stoch_shard_step_launch(uint8_t* v, int* xl, uint8_t* done, const float* red, float* acc,
+                            int* w, const int* lit_code, const int* occ_ptr, const int* occ_clause,
                             int G, int R, int Np, int Mp, int K, int nnz, int bf16,
                             unsigned int seed, int Bb, int t, int apply, int evaluate,
                             void* stream) {
   const Formula f{lit_code, occ_ptr, occ_clause, Np, Mp, K, nnz};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (G < 1 || R != tile::kR) return static_cast<int>(cudaErrorInvalidValue);
-  return stoch_tile_step<tile::kR>(v, xl, done, acc, w, f, G, bf16 != 0, seed, Bb, t, apply != 0,
-                                   evaluate != 0, st);
+  return stoch_tile_step<tile::kR>(v, xl, done, red, acc, w, f, G, bf16 != 0, seed, Bb, t,
+                                   apply != 0, evaluate != 0, st);
 }
 
 const char* stoch_chunk_error_string(int code) {

@@ -160,15 +160,17 @@ enum ShardMode { kRhs = 0, kFixed = 1, kSecond = 2 };
 // B6 (shard_chunk_launch) replaces odesat_tpu/ops/shard_chunk.py::
 // make_shard_chunk_call (:158): the clause-sharded ODE chunk whose dv
 // all-reduce the TPU kernel ran inside itself, over ICI remote DMA (B7,
-// odesat_tpu/ops/butterfly.py). A CUDA kernel cannot wait on other ranks, so
-// on Hopper the chunk is a sequence of launches with the all-reduce
-// (torch.distributed, NCCL or gloo) between them, where the TPU kernel ran
-// its butterfly; everything else the TPU kernel did in VMEM runs in these
-// launches: each applies the reduced result of the launch before it (the v
-// update, the done latch, and for the adaptive integrator the commit, the
-// step-doubling error and the dt control), then runs the shard's next pass.
-// So a fixed step is one launch and one all-reduce, with no other operation
-// between them, and a chunk of n steps ends with one apply-only launch.
+// odesat_tpu/ops/butterfly.py). On Hopper the chunk is a sequence of
+// launches with B7 (csrc/butterfly.cu, over CUDA IPC buffers) between them,
+// where the TPU kernel ran its butterfly; everything else the TPU kernel
+// did in VMEM runs in these launches: each applies the reduced result of
+// the launch before it (the v update, the done latch, and for the adaptive
+// integrator the commit, the step-doubling error and the dt control), then
+// runs the shard's next pass. A launch reads the reduced sums (red, red2,
+// private to the rank) and writes its partials elsewhere (acc, acc2: B7's
+// shared slots), so no rank writes a buffer a peer may still read. A fixed
+// step is one launch and one B7 call, an adaptive step two and two, and a
+// chunk of n steps ends with one apply-only launch.
 // Phases (ops/shard_chunk.py):
 //   kStep    fixed: [apply the previous step] v, done; dt_c = done ? 0 : dt;
 //            the fixed pass -> acc[:Np] = dv partial, acc[Np] = 1 - sat,
@@ -176,11 +178,12 @@ enum ShardMode { kRhs = 0, kFixed = 1, kSecond = 2 };
 //   kApply   fixed: apply only;
 //   kFirst   adaptive: [commit the previous step] v, dt, done; pass 1 ->
 //            acc[:Np] = dv1 partial, acc[Np] = 1 - sat, dxs1, dxl1;
-//   kHalf    adaptive: hv = clamp(v + (dt_c/2) dv1) from the reduced acc;
-//            the second pass at hv -> acc2 = dv2 partial, err = the shard's
-//            error, xs, xl committed into xs2, xl2 under the advance flag;
+//   kHalf    adaptive: hv = clamp(v + (dt_c/2) dv1) from the reduced red;
+//            the second pass at hv -> acc2[:Np] = dv2 partial, acc2[Np] =
+//            the shard's error (B7 max-combines that row), xs, xl committed
+//            into xs2, xl2 under the advance flag;
 //   kCommit  adaptive: commit only: tv = clamp(hv + (dt_c/2) dv2), err =
-//            max(err, |clamp(v + dt_c dv1) - tv|), dt <- clip(dt *
+//            max(red2[Np], |clamp(v + dt_c dv1) - tv|), dt <- clip(dt *
 //            sqrt(tol / max(err, 1e-30)), 2^-7, 1e3), v, dt under the advance
 //            flag, done |= allsat.
 // `done` in device memory between launches is the done the last pass ran
@@ -192,7 +195,7 @@ enum ShardMode { kRhs = 0, kFixed = 1, kSecond = 2 };
 // and each gather of v, xs, xl, dxs1 or dxl1 moves R useful words. Nothing
 // of a trajectory lives in shared memory, so many CTAs share an SM. A phase
 // is a short sequence of kernels on the stream, each over (tile, span):
-//   apply   v from the reduced acc (and acc2), over variables; adaptive:
+//   apply   v from the reduced red (and red2), over variables; adaptive:
 //           the commit's error, a max per trajectory, into `errbits`;
 //   head    one thread a trajectory: the done latch, the dt control, and
 //           the sat flag cleared for the pass that follows;
@@ -259,8 +262,8 @@ __device__ __forceinline__ void publish_max(int* s_max, float e, int* out) {
 
 template <int R, bool FIXED>
 __global__ void __launch_bounds__(tile::kThreads)
-    chunk_apply_kernel(float* __restrict__ v, const float* __restrict__ acc,
-                       const float* __restrict__ acc2, const float* __restrict__ dt,
+    chunk_apply_kernel(float* __restrict__ v, const float* __restrict__ red,
+                       const float* __restrict__ red2, const float* __restrict__ dt,
                        const unsigned char* __restrict__ done, int* __restrict__ errbits,
                        float dt_fixed, int Np) {
   __shared__ int s_max[R];
@@ -269,14 +272,14 @@ __global__ void __launch_bounds__(tile::kThreads)
   const bool d = done[t] != 0;
   const float dtc = d ? 0.0f : (FIXED ? dt_fixed : dt[t]);
   float* vt = v + at<R>(g, Np, 0, 0);
-  const float* a1 = acc + at<R>(g, Np + 1, 0, 0);
+  const float* a1 = red + at<R>(g, Np + 1, 0, 0);
   if constexpr (FIXED) {
     tile::for_items<R>(Np, [&](int i) {
       const size_t k = static_cast<size_t>(i) * R + r;
       vt[k] = clampf(vt[k] + dtc * a1[k], -1.0f, 1.0f);
     });
   } else {
-    const float* a2 = acc2 + at<R>(g, Np, 0, 0);
+    const float* a2 = red2 + at<R>(g, Np + 1, 0, 0);
     const bool adv = !d && a1[static_cast<size_t>(Np) * R + r] != 0.0f;  // !allsat
     const float half = 0.5f * dtc;
     float e = 0.0f;
@@ -294,44 +297,49 @@ __global__ void __launch_bounds__(tile::kThreads)
   }
 }
 
-// One thread a trajectory, after apply (`applied`) or alone.
+// One thread a trajectory, after apply (`applied`: the done latch from the
+// reduced flag, row Np of `red`, and for the adaptive integrator the dt
+// control from the reduced error, row Np of `red2`) or alone; `clear_flag`
+// clears row Np of `acc` for the pass that follows. `red` may be `acc` (a
+// group of one: the partial is the sum); the word is read before it is
+// cleared.
 template <bool FIXED>
-__global__ void chunk_head_kernel(float* __restrict__ acc, float* __restrict__ dt,
+__global__ void chunk_head_kernel(const float* red, float* acc, float* __restrict__ dt,
                                   unsigned char* __restrict__ done,
-                                  const float* __restrict__ err, int* __restrict__ errbits,
+                                  const float* __restrict__ red2, int* __restrict__ errbits,
                                   float tol, int Np, int R, int n, int applied, int clear_flag) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n) return;
-  float* flag = acc + (static_cast<size_t>(t / R) * (Np + 1) + Np) * R + t % R;
+  const size_t flag = (static_cast<size_t>(t / R) * (Np + 1) + Np) * R + t % R;
   if (applied) {
     const bool d = done[t] != 0;
-    const bool allsat = *flag == 0.0f;
+    const bool allsat = red[flag] == 0.0f;
     if (!FIXED) {
-      const float e = fmaxf(err[t], __int_as_float(errbits[t]));
+      const float e = fmaxf(red2[flag], __int_as_float(errbits[t]));
       errbits[t] = 0;
       const float ratio = tol / fmaxf(e, 1e-30f);
       if (!d && !allsat) dt[t] = clampf(dt[t] * sqrtf(ratio), kDtMin, kDtMax);
     }
     done[t] = (d || allsat) ? 1 : 0;
   }
-  if (clear_flag) *flag = 0.0f;
+  if (clear_flag) acc[flag] = 0.0f;
 }
 
 template <int R>
 __global__ void __launch_bounds__(tile::kThreads)
-    chunk_hv_kernel(const float* __restrict__ v, const float* __restrict__ acc,
+    chunk_hv_kernel(const float* __restrict__ v, const float* __restrict__ red,
                     const float* __restrict__ dt, const unsigned char* __restrict__ done,
-                    float* __restrict__ hv, float* __restrict__ err, int Np) {
+                    float* __restrict__ hv, float* __restrict__ err, size_t err_stride, int Np) {
   const int g = blockIdx.x, r = tile::lane<R>(), t = g * R + r;
   const float half = 0.5f * (done[t] ? 0.0f : dt[t]);
   const float* vt = v + at<R>(g, Np, 0, 0);
-  const float* a1 = acc + at<R>(g, Np + 1, 0, 0);
+  const float* a1 = red + at<R>(g, Np + 1, 0, 0);
   float* ht = hv + at<R>(g, Np, 0, 0);
   tile::for_items<R>(Np, [&](int i) {
     const size_t k = static_cast<size_t>(i) * R + r;
     ht[k] = clampf(vt[k] + half * a1[k], -1.0f, 1.0f);
   });
-  if (blockIdx.y == 0 && threadIdx.x < R) err[t] = 0.0f;  // the pass's max starts at 0
+  if (blockIdx.y == 0 && threadIdx.x < R) err[g * err_stride + r] = 0.0f;  // the pass's max: 0
 }
 
 // The clause side of a pass in MODE (ShardMode) for the clause word k of
@@ -377,11 +385,11 @@ __device__ __forceinline__ bool clause_side(bool real, float m1, float x0, float
 // The step trajectory t = g*R + r of a pass takes and, for kSecond, its
 // advance flag. B6 derives both: the step is 0 when done, else the fixed
 // step or dt; the flag is "not done and not all satisfied after the first
-// pass" (the reduced flag in acc). B5 (GIVEN) is handed both: dt, already 0
-// for a done row, and, in the `done` pointer, the advance flag.
+// pass" (the reduced flag, row Np of `red`). B5 (GIVEN) is handed both: dt,
+// already 0 for a done row, and, in the `done` pointer, the advance flag.
 template <int R, int MODE, bool GIVEN>
 __device__ __forceinline__ float pass_dt(const unsigned char* done, const float* dt,
-                                         const float* acc, const Scalars& s, int g, int r,
+                                         const float* red, const Scalars& s, int g, int r,
                                          int Np, bool* adv) {
   const int t = g * R + r;
   if constexpr (GIVEN) {
@@ -389,18 +397,19 @@ __device__ __forceinline__ float pass_dt(const unsigned char* done, const float*
     return MODE == kRhs ? 0.0f : dt[t];
   } else {
     const bool d = done[t] != 0;
-    *adv = MODE == kSecond && !d && acc[at<R>(g, Np + 1, Np, r)] != 0.0f;
+    *adv = MODE == kSecond && !d && red[at<R>(g, Np + 1, Np, r)] != 0.0f;
     return d ? 0.0f : (MODE == kFixed ? s.dt_fixed : (MODE == kSecond ? dt[t] : 0.0f));
   }
 }
 
 // Publish the CTA's sat flags (kFixed, kRhs: acc[Np] = 1 where a clause
-// was unsatisfied) or its error maxima (kSecond) per trajectory.
+// was unsatisfied) or its error maxima (kSecond) per trajectory, into the
+// error words of tile g at err + g * err_stride.
 template <int R, int MODE>
 __device__ __forceinline__ void publish(int* s_red, int unsat, float e, float* acc, float* err,
-                                        int g, int Np) {
+                                        size_t err_stride, int g, int Np) {
   if constexpr (MODE == kSecond) {
-    publish_max<R>(s_red, e, reinterpret_cast<int*>(err) + g * R);
+    publish_max<R>(s_red, e, reinterpret_cast<int*>(err + g * err_stride));
   } else {
     if (unsat) s_red[tile::lane<R>()] = 1;
     __syncthreads();
@@ -409,7 +418,8 @@ __device__ __forceinline__ void publish(int* s_red, int unsat, float e, float* a
 }
 
 // A pass in MODE over the span's variables: dv of each variable over its
-// CSR list into `out` (rows: Np + 1 for acc, Np for acc2; v is hv for
+// CSR list into `out` (rows: Np + 1 for acc and B6's acc2, Np for B5's
+// second-pass output; `red` holds the reduced flag kSecond reads; v is hv for
 // kSecond, whose clause memories are the half step's, recomputed per
 // occurrence from xs, dxs1, xl, dxl1). The clause side runs once for each
 // real clause, at the first occurrence in its slot-0 variable's list (the
@@ -422,8 +432,8 @@ __global__ void __launch_bounds__(tile::kThreads)
                       const float* __restrict__ xl, float* __restrict__ xs_out,
                       float* __restrict__ xl_out, float* dxs1, float* dxl1,
                       const float* __restrict__ dt, const unsigned char* __restrict__ done,
-                      float* out, int rows, float* acc, float* __restrict__ err, Tables f,
-                      Scalars s) {
+                      float* out, int rows, const float* red, float* acc,
+                      float* __restrict__ err, size_t err_stride, Tables f, Scalars s) {
   using C = K_<float>;
   __shared__ int s_red[R];
   const int g = blockIdx.x, r = tile::lane<R>();
@@ -431,7 +441,7 @@ __global__ void __launch_bounds__(tile::kThreads)
   if (threadIdx.x < R) s_red[threadIdx.x] = 0;
   __syncthreads();
   bool adv;
-  const float dtc = pass_dt<R, MODE, GIVEN>(done, dt, acc, s, g, r, Np, &adv);
+  const float dtc = pass_dt<R, MODE, GIVEN>(done, dt, red, s, g, r, Np, &adv);
   const float half = 0.5f * dtc;
   const float* vt = v + at<R>(g, Np, 0, 0);
   const size_t c0 = at<R>(g, f.Mp, 0, 0);
@@ -467,7 +477,7 @@ __global__ void __launch_bounds__(tile::kThreads)
     }
     ot[static_cast<size_t>(i) * R + r] = dv;
   });
-  publish<R, MODE>(s_red, unsat, e, acc, err, g, Np);
+  publish<R, MODE>(s_red, unsat, e, acc, err, err_stride, g, Np);
 }
 
 // The clause side of a pass for the shard's padded clauses (`pads`, n of
@@ -477,16 +487,16 @@ __global__ void __launch_bounds__(tile::kThreads)
     chunk_pad_kernel(const float* __restrict__ xs, const float* __restrict__ xl,
                      float* __restrict__ xs_out, float* __restrict__ xl_out, float* dxs1,
                      float* dxl1, const float* __restrict__ dt,
-                     const unsigned char* __restrict__ done, float* acc,
-                     float* __restrict__ err, const int* __restrict__ pads, int n, int Np, int Mp,
-                     Scalars s) {
+                     const unsigned char* __restrict__ done, const float* red, float* acc,
+                     float* __restrict__ err, size_t err_stride, const int* __restrict__ pads,
+                     int n, int Np, int Mp, Scalars s) {
   using C = K_<float>;
   __shared__ int s_red[R];
   const int g = blockIdx.x, r = tile::lane<R>();
   if (threadIdx.x < R) s_red[threadIdx.x] = 0;
   __syncthreads();
   bool adv;
-  const float dtc = pass_dt<R, MODE, GIVEN>(done, dt, acc, s, g, r, Np, &adv);
+  const float dtc = pass_dt<R, MODE, GIVEN>(done, dt, red, s, g, r, Np, &adv);
   const float half = 0.5f * dtc;
   const size_t c0 = at<R>(g, Mp, 0, 0);
   float e = 0.0f;
@@ -503,15 +513,20 @@ __global__ void __launch_bounds__(tile::kThreads)
     clause_side<MODE>(false, 0.0f, x0, l0, d1s, d1l, hxs, hxl, k, dtc, adv, xs_out, xl_out, dxs1,
                       dxl1, s, e);
   });
-  publish<R, MODE>(s_red, 0, e, acc, err, g, Np);
+  publish<R, MODE>(s_red, 0, e, acc, err, err_stride, g, Np);
 }
 
 // The pointers and sizes of one B5 or B6 launch (null where a phase reads
-// none; B5 passes its advance flags as `done`, see pass_dt).
+// none; B5 passes its advance flags as `done`, see pass_dt). `red`, `red2`:
+// the reduced sums B6 reads (they may be `acc`, `acc2`: a group of one);
+// `acc`, `acc2`: the partials a pass writes; the second pass's error words
+// of tile g at err + g * err_stride (B6: row Np of acc2; B5: a (G, R) array).
 struct ChunkArgs {
   float *v, *xs, *xl, *xs2, *xl2, *dt;
   unsigned char* done;
+  const float *red, *red2;
   float *acc, *acc2, *err, *dxs1, *dxl1, *hv;
+  size_t err_stride;
   int* errbits;
   const int* pads;
   int n_pads;
@@ -528,8 +543,8 @@ void launch_pass(const ChunkArgs& a, const float* v, float* out, int rows, cudaS
   const dim3 grid = tile::grid(a.G, R, a.f.Np);
 #define ODESAT_PASS(P, H)                                                                  \
   chunk_pass_kernel<R, MODE, P, H, GIVEN><<<grid, tile::kThreads, 0, st>>>(                       \
-      v, a.xs, a.xl, a.xs2, a.xl2, a.dxs1, a.dxl1, a.dt, a.done, out, rows, a.acc, a.err, a.f, \
-      a.s)
+      v, a.xs, a.xl, a.xs2, a.xl2, a.dxs1, a.dxl1, a.dt, a.done, out, rows, a.red, a.acc, a.err, \
+      a.err_stride, a.f, a.s)
   if (a.paper) {
     if (a.bf16) ODESAT_PASS(true, true); else ODESAT_PASS(true, false);
   } else {
@@ -538,8 +553,8 @@ void launch_pass(const ChunkArgs& a, const float* v, float* out, int rows, cudaS
 #undef ODESAT_PASS
   if (a.n_pads > 0)
     chunk_pad_kernel<R, MODE, GIVEN><<<tile::grid(a.G, R, a.n_pads), tile::kThreads, 0, st>>>(
-        a.xs, a.xl, a.xs2, a.xl2, a.dxs1, a.dxl1, a.dt, a.done, a.acc, a.err, a.pads, a.n_pads,
-        a.f.Np, a.f.Mp, a.s);
+        a.xs, a.xl, a.xs2, a.xl2, a.dxs1, a.dxl1, a.dt, a.done, a.red, a.acc, a.err,
+        a.err_stride, a.pads, a.n_pads, a.f.Np, a.f.Mp, a.s);
 }
 
 // One B6 launch in `phase`: the kernel sequence above on stream `st`.
@@ -553,26 +568,26 @@ int shard_chunk_phase(int phase, bool apply, const ChunkArgs& a, cudaStream_t st
   if (applied) {
     if (fixed)
       chunk_apply_kernel<R, true><<<vgrid, tile::kThreads, 0, st>>>(
-          a.v, a.acc, nullptr, nullptr, a.done, nullptr, a.s.dt_fixed, Np);
+          a.v, a.red, nullptr, nullptr, a.done, nullptr, a.s.dt_fixed, Np);
     else
       chunk_apply_kernel<R, false><<<vgrid, tile::kThreads, 0, st>>>(
-          a.v, a.acc, a.acc2, a.dt, a.done, a.errbits, 0.0f, Np);
+          a.v, a.red, a.red2, a.dt, a.done, a.errbits, 0.0f, Np);
   }
   if (phase != kHalf) {
     const int n = a.G * R;
     const int blocks = (n + tile::kThreads - 1) / tile::kThreads;
     if (fixed)
       chunk_head_kernel<true><<<blocks, tile::kThreads, 0, st>>>(
-          a.acc, nullptr, a.done, nullptr, nullptr, 0.0f, Np, R, n, applied, !tail);
+          a.red, a.acc, nullptr, a.done, nullptr, nullptr, 0.0f, Np, R, n, applied, !tail);
     else
       chunk_head_kernel<false><<<blocks, tile::kThreads, 0, st>>>(
-          a.acc, a.dt, a.done, a.err, a.errbits, a.s.tol, Np, R, n, applied, !tail);
+          a.red, a.acc, a.dt, a.done, a.red2, a.errbits, a.s.tol, Np, R, n, applied, !tail);
   }
   if (tail) return static_cast<int>(cudaGetLastError());
   if (phase == kHalf) {
-    chunk_hv_kernel<R><<<vgrid, tile::kThreads, 0, st>>>(a.v, a.acc, a.dt, a.done, a.hv, a.err,
-                                                         Np);
-    launch_pass<R, kSecond, false>(a, a.hv, a.acc2, Np, st);
+    chunk_hv_kernel<R><<<vgrid, tile::kThreads, 0, st>>>(a.v, a.red, a.dt, a.done, a.hv, a.err,
+                                                         a.err_stride, Np);
+    launch_pass<R, kSecond, false>(a, a.hv, a.acc2, Np + 1, st);
   } else if (phase == kStep) {
     launch_pass<R, kFixed, false>(a, a.v, a.acc, Np + 1, st);
   } else {
@@ -591,12 +606,12 @@ int shard_stream_pass(int mode, const ChunkArgs& a, float* out, cudaStream_t st)
   const int Np = a.f.Np, n = a.G * R;
   const int blocks = (n + tile::kThreads - 1) / tile::kThreads;
   if (mode == kSecond) {
-    chunk_head_kernel<true><<<blocks, tile::kThreads, 0, st>>>(a.err, nullptr, nullptr, nullptr,
-                                                                nullptr, 0.0f, 0, R, n, 0, 1);
+    chunk_head_kernel<true><<<blocks, tile::kThreads, 0, st>>>(
+        nullptr, a.err, nullptr, nullptr, nullptr, nullptr, 0.0f, 0, R, n, 0, 1);
     launch_pass<R, kSecond, true>(a, a.v, out, Np, st);
   } else {
-    chunk_head_kernel<true><<<blocks, tile::kThreads, 0, st>>>(out, nullptr, nullptr, nullptr,
-                                                                nullptr, 0.0f, Np, R, n, 0, 1);
+    chunk_head_kernel<true><<<blocks, tile::kThreads, 0, st>>>(
+        nullptr, out, nullptr, nullptr, nullptr, nullptr, 0.0f, Np, R, n, 0, 1);
     if (mode == kFixed)
       launch_pass<R, kFixed, true>(a, a.v, out, Np + 1, st);
     else
@@ -1232,10 +1247,11 @@ int shard_stream_launch(int mode, float* v, float* dt, unsigned char* adv, float
   const bool second = mode == kSecond;
   const ChunkArgs a{v,       xs,      xl,
                     xs2,     xl2,     dt,
-                    adv,     second ? nullptr : out, nullptr,
+                    adv,     nullptr, nullptr,
+                    second ? nullptr : out, nullptr,
                     err,     dxs1,    dxl1,
-                    nullptr, nullptr, pads,
-                    n_pads,  Tables{lit_code, occ_ptr, occ_code, Np, Mp, K},
+                    nullptr, static_cast<size_t>(R), nullptr,
+                    pads,    n_pads,  Tables{lit_code, occ_ptr, occ_code, Np, Mp, K},
                     Scalars{zeta, 0.0f, 0.0f, xl_cap},
                     G,       paper != 0, bf16 != 0};
   return shard_stream_pass<tile::kR>(mode, a, out, static_cast<cudaStream_t>(stream));
@@ -1244,28 +1260,34 @@ int shard_stream_launch(int mode, float* v, float* dt, unsigned char* adv, float
 // B6 in phase 0 (step), 1 (apply), 2 (first), 3 (half) or 4 (commit); see
 // ChunkPhase. The buffers are in the tile layout of tile.cuh with R =
 // tile::kR trajectories a tile: v, hv (G, Np, R); xs, xl, xs2, xl2, dxs1,
-// dxl1 (G, Mp, R); acc (G, Np+1, R); acc2 (G, Np, R); dt, done, err,
-// errbits (G, R). `apply` (phases 0 and 2) applies the previous launch's
-// reduced result first. step and half write the new clause memories to
-// xs2, xl2 (the caller swaps the two copies); `pads` lists the shard's
-// n_pads padded clauses. `hv` and `errbits` are the adaptive chunk's
-// scratch (errbits zero between launches). Pointers a phase does not use
-// may be null. Returns a cudaError_t code (0 = launched).
+// dxl1 (G, Mp, R); red, acc, red2, acc2 (G, Np+1, R); dt, done, errbits
+// (G, R). acc = (dv | 1 - sat) and acc2 = (dv2 | the step-doubling error)
+// are the partials the passes write (B7's slots on a clause mesh); red and
+// red2 the reduced sums B7 wrote, which apply, head, hv and the second pass
+// read (they are acc and acc2 in a group of one). `apply` (phases 0 and 2)
+// applies the previous launch's reduced result first. step and half write
+// the new clause memories to xs2, xl2 (the caller swaps the two copies);
+// `pads` lists the shard's n_pads padded clauses. `hv` and `errbits` are
+// the adaptive chunk's scratch (errbits zero between launches). Pointers a
+// phase does not use may be null. Returns a cudaError_t code (0 = launched).
 int shard_chunk_launch(int phase, int apply, float* v, float* xs, float* xl, float* dt,
-                       unsigned char* done, float* acc, float* acc2, float* err, float* dxs1,
-                       float* dxl1, float* xs2, float* xl2, float* hv, int* errbits,
+                       unsigned char* done, const float* red, float* acc, const float* red2,
+                       float* acc2, float* dxs1, float* dxl1, float* xs2, float* xl2, float* hv,
+                       int* errbits,
                        const int* pads, int n_pads, const int* lit_code, const int* occ_ptr,
                        const int* occ_code, int G, int R, int Np, int Mp, int K, int paper,
                        int bf16, float zeta, float dt_fixed, float tol, float xl_cap,
                        void* stream) {
   if (phase < kStep || phase > kCommit || G < 1 || R != tile::kR || n_pads < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  float* err = acc2 != nullptr ? acc2 + static_cast<size_t>(Np) * R : nullptr;
   const ChunkArgs a{v,       xs,     xl,
                     xs2,     xl2,    dt,
-                    done,    acc,    acc2,
+                    done,    red,    red2,
+                    acc,     acc2,
                     err,     dxs1,   dxl1,
-                    hv,      errbits, pads,
-                    n_pads,  Tables{lit_code, occ_ptr, occ_code, Np, Mp, K},
+                    hv,      static_cast<size_t>(Np + 1) * R, errbits,
+                    pads,    n_pads, Tables{lit_code, occ_ptr, occ_code, Np, Mp, K},
                     Scalars{zeta, dt_fixed, tol, xl_cap},
                     G,       paper != 0, bf16 != 0};
   return shard_chunk_phase<tile::kR>(phase, apply != 0, a, static_cast<cudaStream_t>(stream));

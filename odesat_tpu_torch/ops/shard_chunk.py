@@ -5,19 +5,24 @@ Replaces the TPU kernel ``odesat_tpu/ops/shard_chunk.py::make_shard_chunk_call``
 (Pallas; call :605). That kernel ran a whole chunk per launch with v, dt
 and done resident in VMEM and did the clause-axis all-reduce of dv *inside*
 the kernel, as a butterfly over ICI remote DMA (B7,
-``odesat_tpu/ops/butterfly.py``). A CUDA kernel cannot wait on another rank,
-so on Hopper the remote copies become a collective between launches
-(``torch.distributed.all_reduce``, NCCL or gloo), and the chunk becomes a
-sequence of launches of ``shard_chunk_launch`` (``csrc/stream_chunk.cu``)
-with one all-reduce after each pass. Everything else the TPU kernel did
-runs in those launches: each one first applies the previous launch's
-reduced result to the trajectory (the v update and done latch; for the
-adaptive integrator the commit, the step-doubling error and the dt
-control), then runs the shard's next pass with B5's arithmetic. A fixed
-step is therefore one launch and one all-reduce with no torch operation
-between them; an adaptive step is two launches and three all-reduces (dv1
-with the sat count; dv2; the error with MAX); a chunk ends with one
-apply-only launch.
+``odesat_tpu/ops/butterfly.py``). On Hopper the ranks of a clause group are
+processes, and the chunk becomes a sequence of launches of
+``shard_chunk_launch`` (``csrc/stream_chunk.cu``) with one call of B7
+(``ops/butterfly.py``: a CUDA kernel over IPC buffers, with the waits in the
+stream) after each pass. Everything else the TPU kernel did runs in those
+launches: each one first applies the previous launch's reduced result to
+the trajectory (the v update and done latch; for the adaptive integrator
+the commit, the step-doubling error and the dt control), then runs the
+shard's next pass with B5's arithmetic. A fixed step is one launch and one
+B7 call with no torch operation between them; an adaptive step two
+launches and two B7 calls, one for each invocation of the JAX butterfly
+(dv1 with the sat count; dv2 with the error in a max zone); a chunk ends
+with one apply-only launch.
+
+A launch reads the reduced sums ``red``/``red2`` (private to the rank) and
+writes the pass's partials ``acc``/``acc2`` (B7's shared slots on a card),
+so no rank writes a buffer a peer may still read; in a group of one there
+is no B7 call and the partials are the sums (``red``/``red2`` None).
 
 Phases (:data:`PHASES`; buffers of :class:`ChunkBuffers`):
 
@@ -26,22 +31,21 @@ Phases (:data:`PHASES`; buffers of :class:`ChunkBuffers`):
 * ``apply``: fixed; apply only (the chunk's last launch);
 * ``first``: adaptive; [commit] then pass 1: ``acc`` = (dv1 partial | 1 -
   sat), ``dxs1``/``dxl1`` staged;
-* ``half``: adaptive; the half step ``hv`` from the reduced ``acc``, pass 2
-  there: ``acc2`` = dv2 partial, ``err`` = the shard's error, xs and xl
-  committed under the advance flag;
+* ``half``: adaptive; the half step ``hv`` from the reduced ``red``, pass 2
+  there: ``acc2`` = (dv2 partial | the shard's error), xs and xl committed
+  under the advance flag;
 * ``commit``: adaptive; commit only (the chunk's last launch).
 
 ``done`` between launches is the done the last pass ran with: the next
 launch latches the reduced sat count. The arithmetic is the per-step path's
 (``ops/shard_stream.make_fused_clause_step``, B5), so B6 and B5 give the
-same state bit for bit; the all-reduce returns the same bytes to every
-rank, so ``v`` stays replicated (``parallel/sharded.check_replicated``
-checks it).
+same state bit for bit; B7 returns the same bits to every rank, so ``v``
+stays replicated (``parallel/sharded.check_replicated`` checks it).
 
 Design for the card: the runner interleaves the chunk's buffers by tiles
 of ``TILE`` = 32 trajectories (``ops/tiles.py``) once at entry and once
 at exit, and every launch and all-reduce in between works on the tiled
-buffers (the all-reduce is elementwise). A launch is a short sequence of
+buffers (B7 is elementwise). A launch is a short sequence of
 kernels over (tile, span of clauses or variables), with a tile's
 trajectories on the lanes of a group: each table word is read once for 32
 trajectories and each gather moves a whole 128-byte line; the clause words
@@ -87,10 +91,6 @@ from odesat_tpu_torch.ops.tiles import TILE, n_tiles, rows_of, tile, untile
 # Kernel launches made through shard_chunk_cuda in this process (every
 # phase). A plain integer that callers may reset; chip_smoke.py reads it.
 launches = 0
-# The dv all-reduces the chunk runner issues between B6's launches: the
-# torch.distributed counterpart of the TPU kernel's in-kernel butterfly B7
-# (odesat_tpu/ops/butterfly.py:99), counted where they are issued.
-allreduces = 0
 
 PHASES = {"step": 0, "apply": 1, "first": 2, "half": 3, "commit": 4}
 
@@ -112,8 +112,8 @@ def resolve_shard_chunk(value, eligible: bool) -> bool:
 def shard_chunk_supported(fa, plan, ode) -> bool:
     """B6's gate: B5's (a shard plan, no unit clauses, f32 state, v in one
     CTA) and per-trajectory dt (JAX :146-155). The TPU kernel's
-    power-of-two clause axis was its butterfly's need; the collective here
-    takes any group."""
+    power-of-two clause axis was its butterfly's need; B7 here takes any
+    group."""
     return (stream_shard_supported(fa, plan, ode.dtype)
             and ode.dt_mode == "per-trajectory")
 
@@ -121,10 +121,12 @@ def shard_chunk_supported(fa, plan, ode) -> bool:
 class ChunkBuffers(NamedTuple):
     """One rank's state and the chunk's staging: v (B, Np), xs, xl (B, Mp)
     f32; dt (B,) f32; done (B,) bool; acc (B, Np+1) the pass's partial (dv
-    | 1 - sat) and, once reduced, its sum; adaptive only: acc2 (B, Np) dv2,
-    err (B,), dxs1, dxl1 (B, Mp). The fixed integrator reads no dt. The
-    plain version takes them in this layout, the kernel tiled
-    (``ops/tiles.py``: (G, X, R) for (B, X), (G, R) for (B,))."""
+    | 1 - sat); adaptive only: acc2 (B, Np+1) the second pass's (dv2 | the
+    shard's step-doubling error), dxs1, dxl1 (B, Mp); red, red2 (B, Np+1)
+    the reduced sums of acc and acc2 that a launch reads (None: acc and acc2
+    hold them, a group of one). The fixed integrator reads no dt. The plain
+    version takes them in this layout, the kernel tiled (``ops/tiles.py``:
+    (G, X, R) for (B, X), (G, R) for (B,))."""
 
     v: torch.Tensor
     xs: torch.Tensor
@@ -133,9 +135,15 @@ class ChunkBuffers(NamedTuple):
     done: torch.Tensor
     acc: torch.Tensor
     acc2: Optional[torch.Tensor] = None
-    err: Optional[torch.Tensor] = None
     dxs1: Optional[torch.Tensor] = None
     dxl1: Optional[torch.Tensor] = None
+    red: Optional[torch.Tensor] = None
+    red2: Optional[torch.Tensor] = None
+
+    def sums(self) -> tuple:
+        """``(red, red2)``: the reduced sums a launch reads."""
+        return (self.acc if self.red is None else self.red,
+                self.acc2 if self.red2 is None else self.red2)
 
 
 # ---------------------------------------------------------------- plain
@@ -154,15 +162,16 @@ def _dt_c(b: ChunkBuffers, spec: ShardSpec):
 def _apply_plain(b: ChunkBuffers, spec: ShardSpec) -> ChunkBuffers:
     """The reduced result of the previous launch applied to v, dt, done."""
     Np = spec.Np
+    red, red2 = b.sums()
     dtc = _dt_c(b, spec).unsqueeze(1)
-    dv1, allsat = b.acc[:, :Np], b.acc[:, Np] == 0
+    dv1, allsat = red[:, :Np], red[:, Np] == 0
     if spec.fixed:
         return b._replace(v=_clamp_v(b.v + dtc * dv1), done=b.done | allsat)
     half = 0.5 * dtc
     adv = ~b.done & ~allsat
     fv = _clamp_v(b.v + dtc * dv1)
-    tv = _clamp_v(_clamp_v(b.v + half * dv1) + half * b.acc2)
-    err = torch.maximum(b.err, (fv - tv).abs().amax(dim=1))
+    tv = _clamp_v(_clamp_v(b.v + half * dv1) + half * red2[:, :Np])
+    err = torch.maximum(red2[:, Np], (fv - tv).abs().amax(dim=1))
     # a tensor numerator, since `float / tensor` rounds twice in torch
     new_dt = _clamp(b.dt * torch.sqrt(err.new_tensor(spec.tol) / err.clamp_min(1e-30)),
                     DT_MIN, DT_MAX)
@@ -188,10 +197,11 @@ def shard_chunk_plain(phase: str, b: ChunkBuffers, spec: ShardSpec,
     if phase != "half":
         raise ValueError(f"unknown phase {phase!r}")
     Np = spec.Np
-    adv = ~b.done & (b.acc[:, Np] != 0)
-    hv = _clamp_v(b.v + (0.5 * dtc).unsqueeze(1) * b.acc[:, :Np])
+    red = b.sums()[0]
+    adv = ~b.done & (red[:, Np] != 0)
+    hv = _clamp_v(b.v + (0.5 * dtc).unsqueeze(1) * red[:, :Np])
     dv2, xs, xl, err = shard_second_plain(hv, dtc, adv, b.xs, b.xl, b.dxs1, b.dxl1, spec)
-    return b._replace(xs=xs, xl=xl, acc2=dv2, err=err)
+    return b._replace(xs=xs, xl=xl, acc2=torch.cat([dv2, err.unsqueeze(1)], dim=1))
 
 
 def shard_chunk_plain_tiled(phase: str, b: ChunkBuffers, spec: ShardSpec,
@@ -248,16 +258,16 @@ def shard_chunk_cuda(phase: str, b: ChunkBuffers, spec: ShardSpec, apply: bool =
         raise ValueError(f"tiles of {R} trajectories; the kernel takes {TILE}")
     if scratch is None:
         scratch = chunk_scratch(b, spec)
-    clause = (G, spec.Mp, R)
-    shapes = dict(v=(G, spec.Np, R), xs=clause, xl=clause, dt=(G, R), done=(G, R),
-                  acc=(G, spec.Np + 1, R), acc2=(G, spec.Np, R), err=(G, R), dxs1=clause,
-                  dxl1=clause, xs2=clause, xl2=clause, pads=tuple(scratch.pads.shape),
-                  hv=(G, spec.Np, R), errbits=(G, R))
+    clause, sums = (G, spec.Mp, R), (G, spec.Np + 1, R)
+    shapes = dict(v=(G, spec.Np, R), xs=clause, xl=clause, dt=(G, R), done=(G, R), acc=sums,
+                  acc2=sums, red=sums, red2=sums, dxs1=clause, dxl1=clause, xs2=clause,
+                  xl2=clause, pads=tuple(scratch.pads.shape), hv=(G, spec.Np, R),
+                  errbits=(G, R))
     tensors = dict(b._asdict(), xs2=scratch.xs2, xl2=scratch.xl2, pads=scratch.pads,
                    hv=scratch.hv, errbits=scratch.errbits)
     for name, t in tensors.items():
         if t is None:
-            if not spec.fixed:
+            if not spec.fixed and name not in ("red", "red2"):
                 raise ValueError(f"the adaptive chunk needs the {name} buffer")
             continue
         dtype = {"done": torch.bool, "errbits": torch.int32, "pads": torch.int32}.get(
@@ -277,10 +287,12 @@ def shard_chunk_cuda(phase: str, b: ChunkBuffers, spec: ShardSpec, apply: bool =
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
+    red, red2 = b.sums()
     with torch.cuda.device(spec.device):
         stream = torch.cuda.current_stream(spec.device).cuda_stream
         rc = lib.shard_chunk_launch(
-            PHASES[phase], int(apply), *(ptr(t) for t in b), scratch.xs2.data_ptr(),
+            PHASES[phase], int(apply), *(ptr(t) for t in b[:5]), ptr(red), ptr(b.acc),
+            ptr(red2), ptr(b.acc2), ptr(b.dxs1), ptr(b.dxl1), scratch.xs2.data_ptr(),
             scratch.xl2.data_ptr(), ptr(scratch.hv), ptr(scratch.errbits),
             scratch.pads.data_ptr(), scratch.pads.numel(), spec.lit_code.data_ptr(),
             spec.occ_ptr.data_ptr(), spec.occ_code.data_ptr(), G, R, spec.Np, spec.Mp, spec.K,
@@ -316,7 +328,7 @@ def tile_state(state, spec: ShardSpec) -> ChunkBuffers:
     b = ChunkBuffers(tile(state.v), tile(state.xs), tile(state.xl, fill=1.0), tile(state.dt),
                      tile(state.done, fill=True), like.new_zeros((G, spec.Np + 1, TILE)))
     if not spec.fixed:
-        b = b._replace(acc2=like.new_zeros((G, spec.Np, TILE)), err=like.new_zeros((G, TILE)),
+        b = b._replace(acc2=like.new_zeros((G, spec.Np + 1, TILE)),
                        dxs1=like.new_zeros((G, spec.Mp, TILE)),
                        dxl1=like.new_zeros((G, spec.Mp, TILE)))
     return b
@@ -329,15 +341,16 @@ def make_shard_chunk(fa, zeta: float, ode, chunk_steps: int, clause_group=None,
                      device="cuda"):
     """``run(state, dev=None) -> state`` advancing this rank's trajectory
     rows ``chunk_steps`` steps over its clause segment (the JAX module's
-    ``make_shard_chunk_call``, :158): B6's launches with the all-reduce
-    over ``clause_group`` between them (none without a group, S=1), on the
-    rows tiled once at entry and untiled once at exit, with the scratch
-    allocated once. The shard is the rank's index in the group. The
-    caller's state is never written."""
+    ``make_shard_chunk_call``, :158): B6's launches with B7 over
+    ``clause_group`` between them (``ops/butterfly.py``: its kernel on a
+    card, its plain version on the CPU; none in a group of one), on the rows
+    tiled once at entry and untiled once at exit, with the scratch allocated
+    once. The shard is the rank's index in the group. The caller's state is
+    never written."""
     import torch.distributed as dist
 
     from odesat_tpu_torch.models.ode import ODEState
-    from odesat_tpu_torch.parallel.dist import all_reduce
+    from odesat_tpu_torch.ops import butterfly as bf
 
     plan = fa.shard_plan
     if plan is None:
@@ -346,34 +359,43 @@ def make_shard_chunk(fa, zeta: float, ode, chunk_steps: int, clause_group=None,
     if not shard_chunk_supported(fa, plan, ode):
         raise ValueError("the clause-shard chunk kernel needs a shard plan, no unit clauses, "
                          "float32 state, per-trajectory dt and v within one CTA")
-    shard = 0
+    shard, S = 0, 1
     if clause_group is not None:
-        shard = dist.get_rank(clause_group)
-        if dist.get_world_size(clause_group) != plan.n_shards:
+        shard, S = dist.get_rank(clause_group), dist.get_world_size(clause_group)
+        if S != plan.n_shards:
             raise ValueError(f"the plan has {plan.n_shards} shards but the clause group "
-                             f"{dist.get_world_size(clause_group)} ranks")
+                             f"{S} ranks")
     spec = shard_spec(fa, zeta, ode, device, shard)
-
-    def reduce(t, op="sum"):
-        global allreduces
-        if clause_group is not None:
-            all_reduce(t, clause_group, op)
-            allreduces += 1
 
     def run(state, dev=None):
         B = state.v.shape[0]
         b = tile_state(state, spec)
-        scratch = chunk_scratch(b, spec) if b.v.device.type == "cuda" else None
+        on_card = b.v.device.type == "cuda"
+        scratch = chunk_scratch(b, spec) if on_card else None
+        comm = bf.communicator(clause_group, b.v.device) if on_card and S > 1 else None
+        if S > 1:  # the reduced sums, private to the rank
+            b = b._replace(red=torch.zeros_like(b.acc),
+                           red2=None if spec.fixed else torch.zeros_like(b.acc2))
+        shape = tuple(b.acc.shape)
+        zones2 = (shape[1] * shape[2], shape[2])  # each tile's error row takes the max
+
+        def launch(b, phase, apply, part):
+            if comm is not None:  # the pass writes its partial into B7's slot
+                b = b._replace(**{part: comm.slot(shape)})
+            return shard_chunk_phase(phase, b, spec, apply, scratch)
+
+        def reduce(b, part, into, zones=None):
+            if S == 1:
+                return b
+            return b._replace(**{into: bf.butterfly(getattr(b, part), clause_group, zones,
+                                                    getattr(b, into))})
+
         for t in range(chunk_steps):
             if spec.fixed:
-                b = shard_chunk_phase("step", b, spec, t > 0, scratch)
-                reduce(b.acc)
+                b = reduce(launch(b, "step", t > 0, "acc"), "acc", "red")
             else:
-                b = shard_chunk_phase("first", b, spec, t > 0, scratch)
-                reduce(b.acc)
-                b = shard_chunk_phase("half", b, spec, False, scratch)
-                reduce(b.acc2)
-                reduce(b.err, "max")
+                b = reduce(launch(b, "first", t > 0, "acc"), "acc", "red")
+                b = reduce(launch(b, "half", False, "acc2"), "acc2", "red2", zones2)
         if chunk_steps:
             b = shard_chunk_phase("apply" if spec.fixed else "commit", b, spec, False, scratch)
         return ODEState(*(untile(t, B) for t in b[:5]))

@@ -377,7 +377,7 @@ def _declare(lib) -> None:
     lib.stoch_shard_eval_launch.argtypes = [_P] * 8 + [_I] * 7 + [_P]
     lib.stoch_shard_eval_launch.restype = _I
     lib.stoch_shard_step_launch.argtypes = (
-        [_P] * 8 + [_I] * 7 + [ctypes.c_uint] + [_I] * 4 + [_P]
+        [_P] * 9 + [_I] * 7 + [ctypes.c_uint] + [_I] * 4 + [_P]
     )
     lib.stoch_shard_step_launch.restype = _I
     lib.stoch_chunk_error_string.argtypes = [_I]
@@ -648,15 +648,18 @@ def make_stoch_shard_eval(fa: FormulaArrays, device, shard: int = 0,
 # B9 replaces ``odesat_tpu/ops/stoch_pallas.py::make_stoch_shard_chunk``
 # (Pallas; call :1161), the whole-chunk clause-shard kernel that all-reduced
 # the (total, unsat, sat) partials inside itself over ICI remote DMA (B7,
-# ``odesat_tpu/ops/butterfly.py``). On Hopper that collective runs between
-# launches (``torch.distributed.all_reduce``), so the chunk is a launch per
+# ``odesat_tpu/ops/butterfly.py``). On Hopper B7 runs between launches
+# (``ops/butterfly.py``, over CUDA IPC buffers), so the chunk is a launch per
 # step of ``stoch_shard_step_launch`` (``csrc/stoch_chunk.cu``) and one more:
-# each launch applies the previous step's reduced sums (the flip with the
-# counter-hash uniforms of that step, the done latch) and evaluates the
-# shard for its own step as B8 does, into ``acc`` = (total | unsat | 1 -
-# sat). The flips and their uniforms, which B8's path drew in torch, run in
-# the kernel. Same seed, blocking and step index as B8's path, so the two
-# flip for flip; the sums are integers in f32, so S=2 flips as S=1 does.
+# each launch applies the previous step's reduced sums ``red`` (the flip
+# with the counter-hash uniforms of that step, the done latch) and
+# evaluates the shard for its own step as B8 does, into ``acc`` = (total |
+# unsat | 1 - sat), B7's shared slot on a clause mesh. The flips and their
+# uniforms, which B8's path drew in torch, run in the kernel. Same seed,
+# blocking and step index as B8's path, so the two flip for flip; the sums
+# are integers in f32, so any S flips as S=1 does. JAX's min-combined sat
+# flag is a summed (1 - sat) here: 0 after the sum exactly when every shard
+# is satisfied.
 #
 # Design: the runner tiles the chains once a chunk (``ops/tiles.py``,
 # ``TILE`` = 32 chains a tile); a launch is a few kernels over (tile, span
@@ -666,7 +669,6 @@ def make_stoch_shard_eval(fa: FormulaArrays, device, shard: int = 0,
 # the variable sums gather.
 
 shard_chunk_launches = 0  # B9 launches, as shard_launches counts B8's
-shard_allreduces = 0  # the all-reduces between B9's launches (B7), as shard_chunk.allreduces
 
 
 def stoch_shard_supported(fa: FormulaArrays) -> bool:
@@ -679,18 +681,20 @@ def stoch_shard_supported(fa: FormulaArrays) -> bool:
 
 
 def stoch_shard_step_plain(v, xl, done, acc, spec: StochSpec, bf16: bool, seed: int, Bb: int,
-                           t: int, apply: bool, evaluate: bool = True):
+                           t: int, apply: bool, evaluate: bool = True, red=None):
     """One launch of B9 in torch ops, on (B, X) buffers: returns ``(v, xl,
-    done, acc)`` as the kernel leaves them. ``acc`` (B, 2*Np+1) holds the
-    reduced sums of step ``t - 1`` on entry (read when ``apply``) and the
-    shard's partials of step ``t`` on exit (when ``evaluate``)."""
+    done, acc)`` as the kernel leaves them. ``red`` (B, 2*Np+1) holds the
+    reduced sums of step ``t - 1`` (read when ``apply``; None: ``acc``
+    holds them, a group of one); ``acc`` the shard's partials of step ``t``
+    on exit (when ``evaluate``)."""
     Np = spec.Np
     if apply:
+        red = acc if red is None else red
         chains = torch.arange(v.shape[0], device=v.device, dtype=torch.int64)
         u = uniform01(seed, chains, Bb, t - 1, Np)
-        flip = u * acc[:, :Np] < acc[:, Np:2 * Np]
+        flip = u * red[:, :Np] < red[:, Np:2 * Np]
         v = torch.where((~done).unsqueeze(1) & flip, ~v, v)
-        done = done | (acc[:, 2 * Np] == 0)
+        done = done | (red[:, 2 * Np] == 0)
     if not evaluate:
         return v, xl, done, acc
     total, unsat, xl, sat = stoch_shard_eval_plain(v, xl, ~done, spec, bf16)
@@ -698,23 +702,25 @@ def stoch_shard_step_plain(v, xl, done, acc, spec: StochSpec, bf16: bool, seed: 
 
 
 def stoch_shard_step_plain_tiled(v, xl, done, acc, spec: StochSpec, bf16: bool, seed: int,
-                                 Bb: int, t: int, apply: bool, evaluate: bool = True):
+                                 Bb: int, t: int, apply: bool, evaluate: bool = True, red=None):
     """:func:`stoch_shard_step_plain` on tiled buffers: untiled (padding
     rows kept, at their chain indices), run, tiled again."""
     R, rows = v.shape[-1], rows_of(v)
     out = stoch_shard_step_plain(*(untile(x, rows) for x in (v, xl, done, acc)), spec, bf16,
-                                 seed, Bb, t, apply, evaluate)
+                                 seed, Bb, t, apply, evaluate,
+                                 None if red is None else untile(red, rows))
     return tuple(tile(x, R) for x in out)
 
 
 def stoch_shard_step_cuda(v, xl, done, acc, spec: StochSpec, bf16: bool, seed: int, Bb: int,
-                          t: int, apply: bool, evaluate: bool = True, w=None):
+                          t: int, apply: bool, evaluate: bool = True, w=None, red=None):
     """Launch B9 once on the current stream, on tiled buffers (``TILE``
     chains a tile): v (G, Np, R) bool, xl (G, Mp, R) int32,
-    done (G, R) bool, acc (G, 2*Np+1, R) f32, updated in place and
-    returned. ``w`` is the (G, Mp, R) int32 weight scratch (allocated here
-    when None). Raises if an input is not what it takes or the launch is
-    refused; never falls back."""
+    done (G, R) bool, acc (G, 2*Np+1, R) f32 (the partials written), updated
+    in place and returned; ``red`` (G, 2*Np+1, R) f32, the reduced sums read
+    (None: ``acc`` holds them, a group of one). ``w`` is the (G, Mp, R)
+    int32 weight scratch (allocated here when None). Raises if an input is
+    not what it takes or the launch is refused; never falls back."""
     global shard_chunk_launches
     if spec.device.type != "cuda":
         raise ValueError(f"the stoch shard chunk kernel runs on CUDA tensors, not {spec.device}")
@@ -725,14 +731,17 @@ def stoch_shard_step_cuda(v, xl, done, acc, spec: StochSpec, bf16: bool, seed: i
         raise ValueError(f"tiles of {R} chains; the kernel takes {TILE}")
     if w is None:
         w = torch.empty((G, spec.Mp, R), dtype=torch.int32, device=spec.device)
+    red = acc if red is None else red
     _check_tiled(spec, G, R, v=v, xl=xl, done=done, acc=acc, w=w)
+    _check_tiled(spec, G, R, acc=red)
     if G == 0:
         return v, xl, done, acc
     lib, _ = load_library()
     with torch.cuda.device(spec.device):
         stream = torch.cuda.current_stream(spec.device).cuda_stream
         rc = lib.stoch_shard_step_launch(
-            v.data_ptr(), xl.data_ptr(), done.data_ptr(), acc.data_ptr(), w.data_ptr(),
+            v.data_ptr(), xl.data_ptr(), done.data_ptr(), red.data_ptr(), acc.data_ptr(),
+            w.data_ptr(),
             spec.lit_code.data_ptr(), spec.occ_ptr.data_ptr(), spec.occ_clause.data_ptr(),
             G, R, spec.Np, spec.Mp, spec.K, spec.occ_clause.numel(), int(bf16), int(seed),
             int(Bb), int(t), int(apply), int(evaluate), stream,
@@ -749,20 +758,26 @@ def make_stoch_shard_chunk(fa: FormulaArrays, chunk_steps: int, device, shard: i
     """``fn(state, seed) -> state`` advancing this rank's chains
     ``chunk_steps`` steps over shard ``shard`` of ``fa.shard_plan`` (JAX
     :868): B9's launches (CUDA states) or its plain version (CPU states),
-    with the sums all-reduced over ``clause_group`` between them (none
-    without a group), on the chains tiled once at entry and untiled once
-    at exit. ``seed`` is the chunk's 31-bit PRNG seed, the same on every
-    clause rank of a row. The caller's state is never written."""
-    from odesat_tpu_torch.parallel.dist import all_reduce
+    with the sums reduced over ``clause_group`` between them by B7
+    (``ops/butterfly.py``: its kernel on a card, its plain version on the
+    CPU; none in a group of one), on the chains tiled once at entry and
+    untiled once at exit. ``seed`` is the chunk's 31-bit PRNG seed, the same
+    on every clause rank of a row. The caller's state is never written."""
+    import torch.distributed as dist
+
+    from odesat_tpu_torch.ops import butterfly as bf
 
     if not stoch_shard_supported(fa):
         raise ValueError("the clause-shard stoch kernels need a compile_stream_sharded "
                          "formula whose v fits one CTA")
+    S = 1 if clause_group is None else dist.get_world_size(clause_group)
+    if clause_group is not None and S != fa.shard_plan.n_shards:
+        raise ValueError(f"the plan has {fa.shard_plan.n_shards} shards but the clause group "
+                         f"{S} ranks")
     spec = stoch_shard_spec(fa, device, shard)
     bf16 = matmul_dtype == "bfloat16"
 
     def fn(state, seed: int):
-        global shard_allreduces
         kind = state.v.device.type
         if kind not in ("cuda", "cpu"):
             raise ValueError(f"no stoch shard chunk path for tensors on {state.v.device}")
@@ -770,7 +785,10 @@ def make_stoch_shard_chunk(fa: FormulaArrays, chunk_steps: int, device, shard: i
         Bb = traj_block(B)
         v, xl, done = tile(state.v), tile(state.xl, fill=1), tile(state.done, fill=True)
         G = v.shape[0]
-        acc = torch.zeros((G, 2 * spec.Np + 1, TILE), dtype=torch.float32, device=v.device)
+        shape = (G, 2 * spec.Np + 1, TILE)
+        acc = torch.zeros(shape, dtype=torch.float32, device=v.device)
+        red = torch.zeros_like(acc) if S > 1 else None  # S = 1 reads its own partials
+        comm = bf.communicator(clause_group, v.device) if kind == "cuda" and S > 1 else None
         if kind == "cuda":
             w = torch.empty((G, spec.Mp, TILE), dtype=torch.int32, device=v.device)
 
@@ -779,11 +797,12 @@ def make_stoch_shard_chunk(fa: FormulaArrays, chunk_steps: int, device, shard: i
         else:
             launch = stoch_shard_step_plain_tiled
         for t in range(chunk_steps + 1):
+            if comm is not None and t < chunk_steps:
+                acc = comm.slot(shape)  # B7's shared slot of this call
             v, xl, done, acc = launch(v, xl, done, acc, spec, bf16, seed, Bb, t, apply=t > 0,
-                                      evaluate=t < chunk_steps)
-            if t < chunk_steps and clause_group is not None:
-                all_reduce(acc, clause_group)
-                shard_allreduces += 1
+                                      evaluate=t < chunk_steps, red=red)
+            if t < chunk_steps and S > 1:
+                red = bf.butterfly(acc, clause_group, None, red)
         return state._replace(v=untile(v, B), xl=untile(xl, B), done=untile(done, B))
 
     fn.spec = spec

@@ -179,7 +179,7 @@ def _declare(lib) -> None:
     )
     lib.shard_stream_launch.restype = _I
     lib.shard_chunk_launch.argtypes = (  # B6 (ops/shard_chunk.py)
-        [_I, _I] + [_P] * 15 + [_I] + [_P] * 3 + [_I] * 7 + [_F] * 4 + [_P]
+        [_I, _I] + [_P] * 16 + [_I] + [_P] * 3 + [_I] * 7 + [_F] * 4 + [_P]
     )
     lib.shard_chunk_launch.restype = _I
     lib.stream_chunk_smem_limit.argtypes = []

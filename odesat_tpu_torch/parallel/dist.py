@@ -14,6 +14,14 @@
 * :class:`MeshSync` makes the host loop's decisions global: the done flags
   every rank reads, the stop flag, and the elapsed time (all-reduced MAX),
   so every rank builds the same chunks and stops after the same one.
+* B7's checks and timings over a clause group (``ops/butterfly.py``, the
+  kernel between B6's and B9's launches): :func:`all_reduce_error` (the
+  kernel against its plain version, bit for bit), :func:`butterfly_of`,
+  :func:`time_butterfly`, and :func:`time_all_reduce`, the
+  ``torch.distributed`` all-reduce B7 replaced, kept as its yardstick.
+
+These host decisions stay on ``torch.distributed``; in JAX they are XLA
+collectives outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -107,11 +115,12 @@ class MeshSync:
 
 
 def time_all_reduce(mesh, device, shape, iters: int = 10) -> float:
-    """Milliseconds per all-reduce (SUM) of a float32 tensor of ``shape`` on
-    this rank's device over its clause group: host clock around ``iters``
-    calls ending in a device sync, after one warm-up call. Rank 0's number
-    comes back through ``parallel/launch.spawn``. With gloo and CUDA
-    tensors each call is staged through the host."""
+    """Milliseconds per ``torch.distributed`` all-reduce (SUM) of a float32
+    tensor of ``shape`` on this rank's device over its clause group: host
+    clock around ``iters`` calls ending in a device sync, after one warm-up
+    call; B7's ``library_ms``, the call it replaced. Rank 0's number comes
+    back through ``parallel/launch.spawn``. With gloo and CUDA tensors each
+    call is staged through the host."""
     import time
 
     t = torch.ones(shape, dtype=torch.float32, device=device)
@@ -129,20 +138,108 @@ def time_all_reduce(mesh, device, shape, iters: int = 10) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def all_reduce_error(mesh, device, shape, seed: int = 0) -> float:
-    """B7 against its plain version: the max abs difference between the
-    all-reduce (SUM) over this rank's clause group of a float32 buffer of
-    ``shape`` drawn from ``(seed, rank)`` and the sum, in rank order, of
-    every group rank's buffer drawn here."""
-    ranks = dist.get_process_group_ranks(mesh.clause_group)
+def butterfly_of(mesh, device, parts, zones=None) -> tuple:
+    """B7 (:func:`~odesat_tpu_torch.ops.butterfly.butterfly`: the kernel on
+    a card, the plain version on the CPU) over this rank's clause group of
+    ``parts[k]`` on clause rank k (float32 NumPy arrays, one a rank; shapes
+    that differ make every rank raise). Returns ``(result, replicated)``:
+    this rank's result as NumPy and whether every rank of the group got its
+    bits."""
+    from odesat_tpu_torch.ops import butterfly as bf
 
-    def draw(rank):
-        gen = torch.Generator().manual_seed(seed * 1000003 + rank)
-        return torch.rand(shape, generator=gen).to(device)
+    group = mesh.clause_group
+    mine = torch.as_tensor(np.ascontiguousarray(parts[dist.get_rank(group)], np.float32))
+    out = bf.butterfly(mine.to(device), group, zones).cpu()
+    seen = [torch.empty_like(out) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(seen, out, group=group)
+    same = all(torch.equal(s.view(torch.int32), out.view(torch.int32)) for s in seen)
+    return out.numpy(), same
 
-    t = all_reduce(draw(dist.get_rank()), mesh.clause_group)
-    plain = draw(ranks[0])
-    for rank in ranks[1:]:
-        plain = plain + draw(rank)
-    return float((t - plain).abs().max())
 
+def butterfly_inputs(shape, S: int, calls: int, seed: int, device) -> torch.Tensor:
+    """(calls, S, *shape) float32 partials for B7's checks, the same on
+    every rank (drawn there from ``seed``): magnitudes from 1e-3 to 1e8 and
+    both signs, so that rank order and tree order round differently, with
+    signed zeros and a few NaN."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = int(np.prod(shape))
+    x = torch.rand((calls, S, n), generator=gen, device=device) - 0.5
+    scale = torch.randint(-3, 9, (calls, S, n), generator=gen, device=device).float()
+    x = x * torch.pow(10.0, scale)
+    pick = torch.randint(0, 1000, (calls, S, n), generator=gen, device=device)
+    x = torch.where(pick == 0, torch.full_like(x, float("nan")), x)
+    x = torch.where(pick == 1, torch.zeros_like(x), x)
+    x = torch.where(pick == 2, torch.full_like(x, -0.0), x)
+    return x.reshape(calls, S, *shape)
+
+
+def bit_error(a: torch.Tensor, b: torch.Tensor) -> float:
+    """0 where ``a`` and ``b`` hold the same bits, else their abs
+    difference (inf where one is NaN): the max over the buffer. A NaN equals
+    any NaN: IEEE leaves the payload of an arithmetic NaN to the hardware
+    (the card gives 0x7fffffff, the CPU keeps an operand's)."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    same = (a.view(torch.int32) == b.view(torch.int32)) | (torch.isnan(a) & torch.isnan(b))
+    if bool(same.all()):
+        return 0.0
+    diff = (a - b).abs()
+    diff = torch.where(torch.isnan(diff), torch.full_like(diff, float("inf")), diff)
+    return float(torch.where(same, torch.zeros_like(diff), diff).max())
+
+
+def all_reduce_error(mesh, device, shape, seed: int = 0, zones=None, calls: int = 1) -> float:
+    """B7 against its plain version over this rank's clause group: ``calls``
+    back-to-back calls of :func:`~odesat_tpu_torch.ops.butterfly.butterfly`
+    (the kernel on a card), each on fresh partials of ``shape``
+    (:func:`butterfly_inputs`), with no host sync between them; then every
+    call's result against the plain version's tree (``butterfly.combine``)
+    of every rank's partial, and the first call's against
+    :func:`~odesat_tpu_torch.ops.butterfly.butterfly_plain` itself. Returns
+    the largest :func:`bit_error` over every call and every rank of the
+    group (0.0: bit for bit)."""
+    from odesat_tpu_torch.ops import butterfly as bf
+
+    group = mesh.clause_group
+    S, rank = dist.get_world_size(group), dist.get_rank(group)
+    data = butterfly_inputs(shape, S, calls, seed, device)
+    outs = torch.empty((calls, *shape), dtype=torch.float32, device=device)
+    for c in range(calls):
+        bf.butterfly(data[c, rank].contiguous(), group, zones, out=outs[c])
+    worst = bit_error(bf.butterfly_plain(data[0, rank].contiguous(), group, zones), outs[0])
+    for c in range(calls):
+        want = bf.combine([data[c, k].reshape(-1) for k in range(S)], zones)
+        worst = max(worst, bit_error(want, outs[c]))
+    return float(all_reduce(torch.tensor([worst], dtype=torch.float64, device=device), group,
+                            "max").item())
+
+
+def time_butterfly(mesh, device, shape, iters: int = 20, plain_iters: int = 2) -> tuple:
+    """``(ms, plain_ms)`` a B7 call over this rank's clause group at a
+    float32 ``shape``: the kernel's call (the flag write, the waits and the
+    pass, on the slot as a chunk runner leaves it) and the plain version's,
+    each on the host clock around its calls ending in a device sync and a
+    barrier on every rank, after one warm-up call. Rank 0's numbers come
+    back through ``parallel/launch.spawn``."""
+    import time
+
+    from odesat_tpu_torch.ops import butterfly as bf
+
+    group = mesh.clause_group
+    comm = bf.communicator(group, device)
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+
+    def timed(call, n):
+        call()
+        torch.cuda.synchronize(device)
+        dist.barrier(group=group)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize(device)
+        dist.barrier(group=group)
+        return (time.perf_counter() - t0) / n * 1e3
+
+    ms = timed(lambda: comm.reduce(comm.slot(shape), None, out), iters)
+    buf = torch.ones(shape, dtype=torch.float32, device=device)
+    plain = timed(lambda: bf.butterfly_plain(buf, group), plain_iters)
+    return ms, plain

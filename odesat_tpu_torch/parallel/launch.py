@@ -54,10 +54,9 @@ _COUNTERS = (
     ("stoch_stream", "odesat_tpu_torch.ops.stoch_chunk", "stream_launches"),
     ("stoch_shard_eval", "odesat_tpu_torch.ops.stoch_chunk", "shard_launches"),
     ("stoch_shard_chunk", "odesat_tpu_torch.ops.stoch_chunk", "shard_chunk_launches"),
-    ("allreduce_b6", "odesat_tpu_torch.ops.shard_chunk", "allreduces"),
-    ("allreduce_b9", "odesat_tpu_torch.ops.stoch_chunk", "shard_allreduces"),
+    ("butterfly", "odesat_tpu_torch.ops.butterfly", "launches"),
 )
-CUDA_SOURCES = ("fused_chunk", "stream_chunk", "stoch_chunk")
+CUDA_SOURCES = ("fused_chunk", "stream_chunk", "stoch_chunk", "butterfly")
 
 
 class WorkerError(RuntimeError):
@@ -89,7 +88,8 @@ def _rank_report() -> dict:
 
 def _worker(rank, world, n_clause, backend, device, store_path, timeout_s, payload, results):
     """One rank: read ``(fn, args)`` from the file ``payload``, join, build
-    the mesh, run ``fn``, report, leave."""
+    the mesh, run ``fn``, report, close B7's buffers (``ops/butterfly.py``),
+    leave."""
     import torch.distributed as dist
 
     code = 0
@@ -111,6 +111,9 @@ def _worker(rank, world, n_clause, backend, device, store_path, timeout_s, paylo
         value = fn(mesh, dev, *args)
         if "jax" in sys.modules:
             raise RuntimeError("jax was imported in a worker")
+        if "odesat_tpu_torch.ops.butterfly" in sys.modules:
+            # B7's mappings close behind barriers before any rank frees or leaves
+            sys.modules["odesat_tpu_torch.ops.butterfly"].close_all()
         results.put(("ok", rank, value if rank == 0 else None, _rank_report()))
     except Exception as e:  # noqa: BLE001 - the rank's failure goes back to the parent
         code = 1

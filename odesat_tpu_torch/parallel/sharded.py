@@ -427,3 +427,39 @@ def run_stoch_clause(mesh, device, fa, chunks: int, chunk_steps: int, seed: int,
     check_replicated(state.v, mesh)
     out = tuple(fetch_state(state, mesh))
     return out if mesh is None or mesh.rank == 0 else None
+
+
+def time_ode_chunk(mesh, device, fa, zeta: float, ode, steps: int, B: int, reps: int = 2):
+    """Milliseconds a step of :func:`make_sharded_chunk_runner` on this mesh
+    (on a clause mesh of the card: B6 with B7 between its launches), from
+    a random state of ``B`` rows: the host clock around ``reps`` chunks of
+    ``steps`` steps, each ending in a device sync and a barrier, after one
+    warm-up chunk. Rank 0's number comes back through
+    ``parallel/launch.spawn``."""
+    import time
+
+    import torch.distributed as dist
+
+    from odesat_tpu_torch.interop import state_from_numpy
+    from odesat_tpu_torch.models.ode import formula_device, state_dtype
+
+    rng = np.random.default_rng(5)
+    v = rng.uniform(-1, 1, (B * mesh.n_traj, fa.n_vars_padded)).astype(np.float32)
+    xs = np.broadcast_to(fa.xs_init, (v.shape[0], fa.n_clauses_padded)).astype(np.float32)
+    state = state_from_numpy(v, xs, np.ones_like(xs), np.full(v.shape[0], 0.01, np.float32),
+                             np.zeros(v.shape[0], bool), device=device)
+    state, dev = shard_inputs(state, formula_device(fa, device, dtype=state_dtype(ode)), mesh)
+    run = make_sharded_chunk_runner(fa, zeta, ode, steps, mesh, device)
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+        dist.barrier()
+
+    run(state, dev)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run(state, dev)
+        sync()
+    return (time.perf_counter() - t0) / (reps * steps) * 1e3

@@ -11,9 +11,10 @@ Tolerances: the chunk kernels B1 and B2 equal their plain version exactly
 twin on the card against the CPU to rtol 1e-4 / atol 1e-5 (other sum
 orders); B10 equals its plain version (the kernel-order RHS) exactly and the
 twin to float32 rtol 2e-4 / atol 2e-5 (tests/test_fused.py's), float64
-1e-12; repeats bit-identical; a resumed run (B1, B2, B3, B4, the hybrid)
-equals the uninterrupted one bit for bit, and solve_exact through B1 its
-single-step replay exactly.
+1e-12; repeats bit-identical; a resumed run (B1, B2, B3, B4, the hybrid,
+B6 and B9 at S=2) equals the uninterrupted one bit for bit, and solve_exact
+through B1 its single-step replay exactly; B7 at S=2 and S=4 ranks on the
+card equals its plain version bit for bit (a NaN equal to any NaN).
 """
 
 import numpy as np
@@ -642,9 +643,11 @@ def test_nccl_refuses_two_ranks_on_one_card(cuda):
         launch.spawn(launch.probe, 1, n + 1, "nccl", "cuda", timeout_s=60)
 
 
-def _chunk_buffers(fa, B, fixed, seed, device, shard=0):
+def _chunk_buffers(fa, B, fixed, seed, device, shard=0, split=False):
     """Random B6 buffers for one shard: a state with some rows done and a
-    reduced acc whose sat count is 0 on some rows."""
+    reduced acc whose sat count is 0 on some rows (adaptive: acc2 with the
+    error in its last column). ``split``: the reduced sums in red, red2
+    and other values in the partials acc, acc2, as on a clause mesh."""
     from odesat_tpu_torch.ops.shard_chunk import ChunkBuffers
 
     rng = np.random.default_rng(seed)
@@ -659,8 +662,14 @@ def _chunk_buffers(fa, B, fixed, seed, device, shard=0):
                      put(rng.uniform(1, 50, (B, ml))), put(rng.uniform(0.01, 0.05, B)),
                      put(rng.random(B) < 0.2, torch.bool), put(acc))
     if not fixed:
-        b = b._replace(acc2=put(rng.uniform(-2, 2, (B, Np))), err=put(rng.uniform(0, 1e-2, B)),
-                       dxs1=put(rng.uniform(-1, 1, (B, ml))), dxl1=put(rng.uniform(-1, 1, (B, ml))))
+        acc2 = rng.uniform(-2, 2, (B, Np + 1))
+        acc2[:, Np] = rng.uniform(0, 1e-2, B)
+        b = b._replace(acc2=put(acc2), dxs1=put(rng.uniform(-1, 1, (B, ml))),
+                       dxl1=put(rng.uniform(-1, 1, (B, ml))))
+    if split:
+        b = b._replace(red=b.acc, acc=put(rng.uniform(-9, 9, (B, Np + 1))))
+        if not fixed:
+            b = b._replace(red2=b.acc2, acc2=put(rng.uniform(-9, 9, (B, Np + 1))))
     return b
 
 
@@ -682,9 +691,11 @@ def _untiled(buffers, B):
 @pytest.mark.parametrize("mode", ["fixed", "adaptive"])
 @pytest.mark.parametrize("rigidity", ["paper", "reference"])
 @pytest.mark.parametrize("matmul_dtype", ["float32", "bfloat16"])
-def test_shard_chunk_kernel_equals_plain(cuda, B, n_shards, mode, rigidity, matmul_dtype):
+@pytest.mark.parametrize("split", [False, True])
+def test_shard_chunk_kernel_equals_plain(cuda, B, n_shards, mode, rigidity, matmul_dtype, split):
     """B6 in every phase of its integrator, with and without the apply
-    prologue, on tiled buffers (a ragged last tile),
+    prologue, on tiled buffers (a ragged last tile), with the reduced sums
+    in the partials (a group of one) or apart from them (a clause mesh),
     equals its plain version bit for bit on every shard; the launch
     counter moves once a launch."""
     from odesat_tpu_torch.ops import shard_chunk as sch
@@ -699,7 +710,7 @@ def test_shard_chunk_kernel_equals_plain(cuda, B, n_shards, mode, rigidity, matm
     for s in range(n_shards):
         spec = ss.shard_spec(fa, 0.05, ode, cuda, s)
         for i, (phase, apply) in enumerate(phases):
-            b = _chunk_buffers(fa, B, fixed, seed=10 * s + i, device=cuda)
+            b = _chunk_buffers(fa, B, fixed, seed=10 * s + i, device=cuda, split=split)
             ref = sch.shard_chunk_plain(phase, b, spec, apply)
             before = sch.launches
             out = _untiled(sch.shard_chunk_cuda(phase, _tiled(b), spec, apply), B)
@@ -790,10 +801,12 @@ def test_tiled_b5_runner_equals_b6_chunk_and_the_row_major_loop(cuda, B, mode):
 @pytest.mark.parametrize("B", [7, 300])
 @pytest.mark.parametrize("n_shards", [1, 2])
 @pytest.mark.parametrize("matmul_dtype", ["float32", "bfloat16"])
-def test_stoch_shard_chunk_kernel_equals_plain(cuda, B, n_shards, matmul_dtype):
+@pytest.mark.parametrize("split", [False, True])
+def test_stoch_shard_chunk_kernel_equals_plain(cuda, B, n_shards, matmul_dtype, split):
     """B9 with and without the flip prologue, and the flip-only launch, on
-    tiled chains (a ragged last tile), equals its plain version
-    exactly on every shard."""
+    tiled chains (a ragged last tile), with the reduced sums in the
+    partials' buffer (a group of one) or apart (a clause mesh), equals its
+    plain version exactly on every shard."""
     from odesat_tpu_torch.ops import stoch_chunk as sc
     from odesat_tpu_torch.ops.tiles import tile, untile
 
@@ -811,10 +824,14 @@ def test_stoch_shard_chunk_kernel_equals_plain(cuda, B, n_shards, matmul_dtype):
             acc[:, Np:2 * Np] = np.minimum(acc[:, Np:2 * Np], acc[:, :Np])
             acc[:, 2 * Np] = rng.integers(0, 2, B)
             acc = torch.as_tensor(acc, device=cuda)
+            red = None
+            if split:  # the partials' buffer holds other values
+                red, acc = acc, torch.full_like(acc, 7.0)
             args = (spec, bf16, 12345, sc.traj_block(B), 3, apply, evaluate)
-            ref = sc.stoch_shard_step_plain(v, xl, done, acc, *args)
+            ref = sc.stoch_shard_step_plain(v, xl, done, acc, *args, red=red)
             before = sc.shard_chunk_launches
-            out = sc.stoch_shard_step_cuda(*(tile(t) for t in (v, xl, done, acc)), *args)
+            out = sc.stoch_shard_step_cuda(*(tile(t) for t in (v, xl, done, acc)), *args,
+                                           red=None if red is None else tile(red))
             torch.cuda.synchronize()
             assert sc.shard_chunk_launches == before + 1
             for a, c in zip(out, ref):
@@ -833,6 +850,79 @@ def test_stoch_shard_chunk_runner_equals_b8_path(cuda, B):
     b = sharded.run_stoch_clause(None, cuda, fa, 3, 9, 4, "float32", B, "off")
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x, y)
+
+
+# ------------------------------------------------- B7 over ranks on the card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2, 3, 4])
+def test_butterfly_kernel_equals_plain_across_ranks_on_one_card(cuda, S):
+    """B7 at S ranks sharing the card (gloo carries only the handles and
+    the host's checks; S = 3 takes the kernel's run-time group size, and an
+    absent partner in the tree): at ragged lengths, with and without a max zone,
+    and over 200 back-to-back calls on fresh data, every call's result on
+    every rank equals its plain version bit for bit (NaN equal to NaN); a
+    call launches the kernel once; a shape that differs between ranks is
+    refused."""
+    from odesat_tpu_torch.parallel import launch
+    from odesat_tpu_torch.parallel.dist import all_reduce_error, butterfly_of
+
+    calls = []
+    for shape in ((1,), (7,), (33, 1025)):
+        n = int(np.prod(shape))
+        calls += [(all_reduce_error, (shape, 1, None, 2)),
+                  (all_reduce_error, (shape, 2, (min(n, 7), min(n, 2)), 2))]
+    calls.append((all_reduce_error, ((64, 33), 3, (33, 1), 200)))
+    parts = [np.full((3, 5), 10.0 ** k, np.float32) for k in range(S)]
+    calls.append((butterfly_of, (parts,)))
+    values = launch.spawn(launch.run_all, 1, S, "gloo", "cuda", timeout_s=300, args=(calls,))
+    assert values[:-1] == [0.0] * (len(calls) - 1)
+    out, same = values[-1]
+    pairs = [parts[k] + parts[k + 1] if k + 1 < S else parts[k] for k in range(0, S, 2)]
+    want = pairs[0] if S == 2 else pairs[0] + pairs[1]  # the tree at S = 2, 3, 4
+    assert same and np.array_equal(out, want)
+    for report in launch.last_reports:
+        assert [c["butterfly"] for c in report["calls"]] == [2] * 6 + [200, 1]
+    bad = [np.zeros(7, np.float32)] * (S - 1) + [np.zeros(8, np.float32)]
+    with pytest.raises(ValueError, match="shape"):
+        launch.spawn(butterfly_of, 1, S, "gloo", "cuda", timeout_s=120, args=(bad,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cmd", ["inter", "stoch"])
+def test_clause_mesh_resume_through_b6_and_b9_on_the_card(cuda, tmp_path, cmd):
+    """hard.cnf B=256 at S=2 on the card, 16-step chunks and a snapshot
+    every chunk: stopped at 32 steps and resumed to 64, the run ends in the
+    snapshot of the run that never stopped, bit for bit, through B6 (inter)
+    or B9 (stoch) with B7 between the launches on both ranks."""
+    import contextlib
+    import io
+    import os
+
+    from odesat_tpu_torch import cli
+    from odesat_tpu_torch.parallel import launch
+
+    hard = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "hard.cnf")
+    extra = ["-s", "0.01"] if cmd == "inter" else ["--no-preprocess"]
+    calls = []
+    for name, steps, resume in (("whole", 64, None), ("part", 32, None),
+                                ("resumed", 64, "part")):
+        argv = [cmd, "-f", hard, "-b", "256", "--seed", "0", "--chunk-steps", "16", "-n",
+                str(steps), *extra, "--checkpoint", str(tmp_path / f"{name}.npz"),
+                "--checkpoint-every", "1", "--clause-shards", "2", "--dist-backend", "gloo"]
+        if resume:
+            argv += ["--resume", str(tmp_path / f"{resume}.npz")]
+        with contextlib.redirect_stdout(io.StringIO()):
+            calls.append(cli.mesh_call(argv))
+    launch.spawn(launch.run_all, 1, 2, "gloo", "cuda", timeout_s=300, args=(calls,))
+    kernel = "shard_chunk" if cmd == "inter" else "stoch_shard_chunk"
+    for report in launch.last_reports:
+        assert all(c[kernel] > 0 and c["butterfly"] > 0 for c in report["calls"])
+    whole, resumed = _snapshot(tmp_path / "whole.npz"), _snapshot(tmp_path / "resumed.npz")
+    assert sorted(whole) == sorted(resumed) and int(whole["steps"]) == 64
+    for key in whole:
+        np.testing.assert_array_equal(whole[key], resumed[key], err_msg=key)
 
 
 # ------------------------------------------- resume, the hybrid, exact TTS

@@ -185,9 +185,10 @@ def test_tiled_plain_launch_is_row_for_row(phase, apply):
     acc[:, Np] = torch.as_tensor(rng.integers(0, 2, B).astype(np.float32))
     b = sch.ChunkBuffers(put(B, Np), put(B, Mp, lo=0.01, hi=0.99), put(B, Mp, lo=1, hi=9),
                          put(B, lo=0.01, hi=0.05), torch.as_tensor(rng.random(B) < 0.3), acc)
-    if not fixed:
-        b = b._replace(acc2=put(B, Np), err=put(B, lo=0, hi=1e-2), dxs1=put(B, Mp),
-                       dxl1=put(B, Mp))
+    if not fixed:  # acc2 = (dv2 | the step-doubling error)
+        acc2 = put(B, Np + 1)
+        acc2[:, Np] = put(B, lo=0, hi=1e-2)
+        b = b._replace(acc2=acc2, dxs1=put(B, Mp), dxl1=put(B, Mp))
     ref = sch.shard_chunk_plain(phase, b, spec, apply)
     tiled = sch.ChunkBuffers(*(None if t is None else tile(t, fill=7) for t in b))
     out = sch.shard_chunk_phase(phase, tiled, spec, apply)
