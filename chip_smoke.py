@@ -107,16 +107,21 @@ Phases, each printing its lines; the first failure exits non-zero:
     grid; then two launches bit-identical; then B6 (the clause-sharded
     chunk's launches, on the buffers tiled by 32 trajectories as its
     runner lays them out) the same way, in each of its phases with and
-    without the apply prologue;
+    without the apply prologue, reading its own partials (S=1) or 2 or 4
+    ranks' partials that its kernels add in the butterfly's tree (B7
+    fused);
 19. B8 vs plain, exactly, on the same shards and ragged batches, random xl
     up to 3000 and frozen chains, f32 and bf16, printing its grid; then
     two launches bit-identical; then B9 (the stoch chunk's launches, on
-    tiled chains) with and without the flip prologue and flip-only;
+    tiled chains) with and without the flip prologue and flip-only,
+    reading its own partials or 2 or 4 ranks' (B7 fused);
 20. the clause mesh through the CLI, two gloo ranks sharing the card
     (spawned; each reports its launch counts; every solve checks that its
-    clause ranks' v are bit-identical and raises otherwise; B7 runs
-    between B6's and B9's launches over CUDA IPC buffers, gloo carries the
-    host's decisions and the handles): a. inter on
+    clause ranks' v are bit-identical and raises otherwise; B6's and B9's
+    launches read the peers' slots over CUDA IPC themselves (B7 fused: no
+    standalone B7 call, counted), B5's and B8's steps sum through B7's
+    standalone call, gloo carries the host's decisions and the handles):
+    a. inter on
     uf250 -b 4096 --clause-shards 2 verifies true through B6; b. inter on
     the config 7 instance -b 1024 -n 64 ends false after exactly 64 steps
     (or verifies) through B6 on both ranks, and the CLI's mesh solve of the
@@ -134,12 +139,17 @@ Phases, each printing its lines; the first failure exits non-zero:
     row for row; the B5 and B8 solves and parity checks of b and c, e's
     mesh run, B7 against its plain version bit for bit (lengths 1, 7,
     33*1025 and the full (1024, Np+1) buffer, with and without a max zone,
-    then 1000 back-to-back calls on fresh data) and phase 21's B7 timings
-    share one spawned world, as do phase 23's mesh runs; f. at S=4, four
-    gloo ranks in one more world: inter and stoch on config 7 through the
-    CLI's mesh solve (B6, B9, B7), the ODE clause mesh against S=1 (rtol
-    2e-4 / atol 2e-5, v bit-identical on the four ranks), the stoch clause
-    path against S=1 flip for flip, B7's checks and timings;
+    then 1000 back-to-back calls on fresh data), the race runs (B6 fixed
+    1000 steps, adaptive 500, B9 1000 steps on a 3-SAT n=300 at B=64, one
+    chunk on the card with no host sync against the plain version, bit for
+    bit, v bit-identical), the split of B7's standalone call and phase
+    21's timings share one spawned world, as do phase 23's mesh runs; f. at
+    S=4, four gloo ranks in one more world: inter and stoch on config 7
+    through the CLI's mesh solve (B6, B9, B7 fused), the ODE clause mesh
+    through B6 and through B5 against S=1 (rtol 2e-4 / atol 2e-5, v
+    bit-identical on the four ranks, B5 equal to B6 bit for bit), the stoch
+    clause path through B9 and through B8 against S=1 flip for flip, the
+    race runs, B7's checks, timings and split;
 21. timing at the config 7 instance, B=1024, S=1: B5 fixed and second and
     B8 per launch on tiled buffers allocated once, as their runners run
     them, beside the one-CTA-a-trajectory (chain) kernels they replaced,
@@ -147,11 +157,15 @@ Phases, each printing its lines; the first failure exits non-zero:
     step and B9 per launch; each beside its plain version and bound; the
     single-device runner (B5) and the B6 chunk in traj*steps/s; the stoch
     clause path through B8 and through B9 in chain*steps/s, with the
-    counter-hash uniform draw's share of a B8-path step; B7 a call at the
-    (1024, Np+1) buffer at S=2 and S=4 (host clock, timed in phase 20's
-    worlds) beside its plain version, its bound ((S+1) x the buffer's
-    bytes over 3.35 TB/s) and the gloo all-reduce it replaces; inter's S=2
-    step at config 7;
+    counter-hash uniform draw's share of a B8-path step; B7's standalone
+    call at the (1024, Np+1) buffer at S=2 and S=4 (host clock, timed in
+    phase 20's worlds) beside its plain version, its bound ((S+1) x the
+    buffer's bytes over 3.35 TB/s) and the gloo all-reduce it replaces, and
+    its split (dist.time_butterfly_split: back to back, the flags already
+    raised, one rank at a time, the kernel alone); the clause-mesh steps at
+    S=2 and S=4 (inter through B6 and B5, stoch through B9 and B8); B7
+    fused: B6's apply launch reading 1, 2 and 4 partials (CUDA events),
+    the fused sum's cost over one buffer beside its bound;
 22. the hybrid main path through the CLI: hybrid --no-preprocess on
     hard.cnf at -b 16384 -s 0.01 -n 4096 ends "Winner: none after 4096
     steps per engine" and false through B1 and B3, with each engine's
@@ -181,11 +195,15 @@ Phases, each printing its lines; the first failure exits non-zero:
     done.
 
 ``python3 chip_smoke.py --time-b10 ROOT`` times B10 of the checkout at ROOT
-(a parent tree unpacked beside this one) as phase 17 times this one.
+(a parent tree unpacked beside this one) as phase 17 times this one;
+``--time-mesh ROOT`` the clause-mesh steps of phase 21 at S=2 and S=4 with
+the port at ROOT; ``--time-b7`` the split of B7's standalone call at S=2
+and S=4.
 
 The last two lines are the ``kernels`` JSON object (one row per kernel,
 with its bound: the larger of its bytes over 3.35 TB/s and its operations
-over 67 TFLOP/s; B7's at S=2, its library time the gloo all-reduce) and
+over 67 TFLOP/s; B7's standalone call at S=2, its library time the gloo
+all-reduce; B7 fused, B6's apply launch reading two partials) and
 then ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or without the package beside this script, it exits non-zero
 and prints no result.
@@ -1371,6 +1389,115 @@ def time_b10(root):
     return 0
 
 
+B7_SHAPE = (1024, 10241)  # config 7's (B, Np+1) f32 buffer at B=1024 (Np = 10240)
+
+
+def b7_split_line(S, r, card):
+    """Phase 21's line for a split of B7's standalone call (time_butterfly_split)."""
+    return (f"[B7 split] config 7 (B, Np+1) = {B7_SHAPE} f32 at S={S}, {S} ranks sharing the "
+            f"card: back to back {r['back_to_back']:.6f} ms a call (host clock), the flags "
+            f"already raised {r['synced']:.6f} (every rank at once) / {r['turns']:.6f} (one rank "
+            f"at a time), the kernel alone on {S} buffers of one process {r['alone']:.6f} ms "
+            f"(CUDA events); the wait for the peers {r['back_to_back'] - r['synced']:.6f}, the "
+            f"contexts' sharing {r['synced'] - r['turns']:.6f}, the stream operations "
+            f"{r['turns'] - r['alone']:.6f} ms ({card})")
+
+
+def mesh_step_ms(mesh, device, fa, steps=16, reps=2, B=1024):
+    """A rank's ms a step of the four clause-mesh paths at config 7 on this
+    mesh, each over ``reps`` chunks of ``steps`` steps after a warm-up chunk
+    (host clock, a device sync and a barrier at each end): inter's fixed
+    step through B6 (``time_ode_chunk``) and through B5 (``--shard-chunk
+    off``), the stoch step through B9 and through B8. Uses only entry points
+    that trees from before the fused B7 also have, so that ``--time-mesh``
+    can run it on an older tree. Run in a spawned world (rank 0's value
+    returns)."""
+    import torch
+    import torch.distributed as dist
+
+    from odesat_tpu_torch.models.stoch import init_stoch_state
+    from odesat_tpu_torch.parallel import sharded
+    from odesat_tpu_torch.utils.config import ODEConfig
+
+    ode = ODEConfig(step_size=0.01)
+    zeta = ode.resolve_zeta(fa.density)
+    out = {"B6": sharded.time_ode_chunk(mesh, device, fa, zeta, ode, steps, B, reps),
+           "B5": sharded.time_ode_chunk(mesh, device, fa, zeta,
+                                        ODEConfig(step_size=0.01, shard_chunk="off"), steps, B,
+                                        reps)}
+    for name, mode in (("B9", "auto"), ("B8", "off")):
+        state = sharded.shard_stoch_inputs(init_stoch_state(fa, B * mesh.n_traj, device), mesh)
+        run = sharded.make_clause_stoch_runner(fa, steps, device, sharded.row_generator(5, mesh),
+                                               mesh.clause_group, "float32", mode)
+
+        def settle():
+            torch.cuda.synchronize(device)
+            dist.barrier()
+
+        run(state)
+        settle()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            run(state)
+        settle()
+        out[name] = (time.perf_counter() - t0) / (reps * steps) * 1e3
+    return out
+
+
+def mesh_step_line(S, r, card, origin="this tree"):
+    return (f"[mesh steps] config 7 B=1024 S={S} ({S} ranks sharing the card, {origin}), ms a "
+            f"step (host clock around 2 chunks of 16 steps): inter fixed through B6 "
+            f"{r['B6']:.6f}, through B5 (--shard-chunk off) {r['B5']:.6f}; stoch through B9 "
+            f"{r['B9']:.6f}, through B8 (--shard-chunk off) {r['B8']:.6f} ({card})")
+
+
+def time_mesh(root):
+    """``--time-mesh ROOT``: phase 20's clause-mesh steps (mesh_step_ms) at
+    S=2 and S=4 on config 7 with the port of the checkout at ROOT (a parent
+    tree unpacked beside this one, or this one)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script only runs on a GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(root))
+    from odesat_tpu_torch.cnf import normalize_cnf_variables
+    from odesat_tpu_torch.ops.shard_stream import compile_stream_sharded
+    from odesat_tpu_torch.parallel import launch
+
+    card = phase_device(torch)
+    normalized = normalize_cnf_variables(config7_instance())[1]
+    for S in (2, 4):
+        fa = compile_stream_sharded(normalized, S)[0]
+        r = launch.spawn(mesh_step_ms, 1, S, "gloo", "cuda", timeout_s=600, args=(fa,))
+        say(mesh_step_line(S, r, card, root))
+    return 0
+
+
+def time_b7():
+    """``--time-b7``: the split of a standalone B7 call at S=2 and S=4
+    (parallel/dist.time_butterfly_split), as phase 20's worlds take it."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script only runs on a GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from odesat_tpu_torch.ops import butterfly as bf
+    from odesat_tpu_torch.parallel import launch
+    from odesat_tpu_torch.parallel.dist import time_butterfly, time_butterfly_split
+
+    card = phase_device(torch)
+    bf.load_library()
+    for S in (2, 4):
+        calls = [(time_butterfly_split, (B7_SHAPE, 20)), (time_butterfly, (B7_SHAPE, 20, 1))]
+        split, (ms, _) = launch.spawn(launch.run_all, 1, S, "gloo", "cuda", timeout_s=300,
+                                      args=(calls,))
+        say(b7_split_line(S, split, card))
+        say(f"[B7 timing] S={S}: time_butterfly {ms:.6f} ms a call ({card})")
+    return 0
+
+
 # ------------------------------------------ clause shards: B5, B8, the mesh
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, HBM3 peak rate
@@ -1644,12 +1771,10 @@ def phase_stoch_shard_compare(torch, sc, shard_cases):
     return 0.0
 
 
-def chunk_buffers(torch, fa, B, fixed, seed, split=False):
+def chunk_buffers(torch, fa, B, fixed, seed):
     """Random B6 buffers for one shard on the card: a state with some rows
-    done and a reduced buffer whose sat count is 0 on some rows (adaptive:
-    acc2 with the error in its last column). ``split``: the reduced sums in
-    red, red2 and other values in the partials acc, acc2, as on a clause
-    mesh (else the partials hold the sums, a group of one)."""
+    done and a partial whose sat count is 0 on some rows (adaptive: acc2
+    with the error in its last column), the sums a group of one reads."""
     import numpy as np
 
     from odesat_tpu_torch.ops.shard_chunk import ChunkBuffers
@@ -1670,11 +1795,39 @@ def chunk_buffers(torch, fa, B, fixed, seed, split=False):
         acc2[:, Np] = rng.uniform(0, 1e-2, B)
         b = b._replace(acc2=put(acc2), dxs1=put(rng.uniform(-1, 1, (B, ml))),
                        dxl1=put(rng.uniform(-1, 1, (B, ml))))
-    if split:
-        b = b._replace(red=b.acc, acc=put(rng.uniform(-9, 9, (B, Np + 1))))
-        if not fixed:
-            b = b._replace(red2=b.acc2, acc2=put(rng.uniform(-9, 9, (B, Np + 1))))
     return b
+
+
+def chunk_parts(torch, b, S, seed):
+    """S partials (rank order) of acc and acc2 as a clause mesh of S ranks
+    hands them to B6's next launch, which adds them in the butterfly's
+    tree (None at S = 1: the launch reads its own acc, acc2): magnitudes
+    from 1e-3 to 1e5 on which rank order and tree order round differently,
+    each rank's sat count 0 or 1, each rank's error non-negative."""
+    import numpy as np
+
+    if S == 1:
+        return None
+    rng = np.random.default_rng(seed)
+    B, Np = b.acc.shape[0], b.acc.shape[1] - 1
+
+    def draw(flag):
+        out = []
+        for _ in range(S):
+            a = rng.uniform(-1, 1, b.acc.shape) * 10.0 ** rng.integers(-3, 6, b.acc.shape)
+            a[:, Np] = flag()
+            out.append(torch.as_tensor(a.astype(np.float32), device="cuda"))
+        return out
+
+    p1 = draw(lambda: rng.integers(0, 2, B) * (rng.random(B) < 0.7))
+    return p1, None if b.acc2 is None else draw(lambda: rng.uniform(0, 1e-2, B))
+
+
+def tiled_parts(parts):
+    from odesat_tpu_torch.ops.tiles import tile
+
+    return None if parts is None else tuple(None if p is None else [tile(t) for t in p]
+                                            for p in parts)
 
 
 CHUNK_PHASES = {"fixed": (("step", False), ("step", True), ("apply", False)),
@@ -1706,9 +1859,10 @@ def phase_shard_chunk_compare(torch, sch, ss, shard_cases):
     """B6 vs its plain version, exactly, every shard of every case (and
     the ragged batches): each phase of both integrators with and without
     the apply prologue, both rigidity gates, f32 and bf16, the kernel on
-    the tiled buffers, the reduced sums in the partials' buffers (paper
-    gate: a group of one) or apart from them (reference gate: a clause
-    mesh, B7's slots); then two launches at config 7 bit-identical."""
+    the tiled buffers, reading its own partials (S = 1, a group of one) or
+    S = 2 and S = 4 ranks' partials, which its kernels add in the
+    butterfly's tree as they read them (B7 fused); then two launches at
+    config 7 bit-identical."""
     from odesat_tpu_torch.utils.config import ODEConfig
 
     n = 0
@@ -1716,28 +1870,30 @@ def phase_shard_chunk_compare(torch, sch, ss, shard_cases):
         for s in range(fa.shard_plan.n_shards):
             for mode, phases in CHUNK_PHASES.items():
                 fixed = mode == "fixed"
-                # one draw a shard, integrator and layout: the plain version
-                # writes nothing, the kernel runs on tiled copies
-                draws = [chunk_buffers(torch, fa, B, fixed, seed=B + 10 * s + fixed, split=split)
-                         for split in (False, True)]
-                for rigidity, b in zip(("paper", "reference"), draws):
+                # one draw a shard and integrator: the plain version writes
+                # nothing, the kernel runs on tiled copies
+                b = chunk_buffers(torch, fa, B, fixed, seed=B + 10 * s + fixed)
+                for rigidity, S in (("paper", 1), ("reference", 2), ("paper", 4)):
+                    parts = chunk_parts(torch, b, S, seed=B + 10 * s + S)
                     for mm in ("float32", "bfloat16"):
                         ode = ODEConfig(step_size=0.01 if fixed else None, rigidity=rigidity,
                                         matmul_dtype=mm)
                         spec = ss.shard_spec(fa, ode.resolve_zeta(fa.density), ode, "cuda", s)
                         for ph, apply in phases:
-                            ref = sch.shard_chunk_plain(ph, b, spec, apply)
-                            out = untiled(sch.shard_chunk_cuda(ph, tiled(b), spec, apply), B)
+                            ref = sch.shard_chunk_plain(ph, b, spec, apply, parts)
+                            out = untiled(sch.shard_chunk_cuda(ph, tiled(b), spec, apply,
+                                                               parts=tiled_parts(parts)), B)
                             torch.cuda.synchronize()
                             for name, x, y in zip(b._fields, out, ref):
                                 if not ((x is None and y is None) or torch.equal(x, y)):
                                     err = (x.float() - y.float()).abs().max().item()
                                     fail(f"B6 vs plain, {label} shard {s} {ph} apply={apply} "
-                                         f"{rigidity} {mm}: {name} off by {err}")
+                                         f"{rigidity} {mm} S={S}: {name} off by {err}")
                             n += 1
             say(f"[B6 compare] {label} shard {s}/{fa.shard_plan.n_shards} B={B}: step, apply, "
-                f"first, half, commit (with and without the prologue) x paper (sums in the "
-                f"partials), reference (sums apart) x f32, bf16 equal (max abs err 0.0)")
+                f"first, half, commit (with and without the prologue) x paper reading its own "
+                f"partials (S=1), reference reading 2 ranks' partials, paper reading 4 (B7 "
+                f"fused) x f32, bf16 equal (max abs err 0.0)")
     label, fa7, B = shard_cases[-1]
     for mode, phases in CHUNK_PHASES.items():
         ode = ODEConfig(step_size=0.01 if mode == "fixed" else None)
@@ -1754,6 +1910,18 @@ def phase_shard_chunk_compare(torch, sch, ss, shard_cases):
     return 0.0
 
 
+def stoch_sums(torch, fa, B, rng):
+    """A (B, 2*Np+1) buffer of B9's integer sums with unsat <= total and a
+    sat count of 0 or 1, on the card."""
+    import numpy as np
+
+    Np = fa.n_vars_padded
+    acc = rng.integers(0, 60000, (B, 2 * Np + 1)).astype(np.float32)
+    acc[:, Np:2 * Np] = np.minimum(acc[:, Np:2 * Np], acc[:, :Np]) * rng.integers(0, 2, (B, Np))
+    acc[:, 2 * Np] = rng.integers(0, 2, B)
+    return torch.as_tensor(acc, device="cuda")
+
+
 def stoch_chunk_inputs(torch, fa, B, seed):
     """Random B9 inputs for one shard: v, xl up to 3000, done, and a
     reduced buffer of integer sums with unsat <= total."""
@@ -1761,13 +1929,10 @@ def stoch_chunk_inputs(torch, fa, B, seed):
 
     rng = np.random.default_rng(seed)
     Np, ml = fa.n_vars_padded, fa.shard_plan.mp_local
-    acc = rng.integers(0, 60000, (B, 2 * Np + 1)).astype(np.float32)
-    acc[:, Np:2 * Np] = np.minimum(acc[:, Np:2 * Np], acc[:, :Np]) * rng.integers(0, 2, (B, Np))
-    acc[:, 2 * Np] = rng.integers(0, 2, B)
+    acc = stoch_sums(torch, fa, B, rng)
     return (torch.as_tensor(rng.random((B, Np)) < 0.5, device="cuda"),
             torch.as_tensor(rng.integers(1, 3001, (B, ml)).astype(np.int32), device="cuda"),
-            torch.as_tensor(rng.random(B) < 0.2, device="cuda"),
-            torch.as_tensor(acc, device="cuda"))
+            torch.as_tensor(rng.random(B) < 0.2, device="cuda"), acc)
 
 
 STOCH_CHUNK_CASES = ((False, True), (True, True), (True, False))  # (apply, evaluate)
@@ -1775,10 +1940,13 @@ STOCH_CHUNK_CASES = ((False, True), (True, True), (True, False))  # (apply, eval
 
 def phase_stoch_shard_chunk_compare(torch, sc, shard_cases):
     """B9 vs its plain version, exactly, every shard (and the ragged
-    batches): with and without the flip prologue and flip-only, f32 (the
-    reduced sums in the partials' buffer, a group of one) and bf16 (the
-    sums apart, as on a clause mesh), the kernel on tiled chains; then two
-    launches at config 7 bit-identical."""
+    batches): with and without the flip prologue and flip-only, f32 reading
+    its own partials (a group of one), bf16 reading 2 ranks' partials and
+    f32 reading 4 (as on a clause mesh: its kernels sum them in the
+    butterfly's tree), the kernel on tiled chains; then two launches at
+    config 7 bit-identical."""
+    import numpy as np
+
     from odesat_tpu_torch.ops.tiles import tile, untile
 
     n = 0
@@ -1787,27 +1955,27 @@ def phase_stoch_shard_chunk_compare(torch, sc, shard_cases):
             spec = sc.stoch_shard_spec(fa, "cuda", s)
             inp = stoch_chunk_inputs(torch, fa, B, seed=B + 10 * s)  # one draw a shard
             for i, (apply, evaluate) in enumerate(STOCH_CHUNK_CASES):
-                for mm in ("float32", "bfloat16"):
+                for mm, S in (("float32", 1), ("bfloat16", 2), ("float32", 4)):
                     args = (spec, mm == "bfloat16", 987654 + i, sc.traj_block(B), 5, apply,
                             evaluate)
-                    red = None
-                    if mm == "bfloat16":  # the partials' buffer holds other values
-                        red = inp[3]
-                        inp = (*inp[:3], torch.full_like(red, 7.0))
-                    ref = sc.stoch_shard_step_plain(*inp, *args, red=red)
+                    parts = None  # S = 1: the launch reads its own partials
+                    if S > 1:  # S ranks' partials, summed by the launch's kernels
+                        rng = np.random.default_rng(B + 10 * s + S + 100 * i)
+                        parts = [stoch_sums(torch, fa, B, rng) for _ in range(S)]
+                    ref = sc.stoch_shard_step_plain(*inp, *args, parts=parts)
                     out = sc.stoch_shard_step_cuda(*(tile(t) for t in inp), *args,
-                                                   red=None if red is None else tile(red))
-                    if red is not None:
-                        inp = (*inp[:3], red)
+                                                   parts=None if parts is None else
+                                                   [tile(p) for p in parts])
                     torch.cuda.synchronize()
                     for name, x, y in zip(("v", "xl", "done", "acc"), out, ref):
                         if not torch.equal(untile(x, B), y):
                             fail(f"B9 vs plain, {label} shard {s} apply={apply} "
-                                 f"evaluate={evaluate} {mm}: {name} differs")
+                                 f"evaluate={evaluate} {mm} S={S}: {name} differs")
                     n += 1
             say(f"[B9 compare] {label} shard {s}/{fa.shard_plan.n_shards} B={B}: with and "
-                f"without the flip prologue, flip-only x f32 (sums in the partials), bf16 (sums "
-                f"apart) equal (max abs err 0.0)")
+                f"without the flip prologue, flip-only x f32 reading its own partials (S=1), "
+                f"bf16 reading 2 ranks' partials, f32 reading 4 (B7 fused) equal (max abs err "
+                f"0.0)")
     label, fa7, B = shard_cases[-1]
     spec = sc.stoch_shard_spec(fa7, "cuda", 0)
     inp = stoch_chunk_inputs(torch, fa7, B, seed=9)
@@ -1852,11 +2020,13 @@ def b7_checks(shape7):
 
 def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
     """Phase 20: the clause-mesh main path (gloo ranks sharing the card,
-    B7 between B6's and B9's launches) and the trajectory mesh; returns the
-    launches of B5, B6, B8, B9 and B7 summed over the ranks of the
-    main-path runs, and B7's numbers at S=2 (phase 21's: ms a call, the
-    plain version's, the gloo all-reduce's, an S=2 step of inter at config
-    7, timed in this phase's world; the largest error of its checks). The
+    B7 fused into B6's and B9's launches, its standalone call in B5's and
+    B8's steps) and the trajectory mesh; returns the launches of B5, B6, B8,
+    B9, B7's standalone calls and B7's fused launches summed over the ranks
+    of the main-path runs, and B7's numbers at S=2 (phase 21's: ms a call,
+    the plain version's, the gloo all-reduce's, the call's split, the
+    clause-mesh steps, timed in this phase's world; the largest error of its
+    checks, the race runs' among them). The
     CLI runs on the config 7 instance are 64 steps (B6) and 32 (B9); the
     CLI's mesh solves through B5 and B8 (16 steps each), the parity checks
     (256 rows for the ODE, 32 steps for stoch) and B7's checks run in one
@@ -1877,7 +2047,7 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
     gloo = ["--clause-shards", "2", "--dist-backend", "gloo"]
     off = ["--shard-chunk", "off"]
     totals = {"shard_stream": 0, "shard_chunk": 0, "stoch_shard_eval": 0, "stoch_shard_chunk": 0,
-              "butterfly": 0}
+              "butterfly": 0, "butterfly_fused": 0}
     c7_inter = ["-f", c7_path, "-b", "1024", "-s", "0.01", "--seed", "0"]
     c7_stoch = ["-f", c7_path, "--no-preprocess", "-b", "1024", "--seed", "0"]
     # the per-step paths (B5, B8) run fewer steps than the default chunk kernels (B6, B9)
@@ -1899,17 +2069,19 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
         verdict, reports, steps, solved, seconds, _ = run_cli_mesh(cmd, [*args, *gloo])
         t_run = time.perf_counter() - t_run
         counts = [r[kernel] for r in reports]
-        calls_b7 = [r["butterfly"] for r in reports]
-        others = {k: [r[k] for r in reports] for k in totals if k not in (kernel, "butterfly")}
-        say(f"[mesh main] {label} --clause-shards 2 (gloo for the host's decisions, B7 on the "
-            f"card): verdict {verdict}, {solved} solved after {steps} steps in {seconds:.6f} s "
-            f"= {B * steps / seconds:.6e} steps*rows/s, {kernel} launches per rank {counts}, "
-            f"B7 {calls_b7}, other clause kernels {others}, v replicated (every rank checked "
+        fused = [r["butterfly_fused"] for r in reports]
+        others = {k: [r[k] for r in reports] for k in totals
+                  if k not in (kernel, "butterfly_fused")}
+        say(f"[mesh main] {label} --clause-shards 2 (gloo for the host's decisions, B7 fused "
+            f"into the launches): verdict {verdict}, {solved} solved after {steps} steps in "
+            f"{seconds:.6f} s = {B * steps / seconds:.6e} steps*rows/s, {kernel} launches per "
+            f"rank {counts}, of them reading both ranks' slots (B7 fused) {fused}, standalone "
+            f"B7 calls and other clause kernels {others}, v replicated (every rank checked "
             f"it); the whole run {t_run:.1f} s ({card})")
-        if len(counts) != 2 or min(counts) == 0 or min(calls_b7) == 0:
-            fail(f"{label}: {kernel} or B7 was not launched on both ranks")
+        if len(counts) != 2 or min(counts) == 0 or min(fused) == 0:
+            fail(f"{label}: {kernel} or B7 fused was not launched on both ranks")
         if any(sum(c) for c in others.values()):
-            fail(f"{label}: another clause kernel than {kernel} ran")
+            fail(f"{label}: another clause kernel than {kernel}, or a standalone B7 call, ran")
         if want == "true" and verdict != "true":
             fail(f"{label}: the port did not verify a satisfying assignment")
         budget = int(args[args.index("-n") + 1])
@@ -1917,7 +2089,7 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
                 not (solved and verdict == "true"):
             fail(f"{label}: expected false after exactly {budget} steps or a verified solution")
         totals[kernel] += sum(counts)
-        totals["butterfly"] += sum(calls_b7)
+        totals["butterfly_fused"] += sum(fused)
 
     # b. the ODE clause mesh at S=2 against the S=1 runner, row for row, c.
     # the stoch clause path at S=2 against S=1, flip for flip, e. the
@@ -1944,7 +2116,11 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
               for _, ode, n in odes]
     stoch_modes = (("auto", "stoch_shard_chunk"), ("off", "stoch_shard_eval"))
     from odesat_tpu_torch.models.ode import simulate_batch
-    from odesat_tpu_torch.parallel.dist import time_all_reduce, time_butterfly
+    from odesat_tpu_torch.parallel.dist import (
+        time_all_reduce,
+        time_butterfly,
+        time_butterfly_split,
+    )
     from odesat_tpu_torch.utils.config import SolverConfig
 
     config = SolverConfig(ode=ODEConfig(step_size=0.01, steps=20000), batch_size=4096, seed=0)
@@ -1955,7 +2131,7 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
     calls += [(launch.on_mesh, ((2, 1), cli._mesh_solve, "ode", uf250_formula, config,
                                 {"stop_on": "any"})),
               (time_all_reduce, (shape7, 10)), (time_butterfly, (shape7, 20, 2)),
-              (sharded.time_ode_chunk, (fa7_2, zeta, odes[0][1], 16, 1024, 2))]
+              (mesh_step_ms, (fa7_2,))]
     # b, c through B5 and B8: the CLI's mesh solves with --shard-chunk off,
     # in this world rather than a world each (a spawn costs its ranks'
     # start-up, most of it importing torch)
@@ -1969,22 +2145,36 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
     resume_runs = mesh_resume_argv()
     calls += [cli.mesh_call(hybrid_argv)]
     calls += [cli.mesh_call([*argv, *gloo]) for _, argv in resume_runs]
+    races = race_calls(2)
+    calls += races + [(time_butterfly_split, (shape7, 20))]
     checks = b7_checks(shape7)
     calls += checks
     values = launch.spawn(launch.run_all, 1, 2, "gloo", "cuda", timeout_s=600, args=(calls,))
     two, stoch_two = values[0], values[1:3]
-    traj_two, allreduce_ms, (b7_ms, b7_plain), step_ms, b_off, c_off, hyb_two = values[3:10]
-    resumed_two = values[10:10 + len(resume_runs)]
-    b7_errs = values[10 + len(resume_runs):]
+    traj_two, allreduce_ms, (b7_ms, b7_plain), steps_two, b_off, c_off, hyb_two = values[3:10]
+    n_resume = len(resume_runs)
+    resumed_two = values[10:10 + n_resume]
+    race_two = values[10 + n_resume:10 + n_resume + len(races)]
+    split_two = values[10 + n_resume + len(races)]
+    b7_errs = values[11 + n_resume + len(races):]
     # run_all zeroes every count before each call: each call's launches per rank
     per_call = [{k: [r["calls"][i][k] for r in launch.last_reports]
                  for k in (*totals, "fused_chunk")} for i in range(len(calls))]
-    ran = (("shard_chunk", "shard_stream", "butterfly"), ("stoch_shard_chunk", "butterfly"),
-           ("stoch_shard_eval",), ("fused_chunk",), (), ("butterfly",),
-           ("shard_chunk", "butterfly"), ("shard_stream",), ("stoch_shard_eval",),
-           ("shard_chunk", "stoch_shard_chunk", "butterfly"),
-           *((("shard_chunk", "butterfly") if argv[0] == "inter" else
-              ("stoch_shard_chunk", "butterfly")) for _, argv in resume_runs),
+    if any(sum(c["butterfly"]) for c in [per_call[1], per_call[9],
+                                          *per_call[10:10 + n_resume + len(races)]]):
+        fail(f"a B6 or B9 chunk at S=2 made a standalone B7 call: {per_call}")
+    # B6 and B9 at S=2 read the peers' slots themselves (butterfly_fused) and
+    # make no standalone B7 call; B5 and B8 sum through the standalone call
+    ran = (("shard_chunk", "shard_stream", "butterfly", "butterfly_fused"),
+           ("stoch_shard_chunk", "butterfly_fused"), ("stoch_shard_eval", "butterfly"),
+           ("fused_chunk",), (), ("butterfly",),
+           ("shard_chunk", "shard_stream", "stoch_shard_chunk", "stoch_shard_eval", "butterfly",
+            "butterfly_fused"),
+           ("shard_stream", "butterfly"), ("stoch_shard_eval", "butterfly"),
+           ("shard_chunk", "stoch_shard_chunk", "butterfly_fused"),
+           *((("shard_chunk", "butterfly_fused") if argv[0] == "inter" else
+              ("stoch_shard_chunk", "butterfly_fused")) for _, argv in resume_runs),
+           *((kernel, "butterfly_fused") for kernel in RACE_KERNELS), ("butterfly",),
            *((("butterfly",),) * len(checks)))
     for i, (kernels, counts) in enumerate(zip(ran, per_call)):
         if any(len(counts[k]) != 2 or min(counts[k]) == 0 for k in kernels) or \
@@ -1997,9 +2187,11 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
             fail(f"{label} config 7 --shard-chunk off: expected no solve after exactly {budget} "
                  f"steps, got {int(result.done.sum())} after {result.steps}")
         totals[kernel] += sum(counts[kernel])
+        totals["butterfly"] += sum(counts["butterfly"])
         say(f"[mesh main] {label} config 7 B=1024 --shard-chunk off --clause-shards 2 (the "
             f"CLI's mesh solve, cli.mesh_call, in the parity world): no row solved after "
-            f"exactly {budget} steps, {kernel} launches per rank {counts[kernel]} ({card})")
+            f"exactly {budget} steps, {kernel} launches per rank {counts[kernel]}, their sums "
+            f"through B7's standalone call {counts['butterfly']} ({card})")
     p2, p1 = fa7_2.shard_plan, fa7_1.shard_plan
 
     def by_clause(x, plan, dtype=np.float32):
@@ -2052,18 +2244,64 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
     say(f"[mesh main] e. inter --devices 2 uf250 B=4096 (the same world as a 2x1 mesh): equals "
         f"T=1 row for row ({one.steps} steps, {int(one.done.sum())} solved), B1 launches per "
         f"rank {per_call[3]['fused_chunk']}")
+    race_err = report_races(2, race_two, per_call[10 + n_resume:10 + n_resume + len(races)],
+                            card)
     b7_err = report_b7_checks(2, checks, b7_errs, per_call[-len(checks):], card)
-    if totals["butterfly"] == 0:
-        fail("B7 was not launched between B6's and B9's launches in the CLI mesh runs")
+    if totals["butterfly"] == 0 or totals["butterfly_fused"] == 0:
+        fail("B7 was not launched: fused into B6's and B9's launches, standalone in B5's and "
+             "B8's steps")
     say(f"[mesh main] b, c, e, B7's checks and the timings: one world of two ranks, launches "
         f"per rank and call {per_call}, in {time.perf_counter() - t0:.1f} s; B7: "
-        f"{totals['butterfly']} calls between B6's and B9's launches in the CLI mesh runs "
+        f"{totals['butterfly_fused']} B6 and B9 launches reading both ranks' slots in the CLI "
+        f"mesh runs, {totals['butterfly']} standalone calls in the --shard-chunk off solves "
         f"(both ranks) ({card})")
     phase_mesh_hybrid_and_resume(hyb_two, per_call[9], uf_path, resume_runs, resumed_two,
-                                 per_call[10:10 + len(resume_runs)], totals, card)
+                                 per_call[10:10 + n_resume], totals, card)
+    say(b7_split_line(2, split_two, card))
+    say(mesh_step_line(2, steps_two, card))
     b7 = {"S=2": {"ms": b7_ms, "plain_ms": b7_plain, "library_ms": allreduce_ms,
-                  "step_ms": step_ms, "err": b7_err}}
+                  "steps": steps_two, "split": split_two, "err": max(b7_err, race_err)}}
     return totals, b7
+
+
+RACE_KERNELS = ("shard_chunk", "shard_chunk", "stoch_shard_chunk")
+
+
+def race_calls(S):
+    """The race runs of a world of S ranks (parallel/sharded.fused_against_plain):
+    B6 fixed (1000 steps) and adaptive (500) and B9 (1000 steps), 64 rows,
+    on a random 3-SAT of n=300, m=1200 compiled for S shards, each one chunk
+    on the card with no host sync against its plain version."""
+    from odesat_tpu_torch.cnf import normalize_cnf_variables
+    from odesat_tpu_torch.ops.shard_stream import compile_stream_sharded
+    from odesat_tpu_torch.parallel import sharded
+    from odesat_tpu_torch.utils.generate import random_ksat
+
+    fa = compile_stream_sharded(normalize_cnf_variables(random_ksat(300, 1200, seed=12))[1],
+                                S)[0]
+    return [(sharded.fused_against_plain, (fa, "ode", True, 1000, 64, 1)),
+            (sharded.fused_against_plain, (fa, "ode", False, 500, 64, 2)),
+            (sharded.fused_against_plain, (fa, "stoch", True, 1000, 64, 3))]
+
+
+def report_races(S, values, counts, card):
+    """Fail unless every race run equals its plain version bit for bit with
+    v replicated, and its chunk read the S slots itself on every launch but
+    the first (no standalone call); print them; return the largest error."""
+    for (err, same), count, kernel, what in zip(values, counts, RACE_KERNELS,
+                                                ("B6 fixed", "B6 adaptive", "B9")):
+        launched = count[kernel]
+        if err != 0.0 or not same or count["butterfly"] != [0] * S or \
+                count["butterfly_fused"] != [n - 1 for n in launched]:
+            fail(f"race run {what} at S={S}: max abs err {err} against the plain version, v "
+                 f"replicated {same}, launches {launched}, fused {count['butterfly_fused']}, "
+                 f"standalone B7 {count['butterfly']}")
+    say(f"[B7 fused] S={S} ranks on one card, the race runs (one chunk with no host sync, 64 "
+        f"rows of a 3-SAT n=300 m=1200): B6 fixed 1000 steps, adaptive 500 and B9 1000 steps "
+        f"equal their plain versions bit for bit (max abs err {max(v[0] for v in values)}), v "
+        f"bit-identical on every rank, every launch after a chunk's first reading the {S} "
+        f"ranks' slots itself, no standalone B7 call ({card})")
+    return max(v[0] for v in values)
 
 
 def report_b7_checks(S, checks, errs, counts, card):
@@ -2085,10 +2323,12 @@ def phase_mesh_s4(torch, fa7_1, c7, b7_two, card):
     """Phase 20f: the clause mesh at S=4 in one more spawned world of four
     gloo ranks on the card: inter (B6) and stoch (B9) on config 7 through
     the CLI's mesh solve, the ODE clause mesh (fixed 8 steps, adaptive 4,
-    256 rows) against the S=1 runner row for row with v bit-identical on the
-    four clause ranks, the stoch clause path against S=1 flip for flip,
-    B7's checks and timings at S=4; returns the launches per kernel summed
-    over the ranks of the CLI runs and B7's numbers at S=4."""
+    256 rows) through B6 and through B5 against the S=1 runner row for row
+    with v bit-identical on the four clause ranks and B5 equal to B6 bit for
+    bit, the stoch clause path through B9 and through B8 against S=1 flip
+    for flip, the race runs, B7's checks, timings and split and the mesh
+    steps at S=4; returns the launches per kernel summed over the ranks of
+    the CLI runs and B7's numbers at S=4."""
     import numpy as np
 
     from odesat_tpu_torch import cli
@@ -2096,7 +2336,11 @@ def phase_mesh_s4(torch, fa7_1, c7, b7_two, card):
     from odesat_tpu_torch.interop import state_from_numpy
     from odesat_tpu_torch.ops import shard_stream as ss
     from odesat_tpu_torch.parallel import launch, sharded
-    from odesat_tpu_torch.parallel.dist import time_all_reduce, time_butterfly
+    from odesat_tpu_torch.parallel.dist import (
+        time_all_reduce,
+        time_butterfly,
+        time_butterfly_split,
+    )
     from odesat_tpu_torch.utils.config import ODEConfig
 
     t0 = time.perf_counter()
@@ -2125,17 +2369,26 @@ def phase_mesh_s4(torch, fa7_1, c7, b7_two, card):
     calls.append((sharded.run_stoch_clause, (fa7_4, 4, 8, 5, "float32", 1024, "auto")))
     shape7 = (1024, fa7_1.n_vars_padded + 1)
     calls += [(time_all_reduce, (shape7, 10)), (time_butterfly, (shape7, 20, 2))]
+    # B5 and B8, whose sums take B7's standalone call: B5 equal to B6, B8 to S=1
+    calls.append((sharded.run_ode_cases, ([(fa7_4, zeta, ODEConfig(
+        step_size=ode.step_size, shard_chunk="off"), n, layout(fa7_4)) for _, ode, n in odes],)))
+    calls.append((sharded.run_stoch_clause, (fa7_4, 4, 8, 5, "float32", 1024, "off")))
+    races = race_calls(4)
+    calls += races + [(time_butterfly_split, (shape7, 20)), (mesh_step_ms, (fa7_4,))]
     checks = b7_checks(shape7)
     calls += checks
     values = launch.spawn(launch.run_all, 1, 4, "gloo", "cuda", timeout_s=600, args=(calls,))
-    per_call = [{k: [r["calls"][i][k] for r in launch.last_reports]
-                 for k in ("shard_chunk", "stoch_shard_chunk", "butterfly")}
+    names = ("shard_chunk", "stoch_shard_chunk", "shard_stream", "stoch_shard_eval", "butterfly",
+             "butterfly_fused")
+    per_call = [{k: [r["calls"][i][k] for r in launch.last_reports] for k in names}
                 for i in range(len(calls))]
-    totals = {"shard_chunk": 0, "stoch_shard_chunk": 0, "butterfly": 0}
+    totals = {"shard_chunk": 0, "stoch_shard_chunk": 0, "butterfly_fused": 0}
     for (cmd, args, kernel), result, counts in zip(runs, values[:2], per_call[:2]):
         budget = int(args[args.index("-n") + 1])
-        if min(counts[kernel]) == 0 or min(counts["butterfly"]) == 0:
-            fail(f"{cmd} config 7 at S=4: {kernel} or B7 not launched on every rank: {counts}")
+        if min(counts[kernel]) == 0 or min(counts["butterfly_fused"]) == 0 or \
+                sum(counts["butterfly"]):
+            fail(f"{cmd} config 7 at S=4: {kernel} or B7 fused not launched on every rank, or "
+                 f"a standalone B7 call: {counts}")
         if result.solved_index is not None:
             if not evaluate_cnf(map_values_by_indices(mapping, result.best_assignment()), c7):
                 fail(f"{cmd} config 7 at S=4: the solved row does not satisfy the formula")
@@ -2143,13 +2396,16 @@ def phase_mesh_s4(torch, fa7_1, c7, b7_two, card):
             fail(f"{cmd} config 7 at S=4: expected no solve after exactly {budget} steps or a "
                  f"solved row that verifies, got {result.steps} steps")
         totals[kernel] += sum(counts[kernel])
-        totals["butterfly"] += sum(counts["butterfly"])
+        totals["butterfly_fused"] += sum(counts["butterfly_fused"])
         say(f"[mesh S=4] {cmd} config 7 B=1024 --clause-shards 4 (four gloo ranks on one card, "
             f"the CLI's mesh solve): {int(result.done.sum())} solved after {result.steps} "
-            f"steps, {kernel} launches per rank {counts[kernel]}, B7 {counts['butterfly']}, v "
-            f"replicated (every rank checked it) ({card})")
+            f"steps, {kernel} launches per rank {counts[kernel]}, of them reading the four "
+            f"ranks' slots (B7 fused) {counts['butterfly_fused']}, standalone B7 calls "
+            f"{counts['butterfly']}, v replicated (every rank checked it) ({card})")
     worst = 0.0
-    for (mode, ode, n), out in zip(odes, values[2]):
+    for (mode, ode, n), out, off in zip(odes, values[2], values[6]):
+        if not all(np.array_equal(a, b) for a, b in zip(out[:5], off[:5])):
+            fail(f"config 7 {mode} S=4: B5 (sums through B7's standalone call) differs from B6")
         one = ss.make_single_device_runner(fa7_1, zeta, ode, n, "cuda")(
             state_from_numpy(*layout(fa7_1), device="cuda"))
         one = [t.cpu().numpy() for t in one]
@@ -2161,20 +2417,33 @@ def phase_mesh_s4(torch, fa7_1, c7, b7_two, card):
             fail(f"config 7 {mode} S=4 vs S=1: done or dt differ")
         if not all(np.array_equal(c, out[5][0]) for c in out[5]):
             fail(f"config 7 {mode} S=4: the clause ranks' v differ")
+    if sum(per_call[2]["butterfly"]) or min(per_call[6]["butterfly"]) == 0:
+        fail(f"config 7 S=4: B6 made a standalone B7 call, or B5 none: {per_call[2]}, "
+             f"{per_call[6]}")
     say(f"[mesh S=4] inter's clause mesh config 7 B={B} at S=4, fixed 8 steps and adaptive 4 "
-        f"through B6 and B7: v equal to the S=1 runner row for row within rtol 2e-4 / atol 2e-5 "
-        f"(max abs err {worst:.6e}; done exact), the four clause ranks' v bit-identical ({card})")
+        f"through B6 (B7 fused): v equal to the S=1 runner row for row within rtol 2e-4 / atol "
+        f"2e-5 (max abs err {worst:.6e}; done exact), the four clause ranks' v bit-identical; "
+        f"through B5 (sums by B7's standalone call, {per_call[6]['butterfly']} a rank) equal to "
+        f"B6 bit for bit ({card})")
     one = sharded.run_stoch_clause(None, "cuda", fa7_1, 4, 8, 5, "float32", 1024, "auto")
-    four = values[3]
-    if not (np.array_equal(four[0], one[0]) and np.array_equal(four[2], one[2])):
-        fail("stoch clause path config 7 at S=4 differs from S=1")
-    say(f"[mesh S=4] stoch clause path config 7 B=1024, 32 steps through B9 and B7: S=4 equals "
-        f"S=1 flip for flip (v, done; {int(four[0].sum())} variables true) ({card})")
+    for what, four in (("B9, B7 fused", values[3]), ("B8, B7 standalone", values[7])):
+        if not (np.array_equal(four[0], one[0]) and np.array_equal(four[2], one[2])):
+            fail(f"stoch clause path config 7 at S=4 through {what} differs from S=1")
+        say(f"[mesh S=4] stoch clause path config 7 B=1024, 32 steps through {what}: S=4 "
+            f"equals S=1 flip for flip (v, done; {int(four[0].sum())} variables true) ({card})")
+    if sum(per_call[3]["butterfly"]) or min(per_call[7]["butterfly"]) == 0:
+        fail(f"config 7 S=4: B9 made a standalone B7 call, or B8's path none: {per_call[3]}, "
+             f"{per_call[7]}")
     allreduce_ms, (b7_ms, b7_plain) = values[4], values[5]
-    b7_err = report_b7_checks(4, checks, values[6:], per_call[6:], card)
+    n = 8 + len(races)
+    race_err = report_races(4, values[8:n], per_call[8:n], card)
+    split, steps = values[n], values[n + 1]
+    b7_err = report_b7_checks(4, checks, values[n + 2:], per_call[n + 2:], card)
+    say(b7_split_line(4, split, card))
+    say(mesh_step_line(4, steps, card))
     say(f"[mesh S=4] one world of four ranks in {time.perf_counter() - t0:.1f} s ({card})")
     b7_two["S=4"] = {"ms": b7_ms, "plain_ms": b7_plain, "library_ms": allreduce_ms,
-                     "err": b7_err}
+                     "steps": steps, "split": split, "err": max(b7_err, race_err)}
     return totals
 
 
@@ -2228,10 +2497,10 @@ def phase_mesh_hybrid_and_resume(hyb, hyb_counts, uf_path, resume_runs, results,
     say(f"[mesh hybrid] hybrid uf250 B=4096 --no-preprocess --clause-shards 2 (gloo): winner "
         f"{hyb.engine} after {hyb.steps} steps per engine, verdict {str(ok).lower()}, B6 "
         f"launches per rank {hyb_counts['shard_chunk']}, B9 {hyb_counts['stoch_shard_chunk']}, "
-        f"B7 {hyb_counts['butterfly']} ({card})")
+        f"B7 fused {hyb_counts['butterfly_fused']} ({card})")
     if not (hyb.solved and ok):
         fail("the hybrid on uf250 at S=2 did not verify a satisfying assignment")
-    for name in ("shard_chunk", "stoch_shard_chunk", "butterfly"):
+    for name in ("shard_chunk", "stoch_shard_chunk", "butterfly_fused"):
         totals[name] += sum(hyb_counts[name])
     for i in range(0, len(resume_runs), 3):
         (whole, argv), (part, _), (resumed, _) = resume_runs[i:i + 3]
@@ -2482,12 +2751,45 @@ def phase_shard_timing(torch, ss, sch, sc, fa7, b7, card):
             f"over 3.35 TB/s; {r['bound_ms'] / r['ms']:.3f} of it), the gloo all-reduce it "
             f"replaces (library) {r['library_ms']:.6f} ms ({r['library_ms'] / r['ms']:.3f}x) "
             f"({card})")
+    for S in (2, 4):
+        st = b7[f"S={S}"]["steps"]
+        say(f"[mesh timing] config 7 B={B} S={S} ({S} ranks sharing the card), ms a step: "
+            f"inter fixed through B6 (B7 fused) {st['B6']:.6f}, through B5 (B7 standalone, "
+            f"--shard-chunk off) {st['B5']:.6f}; stoch through B9 (B7 fused) {st['B9']:.6f}, "
+            f"through B8 (B7 standalone) {st['B8']:.6f}; beside B6's S=1 step "
+            f"{times['b6'][0]:.6f} and B7's standalone call {b7[f'S={S}']['ms']:.6f} ({card})")
+    # B7 fused: B6's closing apply launch (the apply prologue and the head,
+    # v and done from the sums) reading its own partial (S=1) or S ranks'
+    # partials, which its kernels add in the tree (buffers of this process)
+    b_ap = chunk_buffers(torch, fa7, B, True, seed=11)
+    fused = {}
+    for S in (1, 2, 4):
+        parts = chunk_parts(torch, b_ap, S, seed=40 + S)
+        tp, bt = tiled_parts(parts), tiled(b_ap)
+        sc_ap = sch.chunk_scratch(bt, spec6)
+
+        def go():
+            sch.shard_chunk_cuda("apply", bt, spec6, False, sc_ap, tp)
+
+        def go_plain():
+            return sch.shard_chunk_plain("apply", b_ap, spec6, False, parts)
+
+        p1, k1, k2, p2 = (cuda_ms(go_plain, 2, warmup=1), cuda_ms(go, iters=20, warmup=2),
+                          cuda_ms(go, iters=20, warmup=2), cuda_ms(go_plain, 2, warmup=1))
+        nb = 2 * 4 * B * fa7.n_vars_padded + S * nbytes + 2 * B
+        fused[S] = ((k1 + k2) / 2, (p1 + p2) / 2, nb / HBM_BYTES_PER_S * 1e3, "bytes")
+        say(f"[B7 fused] config 7 B={B} B6's apply launch (apply + head) reading {S} "
+            f"partial(s) of {nbytes} B: {k1:.6f} / {k2:.6f} ms (CUDA events), plain "
+            f"{p1:.6f} / {p2:.6f} ms, bound {fused[S][2]:.6f} ms by bytes ({nb} B: v read and "
+            f"written, the partials read; {fused[S][2] / fused[S][0]:.3f} of it) ({card})")
+    for S in (2, 4):
+        extra = (S - 1) * nbytes / HBM_BYTES_PER_S * 1e3
+        say(f"[B7 fused] the fused sum at S={S}: {fused[S][0] - fused[1][0]:.6f} ms over the "
+            f"launch reading one buffer, bound {extra:.6f} ms ((S-1) x {nbytes} B over 3.35 "
+            f"TB/s), where the standalone call took {b7[f'S={S}']['ms']:.6f} ms ({card})")
     two = b7["S=2"]
-    say(f"[mesh timing] inter's step at config 7 B={B} S=2 fixed (B6 on half the clauses, B7 "
-        f"between the launches, two ranks sharing the card): {two['step_ms']:.6f} ms a step "
-        f"(host clock around 2 chunks of 16 steps), beside B7's {two['ms']:.6f} ms a call and "
-        f"B6's S=1 step {times['b6'][0]:.6f} ms ({card})")
     times["b7"] = (two["ms"], two["plain_ms"], two["bound_ms"], "bytes", two["library_ms"])
+    times["b7_fused"] = fused[2]
     times["runner"] = rates
     return times
 
@@ -2761,6 +3063,10 @@ def phase_exact_tts(torch, fc, card):
 def main():
     if sys.argv[1:2] == ["--time-b10"]:
         return time_b10(sys.argv[2])
+    if sys.argv[1:2] == ["--time-b7"]:
+        return time_b7()
+    if sys.argv[1:2] == ["--time-mesh"]:
+        return time_mesh(sys.argv[2])
     import torch
 
     if not torch.cuda.is_available():
@@ -2882,6 +3188,8 @@ def main():
     b6_ms, b6_plain, b6_bound, b6_by = shard_times["b6"]
     b9_ms, b9_plain, b9_bound, b9_by = shard_times["b9"]
     b7_ms, b7_plain, b7_bound, b7_by, b7_library = shard_times["b7"]
+    b7f_ms, b7f_plain, b7f_bound, b7f_by = shard_times["b7_fused"]
+    b7_err = max(b7["S=2"]["err"], b7["S=4"]["err"])
     say(json.dumps({"kernels": [
         row("fused_chunk", "csrc/fused_chunk.cu", "odesat_tpu/ops/fused_pallas.py:66", launches,
             worst, kernel_ms, plain_ms, ode_chunk_bound(hard, 16384, 256, True)),
@@ -2903,11 +3211,16 @@ def main():
             mesh_launches["stoch_shard_eval"], b8_worst, b8_ms, b8_plain, (b8_bound, b8_by)),
         row("stoch_shard_chunk", "csrc/stoch_chunk.cu", "odesat_tpu/ops/stoch_pallas.py:868",
             mesh_launches["stoch_shard_chunk"], b9_worst, b9_ms, b9_plain, (b9_bound, b9_by)),
-        # B7 at S=2 (the smoke's mesh runs); its library call is the gloo
-        # all-reduce of the same buffer, which the port no longer makes
+        # B7's standalone call at S=2 (the --shard-chunk off steps); its
+        # library call is the gloo all-reduce of the same buffer
         row("butterfly", "csrc/butterfly.cu", "odesat_tpu/ops/butterfly.py:99",
-            mesh_launches["butterfly"], max(b7["S=2"]["err"], b7["S=4"]["err"]), b7_ms,
-            b7_plain, (b7_bound, b7_by), library_ms=b7_library),
+            mesh_launches["butterfly"], b7_err, b7_ms, b7_plain, (b7_bound, b7_by),
+            library_ms=b7_library),
+        # B7 fused into B6's and B9's prologues (csrc/bfly_tree.cuh): B6's
+        # apply launch reading two ranks' partials; launches: the B6 and B9
+        # launches of the mesh runs that read S > 1 slots
+        row("butterfly_fused", "csrc/bfly_tree.cuh", "odesat_tpu/ops/butterfly.py:99",
+            mesh_launches["butterfly_fused"], b7_err, b7f_ms, b7f_plain, (b7f_bound, b7f_by)),
     ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

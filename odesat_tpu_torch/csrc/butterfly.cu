@@ -1,42 +1,38 @@
-// B7 (bfly_reduce) replaces odesat_tpu/ops/butterfly.py::butterfly_allreduce
-// (:99), the recursive-doubling all-reduce over the clause axis that the
-// whole-chunk kernels B6 (odesat_tpu/ops/shard_chunk.py:605) and B9
+// B7 replaces odesat_tpu/ops/butterfly.py::butterfly_allreduce (:99), the
+// recursive-doubling all-reduce over the clause axis that the whole-chunk
+// kernels B6 (odesat_tpu/ops/shard_chunk.py:605) and B9
 // (odesat_tpu/ops/stoch_pallas.py:1161) run inside themselves: round r swaps
 // the accumulator with partner index ^ 2^r over ICI remote DMA and both sides
 // combine, so every shard sums in the same pairwise order and ends with the
 // same bits.
 //
 // On Hopper the ranks of a clause group are processes. Each exports one
-// device allocation through CUDA IPC (bfly_alloc): a page of flags, then two
-// partial slots chosen by call parity. Its peers map it once (bfly_open). A
-// call on rank r, all in stream order:
-//   1. the partial of call i is in slot i % 2 (B6's or B9's pass wrote it);
-//   2. cuStreamWriteValue32 sets r's flag to i + 1, behind a memory fence;
-//   3. cuStreamWaitValue32 (GEQ) on every peer's mapped flag for i + 1;
-//   4. bfly_kernel reads the S partials of slot i % 2, its own and the mapped
-//      peers', combines them in the butterfly's tree order and writes the
-//      result into a buffer private to the rank.
-// The waits sit in the stream, not on an SM: without MPS the contexts of the
-// ranks that share a card are time-sliced, and a kernel that spun on a
-// peer's flag would hold its slice while that peer cannot run.
+// device allocation through CUDA IPC (bfly_alloc): a page of flags, then the
+// partial slots; its peers map it once (bfly_open). B6's and B9's kernels
+// read the S ranks' slots themselves and add them as they read them
+// (bfly_tree.cuh, the tree's one definition: B7 fused). This file holds
+// what they and the standalone call share: the flags, written and awaited
+// in stream order (bfly_signal: cuStreamWriteValue32 behind a memory fence;
+// bfly_wait: cuStreamWaitValue32 GEQ on every peer's mapped flag), and the
+// standalone call for sums that torch operations consume (bfly_reduce: the
+// flag raised, the peers awaited, then bfly_kernel over the S slots into a
+// buffer of the caller's; bfly_tree: the kernel alone, on any S buffers).
+// The waits sit in the stream, not on an SM: without MPS the contexts of
+// the ranks that share a card are time-sliced, and a kernel that spun on a
+// peer's flag would hold its slice while that peer cannot run. Which slot
+// a launch writes and which flag value it awaits is ops/butterfly.py's
+// schedule: one counter a rank, K slots a mode.
 //
-// The tree: the S partials in rank order, paired level by level, (a0 + a1)
-// at S = 2, (a0 + a1) + (a2 + a3) at S = 4, an absent partner skipped at an
-// S that is not a power of two ((a0 + a1) + a2 at S = 3). IEEE addition is
-// commutative, so reading all S partials and adding them in that tree gives
-// the bits that log2(S) rounds of the TPU kernel give, on every rank. An
-// optional max zone, the last n_max words of every period of `period` words,
-// combines by max instead (JAX's combine max-combines the flag zone of its
-// second pass): NaN if either is NaN (the canonical quiet NaN), else the
-// larger, the lower rank's of two equal values. A NaN in the sum zone
-// comes out as the card's NaN (0x7fffffff), whatever its payload was.
-// Built with --fmad=false like every kernel of the package (there is
-// nothing to contract here).
+// An optional max zone, the last n_max words of every period of `period`
+// words, combines by max instead (JAX's combine max-combines the flag zone
+// of its second pass). A NaN in the sum zone comes out as the card's NaN
+// (0x7fffffff), whatever its payload was. Built with --fmad=false like
+// every kernel of the package (there is nothing to contract here).
 //
-// What bounds it on the card: device-memory bytes, S partials read and one
-// result written a call, (S + 1) * 4 * n bytes. The pass is a grid-stride
-// loop with 16-byte loads where every pointer and the length allow, and a
-// scalar tail.
+// What bounds the standalone kernel on the card: device-memory bytes, S
+// partials read and one result written a call, (S + 1) * 4 * n bytes. The
+// pass is a grid-stride loop with 16-byte loads where every pointer and the
+// length allow, and a scalar tail.
 #include <cuda.h>
 #include <cuda_runtime.h>
 
@@ -44,9 +40,11 @@
 #include <cstdint>
 #include <cstring>
 
+#include "bfly_tree.cuh"
+
 namespace {
 
-constexpr int kMaxRanks = 64;
+constexpr int kMaxRanks = bfly::kMaxRanks;
 constexpr int kThreads = 256;
 
 // Error codes of this file: cudaError_t values are positive, CUresult values
@@ -77,32 +75,7 @@ bool resolve(const char* name, F* fn) {
   return true;
 }
 
-struct Parts {
-  const float* p[kMaxRanks];
-};
-
-__device__ __forceinline__ float combine(float a, float b, bool mx) {
-  if (!mx) return a + b;
-  if (a != a || b != b) return __int_as_float(0x7fc00000);
-  return a < b ? b : a;
-}
-
-// The tree over the S values of one word, in place in v (the lower block is
-// the left operand).
-template <int S>
-__device__ __forceinline__ float tree(float* v, int s, bool mx) {
-  const int n = S > 0 ? S : s;
-#pragma unroll
-  for (int w = 1; w < (S > 0 ? S : kMaxRanks); w <<= 1) {
-    if (w >= n) break;
-#pragma unroll
-    for (int i = 0; i + w < (S > 0 ? S : kMaxRanks); i += 2 * w) {
-      if (i + w >= n) break;
-      v[i] = combine(v[i], v[i + w], mx);
-    }
-  }
-  return v[0];
-}
+using bfly::Parts;
 
 __device__ __forceinline__ bool in_max(long long e, long long period, long long n_max) {
   return n_max > 0 && e % period >= period - n_max;
@@ -133,7 +106,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int k = 0; k < kSlots; ++k)
           if (k < n_ranks) v[k] = c == 0 ? in[k].x : c == 1 ? in[k].y : c == 2 ? in[k].z : in[k].w;
-        res[c] = tree<S>(v, n_ranks, in_max(4 * q + c, period, n_max));
+        res[c] = bfly::tree<S>(v, n_ranks, in_max(4 * q + c, period, n_max));
       }
       reinterpret_cast<float4*>(out)[q] = make_float4(res[0], res[1], res[2], res[3]);
     }
@@ -144,7 +117,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int k = 0; k < kSlots; ++k)
       if (k < n_ranks) v[k] = __ldg(parts.p[k] + e);
-    out[e] = tree<S>(v, n_ranks, in_max(e, period, n_max));
+    out[e] = bfly::tree<S>(v, n_ranks, in_max(e, period, n_max));
   }
 }
 
@@ -254,30 +227,43 @@ int bfly_can_access_peer(int device, int peer, int* ok) {
   return static_cast<int>(cudaDeviceCanAccessPeer(ok, device, peer));
 }
 
-// One call of B7 on `stream`: this rank's flag (own_flag, in its own
-// allocation) := count + 1; a wait for every other flag (flags[k], k != rank:
-// the peers' mapped flags) >= count + 1; then the tree over the s partials
-// parts[0..s) (rank order; parts[rank] is this rank's own slot) into `out`, n
-// words, the last n_max of every `period` max-combined (n_max = 0: all sum).
-// Returns 0 or an error code.
-int bfly_reduce(const float* const* parts, unsigned int* const* flags, int s, int rank,
-                unsigned int count, float* out, long long n, long long period, long long n_max,
-                int sms, void* stream) {
-  if (s < 2 || s > kMaxRanks || rank < 0 || rank >= s || n < 0 || period < 1 || n_max < 0 ||
-      n_max > period)
-    return static_cast<int>(cudaErrorInvalidValue);
+// Stream-ordered flag operations (the waits sit in the stream, never on an
+// SM): bfly_signal sets `flag` (this rank's own) to `value` once the work
+// before it on `stream` is done, behind a memory fence; bfly_wait holds
+// `stream` until every flags[k], k != rank (the peers' mapped flags), is
+// >= value. Both return 0 or an error code.
+int bfly_signal(unsigned int* flag, unsigned int value, void* stream) {
   if (g_write == nullptr) return kNoEntryPoint;
-  const CUstream cst = static_cast<CUstream>(stream);
-  CUresult r = g_write(cst, reinterpret_cast<CUdeviceptr>(flags[rank]), count + 1u,
-                       CU_STREAM_WRITE_VALUE_DEFAULT);
+  const CUresult r = g_write(static_cast<CUstream>(stream), reinterpret_cast<CUdeviceptr>(flag),
+                             value, CU_STREAM_WRITE_VALUE_DEFAULT);
+  if (r == CUDA_ERROR_NOT_SUPPORTED) return kNoMemOps;
+  return r == CUDA_SUCCESS ? 0 : -static_cast<int>(r);
+}
+
+int bfly_wait(unsigned int* const* flags, int s, int rank, unsigned int value, void* stream) {
+  if (s < 1 || s > kMaxRanks || rank < 0 || rank >= s)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (g_wait == nullptr) return kNoEntryPoint;
+  CUresult r = CUDA_SUCCESS;
   for (int k = 0; k < s && r == CUDA_SUCCESS; ++k)
     if (k != rank)
-      r = g_wait(cst, reinterpret_cast<CUdeviceptr>(flags[k]), count + 1u,
+      r = g_wait(static_cast<CUstream>(stream), reinterpret_cast<CUdeviceptr>(flags[k]), value,
                  CU_STREAM_WAIT_VALUE_GEQ);
   if (r == CUDA_ERROR_NOT_SUPPORTED) return kNoMemOps;
-  if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+  return r == CUDA_SUCCESS ? 0 : -static_cast<int>(r);
+}
+
+// The tree over the s partials parts[0..s) (rank order) into `out`, n
+// words, the last n_max of every `period` max-combined (n_max = 0: all
+// sum), with no flag: the kernel alone, on any s device buffers (a call's
+// slots, or buffers of this process). Returns 0 or an error code.
+int bfly_tree(const float* const* parts, int s, float* out, long long n, long long period,
+              long long n_max, int sms, void* stream) {
+  if (s < 1 || s > kMaxRanks || n < 0 || period < 1 || n_max < 0 || n_max > period)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   Parts p{};
+  p.s = s;
   bool vec = aligned16(out);
   for (int k = 0; k < s; ++k) {
     p.p[k] = parts[k];
@@ -290,13 +276,26 @@ int bfly_reduce(const float* const* parts, unsigned int* const* flags, int s, in
   if (blocks < 1) blocks = 1;
   const int b = static_cast<int>(blocks);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
   switch (s) {
-    case 2: e = launch_tree<2>(p, s, out, n, period, n_max, vec, b, st); break;
-    case 4: e = launch_tree<4>(p, s, out, n, period, n_max, vec, b, st); break;
-    default: e = launch_tree<0>(p, s, out, n, period, n_max, vec, b, st); break;
+    case 2: return static_cast<int>(launch_tree<2>(p, s, out, n, period, n_max, vec, b, st));
+    case 4: return static_cast<int>(launch_tree<4>(p, s, out, n, period, n_max, vec, b, st));
+    default: return static_cast<int>(launch_tree<0>(p, s, out, n, period, n_max, vec, b, st));
   }
-  return static_cast<int>(e);
+}
+
+// One standalone call of B7 on `stream`, once this rank's partial of call
+// `count` is in its slot: its flag (flags[rank], in its own allocation) :=
+// count + 1; a wait for every peer's flag >= count + 1; then the tree over
+// the slots parts[0..s) into `out` (bfly_tree). Returns 0 or an error code.
+int bfly_reduce(const float* const* parts, unsigned int* const* flags, int s, int rank,
+                unsigned int count, float* out, long long n, long long period, long long n_max,
+                int sms, void* stream) {
+  if (s < 2 || s > kMaxRanks || rank < 0 || rank >= s)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int rc = bfly_signal(flags[rank], count + 1u, stream);
+  if (rc == 0) rc = bfly_wait(flags, s, rank, count + 1u, stream);
+  if (rc == 0) rc = bfly_tree(parts, s, out, n, period, n_max, sms, stream);
+  return rc;
 }
 
 const char* bfly_error_string(int code) {

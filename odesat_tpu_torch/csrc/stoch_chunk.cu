@@ -81,6 +81,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bfly_tree.cuh"
 #include "tile.cuh"
 
 namespace {
@@ -404,17 +405,20 @@ __global__ void __launch_bounds__(kLaneThreads)
 // B9 (stoch_shard_step_launch) replaces odesat_tpu/ops/stoch_pallas.py::
 // make_stoch_shard_chunk (:868): the clause-sharded stoch chunk whose
 // (total, unsat, sat) all-reduce the TPU kernel ran inside itself over ICI
-// remote DMA (B7). On Hopper the chunk is a sequence of launches with B7
-// (csrc/butterfly.cu, over CUDA IPC buffers) between them, and everything
-// else the TPU kernel did runs in them: each launch first applies the
-// previous step's reduced sums `red` (the flip u*total < unsat with the
-// counter-hash uniform of that step, for a chain that was active, then done
-// |= allsat), then evaluates the shard for step t (the sat of each clause,
-// the weight update, the weight sums), writing its partials into acc =
-// (total | unsat | 1 - sat), B7's shared slot on a clause mesh (`red` is
-// `acc` in a group of one), and its weights in place. A chunk of n steps is
-// n such launches and one apply-only launch (evaluate = 0). `done` in
-// device memory between launches is the done the last evaluation ran with.
+// remote DMA (B7). On Hopper the chunk is a sequence of launches with the
+// all-reduce fused into them, and everything else the TPU kernel did runs
+// in them too: each launch first applies the previous step's sums (the flip
+// u*total < unsat with the counter-hash uniform of that step, for a chain
+// that was active, then done |= allsat), reading the S ranks' partials of
+// that step (bfly::Parts: this rank's slot and the peers' IPC-mapped slots,
+// made final by a stream wait on their flags; at S = 1 its own `acc`) and
+// summing them in the butterfly's tree as it reads them (bfly_tree.cuh),
+// then evaluates the shard for step t (the sat of each clause, the weight
+// update, the weight sums), writing its partials into acc = (total | unsat
+// | 1 - sat), this launch's slot on a clause mesh, and its weights in
+// place. A chunk of n steps is n such launches and one apply-only launch
+// (evaluate = 0). `done` in device memory between launches is the done the
+// last evaluation ran with.
 //
 // Design: the buffers are in the tile layout of tile.cuh, R chains a tile:
 // v (G, Np, R) bytes, xl and the signed post-update weights w (G, Mp, R)
@@ -422,7 +426,8 @@ __global__ void __launch_bounds__(kLaneThreads)
 // word once for R chains, and each gather of v or w moves R useful words;
 // nothing of a chain lives in shared memory. A launch is up to four
 // kernels on the stream, each over (tile, span) except the head:
-//   flip    the previous step's flips, over variables;
+//   flip    the previous step's flips, over variables, four chains a thread
+//           (16-byte reads of each partial, a warp on whole rows);
 //   head    one thread a chain: the done latch; the sat flag cleared;
 //   clause  over clauses: sat from v, the weight update into w, xl <- |w|
 //           for a chain that is not done (a done chain keeps its xl
@@ -430,7 +435,8 @@ __global__ void __launch_bounds__(kLaneThreads)
 //   var     over variables: total and unsat sums of w over the local CSR
 //           list in a fixed order.
 // What bounds it: device-memory bytes (xl and w written, xl, w and v read,
-// the partials written every step) and the gathers of w through L2.
+// the partials written every step and S of them read) and the gathers of w
+// through L2.
 //
 // B8 (stoch_shard_eval_launch) replaces odesat_tpu/ops/stoch_pallas.py::
 // make_stoch_shard_eval (:605): one step's evaluation over one clause
@@ -441,36 +447,63 @@ __global__ void __launch_bounds__(kLaneThreads)
 // tiled buffers, into the same acc = (total | unsat | 1 - sat). A chain
 // that is done (not active) keeps its xl verbatim; padded clauses weigh 0;
 // unit clauses are taken. What bounds it: as for B9.
-template <int R>
+// The previous step's flips over variables, from the S ranks' partials of
+// its evaluation (total | unsat | 1 - sat), added in the butterfly's tree
+// as they are read: a thread takes four neighbouring chains of a tile row
+// (16-byte reads of each partial, R/4 threads a row). S: 1, 2, 4 at
+// compile time, 0 at run time (red.s).
+template <int R, int S>
 __global__ void __launch_bounds__(tile::kThreads)
-    stoch_tile_flip_kernel(uint8_t* __restrict__ v, const float* __restrict__ red,
+    stoch_tile_flip_kernel(uint8_t* __restrict__ v, const bfly::Parts red,
                            const uint8_t* __restrict__ done, int Np, uint32_t seed, int Bb,
                            int t) {
-  const int g = blockIdx.x, r = tile::lane<R>(), chain = g * R + r;
-  if (done[chain]) return;  // a done chain does not flip
-  const uint32_t row_term = static_cast<uint32_t>(chain % Bb) * 0x9E3779B1u;
-  const uint32_t step_term = seed + static_cast<uint32_t>(chain / Bb) * 0x632BE59Bu +
-                             static_cast<uint32_t>(t - 1) * 0xC2B2AE3Du;
-  uint8_t* vt = v + static_cast<size_t>(g) * Np * R;
-  const float* a = red + static_cast<size_t>(g) * (2 * Np + 1) * R;
-  tile::for_items<R>(Np, [&](int i) {
-    const uint32_t h = mix(row_term ^ (static_cast<uint32_t>(i) * 0x85EBCA77u) ^ step_term);
-    const float u = static_cast<float>(h >> 8) * (1.0f / 16777216.0f);
-    const size_t k = static_cast<size_t>(i) * R + r;
-    if (u * a[k] < a[static_cast<size_t>(Np) * R + k]) vt[k] ^= 1;
-  });
+  constexpr int kPerRow = R / 4, kRows = tile::kThreads / kPerRow;
+  const int g = blockIdx.x, r0 = 4 * (static_cast<int>(threadIdx.x) % kPerRow);
+  const size_t chain0 = static_cast<size_t>(g) * R + r0;
+  const uchar4 d = *reinterpret_cast<const uchar4*>(done + chain0);
+  if (d.x && d.y && d.z && d.w) return;  // a done chain does not flip
+  const bool live[4] = {!d.x, !d.y, !d.z, !d.w};
+  uint32_t row_term[4], step_term[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int chain = static_cast<int>(chain0) + c;
+    row_term[c] = static_cast<uint32_t>(chain % Bb) * 0x9E3779B1u;
+    step_term[c] = seed + static_cast<uint32_t>(chain / Bb) * 0x632BE59Bu +
+                   static_cast<uint32_t>(t - 1) * 0xC2B2AE3Du;
+  }
+  uint8_t* vt = v + static_cast<size_t>(g) * Np * R + r0;
+  const size_t a = static_cast<size_t>(g) * (2 * Np + 1) * R + r0;
+  const int per = (Np + static_cast<int>(gridDim.y) - 1) / static_cast<int>(gridDim.y);
+  const int lo = static_cast<int>(blockIdx.y) * per, hi = min(Np, lo + per);
+  for (int i = lo + static_cast<int>(threadIdx.x) / kPerRow; i < hi; i += kRows) {
+    const size_t k = static_cast<size_t>(i) * R;
+    const float4 tot4 = bfly::at4<S>(red, a + k);
+    const float4 uns4 = bfly::at4<S>(red, a + static_cast<size_t>(Np) * R + k);
+    const float tot[4] = {tot4.x, tot4.y, tot4.z, tot4.w};
+    const float uns[4] = {uns4.x, uns4.y, uns4.z, uns4.w};
+    uchar4 x4 = *reinterpret_cast<const uchar4*>(vt + k);
+    uint8_t x[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const uint32_t h = mix(row_term[c] ^ (static_cast<uint32_t>(i) * 0x85EBCA77u) ^ step_term[c]);
+      const float u = static_cast<float>(h >> 8) * (1.0f / 16777216.0f);
+      if (live[c] && u * tot[c] < uns[c]) x[c] ^= 1;
+    }
+    *reinterpret_cast<uchar4*>(vt + k) = make_uchar4(x[0], x[1], x[2], x[3]);
+  }
 }
 
-// One thread a chain, after flip (`apply`: the done latch from the reduced
-// flag in `red`) or alone; `evaluate` clears the flag of `acc` for the
-// evaluation that follows (`red` may be `acc`: read before cleared).
-__global__ void stoch_tile_head_kernel(const float* red, float* acc,
+// One thread a chain, after flip (`apply`: the done latch from the sat
+// counts, word 2*Np of the red partials, summed) or alone; `evaluate` clears
+// the flag of `acc` for the evaluation that follows (at S = 1 red's one
+// partial may be `acc`: read before cleared).
+__global__ void stoch_tile_head_kernel(const bfly::Parts red, float* acc,
                                        uint8_t* __restrict__ done, int Np, int R, int n,
                                        int apply, int evaluate) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n) return;
   const size_t flag = (static_cast<size_t>(t / R) * (2 * Np + 1) + 2 * Np) * R + t % R;
-  if (apply) done[t] = (done[t] || red[flag] == 0.0f) ? 1 : 0;
+  if (apply) done[t] = (done[t] || bfly::word(red, flag) == 0.0f) ? 1 : 0;
   if (evaluate) acc[flag] = 0.0f;
 }
 
@@ -534,12 +567,21 @@ __global__ void __launch_bounds__(tile::kThreads)
 }
 
 template <int R>
-int stoch_tile_step(uint8_t* v, int* xl, uint8_t* done, const float* red, float* acc, int* w,
-                    const Formula& f, int G, bool bf16, uint32_t seed, int Bb, int t, bool apply,
-                    bool evaluate, cudaStream_t st) {
+int stoch_tile_step(uint8_t* v, int* xl, uint8_t* done, const bfly::Parts& red, float* acc,
+                    int* w, const Formula& f, int G, bool bf16, uint32_t seed, int Bb, int t,
+                    bool apply, bool evaluate, cudaStream_t st) {
   const dim3 vgrid = tile::grid(G, R, f.Np);
-  if (apply)
-    stoch_tile_flip_kernel<R><<<vgrid, tile::kThreads, 0, st>>>(v, red, done, f.Np, seed, Bb, t);
+  if (apply) {
+#define ODESAT_FLIP(S) \
+  stoch_tile_flip_kernel<R, S><<<vgrid, tile::kThreads, 0, st>>>(v, red, done, f.Np, seed, Bb, t)
+    switch (red.s) {
+      case 1: ODESAT_FLIP(1); break;
+      case 2: ODESAT_FLIP(2); break;
+      case 4: ODESAT_FLIP(4); break;
+      default: ODESAT_FLIP(0); break;
+    }
+#undef ODESAT_FLIP
+  }
   const int n = G * R;
   stoch_tile_head_kernel<<<(n + tile::kThreads - 1) / tile::kThreads, tile::kThreads, 0, st>>>(
       red, acc, done, f.Np, R, n, apply, evaluate);
@@ -635,24 +677,36 @@ int stoch_shard_eval_launch(uint8_t* v, int* xl, uint8_t* done, float* acc, int*
                             void* stream) {
   const Formula f{lit_code, occ_ptr, occ_clause, Np, Mp, K, nnz};
   if (G < 1 || R != tile::kR) return static_cast<int>(cudaErrorInvalidValue);
-  return stoch_tile_step<tile::kR>(v, xl, done, acc, acc, w, f, G, bf16 != 0, 0u, 1, 0, false,
+  bfly::Parts none{};
+  return stoch_tile_step<tile::kR>(v, xl, done, none, acc, w, f, G, bf16 != 0, 0u, 1, 0, false,
                                    true, static_cast<cudaStream_t>(stream));
 }
 
 // B9: one launch of the chunk (see stoch_tile_step) on buffers in the tile
-// layout with R = tile::kR chains a tile; `red` (the reduced sums read when
-// `apply`) and `acc` (the partials written when `evaluate`) are (G, 2*Np+1,
-// R), the same buffer in a group of one; `w` is the chunk's (G, Mp, R)
-// int32 scratch. Returns a cudaError_t code.
-int stoch_shard_step_launch(uint8_t* v, int* xl, uint8_t* done, const float* red, float* acc,
-                            int* w, const int* lit_code, const int* occ_ptr, const int* occ_clause,
-                            int G, int R, int Np, int Mp, int K, int nnz, int bf16,
-                            unsigned int seed, int Bb, int t, int apply, int evaluate,
+// layout with R = tile::kR chains a tile; `acc` (the partials written when
+// `evaluate`) and red[0..s), the S ranks' partials of the previous step
+// (rank order; read, and summed in the butterfly's tree, when `apply`; at
+// S = 1 `acc` itself), are (G, 2*Np+1, R), 16-byte aligned, as are v and
+// done (4-byte); `w` is the chunk's (G, Mp, R) int32 scratch. Returns a
+// cudaError_t code.
+int stoch_shard_step_launch(uint8_t* v, int* xl, uint8_t* done, const float* const* red, int s,
+                            float* acc, int* w, const int* lit_code, const int* occ_ptr,
+                            const int* occ_clause, int G, int R, int Np, int Mp, int K, int nnz,
+                            int bf16, unsigned int seed, int Bb, int t, int apply, int evaluate,
                             void* stream) {
   const Formula f{lit_code, occ_ptr, occ_clause, Np, Mp, K, nnz};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (G < 1 || R != tile::kR) return static_cast<int>(cudaErrorInvalidValue);
-  return stoch_tile_step<tile::kR>(v, xl, done, red, acc, w, f, G, bf16 != 0, seed, Bb, t,
+  if (G < 1 || R != tile::kR || s < 1 || s > bfly::kMaxRanks || red == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  bfly::Parts p{};
+  p.s = s;
+  bool ok = reinterpret_cast<size_t>(v) % 16 == 0 && reinterpret_cast<size_t>(done) % 4 == 0;
+  for (int k = 0; k < s; ++k) {
+    p.p[k] = red[k];
+    ok = ok && reinterpret_cast<size_t>(red[k]) % 16 == 0;
+  }
+  if (!ok) return static_cast<int>(cudaErrorMisalignedAddress);
+  return stoch_tile_step<tile::kR>(v, xl, done, p, acc, w, f, G, bf16 != 0, seed, Bb, t,
                                    apply != 0, evaluate != 0, st);
 }
 

@@ -57,6 +57,7 @@
 
 #include <initializer_list>
 
+#include "bfly_tree.cuh"
 #include "bulk.cuh"
 #include "ode_lanes.cuh"
 #include "tile.cuh"
@@ -160,17 +161,22 @@ enum ShardMode { kRhs = 0, kFixed = 1, kSecond = 2 };
 // B6 (shard_chunk_launch) replaces odesat_tpu/ops/shard_chunk.py::
 // make_shard_chunk_call (:158): the clause-sharded ODE chunk whose dv
 // all-reduce the TPU kernel ran inside itself, over ICI remote DMA (B7,
-// odesat_tpu/ops/butterfly.py). On Hopper the chunk is a sequence of
-// launches with B7 (csrc/butterfly.cu, over CUDA IPC buffers) between them,
-// where the TPU kernel ran its butterfly; everything else the TPU kernel
-// did in VMEM runs in these launches: each applies the reduced result of
-// the launch before it (the v update, the done latch, and for the adaptive
-// integrator the commit, the step-doubling error and the dt control), then
-// runs the shard's next pass. A launch reads the reduced sums (red, red2,
-// private to the rank) and writes its partials elsewhere (acc, acc2: B7's
-// shared slots), so no rank writes a buffer a peer may still read. A fixed
-// step is one launch and one B7 call, an adaptive step two and two, and a
-// chunk of n steps ends with one apply-only launch.
+// odesat_tpu/ops/butterfly.py), combining each partner's payload straight
+// into its accumulator. On Hopper the chunk is a sequence of launches and
+// the all-reduce is fused into them the same way: every kernel that reads a
+// sum reads the S ranks' partials of the launch it consumes (a table of
+// pointers, bfly::Parts: this rank's slot and the peers' IPC-mapped slots,
+// which a stream wait on the peers' flags has made final; at S = 1 the
+// rank's own partial) and adds them in the butterfly's tree as it reads
+// them (bfly_tree.cuh, one definition with B7's standalone kernel), row Np
+// of the second pass's partials by max. Everything else the TPU kernel did
+// in VMEM runs in these launches: each applies the result of the launches
+// before it (the v update, the done latch, and for the adaptive integrator
+// the commit, the step-doubling error and the dt control), then runs the
+// shard's next pass, writing its partials into this launch's slot (acc,
+// acc2), never a slot a peer may still read (ops/butterfly.py's schedule).
+// A fixed step is one launch, an adaptive step two, and a chunk of n steps
+// ends with one apply-only launch.
 // Phases (ops/shard_chunk.py):
 //   kStep    fixed: [apply the previous step] v, done; dt_c = done ? 0 : dt;
 //            the fixed pass -> acc[:Np] = dv partial, acc[Np] = 1 - sat,
@@ -178,16 +184,17 @@ enum ShardMode { kRhs = 0, kFixed = 1, kSecond = 2 };
 //   kApply   fixed: apply only;
 //   kFirst   adaptive: [commit the previous step] v, dt, done; pass 1 ->
 //            acc[:Np] = dv1 partial, acc[Np] = 1 - sat, dxs1, dxl1;
-//   kHalf    adaptive: hv = clamp(v + (dt_c/2) dv1) from the reduced red;
+//   kHalf    adaptive: hv = clamp(v + (dt_c/2) dv1) from the summed dv1;
 //            the second pass at hv -> acc2[:Np] = dv2 partial, acc2[Np] =
-//            the shard's error (B7 max-combines that row), xs, xl committed
-//            into xs2, xl2 under the advance flag;
+//            the shard's error (whose readers max-combine that row), xs, xl
+//            committed into xs2, xl2 under the advance flag;
 //   kCommit  adaptive: commit only: tv = clamp(hv + (dt_c/2) dv2), err =
-//            max(red2[Np], |clamp(v + dt_c dv1) - tv|), dt <- clip(dt *
+//            max(err2, |clamp(v + dt_c dv1) - tv|), dt <- clip(dt *
 //            sqrt(tol / max(err, 1e-30)), 2^-7, 1e3), v, dt under the advance
 //            flag, done |= allsat.
-// `done` in device memory between launches is the done the last pass ran
-// with; the next launch latches the reduced sat flag.
+// (dv1, dv2, err2 and the sat count are the sums of the S partials; err2
+// their max.) `done` in device memory between launches is the done the last
+// pass ran with; the next launch latches the summed sat flag.
 //
 // Design: the chunk's buffers are in the tile layout of tile.cuh, (G, X,
 // R) with R trajectories a tile, so a lane group reads each table word
@@ -195,11 +202,14 @@ enum ShardMode { kRhs = 0, kFixed = 1, kSecond = 2 };
 // and each gather of v, xs, xl, dxs1 or dxl1 moves R useful words. Nothing
 // of a trajectory lives in shared memory, so many CTAs share an SM. A phase
 // is a short sequence of kernels on the stream, each over (tile, span):
-//   apply   v from the reduced red (and red2), over variables; adaptive:
-//           the commit's error, a max per trajectory, into `errbits`;
+//   apply   v from the summed dv (and dv2), over variables, four
+//           trajectories a thread (16-byte reads of each partial, a warp on
+//           whole 128-byte rows); adaptive: the commit's error, a max per
+//           trajectory, into `errbits`;
 //   head    one thread a trajectory: the done latch, the dt control, and
 //           the sat flag cleared for the pass that follows;
-//   hv      kHalf: the half step into a scratch tile;
+//   hv      kHalf: the half step into a scratch tile (16-byte reads, as
+//           apply);
 //   pass    over variables: dv over each variable's CSR list, with each
 //           occurrence's m1, m2 recomputed from v (no clause words cross
 //           memory) and its xs, xl gathered (kSecond: the half-step xs, xl
@@ -216,7 +226,8 @@ enum ShardMode { kRhs = 0, kFixed = 1, kSecond = 2 };
 // the sat flag (stores of one value) and maxima of non-negative floats
 // (integer atomicMax on their bits), both independent of order: repeats
 // are bit-identical. What bounds it: device-memory bytes (v, xs and xl
-// cross memory every step) and the L2 traffic of the occurrence gathers.
+// cross memory every step, and the S partials the prologue reads) and the
+// L2 traffic of the occurrence gathers.
 enum ChunkPhase { kStep = 0, kApply = 1, kFirst = 2, kHalf = 3, kCommit = 4 };
 
 // The running top-2 min of clause m for lane r of a tile (B1's loop, the
@@ -260,62 +271,130 @@ __device__ __forceinline__ void publish_max(int* s_max, float e, int* out) {
   if (threadIdx.x < R && s_max[threadIdx.x] != 0) atomicMax(out + threadIdx.x, s_max[threadIdx.x]);
 }
 
+// The span of tile rows [lo, hi) of an axis of n rows that CTA (blockIdx.x,
+// blockIdx.y) takes, walked by the 16-byte kernels below: a thread takes
+// four neighbouring lanes of a row (R/4 threads a row, one 128-byte line at
+// R = 32), so a warp reads whole rows of each buffer.
+template <int R>
+struct Quads {
+  static constexpr int kPerRow = R / 4;
+  static constexpr int kRows = tile::kThreads / kPerRow;  // rows a CTA takes at once
+  int lo, hi, r0;
+  __device__ __forceinline__ Quads(int n) {
+    const int per = (n + static_cast<int>(gridDim.y) - 1) / static_cast<int>(gridDim.y);
+    lo = static_cast<int>(blockIdx.y) * per;
+    hi = min(n, lo + per);
+    r0 = 4 * (static_cast<int>(threadIdx.x) % kPerRow);
+  }
+  __device__ __forceinline__ int first() const {
+    return lo + static_cast<int>(threadIdx.x) / kPerRow;
+  }
+};
+
+__device__ __forceinline__ float4 clamp4(float4 x) {
+  return make_float4(clampf(x.x, -1.0f, 1.0f), clampf(x.y, -1.0f, 1.0f),
+                     clampf(x.z, -1.0f, 1.0f), clampf(x.w, -1.0f, 1.0f));
+}
+
+// The step of each of a thread's four trajectories (lanes r0 .. r0+3 of
+// tile g): 0 when done, else the fixed step or the row's dt.
 template <int R, bool FIXED>
+__device__ __forceinline__ float4 lane_steps(const unsigned char* __restrict__ done,
+                                             const float* __restrict__ dt, float dt_fixed,
+                                             int g, int r0, uchar4* d) {
+  const size_t t = static_cast<size_t>(g) * R + r0;
+  *d = *reinterpret_cast<const uchar4*>(done + t);
+  const float4 s = FIXED ? make_float4(dt_fixed, dt_fixed, dt_fixed, dt_fixed)
+                         : *reinterpret_cast<const float4*>(dt + t);
+  return make_float4(d->x ? 0.0f : s.x, d->y ? 0.0f : s.y, d->z ? 0.0f : s.z,
+                     d->w ? 0.0f : s.w);
+}
+
+// The apply prologue over variables, from the S ranks' partials of the
+// previous launches (red: the dv sums and the sat count; red2, adaptive: the
+// second pass's dv2), added in the butterfly's tree as they are read. S: 1,
+// 2, 4 at compile time, 0 at run time (red.s).
+template <int R, bool FIXED, int S>
 __global__ void __launch_bounds__(tile::kThreads)
-    chunk_apply_kernel(float* __restrict__ v, const float* __restrict__ red,
-                       const float* __restrict__ red2, const float* __restrict__ dt,
-                       const unsigned char* __restrict__ done, int* __restrict__ errbits,
-                       float dt_fixed, int Np) {
+    chunk_apply_kernel(float* __restrict__ v, const bfly::Parts red, const bfly::Parts red2,
+                       const float* __restrict__ dt, const unsigned char* __restrict__ done,
+                       int* __restrict__ errbits, float dt_fixed, int Np) {
   __shared__ int s_max[R];
-  const int g = blockIdx.x, r = tile::lane<R>(), t = g * R + r;
+  const int g = blockIdx.x;
+  const Quads<R> span(Np);
+  const int r0 = span.r0;
   if (!FIXED && threadIdx.x < R) s_max[threadIdx.x] = 0;
-  const bool d = done[t] != 0;
-  const float dtc = d ? 0.0f : (FIXED ? dt_fixed : dt[t]);
-  float* vt = v + at<R>(g, Np, 0, 0);
-  const float* a1 = red + at<R>(g, Np + 1, 0, 0);
+  uchar4 d;
+  const float4 dtc = lane_steps<R, FIXED>(done, dt, dt_fixed, g, r0, &d);
+  float* vt = v + at<R>(g, Np, 0, r0);
+  const size_t a1 = at<R>(g, Np + 1, 0, r0);
   if constexpr (FIXED) {
-    tile::for_items<R>(Np, [&](int i) {
-      const size_t k = static_cast<size_t>(i) * R + r;
-      vt[k] = clampf(vt[k] + dtc * a1[k], -1.0f, 1.0f);
-    });
+    for (int i = span.first(); i < span.hi; i += Quads<R>::kRows) {
+      const size_t k = static_cast<size_t>(i) * R;
+      const float4 x = *reinterpret_cast<const float4*>(vt + k);
+      const float4 dv = bfly::at4<S>(red, a1 + k);
+      *reinterpret_cast<float4*>(vt + k) =
+          clamp4(make_float4(x.x + dtc.x * dv.x, x.y + dtc.y * dv.y, x.z + dtc.z * dv.z,
+                             x.w + dtc.w * dv.w));
+    }
   } else {
-    const float* a2 = red2 + at<R>(g, Np + 1, 0, 0);
-    const bool adv = !d && a1[static_cast<size_t>(Np) * R + r] != 0.0f;  // !allsat
-    const float half = 0.5f * dtc;
-    float e = 0.0f;
+    const size_t flag = a1 + static_cast<size_t>(Np) * R;
+    bool adv[4];  // !done and !allsat
+    const unsigned char dd[4] = {d.x, d.y, d.z, d.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) adv[c] = !dd[c] && bfly::word(red, flag + c) != 0.0f;
+    const float dc[4] = {dtc.x, dtc.y, dtc.z, dtc.w};
+    float half[4], e[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) half[c] = 0.5f * dc[c];
     __syncthreads();  // s_max cleared
-    tile::for_items<R>(Np, [&](int i) {
-      const size_t k = static_cast<size_t>(i) * R + r;
-      const float v0 = vt[k];
-      const float fv = clampf(v0 + dtc * a1[k], -1.0f, 1.0f);
-      const float hv = clampf(v0 + half * a1[k], -1.0f, 1.0f);
-      const float tv = clampf(hv + half * a2[k], -1.0f, 1.0f);
-      e = fmaxf(e, fabsf(fv - tv));
-      if (adv) vt[k] = tv;
-    });
-    publish_max<R>(s_max, e, errbits + g * R);
+    for (int i = span.first(); i < span.hi; i += Quads<R>::kRows) {
+      const size_t k = static_cast<size_t>(i) * R;
+      float4 x4 = *reinterpret_cast<const float4*>(vt + k);
+      const float4 p4 = bfly::at4<S>(red, a1 + k), q4 = bfly::at4<S>(red2, a1 + k);
+      float x[4] = {x4.x, x4.y, x4.z, x4.w};
+      const float p[4] = {p4.x, p4.y, p4.z, p4.w}, q[4] = {q4.x, q4.y, q4.z, q4.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float fv = clampf(x[c] + dc[c] * p[c], -1.0f, 1.0f);
+        const float hv = clampf(x[c] + half[c] * p[c], -1.0f, 1.0f);
+        const float tv = clampf(hv + half[c] * q[c], -1.0f, 1.0f);
+        e[c] = fmaxf(e[c], fabsf(fv - tv));
+        if (adv[c]) x[c] = tv;
+      }
+      if (adv[0] || adv[1] || adv[2] || adv[3])
+        *reinterpret_cast<float4*>(vt + k) = make_float4(x[0], x[1], x[2], x[3]);
+    }
+    // the per-trajectory maxima meet in shared memory, then one global
+    // atomicMax a trajectory (non-negative floats order as their bits)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (e[c] != 0.0f) atomicMax(s_max + r0 + c, __float_as_int(e[c]));
+    __syncthreads();
+    if (threadIdx.x < R && s_max[threadIdx.x] != 0)
+      atomicMax(errbits + g * R + threadIdx.x, s_max[threadIdx.x]);
   }
 }
 
 // One thread a trajectory, after apply (`applied`: the done latch from the
-// reduced flag, row Np of `red`, and for the adaptive integrator the dt
-// control from the reduced error, row Np of `red2`) or alone; `clear_flag`
-// clears row Np of `acc` for the pass that follows. `red` may be `acc` (a
-// group of one: the partial is the sum); the word is read before it is
-// cleared.
+// summed sat flag, row Np of the red partials, and for the adaptive
+// integrator the dt control from the error, row Np of the red2 partials,
+// which combine by max) or alone; `clear_flag` clears row Np of `acc` for the pass
+// that follows. At S = 1 red's one partial may be `acc` (a group of one:
+// the partial is the sum); the word is read before it is cleared.
 template <bool FIXED>
-__global__ void chunk_head_kernel(const float* red, float* acc, float* __restrict__ dt,
-                                  unsigned char* __restrict__ done,
-                                  const float* __restrict__ red2, int* __restrict__ errbits,
-                                  float tol, int Np, int R, int n, int applied, int clear_flag) {
+__global__ void chunk_head_kernel(const bfly::Parts red, float* acc, float* __restrict__ dt,
+                                  unsigned char* __restrict__ done, const bfly::Parts red2,
+                                  int* __restrict__ errbits, float tol, int Np, int R, int n,
+                                  int applied, int clear_flag) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n) return;
   const size_t flag = (static_cast<size_t>(t / R) * (Np + 1) + Np) * R + t % R;
   if (applied) {
     const bool d = done[t] != 0;
-    const bool allsat = red[flag] == 0.0f;
+    const bool allsat = bfly::word(red, flag) == 0.0f;
     if (!FIXED) {
-      const float e = fmaxf(red2[flag], __int_as_float(errbits[t]));
+      const float e = fmaxf(bfly::word(red2, flag, true), __int_as_float(errbits[t]));
       errbits[t] = 0;
       const float ratio = tol / fmaxf(e, 1e-30f);
       if (!d && !allsat) dt[t] = clampf(dt[t] * sqrtf(ratio), kDtMin, kDtMax);
@@ -325,21 +404,32 @@ __global__ void chunk_head_kernel(const float* red, float* acc, float* __restric
   if (clear_flag) acc[flag] = 0.0f;
 }
 
-template <int R>
+// kHalf's half step hv = clamp(v + (dt_c/2) dv1) into a scratch tile, dv1
+// from the S partials of the first pass; clears the pass's error words.
+template <int R, int S>
 __global__ void __launch_bounds__(tile::kThreads)
-    chunk_hv_kernel(const float* __restrict__ v, const float* __restrict__ red,
+    chunk_hv_kernel(const float* __restrict__ v, const bfly::Parts red,
                     const float* __restrict__ dt, const unsigned char* __restrict__ done,
                     float* __restrict__ hv, float* __restrict__ err, size_t err_stride, int Np) {
-  const int g = blockIdx.x, r = tile::lane<R>(), t = g * R + r;
-  const float half = 0.5f * (done[t] ? 0.0f : dt[t]);
-  const float* vt = v + at<R>(g, Np, 0, 0);
-  const float* a1 = red + at<R>(g, Np + 1, 0, 0);
-  float* ht = hv + at<R>(g, Np, 0, 0);
-  tile::for_items<R>(Np, [&](int i) {
-    const size_t k = static_cast<size_t>(i) * R + r;
-    ht[k] = clampf(vt[k] + half * a1[k], -1.0f, 1.0f);
-  });
-  if (blockIdx.y == 0 && threadIdx.x < R) err[g * err_stride + r] = 0.0f;  // the pass's max: 0
+  const int g = blockIdx.x;
+  const Quads<R> span(Np);
+  const int r0 = span.r0;
+  uchar4 d;
+  const float4 dtc = lane_steps<R, false>(done, dt, 0.0f, g, r0, &d);
+  const float4 half = make_float4(0.5f * dtc.x, 0.5f * dtc.y, 0.5f * dtc.z, 0.5f * dtc.w);
+  const float* vt = v + at<R>(g, Np, 0, r0);
+  const size_t a1 = at<R>(g, Np + 1, 0, r0);
+  float* ht = hv + at<R>(g, Np, 0, r0);
+  for (int i = span.first(); i < span.hi; i += Quads<R>::kRows) {
+    const size_t k = static_cast<size_t>(i) * R;
+    const float4 x = *reinterpret_cast<const float4*>(vt + k);
+    const float4 dv = bfly::at4<S>(red, a1 + k);
+    *reinterpret_cast<float4*>(ht + k) =
+        clamp4(make_float4(x.x + half.x * dv.x, x.y + half.y * dv.y, x.z + half.z * dv.z,
+                           x.w + half.w * dv.w));
+  }
+  // the pass's error maxima start at 0
+  if (blockIdx.y == 0 && threadIdx.x < R) err[g * err_stride + threadIdx.x] = 0.0f;
 }
 
 // The clause side of a pass in MODE (ShardMode) for the clause word k of
@@ -385,11 +475,12 @@ __device__ __forceinline__ bool clause_side(bool real, float m1, float x0, float
 // The step trajectory t = g*R + r of a pass takes and, for kSecond, its
 // advance flag. B6 derives both: the step is 0 when done, else the fixed
 // step or dt; the flag is "not done and not all satisfied after the first
-// pass" (the reduced flag, row Np of `red`). B5 (GIVEN) is handed both: dt,
-// already 0 for a done row, and, in the `done` pointer, the advance flag.
+// pass" (the summed flag, row Np of the red partials). B5 (GIVEN) is
+// handed both: dt, already 0 for a done row, and, in the `done` pointer,
+// the advance flag.
 template <int R, int MODE, bool GIVEN>
 __device__ __forceinline__ float pass_dt(const unsigned char* done, const float* dt,
-                                         const float* red, const Scalars& s, int g, int r,
+                                         const bfly::Parts& red, const Scalars& s, int g, int r,
                                          int Np, bool* adv) {
   const int t = g * R + r;
   if constexpr (GIVEN) {
@@ -397,7 +488,7 @@ __device__ __forceinline__ float pass_dt(const unsigned char* done, const float*
     return MODE == kRhs ? 0.0f : dt[t];
   } else {
     const bool d = done[t] != 0;
-    *adv = MODE == kSecond && !d && red[at<R>(g, Np + 1, Np, r)] != 0.0f;
+    *adv = MODE == kSecond && !d && bfly::word(red, at<R>(g, Np + 1, Np, r)) != 0.0f;
     return d ? 0.0f : (MODE == kFixed ? s.dt_fixed : (MODE == kSecond ? dt[t] : 0.0f));
   }
 }
@@ -419,7 +510,7 @@ __device__ __forceinline__ void publish(int* s_red, int unsat, float e, float* a
 
 // A pass in MODE over the span's variables: dv of each variable over its
 // CSR list into `out` (rows: Np + 1 for acc and B6's acc2, Np for B5's
-// second-pass output; `red` holds the reduced flag kSecond reads; v is hv for
+// second-pass output; the red partials hold the sat flags kSecond reads; v is hv for
 // kSecond, whose clause memories are the half step's, recomputed per
 // occurrence from xs, dxs1, xl, dxl1). The clause side runs once for each
 // real clause, at the first occurrence in its slot-0 variable's list (the
@@ -432,7 +523,7 @@ __global__ void __launch_bounds__(tile::kThreads)
                       const float* __restrict__ xl, float* __restrict__ xs_out,
                       float* __restrict__ xl_out, float* dxs1, float* dxl1,
                       const float* __restrict__ dt, const unsigned char* __restrict__ done,
-                      float* out, int rows, const float* red, float* acc,
+                      float* out, int rows, const bfly::Parts red, float* acc,
                       float* __restrict__ err, size_t err_stride, Tables f, Scalars s) {
   using C = K_<float>;
   __shared__ int s_red[R];
@@ -487,7 +578,7 @@ __global__ void __launch_bounds__(tile::kThreads)
     chunk_pad_kernel(const float* __restrict__ xs, const float* __restrict__ xl,
                      float* __restrict__ xs_out, float* __restrict__ xl_out, float* dxs1,
                      float* dxl1, const float* __restrict__ dt,
-                     const unsigned char* __restrict__ done, const float* red, float* acc,
+                     const unsigned char* __restrict__ done, const bfly::Parts red, float* acc,
                      float* __restrict__ err, size_t err_stride, const int* __restrict__ pads,
                      int n, int Np, int Mp, Scalars s) {
   using C = K_<float>;
@@ -518,13 +609,14 @@ __global__ void __launch_bounds__(tile::kThreads)
 
 // The pointers and sizes of one B5 or B6 launch (null where a phase reads
 // none; B5 passes its advance flags as `done`, see pass_dt). `red`, `red2`:
-// the reduced sums B6 reads (they may be `acc`, `acc2`: a group of one);
-// `acc`, `acc2`: the partials a pass writes; the second pass's error words
-// of tile g at err + g * err_stride (B6: row Np of acc2; B5: a (G, R) array).
+// the S ranks' partials of the launches whose sums B6 reads (at S = 1 they
+// may be `acc`, `acc2` themselves: a group of one; none for B5); `acc`,
+// `acc2`: the partials a pass writes; the second pass's error words of tile
+// g at err + g * err_stride (B6: row Np of acc2; B5: a (G, R) array).
 struct ChunkArgs {
   float *v, *xs, *xl, *xs2, *xl2, *dt;
   unsigned char* done;
-  const float *red, *red2;
+  bfly::Parts red, red2;
   float *acc, *acc2, *err, *dxs1, *dxl1, *hv;
   size_t err_stride;
   int* errbits;
@@ -557,6 +649,26 @@ void launch_pass(const ChunkArgs& a, const float* v, float* out, int rows, cudaS
         a.err_stride, a.pads, a.n_pads, a.f.Np, a.f.Mp, a.s);
 }
 
+// The prologue kernels that read S partials in bulk, instantiated for S =
+// 1, 2 and 4 (S = 0 reads red.s at run time).
+template <int R, int S>
+void launch_prologue(int phase, bool applied, const ChunkArgs& a, cudaStream_t st) {
+  const int Np = a.f.Np;
+  const dim3 vgrid = tile::grid(a.G, R, Np);
+  const bool fixed = phase == kStep || phase == kApply;
+  if (applied) {
+    if (fixed)
+      chunk_apply_kernel<R, true, S><<<vgrid, tile::kThreads, 0, st>>>(
+          a.v, a.red, a.red2, nullptr, a.done, nullptr, a.s.dt_fixed, Np);
+    else
+      chunk_apply_kernel<R, false, S><<<vgrid, tile::kThreads, 0, st>>>(
+          a.v, a.red, a.red2, a.dt, a.done, a.errbits, 0.0f, Np);
+  }
+  if (phase == kHalf)
+    chunk_hv_kernel<R, S><<<vgrid, tile::kThreads, 0, st>>>(a.v, a.red, a.dt, a.done, a.hv,
+                                                            a.err, a.err_stride, Np);
+}
+
 // One B6 launch in `phase`: the kernel sequence above on stream `st`.
 template <int R>
 int shard_chunk_phase(int phase, bool apply, const ChunkArgs& a, cudaStream_t st) {
@@ -564,29 +676,23 @@ int shard_chunk_phase(int phase, bool apply, const ChunkArgs& a, cudaStream_t st
   const bool fixed = phase == kStep || phase == kApply;
   const bool tail = phase == kApply || phase == kCommit;
   const bool applied = tail || ((phase == kStep || phase == kFirst) && apply);
-  const dim3 vgrid = tile::grid(a.G, R, Np);
-  if (applied) {
-    if (fixed)
-      chunk_apply_kernel<R, true><<<vgrid, tile::kThreads, 0, st>>>(
-          a.v, a.red, nullptr, nullptr, a.done, nullptr, a.s.dt_fixed, Np);
-    else
-      chunk_apply_kernel<R, false><<<vgrid, tile::kThreads, 0, st>>>(
-          a.v, a.red, a.red2, a.dt, a.done, a.errbits, 0.0f, Np);
-  }
+  const bool bulk = applied || phase == kHalf;
+  if (bulk && a.red.s == 1) launch_prologue<R, 1>(phase, applied, a, st);
+  else if (bulk && a.red.s == 2) launch_prologue<R, 2>(phase, applied, a, st);
+  else if (bulk && a.red.s == 4) launch_prologue<R, 4>(phase, applied, a, st);
+  else if (bulk) launch_prologue<R, 0>(phase, applied, a, st);
   if (phase != kHalf) {
     const int n = a.G * R;
     const int blocks = (n + tile::kThreads - 1) / tile::kThreads;
     if (fixed)
       chunk_head_kernel<true><<<blocks, tile::kThreads, 0, st>>>(
-          a.red, a.acc, nullptr, a.done, nullptr, nullptr, 0.0f, Np, R, n, applied, !tail);
+          a.red, a.acc, nullptr, a.done, a.red2, nullptr, 0.0f, Np, R, n, applied, !tail);
     else
       chunk_head_kernel<false><<<blocks, tile::kThreads, 0, st>>>(
           a.red, a.acc, a.dt, a.done, a.red2, a.errbits, a.s.tol, Np, R, n, applied, !tail);
   }
   if (tail) return static_cast<int>(cudaGetLastError());
   if (phase == kHalf) {
-    chunk_hv_kernel<R><<<vgrid, tile::kThreads, 0, st>>>(a.v, a.red, a.dt, a.done, a.hv, a.err,
-                                                         a.err_stride, Np);
     launch_pass<R, kSecond, false>(a, a.hv, a.acc2, Np + 1, st);
   } else if (phase == kStep) {
     launch_pass<R, kFixed, false>(a, a.v, a.acc, Np + 1, st);
@@ -607,17 +713,22 @@ int shard_stream_pass(int mode, const ChunkArgs& a, float* out, cudaStream_t st)
   const int blocks = (n + tile::kThreads - 1) / tile::kThreads;
   if (mode == kSecond) {
     chunk_head_kernel<true><<<blocks, tile::kThreads, 0, st>>>(
-        nullptr, a.err, nullptr, nullptr, nullptr, nullptr, 0.0f, 0, R, n, 0, 1);
+        a.red, a.err, nullptr, nullptr, a.red2, nullptr, 0.0f, 0, R, n, 0, 1);
     launch_pass<R, kSecond, true>(a, a.v, out, Np, st);
   } else {
     chunk_head_kernel<true><<<blocks, tile::kThreads, 0, st>>>(
-        nullptr, out, nullptr, nullptr, nullptr, nullptr, 0.0f, Np, R, n, 0, 1);
+        a.red, out, nullptr, nullptr, a.red2, nullptr, 0.0f, Np, R, n, 0, 1);
     if (mode == kFixed)
       launch_pass<R, kFixed, true>(a, a.v, out, Np + 1, st);
     else
       launch_pass<R, kRhs, true>(a, a.v, out, Np + 1, st);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Whether `p` (null counts as aligned) is a multiple of `bytes`.
+bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<size_t>(p) % bytes == 0;
 }
 
 int smem_optin() {
@@ -1247,7 +1358,7 @@ int shard_stream_launch(int mode, float* v, float* dt, unsigned char* adv, float
   const bool second = mode == kSecond;
   const ChunkArgs a{v,       xs,      xl,
                     xs2,     xl2,     dt,
-                    adv,     nullptr, nullptr,
+                    adv,     bfly::Parts{}, bfly::Parts{},
                     second ? nullptr : out, nullptr,
                     err,     dxs1,    dxl1,
                     nullptr, static_cast<size_t>(R), nullptr,
@@ -1260,30 +1371,43 @@ int shard_stream_launch(int mode, float* v, float* dt, unsigned char* adv, float
 // B6 in phase 0 (step), 1 (apply), 2 (first), 3 (half) or 4 (commit); see
 // ChunkPhase. The buffers are in the tile layout of tile.cuh with R =
 // tile::kR trajectories a tile: v, hv (G, Np, R); xs, xl, xs2, xl2, dxs1,
-// dxl1 (G, Mp, R); red, acc, red2, acc2 (G, Np+1, R); dt, done, errbits
-// (G, R). acc = (dv | 1 - sat) and acc2 = (dv2 | the step-doubling error)
-// are the partials the passes write (B7's slots on a clause mesh); red and
-// red2 the reduced sums B7 wrote, which apply, head, hv and the second pass
-// read (they are acc and acc2 in a group of one). `apply` (phases 0 and 2)
-// applies the previous launch's reduced result first. step and half write
-// the new clause memories to xs2, xl2 (the caller swaps the two copies);
-// `pads` lists the shard's n_pads padded clauses. `hv` and `errbits` are
-// the adaptive chunk's scratch (errbits zero between launches). Pointers a
-// phase does not use may be null. Returns a cudaError_t code (0 = launched).
+// dxl1 (G, Mp, R); acc, acc2 and every partial of red and red2 (G, Np+1,
+// R); dt, done, errbits (G, R). acc = (dv | 1 - sat) and acc2 = (dv2 | the
+// step-doubling error) are the partials the passes write (this rank's slots
+// on a clause mesh). red[0..s) and red2[0..s) are the S ranks' partials
+// (rank order) of the launches whose sums this one reads: apply, head, hv
+// and the second pass add them in the butterfly's tree as they read them,
+// and red2's row Np combines by max (at S = 1, acc and acc2 themselves).
+// `apply` (phases 0 and 2) applies the previous launch's result first.
+// step and half write the new clause memories to xs2, xl2 (the caller swaps
+// the two copies); `pads` lists the shard's n_pads padded clauses. `hv`
+// and `errbits` are the adaptive chunk's scratch (errbits zero between
+// launches). Pointers a phase does not use may be null (red2 for the fixed
+// integrator). Every buffer is 16-byte aligned (done and errbits 4-byte).
+// Returns a cudaError_t code (0 = launched).
 int shard_chunk_launch(int phase, int apply, float* v, float* xs, float* xl, float* dt,
-                       unsigned char* done, const float* red, float* acc, const float* red2,
-                       float* acc2, float* dxs1, float* dxl1, float* xs2, float* xl2, float* hv,
-                       int* errbits,
-                       const int* pads, int n_pads, const int* lit_code, const int* occ_ptr,
-                       const int* occ_code, int G, int R, int Np, int Mp, int K, int paper,
-                       int bf16, float zeta, float dt_fixed, float tol, float xl_cap,
-                       void* stream) {
-  if (phase < kStep || phase > kCommit || G < 1 || R != tile::kR || n_pads < 0)
+                       unsigned char* done, const float* const* red, const float* const* red2,
+                       int s, float* acc, float* acc2, float* dxs1, float* dxl1, float* xs2,
+                       float* xl2, float* hv, int* errbits, const int* pads, int n_pads,
+                       const int* lit_code, const int* occ_ptr, const int* occ_code, int G, int R,
+                       int Np, int Mp, int K, int paper, int bf16, float zeta, float dt_fixed,
+                       float tol, float xl_cap, void* stream) {
+  if (phase < kStep || phase > kCommit || G < 1 || R != tile::kR || n_pads < 0 || s < 1 ||
+      s > bfly::kMaxRanks || red == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  bfly::Parts p1{}, p2{};
+  p1.s = p2.s = s;
+  bool ok = aligned(v, 16) && aligned(dt, 16) && aligned(hv, 16) && aligned(done, 4);
+  for (int k = 0; k < s; ++k) {
+    p1.p[k] = red[k];
+    p2.p[k] = red2 != nullptr ? red2[k] : nullptr;
+    ok = ok && aligned(p1.p[k], 16) && aligned(p2.p[k], 16);
+  }
+  if (!ok) return static_cast<int>(cudaErrorMisalignedAddress);
   float* err = acc2 != nullptr ? acc2 + static_cast<size_t>(Np) * R : nullptr;
   const ChunkArgs a{v,       xs,     xl,
                     xs2,     xl2,    dt,
-                    done,    red,    red2,
+                    done,    p1,     p2,
                     acc,     acc2,
                     err,     dxs1,   dxl1,
                     hv,      static_cast<size_t>(Np + 1) * R, errbits,

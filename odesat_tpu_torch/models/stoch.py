@@ -174,15 +174,17 @@ def make_stoch_clause_step(ev, clause_group=None):
     xl, done) -> (xl_new, acc)`` evaluates this rank's clause segment in
     that layout (B8's ``make_stoch_shard_eval(...).tiled`` or the twin's
     :func:`make_stoch_clause_eval` ``.packed``), acc = (total | unsat | 1 -
-    sat); acc is all-reduced over ``clause_group`` as it is, then every rank
-    of the group draws the same flips from the same uniforms. The sums are
-    integers in f32, so the partition cannot change a flip below 2**24."""
-    from odesat_tpu_torch.parallel.dist import all_reduce
+    sat); acc is summed over ``clause_group`` as it is, in place, by B7's
+    standalone call (``ops/butterfly.py``: its kernel for CUDA tensors, its
+    plain version for CPU tensors), then every rank of the group draws the
+    same flips from the same uniforms. The sums are integers in f32, so the
+    partition cannot change a flip below 2**24."""
+    from odesat_tpu_torch.ops import butterfly as bf
 
     def step(state: StochState, u: torch.Tensor) -> StochState:
         xl, acc = ev(state.v, state.xl, state.done)
         if clause_group is not None:
-            all_reduce(acc, clause_group)
+            bf.butterfly(acc, clause_group, None, acc)
         Np = u.shape[1]
         # total == 0 for a variable in no clause: 0 < 0 never flips
         flip = u * acc[:, :Np] < acc[:, Np:2 * Np]

@@ -7,22 +7,29 @@ and done resident in VMEM and did the clause-axis all-reduce of dv *inside*
 the kernel, as a butterfly over ICI remote DMA (B7,
 ``odesat_tpu/ops/butterfly.py``). On Hopper the ranks of a clause group are
 processes, and the chunk becomes a sequence of launches of
-``shard_chunk_launch`` (``csrc/stream_chunk.cu``) with one call of B7
-(``ops/butterfly.py``: a CUDA kernel over IPC buffers, with the waits in the
-stream) after each pass. Everything else the TPU kernel did runs in those
-launches: each one first applies the previous launch's reduced result to
-the trajectory (the v update and done latch; for the adaptive integrator
-the commit, the step-doubling error and the dt control), then runs the
-shard's next pass with B5's arithmetic. A fixed step is one launch and one
-B7 call with no torch operation between them; an adaptive step two
-launches and two B7 calls, one for each invocation of the JAX butterfly
-(dv1 with the sat count; dv2 with the error in a max zone); a chunk ends
-with one apply-only launch.
+``shard_chunk_launch`` (``csrc/stream_chunk.cu``), with the all-reduce
+fused into the launches that consume it, as the TPU kernel combined its
+partner's payload straight into its accumulator: every kernel of a launch
+that reads a sum (the apply prologue, the head, the half step, the second
+pass's advance flag) reads the S ranks' partials of the launch it consumes,
+its own slot and the peers' IPC-mapped slots (``ops/butterfly.py``, after a
+stream wait on their flags), and adds them in the butterfly's tree as it
+reads them (``csrc/bfly_tree.cuh``). Everything else the TPU kernel did
+runs in those launches too: each one first applies the previous launch's
+result to the trajectory (the v update and done latch; for the adaptive
+integrator the commit, the step-doubling error and the dt control), then
+runs the shard's next pass with B5's arithmetic. A fixed step is one
+launch, with no torch operation and no other launch beside it; an
+adaptive step two, one for each invocation of the JAX butterfly (dv1 with
+the sat count; dv2 with the error in a max zone); a chunk ends with one
+apply-only launch.
 
-A launch reads the reduced sums ``red``/``red2`` (private to the rank) and
-writes the pass's partials ``acc``/``acc2`` (B7's shared slots on a card),
-so no rank writes a buffer a peer may still read; in a group of one there
-is no B7 call and the partials are the sums (``red``/``red2`` None).
+A launch writes its partials ``acc``/``acc2`` into this launch's slot and
+reads earlier launches' slots (the schedule of ``ops/butterfly.py``: a
+fixed step needs K = 2 slots, an adaptive one 3, and every launch takes
+its place on a ring of 3), so no rank writes a slot that a peer may still
+read, and no reduced buffer exists; in a group of one a launch
+reads its own partials, which are the sums.
 
 Phases (:data:`PHASES`; buffers of :class:`ChunkBuffers`):
 
@@ -31,21 +38,23 @@ Phases (:data:`PHASES`; buffers of :class:`ChunkBuffers`):
 * ``apply``: fixed; apply only (the chunk's last launch);
 * ``first``: adaptive; [commit] then pass 1: ``acc`` = (dv1 partial | 1 -
   sat), ``dxs1``/``dxl1`` staged;
-* ``half``: adaptive; the half step ``hv`` from the reduced ``red``, pass 2
-  there: ``acc2`` = (dv2 partial | the shard's error), xs and xl committed
+* ``half``: adaptive; the half step ``hv`` from the first pass's summed
+  dv1, pass 2 there: ``acc2`` = (dv2 partial | the shard's error), xs and xl committed
   under the advance flag;
 * ``commit``: adaptive; commit only (the chunk's last launch).
 
 ``done`` between launches is the done the last pass ran with: the next
 launch latches the reduced sat count. The arithmetic is the per-step path's
 (``ops/shard_stream.make_fused_clause_step``, B5), so B6 and B5 give the
-same state bit for bit; B7 returns the same bits to every rank, so ``v``
-stays replicated (``parallel/sharded.check_replicated`` checks it).
+same state bit for bit; every rank adds the same partials in the same tree,
+so ``v`` stays replicated (``parallel/sharded.check_replicated`` checks it).
 
 Design for the card: the runner interleaves the chunk's buffers by tiles
 of ``TILE`` = 32 trajectories (``ops/tiles.py``) once at entry and once
-at exit, and every launch and all-reduce in between works on the tiled
-buffers (B7 is elementwise). A launch is a short sequence of
+at exit, and every launch in between works on the tiled buffers (the sum
+is elementwise). The kernels that read S partials in bulk take four
+trajectories a thread, 16 bytes of each partial, so a warp reads whole
+128-byte rows of each slot. A launch is a short sequence of
 kernels over (tile, span of clauses or variables), with a tile's
 trajectories on the lanes of a group: each table word is read once for 32
 trajectories and each gather moves a whole 128-byte line; the clause words
@@ -59,7 +68,7 @@ the old ones, and for the adaptive integrator the half step ``hv`` and an
 error word a trajectory.
 
 What bounds it: device-memory bytes, as for B5 (v, xs and xl cross device
-memory every step), plus the reduced (B, Np+1) buffer read back.
+memory every step), plus the S partials of (B, Np+1) read by the prologue.
 
 The plain version (:func:`shard_chunk_plain`) is the same phases in torch
 ops over B5's plain versions, in the ``(B, X)`` layout;
@@ -75,6 +84,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from odesat_tpu_torch.constants import DT_MAX, DT_MIN
+from odesat_tpu_torch.ops import butterfly as bf
 from odesat_tpu_torch.ops.fused_chunk import _clamp, check_chunk_config
 from odesat_tpu_torch.ops.shard_stream import (
     ShardSpec,
@@ -122,11 +132,16 @@ class ChunkBuffers(NamedTuple):
     """One rank's state and the chunk's staging: v (B, Np), xs, xl (B, Mp)
     f32; dt (B,) f32; done (B,) bool; acc (B, Np+1) the pass's partial (dv
     | 1 - sat); adaptive only: acc2 (B, Np+1) the second pass's (dv2 | the
-    shard's step-doubling error), dxs1, dxl1 (B, Mp); red, red2 (B, Np+1)
-    the reduced sums of acc and acc2 that a launch reads (None: acc and acc2
-    hold them, a group of one). The fixed integrator reads no dt. The plain
-    version takes them in this layout, the kernel tiled (``ops/tiles.py``:
-    (G, X, R) for (B, X), (G, R) for (B,))."""
+    shard's step-doubling error), dxs1, dxl1 (B, Mp). The fixed integrator
+    reads no dt. The plain version takes them in this layout, the kernel
+    tiled (``ops/tiles.py``: (G, X, R) for (B, X), (G, R) for (B,)).
+
+    A launch that consumes sums reads them from ``parts``, a pair ``(p1,
+    p2)``: p1 the S ranks' partials (rank order) of the launch whose acc it
+    consumes, p2 of the launch whose acc2 it consumes, each a list of
+    tensors shaped as acc, combined in the butterfly's tree as they are read
+    (p2's row Np by max); ``parts`` None, or either list None, reads the
+    buffers' own acc, acc2 (a group of one: the partial is the sum)."""
 
     v: torch.Tensor
     xs: torch.Tensor
@@ -137,13 +152,6 @@ class ChunkBuffers(NamedTuple):
     acc2: Optional[torch.Tensor] = None
     dxs1: Optional[torch.Tensor] = None
     dxl1: Optional[torch.Tensor] = None
-    red: Optional[torch.Tensor] = None
-    red2: Optional[torch.Tensor] = None
-
-    def sums(self) -> tuple:
-        """``(red, red2)``: the reduced sums a launch reads."""
-        return (self.acc if self.red is None else self.red,
-                self.acc2 if self.red2 is None else self.red2)
 
 
 # ---------------------------------------------------------------- plain
@@ -159,10 +167,20 @@ def _dt_c(b: ChunkBuffers, spec: ShardSpec):
     return torch.where(b.done, 0.0, b.v.new_tensor(spec.dt_fixed) if spec.fixed else b.dt)
 
 
-def _apply_plain(b: ChunkBuffers, spec: ShardSpec) -> ChunkBuffers:
-    """The reduced result of the previous launch applied to v, dt, done."""
+def _sums(b: ChunkBuffers, spec: ShardSpec, parts) -> tuple:
+    """``(red, red2)``: the sums a launch reads, the partials of ``parts``
+    combined in the butterfly's tree (red2's row Np by max), or the
+    buffers' own acc, acc2 (see :class:`ChunkBuffers`)."""
+    p1, p2 = (None, None) if parts is None else parts
+    red = b.acc if p1 is None else bf.combine_parts(p1)
+    red2 = b.acc2 if p2 is None else bf.combine_parts(p2, (spec.Np + 1, 1))
+    return red, red2
+
+
+def _apply_plain(b: ChunkBuffers, spec: ShardSpec, parts) -> ChunkBuffers:
+    """The reduced result of the previous launches applied to v, dt, done."""
     Np = spec.Np
-    red, red2 = b.sums()
+    red, red2 = _sums(b, spec, parts)
     dtc = _dt_c(b, spec).unsqueeze(1)
     dv1, allsat = red[:, :Np], red[:, Np] == 0
     if spec.fixed:
@@ -179,12 +197,13 @@ def _apply_plain(b: ChunkBuffers, spec: ShardSpec) -> ChunkBuffers:
                       done=b.done | allsat)
 
 
-def shard_chunk_plain(phase: str, b: ChunkBuffers, spec: ShardSpec,
-                      apply: bool = False) -> ChunkBuffers:
-    """One launch of B6 in ``phase`` in torch ops; returns the buffers as
-    the kernel leaves them."""
+def shard_chunk_plain(phase: str, b: ChunkBuffers, spec: ShardSpec, apply: bool = False,
+                      parts=None) -> ChunkBuffers:
+    """One launch of B6 in ``phase`` in torch ops, reading the sums of
+    ``parts`` (:class:`ChunkBuffers`); returns the buffers as the kernel
+    leaves them."""
     if phase in ("apply", "commit") or (apply and phase in ("step", "first")):
-        b = _apply_plain(b, spec)
+        b = _apply_plain(b, spec, parts)
         if phase in ("apply", "commit"):
             return b
     dtc = _dt_c(b, spec)
@@ -197,20 +216,25 @@ def shard_chunk_plain(phase: str, b: ChunkBuffers, spec: ShardSpec,
     if phase != "half":
         raise ValueError(f"unknown phase {phase!r}")
     Np = spec.Np
-    red = b.sums()[0]
+    red = _sums(b, spec, parts)[0]
     adv = ~b.done & (red[:, Np] != 0)
     hv = _clamp_v(b.v + (0.5 * dtc).unsqueeze(1) * red[:, :Np])
     dv2, xs, xl, err = shard_second_plain(hv, dtc, adv, b.xs, b.xl, b.dxs1, b.dxl1, spec)
     return b._replace(xs=xs, xl=xl, acc2=torch.cat([dv2, err.unsqueeze(1)], dim=1))
 
 
-def shard_chunk_plain_tiled(phase: str, b: ChunkBuffers, spec: ShardSpec,
-                            apply: bool = False) -> ChunkBuffers:
-    """:func:`shard_chunk_plain` on tiled buffers: untiled (padding rows
-    kept), run, tiled again."""
+def shard_chunk_plain_tiled(phase: str, b: ChunkBuffers, spec: ShardSpec, apply: bool = False,
+                            parts=None) -> ChunkBuffers:
+    """:func:`shard_chunk_plain` on tiled buffers and tiled partials:
+    untiled (padding rows kept), run, tiled again."""
     R, rows = b.v.shape[-1], rows_of(b.v)
+
+    def rowwise(ts):
+        return None if ts is None else [untile(t, rows) for t in ts]
+
     out = shard_chunk_plain(phase, ChunkBuffers(*(None if t is None else untile(t, rows)
-                                                  for t in b)), spec, apply)
+                                                  for t in b)), spec, apply,
+                            None if parts is None else tuple(rowwise(p) for p in parts))
     return ChunkBuffers(*(None if t is None else tile(t, R) for t in out))
 
 
@@ -240,14 +264,17 @@ def chunk_scratch(b: ChunkBuffers, spec: ShardSpec) -> ChunkScratch:
 
 
 def shard_chunk_cuda(phase: str, b: ChunkBuffers, spec: ShardSpec, apply: bool = False,
-                     scratch: Optional[ChunkScratch] = None) -> ChunkBuffers:
+                     scratch: Optional[ChunkScratch] = None, parts=None) -> ChunkBuffers:
     """Launch B6 once in ``phase`` on the current stream, on tiled buffers
-    (``TILE`` trajectories a tile); returns the buffers as the launch
-    leaves them: updated in place, except that ``step`` and ``half``
-    return the new clause memories in the scratch's second copy and take
-    the old ones into the scratch. ``scratch`` comes from
-    :func:`chunk_scratch` (allocated here when None). Raises if a buffer is
-    not what the kernel takes or the launch is refused; never falls back."""
+    (``TILE`` trajectories a tile), reading the sums of ``parts``
+    (:class:`ChunkBuffers`: S tiled partials a list, the peers' slots on a
+    clause mesh, which the launch's kernels add in the butterfly's tree as
+    they read them); returns the buffers as the launch leaves them: updated
+    in place, except that ``step`` and ``half`` return the new clause
+    memories in the scratch's second copy and take the old ones into the
+    scratch. ``scratch`` comes from :func:`chunk_scratch` (allocated here
+    when None). Raises if a buffer is not what the kernel takes or the
+    launch is refused; never falls back."""
     global launches
     if spec.device.type != "cuda":
         raise ValueError(f"the shard chunk kernel runs on CUDA tensors, not {spec.device}")
@@ -260,14 +287,13 @@ def shard_chunk_cuda(phase: str, b: ChunkBuffers, spec: ShardSpec, apply: bool =
         scratch = chunk_scratch(b, spec)
     clause, sums = (G, spec.Mp, R), (G, spec.Np + 1, R)
     shapes = dict(v=(G, spec.Np, R), xs=clause, xl=clause, dt=(G, R), done=(G, R), acc=sums,
-                  acc2=sums, red=sums, red2=sums, dxs1=clause, dxl1=clause, xs2=clause,
-                  xl2=clause, pads=tuple(scratch.pads.shape), hv=(G, spec.Np, R),
-                  errbits=(G, R))
+                  acc2=sums, dxs1=clause, dxl1=clause, xs2=clause, xl2=clause,
+                  pads=tuple(scratch.pads.shape), hv=(G, spec.Np, R), errbits=(G, R))
     tensors = dict(b._asdict(), xs2=scratch.xs2, xl2=scratch.xl2, pads=scratch.pads,
                    hv=scratch.hv, errbits=scratch.errbits)
     for name, t in tensors.items():
         if t is None:
-            if not spec.fixed and name not in ("red", "red2"):
+            if not spec.fixed:
                 raise ValueError(f"the adaptive chunk needs the {name} buffer")
             continue
         dtype = {"done": torch.bool, "errbits": torch.int32, "pads": torch.int32}.get(
@@ -280,6 +306,13 @@ def shard_chunk_cuda(phase: str, b: ChunkBuffers, spec: ShardSpec, apply: bool =
                                                                   b.xl.data_ptr()}:
         raise ValueError("the scratch's clause memories are the buffers' own: pass the "
                          "buffers a launch returned")
+    p1, p2 = (None, None) if parts is None else parts
+    p1 = [b.acc] if p1 is None else list(p1)
+    p2 = None if spec.fixed else [b.acc2] * len(p1) if p2 is None else list(p2)
+    if p2 is not None and len(p2) != len(p1):
+        raise ValueError(f"{len(p1)} and {len(p2)} partials: the two sums come from one group")
+    red = bf.pointers(p1, sums, spec.device)
+    red2 = None if p2 is None else bf.pointers(p2, sums, spec.device)
     if G == 0:
         return b
     lib, _ = load_library()
@@ -287,12 +320,11 @@ def shard_chunk_cuda(phase: str, b: ChunkBuffers, spec: ShardSpec, apply: bool =
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
-    red, red2 = b.sums()
     with torch.cuda.device(spec.device):
         stream = torch.cuda.current_stream(spec.device).cuda_stream
         rc = lib.shard_chunk_launch(
-            PHASES[phase], int(apply), *(ptr(t) for t in b[:5]), ptr(red), ptr(b.acc),
-            ptr(red2), ptr(b.acc2), ptr(b.dxs1), ptr(b.dxl1), scratch.xs2.data_ptr(),
+            PHASES[phase], int(apply), *(ptr(t) for t in b[:5]), red, red2, len(p1),
+            ptr(b.acc), ptr(b.acc2), ptr(b.dxs1), ptr(b.dxl1), scratch.xs2.data_ptr(),
             scratch.xl2.data_ptr(), ptr(scratch.hv), ptr(scratch.errbits),
             scratch.pads.data_ptr(), scratch.pads.numel(), spec.lit_code.data_ptr(),
             spec.occ_ptr.data_ptr(), spec.occ_code.data_ptr(), G, R, spec.Np, spec.Mp, spec.K,
@@ -301,6 +333,8 @@ def shard_chunk_cuda(phase: str, b: ChunkBuffers, spec: ShardSpec, apply: bool =
         )
     raise_for(lib, rc, f"shard chunk kernel ({phase})")
     launches += 1
+    if len(p1) > 1:
+        bf.fused_launches += 1
     if phase in ("step", "half"):
         old = b.xs, b.xl
         b = b._replace(xs=scratch.xs2, xl=scratch.xl2)
@@ -309,14 +343,14 @@ def shard_chunk_cuda(phase: str, b: ChunkBuffers, spec: ShardSpec, apply: bool =
 
 
 def shard_chunk_phase(phase: str, b: ChunkBuffers, spec: ShardSpec, apply: bool = False,
-                      scratch: Optional[ChunkScratch] = None) -> ChunkBuffers:
-    """One launch in ``phase`` on tiled buffers: B6 for CUDA buffers, its
-    plain version for CPU buffers."""
+                      scratch: Optional[ChunkScratch] = None, parts=None) -> ChunkBuffers:
+    """One launch in ``phase`` on tiled buffers, reading the sums of
+    ``parts``: B6 for CUDA buffers, its plain version for CPU buffers."""
     kind = b.v.device.type
     if kind == "cuda":
-        return shard_chunk_cuda(phase, b, spec, apply, scratch)
+        return shard_chunk_cuda(phase, b, spec, apply, scratch, parts)
     if kind == "cpu":
-        return shard_chunk_plain_tiled(phase, b, spec, apply)
+        return shard_chunk_plain_tiled(phase, b, spec, apply, parts)
     raise ValueError(f"no shard chunk path for tensors on {b.v.device}")
 
 
@@ -338,19 +372,21 @@ def tile_state(state, spec: ShardSpec) -> ChunkBuffers:
 
 
 def make_shard_chunk(fa, zeta: float, ode, chunk_steps: int, clause_group=None,
-                     device="cuda"):
+                     device="cuda", plain: bool = False):
     """``run(state, dev=None) -> state`` advancing this rank's trajectory
     rows ``chunk_steps`` steps over its clause segment (the JAX module's
-    ``make_shard_chunk_call``, :158): B6's launches with B7 over
-    ``clause_group`` between them (``ops/butterfly.py``: its kernel on a
-    card, its plain version on the CPU; none in a group of one), on the rows
-    tiled once at entry and untiled once at exit, with the scratch allocated
-    once. The shard is the rank's index in the group. The caller's state is
-    never written."""
+    ``make_shard_chunk_call``, :158): B6's launches, each reading the S
+    ranks' partials of the launches before it over ``clause_group``
+    (``ops/butterfly.py``: on a card the peers' slots, after a stream wait on
+    their flags; on the CPU the partials gathered over the group; in a group
+    of one its own), on the rows tiled once at entry and untiled once at
+    exit, with the scratch allocated once. ``plain``: the plain version on
+    any device, the partials gathered over the group (what the card's runs
+    are held against). The shard is the rank's index in the group. The
+    caller's state is never written."""
     import torch.distributed as dist
 
     from odesat_tpu_torch.models.ode import ODEState
-    from odesat_tpu_torch.ops import butterfly as bf
 
     plan = fa.shard_plan
     if plan is None:
@@ -370,34 +406,43 @@ def make_shard_chunk(fa, zeta: float, ode, chunk_steps: int, clause_group=None,
     def run(state, dev=None):
         B = state.v.shape[0]
         b = tile_state(state, spec)
-        on_card = b.v.device.type == "cuda"
+        on_card = b.v.device.type == "cuda" and not plain
         scratch = chunk_scratch(b, spec) if on_card else None
-        comm = bf.communicator(clause_group, b.v.device) if on_card and S > 1 else None
-        if S > 1:  # the reduced sums, private to the rank
-            b = b._replace(red=torch.zeros_like(b.acc),
-                           red2=None if spec.fixed else torch.zeros_like(b.acc2))
         shape = tuple(b.acc.shape)
-        zones2 = (shape[1] * shape[2], shape[2])  # each tile's error row takes the max
+        comm = None
+        if on_card and S > 1:
+            comm = bf.communicator(clause_group, b.v.device)
+            comm.begin(shape)
 
-        def launch(b, phase, apply, part):
-            if comm is not None:  # the pass writes its partial into B7's slot
-                b = b._replace(**{part: comm.slot(shape)})
-            return shard_chunk_phase(phase, b, spec, apply, scratch)
+        def launch(b, phase, apply, parts, write=None):
+            """One launch reading ``parts``; returns the buffers and the S
+            partials (rank order) of the buffer ``write`` it wrote."""
+            if comm is not None:
+                comm.wait()  # the peers' earlier launches are done
+                if write:  # the pass writes its partial into this launch's slot
+                    b = b._replace(**{write: comm.slot(shape)})
+            if on_card:
+                b = shard_chunk_cuda(phase, b, spec, apply, scratch, parts)
+            else:
+                b = shard_chunk_plain_tiled(phase, b, spec, apply, parts)
+            mine = None
+            if comm is not None:
+                mine = comm.parts(shape) if write else None
+                comm.signal()
+            elif write and S > 1:
+                mine = [p.reshape(shape).to(b.v.device)
+                        for p in bf.gather_plain(getattr(b, write), clause_group)]
+            return b, mine
 
-        def reduce(b, part, into, zones=None):
-            if S == 1:
-                return b
-            return b._replace(**{into: bf.butterfly(getattr(b, part), clause_group, zones,
-                                                    getattr(b, into))})
-
+        p1 = p2 = None  # the partials of the last first (or step) and half launches
         for t in range(chunk_steps):
             if spec.fixed:
-                b = reduce(launch(b, "step", t > 0, "acc"), "acc", "red")
+                b, p1 = launch(b, "step", t > 0, (p1, None), "acc")
             else:
-                b = reduce(launch(b, "first", t > 0, "acc"), "acc", "red")
-                b = reduce(launch(b, "half", False, "acc2"), "acc2", "red2", zones2)
+                b, p1 = launch(b, "first", t > 0, (p1, p2), "acc")
+                b, p2 = launch(b, "half", False, (p1, None), "acc2")
         if chunk_steps:
-            b = shard_chunk_phase("apply" if spec.fixed else "commit", b, spec, False, scratch)
+            b, _ = launch(b, "apply" if spec.fixed else "commit", False, (p1, p2))
         return ODEState(*(untile(t, B) for t in b[:5]))
 
     run.spec = spec

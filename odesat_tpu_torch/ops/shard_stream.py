@@ -561,11 +561,15 @@ def make_fused_clause_step(fa: FormulaArrays, zeta: float, ode, clause_group=Non
                            device="cuda"):
     """``step(state, dev=None) -> state`` for this rank's trajectory rows and
     clause segment (JAX :744-854): B5 evaluates the segment, the partial dv
-    with the negated sat flag beside it is all-reduced over
-    ``clause_group`` (SUM), and the v update, dt control and done latch run
-    in torch. The adaptive error is all-reduced with MAX. Fixed mode is one
-    launch a step, adaptive two with the all-reduce between them. The shard
-    is the rank's index in ``clause_group`` (0 without a group).
+    with the negated sat flag beside it is summed over ``clause_group`` by
+    B7's standalone call (``ops/butterfly.py``: its kernel for CUDA tensors,
+    its plain version, a gloo gather and the host tree, for CPU tensors), and
+    the v update, dt control and done latch run in torch. The adaptive
+    error is combined by the same call with the whole buffer a max zone.
+    Fixed mode is one launch a step, adaptive two with the sum between them.
+    The sums are B7's tree, so this path and B6's agree bit for bit at any
+    S. The shard is the rank's index in ``clause_group`` (0 without a
+    group).
 
     The work runs on tiled state: ``step.tiled(ts, scratch=None) -> ts``
     advances a state of tiled tensors (:func:`tile_state`) one step, with
@@ -574,7 +578,7 @@ def make_fused_clause_step(fa: FormulaArrays, zeta: float, ode, clause_group=Non
     ``step`` itself tiles, steps and untiles, and writes nothing of the
     caller's state. :func:`make_clause_chunk` tiles once a chunk."""
     from odesat_tpu_torch.models.ode import ODEState
-    from odesat_tpu_torch.parallel.dist import all_reduce
+    from odesat_tpu_torch.ops import butterfly as bf
 
     plan = fa.shard_plan
     if plan is None:
@@ -605,8 +609,10 @@ def make_fused_clause_step(fa: FormulaArrays, zeta: float, ode, clause_group=Non
               dt_max=DT_MAX).items()}
 
     def reduce(t, op="sum"):
+        """``t`` combined over the clause group in place (B7): summed, or
+        (``op`` "max") the whole buffer a max zone."""
         if clause_group is not None:
-            all_reduce(t, clause_group, op)
+            bf.butterfly(t, clause_group, None if op == "sum" else (t.numel(), t.numel()), t)
 
     def clamp_v(x):  # _clamp's operations
         return torch.fmin(torch.fmax(x, c["lo"]), c["hi"])

@@ -377,7 +377,7 @@ def _declare(lib) -> None:
     lib.stoch_shard_eval_launch.argtypes = [_P] * 8 + [_I] * 7 + [_P]
     lib.stoch_shard_eval_launch.restype = _I
     lib.stoch_shard_step_launch.argtypes = (
-        [_P] * 9 + [_I] * 7 + [ctypes.c_uint] + [_I] * 4 + [_P]
+        [_P] * 4 + [_I] + [_P] * 5 + [_I] * 7 + [ctypes.c_uint] + [_I] * 4 + [_P]
     )
     lib.stoch_shard_step_launch.restype = _I
     lib.stoch_chunk_error_string.argtypes = [_I]
@@ -648,18 +648,20 @@ def make_stoch_shard_eval(fa: FormulaArrays, device, shard: int = 0,
 # B9 replaces ``odesat_tpu/ops/stoch_pallas.py::make_stoch_shard_chunk``
 # (Pallas; call :1161), the whole-chunk clause-shard kernel that all-reduced
 # the (total, unsat, sat) partials inside itself over ICI remote DMA (B7,
-# ``odesat_tpu/ops/butterfly.py``). On Hopper B7 runs between launches
-# (``ops/butterfly.py``, over CUDA IPC buffers), so the chunk is a launch per
-# step of ``stoch_shard_step_launch`` (``csrc/stoch_chunk.cu``) and one more:
-# each launch applies the previous step's reduced sums ``red`` (the flip
-# with the counter-hash uniforms of that step, the done latch) and
-# evaluates the shard for its own step as B8 does, into ``acc`` = (total |
-# unsat | 1 - sat), B7's shared slot on a clause mesh. The flips and their
-# uniforms, which B8's path drew in torch, run in the kernel. Same seed,
-# blocking and step index as B8's path, so the two flip for flip; the sums
-# are integers in f32, so any S flips as S=1 does. JAX's min-combined sat
-# flag is a summed (1 - sat) here: 0 after the sum exactly when every shard
-# is satisfied.
+# ``odesat_tpu/ops/butterfly.py``). On Hopper the chunk is a launch per step
+# of ``stoch_shard_step_launch`` (``csrc/stoch_chunk.cu``) and one more, and
+# the all-reduce is fused into the launches that consume it: each launch
+# applies the previous step's sums (the flip with the counter-hash uniforms
+# of that step, the done latch), reading the S ranks' partials of that step
+# (on a clause mesh its own slot and the peers' IPC-mapped slots, after a
+# stream wait on their flags, ``ops/butterfly.py``) and adding them in the
+# butterfly's tree as it reads them, then evaluates the shard for its own
+# step as B8 does, into ``acc`` = (total | unsat | 1 - sat), this launch's
+# slot. The flips and their uniforms, which B8's path draws in torch, run in
+# the kernel. Same seed, blocking and step index as B8's path, so the two
+# flip for flip; the sums are integers in f32, so any S flips as S=1 does.
+# JAX's min-combined sat flag is a summed (1 - sat) here: 0 after the sum
+# exactly when every shard is satisfied.
 #
 # Design: the runner tiles the chains once a chunk (``ops/tiles.py``,
 # ``TILE`` = 32 chains a tile); a launch is a few kernels over (tile, span
@@ -681,15 +683,18 @@ def stoch_shard_supported(fa: FormulaArrays) -> bool:
 
 
 def stoch_shard_step_plain(v, xl, done, acc, spec: StochSpec, bf16: bool, seed: int, Bb: int,
-                           t: int, apply: bool, evaluate: bool = True, red=None):
+                           t: int, apply: bool, evaluate: bool = True, parts=None):
     """One launch of B9 in torch ops, on (B, X) buffers: returns ``(v, xl,
-    done, acc)`` as the kernel leaves them. ``red`` (B, 2*Np+1) holds the
-    reduced sums of step ``t - 1`` (read when ``apply``; None: ``acc``
-    holds them, a group of one); ``acc`` the shard's partials of step ``t``
-    on exit (when ``evaluate``)."""
+    done, acc)`` as the kernel leaves them. ``parts``, the S ranks' partials
+    (B, 2*Np+1) of step ``t - 1`` (rank order), summed in the butterfly's
+    tree, are read when ``apply`` (None: ``acc`` holds the sums, a group of
+    one); ``acc`` holds the shard's partials of step ``t`` on exit (when
+    ``evaluate``)."""
+    from odesat_tpu_torch.ops import butterfly as bf
+
     Np = spec.Np
     if apply:
-        red = acc if red is None else red
+        red = acc if parts is None else bf.combine_parts(list(parts))
         chains = torch.arange(v.shape[0], device=v.device, dtype=torch.int64)
         u = uniform01(seed, chains, Bb, t - 1, Np)
         flip = u * red[:, :Np] < red[:, Np:2 * Np]
@@ -702,26 +707,33 @@ def stoch_shard_step_plain(v, xl, done, acc, spec: StochSpec, bf16: bool, seed: 
 
 
 def stoch_shard_step_plain_tiled(v, xl, done, acc, spec: StochSpec, bf16: bool, seed: int,
-                                 Bb: int, t: int, apply: bool, evaluate: bool = True, red=None):
-    """:func:`stoch_shard_step_plain` on tiled buffers: untiled (padding
-    rows kept, at their chain indices), run, tiled again."""
+                                 Bb: int, t: int, apply: bool, evaluate: bool = True,
+                                 parts=None):
+    """:func:`stoch_shard_step_plain` on tiled buffers and tiled partials:
+    untiled (padding rows kept, at their chain indices), run, tiled
+    again."""
     R, rows = v.shape[-1], rows_of(v)
     out = stoch_shard_step_plain(*(untile(x, rows) for x in (v, xl, done, acc)), spec, bf16,
                                  seed, Bb, t, apply, evaluate,
-                                 None if red is None else untile(red, rows))
+                                 None if parts is None else [untile(p, rows) for p in parts])
     return tuple(tile(x, R) for x in out)
 
 
 def stoch_shard_step_cuda(v, xl, done, acc, spec: StochSpec, bf16: bool, seed: int, Bb: int,
-                          t: int, apply: bool, evaluate: bool = True, w=None, red=None):
+                          t: int, apply: bool, evaluate: bool = True, w=None, parts=None):
     """Launch B9 once on the current stream, on tiled buffers (``TILE``
-    chains a tile): v (G, Np, R) bool, xl (G, Mp, R) int32,
-    done (G, R) bool, acc (G, 2*Np+1, R) f32 (the partials written), updated
-    in place and returned; ``red`` (G, 2*Np+1, R) f32, the reduced sums read
-    (None: ``acc`` holds them, a group of one). ``w`` is the (G, Mp, R)
-    int32 weight scratch (allocated here when None). Raises if an input is
-    not what it takes or the launch is refused; never falls back."""
+    chains a tile): v (G, Np, R) bool, xl (G, Mp, R) int32, done (G, R)
+    bool, acc (G, 2*Np+1, R) f32 (the partials written), updated in place
+    and returned. ``parts``, the S ranks' (G, 2*Np+1, R) f32 partials of the
+    previous step (rank order; the peers' slots on a clause mesh), are read
+    when ``apply`` and summed in the butterfly's tree by the flip and head
+    kernels as they read them (None: ``acc`` holds the sums, a group of
+    one). ``w`` is the (G, Mp, R) int32 weight scratch (allocated here when
+    None). Raises if an input is not what it takes or the launch is refused;
+    never falls back."""
     global shard_chunk_launches
+    from odesat_tpu_torch.ops import butterfly as bf
+
     if spec.device.type != "cuda":
         raise ValueError(f"the stoch shard chunk kernel runs on CUDA tensors, not {spec.device}")
     if not 0 <= int(seed) < 2**32:
@@ -731,16 +743,16 @@ def stoch_shard_step_cuda(v, xl, done, acc, spec: StochSpec, bf16: bool, seed: i
         raise ValueError(f"tiles of {R} chains; the kernel takes {TILE}")
     if w is None:
         w = torch.empty((G, spec.Mp, R), dtype=torch.int32, device=spec.device)
-    red = acc if red is None else red
+    parts = [acc] if parts is None else list(parts)
     _check_tiled(spec, G, R, v=v, xl=xl, done=done, acc=acc, w=w)
-    _check_tiled(spec, G, R, acc=red)
+    red = bf.pointers(parts, acc.shape, spec.device)
     if G == 0:
         return v, xl, done, acc
     lib, _ = load_library()
     with torch.cuda.device(spec.device):
         stream = torch.cuda.current_stream(spec.device).cuda_stream
         rc = lib.stoch_shard_step_launch(
-            v.data_ptr(), xl.data_ptr(), done.data_ptr(), red.data_ptr(), acc.data_ptr(),
+            v.data_ptr(), xl.data_ptr(), done.data_ptr(), red, len(parts), acc.data_ptr(),
             w.data_ptr(),
             spec.lit_code.data_ptr(), spec.occ_ptr.data_ptr(), spec.occ_clause.data_ptr(),
             G, R, spec.Np, spec.Mp, spec.K, spec.occ_clause.numel(), int(bf16), int(seed),
@@ -750,19 +762,25 @@ def stoch_shard_step_cuda(v, xl, done, acc, spec: StochSpec, bf16: bool, seed: i
         raise RuntimeError("stoch_shard_step_launch failed: "
                            + lib.stoch_chunk_error_string(rc).decode())
     shard_chunk_launches += 1
+    if len(parts) > 1:
+        bf.fused_launches += 1
     return v, xl, done, acc
 
 
 def make_stoch_shard_chunk(fa: FormulaArrays, chunk_steps: int, device, shard: int = 0,
-                           clause_group=None, matmul_dtype: str = "float32"):
+                           clause_group=None, matmul_dtype: str = "float32",
+                           plain: bool = False):
     """``fn(state, seed) -> state`` advancing this rank's chains
     ``chunk_steps`` steps over shard ``shard`` of ``fa.shard_plan`` (JAX
     :868): B9's launches (CUDA states) or its plain version (CPU states),
-    with the sums reduced over ``clause_group`` between them by B7
-    (``ops/butterfly.py``: its kernel on a card, its plain version on the
-    CPU; none in a group of one), on the chains tiled once at entry and
-    untiled once at exit. ``seed`` is the chunk's 31-bit PRNG seed, the same
-    on every clause rank of a row. The caller's state is never written."""
+    each reading the S ranks' partials of the step before over
+    ``clause_group`` (``ops/butterfly.py``: on a card the peers' slots after
+    a stream wait on their flags; on the CPU the partials gathered over the
+    group; in a group of one its own), on the chains tiled once at entry and
+    untiled once at exit. ``plain``: the plain version on any device, the
+    partials gathered over the group (what the card's runs are held
+    against). ``seed`` is the chunk's 31-bit PRNG seed, the same on every
+    clause rank of a row. The caller's state is never written."""
     import torch.distributed as dist
 
     from odesat_tpu_torch.ops import butterfly as bf
@@ -787,22 +805,32 @@ def make_stoch_shard_chunk(fa: FormulaArrays, chunk_steps: int, device, shard: i
         G = v.shape[0]
         shape = (G, 2 * spec.Np + 1, TILE)
         acc = torch.zeros(shape, dtype=torch.float32, device=v.device)
-        red = torch.zeros_like(acc) if S > 1 else None  # S = 1 reads its own partials
-        comm = bf.communicator(clause_group, v.device) if kind == "cuda" and S > 1 else None
-        if kind == "cuda":
+        comm = None
+        if kind == "cuda" and not plain:
             w = torch.empty((G, spec.Mp, TILE), dtype=torch.int32, device=v.device)
+            if S > 1:
+                comm = bf.communicator(clause_group, v.device)
+                comm.begin(shape)
 
             def launch(*args, **kw):
                 return stoch_shard_step_cuda(*args, **kw, w=w)
         else:
             launch = stoch_shard_step_plain_tiled
+        parts = None  # the S partials of the previous step
         for t in range(chunk_steps + 1):
-            if comm is not None and t < chunk_steps:
-                acc = comm.slot(shape)  # B7's shared slot of this call
+            evaluate = t < chunk_steps
+            if comm is not None:
+                comm.wait()  # the peers' earlier launches are done
+                if evaluate:
+                    acc = comm.slot(shape)  # this launch's slot
             v, xl, done, acc = launch(v, xl, done, acc, spec, bf16, seed, Bb, t, apply=t > 0,
-                                      evaluate=t < chunk_steps, red=red)
-            if t < chunk_steps and S > 1:
-                red = bf.butterfly(acc, clause_group, None, red)
+                                      evaluate=evaluate, parts=parts)
+            if comm is not None:
+                parts = comm.parts(shape)
+                comm.signal()
+            elif evaluate and S > 1:
+                parts = [p.reshape(shape).to(v.device)
+                         for p in bf.gather_plain(acc, clause_group)]
         return state._replace(v=untile(v, B), xl=untile(xl, B), done=untile(done, B))
 
     fn.spec = spec

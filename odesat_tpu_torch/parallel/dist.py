@@ -14,11 +14,12 @@
 * :class:`MeshSync` makes the host loop's decisions global: the done flags
   every rank reads, the stop flag, and the elapsed time (all-reduced MAX),
   so every rank builds the same chunks and stops after the same one.
-* B7's checks and timings over a clause group (``ops/butterfly.py``, the
-  kernel between B6's and B9's launches): :func:`all_reduce_error` (the
-  kernel against its plain version, bit for bit), :func:`butterfly_of`,
-  :func:`time_butterfly`, and :func:`time_all_reduce`, the
-  ``torch.distributed`` all-reduce B7 replaced, kept as its yardstick.
+* B7's checks and timings over a clause group (``ops/butterfly.py``, its
+  standalone call): :func:`all_reduce_error` (the kernel against its plain
+  version, bit for bit), :func:`butterfly_of`, :func:`time_butterfly`,
+  :func:`time_butterfly_split` (where a call's time goes), and
+  :func:`time_all_reduce`, the ``torch.distributed`` all-reduce B7
+  replaced, kept as its yardstick.
 
 These host decisions stay on ``torch.distributed``; in JAX they are XLA
 collectives outside any Pallas kernel.
@@ -239,7 +240,95 @@ def time_butterfly(mesh, device, shape, iters: int = 20, plain_iters: int = 2) -
         dist.barrier(group=group)
         return (time.perf_counter() - t0) / n * 1e3
 
+    comm.begin(shape)
     ms = timed(lambda: comm.reduce(comm.slot(shape), None, out), iters)
     buf = torch.ones(shape, dtype=torch.float32, device=device)
     plain = timed(lambda: bf.butterfly_plain(buf, group), plain_iters)
     return ms, plain
+
+
+def time_butterfly_split(mesh, device, shape, iters: int = 20) -> dict:
+    """Where a standalone B7 call's time goes, over this rank's clause
+    group at a float32 ``shape`` (ms a call; rank 0's numbers come back
+    through ``parallel/launch.spawn``):
+
+    * ``back_to_back``: calls one after another, as a runner makes them
+      (host clock around ``iters`` calls ending in a sync and a barrier);
+    * ``synced``: each call's flag raised, then a device sync and a host
+      barrier on every rank, so that the wait is already satisfied; CUDA
+      events around the wait and the kernel, every rank at once (the
+      contexts still take turns on the card);
+    * ``turns``: the same, one rank at a time while the others sit at a
+      barrier (the card to itself);
+    * ``alone``: the kernel alone (``tree_cuda``) on S buffers of rank 0's
+      process while the others sit at a barrier, CUDA events around
+      ``iters`` launches (rank 0's result only).
+
+    ``back_to_back`` less ``synced`` is the wait for the peers' partials,
+    ``synced`` less ``turns`` the sharing of the card between the ranks'
+    contexts, ``turns`` less ``alone`` the stream operations' own cost."""
+    import time
+
+    from odesat_tpu_torch.ops import butterfly as bf
+
+    group = mesh.clause_group
+    S, rank = dist.get_world_size(group), dist.get_rank(group)
+    comm = bf.communicator(group, device)
+    comm.begin(shape)
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    numel = int(np.prod(shape))
+    stream = torch.cuda.current_stream(device)
+
+    def settle():
+        torch.cuda.synchronize(device)
+        dist.barrier(group=group)
+
+    def reduce():
+        comm.reduce(comm.slot(shape), None, out)
+
+    reduce()
+    settle()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        reduce()
+    settle()
+    result = {"back_to_back": (time.perf_counter() - t0) / iters * 1e3}
+
+    def presynced(turn):
+        """One call with the flag already raised everywhere: ms of its wait
+        and kernel on this rank (CUDA events)."""
+        i = comm.count % bf.SLOTS
+        comm.signal()
+        settle()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ms = None
+        for r in range(S) if turn else (None,):
+            if r is None or r == rank:
+                start.record(stream)
+                comm.wait()
+                rc = comm.lib.bfly_tree(comm.slot_ptrs[i], S, out.data_ptr(), numel, numel, 0,
+                                        comm.sms, stream.cuda_stream)
+                bf._raise_for(comm.lib, rc, "kernel")
+                end.record(stream)
+                torch.cuda.synchronize(device)
+                ms = start.elapsed_time(end)
+            if turn:
+                dist.barrier(group=group)
+        settle()
+        return ms
+
+    for name, turn in (("synced", False), ("turns", True)):
+        presynced(turn)
+        result[name] = sum(presynced(turn) for _ in range(iters)) / iters
+    if rank == 0:  # the others sit at the barrier: the card to itself
+        local = [torch.ones(shape, dtype=torch.float32, device=device) for _ in range(S)]
+        bf.tree_cuda(local, None, out)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        for _ in range(iters):
+            bf.tree_cuda(local, None, out)
+        end.record(stream)
+        torch.cuda.synchronize(device)
+        result["alone"] = start.elapsed_time(end) / iters
+    settle()
+    return result

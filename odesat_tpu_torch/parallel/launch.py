@@ -55,6 +55,7 @@ _COUNTERS = (
     ("stoch_shard_eval", "odesat_tpu_torch.ops.stoch_chunk", "shard_launches"),
     ("stoch_shard_chunk", "odesat_tpu_torch.ops.stoch_chunk", "shard_chunk_launches"),
     ("butterfly", "odesat_tpu_torch.ops.butterfly", "launches"),
+    ("butterfly_fused", "odesat_tpu_torch.ops.butterfly", "fused_launches"),
 )
 CUDA_SOURCES = ("fused_chunk", "stream_chunk", "stoch_chunk", "butterfly")
 

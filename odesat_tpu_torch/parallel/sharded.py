@@ -431,7 +431,7 @@ def run_stoch_clause(mesh, device, fa, chunks: int, chunk_steps: int, seed: int,
 
 def time_ode_chunk(mesh, device, fa, zeta: float, ode, steps: int, B: int, reps: int = 2):
     """Milliseconds a step of :func:`make_sharded_chunk_runner` on this mesh
-    (on a clause mesh of the card: B6 with B7 between its launches), from
+    (on a clause mesh of the card: B6, B7 fused into its launches), from
     a random state of ``B`` rows: the host clock around ``reps`` chunks of
     ``steps`` steps, each ending in a device sync and a barrier, after one
     warm-up chunk. Rank 0's number comes back through
@@ -463,3 +463,61 @@ def time_ode_chunk(mesh, device, fa, zeta: float, ode, steps: int, B: int, reps:
         run(state, dev)
         sync()
     return (time.perf_counter() - t0) / (reps * steps) * 1e3
+
+
+def fused_against_plain(mesh, device, fa: FormulaArrays, engine: str, fixed: bool = True,
+                        steps: int = 1000, B: int = 64, seed: int = 0) -> tuple:
+    """The clause chunk on this rank's card against its plain version, over
+    this rank's clause group, from one random state: one chunk of ``steps``
+    steps of B6 (``engine`` "ode"; fixed or adaptive, zeta of the paper
+    gate) or B9 ("stoch"), through the kernels with no host sync between
+    their launches (each reads the peers' slots after a stream wait: the
+    race run), and through the plain version on the same card, whose
+    partials travel over gloo.
+    Returns ``(err, replicated)`` on every rank: the largest
+    :func:`~odesat_tpu_torch.parallel.dist.bit_error` over the state and the
+    ranks (0.0: bit for bit), and whether every clause rank's v holds the
+    same bits."""
+    from odesat_tpu_torch.interop import state_from_numpy
+    from odesat_tpu_torch.models.ode import formula_device, state_dtype
+    from odesat_tpu_torch.models.stoch import init_stoch_state
+    from odesat_tpu_torch.ops.shard_chunk import make_shard_chunk
+    from odesat_tpu_torch.ops.stoch_chunk import make_stoch_shard_chunk
+    from odesat_tpu_torch.parallel.dist import bit_error
+    from odesat_tpu_torch.utils.config import ODEConfig
+
+    group = mesh.clause_group
+    rng = np.random.default_rng(seed)
+    Np, M = fa.n_vars_padded, fa.n_clauses_padded
+    if engine == "ode":
+        ode = ODEConfig(step_size=0.01 if fixed else None)
+        zeta = ode.resolve_zeta(fa.density)
+        xs = np.broadcast_to(fa.xs_init, (B, M)).astype(np.float32)
+        arrays = (rng.uniform(-1, 1, (B, Np)).astype(np.float32), xs,
+                  rng.uniform(1, 20, (B, M)).astype(np.float32), np.full(B, 0.01, np.float32),
+                  rng.random(B) < 0.1)
+        dev = formula_device(fa, "cpu", dtype=state_dtype(ode))
+        state, _ = shard_inputs(state_from_numpy(*arrays, device="cpu"), dev, mesh)
+
+        def run(plain):
+            return make_shard_chunk(fa, zeta, ode, steps, group, device, plain)(
+                type(state)(*(t.to(device) for t in state)))
+    else:
+        state = init_stoch_state(fa, B, "cpu")
+        state = shard_stoch_inputs(state._replace(v=torch.as_tensor(rng.random((B, Np)) < 0.5)),
+                                   mesh)
+
+        def run(plain):
+            return make_stoch_shard_chunk(fa, steps, device, mesh.clause_index, group,
+                                          plain=plain)(
+                type(state)(*(t.to(device) for t in state)), 12345)
+    card = run(False)
+    plain = run(True)
+    err = max(bit_error(a.cpu().float(), b.cpu().float()) for a, b in zip(card, plain))
+    copies = card.v.new_zeros((mesh.n_clause, *card.v.shape), dtype=torch.float32)
+    copies[mesh.clause_index] = card.v.float()
+    all_reduce(copies, group)
+    same = all(torch.equal(copies[k], copies[0]) for k in range(mesh.n_clause))
+    err = float(all_reduce(torch.tensor([err], dtype=torch.float64, device=device), group,
+                           "max").item())
+    return err, same

@@ -7,9 +7,9 @@ interpret mode, whose butterfly is the TPU kernel B7 ports.
 * ``butterfly_plain`` equals a NumPy sum in the butterfly's tree order bit
   for bit, on data where rank order and tree order round differently, with
   and without a max zone; every rank gets the same bits.
-* The stoch clause mesh at S = 4 (B9's plain version, B7 between its
-  launches) equals JAX's S = 4 kernel exactly (v, xl, done): the weight
-  sums are integers in f32.
+* The stoch clause mesh at S = 4 (B9's plain version, fed the gathered
+  partials, which it sums in B7's tree) equals JAX's S = 4 kernel exactly
+  (v, xl, done): the weight sums are integers in f32.
 * The ODE clause mesh at S = 4 (B6's plain version) is within the JAX
   test's own rtol 2e-4 / atol 2e-5 (tests/test_shard_chunk.py:160-165) of
   JAX's S = 4 kernel, both integrators; dt rtol 2e-4 / atol 2e-6, done

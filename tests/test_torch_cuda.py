@@ -643,11 +643,10 @@ def test_nccl_refuses_two_ranks_on_one_card(cuda):
         launch.spawn(launch.probe, 1, n + 1, "nccl", "cuda", timeout_s=60)
 
 
-def _chunk_buffers(fa, B, fixed, seed, device, shard=0, split=False):
+def _chunk_buffers(fa, B, fixed, seed, device, shard=0):
     """Random B6 buffers for one shard: a state with some rows done and a
     reduced acc whose sat count is 0 on some rows (adaptive: acc2 with the
-    error in its last column). ``split``: the reduced sums in red, red2
-    and other values in the partials acc, acc2, as on a clause mesh."""
+    error in its last column)."""
     from odesat_tpu_torch.ops.shard_chunk import ChunkBuffers
 
     rng = np.random.default_rng(seed)
@@ -666,11 +665,39 @@ def _chunk_buffers(fa, B, fixed, seed, device, shard=0, split=False):
         acc2[:, Np] = rng.uniform(0, 1e-2, B)
         b = b._replace(acc2=put(acc2), dxs1=put(rng.uniform(-1, 1, (B, ml))),
                        dxl1=put(rng.uniform(-1, 1, (B, ml))))
-    if split:
-        b = b._replace(red=b.acc, acc=put(rng.uniform(-9, 9, (B, Np + 1))))
-        if not fixed:
-            b = b._replace(red2=b.acc2, acc2=put(rng.uniform(-9, 9, (B, Np + 1))))
     return b
+
+
+def _partials(b, S, seed):
+    """S partials (rank order) of a launch's acc and acc2, as a clause mesh
+    of S ranks gives them to the next launch (None at S = 1: the launch
+    reads its own acc, acc2): magnitudes on which rank order and tree order
+    round differently, each rank's sat count 0 or 1 (the sum 0 on some
+    rows), each rank's error non-negative."""
+    if S == 1:
+        return None
+    rng = np.random.default_rng(seed)
+    Np = b.acc.shape[1] - 1
+
+    def draw(flag_col):
+        out = []
+        for _ in range(S):
+            a = rng.uniform(-1, 1, b.acc.shape) * 10.0 ** rng.integers(-3, 6, b.acc.shape)
+            a[:, Np] = flag_col()
+            out.append(torch.as_tensor(a.astype(np.float32), device=b.acc.device))
+        return out
+
+    B = b.acc.shape[0]
+    p1 = draw(lambda: rng.integers(0, 2, B) * (rng.random(B) < 0.7))
+    p2 = None if b.acc2 is None else draw(lambda: rng.uniform(0, 1e-2, B))
+    return p1, p2
+
+
+def _tiled_parts(parts):
+    from odesat_tpu_torch.ops.tiles import tile
+
+    return None if parts is None else tuple(None if p is None else [tile(t) for t in p]
+                                            for p in parts)
 
 
 def _tiled(buffers):
@@ -691,13 +718,16 @@ def _untiled(buffers, B):
 @pytest.mark.parametrize("mode", ["fixed", "adaptive"])
 @pytest.mark.parametrize("rigidity", ["paper", "reference"])
 @pytest.mark.parametrize("matmul_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("split", [False, True])
-def test_shard_chunk_kernel_equals_plain(cuda, B, n_shards, mode, rigidity, matmul_dtype, split):
+@pytest.mark.parametrize("S", [1, 2, 3, 4])
+def test_shard_chunk_kernel_equals_plain(cuda, B, n_shards, mode, rigidity, matmul_dtype, S):
     """B6 in every phase of its integrator, with and without the apply
-    prologue, on tiled buffers (a ragged last tile), with the reduced sums
-    in the partials (a group of one) or apart from them (a clause mesh),
-    equals its plain version bit for bit on every shard; the launch
-    counter moves once a launch."""
+    prologue, on tiled buffers (a ragged last tile), reading its own
+    partials (S = 1, a group of one) or S ranks' partials that its kernels
+    add in the butterfly's tree (a clause mesh; S = 3 the run-time group
+    size), equals its plain version bit for bit on every shard; the launch
+    counter moves once a launch, B7's fused counter once a launch that
+    reads S > 1 partials."""
+    from odesat_tpu_torch.ops import butterfly as bf
     from odesat_tpu_torch.ops import shard_chunk as sch
     from odesat_tpu_torch.ops import shard_stream as ss
 
@@ -710,12 +740,15 @@ def test_shard_chunk_kernel_equals_plain(cuda, B, n_shards, mode, rigidity, matm
     for s in range(n_shards):
         spec = ss.shard_spec(fa, 0.05, ode, cuda, s)
         for i, (phase, apply) in enumerate(phases):
-            b = _chunk_buffers(fa, B, fixed, seed=10 * s + i, device=cuda, split=split)
-            ref = sch.shard_chunk_plain(phase, b, spec, apply)
-            before = sch.launches
-            out = _untiled(sch.shard_chunk_cuda(phase, _tiled(b), spec, apply), B)
+            b = _chunk_buffers(fa, B, fixed, seed=10 * s + i, device=cuda)
+            parts = _partials(b, S, seed=100 + 10 * s + i)
+            ref = sch.shard_chunk_plain(phase, b, spec, apply, parts)
+            before, fused = sch.launches, bf.fused_launches
+            out = _untiled(sch.shard_chunk_cuda(phase, _tiled(b), spec, apply,
+                                                parts=_tiled_parts(parts)), B)
             torch.cuda.synchronize()
             assert sch.launches == before + 1
+            assert bf.fused_launches == fused + (S > 1)
             for name, a, c in zip(b._fields, out, ref):
                 assert (a is None and c is None) or torch.equal(a, c), (phase, apply, name)
 
@@ -801,12 +834,12 @@ def test_tiled_b5_runner_equals_b6_chunk_and_the_row_major_loop(cuda, B, mode):
 @pytest.mark.parametrize("B", [7, 300])
 @pytest.mark.parametrize("n_shards", [1, 2])
 @pytest.mark.parametrize("matmul_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("split", [False, True])
-def test_stoch_shard_chunk_kernel_equals_plain(cuda, B, n_shards, matmul_dtype, split):
+@pytest.mark.parametrize("S", [1, 2, 3, 4])
+def test_stoch_shard_chunk_kernel_equals_plain(cuda, B, n_shards, matmul_dtype, S):
     """B9 with and without the flip prologue, and the flip-only launch, on
-    tiled chains (a ragged last tile), with the reduced sums in the
-    partials' buffer (a group of one) or apart (a clause mesh), equals its
-    plain version exactly on every shard."""
+    tiled chains (a ragged last tile), reading its own partials (S = 1) or
+    S ranks' partials that its kernels sum in the butterfly's tree (a
+    clause mesh), equals its plain version exactly on every shard."""
     from odesat_tpu_torch.ops import stoch_chunk as sc
     from odesat_tpu_torch.ops.tiles import tile, untile
 
@@ -814,24 +847,27 @@ def test_stoch_shard_chunk_kernel_equals_plain(cuda, B, n_shards, matmul_dtype, 
     rng = np.random.default_rng(7)
     ml, Np = fa.shard_plan.mp_local, fa.n_vars_padded
     bf16 = matmul_dtype == "bfloat16"
+
+    def sums():
+        acc = rng.integers(0, 40, (B, 2 * Np + 1)).astype(np.float32)
+        acc[:, Np:2 * Np] = np.minimum(acc[:, Np:2 * Np], acc[:, :Np])
+        acc[:, 2 * Np] = rng.integers(0, 2, B)
+        return torch.as_tensor(acc, device=cuda)
+
     for s in range(n_shards):
         spec = sc.stoch_shard_spec(fa, cuda, s)
         for apply, evaluate in ((False, True), (True, True), (True, False)):
             v = torch.as_tensor(rng.random((B, Np)) < 0.5, device=cuda)
             xl = torch.as_tensor(rng.integers(1, 3001, (B, ml)).astype(np.int32), device=cuda)
             done = torch.as_tensor(rng.random(B) < 0.2, device=cuda)
-            acc = rng.integers(0, 40, (B, 2 * Np + 1)).astype(np.float32)
-            acc[:, Np:2 * Np] = np.minimum(acc[:, Np:2 * Np], acc[:, :Np])
-            acc[:, 2 * Np] = rng.integers(0, 2, B)
-            acc = torch.as_tensor(acc, device=cuda)
-            red = None
-            if split:  # the partials' buffer holds other values
-                red, acc = acc, torch.full_like(acc, 7.0)
+            acc = sums()
+            parts = None if S == 1 else [sums() for _ in range(S)]
             args = (spec, bf16, 12345, sc.traj_block(B), 3, apply, evaluate)
-            ref = sc.stoch_shard_step_plain(v, xl, done, acc, *args, red=red)
+            ref = sc.stoch_shard_step_plain(v, xl, done, acc, *args, parts=parts)
             before = sc.shard_chunk_launches
             out = sc.stoch_shard_step_cuda(*(tile(t) for t in (v, xl, done, acc)), *args,
-                                           red=None if red is None else tile(red))
+                                           parts=None if parts is None else
+                                           [tile(p) for p in parts])
             torch.cuda.synchronize()
             assert sc.shard_chunk_launches == before + 1
             for a, c in zip(out, ref):
@@ -890,12 +926,92 @@ def test_butterfly_kernel_equals_plain_across_ranks_on_one_card(cuda, S):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 5])
+def test_butterfly_tree_alone_equals_plain(cuda, S):
+    """B7's kernel alone (tree_cuda, S buffers of one process, the entry the
+    split of a call times) equals the plain tree bit for bit, with and
+    without a max zone, at ragged lengths (a NaN equal to any NaN)."""
+    from odesat_tpu_torch.ops import butterfly as bf
+    from odesat_tpu_torch.parallel.dist import bit_error, butterfly_inputs
+
+    for shape, zones in (((7,), None), ((33, 1025), None), ((33, 1025), (1025, 1))):
+        parts = list(butterfly_inputs(shape, S, 1, 3, cuda)[0])
+        before = bf.launches
+        out = bf.tree_cuda([p.contiguous() for p in parts], zones)
+        torch.cuda.synchronize()
+        assert bf.launches == before + 1
+        assert bit_error(out.cpu(), bf.combine_parts([p.cpu() for p in parts], zones)) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2, 4])
+def test_fused_chunks_equal_plain_across_ranks_on_one_card(cuda, S):
+    """B6 (fixed and adaptive) and B9 at S ranks sharing the card, 1000
+    steps a chunk with no host sync (every launch reads the peers' slots
+    after a stream wait: the race run), equal their plain versions (the
+    partials over gloo, the tree on the host) bit for bit on every rank, v
+    bit-identical over the ranks; the chunks make no standalone B7 call, and
+    every launch after the first of a chunk reads the S slots itself."""
+    from odesat_tpu_torch.parallel import launch, sharded
+
+    fa = _sharded(S)
+    calls = [(sharded.fused_against_plain, (fa, "ode", True, 1000, 64, 1)),
+             (sharded.fused_against_plain, (fa, "ode", False, 500, 64, 2)),
+             (sharded.fused_against_plain, (fa, "stoch", True, 1000, 64, 3))]
+    values = launch.spawn(launch.run_all, 1, S, "gloo", "cuda", timeout_s=600, args=(calls,))
+    assert values == [(0.0, True)] * 3
+    for report in launch.last_reports:
+        for c, launches in zip(report["calls"], (1001, 1001, 1001)):
+            assert c["butterfly"] == 0
+            assert c["butterfly_fused"] == launches - 1
+        assert report["calls"][0]["shard_chunk"] == 1001
+        assert report["calls"][1]["shard_chunk"] == 1001
+        assert report["calls"][2]["stoch_shard_chunk"] == 1001
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2, 4])
+def test_off_runners_sum_through_standalone_b7_and_b5_equals_b6(cuda, S):
+    """At S ranks sharing the card the ``--shard-chunk off`` runners sum
+    through B7's standalone call (one a fixed step, three an adaptive one,
+    one a stoch step) and not torch.distributed, so B5 equals B6 bit for bit
+    and the B8 path flips as the B9 chunk does; the chunks make no
+    standalone call."""
+    from odesat_tpu_torch.parallel import launch, sharded
+
+    fa = _sharded(S)
+    rng = np.random.default_rng(4)
+    B, steps = 64, 12
+    xs = np.broadcast_to(fa.xs_init, (B, fa.n_clauses_padded)).astype(np.float32)
+    arrays = (rng.uniform(-1, 1, (B, fa.n_vars_padded)).astype(np.float32), xs,
+              np.ones_like(xs), np.full(B, 0.01, np.float32), np.zeros(B, bool))
+    cases = [(fa, 0.05, ODEConfig(step_size=st, shard_chunk=sc), steps, arrays)
+             for sc in ("auto", "off") for st in (0.01, None)]
+    calls = [(sharded.run_ode_cases, ([c],)) for c in cases]
+    calls += [(sharded.run_stoch_clause, (fa, 2, 6, 5, "float32", B, mode))
+              for mode in ("auto", "off")]
+    values = launch.spawn(launch.run_all, 1, S, "gloo", "cuda", timeout_s=600, args=(calls,))
+    (b6_fixed,), (b6_adaptive,), (b5_fixed,), (b5_adaptive,) = values[:4]
+    for a, b in ((b6_fixed, b5_fixed), (b6_adaptive, b5_adaptive)):
+        for x, y in zip(a[:5], b[:5]):
+            np.testing.assert_array_equal(x, y)
+    for x, y in zip(values[4], values[5]):
+        np.testing.assert_array_equal(x, y)
+    for report in launch.last_reports:
+        c = report["calls"]
+        assert [k["butterfly"] for k in c] == [0, 0, steps, 3 * steps, 0, 12]
+        assert all(k["butterfly_fused"] > 0 for k in (c[0], c[1], c[4]))
+        assert c[2]["shard_stream"] == steps and c[5]["stoch_shard_eval"] == 12
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("cmd", ["inter", "stoch"])
 def test_clause_mesh_resume_through_b6_and_b9_on_the_card(cuda, tmp_path, cmd):
     """hard.cnf B=256 at S=2 on the card, 16-step chunks and a snapshot
     every chunk: stopped at 32 steps and resumed to 64, the run ends in the
     snapshot of the run that never stopped, bit for bit, through B6 (inter)
-    or B9 (stoch) with B7 between the launches on both ranks."""
+    or B9 (stoch), whose launches read the peers' slots themselves (B7
+    fused, no standalone call), on both ranks."""
     import contextlib
     import io
     import os
@@ -917,8 +1033,9 @@ def test_clause_mesh_resume_through_b6_and_b9_on_the_card(cuda, tmp_path, cmd):
             calls.append(cli.mesh_call(argv))
     launch.spawn(launch.run_all, 1, 2, "gloo", "cuda", timeout_s=300, args=(calls,))
     kernel = "shard_chunk" if cmd == "inter" else "stoch_shard_chunk"
-    for report in launch.last_reports:
-        assert all(c[kernel] > 0 and c["butterfly"] > 0 for c in report["calls"])
+    for report in launch.last_reports:  # B7 fused into the launches, no call of its own
+        assert all(c[kernel] > 0 and c["butterfly_fused"] > 0 and c["butterfly"] == 0
+                   for c in report["calls"])
     whole, resumed = _snapshot(tmp_path / "whole.npz"), _snapshot(tmp_path / "resumed.npz")
     assert sorted(whole) == sorted(resumed) and int(whole["steps"]) == 64
     for key in whole:
