@@ -34,7 +34,8 @@ Phases, each printing its lines; the first failure exits non-zero:
    verify true, with the kernel launched;
 6. main path, UNSAT budget: inter on hard.cnf at -b 16384 -s 0.01 -n 4096,
    float32 and bf16: verdict false after exactly 4096 steps, kernel
-   launched; prints traj*steps/s;
+   launched, in device-loop graph launches (one dispatch of 16 chunks);
+   prints traj*steps/s;
 7. timing: the kernel's and the plain version's device time per 256-step
    chunk at hard.cnf B=16384 and uf250 B=4096 (CUDA events), beside the
    one-CTA-a-trajectory kernel it replaced, at hard.cnf fixed;
@@ -51,7 +52,8 @@ Phases, each printing its lines; the first failure exits non-zero:
 9. stoch determinism: two launches give bit-identical outputs;
 10. stoch main path: stoch on easy.cnf at -b 4096 verifies true through
     B3; stoch --no-preprocess on hard.cnf at -b 16384 -n 4096 (f32 and
-    bf16) gives false after exactly 4096 steps; stoch on the n=1k
+    bf16) gives false after exactly 4096 steps, through the device loop;
+    stoch on the n=1k
     instance at -b 8192 runs B4 (a solved chain must verify); stoch on a
     planted 5-SAT (n=2000, m=8000, past B3's gate) verifies true
     through B4; each prints chain*steps/s;
@@ -192,8 +194,29 @@ Phases, each printing its lines; the first failure exits non-zero:
     each verified, with steps, chunks, compute / dispatch / residual
     seconds and the kernel rate; instance 0's exact step equals the first
     step at which one-step B1 launches from the same state leave a row
-    done.
+    done; the solve takes the one-dispatch path (one device-loop graph
+    launch, counted as one chunk);
+25. the device loop (csrc/device_loop.cu, ops/device_loop.py): a. one
+    dispatch through the models' multi-chunk runners (one graph launch,
+    counted) against the host loop over the same kernel, bit for bit, steps
+    included: B1 on hard.cnf B=16384 and on uf250 B=4096 from its initial
+    state (the stop falls inside the dispatch) and from the partly solved
+    state it leaves, B2 on the n=1k instance B=512, B3 on hard.cnf B=16384
+    and on a planted n=200 at B=4096 (chains finish inside the dispatch), B4
+    on the n=1k instance B=8192; bounds 1, 3 and the whole dispatch, stop on
+    any and all (ODE), and entry states already stopped (0 chunks, the state
+    untouched); the stoch generators equal after a dispatch that ran every
+    chunk; b. phases 6 and 10 above run through its graph; c. a chunk's cost
+    beyond the chunk kernel (the decide kernel and the conditional node,
+    CUDA events over empty bodies) against the host loop's done read, one
+    dispatch of 0 chunks, and phase 6's busy share: its 16 B1 launches
+    times phase 7's B1 time over its loop wall.
 
+``python3 chip_smoke.py --time-loop ROOT`` runs, with the port at ROOT (a
+parent tree unpacked beside this one, or this one), phase 6's and phase
+10's hard.cnf runs, the busy share, B1-B4 a launch, phase 24's exact time
+to solution and the host loop's (and, where ROOT has one, the device
+loop's) cost a chunk;
 ``python3 chip_smoke.py --time-b10 ROOT`` times B10 of the checkout at ROOT
 (a parent tree unpacked beside this one) as phase 17 times this one;
 ``--time-mesh ROOT`` the clause-mesh steps of phase 21 at S=2 and S=4 with
@@ -203,7 +226,8 @@ and S=4.
 The last two lines are the ``kernels`` JSON object (one row per kernel,
 with its bound: the larger of its bytes over 3.35 TB/s and its operations
 over 67 TFLOP/s; B7's standalone call at S=2, its library time the gloo
-all-reduce; B7 fused, B6's apply launch reading two partials) and
+all-reduce; B7 fused, B6's apply launch reading two partials; the device
+loop, a chunk's cost beyond the chunk kernel) and
 then ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or without the package beside this script, it exits non-zero
 and prints no result.
@@ -260,21 +284,22 @@ def phase_device(torch):
 
 
 def phase_build(fc, sc, stc):
-    """Build the four CUDA sources and the native host library at once
+    """Build the five CUDA sources and the native host library at once
     (one nvcc per source, all started together), then report each."""
     from concurrent.futures import ThreadPoolExecutor
 
     from odesat_tpu_torch import native
     from odesat_tpu_torch.ops import butterfly as bf
+    from odesat_tpu_torch.ops import device_loop as dl
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=5) as pool:
+    with ThreadPoolExecutor(max_workers=6) as pool:
         jobs = {name: pool.submit(fn) for name, fn in (
             ("fused_chunk", fc.load_library), ("stoch_chunk", sc.load_library),
             ("stream_chunk", stc.load_library), ("butterfly", bf.load_library),
-            ("native", native.build_info))}
+            ("device_loop", dl.load_library), ("native", native.build_info))}
         results = {name: job.result() for name, job in jobs.items()}
-    for name in ("fused_chunk", "stoch_chunk", "stream_chunk", "butterfly"):
+    for name in ("fused_chunk", "stoch_chunk", "stream_chunk", "butterfly", "device_loop"):
         _, build = results[name]
         say(f"[build] csrc/{name}.cu -> {os.path.relpath(build['path'], ROOT)} "
             f"nvcc {build['seconds']:.1f} s (cached={build['cached']})")
@@ -499,19 +524,35 @@ def phase_determinism(torch, fc, hard, uf250):
         say(f"[determinism] {label}: two launches bit-identical")
 
 
+MAIN_PATH_GRAPHS = {"launches": 0}  # device-loop graph launches of the CLI runs below
+
+
+def loop_counter():
+    """The device loop's launch count as a counter, where the port has one
+    (``--time-loop`` may run a tree from before it)."""
+    try:
+        from odesat_tpu_torch.ops import device_loop
+    except ImportError:
+        return {}
+    return {"device_loop": (device_loop, "launches")}
+
+
 def run_cli(counters, cmd, args):
     """The port's CLI in process, every kernel launch count set to 0 just
-    before and read just after. ``counters`` maps a kernel name to its
-    (module, attribute). Returns (verdict, launches by kernel, steps,
-    solved, seconds, output)."""
+    before and read just after, the device loop's graph launches with them
+    (key "device_loop", summed into MAIN_PATH_GRAPHS). ``counters`` maps a
+    kernel name to its (module, attribute). Returns (verdict, launches by
+    kernel, steps, solved, seconds, output)."""
     from odesat_tpu_torch import cli
 
+    counters = {**counters, **loop_counter()}
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli.main([cmd, *args])
     launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+    MAIN_PATH_GRAPHS["launches"] += launches.get("device_loop", 0)
     out = buf.getvalue()
     if rc != 0:
         fail(f"{cmd} {' '.join(args)} exited {rc}:\n{out}")
@@ -526,11 +567,14 @@ def run_cli(counters, cmd, args):
     return verdict.group(1), launches, steps, solved, seconds, out
 
 
-def run_inter(fc, args):
-    """``inter`` through :func:`run_cli`; returns (verdict, launches,
-    steps, solved, seconds)."""
+def run_inter(fc, args, graphs=None):
+    """``inter`` through :func:`run_cli`; returns (verdict, B1's launches,
+    steps, solved, seconds). ``graphs``, a list, gets the run's device-loop
+    graph launches."""
     verdict, launches, steps, solved, seconds, _ = run_cli(
         {"fused_chunk": (fc, "launches")}, "inter", args)
+    if graphs is not None:
+        graphs.append(launches.get("device_loop", 0))
     return verdict, launches["fused_chunk"], steps, solved, seconds
 
 
@@ -562,22 +606,28 @@ def phase_main_sat(fc):
 
 
 def phase_main_unsat(fc, card):
+    """Returns (B1's launches, the f32 run's loop wall in s)."""
     total = 0
     hard = os.path.join(ROOT, "tests", "data", "hard.cnf")
     for mm in ("float32", "bfloat16"):
         args = ["-f", hard, "-b", "16384", "-s", "0.01", "-n", "4096", "--seed", "0",
                 "--matmul-dtype", mm]
-        verdict, launches, steps, solved, seconds = run_inter(fc, args)
+        graphs = []
+        verdict, launches, steps, solved, seconds = run_inter(fc, args, graphs)
         rate = 16384 * steps / seconds
         say(f"[main UNSAT] hard.cnf B=16384 {mm}: verdict {verdict} after {steps} steps in "
-            f"{seconds:.6f} s = {rate:.6e} traj*steps/s, kernel launches {launches} "
-            f"({card})")
+            f"{seconds:.6f} s = {rate:.6e} traj*steps/s, kernel launches {launches} in "
+            f"{graphs[0]} device-loop graph launches ({card})")
         if verdict != "false" or steps != 4096 or solved != 0:
             fail(f"hard.cnf {mm}: expected false after exactly 4096 steps")
         if launches == 0:
             fail(f"hard.cnf {mm}: the main path never launched the kernel")
+        if graphs[0] == 0:
+            fail(f"hard.cnf {mm}: the multi-chunk dispatch never launched the device loop")
         total += launches
-    return total
+        if mm == "float32":
+            wall = seconds
+    return total, wall
 
 
 def phase_timing(torch, fc, hard, uf250, card):
@@ -840,6 +890,8 @@ def phase_stoch_main(fc, sc, card):
             f"{launches} ({card})")
         if launches[kernel] == 0:
             fail(f"stoch {label}: the main path never launched {kernel}")
+        if label.startswith("hard.cnf") and launches["device_loop"] == 0:
+            fail(f"stoch {label}: the multi-chunk dispatch never launched the device loop")
         if want == "false" and (verdict != "false" or steps != 4096 or solved != 0):
             fail(f"stoch {label}: expected false after exactly 4096 steps")
         if want == "true" and verdict != "true":
@@ -918,7 +970,7 @@ def phase_stoch_timing(torch, sc, hard, n1k, card):
                 spec.lit_code.data_ptr(), spec.pos_ptr.data_ptr(), spec.pos_clause.data_ptr(),
                 spec.var_order.data_ptr(), spec.segments.data_ptr(), spec.segments.shape[0], B,
                 spec.Np, spec.Mp, spec.K, spec.occ_clause.numel(), steps, 5, traj_block(B), 0,
-                R, threads, torch.cuda.current_stream().cuda_stream)
+                R, threads, 0, 0, 0, 0, torch.cuda.current_stream().cuda_stream)
             if rc:
                 fail(f"stoch_{kernel}_launch at {threads} threads: "
                      + lib.stoch_chunk_error_string(rc).decode())
@@ -3060,11 +3112,360 @@ def phase_exact_tts(torch, fc, card):
         f"state) first has a row done at step {truth}, solve_exact's step ({card})")
 
 
+# ------------------------------------------------- the device loop (phase 25)
+
+
+def loop_compare(torch, got, want, fields):
+    """Max abs error over the float fields after demanding every field equal
+    bit for bit; fails otherwise."""
+    worst = 0.0
+    for name in fields:
+        a, b = getattr(got, name), getattr(want, name)
+        if not torch.equal(a, b):
+            diff = (a.float() - b.float()).abs().max().item()
+            return None, f"{name} differs (max abs {diff})"
+        if a.is_floating_point():
+            worst = max(worst, (a - b).abs().max().item())
+    return worst, None
+
+
+def loop_case(torch, label, multi, host, state, fields, chunk_steps, bound, counter):
+    """One dispatch of ``multi`` (the model's multi-chunk runner: the device
+    loop on the card) against ``host`` (models/loop.run_chunks over the same
+    kernel): state bit for bit and steps; the graph launched once and the
+    kernel ``counter`` (module, attribute) grown by the chunks run."""
+    from odesat_tpu_torch.ops import device_loop as dl
+
+    want, steps = host(state)
+    graphs, (mod, attr) = dl.launches, counter
+    before = getattr(mod, attr)
+    got, got_steps = multi(state)
+    torch.cuda.synchronize()
+    err, why = loop_compare(torch, got, want, fields)
+    if why or got_steps != steps:
+        fail(f"device loop {label} bound {bound}: {why or ''} steps {got_steps} against the host "
+             f"loop's {steps}")
+    if dl.launches != graphs + 1 or getattr(mod, attr) != before + steps // chunk_steps:
+        fail(f"device loop {label} bound {bound}: {dl.launches - graphs} graph launches, "
+             f"{getattr(mod, attr) - before} kernel launches for {steps // chunk_steps} chunks")
+    return err, steps // chunk_steps, got
+
+
+def phase_loop_compare(torch, fc, sc, stc, hard, uf250, big, n1k_stoch, planted, card):
+    """Phase 25a: one dispatch of the device loop against the repaired host
+    loop over the same kernel, bit for bit, steps included: B1 (hard.cnf
+    B=16384; uf250 B=4096 from its initial state, where the stop falls inside
+    the dispatch, and from the partly solved state that leaves), B2 (n1k
+    B=512, and phase 13's shapes: n1k and local n=4096 at B=10240, whose
+    launches take other tiles, in 8-step chunks, 16 a dispatch as phase 13's
+    dispatches hold), B3 (hard.cnf B=16384; the planted n=200 B=4096, where
+    chains finish), B4 (n1k B=8192); bounds 1, 3 and the whole dispatch,
+    stop on any and all (ODE), and from entry states already stopped."""
+    from odesat_tpu_torch.models.loop import run_chunks
+    from odesat_tpu_torch.models.ode import init_state, make_multi_chunk_runner
+    from odesat_tpu_torch.models.stoch import (
+        init_stoch_state,
+        make_multi_stoch_runner,
+        make_stoch_chunk_runner,
+    )
+    from odesat_tpu_torch.utils.config import ODEConfig
+
+    t0 = time.perf_counter()
+    worst, cases = 0.0, 0
+    ode_fields = ("v", "xs", "xl", "dt", "done")
+    fixed = ODEConfig(step_size=0.01)
+
+    def stopped(state, stop_on):
+        done = torch.ones_like(state.done) if stop_on == "all" else state.done.clone()
+        done[0] = True
+        return state._replace(done=done)
+
+    def ode_runs(label, fa, make, chunk, full, state, counter, inside=False):
+        nonlocal worst, cases
+        fn = make(fa, 0.05, fixed, chunk, "cuda")
+        last = None
+        for stop_on in ("any", "all"):
+            for bound in (1, 3, full):
+                multi = make_multi_chunk_runner(fa, 0.05, fixed, chunk, bound, "cuda",
+                                                stop_on=stop_on, chunk=fn)
+                host = run_chunks(fn, chunk, bound, stop_all=stop_on == "all")
+                err, ran, out = loop_case(torch, f"{label} {stop_on}", multi, host, state,
+                                          ode_fields, chunk, bound, counter)
+                worst, cases = max(worst, err), cases + 1
+                if inside and stop_on == "any" and bound == full:
+                    if not 1 < ran < full:
+                        fail(f"device loop {label}: the stop fell at chunk {ran} of {full}, not "
+                             "inside the dispatch")
+                    last = out
+            entry = stopped(state, stop_on)
+            multi = make_multi_chunk_runner(fa, 0.05, fixed, chunk, full, "cuda", stop_on=stop_on,
+                                            chunk=fn)
+            err, ran, _ = loop_case(torch, f"{label} {stop_on} stopped at entry", multi,
+                                    run_chunks(fn, chunk, full, stop_all=stop_on == "all"),
+                                    entry, ode_fields, chunk, full, counter)
+            cases += 1
+            if ran != 0:
+                fail(f"device loop {label}: {ran} chunks from a stopped entry state")
+        return last
+
+    b1 = (fc, "launches")
+    ode_runs("B1 hard.cnf B=16384 fixed 256-step", hard, fc.make_fused_chunk, 256, 16,
+             random_state(hard, 16384, seed=3), b1)
+    init = init_state(uf250, 4096, torch.Generator(device="cuda").manual_seed(0), fixed, "cuda")
+    partly = ode_runs("B1 uf250 B=4096 fixed 64-step", uf250, fc.make_fused_chunk, 64, 20,
+                      init, b1, inside=True)
+    say(f"[device loop] uf250 B=4096: the stop fell inside the dispatch; the partly solved "
+        f"state it left holds {int(partly.done.sum())} done rows")
+    ode_runs("B1 uf250 B=4096 partly solved", uf250, fc.make_fused_chunk, 64, 20, partly,
+             b1)
+    n1k_ode = big[0][1]
+    ode_runs("B2 n1k B=512 fixed 8-step", n1k_ode, stc.make_stream_chunk, 8, 8,
+             random_state(n1k_ode, 512, seed=4), (stc, "launches"))
+    for label, fa, B, _ in (big[0], big[2]):  # phase 13's B2 shapes
+        ode_runs(f"B2 {label} fixed 8-step", fa, stc.make_stream_chunk, 8, 16,
+                 random_state(fa, B, seed=4), (stc, "launches"))
+
+    def stoch_runs(label, fa, B, chunk, full, counter, inside=False):
+        nonlocal worst, cases
+        state = init_stoch_state(fa, B, "cuda")
+        for entry in (state, stopped(state, "any")):
+            for bound in ((1, 3, full) if entry is state else (full,)):
+                gens = [torch.Generator().manual_seed(11) for _ in range(2)]
+                chunks = [make_stoch_chunk_runner(fa, chunk, "cuda", g, fused="on") for g in gens]
+                err, ran, _ = loop_case(torch, label, make_multi_stoch_runner(chunks[1], chunk, bound),
+                                        run_chunks(chunks[0], chunk, bound), entry,
+                                        ("v", "xl", "done"), chunk, bound, counter)
+                worst, cases = max(worst, err), cases + 1
+                if entry is not state and ran:
+                    fail(f"device loop {label}: {ran} chunks from a stopped entry state")
+                if inside and entry is state and bound == full and not 1 < ran < full:
+                    fail(f"device loop {label}: the stop fell at chunk {ran} of {full}")
+                if ran == bound and not torch.equal(gens[0].get_state(), gens[1].get_state()):
+                    fail(f"device loop {label} bound {bound}: the generators differ after a "
+                         "dispatch that ran every chunk")
+
+    stoch_runs("B3 hard.cnf B=16384 64-step", hard, 16384, 64, 16, (sc, "fused_launches"))
+    stoch_runs("B3 planted n=200 B=4096 8-step", planted, 4096, 8, 100, (sc, "fused_launches"),
+               inside=True)
+    stoch_runs("B4 n1k B=8192 8-step", n1k_stoch, 8192, 8, 8, (sc, "stream_launches"))
+    say(f"[device loop] {cases} dispatches equal the host loop bit for bit (state and steps; "
+        f"max abs err {worst}), each one graph launch, in {time.perf_counter() - t0:.1f} s "
+        f"({card})")
+    return worst
+
+
+def loop_iteration_ms(torch, iters=2000):
+    """The device loop's cost a chunk beyond the chunk kernel (CUDA events
+    around dispatches of ``iters`` empty bodies against dispatches of 0),
+    the host loop's (``done.any()`` read on the host a chunk, host clock),
+    and one dispatch of 0 chunks (head, launch, the read of the count), ms."""
+    from types import SimpleNamespace
+
+    from odesat_tpu_torch.models.loop import run_chunks
+    from odesat_tpu_torch.ops import device_loop as dl
+
+    state = random_state(load_cases_hard(), 16384, seed=1)
+    # a chunk runner whose body launches nothing: a dispatch of it times the
+    # loop alone (the head, and a decide kernel a chunk)
+    chunk = dl.KernelChunk(lambda st: st, lambda *args: (), 1,
+                           (SimpleNamespace(launches=0), "launches"))
+
+    def graph_ms(bound, reps=5):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        dl.run(chunk, state, bound)  # builds the graph at the first call
+        start.record()
+        for _ in range(reps):
+            dl.run(chunk, state, bound)
+        stop.record()
+        stop.synchronize()
+        return start.elapsed_time(stop) / reps
+
+    per = (graph_ms(iters) - graph_ms(0)) / iters
+    t0 = time.perf_counter()
+    dl.run(chunk, state, 0)
+    empty = (time.perf_counter() - t0) * 1e3
+    host = run_chunks(lambda st: st, 1, iters)
+    host(state)
+    t0 = time.perf_counter()
+    host(state)
+    plain = (time.perf_counter() - t0) * 1e3 / iters
+    return per, plain, empty
+
+
+def load_cases_hard():
+    from odesat_tpu_torch.cnf import compile_formula, normalize_cnf_variables, parse_dimacs_file
+
+    return compile_formula(normalize_cnf_variables(
+        parse_dimacs_file(os.path.join(ROOT, "tests", "data", "hard.cnf")))[1])
+
+
+def busy_share(torch, B=16384, steps=4096):
+    """Phase 6's solve (hard.cnf fixed dt 0.01, 256-step chunks, the
+    multi-chunk dispatch plan) in process after a warm-up, under
+    torch.profiler: (wall s, the card's busy share: the device events' self
+    time over the traced wall), None for the share when the profiler reads
+    no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from odesat_tpu_torch.models.ode import simulate_batch
+    from odesat_tpu_torch.utils.config import ODEConfig, SolverConfig
+
+    fa = load_cases_hard()
+    config = SolverConfig(ode=ODEConfig(step_size=0.01, steps=steps), batch_size=B, seed=0)
+    simulate_batch(fa, config, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = simulate_batch(fa, config, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if result.steps != steps or result.any_solved:
+        fail(f"busy share: hard.cnf ran {result.steps} steps, solved {result.any_solved}")
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    busy = sum(device_us(e) for e in prof.key_averages()) / 1e6
+    return wall, (busy / wall if busy > 0 else None)
+
+
+def say_loop_iteration(torch, card, origin="this tree"):
+    """Print :func:`loop_iteration_ms`'s times; returns (loop ms a chunk,
+    host loop ms a chunk)."""
+    per, plain, empty = loop_iteration_ms(torch)
+    say(f"[device loop timing] {origin}: a chunk's cost beyond the chunk kernel: device loop "
+        f"(decide kernel, conditional node) {per:.6f} ms, host loop (done.any() read) "
+        f"{plain:.6f} ms; one dispatch of 0 chunks (head kernel, graph launch, the count read) "
+        f"{empty:.6f} ms ({card})")
+    return per, plain
+
+
+def say_kernel_share(wall_s, launches, launch_ms, card, origin="this tree"):
+    """Phase 6's f32 loop wall against its B1 launches times B1's time a
+    launch (CUDA events, the kernel alone): the card's busy share without a
+    profiler."""
+    busy = launches * launch_ms / 1e3
+    say(f"[loop timing] {origin}: phase 6's f32 loop wall {wall_s:.6f} s holds "
+        f"{launches} B1 launches of {launch_ms:.6f} ms = {busy:.6f} s: the card busy "
+        f"{busy / wall_s:.4f} of it, idle {(wall_s - busy) * 1e3:.6f} ms ({card})")
+
+
+def phase_loop_timing(torch, card, unsat_wall, b1_ms):
+    """Phase 25c: the device loop's cost a chunk beyond the chunk kernel
+    against the host loop's, one dispatch of 0 chunks, and phase 6's busy
+    share from its wall and phase 7's B1 time (no profiler: a process's
+    later torch.profiler sessions miss launches, and this process opened
+    one in phase 16; ``--time-loop`` reads the profiler in a fresh
+    process). Returns (loop ms a chunk, host loop ms a chunk)."""
+    per, plain = say_loop_iteration(torch, card)
+    say_kernel_share(unsat_wall, 16, b1_ms, card)
+    return per, plain
+
+
+def time_loop(root):
+    """``--time-loop ROOT``: with the port of the checkout at ROOT (a parent
+    tree unpacked beside this one, or this one), phase 6's inter runs on
+    hard.cnf (f32, bf16) and its busy share, phase 10's stoch runs on
+    hard.cnf, B1-B4 per launch at phases 7, 11 and 14's shapes, phase 24's
+    exact time to solution on uf250 seeds 0-2, and the host loop's cost a
+    chunk; this tree's device loop's where ROOT has one."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script only runs on a GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(root))
+    import odesat_tpu_torch
+    from odesat_tpu_torch.ops import fused_chunk as fc
+    from odesat_tpu_torch.ops import stoch_chunk as sc
+    from odesat_tpu_torch.ops import stream_chunk as stc
+    from odesat_tpu_torch.tools import uf250_tts
+    from odesat_tpu_torch.utils.config import ODEConfig
+    from odesat_tpu_torch.utils.timing import cuda_ms
+
+    if not os.path.abspath(odesat_tpu_torch.__file__).startswith(os.path.abspath(root) + os.sep):
+        fail(f"odesat_tpu_torch came from {odesat_tpu_torch.__file__}, not {root}")
+    card = phase_device(torch)
+    origin = f"the port at {root}"
+    hard_path = os.path.join(ROOT, "tests", "data", "hard.cnf")
+    run_inter(fc, ["-f", hard_path, "-b", "16384", "-s", "0.01", "-n", "1024", "--seed", "0"])
+    f32_walls = []
+    for mm in ("float32", "bfloat16", "float32", "bfloat16"):
+        _, launches, steps, _, seconds = run_inter(
+            fc, ["-f", hard_path, "-b", "16384", "-s", "0.01", "-n", "4096", "--seed", "0",
+                 "--matmul-dtype", mm])
+        say(f"[loop timing] {origin}: inter hard.cnf B=16384 {mm} -n 4096: {steps} steps in "
+            f"{seconds:.6f} s = {16384 * steps / seconds:.6e} traj*steps/s, {launches} B1 "
+            f"launches ({card})")
+        if mm == "float32":
+            f32_walls.append((seconds, launches))
+    wall, share = busy_share(torch)
+    share = f"{share:.4f}" if share is not None else "not measured (no device time traced)"
+    say(f"[loop timing] {origin}: hard.cnf B=16384 fixed 4096 steps in process after a "
+        f"warm-up: wall {wall:.6f} s, the card busy {share} of it under torch.profiler ({card})")
+    for mm in ("float32", "bfloat16", "float32", "bfloat16"):
+        _, launches, steps, _, seconds, _ = run_cli(
+            stoch_counters(fc, sc), "stoch",
+            ["-f", hard_path, "--no-preprocess", "-b", "16384", "-n", "4096", "--seed", "0",
+             "--matmul-dtype", mm])
+        say(f"[loop timing] {origin}: stoch --no-preprocess hard.cnf B=16384 {mm} -n 4096: "
+            f"{steps} steps in {seconds:.6f} s = {16384 * steps / seconds:.6e} chain*steps/s, "
+            f"B3 launches {launches['stoch_fused']} ({card})")
+    # B1-B4 per launch, the kernels alone (CUDA events over back-to-back calls)
+    hard = load_cases_hard()
+    from odesat_tpu_torch.models.stoch import init_stoch_state
+
+    n1k_reduced = preprocessed_n1k()
+    n1k_ode = load_stream_cases(n1k_reduced)[0][1]
+    _, n1k_stoch = load_stoch_cases([], n1k_reduced)
+    fixed = ODEConfig(step_size=0.01)
+    b1 = fc.make_fused_chunk(hard, 0.05, fixed, 256, "cuda")
+    b2 = stc.make_stream_chunk(n1k_ode, 0.05, fixed, 8, "cuda")
+    b3 = sc.make_stoch_chunk(hard, 64, "fused", "float32", "cuda")
+    b4 = sc.make_stoch_chunk(n1k_stoch, 8, "stream", "float32", "cuda")
+    s1, s2 = random_state(hard, 16384, seed=3), random_state(n1k_ode, 10240, seed=3)
+    s3, s4 = init_stoch_state(hard, 16384, "cuda"), init_stoch_state(n1k_stoch, 8192, "cuda")
+    for label, call in (("B1 hard.cnf B=16384 256-step", lambda: b1(s1)),
+                        ("B2 n1k B=10240 8-step", lambda: b2(s2)),
+                        ("B3 hard.cnf B=16384 64-step", lambda: b3(s3, 5)),
+                        ("B4 n1k B=8192 8-step", lambda: b4(s4, 5))):
+        ms = [cuda_ms(call, iters=10, warmup=2) for _ in range(2)]
+        say(f"[loop timing] {origin}: {label} {ms[0]:.6f} / {ms[1]:.6f} ms a launch ({card})")
+        if label.startswith("B1"):
+            for seconds, launches in f32_walls:
+                say_kernel_share(seconds, launches, sum(ms) / 2, card, origin)
+    out = uf250_tts.measure(3, 4096, 64, 20000, "bfloat16", "cuda")
+    for seed, res, verified, bd in out["rows"]:
+        say(f"[loop timing] {origin}: uf250 seed {seed} B=4096 bf16: solved {res.solved} "
+            f"(verified {verified}) at exact step {bd['steps']} in {res.chunks} chunks, wall "
+            f"{bd['wall_s']:.6f} s = compute {bd['compute_s']:.6f} + dispatch "
+            f"{bd['dispatch_s']:.6f} + residual {bd['residual_s']:.6f} s ({card})")
+    try:
+        from odesat_tpu_torch.ops import device_loop  # noqa: F401
+    except ImportError:
+        device_loop = None
+    if device_loop is None:
+        from odesat_tpu_torch.models.loop import run_chunks
+
+        state = random_state(hard, 16384, seed=1)
+        host = run_chunks(lambda st: st, 1, 2000)
+        host(state)
+        t0 = time.perf_counter()
+        host(state)
+        say(f"[loop timing] {origin}: the host loop's cost a chunk (done.any() read) "
+            f"{(time.perf_counter() - t0) * 1e3 / 2000:.6f} ms ({card})")
+    else:
+        say_loop_iteration(torch, card, origin)
+    return 0
+
+
 def main():
     if sys.argv[1:2] == ["--time-b10"]:
         return time_b10(sys.argv[2])
     if sys.argv[1:2] == ["--time-b7"]:
         return time_b7()
+    if sys.argv[1:2] == ["--time-loop"]:
+        return time_loop(sys.argv[2])
     if sys.argv[1:2] == ["--time-mesh"]:
         return time_mesh(sys.argv[2])
     import torch
@@ -3099,7 +3500,8 @@ def main():
     say(f"[compare] every case equal to the plain version; max abs err {worst}")
     phase_determinism(torch, fc, hard, uf250)
     launches = phase_main_sat(fc)
-    launches += phase_main_unsat(fc, card)
+    unsat_launches, unsat_wall = phase_main_unsat(fc, card)
+    launches += unsat_launches
     times = phase_timing(torch, fc, hard, uf250, card)
     clock("phases 1-7 (B1)")
 
@@ -3162,6 +3564,10 @@ def main():
     clock("phase 23 (resume, the profiler)")
     phase_exact_tts(torch, fc, card)
     clock("phase 24 (exact time to solution)")
+    loop_worst = phase_loop_compare(torch, fc, sc, stc, hard, uf250, big, n1k, planted, card)
+    loop_ms, loop_plain = phase_loop_timing(torch, card, unsat_wall,
+                                            times[("hard.cnf B=16384", "fixed")][0])
+    clock("phase 25 (the device loop)")
     if "jax" in sys.modules:
         fail("jax was imported")
     say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
@@ -3221,6 +3627,13 @@ def main():
         # launches of the mesh runs that read S > 1 slots
         row("butterfly_fused", "csrc/bfly_tree.cuh", "odesat_tpu/ops/butterfly.py:99",
             mesh_launches["butterfly_fused"], b7_err, b7f_ms, b7f_plain, (b7f_bound, b7f_by)),
+        # the device loop's head and decide kernels around B1-B4 (no Pallas
+        # kernel: JAX's lax.while_loop around them): a chunk's cost beyond
+        # the chunk kernel against the host loop's, bound by the decide
+        # kernel's 20 bytes; launches: the graph launches of the CLI's main
+        # paths (phases 5-6, 10, 13, 16)
+        row("device_loop", "csrc/device_loop.cu", "odesat_tpu/models/ode.py:443",
+            MAIN_PATH_GRAPHS["launches"], loop_worst, loop_ms, loop_plain, bound(20, 0)),
     ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -99,7 +99,15 @@ struct Scalars {
 
 // The row-major state in and out, and (streamed) the tiled device scratch:
 // per tile xs, xl (Mp, R), contrib (nnz, R); adaptive d1s, d1l (Mp, R) and
-// fv (Np, R).
+// fv (Np, R). In and out may be the same buffers (the device loop runs the
+// chunk in place): a CTA reads its own rows before its first barrier and
+// writes them after its last, and no other CTA touches them.
+//
+// `stop`, when not null, is the device loop's stop word
+// (csrc/device_loop.cu): a lane that leaves the chunk done stores 1 there,
+// or with `stop_all` a lane that leaves it not done ("keep going"). Padded
+// lanes never store. A store of a constant, so the CTAs' order does not
+// matter.
 struct State {
   const float* v_in;
   const float* xs_in;
@@ -112,6 +120,8 @@ struct State {
   float* dt_out;
   unsigned char* done_out;
   float* scratch;
+  int* stop = nullptr;
+  int stop_all = 0;
 };
 
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
@@ -620,8 +630,10 @@ __global__ void __launch_bounds__(kMaxThreads)
     }
   }
   if (tid < R && valid) {
+    const bool lane_done = (done >> r) & 1u;
     st.dt_out[traj] = dt;
-    st.done_out[traj] = ((done >> r) & 1u) ? 1 : 0;
+    st.done_out[traj] = lane_done ? 1 : 0;
+    if (st.stop != nullptr && lane_done != (st.stop_all != 0)) *st.stop = 1;
   }
 }
 

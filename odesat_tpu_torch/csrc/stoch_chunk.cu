@@ -289,12 +289,25 @@ __device__ __forceinline__ void var_sums(const int* occ, int j, int end, const i
   }
 }
 
+// The device loop's hook (csrc/device_loop.cu): `stop`, when not null, gets
+// a constant 1 from every chain that leaves the launch done (with
+// `stop_all`, from every chain that leaves it not done); when `seeds` is not
+// null the launch's seed is seeds[*seed_index], the loop's chunk count, in
+// place of `seed`. The state in and out may be the same buffers: a CTA reads
+// its rows before its first barrier and writes them after its last.
+struct Hook {
+  int* stop;
+  int stop_all;
+  const uint32_t* seeds;
+  const int* seed_index;
+};
+
 template <bool RESIDENT, bool BF16>
 __global__ void __launch_bounds__(kLaneThreads)
-    stoch_lanes_kernel(const uint8_t* __restrict__ v_in, const int* __restrict__ xl_in,
-                       const uint8_t* __restrict__ done_in, uint8_t* __restrict__ v_out,
-                       int* __restrict__ xl_out, uint8_t* __restrict__ done_out, LaneFormula lf,
-                       int B, int R, int lg_r, int chunk_steps, uint32_t seed, int Bb) {
+    stoch_lanes_kernel(const uint8_t* v_in, const int* xl_in, const uint8_t* done_in,
+                       uint8_t* v_out, int* xl_out, uint8_t* done_out, LaneFormula lf, int B,
+                       int R, int lg_r, int chunk_steps, uint32_t seed, int Bb, Hook hook) {
+  if (hook.seeds != nullptr) seed = hook.seeds[*hook.seed_index];
   const Formula& f = lf.f;
   const int tid = static_cast<int>(threadIdx.x), T = static_cast<int>(blockDim.x);
   const int r = tid & (R - 1), grp = tid >> lg_r, G = T >> lg_r;
@@ -399,7 +412,11 @@ __global__ void __launch_bounds__(kLaneThreads)
     }
     for (int i = tid; i < Np; i += T) vrow[i] = v[i * R + q];
   }
-  if (tid < R && chain < B) done_out[chain] = (done >> r) & 1u;
+  if (tid < R && chain < B) {
+    const bool chain_done = (done >> r) & 1u;
+    done_out[chain] = chain_done;
+    if (hook.stop != nullptr && chain_done != (hook.stop_all != 0)) *hook.stop = 1;
+  }
 }
 
 // B9 (stoch_shard_step_launch) replaces odesat_tpu/ops/stoch_pallas.py::
@@ -606,7 +623,8 @@ namespace {
 template <bool RESIDENT>
 int lanes_launch(const uint8_t* v_in, const int* xl_in, const uint8_t* done_in, uint8_t* v_out,
                  int* xl_out, uint8_t* done_out, const LaneFormula& lf, int B, int chunk_steps,
-                 uint32_t seed, int Bb, bool bf16, int R, int threads, cudaStream_t stream) {
+                 uint32_t seed, int Bb, bool bf16, int R, int threads, const Hook& hook,
+                 cudaStream_t stream) {
   if (R < 1 || R > tile::kR || (R & (R - 1)) != 0 || threads < 32 || threads > kLaneThreads ||
       threads % 32 != 0 || B < 1 || chunk_steps < 0 || Bb < 1 || lf.nseg < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -619,7 +637,8 @@ int lanes_launch(const uint8_t* v_in, const int* xl_in, const uint8_t* done_in, 
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<(B + R - 1) / R, threads, smem, stream>>>(v_in, xl_in, done_in, v_out, xl_out,
-                                                     done_out, lf, B, R, lg, chunk_steps, seed, Bb);
+                                                     done_out, lf, B, R, lg, chunk_steps, seed, Bb,
+                                                     hook);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -644,16 +663,19 @@ size_t stoch_stream_smem_bytes(int Np, int Mp, int R) {
 // p's list is variable order[p]'s, ops/stoch_chunk.py::position_lists),
 // `order` (Np) and `segs` (nseg, 4), the clause segments
 // (ops/fused_chunk.py::clause_segments), at R lanes a CTA of `threads`
-// threads. Both return a cudaError_t code (0 = launched).
+// threads, and the device loop's hook (Hook; all null off the loop). Both
+// return a cudaError_t code (0 = launched).
 int stoch_fused_launch(const uint8_t* v_in, const int* xl_in, const uint8_t* done_in,
                        uint8_t* v_out, int* xl_out, uint8_t* done_out, const int* lit_code,
                        const int* occ_ptr, const int* occ_clause, const int* order,
                        const int* segs, int nseg, int B, int Np, int Mp, int K, int nnz,
                        int chunk_steps, unsigned int seed, int Bb, int bf16, int R, int threads,
+                       int* stop, int stop_all, const unsigned int* seeds, const int* seed_index,
                        void* stream) {
   const LaneFormula lf{{lit_code, occ_ptr, occ_clause, Np, Mp, K, nnz}, order, segs, nseg};
   return lanes_launch<true>(v_in, xl_in, done_in, v_out, xl_out, done_out, lf, B, chunk_steps,
-                            seed, Bb, bf16 != 0, R, threads, static_cast<cudaStream_t>(stream));
+                            seed, Bb, bf16 != 0, R, threads,
+                            Hook{stop, stop_all, seeds, seed_index}, static_cast<cudaStream_t>(stream));
 }
 
 int stoch_stream_launch(const uint8_t* v_in, const int* xl_in, const uint8_t* done_in,
@@ -661,10 +683,12 @@ int stoch_stream_launch(const uint8_t* v_in, const int* xl_in, const uint8_t* do
                         const int* occ_ptr, const int* occ_clause, const int* order,
                         const int* segs, int nseg, int B, int Np, int Mp, int K, int nnz,
                         int chunk_steps, unsigned int seed, int Bb, int bf16, int R, int threads,
+                        int* stop, int stop_all, const unsigned int* seeds, const int* seed_index,
                         void* stream) {
   const LaneFormula lf{{lit_code, occ_ptr, occ_clause, Np, Mp, K, nnz}, order, segs, nseg};
   return lanes_launch<false>(v_in, xl_in, done_in, v_out, xl_out, done_out, lf, B, chunk_steps,
-                             seed, Bb, bf16 != 0, R, threads, static_cast<cudaStream_t>(stream));
+                             seed, Bb, bf16 != 0, R, threads,
+                             Hook{stop, stop_all, seeds, seed_index}, static_cast<cudaStream_t>(stream));
 }
 
 // B8: one evaluation (see stoch_tile_step, with no flip) on buffers in the

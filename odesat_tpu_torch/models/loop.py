@@ -62,11 +62,14 @@ def device_dispatch_plan(config, steps_budget):
 def run_chunks(chunk, chunk_steps: int, max_chunks: int, stop_all: bool = False, sync=None):
     """``run(state) -> (state, steps_advanced)`` running up to
     ``max_chunks`` calls of ``chunk(state) -> state`` of ``chunk_steps``
-    steps each, stopping after the first that leaves any (or, with
-    ``stop_all``, every) row done. The JAX package runs this loop on the
-    device; here it is a host loop with one ``done`` read per chunk, which
-    keeps the same early-exit window and an exact ``steps_advanced``. With
-    ``sync`` the stop flag is all-reduced over the world every chunk."""
+    steps each, testing before each chunk whether any (or, with
+    ``stop_all``, every) row is done, as the JAX package's
+    ``lax.while_loop`` tests its ``cond`` (JAX models/ode.py:469-478): a
+    state already stopped at entry comes back unchanged with 0 steps. One
+    ``done`` read per chunk keeps the same early-exit window and an exact
+    ``steps_advanced``. With ``sync`` the stop flag is all-reduced over the
+    world before every chunk. It is the plain version of the device loop
+    (``ops/device_loop.py``), which runs the same rule on the card."""
 
     def stop(done):
         if sync is not None:
@@ -75,11 +78,9 @@ def run_chunks(chunk, chunk_steps: int, max_chunks: int, stop_all: bool = False,
 
     def run(state):
         n = 0
-        while n < max_chunks:
+        while n < max_chunks and not stop(state.done):
             state = chunk(state)
             n += 1
-            if stop(state.done):
-                break
         return state, n * chunk_steps
 
     return run
@@ -198,9 +199,11 @@ def drive_chunks(
             else:
                 state = runner(state)
                 nominal = chunk_steps
+            advanced = None
             if type(state) is tuple:  # NamedTuple states are excluded
                 state, advanced = state
-                steps_run += int(advanced)
+                advanced = int(advanced)
+                steps_run += advanced
             else:
                 steps_run += nominal
             chunks += 1
@@ -227,6 +230,11 @@ def drive_chunks(
                 cadence(state, steps_run, chunks)
             if should_stop(state, done):
                 break
+            # a multi-chunk runner advances 0 steps only from a state its
+            # stop test already holds, which should_stop must see too:
+            # otherwise this loop would spin without advancing
+            if advanced == 0:
+                raise RuntimeError("a runner advanced 0 steps but should_stop did not fire")
             if (
                 config.wall_clock_budget_s is not None
                 and seconds(t0) > config.wall_clock_budget_s

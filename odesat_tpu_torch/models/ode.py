@@ -361,19 +361,29 @@ def make_multi_chunk_runner(
     chunk=None,
 ):
     """``run(state, dev) -> (state, steps_advanced)`` running up to
-    ``max_chunks`` chunks of ``chunk_steps``, stopping after the first
-    chunk that leaves any (``stop_on="any"``) or every (``"all"``)
-    trajectory done: the host loop of ``models/loop.run_chunks``, with an
-    exact ``steps_advanced``. ``chunk`` reuses an already built chunk
+    ``max_chunks`` chunks of ``chunk_steps``, testing before each chunk
+    whether any (``stop_on="any"``) or every (``"all"``) trajectory is
+    done, with an exact ``steps_advanced`` (JAX :443-538). A kernel runner
+    (B1 or B2) on a CUDA state runs the whole dispatch as one graph launch
+    that stops on the card (``ops/device_loop.py``); every other runner,
+    and any runner on the CPU, runs the host loop of
+    ``models/loop.run_chunks``, the device loop's plain version. The scan
+    path stays a host loop where JAX runs a while program too (ROADMAP,
+    differences by design). ``chunk`` reuses an already built chunk
     runner."""
     from odesat_tpu_torch.models.loop import run_chunks
+    from odesat_tpu_torch.ops import device_loop
 
     if chunk is None:
         chunk = make_chunk_runner(fa, zeta, ode, chunk_steps, device)
+    stop_all = stop_on == "all"
+    on_card = isinstance(chunk, device_loop.KernelChunk)
 
     def run(state: ODEState, dev=None):
+        if on_card and state.v.device.type == "cuda":
+            return device_loop.run(chunk, state, max_chunks, stop_all=stop_all)
         return run_chunks(lambda st: chunk(st, dev), chunk_steps, max_chunks,
-                          stop_all=stop_on == "all")(state)
+                          stop_all=stop_all)(state)
 
     return run
 

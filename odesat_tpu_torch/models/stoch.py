@@ -41,6 +41,7 @@ key) is refused: the packages' random streams differ.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
@@ -224,6 +225,11 @@ def resolve_kernel(fa: FormulaArrays, device, fused: str = "auto") -> str:
     return "scan"
 
 
+def draw_seed(generator: torch.Generator) -> int:
+    """One kernel launch's 31-bit seed from the CPU ``generator``."""
+    return int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
+
+
 def make_stoch_chunk_runner(
     fa: FormulaArrays,
     chunk_steps: int,
@@ -235,7 +241,8 @@ def make_stoch_chunk_runner(
     """``run(state) -> state`` advancing every chain ``chunk_steps`` steps.
 
     Kernels (B3 or B4, :func:`resolve_kernel`) take one 31-bit seed per
-    launch from ``generator``, a CPU ``torch.Generator``. The scan twin
+    launch from ``generator``, a CPU ``torch.Generator``; their runner is a
+    ``KernelChunk`` (``ops/device_loop.py``) that carries it. The scan twin
     draws its uniforms from a device generator seeded once from
     ``generator``. ``matmul_dtype="bfloat16"`` rounds each weight to bf16
     in the kernels (the twin, like the JAX scan path, sums in f32)."""
@@ -244,12 +251,8 @@ def make_stoch_chunk_runner(
         from odesat_tpu_torch.ops.stoch_chunk import make_stoch_chunk
 
         fn = make_stoch_chunk(fa, chunk_steps, kind, matmul_dtype, device)
-
-        def run_kernel(state: StochState) -> StochState:
-            seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
-            return fn(state, seed)
-
-        return run_kernel
+        return dataclasses.replace(fn, fn=lambda state: fn(state, draw_seed(generator)),
+                                   generator=generator)
 
     step = make_stoch_step(fa, device)
     dev_gen = torch.Generator(device=device)
@@ -320,14 +323,28 @@ def restore_generators(extra: dict, generator: torch.Generator, runner, mesh=Non
 
 def make_multi_stoch_runner(chunk, chunk_steps: int, max_chunks: int):
     """``run(state) -> (state, steps_advanced)`` running up to
-    ``max_chunks`` chunks of the chunk runner ``chunk``, stopping after the
-    first chunk that leaves any chain done: the host-loop twin of the JAX
-    package's on-device loop (JAX :267-309), with the same early-exit
-    window and an exact ``steps_advanced`` (``models/loop.run_chunks``,
-    which the ODE engine's multi-chunk runner uses too)."""
+    ``max_chunks`` chunks of the chunk runner ``chunk``, testing before each
+    chunk whether any chain is done (JAX :267-309), with an exact
+    ``steps_advanced``. A kernel runner (B3 or B4) on a CUDA state runs the
+    dispatch as one graph launch that stops on the card
+    (``ops/device_loop.py``), with the ``max_chunks`` seeds the host loop
+    would draw drawn first, one at a time in its order; the twin, and the
+    kernels' plain version on the CPU, run the host loop of
+    ``models/loop.run_chunks``, the device loop's plain version (the JAX
+    scan path is host-paced too, JAX :277-279)."""
     from odesat_tpu_torch.models.loop import run_chunks
+    from odesat_tpu_torch.ops import device_loop
 
-    return run_chunks(chunk, chunk_steps, max_chunks)
+    on_card = isinstance(chunk, device_loop.KernelChunk)
+    host = run_chunks(chunk, chunk_steps, max_chunks)
+
+    def run(state: StochState):
+        if on_card and state.v.device.type == "cuda":
+            seeds = [draw_seed(chunk.generator) for _ in range(max_chunks)]
+            return device_loop.run(chunk, state, max_chunks, seeds=seeds)
+        return host(state)
+
+    return run
 
 
 def search(

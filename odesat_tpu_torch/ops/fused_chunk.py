@@ -47,6 +47,7 @@ kernel for CUDA tensors and runs the plain version only for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import sys
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -65,6 +66,7 @@ from odesat_tpu_torch.constants import (
     XL_CAP_PER_CLAUSE,
 )
 from odesat_tpu_torch.ops import _cuda
+from odesat_tpu_torch.ops.device_loop import KernelChunk
 from odesat_tpu_torch.ops.tiles import TILE
 
 SMEM_LIMIT_BYTES = 232448  # 227 KB: the most dynamic shared memory an H100 CTA may use
@@ -467,7 +469,7 @@ _F = ctypes.c_float
 
 
 def _declare(lib) -> None:
-    lib.fused_chunk_launch.argtypes = [_P] * 14 + [_I] * 12 + [_F] * 4 + [_P]
+    lib.fused_chunk_launch.argtypes = [_P] * 14 + [_I] * 12 + [_F] * 4 + [_P, _I, _P]
     lib.fused_chunk_launch.restype = _I
     lib.fused_chunk_smem_bytes.argtypes = [_I] * 6
     lib.fused_chunk_smem_bytes.restype = ctypes.c_size_t
@@ -515,6 +517,31 @@ def check_state(state, spec: ChunkSpec) -> None:
             raise ValueError(f"state.{name} is not contiguous")
 
 
+def _launch(lib, state, out, spec: FusedSpec, chunk_steps: int, stream, stop=0,
+            stop_all=False) -> None:
+    """One launch from ``state`` into ``out`` (the same buffers for a chunk
+    in place) on ``stream``, with the device loop's stop hook at the device
+    address ``stop`` (0: none). Raises if the launch is refused."""
+    B = state.v.shape[0]
+    R = launch_lanes(spec.lanes, B, spec.device)
+    rc = lib.fused_chunk_launch(
+        *(t.data_ptr() for t in state),
+        *(t.data_ptr() for t in out),
+        spec.lit_code.data_ptr(), spec.occ_ptr.data_ptr(), spec.occ_slot.data_ptr(),
+        spec.segments.data_ptr(), spec.segments.shape[0],
+        B, spec.Np, spec.Mp, spec.K, spec.occ_slot.numel(), int(chunk_steps),
+        int(spec.fixed), int(spec.paper), int(spec.bf16),
+        R, lane_threads(R, spec.Np, spec.Mp),
+        spec.zeta, spec.dt_fixed or 0.0, spec.tol, spec.xl_cap,
+        stop, int(stop_all), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            "fused chunk kernel launch failed: "
+            + lib.fused_chunk_error_string(rc).decode()
+        )
+
+
 def fused_chunk_cuda(state, spec: FusedSpec, chunk_steps: int):
     """Launch the kernel once on the current stream of the state's device.
     Raises if the state is not what the kernel takes or if the launch is
@@ -528,35 +555,22 @@ def fused_chunk_cuda(state, spec: FusedSpec, chunk_steps: int):
         return type(state)(*(t.clone() for t in state))
     lib, _ = load_library()
     out = [torch.empty_like(t) for t in state]
-    R = launch_lanes(spec.lanes, B, spec.device)
     with torch.cuda.device(spec.device):
-        stream = torch.cuda.current_stream(spec.device).cuda_stream
-        rc = lib.fused_chunk_launch(
-            *(t.data_ptr() for t in state),
-            *(t.data_ptr() for t in out),
-            spec.lit_code.data_ptr(), spec.occ_ptr.data_ptr(), spec.occ_slot.data_ptr(),
-            spec.segments.data_ptr(), spec.segments.shape[0],
-            B, spec.Np, spec.Mp, spec.K, spec.occ_slot.numel(), int(chunk_steps),
-            int(spec.fixed), int(spec.paper), int(spec.bf16),
-            R, lane_threads(R, spec.Np, spec.Mp),
-            spec.zeta, spec.dt_fixed or 0.0, spec.tol, spec.xl_cap,
-            stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            "fused chunk kernel launch failed: "
-            + lib.fused_chunk_error_string(rc).decode()
-        )
+        _launch(lib, state, out, spec, chunk_steps,
+                torch.cuda.current_stream(spec.device).cuda_stream)
     launches += 1
     return type(state)(*out)
 
 
 def make_fused_chunk(fa: FormulaArrays, zeta: float, ode, chunk_steps: int, device):
-    """Build ``fn(state, dev=None) -> state`` advancing every trajectory
-    ``chunk_steps`` steps in one kernel launch. CUDA states go through the
-    kernel; CPU states (the tests) through :func:`fused_chunk_plain`;
-    anything else raises. ``dev`` is accepted for signature parity with
-    the scan runner and ignored: the formula is in ``fn.spec``."""
+    """Build the runner ``fn(state, dev=None) -> state`` advancing every
+    trajectory ``chunk_steps`` steps in one kernel launch, a
+    :class:`~odesat_tpu_torch.ops.device_loop.KernelChunk`. CUDA states go
+    through the kernel; CPU states (the tests) through
+    :func:`fused_chunk_plain`; anything else raises. ``dev`` is accepted for
+    signature parity with the scan runner and ignored: the formula is in
+    ``fn.spec``."""
+
     spec = chunk_spec(fa, zeta, ode, device)
 
     def fn(state, dev=None):
@@ -567,5 +581,10 @@ def make_fused_chunk(fa: FormulaArrays, zeta: float, ode, chunk_steps: int, devi
             return fused_chunk_plain(state, spec, chunk_steps)
         raise ValueError(f"no fused chunk path for tensors on {state.v.device}")
 
-    fn.spec = spec
-    return fn
+    def body(state, stream, stop, stop_all, seeds=0, seed_index=0):
+        # the device loop's body: one launch in place on the loop's buffers
+        check_state(state, spec)
+        _launch(load_library()[0], state, state, spec, chunk_steps, stream, stop, stop_all)
+        return ()
+
+    return KernelChunk(fn, body, chunk_steps, (sys.modules[__name__], "launches"), spec)

@@ -54,6 +54,7 @@ Pallas chain blocking (:func:`traj_block`), reproduced bit for bit by
 from __future__ import annotations
 
 import ctypes
+import sys
 from dataclasses import dataclass
 from types import SimpleNamespace
 from typing import NamedTuple, Optional
@@ -64,6 +65,7 @@ import torch
 from odesat_tpu_torch.cnf.arrays import FormulaArrays
 from odesat_tpu_torch.constants import STOCH_ALPHA
 from odesat_tpu_torch.ops import _cuda
+from odesat_tpu_torch.ops.device_loop import KernelChunk
 from odesat_tpu_torch.ops.fused_chunk import (
     LANE_THREADS,
     SMEM_LIMIT_BYTES,
@@ -368,7 +370,7 @@ _I = ctypes.c_int
 def _declare(lib) -> None:
     for name in ("stoch_fused_launch", "stoch_stream_launch"):
         fn = getattr(lib, name)
-        fn.argtypes = [_P] * 11 + [_I] * 7 + [ctypes.c_uint] + [_I] * 4 + [_P]
+        fn.argtypes = [_P] * 11 + [_I] * 7 + [ctypes.c_uint] + [_I] * 4 + [_P, _I, _P, _P, _P]
         fn.restype = _I
     lib.stoch_fused_smem_bytes.argtypes = [_I] * 5
     lib.stoch_fused_smem_bytes.restype = ctypes.c_size_t
@@ -409,9 +411,12 @@ def _check(state, spec: StochSpec) -> None:
 
 
 def _launch(entry: str, state, spec: StochChunkSpec, chunk_steps: int, seed: int, bf16: bool,
-            most: Optional[int], lanes: Optional[int]):
+            most: Optional[int], lanes: Optional[int], out=None, stream=None, hook=(0, 0, 0, 0)):
     """Launch ``entry`` at ``lanes`` chains a CTA (None: ``launch_lanes`` of
-    ``most``, the kernel's largest R)."""
+    ``most``, the kernel's largest R) into fresh outputs, or into ``out``
+    (the state's own buffers for a chunk in place) on ``stream`` (default:
+    the current one), with the device loop's hook ``(stop, stop_all, seeds,
+    seed_index)`` (device addresses, 0: none)."""
     if spec.device.type != "cuda":
         raise ValueError(f"the stoch chunk kernels run on CUDA tensors, not {spec.device}")
     if not 0 <= int(seed) < 2**32:
@@ -427,16 +432,20 @@ def _launch(entry: str, state, spec: StochChunkSpec, chunk_steps: int, seed: int
                             spec.occ_clause.numel(), R)
     threads = stoch_threads(R, smem, -(-B // R), sm_count(spec.device), spec.Np, spec.Mp)
     lib, _ = load_library()
-    out = type(state)(*(torch.empty_like(t) for t in state))
+    if out is None:
+        out = type(state)(*(torch.empty_like(t) for t in state))
+    stop, stop_all, seeds, seed_index = hook
     with torch.cuda.device(spec.device):
-        stream = torch.cuda.current_stream(spec.device).cuda_stream
+        if stream is None:
+            stream = torch.cuda.current_stream(spec.device).cuda_stream
         rc = getattr(lib, entry)(
             *(t.data_ptr() for t in state),
             *(t.data_ptr() for t in out),
             spec.lit_code.data_ptr(), spec.pos_ptr.data_ptr(), spec.pos_clause.data_ptr(),
             spec.var_order.data_ptr(), spec.segments.data_ptr(), spec.segments.shape[0],
             B, spec.Np, spec.Mp, spec.K, spec.occ_clause.numel(), int(chunk_steps),
-            int(seed), traj_block(B), int(bf16), R, threads, stream,
+            int(seed), traj_block(B), int(bf16), R, threads,
+            stop, int(stop_all), seeds, seed_index, stream,
         )
     if rc != 0:
         raise RuntimeError(
@@ -841,9 +850,13 @@ def make_stoch_chunk(fa: FormulaArrays, chunk_steps: int, kernel: str, matmul_dt
                      device):
     """Build ``fn(state, seed) -> state`` advancing every chain
     ``chunk_steps`` steps in one launch of ``kernel`` ("fused": B3,
-    "stream": B4). CUDA states go through the kernel, CPU states (the
-    tests) through :func:`stoch_chunk_plain`; anything else raises.
-    ``seed`` is the launch's 31-bit PRNG seed."""
+    "stream": B4), a :class:`~odesat_tpu_torch.ops.device_loop.KernelChunk`.
+    CUDA states go through the kernel, CPU states (the tests) through
+    :func:`stoch_chunk_plain`; anything else raises. ``seed`` is the
+    launch's 31-bit PRNG seed. Its device-loop body is one launch in place,
+    its seed read on the card from the loop's seed table at the loop's chunk
+    count."""
+
     supported = {"fused": stoch_fused_supported, "stream": stoch_stream_supported}[kernel]
     if not supported(fa):
         raise ValueError(f"stoch {kernel} kernel unsupported for this formula "
@@ -861,5 +874,13 @@ def make_stoch_chunk(fa: FormulaArrays, chunk_steps: int, kernel: str, matmul_dt
                                      traj_block(state.v.shape[0]), bf16)
         raise ValueError(f"no stoch chunk path for tensors on {state.v.device}")
 
-    fn.spec = spec
-    return fn
+    entry, most = (("stoch_fused_launch", spec.fused_lanes) if kernel == "fused" else
+                   ("stoch_stream_launch", spec.stream_lanes))
+
+    def body(state, stream, stop, stop_all, seeds, seed_index):
+        _launch(entry, state, spec, chunk_steps, 0, bf16, most, None, out=state, stream=stream,
+                hook=(stop, stop_all, seeds, seed_index))
+        return ()
+
+    return KernelChunk(fn, body, chunk_steps, (sys.modules[__name__], f"{kernel}_launches"),
+                       spec)

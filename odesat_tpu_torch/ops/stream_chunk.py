@@ -43,6 +43,7 @@ plane.
 from __future__ import annotations
 
 import ctypes
+import sys
 from dataclasses import dataclass
 from typing import Optional
 
@@ -51,6 +52,7 @@ import torch
 
 from odesat_tpu_torch.cnf.arrays import FormulaArrays
 from odesat_tpu_torch.ops import _cuda
+from odesat_tpu_torch.ops.device_loop import KernelChunk
 from odesat_tpu_torch.ops.fused_chunk import (
     SMEM_LIMIT_BYTES,
     ChunkSpec,
@@ -164,7 +166,8 @@ _F = ctypes.c_float
 
 
 def _declare(lib) -> None:
-    lib.stream_chunk_launch.argtypes = [_P] * 14 + [_I] + [_P] + [_I] * 11 + [_F] * 4 + [_P]
+    lib.stream_chunk_launch.argtypes = ([_P] * 14 + [_I] + [_P] + [_I] * 11 + [_F] * 4
+                                        + [_P, _I, _P])
     lib.stream_chunk_launch.restype = _I
     lib.stream_chunk_smem_bytes.argtypes = [_I] * 3
     lib.stream_chunk_smem_bytes.restype = ctypes.c_size_t
@@ -200,6 +203,32 @@ def raise_for(lib, rc: int, what: str) -> None:
                            + lib.stream_chunk_error_string(rc).decode())
 
 
+def _launch(lib, state, out, spec: StreamSpec, chunk_steps: int, stream, stop=0,
+            stop_all=False) -> torch.Tensor:
+    """One launch from ``state`` into ``out`` (the same buffers for a chunk
+    in place) on ``stream``, with a fresh tiled scratch buffer, which it
+    returns (a captured launch keeps using it), and the device loop's stop
+    hook at the device address ``stop`` (0: none). Raises if the launch is
+    refused."""
+    B = state.v.shape[0]
+    R, nnz = launch_lanes(spec.lanes, B, spec.device), spec.occ_slot.numel()
+    per_tile = stream_scratch_floats(spec.Np, spec.Mp, nnz, spec.fixed, R)
+    scratch = torch.empty(n_tiles(B, R) * per_tile, dtype=torch.float32, device=spec.device)
+    rc = lib.stream_chunk_launch(
+        *(t.data_ptr() for t in state),
+        *(t.data_ptr() for t in out),
+        spec.lit_code.data_ptr(), spec.occ_ptr.data_ptr(), spec.slot_pos.data_ptr(),
+        spec.segments.data_ptr(), spec.segments.shape[0], scratch.data_ptr(), B, spec.Np,
+        spec.Mp, spec.K, nnz, int(chunk_steps),
+        int(spec.fixed), int(spec.paper), int(spec.bf16),
+        R, lane_threads(R, spec.Np, spec.Mp),
+        spec.zeta, spec.dt_fixed or 0.0, spec.tol, spec.xl_cap,
+        stop, int(stop_all), stream,
+    )
+    raise_for(lib, rc, "stream chunk kernel")
+    return scratch
+
+
 def stream_chunk_cuda(state, spec: StreamSpec, chunk_steps: int):
     """Launch B2 once on the current stream of the state's device, with a
     fresh tiled scratch buffer. Raises if the state is not what the kernel
@@ -213,32 +242,22 @@ def stream_chunk_cuda(state, spec: StreamSpec, chunk_steps: int):
         return type(state)(*(t.clone() for t in state))
     lib, _ = load_library()
     out = [torch.empty_like(t) for t in state]
-    R, nnz = launch_lanes(spec.lanes, B, spec.device), spec.occ_slot.numel()
-    per_tile = stream_scratch_floats(spec.Np, spec.Mp, nnz, spec.fixed, R)
-    scratch = torch.empty(n_tiles(B, R) * per_tile, dtype=torch.float32, device=spec.device)
     with torch.cuda.device(spec.device):
-        stream = torch.cuda.current_stream(spec.device).cuda_stream
-        rc = lib.stream_chunk_launch(
-            *(t.data_ptr() for t in state),
-            *(t.data_ptr() for t in out),
-            spec.lit_code.data_ptr(), spec.occ_ptr.data_ptr(), spec.slot_pos.data_ptr(),
-            spec.segments.data_ptr(), spec.segments.shape[0], scratch.data_ptr(), B, spec.Np, spec.Mp, spec.K, nnz, int(chunk_steps),
-            int(spec.fixed), int(spec.paper), int(spec.bf16),
-            R, lane_threads(R, spec.Np, spec.Mp),
-            spec.zeta, spec.dt_fixed or 0.0, spec.tol, spec.xl_cap,
-            stream,
-        )
-    raise_for(lib, rc, "stream chunk kernel")
+        _launch(lib, state, out, spec, chunk_steps,
+                torch.cuda.current_stream(spec.device).cuda_stream)
     launches += 1
     return type(state)(*out)
 
 
 def make_stream_chunk(fa: FormulaArrays, zeta: float, ode, chunk_steps: int, device):
-    """Build ``fn(state, dev=None) -> state`` advancing every trajectory
-    ``chunk_steps`` steps in one launch of B2. CUDA states go through the
-    kernel; CPU states (the tests) through :func:`stream_chunk_plain`;
-    anything else raises. ``dev`` is accepted for signature parity with the
-    scan runner and ignored: the formula is in ``fn.spec``."""
+    """Build the runner ``fn(state, dev=None) -> state`` advancing every
+    trajectory ``chunk_steps`` steps in one launch of B2, a
+    :class:`~odesat_tpu_torch.ops.device_loop.KernelChunk`. CUDA states go
+    through the kernel; CPU states (the tests) through
+    :func:`stream_chunk_plain`; anything else raises. ``dev`` is accepted
+    for signature parity with the scan runner and ignored: the formula is in
+    ``fn.spec``."""
+
     spec = stream_spec(fa, zeta, ode, device)
 
     def fn(state, dev=None):
@@ -249,5 +268,11 @@ def make_stream_chunk(fa: FormulaArrays, zeta: float, ode, chunk_steps: int, dev
             return stream_chunk_plain(state, spec, chunk_steps)
         raise ValueError(f"no stream chunk path for tensors on {state.v.device}")
 
-    fn.spec = spec
-    return fn
+    def body(state, stream, stop, stop_all, seeds=0, seed_index=0):
+        # the device loop's body: one launch in place on the loop's
+        # buffers; the loop keeps the scratch for as long as its graph
+        check_state(state, spec)
+        return (_launch(load_library()[0], state, state, spec, chunk_steps, stream, stop,
+                        stop_all),)
+
+    return KernelChunk(fn, body, chunk_steps, (sys.modules[__name__], "launches"), spec)

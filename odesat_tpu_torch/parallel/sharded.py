@@ -221,9 +221,10 @@ def _step_chunk(step, chunk_steps):
 def make_sharded_multi_runner(chunk, chunk_steps: int, max_chunks: int, mesh, device,
                               stop_on: str = "any"):
     """``run(state) -> (state, steps_advanced)``: up to ``max_chunks`` calls
-    of ``chunk``, with the stop flag all-reduced over the world after every
-    chunk, so every rank stops after the same one and ``steps_advanced`` is
-    exact (JAX :332-414, :862-922), for either engine. It is the host loop
+    of ``chunk``, with the stop flag all-reduced over the world before every
+    chunk, so every rank stops before the same one (a state stopped at entry
+    runs none) and ``steps_advanced`` is exact (JAX :332-414, :862-922), for
+    either engine. It is the host loop
     of ``models/loop.run_chunks`` and takes any chunk runner, so the JAX
     package's eligibility probes (``sharded_multi_supported`` and its stoch
     twin, which gated an on-device loop) have no counterpart."""
@@ -403,6 +404,27 @@ def run_ode_cases(mesh, device, cases):
         copies[mesh.clause_index] = state.v
         all_reduce(copies, mesh.clause_group)
         out.append((*fetch_state(state, mesh), copies.cpu().numpy()))
+    return out if mesh.rank == 0 else None
+
+
+def run_multi_cases(mesh, device, cases):
+    """For each ``(fa, zeta, ode, chunk_steps, max_chunks, stop_on,
+    arrays)``: shard the global NumPy state ``arrays`` (v, xs, xl, dt,
+    done), run one dispatch of :func:`make_sharded_multi_runner` and return
+    on rank 0 (None elsewhere) ``(state as NumPy, steps_advanced)``."""
+    from odesat_tpu_torch.interop import state_from_numpy
+    from odesat_tpu_torch.models.ode import formula_device, state_dtype
+
+    out = []
+    for fa, zeta, ode, chunk_steps, max_chunks, stop_on, arrays in cases:
+        state = state_from_numpy(*arrays, device=device)
+        dev = formula_device(fa, device, dtype=state_dtype(ode))
+        state, dev = shard_inputs(state, dev, mesh)
+        chunk = make_sharded_chunk_runner(fa, zeta, ode, chunk_steps, mesh, device)
+        multi = make_sharded_multi_runner(lambda st: chunk(st, dev), chunk_steps, max_chunks,
+                                          mesh, device, stop_on)
+        state, steps = multi(state)
+        out.append((fetch_state(state, mesh), steps))
     return out if mesh.rank == 0 else None
 
 

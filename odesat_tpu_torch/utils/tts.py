@@ -13,9 +13,17 @@ Chunked early exit makes steps-to-solution chunk-granular, so
 power-of-two sub-chunks run from the pre-chunk state find the exact first
 step at which a row is done in about log2(chunk) short launches. The
 integration is the production path (``models/ode.make_chunk_runner``,
-the same kernels, B1 on a card); only the driving loop differs. The
-port's runners write fresh outputs and leave their input as it was, so
-the loop keeps the pre-chunk state as it is: no copy, no replay.
+the same kernels, B1 on a card); only the driving loop differs.
+
+A kernel runner (B1, B2) with a budget of at least two chunks takes the
+JAX package's one-dispatch path: the whole chunk ladder in one dispatch of
+the multi-chunk runner (on a card one graph launch that stops on the card,
+``ops/device_loop.py``), then, off the clock, a replay of all but the last
+chunk from the initial state through the same runner (the kernels are
+deterministic), and the bisection as before. ``chunks`` then counts the
+dispatch as one, as JAX's does. Other runners, and budgets under two
+chunks, stay host-paced: there the runners write fresh outputs and leave
+their input as it was, so the loop keeps the pre-chunk state: no replay.
 """
 
 from __future__ import annotations
@@ -108,9 +116,11 @@ def solve_exact(
     (formula identity, chunk length), because a chunk runner holds the
     formula's content (a kernel's tables), not just its shape; each entry
     pins its formula, so sweeps :func:`evict_formula` each instance when
-    done with it. The solve chunk's runner is warmed on the initial state
-    outside the timed region (its output is discarded)."""
+    done with it. The solve chunk's runner (the one-dispatch path: its
+    graph, at a bound of one chunk) is warmed on the initial state outside
+    the timed region (its output is discarded)."""
     from odesat_tpu_torch.models import ode as ode_mod
+    from odesat_tpu_torch.ops.device_loop import KernelChunk
     from odesat_tpu_torch.utils.timing import sync
 
     if runner_cache is None:
@@ -150,6 +160,9 @@ def solve_exact(
         return ExactSolve(steps=base + off + 1, solved=True, chunks=chunks, wall_s=wall,
                           solved_index=idx, assignment=assignment)
 
+    if budget // chunk >= 2 and isinstance(runner(chunk), KernelChunk):
+        return _one_dispatch(fa, zeta, ode, chunk, budget, device, state, dev, runner, finish)
+
     sync(runner(min(chunk, budget))(state, dev) if budget > 0 else state)  # warm-up
     steps = 0
     chunks = 0
@@ -169,6 +182,43 @@ def solve_exact(
                           wall_s=time.perf_counter() - t0)
     wall = time.perf_counter() - t0
     return finish(prev, state, steps - n, n, chunks, wall)
+
+
+def _one_dispatch(fa, zeta, ode, chunk, budget, device, state, dev, runner,
+                  finish) -> ExactSolve:
+    """:func:`solve_exact`'s one-dispatch path (JAX utils/tts.py:180-232):
+    one timed dispatch of ``budget // chunk`` chunks from the initial
+    state, the budget tail shorter than a chunk host-paced, then off the
+    clock the replay of all but the final chunk and the bisection."""
+    from odesat_tpu_torch.models.ode import make_multi_chunk_runner
+    from odesat_tpu_torch.utils.timing import sync
+
+    def multi(n):
+        return make_multi_chunk_runner(fa, zeta, ode, chunk, n, device, chunk=runner(chunk))
+
+    # warm the runner off the clock at ONE chunk: the bound is written at
+    # each launch, so this builds the very graph the timed dispatch reuses
+    sync(multi(1)(state, dev)[0])
+    t0 = time.perf_counter()
+    out, adv = multi(budget // chunk)(state, dev)  # the dispatch copies: state stays
+    done = sync(out)
+    wall = time.perf_counter() - t0
+    chunks, steps = 1, int(adv)
+    if not done.any():
+        rem = budget - steps
+        if rem > 0:  # the budget tail, shorter than one chunk, host-paced
+            before_tail = out
+            t1 = time.perf_counter()
+            out = runner(rem)(out, dev)
+            done = sync(out)
+            wall += time.perf_counter() - t1
+            chunks += 1
+            if done.any():
+                return finish(before_tail, out, steps, rem, chunks, wall)
+        return ExactSolve(steps=budget, solved=False, chunks=chunks, wall_s=wall)
+    n_chunks = steps // chunk
+    prev = multi(n_chunks - 1)(state, dev)[0] if n_chunks > 1 else state
+    return finish(prev, out, steps - chunk, chunk, chunks, wall)
 
 
 def tts_breakdown(steps: int, chunks: int, batch: int, kernel_rate: float,

@@ -13,9 +13,13 @@ orders); B10 equals its plain version (the kernel-order RHS) exactly and the
 twin to float32 rtol 2e-4 / atol 2e-5 (tests/test_fused.py's), float64
 1e-12; repeats bit-identical; a resumed run (B1, B2, B3, B4, the hybrid,
 B6 and B9 at S=2) equals the uninterrupted one bit for bit, and solve_exact
-through B1 its single-step replay exactly; B7 at S=2 and S=4 ranks on the
-card equals its plain version bit for bit (a NaN equal to any NaN).
+through B1 (its one-dispatch path) its single-step replay exactly; B7 at S=2
+and S=4 ranks on the card equals its plain version bit for bit (a NaN equal
+to any NaN); the device loop (one graph launch a dispatch) equals the host
+loop over the same kernels bit for bit, steps included.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -1171,4 +1175,130 @@ def test_solve_exact_through_b1_equals_its_single_step_replay(cuda, chunk):
             truth = step
             break
     assert truth == res.steps
-    assert res.chunks == -(-truth // chunk)
+    assert res.chunks == 1  # one dispatch of the device loop
+
+
+# ------------------------------------------------------- the device loop
+
+
+def _partly_solved(fa, B, seed, device):
+    """A state of ``B`` rows with every fourth row done at entry (the rows
+    it holds frozen, as a multi-chunk loop meets them)."""
+    state = _state(fa, B, seed, device)
+    done = state.done.clone()
+    done[::4] = True
+    return state._replace(done=done)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fused", "stream"])
+@pytest.mark.parametrize("mode", ["fixed", "adaptive"])
+@pytest.mark.parametrize("stop_on", ["any", "all"])
+@pytest.mark.parametrize("bound", [0, 1, 3, 60])
+def test_device_loop_equals_the_host_loop_through_b1_and_b2(cuda, kernel, mode, stop_on, bound):
+    """A planted 3-SAT at B=64 from the all-running start and from a state
+    with done rows, every bound: one graph launch gives the host loop's
+    state bit for bit and its steps; B1's and B2's counts grow by the
+    chunks run."""
+    from odesat_tpu_torch.models.loop import run_chunks
+    from odesat_tpu_torch.ops import device_loop
+    from odesat_tpu_torch.ops import stream_chunk as stc
+
+    fa = compile_formula(normalize_cnf_variables(random_ksat(50, 200, seed=3, planted=True))[1])
+    ode = ODEConfig(step_size=0.05 if mode == "fixed" else None)
+    make = fc.make_fused_chunk if kernel == "fused" else stc.make_stream_chunk
+    fn = make(fa, 0.05, ode, 8, cuda)
+    mod = fc if kernel == "fused" else stc
+    for state in (_state(fa, 64, 2, cuda), _partly_solved(fa, 64, 2, cuda)):
+        want, steps = run_chunks(fn, 8, bound, stop_all=stop_on == "all")(state)
+        graphs, before = device_loop.launches, mod.launches
+        got, got_steps = device_loop.run(fn, state, bound, stop_all=stop_on == "all")
+        torch.cuda.synchronize()
+        assert device_loop.launches == graphs + 1
+        assert got_steps == steps and mod.launches == before + steps // 8
+        for name in ("v", "xs", "xl", "dt", "done"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fused", "stream"])
+@pytest.mark.parametrize("bound", [0, 1, 5, 200])
+def test_device_loop_equals_the_host_loop_through_b3_and_b4(cuda, kernel, bound):
+    """The stoch multi runner on the card (one graph launch, the seeds read
+    on the card) against the host loop over the same kernel and a generator
+    of the same seed: the same chains flip for flip, the same steps, and a
+    dispatch that ran every chunk leaves the generators equal."""
+    from odesat_tpu_torch.models.loop import run_chunks
+    from odesat_tpu_torch.models.stoch import (
+        draw_seed,
+        init_stoch_state,
+        make_multi_stoch_runner,
+    )
+    from odesat_tpu_torch.ops import device_loop
+    from odesat_tpu_torch.ops import stoch_chunk as sc
+
+    fa = compile_formula(normalize_cnf_variables(random_ksat(40, 140, seed=3, planted=True))[1])
+    state = init_stoch_state(fa, 200, cuda)
+    gens = [torch.Generator().manual_seed(7) for _ in range(2)]
+    chunks = []
+    for g in gens:  # the chunk runner of models/stoch.py, at either kernel
+        fn = sc.make_stoch_chunk(fa, 8, kernel, "float32", cuda)
+        chunks.append(dataclasses.replace(fn, fn=lambda st, g=g, fn=fn: fn(st, draw_seed(g)),
+                                          generator=g))
+    want, steps = run_chunks(chunks[0], 8, bound)(state)
+    graphs = device_loop.launches
+    got, got_steps = make_multi_stoch_runner(chunks[1], 8, bound)(state)
+    torch.cuda.synchronize()
+    assert device_loop.launches == graphs + 1 and got_steps == steps
+    for name in ("v", "xl", "done"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    if steps == 8 * bound:
+        assert torch.equal(gens[0].get_state(), gens[1].get_state())
+
+
+@pytest.mark.cuda
+def test_device_loop_from_a_stopped_state_runs_no_chunk(cuda):
+    """Every row done ("all") or one row done ("any") at entry: the graph
+    launches, runs no chunk and hands the state back unchanged."""
+    from odesat_tpu_torch.ops import device_loop
+
+    fa = compile_formula(_formula())
+    fn = fc.make_fused_chunk(fa, 0.05, ODEConfig(step_size=0.02), 8, cuda)
+    state = _state(fa, 37, 0, cuda)
+    for stop_all, rows in ((False, [5]), (True, list(range(37)))):
+        done = state.done.clone()
+        done[rows] = True
+        entry = state._replace(done=done)
+        before = fc.launches
+        out, steps = device_loop.run(fn, entry, 10, stop_all=stop_all)
+        torch.cuda.synchronize()
+        assert steps == 0 and fc.launches == before
+        for name in ("v", "xs", "xl", "dt", "done"):
+            assert torch.equal(getattr(out, name), getattr(entry, name)), name
+
+
+@pytest.mark.cuda
+def test_a_graph_that_cannot_be_built_raises(cuda, monkeypatch):
+    """A body launch that the kernel's entry refuses (a CTA of 2000
+    threads) raises from the device loop with the CUDA error, and the
+    multi-chunk runner never turns to the host loop; a good graph builds
+    afterwards."""
+    from odesat_tpu_torch.models import loop
+    from odesat_tpu_torch.ops import device_loop
+
+    fa = compile_formula(_formula())
+    ode = ODEConfig(step_size=0.02)
+    fn = fc.make_fused_chunk(fa, 0.05, ode, 8, cuda)
+    state = _state(fa, 37, 0, cuda)
+    monkeypatch.setattr(fc, "lane_threads", lambda *a: 2000)
+    monkeypatch.setattr(loop, "run_chunks", lambda *a, **k: pytest.fail("fell back"))
+    multi = tode.make_multi_chunk_runner(fa, 0.05, ode, 8, 4, cuda, chunk=fn)
+    with pytest.raises(RuntimeError, match="fused chunk kernel launch failed"):
+        multi(state)
+    monkeypatch.undo()
+    out, steps = device_loop.run(fn, state, 4)
+    want = state
+    for _ in range(steps // 8):
+        want = fn(want)
+    torch.cuda.synchronize()
+    assert steps == 32 and torch.equal(out.v, want.v) and torch.equal(out.done, want.done)
