@@ -210,7 +210,28 @@ Phases, each printing its lines; the first failure exits non-zero:
     beyond the chunk kernel (the decide kernel and the conditional node,
     CUDA events over empty bodies) against the host loop's done read, one
     dispatch of 0 chunks, and phase 6's busy share: its 16 B1 launches
-    times phase 7's B1 time over its loop wall.
+    times phase 7's B1 time over its loop wall;
+26. the pod mesh (parallel/multihost.py): two CLI processes of one job on
+    this host (the CLI's main in ``python -c``, ``--coordinator
+    127.0.0.1:<free port> --num-processes 2 --process-id 0|1 --dist-backend
+    gloo``, each bounded by a timeout), which share the one card: the
+    TCPStore world, global ranks, clause groups inside a process, the shared
+    seed and the verdict on every process, not NVLink or a network. a.
+    inter on the config 7 instance -b 1024 -n 64 --seed 0 --pod-mesh
+    --clause-shards 2 with LOCAL_WORLD_SIZE=2 (a 2x2 mesh): false after
+    exactly 64 steps on both processes (or a solved row that verifies), B6
+    on all four ranks with B7 fused and no standalone B7 call, the ranks of
+    both processes on the same libraries, process 0 alone writing -o, whose
+    assignment and steps equal the single-process --devices 2
+    --clause-shards 2 run's bit for bit; b. inter on uf250 -b 4096 -n 20000
+    --pod-mesh, one rank a process: true on both, B1 on each rank; c. stoch
+    --no-preprocess on config 7 -b 1024 -n 32 --pod-mesh --clause-shards 2:
+    B9 on all four ranks, 32 steps or a verified row; d. process 1 alone
+    with --dist-timeout 10: a non-zero exit, an error and no verdict; e.
+    each pair's wall and a process's start-up (its CLI run less its solve
+    and its import) beside phase 20's single-process one, and the 2x2 pod's
+    inter step through B6 (host clock around 2 chunks of 16, as phase 21
+    times S=2).
 
 ``python3 chip_smoke.py --time-loop ROOT`` runs, with the port at ROOT (a
 parent tree unpacked beside this one, or this one), phase 6's and phase
@@ -525,6 +546,7 @@ def phase_determinism(torch, fc, hard, uf250):
 
 
 MAIN_PATH_GRAPHS = {"launches": 0}  # device-loop graph launches of the CLI runs below
+MESH_STARTUP = {}  # phase 20's CLI mesh runs: the whole run less the solve, s
 
 
 def loop_counter():
@@ -2142,6 +2164,7 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
             fail(f"{label}: expected false after exactly {budget} steps or a verified solution")
         totals[kernel] += sum(counts)
         totals["butterfly_fused"] += sum(fused)
+        MESH_STARTUP[label] = t_run - seconds
 
     # b. the ODE clause mesh at S=2 against the S=1 runner, row for row, c.
     # the stoch clause path at S=2 against S=1, flip for flip, e. the
@@ -3459,6 +3482,241 @@ def time_loop(root):
     return 0
 
 
+# ------------------------------------------------ the pod mesh (phase 26)
+
+# One process of a pod: the CLI's own main on argv[2:], then its ranks'
+# launch counts, the libraries its ranks loaded and its clock; with argv[1]
+# "time", then also a 2x2 world of the same pod timing config 7's B6 step.
+POD_DRIVER = """
+import json, sys, time
+t0 = time.perf_counter()
+from odesat_tpu_torch import cli
+from odesat_tpu_torch.ops import _cuda
+from odesat_tpu_torch.parallel import launch, multihost, sharded
+t_import = time.perf_counter() - t0
+rc = cli.main(sys.argv[2:])
+t_cli = time.perf_counter() - t0
+print("[pod] " + json.dumps({"reports": launch.last_reports, "import_s": t_import,
+                             "cli_s": t_cli, "libraries": sorted(
+                                 _cuda.build(n)["path"] for n in launch.CUDA_SOURCES)}),
+      flush=True)
+if rc == 0 and sys.argv[1] == "time":
+    from odesat_tpu_torch.cnf import normalize_cnf_variables, parse_dimacs_file
+    from odesat_tpu_torch.ops.shard_stream import compile_stream_sharded
+    from odesat_tpu_torch.utils.config import ODEConfig
+    argv = sys.argv[2:]
+    fa = compile_stream_sharded(normalize_cnf_variables(parse_dimacs_file(
+        argv[argv.index("-f") + 1]))[1], 2)[0]
+    ode = ODEConfig(step_size=0.01)
+    ms = launch.spawn(sharded.time_ode_chunk, 2, 2, "gloo", "cuda", timeout_s=300,
+                      args=(fa, ode.resolve_zeta(fa.density), ode, 16, 1024, 2),
+                      collective_timeout_s=120, pod=multihost.current_pod())
+    print("[pod] " + json.dumps({"step_ms": ms}), flush=True)
+sys.exit(rc)
+"""
+POD_TIMEOUT_S = 240  # each process of a pair
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def pod_start(argv, local_ranks, mode="cli", processes=(0, 1), timeout=60, outputs=None):
+    """Start processes ``processes`` of a two-process pod on this host (both,
+    or one alone), each running POD_DRIVER over the CLI's ``argv`` with the
+    coordinator flags, ``LOCAL_WORLD_SIZE=local_ranks`` and a collective
+    timeout of ``timeout`` s (``outputs[i]``: process i's ``-o``). Returns
+    (start time, the processes)."""
+    coord = f"127.0.0.1:{free_port()}"
+    env = {**os.environ, "LOCAL_WORLD_SIZE": str(local_ranks)}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", POD_DRIVER, mode, *argv, "--coordinator", coord,
+         "--num-processes", "2", "--process-id", str(i), "--dist-backend", "gloo",
+         "--dist-timeout", str(timeout), *(["-o", outputs[i]] if outputs else [])],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=ROOT, env=env)
+        for i in processes]
+    return t0, procs
+
+
+def pod_wait(label, started):
+    """Wait for a pair from :func:`pod_start`, each process bounded by
+    POD_TIMEOUT_S (then every one is killed and the phase fails). Returns
+    (wall s, [(returncode, stdout, its [pod] records merged)])."""
+    t0, procs = started
+    results = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=POD_TIMEOUT_S)
+            records = {}
+            for line in out.splitlines():
+                if line.startswith("[pod] "):
+                    records.update(json.loads(line[len("[pod] "):]))
+            results.append((p.returncode, out, records))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        fail(f"26{label}: a process of the pod outlived {POD_TIMEOUT_S} s")
+    return time.perf_counter() - t0, results
+
+
+def pod_verdict(label, rc, out):
+    """(verdict, steps, solved, solve seconds) of a pod process's CLI run."""
+    if rc != 0:
+        fail(f"26{label}: a process of the pod exited {rc}:\n{out[-4000:]}")
+    m = re.search(r"Steps run: (\d+) \| (?:trajectories|chains) solved: (\d+)/(\d+) \| "
+                  r"([0-9.]+) s", out)
+    verdict = re.search(r"Checking if solution vector satisfies formula: (true|false)", out)
+    if m is None or verdict is None:
+        fail(f"26{label}: a process printed no steps line or verdict:\n{out[-4000:]}")
+    return verdict.group(1), int(m.group(1)), int(m.group(2)), float(m.group(4))
+
+
+def pod_launches(label, results, kernel, ranks):
+    """Each rank's launches of ``kernel``, B7's fused reads and its
+    standalone calls over the pair, in global rank order; fails unless all
+    ``ranks`` ranks launched ``kernel`` and both processes' ranks loaded the
+    same libraries."""
+    reports = [r for _, _, records in results for r in records.get("reports", [])]
+    counts = [r[kernel] for r in reports]
+    if len(counts) != ranks or min(counts) == 0:
+        fail(f"26{label}: {kernel} launched on ranks {counts}, expected all {ranks}")
+    libraries = {tuple(records.get("libraries", ())) for _, _, records in results}
+    if len(libraries) != 1:
+        fail(f"26{label}: the processes loaded different libraries {libraries}")
+    return counts, [r["butterfly_fused"] for r in reports], [r["butterfly"] for r in reports]
+
+
+def pod_startup(results, runs):
+    """Each process's start-up: its CLI run less its solve and its import of
+    the package (the parse, the compile, the join over the TCPStore, the
+    spawn and the ranks' own start-up), s."""
+    return [round(rec["cli_s"] - rec["import_s"] - run[3], 3)
+            for (_, _, rec), run in zip(results, runs)]
+
+
+def pod_budget(label, runs, budget):
+    for verdict, steps, solved, _ in runs:
+        if not ((verdict == "false" and steps == budget and solved == 0) or
+                (solved and verdict == "true")):
+            fail(f"26{label}: expected false after exactly {budget} steps or a verified "
+                 f"solution, got {verdict} after {steps} with {solved} solved")
+
+
+def phase_pod(card):
+    """Phase 26: the pod mesh on the card, two CLI processes of one job on
+    this host (gloo; they share the one card, so this proves the TCPStore
+    world, the global ranks, clause groups inside a process, the shared seed
+    and the verdict on every process, not NVLink or a network). Returns the
+    launches of B1, B6, B9 and B7 fused of its CLI runs, summed over the
+    ranks."""
+    c7_path = os.path.join(OUT, "local_n10240_m43700.cnf")  # written by phase 20
+    uf_path = os.path.join(OUT, "uf250_seed0.cnf")  # written by phase 5
+    launches = {"fused_chunk": 0, "shard_chunk": 0, "stoch_shard_chunk": 0,
+                "butterfly_fused": 0}
+    c7_20 = MESH_STARTUP.get("b. inter config 7 B=1024", float("nan"))
+
+    # a. a 2x2 mesh on config 7: a clause group of two inside each process,
+    # the trajectory axis across the processes; then its B6 step timed in a
+    # second world of the same pod. Each process has its own -o, so that a
+    # write by process 1 would show.
+    outs = [os.path.join(OUT, f"pod_a_{i}.txt") for i in range(2)]
+    ref_out = os.path.join(OUT, "pod_a_one_process.txt")
+    for path in (*outs, ref_out):
+        if os.path.exists(path):
+            os.remove(path)
+    argv = ["inter", "-f", c7_path, "-b", "1024", "-s", "0.01", "-n", "64", "--seed", "0"]
+    wall, results = pod_wait("a", pod_start(argv + ["--pod-mesh", "--clause-shards", "2"], 2,
+                                            "time", outputs=outs))
+    runs = [pod_verdict("a", rc, out) for rc, out, _ in results]
+    pod_budget("a", runs, 64)
+    b6, fused, standalone = pod_launches("a", results, "shard_chunk", 4)
+    if min(fused) == 0 or sum(standalone):
+        fail(f"26a: B7 fused reads per rank {fused}, standalone B7 calls {standalone}")
+    if not os.path.exists(outs[0]) or os.path.exists(outs[1]):
+        fail(f"26a: -o written by {[os.path.exists(p) for p in outs]}, expected process 0 "
+             "alone")
+    launches["shard_chunk"] += sum(b6)
+    launches["butterfly_fused"] += sum(fused)
+    step_ms = results[0][2].get("step_ms")
+    if step_ms is None:
+        fail("26a: the 2x2 step timing printed nothing")
+    startup = pod_startup(results, runs)
+    # the same command on one process: --devices 2 --clause-shards 2
+    t_one = time.perf_counter()
+    verdict, reports, steps, solved, seconds, _ = run_cli_mesh(
+        argv[0], [*argv[1:], "--devices", "2", "--clause-shards", "2", "--dist-backend", "gloo",
+                  "-o", ref_out])
+    t_one = time.perf_counter() - t_one
+    with open(outs[0], encoding="utf-8") as a_fh, open(ref_out, encoding="utf-8") as r_fh:
+        same = a_fh.read() == r_fh.read()
+    if not same or {r[1] for r in runs} != {steps} or {r[0] for r in runs} != {verdict}:
+        fail(f"26a: the pod's assignment and steps {[r[:2] for r in runs]} differ from the "
+             f"single-process 2x2 run's ({verdict}, {steps}; assignment equal: {same})")
+    one_b6 = [r["shard_chunk"] for r in reports]
+    launches["shard_chunk"] += sum(one_b6)
+    launches["butterfly_fused"] += sum(r["butterfly_fused"] for r in reports)
+    say(f"[pod] a. inter config 7 -b 1024 -n 64 --seed 0 --pod-mesh --clause-shards 2, 2 "
+        f"processes x LOCAL_WORLD_SIZE=2 (a 2x2 mesh, a clause group inside each process): "
+        f"verdicts {[r[0] for r in runs]} after {[r[1] for r in runs]} steps, B6 launches per "
+        f"rank {b6}, of them reading both ranks' slots (B7 fused) {fused}, standalone B7 "
+        f"{standalone}; process 0 alone wrote -o, equal to the single-process --devices 2 "
+        f"--clause-shards 2 run's bit for bit ({verdict} after {steps} steps, B6 per rank "
+        f"{one_b6}) ({card})")
+    say(f"[pod timing] a. the pair's wall {wall:.1f} s with its timing world; start-up a "
+        f"process (its CLI run less its solve and its import) {startup} s, beside phase 20's "
+        f"single-process S=2 run on config 7 {c7_20:.3f} s and this single-process 2x2 run "
+        f"{t_one - seconds:.3f} s; the 2x2 pod's inter step through B6 {step_ms:.6f} ms (host "
+        f"clock around 2 chunks of 16 steps, B=1024 a trajectory row; two processes of two "
+        f"ranks sharing the card) ({card})")
+
+    # b. a trajectory-only pod: one rank a process, B1 on each; d. a lone
+    # process 1 of a pair whose process 0 never comes, at the same time
+    lone = pod_start(["inter", "-f", uf_path, "-b", "4096", "-s", "0.01", "-n", "20000",
+                      "--seed", "0", "--pod-mesh"], 1, processes=(1,), timeout=10)
+    wall_b, results = pod_wait("b", pod_start(["inter", "-f", uf_path, "-b", "4096", "-s",
+                                               "0.01", "-n", "20000", "--seed", "0",
+                                               "--pod-mesh"], 1))
+    runs = [pod_verdict("b", rc, out) for rc, out, _ in results]
+    if [r[0] for r in runs] != ["true", "true"]:
+        fail(f"26b: verdicts {[r[0] for r in runs]}, expected true on both processes")
+    b1, _, _ = pod_launches("b", results, "fused_chunk", 2)
+    launches["fused_chunk"] += sum(b1)
+    say(f"[pod] b. inter uf250 -b 4096 -n 20000 --seed 0 --pod-mesh, 2 processes of one rank "
+        f"(the trajectory axis across them): verdicts {[r[0] for r in runs]}, "
+        f"{[r[2] for r in runs]} solved after {[r[1] for r in runs]} steps, B1 launches per "
+        f"rank {b1}; pair wall {wall_b:.1f} s, start-up a process {pod_startup(results, runs)} "
+        f"s ({card})")
+    wall_d, ((rc, out, _),) = pod_wait("d", lone)
+    if rc == 0 or "Checking if solution vector" in out or "error:" not in out or wall_d > 60:
+        fail(f"26d: a lone process 1 exited {rc} after {wall_d:.1f} s:\n{out[-3000:]}")
+    say(f"[pod] d. process 1 alone (no process 0 hosts the store), --dist-timeout 10: exit "
+        f"{rc} after {wall_d:.1f} s with no verdict: "
+        f"{next(line for line in out.splitlines() if line.startswith('error:'))[:200]}")
+
+    # c. the stoch engine on the 2x2 pod through B9
+    wall_c, results = pod_wait("c", pod_start(["stoch", "--no-preprocess", "-f", c7_path, "-b",
+                                               "1024", "-n", "32", "--seed", "0", "--pod-mesh",
+                                               "--clause-shards", "2"], 2))
+    runs = [pod_verdict("c", rc, out) for rc, out, _ in results]
+    pod_budget("c", runs, 32)
+    b9, fused, standalone = pod_launches("c", results, "stoch_shard_chunk", 4)
+    if min(fused) == 0 or sum(standalone):
+        fail(f"26c: B7 fused reads per rank {fused}, standalone B7 calls {standalone}")
+    launches["stoch_shard_chunk"] += sum(b9)
+    launches["butterfly_fused"] += sum(fused)
+    say(f"[pod] c. stoch --no-preprocess config 7 -b 1024 -n 32 --pod-mesh --clause-shards 2 "
+        f"(2x2): verdicts {[r[0] for r in runs]} after {[r[1] for r in runs]} steps, B9 "
+        f"launches per rank {b9}, B7 fused {fused}, standalone B7 {standalone}; pair wall "
+        f"{wall_c:.1f} s, start-up a process {pod_startup(results, runs)} s ({card})")
+    return launches
+
+
 def main():
     if sys.argv[1:2] == ["--time-b10"]:
         return time_b10(sys.argv[2])
@@ -3568,11 +3826,16 @@ def main():
     loop_ms, loop_plain = phase_loop_timing(torch, card, unsat_wall,
                                             times[("hard.cnf B=16384", "fixed")][0])
     clock("phase 25 (the device loop)")
+    pod_launches = phase_pod(card)
+    clock("phase 26 (the pod mesh)")
     if "jax" in sys.modules:
         fail("jax was imported")
     say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
-    # the main paths' launches: phases 5-6, 10, 13, 16, 20 and the hybrid's (22)
-    launches += hybrid_launches["fused_chunk"]
+    # the main paths' launches: phases 5-6, 10, 13, 16, 20, the hybrid's (22)
+    # and the pod's (26)
+    launches += hybrid_launches["fused_chunk"] + pod_launches["fused_chunk"]
+    for name in ("shard_chunk", "stoch_shard_chunk", "butterfly_fused"):
+        mesh_launches[name] += pod_launches[name]
     b2_launches += hybrid_launches["stream_chunk"]
     for name in ("stoch_fused", "stoch_stream"):
         stoch_launches[name] += hybrid_launches[name]

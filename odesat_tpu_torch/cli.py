@@ -40,9 +40,26 @@ a card (or run on the CPU) need ``gloo``, which the caller chooses.
 JAX CLI (a bare flag means ``on``). Every solver subcommand takes the JAX
 CLI's ``--checkpoint PATH --checkpoint-every N`` (a snapshot every N chunks,
 rank 0 writing on a mesh), ``--resume PATH`` and ``--profile-dir DIR`` (a
-``torch.profiler`` chrome trace of the solve loop). The multi-host flags
-(``--pod-mesh``, ``--coordinator``, ``--num-processes``, ``--process-id``)
-are not ported and not accepted.
+``torch.profiler`` chrome trace of the solve loop).
+
+Multi-host jobs take the JAX CLI's flags. ``--coordinator HOST:PORT
+--num-processes P --process-id I`` (all three, or exit 2) make this
+command process ``I`` of a job of ``P``, one a host, each started with the
+same command line: process 0 hosts a ``TCPStore`` on the coordinator's
+port, every process starts ``L`` ranks (the visible cards under
+``nccl``; ``LOCAL_WORLD_SIZE`` for ``gloo`` ranks sharing a card or on the
+CPU; else 1) as global ranks ``I*L`` on, and the processes agree through
+the store on the seed (process 0's ``--seed``, or its draw). ``--pod-mesh``
+spans the mesh over every rank of the job (``T = P*L/S``; ``--devices`` is
+ignored) and without a coordinator over this process's ``L`` ranks; with a
+coordinator and no ``--pod-mesh``, ``--devices T --clause-shards S`` must
+give ``T*S = P*L``. Either way ``S`` must divide ``L`` (exit 2), so every
+clause group lies inside one process, and the trajectory axis spans the
+processes. Every process prints the verdict lines; process 0 alone writes
+``-o`` (its rank 0 the snapshots). A coordinator that does not answer, or a
+peer process that never joins or dies, ends every process with a non-zero
+exit within ``--dist-timeout`` seconds (default 600), never in a
+single-process run.
 """
 
 from __future__ import annotations
@@ -62,6 +79,7 @@ from odesat_tpu_torch.cnf import (
 from odesat_tpu_torch.utils.config import ODEConfig, SolverConfig
 
 DV_STRATEGIES = ["auto", "gather", "segment_sum", "fused", "stream", "pallas"]
+DEFAULT_DIST_TIMEOUT_S = 600.0  # parallel/multihost.DEFAULT_TIMEOUT_S, without importing torch
 
 
 def _add_ode(p: argparse.ArgumentParser, batch_required: bool) -> None:
@@ -127,6 +145,23 @@ def _add_mesh(p: argparse.ArgumentParser) -> None:
         "or B8, the update in torch). Default 'auto' takes the chunk where eligible; a bare "
         "--shard-chunk forces it on",
     )
+    p.add_argument(
+        "--pod-mesh", action="store_true",
+        help="span the mesh over EVERY rank of the (multi-host) job: the clause axis "
+        "(--clause-shards) fills one process's ranks, so its all-reduce never leaves a host, "
+        "the trajectory axis takes the rest (--devices is ignored); without --coordinator, "
+        "this process's ranks (LOCAL_WORLD_SIZE for gloo, the visible cards for nccl)",
+    )
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="the job's coordinator (multi-host): process 0 hosts a TCPStore there")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="process count for --coordinator")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's index for --coordinator")
+    p.add_argument("--dist-timeout", type=float, default=DEFAULT_DIST_TIMEOUT_S,
+                   metavar="SECONDS",
+                   help="bound on every wait of a mesh or multi-host run: reaching the "
+                   "coordinator, the peers joining, each collective")
 
 
 def _add_dt_mode(p: argparse.ArgumentParser) -> None:
@@ -311,8 +346,11 @@ def _finish(mapped_values: dict, formula, output) -> None:
     render_str = render_variable_map(mapped_values)
     if output:
         print("Writing results to file...")
-        with open(output, "w", encoding="utf-8") as fh:
-            fh.write(render_str)
+        from odesat_tpu_torch.parallel.dist import is_primary
+
+        if is_primary():  # one writer a job: process 0 of a pod
+            with open(output, "w", encoding="utf-8") as fh:
+                fh.write(render_str)
     else:
         print(f"Variable assignments:\n{render_str}")
 
@@ -347,30 +385,73 @@ def _mesh_solve(mesh, device, engine, problem, config, kwargs):
     return simulate_batch(problem, config, device=device, mesh=mesh, **kwargs)
 
 
+def _error(msg: str):
+    print(f"error: {msg}", file=sys.stderr)
+    raise SystemExit(2)
+
+
+def _mesh_shape(args) -> tuple:
+    """``(T, S)`` of the run's mesh from the mesh flags and the pod this
+    process joined (``main``); exits 2 for a shape the flags or the pod
+    cannot have."""
+    from odesat_tpu_torch.parallel.multihost import (
+        check_clause_groups,
+        current_pod,
+        local_rank_count,
+    )
+
+    S, pod = args.clause_shards, current_pod()
+    if args.pod_mesh or pod is not None:
+        local = pod.local_world_size if pod is not None else \
+            _or_exit(local_rank_count, args.dist_backend, args.device)
+        ranks = pod.world_size if pod is not None else local
+        _or_exit(check_clause_groups, local, S)
+        T = ranks // S if args.pod_mesh else args.devices
+        if T * S != ranks:
+            _error(f"--devices {T} x --clause-shards {S} is not the job's {ranks} ranks "
+                   f"({pod.num_processes} processes of {local}); pass --pod-mesh to span them")
+        return T, S
+    T = args.devices
+    if T < 1 or S < 1:
+        _error(f"--devices and --clause-shards must be at least 1, not {T} and {S}")
+    return T, S
+
+
 def _mesh_call(args, engine, normalized, config, **kwargs):
     """``_solve``'s checks of the mesh flags and its set-up: returns ``T``,
     ``S`` and the arguments of :func:`_mesh_solve` after ``mesh`` and
     ``device``; on a mesh with the seed drawn (every rank must draw the
-    same numbers) and the formula compiled for the mesh once, here."""
-    T, S = args.devices, args.clause_shards
-    if T < 1 or S < 1:
-        print(f"error: --devices and --clause-shards must be at least 1, not {T} and {S}",
-              file=sys.stderr)
-        raise SystemExit(2)
+    same numbers: in a pod, process 0's reaches the others through the
+    store) and the formula compiled for the mesh once, here."""
+    T, S = _mesh_shape(args)
     if args.shard_chunk == "on" and S <= 1:
-        print("error: --shard-chunk requires --clause-shards >= 2 (it is the clause mesh's "
-              "kernel)", file=sys.stderr)
-        raise SystemExit(2)
+        _error("--shard-chunk requires --clause-shards >= 2 (it is the clause mesh's kernel)")
     problem = normalized
     if T * S > 1:
         import dataclasses
         from types import SimpleNamespace
 
         from odesat_tpu_torch.cnf import FormulaArrays
+        from odesat_tpu_torch.parallel.multihost import current_pod
         from odesat_tpu_torch.parallel.sharded import compile_for_mesh
 
-        if config.seed is None:
-            config = dataclasses.replace(config, seed=int.from_bytes(os.urandom(4), "little"))
+        seed = config.seed
+        if seed is None:
+            seed = int.from_bytes(os.urandom(4), "little")
+        pod = current_pod()
+        if pod is not None:
+            import json
+
+            shared = json.loads(pod.broadcast("run", json.dumps({"seed": seed,
+                                                                 "mesh": [T, S]})))
+            if shared["mesh"] != [T, S]:
+                _error(f"process 0 runs a {shared['mesh'][0]}x{shared['mesh'][1]} mesh, this "
+                       f"process {T}x{S}: every process takes the same mesh flags")
+            if config.seed is not None and shared["seed"] != config.seed:
+                _error(f"process 0 runs --seed {shared['seed']}, this process --seed "
+                       f"{config.seed}: every process takes the same seed")
+            seed = shared["seed"]
+        config = dataclasses.replace(config, seed=seed)
         if not isinstance(normalized, FormulaArrays):
             problem = _or_exit(compile_for_mesh, normalized, config, SimpleNamespace(n_clause=S),
                                engine)
@@ -384,8 +465,10 @@ def _solve(args, engine, normalized, config, device, **kwargs):
     if T * S == 1:
         return _or_exit(_mesh_solve, None, device, *call)
     from odesat_tpu_torch.parallel.launch import spawn
+    from odesat_tpu_torch.parallel.multihost import current_pod
 
-    return _or_exit(spawn, _mesh_solve, T, S, args.dist_backend, device.type, args=call)
+    return _or_exit(spawn, _mesh_solve, T, S, args.dist_backend, device.type, args=call,
+                    collective_timeout_s=args.dist_timeout, pod=current_pod())
 
 
 def mesh_call(argv):
@@ -450,12 +533,12 @@ def cmd_solve(args) -> int:
     var_mapping, normalized = _normalize(reduced, args)
 
     print("Simulating...")
-    if args.devices > 1:
+    T = _mesh_shape(args)[0]
+    if T > 1:
         import dataclasses
 
         # the micro-batch must split evenly over the trajectory axis
-        config = dataclasses.replace(
-            config, batch_size=-(-config.batch_size // args.devices) * args.devices)
+        config = dataclasses.replace(config, batch_size=-(-config.batch_size // T) * T)
     result = _solve(args, "ode", normalized, config, device)
     _steps_line(result)
 
@@ -480,7 +563,7 @@ def cmd_batch(args) -> int:
     from odesat_tpu_torch.cnf import compile_formula
 
     problem = normalized
-    if args.clause_shards == 1:
+    if _mesh_shape(args)[1] == 1:
         # the JAX CLI's layout for batch: no width buckets (a clause mesh
         # compiles for the mesh)
         problem = compile_formula(normalized, clause_pad=config.clause_pad,
@@ -609,9 +692,30 @@ COMMANDS = {"solve": cmd_solve, "batch": cmd_batch, "inter": cmd_inter, "stoch":
             "hybrid": cmd_hybrid, "gen": cmd_gen}
 
 
+def _join(args) -> None:
+    """Join the job as one of its processes when the coordinator flags are
+    given (before any work, as the JAX CLI does): half-given or
+    out-of-range flags exit 2, a coordinator that does not answer within
+    ``--dist-timeout`` exits 1."""
+    flags = (args.coordinator, args.num_processes, args.process_id)
+    if flags == (None, None, None):
+        return
+    from odesat_tpu_torch.parallel.multihost import initialize_distributed
+
+    try:
+        _or_exit(initialize_distributed, args.dist_backend, args.device,
+                 coordinator=args.coordinator, num_processes=args.num_processes,
+                 process_id=args.process_id, timeout_s=args.dist_timeout)
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        raise SystemExit(1) from None
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = _build_parser().parse_args(argv)
+    if args.cmd != "gen":
+        _join(args)
     return COMMANDS[args.cmd](args)
 
 

@@ -39,8 +39,10 @@ The design on the card (:class:`Communicator`, one a clause group):
   caching allocator does), holding a page of flags and ``SLOTS`` partial
   slots, and exports it with ``cudaIpcGetMemHandle``; the handles travel
   once over the group (``all_gather_object``) and the peers map them with
-  ``cudaIpcOpenMemHandle``. A peer on another card must be reachable
-  (``cudaDeviceCanAccessPeer``), else set-up raises. Every mapping is closed
+  ``cudaIpcOpenMemHandle``. Every rank of the group must run on this host
+  (a pod keeps each clause group inside one process's ranks,
+  ``parallel/multihost.make_pod_mesh``), and a peer on another card must be
+  reachable (``cudaDeviceCanAccessPeer``), else set-up raises. Every mapping is closed
   behind barriers before any rank frees its buffer (:meth:`Communicator.close`,
   called by a growth, by :func:`close_all` and by ``parallel/launch.py``'s
   worker exit). A process cannot open its own handle; at S = 1 there is no
@@ -107,6 +109,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import socket
 from typing import Optional
 
 import torch
@@ -318,10 +321,18 @@ class Communicator:
             bus = ctypes.create_string_buffer(_BUS)
             _raise_for(lib, lib.bfly_bus_id(self.index, bus, _BUS), "set-up (bus id)")
             info = [None] * self.size
-            dist.all_gather_object(info, (handle.raw, bus.value), group=self.group)
+            dist.all_gather_object(info, (handle.raw, bus.value, socket.gethostname()),
+                                   group=self.group)
+            hosts = [host for _, _, host in info]
+            if len(set(hosts)) > 1:
+                lib.bfly_free(own)
+                raise RuntimeError(f"B7 set-up failed: the clause group's ranks run on hosts "
+                                   f"{hosts}; CUDA IPC maps buffers within one host only, so a "
+                                   "clause group must lie inside one process of a pod "
+                                   "(make_pod_mesh)")
             bases = []
             try:
-                for k, (raw, peer_bus) in enumerate(info):
+                for k, (raw, peer_bus, _) in enumerate(info):
                     if k == self.rank:
                         bases.append(own.value)
                         continue

@@ -884,3 +884,12 @@ def make_stoch_chunk(fa: FormulaArrays, chunk_steps: int, kernel: str, matmul_dt
 
     return KernelChunk(fn, body, chunk_steps, (sys.modules[__name__], f"{kernel}_launches"),
                        spec)
+
+
+def make_fused_stoch_chunk(fa: FormulaArrays, chunk_steps: int, *, device,
+                           matmul_dtype: str = "float32"):
+    """B3's chunk under the JAX package's name (``make_fused_stoch_chunk``):
+    :func:`make_stoch_chunk` with the resident kernel. The port's state
+    holds no PRNG key, so the chunk takes its launch's seed: ``fn(state,
+    seed) -> state``."""
+    return make_stoch_chunk(fa, chunk_steps, "fused", matmul_dtype, device)

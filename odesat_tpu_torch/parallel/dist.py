@@ -33,9 +33,16 @@ import torch.distributed as dist
 
 
 def is_primary() -> bool:
-    """True on the rank that prints and writes files (always without a
-    world)."""
-    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+    """True on the rank that prints and writes files, process 0's first
+    rank (global rank 0), and in a process that joined no world on process
+    0 of its pod (always without a pod): one writer on a shared
+    filesystem."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank() == 0
+    from odesat_tpu_torch.parallel.multihost import current_pod
+
+    pod = current_pod()
+    return pod is None or pod.process_id == 0
 
 
 def all_reduce(t: torch.Tensor, group=None, op: str = "sum") -> torch.Tensor:

@@ -1,16 +1,21 @@
 """Start the ranks of a ``T x S`` mesh: the torch counterpart of the JAX
 package's single-controller process, where one process drove every device.
 
-:func:`spawn` starts ``T*S`` worker processes with the ``spawn`` start
-method (``fork`` after CUDA has been initialised breaks), each of which
-joins the world (``multihost.initialize_distributed`` over a ``FileStore``
-in a fresh temporary directory, so concurrent runs never share a store or
-a port), builds the :class:`~odesat_tpu_torch.parallel.mesh.Mesh` and calls
-``fn(mesh, device, *args)``. Rank 0's return value comes back to the
-parent, with every rank's report of its kernel launch counts (for a
-:func:`run_all` world, each call's own as well). A worker
-that raises or exits non-zero, or a run that outlives ``timeout_s``, makes
-the parent kill the others and raise.
+:func:`spawn` starts worker processes with the ``spawn`` start method
+(``fork`` after CUDA has been initialised breaks), each of which joins the
+world (``multihost.initialize_distributed``), builds the
+:class:`~odesat_tpu_torch.parallel.mesh.Mesh` and calls ``fn(mesh, device,
+*args)``. On one host it starts all ``T*S`` ranks, over a ``FileStore`` in
+a fresh temporary directory, so concurrent runs never share a store or a
+port. In a pod (``multihost.Pod``, one per process of a multi-host job) it
+starts this process's ``L`` ranks, global ranks ``process_id * L`` on, over
+the pod's ``TCPStore``, and the other processes start theirs. The value of
+this process's first rank comes back to the parent (rank 0's on one host),
+with a report of each of its ranks' kernel launch counts (for a
+:func:`run_all` world, each call's own as well). A worker that raises or
+exits non-zero, or a run that outlives ``timeout_s``, makes the parent kill
+the others and raise; a peer process that never joins or dies makes the
+ranks' waits and collectives fail within ``collective_timeout_s``.
 
 The worker entry lives in this package, so that ``fn`` and its arguments
 unpickle in a fresh interpreter anywhere the package imports. They travel
@@ -35,9 +40,13 @@ import tempfile
 import time
 import traceback
 
-from odesat_tpu_torch.parallel.multihost import DEFAULT_TIMEOUT_S, check_backend
+from odesat_tpu_torch.parallel.multihost import (
+    DEFAULT_TIMEOUT_S,
+    check_backend,
+    check_clause_groups,
+)
 
-# Per-rank reports of the last spawn in this process (rank order): kernel
+# The reports of the last spawn's ranks in this process (rank order): kernel
 # launch counts, and after run_all each call's own under "calls".
 # chip_smoke.py reads them.
 last_reports: list = []
@@ -87,10 +96,13 @@ def _rank_report() -> dict:
     return report
 
 
-def _worker(rank, world, n_clause, backend, device, store_path, timeout_s, payload, results):
-    """One rank: read ``(fn, args)`` from the file ``payload``, join, build
-    the mesh, run ``fn``, report, close B7's buffers (``ops/butterfly.py``),
-    leave."""
+def _worker(rank, world, first, local_world, n_clause, backend, device, store, timeout_s,
+            payload, results):
+    """One rank: read ``(fn, args)`` from the file ``payload``, join (over
+    ``store``, ``initialize_distributed``'s keywords: a ``store_path``, or a
+    ``coordinator`` and its ``store_prefix``), build the mesh, run ``fn``,
+    report (with its value, on the process's ``first`` rank), close B7's
+    buffers (``ops/butterfly.py``), leave."""
     import torch.distributed as dist
 
     code = 0
@@ -107,7 +119,8 @@ def _worker(rank, world, n_clause, backend, device, store_path, timeout_s, paylo
         from odesat_tpu_torch.parallel.multihost import initialize_distributed
 
         dev = initialize_distributed(backend, device, rank=rank, world_size=world,
-                                     store_path=store_path, timeout_s=timeout_s)
+                                     local_rank=rank - first, local_world_size=local_world,
+                                     timeout_s=timeout_s, **store)
         mesh = Mesh(world // n_clause, n_clause)
         value = fn(mesh, dev, *args)
         if "jax" in sys.modules:
@@ -115,7 +128,7 @@ def _worker(rank, world, n_clause, backend, device, store_path, timeout_s, paylo
         if "odesat_tpu_torch.ops.butterfly" in sys.modules:
             # B7's mappings close behind barriers before any rank frees or leaves
             sys.modules["odesat_tpu_torch.ops.butterfly"].close_all()
-        results.put(("ok", rank, value if rank == 0 else None, _rank_report()))
+        results.put(("ok", rank, value if rank == first else None, _rank_report()))
     except Exception as e:  # noqa: BLE001 - the rank's failure goes back to the parent
         code = 1
         results.put(("error", rank, type(e).__name__, f"{e}\n{traceback.format_exc()}"))
@@ -140,37 +153,51 @@ def build_cuda_sources() -> None:
 
 def spawn(fn, n_traj: int, n_clause: int, backend: str = "nccl", device: str = "cuda",
           timeout_s: float | None = None, args: tuple = (),
-          collective_timeout_s: float = DEFAULT_TIMEOUT_S):
+          collective_timeout_s: float = DEFAULT_TIMEOUT_S, pod=None):
     """Run ``fn(mesh, device, *args)`` on every rank of a ``n_traj x
-    n_clause`` world and return rank 0's value. ``fn`` must be importable
-    from the package (a module-level function). ``timeout_s`` bounds the
-    whole run (None: unbounded); ``collective_timeout_s`` each collective.
-    Raises ValueError for what the backend cannot serve, and for a worker's
-    ValueError (its message), WorkerError for any other failure."""
+    n_clause`` world and return the value of this process's first rank
+    (rank 0 on one host). ``fn`` must be importable from the package (a
+    module-level function). ``pod`` (a ``multihost.Pod``): the world spans
+    every process of the pod, ``n_traj * n_clause`` must equal its ranks,
+    ``n_clause`` must divide a process's, and every process of the pod
+    calls ``spawn`` with the same mesh. ``timeout_s`` bounds the whole run
+    (None: unbounded); ``collective_timeout_s`` each wait and collective.
+    Raises ValueError for what the backend or the pod cannot serve, and for
+    a worker's ValueError (its message), WorkerError for any other
+    failure."""
     global last_reports
     if n_traj < 1 or n_clause < 1:
         raise ValueError(f"a mesh needs at least one rank on each axis, not {n_traj}x{n_clause}")
     world = n_traj * n_clause
-    check_backend(backend, device, world)
+    local, first = world, 0
+    if pod is not None:
+        local, first = pod.local_world_size, pod.first_rank
+        if world != pod.world_size:
+            raise ValueError(f"mesh {n_traj}x{n_clause} does not match the pod's "
+                             f"{pod.num_processes} processes of {local} ranks")
+        check_clause_groups(local, n_clause)
+    check_backend(backend, device, local)
     if device == "cuda":
         build_cuda_sources()
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     tmp = tempfile.mkdtemp(prefix="odesat_dist_")
-    store_path = os.path.join(tmp, "store")
+    store = {"store_path": os.path.join(tmp, "store")} if pod is None else \
+        {"coordinator": pod.coordinator, "store_prefix": pod.prefix()}
     payload = os.path.join(tmp, "payload.pkl")
     with open(payload, "wb") as fh:
         pickle.dump((fn, args), fh, protocol=pickle.HIGHEST_PROTOCOL)
+    ranks = range(first, first + local)
     procs = [ctx.Process(target=_worker, daemon=True,
-                         args=(r, world, n_clause, backend, device, store_path,
+                         args=(r, world, first, local, n_clause, backend, device, store,
                                collective_timeout_s, payload, results))
-             for r in range(world)]
+             for r in ranks]
     try:
         for p in procs:
             p.start()
         reports, value, error = {}, None, None
         t0 = time.monotonic()
-        while len(reports) < world and error is None:
+        while len(reports) < local and error is None:
             try:
                 msg = results.get(timeout=0.2)
             except queue.Empty:
@@ -181,7 +208,7 @@ def spawn(fn, n_traj: int, n_clause: int, backend: str = "nccl", device: str = "
                     try:
                         msg = results.get(timeout=1.0)
                     except queue.Empty:
-                        error = ("WorkerError", f"rank {procs.index(dead[0])} exited "
+                        error = ("WorkerError", f"rank {ranks[procs.index(dead[0])]} exited "
                                  f"{dead[0].exitcode}")
                         break
                 elif timeout_s is not None and time.monotonic() - t0 > timeout_s:
@@ -193,12 +220,12 @@ def spawn(fn, n_traj: int, n_clause: int, backend: str = "nccl", device: str = "
                 error = (msg[2], f"rank {msg[1]}: {msg[3]}")
             else:
                 reports[msg[1]] = msg[3]
-                if msg[1] == 0:
+                if msg[1] == first:
                     value = msg[2]
         if error is None:
             for p in procs:
                 p.join(timeout=60)
-            bad = [(i, p.exitcode) for i, p in enumerate(procs) if p.exitcode != 0]
+            bad = [(r, p.exitcode) for r, p in zip(ranks, procs) if p.exitcode != 0]
             if bad:
                 error = ("WorkerError", f"ranks exited non-zero: {bad}")
     finally:
@@ -214,7 +241,9 @@ def spawn(fn, n_traj: int, n_clause: int, backend: str = "nccl", device: str = "
         if kind == "ValueError":
             raise ValueError(text.splitlines()[0].split(": ", 1)[-1])
         raise WorkerError(f"{kind}: {text}")
-    last_reports = [reports[r] for r in range(world)]
+    last_reports = [reports[r] for r in ranks]
+    if pod is not None:
+        pod.finish()
     return value
 
 
@@ -239,6 +268,17 @@ def on_mesh(mesh, device, shape, fn, *args):
     from odesat_tpu_torch.parallel.mesh import Mesh
 
     return fn(Mesh(*shape), device, *args)
+
+
+def where(mesh, device):
+    """Every rank's ``(traj index, clause index, parent process id)``,
+    gathered on every rank in rank order: where the mesh put each rank, and
+    which process of the job started it."""
+    import torch.distributed as dist
+
+    seen = [None] * dist.get_world_size()
+    dist.all_gather_object(seen, (mesh.traj_index, mesh.clause_index, os.getppid()))
+    return seen
 
 
 def probe(mesh, device):

@@ -1,5 +1,5 @@
 """The ``(traj, clause)`` mesh over an initialized ``torch.distributed``
-world: the port of ``odesat_tpu.parallel.mesh.make_mesh``.
+world: the port of ``odesat_tpu.parallel.mesh``.
 
 Rank ``r`` sits at ``(r // S, r % S)`` of a ``T x S`` grid. The ranks of one
 trajectory row share a block of trajectories and split its clause axis:
@@ -46,3 +46,13 @@ class Mesh:
     def __repr__(self) -> str:
         return (f"Mesh(traj={self.n_traj}, clause={self.n_clause}, rank {self.rank} at "
                 f"({self.traj_index}, {self.clause_index}))")
+
+
+def make_mesh(n_traj: int | None = None, n_clause: int = 1) -> Mesh:
+    """The ``(traj, clause)`` mesh over the initialized world, called on
+    every rank (JAX ``make_mesh``): by default every rank on the trajectory
+    axis. Raises ValueError when ``n_traj * n_clause`` is not the world."""
+    world = dist.get_world_size()
+    if n_traj is None:
+        n_traj = world // n_clause
+    return Mesh(n_traj, n_clause)

@@ -377,6 +377,21 @@ def fetch_state(state, mesh):
     return type(state)(**out)
 
 
+def simulate_batch_sharded(formula, config, mesh, *, device, generator=None, v0=None,
+                           stop_on: str = "any"):
+    """The mesh-sharded batched solve (JAX :939-952): ``formula`` compiled
+    for the mesh (:func:`compile_for_mesh`, unless it is compiled already),
+    then ``models/ode.simulate_batch`` on ``mesh``. Called on every rank of
+    the world (``parallel/launch.spawn``); the result holds the global
+    batch on every rank."""
+    from odesat_tpu_torch.models.ode import simulate_batch
+
+    fa = formula if isinstance(formula, FormulaArrays) else \
+        compile_for_mesh(formula, config, mesh)
+    return simulate_batch(fa, config, device=device, generator=generator, v0=v0,
+                          stop_on=stop_on, mesh=mesh)
+
+
 # --------------------------------------------- runs for parity checks
 #
 # Module-level functions that parallel/launch.spawn can run on every rank:
@@ -387,9 +402,10 @@ def fetch_state(state, mesh):
 def run_ode_cases(mesh, device, cases):
     """For each ``(fa, zeta, ode, steps, arrays)``: shard the global NumPy
     state ``arrays`` (v, xs, xl, dt, done), run ``steps`` steps through
-    :func:`make_sharded_chunk_runner` and return on rank 0 (None elsewhere)
-    the global state as NumPy (v, xs, xl, dt, done) and, sixth, the final
-    v of every clause rank of the first trajectory row, stacked."""
+    :func:`make_sharded_chunk_runner` and return on every rank the global
+    state as NumPy (v, xs, xl, dt, done) and, sixth, the final
+    v of every clause rank of this rank's trajectory row, stacked (rank
+    0's: the first row's)."""
     from odesat_tpu_torch.interop import state_from_numpy
     from odesat_tpu_torch.models.ode import formula_device, state_dtype
 
@@ -404,14 +420,14 @@ def run_ode_cases(mesh, device, cases):
         copies[mesh.clause_index] = state.v
         all_reduce(copies, mesh.clause_group)
         out.append((*fetch_state(state, mesh), copies.cpu().numpy()))
-    return out if mesh.rank == 0 else None
+    return out
 
 
 def run_multi_cases(mesh, device, cases):
     """For each ``(fa, zeta, ode, chunk_steps, max_chunks, stop_on,
     arrays)``: shard the global NumPy state ``arrays`` (v, xs, xl, dt,
     done), run one dispatch of :func:`make_sharded_multi_runner` and return
-    on rank 0 (None elsewhere) ``(state as NumPy, steps_advanced)``."""
+    on every rank ``(state as NumPy, steps_advanced)``."""
     from odesat_tpu_torch.interop import state_from_numpy
     from odesat_tpu_torch.models.ode import formula_device, state_dtype
 
@@ -425,7 +441,7 @@ def run_multi_cases(mesh, device, cases):
                                           mesh, device, stop_on)
         state, steps = multi(state)
         out.append((fetch_state(state, mesh), steps))
-    return out if mesh.rank == 0 else None
+    return out
 
 
 def run_stoch_clause(mesh, device, fa, chunks: int, chunk_steps: int, seed: int,
@@ -433,7 +449,7 @@ def run_stoch_clause(mesh, device, fa, chunks: int, chunk_steps: int, seed: int,
     """``chunks`` chunks of the stoch clause path from the all-false start
     (no early stop), each row's generator from (seed, row), through B9
     (``shard_chunk`` 'auto') or B8 ('off'); returns the global (v, xl,
-    done) as NumPy on rank 0. With ``mesh`` None it runs S=1 in this
+    done) as NumPy on every rank. With ``mesh`` None it runs S=1 in this
     process."""
     from odesat_tpu_torch.models.stoch import init_stoch_state
 
@@ -447,8 +463,7 @@ def run_stoch_clause(mesh, device, fa, chunks: int, chunk_steps: int, seed: int,
     for _ in range(chunks):
         state = run(state)
     check_replicated(state.v, mesh)
-    out = tuple(fetch_state(state, mesh))
-    return out if mesh is None or mesh.rank == 0 else None
+    return tuple(fetch_state(state, mesh))
 
 
 def time_ode_chunk(mesh, device, fa, zeta: float, ode, steps: int, B: int, reps: int = 2):

@@ -1,11 +1,12 @@
 """Progress metrics and observability (the port of
 ``odesat_tpu.utils.logging``): per-chunk steps, solved counts and the dt
-distribution, all read from the solver state."""
+distribution, all read from the solver state, and a throughput counter."""
 
 from __future__ import annotations
 
 import logging
 import sys
+import time
 
 import numpy as np
 
@@ -35,3 +36,19 @@ def log_chunk(state, steps_run: int) -> None:
     parts = [f"{k}={v:.3g}" if isinstance(v, float) else f"{k}={v}" for k, v in metrics.items()]
     logger.info(" ".join(parts))
 
+
+class Throughput:
+    """trajectories*steps/sec counter around the solve loop (JAX
+    ``utils/logging.Throughput``): host clock from construction."""
+
+    def __init__(self, batch_size: int):
+        self.batch_size = batch_size
+        self.start = time.perf_counter()
+        self.steps = 0
+
+    def add(self, steps: int) -> None:
+        self.steps += steps
+
+    def rate(self) -> float:
+        elapsed = time.perf_counter() - self.start
+        return self.batch_size * self.steps / elapsed if elapsed > 0 else 0.0

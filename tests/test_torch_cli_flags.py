@@ -3,11 +3,11 @@
 Every solver subcommand of the JAX CLI takes the flags of its
 ``_add_common`` (odesat_tpu/cli.py) and ignores those that do not apply:
 ``batch`` and ``inter`` never preprocess, ``stoch`` reads no ODE flag. The
-port takes the same command lines for the flags it serves, ``hybrid``'s and
-the snapshot and profiler flags included; the flags of features it does not
-port (the multi-host ``--pod-mesh``, ``--coordinator``, ``--num-processes``,
-``--process-id``; the ``onehot`` strategy) are left out here, as ROADMAP.md
-lists them.
+port takes the same command lines, ``hybrid``'s, the snapshot and profiler
+flags and the multi-host ``--pod-mesh``, ``--coordinator``,
+``--num-processes`` and ``--process-id`` included, and parses them to the
+same values; only the ``onehot`` strategy, which the port does not offer,
+is left out here.
 """
 
 import os
@@ -29,7 +29,8 @@ COMMON = ["-o", "out.txt", "--seed", "3", "--chunk-steps", "64", "--rigidity", "
           "--matmul-dtype", "bfloat16", "--devices", "1", "--clause-shards", "1",
           "--shard-chunk", "off", "--log-every", "0", "--wall-clock-budget", "30",
           "--no-preprocess", "--checkpoint", "ck.npz", "--checkpoint-every", "2",
-          "--resume", "old.npz", "--profile-dir", "prof"]
+          "--resume", "old.npz", "--profile-dir", "prof", "--pod-mesh",
+          "--coordinator", "10.0.0.1:4321", "--num-processes", "2", "--process-id", "1"]
 OWN = {
     "solve": ["-t", "0.001", "-n", "100", "-s", "0.01", "-l", "0.05", "-r", "7",
               "--solve-batch", "4"],
@@ -54,7 +55,7 @@ def test_jax_command_lines_parse_under_the_port(cmd):
         if hasattr(targs, dest):
             assert getattr(targs, dest) == value, dest
     missing = sorted(d for d in vars(jargs) if not hasattr(targs, d))
-    assert missing == sorted({"pod_mesh", "coordinator", "num_processes", "process_id"})
+    assert missing == []
 
 
 @pytest.mark.parametrize("cmd, extra, verdict", [
