@@ -91,9 +91,11 @@ Phases, each printing its lines; the first failure exits non-zero:
     gather RHS, f32 rtol 2e-4 / atol 2e-5, f64 1e-12;
 16. B10 main path: inter --dv-strategy pallas on hard.cnf at -b 4096 ends
     false after exactly 1024 steps, on uf250 true, and adaptive with
-    --dt-mode shared on uf250 true (two B10 launches a step); then the
-    split of a fixed step at hard.cnf B=4096: its wall, its device time and
-    B10's;
+    --dt-mode shared on uf250 true (two B10 launches a step), each through
+    the device loop around the captured scan chunk (graph launches counted,
+    B10's launches the steps run times its calls a step); then the split of
+    a fixed step at hard.cnf B=4096, captured (a 64-step scan chunk) beside
+    host-paced: its wall, the card's busy time, B10's;
 17. B10 timing: one RHS pass, B10 and its plain version in turns, device
     time with the launches queued, at hard.cnf B=16384 (f32 and f64),
     uf250 B=4096 and n1k B=1024, beside the one-CTA-a-trajectory design's
@@ -231,7 +233,23 @@ Phases, each printing its lines; the first failure exits non-zero:
     each pair's wall and a process's start-up (its CLI run less its solve
     and its import) beside phase 20's single-process one, and the 2x2 pod's
     inter step through B6 (host clock around 2 chunks of 16, as phase 21
-    times S=2).
+    times S=2);
+27. the scan tier on the card (ops/scan_chunk.py): a. the captured 16-step
+    chunk equal to its steps launched one by one, exactly (max abs error 0,
+    done equal), for pallas (B10), gather and segment_sum, fixed, adaptive
+    and adaptive shared, f32 and f64, at hard.cnf and uf250 B=4096; the
+    device-loop dispatch over it equal to models/loop.run_chunks over the
+    same chunk, bit for bit, steps included (uf250 pallas fixed from its
+    initial state, where the stop falls inside the dispatch, and from the
+    state it leaves, stopped at entry; hard.cnf gather adaptive on any,
+    segment_sum shared f64 on all); b. phase 16 above through it; c. phase
+    16's step split; d. inter on random_local_ksat(65536, 280000, k=3,
+    locality=512, seed=9) -b 512 -s 0.01 -n 512, which only the twin takes
+    on one card (Np=65,536, past B2's and B10's gates): false after exactly
+    512 steps or a verified row, its rate, capture seconds and peak memory;
+    then at B=512 an 8-step captured chunk equal to the same 8 steps
+    launched one by one, exactly, and a step's time in each; e. two replays
+    of every captured configuration bit-identical, segment_sum included.
 
 ``python3 chip_smoke.py --time-loop ROOT`` runs, with the port at ROOT (a
 parent tree unpacked beside this one, or this one), phase 6's and phase
@@ -242,13 +260,18 @@ loop's) cost a chunk;
 (a parent tree unpacked beside this one) as phase 17 times this one;
 ``--time-mesh ROOT`` the clause-mesh steps of phase 21 at S=2 and S=4 with
 the port at ROOT; ``--time-b7`` the split of B7's standalone call at S=2
-and S=4.
+and S=4; ``--time-segment ROOT`` a segment_sum step of the port at ROOT
+at hard.cnf B=4096 and phase 27d's B=512 (``--time-segment ROOT cpu`` on
+the CPU, 27d's formula at B=16); ``--scan-peak`` the peak memory of 27d's
+shape through inter's device loop and through batch's host-paced, growing
+chunks.
 
 The last two lines are the ``kernels`` JSON object (one row per kernel,
 with its bound: the larger of its bytes over 3.35 TB/s and its operations
 over 67 TFLOP/s; B7's standalone call at S=2, its library time the gloo
 all-reduce; B7 fused, B6's apply launch reading two partials; the device
-loop, a chunk's cost beyond the chunk kernel) and
+loop, a chunk's cost beyond the chunk kernel; the scan chunk, a captured
+64-step chunk beside the same steps launched from Python) and
 then ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or without the package beside this script, it exits non-zero
 and prints no result.
@@ -374,9 +397,10 @@ def load_cases():
     return cases, cases[5][1], cases[6][1], specs
 
 
-def random_state(fa, B, seed):
-    """A fresh batch on the card: v ~ U(-1, 1) from ``seed`` (NumPy), xs
-    from the all-false valuation, xl = 1, dt = 0.01, nothing done."""
+def random_state(fa, B, seed, device="cuda"):
+    """A fresh batch on the card (or ``device``): v ~ U(-1, 1) from ``seed``
+    (NumPy), xs from the all-false valuation, xl = 1, dt = 0.01, nothing
+    done."""
     import numpy as np
 
     from odesat_tpu_torch.interop import state_from_numpy
@@ -384,7 +408,7 @@ def random_state(fa, B, seed):
     v = np.random.default_rng(seed).uniform(-1, 1, (B, fa.n_vars_padded)).astype(np.float32)
     xs = np.broadcast_to(fa.xs_init, (B, fa.n_clauses_padded)).astype(np.float32)
     return state_from_numpy(v, xs, np.ones_like(xs), np.full(B, 0.01, np.float32),
-                            np.zeros(B, bool), device="cuda")
+                            np.zeros(B, bool), device=device)
 
 
 def compare(torch, out, ref, tol):
@@ -1262,11 +1286,16 @@ def phase_rhs_main(fc, stc, rk, card):
     """inter --dv-strategy pallas: single steps through B10, fixed on
     hard.cnf and uf250, and adaptive with a batch-shared dt on uf250 (the
     reference inter's configuration, which B1 and B2 refuse; two B10
-    launches a step)."""
+    launches a step). Each run's multi-chunk dispatches are device-loop
+    graph launches around the captured scan chunk, and B10 launches the
+    steps run times its calls a step: no step is launched from Python.
+    Returns (B10's launches, the scan chunk's graph chunks)."""
+    from odesat_tpu_torch.ops import scan_chunk
+
     os.makedirs(OUT, exist_ok=True)
     uf_path = os.path.join(OUT, "uf250_seed0.cnf")  # written by phase 5
     hard = os.path.join(ROOT, "tests", "data", "hard.cnf")
-    total = 0
+    total = chunks = 0
     for label, args, B, want in (
         ("hard.cnf B=4096", ["-f", hard, "-b", "4096", "-s", "0.01", "-n", "1024", "--seed", "0",
                              "--dv-strategy", "pallas"], 4096, "false"),
@@ -1277,12 +1306,18 @@ def phase_rhs_main(fc, stc, rk, card):
                                                     "--dv-strategy", "pallas"], 4096, "true"),
     ):
         verdict, launches, steps, solved, seconds, _ = run_cli(
-            ode_counters(fc, stc, rk), "inter", args)
+            {**ode_counters(fc, stc, rk), "scan_chunk": (scan_chunk, "launches")}, "inter", args)
         say(f"[B10 main] inter --dv-strategy pallas {label}: verdict {verdict}, {solved} solved "
             f"after {steps} steps in {seconds:.6f} s = {B * steps / seconds:.6e} traj*steps/s, "
             f"launches {launches} ({card})")
         if launches["rhs"] == 0:
             fail(f"pallas {label}: the main path never launched B10")
+        if launches["device_loop"] == 0:
+            fail(f"pallas {label}: the multi-chunk dispatch never launched the device loop")
+        per_step = 1 if "-s" in args else 2
+        if launches["rhs"] != steps * per_step:
+            fail(f"pallas {label}: {launches['rhs']} B10 launches for {steps} steps of "
+                 f"{per_step}: a step ran outside the captured chunk")
         if launches["fused_chunk"] or launches["stream_chunk"]:
             fail(f"pallas {label}: a chunk kernel ran instead of B10")
         if want == "false" and (verdict != "false" or steps != 1024 or solved != 0):
@@ -1290,35 +1325,66 @@ def phase_rhs_main(fc, stc, rk, card):
         if want == "true" and verdict != "true":
             fail(f"pallas {label}: the port did not verify a satisfying assignment")
         total += launches["rhs"]
-    return total
+        chunks += launches["scan_chunk"]
+    return total, chunks
 
 
-def phase_rhs_step_split(torch, rk, hard, card):
-    """Where a fixed --dv-strategy pallas step goes at hard.cnf B=4096 (phase
-    16's first run): the step's wall (host clock over 64 steps ending in a
-    sync), the card's busy time a step and B10's part of it (torch.profiler
-    over 16 steps: the kernels' device time, by name), and B10's device time
-    alone with its launches queued. The step waits for the card each step
-    (it makes its dt from a Python float), so its launches cannot be queued
-    behind a sleep; the profiler reads the device time instead."""
-    from torch.profiler import ProfilerActivity, profile
+def step_walls(torch, fa, ode, B, steps=64, chunk_steps=64, chunks=8):
+    """ms a step of ``ode`` at ``fa`` and B rows from a random state:
+    host-paced (the step function called from Python, host clock over
+    ``steps`` steps ending in a sync) and captured (``chunks`` calls of the
+    ``chunk_steps``-step scan chunk, copies included). Returns (host-paced,
+    captured, the scan chunk, the step, the state, the formula tensors)."""
+    from odesat_tpu_torch.models.ode import formula_device, make_chunk_runner, make_step_fn
 
-    from odesat_tpu_torch.models.ode import formula_device, make_step_fn
-    from odesat_tpu_torch.utils.config import ODEConfig
-
-    B, steps, traced = 4096, 64, 16
-    step = make_step_fn(hard, 0.05, ODEConfig(step_size=0.01, dv_strategy="pallas"))
-    dev = formula_device(hard, "cuda", torch.float32)
-    state = random_state(hard, B, seed=5)
+    step = make_step_fn(fa, 0.05, ode, device="cuda")
+    dev = formula_device(fa, "cuda", torch.float32)
+    state = random_state(fa, B, seed=5)
     for _ in range(4):
         state = step(state, dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    s = state
-    for _ in range(steps):
-        s = step(s, dev)
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / steps * 1e3
+    chunk = make_chunk_runner(fa, 0.05, ode, chunk_steps, "cuda")
+    chunk(state, dev)  # captures the graph
+    walls = []
+    for fn, n, per in ((step, steps, 1), (chunk, chunks, chunk_steps)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = state
+        for _ in range(n):
+            s = fn(s, dev)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) / (n * per) * 1e3)
+    return walls[0], walls[1], chunk, step, state, dev
+
+
+def phase_rhs_step_split(torch, rk, hard, uf250, card):
+    """Where a fixed --dv-strategy pallas step goes at hard.cnf B=4096 (phase
+    16's first run), host-paced and captured. Host-paced (the step function
+    called from Python): the step's wall (host clock over 64 steps ending
+    in a sync), the card's busy time a step and B10's part of it
+    (torch.profiler over 16 steps: the kernels' device time, by name), and
+    B10's device time alone with its launches queued. Captured (the scan
+    chunk of 64 steps, ops/scan_chunk.py, as phase 16 runs it): a step's
+    wall (host clock over 8 chunk calls, copies included, ending in a
+    sync), the same kernels' busy time over it and B10's part, and the
+    graph's replay alone (device time, replays queued). The same two walls
+    of phase 16's third run's step, uf250 B=4096 adaptive with a
+    batch-shared dt. Returns a dict of those times in ms (the busy ones
+    None when the profiler reads no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from odesat_tpu_torch.utils.config import ODEConfig
+
+    B, steps, traced, chunk_steps, chunks = 4096, 64, 16, 64, 8
+    shared = step_walls(torch, uf250, ODEConfig(dt_mode="shared", dv_strategy="pallas"), B)[:2]
+    say(f"[B10 step split] uf250 B={B} adaptive --dt-mode shared, --dv-strategy pallas: a step's "
+        f"wall {shared[1]:.6f} ms captured, {shared[0]:.6f} ms host-paced, "
+        f"{shared[0] / shared[1]:.3f}x ({card})")
+    ode = ODEConfig(step_size=0.01, dv_strategy="pallas")
+    wall, captured, chunk, step, state, dev = step_walls(torch, hard, ode, B, steps, chunk_steps,
+                                                         chunks)
+    (cap,) = chunk.graphs.values()
+    ((graph, _),) = cap.parts  # one graph of the 64 steps
+    replay = device_ms(torch, graph.replay, iters=10)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         s = state
         for _ in range(traced):
@@ -1333,18 +1399,26 @@ def phase_rhs_step_split(torch, rk, hard, card):
     rhs = sum(device_us(e) for e in events if "rhs_" in e.key) / traced / 1e3
     fn = rk.make_rhs_kernel(hard, 0.05)
     b10 = device_ms(torch, lambda: fn(state.v, state.xs, state.xl), iters=steps)
+    times = {"wall": wall, "busy": None, "rhs": None, "b10": b10, "captured": captured,
+             "replay": replay, "plain_chunk": wall * chunk_steps, "shared": shared}
+    say(f"[B10 step split] hard.cnf B={B} fixed, --dv-strategy pallas, captured: a step's wall "
+        f"{captured:.6f} ms (host clock over {chunks} calls of the {chunk_steps}-step scan "
+        f"chunk, copies included), the graph's replay alone {replay / chunk_steps:.6f} ms a step "
+        f"({replay:.6f} ms a chunk, device time); host-paced: a step's wall {wall:.6f} ms (host "
+        f"clock over {steps} steps), {wall / captured:.3f}x the captured step ({card})")
     if busy <= 0.0 or rhs <= 0.0:
-        say(f"[B10 step split] hard.cnf B={B} fixed, --dv-strategy pallas: a step's wall "
-            f"{wall:.6f} ms, B10 {b10:.6f} ms with its launches queued; the profiler read no "
+        say(f"[B10 step split] B10 {b10:.6f} ms with its launches queued; the profiler read no "
             f"device time, so the rest of the step is not measured ({card})")
-        return wall, None, b10
-    say(f"[B10 step split] hard.cnf B={B} fixed, --dv-strategy pallas: a step's wall "
-        f"{wall:.6f} ms (host clock over {steps} steps); the card busy {busy:.6f} ms of it "
+        return times
+    times.update(busy=busy, rhs=rhs)
+    say(f"[B10 step split] host-paced: the card busy {busy:.6f} ms of a step's wall "
         f"(torch.profiler over {traced} steps), B10 {rhs:.6f} ms of that ({b10:.6f} ms with its "
         f"launches queued), the torch update and latch {busy - rhs:.6f} ms; the card idle "
         f"{wall - busy:.6f} ms a step ({(wall - busy) / wall:.3f} of the wall), waiting on the "
-        f"host ({card})")
-    return wall, busy, b10
+        f"host; captured, the graph's replay spans {replay / chunk_steps / captured:.3f} of the "
+        f"step's wall and its kernels' device time (the host-paced step's) "
+        f"{busy / captured:.3f} of it, B10 {rhs / captured:.3f} ({card})")
+    return times
 
 
 def phase_stream_timing(torch, fc, stc, hard, big, card):
@@ -3717,6 +3791,395 @@ def phase_pod(card):
     return launches
 
 
+SCAN_STRATEGIES = ("pallas", "gather", "segment_sum")
+SCAN_MODES = ("fixed", "adaptive", "shared")
+STATE_FIELDS = ("v", "xs", "xl", "dt", "done")
+
+
+def scan_ode(strategy, mode, dtype="float32"):
+    from odesat_tpu_torch.utils.config import ODEConfig
+
+    return ODEConfig(step_size=0.01 if mode == "fixed" else None, dtype=dtype,
+                     dt_mode="shared" if mode == "shared" else "per-trajectory",
+                     dv_strategy=strategy)
+
+
+def scan_runner(fa, ode, chunk_steps):
+    """The scan chunk of ``chunk_steps`` steps (models/ode.make_chunk_runner),
+    the step it captures and the formula tensors, on the card."""
+    from odesat_tpu_torch.models.ode import (
+        formula_device,
+        make_chunk_runner,
+        make_step_fn,
+        state_dtype,
+    )
+
+    return (make_chunk_runner(fa, 0.05, ode, chunk_steps, "cuda"),
+            make_step_fn(fa, 0.05, ode, device="cuda"),
+            formula_device(fa, "cuda", state_dtype(ode)))
+
+
+def b10_calls(ode):
+    """B10 launches a step of ``ode``: one a fixed step, two an adaptive one."""
+    return 0 if ode.dv_strategy != "pallas" else (1 if ode.step_size is not None else 2)
+
+
+def phase_scan_compare(torch, rk, hard, uf250, card):
+    """Phase 27a and e: the captured 16-step scan chunk against the same
+    steps launched one by one on the card, exactly (max abs error 0, done
+    equal), and a second replay bit-identical to the first, for pallas
+    (B10), gather and segment_sum, fixed, adaptive and adaptive shared, f32
+    and f64, at hard.cnf and uf250 B=4096; each replay counts one graph
+    chunk and B10's launches of its steps. Returns the largest error."""
+    from odesat_tpu_torch.ops import scan_chunk
+
+    n, worst = 0, 0.0
+    for label, fa in (("hard.cnf B=4096", hard), ("uf250 B=4096", uf250)):
+        for strategy in SCAN_STRATEGIES:
+            for mode in SCAN_MODES:
+                for dtype in ("float32", "float64"):
+                    ode = scan_ode(strategy, mode, dtype)
+                    chunk, step, dev = scan_runner(fa, ode, 16)
+                    state = random_state(fa, 4096, seed=n)
+                    if dtype == "float64":
+                        state = type(state)(*(t.double() if t.is_floating_point() else t
+                                              for t in state))
+                    want = state
+                    for _ in range(16):
+                        want = step(want, dev)
+                    before = (scan_chunk.launches, rk.launches)
+                    got, again = chunk(state, dev), chunk(state, dev)
+                    torch.cuda.synchronize()
+                    case = f"{label} {strategy} {mode} {dtype}"
+                    err, why = loop_compare(torch, got, want, STATE_FIELDS)
+                    if why:
+                        fail(f"scan chunk {case}: the captured chunk against its steps: {why}")
+                    _, why = loop_compare(torch, again, got, STATE_FIELDS)
+                    if why:
+                        fail(f"scan chunk {case}: two replays differ: {why}")
+                    counts = (scan_chunk.launches - before[0], rk.launches - before[1])
+                    if counts != (2, 2 * 16 * b10_calls(ode)):
+                        fail(f"scan chunk {case}: two replays counted {counts} (graph chunks, "
+                             f"B10 launches)")
+                    worst = max(worst, err)
+                    n += 1
+    say(f"[scan compare] {n} configurations (pallas, gather, segment_sum; fixed, adaptive, "
+        f"shared; f32, f64; hard.cnf and uf250 B=4096): the captured 16-step chunk equal to its "
+        f"steps launched one by one, max abs err {worst}; two replays bit-identical ({card})")
+    return worst
+
+
+def phase_scan_loop(torch, rk, hard, uf250, card):
+    """Phase 27a's dispatches: the multi-chunk runner over the scan chunk
+    (one device-loop graph launch: the captured chunk, then the stop kernel,
+    under the WHILE node) against models/loop.run_chunks over the same
+    chunk, bit for bit, steps included: pallas fixed on uf250 B=4096 from
+    its initial state (the stop falls inside the dispatch), then from the
+    state it leaves (stopped at entry: 0 chunks, the state untouched);
+    gather adaptive f32 on hard.cnf stopping on any, and segment_sum
+    adaptive shared f64 on hard.cnf stopping on all. Returns the largest
+    error."""
+    from odesat_tpu_torch.models.loop import run_chunks
+    from odesat_tpu_torch.models.ode import init_state, make_multi_chunk_runner
+    from odesat_tpu_torch.ops import scan_chunk
+
+    def case(label, fa, ode, state, bound, stop_on, chunk_steps=64):
+        chunk, _, dev = scan_runner(fa, ode, chunk_steps)
+        multi = make_multi_chunk_runner(fa, 0.05, ode, chunk_steps, bound, "cuda",
+                                        stop_on=stop_on, chunk=chunk)
+        host = run_chunks(lambda st: chunk(st, dev), chunk_steps, bound,
+                          stop_all=stop_on == "all")
+        b10 = rk.launches
+        err, ran, out = loop_case(torch, f"scan chunk {label}", lambda st: multi(st, dev), host,
+                                  state, STATE_FIELDS, chunk_steps, bound,
+                                  (scan_chunk, "launches"))
+        host_b10 = ran * chunk_steps * b10_calls(ode)
+        if rk.launches - b10 != 2 * host_b10:  # the host loop's replays, then the graph's
+            fail(f"scan chunk {label}: B10 counted {rk.launches - b10} for 2 x {ran} chunks")
+        say(f"[scan loop] {label}: {ran} of {bound} chunks in one graph launch, equal to the "
+            f"host loop bit for bit (max abs err {err}) ({card})")
+        return err, ran, out
+
+    fixed = scan_ode("pallas", "fixed")
+    init = init_state(uf250, 4096, torch.Generator(device="cuda").manual_seed(0), fixed, "cuda")
+    worst, ran, out = case("pallas fixed uf250 B=4096 any", uf250, fixed, init, 20, "any")
+    if not 0 < ran < 20:
+        fail(f"scan chunk uf250: the stop fell at chunk {ran} of 20, not inside the dispatch")
+    err, ran, _ = case("pallas fixed uf250 B=4096 any, stopped at entry", uf250, fixed, out, 20,
+                       "any")
+    if ran:
+        fail(f"scan chunk uf250: {ran} chunks from a stopped entry state")
+    worst = max(worst, err)
+    hard_state = random_state(hard, 4096, seed=3)
+    err, _, _ = case("gather adaptive hard.cnf B=4096 any", hard,
+                     scan_ode("gather", "adaptive"), hard_state, 3, "any")
+    worst = max(worst, err)
+    f64 = type(hard_state)(*(t.double() if t.is_floating_point() else t for t in hard_state))
+    err, _, _ = case("segment_sum shared f64 hard.cnf B=4096 all", hard,
+                     scan_ode("segment_sum", "shared", "float64"), f64, 3, "all")
+    return max(worst, err)
+
+
+# at B=1024 a twin step takes 0.109 s on an H100 (80 s of this phase), so
+# the smoke runs half the rows
+FULL_WIDTH = dict(n=65536, m=280000, k=3, locality=512, seed=9, B=512, steps=512)
+
+
+def full_width_formula():
+    """27d's formula, written to a DIMACS file under OUT: (formula, path)."""
+    from odesat_tpu_torch.cnf import cnf_to_dimacs
+    from odesat_tpu_torch.utils.generate import random_local_ksat
+
+    w = FULL_WIDTH
+    formula = random_local_ksat(w["n"], w["m"], k=w["k"], locality=w["locality"],
+                                seed=w["seed"])
+    os.makedirs(OUT, exist_ok=True)
+    path = os.path.join(OUT, f"local_n{w['n']}_m{w['m']}.cnf")
+    with open(path, "w", encoding="utf-8") as fh:
+        fh.write(cnf_to_dimacs(formula))
+    return formula, path
+
+
+def phase_scan_full_width(torch, fc, stc, rk, card):
+    """Phase 27d: inter on a formula only the twin takes on one card:
+    random_local_ksat(65536, 280000, k=3, locality=512, seed=9), config 7's
+    generator (run_benchmarks.py:289-313) at 6.4x its variables (Np=65,536,
+    past B2's fixed gate and B10's f32 one), -b 512 -s 0.01 -n 512 --seed 0
+    through the CLI (B cut from 1024 for the smoke's time): its dispatches
+    are device-loop graph launches around the captured chunk. Prints the
+    verdict (false after exactly 512 steps, or a solved row the oracle
+    verifies), the rate, the capture seconds and the peak memory. Then, at
+    the same B, an 8-step captured chunk against the same 8 steps of the
+    twin launched one by one from the same state: equal bit for bit (max
+    abs error 0, done equal), twice, and each one's time a step. Returns
+    (the CLI run's graph chunks, the largest error)."""
+    import gc
+
+    from odesat_tpu_torch.cnf import compile_formula, normalize_cnf_variables
+    from odesat_tpu_torch.models.ode import (
+        formula_device,
+        init_state,
+        make_chunk_runner,
+        make_step_fn,
+        resolve_strategy,
+    )
+    from odesat_tpu_torch.ops import scan_chunk
+    from odesat_tpu_torch.utils.config import ODEConfig
+
+    w = FULL_WIDTH
+    formula, path = full_width_formula()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    scan_chunk.capture_seconds = 0.0
+    verdict, launches, steps, solved, seconds, _ = run_cli(
+        {**ode_counters(fc, stc, rk), "scan_chunk": (scan_chunk, "launches")}, "inter",
+        ["-f", path, "-b", str(w["B"]), "-s", "0.01", "-n", str(w["steps"]), "--seed", "0"])
+    peak = torch.cuda.max_memory_allocated()
+    capture = scan_chunk.capture_seconds
+    rate = w["B"] * steps / seconds
+    if launches["fused_chunk"] or launches["stream_chunk"] or launches["rhs"]:
+        fail(f"n={w['n']}: a kernel other than the twin ran: {launches}")
+    if launches["device_loop"] == 0 or launches["scan_chunk"] != steps // 256:
+        fail(f"n={w['n']}: {launches['device_loop']} graph launches, {launches['scan_chunk']} "
+             f"graph chunks for {steps} steps of 256-step chunks")
+    if solved == 0 and (verdict != "false" or steps != w["steps"]):
+        fail(f"n={w['n']}: unsolved after {steps} steps with verdict {verdict}, not false after "
+             f"exactly {w['steps']}")
+    if solved and verdict != "true":
+        fail(f"n={w['n']}: a row solved but the oracle refused its assignment")
+    fa = compile_formula(normalize_cnf_variables(formula)[1])
+    ode = ODEConfig(step_size=0.01)
+    strategy = resolve_strategy(fa, ode, "cuda")
+    ode = ODEConfig(step_size=0.01, dv_strategy=strategy)
+    zeta = ode.resolve_zeta(fa.density)
+    say(f"[scan full width] inter n={w['n']} m={w['m']} (Np={fa.n_vars_padded}, "
+        f"Mp={fa.n_clauses_padded}, max_occ {fa.max_occ}, the twin's {strategy}) B={w['B']} "
+        f"fixed dt 0.01: verdict {verdict}, {solved} solved after {steps} steps in "
+        f"{seconds:.6f} s = {rate:.6e} traj*steps/s, {launches['device_loop']} device-loop graph "
+        f"launches of {launches['scan_chunk']} captured 256-step chunks, capture and instantiate "
+        f"{capture:.6f} s, peak memory {peak} B ({peak / 2**30:.3f} GiB) ({card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = formula_device(fa, "cuda")
+    state = init_state(fa, w["B"], torch.Generator(device="cuda").manual_seed(0), ode, "cuda")
+    step = make_step_fn(fa, zeta, ode, device="cuda")
+    step(state, dev)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = state
+    for _ in range(8):
+        want = step(want, dev)
+    torch.cuda.synchronize()
+    eager = (time.perf_counter() - t0) / 8 * 1e3
+    chunk = make_chunk_runner(fa, zeta, ode, 8, "cuda")
+    got = chunk(state, dev)  # its capture, then a replay
+    torch.cuda.synchronize()
+    err, why = loop_compare(torch, got, want, STATE_FIELDS)
+    if why:
+        fail(f"n={w['n']} B={w['B']}: the captured 8-step chunk against its steps launched one "
+             f"by one: {why}")
+    del got
+    t0 = time.perf_counter()
+    again = chunk(state, dev)
+    torch.cuda.synchronize()
+    captured = (time.perf_counter() - t0) / 8 * 1e3
+    _, why = loop_compare(torch, again, want, STATE_FIELDS)
+    if why:
+        fail(f"n={w['n']} B={w['B']}: two replays of the captured 8-step chunk differ: {why}")
+    say(f"[scan full width] 8 steps at B={w['B']}: the captured chunk equal to the steps "
+        f"launched one by one bit for bit (max abs err {err}), twice; a step launched one by one "
+        f"{eager:.6f} ms, in the captured chunk {captured:.6f} ms (copies included), "
+        f"{captured / eager:.4f} of it (host clock, ending in a sync) ({card})")
+    del again, want, state, chunk, step, dev
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches["scan_chunk"], err
+
+
+# --time-segment's shapes: (label, B on the card, B on the CPU); on the CPU
+# 27d's formula runs at B=16, since its step at B=512 moves tens of GB
+SEGMENT_SHAPES = (("hard.cnf", 4096, 4096), ("27d's n=65536 formula", 512, 16))
+
+
+def time_segment(root, device="cuda"):
+    """``--time-segment ROOT [cpu]``: with the port at ROOT (a parent tree
+    unpacked beside this one, or this one), a fixed segment_sum step (dt
+    0.01, float32, built without ``device=``, as every tree takes it)
+    launched from Python a step at a time, at hard.cnf B=4096 and at 27d's
+    formula B=512: host clock over the steps, ending in a sync (what a
+    caller of the step pays; a checkout from before the scan chunk makes
+    its constants from Python floats, which synchronizes every step).
+    Where ROOT has segment_sum's sorted sum, the dv sum alone on the step's
+    slots: ``index_add_`` (what the CPU, and a checkout from before it,
+    run) against the sorted sum, device time with the launches queued
+    (device_ms). With ``cpu``, both on the CPU by the host clock, 27d's
+    formula at B=16. Two timings a shape. Run parent, this, this, parent."""
+    import numpy as np
+    import torch
+
+    if device == "cuda" and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; --time-segment without cpu runs on a GPU",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(root))
+    import odesat_tpu_torch
+    from odesat_tpu_torch.cnf import compile_formula, normalize_cnf_variables
+    from odesat_tpu_torch.models.ode import formula_device, make_step_fn
+    from odesat_tpu_torch.ops import rhs as rhs_ops
+    from odesat_tpu_torch.utils.config import ODEConfig
+
+    if not os.path.abspath(odesat_tpu_torch.__file__).startswith(os.path.abspath(root) + os.sep):
+        fail(f"odesat_tpu_torch came from {odesat_tpu_torch.__file__}, not {root}")
+    if device == "cuda":
+        card = phase_device(torch)
+    else:
+        card = f"CPU, {os.cpu_count()} cores, {torch.get_num_threads()} torch threads"
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def host_ms(fn, iters):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        sync()
+        return (time.perf_counter() - t0) / iters * 1e3
+
+    ode = ODEConfig(step_size=0.01, dv_strategy="segment_sum")
+    wide = compile_formula(normalize_cnf_variables(full_width_formula()[0])[1])
+    for (label, b_card, b_cpu), fa in zip(SEGMENT_SHAPES, (load_cases_hard(), wide)):
+        B = b_card if device == "cuda" else b_cpu
+        state = random_state(fa, B, seed=5, device=device)
+        dev = formula_device(fa, device)
+        step = make_step_fn(fa, 0.05, ode)
+        iters = 40 if fa is not wide else 8
+        ms = [host_ms(lambda: step(state, dev), iters) for _ in range(2)]
+        say(f"[segment step of {root}] {label} B={B} (Np={fa.n_vars_padded}, "
+            f"Mp={fa.n_clauses_padded}): {ms[0]:.6f} / {ms[1]:.6f} ms a step, mean "
+            f"{sum(ms) / 2:.6f} (host clock, ending in a sync) ({card})")
+        if not hasattr(rhs_ops, "segment_table"):
+            continue
+        ids = fa.lit_var.reshape(-1).astype(np.int64)
+        x = torch.rand(B, ids.size, generator=torch.Generator().manual_seed(5)).to(device)
+        index = torch.as_tensor(ids, device=device)
+        table = rhs_ops.segment_table(ids, fa.n_vars_padded, device)
+
+        def index_add():
+            return x.new_zeros(B, fa.n_vars_padded).index_add_(-1, index, x)
+
+        def sorted_sum():
+            return rhs_ops.segment_sum_sorted(x, table)
+
+        sums = {"index_add_": [], "sorted": []}
+        for name, fn in (("index_add_", index_add), ("sorted", sorted_sum),
+                         ("sorted", sorted_sum), ("index_add_", index_add)):
+            sums[name].append(device_ms(torch, fn, iters=iters) if device == "cuda" else
+                              host_ms(fn, iters))
+        kind = "device time, launches queued" if device == "cuda" else "host clock"
+        say(f"[segment sum of {root}] {label} B={B}, {ids.size} slots into {fa.n_vars_padded} "
+            f"variables: index_add_ {sums['index_add_'][0]:.6f} / {sums['index_add_'][1]:.6f} "
+            f"ms, the sorted sum (segment_reduce) {sums['sorted'][0]:.6f} / "
+            f"{sums['sorted'][1]:.6f} ms ({kind}) ({card})")
+        del x, index, table
+    return 0
+
+
+def scan_peak():
+    """``--scan-peak``: the peak memory of 27d's shape on the two scan paths
+    of the CLI. inter (27d's run: one 256-step runner, its dispatches in the
+    device loop), then batch, whose oracle-verified exit paces the chunks
+    from the host and grows them: -b 512 -s 0.01 -n 1700 --chunk-steps 64
+    runs 8 chunks of 64, one of 1024 and a tail of 164, three runners, each
+    with its own state buffers and capture. Each run's peak
+    (torch.cuda.max_memory_allocated, reset before it), steps, wall and
+    capture seconds."""
+    import gc
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script only runs on a GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from odesat_tpu_torch.ops import fused_chunk as fc
+    from odesat_tpu_torch.ops import rhs_kernel as rk
+    from odesat_tpu_torch.ops import scan_chunk
+    from odesat_tpu_torch.ops import stream_chunk as stc
+
+    card = phase_device(torch)
+    w = FULL_WIDTH
+    _, path = full_width_formula()
+    for cmd, extra in (("inter", ["-n", str(w["steps"])]),
+                       ("batch", ["-n", "1700", "--chunk-steps", "64"])):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        scan_chunk.capture_seconds = 0.0
+        _, launches, steps, solved, seconds, _ = run_cli(
+            {**ode_counters(fc, stc, rk), "scan_chunk": (scan_chunk, "launches")}, cmd,
+            ["-f", path, "-b", str(w["B"]), "-s", "0.01", "--seed", "0", *extra])
+        peak = torch.cuda.max_memory_allocated()
+        say(f"[scan peak] {cmd} n={w['n']} m={w['m']} -b {w['B']} -s 0.01 {' '.join(extra)}: "
+            f"{solved} solved after {steps} steps in {seconds:.6f} s, {launches['scan_chunk']} "
+            f"graph chunks, {launches['device_loop']} device-loop launches, capture and "
+            f"instantiate {scan_chunk.capture_seconds:.6f} s, peak memory {peak} B "
+            f"({peak / 2**30:.3f} GiB) ({card})")
+    return 0
+
+
+def scan_chunk_bound(fa, B, steps, itemsize=4):
+    """The scan chunk: a step reads and writes v, xs and xl, and writes and
+    reads the derivatives once; its operations are the ODE step's."""
+    K, Mp = fa.lit_var.shape
+    Np, nnz = fa.n_vars_padded, nnz_of(fa)
+    nbytes = steps * 4 * itemsize * B * (Np + 2 * Mp)
+    return bound(nbytes, B * steps * ode_step_ops(nnz, Np, Mp, True))
+
+
 def main():
     if sys.argv[1:2] == ["--time-b10"]:
         return time_b10(sys.argv[2])
@@ -3726,6 +4189,10 @@ def main():
         return time_loop(sys.argv[2])
     if sys.argv[1:2] == ["--time-mesh"]:
         return time_mesh(sys.argv[2])
+    if sys.argv[1:2] == ["--time-segment"]:
+        return time_segment(sys.argv[2], *sys.argv[3:4])
+    if sys.argv[1:2] == ["--scan-peak"]:
+        return scan_peak()
     import torch
 
     if not torch.cuda.is_available():
@@ -3794,8 +4261,8 @@ def main():
                                               ("uf250 B=4096", uf250, 4096),
                                               ("n1k preprocessed B=1024", big[0][1], 1024)))
     clock("phase 15 (B10 against its plain version)")
-    b10_launches = phase_rhs_main(fc, stc, rk, card)
-    phase_rhs_step_split(torch, rk, hard, card)
+    b10_launches, scan_launches = phase_rhs_main(fc, stc, rk, card)
+    split = phase_rhs_step_split(torch, rk, hard, uf250, card)
     b10_times = phase_rhs_timing(torch, rk, b10_shapes(torch, hard, uf250, big[0][1]), card)
     b10_ms, b10_plain = b10_times["hard.cnf f32 16384"]
     clock("phases 12-17 (B2, B10)")
@@ -3828,11 +4295,17 @@ def main():
     clock("phase 25 (the device loop)")
     pod_launches = phase_pod(card)
     clock("phase 26 (the pod mesh)")
+    scan_worst = max(phase_scan_compare(torch, rk, hard, uf250, card),
+                     phase_scan_loop(torch, rk, hard, uf250, card))
+    full_width_chunks, full_width_err = phase_scan_full_width(torch, fc, stc, rk, card)
+    scan_launches += full_width_chunks
+    scan_worst = max(scan_worst, full_width_err)
+    clock("phase 27 (the scan tier on the card)")
     if "jax" in sys.modules:
         fail("jax was imported")
     say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
-    # the main paths' launches: phases 5-6, 10, 13, 16, 20, the hybrid's (22)
-    # and the pod's (26)
+    # the main paths' launches: phases 5-6, 10, 13, 16, 20, the hybrid's (22),
+    # the pod's (26) and the full-width scan run's (27d)
     launches += hybrid_launches["fused_chunk"] + pod_launches["fused_chunk"]
     for name in ("shard_chunk", "stoch_shard_chunk", "butterfly_fused"):
         mesh_launches[name] += pod_launches[name]
@@ -3897,6 +4370,13 @@ def main():
         # paths (phases 5-6, 10, 13, 16)
         row("device_loop", "csrc/device_loop.cu", "odesat_tpu/models/ode.py:443",
             MAIN_PATH_GRAPHS["launches"], loop_worst, loop_ms, loop_plain, bound(20, 0)),
+        # the scan tier's chunk (no Pallas kernel: JAX's jitted lax.scan of
+        # single steps): a captured 64-step chunk of phase 16's fixed B10
+        # step at hard.cnf B=4096 (the graph's replay, device time) against
+        # the same steps launched from Python (host clock); launches: the
+        # graph chunks of phases 16 and 27d's CLI runs
+        row("scan_chunk", "ops/scan_chunk.py", "odesat_tpu/models/ode.py:416", scan_launches,
+            scan_worst, split["replay"], split["plain_chunk"], scan_chunk_bound(hard, 4096, 64)),
     ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -21,6 +21,20 @@
 //                           stop_all: there the word says "keep going");
 //                           ctrl[STOP] = 0 for the next chunk
 //
+// The scan tier's chunk (ops/scan_chunk.py) is many kernels captured by
+// torch into a graph of its own. Its body is that graph as a child graph
+// node (device_loop_add_graph, added to the capture through the stream's
+// capture dependencies), then:
+//
+//   stop kernel (one CTA)   ctrl[STOP] = any(done) (stop_all: !all(done)),
+//                           the head kernel's reduction over the chunk's
+//                           result, written to the word the chunk kernels
+//                           raise themselves
+//
+// A conditional body takes only kernel, memset, device-to-device memcpy,
+// empty, child-graph and conditional nodes; device_loop_add_graph walks the
+// child graph and refuses any other node, naming its type.
+//
 // The chunk kernels write a constant 1 to the stop word (order-free, no
 // float atomics), so the body's outcome does not depend on the order of
 // the CTAs. The host writes ctrl[BOUND] before each launch and reads
@@ -42,6 +56,8 @@
 
 #include <cuda_runtime.h>
 
+#include <vector>
+
 namespace {
 
 constexpr int kBound = 0;  // ctrl words: the chunks this dispatch may run,
@@ -49,9 +65,9 @@ constexpr int kRan = 1;    // the chunks it has run,
 constexpr int kStop = 2;   // and the stop word of the chunk running now
 constexpr int kHeadThreads = 1024;
 
-__global__ void __launch_bounds__(kHeadThreads)
-    loop_head_kernel(int* ctrl, const unsigned char* done, int B, int stop_all,
-                     cudaGraphConditionalHandle handle) {
+// Whether the B done flags stop the loop: any set (every one set with
+// stop_all). Called by every thread of one CTA.
+__device__ bool stopped_by(const unsigned char* done, int B, int stop_all) {
   bool any = false, all = true;
   for (int i = static_cast<int>(threadIdx.x); i < B; i += blockDim.x) {
     const bool d = done[i] != 0;
@@ -60,12 +76,26 @@ __global__ void __launch_bounds__(kHeadThreads)
   }
   any = __syncthreads_or(any);
   all = __syncthreads_and(all);
+  return stop_all ? all : any;
+}
+
+__global__ void __launch_bounds__(kHeadThreads)
+    loop_head_kernel(int* ctrl, const unsigned char* done, int B, int stop_all,
+                     cudaGraphConditionalHandle handle) {
+  const bool stopped = stopped_by(done, B, stop_all);
   if (threadIdx.x == 0) {
-    const bool stopped = stop_all ? all : any;
     ctrl[kRan] = 0;
     ctrl[kStop] = 0;
     cudaGraphSetConditional(handle, (ctrl[kBound] > 0 && !stopped) ? 1u : 0u);
   }
+}
+
+// The stop word in the chunk kernels' sense: 1 to stop, or with stop_all
+// 1 to keep going.
+__global__ void __launch_bounds__(kHeadThreads)
+    loop_stop_kernel(int* stop, const unsigned char* done, int B, int stop_all) {
+  const bool stopped = stopped_by(done, B, stop_all);
+  if (threadIdx.x == 0) *stop = (stop_all ? !stopped : stopped) ? 1 : 0;
 }
 
 __global__ void loop_decide_kernel(int* ctrl, int stop_all, cudaGraphConditionalHandle handle) {
@@ -87,6 +117,51 @@ struct Loop {
   int* ctrl = nullptr;
   int stop_all = 0;
 };
+
+bool on_device(const void* ptr) {
+  cudaPointerAttributes a = {};
+  if (cudaPointerGetAttributes(&a, ptr) != cudaSuccess) {
+    cudaGetLastError();  // not a pointer the runtime knows: clear the error, refuse it
+    return false;
+  }
+  return a.type == cudaMemoryTypeDevice;
+}
+
+// Whether a conditional body may hold every node of `graph` (child graphs
+// walked); else the type of the first node it may not, in *bad_type.
+cudaError_t check_body(cudaGraph_t graph, int* bad_type) {
+  size_t n = 0;
+  cudaError_t err = cudaGraphGetNodes(graph, nullptr, &n);
+  if (err != cudaSuccess) return err;
+  std::vector<cudaGraphNode_t> nodes(n);
+  if (n > 0) err = cudaGraphGetNodes(graph, nodes.data(), &n);
+  for (size_t i = 0; err == cudaSuccess && i < n; ++i) {
+    cudaGraphNodeType type;
+    err = cudaGraphNodeGetType(nodes[i], &type);
+    if (err != cudaSuccess) break;
+    bool ok = type == cudaGraphNodeTypeKernel || type == cudaGraphNodeTypeMemset ||
+              type == cudaGraphNodeTypeEmpty || type == cudaGraphNodeTypeConditional;
+    if (type == cudaGraphNodeTypeMemcpy) {
+      cudaMemcpy3DParms p = {};
+      err = cudaGraphMemcpyNodeGetParams(nodes[i], &p);
+      ok = err == cudaSuccess &&
+           (p.kind == cudaMemcpyDeviceToDevice ||
+            (p.kind == cudaMemcpyDefault && on_device(p.srcPtr.ptr) && on_device(p.dstPtr.ptr)));
+    } else if (type == cudaGraphNodeTypeGraph) {
+      cudaGraph_t child = nullptr;
+      err = cudaGraphChildGraphNodeGetGraph(nodes[i], &child);
+      if (err == cudaSuccess) err = check_body(child, bad_type);
+      if (err != cudaSuccess) return err;
+      ok = true;
+    }
+    if (err != cudaSuccess) break;
+    if (!ok) {
+      *bad_type = static_cast<int>(type);
+      return cudaErrorNotSupported;
+    }
+  }
+  return err;
+}
 
 void destroy(Loop* loop) {
   if (loop->exec) cudaGraphExecDestroy(loop->exec);
@@ -149,6 +224,38 @@ int device_loop_begin_body(void* handle, void** stream) {
   return static_cast<int>(cudaStreamBeginCaptureToGraph(loop->capture, loop->body, nullptr,
                                                         nullptr, 0,
                                                         cudaStreamCaptureModeRelaxed));
+}
+
+// Append to the body being captured on `stream` (the loop's capture
+// stream) a child graph node running `child` (cloned), after everything
+// captured so far. Refuses a graph that holds a node a conditional body
+// cannot take: returns cudaErrorNotSupported with the node's
+// cudaGraphNodeType in *bad_type (left as it was on any other outcome).
+int device_loop_add_graph(void* stream, void* child, int* bad_type) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaGraph_t graph = static_cast<cudaGraph_t>(child);
+  cudaError_t err = check_body(graph, bad_type);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
+  cudaGraph_t body = nullptr;
+  const cudaGraphNode_t* deps = nullptr;
+  size_t ndeps = 0;
+  err = cudaStreamGetCaptureInfo(s, &status, nullptr, &body, &deps, &ndeps);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (status != cudaStreamCaptureStatusActive) return static_cast<int>(cudaErrorIllegalState);
+  cudaGraphNode_t node = nullptr;
+  err = cudaGraphAddChildGraphNode(&node, body, deps, ndeps, graph);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      cudaStreamUpdateCaptureDependencies(s, &node, 1, cudaStreamSetCaptureDependencies));
+}
+
+// The stop kernel on `stream`, after what it has captured: the B flags at
+// `done` into the word at `stop`.
+int device_loop_stop(void* stream, int* stop, const unsigned char* done, int B, int stop_all) {
+  loop_stop_kernel<<<1, kHeadThreads, 0, static_cast<cudaStream_t>(stream)>>>(stop, done, B,
+                                                                            stop_all);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // End the body with the decide kernel and instantiate the graph.

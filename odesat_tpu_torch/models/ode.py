@@ -13,10 +13,12 @@ and entry points:
   frozen inside a chunk, so their satisfying sign pattern is kept exactly.
 * **On CUDA the chunk is one kernel launch** when the formula and config
   allow it: the resident kernel B1 (ops/fused_chunk.py), else the
-  large-formula kernel B2 (ops/stream_chunk.py); otherwise a Python loop
-  of single steps of the torch twin (ops/rhs.py) runs on whatever device
-  holds the state. ``dv_strategy="pallas"`` runs that loop with the
-  single-step RHS kernel B10 (ops/rhs_kernel.py) on CUDA.
+  large-formula kernel B2 (ops/stream_chunk.py); otherwise the scan
+  chunk (ops/scan_chunk.py): single steps of the torch twin (ops/rhs.py),
+  or with ``dv_strategy="pallas"`` of the RHS kernel B10
+  (ops/rhs_kernel.py) and the torch update, captured as one CUDA graph;
+  on the CPU the same steps in a Python loop. A multi-chunk dispatch of
+  any of them on CUDA is one graph launch (ops/device_loop.py).
 * **On a mesh** (``parallel/``, one rank per process) the batch splits
   over the ``traj`` axis and the clause axis over the ``clause`` axis; a
   clause mesh steps through the clause-shard kernel B5
@@ -164,8 +166,25 @@ def _scan_strategy(fa: FormulaArrays) -> str:
     return "segment_sum" if fa.max_occ > 32 else "gather"
 
 
+class StepConstants(NamedTuple):
+    """A step's numbers as 0-dim tensors of the state's dtype on its device:
+    the clamp bounds of xs, xl and v, the fixed dt, the tolerance and the
+    adaptive dt's bounds."""
+
+    xs_lo: torch.Tensor
+    xs_hi: torch.Tensor
+    xl_lo: torch.Tensor
+    xl_hi: torch.Tensor
+    v_lo: torch.Tensor
+    v_hi: torch.Tensor
+    dt_fixed: torch.Tensor
+    tol: torch.Tensor
+    dt_min: torch.Tensor
+    dt_max: torch.Tensor
+
+
 def make_step_fn(fa: FormulaArrays, zeta: float, ode: ODEConfig, clause_group=None,
-                 traj_group=None):
+                 traj_group=None, device=None):
     """Build ``step(state, dev) -> state`` for a batched ODEState, using
     the torch twin of the RHS on the state's device.
 
@@ -174,7 +193,16 @@ def make_step_fn(fa: FormulaArrays, zeta: float, ode: ODEConfig, clause_group=No
     tensors; the partial dv is all-reduced (SUM), allsat ANDed and the
     adaptive error MAX-reduced over the group (JAX :246-274, :324-335).
     ``traj_group``: the ranks whose rows share a batch-wide dt
-    (``dt_mode="shared"``); its error max reduces over them too."""
+    (``dt_mode="shared"``); its error max reduces over them too.
+
+    ``device``: where the step's constants (:class:`StepConstants`), B10's
+    tables (``pallas``) and ``segment_sum``'s table (CUDA) are built, once. A
+    step on a state there then creates no tensor from a Python number,
+    reads nothing back to the host and branches on no tensor, which is what
+    capturing it into a CUDA graph needs (``ops/scan_chunk.py``); a state on
+    another device has them built at its first step. A clause mesh's step
+    is not captured: its all-reduce runs through the host."""
+    from odesat_tpu_torch.ops.fused_chunk import cuda_device
     from odesat_tpu_torch.parallel.dist import all_reduce
 
     xl_cap = XL_CAP_PER_CLAUSE * fa.n_clauses  # real clause count (src/system.rs:95)
@@ -194,12 +222,45 @@ def make_step_fn(fa: FormulaArrays, zeta: float, ode: ODEConfig, clause_group=No
             "the scan fallback requires bucket=False on a clause mesh"
         )
     buckets = fa.bucket_slices if len(fa.bucket_slices) > 1 else None
+    fixed_dt = float(ode.step_size) if ode.step_size is not None else 0.0
+    consts = {}
+
+    def constants(device, dtype) -> StepConstants:
+        k = consts.get((device, dtype))
+        if k is None:
+            values = (EPSILON, 1.0 - EPSILON, 1.0, xl_cap, -1.0, 1.0, fixed_dt,
+                      float(ode.tolerance), DT_MIN, DT_MAX)
+            k = consts[device, dtype] = StepConstants(
+                *(torch.tensor(c, dtype=dtype, device=device) for c in values))
+        return k
+
+    tables = {}
+
+    def table(device, dev=None):
+        # segment_sum's tables on CUDA (the CPU sums with index_add_): the
+        # compiled formula's flat slots in bucket order, or a clause
+        # shard's own segment (read once from ``dev``)
+        t = tables.get(device)
+        if t is None:
+            if clause_group is None:
+                ids = np.concatenate([fa.lit_var[:Kb, m0:m1].reshape(-1) for m0, m1, Kb in
+                                      buckets or ((0, fa.n_clauses_padded, fa.lit_var.shape[0]),)])
+            else:
+                ids = dev.lit_var.reshape(-1).cpu().numpy()
+            t = tables[device] = rhs_ops.segment_table(ids, fa.n_vars_padded, device)
+        return t
+
+    if device is not None:
+        device = cuda_device(device)
+        constants(device, state_dtype(ode))
+        if dv_strategy == "segment_sum" and clause_group is None and device.type == "cuda":
+            table(device)
 
     rhs_kernel = None
     if dv_strategy == "pallas":
         from odesat_tpu_torch.ops.rhs_kernel import make_rhs_kernel
 
-        rhs_kernel = make_rhs_kernel(fa, zeta, ode.rigidity, ode.dtype)
+        rhs_kernel = make_rhs_kernel(fa, zeta, ode.rigidity, ode.dtype, device=device)
 
     def derivs(v, xs, xl, dev: FormulaDevice):
         if rhs_kernel is not None:
@@ -210,6 +271,8 @@ def make_step_fn(fa: FormulaArrays, zeta: float, ode: ODEConfig, clause_group=No
             clause_mask=dev.clause_mask, var_occ=dev.var_occ, occ_mask=dev.occ_mask,
             zeta=zeta, rigidity=ode.rigidity, dv_strategy=dv_strategy,
             bucket_slices=buckets,
+            segment_table=(table(v.device, dev) if dv_strategy == "segment_sum" and v.is_cuda
+                           else None),
         )
         if clause_group is not None:
             buf = all_reduce(torch.cat([dv, (~allsat).to(dv.dtype).unsqueeze(-1)], dim=-1),
@@ -217,7 +280,7 @@ def make_step_fn(fa: FormulaArrays, zeta: float, ode: ODEConfig, clause_group=No
             dv, allsat = buf[..., :-1], buf[..., -1] == 0
         return dv, dxs, dxl, allsat
 
-    def update(v, xs, xl, dv, dxs, dxl, dt):
+    def update(v, xs, xl, dv, dxs, dxl, dt, k: StepConstants):
         """Clamped Euler update (reference: src/system.rs:93-97); dt is
         (B,). fmax/fmin ignore NaN like Rust's f64::max/min, so a NaN
         update (conflicting unit clauses summing +inf and -inf) clamps to
@@ -225,39 +288,38 @@ def make_step_fn(fa: FormulaArrays, zeta: float, ode: ODEConfig, clause_group=No
         dt_c = dt.unsqueeze(-1)
 
         def clamp(x, lo, hi):
-            return torch.fmin(torch.fmax(x, x.new_tensor(lo)), x.new_tensor(hi))
+            return torch.fmin(torch.fmax(x, lo), hi)
 
-        xs2 = clamp(xs + dt_c * dxs, EPSILON, 1.0 - EPSILON)
-        xl2 = clamp(xl + dt_c * dxl, 1.0, xl_cap)
-        v2 = clamp(v + dt_c * dv, -1.0, 1.0)
+        xs2 = clamp(xs + dt_c * dxs, k.xs_lo, k.xs_hi)
+        xl2 = clamp(xl + dt_c * dxl, k.xl_lo, k.xl_hi)
+        v2 = clamp(v + dt_c * dv, k.v_lo, k.v_hi)
         return v2, xs2, xl2
 
     def freeze(cond, new, old):
         return torch.where(cond.unsqueeze(-1), new, old)
 
     if ode.step_size is not None:
-        dt_fixed = float(ode.step_size)
 
         def step(state: ODEState, dev: FormulaDevice) -> ODEState:
+            k = constants(state.v.device, state.v.dtype)
             dv, dxs, dxl, allsat = derivs(state.v, state.xs, state.xl, dev)
-            dt_b = torch.where(state.done, 0.0, state.v.new_tensor(dt_fixed))
-            v, xs, xl = update(state.v, state.xs, state.xl, dv, dxs, dxl, dt_b)
+            dt_b = torch.where(state.done, 0.0, k.dt_fixed)
+            v, xs, xl = update(state.v, state.xs, state.xl, dv, dxs, dxl, dt_b, k)
             return ODEState(v, xs, xl, state.dt, state.done | allsat)
 
         return step
 
-    tol = float(ode.tolerance)
-
     def step(state: ODEState, dev: FormulaDevice) -> ODEState:
+        k = constants(state.v.device, state.v.dtype)
         dv, dxs, dxl, allsat = derivs(state.v, state.xs, state.xl, dev)
         advance = ~state.done & ~allsat  # src/system.rs:122: no update when allsat
         dt = state.dt
 
         # one full step (trial) vs two half steps (kept)
-        fv, fxs, fxl = update(state.v, state.xs, state.xl, dv, dxs, dxl, dt)
-        hv, hxs, hxl = update(state.v, state.xs, state.xl, dv, dxs, dxl, 0.5 * dt)
+        fv, fxs, fxl = update(state.v, state.xs, state.xl, dv, dxs, dxl, dt, k)
+        hv, hxs, hxl = update(state.v, state.xs, state.xl, dv, dxs, dxl, 0.5 * dt, k)
         dv2, dxs2, dxl2, _ = derivs(hv, hxs, hxl, dev)
-        tv, txs, txl = update(hv, hxs, hxl, dv2, dxs2, dxl2, 0.5 * dt)
+        tv, txs, txl = update(hv, hxs, hxl, dv2, dxs2, dxl2, 0.5 * dt, k)
 
         err = torch.maximum(
             (fv - tv).abs().amax(dim=-1),
@@ -277,8 +339,8 @@ def make_step_fn(fa: FormulaArrays, zeta: float, ode: ODEConfig, clause_group=No
         # clamped at 1e3 (src/system.rs:132-135)
         # a tensor numerator: `float / tensor` is reciprocal-then-multiply
         # in torch, which rounds twice where jnp divides once
-        ratio = err.new_tensor(tol) / err.clamp_min(1e-30)
-        new_dt = torch.clamp(dt * torch.sqrt(ratio), DT_MIN, DT_MAX)
+        ratio = k.tol / err.clamp_min(1e-30)
+        new_dt = torch.clamp(dt * torch.sqrt(ratio), k.dt_min, k.dt_max)
 
         v = freeze(advance, tv, state.v)
         xs = freeze(advance, txs, state.xs)
@@ -322,8 +384,11 @@ def make_chunk_runner(
     resident CUDA kernel B1 (ops/fused_chunk.py), ``'stream'`` as one launch
     of the large-formula kernel B2 (ops/stream_chunk.py); each raises for
     what its kernel cannot take, as the JAX package does. ``'auto'``
-    resolves through :func:`resolve_strategy`. Other strategies loop
-    single steps (``'pallas'`` with the RHS kernel B10 on CUDA)."""
+    resolves through :func:`resolve_strategy`. The scan strategies
+    (``'gather'``, ``'segment_sum'``, and ``'pallas'``, whose RHS is B10 on
+    CUDA) run ``chunk_steps`` single steps as the scan chunk
+    (``ops/scan_chunk.py``): one CUDA graph replay on a CUDA state, the
+    plain loop of steps on a CPU one."""
     shared_adaptive = ode.dt_mode == "shared" and ode.step_size is None
     if shared_adaptive and ode.dv_strategy in ("fused", "stream"):
         raise ValueError(
@@ -340,14 +405,10 @@ def make_chunk_runner(
 
         return make_stream_chunk(fa, zeta, ode, chunk_steps, device)
 
-    step = make_step_fn(fa, zeta, dataclasses.replace(ode, dv_strategy=strategy))
+    from odesat_tpu_torch.ops.scan_chunk import make_scan_chunk
 
-    def run_chunk(state: ODEState, dev: FormulaDevice) -> ODEState:
-        for _ in range(chunk_steps):
-            state = step(state, dev)
-        return state
-
-    return run_chunk
+    step = make_step_fn(fa, zeta, dataclasses.replace(ode, dv_strategy=strategy), device=device)
+    return make_scan_chunk(step, chunk_steps, device)
 
 
 def make_multi_chunk_runner(
@@ -364,13 +425,12 @@ def make_multi_chunk_runner(
     ``max_chunks`` chunks of ``chunk_steps``, testing before each chunk
     whether any (``stop_on="any"``) or every (``"all"``) trajectory is
     done, with an exact ``steps_advanced`` (JAX :443-538). A kernel runner
-    (B1 or B2) on a CUDA state runs the whole dispatch as one graph launch
-    that stops on the card (``ops/device_loop.py``); every other runner,
-    and any runner on the CPU, runs the host loop of
-    ``models/loop.run_chunks``, the device loop's plain version. The scan
-    path stays a host loop where JAX runs a while program too (ROADMAP,
-    differences by design). ``chunk`` reuses an already built chunk
-    runner."""
+    (B1 or B2) or the scan chunk (``ops/scan_chunk.py``) on a CUDA state
+    runs the whole dispatch as one graph launch that stops on the card
+    (``ops/device_loop.py``), as JAX runs its chunk inside one
+    ``lax.while_loop``; any runner on the CPU, and a runner of another kind
+    (a mesh's), runs the host loop of ``models/loop.run_chunks``, the device
+    loop's plain version. ``chunk`` reuses an already built chunk runner."""
     from odesat_tpu_torch.models.loop import run_chunks
     from odesat_tpu_torch.ops import device_loop
 
@@ -381,7 +441,7 @@ def make_multi_chunk_runner(
 
     def run(state: ODEState, dev=None):
         if on_card and state.v.device.type == "cuda":
-            return device_loop.run(chunk, state, max_chunks, stop_all=stop_all)
+            return device_loop.run(chunk, state, max_chunks, stop_all=stop_all, dev=dev)
         return run_chunks(lambda st: chunk(st, dev), chunk_steps, max_chunks,
                           stop_all=stop_all)(state)
 

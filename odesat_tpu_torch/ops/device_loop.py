@@ -1,5 +1,6 @@
 """The on-device multi-chunk loop: up to ``bound`` chunks of a chunk kernel
-(B1, B2, B3 or B4) in one host launch of a CUDA graph that stops on the
+(B1, B2, B3 or B4) or of the scan tier's captured chunk
+(``ops/scan_chunk.py``) in one host launch of a CUDA graph that stops on the
 card, and its plain version.
 
 Replaces the ``lax.while_loop`` of ``odesat_tpu/models/ode.py:443-538``
@@ -22,6 +23,14 @@ chunk. The kernels run in place (each CTA reads its rows before its first
 barrier and writes them after its last), so a chunk needs no copy. A
 dispatch copies the incoming state into the loop's buffers and returns a
 copy of them, so what it returns stays the caller's.
+
+The scan tier's chunk is many kernels, captured by torch into a graph that
+runs in place on its own buffers (``KernelChunk.buffers`` hands them to the
+loop). Its body is that graph as a child graph node, which a conditional
+body may hold as long as it holds only kernel, memset, device-to-device
+copy, empty, child-graph and conditional nodes (checked: the loop's build
+raises otherwise), then a stop kernel that reduces ``done`` into the stop
+word by the head kernel's any/all rule.
 
 The stoch kernels draw one 31-bit seed a launch. A captured body cannot
 take a new scalar each chunk, so B3 and B4 read theirs on the card from
@@ -73,7 +82,9 @@ class KernelChunk:
     graph must keep alive. ``chunk_steps`` is a chunk's length, ``counter``
     the ``(module, attribute)`` of the kernel's launch count, ``spec`` its
     tables, and ``generator`` (B3's and B4's runners) the CPU generator
-    their seeds come from. ``loops`` holds the graphs built for it."""
+    their seeds come from. ``buffers(state, dev)``, where given, returns
+    the state buffers the body runs in place on (the scan chunk's); else
+    the loop allocates its own. ``loops`` holds the graphs built for it."""
 
     fn: Callable
     body: Callable
@@ -81,6 +92,7 @@ class KernelChunk:
     counter: tuple
     spec: object = None
     generator: torch.Generator | None = None
+    buffers: Callable | None = None
     loops: dict = dataclasses.field(default_factory=dict, init=False, repr=False)
 
     def __call__(self, *args):
@@ -104,6 +116,10 @@ def _declare(lib) -> None:
     lib.device_loop_launch.restype = _I
     lib.device_loop_destroy.argtypes = [_P]
     lib.device_loop_destroy.restype = None
+    lib.device_loop_add_graph.argtypes = [_P, _P, ctypes.POINTER(_I)]
+    lib.device_loop_add_graph.restype = _I
+    lib.device_loop_stop.argtypes = [_P, _P, _P, _I, _I]
+    lib.device_loop_stop.restype = _I
     lib.device_loop_error_string.argtypes = [_I]
     lib.device_loop_error_string.restype = ctypes.c_char_p
 
@@ -114,7 +130,7 @@ def load_library():
     return _cuda.load("device_loop", _declare)
 
 
-def _check(lib, rc: int, what: str) -> None:
+def check(lib, rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"device loop: {what} failed: "
                            + lib.device_loop_error_string(rc).decode())
@@ -123,13 +139,16 @@ def _check(lib, rc: int, what: str) -> None:
 class DeviceLoop:
     """One graph: the :class:`KernelChunk` ``chunk`` over a state of
     ``state``'s shapes, stopping on any (``stop_all``: every) row done,
-    with room for ``capacity`` seeds when ``seeded`` (B3, B4)."""
+    with room for ``capacity`` seeds when ``seeded`` (B3, B4). ``buffers``:
+    the state buffers the chunk runs in place on, else new ones."""
 
-    def __init__(self, chunk, state, stop_all: bool, seeded: bool, capacity: int):
+    def __init__(self, chunk, state, stop_all: bool, seeded: bool, capacity: int,
+                 buffers=None):
         self.lib, _ = load_library()
         self.handle = None
         device = state.v.device
-        self.buffers = type(state)(*(torch.empty_like(t) for t in state))
+        self.buffers = (buffers if buffers is not None else
+                        type(state)(*(torch.empty_like(t) for t in state)))
         self.ctrl = torch.zeros(CTRL_WORDS, dtype=torch.int32, device=device)
         self.host = torch.zeros(1 + capacity, dtype=torch.int32).pin_memory()
         self.seeds = (torch.zeros(capacity, dtype=torch.int32, device=device) if seeded else
@@ -138,12 +157,12 @@ class DeviceLoop:
         ctrl = self.ctrl.data_ptr()
         handle = _P()
         with torch.cuda.device(device):
-            _check(self.lib, self.lib.device_loop_create(
+            check(self.lib, self.lib.device_loop_create(
                 ctypes.byref(handle), ctrl, self.buffers.done.data_ptr(),
                 self.buffers.v.shape[0], int(stop_all)), "graph creation")
             self.handle = handle
             stream = _P()
-            _check(self.lib, self.lib.device_loop_begin_body(handle, ctypes.byref(stream)),
+            check(self.lib, self.lib.device_loop_begin_body(handle, ctypes.byref(stream)),
                    "body capture")
             try:
                 self.keep = chunk.body(
@@ -152,7 +171,7 @@ class DeviceLoop:
             except BaseException:
                 self.lib.device_loop_end_body(handle)  # ends the capture; the launch's error stands
                 raise
-            _check(self.lib, self.lib.device_loop_end_body(handle), "graph instantiation")
+            check(self.lib, self.lib.device_loop_end_body(handle), "graph instantiation")
 
     def __call__(self, state, bound: int, seeds=None):
         """One dispatch from ``state``; returns ``(state, chunks_run)``."""
@@ -173,7 +192,7 @@ class DeviceLoop:
             self.ctrl[:1].copy_(self.host[:1], non_blocking=True)
             if n > 1:
                 self.seeds[:n - 1].copy_(self.host[1:n], non_blocking=True)
-            _check(self.lib, self.lib.device_loop_launch(
+            check(self.lib, self.lib.device_loop_launch(
                 self.handle, torch.cuda.current_stream(device).cuda_stream), "graph launch")
         launches += 1
         ran = int(self.ctrl[1].item())  # the dispatch's one read: waits for the graph
@@ -185,12 +204,13 @@ class DeviceLoop:
             self.handle = None
 
 
-def run(chunk: KernelChunk, state, bound: int, stop_all: bool = False, seeds=None):
+def run(chunk: KernelChunk, state, bound: int, stop_all: bool = False, seeds=None, dev=None):
     """Up to ``bound`` launches of the kernel runner ``chunk`` (B1 or B2;
-    B3 or B4 with one seed a chunk in ``seeds``, ``bound`` of them) from the
-    CUDA ``state``, in one graph launch; returns ``(state,
-    steps_advanced)``. The graph is built at the runner's first dispatch at
-    this batch size and stop rule, and reused for every bound."""
+    B3 or B4 with one seed a chunk in ``seeds``, ``bound`` of them; the scan
+    chunk over the formula tensors ``dev``) from the CUDA ``state``, in one
+    graph launch; returns ``(state, steps_advanced)``. The graph is built at
+    the runner's first dispatch at this batch size and stop rule (the scan
+    chunk's: and its capture's buffers), and reused for every bound."""
     if not isinstance(chunk, KernelChunk):
         raise TypeError(f"the device loop runs a KernelChunk, not {type(chunk).__name__}")
     if bound < 0:
@@ -204,12 +224,13 @@ def run(chunk: KernelChunk, state, bound: int, stop_all: bool = False, seeds=Non
     if B == 0:  # no row: any() never holds and all() always does
         return type(state)(*(t.clone() for t in state)), (0 if stop_all else bound) * \
             chunk.chunk_steps
-    key = (B, bool(stop_all), state.v.device)
+    buffers = chunk.buffers(state, dev) if chunk.buffers is not None else None
+    key = (B, bool(stop_all), state.v.device, id(buffers))
     loop = chunk.loops.get(key)
     if loop is None or (seeded and loop.capacity < bound):
         chunk.loops.pop(key, None)
         loop = chunk.loops[key] = DeviceLoop(chunk, state, stop_all, seeded,
-                                             max(bound, 1) if seeded else 0)
+                                             max(bound, 1) if seeded else 0, buffers)
     out, ran = loop(state, bound, seeds)
     chunk.count(ran)
     return out, ran * chunk.chunk_steps

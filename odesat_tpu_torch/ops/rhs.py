@@ -25,6 +25,7 @@ second_min == min and every literal at the min takes second_min.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from odesat_tpu_torch.constants import ALPHA, BETA, DELTA, EPSILON, GAMMA
@@ -65,10 +66,44 @@ def accumulate_dv_gather(contrib_flat, var_occ, occ_mask):
     return (picked * occ_mask).sum(dim=-1)
 
 
-def accumulate_dv_segment(contrib_flat, lit_var_flat, n_vars_padded):
-    """dv via scatter-add over the flat literal slots (index_add_)."""
-    out = contrib_flat.new_zeros(*contrib_flat.shape[:-1], n_vars_padded)
-    return out.index_add_(-1, lit_var_flat, contrib_flat)
+def segment_table(seg_ids: np.ndarray, n_segments: int, device) -> tuple:
+    """The tables of :func:`segment_sum_sorted` for entries that go to
+    segments ``seg_ids``: ``(order, offsets)`` on ``device``, int64. ``order``
+    lists the entries by segment, each segment's in index order (a stable
+    sort); ``offsets`` (n_segments + 1) is where each segment starts in it."""
+    seg_ids = np.asarray(seg_ids, dtype=np.int64).reshape(-1)
+    order = np.argsort(seg_ids, kind="stable")
+    offsets = np.concatenate([[0], np.cumsum(np.bincount(seg_ids, minlength=n_segments))])
+    return torch.as_tensor(order, device=device), torch.as_tensor(offsets, device=device)
+
+
+def segment_sum_sorted(x, table):
+    """``x`` (..., S) summed into the segments of :func:`segment_table`'s
+    ``table`` -> (..., n_segments): the entries gathered in segment order,
+    then ``torch.segment_reduce`` adds each segment's entries one after
+    another, in index order. No float atomics, so a run repeats its bits;
+    an empty segment sums to 0. ``unsafe=True`` skips the checks of the
+    offsets, which read back to the host."""
+    order, offsets = table
+    rows = x.reshape(-1, x.shape[-1])
+    out = torch.segment_reduce(rows[:, order], "sum", axis=1, unsafe=True,
+                               offsets=offsets.expand(rows.shape[0], -1))
+    return out.reshape(*x.shape[:-1], offsets.numel() - 1)
+
+
+def accumulate_dv_segment(contrib_flat, lit_var_flat, n_vars_padded, table=None):
+    """dv by segment over the flat literal slots. On the CPU one
+    ``index_add_``, which adds in index order there and is faster than the
+    sorted sum. On CUDA, where ``index_add_`` adds with float atomics in an
+    order that changes from run to run, :func:`segment_sum_sorted` over
+    ``table`` (built here from ``lit_var_flat`` when not given: a read to the
+    host and a sort, each call)."""
+    if contrib_flat.device.type == "cpu":
+        out = contrib_flat.new_zeros(*contrib_flat.shape[:-1], n_vars_padded)
+        return out.index_add_(-1, lit_var_flat, contrib_flat)
+    if table is None:
+        table = segment_table(lit_var_flat.cpu().numpy(), n_vars_padded, contrib_flat.device)
+    return segment_sum_sorted(contrib_flat, table)
 
 
 def _clause_terms(v, xs, xl, lit_var, sign, lit_mask, clause_mask, zeta, rigidity):
@@ -119,6 +154,7 @@ def compute_derivatives(
     rigidity: str = "paper",
     dv_strategy: str = "gather",
     bucket_slices=None,
+    segment_table=None,
 ):
     """One RHS evaluation over a leading batch axis. Returns
     (dv, dxs, dxl, allsat).
@@ -131,7 +167,9 @@ def compute_derivatives(
     clause axis pre-sorted by width; each bucket's clause math runs at its
     own literal width K_b. None = one bucket at full width. ``var_occ``
     must index the matching flattened contribution layout (the compiler
-    builds both consistently).
+    builds both consistently). ``segment_table``: ``segment_sum``'s tables
+    on CUDA (:func:`segment_table` over the flat slots' variables, in bucket
+    order), built ahead so that the pass reads nothing back to the host.
     """
     K, M = lit_var.shape
     if bucket_slices is None:
@@ -165,7 +203,7 @@ def compute_derivatives(
         dv = accumulate_dv_gather(contrib_flat, var_occ, occ_mask)
     elif dv_strategy == "segment_sum":
         seg_ids = seg_parts[0] if len(seg_parts) == 1 else torch.cat(seg_parts)
-        dv = accumulate_dv_segment(contrib_flat, seg_ids, v.shape[-1])
+        dv = accumulate_dv_segment(contrib_flat, seg_ids, v.shape[-1], segment_table)
     else:
         raise ValueError(f"unknown dv_strategy: {dv_strategy!r}")
 

@@ -303,10 +303,11 @@ def rhs_cuda(v, xs, xl, spec: RhsSpec, plan: Optional[RhsPlan] = None):
 
 
 def make_rhs_kernel(fa: FormulaArrays, zeta: float, rigidity: str = "paper",
-                    dtype: str = "float32"):
+                    dtype: str = "float32", device=None):
     """Build ``fn(v, xs, xl, dev=None) -> (dv, dxs, dxl, allsat)``. CUDA
     inputs go through B10, CPU inputs through :func:`rhs_plain` (the
-    tables are moved to a device at its first use); anything else raises.
+    tables are moved to a device at its first use, or here to ``device``,
+    so that a captured step finds them there); anything else raises.
     ``dev`` is accepted for the step function's signature and ignored.
     Raises ValueError for unit clauses and past the gate."""
     if fa.min_width < 2:
@@ -322,6 +323,12 @@ def make_rhs_kernel(fa: FormulaArrays, zeta: float, rigidity: str = "paper",
             "in one CTA's shared memory; use dv_strategy='gather'"
         )
     specs = {}
+    if device is not None:
+        spec = specs[cuda_device(device)] = rhs_spec(fa, zeta, rigidity, device)
+        if spec.device.type == "cpu":
+            cached_tables(spec, plain_tables)
+        else:
+            load_library()  # built now, not inside a capture of the step
 
     def fn(v, xs, xl, dev=None):
         kind = v.device.type

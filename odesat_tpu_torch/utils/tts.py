@@ -121,6 +121,7 @@ def solve_exact(
     the timed region (its output is discarded)."""
     from odesat_tpu_torch.models import ode as ode_mod
     from odesat_tpu_torch.ops.device_loop import KernelChunk
+    from odesat_tpu_torch.ops.scan_chunk import ScanChunk
     from odesat_tpu_torch.utils.timing import sync
 
     if runner_cache is None:
@@ -160,7 +161,10 @@ def solve_exact(
         return ExactSolve(steps=base + off + 1, solved=True, chunks=chunks, wall_s=wall,
                           solved_index=idx, assignment=assignment)
 
-    if budget // chunk >= 2 and isinstance(runner(chunk), KernelChunk):
+    # the kernels' chunks only: JAX's scan chunk stays host-paced here too
+    # (its core_only refuses a while program that would recompile a formula)
+    if (budget // chunk >= 2 and isinstance(runner(chunk), KernelChunk)
+            and not isinstance(runner(chunk), ScanChunk)):
         return _one_dispatch(fa, zeta, ode, chunk, budget, device, state, dev, runner, finish)
 
     sync(runner(min(chunk, budget))(state, dev) if budget > 0 else state)  # warm-up

@@ -1302,3 +1302,197 @@ def test_a_graph_that_cannot_be_built_raises(cuda, monkeypatch):
         want = fn(want)
     torch.cuda.synchronize()
     assert steps == 32 and torch.equal(out.v, want.v) and torch.equal(out.done, want.done)
+
+
+# ------------------------------------------------------- the scan chunk
+
+
+def _scan_case(strategy, mode, dtype, device, chunk_steps=8):
+    """A planted 3-SAT (every clause of width 3, as B10 takes), its scan
+    chunk and the step it captures, built for ``device``."""
+    fa = compile_formula(normalize_cnf_variables(random_ksat(50, 200, seed=3, planted=True))[1])
+    ode = ODEConfig(step_size=0.05 if mode == "fixed" else None, dtype=dtype,
+                    dt_mode="shared" if mode == "shared" else "per-trajectory",
+                    dv_strategy=strategy)
+    chunk = tode.make_chunk_runner(fa, 0.05, ode, chunk_steps, device)
+    step = tode.make_step_fn(fa, 0.05, ode, device=device)
+    dev = tode.formula_device(fa, device, tode.state_dtype(ode))
+    return fa, ode, chunk, step, dev
+
+
+def _scan_state(fa, B, seed, dtype, device):
+    state = _state(fa, B, seed, "cpu")
+    dt = torch.float64 if dtype == "float64" else torch.float32
+    return type(state)(*(t.to(device=device, dtype=dt) if t.is_floating_point() else
+                         t.to(device) for t in state))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("mode", ["fixed", "adaptive", "shared"])
+@pytest.mark.parametrize("strategy", ["gather", "segment_sum", "pallas"])
+def test_scan_chunk_equals_the_step_loop(cuda, strategy, mode, dtype):
+    """The captured 8-step chunk at B=37 against the same steps launched one
+    by one: bit-identical, twice (segment_sum included: its tree sums in a
+    fixed order); one capture; each replay counts one graph chunk and B10's
+    launches of 8 steps (one a fixed step, two an adaptive one)."""
+    from odesat_tpu_torch.ops import rhs_kernel as rk
+    from odesat_tpu_torch.ops import scan_chunk
+
+    fa, ode, chunk, step, dev = _scan_case(strategy, mode, dtype, cuda)
+    state = _scan_state(fa, 37, 1, dtype, cuda)
+    want = state
+    for _ in range(8):
+        want = step(want, dev)
+    before = (scan_chunk.launches, rk.launches)
+    got, again = chunk(state, dev), chunk(state, dev)
+    torch.cuda.synchronize()
+    per_step = 0 if strategy != "pallas" else (1 if mode == "fixed" else 2)
+    assert (scan_chunk.launches, rk.launches) == (before[0] + 2, before[1] + 2 * 8 * per_step)
+    assert len(chunk.graphs) == 1
+    for name, a, b, c in zip(state._fields, got, want, again):
+        assert torch.equal(a, b) and torch.equal(a, c), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stop_on", ["any", "all"])
+@pytest.mark.parametrize("bound", [0, 1, 3, 40])
+@pytest.mark.parametrize("strategy", ["segment_sum", "pallas"])
+def test_device_loop_over_the_scan_chunk_equals_run_chunks(cuda, strategy, stop_on, bound):
+    """The multi-chunk runner on a CUDA state (one graph launch: the
+    captured chunk as the WHILE node's body, then the stop kernel) against
+    the host loop over the same chunk, from the all-running start and from
+    a state with done rows: the same state bit for bit, the same steps, and
+    the counts of the chunks run."""
+    from odesat_tpu_torch.models.loop import run_chunks
+    from odesat_tpu_torch.ops import device_loop
+    from odesat_tpu_torch.ops import rhs_kernel as rk
+    from odesat_tpu_torch.ops import scan_chunk
+
+    fa, ode, chunk, step, dev = _scan_case(strategy, "fixed", "float32", cuda)
+    multi = tode.make_multi_chunk_runner(fa, 0.05, ode, 8, bound, cuda, stop_on=stop_on,
+                                         chunk=chunk)
+    for state in (_state(fa, 64, 2, cuda), _partly_solved(fa, 64, 2, cuda)):
+        want, steps = run_chunks(lambda st: chunk(st, dev), 8, bound,
+                                 stop_all=stop_on == "all")(state)
+        graphs, before = device_loop.launches, (scan_chunk.launches, rk.launches)
+        got, got_steps = multi(state, dev)
+        torch.cuda.synchronize()
+        chunks = steps // 8
+        assert device_loop.launches == graphs + 1 and got_steps == steps
+        b10 = 8 * chunks if strategy == "pallas" else 0
+        assert (scan_chunk.launches, rk.launches) == (before[0] + chunks, before[1] + b10)
+        for name in ("v", "xs", "xl", "dt", "done"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.cuda
+def test_scan_graphs_share_one_pool_and_replay_in_any_order(cuda):
+    """Two runners (8 steps of the twin, 3 of B10, adaptive) capture into
+    the device's one pool; replayed alternately, each equals its step loop
+    every time."""
+    fa, ode, a, step_a, dev = _scan_case("gather", "adaptive", "float32", cuda)
+    _, ode_b, b, step_b, _ = _scan_case("pallas", "adaptive", "float32", cuda, chunk_steps=3)
+    state = _state(fa, 64, 4, cuda)
+    outs = []
+    for chunk, step, n in ((a, step_a, 8), (b, step_b, 3), (a, step_a, 8), (b, step_b, 3)):
+        want = state
+        for _ in range(n):
+            want = step(want, dev)
+        outs.append((chunk(state, dev), want))
+    torch.cuda.synchronize()
+    (cap_a,), (cap_b,) = a.graphs.values(), b.graphs.values()
+    assert cap_a.parts[0][0].pool() == cap_b.parts[0][0].pool()
+    for got, want in outs:
+        for name, x, y in zip(state._fields, got, want):
+            assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+def test_a_capture_after_every_graph_of_the_pool_died(cuda):
+    """Runner A captures and replays, then dies with its graphs, and the
+    allocator releases their pool; runner B then captures (into a pool of
+    its own: the dead pool's handle would trip the allocator's assert) and
+    equals its step loop bit for bit, twice."""
+    import gc
+
+    from odesat_tpu_torch.ops import scan_chunk
+
+    fa, _, a, _, dev = _scan_case("gather", "fixed", "float32", cuda)
+    state = _state(fa, 64, 5, cuda)
+    a(state, dev)
+    torch.cuda.synchronize()
+    del a
+    gc.collect()
+    assert not scan_chunk._POOLS[state.v.device][1]  # no graph of the pool lives
+    _, _, b, step, _ = _scan_case("pallas", "adaptive", "float32", cuda)
+    want = state
+    for _ in range(8):
+        want = step(want, dev)
+    got, again = b(state, dev), b(state, dev)
+    torch.cuda.synchronize()
+    for name, x, y, z in zip(state._fields, got, want, again):
+        assert torch.equal(x, y) and torch.equal(x, z), name
+
+
+@pytest.mark.cuda
+def test_a_capture_that_raises_leaves_the_next_one_correct(cuda):
+    """A step that reads a value back to the host (``.item()``) cannot be
+    captured: the runner's first call raises, keeps no graph and counts no
+    B10 launch; a good runner then captures into the same pool and equals
+    its step loop bit for bit."""
+    from odesat_tpu_torch.ops import rhs_kernel as rk
+    from odesat_tpu_torch.ops import scan_chunk
+
+    fa, _, good, step, dev = _scan_case("pallas", "fixed", "float32", cuda)
+
+    def reads_back(state, dev):
+        state = step(state, dev)
+        state.v.sum().item()
+        return state
+
+    bad = scan_chunk.make_scan_chunk(reads_back, 4, cuda)
+    state = _state(fa, 37, 7, cuda)
+    before = (scan_chunk.launches, rk.launches)
+    with pytest.raises(RuntimeError):
+        bad(state, dev)
+    assert bad.graphs == {} and (scan_chunk.launches, rk.launches) == before
+    want = state
+    for _ in range(8):
+        want = step(want, dev)
+    got = good(state, dev)
+    torch.cuda.synchronize()
+    for name, x, y in zip(state._fields, got, want):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+def test_a_chunk_longer_than_a_graph_runs_its_parts(cuda):
+    """A chunk of MAX_GRAPH_STEPS + 3 steps (B10, fixed) is a graph of
+    MAX_GRAPH_STEPS steps and one of 3: called directly and under the device
+    loop it equals the steps launched one by one bit for bit, and B10
+    counts every step."""
+    from odesat_tpu_torch.models.loop import run_chunks
+    from odesat_tpu_torch.ops import rhs_kernel as rk
+    from odesat_tpu_torch.ops import scan_chunk
+
+    n = scan_chunk.MAX_GRAPH_STEPS + 3
+    fa, ode, chunk, step, dev = _scan_case("pallas", "fixed", "float32", cuda, chunk_steps=n)
+    state = _state(fa, 37, 6, cuda)
+    want = state
+    for _ in range(n):
+        want = step(want, dev)
+    before = rk.launches
+    got = chunk(state, dev)
+    torch.cuda.synchronize()
+    (cap,) = chunk.graphs.values()
+    assert [times for _, times in cap.parts] == [1, 1] and rk.launches == before + n
+    for name, a, b in zip(state._fields, got, want):
+        assert torch.equal(a, b), name
+    multi = tode.make_multi_chunk_runner(fa, 0.05, ode, n, 2, cuda, stop_on="all", chunk=chunk)
+    host, host_steps = run_chunks(lambda st: chunk(st, dev), n, 2, stop_all=True)(state)
+    got, steps = multi(state, dev)
+    torch.cuda.synchronize()
+    assert steps == host_steps > 0
+    for name, a, b in zip(state._fields, got, host):
+        assert torch.equal(a, b), name
