@@ -140,14 +140,15 @@ Phases, each printing its lines; the first failure exits non-zero:
     stoch on easy.cnf verifying true through B9; d. the clause step and the
     B6 chunk over an NCCL world of one equal the mesh-free B5 runner bit for
     bit; e. inter --devices 2 on uf250 B=4096 through B1 equals the T=1 run
-    row for row; the B5 and B8 solves and parity checks of b and c, e's
-    mesh run, B7 against its plain version bit for bit (lengths 1, 7,
-    33*1025 and the full (1024, Np+1) buffer, with and without a max zone,
-    then 1000 back-to-back calls on fresh data), the race runs (B6 fixed
-    1000 steps, adaptive 500, B9 1000 steps on a 3-SAT n=300 at B=64, one
-    chunk on the card with no host sync against the plain version, bit for
-    bit, v bit-identical), the split of B7's standalone call and phase
-    21's timings share one spawned world, as do phase 23's mesh runs; f. at
+    row for row, its dispatches in the mesh device loop (phase 28); the B5
+    and B8 solves and parity checks of b and c, e's mesh run, B7 against its
+    plain version bit for bit (lengths 1, 7, 33*1025 and the full (1024,
+    Np+1) buffer, with and without a max zone, then 1000 back-to-back calls
+    on fresh data), the race runs (B6 fixed 1000 steps, adaptive 500, B9
+    1000 steps on a 3-SAT n=300 at B=64, one chunk on the card with no host
+    sync against the plain version, bit for bit, v bit-identical), the split
+    of B7's standalone call and phase 21's timings share one spawned world,
+    as do phase 23's mesh runs; f. at
     S=4, four gloo ranks in one more world: inter and stoch on config 7
     through the CLI's mesh solve (B6, B9, B7 fused), the ODE clause mesh
     through B6 and through B5 against S=1 (rtol 2e-4 / atol 2e-5, v
@@ -226,14 +227,15 @@ Phases, each printing its lines; the first failure exits non-zero:
     both processes on the same libraries, process 0 alone writing -o, whose
     assignment and steps equal the single-process --devices 2
     --clause-shards 2 run's bit for bit; b. inter on uf250 -b 4096 -n 20000
-    --pod-mesh, one rank a process: true on both, B1 on each rank; c. stoch
-    --no-preprocess on config 7 -b 1024 -n 32 --pod-mesh --clause-shards 2:
-    B9 on all four ranks, 32 steps or a verified row; d. process 1 alone
-    with --dist-timeout 10: a non-zero exit, an error and no verdict; e.
-    each pair's wall and a process's start-up (its CLI run less its solve
-    and its import) beside phase 20's single-process one, and the 2x2 pod's
-    inter step through B6 (host clock around 2 chunks of 16, as phase 21
-    times S=2);
+    --pod-mesh, one rank a process: true on both, B1 on each rank inside the
+    mesh device loop's graphs, the stop exchanged across the processes; c.
+    stoch --no-preprocess on config 7 -b 1024 -n 32 --pod-mesh
+    --clause-shards 2: B9 on all four ranks, 32 steps or a verified row; d.
+    process 1 alone with --dist-timeout 10: a non-zero exit, an error and no
+    verdict; e. each pair's wall and a process's start-up (its CLI run less
+    its solve and its import) beside phase 20's single-process one, and the
+    2x2 pod's inter step through B6 (host clock around 2 chunks of 16, as
+    phase 21 times S=2);
 27. the scan tier on the card (ops/scan_chunk.py): a. the captured 16-step
     chunk equal to its steps launched one by one, exactly (max abs error 0,
     done equal), for pallas (B10), gather and segment_sum, fixed, adaptive
@@ -249,7 +251,24 @@ Phases, each printing its lines; the first failure exits non-zero:
     512 steps or a verified row, its rate, capture seconds and peak memory;
     then at B=512 an 8-step captured chunk equal to the same 8 steps
     launched one by one, exactly, and a step's time in each; e. two replays
-    of every captured configuration bit-identical, segment_sum included.
+    of every captured configuration bit-identical, segment_sum included;
+28. the trajectory mesh's device loop (ops/device_loop.py MeshPeers,
+    csrc/device_loop.cu's stop exchange over CUDA IPC pages), in phase 20's
+    world (2x1 meshes of its two ranks sharing the card), reported after
+    phase 20: a. a 256-step B1 chunk's cost at hard.cnf 8192 rows a rank,
+    dispatches of bound 1 and 16 through the host loop (run_chunks with
+    MeshSync) and through the device loop, and with bodies that launch
+    nothing, beside B1 alone; b. the device loop against the host loop bit
+    for bit, steps included, one graph launch a rank and the kernel's count
+    grown by the chunks run: B1 hard.cnf B=16384 and B2 n1k B=10240 (bounds
+    1, 3 and 16, stop on any and all, a state stopped at entry on rank 1
+    only), B1 uf250 B=4096 (the stop inside the dispatch), B3 hard.cnf
+    B=16384 and B4 n1k B=8192 (bounds 1, 3 and 16, a chain of rank 1 done
+    at entry); c. the CLI's inter --devices 2 on hard.cnf -b 16384 -s 0.01
+    -n 4096 (B1), stoch --devices 2 --no-preprocess hard.cnf -b 16384 -n
+    4096 (B3) and stoch --devices 2 on the n=1k instance -b 8192 -n 4096
+    (B4), each false after exactly 4096 steps (or, n1k, a solved chain that
+    verifies), one mesh graph launch a dispatch on each rank.
 
 ``python3 chip_smoke.py --time-loop ROOT`` runs, with the port at ROOT (a
 parent tree unpacked beside this one, or this one), phase 6's and phase
@@ -264,14 +283,17 @@ and S=4; ``--time-segment ROOT`` a segment_sum step of the port at ROOT
 at hard.cnf B=4096 and phase 27d's B=512 (``--time-segment ROOT cpu`` on
 the CPU, 27d's formula at B=16); ``--scan-peak`` the peak memory of 27d's
 shape through inter's device loop and through batch's host-paced, growing
-chunks.
+chunks; ``--time-mesh-loop [host]`` phase 28a alone (both loops, or the
+host loop alone; on a host of several cards one NCCL rank a card).
 
 The last two lines are the ``kernels`` JSON object (one row per kernel,
 with its bound: the larger of its bytes over 3.35 TB/s and its operations
 over 67 TFLOP/s; B7's standalone call at S=2, its library time the gloo
 all-reduce; B7 fused, B6's apply launch reading two partials; the device
-loop, a chunk's cost beyond the chunk kernel; the scan chunk, a captured
-64-step chunk beside the same steps launched from Python) and
+loop, a chunk's cost beyond the chunk kernel; on a trajectory mesh, a B1
+chunk's cost beyond the two ranks' launches against the host loop's
+(phase 28a); the scan chunk, a captured 64-step chunk beside the same steps
+launched from Python) and
 then ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or without the package beside this script, it exits non-zero
 and prints no result.
@@ -2166,15 +2188,17 @@ def b7_checks(shape7):
     return calls
 
 
-def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
+def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card, loop_calls):
     """Phase 20: the clause-mesh main path (gloo ranks sharing the card,
     B7 fused into B6's and B9's launches, its standalone call in B5's and
     B8's steps) and the trajectory mesh; returns the launches of B5, B6, B8,
     B9, B7's standalone calls and B7's fused launches summed over the ranks
-    of the main-path runs, and B7's numbers at S=2 (phase 21's: ms a call,
+    of the main-path runs, B7's numbers at S=2 (phase 21's: ms a call,
     the plain version's, the gloo all-reduce's, the call's split, the
     clause-mesh steps, timed in this phase's world; the largest error of its
-    checks, the race runs' among them). The
+    checks, the race runs' among them), and phase 28's: ``loop_calls`` run
+    last in this world, their values and each one's launch counts on each
+    rank (:func:`phase_mesh_loop` reports them). The
     CLI runs on the config 7 instance are 64 steps (B6) and 32 (B9); the
     CLI's mesh solves through B5 and B8 (16 steps each), the parity checks
     (256 rows for the ODE, 32 steps for stoch) and B7's checks run in one
@@ -2298,7 +2322,15 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
     calls += races + [(time_butterfly_split, (shape7, 20))]
     checks = b7_checks(shape7)
     calls += checks
-    values = launch.spawn(launch.run_all, 1, 2, "gloo", "cuda", timeout_s=600, args=(calls,))
+    values = launch.spawn(launch.run_all, 1, 2, "gloo", "cuda", timeout_s=600,
+                          args=([*calls, *loop_calls],))
+    # phase 28's calls, last: their values and each one's counts on each rank
+    loop_values = values[len(calls):]
+    loop_reports = [[r["calls"][i] for r in launch.last_reports]
+                    for i in range(len(calls), len(calls) + len(loop_calls))]
+    values = values[:len(calls)]
+    for r in launch.last_reports:
+        r["calls"] = r["calls"][:len(calls)]
     two, stoch_two = values[0], values[1:3]
     traj_two, allreduce_ms, (b7_ms, b7_plain), steps_two, b_off, c_off, hyb_two = values[3:10]
     n_resume = len(resume_runs)
@@ -2390,9 +2422,15 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
         rows = int((two.assignment != one.assignment).any(axis=1).sum())
         fail(f"trajectory mesh T=2 differs from T=1: {rows} rows, steps {two.steps} vs "
              f"{one.steps}, done {int(two.done.sum())} vs {int(one.done.sum())}")
+    e_graphs = [r["calls"][3]["device_loop_mesh"] for r in launch.last_reports]
+    if min(e_graphs) == 0:
+        fail(f"e. the trajectory mesh's dispatches made no mesh device-loop graph launch: "
+             f"{e_graphs}")
+    totals["device_loop_mesh"] = sum(e_graphs)
     say(f"[mesh main] e. inter --devices 2 uf250 B=4096 (the same world as a 2x1 mesh): equals "
         f"T=1 row for row ({one.steps} steps, {int(one.done.sum())} solved), B1 launches per "
-        f"rank {per_call[3]['fused_chunk']}")
+        f"rank {per_call[3]['fused_chunk']}, through the mesh device loop (graph launches per "
+        f"rank {e_graphs})")
     race_err = report_races(2, race_two, per_call[10 + n_resume:10 + n_resume + len(races)],
                             card)
     b7_err = report_b7_checks(2, checks, b7_errs, per_call[-len(checks):], card)
@@ -2410,7 +2448,7 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card):
     say(mesh_step_line(2, steps_two, card))
     b7 = {"S=2": {"ms": b7_ms, "plain_ms": b7_plain, "library_ms": allreduce_ms,
                   "steps": steps_two, "split": split_two, "err": max(b7_err, race_err)}}
-    return totals, b7
+    return totals, b7, (loop_values, loop_reports)
 
 
 RACE_KERNELS = ("shard_chunk", "shard_chunk", "stoch_shard_chunk")
@@ -3692,7 +3730,7 @@ def phase_pod(card):
     c7_path = os.path.join(OUT, "local_n10240_m43700.cnf")  # written by phase 20
     uf_path = os.path.join(OUT, "uf250_seed0.cnf")  # written by phase 5
     launches = {"fused_chunk": 0, "shard_chunk": 0, "stoch_shard_chunk": 0,
-                "butterfly_fused": 0}
+                "butterfly_fused": 0, "device_loop_mesh": 0}
     c7_20 = MESH_STARTUP.get("b. inter config 7 B=1024", float("nan"))
 
     # a. a 2x2 mesh on config 7: a clause group of two inside each process,
@@ -3760,12 +3798,18 @@ def phase_pod(card):
     if [r[0] for r in runs] != ["true", "true"]:
         fail(f"26b: verdicts {[r[0] for r in runs]}, expected true on both processes")
     b1, _, _ = pod_launches("b", results, "fused_chunk", 2)
+    graphs = [r["device_loop_mesh"] for _, _, rec in results for r in rec.get("reports", [])]
+    if graphs != [graphs[0]] * 2 or graphs[0] == 0:
+        fail(f"26b: mesh device-loop graph launches per rank {graphs}, expected the same "
+             "number, at least one, on both processes")
     launches["fused_chunk"] += sum(b1)
+    launches["device_loop_mesh"] += sum(graphs)
     say(f"[pod] b. inter uf250 -b 4096 -n 20000 --seed 0 --pod-mesh, 2 processes of one rank "
         f"(the trajectory axis across them): verdicts {[r[0] for r in runs]}, "
         f"{[r[2] for r in runs]} solved after {[r[1] for r in runs]} steps, B1 launches per "
-        f"rank {b1}; pair wall {wall_b:.1f} s, start-up a process {pod_startup(results, runs)} "
-        f"s ({card})")
+        f"rank {b1} in mesh device-loop graphs {graphs} (the stop exchanged across the two "
+        f"processes); pair wall {wall_b:.1f} s, start-up a process "
+        f"{pod_startup(results, runs)} s ({card})")
     wall_d, ((rc, out, _),) = pod_wait("d", lone)
     if rc == 0 or "Checking if solution vector" in out or "error:" not in out or wall_d > 60:
         fail(f"26d: a lone process 1 exited {rc} after {wall_d:.1f} s:\n{out[-3000:]}")
@@ -3789,6 +3833,251 @@ def phase_pod(card):
         f"launches per rank {b9}, B7 fused {fused}, standalone B7 {standalone}; pair wall "
         f"{wall_c:.1f} s, start-up a process {pod_startup(results, runs)} s ({card})")
     return launches
+
+
+# ------------------------------- the trajectory mesh's device loop (phase 28)
+
+
+def mesh_loop_timing(mesh, device, fa, rows, routes=("host", "device"), empty=200, reps=3):
+    """Phase 28a, on each rank of a trajectory mesh sharing the card: a
+    chunk's cost on the mesh's multi-chunk loop, each route in ``routes``
+    ("host": models/loop.run_chunks with parallel/dist.MeshSync; "device":
+    parallel/sharded.make_sharded_multi_runner, the device loop exchanging
+    the stop on the card). B1 at ``rows`` rows a rank of ``fa``, 256-step
+    fixed chunks: the least of ``reps`` walls (host clock from a barrier to
+    a device sync and a barrier) of a dispatch of bound 1 and of bound 16,
+    the difference over 15 chunks; then bodies that launch nothing, bounds 1
+    and ``empty``. And B1 alone at ``rows`` (CUDA events, one rank at a time
+    while the other waits at a barrier). Returns rank 0's ms: {"kernel",
+    route: {"b1_1", "b1_16", "b1_chunk", "empty_chunk"}}."""
+    from types import SimpleNamespace
+
+    import torch
+    import torch.distributed as dist
+
+    from odesat_tpu_torch.models.loop import run_chunks
+    from odesat_tpu_torch.ops import device_loop as dl
+    from odesat_tpu_torch.ops import fused_chunk as fc
+    from odesat_tpu_torch.parallel.dist import MeshSync
+    from odesat_tpu_torch.parallel.sharded import make_sharded_multi_runner
+    from odesat_tpu_torch.utils.config import ODEConfig
+    from odesat_tpu_torch.utils.timing import cuda_ms
+
+    state = random_state(fa, rows, seed=40 + mesh.rank, device=device)
+    b1 = fc.make_fused_chunk(fa, 0.05, ODEConfig(step_size=0.01), 256, device)
+    # a chunk runner whose body launches nothing: the loop alone
+    empty_chunk = dl.KernelChunk(lambda st, dev=None: st, lambda *args: (), 1,
+                                 (SimpleNamespace(launches=0), "launches"))
+
+    def settle():
+        if state.v.is_cuda:
+            torch.cuda.synchronize(device)
+        dist.barrier()
+
+    def wall(run):
+        best = math.inf
+        for _ in range(reps):
+            settle()
+            t0 = time.perf_counter()
+            run(state)
+            settle()
+            best = min(best, time.perf_counter() - t0)
+        return best * 1e3
+
+    def multi(route, chunk, steps, bound):
+        if route == "host":
+            return run_chunks(lambda st: chunk(st, None), steps, bound,
+                              sync=MeshSync(mesh, device))
+        return make_sharded_multi_runner(chunk, steps, bound, mesh, device)
+
+    out = {}
+    for route in routes:
+        w1, w16 = (wall(multi(route, b1, 256, b)) for b in (1, 16))
+        e1, en = (wall(multi(route, empty_chunk, 1, b)) for b in (1, empty))
+        out[route] = {"b1_1": w1, "b1_16": w16, "b1_chunk": (w16 - w1) / 15,
+                      "empty_chunk": (en - e1) / (empty - 1)}
+    kernel = None
+    for r in range(mesh.n_traj):
+        if r == mesh.rank and state.v.is_cuda:
+            kernel = cuda_ms(lambda: b1(state), iters=10, warmup=2)
+        dist.barrier()
+    out["kernel"] = kernel
+    return out
+
+
+MESH_LOOP_ARGV = (
+    # label, argv (--devices 2 over gloo: two ranks sharing the card), kernel, budget
+    ("inter hard.cnf B=16384 (B1)",
+     ["inter", "-f", os.path.join(ROOT, "tests", "data", "hard.cnf"), "-b", "16384", "-s", "0.01",
+      "-n", "4096", "--seed", "0"], "fused_chunk", 4096),
+    ("stoch --no-preprocess hard.cnf B=16384 (B3)",
+     ["stoch", "-f", os.path.join(ROOT, "tests", "data", "hard.cnf"), "--no-preprocess", "-b",
+      "16384", "-n", "4096", "--seed", "0"], "stoch_fused", 4096),
+    ("stoch n1k preprocessed B=8192 (B4)",
+     ["stoch", "-f", os.path.join(OUT, "ksat_n1000_m4300_seed7_planted.cnf"), "-b", "8192", "-n",
+      "4096", "--seed", "0"], "stoch_stream", 4096),
+)
+
+
+def say_mesh_loop_timing(timing, card, ranks=2, per_card=2):
+    """Print phase 28a's lines (:func:`mesh_loop_timing`'s result) for
+    ``ranks`` ranks, ``per_card`` of them on each card."""
+    k = timing["kernel"]
+    where = "sharing the card" if per_card == ranks else f"{per_card} a card"
+    for route in ("host", "device"):
+        t = timing.get(route)
+        if t is None:
+            continue
+        say(f"[mesh loop timing] a. {route} loop, hard.cnf 8192 rows a rank, {ranks} ranks "
+            f"{where}: a dispatch of one 256-step B1 chunk {t['b1_1']:.6f} ms, of 16 "
+            f"{t['b1_16']:.6f} ms: {t['b1_chunk']:.6f} ms a chunk, "
+            f"{t['b1_chunk'] - per_card * k:.6f} beyond the B1 launches a card runs ({k:.6f} "
+            f"ms each, CUDA events, one rank at a time); bodies that launch nothing "
+            f"{t['empty_chunk']:.6f} ms a chunk ({card})")
+
+
+def time_mesh_loop(routes):
+    """``--time-mesh-loop [host]``: phase 28a alone, both routes or the
+    host loop alone: on one card two gloo ranks sharing it; on a host of
+    several cards one NCCL rank a card (the stop exchanged over NVLink)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script only runs on a GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from odesat_tpu_torch.parallel import launch
+
+    card = phase_device(torch)
+    cards = torch.cuda.device_count()
+    ranks, backend = (2, "gloo") if cards == 1 else (cards, "nccl")
+    timing = launch.spawn(mesh_loop_timing, ranks, 1, backend, "cuda", timeout_s=600,
+                          args=(load_cases_hard(), 8192, routes))
+    say_mesh_loop_timing(timing, card, ranks, ranks // min(cards, ranks))
+    return 0
+
+
+def mesh_loop_cases(hard, uf250, n1k_ode, n1k_stoch):
+    """Phase 28b's cases of parallel/sharded.loop_against_host_loop over
+    two trajectory ranks, each state made on the ranks: B1 on hard.cnf
+    B=16384 (256-step chunks) and B2 on the n=1k instance B=10240 (8-step),
+    bounds 1, 3 and 16, stop on any and all, and a state stopped at entry on
+    rank 1 only (its last row done for any, all its rows for all); B1 on
+    uf250 B=4096 from a random start, 64-step chunks, bound 40 (the stop
+    inside the dispatch); B3 on hard.cnf B=16384 (64-step) and B4 on the
+    n=1k instance B=8192 (8-step), bounds 1, 3 and 16, and rank 1's last
+    chain done at entry."""
+    from odesat_tpu_torch.utils.config import ODEConfig
+
+    cases, labels = [], []
+    for name, fa, B, chunk, kernel in (("B1 hard.cnf", hard, 16384, 256, "fused"),
+                                       ("B2 n1k", n1k_ode, 10240, 8, "stream")):
+        ode = ODEConfig(step_size=0.01, dv_strategy=kernel)
+        for rule in ("any", "all"):
+            for bound in (1, 3, 16):
+                cases.append(("ode", fa, ode, chunk, bound, rule, (B, 3, ())))
+                labels.append(f"{name} B={B} bound {bound} {rule}")
+            rows = [B - 1] if rule == "any" else range(B // 2, B)
+            cases.append(("ode", fa, ode, chunk, 16, rule, (B, 3, rows)))
+            labels.append(f"{name} B={B} {rule}, rank 1 stopped at entry")
+    cases.append(("ode", uf250, ODEConfig(step_size=0.01, dv_strategy="fused"), 64, 40, "any",
+                  (4096, 0, ())))
+    labels.append("B1 uf250 B=4096 bound 40 any")
+    for name, fa, B, chunk in (("B3 hard.cnf", hard, 16384, 64), ("B4 n1k", n1k_stoch, 8192, 8)):
+        for bound in (1, 3, 16):
+            cases.append(("stoch", fa, "on", chunk, bound, 11, (B, 5, ())))
+            labels.append(f"{name} B={B} bound {bound}")
+        cases.append(("stoch", fa, "on", chunk, 16, 11, (B, 5, [B - 1])))
+        labels.append(f"{name} B={B}, rank 1 stopped at entry")
+    return cases, labels
+
+
+def mesh_loop_calls(hard, uf250, n1k_ode, n1k_stoch):
+    """Phase 28's calls for phase 20's world (two ranks sharing the card),
+    each on a 2x1 mesh of that world: 28a's timing at hard.cnf 8192 rows a
+    rank, 28b's cases, then 28c's CLI runs (the CLI's parse and set-up,
+    cli.mesh_call, then its mesh solve). Returns (calls, 28b's cases and
+    their labels)."""
+    from odesat_tpu_torch import cli
+    from odesat_tpu_torch.parallel import launch, sharded
+
+    cases, labels = mesh_loop_cases(hard, uf250, n1k_ode, n1k_stoch)
+    calls = [(launch.on_mesh, ((2, 1), mesh_loop_timing, hard, 8192)),
+             (launch.on_mesh, ((2, 1), sharded.loop_against_host_loop, cases))]
+    with contextlib.redirect_stdout(io.StringIO()):  # the preprocessor's lines
+        for _, argv, _, _ in MESH_LOOP_ARGV:
+            fn, args = cli.mesh_call([*argv, "--devices", "2", "--dist-backend", "gloo"])
+            calls.append((launch.on_mesh, ((2, 1), fn, *args)))
+    return calls, (cases, labels)
+
+
+def cli_verdict(argv, result):
+    """Whether ``result``'s best assignment, mapped back as the CLI maps it
+    (normalization, the preprocessor's witness), satisfies the original
+    formula of ``argv``'s input."""
+    from odesat_tpu_torch import cli
+    from odesat_tpu_torch.cnf import evaluate_cnf, map_values_by_indices
+    from odesat_tpu_torch.preprocess import reconstruct_witness
+
+    args = cli._build_parser().parse_args(argv)
+    formula = cli._load(args.input)
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, _, _, trace, var_mapping, _ = cli._prepare(args, formula)
+    mapped = map_values_by_indices(var_mapping, result.best_assignment())
+    if trace is not None:
+        reconstruct_witness(mapped, trace)
+    return evaluate_cnf(mapped, formula)
+
+
+def phase_mesh_loop(cases, labels, values, reports, card):
+    """Phase 28, from phase 20's world: a. the chunk's cost beyond B1 on the
+    trajectory mesh, host loop against the device loop; b. the device loop
+    against the host loop bit for bit (every case one graph launch a rank,
+    the kernel launched the chunks run); c. the CLI's inter and stoch at
+    --devices 2 through the device loop, one graph launch a dispatch on
+    each rank. Returns the kernels line's numbers: {"ms", "plain_ms",
+    "err", "launches"} (launches: 28c's graph launches, both ranks).
+    ``reports[i]``: call i's launch counts on each rank."""
+    timing, results, runs = values[0], values[1], values[2:]
+    say_mesh_loop_timing(timing, card)
+    worst, inside = 0.0, 0
+    for case, label, (err, steps, host_steps, graphs, launches) in zip(cases, labels, results):
+        engine, _, _, chunk, bound, rule, (_, _, rows) = case
+        if err != 0.0 or steps != host_steps or graphs != 1 or launches != steps // chunk:
+            fail(f"28b {label}: max abs err {err}, steps {steps} against the host loop's "
+                 f"{host_steps}, {graphs} graph launches, {launches} kernel launches")
+        if len(rows) and (engine == "stoch" or rule == "any") and steps != 0:
+            fail(f"28b {label}: {steps} steps from a state stopped at entry")
+        inside += not len(rows) and 0 < steps < bound * chunk
+        worst = max(worst, err)
+    if not inside:
+        fail("28b: no dispatch stopped inside its bound")
+    say(f"[mesh loop] b. {len(cases)} dispatches of the trajectory mesh's device loop (T=2, "
+        f"one graph launch a rank) equal run_chunks with MeshSync bit for bit, steps included "
+        f"(max abs err {worst}; {inside} stopped inside the dispatch, the stops at entry on "
+        f"rank 1 ran no chunk anywhere): B1 hard.cnf B=16384 and uf250 B=4096, B2 n1k "
+        f"B=10240, B3 hard.cnf B=16384, B4 n1k B=8192; mesh graph launches per rank "
+        f"{[c['device_loop_mesh'] for c in reports[1]]} ({card})")
+    graphs = 0
+    for (label, argv, kernel, budget), result, counts in zip(MESH_LOOP_ARGV, runs, reports[2:]):
+        mesh_graphs = [c["device_loop_mesh"] for c in counts]
+        launched = [c[kernel] for c in counts]
+        solved = bool(result.done.any())
+        verdict = cli_verdict(argv, result) if solved else False
+        if mesh_graphs != [1, 1] or [c["device_loop"] for c in counts] != [1, 1] or \
+                min(launched) == 0:
+            fail(f"28c {label}: mesh graph launches per rank {mesh_graphs}, {kernel} {launched}")
+        if not ((not solved and result.steps == budget) or (solved and verdict)):
+            fail(f"28c {label}: {int(result.done.sum())} solved after {result.steps} steps, "
+                 f"verdict {verdict}")
+        graphs += sum(mesh_graphs)
+        say(f"[mesh loop] c. {label} --devices 2 (the CLI's mesh solve in phase 20's world): "
+            f"{'true' if verdict else 'false'} after {result.steps} steps, one device-loop graph "
+            f"launch a dispatch on each rank {mesh_graphs}, {kernel} launches per rank "
+            f"{launched} ({card})")
+    k = timing["kernel"]
+    return {"ms": timing["device"]["b1_chunk"] - 2 * k,
+            "plain_ms": timing["host"]["b1_chunk"] - 2 * k, "err": worst, "launches": graphs}
 
 
 SCAN_STRATEGIES = ("pallas", "gather", "segment_sum")
@@ -4193,6 +4482,8 @@ def main():
         return time_segment(sys.argv[2], *sys.argv[3:4])
     if sys.argv[1:2] == ["--scan-peak"]:
         return scan_peak()
+    if sys.argv[1:2] == ["--time-mesh-loop"]:
+        return time_mesh_loop(tuple(sys.argv[2:3]) or ("host", "device"))
     import torch
 
     if not torch.cuda.is_available():
@@ -4276,7 +4567,10 @@ def main():
     b8_worst = phase_stoch_shard_compare(torch, sc, shard_cases)
     b9_worst = phase_stoch_shard_chunk_compare(torch, sc, shard_cases)
     clock("phases 18-19 (B5, B6, B8, B9 against their plain versions)")
-    mesh_launches, b7 = phase_mesh_main(torch, fa7, fa7_2, c7, specs[6][1], card)
+    loop_calls, (loop_cases, loop_labels) = mesh_loop_calls(hard, uf250, big[0][1], n1k)
+    mesh_launches, b7, loop_out = phase_mesh_main(torch, fa7, fa7_2, c7, specs[6][1], card,
+                                                  loop_calls)
+    mesh_loop = phase_mesh_loop(loop_cases, loop_labels, *loop_out, card)
     for name, n in phase_mesh_s4(torch, fa7, c7, b7, card).items():
         mesh_launches[name] += n
     phase_nccl_world_of_one(torch, fa7)
@@ -4370,6 +4664,17 @@ def main():
         # paths (phases 5-6, 10, 13, 16)
         row("device_loop", "csrc/device_loop.cu", "odesat_tpu/models/ode.py:443",
             MAIN_PATH_GRAPHS["launches"], loop_worst, loop_ms, loop_plain, bound(20, 0)),
+        # the device loop on a trajectory mesh of two ranks sharing the card
+        # (no Pallas kernel: JAX's pmax over traj inside its lax.while_loop):
+        # a 256-step B1 chunk's cost beyond the two ranks' launches at
+        # hard.cnf 8192 rows a rank, the stop exchanged on the card against
+        # run_chunks with MeshSync's gloo all-reduce (28a); bound: T = 2
+        # words a chunk; launches: the mesh graph launches of 28c's CLI
+        # runs, 20e's and the pod's 26b, every rank
+        row("device_loop_mesh", "csrc/device_loop.cu", "odesat_tpu/parallel/sharded.py:332",
+            mesh_loop["launches"] + mesh_launches["device_loop_mesh"]
+            + pod_launches["device_loop_mesh"],
+            mesh_loop["err"], mesh_loop["ms"], mesh_loop["plain_ms"], bound(4 * 2, 0)),
         # the scan tier's chunk (no Pallas kernel: JAX's jitted lax.scan of
         # single steps): a captured 64-step chunk of phase 16's fixed B10
         # step at hard.cnf B=4096 (the graph's replay, device time) against

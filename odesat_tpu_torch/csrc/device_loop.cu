@@ -4,10 +4,12 @@
 //
 // Replaces the lax.while_loop of odesat_tpu/models/ode.py:443-538
 // (make_multi_chunk_runner), odesat_tpu/models/stoch.py:267-309
-// (make_multi_stoch_runner) and the one-dispatch path of
-// odesat_tpu/utils/tts.py:180-232, whose `cond` tests the done flags before
-// each chunk and whose body runs one chunk. The TPU program is one XLA
-// while loop around a Pallas call; on the card it is one graph:
+// (make_multi_stoch_runner), the one-dispatch path of
+// odesat_tpu/utils/tts.py:180-232 and, on a trajectory-only mesh,
+// odesat_tpu/parallel/sharded.py:332-414 and :862-922, whose `cond` tests
+// the done flags before each chunk (pmax- or pmin-reduced over `traj` on a
+// mesh) and whose body runs one chunk. The TPU program is one XLA while
+// loop around a Pallas call; on the card it is one graph:
 //
 //   head kernel (one CTA)   ctrl[RAN] = 0, ctrl[STOP] = 0, and the WHILE
 //                           node's condition = bound > 0 && !stopped(done),
@@ -20,6 +22,37 @@
 //                           !stopped, stopped = ctrl[STOP] (inverted with
 //                           stop_all: there the word says "keep going");
 //                           ctrl[STOP] = 0 for the next chunk
+//
+// On a trajectory-only mesh (ops/device_loop.py MeshPeers) the ranks are
+// processes, each running this graph over its own rows, and `stopped` is
+// the group's: the head kernel (when bound > 0) and the decide kernel
+// (when ran < bound) each make one exchange of the rank's own stopped bit
+// through pages shared once over CUDA IPC (ops/butterfly.share_pages), a
+// page a rank: word 0 the rank's count of exchanges (its own page only,
+// never reset, shared by every graph of the group), words 1 and 2 a ring.
+// Exchange s (one thread):
+//
+//   1. publish (s << 1) | bit to word 1 + (s & 1) of its own page, with a
+//      system-scope release (st.release.sys);
+//   2. poll every peer's word 1 + (s & 1) (ld.acquire.sys, __nanosleep
+//      back-off) until it holds (s << 1) | bit of that peer;
+//   3. stopped = OR of the bits (AND with stop_all).
+//
+// Every rank reads the same bits, so every rank takes the same decision at
+// every exchange, runs the same chunks and returns the same count: a state
+// stopped at entry on any rank (on every rank with stop_all) runs no chunk
+// anywhere. Two words a rank suffice: a peer can publish s + 1 before this
+// rank has read s (it has read every word of s, decided and gone on, or
+// ended its dispatch and begun the next), but not s + 2, which needs this
+// rank's s + 1; one word would let s + 1 overwrite s unread
+// (tests/test_torch_mesh_loop.py model-checks both). The poll is a kernel,
+// not a stream wait: a wait must time out, and the value it waits for
+// changes every exchange while a captured body is fixed. It reads
+// %globaltimer and gives up after the peers' timeout (the run's collective
+// timeout): ctrl[ERROR] = 1, the missing ranks' bits in ctrl[MISS_LO/HI],
+// and the loop stops; the host raises. Without MPS the contexts of ranks
+// that share a card are time-sliced, and a rank polling holds its slice
+// while its peer needs the card; one rank a card does not share.
 //
 // The scan tier's chunk (ops/scan_chunk.py) is many kernels captured by
 // torch into a graph of its own. Its body is that graph as a child graph
@@ -43,7 +76,8 @@
 // bound), so a runner builds it once for its buffers.
 //
 // What bounds it: nothing of the card's rates. The head reads B done bytes
-// once a dispatch; the decide kernel reads and writes three words a chunk.
+// once a dispatch; the decide kernel reads and writes three words a chunk,
+// and on a mesh one word a rank (T words).
 // What it removes is the host between chunks: each chunk used to end in a
 // device-to-host read and a round trip before the next launch.
 //
@@ -60,10 +94,84 @@
 
 namespace {
 
-constexpr int kBound = 0;  // ctrl words: the chunks this dispatch may run,
-constexpr int kRan = 1;    // the chunks it has run,
-constexpr int kStop = 2;   // and the stop word of the chunk running now
+constexpr int kBound = 0;   // ctrl words: the chunks this dispatch may run,
+constexpr int kRan = 1;     // the chunks it has run,
+constexpr int kStop = 2;    // the stop word of the chunk running now,
+constexpr int kError = 3;   // 1 after an exchange that timed out,
+constexpr int kMissLo = 4;  // and the ranks it missed (bit q: rank q),
+constexpr int kMissHi = 5;  // ranks 32-63
 constexpr int kHeadThreads = 1024;
+constexpr int kMaxPeers = 64;
+constexpr unsigned int kMaxPause = 1024;  // ns, the poll's longest sleep
+
+// A trajectory group's exchange pages (n = 0: no mesh), rank order.
+struct Peers {
+  unsigned int* page[kMaxPeers];
+  int n;
+  int rank;
+  unsigned long long timeout_ns;
+};
+
+__device__ __forceinline__ void store_release(unsigned int* p, unsigned int v) {
+  asm volatile("st.release.sys.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned int load_acquire(const unsigned int* p) {
+  unsigned int v;
+  asm volatile("ld.acquire.sys.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// One exchange of the group (one thread): this rank's `bit` (its rows
+// stopped by the loop's rule) against every peer's. Returns whether the
+// group stops: OR of the bits (AND with stop_all), or true after a wait
+// past the timeout, with ctrl's error words written.
+__device__ bool exchange(const Peers& p, bool bit, int stop_all, int* ctrl) {
+  unsigned int* own = p.page[p.rank];
+  const unsigned int s = *reinterpret_cast<volatile unsigned int*>(own) + 1u;
+  *reinterpret_cast<volatile unsigned int*>(own) = s;
+  const int slot = 1 + static_cast<int>(s & 1u);
+  const unsigned int want = s & 0x7fffffffu;
+  store_release(own + slot, (s << 1) | (bit ? 1u : 0u));
+  bool any = bit, all = bit;
+  unsigned long long waiting = 0;  // bit q: peer q not read yet
+  for (int q = 0; q < p.n; ++q)
+    if (q != p.rank) waiting |= 1ull << q;
+  const unsigned long long t0 = global_ns();
+  unsigned int pause = 32;
+  while (waiting != 0) {
+    for (int q = 0; q < p.n; ++q) {
+      if (((waiting >> q) & 1ull) == 0) continue;
+      const unsigned int w = load_acquire(p.page[q] + slot);
+      if ((w >> 1) != want) continue;
+      any |= (w & 1u) != 0;
+      all &= (w & 1u) != 0;
+      waiting &= ~(1ull << q);
+    }
+    if (waiting == 0) break;
+    if (global_ns() - t0 > p.timeout_ns) {
+      ctrl[kMissLo] = static_cast<int>(waiting & 0xffffffffull);
+      ctrl[kMissHi] = static_cast<int>(waiting >> 32);
+      ctrl[kError] = 1;
+      return true;
+    }
+    __nanosleep(pause);
+    if (pause < kMaxPause) pause *= 2;
+  }
+  return stop_all ? all : any;
+}
+
+// Whether the loop goes on from a state whose own rows are `stopped`: no
+// when they are, off a mesh; else the group's exchange decides.
+__device__ bool go_on(const Peers& p, bool stopped, int stop_all, int* ctrl) {
+  return !(p.n > 0 ? exchange(p, stopped, stop_all, ctrl) : stopped);
+}
 
 // Whether the B done flags stop the loop: any set (every one set with
 // stop_all). Called by every thread of one CTA.
@@ -80,13 +188,17 @@ __device__ bool stopped_by(const unsigned char* done, int B, int stop_all) {
 }
 
 __global__ void __launch_bounds__(kHeadThreads)
-    loop_head_kernel(int* ctrl, const unsigned char* done, int B, int stop_all,
+    loop_head_kernel(int* ctrl, const unsigned char* done, int B, int stop_all, Peers peers,
                      cudaGraphConditionalHandle handle) {
   const bool stopped = stopped_by(done, B, stop_all);
   if (threadIdx.x == 0) {
     ctrl[kRan] = 0;
     ctrl[kStop] = 0;
-    cudaGraphSetConditional(handle, (ctrl[kBound] > 0 && !stopped) ? 1u : 0u);
+    ctrl[kError] = 0;
+    ctrl[kMissLo] = 0;
+    ctrl[kMissHi] = 0;
+    const bool go = ctrl[kBound] > 0 && go_on(peers, stopped, stop_all, ctrl);
+    cudaGraphSetConditional(handle, go ? 1u : 0u);
   }
 }
 
@@ -98,12 +210,14 @@ __global__ void __launch_bounds__(kHeadThreads)
   if (threadIdx.x == 0) *stop = (stop_all ? !stopped : stopped) ? 1 : 0;
 }
 
-__global__ void loop_decide_kernel(int* ctrl, int stop_all, cudaGraphConditionalHandle handle) {
+__global__ void loop_decide_kernel(int* ctrl, int stop_all, Peers peers,
+                                   cudaGraphConditionalHandle handle) {
   const int ran = ctrl[kRan] + 1;
   const bool stopped = stop_all ? ctrl[kStop] == 0 : ctrl[kStop] != 0;
   ctrl[kRan] = ran;
   ctrl[kStop] = 0;
-  cudaGraphSetConditional(handle, (ran < ctrl[kBound] && !stopped) ? 1u : 0u);
+  const bool go = ran < ctrl[kBound] && go_on(peers, stopped, stop_all, ctrl);
+  cudaGraphSetConditional(handle, go ? 1u : 0u);
 }
 
 // A loop: the graph (head node -> WHILE node), the body graph the WHILE
@@ -116,6 +230,7 @@ struct Loop {
   cudaStream_t capture = nullptr;
   int* ctrl = nullptr;
   int stop_all = 0;
+  Peers peers = {};
 };
 
 bool on_device(const void* ptr) {
@@ -175,21 +290,35 @@ void destroy(Loop* loop) {
 extern "C" {
 
 // The graph up to its body: the head node reading `done` (B bytes) and the
-// WHILE node after it. `ctrl` is the loop's int32 control block (at least
-// three words, on the device). On success *out holds the loop; returns a
-// cudaError_t code.
-int device_loop_create(void** out, int* ctrl, const unsigned char* done, int B, int stop_all) {
+// WHILE node after it. `ctrl` is the loop's int32 control block (six
+// words, on the device). On a trajectory mesh `pages` holds the n >= 2
+// ranks' exchange pages (rank order; this rank's own at `rank`) and
+// `timeout_ns` bounds each exchange's wait; n = 0 off a mesh. On success
+// *out holds the loop; returns a cudaError_t code.
+int device_loop_create(void** out, int* ctrl, const unsigned char* done, int B, int stop_all,
+                       void* const* pages, int n, int rank, unsigned long long timeout_ns) {
   *out = nullptr;
-  if (B < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B < 0 || n < 0 || n == 1 || n > kMaxPeers || (n > 0 && (rank < 0 || rank >= n)))
+    return static_cast<int>(cudaErrorInvalidValue);
   Loop* loop = new Loop();
   loop->ctrl = ctrl;
   loop->stop_all = stop_all != 0;
+  loop->peers.n = n;
+  loop->peers.rank = rank;
+  loop->peers.timeout_ns = timeout_ns;
+  for (int q = 0; q < n; ++q) {
+    if (pages[q] == nullptr) {
+      delete loop;
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    loop->peers.page[q] = static_cast<unsigned int*>(pages[q]);
+  }
   cudaError_t err = cudaGraphCreate(&loop->graph, 0);
   if (err == cudaSuccess) err = cudaGraphConditionalHandleCreate(&loop->handle, loop->graph, 0, 0);
   cudaGraphNode_t head = nullptr;
   if (err == cudaSuccess) {
     void* args[] = {&loop->ctrl, const_cast<unsigned char**>(&done), &B, &loop->stop_all,
-                    &loop->handle};
+                    &loop->peers, &loop->handle};
     cudaKernelNodeParams kp = {};
     kp.func = reinterpret_cast<void*>(loop_head_kernel);
     kp.gridDim = dim3(1);
@@ -261,7 +390,8 @@ int device_loop_stop(void* stream, int* stop, const unsigned char* done, int B, 
 // End the body with the decide kernel and instantiate the graph.
 int device_loop_end_body(void* handle) {
   Loop* loop = static_cast<Loop*>(handle);
-  loop_decide_kernel<<<1, 1, 0, loop->capture>>>(loop->ctrl, loop->stop_all, loop->handle);
+  loop_decide_kernel<<<1, 1, 0, loop->capture>>>(loop->ctrl, loop->stop_all, loop->peers,
+                                                 loop->handle);
   cudaError_t launch = cudaGetLastError();
   cudaGraph_t body = loop->body;
   cudaError_t err = cudaStreamEndCapture(loop->capture, &body);

@@ -23,7 +23,9 @@ and entry points:
   over the ``traj`` axis and the clause axis over the ``clause`` axis; a
   clause mesh steps through the clause-shard kernel B5
   (ops/shard_stream.py) or the twin's clause step, with the partial dv
-  all-reduced over the clause group.
+  all-reduced over the clause group. A trajectory-only mesh's dispatch of
+  B1 or B2 on one host is one graph launch a rank, the ranks exchanging
+  the stop on the card (parallel/sharded.make_sharded_multi_runner).
 
 Step semantics preserved from the reference:
 
@@ -428,9 +430,11 @@ def make_multi_chunk_runner(
     (B1 or B2) or the scan chunk (``ops/scan_chunk.py``) on a CUDA state
     runs the whole dispatch as one graph launch that stops on the card
     (``ops/device_loop.py``), as JAX runs its chunk inside one
-    ``lax.while_loop``; any runner on the CPU, and a runner of another kind
-    (a mesh's), runs the host loop of ``models/loop.run_chunks``, the device
-    loop's plain version. ``chunk`` reuses an already built chunk runner."""
+    ``lax.while_loop``; any runner on the CPU, and a runner of another kind,
+    runs the host loop of ``models/loop.run_chunks``, the device loop's
+    plain version (a mesh's dispatch: ``parallel/sharded.
+    make_sharded_multi_runner``). ``chunk`` reuses an already built chunk
+    runner."""
     from odesat_tpu_torch.models.loop import run_chunks
     from odesat_tpu_torch.ops import device_loop
 
@@ -590,8 +594,7 @@ def simulate_batch(
             return lambda st: m(st, dev)
         from odesat_tpu_torch.parallel.sharded import make_sharded_multi_runner
 
-        return make_sharded_multi_runner(lambda st: r(st, dev), inner, n // inner, mesh, device,
-                                         stop_on)
+        return make_sharded_multi_runner(r, inner, n // inner, mesh, device, stop_on, dev)
 
     if use_multi:
         chunk_steps = dispatch_steps  # nominal slice between host decisions

@@ -312,58 +312,14 @@ class Communicator:
         least ``numel`` floats."""
         self._unmap()
         cap = -(-max(numel, 1) // _ALIGN) * _ALIGN
-        lib = self.lib
-        own, handle = _P(), ctypes.create_string_buffer(_HANDLE)
-        with torch.cuda.device(self.index):
-            _raise_for(lib, lib.bfly_alloc(FLAG_BYTES + SLOTS * 4 * cap, ctypes.byref(own),
-                                           handle),
-                       "allocation (cudaMalloc, cudaIpcGetMemHandle)")
-            bus = ctypes.create_string_buffer(_BUS)
-            _raise_for(lib, lib.bfly_bus_id(self.index, bus, _BUS), "set-up (bus id)")
-            info = [None] * self.size
-            dist.all_gather_object(info, (handle.raw, bus.value, socket.gethostname()),
-                                   group=self.group)
-            hosts = [host for _, _, host in info]
-            if len(set(hosts)) > 1:
-                lib.bfly_free(own)
-                raise RuntimeError(f"B7 set-up failed: the clause group's ranks run on hosts "
-                                   f"{hosts}; CUDA IPC maps buffers within one host only, so a "
-                                   "clause group must lie inside one process of a pod "
-                                   "(make_pod_mesh)")
-            bases = []
-            try:
-                for k, (raw, peer_bus, _) in enumerate(info):
-                    if k == self.rank:
-                        bases.append(own.value)
-                        continue
-                    peer = _I()
-                    _raise_for(lib, lib.bfly_device_of(peer_bus, ctypes.byref(peer)),
-                               f"set-up (rank {k}'s card {peer_bus.decode()} is not visible "
-                               "here)")
-                    if peer.value != self.index:
-                        ok = _I()
-                        _raise_for(lib, lib.bfly_can_access_peer(self.index, peer.value,
-                                                                 ctypes.byref(ok)),
-                                   "set-up (peer access)")
-                        if not ok.value:
-                            raise RuntimeError(
-                                f"B7 set-up failed: card {self.index} cannot reach rank {k}'s "
-                                f"card {peer.value} (cudaDeviceCanAccessPeer is false)")
-                    ptr = _P()
-                    _raise_for(lib, lib.bfly_open(raw, ctypes.byref(ptr)),
-                               f"mapping rank {k}'s buffer (cudaIpcOpenMemHandle)")
-                    bases.append(ptr.value)
-            except BaseException:
-                for k, base in enumerate(bases):
-                    if k != self.rank:
-                        lib.bfly_close(base)
-                lib.bfly_free(own)
-                raise
-            slots = [[base + FLAG_BYTES + i * 4 * cap for base in bases] for i in range(SLOTS)]
-            # every rank's slot i as a float32 tensor of this process (the
-            # peers' through their mappings), rank order
-            self.slot_views = [[torch.as_tensor(_Raw(ptr, cap), device=self.device)
-                                for ptr in row] for row in slots]
+        bases = share_pages(self.lib, self.group, self.index, FLAG_BYTES + SLOTS * 4 * cap,
+                            "B7", "a clause group must lie inside one process of a pod "
+                            "(make_pod_mesh)")
+        slots = [[base + FLAG_BYTES + i * 4 * cap for base in bases] for i in range(SLOTS)]
+        # every rank's slot i as a float32 tensor of this process (the
+        # peers' through their mappings), rank order
+        self.slot_views = [[torch.as_tensor(_Raw(ptr, cap), device=self.device)
+                            for ptr in row] for row in slots]
         self.bases, self.cap, self.count, self.waited = bases, cap, 0, 0
         self.flags = (_P * self.size)(*bases)
         self.own_slots = [row[self.rank] for row in slots]
@@ -375,16 +331,9 @@ class Communicator:
         buffer: no rank frees memory that a peer still reads or maps."""
         if not self.bases:
             return
-        torch.cuda.synchronize(self.device)
-        dist.barrier(group=self.group)  # no rank's kernel still reads a slot
         self.slot_views, self._views = None, {}
-        for k, base in enumerate(self.bases):
-            if k != self.rank:
-                _raise_for(self.lib, self.lib.bfly_close(base), "teardown (cudaIpcCloseMemHandle)")
-        dist.barrier(group=self.group)  # no rank maps another's buffer
-        own = self.bases[self.rank]
-        self.bases, self.cap = [], 0
-        _raise_for(self.lib, self.lib.bfly_free(own), "teardown (cudaFree)")
+        bases, self.bases, self.cap = self.bases, [], 0
+        unshare_pages(self.lib, self.group, self.device, bases)
 
     def close(self) -> None:
         """Unmap and free this group's buffers (a collective over the
@@ -483,6 +432,77 @@ class Communicator:
         return out
 
 
+def share_pages(lib, group, index: int, nbytes: int, what: str, layout: str) -> list:
+    """``nbytes`` of zeroed device memory on card ``index`` for every rank of
+    ``group``, shared once through CUDA IPC: each rank allocates its own in
+    the extension (``cudaMalloc``, so that a handle names exactly it) and
+    exports it, the handles travel over the group (``all_gather_object``),
+    and each rank maps its peers'. Returns every rank's base address in
+    this process, rank order (its own among them). A collective. Raises,
+    freeing what it took, when the ranks run on more than one host (a
+    message naming ``what`` and the ``layout`` a run must keep), when a
+    peer's card is not visible here or cannot be reached."""
+    rank, size = dist.get_rank(group), dist.get_world_size(group)
+    own, handle = _P(), ctypes.create_string_buffer(_HANDLE)
+    with torch.cuda.device(index):
+        _raise_for(lib, lib.bfly_alloc(nbytes, ctypes.byref(own), handle),
+                   "allocation (cudaMalloc, cudaIpcGetMemHandle)")
+        bus = ctypes.create_string_buffer(_BUS)
+        _raise_for(lib, lib.bfly_bus_id(index, bus, _BUS), "set-up (bus id)")
+        info = [None] * size
+        dist.all_gather_object(info, (handle.raw, bus.value, socket.gethostname()), group=group)
+        hosts = [host for _, _, host in info]
+        if len(set(hosts)) > 1:
+            lib.bfly_free(own)
+            raise RuntimeError(f"{what} set-up failed: the group's ranks run on hosts {hosts}; "
+                               f"CUDA IPC maps buffers within one host only, so {layout}")
+        bases = []
+        try:
+            for k, (raw, peer_bus, _) in enumerate(info):
+                if k == rank:
+                    bases.append(own.value)
+                    continue
+                peer = _I()
+                _raise_for(lib, lib.bfly_device_of(peer_bus, ctypes.byref(peer)),
+                           f"set-up (rank {k}'s card {peer_bus.decode()} is not visible here)")
+                if peer.value != index:
+                    ok = _I()
+                    _raise_for(lib, lib.bfly_can_access_peer(index, peer.value, ctypes.byref(ok)),
+                               "set-up (peer access)")
+                    if not ok.value:
+                        raise RuntimeError(
+                            f"{what} set-up failed: card {index} cannot reach rank {k}'s card "
+                            f"{peer.value} (cudaDeviceCanAccessPeer is false)")
+                ptr = _P()
+                _raise_for(lib, lib.bfly_open(raw, ctypes.byref(ptr)),
+                           f"mapping rank {k}'s buffer (cudaIpcOpenMemHandle)")
+                bases.append(ptr.value)
+        except BaseException:
+            for k, base in enumerate(bases):
+                if k != rank:
+                    lib.bfly_close(base)
+            lib.bfly_free(own)
+            raise
+    return bases
+
+
+def unshare_pages(lib, group, device, bases: list) -> None:
+    """Undo :func:`share_pages`: close every mapping behind a barrier, then
+    free this rank's own memory, so that no rank frees memory that a peer
+    still reads or maps. A collective."""
+    rank = dist.get_rank(group)
+    torch.cuda.synchronize(device)
+    dist.barrier(group=group)  # no rank's kernel still reads a peer's page
+    for k, base in enumerate(bases):
+        if k != rank:
+            _raise_for(lib, lib.bfly_close(base), "teardown (cudaIpcCloseMemHandle)")
+    dist.barrier(group=group)  # no rank maps another's memory
+    _raise_for(lib, lib.bfly_free(bases[rank]), "teardown (cudaFree)")
+
+
+# Every set of shared pages of this process, in the order built: B7's
+# communicators (keyed by their clause group) and the device loop's
+# exchange pages (ops/device_loop.py MeshPeers).
 _COMMS: dict = {}
 
 
@@ -498,8 +518,9 @@ def communicator(group, device) -> Communicator:
 
 
 def close_all() -> None:
-    """Close every communicator of this process, in the order they were
-    built (the same on every rank): call before the process group goes."""
+    """Close every communicator and every set of the device loop's exchange
+    pages of this process, in the order they were built (the same on every
+    rank): call before the process group goes."""
     for comm in list(_COMMS.values()):
         comm.close()
 

@@ -1,14 +1,18 @@
 """The on-device multi-chunk loop: up to ``bound`` chunks of a chunk kernel
 (B1, B2, B3 or B4) or of the scan tier's captured chunk
 (``ops/scan_chunk.py``) in one host launch of a CUDA graph that stops on the
-card, and its plain version.
+card, on one device or on every rank of a trajectory-only mesh, and its
+plain version.
 
 Replaces the ``lax.while_loop`` of ``odesat_tpu/models/ode.py:443-538``
 (``make_multi_chunk_runner``) and ``odesat_tpu/models/stoch.py:267-309``
 (``make_multi_stoch_runner``), which ``odesat_tpu/utils/tts.py:180-232``
-runs as its one dispatch: before each chunk the loop tests whether any row
-(every row, with ``stop_all``) is done and stops if so, and
-``steps_advanced`` is the chunks run times the chunk's steps.
+runs as its one dispatch, and on a trajectory-only mesh the one of
+``odesat_tpu/parallel/sharded.py:332-414`` and ``:862-922``
+(``make_sharded_multi_runner`` and its stoch twin): before each chunk the
+loop tests whether any row (every row, with ``stop_all``) is done, over the
+whole ``traj`` group on a mesh, and stops if so, and ``steps_advanced`` is
+the chunks run times the chunk's steps.
 
 Design for the card (``csrc/device_loop.cu``): one graph a runner,
 batch size and stop rule, built at its first dispatch. A head kernel
@@ -41,12 +45,27 @@ that run use the host loop's seeds, flip for flip. A dispatch that runs
 every chunk leaves the generator where the host loop leaves it; one that
 stops early has drawn seeds it did not use, and it ends the search.
 
+On a trajectory-only mesh (T > 1 ranks, one process each, S = 1) every
+rank runs its own graph over its rows, B1-B4 only (JAX's eligibility:
+``parallel/sharded.mesh_loop_route``), and the stop is the group's: the
+head and decide kernels exchange one word a rank through pages shared once
+over CUDA IPC (:class:`MeshPeers`; ``csrc/device_loop.cu`` states the
+protocol and why a ring of two words a rank suffices), so every rank takes
+the same decision before every chunk, runs the same chunks and returns the
+same ``steps_advanced``, as JAX's ``pmax``/``pmin`` over ``traj`` makes
+them. Each rank keeps its count of exchanges on its own page, shared by
+every graph of the group. An exchange that waits past the peers' timeout
+(the run's collective timeout, ``--dist-timeout``) stops the graph with an
+error word that the dispatch's one read brings back: it raises, naming the
+ranks that did not arrive. A graph is keyed by the pages too.
+
 What bounds it: nothing of the card's rates (the head reads B done bytes
-a dispatch, the decide kernel three words a chunk); what it removes is the
-host between chunks.
+a dispatch, the decide kernel three words a chunk, and on a mesh T words an
+exchange); what it removes is the host between chunks.
 
 The plain version is ``models/loop.run_chunks``, the host loop of the same
-rule, over the kernels' plain versions on the CPU. There is no fallback on
+rule (with ``parallel/dist.MeshSync`` on a mesh, the stop all-reduced over
+gloo), over the kernels' plain versions on the CPU. There is no fallback on
 the card: a graph that cannot be built raises with the CUDA error.
 """
 
@@ -60,14 +79,20 @@ import torch
 
 from odesat_tpu_torch.ops import _cuda
 
-# Graph launches (dispatches) made through :func:`run` in this process. A
-# plain integer that callers may reset; the chunk kernels' own counts grow
-# by the chunks each dispatch ran.
+# Graph launches (dispatches) made through :func:`run` in this process, and
+# of them those of a trajectory mesh's graphs (exchanging the stop between
+# ranks). Plain integers that callers may reset; the chunk kernels' own
+# counts grow by the chunks each dispatch ran.
 launches = 0
+mesh_launches = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-CTRL_WORDS = 4  # bound, ran, stop, spare (csrc/device_loop.cu)
+# bound, ran, stop, error, the missed ranks' bits (two words)
+# (csrc/device_loop.cu)
+CTRL_WORDS = 6
+PAGE_BYTES = 256  # a rank's exchange page: its count, then a ring of two words
+MAX_PEERS = 64
 
 
 @dataclasses.dataclass(eq=False)
@@ -106,7 +131,8 @@ class KernelChunk:
 
 
 def _declare(lib) -> None:
-    lib.device_loop_create.argtypes = [ctypes.POINTER(_P), _P, _P, _I, _I]
+    lib.device_loop_create.argtypes = [ctypes.POINTER(_P), _P, _P, _I, _I, _P, _I, _I,
+                                       ctypes.c_ulonglong]
     lib.device_loop_create.restype = _I
     lib.device_loop_begin_body.argtypes = [_P, ctypes.POINTER(_P)]
     lib.device_loop_begin_body.restype = _I
@@ -136,14 +162,77 @@ def check(lib, rc: int, what: str) -> None:
                            + lib.device_loop_error_string(rc).decode())
 
 
+class MeshPeers:
+    """The stop exchange of a trajectory group on this rank's card: a page
+    a rank (:data:`PAGE_BYTES`, zeroed), shared once over the group through
+    ``ops/butterfly.share_pages`` (every rank on this host), and the wait's
+    timeout. Built by :func:`mesh_peers`; closed behind barriers by
+    ``butterfly.close_all`` (the worker's exit)."""
+
+    def __init__(self, group, device, timeout_s: float):
+        import torch.distributed as dist
+
+        from odesat_tpu_torch.ops import butterfly as bf
+
+        self.group = group
+        self.device = torch.device(device)
+        self.size = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        if not 2 <= self.size <= MAX_PEERS:
+            raise ValueError(f"the device loop exchanges its stop over 2 to {MAX_PEERS} "
+                             f"ranks, not {self.size}")
+        self.timeout_s = float(timeout_s)
+        self.index = (self.device.index if self.device.index is not None
+                      else torch.cuda.current_device())
+        self.lib, _ = bf.load_library()
+        self.bases = bf.share_pages(self.lib, group, self.index, PAGE_BYTES,
+                                    "the device loop's stop exchange",
+                                    "a trajectory group that spans hosts runs the host loop")
+        self.table = (_P * self.size)(*self.bases)
+
+    def missing(self, lo: int, hi: int) -> list:
+        """The group's ranks (and their global ranks) in an exchange's bits
+        of missed ranks."""
+        import torch.distributed as dist
+
+        bits = (lo & 0xFFFFFFFF) | ((hi & 0xFFFFFFFF) << 32)
+        return [(q, dist.get_global_rank(self.group, q)) for q in range(self.size)
+                if bits >> q & 1]
+
+    def close(self) -> None:
+        """Unmap and free the pages (a collective over the group)."""
+        from odesat_tpu_torch.ops import butterfly as bf
+
+        if self.bases:
+            bases, self.bases = self.bases, []
+            bf.unshare_pages(self.lib, self.group, self.device, bases)
+        bf._COMMS.pop(("device_loop", self.group), None)
+
+
+def mesh_peers(group, device, timeout_s: float) -> MeshPeers:
+    """This process's :class:`MeshPeers` for the trajectory ``group`` (built
+    at its first use, a collective)."""
+    from odesat_tpu_torch.ops import butterfly as bf
+
+    key = ("device_loop", group)
+    peers = bf._COMMS.get(key)
+    if peers is None:
+        peers = bf._COMMS[key] = MeshPeers(group, device, timeout_s)
+    elif peers.device != torch.device(device):
+        raise ValueError(f"the trajectory group's exchange pages are on {peers.device}, "
+                         f"not {device}")
+    return peers
+
+
 class DeviceLoop:
     """One graph: the :class:`KernelChunk` ``chunk`` over a state of
     ``state``'s shapes, stopping on any (``stop_all``: every) row done,
     with room for ``capacity`` seeds when ``seeded`` (B3, B4). ``buffers``:
-    the state buffers the chunk runs in place on, else new ones."""
+    the state buffers the chunk runs in place on, else new ones. ``peers``
+    (a :class:`MeshPeers`): the stop is the trajectory group's."""
 
     def __init__(self, chunk, state, stop_all: bool, seeded: bool, capacity: int,
-                 buffers=None):
+                 buffers=None, peers=None):
         self.lib, _ = load_library()
         self.handle = None
         device = state.v.device
@@ -154,12 +243,15 @@ class DeviceLoop:
         self.seeds = (torch.zeros(capacity, dtype=torch.int32, device=device) if seeded else
                       None)
         self.capacity = capacity
+        self.peers = peers
         ctrl = self.ctrl.data_ptr()
         handle = _P()
+        mesh = ((peers.table, peers.size, peers.rank, int(peers.timeout_s * 1e9))
+                if peers is not None else (None, 0, 0, 0))
         with torch.cuda.device(device):
             check(self.lib, self.lib.device_loop_create(
                 ctypes.byref(handle), ctrl, self.buffers.done.data_ptr(),
-                self.buffers.v.shape[0], int(stop_all)), "graph creation")
+                self.buffers.v.shape[0], int(stop_all), *mesh), "graph creation")
             self.handle = handle
             stream = _P()
             check(self.lib, self.lib.device_loop_begin_body(handle, ctypes.byref(stream)),
@@ -175,7 +267,7 @@ class DeviceLoop:
 
     def __call__(self, state, bound: int, seeds=None):
         """One dispatch from ``state``; returns ``(state, chunks_run)``."""
-        global launches
+        global launches, mesh_launches
         for name, dst, src in zip(state._fields, self.buffers, state):
             if src.shape != dst.shape or src.dtype != dst.dtype or src.device != dst.device:
                 raise ValueError(f"state.{name} is {tuple(src.shape)} {src.dtype} on "
@@ -195,7 +287,15 @@ class DeviceLoop:
             check(self.lib, self.lib.device_loop_launch(
                 self.handle, torch.cuda.current_stream(device).cuda_stream), "graph launch")
         launches += 1
-        ran = int(self.ctrl[1].item())  # the dispatch's one read: waits for the graph
+        if self.peers is not None:
+            mesh_launches += 1
+        # the dispatch's one read: waits for the graph
+        ran, _, error, lo, hi = self.ctrl[1:].tolist()
+        if error:
+            raise RuntimeError(
+                f"device loop: the trajectory group's stop exchange waited "
+                f"{self.peers.timeout_s} s for (group rank, global rank) "
+                f"{self.peers.missing(lo, hi)}, which did not arrive")
         return type(state)(*(t.clone() for t in self.buffers)), ran
 
     def __del__(self):
@@ -204,13 +304,18 @@ class DeviceLoop:
             self.handle = None
 
 
-def run(chunk: KernelChunk, state, bound: int, stop_all: bool = False, seeds=None, dev=None):
+def run(chunk: KernelChunk, state, bound: int, stop_all: bool = False, seeds=None, dev=None,
+        peers=None):
     """Up to ``bound`` launches of the kernel runner ``chunk`` (B1 or B2;
     B3 or B4 with one seed a chunk in ``seeds``, ``bound`` of them; the scan
     chunk over the formula tensors ``dev``) from the CUDA ``state``, in one
-    graph launch; returns ``(state, steps_advanced)``. The graph is built at
-    the runner's first dispatch at this batch size and stop rule (the scan
-    chunk's: and its capture's buffers), and reused for every bound."""
+    graph launch; returns ``(state, steps_advanced)``. With ``peers`` (a
+    :class:`MeshPeers`) the stop is the trajectory group's, exchanged on the
+    card before every chunk: every rank of the group dispatches with the
+    same bound, in the same order. The graph is built at the runner's first
+    dispatch at this batch size, stop rule and device (the scan chunk's: and
+    its capture's buffers; a mesh's: and its pages), and reused for every
+    bound."""
     if not isinstance(chunk, KernelChunk):
         raise TypeError(f"the device loop runs a KernelChunk, not {type(chunk).__name__}")
     if bound < 0:
@@ -222,15 +327,17 @@ def run(chunk: KernelChunk, state, bound: int, stop_all: bool = False, seeds=Non
         raise ValueError(f"{len(seeds)} seeds for a bound of {bound} chunks")
     B = state.v.shape[0]
     if B == 0:  # no row: any() never holds and all() always does
+        if peers is not None:
+            raise ValueError("a trajectory rank of the device loop holds at least one row")
         return type(state)(*(t.clone() for t in state)), (0 if stop_all else bound) * \
             chunk.chunk_steps
     buffers = chunk.buffers(state, dev) if chunk.buffers is not None else None
-    key = (B, bool(stop_all), state.v.device, id(buffers))
+    key = (B, bool(stop_all), state.v.device, id(buffers), peers)
     loop = chunk.loops.get(key)
     if loop is None or (seeded and loop.capacity < bound):
         chunk.loops.pop(key, None)
         loop = chunk.loops[key] = DeviceLoop(chunk, state, stop_all, seeded,
-                                             max(bound, 1) if seeded else 0, buffers)
+                                             max(bound, 1) if seeded else 0, buffers, peers)
     out, ran = loop(state, bound, seeds)
     chunk.count(ran)
     return out, ran * chunk.chunk_steps

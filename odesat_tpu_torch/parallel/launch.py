@@ -65,8 +65,10 @@ _COUNTERS = (
     ("stoch_shard_chunk", "odesat_tpu_torch.ops.stoch_chunk", "shard_chunk_launches"),
     ("butterfly", "odesat_tpu_torch.ops.butterfly", "launches"),
     ("butterfly_fused", "odesat_tpu_torch.ops.butterfly", "fused_launches"),
+    ("device_loop", "odesat_tpu_torch.ops.device_loop", "launches"),
+    ("device_loop_mesh", "odesat_tpu_torch.ops.device_loop", "mesh_launches"),
 )
-CUDA_SOURCES = ("fused_chunk", "stream_chunk", "stoch_chunk", "butterfly")
+CUDA_SOURCES = ("fused_chunk", "stream_chunk", "stoch_chunk", "butterfly", "device_loop")
 
 
 class WorkerError(RuntimeError):
@@ -102,7 +104,8 @@ def _worker(rank, world, first, local_world, n_clause, backend, device, store, t
     ``store``, ``initialize_distributed``'s keywords: a ``store_path``, or a
     ``coordinator`` and its ``store_prefix``), build the mesh, run ``fn``,
     report (with its value, on the process's ``first`` rank), close B7's
-    buffers (``ops/butterfly.py``), leave."""
+    buffers and the device loop's exchange pages (``ops/butterfly.py``),
+    leave."""
     import torch.distributed as dist
 
     code = 0
@@ -126,7 +129,8 @@ def _worker(rank, world, first, local_world, n_clause, backend, device, store, t
         if "jax" in sys.modules:
             raise RuntimeError("jax was imported in a worker")
         if "odesat_tpu_torch.ops.butterfly" in sys.modules:
-            # B7's mappings close behind barriers before any rank frees or leaves
+            # B7's mappings and the device loop's exchange pages close behind
+            # barriers before any rank frees or leaves
             sys.modules["odesat_tpu_torch.ops.butterfly"].close_all()
         results.put(("ok", rank, value if rank == first else None, _rank_report()))
     except Exception as e:  # noqa: BLE001 - the rank's failure goes back to the parent

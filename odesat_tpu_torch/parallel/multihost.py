@@ -53,9 +53,11 @@ import torch.distributed as dist
 DEFAULT_TIMEOUT_S = 600.0
 _ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
-# This process's pod (the coordinator form), and its rank's local rank count.
+# This process's pod (the coordinator form), and its rank's local rank count
+# and collective timeout.
 _pod: Optional["Pod"] = None
 _local_world_size: Optional[int] = None
+_timeout_s: float = DEFAULT_TIMEOUT_S
 
 
 def check_backend(backend: str, device: str, local_world_size: int) -> None:
@@ -263,7 +265,7 @@ def initialize_distributed(
     * **The environment** (no argument): ``MASTER_ADDR``/``MASTER_PORT``
       host a ``TCPStore`` on rank 0; returns the device, or None (and joins
       nothing) when the environment describes no world."""
-    global _local_world_size
+    global _local_world_size, _timeout_s
     if rank is None and (coordinator, num_processes, process_id) != (None, None, None):
         ranks = local_world_size if local_world_size is not None else \
             local_rank_count(backend, device)
@@ -302,7 +304,16 @@ def initialize_distributed(
     dist.init_process_group(backend, store=store, rank=rank, world_size=world_size,
                             timeout=timeout)
     _local_world_size = local_world_size
+    _timeout_s = float(timeout_s)
     return dev
+
+
+def collective_timeout() -> float:
+    """Seconds this rank's collectives and waits may take: the
+    ``timeout_s`` it joined its world with (``--dist-timeout``; the
+    default before it joined one). The device loop's stop exchange waits
+    for its peers as long (``ops/device_loop.MeshPeers``)."""
+    return _timeout_s
 
 
 def check_clause_groups(local_world_size: int, n_clause: int) -> None:

@@ -6,7 +6,9 @@ Two axes, as in the JAX package (the reference has neither):
 * ``traj``: the trajectory (chain) batch splits over ranks as pure data
   parallelism. Each rank runs the single-device ladder on its rows (B1,
   then B2, then the twin; for stoch B3, then B4, then the twin); the only
-  traffic is the host loop's per-chunk done flags.
+  traffic is the stop flag before each chunk: on a card, through B1-B4 on
+  one host, exchanged between the ranks' device loops on the card
+  (:func:`make_sharded_multi_runner`), else all-reduced by the host loop.
 * ``clause``: the clause axis splits over the ranks of a trajectory row.
   Every step each rank evaluates its clause segment and the partials are
   all-reduced over the row's clause group; ``v`` is replicated over the
@@ -26,6 +28,8 @@ rank of a row, so S=2 flips exactly as S=1 does.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -36,6 +40,7 @@ from odesat_tpu_torch.parallel.dist import (
     fetch,
     local_block,
     local_rows,
+    row_block,
 )
 from odesat_tpu_torch.utils.logging import logger
 
@@ -218,20 +223,97 @@ def _step_chunk(step, chunk_steps):
     return run
 
 
-def make_sharded_multi_runner(chunk, chunk_steps: int, max_chunks: int, mesh, device,
-                              stop_on: str = "any"):
-    """``run(state) -> (state, steps_advanced)``: up to ``max_chunks`` calls
-    of ``chunk``, with the stop flag all-reduced over the world before every
-    chunk, so every rank stops before the same one (a state stopped at entry
-    runs none) and ``steps_advanced`` is exact (JAX :332-414, :862-922), for
-    either engine. It is the host loop
-    of ``models/loop.run_chunks`` and takes any chunk runner, so the JAX
-    package's eligibility probes (``sharded_multi_supported`` and its stoch
-    twin, which gated an on-device loop) have no counterpart."""
-    from odesat_tpu_torch.models.loop import run_chunks
+_HOSTS: dict = {}  # traj group -> its ranks' host names, rank order
 
-    return run_chunks(chunk, chunk_steps, max_chunks, stop_all=stop_on == "all",
-                      sync=MeshSync(mesh, device))
+
+def traj_hosts(mesh) -> tuple:
+    """The host names of this rank's trajectory group, rank order (gathered
+    once a group: a collective the first time)."""
+    import socket
+
+    import torch.distributed as dist
+
+    hosts = _HOSTS.get(mesh.traj_group)
+    if hosts is None:
+        seen = [None] * mesh.n_traj
+        dist.all_gather_object(seen, socket.gethostname(), group=mesh.traj_group)
+        hosts = _HOSTS[mesh.traj_group] = tuple(seen)
+    return hosts
+
+
+def mesh_loop_route(chunk, n_traj: int, n_clause: int, device, hosts) -> tuple:
+    """Where a mesh's multi-chunk dispatch of ``chunk`` runs: ``("device",
+    why)`` for the device loop (``ops/device_loop.py``: one graph launch a
+    rank, the stop exchanged between the ranks on the card), ``("host",
+    why)`` for ``models/loop.run_chunks`` with ``parallel/dist.MeshSync``.
+    JAX's eligibility (``sharded_multi_supported``,
+    ``sharded_multi_stoch_supported``, JAX :340-356): a trajectory-only mesh
+    (``n_clause`` 1) whose chunk is a kernel's runner (B1-B4), here on a
+    CUDA ``device`` with every rank of the trajectory group on one host
+    (``hosts``, its ranks' host names): the exchange's pages are CUDA IPC
+    mappings. Clause meshes, the scan tier (the twin, ``--dv-strategy
+    pallas``), batch-shared adaptive dt (a twin step that all-reduces dt)
+    and a group over hosts stay host-paced."""
+    from odesat_tpu_torch.ops.device_loop import KernelChunk
+
+    if torch.device(device).type != "cuda":
+        return "host", f"the plain version on {device}"
+    if n_clause > 1:
+        return "host", f"a clause mesh ({n_traj}x{n_clause}) is host-paced, as in JAX"
+    if not isinstance(chunk, KernelChunk):
+        return "host", "the chunk is the twin's steps (batch-shared adaptive dt), no kernel's"
+    if chunk.buffers is not None:
+        return "host", "the scan tier's chunk is host-paced on a mesh, as in JAX"
+    if n_traj > 1 and len(set(hosts)) > 1:
+        return "host", (f"the trajectory group spans hosts {sorted(set(hosts))}: CUDA IPC "
+                        "pages stay within one (JAX reduces over DCN there)")
+    return "device", (f"{n_traj} ranks exchange the stop on the card" if n_traj > 1 else
+                      "one rank")
+
+
+def make_sharded_multi_runner(chunk, chunk_steps: int, max_chunks: int, mesh, device,
+                              stop_on: str = "any", dev=None):
+    """``run(state) -> (state, steps_advanced)``: up to ``max_chunks`` calls
+    of the chunk runner ``chunk`` (``chunk(state, dev)`` for the ODE, with
+    the formula tensors ``dev``; ``chunk(state)`` for stoch, ``dev`` None),
+    with the stop flag reduced over the trajectory group before every chunk,
+    so every rank stops before the same one (a state stopped at entry on any
+    rank, on every rank with ``stop_on="all"``, runs none) and
+    ``steps_advanced`` is exact (JAX :332-414, :862-922), for either engine.
+    :func:`mesh_loop_route` decides, logged: a kernel's runner (B1-B4) on a
+    card with the whole group on one host runs each dispatch as one
+    device-loop graph launch a rank, the stop exchanged on the card (B3's
+    and B4's ``max_chunks`` seeds drawn first from the rank's row generator,
+    in the host loop's order); anything else runs the host loop of
+    ``models/loop.run_chunks`` with ``MeshSync`` (the plain version). A
+    failure of the device loop raises: nothing falls back."""
+    from odesat_tpu_torch.models.loop import run_chunks
+    from odesat_tpu_torch.ops import device_loop
+
+    stop_all = stop_on == "all"
+    cuda_traj = torch.device(device).type == "cuda" and mesh.n_clause == 1 and mesh.n_traj > 1
+    hosts = traj_hosts(mesh) if cuda_traj else ()
+    route, why = mesh_loop_route(chunk, mesh.n_traj, mesh.n_clause, device, hosts)
+    logger.info("mesh %dx%d multi-chunk dispatch -> %s loop on %s: %s", mesh.n_traj,
+                mesh.n_clause, route, device, why)
+    if route == "host":
+        call = chunk if dev is None else (lambda st: chunk(st, dev))
+        return run_chunks(call, chunk_steps, max_chunks, stop_all=stop_all,
+                          sync=MeshSync(mesh, device))
+    from odesat_tpu_torch.models.stoch import draw_seed
+    from odesat_tpu_torch.parallel.multihost import collective_timeout
+
+    peers = (device_loop.mesh_peers(mesh.traj_group, device, collective_timeout())
+             if mesh.n_traj > 1 else None)
+
+    def run(state):
+        seeds = None
+        if chunk.generator is not None:
+            seeds = [draw_seed(chunk.generator) for _ in range(max_chunks)]
+        return device_loop.run(chunk, state, max_chunks, stop_all=stop_all, seeds=seeds,
+                               dev=dev, peers=peers)
+
+    return run
 
 
 def check_replicated(v: torch.Tensor, mesh) -> None:
@@ -437,11 +519,147 @@ def run_multi_cases(mesh, device, cases):
         dev = formula_device(fa, device, dtype=state_dtype(ode))
         state, dev = shard_inputs(state, dev, mesh)
         chunk = make_sharded_chunk_runner(fa, zeta, ode, chunk_steps, mesh, device)
-        multi = make_sharded_multi_runner(lambda st: chunk(st, dev), chunk_steps, max_chunks,
-                                          mesh, device, stop_on)
+        multi = make_sharded_multi_runner(chunk, chunk_steps, max_chunks, mesh, device, stop_on,
+                                          dev)
         state, steps = multi(state)
         out.append((fetch_state(state, mesh), steps))
     return out
+
+
+def run_multi_stoch_cases(mesh, device, cases):
+    """For each ``(fa, chunk_steps, max_chunks, seed, arrays, fused)``:
+    shard the global NumPy chains ``arrays`` (v, xl, done) over a
+    trajectory-only mesh, run one dispatch of
+    :func:`make_sharded_multi_runner` over each rank's chunk runner (its row
+    generator from ``seed``) and return on every rank ``(state as NumPy,
+    steps_advanced)``."""
+    from odesat_tpu_torch.interop import stoch_state_from_numpy
+
+    out = []
+    for fa, chunk_steps, max_chunks, seed, arrays, fused in cases:
+        state = shard_stoch_inputs(stoch_state_from_numpy(*arrays, device=device), mesh)
+        chunk = make_sharded_stoch_runner(fa, chunk_steps, mesh, device,
+                                          row_generator(seed, mesh), fused=fused)
+        state, steps = make_sharded_multi_runner(chunk, chunk_steps, max_chunks, mesh,
+                                                 device)(state)
+        out.append((fetch_state(state, mesh), steps))
+    return out
+
+
+def loop_against_host_loop(mesh, device, cases):
+    """The trajectory mesh's device loop against its plain version, the
+    host loop (``models/loop.run_chunks`` with ``MeshSync``), over the same
+    kernel on this rank's card: for each case, ``("ode", fa, ode,
+    chunk_steps, bound, stop_on, arrays)`` (B1 or B2 as ``ode.dv_strategy``
+    and the gates pick; ``arrays`` the global v, xs, xl, dt, done) or
+    ``("stoch", fa, fused, chunk_steps, bound, seed, arrays)`` (B3 or B4;
+    v, xl, done; each run's own row generator from ``seed``), one dispatch
+    of each from the same state; ``arrays`` may instead be ``(B, seed,
+    rows)``: the state :func:`random_mesh_state` makes, with the global
+    rows ``rows`` done. Returns on every rank, a case, ``(err,
+    steps, host_steps, graphs, launches)``: the largest
+    :func:`~odesat_tpu_torch.parallel.dist.bit_error` between the two
+    states over every field and rank (0.0: bit for bit; a bool field that
+    differs counts inf, as do steps or, after a dispatch that ran every
+    chunk, generator states that differ on any rank), the two
+    ``steps_advanced``, and this rank's mesh graph launches and kernel
+    launches of the device loop's dispatch."""
+    import torch.distributed as dist
+
+    from odesat_tpu_torch.interop import state_from_numpy, stoch_state_from_numpy
+    from odesat_tpu_torch.models.loop import run_chunks
+    from odesat_tpu_torch.ops import device_loop
+    from odesat_tpu_torch.parallel.dist import bit_error
+
+    out = []
+    for engine, fa, how, chunk_steps, bound, rule, arrays in cases:
+        if isinstance(arrays[0], int):
+            state = random_mesh_state(engine, fa, *arrays, mesh, device)
+        elif engine == "ode":
+            state = shard_state(state_from_numpy(*arrays, device=device), mesh)
+        else:
+            state = shard_stoch_inputs(stoch_state_from_numpy(*arrays, device=device), mesh)
+        if engine == "ode":
+            chunks = [make_sharded_chunk_runner(fa, how.resolve_zeta(fa.density), how,
+                                                chunk_steps, mesh, device)] * 2
+            stop_on, gens = rule, [None, None]
+            host = run_chunks(lambda st: chunks[0](st, None), chunk_steps, bound,
+                              stop_all=stop_on == "all", sync=MeshSync(mesh, device))
+        else:
+            gens = [row_generator(rule, mesh) for _ in range(2)]
+            chunks = [make_sharded_stoch_runner(fa, chunk_steps, mesh, device, g, fused=how)
+                      for g in gens]
+            stop_on = "any"
+            host = run_chunks(chunks[0], chunk_steps, bound, sync=MeshSync(mesh, device))
+        want, host_steps = host(state)
+        multi = make_sharded_multi_runner(chunks[1], chunk_steps, bound, mesh, device, stop_on)
+        mod, attr = chunks[1].counter
+        graphs, before = device_loop.mesh_launches, getattr(mod, attr)
+        got, steps = multi(state)
+        graphs, launches = device_loop.mesh_launches - graphs, getattr(mod, attr) - before
+        err = 0.0
+        for a, b in zip(got, want):
+            if a.dtype == torch.bool:
+                err = max(err, 0.0 if torch.equal(a, b) else math.inf)
+            else:
+                err = max(err, bit_error(a.cpu().float(), b.cpu().float()))
+        if steps != host_steps or (gens[0] is not None and steps == bound * chunk_steps and
+                                   not torch.equal(gens[0].get_state(), gens[1].get_state())):
+            err = math.inf
+        worst = torch.tensor([err], dtype=torch.float64)
+        dist.all_reduce(worst, op=dist.ReduceOp.MAX, group=mesh.traj_group)
+        out.append((float(worst.item()), steps, host_steps, graphs, launches))
+    return out
+
+
+def random_mesh_state(engine: str, fa, B: int, seed: int, rows, mesh, device):
+    """This rank's block of a random global state of ``B`` rows, the rows
+    ``rows`` done, made on the rank (the clause memories of a large formula
+    are too large to send): for "ode" v ~ U(-1, 1) from ``seed``, xs from
+    the all-false valuation, xl = 1, dt = 0.01; for "stoch" v a fair coin,
+    xl = 1."""
+    from odesat_tpu_torch.interop import state_from_numpy, stoch_state_from_numpy
+
+    rng = np.random.default_rng(seed)
+    done = np.zeros(B, bool)
+    done[list(rows)] = True
+    block = row_block(B // mesh.n_traj, mesh)
+    done = done[block]
+    Np, Mp = fa.n_vars_padded, fa.n_clauses_padded
+    if engine == "stoch":
+        v = (rng.random((B, Np)) < 0.5)[block]
+        return stoch_state_from_numpy(v, np.ones((done.size, Mp), np.int32), done,
+                                      device=device)
+    v = rng.uniform(-1, 1, (B, Np)).astype(np.float32)[block]
+    xs = np.broadcast_to(fa.xs_init, (done.size, Mp)).astype(np.float32)
+    return state_from_numpy(v, xs, np.ones_like(xs), np.full(done.size, 0.01, np.float32), done,
+                            device=device)
+
+
+def dispatch_alone(mesh, device, fa, chunk_steps: int = 8, wait_s: float = 120.0):
+    """A trajectory mesh whose rank 0 dispatches while its peers never do:
+    every rank builds the runner (the exchange pages are shared), then rank
+    0 runs one dispatch of B1 and every other rank sleeps ``wait_s``. Rank
+    0's exchange waits the collective timeout and raises, naming the ranks
+    that did not arrive."""
+    import time
+
+    from odesat_tpu_torch.interop import state_from_numpy
+    from odesat_tpu_torch.utils.config import ODEConfig
+
+    ode = ODEConfig(step_size=0.01, dv_strategy="fused")
+    chunk = make_sharded_chunk_runner(fa, 0.05, ode, chunk_steps, mesh, device)
+    multi = make_sharded_multi_runner(chunk, chunk_steps, 4, mesh, device, dev=None)
+    rng = np.random.default_rng(mesh.rank)
+    B = 4
+    xs = np.broadcast_to(fa.xs_init, (B, fa.n_clauses_padded)).astype(np.float32)
+    state = state_from_numpy(rng.uniform(-1, 1, (B, fa.n_vars_padded)).astype(np.float32), xs,
+                             np.ones_like(xs), np.full(B, 0.01, np.float32), np.zeros(B, bool),
+                             device=device)
+    if mesh.traj_index == 0:
+        return multi(state)[1]
+    time.sleep(wait_s)
+    return None
 
 
 def run_stoch_clause(mesh, device, fa, chunks: int, chunk_steps: int, seed: int,

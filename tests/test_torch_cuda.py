@@ -1304,6 +1304,92 @@ def test_a_graph_that_cannot_be_built_raises(cuda, monkeypatch):
     assert steps == 32 and torch.equal(out.v, want.v) and torch.equal(out.done, want.done)
 
 
+# ------------------------------------------ the trajectory mesh's device loop
+
+
+def _mesh_loop_cases(B=64):
+    """Cases of ``parallel/sharded.loop_against_host_loop`` over two
+    trajectory ranks: B1 and B2 (forced) on a planted 3-SAT (n=50, m=200)
+    at bounds 1, 3, 16 and 60, stop on any and all, and from a state
+    stopped at entry on rank 1 only (one of its rows done for any, every
+    one for all); B3 on the same formula and B4 on a planted 5-SAT past
+    B3's gate (n=2000, m=8000), bounds 1, 3 and 16 and rank 1's chain done
+    at entry."""
+    fa = compile_formula(normalize_cnf_variables(random_ksat(50, 200, seed=3, planted=True))[1])
+    fa5 = compile_formula(normalize_cnf_variables(
+        random_ksat(2000, 8000, k=5, seed=11, planted=True))[1])
+    rng = np.random.default_rng(5)
+    xs = np.broadcast_to(fa.xs_init, (B, fa.n_clauses_padded)).astype(np.float32)
+    base = (rng.uniform(-1, 1, (B, fa.n_vars_padded)).astype(np.float32), xs, np.ones_like(xs),
+            np.full(B, 0.01, np.float32), np.zeros(B, bool))
+
+    def entry(arrays, rows):
+        done = arrays[-1].copy()
+        done[rows] = True
+        return (*arrays[:-1], done)
+
+    cases = []
+    for kernel in ("fused", "stream"):
+        ode = ODEConfig(step_size=0.05, dv_strategy=kernel)
+        for rule in ("any", "all"):
+            cases += [("ode", fa, ode, 8, bound, rule, base) for bound in (1, 3, 16, 60)]
+            cases.append(("ode", fa, ode, 8, 16, rule,
+                          entry(base, [B - 1] if rule == "any" else list(range(B // 2, B)))))
+    for f in (fa, fa5):
+        chains = (rng.random((B, f.n_vars_padded)) < 0.5,
+                  np.ones((B, f.n_clauses_padded), np.int32), np.zeros(B, bool))
+        cases += [("stoch", f, "on", 8, bound, 7, chains) for bound in (1, 3, 16)]
+        cases.append(("stoch", f, "on", 8, 16, 7, entry(chains, [B - 1])))
+    return cases
+
+
+@pytest.mark.cuda
+def test_mesh_device_loop_equals_the_host_loop_through_b1_to_b4(cuda):
+    """Two trajectory ranks sharing the card: each dispatch of the mesh's
+    device loop (one graph launch a rank, the stop exchanged on the card)
+    equals run_chunks with MeshSync over the same kernel bit for bit,
+    steps_advanced included, with the stop inside a dispatch and at entry on
+    rank 1 only; the kernels' counts grow by the chunks run."""
+    from odesat_tpu_torch.parallel import launch, sharded
+
+    cases = _mesh_loop_cases()
+    values = launch.spawn(sharded.loop_against_host_loop, 2, 1, "gloo", "cuda", timeout_s=600,
+                          args=(cases,))
+    inside = False
+    for case, (err, steps, host_steps, graphs, launches) in zip(cases, values):
+        chunk_steps, bound = case[3], case[4]
+        assert err == 0.0 and steps == host_steps, case[:6]
+        assert graphs == 1 and launches == steps // chunk_steps, case[:6]
+        entry = case[-1][-1].any()
+        if entry and (case[0] == "stoch" or case[5] == "any"):
+            assert steps == 0
+        inside |= not entry and 0 < steps < bound * chunk_steps
+    assert inside
+    for report in launch.last_reports:
+        assert report["device_loop_mesh"] == report["device_loop"] == len(cases)
+
+
+@pytest.mark.cuda
+def test_a_rank_whose_peer_never_dispatches_raises(cuda):
+    """Rank 1 shares the exchange pages and never dispatches: rank 0's
+    exchange waits the collective timeout (2 s), its dispatch raises naming
+    rank 1, and the world ends (rank 1's process killed) instead of
+    hanging."""
+    import multiprocessing
+    import time
+
+    from odesat_tpu_torch.parallel import launch, sharded
+
+    fa = compile_formula(_formula())
+    t0 = time.monotonic()
+    with pytest.raises(launch.WorkerError, match=r"did not arrive") as info:
+        launch.spawn(sharded.dispatch_alone, 2, 1, "gloo", "cuda", timeout_s=300, args=(fa,),
+                     collective_timeout_s=2)
+    assert "[(1, 1)]" in str(info.value)
+    assert time.monotonic() - t0 < 100  # start-up and the 2 s wait, not the 120 s sleep
+    assert not multiprocessing.active_children()
+
+
 # ------------------------------------------------------- the scan chunk
 
 
