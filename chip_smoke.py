@@ -268,7 +268,23 @@ Phases, each printing its lines; the first failure exits non-zero:
     -n 4096 (B1), stoch --devices 2 --no-preprocess hard.cnf -b 16384 -n
     4096 (B3) and stoch --devices 2 on the n=1k instance -b 8192 -n 4096
     (B4), each false after exactly 4096 steps (or, n1k, a solved chain that
-    verifies), one mesh graph launch a dispatch on each rank.
+    verifies), one mesh graph launch a dispatch on each rank;
+29. the mesh twin step's reductions on B7 (its standalone call, float64
+    form; parallel/dist.mesh_reduce), in phase 20's world, reported after
+    phase 28: B7's float64 kernel alone on S = 1-4 buffers (S = 3 among
+    them) and its call at S=2 (here) and S=4 (phase 20f's world) against
+    the plain tree bit for bit, NaN, signed zeros and infinities included;
+    a. config 7 B=1024 S=2 f64 on the plain layout, fixed dt=0.01 and
+    adaptive tol 1e-3: ms a step (host clock around 2 chunks of 16 steps)
+    and its reductions' share (a sync before and after each); b. uf250
+    B=4096 on a 2x1 mesh, adaptive --dt-mode shared, the same; c. 29a's
+    steps under torch.profiler (the card's busy time, B7's part, the host's
+    share); the twin step on B7's route equal to torch.distributed's bit
+    for bit over 16 steps, two runs bit-identical, a chunk with no
+    torch.distributed call and no host read; inter on config 7 -b 1024 -s
+    0.01 -n 16 --devices 1 --clause-shards 2 --dtype float64 through the
+    CLI's mesh solve on both routes: the same steps, solved rows, verdict
+    and assignment; B7's float64 call timed beside gloo's all-reduce.
 
 ``python3 chip_smoke.py --time-loop ROOT`` runs, with the port at ROOT (a
 parent tree unpacked beside this one, or this one), phase 6's and phase
@@ -277,20 +293,24 @@ to solution and the host loop's (and, where ROOT has one, the device
 loop's) cost a chunk;
 ``python3 chip_smoke.py --time-b10 ROOT`` times B10 of the checkout at ROOT
 (a parent tree unpacked beside this one) as phase 17 times this one;
-``--time-mesh ROOT`` the clause-mesh steps of phase 21 at S=2 and S=4 with
-the port at ROOT; ``--time-b7`` the split of B7's standalone call at S=2
+``--time-mesh ROOT`` the clause-mesh steps of phase 21 at S=2 and S=4 and
+phase 29's 29a and 29b with the port at ROOT; ``--time-b7`` the split of B7's standalone call at S=2
 and S=4; ``--time-segment ROOT`` a segment_sum step of the port at ROOT
 at hard.cnf B=4096 and phase 27d's B=512 (``--time-segment ROOT cpu`` on
 the CPU, 27d's formula at B=16); ``--scan-peak`` the peak memory of 27d's
 shape through inter's device loop and through batch's host-paced, growing
 chunks; ``--time-mesh-loop [host]`` phase 28a alone (both loops, or the
-host loop alone; on a host of several cards one NCCL rank a card).
+host loop alone; on a host of several cards one NCCL rank a card);
+``--twin`` phase 29 alone (on a host of several cards 29a at S=2 and S=4,
+one NCCL rank a card, through B7 and through NCCL's all-reduce).
 
 The last two lines are the ``kernels`` JSON object (one row per kernel,
 with its bound: the larger of its bytes over 3.35 TB/s and its operations
 over 67 TFLOP/s; B7's standalone call at S=2, its library time the gloo
-all-reduce; B7 fused, B6's apply launch reading two partials; the device
-loop, a chunk's cost beyond the chunk kernel; on a trajectory mesh, a B1
+all-reduce; its float64 form's call at config 7's f64 buffer, beside
+gloo's all-reduce of it; B7 fused, B6's apply launch reading two
+partials; the device loop, a chunk's cost beyond the chunk kernel; on a
+trajectory mesh, a B1
 chunk's cost beyond the two ranks' launches against the host loop's
 (phase 28a); the scan chunk, a captured 64-step chunk beside the same steps
 launched from Python) and
@@ -1636,11 +1656,24 @@ def time_mesh(root):
     from odesat_tpu_torch.parallel import launch
 
     card = phase_device(torch)
-    normalized = normalize_cnf_variables(config7_instance())[1]
+    c7 = config7_instance()
+    normalized = normalize_cnf_variables(c7)[1]
     for S in (2, 4):
         fa = compile_stream_sharded(normalized, S)[0]
         r = launch.spawn(mesh_step_ms, 1, S, "gloo", "cuda", timeout_s=600, args=(fa,))
         say(mesh_step_line(S, r, card, root))
+    # 29a and 29b: the twin's mesh step, on the route the tree at ROOT takes
+    from odesat_tpu_torch.cnf import compile_formula
+    from odesat_tpu_torch.utils.generate import uf_instance
+
+    uf250 = compile_formula(normalize_cnf_variables(uf_instance(250, seed=0))[1],
+                            window_sort=True)
+    calls = [(twin_timing, (twin_config7(c7), twin_ode(mode), 1024)) for mode, _ in TWIN_MODES]
+    calls.append((launch.on_mesh, ((2, 1), twin_timing, uf250,
+                                   twin_ode("adaptive", "float32", "shared"), 4096)))
+    values = launch.spawn(launch.run_all, 1, 2, "gloo", "cuda", timeout_s=600, args=(calls,))
+    for label, r in zip(TWIN_LABELS, values):
+        say(twin_line(label, r, card, root))
     return 0
 
 
@@ -2160,6 +2193,18 @@ def phase_stoch_shard_chunk_compare(torch, sc, shard_cases):
     return 0.0
 
 
+def config7_path(c7):
+    """Write the config 7 instance as DIMACS where phases 20, 26 and 29
+    read it; returns the path."""
+    from odesat_tpu_torch.cnf import cnf_to_dimacs
+
+    os.makedirs(OUT, exist_ok=True)
+    path = os.path.join(OUT, "local_n10240_m43700.cnf")
+    with open(path, "w", encoding="utf-8") as fh:
+        fh.write(cnf_to_dimacs(c7))
+    return path
+
+
 def run_cli_mesh(cmd, args):
     """The CLI with a mesh flag: the kernels launch in the spawned ranks,
     which report their counts (parallel/launch.last_reports)."""
@@ -2170,21 +2215,24 @@ def run_cli_mesh(cmd, args):
     return verdict, launch.last_reports, steps, solved, seconds, out
 
 
-def b7_checks(shape7):
+def b7_checks(shape7, dtype=None):
     """B7 against its plain version (parallel/dist.all_reduce_error, bit
     for bit), as calls of a run_all world: ragged lengths 1, 7, 33*1025
     and the full (1024, Np+1) buffer of config 7, each with and without a
-    max zone, then 1000 back-to-back calls on fresh data (the race run)."""
+    max zone, then 1000 back-to-back calls on fresh data (the race run).
+    ``dtype`` None: the float32 form; torch.float64: the float64 form, on
+    partials that also hold infinities of both signs."""
     from odesat_tpu_torch.parallel.dist import all_reduce_error
 
+    extra = () if dtype is None else (dtype,)
     calls = []
     for i, shape in enumerate(((1,), (7,), (33 * 1025,), shape7)):
         n = math.prod(shape)
         # the full buffer's max zone is B6's: each tile's error row, 32 words of (Np+1)*32
         zones = (shape[1] * 32, 32) if shape == shape7 else (min(n, shape[-1]), min(n, 3))
-        calls.append((all_reduce_error, (shape, 10 + i, None, 1)))
-        calls.append((all_reduce_error, (shape, 20 + i, zones, 1)))
-    calls.append((all_reduce_error, ((33, 1025), 30, (1025, 1), 1000)))
+        calls.append((all_reduce_error, (shape, 10 + i, None, 1, *extra)))
+        calls.append((all_reduce_error, (shape, 20 + i, zones, 1, *extra)))
+    calls.append((all_reduce_error, ((33, 1025), 30, (1025, 1), 1000, *extra)))
     return calls
 
 
@@ -2207,13 +2255,9 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card, loop_calls):
     import numpy as np
 
     from odesat_tpu_torch import cli
-    from odesat_tpu_torch.cnf import cnf_to_dimacs
     from odesat_tpu_torch.parallel import launch, sharded
 
-    os.makedirs(OUT, exist_ok=True)
-    c7_path = os.path.join(OUT, "local_n10240_m43700.cnf")
-    with open(c7_path, "w", encoding="utf-8") as fh:
-        fh.write(cnf_to_dimacs(c7))
+    c7_path = config7_path(c7)
     uf_path = os.path.join(OUT, "uf250_seed0.cnf")  # written by phase 5
     easy = os.path.join(ROOT, "tests", "data", "easy.cnf")
     gloo = ["--clause-shards", "2", "--dist-backend", "gloo"]
@@ -2491,16 +2535,18 @@ def report_races(S, values, counts, card):
     return max(v[0] for v in values)
 
 
-def report_b7_checks(S, checks, errs, counts, card):
-    """Fail unless every B7 check read 0 and launched the kernel once a
-    call on every rank; print them; return the largest error."""
-    for (_, (shape, _, zones, n)), err, count in zip(checks, errs, counts):
-        if err != 0.0 or count["butterfly"] != [n] * S:
-            fail(f"B7 at S={S}, {shape} zones {zones}, {n} calls: max abs err {err} against the "
-                 f"plain version, launches per rank {count['butterfly']}")
+def report_b7_checks(S, checks, errs, counts, card, dtype=None):
+    """Fail unless every B7 check read 0 and launched the kernel (the
+    float32 form, or ``dtype``'s) once a call on every rank; print them;
+    return the largest error."""
+    key, form = ("butterfly", "") if dtype is None else ("butterfly_f64", " (float64 form)")
+    for (_, (shape, _, zones, n, *_)), err, count in zip(checks, errs, counts):
+        if err != 0.0 or count[key] != [n] * S:
+            fail(f"B7{form} at S={S}, {shape} zones {zones}, {n} calls: max abs err {err} "
+                 f"against the plain version, launches per rank {count[key]}")
     shapes = sorted({str(c[1][0]) for c in checks})
-    say(f"[B7 compare] S={S} ranks on one card: B7 equals its plain version bit for bit (max abs "
-        f"err {max(errs)}; a NaN equal to any NaN) at {', '.join(shapes)}, each with and "
+    say(f"[B7 compare] S={S} ranks on one card: B7{form} equals its plain version bit for bit "
+        f"(max abs err {max(errs)}; a NaN equal to any NaN) at {', '.join(shapes)}, each with and "
         f"without a max zone, and over {checks[-1][1][3]} back-to-back calls on fresh data at "
         f"{checks[-1][1][0]}, every call's result on every rank ({card})")
     return max(errs)
@@ -2563,10 +2609,11 @@ def phase_mesh_s4(torch, fa7_1, c7, b7_two, card):
     races = race_calls(4)
     calls += races + [(time_butterfly_split, (shape7, 20)), (mesh_step_ms, (fa7_4,))]
     checks = b7_checks(shape7)
-    calls += checks
+    checks64 = b7_checks(shape7, torch.float64)  # the float64 form (the twin's clause step)
+    calls += checks + checks64
     values = launch.spawn(launch.run_all, 1, 4, "gloo", "cuda", timeout_s=600, args=(calls,))
     names = ("shard_chunk", "stoch_shard_chunk", "shard_stream", "stoch_shard_eval", "butterfly",
-             "butterfly_fused")
+             "butterfly_f64", "butterfly_fused")
     per_call = [{k: [r["calls"][i][k] for r in launch.last_reports] for k in names}
                 for i in range(len(calls))]
     totals = {"shard_chunk": 0, "stoch_shard_chunk": 0, "butterfly_fused": 0}
@@ -2625,7 +2672,10 @@ def phase_mesh_s4(torch, fa7_1, c7, b7_two, card):
     n = 8 + len(races)
     race_err = report_races(4, values[8:n], per_call[8:n], card)
     split, steps = values[n], values[n + 1]
-    b7_err = report_b7_checks(4, checks, values[n + 2:], per_call[n + 2:], card)
+    m = n + 2 + len(checks)
+    b7_err = report_b7_checks(4, checks, values[n + 2:m], per_call[n + 2:m], card)
+    b7_two["S=4 f64"] = report_b7_checks(4, checks64, values[m:], per_call[m:], card,
+                                         torch.float64)
     say(b7_split_line(4, split, card))
     say(mesh_step_line(4, steps, card))
     say(f"[mesh S=4] one world of four ranks in {time.perf_counter() - t0:.1f} s ({card})")
@@ -4080,6 +4130,499 @@ def phase_mesh_loop(cases, labels, values, reports, card):
             "plain_ms": timing["host"]["b1_chunk"] - 2 * k, "err": worst, "launches": graphs}
 
 
+# ------------------- the mesh twin step's reductions on B7 (phase 29)
+
+TWIN_STEPS = 16
+TWIN_MODES = (("fixed", dict(step_size=0.01)), ("adaptive", dict(tolerance=1e-3)))
+TWIN_C7_ARGV = ("--devices", "1", "--clause-shards", "2", "--dtype", "float64",
+                "--dist-backend", "gloo")
+
+
+def twin_config7(c7, S=2):
+    """Config 7 laid out for the twin's clause step at ``S`` clause ranks in
+    float64 (``compile_for_mesh`` with the f64 config: the plain layout,
+    past B5's and B6's gate by its dtype)."""
+    from types import SimpleNamespace
+
+    from odesat_tpu_torch.cnf import normalize_cnf_variables
+    from odesat_tpu_torch.parallel import sharded
+    from odesat_tpu_torch.utils.config import ODEConfig, SolverConfig
+
+    config = SolverConfig(ode=ODEConfig(step_size=0.01, dtype="float64"))
+    return sharded.compile_for_mesh(normalize_cnf_variables(c7)[1], config,
+                                    SimpleNamespace(n_clause=S))
+
+
+def twin_ode(mode, dtype="float64", dt_mode="per-trajectory"):
+    from odesat_tpu_torch.utils.config import ODEConfig
+
+    return ODEConfig(**dict(TWIN_MODES)[mode], dtype=dtype, dt_mode=dt_mode)
+
+
+def twin_state(mesh, device, fa, ode, B, seed=5):
+    """This rank's block of a global twin state of ``B`` rows made on the
+    card from ``seed`` (v ~ U(-1, 1), xs from the all-false valuation, xl
+    = 1, dt = 0.01, none done) and its clause segment of the formula
+    tensors."""
+    import torch
+
+    from odesat_tpu_torch.models.ode import ODEState, formula_device, state_dtype
+    from odesat_tpu_torch.parallel import sharded
+
+    dtype = state_dtype(ode)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    v = torch.rand((B, fa.n_vars_padded), generator=gen, device=device, dtype=dtype) * 2 - 1
+    xs = torch.as_tensor(fa.xs_init).to(device=device, dtype=dtype).expand(
+        B, fa.n_clauses_padded).clone()
+    state = ODEState(v, xs, torch.ones_like(xs), torch.full((B,), 0.01, dtype=dtype,
+                                                            device=device),
+                     torch.zeros(B, dtype=torch.bool, device=device))
+    return sharded.shard_inputs(state, formula_device(fa, device, dtype=dtype), mesh)
+
+
+@contextlib.contextmanager
+def twin_route(route):
+    """The twin step's reductions on ``route`` (None: the runner's own, B7
+    on a card; "dist": torch.distributed, the route before B7 took them),
+    where the tree has the choice (``sharded.TWIN_ROUTE``)."""
+    from odesat_tpu_torch.parallel import sharded
+
+    before = getattr(sharded, "TWIN_ROUTE", None)
+    if hasattr(sharded, "TWIN_ROUTE"):
+        sharded.TWIN_ROUTE = route
+    try:
+        yield
+    finally:
+        if hasattr(sharded, "TWIN_ROUTE"):
+            sharded.TWIN_ROUTE = before
+
+
+@contextlib.contextmanager
+def counting_collectives(counts):
+    """Count every torch.distributed collective called inside (into
+    ``counts["dist"]``)."""
+    import torch.distributed as dist
+
+    names = ("all_reduce", "all_gather", "all_gather_object", "broadcast", "reduce",
+             "gather", "scatter", "reduce_scatter", "all_to_all")
+    saved = {n: getattr(dist, n) for n in names if hasattr(dist, n)}
+
+    def wrap(fn):
+        def counted(*a, **k):
+            counts["dist"] += 1
+            return fn(*a, **k)
+        return counted
+
+    for n, fn in saved.items():
+        setattr(dist, n, wrap(fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+
+
+def b7_count():
+    from odesat_tpu_torch.ops import butterfly as bf
+
+    return bf.launches + getattr(bf, "launches_f64", 0)
+
+
+def twin_timing(mesh, device, fa, ode, B, steps=TWIN_STEPS, reps=2, route=None):
+    """29a and 29b: a rank's ms a step of the twin's mesh step
+    (``make_sharded_chunk_runner``'s twin at ``ode`` on this mesh, ``B``
+    global rows), host clock around ``reps`` chunks of ``steps`` steps after
+    a warm-up chunk, each ending in a sync on every rank; then one chunk
+    with the host clock around each reduction the steps make
+    (``parallel/dist.mesh_reduce``, or ``all_reduce`` in a tree from
+    before it), a device sync before and after each. Uses only entry points
+    that trees from before B7 took the twin's sums also have, so that
+    ``--time-mesh`` runs it on an older tree. Returns rank 0's ``{"step_ms",
+    "reduce_ms" (a step's reductions), "calls" (reductions a step),
+    "dist_calls" (torch.distributed collectives a step in the timed
+    chunks), "b7" (B7 launches a step)}``."""
+    import torch
+    import torch.distributed as dist
+
+    from odesat_tpu_torch.parallel import dist as pdist
+    from odesat_tpu_torch.parallel import sharded
+
+    zeta = ode.resolve_zeta(fa.density)
+    state, dev = twin_state(mesh, device, fa, ode, B)
+
+    def settle():
+        torch.cuda.synchronize(device)
+        dist.barrier()
+
+    with twin_route(route):
+        run = sharded.make_sharded_chunk_runner(fa, zeta, ode, steps, mesh, device)
+        run(state, dev)
+        settle()
+        counts, b7 = {"dist": 0}, b7_count()
+        t0 = time.perf_counter()
+        with counting_collectives(counts):
+            for _ in range(reps):
+                run(state, dev)
+                settle()
+        wall = (time.perf_counter() - t0) / (reps * steps) * 1e3
+        b7 = (b7_count() - b7) / (reps * steps)
+        name = "mesh_reduce" if hasattr(pdist, "mesh_reduce") else "all_reduce"
+        plain, spent = getattr(pdist, name), [0.0, 0]
+
+        def timed(*a, **k):
+            torch.cuda.synchronize(device)
+            t = time.perf_counter()
+            out = plain(*a, **k)
+            torch.cuda.synchronize(device)
+            spent[0] += time.perf_counter() - t
+            spent[1] += 1
+            return out
+
+        setattr(pdist, name, timed)
+        try:  # built after the swap: an older tree binds all_reduce when it builds
+            sharded.make_sharded_chunk_runner(fa, zeta, ode, steps, mesh, device)(state, dev)
+            settle()
+        finally:
+            setattr(pdist, name, plain)
+    return {"step_ms": wall, "reduce_ms": spent[0] / steps * 1e3, "calls": spent[1] / steps,
+            "dist_calls": counts["dist"] / (reps * steps), "b7": b7}
+
+
+def busy_in(events, window, match=""):
+    """ms the card was busy inside ``window`` (host clock, us), over the
+    device events whose name holds ``match``: the union of their spans,
+    clipped to the window."""
+    spans = sorted((max(e.time_range.start, window[0]), min(e.time_range.end, window[1]))
+                   for e in events if match in e.name)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b <= a:
+            continue
+        if a > end:
+            busy, end = busy + (b - a), b
+        elif b > end:
+            busy, end = busy + (b - end), b
+    return busy / 1e3
+
+
+def twin_profile(mesh, device, fa, B, steps=TWIN_STEPS):
+    """29c: config 7's twin clause step, fixed and adaptive, ``steps`` steps
+    each under one torch.profiler session on every rank (a window a mode,
+    marked with record_function and ending in a device sync; one session,
+    since a process's later sessions miss each kernel's first launch).
+    Returns every rank's ``{mode: (wall, busy, b7)}`` in ms a step: the
+    window's wall, the rank's device time inside it (the union of its
+    kernels' and copies' spans) and B7's part of it (``bfly_kernel``);
+    busy None when the profiler read no device time."""
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from odesat_tpu_torch.parallel import sharded
+
+    runs = {}
+    for mode, _ in TWIN_MODES:
+        ode = twin_ode(mode)
+        state, dev = twin_state(mesh, device, fa, ode, B)
+        runs[mode] = (sharded.make_sharded_chunk_runner(fa, ode.resolve_zeta(fa.density), ode,
+                                                        steps, mesh, device), state, dev)
+        runs[mode][0](state, dev)  # warm-up: B7's set-up, the segment table
+    torch.cuda.synchronize(device)
+    dist.barrier()
+    walls = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for mode, (run, state, dev) in runs.items():
+            dist.barrier()
+            with record_function(f"twin29c {mode}"):
+                t0 = time.perf_counter()
+                run(state, dev)
+                torch.cuda.synchronize(device)
+                walls[mode] = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    device_events = [e for e in events if e.device_type == DeviceType.CUDA]
+    out = {}
+    for mode in runs:
+        # the host's range (the trace also names a device annotation so)
+        spans = [(e.time_range.start, e.time_range.end) for e in events
+                 if e.name == f"twin29c {mode}" and e.device_type == DeviceType.CPU]
+        window = (min(a for a, _ in spans), max(b for _, b in spans))
+        busy = busy_in(device_events, window)
+        b7 = busy_in(device_events, window, "bfly_kernel")
+        out[mode] = (walls[mode] / steps, busy / steps if busy > 0 else None, b7 / steps)
+    seen = [None] * dist.get_world_size()
+    dist.all_gather_object(seen, out)
+    return seen
+
+
+def host_call_recorder(torch):
+    """A TorchFunctionMode that records (in ``.calls``) the calls that make
+    a tensor from host values or read one back to the host."""
+    from torch.overrides import TorchFunctionMode
+
+    watched = {torch.Tensor.new_tensor: "new_tensor", torch.tensor: "torch.tensor",
+               torch.as_tensor: "as_tensor", torch.Tensor.item: ".item()",
+               torch.Tensor.tolist: ".tolist()", torch.Tensor.cpu: ".cpu()",
+               torch.Tensor.__bool__: "bool()"}
+
+    class Recorder(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func in watched:
+                self.calls.append(watched[func])
+            return func(*args, **(kwargs or {}))
+
+    return Recorder()
+
+
+def twin_route_check(mesh, device, fa, B, steps=TWIN_STEPS):
+    """Phase 29's checks of config 7's twin clause step at S=2 in float64,
+    fixed and adaptive, ``steps`` steps from one state: on today's route
+    (torch.distributed), and twice on B7's; then one more chunk on B7's
+    route under a recorder of host reads and of torch.distributed calls.
+    Returns rank 0's ``{mode: {"today": err, "repeat": err, "host": calls,
+    "dist": calls, "b7": launches}}``: the largest bit error over every
+    field and rank (``parallel/dist.bit_error``; a bool field that differs
+    counts inf) against B7's first run, the calls recorded in the last
+    chunk, and B7's launches in it."""
+    import torch
+    import torch.distributed as dist
+
+    from odesat_tpu_torch.parallel import sharded
+    from odesat_tpu_torch.parallel.dist import bit_error
+
+    def err(a, b):
+        worst = 0.0
+        for x, y in zip(a, b):
+            if x.dtype == torch.bool:
+                worst = max(worst, 0.0 if torch.equal(x, y) else math.inf)
+            else:
+                worst = max(worst, bit_error(x.cpu(), y.cpu()))
+        t = torch.tensor([worst], dtype=torch.float64)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return float(t.item())
+
+    out = {}
+    for mode, _ in TWIN_MODES:
+        ode = twin_ode(mode)
+        zeta = ode.resolve_zeta(fa.density)
+        state, dev = twin_state(mesh, device, fa, ode, B)
+        got = {}
+        for label, route in (("today", "dist"), ("b7", None), ("repeat", None)):
+            with twin_route(route):
+                run = sharded.make_sharded_chunk_runner(fa, zeta, ode, steps, mesh, device)
+                got[label] = run(state, dev)
+        torch.cuda.synchronize(device)
+        counts, b7, recorder = {"dist": 0}, b7_count(), host_call_recorder(torch)
+        with counting_collectives(counts), recorder:
+            run(got["b7"], dev)
+        torch.cuda.synchronize(device)
+        out[mode] = {"today": err(got["today"], got["b7"]), "repeat": err(got["repeat"], got["b7"]),
+                     "host": sorted(set(recorder.calls)), "dist": counts["dist"],
+                     "b7": b7_count() - b7}
+    return out
+
+
+def with_twin_route(mesh, device, route, fn, *args):
+    """``fn(mesh, device, *args)`` with the twin step's reductions on
+    ``route`` (:func:`twin_route`)."""
+    with twin_route(route):
+        return fn(mesh, device, *args)
+
+
+def b7_tree_f64_check(torch, card):
+    """B7's float64 kernel alone (``tree_cuda``) on S = 1 to 4 buffers of
+    this process against the plain tree, bit for bit (a NaN equal to any
+    NaN), with and without a max zone, at lengths 1, 7, 33*1025 and config
+    7's (1024, Np+1) f64 buffer, on partials with NaN, signed zeros and
+    infinities of both signs: the S = 3 tree, which no world of the smoke
+    has, among them. Returns the largest error."""
+    from odesat_tpu_torch.ops import butterfly as bf
+    from odesat_tpu_torch.parallel.dist import bit_error, butterfly_inputs
+
+    worst = 0.0
+    for S in (1, 2, 3, 4):
+        for i, shape in enumerate(((1,), (7,), (33 * 1025,), B7_SHAPE)):
+            data = butterfly_inputs(shape, S, 1, 50 + 10 * S + i, "cuda", torch.float64)[0]
+            parts = [data[k].contiguous() for k in range(S)]
+            n = math.prod(shape)
+            for zones in (None, (shape[-1], min(n, 3))):
+                got = bf.tree_cuda(parts, zones)
+                want = bf.combine_parts([p.cpu() for p in parts], zones)
+                worst = max(worst, bit_error(got.cpu(), want))
+    if worst != 0.0:
+        fail(f"B7's float64 kernel differs from the plain tree: max abs err {worst}")
+    say(f"[B7 f64] the float64 kernel alone (tree_cuda) on S = 1, 2, 3, 4 buffers equals the "
+        f"plain tree bit for bit (max abs err {worst}; NaN, signed zeros, infinities of both "
+        f"signs) at (1,), (7,), ({33 * 1025},) and {B7_SHAPE}, with and without a max zone "
+        f"({card})")
+    return worst
+
+
+def twin_alone():
+    """``--twin``: phase 29 alone: B7's float64 kernel against its plain
+    tree in this process, then phase 29's calls in a world of two gloo
+    ranks sharing the card, reported as the smoke reports them. On a host
+    of several cards instead 29a at S=2 and S=4 (as many as there are
+    cards), one NCCL rank a card, on B7's route and on NCCL's all-reduce
+    (the route before it)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script only runs on a GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from odesat_tpu_torch.cnf import compile_formula, normalize_cnf_variables
+    from odesat_tpu_torch.parallel import launch
+    from odesat_tpu_torch.utils.generate import uf_instance
+
+    card = phase_device(torch)
+    b7_tree_f64_check(torch, card)
+    c7 = config7_instance()
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        for S in (2, 4) if cards >= 4 else (2,):
+            calls = [(twin_timing, (twin_config7(c7, S), twin_ode(mode), 1024, TWIN_STEPS, 2,
+                                    route)) for mode, _ in TWIN_MODES for route in (None, "dist")]
+            values = launch.spawn(launch.run_all, 1, S, "nccl", "cuda", timeout_s=600,
+                                  args=(calls,))
+            for (mode, _), r in zip([m for m in TWIN_MODES for _ in range(2)], values):
+                what = "B7" if r["b7"] else "NCCL's all-reduce"
+                say(twin_line(f"29a config 7 B=1024 S={S} (one NCCL rank a card) f64 {mode}, "
+                              f"through {what}", r, card))
+        return 0
+    uf250 = compile_formula(normalize_cnf_variables(uf_instance(250, seed=0))[1],
+                            window_sort=True)
+    fa_twin = twin_config7(c7)
+    calls, argv, checks = twin_calls(fa_twin, uf250, config7_path(c7))
+    values = launch.spawn(launch.run_all, 1, 2, "gloo", "cuda", timeout_s=600, args=(calls,))
+    reports = [[r["calls"][i] for r in launch.last_reports] for i in range(len(calls))]
+    phase_twin(values, reports, argv, checks, fa_twin, card)
+    return 0
+
+
+def twin_calls(fa_twin, uf250, c7_path):
+    """Phase 29's calls for phase 20's world (two gloo ranks sharing the
+    card): 29a at config 7 S=2 f64 B=1024 fixed and adaptive, 29b on a 2x1
+    mesh of the world (uf250 B=4096, 2048 rows a rank, adaptive,
+    --dt-mode shared), 29c, the route checks, ``inter`` on config 7 with
+    TWIN_C7_ARGV through the CLI's mesh solve on today's route and on B7's,
+    B7's float64 checks at S=2 and its timing beside gloo's all-reduce.
+    Returns (calls, the inter argv, the checks)."""
+    import torch
+
+    from odesat_tpu_torch import cli
+    from odesat_tpu_torch.parallel import launch
+    from odesat_tpu_torch.parallel.dist import time_all_reduce, time_butterfly
+
+    argv = ["inter", "-f", c7_path, "-b", "1024", "-s", "0.01", "-n", "16", "--seed", "0",
+            *TWIN_C7_ARGV]
+    with contextlib.redirect_stdout(io.StringIO()):
+        fn, args = cli.mesh_call(argv)
+    shape7 = (1024, fa_twin.n_vars_padded + 1)
+    checks = b7_checks(shape7, torch.float64)
+    calls = [(twin_timing, (fa_twin, twin_ode(mode), 1024)) for mode, _ in TWIN_MODES]
+    calls += [(launch.on_mesh, ((2, 1), twin_timing, uf250,
+                                twin_ode("adaptive", "float32", "shared"), 4096)),
+              (twin_profile, (fa_twin, 1024)), (twin_route_check, (fa_twin, 1024)),
+              (with_twin_route, ("dist", fn, *args)), (with_twin_route, (None, fn, *args)),
+              (time_butterfly, (shape7, 20, 2, torch.float64)),
+              (time_all_reduce, (shape7, 10, torch.float64))]
+    return calls + checks, argv, checks
+
+
+def twin_line(label, r, card, origin="this tree"):
+    return (f"[mesh twin] {label} ({origin}): {r['step_ms']:.6f} ms a step (host clock around 2 "
+            f"chunks of {TWIN_STEPS} steps, each ending in a sync on every rank), its "
+            f"reductions {r['reduce_ms']:.6f} ms a step ({r['calls']:.0f} a step, a sync "
+            f"before and after each) = {r['reduce_ms'] / r['step_ms']:.4f} of the step; "
+            f"torch.distributed collectives a step {r['dist_calls']:.0f}, B7 launches a step "
+            f"{r['b7']:.0f} ({card})")
+
+
+TWIN_LABELS = ("29a config 7 B=1024 S=2 (two ranks sharing the card) f64 fixed dt=0.01",
+               "29a config 7 B=1024 S=2 (two ranks sharing the card) f64 adaptive tol 1e-3",
+               "29b uf250 B=4096 T=2 (2048 rows a rank, sharing the card) f32 adaptive "
+               "--dt-mode shared")
+
+
+def phase_twin(values, reports, argv, checks, fa_twin, card):
+    """Phase 29, from phase 20's world: the mesh twin step's reductions on
+    B7. Prints 29a-29c and the checks; fails unless B7's float64 form
+    equals its plain version bit for bit at S=2, the new route equals
+    today's bit for bit and repeats itself, its steps make no
+    torch.distributed call and read nothing back, and inter gives the same
+    verdict and steps on both routes. Returns the kernels line's numbers
+    for B7's float64 form: {"ms", "plain_ms", "library_ms", "bound_ms",
+    "err", "launches"}."""
+    import numpy as np
+
+    timing_fixed, timing_adaptive, timing_shared, prof, check, today, new, b7, lib = values[:9]
+    b7_ms, b7_plain = b7
+    for label, r in zip(TWIN_LABELS, (timing_fixed, timing_adaptive, timing_shared)):
+        say(twin_line(label, r, card))
+        if r["dist_calls"] != 0 or r["b7"] == 0:
+            fail(f"{label}: the twin step made {r['dist_calls']} torch.distributed calls a step "
+                 f"and {r['b7']} B7 launches")
+    for mode, _ in TWIN_MODES:
+        per_rank = [p[mode] for p in prof]
+        wall, busy, b7_busy = per_rank[0]
+        if busy is None:
+            say(f"[mesh twin] 29c config 7 S=2 f64 {mode}: the profiler read no device time; "
+                f"a step's wall {wall:.6f} ms ({card})")
+            continue
+        others = ", ".join(f"{p[1] / p[0]:.4f}" for p in per_rank[1:] if p[1] is not None)
+        say(f"[mesh twin] 29c config 7 B=1024 S=2 f64 {mode}, {TWIN_STEPS} steps under "
+            f"torch.profiler: a step's wall {wall:.6f} ms on rank 0, its kernels' spans "
+            f"{busy:.6f} ms ({busy / wall:.4f}; a span of a context that shares the card "
+            f"holds the peer's turns too: the other ranks' {others}), B7 {b7_busy:.6f} ms of "
+            f"it ({b7_busy / busy:.4f}); the host's share, the wall less the spans "
+            f"{wall - busy:.6f} ms ({(wall - busy) / wall:.4f}): what capturing the chunk could "
+            f"at most remove ({card})")
+    for mode, c in check.items():
+        if c["today"] != 0.0 or c["repeat"] != 0.0 or c["dist"] or c["host"] or not c["b7"]:
+            fail(f"29 config 7 S=2 f64 {mode}: B7's route against today's max abs err "
+                 f"{c['today']}, two runs {c['repeat']}, torch.distributed calls {c['dist']}, "
+                 f"host reads {c['host']}, B7 launches {c['b7']}")
+        say(f"[mesh twin] config 7 B=1024 S=2 f64 {mode}, {TWIN_STEPS} steps: B7's route equals "
+            f"today's (torch.distributed) bit for bit (max abs err {c['today']}), two runs "
+            f"bit-identical ({c['repeat']}); a chunk makes {c['b7']} B7 calls, no "
+            f"torch.distributed call and no host read or tensor from a Python number ({card})")
+    counts = reports[5:7]
+    verdicts = [cli_verdict(argv, r) if r.done.any() else False for r in (today, new)]
+    same = (today.steps == new.steps and np.array_equal(today.done, new.done)
+            and np.array_equal(today.assignment, new.assignment) and verdicts[0] == verdicts[1])
+    launched = [c["butterfly_f64"] for c in counts[1]]
+    budget = int(argv[argv.index("-n") + 1])
+    if not same or min(launched) == 0 or sum(c["butterfly_f64"] for c in counts[0]) or \
+            not (verdicts[1] or (new.steps == budget and not new.done.any())):
+        fail(f"29 inter config 7 {' '.join(TWIN_C7_ARGV)}: today's route {today.steps} steps "
+             f"{int(today.done.sum())} solved, verdict {verdicts[0]}; B7's {new.steps}, "
+             f"{int(new.done.sum())}, {verdicts[1]}; B7 f64 launches per rank {launched}")
+    word = "true" if verdicts[1] else "false"
+    say(f"[mesh twin] inter config 7 -b 1024 -s 0.01 -n {budget} {' '.join(TWIN_C7_ARGV)} (the "
+        f"CLI's mesh solve in phase 20's world): today's route and B7's both print 'Steps run: "
+        f"{new.steps} | trajectories solved: {int(new.done.sum())}/{new.done.size}' and "
+        f"'Checking if solution vector satisfies formula: {word}', assignments bit-identical; "
+        f"B7 f64 launches per rank {launched}, none on today's route ({card})")
+    import torch
+
+    per_call = [{k: [r[k] for r in call] for k in call[0]} for call in reports[9:]]
+    b7_err = report_b7_checks(2, checks, values[9:], per_call, card, torch.float64)
+    shape7 = (1024, fa_twin.n_vars_padded + 1)
+    nbytes = math.prod(shape7) * 8
+    bound_ms = 3 * nbytes / HBM_BYTES_PER_S * 1e3
+    say(f"[B7 f64 timing] config 7 (B, Np+1) = {shape7} f64 ({nbytes} B) at S=2, two "
+        f"ranks sharing the card: B7 {b7_ms:.6f} ms a call (host clock around 20 calls ending "
+        f"in a sync on every rank), its plain version {b7_plain:.6f}, gloo's all-reduce "
+        f"{lib:.6f}, bound {bound_ms:.6f} (3 x the buffer's bytes over 3.35 TB/s) ({card})")
+    return {"ms": b7_ms, "plain_ms": b7_plain, "library_ms": lib, "bound_ms": bound_ms,
+            "err": b7_err, "launches": sum(launched)}
+
+
 SCAN_STRATEGIES = ("pallas", "gather", "segment_sum")
 SCAN_MODES = ("fixed", "adaptive", "shared")
 STATE_FIELDS = ("v", "xs", "xl", "dt", "done")
@@ -4482,6 +5025,8 @@ def main():
         return time_segment(sys.argv[2], *sys.argv[3:4])
     if sys.argv[1:2] == ["--scan-peak"]:
         return scan_peak()
+    if sys.argv[1:2] == ["--twin"]:
+        return twin_alone()
     if sys.argv[1:2] == ["--time-mesh-loop"]:
         return time_mesh_loop(tuple(sys.argv[2:3]) or ("host", "device"))
     import torch
@@ -4567,14 +5112,21 @@ def main():
     b8_worst = phase_stoch_shard_compare(torch, sc, shard_cases)
     b9_worst = phase_stoch_shard_chunk_compare(torch, sc, shard_cases)
     clock("phases 18-19 (B5, B6, B8, B9 against their plain versions)")
+    b7_tree64_err = b7_tree_f64_check(torch, card)
     loop_calls, (loop_cases, loop_labels) = mesh_loop_calls(hard, uf250, big[0][1], n1k)
-    mesh_launches, b7, loop_out = phase_mesh_main(torch, fa7, fa7_2, c7, specs[6][1], card,
-                                                  loop_calls)
-    mesh_loop = phase_mesh_loop(loop_cases, loop_labels, *loop_out, card)
+    fa_twin = twin_config7(c7)
+    t_calls, t_argv, t_checks = twin_calls(fa_twin, uf250, config7_path(c7))
+    mesh_launches, b7, (loop_values, loop_reports) = phase_mesh_main(
+        torch, fa7, fa7_2, c7, specs[6][1], card, [*loop_calls, *t_calls])
+    n_loop = len(loop_calls)
+    mesh_loop = phase_mesh_loop(loop_cases, loop_labels, loop_values[:n_loop],
+                                loop_reports[:n_loop], card)
+    twin = phase_twin(loop_values[n_loop:], loop_reports[n_loop:], t_argv, t_checks, fa_twin,
+                      card)
     for name, n in phase_mesh_s4(torch, fa7, c7, b7, card).items():
         mesh_launches[name] += n
     phase_nccl_world_of_one(torch, fa7)
-    clock("phase 20 (the meshes)")
+    clock("phases 20, 28 and 29 (the meshes)")
     shard_times = phase_shard_timing(torch, ss, sch, sc, fa7, b7, card)
     clock("phases 18-21 (the clause mesh)")
     hybrid_launches, _ = phase_hybrid_main(fc, sc, stc, card)
@@ -4652,6 +5204,13 @@ def main():
         row("butterfly", "csrc/butterfly.cu", "odesat_tpu/ops/butterfly.py:99",
             mesh_launches["butterfly"], b7_err, b7_ms, b7_plain, (b7_bound, b7_by),
             library_ms=b7_library),
+        # B7's float64 form (the twin's clause step in float64, phase 29):
+        # its standalone call at S=2 on config 7's (B, Np+1) f64 buffer, its
+        # library call gloo's all-reduce of it; launches: both ranks' in
+        # 29's inter run on B7's route
+        row("butterfly_f64", "csrc/butterfly.cu", "odesat_tpu/ops/butterfly.py:99",
+            twin["launches"], max(twin["err"], b7["S=4 f64"], b7_tree64_err), twin["ms"],
+            twin["plain_ms"], (twin["bound_ms"], "bytes"), library_ms=twin["library_ms"]),
         # B7 fused into B6's and B9's prologues (csrc/bfly_tree.cuh): B6's
         # apply launch reading two ranks' partials; launches: the B6 and B9
         # launches of the mesh runs that read S > 1 slots

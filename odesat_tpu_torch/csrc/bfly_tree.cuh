@@ -34,10 +34,18 @@ __device__ __forceinline__ float combine(float a, float b, bool mx) {
   return a < b ? b : a;
 }
 
-// The tree over the S values of one word, in place in v. S > 0: the group
-// size at compile time; S = 0: `s` at run time.
-template <int S>
-__device__ __forceinline__ float tree(float* v, int s, bool mx) {
+// The float64 form (the standalone call only; the fused readers below take
+// float32): the same rules, the canonical quiet NaN 0x7ff8000000000000.
+__device__ __forceinline__ double combine(double a, double b, bool mx) {
+  if (!mx) return a + b;
+  if (a != a || b != b) return __longlong_as_double(0x7ff8000000000000LL);
+  return a < b ? b : a;
+}
+
+// The tree over the S values of one word, in place in v (float or double).
+// S > 0: the group size at compile time; S = 0: `s` at run time.
+template <int S, typename T>
+__device__ __forceinline__ T tree(T* v, int s, bool mx) {
   constexpr int kSlots = S > 0 ? S : kMaxRanks;
   const int n = S > 0 ? S : s;
 #pragma unroll

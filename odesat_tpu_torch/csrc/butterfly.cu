@@ -29,10 +29,15 @@
 // (0x7fffffff), whatever its payload was. Built with --fmad=false like
 // every kernel of the package (there is nothing to contract here).
 //
+// The standalone call has a float32 form (bfly_reduce, bfly_tree) and a
+// float64 form (bfly_reduce_f64, bfly_tree_f64: the torch twin's clause
+// step in float64, models/ode.py), one template of the same tree and the
+// same rules; the fused readers of B6 and B9 take float32 only.
+//
 // What bounds the standalone kernel on the card: device-memory bytes, S
-// partials read and one result written a call, (S + 1) * 4 * n bytes. The
-// pass is a grid-stride loop with 16-byte loads where every pointer and the
-// length allow, and a scalar tail.
+// partials read and one result written a call, (S + 1) * itemsize * n
+// bytes. The pass is a grid-stride loop with 16-byte loads (4 floats or 2
+// doubles) where every pointer and the length allow, and a scalar tail.
 #include <cuda.h>
 #include <cuda_runtime.h>
 
@@ -75,7 +80,24 @@ bool resolve(const char* name, F* fn) {
   return true;
 }
 
-using bfly::Parts;
+// The S slots of one standalone call, rank order, of float (the f32 form)
+// or double (the f64 form).
+template <typename T>
+struct Slots {
+  const T* p[kMaxRanks];
+};
+
+// A 16-byte load of each element type.
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using type = float4;
+};
+template <>
+struct Vec16<double> {
+  using type = double2;
+};
 
 __device__ __forceinline__ bool in_max(long long e, long long period, long long n_max) {
   return n_max > 0 && e % period >= period - n_max;
@@ -83,37 +105,40 @@ __device__ __forceinline__ bool in_max(long long e, long long period, long long 
 
 // S > 0: the group size at compile time (2 and 4, the meshes the smoke
 // runs); S = 0: any other group, `s` ranks at run time.
-template <int S, bool VEC>
+template <typename T, int S, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-    bfly_kernel(Parts parts, int s, float* __restrict__ out, long long n, long long period,
+    bfly_kernel(Slots<T> parts, int s, T* __restrict__ out, long long n, long long period,
                 long long n_max) {
+  using V = typename Vec16<T>::type;
+  constexpr int kW = sizeof(V) / sizeof(T);  // words a 16-byte load
   constexpr int kSlots = S > 0 ? S : kMaxRanks;
   const int n_ranks = S > 0 ? S : s;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   long long done = 0;
   if constexpr (VEC) {
-    const long long quads = n / 4;
-    for (long long q = first; q < quads; q += stride) {
-      float4 in[kSlots];
+    const long long vecs = n / kW;
+    for (long long q = first; q < vecs; q += stride) {
+      V in[kSlots];
 #pragma unroll
       for (int k = 0; k < kSlots; ++k)
-        if (k < n_ranks) in[k] = __ldg(reinterpret_cast<const float4*>(parts.p[k]) + q);
-      float res[4];
+        if (k < n_ranks) in[k] = __ldg(reinterpret_cast<const V*>(parts.p[k]) + q);
+      V res;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float v[kSlots];
+      for (int c = 0; c < kW; ++c) {
+        T v[kSlots];
 #pragma unroll
         for (int k = 0; k < kSlots; ++k)
-          if (k < n_ranks) v[k] = c == 0 ? in[k].x : c == 1 ? in[k].y : c == 2 ? in[k].z : in[k].w;
-        res[c] = bfly::tree<S>(v, n_ranks, in_max(4 * q + c, period, n_max));
+          if (k < n_ranks) v[k] = reinterpret_cast<const T*>(&in[k])[c];
+        reinterpret_cast<T*>(&res)[c] =
+            bfly::tree<S>(v, n_ranks, in_max(kW * q + c, period, n_max));
       }
-      reinterpret_cast<float4*>(out)[q] = make_float4(res[0], res[1], res[2], res[3]);
+      reinterpret_cast<V*>(out)[q] = res;
     }
-    done = quads * 4;
+    done = vecs * kW;
   }
   for (long long e = done + first; e < n; e += stride) {
-    float v[kSlots];
+    T v[kSlots];
 #pragma unroll
     for (int k = 0; k < kSlots; ++k)
       if (k < n_ranks) v[k] = __ldg(parts.p[k] + e);
@@ -121,13 +146,13 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int S>
-cudaError_t launch_tree(const Parts& parts, int s, float* out, long long n, long long period,
+template <typename T, int S>
+cudaError_t launch_tree(const Slots<T>& parts, int s, T* out, long long n, long long period,
                         long long n_max, bool vec, int blocks, cudaStream_t st) {
   if (vec)
-    bfly_kernel<S, true><<<blocks, kThreads, 0, st>>>(parts, s, out, n, period, n_max);
+    bfly_kernel<T, S, true><<<blocks, kThreads, 0, st>>>(parts, s, out, n, period, n_max);
   else
-    bfly_kernel<S, false><<<blocks, kThreads, 0, st>>>(parts, s, out, n, period, n_max);
+    bfly_kernel<T, S, false><<<blocks, kThreads, 0, st>>>(parts, s, out, n, period, n_max);
   return cudaGetLastError();
 }
 
@@ -253,23 +278,24 @@ int bfly_wait(unsigned int* const* flags, int s, int rank, unsigned int value, v
   return r == CUDA_SUCCESS ? 0 : -static_cast<int>(r);
 }
 
-// The tree over the s partials parts[0..s) (rank order) into `out`, n
-// words, the last n_max of every `period` max-combined (n_max = 0: all
-// sum), with no flag: the kernel alone, on any s device buffers (a call's
-// slots, or buffers of this process). Returns 0 or an error code.
-int bfly_tree(const float* const* parts, int s, float* out, long long n, long long period,
+}  // extern "C"
+
+namespace {
+
+template <typename T>
+int tree_call(const T* const* parts, int s, T* out, long long n, long long period,
               long long n_max, int sms, void* stream) {
   if (s < 1 || s > kMaxRanks || n < 0 || period < 1 || n_max < 0 || n_max > period)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  Parts p{};
-  p.s = s;
+  Slots<T> p{};
   bool vec = aligned16(out);
   for (int k = 0; k < s; ++k) {
     p.p[k] = parts[k];
     vec = vec && aligned16(parts[k]);
   }
-  const long long items = vec ? n / 4 : n;
+  constexpr long long kW = 16 / sizeof(T);
+  const long long items = vec ? n / kW : n;
   long long blocks = (items + kThreads - 1) / kThreads;
   const long long most = static_cast<long long>(sms > 0 ? sms : 132) * 8;
   if (blocks > most) blocks = most;
@@ -277,25 +303,59 @@ int bfly_tree(const float* const* parts, int s, float* out, long long n, long lo
   const int b = static_cast<int>(blocks);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (s) {
-    case 2: return static_cast<int>(launch_tree<2>(p, s, out, n, period, n_max, vec, b, st));
-    case 4: return static_cast<int>(launch_tree<4>(p, s, out, n, period, n_max, vec, b, st));
-    default: return static_cast<int>(launch_tree<0>(p, s, out, n, period, n_max, vec, b, st));
+    case 2: return static_cast<int>(launch_tree<T, 2>(p, s, out, n, period, n_max, vec, b, st));
+    case 4: return static_cast<int>(launch_tree<T, 4>(p, s, out, n, period, n_max, vec, b, st));
+    default: return static_cast<int>(launch_tree<T, 0>(p, s, out, n, period, n_max, vec, b, st));
   }
+}
+
+template <typename T>
+int reduce_call(const T* const* parts, unsigned int* const* flags, int s, int rank,
+                unsigned int count, T* out, long long n, long long period, long long n_max,
+                int sms, void* stream) {
+  if (s < 2 || s > kMaxRanks || rank < 0 || rank >= s)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int rc = bfly_signal(flags[rank], count + 1u, stream);
+  if (rc == 0) rc = bfly_wait(flags, s, rank, count + 1u, stream);
+  if (rc == 0) rc = tree_call(parts, s, out, n, period, n_max, sms, stream);
+  return rc;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The tree over the s partials parts[0..s) (rank order) into `out`, n
+// words, the last n_max of every `period` max-combined (n_max = 0: all
+// sum), with no flag: the kernel alone, on any s device buffers (a call's
+// slots, or buffers of this process). Returns 0 or an error code.
+// bfly_tree_f64 is the same on float64 words.
+int bfly_tree(const float* const* parts, int s, float* out, long long n, long long period,
+              long long n_max, int sms, void* stream) {
+  return tree_call(parts, s, out, n, period, n_max, sms, stream);
+}
+
+int bfly_tree_f64(const double* const* parts, int s, double* out, long long n, long long period,
+                  long long n_max, int sms, void* stream) {
+  return tree_call(parts, s, out, n, period, n_max, sms, stream);
 }
 
 // One standalone call of B7 on `stream`, once this rank's partial of call
 // `count` is in its slot: its flag (flags[rank], in its own allocation) :=
 // count + 1; a wait for every peer's flag >= count + 1; then the tree over
 // the slots parts[0..s) into `out` (bfly_tree). Returns 0 or an error code.
+// bfly_reduce_f64 is the same call on float64 slots; both forms share the
+// flags and the call numbers.
 int bfly_reduce(const float* const* parts, unsigned int* const* flags, int s, int rank,
                 unsigned int count, float* out, long long n, long long period, long long n_max,
                 int sms, void* stream) {
-  if (s < 2 || s > kMaxRanks || rank < 0 || rank >= s)
-    return static_cast<int>(cudaErrorInvalidValue);
-  int rc = bfly_signal(flags[rank], count + 1u, stream);
-  if (rc == 0) rc = bfly_wait(flags, s, rank, count + 1u, stream);
-  if (rc == 0) rc = bfly_tree(parts, s, out, n, period, n_max, sms, stream);
-  return rc;
+  return reduce_call(parts, flags, s, rank, count, out, n, period, n_max, sms, stream);
+}
+
+int bfly_reduce_f64(const double* const* parts, unsigned int* const* flags, int s, int rank,
+                    unsigned int count, double* out, long long n, long long period,
+                    long long n_max, int sms, void* stream) {
+  return reduce_call(parts, flags, s, rank, count, out, n, period, n_max, sms, stream);
 }
 
 const char* bfly_error_string(int code) {

@@ -186,26 +186,36 @@ class StepConstants(NamedTuple):
 
 
 def make_step_fn(fa: FormulaArrays, zeta: float, ode: ODEConfig, clause_group=None,
-                 traj_group=None, device=None):
+                 traj_group=None, device=None, clause_route: str = "b7",
+                 traj_route: str = "b7"):
     """Build ``step(state, dev) -> state`` for a batched ODEState, using
     the torch twin of the RHS on the state's device.
 
     ``clause_group`` (a ``torch.distributed`` group): the state holds one
     clause segment of a clause mesh and ``dev`` that segment's formula
-    tensors; the partial dv is all-reduced (SUM), allsat ANDed and the
-    adaptive error MAX-reduced over the group (JAX :246-274, :324-335).
-    ``traj_group``: the ranks whose rows share a batch-wide dt
-    (``dt_mode="shared"``); its error max reduces over them too.
+    tensors; the partial dv, with the negated sat flag in a last column, is
+    summed, and the adaptive error max-reduced, over the group (JAX
+    :246-274, :324-335): a call each of B7's standalone call, in place
+    (``parallel/dist.mesh_reduce``: its kernel on a card, its plain version
+    on the CPU), in the same order on every rank. ``traj_group``: the ranks
+    whose rows share a batch-wide dt (``dt_mode="shared"``); its
+    one-element error max reduces over them too, after the clause calls.
+    ``clause_route`` and ``traj_route`` ("b7", or "dist" for
+    ``torch.distributed``) are decided when the runner is built
+    (``parallel/sharded.twin_routes``): a trajectory group over hosts takes
+    "dist", whose CUDA IPC pages cannot cross a host.
 
     ``device``: where the step's constants (:class:`StepConstants`), B10's
     tables (``pallas``) and ``segment_sum``'s table (CUDA) are built, once. A
     step on a state there then creates no tensor from a Python number,
     reads nothing back to the host and branches on no tensor, which is what
     capturing it into a CUDA graph needs (``ops/scan_chunk.py``); a state on
-    another device has them built at its first step. A clause mesh's step
-    is not captured: its all-reduce runs through the host."""
+    another device has them built at its first step. A mesh's step on B7
+    keeps to that too (its calls wait for the peers in the stream), though
+    it is not captured: B7's call numbers are host state a capture would
+    freeze."""
     from odesat_tpu_torch.ops.fused_chunk import cuda_device
-    from odesat_tpu_torch.parallel.dist import all_reduce
+    from odesat_tpu_torch.parallel import dist as pdist
 
     xl_cap = XL_CAP_PER_CLAUSE * fa.n_clauses  # real clause count (src/system.rs:95)
     zeta = float(zeta)
@@ -277,8 +287,8 @@ def make_step_fn(fa: FormulaArrays, zeta: float, ode: ODEConfig, clause_group=No
                            else None),
         )
         if clause_group is not None:
-            buf = all_reduce(torch.cat([dv, (~allsat).to(dv.dtype).unsqueeze(-1)], dim=-1),
-                             clause_group)
+            buf = pdist.mesh_reduce(torch.cat([dv, (~allsat).to(dv.dtype).unsqueeze(-1)], dim=-1),
+                                    clause_group, "sum", clause_route)
             dv, allsat = buf[..., :-1], buf[..., -1] == 0
         return dv, dxs, dxl, allsat
 
@@ -328,14 +338,14 @@ def make_step_fn(fa: FormulaArrays, zeta: float, ode: ODEConfig, clause_group=No
             torch.maximum((fxs - txs).abs().amax(dim=-1), (fxl - txl).abs().amax(dim=-1)),
         )
         if clause_group is not None:
-            err = all_reduce(err, clause_group, op="max")
+            err = pdist.mesh_reduce(err, clause_group, "max", clause_route)
         if ode.dt_mode == "shared":
             # reference inter parity: one dt for the whole batch, adapted
             # from the batch-max error of the trajectories that advance
             # (src/system.rs:122-136,314)
             err = torch.where(advance, err, 0.0).amax().reshape(1)
             if traj_group is not None:
-                err = all_reduce(err, traj_group, op="max")
+                err = pdist.mesh_reduce(err, traj_group, "max", traj_route)
             err = err.expand(advance.shape)
         # err == 0 -> dt hits the ceiling, like the reference's dt*inf
         # clamped at 1e3 (src/system.rs:132-135)

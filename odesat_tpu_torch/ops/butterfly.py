@@ -19,7 +19,9 @@ outside any kernel) take the standalone call (:func:`butterfly`,
 ``csrc/butterfly.cu``).
 
 What every version computes (:func:`combine` defines it): each of the S
-ranks holds a float32 partial of the same shape; every rank gets the same
+ranks holds a partial of the same shape and dtype, float32 or float64
+(the standalone call's two forms; the fused readers take float32); every
+rank gets the same
 result, bit for bit: the partials in rank order combined as a pairwise
 tree, level by level, ``(a0 + a1)`` at S = 2, ``(a0 + a1) + (a2 + a3)`` at
 S = 4, an absent partner skipped at an S that is not a power of two
@@ -73,6 +75,11 @@ The design on the card (:class:`Communicator`, one a clause group):
     last: K = 2;
   - the standalone call reads its own slot after its raise, and its read is
     done before its next raise, as a read at distance 1 would be: K = 2.
+    Its float64 form (the torch twin's clause step in float64,
+    ``models/ode.make_step_fn``) is a standalone call like the others: the
+    same counter, the same ring, the same raise and wait; only its slot
+    holds doubles (the slots are sized in bytes). So the argument below
+    covers it unchanged, and so does the model check.
 
   Within a runner, no rank writes a slot that a peer may still read: launch
   j overwrites call j - K, whose readers are launches j - K .. j - 1; every
@@ -97,8 +104,9 @@ The design on the card (:class:`Communicator`, one a clause group):
   counter are safe on the one ring and not on their own K.
 
 A rank's calls must follow its peers' in kind and order (as the runners do
-on every rank); a buffer size a group has not seen yet is agreed over the
-group first, and a size that differs between ranks raises on every rank.
+on every rank); a buffer size and dtype a group has not seen yet is agreed
+over the group first, and a size or dtype that differs between ranks
+raises on every rank.
 The wrappers raise and never fall back: :func:`butterfly_cuda` and
 :func:`tree_cuda` take CUDA tensors only, :func:`butterfly_plain` (a gloo
 gather, :func:`gather_plain`, and the tree on the host) is the CPU path and
@@ -117,19 +125,23 @@ import torch.distributed as dist
 
 from odesat_tpu_torch.ops import _cuda
 
-# Standalone B7 launches (butterfly_cuda, tree_cuda) and B6 or B9 launches
-# that read S > 1 ranks' slots themselves (B7 fused into their prologues),
-# in this process. Plain integers that callers may reset; chip_smoke.py
-# reads them.
+# Standalone B7 launches (butterfly_cuda, tree_cuda) of the float32 form and
+# of the float64 form, and B6 or B9 launches that read S > 1 ranks' slots
+# themselves (B7 fused into their prologues), in this process. Plain
+# integers that callers may reset; chip_smoke.py reads them.
 launches = 0
+launches_f64 = 0
 fused_launches = 0
 
 MAX_RANKS = 64  # csrc/bfly_tree.cuh kMaxRanks
 SLOTS = 3  # partial slots a rank's buffer holds, the ring every launch takes: the largest K
 FLAG_BYTES = 256  # the flag page at the head of a rank's buffer
-_ALIGN = 64  # floats: slots start on 256-byte boundaries
+_ALIGN = 256  # bytes: slots start on 256-byte boundaries
 _HANDLE = 64  # CUDA_IPC_HANDLE_SIZE
 _BUS = 32
+
+# the standalone call's forms: the dtype and its entry points' suffix
+FORMS = {torch.float32: "", torch.float64: "_f64"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -148,11 +160,14 @@ def _declare(lib) -> None:
     lib.bfly_can_access_peer.argtypes = [_I, _I, ctypes.POINTER(_I)]
     lib.bfly_signal.argtypes = [_P, ctypes.c_uint, _P]
     lib.bfly_wait.argtypes = [_P, _I, _I, ctypes.c_uint, _P]
-    lib.bfly_tree.argtypes = [_P, _I, _P, _L, _L, _L, _I, _P]
-    lib.bfly_reduce.argtypes = [_P, _P, _I, _I, ctypes.c_uint, _P, _L, _L, _L, _I, _P]
+    for suffix in FORMS.values():
+        getattr(lib, "bfly_tree" + suffix).argtypes = [_P, _I, _P, _L, _L, _L, _I, _P]
+        getattr(lib, "bfly_reduce" + suffix).argtypes = [_P, _P, _I, _I, ctypes.c_uint, _P, _L,
+                                                         _L, _L, _I, _P]
     for name in ("bfly_init", "bfly_check_mem_ops", "bfly_alloc", "bfly_free", "bfly_open",
                  "bfly_close", "bfly_bus_id", "bfly_device_of", "bfly_can_access_peer",
-                 "bfly_signal", "bfly_wait", "bfly_tree", "bfly_reduce"):
+                 "bfly_signal", "bfly_wait", "bfly_tree", "bfly_reduce", "bfly_tree_f64",
+                 "bfly_reduce_f64"):
         getattr(lib, name).restype = _I
     lib.bfly_error_string.argtypes = [_I]
     lib.bfly_error_string.restype = ctypes.c_char_p
@@ -167,6 +182,21 @@ def load_library():
 def _raise_for(lib, rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"B7 {what} failed: {lib.bfly_error_string(rc).decode()}")
+
+
+def _count(dtype) -> None:
+    """Count one standalone launch of ``dtype``'s form."""
+    global launches, launches_f64
+    if dtype == torch.float64:
+        launches_f64 += 1
+    else:
+        launches += 1
+
+
+def check_dtype(dtype) -> None:
+    """Raise unless the standalone call has a form for ``dtype``."""
+    if dtype not in FORMS:
+        raise ValueError(f"B7 reduces float32 or float64 buffers, not {dtype}")
 
 
 def zone_args(zones, numel: int) -> tuple:
@@ -218,33 +248,33 @@ def _group_size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
-def _agree(group, what) -> None:
+def _agree(group, shape, dtype) -> None:
     """Raise on every rank unless every rank of ``group`` passes the same
-    ``what`` (a shape; one small collective)."""
+    ``shape`` (a shape or a size) and ``dtype`` (one small collective)."""
     seen = [None] * _group_size(group)
-    dist.all_gather_object(seen, what, group=group)
+    dist.all_gather_object(seen, (shape, str(dtype)), group=group)
     if any(s != seen[0] for s in seen):
-        raise ValueError(f"the ranks of the clause group pass buffers of shapes {seen}; B7 "
-                         "takes one shape on every rank")
+        raise ValueError(f"the ranks of the group pass buffers of shapes and dtypes {seen}; B7 "
+                         "takes one shape and one dtype on every rank")
 
 
-_GATHERED: set = set()  # (group, shape) pairs the ranks have agreed on
+_GATHERED: set = set()  # (group, shape, dtype) the ranks have agreed on
 
 
 def gather_plain(t: torch.Tensor, group) -> list:
     """Every rank's ``t`` (rank order), gathered over ``group``
     (``dist.all_gather``; through the host for CUDA tensors on gloo), as
-    flat float32 CPU tensors: the partials B7 combines. A collective: every
-    rank of the group calls it together. A shape that differs between ranks
-    raises on every rank."""
-    if t.dtype != torch.float32:
-        raise ValueError(f"B7 reduces float32 buffers, not {t.dtype}")
+    flat CPU tensors of its dtype (float32 or float64): the partials B7
+    combines. A collective: every rank of the group calls it together. A
+    shape or dtype that differs between ranks raises on every rank."""
+    check_dtype(t.dtype)
     flat = t.detach().reshape(-1)
     if _group_size(group) == 1:
         return [flat.cpu().clone()]
-    if (group, tuple(t.shape)) not in _GATHERED:  # agreed once a shape, as the slots are
-        _agree(group, tuple(t.shape))
-        _GATHERED.add((group, tuple(t.shape)))
+    key = (group, tuple(t.shape), t.dtype)
+    if key not in _GATHERED:  # agreed once a shape and dtype, as the slots are
+        _agree(group, tuple(t.shape), t.dtype)
+        _GATHERED.add(key)
     where = t.device if dist.get_backend(group) == "nccl" else torch.device("cpu")
     flat = flat.to(where).contiguous()
     parts = [torch.empty_like(flat) for _ in range(_group_size(group))]
@@ -273,10 +303,10 @@ def combine_parts(parts: list, zones=None) -> torch.Tensor:
 
 class _Raw:
     """A device pointer as torch takes one (``__cuda_array_interface__``):
-    float32 words, not owned."""
+    bytes, not owned."""
 
-    def __init__(self, ptr: int, numel: int):
-        self.__cuda_array_interface__ = {"shape": (numel,), "typestr": "<f4",
+    def __init__(self, ptr: int, nbytes: int):
+        self.__cuda_array_interface__ = {"shape": (nbytes,), "typestr": "|u1",
                                          "data": (ptr, False), "version": 2}
 
 
@@ -298,26 +328,26 @@ class Communicator:
         _raise_for(self.lib, self.lib.bfly_check_mem_ops(index),
                    "set-up (stream memory operations)")
         self.sms = torch.cuda.get_device_properties(index).multi_processor_count
-        self.cap = 0  # floats a slot
+        self.cap = 0  # bytes a slot
         self.count = 0  # launches since the buffers were mapped: the flag's value
         self.waited = 0  # the largest flag value this stream has waited for
-        self.agreed: set = set()  # buffer sizes the group has agreed on
+        self.agreed: set = set()  # (bytes, dtype) of the buffers the group has agreed on
         self.bases: list = []  # every rank's buffer in this process (rank order)
         self._views: dict = {}
 
     # -- set-up and teardown
 
-    def _map(self, numel: int) -> None:
+    def _map(self, nbytes: int) -> None:
         """Allocate, export, exchange and map the buffers for slots of at
-        least ``numel`` floats."""
+        least ``nbytes`` bytes."""
         self._unmap()
-        cap = -(-max(numel, 1) // _ALIGN) * _ALIGN
-        bases = share_pages(self.lib, self.group, self.index, FLAG_BYTES + SLOTS * 4 * cap,
+        cap = -(-max(nbytes, 1) // _ALIGN) * _ALIGN
+        bases = share_pages(self.lib, self.group, self.index, FLAG_BYTES + SLOTS * cap,
                             "B7", "a clause group must lie inside one process of a pod "
                             "(make_pod_mesh)")
-        slots = [[base + FLAG_BYTES + i * 4 * cap for base in bases] for i in range(SLOTS)]
-        # every rank's slot i as a float32 tensor of this process (the
-        # peers' through their mappings), rank order
+        slots = [[base + FLAG_BYTES + i * cap for base in bases] for i in range(SLOTS)]
+        # every rank's slot i as a byte tensor of this process (the peers'
+        # through their mappings), rank order; parts() views it as a dtype
         self.slot_views = [[torch.as_tensor(_Raw(ptr, cap), device=self.device)
                             for ptr in row] for row in slots]
         self.bases, self.cap, self.count, self.waited = bases, cap, 0, 0
@@ -344,16 +374,18 @@ class Communicator:
 
     # -- the launch schedule
 
-    def begin(self, shape) -> None:
-        """Set up for launches whose partials have ``shape``. A collective
-        the first time the group sees the size (the ranks agree on it; a
-        growth remaps every rank's buffer)."""
+    def begin(self, shape, dtype=torch.float32) -> None:
+        """Set up for launches whose partials have ``shape`` and ``dtype``.
+        A collective the first time the group sees the size and dtype (the
+        ranks agree on them; a growth remaps every rank's buffer)."""
+        check_dtype(dtype)
         numel = math.prod(shape)
-        if numel not in self.agreed:
-            _agree(self.group, numel)
-            if numel > self.cap:
-                self._map(numel)
-            self.agreed.add(numel)
+        nbytes = numel * dtype.itemsize
+        if (nbytes, dtype) not in self.agreed:
+            _agree(self.group, numel, dtype)
+            if nbytes > self.cap:
+                self._map(nbytes)
+            self.agreed.add((nbytes, dtype))
 
     def _stream(self):
         return torch.cuda.current_stream(self.device).cuda_stream
@@ -379,25 +411,26 @@ class Communicator:
         _raise_for(self.lib, rc, "signal")
         self.count += 1
 
-    def parts(self, shape) -> list:
+    def parts(self, shape, dtype=torch.float32) -> list:
         """Every rank's slot of the current launch, rank order, as tensors
-        of ``shape``: what a later launch that consumes it reads (this
-        rank's own slot among them)."""
+        of ``shape`` and ``dtype``: what a later launch that consumes it
+        reads (this rank's own slot among them)."""
         i, shape = self.count % SLOTS, tuple(shape)
-        views = self._views.get((i, shape))
+        views = self._views.get((i, shape, dtype))
         if views is None:
-            numel = math.prod(shape)
-            if numel not in self.agreed:
-                raise ValueError("B7's slots of a size the group has not begun (begin(shape))")
-            views = self._views[(i, shape)] = [v[:numel].view(shape)
-                                               for v in self.slot_views[i]]
+            nbytes = math.prod(shape) * dtype.itemsize
+            if (nbytes, dtype) not in self.agreed:
+                raise ValueError("B7's slots of a size or dtype the group has not begun "
+                                 "(begin(shape, dtype))")
+            views = self._views[(i, shape, dtype)] = [v[:nbytes].view(dtype).view(shape)
+                                                      for v in self.slot_views[i]]
         return views
 
-    def slot(self, shape) -> torch.Tensor:
-        """This rank's slot of the current launch, as a contiguous float32
-        tensor of ``shape``: the launch writes its partial there (after
+    def slot(self, shape, dtype=torch.float32) -> torch.Tensor:
+        """This rank's slot of the current launch, as a contiguous tensor of
+        ``shape`` and ``dtype``: the launch writes its partial there (after
         :meth:`wait`)."""
-        return self.parts(shape)[self.rank]
+        return self.parts(shape, dtype)[self.rank]
 
     # -- the standalone call
 
@@ -407,28 +440,30 @@ class Communicator:
         ``part``, this rank's slot of the call (:meth:`slot`), holds the
         partial: the flag raised, the peers' awaited, then the kernel over
         the S slots into ``out`` (allocated when None), which is
-        returned."""
-        global launches
-        i = self.count % SLOTS
-        if part.data_ptr() != self.own_slots[i] or part.numel() not in self.agreed:
-            raise ValueError("B7 reduces the communicator's slot of this call (slot(shape))")
+        returned. ``part``'s dtype picks the form: float32 or float64."""
+        i, dtype = self.count % SLOTS, part.dtype
+        if (part.data_ptr() != self.own_slots[i]
+                or (part.numel() * dtype.itemsize, dtype) not in self.agreed):
+            raise ValueError("B7 reduces the communicator's slot of this call "
+                             "(slot(shape, dtype))")
         period, n_max = zone_args(zones, part.numel())
         if out is None:
-            out = torch.empty(part.shape, dtype=torch.float32, device=self.device)
-        if (out.device != self.device or out.dtype != torch.float32 or not out.is_contiguous()
+            out = torch.empty(part.shape, dtype=dtype, device=self.device)
+        if (out.device != self.device or out.dtype != dtype or not out.is_contiguous()
                 or out.shape != part.shape):
             raise ValueError(f"out is {tuple(out.shape)} {out.dtype} on {out.device}; B7 writes "
-                             f"a contiguous {tuple(part.shape)} float32 on {self.device}")
+                             f"a contiguous {tuple(part.shape)} {dtype} on {self.device}")
         if {out.data_ptr()} & set(self.own_slots):
             raise ValueError("B7 writes its result into a buffer of its own, not a slot")
+        call = getattr(self.lib, "bfly_reduce" + FORMS[dtype])
         with torch.cuda.device(self.index):
-            rc = self.lib.bfly_reduce(self.slot_ptrs[i], self.flags, self.size, self.rank,
-                                      self.count & 0xFFFFFFFF, out.data_ptr(), part.numel(),
-                                      period, n_max, self.sms, self._stream())
+            rc = call(self.slot_ptrs[i], self.flags, self.size, self.rank,
+                      self.count & 0xFFFFFFFF, out.data_ptr(), part.numel(), period, n_max,
+                      self.sms, self._stream())
         _raise_for(self.lib, rc, "call")
         self.count += 1
         self.waited = self.count
-        launches += 1
+        _count(dtype)
         return out
 
 
@@ -525,51 +560,54 @@ def close_all() -> None:
         comm.close()
 
 
-def pointers(parts: list, shape, device) -> "ctypes.Array":
+def pointers(parts: list, shape, device, dtype=torch.float32) -> "ctypes.Array":
     """The device pointers of the S partials ``parts`` (rank order) as a C
-    array, each checked: a contiguous float32 CUDA tensor of ``shape`` on
-    ``device``. What a kernel that reads S slots itself takes."""
+    array, each checked: a contiguous CUDA tensor of ``shape`` and ``dtype``
+    (float32 for the fused readers) on ``device``. What a kernel that reads
+    S slots itself takes."""
     if not 1 <= len(parts) <= MAX_RANKS:
         raise ValueError(f"1 to {MAX_RANKS} partials, not {len(parts)}")
     for p in parts:
-        if (p.device != device or p.dtype != torch.float32 or not p.is_contiguous()
+        if (p.device != device or p.dtype != dtype or not p.is_contiguous()
                 or tuple(p.shape) != tuple(shape)):
             raise ValueError(f"a partial is {tuple(p.shape)} {p.dtype} on {p.device}; the kernel "
-                             f"reads contiguous {tuple(shape)} float32 on {device}")
+                             f"reads contiguous {tuple(shape)} {dtype} on {device}")
     return (_P * len(parts))(*(p.data_ptr() for p in parts))
 
 
 def tree_cuda(parts: list, zones=None, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """B7's kernel alone on the current stream, with no flag and no group:
-    the S partials ``parts`` (contiguous float32 CUDA tensors of one shape,
-    rank order, any S from 1 to 64) combined in the tree order into ``out``
-    (allocated when None), which is returned. What a call costs on the card
-    without its waits; the card tests and chip_smoke.py hold it against
-    :func:`combine_parts`."""
-    global launches
+    the S partials ``parts`` (contiguous CUDA tensors of one shape and
+    dtype, float32 or float64, rank order, any S from 1 to 64) combined in
+    the tree order into ``out`` (allocated when None), which is returned.
+    What a call costs on the card without its waits; the card tests and
+    chip_smoke.py hold it against :func:`combine_parts`."""
     first = parts[0]
     if first.device.type != "cuda":
         raise ValueError(f"B7's kernel runs on CUDA tensors, not {first.device}")
-    ptrs = pointers(parts, first.shape, first.device)
+    check_dtype(first.dtype)
+    ptrs = pointers(parts, first.shape, first.device, first.dtype)
     period, n_max = zone_args(zones, first.numel())
     if out is None:
         out = torch.empty_like(first)
-    pointers([out], first.shape, first.device)
+    pointers([out], first.shape, first.device, first.dtype)
     lib, _ = load_library()
     index = first.device.index if first.device.index is not None else torch.cuda.current_device()
+    call = getattr(lib, "bfly_tree" + FORMS[first.dtype])
     with torch.cuda.device(index):
-        rc = lib.bfly_tree(ptrs, len(parts), out.data_ptr(), first.numel(), period, n_max,
-                           torch.cuda.get_device_properties(index).multi_processor_count,
-                           torch.cuda.current_stream(first.device).cuda_stream)
+        rc = call(ptrs, len(parts), out.data_ptr(), first.numel(), period, n_max,
+                  torch.cuda.get_device_properties(index).multi_processor_count,
+                  torch.cuda.current_stream(first.device).cuda_stream)
     _raise_for(lib, rc, "kernel")
-    launches += 1
+    _count(first.dtype)
     return out
 
 
 def butterfly_cuda(t: torch.Tensor, group, zones=None,
                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The standalone B7 call over ``group`` on the current stream: ``t``,
-    a contiguous float32 CUDA tensor of the same shape on every rank, copied
+    a contiguous float32 or float64 CUDA tensor of the same shape and dtype
+    on every rank, copied
     into this rank's slot of the call (after the wait for the peers' earlier
     launches) and combined in the tree order into ``out`` (allocated when
     None), which is returned on every rank. ``out`` may be ``t``. A
@@ -577,17 +615,17 @@ def butterfly_cuda(t: torch.Tensor, group, zones=None,
     for anything the kernel does not take; never falls back."""
     if t.device.type != "cuda":
         raise ValueError(f"B7's kernel runs on CUDA tensors, not {t.device}")
-    if t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(f"B7 reduces a contiguous float32 buffer, not {t.dtype} "
-                         f"(contiguous: {t.is_contiguous()})")
+    check_dtype(t.dtype)
+    if not t.is_contiguous():
+        raise ValueError("B7 reduces a contiguous buffer")
     if group is None:
         raise ValueError("B7 needs the clause group")
     if _group_size(group) == 1:
         return t if out is None else out.copy_(t)
     comm = communicator(group, t.device)
-    comm.begin(t.shape)
+    comm.begin(t.shape, t.dtype)
     comm.wait()
-    slot = comm.slot(t.shape)
+    slot = comm.slot(t.shape, t.dtype)
     if slot.data_ptr() != t.data_ptr():
         slot.copy_(t)
     return comm.reduce(slot, zones, out)

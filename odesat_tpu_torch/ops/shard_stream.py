@@ -578,7 +578,7 @@ def make_fused_clause_step(fa: FormulaArrays, zeta: float, ode, clause_group=Non
     ``step`` itself tiles, steps and untiles, and writes nothing of the
     caller's state. :func:`make_clause_chunk` tiles once a chunk."""
     from odesat_tpu_torch.models.ode import ODEState
-    from odesat_tpu_torch.ops import butterfly as bf
+    from odesat_tpu_torch.parallel.dist import mesh_reduce
 
     plan = fa.shard_plan
     if plan is None:
@@ -612,7 +612,7 @@ def make_fused_clause_step(fa: FormulaArrays, zeta: float, ode, clause_group=Non
         """``t`` combined over the clause group in place (B7): summed, or
         (``op`` "max") the whole buffer a max zone."""
         if clause_group is not None:
-            bf.butterfly(t, clause_group, None if op == "sum" else (t.numel(), t.numel()), t)
+            mesh_reduce(t, clause_group, op)
 
     def clamp_v(x):  # _clamp's operations
         return torch.fmin(torch.fmax(x, c["lo"]), c["hi"])

@@ -14,6 +14,12 @@
 * :class:`MeshSync` makes the host loop's decisions global: the done flags
   every rank reads, the stop flag, and the elapsed time (all-reduced MAX),
   so every rank builds the same chunks and stops after the same one.
+* :func:`mesh_reduce`: the torch twin's reductions inside a step
+  (``models/ode.make_step_fn``): B7's standalone call (``ops/butterfly.py``:
+  its kernel for CUDA tensors, its plain version for CPU ones) on a route
+  "b7", ``torch.distributed`` on "dist", which a trajectory group over
+  hosts takes (``parallel/sharded.twin_routes``) and the timings hold B7
+  against.
 * B7's checks and timings over a clause group (``ops/butterfly.py``, its
   standalone call): :func:`all_reduce_error` (the kernel against its plain
   version, bit for bit), :func:`butterfly_of`, :func:`time_butterfly`,
@@ -21,8 +27,9 @@
   :func:`time_all_reduce`, the ``torch.distributed`` all-reduce B7
   replaced, kept as its yardstick.
 
-These host decisions stay on ``torch.distributed``; in JAX they are XLA
-collectives outside any Pallas kernel.
+The host's decisions stay on ``torch.distributed``; in JAX they are XLA
+collectives outside any Pallas kernel. A twin step on a card within one
+host makes no ``torch.distributed`` call: its sums and maxima run on B7.
 """
 
 from __future__ import annotations
@@ -49,6 +56,18 @@ def all_reduce(t: torch.Tensor, group=None, op: str = "sum") -> torch.Tensor:
     """``t`` all-reduced in place over ``group`` (SUM or MAX); returns it."""
     dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM, group=group)
     return t
+
+
+def mesh_reduce(t: torch.Tensor, group, op: str = "sum", route: str = "b7") -> torch.Tensor:
+    """``t`` reduced in place over ``group`` (SUM or MAX) and returned:
+    through B7's standalone call on route "b7" (a max as the whole buffer
+    one max zone, NaN propagating as in ``torch.maximum``), through
+    :func:`all_reduce` on "dist"."""
+    if route == "dist":
+        return all_reduce(t, group, op)
+    from odesat_tpu_torch.ops import butterfly as bf
+
+    return bf.butterfly(t, group, None if op == "sum" else (t.numel(), t.numel()), t)
 
 
 def row_block(n_local: int, mesh) -> slice:
@@ -122,16 +141,16 @@ class MeshSync:
                                 op="max").item())
 
 
-def time_all_reduce(mesh, device, shape, iters: int = 10) -> float:
-    """Milliseconds per ``torch.distributed`` all-reduce (SUM) of a float32
-    tensor of ``shape`` on this rank's device over its clause group: host
-    clock around ``iters`` calls ending in a device sync, after one warm-up
+def time_all_reduce(mesh, device, shape, iters: int = 10, dtype=torch.float32) -> float:
+    """Milliseconds per ``torch.distributed`` all-reduce (SUM) of a
+    ``dtype`` tensor of ``shape`` on this rank's device over its clause
+    group: host clock around ``iters`` calls ending in a device sync, after one warm-up
     call; B7's ``library_ms``, the call it replaced. Rank 0's number comes
     back through ``parallel/launch.spawn``. With gloo and CUDA tensors each
     call is staged through the host."""
     import time
 
-    t = torch.ones(shape, dtype=torch.float32, device=device)
+    t = torch.ones(shape, dtype=dtype, device=device)
     all_reduce(t, mesh.clause_group)
 
     def sync():
@@ -146,48 +165,60 @@ def time_all_reduce(mesh, device, shape, iters: int = 10) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def butterfly_of(mesh, device, parts, zones=None) -> tuple:
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+
+def butterfly_of(mesh, device, parts, zones=None, dtype=np.float32) -> tuple:
     """B7 (:func:`~odesat_tpu_torch.ops.butterfly.butterfly`: the kernel on
     a card, the plain version on the CPU) over this rank's clause group of
-    ``parts[k]`` on clause rank k (float32 NumPy arrays, one a rank; shapes
-    that differ make every rank raise). Returns ``(result, replicated)``:
-    this rank's result as NumPy and whether every rank of the group got its
-    bits."""
+    ``parts[k]`` on clause rank k (NumPy arrays cast to ``dtype``, float32
+    or float64, one a rank; shapes or dtypes that differ make every rank
+    raise). Returns ``(result, replicated)``: this rank's result as NumPy
+    and whether every rank of the group got its bits."""
     from odesat_tpu_torch.ops import butterfly as bf
 
     group = mesh.clause_group
-    mine = torch.as_tensor(np.ascontiguousarray(parts[dist.get_rank(group)], np.float32))
+    mine = torch.as_tensor(np.ascontiguousarray(parts[dist.get_rank(group)], dtype))
     out = bf.butterfly(mine.to(device), group, zones).cpu()
     seen = [torch.empty_like(out) for _ in range(dist.get_world_size(group))]
     dist.all_gather(seen, out, group=group)
-    same = all(torch.equal(s.view(torch.int32), out.view(torch.int32)) for s in seen)
+    same = all(torch.equal(_bits(s), _bits(out)) for s in seen)
     return out.numpy(), same
 
 
-def butterfly_inputs(shape, S: int, calls: int, seed: int, device) -> torch.Tensor:
-    """(calls, S, *shape) float32 partials for B7's checks, the same on
-    every rank (drawn there from ``seed``): magnitudes from 1e-3 to 1e8 and
-    both signs, so that rank order and tree order round differently, with
-    signed zeros and a few NaN."""
+def butterfly_inputs(shape, S: int, calls: int, seed: int, device,
+                     dtype=torch.float32) -> torch.Tensor:
+    """(calls, S, *shape) partials of ``dtype`` for B7's checks, the same
+    on every rank (drawn there from ``seed``): magnitudes from 1e-3 to 1e8
+    and both signs, so that rank order and tree order round differently,
+    with signed zeros and a few NaN. float64: magnitudes to 1e17, and
+    infinities of both signs besides (the unit clauses' gradients)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     n = int(np.prod(shape))
-    x = torch.rand((calls, S, n), generator=gen, device=device) - 0.5
-    scale = torch.randint(-3, 9, (calls, S, n), generator=gen, device=device).float()
+    wide = dtype == torch.float64
+    x = torch.rand((calls, S, n), generator=gen, device=device, dtype=dtype) - 0.5
+    scale = torch.randint(-3, 18 if wide else 9, (calls, S, n), generator=gen,
+                          device=device).to(dtype)
     x = x * torch.pow(10.0, scale)
     pick = torch.randint(0, 1000, (calls, S, n), generator=gen, device=device)
     x = torch.where(pick == 0, torch.full_like(x, float("nan")), x)
     x = torch.where(pick == 1, torch.zeros_like(x), x)
     x = torch.where(pick == 2, torch.full_like(x, -0.0), x)
+    if wide:
+        x = torch.where(pick == 3, torch.full_like(x, float("inf")), x)
+        x = torch.where(pick == 4, torch.full_like(x, -float("inf")), x)
     return x.reshape(calls, S, *shape)
 
 
 def bit_error(a: torch.Tensor, b: torch.Tensor) -> float:
-    """0 where ``a`` and ``b`` hold the same bits, else their abs
-    difference (inf where one is NaN): the max over the buffer. A NaN equals
-    any NaN: IEEE leaves the payload of an arithmetic NaN to the hardware
-    (the card gives 0x7fffffff, the CPU keeps an operand's)."""
+    """0 where ``a`` and ``b`` (float32 or float64) hold the same bits,
+    else their abs difference (inf where one is NaN): the max over the
+    buffer. A NaN equals any NaN: IEEE leaves the payload of an arithmetic
+    NaN to the hardware (the card gives 0x7fffffff, the CPU keeps an
+    operand's)."""
     a, b = a.reshape(-1), b.reshape(-1)
-    same = (a.view(torch.int32) == b.view(torch.int32)) | (torch.isnan(a) & torch.isnan(b))
+    same = (_bits(a) == _bits(b)) | (torch.isnan(a) & torch.isnan(b))
     if bool(same.all()):
         return 0.0
     diff = (a - b).abs()
@@ -195,10 +226,11 @@ def bit_error(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.where(same, torch.zeros_like(diff), diff).max())
 
 
-def all_reduce_error(mesh, device, shape, seed: int = 0, zones=None, calls: int = 1) -> float:
+def all_reduce_error(mesh, device, shape, seed: int = 0, zones=None, calls: int = 1,
+                     dtype=torch.float32) -> float:
     """B7 against its plain version over this rank's clause group: ``calls``
     back-to-back calls of :func:`~odesat_tpu_torch.ops.butterfly.butterfly`
-    (the kernel on a card), each on fresh partials of ``shape``
+    (the kernel on a card), each on fresh ``dtype`` partials of ``shape``
     (:func:`butterfly_inputs`), with no host sync between them; then every
     call's result against the plain version's tree (``butterfly.combine``)
     of every rank's partial, and the first call's against
@@ -209,8 +241,8 @@ def all_reduce_error(mesh, device, shape, seed: int = 0, zones=None, calls: int 
 
     group = mesh.clause_group
     S, rank = dist.get_world_size(group), dist.get_rank(group)
-    data = butterfly_inputs(shape, S, calls, seed, device)
-    outs = torch.empty((calls, *shape), dtype=torch.float32, device=device)
+    data = butterfly_inputs(shape, S, calls, seed, device, dtype)
+    outs = torch.empty((calls, *shape), dtype=dtype, device=device)
     for c in range(calls):
         bf.butterfly(data[c, rank].contiguous(), group, zones, out=outs[c])
     worst = bit_error(bf.butterfly_plain(data[0, rank].contiguous(), group, zones), outs[0])
@@ -221,9 +253,10 @@ def all_reduce_error(mesh, device, shape, seed: int = 0, zones=None, calls: int 
                             "max").item())
 
 
-def time_butterfly(mesh, device, shape, iters: int = 20, plain_iters: int = 2) -> tuple:
+def time_butterfly(mesh, device, shape, iters: int = 20, plain_iters: int = 2,
+                   dtype=torch.float32) -> tuple:
     """``(ms, plain_ms)`` a B7 call over this rank's clause group at a
-    float32 ``shape``: the kernel's call (the flag write, the waits and the
+    ``dtype`` ``shape``: the kernel's call (the flag write, the waits and the
     pass, on the slot as a chunk runner leaves it) and the plain version's,
     each on the host clock around its calls ending in a device sync and a
     barrier on every rank, after one warm-up call. Rank 0's numbers come
@@ -234,7 +267,7 @@ def time_butterfly(mesh, device, shape, iters: int = 20, plain_iters: int = 2) -
 
     group = mesh.clause_group
     comm = bf.communicator(group, device)
-    out = torch.empty(shape, dtype=torch.float32, device=device)
+    out = torch.empty(shape, dtype=dtype, device=device)
 
     def timed(call, n):
         call()
@@ -247,9 +280,9 @@ def time_butterfly(mesh, device, shape, iters: int = 20, plain_iters: int = 2) -
         dist.barrier(group=group)
         return (time.perf_counter() - t0) / n * 1e3
 
-    comm.begin(shape)
-    ms = timed(lambda: comm.reduce(comm.slot(shape), None, out), iters)
-    buf = torch.ones(shape, dtype=torch.float32, device=device)
+    comm.begin(shape, dtype)
+    ms = timed(lambda: comm.reduce(comm.slot(shape, dtype), None, out), iters)
+    buf = torch.ones(shape, dtype=dtype, device=device)
     plain = timed(lambda: bf.butterfly_plain(buf, group), plain_iters)
     return ms, plain
 

@@ -64,6 +64,7 @@ _COUNTERS = (
     ("stoch_shard_eval", "odesat_tpu_torch.ops.stoch_chunk", "shard_launches"),
     ("stoch_shard_chunk", "odesat_tpu_torch.ops.stoch_chunk", "shard_chunk_launches"),
     ("butterfly", "odesat_tpu_torch.ops.butterfly", "launches"),
+    ("butterfly_f64", "odesat_tpu_torch.ops.butterfly", "launches_f64"),
     ("butterfly_fused", "odesat_tpu_torch.ops.butterfly", "fused_launches"),
     ("device_loop", "odesat_tpu_torch.ops.device_loop", "launches"),
     ("device_loop_mesh", "odesat_tpu_torch.ops.device_loop", "mesh_launches"),

@@ -50,9 +50,51 @@ def _n_clause(mesh) -> int:
 
 
 def _twin_on_card(device, what: str) -> None:
-    """Say loudly that a clause mesh runs the torch twin on a card."""
+    """Say loudly that a clause mesh runs the torch twin on a card (its sums
+    and maxima run on B7's standalone call, its step in torch ops)."""
     if torch.device(device).type == "cuda":
-        logger.warning("clause mesh on %s runs the torch twin, not a kernel: %s", device, what)
+        logger.warning("clause mesh on %s runs the torch twin, not a chunk kernel (its sums on "
+                       "B7's standalone call): %s", device, what)
+
+
+# "dist" sends every twin step's reduction through torch.distributed, the
+# route before B7 took them: the yardstick chip_smoke.py's phase 29 and a
+# card test hold B7's route against. No flag sets it.
+TWIN_ROUTE = None
+
+
+def traj_reduce_route(n_traj: int, device, hosts) -> tuple:
+    """Where a twin step's batch-shared error max over the trajectory
+    group reduces: ``("b7", why)`` for B7's standalone call (its kernel on
+    a card, its plain version on the CPU), ``("dist", why)`` for
+    ``torch.distributed``. ``hosts``: the group's ranks' host names. B7 on
+    a card needs every rank of the group on this host (its slots are CUDA
+    IPC mappings); a group over hosts keeps ``torch.distributed`` (JAX
+    reduces over DCN there)."""
+    if torch.device(device).type != "cuda":
+        return "b7", f"the plain version on {device}"
+    if n_traj > 1 and len(set(hosts)) > 1:
+        return "dist", (f"the trajectory group spans hosts {sorted(set(hosts))}: CUDA IPC "
+                        "pages stay within one")
+    return "b7", f"{n_traj} ranks on one host, B7 on the card"
+
+
+def twin_routes(mesh, device, shared: bool) -> dict:
+    """``make_step_fn``'s routes for a twin step on ``mesh``, decided when
+    the runner is built and logged: the clause group always on B7 (a pod
+    keeps it inside one process, ``multihost.make_pod_mesh``), the
+    trajectory group (``shared``: a batch-shared adaptive dt) by
+    :func:`traj_reduce_route` (its hosts gathered once, a collective)."""
+    routes = {"clause_route": "b7", "traj_route": "b7"}
+    if shared and mesh.n_traj > 1:
+        cuda = torch.device(device).type == "cuda"
+        route, why = traj_reduce_route(mesh.n_traj, device, traj_hosts(mesh) if cuda else ())
+        logger.info("mesh %dx%d twin step's shared-dt max over the trajectory group -> %s on "
+                    "%s: %s", mesh.n_traj, mesh.n_clause, route, device, why)
+        routes["traj_route"] = route
+    if TWIN_ROUTE is not None:
+        routes = dict.fromkeys(routes, TWIN_ROUTE)
+    return routes
 
 
 def compile_for_mesh(formula, config, mesh, engine: str = "ode") -> FormulaArrays:
@@ -155,7 +197,8 @@ def make_sharded_chunk_runner(fa: FormulaArrays, zeta: float, ode, chunk_steps: 
         if not shared_adaptive or mesh.n_traj == 1:
             return make_chunk_runner(fa, zeta, ode, chunk_steps, device)
         step = make_step_fn(fa, zeta, dataclasses.replace(
-            ode, dv_strategy=resolve_strategy(fa, ode, device)), traj_group=mesh.traj_group)
+            ode, dv_strategy=resolve_strategy(fa, ode, device)), traj_group=mesh.traj_group,
+            **twin_routes(mesh, device, True))
         return _step_chunk(step, chunk_steps)
 
     from odesat_tpu_torch.ops.shard_chunk import resolve_shard_chunk, shard_chunk_supported
@@ -210,7 +253,8 @@ def make_sharded_chunk_runner(fa: FormulaArrays, zeta: float, ode, chunk_steps: 
                 n_clause, device)
     _twin_on_card(device, "the formula or config is past the clause-shard kernels' gate")
     step = make_step_fn(fa, zeta, ode, clause_group=mesh.clause_group,
-                        traj_group=mesh.traj_group)
+                        traj_group=mesh.traj_group,
+                        **twin_routes(mesh, device, shared_adaptive))
     return _step_chunk(step, chunk_steps)
 
 
@@ -317,13 +361,15 @@ def make_sharded_multi_runner(chunk, chunk_steps: int, max_chunks: int, mesh, de
 
 
 def check_replicated(v: torch.Tensor, mesh) -> None:
-    """Raise unless ``v`` (float32 or bool) is bit-identical on every clause
+    """Raise unless ``v`` (float32, float64 or bool) is bit-identical on every clause
     rank of this row: its bits all-reduced with MAX equal their MIN (the
     negation's MAX)."""
     if mesh is None or mesh.n_clause == 1:
         return
     x = v.detach().contiguous()
-    bits = (x.view(torch.int32) if x.dtype == torch.float32 else x.to(torch.int32)).long()
+    # a float64 word as its two 32-bit halves: negating a widened half
+    # cannot overflow
+    bits = (x.view(torch.int32) if x.is_floating_point() else x.to(torch.int32)).long()
     hi = all_reduce(bits.clone(), mesh.clause_group, op="max")
     lo = all_reduce(-bits, mesh.clause_group, op="max")
     if not torch.equal(hi, -lo):

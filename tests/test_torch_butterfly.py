@@ -6,7 +6,10 @@ interpret mode, whose butterfly is the TPU kernel B7 ports.
 
 * ``butterfly_plain`` equals a NumPy sum in the butterfly's tree order bit
   for bit, on data where rank order and tree order round differently, with
-  and without a max zone; every rank gets the same bits.
+  and without a max zone; every rank gets the same bits. Float32 at S = 2,
+  3 and 4, and the float64 form (the torch twin's clause step) at S = 2, 3
+  and 4 with NaN, signed zeros and infinities of both signs (the unit
+  clauses' gradients) in both zones; a NaN equals any NaN.
 * The stoch clause mesh at S = 4 (B9's plain version, fed the gathered
   partials, which it sums in B7's tree) equals JAX's S = 4 kernel exactly
   (v, xl, done): the weight sums are integers in f32.
@@ -14,8 +17,9 @@ interpret mode, whose butterfly is the TPU kernel B7 ports.
   test's own rtol 2e-4 / atol 2e-5 (tests/test_shard_chunk.py:160-165) of
   JAX's S = 4 kernel, both integrators; dt rtol 2e-4 / atol 2e-6, done
   exactly.
-* The refusals: a CPU tensor into ``butterfly_cuda``, a shape that differs
-  between ranks, a group that differs from the plan's shards.
+* The refusals: a CPU tensor into ``butterfly_cuda``, a shape or a dtype
+  that differs between ranks, a dtype with no form, a group that differs
+  from the plan's shards.
 
 The kernel runs only on the card (tests/test_torch_cuda.py, chip_smoke.py).
 JAX's runs follow tests/test_shard_chunk.py:200-275 on the forced 8-device
@@ -52,64 +56,111 @@ ZETA = 0.001
 MODES = {"fixed": dict(step_size=0.01), "adaptive": dict(tolerance=1e-3)}
 
 
-def _tree_sum(parts):
-    """NumPy float32 partials (rank order) summed in the butterfly's tree."""
-    vals, w = [np.asarray(p, np.float32) for p in parts], 1
-    while w < len(vals):
-        for i in range(0, len(vals) - w, 2 * w):
-            vals[i] = vals[i] + vals[i + w]
-        w *= 2
+def _tree(parts, op):
+    """NumPy partials (rank order) combined by ``op`` in the butterfly's
+    tree."""
+    vals, w = [np.asarray(p) for p in parts], 1
+    with np.errstate(invalid="ignore"):  # inf - inf: NaN, as B7 gives
+        while w < len(vals):
+            for i in range(0, len(vals) - w, 2 * w):
+                vals[i] = op(vals[i], vals[i + w])
+            w *= 2
     return vals[0]
+
+
+def _tree_sum(parts):
+    return _tree(parts, np.add)
+
+
+def _b7_max(a, b):
+    """B7's max: NaN if either is NaN, else the larger, the lower rank's
+    of two equal values (of +0 and -0)."""
+    return np.where(np.isnan(a) | np.isnan(b), np.nan, np.where(a < b, b, a)).astype(a.dtype)
 
 
 def _tree_max(parts):
-    vals, w = [np.asarray(p, np.float32) for p in parts], 1
-    while w < len(vals):
-        for i in range(0, len(vals) - w, 2 * w):
-            vals[i] = np.maximum(vals[i], vals[i + w])
-        w *= 2
-    return vals[0]
+    return _tree(parts, _b7_max)
 
 
-def _order_parts(S):
-    """Partials on which rank order and tree order differ: (1e8, 1, -1e8,
-    1, ...) in the first word, random magnitudes elsewhere."""
+# float32: the first word (1e8, 1, -1e8, 1, ...) rounds differently in rank
+# order and in the tree; float64 needs 1e17 for that
+BIG = {np.float32: (1e8, 9), np.float64: (1e17, 18)}
+
+
+def _order_parts(S, dtype=np.float32):
+    """Partials on which rank order and tree order differ: (big, 1, -big,
+    1, ...) in the first word, random magnitudes elsewhere. float64 also
+    holds NaN, signed zeros and infinities of both signs in both zones."""
+    big, top = BIG[dtype]
     rng = np.random.default_rng(S)
-    parts = (rng.uniform(-1, 1, (S, 5, 7)) * 10.0 ** rng.integers(-3, 9, (S, 5, 7)))
-    parts = parts.astype(np.float32)
-    parts[:, 0, 0] = [(1e8, 1.0, -1e8, 1.0)[k % 4] for k in range(S)]
+    parts = (rng.uniform(-1, 1, (S, 5, 7)) * 10.0 ** rng.integers(-3, top, (S, 5, 7)))
+    parts = parts.astype(dtype)
+    parts[:, 0, 0] = [(big, 1.0, -big, 1.0)[k % 4] for k in range(S)]
+    if dtype == np.float64:
+        for word in ((1, 1), (2, 6)):  # a sum-zone word, a max-zone word
+            parts[:, word[0], word[1]] = [(np.inf, -np.inf, 1.0, 2.0)[k % 4] for k in range(S)]
+        parts[1, 3, 2] = parts[-1, 3, 6] = np.nan
+        parts[:, 4, 3] = parts[:, 4, 5] = [(-0.0, 0.0, 0.0, -0.0)[k % 4] for k in range(S)]
+        parts[:, 4, 6] = [(0.0, -0.0, -0.0, 0.0)[k % 4] for k in range(S)]
+        parts[:, 3, 5] = [(np.inf, 5.0, -np.inf, 7.0)[k % 4] for k in range(S)]
     return parts
 
 
-def _calls(S):
-    parts = _order_parts(S)
+def _maxed(parts):
     maxed = parts.copy()
     maxed[:, :, 5:] = np.abs(maxed[:, :, 5:])  # the max zone: the last 2 of every 7 words
-    return [(butterfly_of, (list(parts),)), (butterfly_of, (list(maxed), (7, 2))),
-            (all_reduce_error, ((3, 33), 5, None, 4)), (all_reduce_error, ((7,), 6, (7, 3), 3))]
+    if parts.dtype == np.float64:  # keep the signed zeros and -inf of the max zone
+        maxed[:, 4, 5:], maxed[:, 3, 5], maxed[:, 2, 6] = (parts[:, 4, 5:], parts[:, 3, 5],
+                                                           parts[:, 2, 6])
+    return maxed
 
 
-def _check_plain(S, values):
-    parts = _order_parts(S)
+def _calls(S, dtype=np.float32):
+    parts = _order_parts(S, dtype)
+    maxed = _maxed(parts)
+    tdtype = torch.float64 if dtype == np.float64 else torch.float32
+    return [(butterfly_of, (list(parts), None, dtype)),
+            (butterfly_of, (list(maxed), (7, 2), dtype)),
+            (all_reduce_error, ((3, 33), 5, None, 4, tdtype)),
+            (all_reduce_error, ((7,), 6, (7, 3), 3, tdtype))]
+
+
+def _same_bits(a, b):
+    """Bit for bit, a NaN equal to any NaN."""
+    assert a.dtype == b.dtype
+    ints = np.int64 if a.dtype == np.float64 else np.int32
+    return bool(np.all((a.view(ints) == b.view(ints)) | (np.isnan(a) & np.isnan(b))))
+
+
+def _check_plain(S, values, dtype=np.float32):
+    parts = _order_parts(S, dtype)
     (out, same), (out_max, same_max), err, err_max = values
     want = _tree_sum(parts)
     assert same and same_max and err == 0.0 and err_max == 0.0
-    np.testing.assert_array_equal(out.view(np.int32), want.view(np.int32))
+    assert out.dtype == dtype and _same_bits(out, want)
     if S == 4:  # rank order ((a0 + a1) + a2) + a3 gives 1 in the first word, the tree 0
-        ring = ((parts[0] + parts[1]) + parts[2]) + parts[3]
+        with np.errstate(invalid="ignore"):
+            ring = ((parts[0] + parts[1]) + parts[2]) + parts[3]
         assert ring[0, 0] == 1.0 and out[0, 0] == 0.0
-    maxed = parts.copy()
-    maxed[:, :, 5:] = np.abs(maxed[:, :, 5:])
+    maxed = _maxed(parts)
     want_max = _tree_sum(maxed)
     want_max[:, 5:] = _tree_max(maxed)[:, 5:]
-    np.testing.assert_array_equal(out_max.view(np.int32), want_max.view(np.int32))
+    assert _same_bits(out_max, want_max)
+    if dtype == np.float64:
+        assert np.isnan(out[1, 1]) and np.isnan(out[3, 2])  # inf - inf; a NaN partial
+        assert out_max[2, 6] == np.inf and out_max[3, 5] == np.inf and np.isnan(out_max[3, 6])
+        assert np.signbit(out_max[4, 5]) and not np.signbit(out_max[4, 6])  # rank 0's zero
 
 
-@pytest.mark.parametrize("S", [2, 3])
-def test_plain_follows_the_tree_order(S):
+@pytest.mark.parametrize("S,dtype", [
+    pytest.param(2, np.float32, id="2"), pytest.param(3, np.float32, id="3"),
+    pytest.param(2, np.float64, id="f64-2"), pytest.param(3, np.float64, id="f64-3"),
+    pytest.param(4, np.float64, id="f64-4"),
+])
+def test_plain_follows_the_tree_order(S, dtype):
     values = launch.spawn(launch.run_all, 1, S, "gloo", "cpu", timeout_s=120,
-                          args=(_calls(S),))
-    _check_plain(S, values)
+                          args=(_calls(S, dtype),))
+    _check_plain(S, values, dtype)
 
 
 def _jax_mesh(n):
@@ -210,6 +261,21 @@ def test_a_shape_that_differs_between_ranks_is_refused():
         launch.spawn(butterfly_of, 1, 2, "gloo", "cpu", timeout_s=120, args=(parts,))
 
 
+def test_a_dtype_that_differs_between_ranks_is_refused():
+    """Rank 0 passes float32, rank 1 float64 (each its own part's dtype):
+    every rank raises."""
+    parts = [np.zeros(7, np.float32), np.zeros(7, np.float64)]
+    with pytest.raises(ValueError, match="dtypes"):
+        launch.spawn(butterfly_of, 1, 2, "gloo", "cpu", timeout_s=120, args=(parts, None, None))
+
+
+def test_a_dtype_without_a_form_is_refused():
+    with pytest.raises(ValueError, match="float32 or float64"):
+        bf.butterfly_plain(torch.zeros(7, dtype=torch.float16), None)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        bf.check_dtype(torch.bfloat16)
+
+
 @pytest.mark.parametrize("engine", ["ode", "stoch"])
 def test_a_group_that_differs_from_the_plan_is_refused(engine):
     jfa, _ = _s4_case(5)
@@ -235,3 +301,8 @@ def test_zones_and_the_plain_tree():
     assert torch.isnan(out[2]) and out[3].item() == 8.0
     with pytest.raises(ValueError, match="zones"):
         bf.zone_args((4, 5), 8)
+    # the float64 form: the same rules, the canonical NaN of the max
+    a, b, c = (x.double() for x in (a, b, c))
+    out = bf.combine([a, b, c], (4, 3))
+    assert out.dtype == torch.float64 and out[0].item() == 7.0
+    assert str(out[1].item()) == "-0.0" and torch.isnan(out[2]) and out[3].item() == 8.0

@@ -948,6 +948,88 @@ def test_butterfly_tree_alone_equals_plain(cuda, S):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S", [2, 3, 4])
+def test_butterfly_f64_kernel_equals_plain_across_ranks_on_one_card(cuda, S):
+    """B7's float64 form at S ranks sharing the card, its calls between
+    float32 calls on the one counter and ring: at ragged lengths, with and
+    without a max zone, and over 200 back-to-back calls on fresh data (NaN,
+    signed zeros, infinities of both signs), every call's result on every
+    rank equals its plain version bit for bit (NaN equal to NaN); a call
+    launches its form once; a dtype that differs between ranks is
+    refused."""
+    from odesat_tpu_torch.parallel import launch
+    from odesat_tpu_torch.parallel.dist import all_reduce_error, butterfly_of
+
+    f64 = torch.float64
+    calls = []
+    for shape in ((1,), (7,), (33, 1025)):
+        n = int(np.prod(shape))
+        calls += [(all_reduce_error, (shape, 1, None, 2, f64)),
+                  (all_reduce_error, (shape, 2, None, 1)),
+                  (all_reduce_error, (shape, 3, (min(n, 7), min(n, 2)), 2, f64))]
+    calls.append((all_reduce_error, ((64, 33), 4, (33, 1), 200, f64)))
+    values = launch.spawn(launch.run_all, 1, S, "gloo", "cuda", timeout_s=300, args=(calls,))
+    assert values == [0.0] * len(calls)
+    for report in launch.last_reports:
+        assert [c["butterfly_f64"] for c in report["calls"]] == [2, 0, 2] * 3 + [200]
+        assert [c["butterfly"] for c in report["calls"]] == [0, 1, 0] * 3 + [0]
+    bad = [np.zeros(7, np.float64)] * (S - 1) + [np.zeros(7, np.float32)]
+    with pytest.raises(ValueError, match="dtype"):
+        launch.spawn(butterfly_of, 1, S, "gloo", "cuda", timeout_s=120, args=(bad, None, None))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 5])
+def test_butterfly_f64_tree_alone_equals_plain(cuda, S):
+    """B7's float64 kernel alone (tree_cuda) equals the plain tree bit for
+    bit, with and without a max zone, at ragged lengths, on partials with
+    NaN, signed zeros and infinities (a NaN equal to any NaN)."""
+    from odesat_tpu_torch.ops import butterfly as bf
+    from odesat_tpu_torch.parallel.dist import bit_error, butterfly_inputs
+
+    for shape, zones in (((7,), None), ((33, 1025), None), ((33, 1025), (1025, 1))):
+        parts = list(butterfly_inputs(shape, S, 1, 3, cuda, torch.float64)[0])
+        before = bf.launches_f64
+        out = bf.tree_cuda([p.contiguous() for p in parts], zones)
+        torch.cuda.synchronize()
+        assert bf.launches_f64 == before + 1 and out.dtype == torch.float64
+        assert bit_error(out.cpu(), bf.combine_parts([p.cpu() for p in parts], zones)) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
+def test_twin_mesh_step_on_b7_equals_torch_distributed(cuda, shape):
+    """The twin's clause step on the card, float64 fixed, adaptive and with
+    a batch-shared adaptive dt (at 2x2 the error max over the clause group,
+    then over the trajectory group: both groups' B7 calls every step, in
+    one order on every rank): B7's route equals torch.distributed's bit for
+    bit (both add a0 + a1 at S = 2), and only B7's route launches B7's
+    float64 form."""
+    import chip_smoke
+    from odesat_tpu_torch.parallel import launch, sharded
+
+    fa = compile_formula(_formula(seed=5), clause_pad=64)
+    rng = np.random.default_rng(2)
+    B = 8
+    v = rng.uniform(-1.0, 1.0, size=(B, fa.n_vars_padded))
+    xs = np.broadcast_to(fa.xs_init, (B, fa.n_clauses_padded)).astype(np.float64)
+    arrays = (v, xs, np.ones_like(xs), np.full(B, 0.01), np.zeros(B, bool))
+    cases = [(fa, 0.05, ODEConfig(dtype="float64", **kw), 12, arrays)
+             for kw in (dict(step_size=0.01), dict(tolerance=1e-3),
+                        dict(tolerance=1e-3, dt_mode="shared"))]
+    calls = [(chip_smoke.with_twin_route, (route, sharded.run_ode_cases, cases))
+             for route in ("dist", None)]
+    today, b7 = launch.spawn(launch.run_all, *shape, "gloo", "cuda", timeout_s=300,
+                             args=(calls,))
+    for a, b in zip(today, b7):
+        for x, y in zip(a, b):
+            assert x.dtype == y.dtype and np.array_equal(x.view(np.uint8), y.view(np.uint8))
+    for report in launch.last_reports:
+        counts = [c["butterfly_f64"] for c in report["calls"]]
+        assert counts[0] == 0 and counts[1] > 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("S", [2, 4])
 def test_fused_chunks_equal_plain_across_ranks_on_one_card(cuda, S):
     """B6 (fixed and adaptive) and B9 at S ranks sharing the card, 1000

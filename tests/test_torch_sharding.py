@@ -1,16 +1,27 @@
 """The ODE engine on a mesh (odesat_tpu_torch/parallel/), on the CPU with
 gloo ranks spawned by ``parallel/launch.spawn``.
 
-* The clause mesh end to end, T x S = 1x2 and 2x2, fixed and adaptive, 6
-  steps through the plain versions of B6 (the clause-sharded chunk,
-  ``shard_chunk='auto'``) and of B5 (the per-step path, 'off'): against the
-  JAX package's scan path (``make_chunk_runner`` with ``segment_sum``) on
-  the same FormulaArrays, as tests/test_shard_stream.py:121-164 does; rtol
-  2e-4 / atol 2e-5, done exactly (the two sum dv in other orders); B6
-  against B5 bit for bit.
-* The twin's clause step in float64 on a plain layout: against the JAX
-  single-device scan to 1e-12.
-* A trajectory-only mesh (T=2): bit-identical to the T=1 run, row by row.
+* The clause mesh end to end, T x S = 1x2, 2x2 and 1x4, fixed and
+  adaptive, 6 steps through the plain versions of B6 (the clause-sharded
+  chunk, ``shard_chunk='auto'``) and of B5 (the per-step path, 'off'):
+  against the JAX package's scan path (``make_chunk_runner`` with
+  ``segment_sum``) on the same FormulaArrays, as
+  tests/test_shard_stream.py:121-164 does; rtol 2e-4 / atol 2e-5, done
+  exactly (the two sum dv in other orders); B6 against B5 bit for bit.
+* The twin's clause step, whose sums and maxima run through B7's
+  standalone call (its plain version on the CPU) at 1x2, 2x2 and 1x4:
+  float64 fixed and adaptive on a plain layout, and a batch-shared
+  adaptive dt (its error max also over the trajectory group at 2x2),
+  against the JAX single-device scan to 1e-12; float32 with unit clauses
+  (infinite gradients) fixed and adaptive within rtol 2e-4 / atol 2e-5
+  (dt rtol 2e-4 / atol 2e-6), done exactly.
+* A trajectory-only mesh (T=2): bit-identical to the T=1 run, row by row;
+  with a batch-shared adaptive dt (the twin's error max over the
+  trajectory group), bit-identical to the port's one-device run and within
+  1e-12 of JAX's.
+* Where the twin step's trajectory-group max reduces
+  (``sharded.traj_reduce_route``): B7 within one host, torch.distributed
+  over hosts, logged.
 * The CLI's mesh flags, the backend rules of ``initialize_distributed``,
   and workers that import no jax.
 """
@@ -26,12 +37,14 @@ torch = pytest.importorskip("torch")
 
 from odesat_tpu.cnf import compile_formula as jcompile  # noqa: E402
 from odesat_tpu.cnf import normalize_cnf_variables  # noqa: E402
+from odesat_tpu.cnf.formula import CNFFormula, Literal  # noqa: E402
 from odesat_tpu.models import ode as jode  # noqa: E402
 from odesat_tpu.ops.shard_stream import compile_stream_sharded as jcompile_sharded  # noqa: E402
 from odesat_tpu.utils.config import ODEConfig as JODE  # noqa: E402
 from odesat_tpu.utils.generate import random_ksat  # noqa: E402
 from odesat_tpu_torch import cli  # noqa: E402
 from odesat_tpu_torch.interop import formula_arrays_from_numpy, rank_block  # noqa: E402
+from odesat_tpu_torch.interop import state_from_numpy  # noqa: E402
 from odesat_tpu_torch.models import ode as tode  # noqa: E402
 from odesat_tpu_torch.parallel import launch, multihost, sharded  # noqa: E402
 from odesat_tpu_torch.utils.config import ODEConfig  # noqa: E402
@@ -53,46 +66,90 @@ def _cases():
     return normalized, jfa, arrays
 
 
+def _with_units(normalized):
+    """The formula with three unit clauses on distinct variables: the
+    twin's infinite gradients, which B7 sums like any other value."""
+    units = [(Literal(v, neg),) for v, neg in ((1, False), (5, True), (9, False))]
+    return CNFFormula(list(normalized.clauses) + units, normalized.varnum)
+
+
+# the twin's cases after B6's and B5's (cases 6 on): their JAX configs
+TWIN = {"f32 units fixed": dict(step_size=0.01),
+        "f32 units adaptive": dict(tolerance=1e-3),
+        "f64 shared": dict(tolerance=1e-3, dt_mode="shared", dtype="float64")}
+SHAPES = [(1, 2), (2, 2), (1, 4)]
+F64 = dict(rtol=1e-12, atol=1e-12)
+
+
+def _jax_run(jfa, kw, arrays):
+    dtype = np.float64 if kw.get("dtype") == "float64" else np.float32
+    run = jode.make_chunk_runner(jfa, ZETA, JODE(dv_strategy="segment_sum", **kw), STEPS)
+    out = run(jax_state(arrays), jode.formula_device(jfa, dtype=dtype))
+    return tuple(np.asarray(t) for t in out)
+
+
 @pytest.fixture(scope="module")
 def clause_runs():
-    """Both integrators on a 1x2 and a 2x2 gloo world (one spawn each)
-    through B6 and through B5, the f64 twin, and the JAX references. Case
-    order: B6 fixed, adaptive; twin f64 fixed, adaptive; B5 fixed,
-    adaptive."""
+    """Both integrators on a 1x2, a 2x2 and a 1x4 gloo world (one spawn
+    each) through B6 and through B5, the twin's clause step (f64, f32 with
+    unit clauses, a batch-shared dt), a 2x1 mesh with a batch-shared dt in
+    the 1x2 world, and the JAX references. Case order: B6 fixed, adaptive;
+    twin f64 fixed, adaptive; B5 fixed, adaptive; then TWIN's."""
     normalized, jfa, arrays = _cases()
-    tfa = formula_arrays_from_numpy(jfa)
-    cases = [(tfa, ZETA, ODEConfig(dv_strategy="stream", **kw), STEPS, arrays)
-             for kw in MODES.values()]
     # the twin's clause step: float64 on the plain (unbucketed) layout
     jplain = jcompile(normalized, dtype=np.float64, clause_pad=256)
     arrays64 = numpy_state(jplain, 8, seed=5, dtype=np.float64)
     tplain = formula_arrays_from_numpy(jplain)
-    cases.append((tplain, ZETA, ODEConfig(step_size=0.01, dtype="float64"), STEPS, arrays64))
-    cases.append((tplain, ZETA, ODEConfig(tolerance=1e-3, dtype="float64"), STEPS, arrays64))
-    cases += [(tfa, ZETA, ODEConfig(dv_strategy="stream", shard_chunk="off", **kw), STEPS, arrays)
-              for kw in MODES.values()]
-    runs = {shape: launch.spawn(sharded.run_ode_cases, *shape, "gloo", "cpu", timeout_s=180,
-                                args=(cases,))
-            for shape in ((1, 2), (2, 2))}
-    refs = []
-    for kw in MODES.values():
-        run = jode.make_chunk_runner(jfa, ZETA, JODE(dv_strategy="segment_sum", **kw), STEPS)
-        refs.append(run(jax_state(arrays), jode.formula_device(jfa)))
-    for kw in (dict(step_size=0.01), dict(tolerance=1e-3)):
-        run = jode.make_chunk_runner(jplain, ZETA,
-                                     JODE(dv_strategy="segment_sum", dtype="float64", **kw), STEPS)
-        out = run(jax_state(arrays64), jode.formula_device(jplain, dtype=np.float64))
-        refs.append(tuple(np.asarray(t) for t in out))
-    return runs, refs, launch.last_reports
+    junits = jcompile(_with_units(normalized), clause_pad=256)
+    arrays_u = numpy_state(junits, 8, seed=6)
+    tunits = formula_arrays_from_numpy(junits)
+    twin = [(tunits, ZETA, ODEConfig(**TWIN["f32 units fixed"]), STEPS, arrays_u),
+            (tunits, ZETA, ODEConfig(**TWIN["f32 units adaptive"]), STEPS, arrays_u),
+            (tplain, ZETA, ODEConfig(**TWIN["f64 shared"]), STEPS, arrays64)]
+
+    def cases(jfa_s, arrays_s):
+        tfa = formula_arrays_from_numpy(jfa_s)
+        out = [(tfa, ZETA, ODEConfig(dv_strategy="stream", **kw), STEPS, arrays_s)
+               for kw in MODES.values()]
+        out.append((tplain, ZETA, ODEConfig(step_size=0.01, dtype="float64"), STEPS, arrays64))
+        out.append((tplain, ZETA, ODEConfig(tolerance=1e-3, dtype="float64"), STEPS, arrays64))
+        out += [(tfa, ZETA, ODEConfig(dv_strategy="stream", shard_chunk="off", **kw), STEPS,
+                 arrays_s) for kw in MODES.values()]
+        return out + twin
+
+    jfa4, _ = jcompile_sharded(normalized, 4)
+    arrays4 = numpy_state(jfa4, 8, seed=3)
+    layouts = {2: (jfa, arrays), 4: (jfa4, arrays4)}
+    runs, traj_shared = {}, None
+    for shape in SHAPES:
+        calls = [(sharded.run_ode_cases, (cases(*layouts[shape[1]]),))]
+        if shape == (1, 2):  # a trajectory mesh of the same world, batch-shared dt
+            calls.append((launch.on_mesh, ((2, 1), sharded.run_ode_cases, [twin[-1]])))
+        values = launch.spawn(launch.run_all, *shape, "gloo", "cpu", timeout_s=240,
+                              args=(calls,))
+        runs[shape] = values[0]
+        if shape == (1, 2):
+            (traj_shared,) = values[1]
+    refs = {S: [_jax_run(jfa_s, kw, arrays_s) for kw in MODES.values()]
+            for S, (jfa_s, arrays_s) in layouts.items()}
+    twin_refs = [_jax_run(jplain, dict(dtype="float64", **kw), arrays64)
+                 for kw in MODES.values()]
+    twin_refs += [_jax_run(junits, TWIN[k], arrays_u) for k in list(TWIN)[:2]]
+    twin_refs.append(_jax_run(jplain, TWIN["f64 shared"], arrays64))
+    one = tode.make_chunk_runner(tplain, ZETA, ODEConfig(**TWIN["f64 shared"]), STEPS, "cpu")(
+        state_from_numpy(*arrays64, device="cpu"),
+        tode.formula_device(tplain, "cpu", dtype=torch.float64))
+    return dict(runs=runs, refs=refs, twin_refs=twin_refs, reports=launch.last_reports,
+                traj_shared=traj_shared, one_shared=tuple(t.numpy() for t in one))
 
 
-@pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
+@pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("mode", list(MODES))
 @pytest.mark.parametrize("path", ["chunk", "step"])
 def test_clause_mesh_matches_jax_scan(clause_runs, shape, mode, path):
-    runs, refs, _ = clause_runs
     i = list(MODES).index(mode)
-    out, ref = runs[shape][i + (4 if path == "step" else 0)], refs[i]
+    out = clause_runs["runs"][shape][i + (4 if path == "step" else 0)]
+    ref = clause_runs["refs"][shape[1]][i]
     for name, a, b in zip(("v", "xs", "xl"), out[:3], ref[:3]):
         np.testing.assert_allclose(a, np.asarray(b), err_msg=name, **F32)
     np.testing.assert_array_equal(out[4], np.asarray(ref[4]))
@@ -100,41 +157,100 @@ def test_clause_mesh_matches_jax_scan(clause_runs, shape, mode, path):
         np.testing.assert_allclose(out[3], np.asarray(ref[3]), rtol=2e-4, atol=2e-6)
 
 
-@pytest.mark.parametrize("mode", ["fixed", "adaptive"])
-def test_twin_clause_step_f64_matches_jax_scan(clause_runs, mode):
-    runs, refs, _ = clause_runs
-    i = 2 + ["fixed", "adaptive"].index(mode)
-    out, ref = runs[(2, 2)][i], refs[i]
-    for name, a, b in zip(("v", "xs", "xl", "dt"), out[:4], ref[:4]):
-        assert a.dtype == np.float64
-        np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-12, err_msg=name)
+def _twin_close(out, ref, tol, dt_tol):
+    for name, a, b in zip(("v", "xs", "xl"), out[:3], ref[:3]):
+        assert a.dtype == b.dtype
+        np.testing.assert_allclose(a, b, err_msg=name, **tol)
+    np.testing.assert_allclose(out[3], ref[3], err_msg="dt", **dt_tol)
     np.testing.assert_array_equal(out[4], ref[4])
 
 
-@pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
+@pytest.mark.parametrize("mode,shape", [
+    pytest.param("fixed", (2, 2), id="fixed"), pytest.param("adaptive", (2, 2), id="adaptive"),
+    pytest.param("fixed", (1, 2), id="1x2-fixed"),
+    pytest.param("adaptive", (1, 2), id="1x2-adaptive"),
+    pytest.param("fixed", (1, 4), id="1x4-fixed"),
+    pytest.param("adaptive", (1, 4), id="1x4-adaptive"),
+])
+def test_twin_clause_step_f64_matches_jax_scan(clause_runs, mode, shape):
+    i = ["fixed", "adaptive"].index(mode)
+    out, ref = clause_runs["runs"][shape][2 + i], clause_runs["twin_refs"][i]
+    assert out[0].dtype == np.float64
+    _twin_close(out, ref, F64, F64)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("mode", list(MODES))
+def test_twin_clause_step_f32_unit_clauses_matches_jax_scan(clause_runs, shape, mode):
+    """Unit clauses keep the twin (B5's and B6's gate refuses them): their
+    infinite gradients go through B7's sum like any other partial."""
+    i = list(MODES).index(mode)
+    out, ref = clause_runs["runs"][shape][6 + i], clause_runs["twin_refs"][2 + i]
+    assert out[0].dtype == np.float32
+    _twin_close(out, ref, F32, dict(rtol=2e-4, atol=2e-6))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_twin_clause_step_shared_dt_matches_jax_scan(clause_runs, shape):
+    """A batch-shared adaptive dt: the error max over the clause group,
+    then (2x2) over the trajectory group, both through B7."""
+    out, ref = clause_runs["runs"][shape][8], clause_runs["twin_refs"][4]
+    _twin_close(out, ref, F64, F64)
+    assert np.unique(out[3]).size == 1  # one dt for the whole batch
+
+
+def test_trajectory_mesh_shared_dt_matches_one_device(clause_runs):
+    """T=2, S=1 with a batch-shared adaptive dt (the twin's error max over
+    the trajectory group through B7's plain version): the port's one-device
+    run bit for bit, JAX's within 1e-12."""
+    out, one = clause_runs["traj_shared"], clause_runs["one_shared"]
+    for a, b in zip(out[:5], one):
+        np.testing.assert_array_equal(a, b)
+    _twin_close(out, clause_runs["twin_refs"][4], F64, F64)
+
+
+def test_traj_reduce_route_decides_by_the_groups_hosts(caplog):
+    from types import SimpleNamespace
+
+    assert sharded.traj_reduce_route(2, "cpu", ())[0] == "b7"
+    assert sharded.traj_reduce_route(2, "cuda", ("a", "a"))[0] == "b7"
+    assert sharded.traj_reduce_route(1, "cuda", ("a",))[0] == "b7"
+    route, why = sharded.traj_reduce_route(2, "cuda", ("a", "b"))
+    assert route == "dist" and "spans hosts ['a', 'b']" in why
+    mesh = SimpleNamespace(n_traj=2, n_clause=2, traj_group=object())
+    with caplog.at_level("INFO", logger="odesat_tpu_torch"):
+        routes = sharded.twin_routes(mesh, "cpu", shared=True)
+    assert routes == {"clause_route": "b7", "traj_route": "b7"}
+    assert "shared-dt max over the trajectory group -> b7 on cpu" in caplog.text
+    assert sharded.twin_routes(mesh, "cpu", shared=False) == routes
+
+
+@pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("mode", list(MODES))
 def test_clause_mesh_chunk_equals_step_path(clause_runs, shape, mode):
     """B6's schedule on a mesh computes what B5's per-step path does, bit
     for bit, on every rank's block."""
-    runs, _, _ = clause_runs
     i = list(MODES).index(mode)
+    runs = clause_runs["runs"]
     for a, b in zip(runs[shape][i], runs[shape][i + 4]):
         np.testing.assert_array_equal(a, b)
 
 
 def test_clause_mesh_keeps_v_replicated(clause_runs):
-    """Both clause ranks of the first row ended every case with the same v,
+    """Every clause rank of the first row ended every case with the same v,
     bit for bit (the runs also check every row themselves and raise
     otherwise); on the CPU the wrappers ran the plain versions, so no rank
     counted a kernel launch."""
-    runs, _, reports = clause_runs
+    runs, reports = clause_runs["runs"], clause_runs["reports"]
     assert len(reports) == 4
-    assert all(r["shard_stream"] == 0 and r["shard_chunk"] == 0 for r in reports)
+    assert all(r["shard_stream"] == 0 and r["shard_chunk"] == 0 and r["butterfly"] == 0
+               and r["butterfly_f64"] == 0 for r in reports)
     for shape in runs:
         for out in runs[shape]:
             copies = out[5]
-            assert copies.shape[0] == 2
-            np.testing.assert_array_equal(copies[0], copies[1])
+            assert copies.shape[0] == shape[1]
+            for c in copies[1:]:
+                np.testing.assert_array_equal(copies[0], c)
 
 
 def test_trajectory_mesh_is_bit_identical_to_one_device():
