@@ -284,7 +284,26 @@ Phases, each printing its lines; the first failure exits non-zero:
     torch.distributed call and no host read; inter on config 7 -b 1024 -s
     0.01 -n 16 --devices 1 --clause-shards 2 --dtype float64 through the
     CLI's mesh solve on both routes: the same steps, solved rows, verdict
-    and assignment; B7's float64 call timed beside gloo's all-reduce.
+    and assignment; B7's float64 call timed beside gloo's all-reduce;
+30. the stoch twin's chunk captured (ops/scan_chunk.StochScanChunk: the
+    steps and their uniform draws as CUDA graphs, the device generator
+    registered with them), host-paced between chunks: a. stoch
+    --no-preprocess --fused off on hard.cnf -b 16384 -n 4096 through the
+    CLI: false after exactly 4096 steps, captured chunks counted, no B3, B4
+    or device-loop launch; b. stoch --no-preprocess -b 512 -n 128
+    --chunk-steps 64 on 27d's formula (past B3's and B4's gates, so the
+    default --fused auto takes the twin): two captured chunks, false after
+    exactly 128 steps or a solved chain that verifies; each with its rate,
+    capture seconds and peak memory. Then in process at each (a at B=16384,
+    b at B=512, from the all-false start): a 64-step runner's chunks 1 (its
+    capture) and 2 against the same steps launched from Python with a copy
+    of its device generator, v, xl and done bit for bit and the generators'
+    states equal; a snapshot of the generators after chunk 1 restored into
+    a runner built anew from another seed, whose chunk from chunk 1's chains
+    equals chunk 2; at a also a 100-step runner (a graph of 64 steps and one
+    of 36) over two chunks; a step's wall captured (a: 8 calls of the
+    64-step chunk, b: one) against host-paced (64 steps from Python), the
+    rates, capture seconds, peak memory, and at a the graph's replay alone.
 
 ``python3 chip_smoke.py --time-loop ROOT`` runs, with the port at ROOT (a
 parent tree unpacked beside this one, or this one), phase 6's and phase
@@ -302,7 +321,8 @@ shape through inter's device loop and through batch's host-paced, growing
 chunks; ``--time-mesh-loop [host]`` phase 28a alone (both loops, or the
 host loop alone; on a host of several cards one NCCL rank a card);
 ``--twin`` phase 29 alone (on a host of several cards 29a at S=2 and S=4,
-one NCCL rank a card, through B7 and through NCCL's all-reduce).
+one NCCL rank a card, through B7 and through NCCL's all-reduce);
+``--stoch-scan`` phase 30 alone.
 
 The last two lines are the ``kernels`` JSON object (one row per kernel,
 with its bound: the larger of its bytes over 3.35 TB/s and its operations
@@ -313,7 +333,7 @@ partials; the device loop, a chunk's cost beyond the chunk kernel; on a
 trajectory mesh, a B1
 chunk's cost beyond the two ranks' launches against the host loop's
 (phase 28a); the scan chunk, a captured 64-step chunk beside the same steps
-launched from Python) and
+launched from Python; the stoch twin's chunk, the same at phase 30a) and
 then ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or without the package beside this script, it exits non-zero
 and prints no result.
@@ -5012,6 +5032,224 @@ def scan_chunk_bound(fa, B, steps, itemsize=4):
     return bound(nbytes, B * steps * ode_step_ops(nnz, Np, Mp, True))
 
 
+# ---------------------------------------- phase 30: the stoch twin captured
+
+STOCH_SCAN_CHUNK = 64  # the in-process runners' chunk: one graph of 64 steps
+
+
+def stoch_scan_cli(torch, sc, label, path, B, steps, extra, card):
+    """30's CLI run of ``stoch`` on ``path`` at ``B`` chains: the twin's
+    captured chunks counted (every other count set to 0 just before, read
+    just after: no B3, B4 or device-loop launch), false after exactly
+    ``steps`` steps or a solved chain that verifies. Returns the stoch
+    graph chunks."""
+    from odesat_tpu_torch.ops import scan_chunk
+
+    scan_chunk.capture_seconds = 0.0
+    torch.cuda.reset_peak_memory_stats()
+    counters = {"stoch_fused": (sc, "fused_launches"), "stoch_stream": (sc, "stream_launches"),
+                "stoch_scan_chunk": (scan_chunk, "stoch_launches")}
+    verdict, launches, ran, solved, seconds, _ = run_cli(
+        counters, "stoch", ["-f", path, "--no-preprocess", "-b", str(B), "-n", str(steps),
+                            "--seed", "0", *extra])
+    peak = torch.cuda.max_memory_allocated()
+    chunks = launches["stoch_scan_chunk"]
+    if launches["stoch_fused"] or launches["stoch_stream"] or launches.get("device_loop"):
+        fail(f"stoch scan {label}: a kernel or the device loop ran: {launches}")
+    if chunks == 0:
+        fail(f"stoch scan {label}: the main path ran no captured chunk of the twin")
+    if solved == 0 and (verdict != "false" or ran != steps):
+        fail(f"stoch scan {label}: unsolved after {ran} steps with verdict {verdict}, not false "
+             f"after exactly {steps}")
+    if solved and verdict != "true":
+        fail(f"stoch scan {label}: a chain solved but its assignment did not verify")
+    say(f"[stoch scan] {label}: stoch {' '.join(extra) or '--fused auto'} -b {B} -n {steps}: "
+        f"verdict {verdict}, {solved} solved after {ran} steps in {seconds:.6f} s = "
+        f"{B * ran / seconds:.6e} "
+        f"chain*steps/s, {chunks} captured chunks (no B3, B4 or device-loop launch), capture "
+        f"and instantiate {scan_chunk.capture_seconds:.6f} s, peak memory {peak} B "
+        f"({peak / 2**30:.3f} GiB) ({card})")
+    return chunks
+
+
+def stoch_host_paced(torch, step, state, n, gen, Np):
+    """``n`` steps of the twin launched from Python, each drawing from
+    ``gen``: the loop the captured chunk replaces."""
+    for _ in range(n):
+        state = step(state, torch.rand((state.v.shape[0], Np), generator=gen, device="cuda"))
+    return state
+
+
+def stoch_scan_check(torch, label, got, want, runner, host):
+    """The captured chunk's chains against the host-paced loop's, bit for
+    bit, and the two device generators in one state; fails otherwise."""
+    torch.cuda.synchronize()
+    err, why = loop_compare(torch, got, want, ("v", "xl", "done"))
+    if why:
+        fail(f"stoch scan {label}: the captured chunk against the host-paced steps: {why}")
+    if not torch.equal(runner.device_generator.get_state(), host.get_state()):
+        fail(f"stoch scan {label}: the device generator's state after the captured chunk "
+             f"differs from the host-paced loop's")
+    return err
+
+
+def stoch_scan_case(torch, label, fa, B, calls, card):
+    """30's in-process checks and times at ``fa``, ``B`` chains from the
+    all-false start: a 64-step runner's captured chunks against the same
+    steps launched from Python from a copy of its device generator, chunk
+    1 (its capture) and chunk 2, bit for bit with the generators' states;
+    a snapshot after chunk 1 (models/stoch.generator_states) restored into
+    a runner built anew from another seed, whose chunk from chunk 1's
+    chains equals chunk 2; with ``calls`` > 1 a 100-step runner (a graph of
+    64 steps and one of 36) over two chunks the same way. A step's wall
+    (host clock ending in a sync): captured over ``calls`` calls of the
+    64-step chunk (copies included), host-paced over chunk 2's 64 steps.
+    Returns the numbers."""
+    import gc
+
+    from odesat_tpu_torch.models.stoch import (
+        generator_states,
+        init_stoch_state,
+        make_stoch_chunk_runner,
+        make_stoch_step,
+        restore_generators,
+    )
+    from odesat_tpu_torch.ops import scan_chunk
+
+    n, Np = STOCH_SCAN_CHUNK, fa.n_vars_padded
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    scan_chunk.capture_seconds = 0.0
+    step = make_stoch_step(fa, "cuda")
+    runner = make_stoch_chunk_runner(fa, n, "cuda", torch.Generator().manual_seed(1),
+                                     fused="off")
+    host = torch.Generator(device="cuda")
+    host.set_state(runner.device_generator.get_state())
+    state = init_stoch_state(fa, B, "cuda")
+    first = runner(state)  # the capture, then a replay
+    saved = generator_states(torch.Generator(), runner)
+    want = stoch_host_paced(torch, step, state, n, host, Np)
+    err = stoch_scan_check(torch, f"{label} chunk 1", first, want, runner, host)
+    capture = scan_chunk.capture_seconds
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = stoch_host_paced(torch, step, want, n, host, Np)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / n * 1e3
+    t0 = time.perf_counter()
+    second = runner(first)
+    torch.cuda.synchronize()
+    captured_ms = (time.perf_counter() - t0) / n * 1e3
+    err = max(err, stoch_scan_check(torch, f"{label} chunk 2", second, want, runner, host))
+    del want
+    flips = int((second.v != state.v).sum())
+    if flips == 0:
+        fail(f"stoch scan {label}: no chain flipped a variable in 128 steps")
+    resumed_runner = make_stoch_chunk_runner(fa, n, "cuda", torch.Generator().manual_seed(2),
+                                             fused="off")
+    restore_generators(saved, torch.Generator(), resumed_runner)
+    resumed = resumed_runner(first)
+    err = max(err, stoch_scan_check(torch, f"{label} resumed from the snapshot after chunk 1",
+                                    resumed, second, resumed_runner, runner.device_generator))
+    del resumed, resumed_runner
+    out = {"host_ms": host_ms, "err": err}
+    if calls > 1:
+        s = second
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            s = runner(s)
+        torch.cuda.synchronize()
+        captured_ms = (time.perf_counter() - t0) / (calls * n) * 1e3
+        (cap,) = runner.graphs.values()
+        ((graph, _),) = cap.parts  # one graph of the 64 steps
+        out["replay_ms"] = device_ms(torch, graph.replay, iters=10)
+        long = make_stoch_chunk_runner(fa, 100, "cuda", torch.Generator().manual_seed(3),
+                                       fused="off")
+        host.set_state(long.device_generator.get_state())
+        got = want = state
+        for i in range(2):
+            got = long(got)
+            want = stoch_host_paced(torch, step, want, 100, host, Np)
+            err = max(err, stoch_scan_check(torch, f"{label} 100-step chunk {i + 1}", got, want,
+                                            long, host))
+        (cap,) = long.graphs.values()
+        if [times for _, times in cap.parts] != [1, 1]:
+            fail(f"stoch scan {label}: the 100-step chunk is not a graph of 64 and one of 36")
+        out["err"] = err
+        del got, want, long, s
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[stoch scan] {label} B={B}: captured chunks equal to the host-paced steps bit for bit "
+        f"(v, xl, done; max abs err {err}; {flips} chain variables changed in 128 steps) with "
+        f"the device generator's state, chunk 1 (the capture) and 2"
+        f"{', and a 100-step chunk (64 + 36) twice' if calls > 1 else ''}; a snapshot after "
+        f"chunk 1 resumed in a runner built anew equal to chunk 2")
+    say(f"[stoch scan] {label} B={B}: a step's wall {captured_ms:.6f} ms captured (host clock "
+        f"over {calls} call{'s' if calls > 1 else ''} of the {n}-step chunk, copies included), "
+        f"{host_ms:.6f} ms host-paced (host clock over {n} steps from Python), "
+        f"{host_ms / captured_ms:.3f}x; {B / captured_ms * 1e3:.6e} chain*steps/s captured, "
+        f"{B / host_ms * 1e3:.6e} host-paced; capture and instantiate {capture:.6f} s; peak "
+        f"memory {peak} B ({peak / 2**30:.3f} GiB)"
+        + (f"; the 64-step graph's replay alone {out['replay_ms']:.6f} ms "
+           f"({out['replay_ms'] / n:.6f} ms a step, device time)" if "replay_ms" in out else "")
+        + f" ({card})")
+    del first, second, state, runner, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_stoch_scan(torch, sc, card):
+    """Phase 30: the stoch twin's chunk captured (ops/scan_chunk.
+    StochScanChunk), host-paced between chunks. a. hard.cnf through the
+    CLI's stoch --no-preprocess --fused off at -b 16384 -n 4096 (256-step
+    chunks: a 64-step graph four times), false after exactly 4096 steps,
+    then the in-process checks and times at B=16384 (8 timed calls, the
+    100-step runner, the graph's replay); b. 27d's formula
+    (random_local_ksat(65536, 280000, k=3, locality=512, seed=9), past B3's
+    and B4's gates, so --fused auto takes the twin) through stoch
+    --no-preprocess -b 512 -n 128 --chunk-steps 64 (two chunks), then the
+    in-process checks at B=512 (chunks 1 and 2 and the resumed chunk; one
+    timed call). Returns (the CLI runs' captured chunks, the largest error,
+    a's numbers)."""
+    from odesat_tpu_torch.cnf import compile_formula, normalize_cnf_variables, parse_dimacs_file
+
+    hard_path = os.path.join(ROOT, "tests", "data", "hard.cnf")
+    chunks = stoch_scan_cli(torch, sc, "30a hard.cnf", hard_path, 16384, 4096,
+                            ["--fused", "off"], card)
+    hard = compile_formula(normalize_cnf_variables(parse_dimacs_file(hard_path))[1])
+    a = stoch_scan_case(torch, "30a hard.cnf", hard, 16384, 8, card)
+    w = FULL_WIDTH
+    formula, path = full_width_formula()
+    n = stoch_scan_cli(torch, sc, f"30b n={w['n']} m={w['m']}", path, w["B"],
+                       2 * STOCH_SCAN_CHUNK, ["--chunk-steps", str(STOCH_SCAN_CHUNK)], card)
+    if n != 2:
+        fail(f"stoch scan 30b: {n} captured chunks, not 2")
+    fa = compile_formula(normalize_cnf_variables(formula)[1])
+    b = stoch_scan_case(torch, f"30b n={w['n']} (Np={fa.n_vars_padded}, Mp="
+                        f"{fa.n_clauses_padded})", fa, w["B"], 1, card)
+    return chunks + n, max(a["err"], b["err"]), a
+
+
+def stoch_scan_alone():
+    """``--stoch-scan``: phase 30 alone (it builds nothing: the twin is
+    torch's kernels, captured)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script only runs on a GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from odesat_tpu_torch.ops import stoch_chunk as sc
+
+    card = phase_device(torch)
+    t0 = time.perf_counter()
+    phase_stoch_scan(torch, sc, card)
+    say(f"[done] phase 30 passed in {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def main():
     if sys.argv[1:2] == ["--time-b10"]:
         return time_b10(sys.argv[2])
@@ -5029,6 +5267,8 @@ def main():
         return twin_alone()
     if sys.argv[1:2] == ["--time-mesh-loop"]:
         return time_mesh_loop(tuple(sys.argv[2:3]) or ("host", "device"))
+    if sys.argv[1:2] == ["--stoch-scan"]:
+        return stoch_scan_alone()
     import torch
 
     if not torch.cuda.is_available():
@@ -5147,11 +5387,13 @@ def main():
     scan_launches += full_width_chunks
     scan_worst = max(scan_worst, full_width_err)
     clock("phase 27 (the scan tier on the card)")
+    stoch_scan_chunks, stoch_scan_err, stoch_scan = phase_stoch_scan(torch, sc, card)
+    clock("phase 30 (the stoch twin captured)")
     if "jax" in sys.modules:
         fail("jax was imported")
     say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     # the main paths' launches: phases 5-6, 10, 13, 16, 20, the hybrid's (22),
-    # the pod's (26) and the full-width scan run's (27d)
+    # the pod's (26), the full-width scan run's (27d) and phase 30's
     launches += hybrid_launches["fused_chunk"] + pod_launches["fused_chunk"]
     for name in ("shard_chunk", "stoch_shard_chunk", "butterfly_fused"):
         mesh_launches[name] += pod_launches[name]
@@ -5241,6 +5483,15 @@ def main():
         # graph chunks of phases 16 and 27d's CLI runs
         row("scan_chunk", "ops/scan_chunk.py", "odesat_tpu/models/ode.py:416", scan_launches,
             scan_worst, split["replay"], split["plain_chunk"], scan_chunk_bound(hard, 4096, 64)),
+        # the stoch twin's chunk (no Pallas kernel: JAX's jitted lax.scan of
+        # stoch steps): its captured 64-step graph's replay at hard.cnf
+        # B=16384 (device time) against the same steps and draws launched
+        # from Python (host clock), bound as B3's chunk of the same
+        # function; launches: the captured chunks of phase 30's CLI runs
+        row("stoch_scan_chunk", "ops/scan_chunk.py", "odesat_tpu/models/stoch.py:232",
+            stoch_scan_chunks, stoch_scan_err, stoch_scan["replay_ms"],
+            stoch_scan["host_ms"] * STOCH_SCAN_CHUNK,
+            stoch_chunk_bound(hard, 16384, STOCH_SCAN_CHUNK)),
     ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -220,6 +220,10 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="variable layout: 'bandwidth' relabels via reverse Cuthill-McKee")
     s.add_argument("--no-preprocess", action="store_true",
                    help="skip the resolution preprocessor")
+    s.add_argument("--fused", choices=["auto", "on", "off"], default="auto",
+                   help="the chunk: 'auto' takes the CUDA kernels (B3, else B4) where their "
+                   "gates admit the formula, else the torch scan twin; 'on' the kernels (their "
+                   "plain version on the CPU); 'off' the twin")
     s.add_argument("--log-every", type=int, default=0, help="chunks between progress logs")
     s.add_argument("--wall-clock-budget", type=float, default=None, help="seconds budget")
     s.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
@@ -356,16 +360,13 @@ def _finish(mapped_values: dict, formula, output) -> None:
 
 
 def _device(name: str):
-    import torch
+    from odesat_tpu_torch.utils.device import entry_device
 
-    if name == "cuda" and not torch.cuda.is_available():
-        print(
-            "error: --device cuda (the default) but torch finds no CUDA device; "
-            "pass --device cpu to run the torch scan path on the CPU",
-            file=sys.stderr,
-        )
-        raise SystemExit(2)
-    return torch.device(name)
+    try:
+        return entry_device(name, "--device cuda", "--device cpu")
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        raise SystemExit(2) from None
 
 
 def _mesh_solve(mesh, device, engine, problem, config, kwargs):
@@ -595,7 +596,7 @@ def _prepare(args, formula):
     trace (None for ``inter``), the variable mapping and the normalized
     formula."""
     if args.cmd in ("stoch", "hybrid"):
-        engine, kwargs = args.cmd, {}
+        engine, kwargs = args.cmd, {"fused": args.fused} if args.cmd == "stoch" else {}
         config = _stoch_config(args) if engine == "stoch" else \
             _config_from_args(args, args.batch_size)
         formula, trace = _maybe_preprocess(formula, config)

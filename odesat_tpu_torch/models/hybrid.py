@@ -109,11 +109,12 @@ def hybrid_search(
     formula_or_arrays,
     config: Optional[SolverConfig] = None,
     *,
-    device,
+    device="cuda",
     generator: Optional[torch.Generator] = None,
     mesh=None,
 ) -> HybridResult:
-    """Interleave ODE and stochastic chunks on ``device`` until either
+    """Interleave ODE and stochastic chunks on ``device`` (the card unless
+    the caller asks for the CPU) until either
     engine's batch reaches allsat, the per-engine step budget runs out, or
     the wall-clock budget expires (JAX :42-285).
 
@@ -157,10 +158,11 @@ def hybrid_search(
         save_hybrid_state,
         validate_mesh_layout,
     )
+    from odesat_tpu_torch.utils.device import entry_device
     from odesat_tpu_torch.utils.logging import log_chunk
 
     config = config or SolverConfig()
-    device = torch.device(device)
+    device = entry_device(device)
     fa = hybrid_arrays(formula_or_arrays, config, mesh)
     ode = config.ode
     if mesh is None or mesh.n_clause == 1:

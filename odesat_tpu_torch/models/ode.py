@@ -504,7 +504,7 @@ def simulate_batch(
     formula_or_arrays,
     config: SolverConfig,
     *,
-    device,
+    device="cuda",
     generator: Optional[torch.Generator] = None,
     v0: Optional[np.ndarray] = None,
     stop_on: str = "any",
@@ -512,7 +512,8 @@ def simulate_batch(
     mesh=None,
 ) -> SolveResult:
     """Run ``config.batch_size`` trajectories on ``device`` to completion
-    or budget.
+    or budget. ``device`` is the card unless the caller asks for the CPU
+    (``"cpu"``); without a card ``"cuda"`` raises (``utils/device.py``).
 
     ``stop_on``: "any" stops as soon as one trajectory reaches allsat
     (reference inter semantics, src/system.rs:291); "all" runs until every
@@ -535,7 +536,9 @@ def simulate_batch(
     :601-616). ``config.checkpoint_path`` with ``checkpoint_every_chunks``
     writes snapshots (rank 0 on a mesh, after every rank's gather).
     """
-    device = torch.device(device)
+    from odesat_tpu_torch.utils.device import entry_device
+
+    device = entry_device(device)
     n_clause = 1 if mesh is None else mesh.n_clause
     if mesh is not None and not isinstance(formula_or_arrays, FormulaArrays):
         from odesat_tpu_torch.parallel.sharded import compile_for_mesh
@@ -661,7 +664,7 @@ def simulate(
     formula: CNFFormula,
     config: Optional[SolverConfig] = None,
     *,
-    device,
+    device="cuda",
     generator: Optional[torch.Generator] = None,
     v0: Optional[np.ndarray] = None,
 ) -> np.ndarray:

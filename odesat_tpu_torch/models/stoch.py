@@ -15,9 +15,12 @@ with the same state and step. Per step:
 
 On CUDA a chunk of steps is one launch of a hand-written kernel
 (ops/stoch_chunk.py): B3 with the formula resident in shared memory, else
-B4 with it in L2, else (past both gates, logged) the torch scan twin of
-:func:`make_stoch_step`. On the CPU ``auto`` runs the twin, as the JAX
-package does off the TPU; ``fused="on"`` runs the kernels' plain version.
+B4 with it in L2, else (past both gates, logged, or ``fused="off"``) the
+torch scan twin of :func:`make_stoch_step`, its steps and their draws
+captured as CUDA graphs a chunk (``ops/scan_chunk.StochScanChunk``) and
+host-paced between chunks, as JAX's scan path is. On the CPU ``auto`` runs
+the twin's steps one by one, as the JAX package does off the TPU;
+``fused="on"`` runs the kernels' plain version.
 
 Randomness is explicit: one CPU ``torch.Generator`` seeded from
 ``config.seed`` draws a 31-bit seed for every kernel launch on the host
@@ -244,8 +247,11 @@ def make_stoch_chunk_runner(
     launch from ``generator``, a CPU ``torch.Generator``; their runner is a
     ``KernelChunk`` (``ops/device_loop.py``) that carries it. The scan twin
     draws its uniforms from a device generator seeded once from
-    ``generator``. ``matmul_dtype="bfloat16"`` rounds each weight to bf16
-    in the kernels (the twin, like the JAX scan path, sums in f32)."""
+    ``generator`` (``device_generator``); its runner is a
+    ``ops/scan_chunk.StochScanChunk``: on a CUDA state CUDA graphs captured
+    once a batch shape, on a CPU one the steps one by one.
+    ``matmul_dtype="bfloat16"`` rounds each weight to bf16 in the kernels
+    (the twin, like the JAX scan path, sums in f32)."""
     kind = resolve_kernel(fa, device, fused)
     if kind != "scan":
         from odesat_tpu_torch.ops.stoch_chunk import make_stoch_chunk
@@ -254,19 +260,12 @@ def make_stoch_chunk_runner(
         return dataclasses.replace(fn, fn=lambda state: fn(state, draw_seed(generator)),
                                    generator=generator)
 
-    step = make_stoch_step(fa, device)
+    from odesat_tpu_torch.ops.scan_chunk import StochScanChunk
+
     dev_gen = torch.Generator(device=device)
     dev_gen.manual_seed(int(torch.randint(0, 2**63 - 1, (1,), generator=generator)))
-    shape = (fa.n_vars_padded,)
-
-    def run_scan(state: StochState) -> StochState:
-        for _ in range(chunk_steps):
-            u = torch.rand((state.v.shape[0], *shape), generator=dev_gen, device=device)
-            state = step(state, u)
-        return state
-
-    run_scan.device_generator = dev_gen  # a checkpoint stores its state
-    return run_scan
+    return StochScanChunk(make_stoch_step(fa, device), chunk_steps, device, dev_gen,
+                          fa.n_vars_padded)
 
 
 def generator_states(generator: torch.Generator, runner, mesh=None, device=None) -> dict:
@@ -321,6 +320,18 @@ def restore_generators(extra: dict, generator: torch.Generator, runner, mesh=Non
                          f"generator ({e}); resume it on the device type that wrote it") from None
 
 
+def takes_device_loop(chunk) -> bool:
+    """Whether a multi-chunk dispatch of the chunk runner ``chunk`` on a
+    CUDA state is one device-loop graph launch: B3's and B4's runners. Not
+    the twin's chunk (``ops/scan_chunk.StochScanChunk``), whose device
+    generator only the host advances, once a replay; JAX's scan path has no
+    multi-chunk runner either (JAX :276-285)."""
+    from odesat_tpu_torch.ops import device_loop
+    from odesat_tpu_torch.ops.scan_chunk import ScanChunk
+
+    return isinstance(chunk, device_loop.KernelChunk) and not isinstance(chunk, ScanChunk)
+
+
 def make_multi_stoch_runner(chunk, chunk_steps: int, max_chunks: int):
     """``run(state) -> (state, steps_advanced)`` running up to
     ``max_chunks`` chunks of the chunk runner ``chunk``, testing before each
@@ -328,14 +339,15 @@ def make_multi_stoch_runner(chunk, chunk_steps: int, max_chunks: int):
     ``steps_advanced``. A kernel runner (B3 or B4) on a CUDA state runs the
     dispatch as one graph launch that stops on the card
     (``ops/device_loop.py``), with the ``max_chunks`` seeds the host loop
-    would draw drawn first, one at a time in its order; the twin, and the
-    kernels' plain version on the CPU, run the host loop of
-    ``models/loop.run_chunks``, the device loop's plain version (the JAX
-    scan path is host-paced too, JAX :277-279)."""
+    would draw drawn first, one at a time in its order; the twin (its
+    chunks captured graphs on the card), and the kernels' plain version on
+    the CPU, run the host loop of ``models/loop.run_chunks``, the device
+    loop's plain version (the JAX scan path is host-paced too, JAX
+    :276-285)."""
     from odesat_tpu_torch.models.loop import run_chunks
     from odesat_tpu_torch.ops import device_loop
 
-    on_card = isinstance(chunk, device_loop.KernelChunk)
+    on_card = takes_device_loop(chunk)
     host = run_chunks(chunk, chunk_steps, max_chunks)
 
     def run(state: StochState):
@@ -351,14 +363,15 @@ def search(
     formula_or_arrays,
     config: Optional[SolverConfig] = None,
     *,
-    device,
+    device="cuda",
     generator: Optional[torch.Generator] = None,
     fused: str = "auto",
     mesh=None,
 ) -> StochResult:
     """Batched stochastic search (reference: src/stoch.rs:80-110 runs one
     chain; here ``config.batch_size`` chains run as a batch and the search
-    stops after the chunk in which any chain satisfies every clause).
+    stops after the chunk in which any chain satisfies every clause), on
+    ``device``: the card unless the caller asks for the CPU (``"cpu"``).
 
     Runs over the shared chunk driver (models/loop.drive_chunks): step and
     wall-clock budgets, chunk escalation and progress logs as in the ODE
@@ -379,9 +392,10 @@ def search(
     them."""
     from odesat_tpu_torch.models.ode import check_mesh_shape, compile_for_config, seeded_generator
     from odesat_tpu_torch.parallel.dist import fetch
+    from odesat_tpu_torch.utils.device import entry_device
 
     config = config or SolverConfig()
-    device = torch.device(device)
+    device = entry_device(device)
     if mesh is not None and not isinstance(formula_or_arrays, FormulaArrays):
         from odesat_tpu_torch.parallel.sharded import compile_for_mesh
 

@@ -1,14 +1,18 @@
 """The scan tier's chunk on the card: ``chunk_steps`` single steps of a step
 function (``models/ode.make_step_fn``: the twin's ``gather`` or
-``segment_sum`` RHS, or B10 with the torch update), captured once as a CUDA
-graph, and its plain version, the loop of steps.
+``segment_sum`` RHS, or B10 with the torch update; or the stoch twin's
+``models/stoch.make_stoch_step`` with its uniform draw,
+:class:`StochScanChunk`), captured once as a CUDA graph, and its plain
+version, the loop of steps.
 
 Replaces the jitted ``lax.scan`` chunk of ``odesat_tpu/models/ode.py:414-423``
 (``make_chunk_runner``'s scan path), which JAX compiles into one program and
-runs inside the ``lax.while_loop`` of ``:505-538``. Eager PyTorch launches
-each of a step's kernels from Python (about 15 small ones around each RHS
-pass), so a host-paced step leaves the card idle most of the time; the graph
-launches them all from the card.
+runs inside the ``lax.while_loop`` of ``:505-538``, and the stoch twin's of
+``odesat_tpu/models/stoch.py:227-235``, which JAX runs host-paced between
+chunks (``:276-284``). Eager PyTorch launches each of a step's kernels from
+Python (about 15 small ones around each RHS pass, about 20 and a
+``torch.rand`` a stoch step), so a host-paced step leaves the card idle
+most of the time; the graph launches them all from the card.
 
 Design: at its first call for a batch shape, dtype and formula tensors, a
 runner captures the step with ``torch.cuda.CUDAGraph``: a graph of up to
@@ -31,6 +35,17 @@ it to the device loop (``ops/device_loop.py``): the loop runs on the
 runner's buffers, and its WHILE node's body is the chunk's graphs as child
 graph nodes, then a stop kernel that reduces ``done`` into the loop's stop
 word.
+
+The stoch twin draws its uniforms from a device generator of its own
+(``torch.rand(..., generator=)``), which the snapshots store. A capture
+registers it with each graph (``CUDAGraph.register_generator_state``): the
+draws then read the generator's seed and offset from the card, and each
+replay writes the generator's current offset there first and advances it
+by what the graph draws. So a captured chunk draws exactly what the same
+steps launched from Python draw, and leaves the generator where they leave
+it. That write is the host's, once a replay, so the stoch chunk cannot be
+a WHILE node's body (the node would replay it with one offset): the device
+loop refuses it, and its multi-chunk runner stays host-paced, as JAX's is.
 
 Counts: :data:`launches` grows by one for every chunk a captured graph runs
 (a replay, or a chunk of a device-loop dispatch). A kernel the step launches
@@ -63,9 +78,10 @@ from odesat_tpu_torch.ops.fused_chunk import cuda_device
 from odesat_tpu_torch.utils.logging import logger
 
 # Chunks run through a captured graph in this process: direct replays and
-# the chunks of device-loop dispatches. A plain integer that callers may
-# reset.
+# the chunks of device-loop dispatches; the stoch twin's (direct replays
+# only) apart. Plain integers that callers may reset.
 launches = 0
+stoch_launches = 0
 # Seconds spent capturing and instantiating graphs in this process (each
 # capture also logs its own); a plain number that callers may reset.
 capture_seconds = 0.0
@@ -119,13 +135,17 @@ class ScanChunk(KernelChunk):
     batch shape, dtype and formula tensors. A chunk longer than
     :data:`MAX_GRAPH_STEPS` (the CLI's default is 256 steps, and the host
     loop grows its chunks up to 32768) runs a graph of that many steps over
-    and over, so that a capture stays short."""
+    and over, so that a capture stays short. ``generators``: the device
+    generators the step draws from, registered with every graph;
+    ``counter``: the name of this module's count its chunks add to."""
 
-    def __init__(self, step: Callable, chunk_steps: int, device):
+    def __init__(self, step: Callable, chunk_steps: int, device, generators=(),
+                 counter: str = "launches"):
         super().__init__(fn=self._run, body=self._body, chunk_steps=chunk_steps,
-                         counter=(sys.modules[__name__], "launches"), buffers=self._buffers)
+                         counter=(sys.modules[__name__], counter), buffers=self._buffers)
         self.step = step
         self.device = cuda_device(device)
+        self.generators = tuple(generators)
         self.graphs: dict = {}
         self.b10_per_chunk = 0  # B10 launches a chunk makes (pallas)
 
@@ -135,7 +155,7 @@ class ScanChunk(KernelChunk):
             state = self.step(state, dev)
         return state
 
-    def _run(self, state, dev):
+    def _run(self, state, dev=()):
         kind = state.v.device.type
         if kind == "cpu" or state.v.shape[0] == 0:
             return self.plain(state, dev)
@@ -152,10 +172,9 @@ class ScanChunk(KernelChunk):
         return type(state)(*(t.clone() for t in cap.buffers))
 
     def count(self, n: int) -> None:
-        """Add ``n`` chunks run by graphs: to :data:`launches`, and their
+        """Add ``n`` chunks run by graphs: to this runner's count, and their
         B10 launches to B10's count."""
-        global launches
-        launches += n
+        super().count(n)
         rhs_kernel.launches += n * self.b10_per_chunk
 
     def captured(self, state, dev) -> Captured:
@@ -206,6 +225,8 @@ class ScanChunk(KernelChunk):
         # that one synchronizes and empties the allocator's cache first,
         # which costs a solve tenths of a second for nothing the capture needs
         with torch.cuda.device(device), torch.cuda.stream(capture_stream(device)):
+            for generator in self.generators:
+                graph.register_generator_state(generator)
             pool, members = graph_pool(device)
             graph.capture_begin(pool=pool, capture_error_mode="relaxed")
             try:
@@ -231,13 +252,24 @@ class ScanChunk(KernelChunk):
             dst.copy_(src)
 
     def _buffers(self, state, dev):
+        self._check_loop()
         return self.captured(state, dev).buffers
+
+    def _check_loop(self) -> None:
+        """Raise for a chunk that draws from a device generator: the device
+        loop would replay it without advancing the generator, which only the
+        host does, once a replay."""
+        if self.generators:
+            raise RuntimeError("the device loop cannot run a chunk that draws from a device "
+                               "generator: a replay inside the WHILE node would not advance "
+                               "it; run its chunks host-paced (models/loop.run_chunks)")
 
     def _body(self, buffers, stream, stop, stop_all, seeds, seed_index):
         """The device loop's body on its capture ``stream``: the graphs that
         run in place on ``buffers`` as child graph nodes, then the stop
         kernel writing ``done``'s any (``stop_all``: not all) into the word
-        at ``stop``."""
+        at ``stop``. A chunk that draws from a device generator raises."""
+        self._check_loop()
         cap = next(c for c in self.graphs.values() if c.buffers is buffers)
         lib, _ = device_loop.load_library()
         for graph, times in cap.parts:
@@ -254,6 +286,27 @@ class ScanChunk(KernelChunk):
                                                     buffers.v.shape[0], int(stop_all)),
                           "the stop kernel")
         return cap
+
+
+class StochScanChunk(ScanChunk):
+    """The stoch twin's chunk: ``chunk_steps`` calls of ``step(state, u)``
+    (``models/stoch.make_stoch_step``), each after drawing its uniforms u
+    (B, ``n_vars_padded``) float32 from ``generator``, a generator on the
+    runner's device (``device_generator``, which the snapshots store). Call
+    it as ``chunk(state)``. On a CUDA state the draws are captured with the
+    steps and the generator is registered with every graph; its chunks
+    count in :data:`stoch_launches`."""
+
+    def __init__(self, step: Callable, chunk_steps: int, device, generator: torch.Generator,
+                 n_vars_padded: int):
+        def draw_step(state, dev):
+            u = torch.rand((state.v.shape[0], n_vars_padded), generator=generator,
+                           device=state.v.device)
+            return step(state, u)
+
+        super().__init__(draw_step, chunk_steps, device, generators=(generator,),
+                         counter="stoch_launches")
+        self.device_generator = generator
 
 
 def make_scan_chunk(step: Callable, chunk_steps: int, device) -> ScanChunk:

@@ -505,7 +505,7 @@ def fetch_state(state, mesh):
     return type(state)(**out)
 
 
-def simulate_batch_sharded(formula, config, mesh, *, device, generator=None, v0=None,
+def simulate_batch_sharded(formula, config, mesh, *, device="cuda", generator=None, v0=None,
                            stop_on: str = "any"):
     """The mesh-sharded batched solve (JAX :939-952): ``formula`` compiled
     for the mesh (:func:`compile_for_mesh`, unless it is compiled already),

@@ -105,9 +105,10 @@ def solve_exact(
     runner_cache: Optional[dict] = None,
     readout: bool = False,
     *,
-    device,
+    device="cuda",
 ) -> ExactSolve:
-    """Run a trajectory batch on ``device`` until any trajectory solves (or
+    """Run a trajectory batch on ``device`` (the card unless the caller
+    asks for the CPU) until any trajectory solves (or
     ``budget`` steps), resolving the EXACT first-solve step by final-chunk
     bisection. The initial state comes from ``models/ode.init_state`` with
     ``generator`` (a ``torch.Generator`` on ``device``).
@@ -122,11 +123,12 @@ def solve_exact(
     from odesat_tpu_torch.models import ode as ode_mod
     from odesat_tpu_torch.ops.device_loop import KernelChunk
     from odesat_tpu_torch.ops.scan_chunk import ScanChunk
+    from odesat_tpu_torch.utils.device import entry_device
     from odesat_tpu_torch.utils.timing import sync
 
     if runner_cache is None:
         runner_cache = {}
-    device = torch.device(device)
+    device = entry_device(device)
     zeta = ode.resolve_zeta(fa.density)
 
     def runner(n):

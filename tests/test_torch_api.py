@@ -8,11 +8,15 @@ lazily (odesat_tpu_torch/__init__.py and each subpackage's ``__init__``).
 * ``import odesat_tpu_torch`` imports no torch, jax or odesat_tpu; importing
   every module of the port imports no jax or odesat_tpu.
 * ``Throughput`` counts as JAX's does.
+* The entry points run on the card by default: ``device="cuda"``, and
+  without a card a call that leaves ``device`` out raises (no CPU
+  fallback).
 * ``odesat_tpu_torch/examples/library_usage.py --device cpu`` runs on
   easy.cnf and verifies.
 """
 
 import importlib
+import inspect
 import os
 import subprocess
 import sys
@@ -125,3 +129,42 @@ def test_library_usage_example_verifies_on_the_cpu():
     for line in ("verified: True", "stoch solved: True", "sharded solve: True",
                  "clause-sharded solve: True"):
         assert line in out.stdout, out.stdout
+
+
+def _entry_calls(data_dir):
+    """The facade's functions that take a ``device``, with solve_exact and
+    the mesh's batched solve, each with the arguments of a library call
+    that leaves ``device`` out."""
+    from odesat_tpu_torch.cnf import compile_formula, normalize_cnf_variables, parse_dimacs_file
+    from odesat_tpu_torch.parallel.sharded import simulate_batch_sharded
+    from odesat_tpu_torch.utils.config import ODEConfig, SolverConfig
+    from odesat_tpu_torch.utils.tts import solve_exact
+
+    formula = normalize_cnf_variables(parse_dimacs_file(os.path.join(data_dir, "small.cnf")))[1]
+    fa = compile_formula(formula)
+    top = {name for name in odesat_tpu_torch.__all__
+           if callable(getattr(odesat_tpu_torch, name))
+           and "device" in inspect.signature(getattr(odesat_tpu_torch, name)).parameters}
+    assert top == {"simulate", "simulate_batch", "search", "hybrid_search"}, top
+    return {
+        "simulate": (odesat_tpu_torch.simulate, (formula,)),
+        "simulate_batch": (odesat_tpu_torch.simulate_batch, (formula, SolverConfig())),
+        "search": (odesat_tpu_torch.search, (formula,)),
+        "hybrid_search": (odesat_tpu_torch.hybrid_search, (formula,)),
+        "solve_exact": (solve_exact, (fa, ODEConfig(), 4, None, 16, 64)),
+        "simulate_batch_sharded": (simulate_batch_sharded, (fa, SolverConfig(), None)),
+    }
+
+
+@pytest.mark.parametrize("name", ["simulate", "simulate_batch", "search", "hybrid_search",
+                                  "solve_exact", "simulate_batch_sharded"])
+def test_entry_points_run_on_the_card_by_default(data_dir, monkeypatch, name):
+    """Each entry point's ``device`` defaults to "cuda" (by signature), and
+    a JAX-style library call that leaves it out, on a machine without a
+    card, raises the CLI's error before any work: no CPU fallback."""
+    fn, args = _entry_calls(data_dir)[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match=r"device='cuda' \(the default\) but torch finds no "
+                                           r"CUDA device; pass device='cpu'"):
+        fn(*args)

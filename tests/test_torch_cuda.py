@@ -16,7 +16,9 @@ B6 and B9 at S=2) equals the uninterrupted one bit for bit, and solve_exact
 through B1 (its one-dispatch path) its single-step replay exactly; B7 at S=2
 and S=4 ranks on the card equals its plain version bit for bit (a NaN equal
 to any NaN); the device loop (one graph launch a dispatch) equals the host
-loop over the same kernels bit for bit, steps included.
+loop over the same kernels bit for bit, steps included; the stoch twin's
+captured chunk equals its steps and draws launched from Python bit for
+bit, the device generator's state included.
 """
 
 import dataclasses
@@ -1664,3 +1666,121 @@ def test_a_chunk_longer_than_a_graph_runs_its_parts(cuda):
     assert steps == host_steps > 0
     for name, a, b in zip(state._fields, got, host):
         assert torch.equal(a, b), name
+
+
+def _stoch_twin(device, n, seed=3, planted=False):
+    """The stoch twin's chunk of n steps (ops/scan_chunk.StochScanChunk) on
+    a 3-SAT of 50 variables (200 clauses; planted: satisfiable), its step,
+    and chains of v random, xl random in [1, 60] at B=37."""
+    from odesat_tpu_torch.interop import stoch_state_from_numpy
+    from odesat_tpu_torch.models.stoch import make_stoch_chunk_runner, make_stoch_step
+
+    fa = compile_formula(normalize_cnf_variables(
+        random_ksat(50, 200 if planted else 230, seed=5, planted=planted))[1])
+    chunk = make_stoch_chunk_runner(fa, n, device, torch.Generator().manual_seed(seed),
+                                    fused="off")
+    rng = np.random.default_rng(seed)
+    B, Np, Mp = 37, fa.n_vars_padded, fa.n_clauses_padded
+    state = stoch_state_from_numpy(rng.random((B, Np)) < 0.5,
+                                   rng.integers(1, 61, (B, Mp)).astype(np.int32),
+                                   np.zeros(B, bool), device=device)
+    return fa, chunk, make_stoch_step(fa, device), state
+
+
+def _host_paced(step, state, n, gen, Np):
+    """n steps launched from Python, each drawing its uniforms from gen."""
+    for _ in range(n):
+        state = step(state, torch.rand((state.v.shape[0], Np), generator=gen,
+                                       device=state.v.device))
+    return state
+
+
+def _twin_gen(chunk, device):
+    gen = torch.Generator(device=device)
+    gen.set_state(chunk.device_generator.get_state())
+    return gen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 64, 100])
+def test_stoch_scan_chunk_equals_the_host_paced_loop(cuda, n):
+    """Three chunks of the captured stoch twin (one graph; 64 steps; a
+    graph of 64 and one of 36) against the same steps launched from Python
+    with a copy of its device generator: v, xl and done bit for bit after
+    every chunk, and the two generators in one state; one capture, three
+    stoch graph chunks counted."""
+    from odesat_tpu_torch.ops import scan_chunk
+
+    fa, chunk, step, state = _stoch_twin(cuda, n)
+    gen = _twin_gen(chunk, cuda)
+    before = (scan_chunk.launches, scan_chunk.stoch_launches)
+    got = want = state
+    for _ in range(3):
+        got = chunk(got)
+        want = _host_paced(step, want, n, gen, fa.n_vars_padded)
+        torch.cuda.synchronize()
+        for name, a, b in zip(state._fields, got, want):
+            assert torch.equal(a, b), name
+        assert torch.equal(chunk.device_generator.get_state(), gen.get_state())
+    assert (scan_chunk.launches, scan_chunk.stoch_launches) == (before[0], before[1] + 3)
+    (cap,) = chunk.graphs.values()
+    assert [times for _, times in cap.parts] == ([1, 1] if n == 100 else [1])
+    assert (got.v != state.v).any()
+
+
+@pytest.mark.cuda
+def test_stoch_scan_snapshot_resumes_to_the_same_flips(cuda):
+    """Two captured 100-step chunks, the generators' states saved
+    (models/stoch.generator_states), two more: the uninterrupted run. The
+    same runner set back to the saved state, and a runner built anew from
+    another seed with the states restored (restore_generators), each run
+    two chunks from the saved chains to the same chains bit for bit and the
+    same device generator state."""
+    from odesat_tpu_torch.models.stoch import (
+        generator_states,
+        make_stoch_chunk_runner,
+        restore_generators,
+    )
+
+    fa, chunk, _, state = _stoch_twin(cuda, 100)
+    cpu_gen = torch.Generator().manual_seed(0)
+    mid = chunk(chunk(state))
+    saved = generator_states(cpu_gen, chunk)
+    want = chunk(chunk(mid))
+    final = chunk.device_generator.get_state()
+    fresh_gen = torch.Generator().manual_seed(8)
+    fresh = make_stoch_chunk_runner(fa, 100, cuda, fresh_gen, fused="off")
+    for runner, gen in ((chunk, torch.Generator()), (fresh, fresh_gen)):
+        restore_generators(saved, gen, runner)
+        got = runner(runner(mid))
+        torch.cuda.synchronize()
+        for name, a, b in zip(state._fields, got, want):
+            assert torch.equal(a, b), name
+        assert torch.equal(runner.device_generator.get_state(), final)
+        assert torch.equal(gen.get_state(), cpu_gen.get_state())
+
+
+@pytest.mark.cuda
+def test_stoch_scan_chunk_stays_off_the_device_loop(cuda):
+    """The device loop refuses the twin's chunk (only the host advances its
+    generator); the multi-chunk runner over it on a CUDA state is the host
+    loop: no graph launch, the same chains, steps and generator state as
+    run_chunks over a twin with a copy of its generator, the stop inside
+    the dispatch."""
+    from odesat_tpu_torch.models.loop import run_chunks
+    from odesat_tpu_torch.models.stoch import make_multi_stoch_runner
+    from odesat_tpu_torch.ops import device_loop
+
+    fa, chunk, _, state = _stoch_twin(cuda, 8, planted=True)
+    _, other, _, _ = _stoch_twin(cuda, 8, planted=True)
+    with pytest.raises(RuntimeError, match="device generator"):
+        device_loop.run(chunk, state, 2)
+    graphs = device_loop.launches
+    got, steps = make_multi_stoch_runner(chunk, 8, 200)(state)
+    want, want_steps = run_chunks(other, 8, 200)(state)
+    torch.cuda.synchronize()
+    assert device_loop.launches == graphs
+    assert steps == want_steps and 0 < steps < 8 * 200 and bool(got.done.any())
+    for name, a, b in zip(state._fields, got, want):
+        assert torch.equal(a, b), name
+    assert torch.equal(chunk.device_generator.get_state(), other.device_generator.get_state())

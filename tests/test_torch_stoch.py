@@ -309,7 +309,8 @@ def test_interop_roundtrip():
 
 
 @pytest.mark.parametrize("extra", [[], ["--no-preprocess", "--matmul-dtype", "bfloat16"],
-                                   ["--var-order", "bandwidth", "-r", "5"]])
+                                   ["--var-order", "bandwidth", "-r", "5"],
+                                   ["--fused", "off"], ["--fused", "on", "--no-preprocess"]])
 def test_cli_stoch_small_verifies(data_dir, capsys, extra):
     rc = cli.main(["stoch", "-f", os.path.join(data_dir, "small.cnf"), "-n", "2000", "-b", "8",
                    "--seed", "3", "--device", "cpu", *extra])
