@@ -104,7 +104,7 @@ Phases, each printing its lines; the first failure exits non-zero:
 18. B5 vs plain, exactly (max abs error 0): phase 3's formulas compiled
     with compile_stream_sharded at S=1 and S=2 (each shard on its own), the
     config 7 instance (run_benchmarks.py:289-313, n=10240) at S=2 (both
-    shards) and S=1, B=1024, and ragged batches (B = 1, 7, 33 on the
+    shards) and S=1, B=256, and ragged batches (B = 1, 7, 33 on the
     widths 2,3,5 formula at S=2: a part-filled last tile of 32); modes
     rhs, fixed, second, both rigidity gates, f32 and bf16, through the
     row-major wrappers (tile, launch, untile), each case printing its
@@ -144,8 +144,8 @@ Phases, each printing its lines; the first failure exits non-zero:
     and B8 solves and parity checks of b and c, e's mesh run, B7 against its
     plain version bit for bit (lengths 1, 7, 33*1025 and the full (1024,
     Np+1) buffer, with and without a max zone, then 1000 back-to-back calls
-    on fresh data), the race runs (B6 fixed 1000 steps, adaptive 500, B9
-    1000 steps on a 3-SAT n=300 at B=64, one chunk on the card with no host
+    on fresh data), the race runs (B6 fixed 250 steps, adaptive 125, B9
+    250 steps on a 3-SAT n=300 at B=64, one chunk on the card with no host
     sync against the plain version, bit for bit, v bit-identical), the split
     of B7's standalone call and phase 21's timings share one spawned world,
     as do phase 23's mesh runs; f. at
@@ -213,7 +213,14 @@ Phases, each printing its lines; the first failure exits non-zero:
     beyond the chunk kernel (the decide kernel and the conditional node,
     CUDA events over empty bodies) against the host loop's done read, one
     dispatch of 0 chunks, and phase 6's busy share: its 16 B1 launches
-    times phase 7's B1 time over its loop wall;
+    times phase 7's B1 time over its loop wall; d. the state donated
+    (ops/device_loop.py's contract): B1-B4 host-paced in place equal to
+    out of place (donate=False) bit for bit, each form's time a launch;
+    dispatches over B1, the scan chunk and B3 each from the last one's
+    result equal to the host loop, with no copy and no new capture or graph
+    after the first (B1 none from the first: the pointer block); a result held
+    across a dispatch and a chunk from another state unchanged; the stoch
+    twin's snapshot resumed to the same flips;
 26. the pod mesh (parallel/multihost.py): two CLI processes of one job on
     this host (the CLI's main in ``python -c``, ``--coordinator
     127.0.0.1:<free port> --num-processes 2 --process-id 0|1 --dist-backend
@@ -275,12 +282,12 @@ Phases, each printing its lines; the first failure exits non-zero:
     them) and its call at S=2 (here) and S=4 (phase 20f's world) against
     the plain tree bit for bit, NaN, signed zeros and infinities included;
     a. config 7 B=1024 S=2 f64 on the plain layout, fixed dt=0.01 and
-    adaptive tol 1e-3: ms a step (host clock around 2 chunks of 16 steps)
+    adaptive tol 1e-3: ms a step (host clock around 2 chunks of 8 steps)
     and its reductions' share (a sync before and after each); b. uf250
     B=4096 on a 2x1 mesh, adaptive --dt-mode shared, the same; c. 29a's
     steps under torch.profiler (the card's busy time, B7's part, the host's
     share); the twin step on B7's route equal to torch.distributed's bit
-    for bit over 16 steps, two runs bit-identical, a chunk with no
+    for bit over 8 steps, two runs bit-identical, a chunk with no
     torch.distributed call and no host read; inter on config 7 -b 1024 -s
     0.01 -n 16 --devices 1 --clause-shards 2 --dtype float64 through the
     CLI's mesh solve on both routes: the same steps, solved rows, verdict
@@ -308,8 +315,9 @@ Phases, each printing its lines; the first failure exits non-zero:
 ``python3 chip_smoke.py --time-loop ROOT`` runs, with the port at ROOT (a
 parent tree unpacked beside this one, or this one), phase 6's and phase
 10's hard.cnf runs, the busy share, B1-B4 a launch, phase 24's exact time
-to solution and the host loop's (and, where ROOT has one, the device
-loop's) cost a chunk;
+to solution, the host loop's (and, where ROOT has one, the device loop's)
+cost a chunk and a dispatch of 0 chunks, phase 16b's pallas step, phases
+27d's and 30b's peak memory, and phase 25d where ROOT donates its state;
 ``python3 chip_smoke.py --time-b10 ROOT`` times B10 of the checkout at ROOT
 (a parent tree unpacked beside this one) as phase 17 times this one;
 ``--time-mesh ROOT`` the clause-mesh steps of phase 21 at S=2 and S=4 and
@@ -322,7 +330,7 @@ chunks; ``--time-mesh-loop [host]`` phase 28a alone (both loops, or the
 host loop alone; on a host of several cards one NCCL rank a card);
 ``--twin`` phase 29 alone (on a host of several cards 29a at S=2 and S=4,
 one NCCL rank a card, through B7 and through NCCL's all-reduce);
-``--stoch-scan`` phase 30 alone.
+``--stoch-scan`` phase 30 alone; ``--donation`` phase 25d alone.
 
 The last two lines are the ``kernels`` JSON object (one row per kernel,
 with its bound: the larger of its bytes over 3.35 TB/s and its operations
@@ -490,6 +498,14 @@ def compare(torch, out, ref, tol):
     return worst, None
 
 
+def copied(state):
+    """A copy of ``state``: a chunk runner's call and a dispatch consume
+    their input (the port's donation, ``ops/device_loop.py``), so a check
+    that runs twice from one state gives each call a copy. Written here, not
+    imported, so that ``--time-*`` runs a parent tree too."""
+    return type(state)(*(t.clone() for t in state))
+
+
 def device_ms(torch, fn, iters=40, warmup=1):
     """Device milliseconds a call of ``fn()``: CUDA events around ``iters``
     calls that the host queues behind a sleep on the stream, so the card
@@ -549,7 +565,7 @@ def phase_compare(torch, fc, cases):
                                     rigidity=rigidity, matmul_dtype=mm)
                     zeta = ode.resolve_zeta(fa.density)
                     fn = fc.make_fused_chunk(fa, zeta, ode, 32, "cuda")
-                    out = fn(state)
+                    out = fn(copied(state))
                     ref = fc.fused_chunk_plain(state, fn.spec, 32)
                     torch.cuda.synchronize()
                     err, why = compare(torch, out, ref, EXACT)
@@ -589,7 +605,7 @@ def phase_compare_finishing(torch, fc, uf250, make=None, kernel="B1"):
                     fail(f"finishing, {tag}: no trajectory solved in {steps} steps")
                 state, steps = feed(state), steps + 64
             for _ in range(64):
-                out = fn(state)
+                out = fn(copied(state))
                 ref = fc.fused_chunk_plain(state, fn.spec, 32)
                 torch.cuda.synchronize()
                 err, why = compare(torch, out, ref, EXACT)
@@ -623,7 +639,7 @@ def phase_determinism(torch, fc, hard, uf250):
     ):
         state = random_state(fa, B, seed=7)
         fn = fc.make_fused_chunk(fa, ode.resolve_zeta(fa.density), ode, 256, "cuda")
-        a, b = fn(state), fn(state)
+        a, b = fn(copied(state)), fn(copied(state))
         torch.cuda.synchronize()
         for x, y, name in zip(a, b, a._fields):
             if not torch.equal(x, y):
@@ -878,7 +894,8 @@ def phase_stoch_compare(torch, fc, sc, stoch_cases):
                     if c_bytes != py_bytes:
                         fail(f"{label}: {kernel}'s shared memory {py_bytes} != kernel's "
                              f"{c_bytes} at {R} chains a CTA")
-                    out = launch[kernel](state, spec, steps, 1234567, mm == "bfloat16", lanes=R)
+                    out = launch[kernel](copied(state), spec, steps, 1234567, mm == "bfloat16",
+                                         lanes=R)
                     torch.cuda.synchronize()
                     err, why = stoch_compare(torch, out, ref)
                     tag = f"{label} {kernel} {mm} {steps} steps, {R} chains a CTA"
@@ -917,7 +934,7 @@ def phase_stoch_finishing(torch, sc, planted):
                     fail(f"stoch finishing, {tag}: no chain solved in {steps} steps")
                 state, steps, seed = feed(state, seed), steps + 32, seed + 1
             for _ in range(256):
-                out = fn(state, seed)
+                out = fn(copied(state), seed)
                 ref = stoch_chunk_plain(state, fn.spec, 8, seed, traj_block(B), mm == "bfloat16")
                 torch.cuda.synchronize()
                 err, why = stoch_compare(torch, out, ref)
@@ -948,7 +965,7 @@ def phase_stoch_determinism(torch, sc, hard, n1k):
                                         ("n1k B=8192", n1k, 8192, "stream", 32)):
         state = stoch_state(fa, B, seed=7)
         fn = make_stoch_chunk(fa, steps, kernel, "float32", "cuda")
-        a, b = fn(state, 99), fn(state, 99)
+        a, b = fn(copied(state), 99), fn(copied(state), 99)
         torch.cuda.synchronize()
         for x, y, name in zip(a, b, a._fields):
             if not torch.equal(x, y):
@@ -1156,7 +1173,7 @@ def phase_stream_compare(torch, fc, stc, cases, big):
                                     matmul_dtype=mm)
                     zeta = ode.resolve_zeta(fa.density)
                     fn = stc.make_stream_chunk(fa, zeta, ode, steps, "cuda")
-                    out = fn(state)
+                    out = fn(copied(state))
                     ref = stc.stream_chunk_plain(state, fn.spec, steps)
                     torch.cuda.synchronize()
                     tag = f"{label} {'fixed' if fixed else 'adaptive'} {rigidity} {mm}"
@@ -1167,7 +1184,8 @@ def phase_stream_compare(torch, fc, stc, cases, big):
                     also = ""
                     if fc.fused_supported(fa, fixed):
                         _, why = compare(torch, out, fc.make_fused_chunk(fa, zeta, ode, steps,
-                                                                         "cuda")(state), EXACT)
+                                                                         "cuda")(copied(state)),
+                                         EXACT)
                         if why:
                             fail(f"B2 vs B1, {tag}: {why}")
                         also = ", equals B1"
@@ -1185,7 +1203,7 @@ def phase_stream_determinism(torch, stc, big):
                                        (big[2], ODEConfig())):
         state = random_state(fa, B, seed=7)
         fn = stc.make_stream_chunk(fa, ode.resolve_zeta(fa.density), ode, steps, "cuda")
-        a, b = fn(state), fn(state)
+        a, b = fn(copied(state)), fn(copied(state))
         torch.cuda.synchronize()
         for x, y, name in zip(a, b, a._fields):
             if not torch.equal(x, y):
@@ -1848,7 +1866,7 @@ def config7_instance():
 
 def load_shard_cases(specs, card):
     """Phase 3's formulas compiled for S=1 and S=2, and the config 7
-    instance at S=2 and S=1 (B=1024), S=1 last."""
+    instance at S=2 and S=1 (B=256), S=1 last."""
     from odesat_tpu_torch.cnf import normalize_cnf_variables
     from odesat_tpu_torch.ops.shard_stream import compile_stream_sharded
 
@@ -1864,8 +1882,9 @@ def load_shard_cases(specs, card):
     say(f"[config 7] instance and its S=1 and S=2 compiles in {time.perf_counter() - t0:.3f} s: "
         f"Np={fa7.n_vars_padded}, Mp={fa7.n_clauses_padded}, K={fa7.max_width}, "
         f"{fa7_2.shard_plan.mp_local} clauses a shard at S=2 (host; {card})")
-    out.append(("config 7 S=2 B=1024", fa7_2, 1024))
-    out.append(("config 7 S=1 B=1024", fa7, 1024))
+    # B=256: the shape family's checks at a quarter of the CLI runs' rows
+    out.append(("config 7 S=2 B=256", fa7_2, 256))
+    out.append(("config 7 S=1 B=256", fa7, 256))
     return out, c7, fa7, fa7_2
 
 
@@ -2516,11 +2535,13 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card, loop_calls):
 
 
 RACE_KERNELS = ("shard_chunk", "shard_chunk", "stoch_shard_chunk")
+# the race runs' length: B6 fixed and B9 this many steps, B6 adaptive half
+RACE_STEPS = 250
 
 
 def race_calls(S):
     """The race runs of a world of S ranks (parallel/sharded.fused_against_plain):
-    B6 fixed (1000 steps) and adaptive (500) and B9 (1000 steps), 64 rows,
+    B6 fixed (RACE_STEPS) and adaptive (half of them) and B9 (RACE_STEPS), 64 rows,
     on a random 3-SAT of n=300, m=1200 compiled for S shards, each one chunk
     on the card with no host sync against its plain version."""
     from odesat_tpu_torch.cnf import normalize_cnf_variables
@@ -2530,9 +2551,9 @@ def race_calls(S):
 
     fa = compile_stream_sharded(normalize_cnf_variables(random_ksat(300, 1200, seed=12))[1],
                                 S)[0]
-    return [(sharded.fused_against_plain, (fa, "ode", True, 1000, 64, 1)),
-            (sharded.fused_against_plain, (fa, "ode", False, 500, 64, 2)),
-            (sharded.fused_against_plain, (fa, "stoch", True, 1000, 64, 3))]
+    return [(sharded.fused_against_plain, (fa, "ode", True, RACE_STEPS, 64, 1)),
+            (sharded.fused_against_plain, (fa, "ode", False, RACE_STEPS // 2, 64, 2)),
+            (sharded.fused_against_plain, (fa, "stoch", True, RACE_STEPS, 64, 3))]
 
 
 def report_races(S, values, counts, card):
@@ -2548,7 +2569,8 @@ def report_races(S, values, counts, card):
                  f"replicated {same}, launches {launched}, fused {count['butterfly_fused']}, "
                  f"standalone B7 {count['butterfly']}")
     say(f"[B7 fused] S={S} ranks on one card, the race runs (one chunk with no host sync, 64 "
-        f"rows of a 3-SAT n=300 m=1200): B6 fixed 1000 steps, adaptive 500 and B9 1000 steps "
+        f"rows of a 3-SAT n=300 m=1200): B6 fixed {RACE_STEPS} steps, adaptive "
+        f"{RACE_STEPS // 2} and B9 {RACE_STEPS} steps "
         f"equal their plain versions bit for bit (max abs err {max(v[0] for v in values)}), v "
         f"bit-identical on every rank, every launch after a chunk's first reading the {S} "
         f"ranks' slots itself, no standalone B7 call ({card})")
@@ -3341,10 +3363,10 @@ def loop_case(torch, label, multi, host, state, fields, chunk_steps, bound, coun
     kernel ``counter`` (module, attribute) grown by the chunks run."""
     from odesat_tpu_torch.ops import device_loop as dl
 
-    want, steps = host(state)
+    want, steps = host(copied(state))  # both consume their input: ``state`` serves again
     graphs, (mod, attr) = dl.launches, counter
     before = getattr(mod, attr)
-    got, got_steps = multi(state)
+    got, got_steps = multi(copied(state))
     torch.cuda.synchronize()
     err, why = loop_compare(torch, got, want, fields)
     if why or got_steps != steps:
@@ -3463,7 +3485,8 @@ def loop_iteration_ms(torch, iters=2000):
     """The device loop's cost a chunk beyond the chunk kernel (CUDA events
     around dispatches of ``iters`` empty bodies against dispatches of 0),
     the host loop's (``done.any()`` read on the host a chunk, host clock),
-    and one dispatch of 0 chunks (head, launch, the read of the count), ms."""
+    and one dispatch of 0 chunks (head, launch, the read of the count; the
+    median of 21, host clock), ms."""
     from types import SimpleNamespace
 
     from odesat_tpu_torch.models.loop import run_chunks
@@ -3486,9 +3509,12 @@ def loop_iteration_ms(torch, iters=2000):
         return start.elapsed_time(stop) / reps
 
     per = (graph_ms(iters) - graph_ms(0)) / iters
-    t0 = time.perf_counter()
-    dl.run(chunk, state, 0)
-    empty = (time.perf_counter() - t0) * 1e3
+    empties = []
+    for _ in range(21):
+        t0 = time.perf_counter()
+        dl.run(chunk, state, 0)
+        empties.append((time.perf_counter() - t0) * 1e3)
+    empty = sorted(empties)[10]
     host = run_chunks(lambda st: st, 1, iters)
     host(state)
     t0 = time.perf_counter()
@@ -3540,8 +3566,8 @@ def say_loop_iteration(torch, card, origin="this tree"):
     per, plain, empty = loop_iteration_ms(torch)
     say(f"[device loop timing] {origin}: a chunk's cost beyond the chunk kernel: device loop "
         f"(decide kernel, conditional node) {per:.6f} ms, host loop (done.any() read) "
-        f"{plain:.6f} ms; one dispatch of 0 chunks (head kernel, graph launch, the count read) "
-        f"{empty:.6f} ms ({card})")
+        f"{plain:.6f} ms; one dispatch of 0 chunks (head kernel, graph launch, the count read; "
+        f"median of 21) {empty:.6f} ms ({card})")
     return per, plain
 
 
@@ -3567,13 +3593,224 @@ def phase_loop_timing(torch, card, unsat_wall, b1_ms):
     return per, plain
 
 
+def phase_donation(torch, card):
+    """Phase 25d: the state donated, as JAX donates it (ops/device_loop.py's
+    contract), at the main path's shapes. a. B1-B4 host-paced (hard.cnf
+    B=16384 256 and 64 steps, n1k B=10240 and B=8192 8 steps): a donating
+    runner runs in place and returns its input's tensors, bit for bit what
+    the runner built with donate=False writes into new tensors, which
+    leaves its input as it was; each form's time a launch. b. Dispatches
+    that pass each result back (B1 hard.cnf B=16384, 4 chunks of 256 a
+    dispatch; the scan chunk, pallas fixed hard.cnf B=4096, 2 chunks of
+    64): from the second on no copy into a graph's buffers, no new graph
+    or capture, B1 on the caller's own tensors from the first, each result
+    equal to the host loop's bit for bit; the scan dispatch's time from its
+    own result and from another state (its copy in); B3 (hard.cnf B=16384,
+    4 chunks of 64), whose graphs run on the runner's buffer sets: a copy
+    in at the first dispatch only, one graph. c. A result held
+    across a dispatch and a chunk from another state (B1 and the scan
+    chunk) is unchanged, and the other state's result equals its run alone.
+    d. The stoch twin's snapshot resumes to the same flips (hard.cnf
+    B=4096, 64-step chunks), each run from a copy of the chains it
+    resumes."""
+    from odesat_tpu_torch.models.loop import run_chunks
+    from odesat_tpu_torch.models.ode import (
+        formula_device,
+        make_chunk_runner,
+        make_multi_chunk_runner,
+    )
+    from odesat_tpu_torch.models.stoch import (
+        generator_states,
+        init_stoch_state,
+        make_stoch_chunk_runner,
+        restore_generators,
+    )
+    from odesat_tpu_torch.ops import device_loop as dl
+    from odesat_tpu_torch.ops import fused_chunk as fc
+    from odesat_tpu_torch.ops import scan_chunk
+    from odesat_tpu_torch.ops import stoch_chunk as sc
+    from odesat_tpu_torch.ops import stream_chunk as stc
+    from odesat_tpu_torch.utils.config import ODEConfig
+    from odesat_tpu_torch.utils.timing import cuda_ms
+
+    hard = load_cases_hard()
+    n1k_reduced = preprocessed_n1k()
+    n1k_ode = load_stream_cases(n1k_reduced)[0][1]
+    _, n1k_stoch = load_stoch_cases([], n1k_reduced)
+    fixed = ODEConfig(step_size=0.01)
+
+    def same(label, got, want, fields):
+        _, why = loop_compare(torch, got, want, fields)
+        if why:
+            fail(f"donation {label}: {why}")
+
+    # a. B1-B4 in place against out of place
+    kernels = (
+        ("B1 hard.cnf B=16384 256-step",
+         lambda d: fc.make_fused_chunk(hard, 0.05, fixed, 256, "cuda", d), (),
+         lambda: random_state(hard, 16384, seed=3)),
+        ("B2 n1k B=10240 8-step",
+         lambda d: stc.make_stream_chunk(n1k_ode, 0.05, fixed, 8, "cuda", d), (),
+         lambda: random_state(n1k_ode, 10240, seed=3)),
+        ("B3 hard.cnf B=16384 64-step",
+         lambda d: sc.make_stoch_chunk(hard, 64, "fused", "float32", "cuda", d), (5,),
+         lambda: init_stoch_state(hard, 16384, "cuda")),
+        ("B4 n1k B=8192 8-step",
+         lambda d: sc.make_stoch_chunk(n1k_stoch, 8, "stream", "float32", "cuda", d), (5,),
+         lambda: init_stoch_state(n1k_stoch, 8192, "cuda")),
+    )
+    for label, make, args, fresh in kernels:
+        runs = {d: make(d) for d in (True, False)}
+        state = fresh()
+        entry = copied(state)
+        kept = runs[False](state, *args)
+        torch.cuda.synchronize()
+        same(f"{label}: donate=False changed its input", state, entry, state._fields)
+        ptrs = [t.data_ptr() for t in state]
+        got = runs[True](state, *args)
+        torch.cuda.synchronize()
+        if [t.data_ptr() for t in got] != ptrs:
+            fail(f"donation {label}: the donating runner did not return its input's tensors")
+        same(f"{label} in place against out of place", got, kept, state._fields)
+        ms = {d: cuda_ms(lambda d=d: runs[d](state, *args), iters=10, warmup=2)
+              for d in (True, False)}
+        say(f"[donation] a. {label}: in place (its input's tensors returned) equal to out of "
+            f"place bit for bit; {ms[True]:.6f} ms a launch in place, {ms[False]:.6f} ms out "
+            f"of place ({card})")
+        del state, entry, kept, got, runs
+
+    # b. dispatches from their own results; c. a held result
+    def dispatch_case(kind):
+        if kind == "B1":
+            fa, ode, B, steps, bound = hard, fixed, 16384, 256, 4
+        else:
+            fa, ode, B, steps, bound = hard, scan_ode("pallas", "fixed"), 4096, 64, 2
+        chunk = make_chunk_runner(fa, 0.05, ode, steps, "cuda")
+        multi = make_multi_chunk_runner(fa, 0.05, ode, steps, bound, "cuda", stop_on="all",
+                                        chunk=chunk)
+        dev = formula_device(fa, "cuda")
+        return (chunk, lambda st: multi(st, dev), dev, steps, bound,
+                lambda seed: random_state(fa, B, seed=seed))
+
+    for kind in ("B1", "scan"):
+        chunk, multi, dev, steps, bound, fresh = dispatch_case(kind)
+        host = run_chunks(lambda st: chunk(st, dev), steps, bound, stop_all=True)
+        wants, st = [], fresh(1)
+        for _ in range(3):
+            st = host(st)[0]
+            wants.append(copied(st))
+        del st
+        state = fresh(1)
+        ptrs, loads0 = [t.data_ptr() for t in state], dl.loads
+        state, _ = multi(state)
+        loads, captures, graphs = dl.loads, scan_chunk.captures, len(chunk.loops)
+        for i, want in enumerate(wants):
+            if i:
+                state, _ = multi(state)
+            torch.cuda.synchronize()
+            same(f"{kind} dispatch {i + 1} from its own result", state, want, STATE_FIELDS)
+        if (dl.loads, scan_chunk.captures, len(chunk.loops)) != (loads, captures, graphs):
+            fail(f"donation {kind}: a dispatch from its own result copied ({dl.loads - loads}), "
+                 f"captured ({scan_chunk.captures - captures}) or built a graph "
+                 f"({len(chunk.loops) - graphs})")
+        if kind == "B1" and ([t.data_ptr() for t in state] != ptrs or dl.loads != loads0):
+            fail("donation B1: the dispatches did not run on the caller's own tensors")
+        timing = ""
+        if kind == "scan":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                state, _ = multi(state)
+            torch.cuda.synchronize()
+            own = (time.perf_counter() - t0) / 5 * 1e3
+            other = fresh(2)
+            multi(other)  # a capture of its own: ``state`` holds the first one's buffers
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                multi(other)
+            torch.cuda.synchronize()
+            copy = (time.perf_counter() - t0) / 5 * 1e3
+            timing = (f"; a dispatch from its own result {own:.6f} ms, from another state (its "
+                      f"copy in) {copy:.6f} ms (host clock)")
+            del other
+        first = ", the first too, on the caller's tensors (the pointer block)" \
+            if kind == "B1" else ""
+        say(f"[donation] b. {kind}: 3 dispatches each from the last one's result equal the host "
+            f"loop bit for bit, no copy and no new capture or graph after the first{first}"
+            f"{timing} ({card})")
+        for call, run in (("dispatch", lambda st: multi(st)[0]),
+                          ("chunk", lambda st: chunk(st, dev))):
+            alone = copied(run(fresh(3)))
+            held = run(fresh(2))
+            kept = copied(held)
+            other = run(fresh(3))
+            torch.cuda.synchronize()
+            same(f"{kind} {call}: the held result after a call from another state", held, kept,
+                 STATE_FIELDS)
+            same(f"{kind} {call}: the other state's result against its run alone", other, alone,
+                 STATE_FIELDS)
+            del alone, held, kept, other
+        say(f"[donation] c. {kind}: a result held across a dispatch and a chunk from another "
+            f"state is unchanged bit for bit; the other state's results equal their runs alone")
+        del state, wants, chunk, multi, host
+
+    # b. B3 (its graphs on the runner's buffer sets): dispatches from their
+    # own results against the host loop over a generator of the same seed
+    from odesat_tpu_torch.models.stoch import make_multi_stoch_runner
+
+    gens = [torch.Generator().manual_seed(13) for _ in range(2)]
+    chunks = [make_stoch_chunk_runner(hard, 64, "cuda", g, fused="on") for g in gens]
+    host = run_chunks(chunks[0], 64, 4)
+    multi = make_multi_stoch_runner(chunks[1], 64, 4)
+    want, state = init_stoch_state(hard, 16384, "cuda"), init_stoch_state(hard, 16384, "cuda")
+    for i in range(3):
+        want = host(want)[0]
+        loads = dl.loads
+        state, _ = multi(state)
+        torch.cuda.synchronize()
+        same(f"B3 dispatch {i + 1} from its own result", state, want, ("v", "xl", "done"))
+        if i and dl.loads != loads:
+            fail("donation B3: a dispatch from its own result copied its state in")
+        graphs = len(chunks[1].loops)
+    if graphs != 1:
+        fail(f"donation B3: {graphs} graphs for dispatches from their own results")
+    say(f"[donation] b. B3 hard.cnf B=16384: 3 dispatches each from the last one's result equal "
+        f"the host loop bit for bit; one graph, on the runner's buffer set, a copy in at the "
+        f"first dispatch only ({card})")
+    del chunks, host, multi, want, state
+
+    # d. the stoch twin's snapshot
+    chunk = make_stoch_chunk_runner(hard, 64, "cuda", torch.Generator().manual_seed(0),
+                                    fused="off")
+    mid = chunk(chunk(init_stoch_state(hard, 4096, "cuda")))
+    saved = generator_states(torch.Generator(), chunk)
+    want = chunk(chunk(copied(mid)))
+    final = chunk.device_generator.get_state()
+    fresh_runner = make_stoch_chunk_runner(hard, 64, "cuda", torch.Generator().manual_seed(8),
+                                           fused="off")
+    for runner in (chunk, fresh_runner):
+        restore_generators(saved, torch.Generator(), runner)
+        got = runner(runner(copied(mid)))
+        torch.cuda.synchronize()
+        same("the stoch twin resumed from its snapshot", got, want, ("v", "xl", "done"))
+        if not torch.equal(runner.device_generator.get_state(), final):
+            fail("donation: the stoch twin's device generator differs after the resumed chunks")
+    say(f"[donation] d. the stoch twin (hard.cnf B=4096, 64-step chunks): its snapshot resumed "
+        f"in the same runner and in one built anew gives the same flips and generator state bit "
+        f"for bit ({card})")
+
+
 def time_loop(root):
     """``--time-loop ROOT``: with the port of the checkout at ROOT (a parent
     tree unpacked beside this one, or this one), phase 6's inter runs on
     hard.cnf (f32, bf16) and its busy share, phase 10's stoch runs on
     hard.cnf, B1-B4 per launch at phases 7, 11 and 14's shapes, phase 24's
     exact time to solution on uf250 seeds 0-2, and the host loop's cost a
-    chunk; this tree's device loop's where ROOT has one."""
+    chunk; this tree's device loop's where ROOT has one (a chunk's cost and
+    a dispatch of 0 chunks); phase 16b's fixed pallas step, host-paced and
+    captured; phases 27d's and 30b's peak memory, of their CLI runs and in
+    process; and phase 25d where ROOT donates its state."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3661,6 +3898,26 @@ def time_loop(root):
             f"{(time.perf_counter() - t0) * 1e3 / 2000:.6f} ms ({card})")
     else:
         say_loop_iteration(torch, card, origin)
+    # phase 16b's fixed pallas step, host-paced and captured
+    from odesat_tpu_torch.ops import rhs_kernel as rk
+
+    host_ms, captured_ms = step_walls(torch, hard, ODEConfig(step_size=0.01, dv_strategy="pallas"),
+                                      4096)[:2]
+    say(f"[loop timing] {origin}: 16b hard.cnf B=4096 fixed --dv-strategy pallas: a step's "
+        f"wall {captured_ms:.6f} ms captured (8 calls of the 64-step scan chunk, copies "
+        f"included), {host_ms:.6f} ms host-paced (host clock) ({card})")
+    # 27d and 30b: their CLI runs' and in-process peaks (the phases' own lines)
+    phase_scan_full_width(torch, fc, stc, rk, card)
+    from odesat_tpu_torch.cnf import compile_formula, normalize_cnf_variables
+
+    w = FULL_WIDTH
+    formula, path = full_width_formula()
+    stoch_scan_cli(torch, sc, f"30b n={w['n']} m={w['m']}", path, w["B"], 2 * STOCH_SCAN_CHUNK,
+                   ["--chunk-steps", str(STOCH_SCAN_CHUNK)], card)
+    fa = compile_formula(normalize_cnf_variables(formula)[1])
+    stoch_scan_case(torch, f"30b n={w['n']}", fa, w["B"], 1, card)
+    if hasattr(device_loop, "StateBuffers"):  # 25d where the tree donates its state
+        phase_donation(torch, card)
     return 0
 
 
@@ -4152,7 +4409,7 @@ def phase_mesh_loop(cases, labels, values, reports, card):
 
 # ------------------- the mesh twin step's reductions on B7 (phase 29)
 
-TWIN_STEPS = 16
+TWIN_STEPS = 8
 TWIN_MODES = (("fixed", dict(step_size=0.01)), ("adaptive", dict(tolerance=1e-3)))
 TWIN_C7_ARGV = ("--devices", "1", "--clause-shards", "2", "--dtype", "float64",
                 "--dist-backend", "gloo")
@@ -4700,7 +4957,9 @@ def phase_scan_compare(torch, rk, hard, uf250, card):
                     for _ in range(16):
                         want = step(want, dev)
                     before = (scan_chunk.launches, rk.launches)
-                    got, again = chunk(state, dev), chunk(state, dev)
+                    # the first result copied and dropped: its buffers serve again
+                    got = copied(chunk(state, dev))
+                    again = chunk(state, dev)
                     torch.cuda.synchronize()
                     case = f"{label} {strategy} {mode} {dtype}"
                     err, why = loop_compare(torch, got, want, STATE_FIELDS)
@@ -4853,6 +5112,7 @@ def phase_scan_full_width(torch, fc, stc, rk, card):
         f"{capture:.6f} s, peak memory {peak} B ({peak / 2**30:.3f} GiB) ({card})")
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     dev = formula_device(fa, "cuda")
     state = init_state(fa, w["B"], torch.Generator(device="cuda").manual_seed(0), ode, "cuda")
     step = make_step_fn(fa, zeta, ode, device="cuda")
@@ -4879,10 +5139,12 @@ def phase_scan_full_width(torch, fc, stc, rk, card):
     _, why = loop_compare(torch, again, want, STATE_FIELDS)
     if why:
         fail(f"n={w['n']} B={w['B']}: two replays of the captured 8-step chunk differ: {why}")
+    peak = torch.cuda.max_memory_allocated()
     say(f"[scan full width] 8 steps at B={w['B']}: the captured chunk equal to the steps "
         f"launched one by one bit for bit (max abs err {err}), twice; a step launched one by one "
         f"{eager:.6f} ms, in the captured chunk {captured:.6f} ms (copies included), "
-        f"{captured / eager:.4f} of it (host clock, ending in a sync) ({card})")
+        f"{captured / eager:.4f} of it (host clock, ending in a sync); peak memory in process "
+        f"{peak} B ({peak / 2**30:.3f} GiB) ({card})")
     del again, want, state, chunk, step, dev
     gc.collect()
     torch.cuda.empty_cache()
@@ -5137,6 +5399,7 @@ def stoch_scan_case(torch, label, fa, B, calls, card):
     want = stoch_host_paced(torch, step, want, n, host, Np)
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) / n * 1e3
+    kept = copied(first)  # the next call consumes ``first``; the resume starts from it
     t0 = time.perf_counter()
     second = runner(first)
     torch.cuda.synchronize()
@@ -5149,7 +5412,7 @@ def stoch_scan_case(torch, label, fa, B, calls, card):
     resumed_runner = make_stoch_chunk_runner(fa, n, "cuda", torch.Generator().manual_seed(2),
                                              fused="off")
     restore_generators(saved, torch.Generator(), resumed_runner)
-    resumed = resumed_runner(first)
+    resumed = resumed_runner(kept)
     err = max(err, stoch_scan_check(torch, f"{label} resumed from the snapshot after chunk 1",
                                     resumed, second, resumed_runner, runner.device_generator))
     del resumed, resumed_runner
@@ -5194,7 +5457,7 @@ def stoch_scan_case(torch, label, fa, B, calls, card):
         + (f"; the 64-step graph's replay alone {out['replay_ms']:.6f} ms "
            f"({out['replay_ms'] / n:.6f} ms a step, device time)" if "replay_ms" in out else "")
         + f" ({card})")
-    del first, second, state, runner, step
+    del first, kept, second, state, runner, step
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -5250,6 +5513,22 @@ def stoch_scan_alone():
     return 0
 
 
+def donation_alone():
+    """``--donation``: phase 25d alone (it builds B1-B4 and the loop at
+    first use)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script only runs on a GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    card = phase_device(torch)
+    t0 = time.perf_counter()
+    phase_donation(torch, card)
+    say(f"[done] phase 25d passed in {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def main():
     if sys.argv[1:2] == ["--time-b10"]:
         return time_b10(sys.argv[2])
@@ -5269,6 +5548,8 @@ def main():
         return time_mesh_loop(tuple(sys.argv[2:3]) or ("host", "device"))
     if sys.argv[1:2] == ["--stoch-scan"]:
         return stoch_scan_alone()
+    if sys.argv[1:2] == ["--donation"]:
+        return donation_alone()
     import torch
 
     if not torch.cuda.is_available():
@@ -5348,8 +5629,11 @@ def main():
 
     shard_cases, c7, fa7, fa7_2 = load_shard_cases(specs, card)
     b5_worst = phase_shard_compare(torch, ss, shard_cases)
+    clock("phase 18 B5")
     b6_worst = phase_shard_chunk_compare(torch, sch, ss, shard_cases)
+    clock("phase 18 B6")
     b8_worst = phase_stoch_shard_compare(torch, sc, shard_cases)
+    clock("phase 19 B8")
     b9_worst = phase_stoch_shard_chunk_compare(torch, sc, shard_cases)
     clock("phases 18-19 (B5, B6, B8, B9 against their plain versions)")
     b7_tree64_err = b7_tree_f64_check(torch, card)
@@ -5379,6 +5663,8 @@ def main():
     loop_ms, loop_plain = phase_loop_timing(torch, card, unsat_wall,
                                             times[("hard.cnf B=16384", "fixed")][0])
     clock("phase 25 (the device loop)")
+    phase_donation(torch, card)
+    clock("phase 25d (the state donated)")
     pod_launches = phase_pod(card)
     clock("phase 26 (the pod mesh)")
     scan_worst = max(phase_scan_compare(torch, rk, hard, uf250, card),

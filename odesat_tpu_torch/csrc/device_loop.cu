@@ -68,6 +68,15 @@
 // empty, child-graph and conditional nodes; device_loop_add_graph walks the
 // child graph and refuses any other node, naming its type.
 //
+// The state a dispatch runs on (ops/device_loop.py): B1's and B2's graphs
+// read its buffers' addresses from a pointer block on the card, which the
+// host writes with the bound before each launch, and the head kernel reads
+// the done flags through it. So the graph runs in place on the caller's own
+// buffers, whichever they are, as XLA runs a while loop on a donated buffer;
+// nothing is copied in or out. B3's, B4's and the scan chunk's graphs hold
+// their buffers' addresses themselves; their loops read done there
+// directly.
+//
 // The chunk kernels write a constant 1 to the stop word (order-free, no
 // float atomics), so the body's outcome does not depend on the order of
 // the CTAs. The host writes ctrl[BOUND] before each launch and reads
@@ -188,9 +197,9 @@ __device__ bool stopped_by(const unsigned char* done, int B, int stop_all) {
 }
 
 __global__ void __launch_bounds__(kHeadThreads)
-    loop_head_kernel(int* ctrl, const unsigned char* done, int B, int stop_all, Peers peers,
-                     cudaGraphConditionalHandle handle) {
-  const bool stopped = stopped_by(done, B, stop_all);
+    loop_head_kernel(int* ctrl, const unsigned char* done, const unsigned char* const* done_at,
+                     int B, int stop_all, Peers peers, cudaGraphConditionalHandle handle) {
+  const bool stopped = stopped_by(done_at != nullptr ? *done_at : done, B, stop_all);
   if (threadIdx.x == 0) {
     ctrl[kRan] = 0;
     ctrl[kStop] = 0;
@@ -289,13 +298,15 @@ void destroy(Loop* loop) {
 
 extern "C" {
 
-// The graph up to its body: the head node reading `done` (B bytes) and the
-// WHILE node after it. `ctrl` is the loop's int32 control block (six
+// The graph up to its body: the head node reading `done` (B bytes; or,
+// where `done_at` is not null, the buffer whose address the dispatch
+// writes there, the pointer block's) and the WHILE node after it. `ctrl` is the loop's int32 control block (six
 // words, on the device). On a trajectory mesh `pages` holds the n >= 2
 // ranks' exchange pages (rank order; this rank's own at `rank`) and
 // `timeout_ns` bounds each exchange's wait; n = 0 off a mesh. On success
 // *out holds the loop; returns a cudaError_t code.
-int device_loop_create(void** out, int* ctrl, const unsigned char* done, int B, int stop_all,
+int device_loop_create(void** out, int* ctrl, const unsigned char* done,
+                       const unsigned char* const* done_at, int B, int stop_all,
                        void* const* pages, int n, int rank, unsigned long long timeout_ns) {
   *out = nullptr;
   if (B < 0 || n < 0 || n == 1 || n > kMaxPeers || (n > 0 && (rank < 0 || rank >= n)))
@@ -317,8 +328,8 @@ int device_loop_create(void** out, int* ctrl, const unsigned char* done, int B, 
   if (err == cudaSuccess) err = cudaGraphConditionalHandleCreate(&loop->handle, loop->graph, 0, 0);
   cudaGraphNode_t head = nullptr;
   if (err == cudaSuccess) {
-    void* args[] = {&loop->ctrl, const_cast<unsigned char**>(&done), &B, &loop->stop_all,
-                    &loop->peers, &loop->handle};
+    void* args[] = {&loop->ctrl, const_cast<unsigned char**>(&done), &done_at, &B,
+                    &loop->stop_all, &loop->peers, &loop->handle};
     cudaKernelNodeParams kp = {};
     kp.func = reinterpret_cast<void*>(loop_head_kernel);
     kp.gridDim = dim3(1);

@@ -42,9 +42,9 @@ size_t fused_chunk_smem_bytes(int Np, int Mp, int K, int nnz, int fixed, int R) 
 // `segs` (nseg, 4) lists the clause ranges [m0, m1), the width their slots
 // lie below and where their trailing padded clauses start
 // (ops/fused_chunk.py::clause_segments). `stop` (null: none) and
-// `stop_all` are the device loop's stop hook (ode_lanes.cuh State); the
-// state in and out may be the same buffers. Returns a cudaError_t code
-// (0 = launched).
+// `stop_all` are the device loop's stop hook and `at` (null: none) its
+// pointer block (ode_lanes.cuh State); the state in and out may be the
+// same buffers. Returns a cudaError_t code (0 = launched).
 int fused_chunk_launch(const float* v_in, const float* xs_in, const float* xl_in,
                        const float* dt_in, const unsigned char* done_in, float* v_out,
                        float* xs_out, float* xl_out, float* dt_out, unsigned char* done_out,
@@ -52,9 +52,9 @@ int fused_chunk_launch(const float* v_in, const float* xs_in, const float* xl_in
                        const int* segs, int nseg, int B, int Np, int Mp, int K, int nnz,
                        int chunk_steps, int fixed, int paper, int bf16, int R, int threads,
                        float zeta, float dt_fixed, float tol, float xl_cap, int* stop,
-                       int stop_all, void* stream) {
+                       int stop_all, void* const* at, void* stream) {
   const lanes::State st{v_in,   xs_in,  xl_in,  dt_in,    done_in, v_out, xs_out,
-                        xl_out, dt_out, done_out, nullptr, stop,    stop_all};
+                        xl_out, dt_out, done_out, nullptr, stop,    stop_all, at};
   const lanes::Formula f{lit_code, occ_ptr, occ_slot, nullptr, segs, Np, Mp, K, nnz, nseg};
   const lanes::Scalars s{zeta, dt_fixed, tol, xl_cap};
   const size_t smem = lanes::smem_bytes(true, fixed != 0, Np, Mp, K, nnz, R);

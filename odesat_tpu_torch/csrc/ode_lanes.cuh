@@ -108,6 +108,12 @@ struct Scalars {
 // or with `stop_all` a lane that leaves it not done ("keep going"). Padded
 // lanes never store. A store of a constant, so the CTAs' order does not
 // matter.
+//
+// `at`, when not null, is the device loop's pointer block
+// (ops/device_loop.py): the state's five buffers, v, xs, xl, dt and done,
+// as device addresses, which the kernel reads (at_or) in place of the
+// in and out pointers and runs the chunk in place on. A graph captured
+// once then runs on whatever buffers a dispatch names there.
 struct State {
   const float* v_in;
   const float* xs_in;
@@ -122,7 +128,20 @@ struct State {
   float* scratch;
   int* stop = nullptr;
   int stop_all = 0;
+  void* const* at = nullptr;
 };
+
+// Field i of the state: its own pointer `own`, or, where the launch has the
+// pointer block `at`, the address the block holds. A volatile load where
+// the field is used, at the chunk's entry or exit, so the compiler keeps no
+// address from the block live across the chunk's steps, which then compile
+// as they do without one (B1 within 0.2% of its time before the block,
+// PERF.md).
+template <typename T>
+__device__ __forceinline__ T* at_or(void* const* at, int i, T* own) {
+  if (at == nullptr) return own;
+  return static_cast<T*>(*reinterpret_cast<void* const volatile*>(at + i));
+}
 
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   // fmaxf/fminf ignore NaN like jnp.fmax/fmin and Rust's f64::max/min
@@ -494,10 +513,12 @@ __global__ void __launch_bounds__(kMaxThreads)
       d1s = fv + Np * R;
       d1l = d1s + Mp * R;
     }
+    const float* xs_in = at_or(st.at, 1, st.xs_in);
+    const float* xl_in = at_or(st.at, 2, st.xl_in);
     for (int j = tid; j < Mp * R; j += T) {
       const int m = j >> lg_r, t = tile_id * R + (j & (R - 1));
-      io.xs[j] = t < B ? st.xs_in[static_cast<size_t>(t) * Mp + m] : 0.0f;
-      io.xl[j] = t < B ? st.xl_in[static_cast<size_t>(t) * Mp + m] : 0.0f;
+      io.xs[j] = t < B ? xs_in[static_cast<size_t>(t) * Mp + m] : 0.0f;
+      io.xl[j] = t < B ? xl_in[static_cast<size_t>(t) * Mp + m] : 0.0f;
     }
   } else {
     v = base;
@@ -512,19 +533,21 @@ __global__ void __launch_bounds__(kMaxThreads)
       fv = d1l + Mp * R;
     }
     if (valid) {
-      io.xs_row = st.xs_in + static_cast<size_t>(traj) * Mp;
-      io.xl_row = st.xl_in + static_cast<size_t>(traj) * Mp;
-      io.xs_orow = st.xs_out + static_cast<size_t>(traj) * Mp;
-      io.xl_orow = st.xl_out + static_cast<size_t>(traj) * Mp;
+      io.xs_row = at_or(st.at, 1, st.xs_in) + static_cast<size_t>(traj) * Mp;
+      io.xl_row = at_or(st.at, 2, st.xl_in) + static_cast<size_t>(traj) * Mp;
+      io.xs_orow = at_or(st.at, 1, st.xs_out) + static_cast<size_t>(traj) * Mp;
+      io.xl_orow = at_or(st.at, 2, st.xl_out) + static_cast<size_t>(traj) * Mp;
     }
   }
+  const float* v_in = at_or(st.at, 0, st.v_in);
   for (int j = tid; j < Np * R; j += T) {
     const int i = j >> lg_r, t = tile_id * R + (j & (R - 1));
-    v[j] = t < B ? st.v_in[static_cast<size_t>(t) * Np + i] : 0.0f;
+    v[j] = t < B ? v_in[static_cast<size_t>(t) * Np + i] : 0.0f;
   }
   for (int j = tid; j < red_words(R); j += T) unsat[j] = 0;
-  float dt = valid ? st.dt_in[traj] : 0.0f;
-  unsigned done = lane_mask(!valid || st.done_in[traj] != 0, R);  // padded lanes are done
+  float dt = valid ? at_or(st.at, 3, st.dt_in)[traj] : 0.0f;
+  // padded lanes are done
+  unsigned done = lane_mask(!valid || at_or(st.at, 4, st.done_in)[traj] != 0, R);
   float* const xs_t = io.xs + r;  // the lane's column of the tile's (Mp, R) blocks
   float* const xl_t = io.xl + r;
   if (GLOBAL && !valid)  // a padded lane reads its tile column from the first step on
@@ -616,23 +639,26 @@ __global__ void __launch_bounds__(kMaxThreads)
     }
   }
 
+  float* const v_out = at_or(st.at, 0, st.v_out);
   for (int j = tid; j < Np * R; j += T) {
     const int i = j >> lg_r, t = tile_id * R + (j & (R - 1));
-    if (t < B) st.v_out[static_cast<size_t>(t) * Np + i] = v[j];
+    if (t < B) v_out[static_cast<size_t>(t) * Np + i] = v[j];
   }
   if constexpr (RESIDENT) {
+    float* const xs_out = at_or(st.at, 1, st.xs_out);
+    float* const xl_out = at_or(st.at, 2, st.xl_out);
     for (int j = tid; j < Mp * R; j += T) {
       const int m = j >> lg_r, t = tile_id * R + (j & (R - 1));
       if (t < B) {
-        st.xs_out[static_cast<size_t>(t) * Mp + m] = io.xs[j];
-        st.xl_out[static_cast<size_t>(t) * Mp + m] = io.xl[j];
+        xs_out[static_cast<size_t>(t) * Mp + m] = io.xs[j];
+        xl_out[static_cast<size_t>(t) * Mp + m] = io.xl[j];
       }
     }
   }
   if (tid < R && valid) {
     const bool lane_done = (done >> r) & 1u;
-    st.dt_out[traj] = dt;
-    st.done_out[traj] = lane_done ? 1 : 0;
+    at_or(st.at, 3, st.dt_out)[traj] = dt;
+    at_or(st.at, 4, st.done_out)[traj] = lane_done ? 1 : 0;
     if (st.stop != nullptr && lane_done != (st.stop_all != 0)) *st.stop = 1;
   }
 }

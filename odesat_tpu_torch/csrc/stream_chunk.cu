@@ -1266,7 +1266,7 @@ size_t stream_chunk_scratch_floats(int Np, int Mp, int nnz, int fixed, int R) {
 }
 
 // B2. `scratch` holds stream_chunk_scratch_floats(...) floats for each of
-// the ceil(B / R) tiles; `segs`, `stop` and `stop_all` as for B1
+// the ceil(B / R) tiles; `segs`, `stop`, `stop_all` and `at` as for B1
 // (fused_chunk_launch). Returns a cudaError_t code (0 = launched).
 int stream_chunk_launch(const float* v_in, const float* xs_in, const float* xl_in,
                         const float* dt_in, const unsigned char* done_in, float* v_out,
@@ -1275,11 +1275,11 @@ int stream_chunk_launch(const float* v_in, const float* xs_in, const float* xl_i
                         const int* segs, int nseg, float* scratch, int B, int Np, int Mp, int K,
                         int nnz, int chunk_steps, int fixed, int paper, int bf16, int R,
                         int threads, float zeta, float dt_fixed, float tol, float xl_cap,
-                        int* stop, int stop_all, void* stream) {
+                        int* stop, int stop_all, void* const* at, void* stream) {
   const size_t smem = lanes::smem_bytes(false, fixed != 0, Np, Mp, K, nnz, R);
   if (smem > static_cast<size_t>(smem_optin())) return static_cast<int>(cudaErrorInvalidValue);
   const lanes::State st{v_in,   xs_in,  xl_in,  dt_in,    done_in, v_out, xs_out,
-                        xl_out, dt_out, done_out, scratch, stop,    stop_all};
+                        xl_out, dt_out, done_out, scratch, stop,    stop_all, at};
   const lanes::Formula f{lit_code, occ_ptr, nullptr, slot_pos, segs, Np, Mp, K, nnz, nseg};
   const lanes::Scalars s{zeta, dt_fixed, tol, xl_cap};
   return lanes::launch<false>(st, f, s, B, R, threads, chunk_steps, fixed != 0, paper != 0,

@@ -59,6 +59,15 @@ def device_dispatch_plan(config, steps_budget):
     return eligible, dispatch
 
 
+def copy_state(state):
+    """A copy of ``state``, every field cloned: what a caller that needs its
+    entry state after a call that consumes it (a chunk runner's, a
+    dispatch's: ``ops/device_loop.py``'s contract) passes to the call, as
+    JAX's callers pass ``jax.tree.map(jnp.copy, state)`` to a donating
+    one."""
+    return type(state)(*(t.clone() for t in state))
+
+
 def run_chunks(chunk, chunk_steps: int, max_chunks: int, stop_all: bool = False, sync=None):
     """``run(state) -> (state, steps_advanced)`` running up to
     ``max_chunks`` calls of ``chunk(state) -> state`` of ``chunk_steps``

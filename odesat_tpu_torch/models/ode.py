@@ -387,10 +387,15 @@ def resolve_strategy(fa: FormulaArrays, ode: ODEConfig, device) -> str:
 
 
 def make_chunk_runner(
-    fa: FormulaArrays, zeta: float, ode: ODEConfig, chunk_steps: int, device
+    fa: FormulaArrays, zeta: float, ode: ODEConfig, chunk_steps: int, device,
+    donate: bool = True,
 ):
     """``run(state, dev) -> state`` advancing every trajectory by
-    ``chunk_steps`` steps (solved trajectories stay frozen).
+    ``chunk_steps`` steps (solved trajectories stay frozen). The call
+    consumes its input, as JAX's donated one (JAX :350-356): on the card it
+    runs in place, and a caller that needs the entry state afterwards copies
+    it first (``models/loop.copy_state``) or builds the runner with
+    ``donate=False`` (JAX's ``donate=False``), which leaves its input.
 
     ``dv_strategy='fused'`` runs the whole chunk as one launch of the
     resident CUDA kernel B1 (ops/fused_chunk.py), ``'stream'`` as one launch
@@ -411,16 +416,16 @@ def make_chunk_runner(
     if strategy == "fused":
         from odesat_tpu_torch.ops.fused_chunk import make_fused_chunk
 
-        return make_fused_chunk(fa, zeta, ode, chunk_steps, device)
+        return make_fused_chunk(fa, zeta, ode, chunk_steps, device, donate)
     if strategy == "stream":
         from odesat_tpu_torch.ops.stream_chunk import make_stream_chunk
 
-        return make_stream_chunk(fa, zeta, ode, chunk_steps, device)
+        return make_stream_chunk(fa, zeta, ode, chunk_steps, device, donate)
 
     from odesat_tpu_torch.ops.scan_chunk import make_scan_chunk
 
     step = make_step_fn(fa, zeta, dataclasses.replace(ode, dv_strategy=strategy), device=device)
-    return make_scan_chunk(step, chunk_steps, device)
+    return make_scan_chunk(step, chunk_steps, device, donate)
 
 
 def make_multi_chunk_runner(
@@ -444,7 +449,8 @@ def make_multi_chunk_runner(
     runs the host loop of ``models/loop.run_chunks``, the device loop's
     plain version (a mesh's dispatch: ``parallel/sharded.
     make_sharded_multi_runner``). ``chunk`` reuses an already built chunk
-    runner."""
+    runner. A dispatch consumes its input, as JAX's (``donate_argnums=0``,
+    JAX :481, :538)."""
     from odesat_tpu_torch.models.loop import run_chunks
     from odesat_tpu_torch.ops import device_loop
 

@@ -240,8 +240,11 @@ def make_stoch_chunk_runner(
     generator: torch.Generator,
     fused: str = "auto",
     matmul_dtype: str = "float32",
+    donate: bool = True,
 ):
     """``run(state) -> state`` advancing every chain ``chunk_steps`` steps.
+    The call consumes its input, as JAX's donated one (JAX :189-235;
+    ``donate=False`` leaves it).
 
     Kernels (B3 or B4, :func:`resolve_kernel`) take one 31-bit seed per
     launch from ``generator``, a CPU ``torch.Generator``; their runner is a
@@ -256,7 +259,7 @@ def make_stoch_chunk_runner(
     if kind != "scan":
         from odesat_tpu_torch.ops.stoch_chunk import make_stoch_chunk
 
-        fn = make_stoch_chunk(fa, chunk_steps, kind, matmul_dtype, device)
+        fn = make_stoch_chunk(fa, chunk_steps, kind, matmul_dtype, device, donate)
         return dataclasses.replace(fn, fn=lambda state: fn(state, draw_seed(generator)),
                                    generator=generator)
 
@@ -265,7 +268,7 @@ def make_stoch_chunk_runner(
     dev_gen = torch.Generator(device=device)
     dev_gen.manual_seed(int(torch.randint(0, 2**63 - 1, (1,), generator=generator)))
     return StochScanChunk(make_stoch_step(fa, device), chunk_steps, device, dev_gen,
-                          fa.n_vars_padded)
+                          fa.n_vars_padded, donate)
 
 
 def generator_states(generator: torch.Generator, runner, mesh=None, device=None) -> dict:

@@ -2,9 +2,9 @@
 copy of the JAX package's C++ source.
 
 The port of ``odesat_tpu.native``: ``csrc/odesat_native.cc`` is a copy of
-``odesat_tpu/native/odesat_native.cc`` (DIMACS parser and preprocessor),
-compiled with the same g++ flags and never imported through
-``odesat_tpu`` (which would import jax). The library goes into ``odesat_tpu_torch/csrc/_build/``
+``odesat_tpu/native/odesat_native.cc`` (DIMACS parser, preprocessor and
+the single-core CPU baseline solver), compiled with the same g++ flags
+and never imported through ``odesat_tpu`` (which would import jax). The library goes into ``odesat_tpu_torch/csrc/_build/``
 (listed in ``.gitignore``), keyed on a hash of the source, the flags and
 the host's CPU, since ``-march=native`` ties a build to the CPU that made
 it.
@@ -106,6 +106,11 @@ def _declare(lib) -> None:
         i32p, i64p, ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
         ctypes.POINTER(i32p), ctypes.POINTER(i64p), i64p, i64p,
         ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)), i64p,
+    ]
+    lib.odesat_baseline_steps_per_sec.restype = ctypes.c_double
+    lib.odesat_baseline_steps_per_sec.argtypes = [
+        i32p, i64p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_double,
+        ctypes.c_double, ctypes.c_uint64,
     ]
 
 
@@ -275,3 +280,19 @@ def preprocess_native(formula: CNFFormula, target_ratio: float = 7.0):
     Python path of ``odesat_tpu_torch.preprocess.preprocess_formula``."""
     reduced, blob = preprocess_native_raw(formula, target_ratio)
     return reduced, decode_trace(blob)
+
+
+def baseline_steps_per_sec(
+    formula: CNFFormula, steps: int = 20000, dt: float = 0.01, zeta: float = 0.001, seed: int = 1
+) -> float:
+    """Single-core CPU ODE throughput (steps/s) on a *normalized* formula:
+    the library's own Euler solver, the measured stand-in for the unrunnable
+    Rust reference (JAX ``odesat_tpu/native/__init__.py:267``). Raises
+    RuntimeError when the library is unavailable."""
+    lib = _require()
+    lits, offsets = _encode(formula)
+    return lib.odesat_baseline_steps_per_sec(
+        lits.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        formula.num_clauses, formula.varnum, steps, dt, zeta, seed,
+    )

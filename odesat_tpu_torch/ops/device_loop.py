@@ -24,17 +24,50 @@ one-thread decide kernel then counts the chunk and re-arms the node. The
 host writes the bound before a launch and reads the count after it: one
 word a dispatch, where the host loop read the done flags after every
 chunk. The kernels run in place (each CTA reads its rows before its first
-barrier and writes them after its last), so a chunk needs no copy. A
-dispatch copies the incoming state into the loop's buffers and returns a
-copy of them, so what it returns stays the caller's.
+barrier and writes them after its last), so a chunk needs no copy.
+
+The state is donated, as JAX donates it (``jax.jit(...,
+donate_argnums=0)`` on every multi-chunk runner and, by default, on every
+chunk runner: ``odesat_tpu/models/ode.py:350-423``, ``:481``, ``:538``).
+The contract, for every runner whose chunk is a :class:`KernelChunk` (B1-B4
+host-paced or in this loop, the scan chunk, the stoch twin's scan chunk,
+the trajectory mesh's dispatches):
+
+* A call consumes its input, as JAX's donated argument: a chunk runner's
+  call or a dispatch may return a state that shares memory with its input,
+  and the input's values are then gone. A caller that needs the entry
+  state afterwards copies it first (``models/loop.copy_state``), where JAX does
+  (``odesat_tpu/utils/tts.py:197, 206, 224``); a runner built with
+  ``donate=False`` (JAX's ``donate=False``) leaves its input as it was.
+* Results stay the caller's: a result the caller still holds is never
+  changed by a later call of the same runner from another state.
+* The plain versions on the CPU may stay out of place (donation allows
+  reuse, it does not require it); callers must not depend on either.
+
+B1 and B2 have no buffers of their own: the graph's kernel reads the
+state's buffer addresses from a pointer block on the card
+(``csrc/ode_lanes.cuh`` State), which a dispatch writes beside the bound in
+the same copy, and the head kernel reads the done flags through it. A
+dispatch runs in place on the caller's own tensors and returns them: no
+copy in, none out, and a held result is not touched by a dispatch from
+another state, because that one runs on the other state's tensors. Read
+through such a block, B3 and B4 compiled 2-3% slower a launch (their
+registers and schedule changed; PERF.md), so their graphs, like the scan
+chunk's below, run on buffer sets of the runner's (:class:`BufferSets`).
 
 The scan tier's chunk is many kernels, captured by torch into a graph that
-runs in place on its own buffers (``KernelChunk.buffers`` hands them to the
-loop). Its body is that graph as a child graph node, which a conditional
-body may hold as long as it holds only kernel, memset, device-to-device
-copy, empty, child-graph and conditional nodes (checked: the loop's build
-raises otherwise), then a stop kernel that reduces ``done`` into the stop
-word by the head kernel's any/all rule.
+runs in place on buffers whose addresses it holds itself
+(``ops/scan_chunk.py``). ``KernelChunk.buffers`` hands the loop the
+:class:`StateBuffers` a dispatch runs on, for B3, B4 and the scan chunk: a
+dispatch from the state it returned last runs in place on it, with no
+copy; one from another state copies it into buffers that no result still
+referenced holds, a new set (for the scan chunk, a new capture) only when
+every set of the shape holds one (:func:`pick`). The scan chunk's body is
+that graph as a child graph
+node, which a conditional body may hold as long as it holds only kernel,
+memset, device-to-device copy, empty, child-graph and conditional nodes
+(checked: the loop's build raises otherwise), then a stop kernel that
+reduces ``done`` into the stop word by the head kernel's any/all rule.
 
 The stoch kernels draw one 31-bit seed a launch. A captured body cannot
 take a new scalar each chunk, so B3 and B4 read theirs on the card from
@@ -76,23 +109,106 @@ import dataclasses
 from typing import Callable
 
 import torch
+from torch.multiprocessing.reductions import StorageWeakRef
 
 from odesat_tpu_torch.ops import _cuda
 
 # Graph launches (dispatches) made through :func:`run` in this process, and
 # of them those of a trajectory mesh's graphs (exchanging the stop between
-# ranks). Plain integers that callers may reset; the chunk kernels' own
-# counts grow by the chunks each dispatch ran.
+# ranks); and the calls that copied a state into a graph's buffers
+# (:meth:`StateBuffers.load`: the scan chunk's, from a state it did not
+# return last). Plain integers that callers may reset; the chunk kernels'
+# own counts grow by the chunks each dispatch ran.
 launches = 0
 mesh_launches = 0
+loads = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # bound, ran, stop, error, the missed ranks' bits (two words)
-# (csrc/device_loop.cu)
+# (csrc/device_loop.cu), as three 64-bit words of the control block, which
+# then holds the pointer block: the state's buffers' addresses, in field order
 CTRL_WORDS = 6
+BLOCK_AT = CTRL_WORDS // 2
 PAGE_BYTES = 256  # a rank's exchange page: its count, then a ring of two words
 MAX_PEERS = 64
+
+
+class StateBuffers:
+    """A state's worth of buffers that a captured graph reads and writes in
+    place (the scan chunk's), and the held-result rule over them, on
+    tensors of any device.
+
+    A call returns :meth:`lend`: views of the buffers, so its result shares
+    their memory. The buffers are :meth:`free` while no tensor but their
+    own refers to their memory, read from the allocator's count of each
+    storage's users, which every view raises, and every view taken from a
+    view (torch's CUDA graph trees test their outputs' liveness the same
+    way). A runner runs a call from the state these buffers hold
+    (:meth:`holds`, the result it returned last) in place on them, with no
+    copy; a call from another state takes free buffers and copies the
+    state in (:meth:`load`), so a result the caller still holds is never
+    written."""
+
+    def __init__(self, state):
+        self.tensors = type(state)(*(torch.empty_like(t, memory_format=torch.contiguous_format)
+                                     for t in state))
+        self._refs = tuple(StorageWeakRef(t.untyped_storage()) for t in self.tensors)
+        self._idle = self._users()
+
+    def _users(self) -> tuple:
+        return tuple(torch._C._storage_Use_Count(r.cdata) for r in self._refs)
+
+    def holds(self, state) -> bool:
+        """Whether ``state`` is these buffers (a result lent from them)."""
+        return all(a.data_ptr() == b.data_ptr() and a.shape == b.shape and a.dtype == b.dtype
+                   and a.stride() == b.stride() for a, b in zip(state, self.tensors))
+
+    def free(self) -> bool:
+        """Whether no result lent from these buffers is still referenced."""
+        return self._users() == self._idle
+
+    def load(self, state) -> None:
+        """Copy ``state`` into the buffers, unless it is them."""
+        global loads
+        if not self.holds(state):
+            for dst, src in zip(self.tensors, state):
+                dst.copy_(src)
+            loads += 1
+
+    def lend(self):
+        """The buffers as a result: a view of each."""
+        return type(self.tensors)(*(t.view_as(t) for t in self.tensors))
+
+
+def pick(sets, state, in_place: bool = True):
+    """The index of the :class:`StateBuffers` of ``sets`` that a call from
+    ``state`` runs on: the one that holds ``state`` (``in_place``), else a
+    free one; None when every one holds a result still referenced."""
+    if in_place:
+        for i, b in enumerate(sets):
+            if b.holds(state):
+                return i
+    for i, b in enumerate(sets):
+        if b.free():
+            return i
+    return None
+
+
+class BufferSets:
+    """A kernel runner's buffer sets by state shape (B3's and B4's): called
+    as ``KernelChunk.buffers(state, dev)``, the set :func:`pick` takes for a
+    dispatch from ``state``, or a new one."""
+
+    def __init__(self):
+        self.sets: dict = {}
+
+    def __call__(self, state, dev=None) -> StateBuffers:
+        sets = self.sets.setdefault(tuple((t.shape, t.dtype, t.device) for t in state), [])
+        i = pick(sets, state)
+        if i is None:
+            sets.append(StateBuffers(state))
+        return sets[-1 if i is None else i]
 
 
 @dataclasses.dataclass(eq=False)
@@ -101,15 +217,20 @@ class KernelChunk:
     multi-chunk runners and ``solve_exact`` take to the device loop.
 
     Calling it runs ``fn``: one chunk, through the kernel on a CUDA state
-    and its plain version on a CPU one. ``body(buffers, stream, stop,
-    stop_all, seeds, seed_index)`` launches the kernel once in place on the
-    loop's buffers while the loop captures ``stream``, and returns what the
-    graph must keep alive. ``chunk_steps`` is a chunk's length, ``counter``
-    the ``(module, attribute)`` of the kernel's launch count, ``spec`` its
-    tables, and ``generator`` (B3's and B4's runners) the CPU generator
-    their seeds come from. ``buffers(state, dev)``, where given, returns
-    the state buffers the body runs in place on (the scan chunk's); else
-    the loop allocates its own. ``loops`` holds the graphs built for it."""
+    and its plain version on a CPU one; with ``donate`` (the default) the
+    kernel runs in place on its input and returns it, else it writes new
+    tensors. ``body(state, stream, stop, stop_all, seeds, seed_index, at)``
+    launches the kernel once while the loop captures ``stream``, in place on
+    the buffers whose addresses the pointer block at the device address
+    ``at`` holds (0: on ``state``, the scan chunk's buffers), and returns
+    what the graph must keep alive. ``chunk_steps`` is a chunk's length,
+    ``counter`` the ``(module, attribute)`` of the kernel's launch count,
+    ``spec`` its tables, and ``generator`` (B3's and B4's runners) the CPU
+    generator their seeds come from. ``buffers(state, dev)``, where given,
+    returns the :class:`StateBuffers` the body runs in place on for a
+    dispatch from ``state`` (B3's, B4's and the scan chunk's); else the
+    graph runs on the caller's state through the pointer block (B1's and
+    B2's). ``loops`` holds the graphs built for it."""
 
     fn: Callable
     body: Callable
@@ -118,6 +239,7 @@ class KernelChunk:
     spec: object = None
     generator: torch.Generator | None = None
     buffers: Callable | None = None
+    donate: bool = True
     loops: dict = dataclasses.field(default_factory=dict, init=False, repr=False)
 
     def __call__(self, *args):
@@ -131,7 +253,7 @@ class KernelChunk:
 
 
 def _declare(lib) -> None:
-    lib.device_loop_create.argtypes = [ctypes.POINTER(_P), _P, _P, _I, _I, _P, _I, _I,
+    lib.device_loop_create.argtypes = [ctypes.POINTER(_P), _P, _P, _P, _I, _I, _P, _I, _I,
                                        ctypes.c_ulonglong]
     lib.device_loop_create.restype = _I
     lib.device_loop_begin_body.argtypes = [_P, ctypes.POINTER(_P)]
@@ -227,65 +349,82 @@ def mesh_peers(group, device, timeout_s: float) -> MeshPeers:
 class DeviceLoop:
     """One graph: the :class:`KernelChunk` ``chunk`` over a state of
     ``state``'s shapes, stopping on any (``stop_all``: every) row done,
-    with room for ``capacity`` seeds when ``seeded`` (B3, B4). ``buffers``:
-    the state buffers the chunk runs in place on, else new ones. ``peers``
-    (a :class:`MeshPeers`): the stop is the trajectory group's."""
+    with room for ``capacity`` seeds when ``seeded`` (B3, B4). ``buffers``
+    (a :class:`StateBuffers`): the buffers the chunk's graph runs in place
+    on (the scan chunk's); else the graph runs on the buffers each dispatch
+    names in the pointer block. ``peers`` (a :class:`MeshPeers`): the stop
+    is the trajectory group's."""
 
     def __init__(self, chunk, state, stop_all: bool, seeded: bool, capacity: int,
                  buffers=None, peers=None):
         self.lib, _ = load_library()
         self.handle = None
-        device = state.v.device
-        self.buffers = (buffers if buffers is not None else
-                        type(state)(*(torch.empty_like(t) for t in state)))
-        self.ctrl = torch.zeros(CTRL_WORDS, dtype=torch.int32, device=device)
-        self.host = torch.zeros(1 + capacity, dtype=torch.int32).pin_memory()
+        self.device = device = state.v.device
+        self.buffers = buffers
+        self.like = tuple((t.shape, t.dtype) for t in state)
+        # the control words, then the pointer block; written by one copy a
+        # dispatch from the pinned host copy (its NumPy view: no torch call)
+        words = BLOCK_AT + len(state)
+        self.block = torch.zeros(words, dtype=torch.int64, device=device)
+        self.ctrl = self.block[:BLOCK_AT].view(torch.int32)
+        self.host = torch.zeros(words, dtype=torch.int64).pin_memory()
+        self.words = self.host.numpy()
         self.seeds = (torch.zeros(capacity, dtype=torch.int32, device=device) if seeded else
                       None)
+        self.host_seeds = torch.zeros(capacity, dtype=torch.int32).pin_memory() if seeded else None
         self.capacity = capacity
         self.peers = peers
-        ctrl = self.ctrl.data_ptr()
+        ctrl = self.block.data_ptr()
+        at = 0 if buffers is not None else ctrl + 8 * BLOCK_AT
+        done = buffers.tensors.done.data_ptr() if buffers is not None else 0
+        done_at = at + 8 * state._fields.index("done") if at else 0
         handle = _P()
         mesh = ((peers.table, peers.size, peers.rank, int(peers.timeout_s * 1e9))
                 if peers is not None else (None, 0, 0, 0))
         with torch.cuda.device(device):
             check(self.lib, self.lib.device_loop_create(
-                ctypes.byref(handle), ctrl, self.buffers.done.data_ptr(),
-                self.buffers.v.shape[0], int(stop_all), *mesh), "graph creation")
+                ctypes.byref(handle), ctrl, done, done_at, state.v.shape[0], int(stop_all),
+                *mesh), "graph creation")
             self.handle = handle
             stream = _P()
             check(self.lib, self.lib.device_loop_begin_body(handle, ctypes.byref(stream)),
-                   "body capture")
+                  "body capture")
             try:
                 self.keep = chunk.body(
-                    self.buffers, stream.value, ctrl + 8, stop_all,
-                    self.seeds.data_ptr() if seeded else 0, ctrl + 4 if seeded else 0)
+                    buffers.tensors if buffers is not None else state, stream.value, ctrl + 8,
+                    stop_all, self.seeds.data_ptr() if seeded else 0, ctrl + 4 if seeded else 0,
+                    at)
             except BaseException:
                 self.lib.device_loop_end_body(handle)  # ends the capture; the launch's error stands
                 raise
             check(self.lib, self.lib.device_loop_end_body(handle), "graph instantiation")
 
     def __call__(self, state, bound: int, seeds=None):
-        """One dispatch from ``state``; returns ``(state, chunks_run)``."""
+        """One dispatch from ``state``, which it consumes; returns ``(state,
+        chunks_run)``: on the pointer block, ``state`` itself, run in place;
+        on the chunk's buffers, a view of them, ``state`` copied in first
+        unless it is them."""
         global launches, mesh_launches
-        for name, dst, src in zip(state._fields, self.buffers, state):
-            if src.shape != dst.shape or src.dtype != dst.dtype or src.device != dst.device:
-                raise ValueError(f"state.{name} is {tuple(src.shape)} {src.dtype} on "
-                                 f"{src.device}; this loop's graph holds {tuple(dst.shape)} "
-                                 f"{dst.dtype} on {dst.device}")
-            dst.copy_(src)
-        self.host[0] = bound
-        n = 1
-        if self.seeds is not None:
-            n += bound
-            self.host[1:n] = torch.as_tensor(seeds, dtype=torch.int32)
-        device = state.v.device
-        with torch.cuda.device(device):
-            self.ctrl[:1].copy_(self.host[:1], non_blocking=True)
-            if n > 1:
-                self.seeds[:n - 1].copy_(self.host[1:n], non_blocking=True)
+        for name, (shape, dtype), t in zip(state._fields, self.like, state):
+            if t.shape != shape or t.dtype != dtype or t.device != self.device:
+                raise ValueError(f"state.{name} is {tuple(t.shape)} {t.dtype} on {t.device}; "
+                                 f"this loop's graph holds {tuple(shape)} {dtype} on "
+                                 f"{self.device}")
+            if self.buffers is None and not t.is_contiguous():
+                raise ValueError(f"state.{name} is not contiguous: the loop runs in place on it")
+        words = self.words
+        words[0] = bound
+        if self.buffers is not None:
+            self.buffers.load(state)
+        else:
+            words[BLOCK_AT:] = [t.data_ptr() for t in state]
+        with torch.cuda.device(self.device):
+            self.block.copy_(self.host, non_blocking=True)
+            if bound and self.seeds is not None:
+                self.host_seeds[:bound] = torch.as_tensor(seeds, dtype=torch.int32)
+                self.seeds[:bound].copy_(self.host_seeds[:bound], non_blocking=True)
             check(self.lib, self.lib.device_loop_launch(
-                self.handle, torch.cuda.current_stream(device).cuda_stream), "graph launch")
+                self.handle, torch.cuda.current_stream(self.device).cuda_stream), "graph launch")
         launches += 1
         if self.peers is not None:
             mesh_launches += 1
@@ -296,7 +435,7 @@ class DeviceLoop:
                 f"device loop: the trajectory group's stop exchange waited "
                 f"{self.peers.timeout_s} s for (group rank, global rank) "
                 f"{self.peers.missing(lo, hi)}, which did not arrive")
-        return type(state)(*(t.clone() for t in self.buffers)), ran
+        return (self.buffers.lend() if self.buffers is not None else state), ran
 
     def __del__(self):
         if getattr(self, "handle", None) is not None:
@@ -309,13 +448,16 @@ def run(chunk: KernelChunk, state, bound: int, stop_all: bool = False, seeds=Non
     """Up to ``bound`` launches of the kernel runner ``chunk`` (B1 or B2;
     B3 or B4 with one seed a chunk in ``seeds``, ``bound`` of them; the scan
     chunk over the formula tensors ``dev``) from the CUDA ``state``, in one
-    graph launch; returns ``(state, steps_advanced)``. With ``peers`` (a
-    :class:`MeshPeers`) the stop is the trajectory group's, exchanged on the
-    card before every chunk: every rank of the group dispatches with the
-    same bound, in the same order. The graph is built at the runner's first
-    dispatch at this batch size, stop rule and device (the scan chunk's: and
-    its capture's buffers; a mesh's: and its pages), and reused for every
-    bound."""
+    graph launch; returns ``(state, steps_advanced)``. The dispatch
+    consumes ``state`` (the module's contract): the result shares its
+    memory or, on the scan chunk's buffers, has been copied from it. With
+    ``peers`` (a :class:`MeshPeers`) the stop is the trajectory group's,
+    exchanged on the card before every chunk: every rank of the group
+    dispatches with the same bound, in the same order. The graph is built
+    at the runner's first dispatch at this batch size, stop rule and device
+    (the scan chunk's: and the buffers it runs on; a mesh's: and its pages),
+    and reused for every bound and, through the pointer block, every
+    state."""
     if not isinstance(chunk, KernelChunk):
         raise TypeError(f"the device loop runs a KernelChunk, not {type(chunk).__name__}")
     if bound < 0:
@@ -329,8 +471,7 @@ def run(chunk: KernelChunk, state, bound: int, stop_all: bool = False, seeds=Non
     if B == 0:  # no row: any() never holds and all() always does
         if peers is not None:
             raise ValueError("a trajectory rank of the device loop holds at least one row")
-        return type(state)(*(t.clone() for t in state)), (0 if stop_all else bound) * \
-            chunk.chunk_steps
+        return state, (0 if stop_all else bound) * chunk.chunk_steps
     buffers = chunk.buffers(state, dev) if chunk.buffers is not None else None
     key = (B, bool(stop_all), state.v.device, id(buffers), peers)
     loop = chunk.loops.get(key)

@@ -469,7 +469,7 @@ _F = ctypes.c_float
 
 
 def _declare(lib) -> None:
-    lib.fused_chunk_launch.argtypes = [_P] * 14 + [_I] * 12 + [_F] * 4 + [_P, _I, _P]
+    lib.fused_chunk_launch.argtypes = [_P] * 14 + [_I] * 12 + [_F] * 4 + [_P, _I, _P, _P]
     lib.fused_chunk_launch.restype = _I
     lib.fused_chunk_smem_bytes.argtypes = [_I] * 6
     lib.fused_chunk_smem_bytes.restype = ctypes.c_size_t
@@ -518,10 +518,12 @@ def check_state(state, spec: ChunkSpec) -> None:
 
 
 def _launch(lib, state, out, spec: FusedSpec, chunk_steps: int, stream, stop=0,
-            stop_all=False) -> None:
+            stop_all=False, at=0) -> None:
     """One launch from ``state`` into ``out`` (the same buffers for a chunk
     in place) on ``stream``, with the device loop's stop hook at the device
-    address ``stop`` (0: none). Raises if the launch is refused."""
+    address ``stop`` (0: none) and its pointer block at ``at`` (0: none;
+    else the launch runs in place on the buffers the block names). Raises
+    if the launch is refused."""
     B = state.v.shape[0]
     R = launch_lanes(spec.lanes, B, spec.device)
     rc = lib.fused_chunk_launch(
@@ -533,7 +535,7 @@ def _launch(lib, state, out, spec: FusedSpec, chunk_steps: int, stream, stop=0,
         int(spec.fixed), int(spec.paper), int(spec.bf16),
         R, lane_threads(R, spec.Np, spec.Mp),
         spec.zeta, spec.dt_fixed or 0.0, spec.tol, spec.xl_cap,
-        stop, int(stop_all), stream,
+        stop, int(stop_all), at, stream,
     )
     if rc != 0:
         raise RuntimeError(
@@ -542,31 +544,34 @@ def _launch(lib, state, out, spec: FusedSpec, chunk_steps: int, stream, stop=0,
         )
 
 
-def fused_chunk_cuda(state, spec: FusedSpec, chunk_steps: int):
-    """Launch the kernel once on the current stream of the state's device.
-    Raises if the state is not what the kernel takes or if the launch is
-    refused; never falls back."""
+def fused_chunk_cuda(state, spec: FusedSpec, chunk_steps: int, donate: bool = True):
+    """Launch the kernel once on the current stream of the state's device:
+    in place on ``state``, which it returns (``donate``, JAX's donated
+    argument), or into new tensors. Raises if the state is not what the
+    kernel takes or if the launch is refused; never falls back."""
     global launches
     if spec.device.type != "cuda":
         raise ValueError(f"the fused chunk kernel runs on CUDA tensors, not {spec.device}")
     check_state(state, spec)
     B = state.v.shape[0]
     if B == 0 or chunk_steps == 0:
-        return type(state)(*(t.clone() for t in state))
+        return state if donate else type(state)(*(t.clone() for t in state))
     lib, _ = load_library()
-    out = [torch.empty_like(t) for t in state]
+    out = state if donate else type(state)(*(torch.empty_like(t) for t in state))
     with torch.cuda.device(spec.device):
         _launch(lib, state, out, spec, chunk_steps,
                 torch.cuda.current_stream(spec.device).cuda_stream)
     launches += 1
-    return type(state)(*out)
+    return out
 
 
-def make_fused_chunk(fa: FormulaArrays, zeta: float, ode, chunk_steps: int, device):
+def make_fused_chunk(fa: FormulaArrays, zeta: float, ode, chunk_steps: int, device,
+                     donate: bool = True):
     """Build the runner ``fn(state, dev=None) -> state`` advancing every
     trajectory ``chunk_steps`` steps in one kernel launch, a
     :class:`~odesat_tpu_torch.ops.device_loop.KernelChunk`. CUDA states go
-    through the kernel; CPU states (the tests) through
+    through the kernel, in place with ``donate`` (JAX's ``donate``: the
+    call consumes its input); CPU states (the tests) through
     :func:`fused_chunk_plain`; anything else raises. ``dev`` is accepted for
     signature parity with the scan runner and ignored: the formula is in
     ``fn.spec``."""
@@ -576,15 +581,17 @@ def make_fused_chunk(fa: FormulaArrays, zeta: float, ode, chunk_steps: int, devi
     def fn(state, dev=None):
         kind = state.v.device.type
         if kind == "cuda":
-            return fused_chunk_cuda(state, spec, chunk_steps)
+            return fused_chunk_cuda(state, spec, chunk_steps, donate)
         if kind == "cpu":
             return fused_chunk_plain(state, spec, chunk_steps)
         raise ValueError(f"no fused chunk path for tensors on {state.v.device}")
 
-    def body(state, stream, stop, stop_all, seeds=0, seed_index=0):
-        # the device loop's body: one launch in place on the loop's buffers
+    def body(state, stream, stop, stop_all, seeds=0, seed_index=0, at=0):
+        # the device loop's body: one launch in place on the buffers its
+        # pointer block names
         check_state(state, spec)
-        _launch(load_library()[0], state, state, spec, chunk_steps, stream, stop, stop_all)
+        _launch(load_library()[0], state, state, spec, chunk_steps, stream, stop, stop_all, at)
         return ()
 
-    return KernelChunk(fn, body, chunk_steps, (sys.modules[__name__], "launches"), spec)
+    return KernelChunk(fn, body, chunk_steps, (sys.modules[__name__], "launches"), spec,
+                       donate=donate)

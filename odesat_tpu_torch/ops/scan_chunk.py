@@ -20,7 +20,20 @@ runner captures the step with ``torch.cuda.CUDAGraph``: a graph of up to
 and one of the rest. The graphs read the state from fixed buffers and
 write it back into them (the buffers are allocated outside the graphs'
 pool; the step's temporaries live in the pool and are dead when a replay
-ends). After that a call is copy-in, replays, copy-out. Every live graph of
+ends).
+
+The state is donated (``ops/device_loop.py`` states the contract): a call
+returns views of the capture's buffers, and a call from the state it
+returned is the replays alone, in place, with nothing copied in or out, as
+the JAX chunk runs on its donated buffers (``odesat_tpu/models/ode.py:
+416-423``). A call from another state copies it into a capture whose
+buffers are free, and captures again only when every capture of the shape
+holds a result the caller still references
+(``device_loop.StateBuffers``): a held result is never written. That
+happens off the normal path (the solvers pass each result back); each such
+capture costs a state's buffers, its temporaries sharing the pool below. A
+runner built with ``donate=False`` never runs on its input's buffers: it
+copies into free ones, so its input stays. Every live graph of
 every runner on a device shares one memory pool (:func:`graph_pool`): only
 temporaries live there, so graphs of other chunk lengths reuse the same
 bytes, which matters at full width, where a step's temporaries are tens of
@@ -48,7 +61,8 @@ a WHILE node's body (the node would replay it with one offset): the device
 loop refuses it, and its multi-chunk runner stays host-paced, as JAX's is.
 
 Counts: :data:`launches` grows by one for every chunk a captured graph runs
-(a replay, or a chunk of a device-loop dispatch). A kernel the step launches
+(a replay, or a chunk of a device-loop dispatch); :data:`captures` by one a
+capture (a buffer set and its graphs). A kernel the step launches
 through a counted wrapper (B10's ``rhs_kernel.launches``) counts while the
 graph is captured, when nothing runs; the runner takes those counts back and
 adds them once for every chunk that runs.
@@ -82,6 +96,7 @@ from odesat_tpu_torch.utils.logging import logger
 # only) apart. Plain integers that callers may reset.
 launches = 0
 stoch_launches = 0
+captures = 0
 # Seconds spent capturing and instantiating graphs in this process (each
 # capture also logs its own); a plain number that callers may reset.
 capture_seconds = 0.0
@@ -118,12 +133,13 @@ MAX_GRAPH_STEPS = 64
 
 
 class Captured(NamedTuple):
-    """One chunk's capture: the state buffers it runs in place on, its
-    parts ``((graph, times), ...)`` (a graph of at most
-    :data:`MAX_GRAPH_STEPS` steps run ``times`` times, then one of the
-    rest), and the formula tensors whose addresses the graphs hold."""
+    """One chunk's capture: the state buffers it runs in place on (a
+    ``device_loop.StateBuffers``), its parts ``((graph, times), ...)`` (a
+    graph of at most :data:`MAX_GRAPH_STEPS` steps run ``times`` times, then
+    one of the rest), and the formula tensors whose addresses the graphs
+    hold."""
 
-    buffers: tuple
+    buffers: device_loop.StateBuffers
     parts: tuple
     dev: tuple
 
@@ -132,17 +148,21 @@ class ScanChunk(KernelChunk):
     """``chunk_steps`` calls of ``step`` (built for ``device``) as one
     runner: CUDA graphs on a state on ``device``, the plain loop on a CPU
     one. Call it as ``chunk(state, dev)``. ``graphs`` holds the captures by
-    batch shape, dtype and formula tensors. A chunk longer than
+    batch shape, dtype and formula tensors, and their number (0 for the
+    first; another is made only for a call from another state while every
+    earlier one's buffers hold a result still referenced). A chunk longer than
     :data:`MAX_GRAPH_STEPS` (the CLI's default is 256 steps, and the host
     loop grows its chunks up to 32768) runs a graph of that many steps over
     and over, so that a capture stays short. ``generators``: the device
     generators the step draws from, registered with every graph;
-    ``counter``: the name of this module's count its chunks add to."""
+    ``counter``: the name of this module's count its chunks add to;
+    ``donate``: a call may run in place on its input (the default)."""
 
     def __init__(self, step: Callable, chunk_steps: int, device, generators=(),
-                 counter: str = "launches"):
+                 counter: str = "launches", donate: bool = True):
         super().__init__(fn=self._run, body=self._body, chunk_steps=chunk_steps,
-                         counter=(sys.modules[__name__], counter), buffers=self._buffers)
+                         counter=(sys.modules[__name__], counter), buffers=self._buffers,
+                         donate=donate)
         self.step = step
         self.device = cuda_device(device)
         self.generators = tuple(generators)
@@ -162,14 +182,13 @@ class ScanChunk(KernelChunk):
         if state.v.device != self.device:
             raise ValueError(f"the scan chunk's step was built for {self.device}; the state is "
                              f"on {state.v.device}")
-        cap = self.captured(state, dev)
-        for dst, src in zip(cap.buffers, state):
-            dst.copy_(src)
+        cap = self.captured(state, dev, self.donate)
+        cap.buffers.load(state)
         for graph, times in cap.parts:
             for _ in range(times):
                 graph.replay()
         self.count(1)
-        return type(state)(*(t.clone() for t in cap.buffers))
+        return cap.buffers.lend()
 
     def count(self, n: int) -> None:
         """Add ``n`` chunks run by graphs: to this runner's count, and their
@@ -177,21 +196,25 @@ class ScanChunk(KernelChunk):
         super().count(n)
         rhs_kernel.launches += n * self.b10_per_chunk
 
-    def captured(self, state, dev) -> Captured:
-        """The capture for ``state``'s shapes and dtype and ``dev``'s
-        tensors, made at its first use."""
+    def captured(self, state, dev, in_place: bool = True) -> Captured:
+        """The capture that runs a call from ``state`` over ``dev``'s
+        tensors: of the captures of ``state``'s shapes and dtype, the one
+        whose buffers hold ``state`` (``in_place``), else one whose buffers
+        are free, else a new one."""
         key = (tuple(t.shape for t in state), state.v.dtype, state.v.device,
                tuple(t.data_ptr() for t in dev))
-        cap = self.graphs.get(key)
-        if cap is None:
-            cap = self.graphs[key] = self._capture(state, dev)
+        caps = [cap for (k, _), cap in self.graphs.items() if k == key]
+        i = device_loop.pick([cap.buffers for cap in caps], state, in_place)
+        if i is not None:
+            return caps[i]
+        cap = self.graphs[key, len(caps)] = self._capture(state, dev)
         return cap
 
     def _capture(self, state, dev) -> Captured:
-        global capture_seconds
+        global capture_seconds, captures
         device = state.v.device
-        buffers = type(state)(*(torch.empty_like(t, memory_format=torch.contiguous_format)
-                                for t in state))
+        slots = device_loop.StateBuffers(state)
+        buffers = slots.tensors
         unit = min(self.chunk_steps, MAX_GRAPH_STEPS)
         times, rest = divmod(self.chunk_steps, unit)
         before = rhs_kernel.launches
@@ -211,10 +234,11 @@ class ScanChunk(KernelChunk):
         t2 = time.perf_counter()
         self.b10_per_chunk = b10
         capture_seconds += t2 - t0
+        captures += 1
         logger.info("scan chunk: %d steps at B=%d %s on %s captured in %.3f s, "
                     "instantiated in %.3f s", self.chunk_steps, state.v.shape[0],
                     str(state.v.dtype).replace("torch.", ""), device, t1 - t0, t2 - t1)
-        return Captured(buffers, tuple(parts), dev)
+        return Captured(slots, tuple(parts), dev)
 
     def _graph(self, buffers, dev, steps: int) -> torch.cuda.CUDAGraph:
         """``steps`` steps captured in place on ``buffers`` (not yet
@@ -264,13 +288,14 @@ class ScanChunk(KernelChunk):
                                "generator: a replay inside the WHILE node would not advance "
                                "it; run its chunks host-paced (models/loop.run_chunks)")
 
-    def _body(self, buffers, stream, stop, stop_all, seeds, seed_index):
+    def _body(self, buffers, stream, stop, stop_all, seeds, seed_index, at=0):
         """The device loop's body on its capture ``stream``: the graphs that
         run in place on ``buffers`` as child graph nodes, then the stop
         kernel writing ``done``'s any (``stop_all``: not all) into the word
-        at ``stop``. A chunk that draws from a device generator raises."""
+        at ``stop``. The graphs hold their buffers' addresses: no pointer
+        block (``at``). A chunk that draws from a device generator raises."""
         self._check_loop()
-        cap = next(c for c in self.graphs.values() if c.buffers is buffers)
+        cap = next(c for c in self.graphs.values() if c.buffers.tensors is buffers)
         lib, _ = device_loop.load_library()
         for graph, times in cap.parts:
             for _ in range(times):
@@ -298,19 +323,19 @@ class StochScanChunk(ScanChunk):
     count in :data:`stoch_launches`."""
 
     def __init__(self, step: Callable, chunk_steps: int, device, generator: torch.Generator,
-                 n_vars_padded: int):
+                 n_vars_padded: int, donate: bool = True):
         def draw_step(state, dev):
             u = torch.rand((state.v.shape[0], n_vars_padded), generator=generator,
                            device=state.v.device)
             return step(state, u)
 
         super().__init__(draw_step, chunk_steps, device, generators=(generator,),
-                         counter="stoch_launches")
+                         counter="stoch_launches", donate=donate)
         self.device_generator = generator
 
 
-def make_scan_chunk(step: Callable, chunk_steps: int, device) -> ScanChunk:
+def make_scan_chunk(step: Callable, chunk_steps: int, device, donate: bool = True) -> ScanChunk:
     """``chunk_steps`` steps of ``step(state, dev) -> state`` as one runner
     (:class:`ScanChunk`): captured as a CUDA graph on a CUDA state, the
     plain loop on a CPU one."""
-    return ScanChunk(step, chunk_steps, device)
+    return ScanChunk(step, chunk_steps, device, donate=donate)

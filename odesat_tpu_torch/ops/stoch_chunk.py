@@ -65,7 +65,7 @@ import torch
 from odesat_tpu_torch.cnf.arrays import FormulaArrays
 from odesat_tpu_torch.constants import STOCH_ALPHA
 from odesat_tpu_torch.ops import _cuda
-from odesat_tpu_torch.ops.device_loop import KernelChunk
+from odesat_tpu_torch.ops.device_loop import BufferSets, KernelChunk
 from odesat_tpu_torch.ops.fused_chunk import (
     LANE_THREADS,
     SMEM_LIMIT_BYTES,
@@ -455,30 +455,32 @@ def _launch(entry: str, state, spec: StochChunkSpec, chunk_steps: int, seed: int
 
 
 def stoch_fused_cuda(state, spec: StochChunkSpec, chunk_steps: int, seed: int, bf16: bool,
-                     lanes: Optional[int] = None):
+                     lanes: Optional[int] = None, donate: bool = True):
     """Launch B3 once on the current stream, ``lanes`` chains a CTA (None:
-    the most that fit, halved for a ragged last wave). Raises if the state
-    is not what it takes, the formula is past its gate, or the launch is
-    refused."""
+    the most that fit, halved for a ragged last wave): in place on
+    ``state``, which it returns (``donate``), or into new tensors. Raises
+    if the state is not what it takes, the formula is past its gate, or the
+    launch is refused."""
     global fused_launches
     if state.v.shape[0] == 0:
         return state
     out = _launch("stoch_fused_launch", state, spec, chunk_steps, seed, bf16, spec.fused_lanes,
-                  lanes)
+                  lanes, out=state if donate else None)
     fused_launches += 1
     return out
 
 
 def stoch_stream_cuda(state, spec: StochChunkSpec, chunk_steps: int, seed: int, bf16: bool,
-                      lanes: Optional[int] = None):
+                      lanes: Optional[int] = None, donate: bool = True):
     """Launch B4 once on the current stream, ``lanes`` chains a CTA as
-    :func:`stoch_fused_cuda` takes them. Raises if the state is not what it
-    takes, one chain's state is past its gate, or the launch is refused."""
+    :func:`stoch_fused_cuda` takes them, in place with ``donate``. Raises if
+    the state is not what it takes, one chain's state is past its gate, or
+    the launch is refused."""
     global stream_launches
     if state.v.shape[0] == 0:
         return state
     out = _launch("stoch_stream_launch", state, spec, chunk_steps, seed, bf16,
-                  spec.stream_lanes, lanes)
+                  spec.stream_lanes, lanes, out=state if donate else None)
     stream_launches += 1
     return out
 
@@ -847,14 +849,16 @@ def make_stoch_shard_chunk(fa: FormulaArrays, chunk_steps: int, device, shard: i
 
 
 def make_stoch_chunk(fa: FormulaArrays, chunk_steps: int, kernel: str, matmul_dtype: str,
-                     device):
+                     device, donate: bool = True):
     """Build ``fn(state, seed) -> state`` advancing every chain
     ``chunk_steps`` steps in one launch of ``kernel`` ("fused": B3,
     "stream": B4), a :class:`~odesat_tpu_torch.ops.device_loop.KernelChunk`.
-    CUDA states go through the kernel, CPU states (the tests) through
+    CUDA states go through the kernel, in place with ``donate`` (the call
+    consumes its input), CPU states (the tests) through
     :func:`stoch_chunk_plain`; anything else raises. ``seed`` is the
-    launch's 31-bit PRNG seed. Its device-loop body is one launch in place,
-    its seed read on the card from the loop's seed table at the loop's chunk
+    launch's 31-bit PRNG seed. Its device-loop body is one launch in place
+    on a buffer set of the runner's (``device_loop.BufferSets``), its seed
+    read on the card from the loop's seed table at the loop's chunk
     count."""
 
     supported = {"fused": stoch_fused_supported, "stream": stoch_stream_supported}[kernel]
@@ -868,7 +872,7 @@ def make_stoch_chunk(fa: FormulaArrays, chunk_steps: int, kernel: str, matmul_dt
     def fn(state, seed: int):
         kind = state.v.device.type
         if kind == "cuda":
-            return launch(state, spec, chunk_steps, seed, bf16)
+            return launch(state, spec, chunk_steps, seed, bf16, donate=donate)
         if kind == "cpu":
             return stoch_chunk_plain(state, spec, chunk_steps, seed,
                                      traj_block(state.v.shape[0]), bf16)
@@ -877,13 +881,15 @@ def make_stoch_chunk(fa: FormulaArrays, chunk_steps: int, kernel: str, matmul_dt
     entry, most = (("stoch_fused_launch", spec.fused_lanes) if kernel == "fused" else
                    ("stoch_stream_launch", spec.stream_lanes))
 
-    def body(state, stream, stop, stop_all, seeds, seed_index):
+    def body(state, stream, stop, stop_all, seeds, seed_index, at=0):
+        # in place on the loop's buffer set (device_loop.BufferSets): no
+        # pointer block, which cost these kernels 2-3% a launch
         _launch(entry, state, spec, chunk_steps, 0, bf16, most, None, out=state, stream=stream,
                 hook=(stop, stop_all, seeds, seed_index))
         return ()
 
     return KernelChunk(fn, body, chunk_steps, (sys.modules[__name__], f"{kernel}_launches"),
-                       spec)
+                       spec, buffers=BufferSets(), donate=donate)
 
 
 def make_fused_stoch_chunk(fa: FormulaArrays, chunk_steps: int, *, device,

@@ -167,7 +167,7 @@ _F = ctypes.c_float
 
 def _declare(lib) -> None:
     lib.stream_chunk_launch.argtypes = ([_P] * 14 + [_I] + [_P] + [_I] * 11 + [_F] * 4
-                                        + [_P, _I, _P])
+                                        + [_P, _I, _P, _P])
     lib.stream_chunk_launch.restype = _I
     lib.stream_chunk_smem_bytes.argtypes = [_I] * 3
     lib.stream_chunk_smem_bytes.restype = ctypes.c_size_t
@@ -204,12 +204,12 @@ def raise_for(lib, rc: int, what: str) -> None:
 
 
 def _launch(lib, state, out, spec: StreamSpec, chunk_steps: int, stream, stop=0,
-            stop_all=False) -> torch.Tensor:
+            stop_all=False, at=0) -> torch.Tensor:
     """One launch from ``state`` into ``out`` (the same buffers for a chunk
     in place) on ``stream``, with a fresh tiled scratch buffer, which it
     returns (a captured launch keeps using it), and the device loop's stop
-    hook at the device address ``stop`` (0: none). Raises if the launch is
-    refused."""
+    hook at the device address ``stop`` (0: none) and pointer block at
+    ``at`` (0: none). Raises if the launch is refused."""
     B = state.v.shape[0]
     R, nnz = launch_lanes(spec.lanes, B, spec.device), spec.occ_slot.numel()
     per_tile = stream_scratch_floats(spec.Np, spec.Mp, nnz, spec.fixed, R)
@@ -223,37 +223,39 @@ def _launch(lib, state, out, spec: StreamSpec, chunk_steps: int, stream, stop=0,
         int(spec.fixed), int(spec.paper), int(spec.bf16),
         R, lane_threads(R, spec.Np, spec.Mp),
         spec.zeta, spec.dt_fixed or 0.0, spec.tol, spec.xl_cap,
-        stop, int(stop_all), stream,
+        stop, int(stop_all), at, stream,
     )
     raise_for(lib, rc, "stream chunk kernel")
     return scratch
 
 
-def stream_chunk_cuda(state, spec: StreamSpec, chunk_steps: int):
+def stream_chunk_cuda(state, spec: StreamSpec, chunk_steps: int, donate: bool = True):
     """Launch B2 once on the current stream of the state's device, with a
-    fresh tiled scratch buffer. Raises if the state is not what the kernel
-    takes or if the launch is refused; never falls back."""
+    fresh tiled scratch buffer: in place on ``state``, which it returns
+    (``donate``), or into new tensors. Raises if the state is not what the
+    kernel takes or if the launch is refused; never falls back."""
     global launches
     if spec.device.type != "cuda":
         raise ValueError(f"the stream chunk kernel runs on CUDA tensors, not {spec.device}")
     check_state(state, spec)
     B = state.v.shape[0]
     if B == 0 or chunk_steps == 0:
-        return type(state)(*(t.clone() for t in state))
+        return state if donate else type(state)(*(t.clone() for t in state))
     lib, _ = load_library()
-    out = [torch.empty_like(t) for t in state]
+    out = state if donate else type(state)(*(torch.empty_like(t) for t in state))
     with torch.cuda.device(spec.device):
         _launch(lib, state, out, spec, chunk_steps,
                 torch.cuda.current_stream(spec.device).cuda_stream)
     launches += 1
-    return type(state)(*out)
+    return out
 
 
-def make_stream_chunk(fa: FormulaArrays, zeta: float, ode, chunk_steps: int, device):
+def make_stream_chunk(fa: FormulaArrays, zeta: float, ode, chunk_steps: int, device,
+                      donate: bool = True):
     """Build the runner ``fn(state, dev=None) -> state`` advancing every
     trajectory ``chunk_steps`` steps in one launch of B2, a
     :class:`~odesat_tpu_torch.ops.device_loop.KernelChunk`. CUDA states go
-    through the kernel; CPU states (the tests) through
+    through the kernel, in place with ``donate``; CPU states (the tests) through
     :func:`stream_chunk_plain`; anything else raises. ``dev`` is accepted
     for signature parity with the scan runner and ignored: the formula is in
     ``fn.spec``."""
@@ -263,16 +265,18 @@ def make_stream_chunk(fa: FormulaArrays, zeta: float, ode, chunk_steps: int, dev
     def fn(state, dev=None):
         kind = state.v.device.type
         if kind == "cuda":
-            return stream_chunk_cuda(state, spec, chunk_steps)
+            return stream_chunk_cuda(state, spec, chunk_steps, donate)
         if kind == "cpu":
             return stream_chunk_plain(state, spec, chunk_steps)
         raise ValueError(f"no stream chunk path for tensors on {state.v.device}")
 
-    def body(state, stream, stop, stop_all, seeds=0, seed_index=0):
-        # the device loop's body: one launch in place on the loop's
-        # buffers; the loop keeps the scratch for as long as its graph
+    def body(state, stream, stop, stop_all, seeds=0, seed_index=0, at=0):
+        # the device loop's body: one launch in place on the buffers its
+        # pointer block names; the loop keeps the scratch for as long as its
+        # graph
         check_state(state, spec)
         return (_launch(load_library()[0], state, state, spec, chunk_steps, stream, stop,
-                        stop_all),)
+                        stop_all, at),)
 
-    return KernelChunk(fn, body, chunk_steps, (sys.modules[__name__], "launches"), spec)
+    return KernelChunk(fn, body, chunk_steps, (sys.modules[__name__], "launches"), spec,
+                       donate=donate)

@@ -299,6 +299,7 @@ def mesh_loop_route(chunk, n_traj: int, n_clause: int, device, hosts) -> tuple:
     pallas``), batch-shared adaptive dt (a twin step that all-reduces dt)
     and a group over hosts stay host-paced."""
     from odesat_tpu_torch.ops.device_loop import KernelChunk
+    from odesat_tpu_torch.ops.scan_chunk import ScanChunk
 
     if torch.device(device).type != "cuda":
         return "host", f"the plain version on {device}"
@@ -306,7 +307,7 @@ def mesh_loop_route(chunk, n_traj: int, n_clause: int, device, hosts) -> tuple:
         return "host", f"a clause mesh ({n_traj}x{n_clause}) is host-paced, as in JAX"
     if not isinstance(chunk, KernelChunk):
         return "host", "the chunk is the twin's steps (batch-shared adaptive dt), no kernel's"
-    if chunk.buffers is not None:
+    if isinstance(chunk, ScanChunk):
         return "host", "the scan tier's chunk is host-paced on a mesh, as in JAX"
     if n_traj > 1 and len(set(hosts)) > 1:
         return "host", (f"the trajectory group spans hosts {sorted(set(hosts))}: CUDA IPC "
@@ -613,7 +614,7 @@ def loop_against_host_loop(mesh, device, cases):
     import torch.distributed as dist
 
     from odesat_tpu_torch.interop import state_from_numpy, stoch_state_from_numpy
-    from odesat_tpu_torch.models.loop import run_chunks
+    from odesat_tpu_torch.models.loop import copy_state, run_chunks
     from odesat_tpu_torch.ops import device_loop
     from odesat_tpu_torch.parallel.dist import bit_error
 
@@ -637,7 +638,7 @@ def loop_against_host_loop(mesh, device, cases):
                       for g in gens]
             stop_on = "any"
             host = run_chunks(chunks[0], chunk_steps, bound, sync=MeshSync(mesh, device))
-        want, host_steps = host(state)
+        want, host_steps = host(copy_state(state))  # a dispatch consumes its input
         multi = make_sharded_multi_runner(chunks[1], chunk_steps, bound, mesh, device, stop_on)
         mod, attr = chunks[1].counter
         graphs, before = device_loop.mesh_launches, getattr(mod, attr)

@@ -42,6 +42,7 @@ def run_repeats(name, make_state, runner, repeats) -> bool:
         out = runner(make_state())
         torch.cuda.synchronize()
         snap = [t.clone() for t in out]
+        del out  # a held result would keep the scan chunk's buffers from the next repeat
         if ref is None:
             ref = snap
             continue

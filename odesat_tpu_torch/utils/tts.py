@@ -117,9 +117,11 @@ def solve_exact(
     (formula identity, chunk length), because a chunk runner holds the
     formula's content (a kernel's tables), not just its shape; each entry
     pins its formula, so sweeps :func:`evict_formula` each instance when
-    done with it. The solve chunk's runner (the one-dispatch path: its
-    graph, at a bound of one chunk) is warmed on the initial state outside
-    the timed region (its output is discarded)."""
+    done with it. The runners are built non-donating (JAX :144): the state
+    before the final chunk stays alive as the bisection's start. The solve
+    chunk's runner (the one-dispatch path: its graph, at a bound of one
+    chunk) is warmed on a copy of the initial state outside the timed
+    region (its output is discarded)."""
     from odesat_tpu_torch.models import ode as ode_mod
     from odesat_tpu_torch.ops.device_loop import KernelChunk
     from odesat_tpu_torch.ops.scan_chunk import ScanChunk
@@ -134,7 +136,8 @@ def solve_exact(
     def runner(n):
         key = (id(fa), n)
         if key not in runner_cache:
-            runner_cache[key] = (ode_mod.make_chunk_runner(fa, zeta, ode, n, device), fa)
+            runner_cache[key] = (ode_mod.make_chunk_runner(fa, zeta, ode, n, device,
+                                                           donate=False), fa)
         return runner_cache[key][0]
 
     dev = ode_mod.formula_device(fa, device, dtype=ode_mod.state_dtype(ode))
@@ -169,7 +172,12 @@ def solve_exact(
             and not isinstance(runner(chunk), ScanChunk)):
         return _one_dispatch(fa, zeta, ode, chunk, budget, device, state, dev, runner, finish)
 
-    sync(runner(min(chunk, budget))(state, dev) if budget > 0 else state)  # warm-up
+    if budget > 0:  # warm-up: a chunk from a chunk's result still held, as the loop
+        # below runs them, so that the scan chunk's second capture (its first
+        # one's buffers hold the bisection's start) is made off the clock too
+        warm = runner(min(chunk, budget))(state, dev)
+        sync(runner(min(chunk, budget))(warm, dev))
+        del warm
     steps = 0
     chunks = 0
     prev = state
@@ -195,8 +203,11 @@ def _one_dispatch(fa, zeta, ode, chunk, budget, device, state, dev, runner,
     """:func:`solve_exact`'s one-dispatch path (JAX utils/tts.py:180-232):
     one timed dispatch of ``budget // chunk`` chunks from the initial
     state, the budget tail shorter than a chunk host-paced, then off the
-    clock the replay of all but the final chunk and the bisection."""
+    clock the replay of all but the final chunk and the bisection. A
+    dispatch consumes its input, so each starts from a copy of the initial
+    state, the timed one's copy inside the timed window, as JAX's."""
     from odesat_tpu_torch.models.ode import make_multi_chunk_runner
+    from odesat_tpu_torch.models.loop import copy_state
     from odesat_tpu_torch.utils.timing import sync
 
     def multi(n):
@@ -204,9 +215,9 @@ def _one_dispatch(fa, zeta, ode, chunk, budget, device, state, dev, runner,
 
     # warm the runner off the clock at ONE chunk: the bound is written at
     # each launch, so this builds the very graph the timed dispatch reuses
-    sync(multi(1)(state, dev)[0])
+    sync(multi(1)(copy_state(state), dev)[0])
     t0 = time.perf_counter()
-    out, adv = multi(budget // chunk)(state, dev)  # the dispatch copies: state stays
+    out, adv = multi(budget // chunk)(copy_state(state), dev)
     done = sync(out)
     wall = time.perf_counter() - t0
     chunks, steps = 1, int(adv)
@@ -223,7 +234,7 @@ def _one_dispatch(fa, zeta, ode, chunk, budget, device, state, dev, runner,
                 return finish(before_tail, out, steps, rem, chunks, wall)
         return ExactSolve(steps=budget, solved=False, chunks=chunks, wall_s=wall)
     n_chunks = steps // chunk
-    prev = multi(n_chunks - 1)(state, dev)[0] if n_chunks > 1 else state
+    prev = multi(n_chunks - 1)(copy_state(state), dev)[0] if n_chunks > 1 else state
     return finish(prev, out, steps - chunk, chunk, chunks, wall)
 
 

@@ -33,6 +33,7 @@ from odesat_tpu_torch.models import ode as tode  # noqa: E402
 from odesat_tpu_torch.interop import state_from_numpy  # noqa: E402
 from odesat_tpu_torch.models.ode import simulate_batch  # noqa: E402
 from odesat_tpu_torch.ops import fused_chunk as fc  # noqa: E402
+from odesat_tpu_torch.models.loop import copy_state  # noqa: E402
 from odesat_tpu_torch.utils.config import ODEConfig, SolverConfig  # noqa: E402
 from odesat_tpu_torch.utils.generate import random_ksat  # noqa: E402
 
@@ -71,8 +72,8 @@ def test_kernel_matches_plain(cuda, mode, rigidity, widths):
     fn = fc.make_fused_chunk(fa, 0.05, ode, 32, cuda)
     state = _state(fa, 37, 0, cuda)
     before = fc.launches
-    out = fn(state)
-    again = fn(state)
+    out = fn(copy_state(state))  # a call consumes its input
+    again = fn(copy_state(state))
     ref = fc.fused_chunk_plain(state, fn.spec, 32)
     torch.cuda.synchronize()
     assert fc.launches == before + 2
@@ -92,7 +93,7 @@ def test_kernel_matches_plain_as_trajectories_finish(cuda, mode):
                              8, cuda)
     state, seen = _state(fa, 64, 2, cuda), False
     for _ in range(2000):
-        out = fn(state)
+        out = fn(copy_state(state))
         ref = fc.fused_chunk_plain(state, fn.spec, 8)
         for name in ("v", "xs", "xl", "dt"):
             assert torch.equal(getattr(out, name), getattr(ref, name))
@@ -142,7 +143,7 @@ def test_chunk_kernels_equal_plain_at_ragged_batches(cuda, B, mode, matmul_dtype
     kernels = _chunk_kernels(fa, ode, 24, cuda)
     assert len(kernels) == 2
     ref = fc.fused_chunk_plain(state, kernels[0].spec, 24)
-    outs = [fn(state) for fn in kernels]
+    outs = [fn(copy_state(state)) for fn in kernels]
     torch.cuda.synchronize()
     for out in outs:
         for a, b in zip(out, ref):
@@ -164,7 +165,7 @@ def test_adaptive_lanes_of_one_tile_advance_finish_and_sit_done(cuda):
         done[:5] = True
         state = state._replace(done=done)
         for _ in range(2000):
-            out = fn(state)
+            out = fn(copy_state(state))
             ref = fc.fused_chunk_plain(state, fn.spec, 8)
             for a, b in zip(out, ref):
                 assert torch.equal(a, b)
@@ -247,8 +248,8 @@ def test_stoch_kernel_matches_plain_as_chains_finish(cuda, kernel, matmul_dtype,
     counter = "fused_launches" if kernel == "fused" else "stream_launches"
     for seed in range(1, 500):
         before_launches = getattr(sc, counter)
-        out = launch(state, fn.spec, 8, seed, bf16, lanes=R)
-        again = launch(state, fn.spec, 8, seed, bf16, lanes=R)
+        out = launch(copy_state(state), fn.spec, 8, seed, bf16, lanes=R)
+        again = launch(copy_state(state), fn.spec, 8, seed, bf16, lanes=R)
         ref = sc.stoch_chunk_plain(state, fn.spec, 8, seed, sc.traj_block(B), bf16)
         torch.cuda.synchronize()
         assert getattr(sc, counter) == before_launches + 2
@@ -292,8 +293,8 @@ def test_stoch_b3_equals_b4_and_the_gates_match_the_kernel(cuda, widths, B):
         assert lib.stoch_fused_smem_bytes(Np, Mp, K, nnz, R) == sc.stoch_fused_smem_bytes(fa, R)
         assert lib.stoch_stream_smem_bytes(Np, Mp, R) == sc.stoch_stream_smem_bytes(fa, R)
         for launch in (sc.stoch_fused_cuda, sc.stoch_stream_cuda):
-            outs.append(launch(state, spec, 16, 77, False, lanes=R))
-    outs += [sc.make_stoch_chunk(fa, 16, k, "float32", cuda)(state, 77)
+            outs.append(launch(copy_state(state), spec, 16, 77, False, lanes=R))
+    outs += [sc.make_stoch_chunk(fa, 16, k, "float32", cuda)(copy_state(state), 77)
              for k in ("fused", "stream")]
     torch.cuda.synchronize()
     for out in outs:
@@ -355,7 +356,7 @@ def test_stream_kernel_equals_plain_and_b1(cuda, mode, rigidity, matmul_dtype, w
     fn = sc.make_stream_chunk(fa, 0.05, ode, 32, cuda)
     state = _state(fa, 37, 0, cuda)
     before = sc.launches
-    out, again = fn(state), fn(state)
+    out, again = fn(copy_state(state)), fn(copy_state(state))
     ref = sc.stream_chunk_plain(state, fn.spec, 32)
     b1 = fc.make_fused_chunk(fa, 0.05, ode, 32, cuda)(state)
     torch.cuda.synchronize()
@@ -375,7 +376,7 @@ def test_stream_kernel_matches_plain_as_trajectories_finish(cuda, mode):
                               8, cuda)
     state, seen = _state(fa, 64, 2, cuda), False
     for _ in range(2000):
-        out = fn(state)
+        out = fn(copy_state(state))
         ref = sc.stream_chunk_plain(state, fn.spec, 8)
         for a, b in zip(out, ref):
             assert torch.equal(a, b)
@@ -415,7 +416,7 @@ def test_stream_gate_matches_the_kernel(cuda, mode):
                                            int(fixed), R) == \
         sc.stream_scratch_floats(fa.n_vars_padded, fa.n_clauses_padded, nnz, fixed, R)
     state = _state(fa, 13, 5, cuda)
-    out, ref = fn(state), sc.stream_chunk_plain(state, fn.spec, 4)
+    out, ref = fn(copy_state(state)), sc.stream_chunk_plain(state, fn.spec, 4)
     torch.cuda.synchronize()
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
@@ -1294,7 +1295,7 @@ def test_device_loop_equals_the_host_loop_through_b1_and_b2(cuda, kernel, mode, 
     fn = make(fa, 0.05, ode, 8, cuda)
     mod = fc if kernel == "fused" else stc
     for state in (_state(fa, 64, 2, cuda), _partly_solved(fa, 64, 2, cuda)):
-        want, steps = run_chunks(fn, 8, bound, stop_all=stop_on == "all")(state)
+        want, steps = run_chunks(fn, 8, bound, stop_all=stop_on == "all")(copy_state(state))
         graphs, before = device_loop.launches, mod.launches
         got, got_steps = device_loop.run(fn, state, bound, stop_all=stop_on == "all")
         torch.cuda.synchronize()
@@ -1329,7 +1330,7 @@ def test_device_loop_equals_the_host_loop_through_b3_and_b4(cuda, kernel, bound)
         fn = sc.make_stoch_chunk(fa, 8, kernel, "float32", cuda)
         chunks.append(dataclasses.replace(fn, fn=lambda st, g=g, fn=fn: fn(st, draw_seed(g)),
                                           generator=g))
-    want, steps = run_chunks(chunks[0], 8, bound)(state)
+    want, steps = run_chunks(chunks[0], 8, bound)(copy_state(state))
     graphs = device_loop.launches
     got, got_steps = make_multi_stoch_runner(chunks[1], 8, bound)(state)
     torch.cuda.synchronize()
@@ -1353,12 +1354,13 @@ def test_device_loop_from_a_stopped_state_runs_no_chunk(cuda):
         done = state.done.clone()
         done[rows] = True
         entry = state._replace(done=done)
+        kept = copy_state(entry)
         before = fc.launches
         out, steps = device_loop.run(fn, entry, 10, stop_all=stop_all)
         torch.cuda.synchronize()
         assert steps == 0 and fc.launches == before
         for name in ("v", "xs", "xl", "dt", "done"):
-            assert torch.equal(getattr(out, name), getattr(entry, name)), name
+            assert torch.equal(getattr(out, name), getattr(kept, name)), name
 
 
 @pytest.mark.cuda
@@ -1380,7 +1382,7 @@ def test_a_graph_that_cannot_be_built_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="fused chunk kernel launch failed"):
         multi(state)
     monkeypatch.undo()
-    out, steps = device_loop.run(fn, state, 4)
+    out, steps = device_loop.run(fn, copy_state(state), 4)
     want = state
     for _ in range(steps // 8):
         want = fn(want)
@@ -1504,7 +1506,8 @@ def _scan_state(fa, B, seed, dtype, device):
 def test_scan_chunk_equals_the_step_loop(cuda, strategy, mode, dtype):
     """The captured 8-step chunk at B=37 against the same steps launched one
     by one: bit-identical, twice (segment_sum included: its tree sums in a
-    fixed order); one capture; each replay counts one graph chunk and B10's
+    fixed order); one capture (the first result copied and dropped, so its
+    buffers are free again); each replay counts one graph chunk and B10's
     launches of 8 steps (one a fixed step, two an adaptive one)."""
     from odesat_tpu_torch.ops import rhs_kernel as rk
     from odesat_tpu_torch.ops import scan_chunk
@@ -1515,7 +1518,8 @@ def test_scan_chunk_equals_the_step_loop(cuda, strategy, mode, dtype):
     for _ in range(8):
         want = step(want, dev)
     before = (scan_chunk.launches, rk.launches)
-    got, again = chunk(state, dev), chunk(state, dev)
+    got = copy_state(chunk(state, dev))
+    again = chunk(state, dev)
     torch.cuda.synchronize()
     per_step = 0 if strategy != "pallas" else (1 if mode == "fixed" else 2)
     assert (scan_chunk.launches, rk.launches) == (before[0] + 2, before[1] + 2 * 8 * per_step)
@@ -1569,7 +1573,7 @@ def test_scan_graphs_share_one_pool_and_replay_in_any_order(cuda):
         want = state
         for _ in range(n):
             want = step(want, dev)
-        outs.append((chunk(state, dev), want))
+        outs.append((copy_state(chunk(state, dev)), want))
     torch.cuda.synchronize()
     (cap_a,), (cap_b,) = a.graphs.values(), b.graphs.values()
     assert cap_a.parts[0][0].pool() == cap_b.parts[0][0].pool()
@@ -1746,13 +1750,13 @@ def test_stoch_scan_snapshot_resumes_to_the_same_flips(cuda):
     cpu_gen = torch.Generator().manual_seed(0)
     mid = chunk(chunk(state))
     saved = generator_states(cpu_gen, chunk)
-    want = chunk(chunk(mid))
+    want = chunk(chunk(copy_state(mid)))  # a call consumes its input
     final = chunk.device_generator.get_state()
     fresh_gen = torch.Generator().manual_seed(8)
     fresh = make_stoch_chunk_runner(fa, 100, cuda, fresh_gen, fused="off")
     for runner, gen in ((chunk, torch.Generator()), (fresh, fresh_gen)):
         restore_generators(saved, gen, runner)
-        got = runner(runner(mid))
+        got = runner(runner(copy_state(mid)))
         torch.cuda.synchronize()
         for name, a, b in zip(state._fields, got, want):
             assert torch.equal(a, b), name
@@ -1784,3 +1788,142 @@ def test_stoch_scan_chunk_stays_off_the_device_loop(cuda):
     for name, a, b in zip(state._fields, got, want):
         assert torch.equal(a, b), name
     assert torch.equal(chunk.device_generator.get_state(), other.device_generator.get_state())
+
+
+# ------------------------------------------------------- donation
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fused", "stream", "stoch_fused", "stoch_stream"])
+def test_chunk_kernels_in_place_equal_out_of_place(cuda, kernel):
+    """B1-B4 host-paced: a donating runner runs in place on its input and
+    returns its tensors, bit for bit what the runner built with
+    donate=False writes into new tensors, which leaves its input as it
+    was."""
+    from odesat_tpu_torch.models.stoch import init_stoch_state
+    from odesat_tpu_torch.ops import stoch_chunk as sc
+    from odesat_tpu_torch.ops import stream_chunk as stc
+
+    fa = compile_formula(normalize_cnf_variables(random_ksat(50, 200, seed=3, planted=True))[1])
+    if kernel.startswith("stoch"):
+        make = lambda donate: (lambda fn: lambda st: fn(st, 99))(  # noqa: E731
+            sc.make_stoch_chunk(fa, 16, kernel[6:], "float32", cuda, donate))
+        state = init_stoch_state(fa, 77, cuda)
+    else:
+        build = fc.make_fused_chunk if kernel == "fused" else stc.make_stream_chunk
+        make = lambda donate: (lambda fn: lambda st: fn(st))(  # noqa: E731
+            build(fa, 0.05, ODEConfig(), 16, cuda, donate))
+        state = _state(fa, 77, 3, cuda)
+    entry = copy_state(state)
+    kept = make(False)(state)
+    torch.cuda.synchronize()
+    for name, a, b in zip(state._fields, state, entry):
+        assert torch.equal(a, b), name  # donate=False left its input
+    ptrs = [t.data_ptr() for t in state]
+    got = make(True)(state)
+    torch.cuda.synchronize()
+    assert [t.data_ptr() for t in got] == ptrs
+    for name, a, b in zip(state._fields, got, kept):
+        assert torch.equal(a, b), name
+    assert (kept.v != entry.v).any()
+
+
+def _dispatch_case(kind, cuda):
+    """A multi-chunk runner over B1 (``kind`` "fused") or the scan chunk
+    (the twin's gather step), 4 chunks of 8 steps stopping when every row
+    is done, its chunk, the formula tensors and a state maker."""
+    fa = compile_formula(normalize_cnf_variables(random_ksat(50, 200, seed=3, planted=True))[1])
+    ode = ODEConfig(step_size=0.05, dv_strategy="fused" if kind == "fused" else "gather")
+    chunk = tode.make_chunk_runner(fa, 0.05, ode, 8, cuda)
+    multi = tode.make_multi_chunk_runner(fa, 0.05, ode, 8, 4, cuda, stop_on="all", chunk=chunk)
+    dev = tode.formula_device(fa, cuda)
+    return multi, chunk, dev, lambda seed: _state(fa, 64, seed, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fused", "scan"])
+def test_a_dispatch_from_its_own_result_runs_in_place_with_no_copy_and_no_capture(cuda, kind):
+    """Dispatches that pass each result back, as drive_chunks does: after
+    the first, no copy into a graph's buffers, no new graph or capture; B1's
+    dispatch runs on the caller's tensors from the first one (the pointer
+    block); every result equals the host loop over the same chunk bit for
+    bit."""
+    from odesat_tpu_torch.models.loop import run_chunks
+    from odesat_tpu_torch.ops import device_loop, scan_chunk
+
+    multi, chunk, dev, make = _dispatch_case(kind, cuda)
+    host = run_chunks(lambda st: chunk(st, dev), 8, 4, stop_all=True)
+    wants, st = [], make(1)
+    for _ in range(4):  # the host loop's results first: they hold no buffers after
+        st = host(st)[0]
+        wants.append(copy_state(st))
+    del st
+    state = make(1)
+    ptrs, first = [t.data_ptr() for t in state], device_loop.loads
+    state, _ = multi(state, dev)
+    loads, captures, graphs = device_loop.loads, scan_chunk.captures, len(chunk.loops)
+    for i, want in enumerate(wants):
+        if i:
+            state, _ = multi(state, dev)
+        torch.cuda.synchronize()
+        for name, a, b in zip(want._fields, state, want):
+            assert torch.equal(a, b), name
+    assert (device_loop.loads, scan_chunk.captures, len(chunk.loops)) == (loads, captures, graphs)
+    if kind == "fused":
+        assert [t.data_ptr() for t in state] == ptrs and device_loop.loads == first
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fused", "stream"])
+def test_stoch_dispatches_from_their_own_results_copy_only_at_the_first(cuda, kernel):
+    """B3 and B4 run their graphs on the runner's buffer sets: dispatches
+    that pass each result back equal the host loop over a generator of the
+    same seed bit for bit, copy the state in at the first dispatch only and
+    build one graph."""
+    from odesat_tpu_torch.models.loop import run_chunks
+    from odesat_tpu_torch.models.stoch import init_stoch_state, make_multi_stoch_runner
+    from odesat_tpu_torch.models.stoch import make_stoch_chunk_runner
+    from odesat_tpu_torch.ops import device_loop
+
+    fa = compile_formula(normalize_cnf_variables(random_ksat(40, 170, seed=4))[1])
+    gens = [torch.Generator().manual_seed(7) for _ in range(2)]
+    chunks = [make_stoch_chunk_runner(fa, 8, cuda, g, fused="on") for g in gens]
+    if kernel == "stream":  # B4 on the same formula: the stream kernel's runner
+        from odesat_tpu_torch.models.stoch import draw_seed
+        from odesat_tpu_torch.ops import stoch_chunk as sc
+
+        chunks = [dataclasses.replace(f, fn=lambda st, g=g, f=f: f(st, draw_seed(g)),
+                                      generator=g)
+                  for g, f in zip(gens, (sc.make_stoch_chunk(fa, 8, "stream", "float32", cuda)
+                                         for _ in gens))]
+    host = run_chunks(chunks[0], 8, 3)
+    multi = make_multi_stoch_runner(chunks[1], 8, 3)
+    want, state = init_stoch_state(fa, 100, cuda), init_stoch_state(fa, 100, cuda)
+    loads = []
+    for _ in range(3):
+        want = host(want)[0]
+        before = device_loop.loads
+        state, _ = multi(state)
+        loads.append(device_loop.loads - before)
+        torch.cuda.synchronize()
+        for name in ("v", "xl", "done"):
+            assert torch.equal(getattr(state, name), getattr(want, name)), name
+    assert loads == [1, 0, 0] and len(chunks[1].loops) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fused", "scan"])
+@pytest.mark.parametrize("call", ["dispatch", "chunk"])
+def test_a_held_result_is_unchanged_by_a_call_from_another_state(cuda, kind, call):
+    """A result the caller holds stays as it came back after the same
+    runner (its dispatch or its chunk) runs from another state, which
+    itself equals its run alone."""
+    multi, chunk, dev, make = _dispatch_case(kind, cuda)
+    run = (lambda st: multi(st, dev)[0]) if call == "dispatch" else (lambda st: chunk(st, dev))
+    alone = copy_state(run(make(2)))
+    held = run(make(1))
+    kept = copy_state(held)
+    other = run(make(2))
+    torch.cuda.synchronize()
+    for name, a, b, c, d in zip(held._fields, held, kept, other, alone):
+        assert torch.equal(a, b) and torch.equal(c, d), name
