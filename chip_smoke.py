@@ -220,7 +220,14 @@ Phases, each printing its lines; the first failure exits non-zero:
     result equal to the host loop, with no copy and no new capture or graph
     after the first (B1 none from the first: the pointer block); a result held
     across a dispatch and a chunk from another state unchanged; the stoch
-    twin's snapshot resumed to the same flips;
+    twin's snapshot resumed to the same flips; e. the clause mesh donated:
+    B6 fixed and adaptive, B5, B9 and B8's runners at config 7 S=1 B=1024,
+    and B6 at a ragged B=1000, return their input's storage, equal to a
+    copy-first run of the plain version on the card bit for bit; a second
+    chunk of the shape from another state allocates nothing and leaves the
+    first result, still held, as it was; then each runner's 64-step chunk
+    walls and its peak bytes (and, in phase 20's world, each rank's peak
+    over a B6 and a B9 chunk at S=2);
 26. the pod mesh (parallel/multihost.py): two CLI processes of one job on
     this host (the CLI's main in ``python -c``, ``--coordinator
     127.0.0.1:<free port> --num-processes 2 --process-id 0|1 --dist-backend
@@ -320,7 +327,8 @@ cost a chunk and a dispatch of 0 chunks, phase 16b's pallas step, phases
 27d's and 30b's peak memory, and phase 25d where ROOT donates its state;
 ``python3 chip_smoke.py --time-b10 ROOT`` times B10 of the checkout at ROOT
 (a parent tree unpacked beside this one) as phase 17 times this one;
-``--time-mesh ROOT`` the clause-mesh steps of phase 21 at S=2 and S=4 and
+``--time-mesh ROOT`` phase 25e's 64-step chunk walls and peaks at S=1, each
+rank's peak at S=2, the clause-mesh steps of phase 21 at S=2 and S=4 and
 phase 29's 29a and 29b with the port at ROOT; ``--time-b7`` the split of B7's standalone call at S=2
 and S=4; ``--time-segment ROOT`` a segment_sum step of the port at ROOT
 at hard.cnf B=4096 and phase 27d's B=512 (``--time-segment ROOT cpu`` on
@@ -330,7 +338,7 @@ chunks; ``--time-mesh-loop [host]`` phase 28a alone (both loops, or the
 host loop alone; on a host of several cards one NCCL rank a card);
 ``--twin`` phase 29 alone (on a host of several cards 29a at S=2 and S=4,
 one NCCL rank a card, through B7 and through NCCL's all-reduce);
-``--stoch-scan`` phase 30 alone; ``--donation`` phase 25d alone.
+``--stoch-scan`` phase 30 alone; ``--donation`` phases 25d and 25e alone.
 
 The last two lines are the ``kernels`` JSON object (one row per kernel,
 with its bound: the larger of its bytes over 3.35 TB/s and its operations
@@ -1142,10 +1150,12 @@ def load_stream_cases(n1k_reduced):
         return compile_for_config(normalize_cnf_variables(formula)[1], SolverConfig())
 
     p2k, _ = preprocess_formula(planted_n2000(7000), 7.0)
+    # chunks of 4, 8 and 4 steps (8, 16 and 8 before phase 25e came): the
+    # plain version at B=10240 is most of phase 12's time
     return [
-        ("n1k preprocessed B=10240", fa_of(n1k_reduced), 10240, 8),
-        ("planted n=2000 m=7000 preprocessed B=1024", fa_of(p2k), 1024, 16),
-        ("local n=4096 B=10240", fa_of(local_n4096()), 10240, 8),
+        ("n1k preprocessed B=10240", fa_of(n1k_reduced), 10240, 4),
+        ("planted n=2000 m=7000 preprocessed B=1024", fa_of(p2k), 1024, 8),
+        ("local n=4096 B=10240", fa_of(local_n4096()), 10240, 4),
     ]
 
 
@@ -1662,11 +1672,11 @@ def mesh_step_ms(mesh, device, fa, steps=16, reps=2, B=1024):
             torch.cuda.synchronize(device)
             dist.barrier()
 
-        run(state)
+        state = run(state)  # a call consumes its input where the tree donates
         settle()
         t0 = time.perf_counter()
         for _ in range(reps):
-            run(state)
+            state = run(state)
         settle()
         out[name] = (time.perf_counter() - t0) / (reps * steps) * 1e3
     return out
@@ -1680,8 +1690,10 @@ def mesh_step_line(S, r, card, origin="this tree"):
 
 
 def time_mesh(root):
-    """``--time-mesh ROOT``: phase 20's clause-mesh steps (mesh_step_ms) at
-    S=2 and S=4 on config 7 with the port of the checkout at ROOT (a parent
+    """``--time-mesh ROOT``: phase 25e's clause-mesh chunk walls and peaks
+    at S=1 (clause_walls_and_peaks) and each rank's peak at S=2
+    (mesh_chunk_peaks), and phase 20's clause-mesh steps (mesh_step_ms) at
+    S=2 and S=4, on config 7 with the port of the checkout at ROOT (a parent
     tree unpacked beside this one, or this one)."""
     import torch
 
@@ -1696,6 +1708,14 @@ def time_mesh(root):
     card = phase_device(torch)
     c7 = config7_instance()
     normalized = normalize_cnf_variables(c7)[1]
+    # phase 25e's and 21's: each runner's 64-step chunk walls and peak at S=1,
+    # and each rank's peak at S=2
+    walls = clause_walls_and_peaks(torch, compile_stream_sharded(normalized, 1)[0])
+    for name in CLAUSE_RUNNERS:
+        say(clause_walls_line(name, walls[name], card, root))
+    every = launch.spawn(mesh_chunk_peaks, 1, 2, "gloo", "cuda", timeout_s=600,
+                         args=(compile_stream_sharded(normalized, 2)[0],))
+    say(mesh_peaks_line(2, every, card, root))
     for S in (2, 4):
         fa = compile_stream_sharded(normalized, S)[0]
         r = launch.spawn(mesh_step_ms, 1, S, "gloo", "cuda", timeout_s=600, args=(fa,))
@@ -2287,13 +2307,14 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card, loop_calls):
     last in this world, their values and each one's launch counts on each
     rank (:func:`phase_mesh_loop` reports them). The
     CLI runs on the config 7 instance are 64 steps (B6) and 32 (B9); the
-    CLI's mesh solves through B5 and B8 (16 steps each), the parity checks
-    (256 rows for the ODE, 32 steps for stoch) and B7's checks run in one
-    spawned world with the trajectory mesh's run and the timings: every
-    spawn pays its ranks' start-up."""
+    CLI's stoch mesh solve through B9 and those through B5 and B8 (16 steps
+    each), the parity checks (256 rows for the ODE, 32 steps for stoch) and
+    B7's checks run in one spawned world with the trajectory mesh's run and
+    the timings: every spawn pays its ranks' start-up."""
     import numpy as np
 
     from odesat_tpu_torch import cli
+    from odesat_tpu_torch.cnf import evaluate_cnf, map_values_by_indices, normalize_cnf_variables
     from odesat_tpu_torch.parallel import launch, sharded
 
     c7_path = config7_path(c7)
@@ -2314,8 +2335,6 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card, loop_calls):
          "shard_chunk", 4096, "true"),
         ("b. inter config 7 B=1024", "inter", c7_inter + ["-n", "64"], "shard_chunk", 1024,
          None),
-        ("c. stoch config 7 B=1024 --no-preprocess", "stoch", c7_stoch + ["-n", "32"],
-         "stoch_shard_chunk", 1024, None),
         ("c. stoch easy.cnf B=256", "stoch", ["-f", easy, "-b", "256", "-n", "20000", "--seed", "1"],
          "stoch_shard_chunk", 256, "true"),
     )
@@ -2402,7 +2421,10 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card, loop_calls):
     calls += [cli.mesh_call(hybrid_argv)]
     calls += [cli.mesh_call([*argv, *gloo]) for _, argv in resume_runs]
     races = race_calls(2)
-    calls += races + [(time_butterfly_split, (shape7, 20))]
+    calls += races + [(time_butterfly_split, (shape7, 20)), (mesh_chunk_peaks, (fa7_2,))]
+    # c. stoch config 7 through B9: the CLI's mesh solve, in this world
+    c7_stoch_argv = ["stoch", *c7_stoch, "-n", "32", *gloo]
+    calls += [cli.mesh_call(c7_stoch_argv)]
     checks = b7_checks(shape7)
     calls += checks
     values = launch.spawn(launch.run_all, 1, 2, "gloo", "cuda", timeout_s=600,
@@ -2420,7 +2442,9 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card, loop_calls):
     resumed_two = values[10:10 + n_resume]
     race_two = values[10 + n_resume:10 + n_resume + len(races)]
     split_two = values[10 + n_resume + len(races)]
-    b7_errs = values[11 + n_resume + len(races):]
+    peaks_two = values[11 + n_resume + len(races)]
+    c7_stoch_two = values[12 + n_resume + len(races)]
+    b7_errs = values[13 + n_resume + len(races):]
     # run_all zeroes every count before each call: each call's launches per rank
     per_call = [{k: [r["calls"][i][k] for r in launch.last_reports]
                  for k in (*totals, "fused_chunk")} for i in range(len(calls))]
@@ -2439,6 +2463,8 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card, loop_calls):
            *((("shard_chunk", "butterfly_fused") if argv[0] == "inter" else
               ("stoch_shard_chunk", "butterfly_fused")) for _, argv in resume_runs),
            *((kernel, "butterfly_fused") for kernel in RACE_KERNELS), ("butterfly",),
+           ("shard_chunk", "stoch_shard_chunk", "butterfly_fused"),
+           ("stoch_shard_chunk", "butterfly_fused"),
            *((("butterfly",),) * len(checks)))
     for i, (kernels, counts) in enumerate(zip(ran, per_call)):
         if any(len(counts[k]) != 2 or min(counts[k]) == 0 for k in kernels) or \
@@ -2456,6 +2482,22 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card, loop_calls):
             f"CLI's mesh solve, cli.mesh_call, in the parity world): no row solved after "
             f"exactly {budget} steps, {kernel} launches per rank {counts[kernel]}, their sums "
             f"through B7's standalone call {counts['butterfly']} ({card})")
+    i_c7 = 12 + n_resume + len(races)
+    counts, fused = per_call[i_c7]["stoch_shard_chunk"], per_call[i_c7]["butterfly_fused"]
+    mapping = normalize_cnf_variables(c7)[0]
+    if c7_stoch_two.solved_index is not None:
+        if not evaluate_cnf(map_values_by_indices(mapping, c7_stoch_two.best_assignment()), c7):
+            fail("c. stoch config 7 at S=2: the solved row does not satisfy the formula")
+    elif c7_stoch_two.steps != 32:
+        fail(f"c. stoch config 7 at S=2: expected no solve after exactly 32 steps or a "
+             f"verified solution, got {c7_stoch_two.steps} steps")
+    totals["stoch_shard_chunk"] += sum(counts)
+    totals["butterfly_fused"] += sum(fused)
+    say(f"[mesh main] c. stoch config 7 B=1024 --no-preprocess --clause-shards 2 (the CLI's "
+        f"mesh solve, cli.mesh_call, in the parity world; B7 fused into the launches): "
+        f"{int(c7_stoch_two.done.sum())} solved after {c7_stoch_two.steps} steps, "
+        f"stoch_shard_chunk launches per rank {counts}, of them reading both ranks' slots (B7 "
+        f"fused) {fused}, no other clause kernel and no standalone B7 call ({card})")
     p2, p1 = fa7_2.shard_plan, fa7_1.shard_plan
 
     def by_clause(x, plan, dtype=np.float32):
@@ -2529,6 +2571,7 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card, loop_calls):
                                  per_call[10:10 + n_resume], totals, card)
     say(b7_split_line(2, split_two, card))
     say(mesh_step_line(2, steps_two, card))
+    say(mesh_peaks_line(2, peaks_two, card))
     b7 = {"S=2": {"ms": b7_ms, "plain_ms": b7_plain, "library_ms": allreduce_ms,
                   "steps": steps_two, "split": split_two, "err": max(b7_err, race_err)}}
     return totals, b7, (loop_values, loop_reports)
@@ -2536,7 +2579,7 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card, loop_calls):
 
 RACE_KERNELS = ("shard_chunk", "shard_chunk", "stoch_shard_chunk")
 # the race runs' length: B6 fixed and B9 this many steps, B6 adaptive half
-RACE_STEPS = 250
+RACE_STEPS = 128
 
 
 def race_calls(S):
@@ -2840,7 +2883,7 @@ def phase_nccl_world_of_one(torch, fa7):
             chunk = sch.make_shard_chunk(fa7, zeta, ode, 16, mesh.clause_group, "cuda")
             alone = ss.make_single_device_runner(fa7, zeta, ode, 16, "cuda")
             state = random_state(fa7, 1024, seed=21)
-            a, c, b = grouped(state), chunk(state), alone(state)
+            a, c, b = grouped(copied(state)), chunk(copied(state)), alone(state)
             torch.cuda.synchronize()
             if not all(torch.equal(x, y) for x, y in zip(a, b)):
                 fail("the clause step over an NCCL world of one differs from the B5 runner")
@@ -2982,12 +3025,12 @@ def phase_shard_timing(torch, ss, sch, sc, fa7, b7, card):
     rates = {}
     for name, run in (("B5 runner", ss.make_single_device_runner(fa7, zeta, ode, 64, "cuda")),
                       ("B6 chunk", sch.make_shard_chunk(fa7, zeta, ode, 64, None, "cuda"))):
-        run(state)
+        state = run(state)  # each call consumes its input and returns it advanced
         torch.cuda.synchronize()
         rates[name] = []
         for _ in range(2):
             t0 = time.perf_counter()
-            run(state)
+            state = run(state)
             torch.cuda.synchronize()
             rates[name].append(B * 64 / (time.perf_counter() - t0))
         r = rates[name]
@@ -3000,22 +3043,23 @@ def phase_shard_timing(torch, ss, sch, sc, fa7, b7, card):
         run = sharded.make_clause_stoch_runner(fa7, 64, "cuda", torch.Generator().manual_seed(7),
                                                None, "float32", mode)
         s0 = init_stoch_state(fa7, B, "cuda")
-        run(s0)
+        s0 = run(s0)
         torch.cuda.synchronize()
         chains[name] = []
         for _ in range(2):
             t0 = time.perf_counter()
-            run(s0)
+            s0 = run(s0)
             torch.cuda.synchronize()
             chains[name].append(B * 64 / (time.perf_counter() - t0))
     G, Np = -(-B // 32), fa7.n_vars_padded
-    u_ms = cuda_ms(lambda: sc.uniform01_tiled(12345, G, sc.traj_block(B), 3, Np, "cuda"),
-                   iters=20, warmup=2)
+    uniforms = sc.TiledUniforms(G, sc.traj_block(B), Np, "cuda")  # B8's runner's, a shape
+    u_ms = cuda_ms(lambda: uniforms.draw(12345, 3), iters=20, warmup=2)
     step_ms = B / max(chains["B8 path"]) * 1e3
     a, c = chains["B8 path"], chains["B9 chunk"]
     say(f"[stoch clause runners] config 7 B={B} S=1 f32, 64-step chunks: through B8 (flips "
         f"drawn in torch, on tiled chains) {a[0]:.6e} / {a[1]:.6e} chain*steps/s, through B9 "
         f"{c[0]:.6e} / {c[1]:.6e}; the counter-hash uniforms of one B8-path step "
+        f"(TiledUniforms.draw into its held buffers, as the runner draws them) "
         f"{u_ms:.6f} ms (CUDA events), {u_ms / step_ms:.3f} of its {step_ms:.6f} ms ({card})")
     times["stoch_runner"] = chains
     # B7 at (B, Np+1) f32: S partials read and one result written, a rank
@@ -3801,6 +3845,234 @@ def phase_donation(torch, card):
         f"for bit ({card})")
 
 
+# Phase 25e's runners, at config 7 S=1: B6 fixed and adaptive, B5 (fixed,
+# --shard-chunk off), B9 and B8 (--shard-chunk off)
+CLAUSE_RUNNERS = ("B6 fixed", "B6 adaptive", "B5", "B9", "B8")
+
+
+def clause_runner(torch, name, fa, steps, plain=False):
+    """``run(state) -> state`` for one of :data:`CLAUSE_RUNNERS` (S=1,
+    on the card). ``plain``: the plain version on the card that it is held
+    against, B6's for B5 and B9's for B8 (the same results bit for bit),
+    drawing the runner's seed. Only entry points that the parent trees
+    have, so that ``--time-mesh`` runs it on them."""
+    from odesat_tpu_torch.ops import shard_chunk as sch
+    from odesat_tpu_torch.ops import shard_stream as ss
+    from odesat_tpu_torch.ops import stoch_chunk as sc
+    from odesat_tpu_torch.parallel import sharded
+    from odesat_tpu_torch.utils.config import ODEConfig
+
+    if name in ("B9", "B8"):
+        gen = torch.Generator().manual_seed(7)
+        if plain:
+            chunk = sc.make_stoch_shard_chunk(fa, steps, "cuda", plain=True)
+            return lambda st: chunk(st, int(torch.randint(0, 2**31 - 1, (1,), generator=gen)))
+        return sharded.make_clause_stoch_runner(fa, steps, "cuda", gen, None, "float32",
+                                                "auto" if name == "B9" else "off")
+    ode = ODEConfig() if name == "B6 adaptive" else ODEConfig(step_size=0.01)
+    zeta = ode.resolve_zeta(fa.density)
+    if plain:
+        chunk = sch.make_shard_chunk(fa, zeta, ode, steps, None, "cuda", plain=True)
+    elif name == "B5":
+        chunk = ss.make_single_device_runner(fa, zeta, ode, steps, "cuda")
+    else:
+        chunk = sch.make_shard_chunk(fa, zeta, ode, steps, None, "cuda")
+    return lambda st: chunk(st, None)
+
+
+def clause_state(name, fa, B, seed):
+    return stoch_state(fa, B, seed) if name in ("B9", "B8") else random_state(fa, B, seed)
+
+
+def allocations(torch):
+    """The caching allocator's allocations so far on this device."""
+    return torch.cuda.memory_stats()["allocation.all.allocated"]
+
+
+def phase_clause_donation(torch, fa7, card, B=1024, steps=4):
+    """Phase 25e: the clause mesh's runners donated, as JAX donates their
+    state (ops/device_loop.py's contract), at config 7 S=1 B=1024 and a
+    ragged B=1000 (B6 fixed): each returns its input's own storage, equal
+    bit for bit to a copy-first run of the plain version on the card; a
+    second chunk of the shape, from another state, allocates nothing
+    (``allocation.all.allocated`` unchanged) and leaves the first result,
+    still held, as it was. Then each runner's 64-step chunk walls and its
+    peak (:func:`clause_walls_and_peaks`)."""
+    import gc
+
+    cases = [*((name, B) for name in CLAUSE_RUNNERS), ("B6 fixed", 1000)]
+    for name, batch in cases:
+        run = clause_runner(torch, name, fa7, steps)
+        plain = clause_runner(torch, name, fa7, steps, plain=True)
+        first = clause_state(name, fa7, batch, seed=31)
+        want = plain(copied(first))
+        ptrs = [t.data_ptr() for t in first]
+        got = run(first)
+        torch.cuda.synchronize()
+        if [t.data_ptr() for t in got] != ptrs:
+            fail(f"clause donation, {name} B={batch}: the result is not the input's storage")
+        err = 0.0
+        for field, a, b in zip(got._fields, got, want):
+            if not torch.equal(a, b):
+                fail(f"clause donation, {name} B={batch}: {field} differs from the copy-first "
+                     f"plain run by {(a.float() - b.float()).abs().max().item()}")
+        kept = copied(got)
+        second = copied(want)  # another state of the shape
+        torch.cuda.synchronize()
+        before = allocations(torch)
+        run(second)
+        torch.cuda.synchronize()
+        new = allocations(torch) - before
+        if new:
+            fail(f"clause donation, {name} B={batch}: a second chunk of the shape made {new} "
+                 f"allocations")
+        if not all(torch.equal(a, b) for a, b in zip(got, kept)):
+            fail(f"clause donation, {name} B={batch}: a chunk from another state wrote the "
+                 f"held result")
+        say(f"[clause donation] config 7 S=1 B={batch} {name}, {steps}-step chunks: returns "
+            f"its input's storage, equal to the copy-first plain run (max abs err {err}); a "
+            f"second chunk from another state: 0 allocations, the held result unchanged "
+            f"({card})")
+        del run, plain, first, want, got, kept, second
+        gc.collect()
+    r = clause_walls_and_peaks(torch, fa7)
+    for name in CLAUSE_RUNNERS:
+        if r[name]["allocs"]:
+            fail(f"clause donation, {name}: its timed 64-step chunks made {r[name]['allocs']} "
+                 f"allocations")
+        say(clause_walls_line(name, r[name], card))
+    return r
+
+
+def clause_walls_and_peaks(torch, fa7, B=1024, steps=64, reps=2):
+    """For each of :data:`CLAUSE_RUNNERS` at config 7 S=1, from a fresh
+    state after a warm-up chunk (each call from the last one's result):
+    ``reps`` walls of a ``steps``-step chunk (ms, host clock, each ending
+    in a sync), the peak bytes allocated over those chunks above what the
+    process held before the runner and its state were made
+    (``reset_peak_memory_stats``, ``max_memory_allocated``), the state's
+    bytes and the chunks' allocations."""
+    import gc
+
+    out = {}
+    for name in CLAUSE_RUNNERS:
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        run = clause_runner(torch, name, fa7, steps)
+        state = run(clause_state(name, fa7, B, seed=41))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before, walls = allocations(torch), []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            state = run(state)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"walls": walls, "peak": torch.cuda.max_memory_allocated() - base,
+                     "state": sum(t.numel() * t.element_size() for t in state),
+                     "allocs": allocations(torch) - before}
+        del run, state
+    gc.collect()
+    return out
+
+
+def clause_walls_line(name, r, card, origin="this tree"):
+    return (f"[clause chunk] config 7 S=1 B=1024 {name} ({origin}): 64-step chunk "
+            f"{' / '.join(f'{w:.6f}' for w in r['walls'])} ms (host clock), peak "
+            f"{r['peak']} B above the process's before the runner (state {r['state']} B), "
+            f"{r['allocs']} allocations over the timed chunks ({card})")
+
+
+# a solve of 8 chunks of 16 steps, a chunk grown to 256 and a tail of 7
+# (models/loop.drive_chunks: GROW_AFTER 8, 16x): a runner of each length
+SOLVE_STEPS = 8 * 16 + 256 + 7
+
+
+def mesh_chunk_peaks(mesh, device, fa, steps=16, B=1024):
+    """Every rank's peak bytes over a ``steps``-step chunk of B6 (fixed)
+    and of B9 at config 7 on this clause mesh, after a warm-up chunk, above
+    what the rank held before its runner and state were made; then over a
+    whole ``simulate_batch_sharded`` through B6 with a wall-clock budget
+    (so no dispatch, and the chunk grows) of :data:`SOLVE_STEPS` steps,
+    which builds runners of 16, 256 and 7 steps, above what the rank held
+    before it (and the steps it ran). Gathered to every rank (rank order).
+    Only entry points that the parent trees have. Run in a spawned world."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from odesat_tpu_torch.interop import state_from_numpy
+    from odesat_tpu_torch.models.ode import formula_device, state_dtype
+    from odesat_tpu_torch.models.stoch import init_stoch_state
+    from odesat_tpu_torch.parallel import sharded
+    from odesat_tpu_torch.utils.config import ODEConfig, SolverConfig
+
+    ode = ODEConfig(step_size=0.01)
+    peaks = {}
+    for name in ("B6", "B9"):
+        gc.collect()
+        torch.cuda.synchronize(device)
+        dist.barrier()
+        base = torch.cuda.memory_allocated(device)
+        if name == "B6":
+            rng = np.random.default_rng(5)
+            v = rng.uniform(-1, 1, (B, fa.n_vars_padded)).astype(np.float32)
+            xs = np.broadcast_to(fa.xs_init, (B, fa.n_clauses_padded)).astype(np.float32)
+            state, dev = sharded.shard_inputs(
+                state_from_numpy(v, xs, np.ones_like(xs), np.full(B, 0.01, np.float32),
+                                 np.zeros(B, bool), device=device),
+                formula_device(fa, device, dtype=state_dtype(ode)), mesh)
+            chunk = sharded.make_sharded_chunk_runner(fa, ode.resolve_zeta(fa.density), ode,
+                                                      steps, mesh, device)
+
+            def run(st):
+                return chunk(st, dev)
+        else:
+            state = sharded.shard_stoch_inputs(init_stoch_state(fa, B, device), mesh)
+            run = sharded.make_clause_stoch_runner(fa, steps, device,
+                                                   sharded.row_generator(5, mesh),
+                                                   mesh.clause_group, "float32", "auto")
+        state = run(state)
+        torch.cuda.synchronize(device)
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats(device)
+        state = run(state)
+        torch.cuda.synchronize(device)
+        peaks[name] = torch.cuda.max_memory_allocated(device) - base
+        del run, state
+        if name == "B6":
+            del chunk, dev
+    gc.collect()
+    torch.cuda.synchronize(device)
+    dist.barrier()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    config = SolverConfig(ode=ODEConfig(step_size=0.01, steps=SOLVE_STEPS), batch_size=B,
+                          seed=5, chunk_steps=16, wall_clock_budget_s=3600.0)
+    result = sharded.simulate_batch_sharded(fa, config, mesh, device=device)
+    torch.cuda.synchronize(device)
+    peaks["solve"] = torch.cuda.max_memory_allocated(device) - base
+    peaks["solve_steps"] = result.steps
+    del result
+    gc.collect()
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, peaks)
+    return every
+
+
+def mesh_peaks_line(S, every, card, origin="this tree"):
+    ranks = ", ".join(f"rank {r}: B6 {p['B6']} B9 {p['B9']} solve {p['solve']} "
+                      f"({p['solve_steps']} steps)" for r, p in enumerate(every))
+    return (f"[mesh peaks] config 7 B=1024 S={S} ({S} ranks sharing the card, {origin}), each "
+            f"rank's peak bytes over a 16-step chunk above what it held before its runner and "
+            f"state, and over a simulate_batch_sharded through B6 with a wall-clock budget "
+            f"(chunks of 16, a grown 256 and a tail of 7) above what it held before: {ranks} "
+            f"({card})")
+
+
 def time_loop(root):
     """``--time-loop ROOT``: with the port of the checkout at ROOT (a parent
     tree unpacked beside this one, or this one), phase 6's inter runs on
@@ -4086,79 +4358,91 @@ def phase_pod(card):
     if step_ms is None:
         fail("26a: the 2x2 step timing printed nothing")
     startup = pod_startup(results, runs)
-    # the same command on one process: --devices 2 --clause-shards 2
-    t_one = time.perf_counter()
-    verdict, reports, steps, solved, seconds, _ = run_cli_mesh(
-        argv[0], [*argv[1:], "--devices", "2", "--clause-shards", "2", "--dist-backend", "gloo",
-                  "-o", ref_out])
-    t_one = time.perf_counter() - t_one
-    with open(outs[0], encoding="utf-8") as a_fh, open(ref_out, encoding="utf-8") as r_fh:
-        same = a_fh.read() == r_fh.read()
-    if not same or {r[1] for r in runs} != {steps} or {r[0] for r in runs} != {verdict}:
-        fail(f"26a: the pod's assignment and steps {[r[:2] for r in runs]} differ from the "
-             f"single-process 2x2 run's ({verdict}, {steps}; assignment equal: {same})")
-    one_b6 = [r["shard_chunk"] for r in reports]
-    launches["shard_chunk"] += sum(one_b6)
-    launches["butterfly_fused"] += sum(r["butterfly_fused"] for r in reports)
-    say(f"[pod] a. inter config 7 -b 1024 -n 64 --seed 0 --pod-mesh --clause-shards 2, 2 "
-        f"processes x LOCAL_WORLD_SIZE=2 (a 2x2 mesh, a clause group inside each process): "
-        f"verdicts {[r[0] for r in runs]} after {[r[1] for r in runs]} steps, B6 launches per "
-        f"rank {b6}, of them reading both ranks' slots (B7 fused) {fused}, standalone B7 "
-        f"{standalone}; process 0 alone wrote -o, equal to the single-process --devices 2 "
-        f"--clause-shards 2 run's bit for bit ({verdict} after {steps} steps, B6 per rank "
-        f"{one_b6}) ({card})")
-    say(f"[pod timing] a. the pair's wall {wall:.1f} s with its timing world; start-up a "
-        f"process (its CLI run less its solve and its import) {startup} s, beside phase 20's "
-        f"single-process S=2 run on config 7 {c7_20:.3f} s and this single-process 2x2 run "
-        f"{t_one - seconds:.3f} s; the 2x2 pod's inter step through B6 {step_ms:.6f} ms (host "
-        f"clock around 2 chunks of 16 steps, B=1024 a trajectory row; two processes of two "
-        f"ranks sharing the card) ({card})")
-
     # b. a trajectory-only pod: one rank a process, B1 on each; d. a lone
-    # process 1 of a pair whose process 0 never comes, at the same time
+    # process 1 of a pair whose process 0 never comes; c. the stoch engine
+    # on the 2x2 pod through B9: all three at the same time, beside a's
+    # single-process run (none is timed but by its wall), so that their
+    # start-ups overlap
     lone = pod_start(["inter", "-f", uf_path, "-b", "4096", "-s", "0.01", "-n", "20000",
                       "--seed", "0", "--pod-mesh"], 1, processes=(1,), timeout=10)
-    wall_b, results = pod_wait("b", pod_start(["inter", "-f", uf_path, "-b", "4096", "-s",
-                                               "0.01", "-n", "20000", "--seed", "0",
-                                               "--pod-mesh"], 1))
-    runs = [pod_verdict("b", rc, out) for rc, out, _ in results]
-    if [r[0] for r in runs] != ["true", "true"]:
-        fail(f"26b: verdicts {[r[0] for r in runs]}, expected true on both processes")
-    b1, _, _ = pod_launches("b", results, "fused_chunk", 2)
-    graphs = [r["device_loop_mesh"] for _, _, rec in results for r in rec.get("reports", [])]
-    if graphs != [graphs[0]] * 2 or graphs[0] == 0:
-        fail(f"26b: mesh device-loop graph launches per rank {graphs}, expected the same "
-             "number, at least one, on both processes")
-    launches["fused_chunk"] += sum(b1)
-    launches["device_loop_mesh"] += sum(graphs)
-    say(f"[pod] b. inter uf250 -b 4096 -n 20000 --seed 0 --pod-mesh, 2 processes of one rank "
-        f"(the trajectory axis across them): verdicts {[r[0] for r in runs]}, "
-        f"{[r[2] for r in runs]} solved after {[r[1] for r in runs]} steps, B1 launches per "
-        f"rank {b1} in mesh device-loop graphs {graphs} (the stop exchanged across the two "
-        f"processes); pair wall {wall_b:.1f} s, start-up a process "
-        f"{pod_startup(results, runs)} s ({card})")
-    wall_d, ((rc, out, _),) = pod_wait("d", lone)
-    if rc == 0 or "Checking if solution vector" in out or "error:" not in out or wall_d > 60:
-        fail(f"26d: a lone process 1 exited {rc} after {wall_d:.1f} s:\n{out[-3000:]}")
-    say(f"[pod] d. process 1 alone (no process 0 hosts the store), --dist-timeout 10: exit "
-        f"{rc} after {wall_d:.1f} s with no verdict: "
-        f"{next(line for line in out.splitlines() if line.startswith('error:'))[:200]}")
+    pair_b = pod_start(["inter", "-f", uf_path, "-b", "4096", "-s", "0.01", "-n", "20000",
+                        "--seed", "0", "--pod-mesh"], 1)
+    pair_c = pod_start(["stoch", "--no-preprocess", "-f", c7_path, "-b", "1024", "-n", "32",
+                        "--seed", "0", "--pod-mesh", "--clause-shards", "2"], 2)
+    try:
+        # the same command on one process: --devices 2 --clause-shards 2
+        t_one = time.perf_counter()
+        verdict, reports, steps, solved, seconds, _ = run_cli_mesh(
+            argv[0], [*argv[1:], "--devices", "2", "--clause-shards", "2", "--dist-backend", "gloo",
+                      "-o", ref_out])
+        t_one = time.perf_counter() - t_one
+        with open(outs[0], encoding="utf-8") as a_fh, open(ref_out, encoding="utf-8") as r_fh:
+            same = a_fh.read() == r_fh.read()
+        if not same or {r[1] for r in runs} != {steps} or {r[0] for r in runs} != {verdict}:
+            fail(f"26a: the pod's assignment and steps {[r[:2] for r in runs]} differ from the "
+                 f"single-process 2x2 run's ({verdict}, {steps}; assignment equal: {same})")
+        one_b6 = [r["shard_chunk"] for r in reports]
+        launches["shard_chunk"] += sum(one_b6)
+        launches["butterfly_fused"] += sum(r["butterfly_fused"] for r in reports)
+        say(f"[pod] a. inter config 7 -b 1024 -n 64 --seed 0 --pod-mesh --clause-shards 2, 2 "
+            f"processes x LOCAL_WORLD_SIZE=2 (a 2x2 mesh, a clause group inside each process): "
+            f"verdicts {[r[0] for r in runs]} after {[r[1] for r in runs]} steps, B6 launches per "
+            f"rank {b6}, of them reading both ranks' slots (B7 fused) {fused}, standalone B7 "
+            f"{standalone}; process 0 alone wrote -o, equal to the single-process --devices 2 "
+            f"--clause-shards 2 run's bit for bit ({verdict} after {steps} steps, B6 per rank "
+            f"{one_b6}) ({card})")
+        say(f"[pod timing] a. the pair's wall {wall:.1f} s with its timing world; start-up a "
+            f"process (its CLI run less its solve and its import) {startup} s, beside phase 20's "
+            f"single-process S=2 run on config 7 {c7_20:.3f} s and this single-process 2x2 run "
+            f"{t_one - seconds:.3f} s (beside pods b, c and d); the 2x2 pod's inter step through "
+            f"B6 {step_ms:.6f} ms (host clock around 2 chunks of 16 steps, B=1024 a trajectory "
+            f"row; two processes of two ranks sharing the card) ({card})")
 
-    # c. the stoch engine on the 2x2 pod through B9
-    wall_c, results = pod_wait("c", pod_start(["stoch", "--no-preprocess", "-f", c7_path, "-b",
-                                               "1024", "-n", "32", "--seed", "0", "--pod-mesh",
-                                               "--clause-shards", "2"], 2))
-    runs = [pod_verdict("c", rc, out) for rc, out, _ in results]
-    pod_budget("c", runs, 32)
-    b9, fused, standalone = pod_launches("c", results, "stoch_shard_chunk", 4)
-    if min(fused) == 0 or sum(standalone):
-        fail(f"26c: B7 fused reads per rank {fused}, standalone B7 calls {standalone}")
-    launches["stoch_shard_chunk"] += sum(b9)
-    launches["butterfly_fused"] += sum(fused)
-    say(f"[pod] c. stoch --no-preprocess config 7 -b 1024 -n 32 --pod-mesh --clause-shards 2 "
-        f"(2x2): verdicts {[r[0] for r in runs]} after {[r[1] for r in runs]} steps, B9 "
-        f"launches per rank {b9}, B7 fused {fused}, standalone B7 {standalone}; pair wall "
-        f"{wall_c:.1f} s, start-up a process {pod_startup(results, runs)} s ({card})")
+        wall_b, results = pod_wait("b", pair_b)
+        runs = [pod_verdict("b", rc, out) for rc, out, _ in results]
+        if [r[0] for r in runs] != ["true", "true"]:
+            fail(f"26b: verdicts {[r[0] for r in runs]}, expected true on both processes")
+        b1, _, _ = pod_launches("b", results, "fused_chunk", 2)
+        graphs = [r["device_loop_mesh"] for _, _, rec in results for r in rec.get("reports", [])]
+        if graphs != [graphs[0]] * 2 or graphs[0] == 0:
+            fail(f"26b: mesh device-loop graph launches per rank {graphs}, expected the same "
+                 "number, at least one, on both processes")
+        launches["fused_chunk"] += sum(b1)
+        launches["device_loop_mesh"] += sum(graphs)
+        say(f"[pod] b. inter uf250 -b 4096 -n 20000 --seed 0 --pod-mesh, 2 processes of one rank "
+            f"(the trajectory axis across them): verdicts {[r[0] for r in runs]}, "
+            f"{[r[2] for r in runs]} solved after {[r[1] for r in runs]} steps, B1 launches per "
+            f"rank {b1} in mesh device-loop graphs {graphs} (the stop exchanged across the two "
+            f"processes); pair wall {wall_b:.1f} s, start-up a process "
+            f"{pod_startup(results, runs)} s, beside pods c and d and a's single-process run "
+            f"({card})")
+        wall_d, ((rc, out, _),) = pod_wait("d", lone)
+        if rc == 0 or "Checking if solution vector" in out or "error:" not in out or wall_d > 60:
+            fail(f"26d: a lone process 1 exited {rc} after {wall_d:.1f} s:\n{out[-3000:]}")
+        say(f"[pod] d. process 1 alone (no process 0 hosts the store), --dist-timeout 10: exit "
+            f"{rc} after {wall_d:.1f} s with no verdict: "
+            f"{next(line for line in out.splitlines() if line.startswith('error:'))[:200]}")
+
+        wall_c, results = pod_wait("c", pair_c)
+        runs = [pod_verdict("c", rc, out) for rc, out, _ in results]
+        pod_budget("c", runs, 32)
+        b9, fused, standalone = pod_launches("c", results, "stoch_shard_chunk", 4)
+        if min(fused) == 0 or sum(standalone):
+            fail(f"26c: B7 fused reads per rank {fused}, standalone B7 calls {standalone}")
+        launches["stoch_shard_chunk"] += sum(b9)
+        launches["butterfly_fused"] += sum(fused)
+        say(f"[pod] c. stoch --no-preprocess config 7 -b 1024 -n 32 --pod-mesh --clause-shards 2 "
+            f"(2x2): verdicts {[r[0] for r in runs]} after {[r[1] for r in runs]} steps, B9 "
+            f"launches per rank {b9}, B7 fused {fused}, standalone B7 {standalone}; pair wall "
+            f"{wall_c:.1f} s, start-up a process {pod_startup(results, runs)} s, beside pods b and "
+            f"d and a's single-process run ({card})")
+    finally:
+        # a failed check exits with the pods still running: stop them
+        for _, procs in (lone, pair_b, pair_c):
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
     return launches
 
 
@@ -5514,18 +5798,25 @@ def stoch_scan_alone():
 
 
 def donation_alone():
-    """``--donation``: phase 25d alone (it builds B1-B4 and the loop at
-    first use)."""
+    """``--donation``: phases 25d and 25e alone (they build B1-B9 and the
+    loop at first use)."""
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script only runs on a GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from odesat_tpu_torch.cnf import normalize_cnf_variables
+    from odesat_tpu_torch.ops.shard_stream import compile_stream_sharded
+
     card = phase_device(torch)
     t0 = time.perf_counter()
     phase_donation(torch, card)
     say(f"[done] phase 25d passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fa7 = compile_stream_sharded(normalize_cnf_variables(config7_instance())[1], 1)[0]
+    phase_clause_donation(torch, fa7, card)
+    say(f"[done] phase 25e passed in {time.perf_counter() - t0:.1f} s")
     return 0
 
 
@@ -5665,6 +5956,8 @@ def main():
     clock("phase 25 (the device loop)")
     phase_donation(torch, card)
     clock("phase 25d (the state donated)")
+    phase_clause_donation(torch, fa7, card)
+    clock("phase 25e (the clause mesh donated)")
     pod_launches = phase_pod(card)
     clock("phase 26 (the pod mesh)")
     scan_worst = max(phase_scan_compare(torch, rk, hard, uf250, card),

@@ -171,7 +171,7 @@ def make_stoch_clause_eval(fa: FormulaArrays, device, shard: int = 0, n_shards: 
     return ev
 
 
-def make_stoch_clause_step(ev, clause_group=None):
+def make_stoch_clause_step(ev, clause_group=None, work=None):
     """The clause-mesh stoch step ``step(state, u) -> state`` (JAX
     :123-180) on a state of rows (B, X) or of tiles (G, X, R)
     (``ops/tiles.py``), with the uniforms ``u`` in the same layout. ``ev(v,
@@ -182,7 +182,14 @@ def make_stoch_clause_step(ev, clause_group=None):
     standalone call (``ops/butterfly.py``: its kernel for CUDA tensors, its
     plain version for CPU tensors), then every rank of the group draws the
     same flips from the same uniforms. The sums are integers in f32, so the
-    partition cannot change a flip below 2**24."""
+    partition cannot change a flip below 2**24.
+
+    The step runs in place: v's flips and done's latch are written into
+    the state's own tensors (the same operations, ``where(m, ~v, v)`` as
+    ``v ^ m``), ``u`` is overwritten, and the flip mask and a flag go into
+    ``work``, a pair of buffers (a bool of v's shape, a bool of done's;
+    new at each step when None). B8's tiled runner holds them, so that a
+    step allocates nothing on the card."""
     from odesat_tpu_torch.ops import butterfly as bf
 
     def step(state: StochState, u: torch.Tensor) -> StochState:
@@ -190,10 +197,14 @@ def make_stoch_clause_step(ev, clause_group=None):
         if clause_group is not None:
             bf.butterfly(acc, clause_group, None, acc)
         Np = u.shape[1]
+        flip, flag = work if work is not None else (torch.empty_like(state.v),
+                                                    torch.empty_like(state.done))
         # total == 0 for a variable in no clause: 0 < 0 never flips
-        flip = u * acc[:, :Np] < acc[:, Np:2 * Np]
-        v = torch.where((~state.done).unsqueeze(1) & flip, ~state.v, state.v)
-        return StochState(v, xl, state.done | (acc[:, 2 * Np] == 0))
+        torch.lt(torch.mul(u, acc[:, :Np], out=u), acc[:, Np:2 * Np], out=flip)
+        flip.bitwise_and_(torch.bitwise_not(state.done, out=flag).unsqueeze(1))
+        state.v.bitwise_xor_(flip)
+        state.done.bitwise_or_(torch.eq(acc[:, 2 * Np], 0, out=flag))
+        return StochState(state.v, xl, state.done)
 
     return step
 

@@ -28,10 +28,16 @@ barrier and writes them after its last), so a chunk needs no copy.
 
 The state is donated, as JAX donates it (``jax.jit(...,
 donate_argnums=0)`` on every multi-chunk runner and, by default, on every
-chunk runner: ``odesat_tpu/models/ode.py:350-423``, ``:481``, ``:538``).
-The contract, for every runner whose chunk is a :class:`KernelChunk` (B1-B4
-host-paced or in this loop, the scan chunk, the stoch twin's scan chunk,
-the trajectory mesh's dispatches):
+chunk runner: ``odesat_tpu/models/ode.py:350-423``, ``:481``, ``:538``; on
+the clause mesh's runners ``odesat_tpu/parallel/sharded.py:164, 216, 562,
+581, 613, 624``). The contract, for every runner whose chunk is a
+:class:`KernelChunk` (B1-B4 host-paced or in this loop, the scan chunk, the
+stoch twin's scan chunk, the trajectory mesh's dispatches) and for the
+clause mesh's chunk runners (B6's ``ops/shard_chunk.make_shard_chunk``,
+B5's ``ops/shard_stream.make_clause_chunk``, B9's
+``ops/stoch_chunk.make_stoch_shard_chunk`` and B8's route of
+``parallel/sharded.make_clause_stoch_runner``, which take no ``donate``
+switch, as JAX's mesh runners have none):
 
 * A call consumes its input, as JAX's donated argument: a chunk runner's
   call or a dispatch may return a state that shares memory with its input,
@@ -43,6 +49,18 @@ the trajectory mesh's dispatches):
   changed by a later call of the same runner from another state.
 * The plain versions on the CPU may stay out of place (donation allows
   reuse, it does not require it); callers must not depend on either.
+
+The clause mesh's runners tile the rows in the caller's own storage and
+untile the result into it (``ops/tiles.py``; a ragged batch, or a field
+that cannot be tiled where it lies, through tiles held for its shape), on
+the card and on the CPU alike, so the result's tensors are the input's; a
+result held is not touched by a call from another state, which runs on
+that state's storage. Their scratch (B6's ``ChunkScratch`` and staging, B5's
+``ShardScratch``, B8's and B9's ``acc`` and weights, B8's uniforms and
+flips) is held for each batch shape, one set a formula that its runners of
+every chunk length share (``ops/tiles.held_pool``), and never holds the
+caller's storage between calls: a second call of a shape, by any runner of
+the formula, allocates nothing on the card.
 
 B1 and B2 have no buffers of their own: the graph's kernel reads the
 state's buffer addresses from a pointer block on the card

@@ -61,8 +61,9 @@ trajectories and each gather moves a whole 128-byte line; the clause words
 m1, m2 are recomputed from ``v`` for every occurrence instead of being
 stored, the clause side of a pass runs inside the variable pass, at each
 clause's first occurrence, and nothing of a trajectory lives in shared
-memory (``csrc/stream_chunk.cu``). The chunk's scratch, allocated once a
-chunk (:func:`chunk_scratch`), is a second copy of xs and xl, into which a
+memory (``csrc/stream_chunk.cu``). The chunk's scratch, allocated at a
+runner's first call of a batch shape and held (:func:`chunk_scratch`,
+:class:`Held`), is a second copy of xs and xl, into which a
 pass writes the new clause memories while other occurrences still read
 the old ones, and for the adaptive integrator the half step ``hv`` and an
 error word a trajectory.
@@ -96,7 +97,7 @@ from odesat_tpu_torch.ops.shard_stream import (
     stream_shard_supported,
 )
 from odesat_tpu_torch.ops.stream_chunk import load_library, raise_for
-from odesat_tpu_torch.ops.tiles import TILE, n_tiles, rows_of, tile, untile
+from odesat_tpu_torch.ops.tiles import TILE, Tiles, held_pool, n_tiles, rows_of, tile, untile
 
 # Kernel launches made through shard_chunk_cuda in this process (every
 # phase). A plain integer that callers may reset; chip_smoke.py reads it.
@@ -242,7 +243,7 @@ def shard_chunk_plain_tiled(phase: str, b: ChunkBuffers, spec: ShardSpec, apply:
 
 
 class ChunkScratch:
-    """A chunk's scratch, allocated once a chunk (:func:`chunk_scratch`):
+    """A chunk's scratch (:func:`chunk_scratch`; B6's runners hold one a batch shape):
     the second copy of the clause memories xs2, xl2 (G, Mp, R) f32 into
     which ``step`` and ``half`` write the new ones (the launch swaps the
     copies), the shard's padded clauses ``pads`` (int32), and, adaptive
@@ -354,18 +355,26 @@ def shard_chunk_phase(phase: str, b: ChunkBuffers, spec: ShardSpec, apply: bool 
     raise ValueError(f"no shard chunk path for tensors on {b.v.device}")
 
 
-def tile_state(state, spec: ShardSpec) -> ChunkBuffers:
-    """The chunk's tiled buffers for an ODE state of B rows: copies of v,
-    xs, xl, dt and done, padded with done rows, and zeroed staging."""
-    like = state.v
-    G = n_tiles(like.shape[0])
-    b = ChunkBuffers(tile(state.v), tile(state.xs), tile(state.xl, fill=1.0), tile(state.dt),
-                     tile(state.done, fill=True), like.new_zeros((G, spec.Np + 1, TILE)))
-    if not spec.fixed:
-        b = b._replace(acc2=like.new_zeros((G, spec.Np + 1, TILE)),
-                       dxs1=like.new_zeros((G, spec.Mp, TILE)),
-                       dxl1=like.new_zeros((G, spec.Mp, TILE)))
-    return b
+class Held:
+    """What B6's runners keep for one batch shape from one call to the next:
+    the tiles of the state (:class:`~odesat_tpu_torch.ops.tiles.Tiles`),
+    the launches' zeroed staging ``acc`` (and, adaptive, ``acc2``, ``dxs1``,
+    ``dxl1``) and, on the card, the :class:`ChunkScratch` with its own
+    second copy of the clause memories."""
+
+    def __init__(self, G: int, spec: ShardSpec, device):
+        def zeros(rows):
+            return torch.zeros((G, rows, TILE), dtype=torch.float32, device=device)
+
+        self.tiles = Tiles()
+        self.acc = zeros(spec.Np + 1)
+        self.adaptive = {} if spec.fixed else dict(acc2=zeros(spec.Np + 1), dxs1=zeros(spec.Mp),
+                                                   dxl1=zeros(spec.Mp))
+        self.scratch: Optional[ChunkScratch] = None
+        self.own = None  # the scratch's own (xs2, xl2)
+
+
+STATE_FILLS = dict(xl=1.0, done=True)  # a padding row: done, xl 1, the rest 0
 
 
 # ---------------------------------------------------------------- chunk
@@ -380,10 +389,20 @@ def make_shard_chunk(fa, zeta: float, ode, chunk_steps: int, clause_group=None,
     (``ops/butterfly.py``: on a card the peers' slots, after a stream wait on
     their flags; on the CPU the partials gathered over the group; in a group
     of one its own), on the rows tiled once at entry and untiled once at
-    exit, with the scratch allocated once. ``plain``: the plain version on
-    any device, the partials gathered over the group (what the card's runs
-    are held against). The shard is the rank's index in the group. The
-    caller's state is never written."""
+    exit. ``plain``: the plain version on any device, the partials gathered
+    over the group (what the card's runs are held against). The shard is
+    the rank's index in the group.
+
+    The call consumes its input, as JAX's ``donate_argnums=0`` on the mesh
+    runners (``ops/device_loop.py`` states the contract): the rows are
+    tiled in the caller's own storage (``ops/tiles.py``; a ragged batch,
+    or a field that cannot be tiled where it lies, through buffers held
+    for its shape) and the result is untiled into it, so the returned
+    state's tensors are the input's. The tiles' buffers, the launches'
+    staging and the scratch are held for each batch shape (:class:`Held`)
+    in the formula's pool (``ops/tiles.held_pool``), which the runners of
+    every chunk length share: a second call of a shape, by this runner or
+    another of the formula's, allocates nothing on the card."""
     import torch.distributed as dist
 
     from odesat_tpu_torch.models.ode import ODEState
@@ -403,11 +422,23 @@ def make_shard_chunk(fa, zeta: float, ode, chunk_steps: int, clause_group=None,
                              f"{S} ranks")
     spec = shard_spec(fa, zeta, ode, device, shard)
 
+    held = held_pool(fa)  # ("B6", shard, fixed, kernel or plain, batch, device) -> Held
+
     def run(state, dev=None):
-        B = state.v.shape[0]
-        b = tile_state(state, spec)
-        on_card = b.v.device.type == "cuda" and not plain
-        scratch = chunk_scratch(b, spec) if on_card else None
+        B, device = state.v.shape[0], state.v.device
+        on_card = device.type == "cuda" and not plain
+        key = ("B6", shard, spec.fixed, on_card, B, device)
+        h = held.get(key)
+        if h is None:
+            h = held[key] = Held(n_tiles(B), spec, device)
+        tiles = h.tiles.tile(state._asdict(), STATE_FILLS)
+        b = ChunkBuffers(**tiles, acc=h.acc, **h.adaptive)
+        scratch = None
+        if on_card:
+            if h.scratch is None:
+                h.scratch = chunk_scratch(b, spec)
+                h.own = h.scratch.xs2, h.scratch.xl2
+            scratch = h.scratch
         shape = tuple(b.acc.shape)
         comm = None
         if on_card and S > 1:
@@ -443,7 +474,13 @@ def make_shard_chunk(fa, zeta: float, ode, chunk_steps: int, clause_group=None,
                 b, p2 = launch(b, "half", False, (p1, None), "acc2")
         if chunk_steps:
             b, _ = launch(b, "apply" if spec.fixed else "commit", False, (p1, p2))
-        return ODEState(*(untile(t, B) for t in b[:5]))
+        # the newest clause memories may lie in the scratch's second copy:
+        # untiled into the caller's storage from there, and the scratch
+        # keeps its own copy, never the caller's storage
+        out = ODEState(**h.tiles.untile(dict(zip(ODEState._fields, b[:5]))))
+        if scratch is not None:
+            scratch.xs2, scratch.xl2 = h.own
+        return out
 
-    run.spec = spec
+    run.spec, run.held = spec, held
     return run

@@ -40,9 +40,9 @@ runner swaps with xs and xl; dv and the negated sat flag come out packed,
 ``(G, Np+1, 32)``, the buffer the clause group all-reduces as it is.
 
 The runner (:func:`make_clause_chunk` over :func:`make_fused_clause_step`)
-tiles the state once at chunk entry and untiles it once at exit; between,
-every launch, all-reduce and torch update of a step works on tiled tensors
-and the launches write into buffers allocated once a chunk. The row-major
+tiles the state in its own storage once at chunk entry and untiles it once
+at exit; between, every launch, all-reduce and torch update of a step
+works on tiled tensors and writes into buffers held for the batch shape. The row-major
 functions (:func:`shard_rhs`, :func:`shard_fixed`, :func:`shard_second`,
 :func:`make_stream_shard_rhs`) keep the JAX package's ``(B, X)`` contract:
 on CUDA they tile, launch and untile.
@@ -88,7 +88,7 @@ from odesat_tpu_torch.ops.fused_chunk import (
     spec_fields,
 )
 from odesat_tpu_torch.ops.stream_chunk import load_library, occurrence_codes, raise_for
-from odesat_tpu_torch.ops.tiles import TILE, rows_of, tile, untile
+from odesat_tpu_torch.ops.tiles import TILE, Tiles, held_pool, n_tiles, rows_of, tile, untile
 
 SPAN = 128  # the clause-segment alignment of the JAX layout, kept for array equality
 
@@ -358,17 +358,25 @@ _WRITES = {"rhs": ("acc", "dxs1", "dxl1"), "fixed": ("acc", "xs2", "xl2"),
 
 def _rows(spec: ShardSpec, name: str) -> tuple:
     """The rows a tile of buffer ``name`` holds: (G, *rows, R)."""
-    return {"v": (spec.Np,), "acc": (spec.Np + 1,), "dv2": (spec.Np,), "dt": (), "adv": (),
-            "err": ()}.get(name, (spec.Mp,))
+    Np = (spec.Np,)
+    return {"v": Np, "acc": (spec.Np + 1,), "dv2": Np, "dt": (), "adv": (), "err": (),
+            "upd": Np, "fv": Np, "hv": Np, "tv": Np, "dte": (), "half": (), "flag": (),
+            "err2": (), "ratio": ()}.get(name, (spec.Mp,))
+
+
+_BOOLS = ("adv", "flag")
 
 
 class ShardScratch:
     """The tiled buffers B5's launches write, allocated at first use and
-    kept for a chunk (:meth:`get`): ``acc`` (G, Np+1, R) = (dv partial | 1 -
-    sat) of rhs and fixed; ``dxs1``, ``dxl1`` (G, Mp, R) of rhs; ``dv2``
-    (G, Np, R) and ``err`` (G, R) of second; and ``xs2``, ``xl2`` (G, Mp,
-    R), the second copy of the clause memories that fixed and second write
-    and swap with the launch's own xs, xl."""
+    kept (:meth:`get`; :func:`make_clause_chunk` holds one a batch shape):
+    ``acc`` (G, Np+1, R) = (dv partial | 1 - sat) of rhs and fixed;
+    ``dxs1``, ``dxl1`` (G, Mp, R) of rhs; ``dv2`` (G, Np, R) and ``err``
+    (G, R) of second; ``xs2``, ``xl2`` (G, Mp, R), the second copy of the
+    clause memories that fixed and second write and swap with the launch's
+    own xs, xl; and the step's torch updates' outputs (``upd``, ``fv``,
+    ``hv``, ``tv`` (G, Np, R) f32; ``dte``, ``half``, ``err2``, ``ratio``
+    (G, R) f32; ``adv``, ``flag`` (G, R) bool)."""
 
     def __init__(self, spec: ShardSpec, G: int):
         self.spec, self.G, self.bufs = spec, G, {}
@@ -376,8 +384,9 @@ class ShardScratch:
     def get(self, name: str) -> torch.Tensor:
         t = self.bufs.get(name)
         if t is None:
-            t = self.bufs[name] = torch.empty((self.G, *_rows(self.spec, name), TILE),
-                                              dtype=torch.float32, device=self.spec.device)
+            t = self.bufs[name] = torch.empty(
+                (self.G, *_rows(self.spec, name), TILE), device=self.spec.device,
+                dtype=torch.bool if name in _BOOLS else torch.float32)
         return t
 
 
@@ -544,13 +553,16 @@ def make_stream_shard_rhs(fa: FormulaArrays, zeta: float, ode, device, shard: in
     return rhs
 
 
+# a padding row of B5's tiles: done, with dt 0, xs 0.5 and xl 1, so that no
+# NaN or inf enters a max or a sum; untiling drops it
+STATE_FILLS = dict(xs=_FILL["xs"], xl=_FILL["xl"], done=True)
+
+
 def tile_state(state):
-    """Tiled copies of an ODE state's fields for B5's runner (``ops/tiles.
-    py``): the last tile's padding rows are done, with dt 0, xs 0.5 and xl
-    1, so that no NaN or inf enters a max or a sum; untiling drops them."""
-    return type(state)(tile(state.v), tile(state.xs, fill=_FILL["xs"]),
-                       tile(state.xl, fill=_FILL["xl"]), tile(state.dt),
-                       tile(state.done, fill=True))
+    """Tiled copies of an ODE state's fields (``ops/tiles.py``), padded
+    with :data:`STATE_FILLS`."""
+    return type(state)(*(tile(t, fill=STATE_FILLS.get(name, 0))
+                         for name, t in state._asdict().items()))
 
 
 def untile_state(state, B: int):
@@ -572,11 +584,13 @@ def make_fused_clause_step(fa: FormulaArrays, zeta: float, ode, clause_group=Non
     group).
 
     The work runs on tiled state: ``step.tiled(ts, scratch=None) -> ts``
-    advances a state of tiled tensors (:func:`tile_state`) one step, with
-    dt as (G, 1, R) against the (G, X, R) rows and the error's max over the
-    row axis, writing into ``scratch`` (:class:`ShardScratch`, CUDA only);
-    ``step`` itself tiles, steps and untiles, and writes nothing of the
-    caller's state. :func:`make_clause_chunk` tiles once a chunk."""
+    advances a state of tiled tensors (:func:`tile_state`) one step in
+    place (the tiles of v, dt and done are updated, xs and xl come back
+    where the launch left them), with dt as (G, 1, R) against the (G, X, R)
+    rows and the error's max over the row axis, writing every other result
+    into ``scratch`` (:class:`ShardScratch`; a new one when None);
+    ``step`` itself tiles copies, steps and untiles, and writes nothing of
+    the caller's state. :func:`make_clause_chunk` tiles once a chunk."""
     from odesat_tpu_torch.models.ode import ODEState
     from odesat_tpu_torch.parallel.dist import mesh_reduce
 
@@ -605,8 +619,8 @@ def make_fused_clause_step(fa: FormulaArrays, zeta: float, ode, clause_group=Non
     # the step's constants on the device once: a scalar tensor made from the
     # host every step would copy it there and wait for the card each time
     c = {name: torch.tensor(float(x), dtype=torch.float32, device=spec.device) for name, x in
-         dict(lo=-1.0, hi=1.0, dt=ode.step_size or 0.0, tol=ode.tolerance, dt_min=DT_MIN,
-              dt_max=DT_MAX).items()}
+         dict(lo=-1.0, hi=1.0, zero=0.0, dt=ode.step_size or 0.0, tol=ode.tolerance,
+              dt_min=DT_MIN, dt_max=DT_MAX).items()}
 
     def reduce(t, op="sum"):
         """``t`` combined over the clause group in place (B7): summed, or
@@ -614,68 +628,111 @@ def make_fused_clause_step(fa: FormulaArrays, zeta: float, ode, clause_group=Non
         if clause_group is not None:
             mesh_reduce(t, clause_group, op)
 
-    def clamp_v(x):  # _clamp's operations
-        return torch.fmin(torch.fmax(x, c["lo"]), c["hi"])
+    def clamp_(x):  # _clamp's operations, in place
+        return torch.fmin(torch.fmax(x, c["lo"], out=x), c["hi"], out=x)
 
+    def clamp_dt_(x):
+        return torch.fmin(torch.fmax(x, c["dt_min"], out=x), c["dt_max"], out=x)
+
+    # the updates write into the scratch's buffers and the state's own
+    # tiles (the operations of JAX's clamp(v + dt * dv) and the rest, in
+    # its order), so that a chunk allocates nothing on the card
     if ode.step_size is not None:
 
         def tiled(ts, scratch=None):
-            dt_eff = torch.where(ts.done, 0.0, c["dt"])
+            w = scratch if scratch is not None else ShardScratch(spec, ts.v.shape[0])
+            dt_eff = torch.where(ts.done, c["zero"], c["dt"], out=w.get("dte"))
             acc, xs, xl = shard_stream_tiled("fixed", spec, ts.v, ts.xs, ts.xl, dt=dt_eff,
-                                             scratch=scratch)
+                                             scratch=w)
             reduce(acc)
-            v = clamp_v(ts.v + dt_eff.unsqueeze(1) * acc[:, :Np])
-            return ODEState(v, xs, xl, ts.dt, ts.done | (acc[:, Np] == 0))
+            upd = torch.mul(dt_eff.unsqueeze(1), acc[:, :Np], out=w.get("upd"))
+            v = clamp_(torch.add(ts.v, upd, out=ts.v))
+            allsat = torch.eq(acc[:, Np], 0, out=w.get("flag"))
+            return ODEState(v, xs, xl, ts.dt, torch.bitwise_or(ts.done, allsat, out=ts.done))
     else:
 
         def tiled(ts, scratch=None):
-            acc, dxs1, dxl1 = shard_stream_tiled("rhs", spec, ts.v, ts.xs, ts.xl,
-                                                 scratch=scratch)
+            w = scratch if scratch is not None else ShardScratch(spec, ts.v.shape[0])
+            acc, dxs1, dxl1 = shard_stream_tiled("rhs", spec, ts.v, ts.xs, ts.xl, scratch=w)
             reduce(acc)
-            dv1, allsat = acc[:, :Np], acc[:, Np] == 0
-            advance = ~ts.done & ~allsat  # src/system.rs:122
+            dv1 = acc[:, :Np]
+            allsat = torch.eq(acc[:, Np], 0, out=w.get("flag"))
+            # ~done & ~allsat (src/system.rs:122)
+            advance = torch.bitwise_or(ts.done, allsat, out=w.get("adv")).bitwise_not_()
             dt = ts.dt
             dt_c = dt.unsqueeze(1)
-            half = 0.5 * dt_c
-            fv = clamp_v(ts.v + dt_c * dv1)
-            hv = clamp_v(ts.v + half * dv1)
+            half = torch.mul(dt, 0.5, out=w.get("half")).unsqueeze(1)
+            fv = w.get("fv")
+            clamp_(torch.add(ts.v, torch.mul(dt_c, dv1, out=fv), out=fv))
+            hv = w.get("hv")
+            clamp_(torch.add(ts.v, torch.mul(half, dv1, out=hv), out=hv))
             dv2, xs, xl, err_sl = shard_stream_tiled("second", spec, hv, ts.xs, ts.xl, dt=dt,
                                                      adv=advance, dxs1=dxs1, dxl1=dxl1,
-                                                     scratch=scratch)
+                                                     scratch=w)
             reduce(dv2)
-            tv = clamp_v(hv + half * dv2)
-            err = torch.maximum(err_sl, (fv - tv).abs().amax(dim=1))
+            tv = w.get("tv")
+            clamp_(torch.add(hv, torch.mul(half, dv2, out=tv), out=tv))
+            err = w.get("err2")
+            torch.amax(torch.sub(fv, tv, out=fv).abs_(), dim=1, out=err)
+            err = torch.maximum(err_sl, err, out=err)
             reduce(err, "max")
             # err == 0 -> dt hits the ceiling (src/system.rs:132-135); a tensor
             # numerator, since `float / tensor` rounds twice in torch
-            ratio = c["tol"] / err.clamp_min(1e-30)
-            new_dt = torch.fmin(torch.fmax(dt * torch.sqrt(ratio), c["dt_min"]), c["dt_max"])
-            v = torch.where(advance.unsqueeze(1), tv, ts.v)
-            return ODEState(v, xs, xl, torch.where(advance, new_dt, dt), ts.done | allsat)
+            ratio = torch.clamp_min(err, 1e-30, out=w.get("ratio"))
+            ratio = torch.sqrt(torch.div(c["tol"], ratio, out=ratio), out=ratio)
+            new_dt = clamp_dt_(torch.mul(dt, ratio, out=ratio))
+            v = torch.where(advance.unsqueeze(1), tv, ts.v, out=ts.v)
+            dt = torch.where(advance, new_dt, dt, out=ts.dt)
+            return ODEState(v, xs, xl, dt, torch.bitwise_or(ts.done, allsat, out=ts.done))
 
     def step(state, dev=None):
         return untile_state(tiled(tile_state(state)), state.v.shape[0])
 
-    step.tiled = tiled
-    step.spec = spec
+    step.tiled, step.spec, step.fa = tiled, spec, fa
     return step
 
 
 def make_clause_chunk(step, chunk_steps: int):
     """``run(state, dev=None) -> state``: ``chunk_steps`` calls of a clause
     step's ``tiled`` on the state tiled once at entry and untiled once at
-    exit, with the launches' buffers allocated once (:class:`ShardScratch`,
-    on CUDA). The tiling copies, so the caller's state is never written."""
+    exit, every launch and torch update writing into a
+    :class:`ShardScratch`.
+
+    The call consumes its input, as JAX's ``donate_argnums=0`` on the mesh
+    runners (``ops/device_loop.py`` states the contract): the rows are
+    tiled in the caller's own storage (``ops/tiles.py``; a ragged batch,
+    or a field that cannot be tiled where it lies, through buffers held
+    for its shape), the steps update them there, and the result is untiled
+    into it, so the returned state's tensors are the input's. The tiles'
+    buffers and the scratch are held for each batch shape in the formula's
+    pool (``ops/tiles.held_pool``), which the runners of every chunk
+    length share: a second call of a shape, by this runner or another of
+    the formula's, allocates nothing on the card."""
+    spec = step.spec
+    # ("B5", the shard's widths, batch, device) -> (Tiles, ShardScratch, its own xs2 and xl2)
+    held = held_pool(step.fa)
 
     def run(state, dev=None):
-        B = state.v.shape[0]
-        ts = tile_state(state)
-        scratch = ShardScratch(step.spec, ts.v.shape[0]) if ts.v.device.type == "cuda" else None
+        B, device = state.v.shape[0], state.v.device
+        key = ("B5", spec.Np, spec.Mp, B, device)
+        h = held.get(key)
+        if h is None:
+            scratch = ShardScratch(spec, n_tiles(B))
+            own = (scratch.get("xs2"), scratch.get("xl2")) if device.type == "cuda" else None
+            h = held[key] = Tiles(), scratch, own
+        tiles, scratch, own = h
+        ts = type(state)(**tiles.tile(state._asdict(), STATE_FILLS))
         for _ in range(chunk_steps):
             ts = step.tiled(ts, scratch)
-        return untile_state(ts, B)
+        # the newest clause memories may lie in the scratch's second copy:
+        # untiled into the caller's storage from there, and the scratch
+        # keeps its own copy, never the caller's storage
+        out = type(state)(**tiles.untile(ts._asdict()))
+        if own is not None:
+            scratch.bufs["xs2"], scratch.bufs["xl2"] = own
+        return out
 
-    run.step = step
+    run.step, run.held = step, held
     return run
 
 

@@ -78,7 +78,7 @@ from odesat_tpu_torch.ops.fused_chunk import (
     launch_lanes,
     sm_count,
 )
-from odesat_tpu_torch.ops.tiles import TILE, rows_of, tile, untile
+from odesat_tpu_torch.ops.tiles import TILE, Tiles, held_pool, n_tiles, rows_of, tile, untile
 
 XL_CAP = 2**24
 _MASK = 0xFFFFFFFF
@@ -243,48 +243,72 @@ def stoch_spec(fa: FormulaArrays, device) -> StochChunkSpec:
 # ---------------------------------------------------------------- plain
 
 
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """``x * c mod 2**32`` for int64 ``x`` in [0, 2**32): split into 16-bit
-    halves, so no int64 product overflows."""
-    lo = x & 0xFFFF
-    hi = x >> 16
-    return ((((hi * c) & _MASK) << 16) + lo * c) & _MASK
+def _mul32(x: torch.Tensor, c: int, tmp: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x * c mod 2**32`` for int64 ``x`` in [0, 2**32), in place on ``x``:
+    split into 16-bit halves, so no int64 product overflows; ``tmp`` (x's
+    shape, new when None) takes the low half."""
+    lo = torch.bitwise_and(x, 0xFFFF, out=tmp).mul_(c)
+    return x.bitwise_right_shift_(16).mul_(c).bitwise_and_(_MASK).bitwise_left_shift_(16) \
+        .add_(lo).bitwise_and_(_MASK)
 
 
-def _hash_uniform(seed: int, chains: torch.Tensor, cols: torch.Tensor, Bb: int,
-                  step: int) -> torch.Tensor:
+class Uniforms:
     """The counter-hash uniforms of chains ``chains`` and variable columns
-    ``cols`` (int64 tensors that broadcast together) at launch-local
-    ``step``, f32 in [0, 1), in their broadcast shape."""
-    blk = chains // Bb
-    r = chains % Bb
-    block_seed = (int(seed) + _mul32(blk, 0x632BE59B)) & _MASK
-    base = (block_seed + _mul32(torch.full_like(blk, int(step)), 0xC2B2AE3D)) & _MASK
-    # the per-chain terms meet first, so one pass at the full shape joins the columns
-    x = (_mul32(r, 0x9E3779B1) ^ base) ^ _mul32(cols, 0x85EBCA77)
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
-    x = x ^ (x >> 16)
-    return (x >> 8).to(torch.float32) * (1.0 / 16777216.0)
+    ``cols`` (int64 tensors that broadcast together), f32 in [0, 1), drawn
+    into buffers of their broadcast shape held from one draw to the next:
+    the terms of the chain or the column alone are made once (and the
+    step's as a Python integer, the same bits), so that a draw allocates
+    nothing on the card. ``draw(seed, step)`` at launch-local ``step``
+    returns the f32 buffer, which the next draw overwrites."""
+
+    def __init__(self, chains: torch.Tensor, cols: torch.Tensor, Bb: int):
+        shape = torch.broadcast_shapes(chains.shape, cols.shape)
+        self.blk = _mul32(chains // Bb, 0x632BE59B)
+        self.row = _mul32(chains % Bb, 0x9E3779B1)
+        self.col = _mul32(cols.clone(), 0x85EBCA77)
+        self.base = torch.empty_like(self.blk)
+        self.x = torch.empty(shape, dtype=torch.int64, device=chains.device)
+        self.tmp = torch.empty_like(self.x)
+        self.u = torch.empty(shape, dtype=torch.float32, device=chains.device)
+
+    def draw(self, seed: int, step: int) -> torch.Tensor:
+        lo, hi = int(step) & 0xFFFF, int(step) >> 16
+        at_step = ((((hi * 0xC2B2AE3D) & _MASK) << 16) + lo * 0xC2B2AE3D) & _MASK
+        # the per-chain terms meet first, so one pass at the full shape joins the columns
+        base = torch.add(self.blk, int(seed), out=self.base).bitwise_and_(_MASK)
+        base.add_(at_step).bitwise_and_(_MASK).bitwise_xor_(self.row)
+        x, tmp = torch.bitwise_xor(base, self.col, out=self.x), self.tmp
+        x.bitwise_xor_(torch.bitwise_right_shift(x, 16, out=tmp))
+        _mul32(x, 0x7FEB352D, tmp)
+        x.bitwise_xor_(torch.bitwise_right_shift(x, 15, out=tmp))
+        _mul32(x, 0x846CA68B, tmp)
+        x.bitwise_xor_(torch.bitwise_right_shift(x, 16, out=tmp))
+        return self.u.copy_(x.bitwise_right_shift_(8)).mul_(1.0 / 16777216.0)
 
 
 def uniform01(seed: int, chains: torch.Tensor, Bb: int, step: int, Np: int) -> torch.Tensor:
     """The counter-hash uniforms (B, Np) f32 in [0, 1) of ``_make_uniform01``
     for chains ``chains`` (int64 global indices) at launch-local ``step``."""
     cols = torch.arange(Np, device=chains.device, dtype=torch.int64)
-    return _hash_uniform(seed, chains.unsqueeze(1), cols.unsqueeze(0), Bb, step)
+    return Uniforms(chains.unsqueeze(1), cols.unsqueeze(0), Bb).draw(seed, step)
 
 
-def uniform01_tiled(seed: int, G: int, Bb: int, step: int, Np: int, device) -> torch.Tensor:
+class TiledUniforms(Uniforms):
     """:func:`uniform01` of chains ``0 .. G*TILE-1`` drawn in tile order,
     ``(G, Np, TILE)``: the chain ids shaped ``(G, 1, TILE)``, the columns
     ``(1, Np, 1)``. Equal to ``tile(uniform01(...))`` on the real chains;
-    a ragged last tile's padding lanes draw as the chains of their index."""
-    chains = torch.arange(G * TILE, device=device, dtype=torch.int64).view(G, 1, TILE)
-    cols = torch.arange(Np, device=device, dtype=torch.int64).view(1, Np, 1)
-    return _hash_uniform(seed, chains, cols, Bb, step)
+    a ragged last tile's padding lanes draw as the chains of their index.
+    B8's runner holds one a batch shape."""
+
+    def __init__(self, G: int, Bb: int, Np: int, device):
+        chains = torch.arange(G * TILE, device=device, dtype=torch.int64).view(G, 1, TILE)
+        cols = torch.arange(Np, device=device, dtype=torch.int64).view(1, Np, 1)
+        super().__init__(chains, cols, Bb)
+
+
+def uniform01_tiled(seed: int, G: int, Bb: int, step: int, Np: int, device) -> torch.Tensor:
+    """One draw of :class:`TiledUniforms`."""
+    return TiledUniforms(G, Bb, Np, device).draw(seed, step)
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -674,12 +698,12 @@ def make_stoch_shard_eval(fa: FormulaArrays, device, shard: int = 0,
 # JAX's min-combined sat flag is a summed (1 - sat) here: 0 after the sum
 # exactly when every shard is satisfied.
 #
-# Design: the runner tiles the chains once a chunk (``ops/tiles.py``,
-# ``TILE`` = 32 chains a tile); a launch is a few kernels over (tile, span
-# of clauses or variables) with a tile's chains on the lanes of a warp, so
-# each table word is read once for 32 chains; the signed post-update
-# weights go to a tiled int32 scratch allocated once a chunk, from which
-# the variable sums gather.
+# Design: the runner tiles the chains in their own storage once a chunk
+# (``ops/tiles.py``, ``TILE`` = 32 chains a tile); a launch is a few kernels
+# over (tile, span of clauses or variables) with a tile's chains on the
+# lanes of a warp, so each table word is read once for 32 chains; the
+# signed post-update weights go to a tiled int32 scratch held for the
+# batch shape, from which the variable sums gather.
 
 shard_chunk_launches = 0  # B9 launches, as shard_launches counts B8's
 
@@ -791,7 +815,18 @@ def make_stoch_shard_chunk(fa: FormulaArrays, chunk_steps: int, device, shard: i
     untiled once at exit. ``plain``: the plain version on any device, the
     partials gathered over the group (what the card's runs are held
     against). ``seed`` is the chunk's 31-bit PRNG seed, the same on every
-    clause rank of a row. The caller's state is never written."""
+    clause rank of a row.
+
+    The call consumes its input, as JAX's ``donate_argnums=0`` on the mesh
+    runners (``ops/device_loop.py`` states the contract): the chains are
+    tiled in the caller's own storage (``ops/tiles.py``; a ragged batch,
+    or a field that cannot be tiled where it lies, through buffers held
+    for its shape), B9 updates them there, and the result is untiled into
+    it, so the returned state's tensors are the input's. The tiles'
+    buffers, ``acc`` and the weight scratch are held for each batch shape
+    in the formula's pool (``ops/tiles.held_pool``), which the runners of
+    every chunk length share: a second call of a shape, by this runner or
+    another of the formula's, allocates nothing on the card."""
     import torch.distributed as dist
 
     from odesat_tpu_torch.ops import butterfly as bf
@@ -806,21 +841,31 @@ def make_stoch_shard_chunk(fa: FormulaArrays, chunk_steps: int, device, shard: i
     spec = stoch_shard_spec(fa, device, shard)
     bf16 = matmul_dtype == "bfloat16"
 
+    held = held_pool(fa)  # ("B9", shard, kernel or plain, batch, device) -> (Tiles, acc, w)
+
     def fn(state, seed: int):
         kind = state.v.device.type
         if kind not in ("cuda", "cpu"):
             raise ValueError(f"no stoch shard chunk path for tensors on {state.v.device}")
-        B = state.v.shape[0]
+        B, device = state.v.shape[0], state.v.device
         Bb = traj_block(B)
-        v, xl, done = tile(state.v), tile(state.xl, fill=1), tile(state.done, fill=True)
-        G = v.shape[0]
+        on_card = kind == "cuda" and not plain
+        G = n_tiles(B)
         shape = (G, 2 * spec.Np + 1, TILE)
-        acc = torch.zeros(shape, dtype=torch.float32, device=v.device)
+        key = ("B9", shard, on_card, B, device)
+        h = held.get(key)
+        if h is None:  # the chunk's staging and B9's weight scratch, held for the shape
+            h = held[key] = (
+                Tiles(), torch.zeros(shape, dtype=torch.float32, device=device),
+                torch.empty((G, spec.Mp, TILE), dtype=torch.int32, device=device)
+                if on_card else None)
+        tiles, acc, w = h
+        tiled = tiles.tile(dict(v=state.v, xl=state.xl, done=state.done), dict(xl=1, done=True))
+        v, xl, done = tiled["v"], tiled["xl"], tiled["done"]
         comm = None
-        if kind == "cuda" and not plain:
-            w = torch.empty((G, spec.Mp, TILE), dtype=torch.int32, device=v.device)
+        if on_card:
             if S > 1:
-                comm = bf.communicator(clause_group, v.device)
+                comm = bf.communicator(clause_group, device)
                 comm.begin(shape)
 
             def launch(*args, **kw):
@@ -842,9 +887,9 @@ def make_stoch_shard_chunk(fa: FormulaArrays, chunk_steps: int, device, shard: i
             elif evaluate and S > 1:
                 parts = [p.reshape(shape).to(v.device)
                          for p in bf.gather_plain(acc, clause_group)]
-        return state._replace(v=untile(v, B), xl=untile(xl, B), done=untile(done, B))
+        return state._replace(**tiles.untile(dict(v=v, xl=xl, done=done)))
 
-    fn.spec = spec
+    fn.spec, fn.held = spec, held
     return fn
 
 

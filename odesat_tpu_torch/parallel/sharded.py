@@ -402,9 +402,14 @@ def make_clause_stoch_runner(fa: FormulaArrays, chunk_steps: int, device, genera
     segment, with a warning on CUDA ('on' raises). The sums and the sat
     flag are all-reduced over ``clause_group``; every path takes one seed
     a chunk from ``generator`` and the same counter-hash uniforms, so they
-    flip alike. Runnable at S=1 without a group."""
+    flip alike. Runnable at S=1 without a group. B9's and B8's runs consume
+    their input, as JAX's ``donate_argnums=0``: the chains are tiled and
+    updated in the caller's storage and the result is returned in it, with
+    every buffer held for the batch shape (``ops/device_loop.py`` states
+    the contract)."""
     import torch.distributed as dist
 
+    from odesat_tpu_torch.models.loop import copy_state
     from odesat_tpu_torch.models.stoch import (
         StochState,
         make_stoch_clause_eval,
@@ -412,14 +417,14 @@ def make_clause_stoch_runner(fa: FormulaArrays, chunk_steps: int, device, genera
     )
     from odesat_tpu_torch.ops.shard_chunk import resolve_shard_chunk
     from odesat_tpu_torch.ops.stoch_chunk import (
+        TiledUniforms,
         make_stoch_shard_chunk,
         make_stoch_shard_eval,
         stoch_shard_supported,
         traj_block,
         uniform01,
-        uniform01_tiled,
     )
-    from odesat_tpu_torch.ops.tiles import TILE, tile, untile
+    from odesat_tpu_torch.ops.tiles import TILE, Tiles, held_pool, n_tiles
 
     shard = 0 if clause_group is None else dist.get_rank(clause_group)
     eligible = stoch_shard_supported(fa)
@@ -435,6 +440,7 @@ def make_clause_stoch_runner(fa: FormulaArrays, chunk_steps: int, device, genera
         def run_chunk(state):
             return chunk(state, int(torch.randint(0, 2**31 - 1, (1,), generator=generator)))
 
+        run_chunk.held = chunk.held
         return run_chunk
     Np = fa.n_vars_padded
     if not eligible:
@@ -448,6 +454,7 @@ def make_clause_stoch_runner(fa: FormulaArrays, chunk_steps: int, device, genera
             seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
             B = state.v.shape[0]
             chains = torch.arange(B, device=state.v.device, dtype=torch.int64)
+            state = copy_state(state)  # the steps flip in place; the caller's state stays
             for t in range(chunk_steps):
                 state = step(state, uniform01(seed, chains, traj_block(B), t, Np))
             return state
@@ -455,25 +462,40 @@ def make_clause_stoch_runner(fa: FormulaArrays, chunk_steps: int, device, genera
         return run_twin
     ev = make_stoch_shard_eval(fa, device, shard, matmul_dtype)
     logger.info("stoch clause path -> stoch_shard_eval (B8) on %s", device)
+    # ("B8", shard, batch, device) -> (Tiles, the uniforms, acc, w, the step's work pair)
+    held = held_pool(fa)
+    steps: dict = {}  # the same key -> this runner's step on those buffers
 
     def run(state):
-        # the chains tiled once a chunk: B8's launches, the all-reduce, the
-        # uniforms (drawn in tile order) and the flips all work on the tiles
+        # the chains tiled once a chunk in their own storage (a ragged
+        # batch through buffers held for it): B8's launches, the all-reduce,
+        # the uniforms (drawn in tile order) and the flips all work on the
+        # tiles, writing into buffers held for the batch shape, so the call
+        # consumes its input as JAX's donated one and returns its storage
         seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
-        B = state.v.shape[0]
-        tiled = StochState(tile(state.v), tile(state.xl, fill=1), tile(state.done, fill=True))
-        G = tiled.v.shape[0]
-        acc = w = None
-        if tiled.v.device.type == "cuda":  # B8's buffers, allocated once a chunk
-            acc = torch.empty((G, 2 * Np + 1, TILE), dtype=torch.float32, device=tiled.v.device)
-            w = torch.empty_like(tiled.xl)
-        step = make_stoch_clause_step(lambda v, xl, done: ev.tiled(v, xl, done, acc, w),
-                                      clause_group)
+        B, dev = state.v.shape[0], state.v.device
+        key = ("B8", shard, B, dev)
+        h = held.get(key)
+        if h is None:
+            G = n_tiles(B)
+            acc = w = None
+            if dev.type == "cuda":  # B8's buffers
+                acc = torch.empty((G, 2 * Np + 1, TILE), dtype=torch.float32, device=dev)
+                w = torch.empty((G, ev.spec.Mp, TILE), dtype=torch.int32, device=dev)
+            work = (torch.empty((G, Np, TILE), dtype=torch.bool, device=dev),
+                    torch.empty((G, TILE), dtype=torch.bool, device=dev))
+            h = held[key] = (Tiles(), TiledUniforms(G, traj_block(B), Np, dev), acc, w, work)
+        tiles, uniforms, acc, w, work = h
+        step = steps.get(key)
+        if step is None:
+            step = steps[key] = make_stoch_clause_step(
+                lambda v, xl, done: ev.tiled(v, xl, done, acc, w), clause_group, work)
+        tiled = StochState(**tiles.tile(state._asdict(), dict(xl=1, done=True)))
         for t in range(chunk_steps):
-            u = uniform01_tiled(seed, G, traj_block(B), t, Np, tiled.v.device)
-            tiled = step(tiled, u)
-        return StochState(*(untile(x, B) for x in tiled))
+            tiled = step(tiled, uniforms.draw(seed, t))
+        return StochState(**tiles.untile(tiled._asdict()))
 
+    run.held = held
     return run
 
 
@@ -540,7 +562,9 @@ def run_ode_cases(mesh, device, cases):
 
     out = []
     for fa, zeta, ode, steps, arrays in cases:
-        state = state_from_numpy(*arrays, device=device)
+        # a copy: the runner consumes its input, which on the CPU would be
+        # the arrays themselves, and cases may share them
+        state = state_from_numpy(*(np.copy(a) for a in arrays), device=device)
         dev = formula_device(fa, device, dtype=state_dtype(ode))
         state, dev = shard_inputs(state, dev, mesh)
         state = make_sharded_chunk_runner(fa, zeta, ode, steps, mesh, device)(state, dev)
@@ -562,7 +586,7 @@ def run_multi_cases(mesh, device, cases):
 
     out = []
     for fa, zeta, ode, chunk_steps, max_chunks, stop_on, arrays in cases:
-        state = state_from_numpy(*arrays, device=device)
+        state = state_from_numpy(*(np.copy(a) for a in arrays), device=device)  # consumed
         dev = formula_device(fa, device, dtype=state_dtype(ode))
         state, dev = shard_inputs(state, dev, mesh)
         chunk = make_sharded_chunk_runner(fa, zeta, ode, chunk_steps, mesh, device)
@@ -584,7 +608,8 @@ def run_multi_stoch_cases(mesh, device, cases):
 
     out = []
     for fa, chunk_steps, max_chunks, seed, arrays, fused in cases:
-        state = shard_stoch_inputs(stoch_state_from_numpy(*arrays, device=device), mesh)
+        state = shard_stoch_inputs(stoch_state_from_numpy(*(np.copy(a) for a in arrays),
+                                                          device=device), mesh)  # consumed
         chunk = make_sharded_stoch_runner(fa, chunk_steps, mesh, device,
                                           row_generator(seed, mesh), fused=fused)
         state, steps = make_sharded_multi_runner(chunk, chunk_steps, max_chunks, mesh,
@@ -758,11 +783,11 @@ def time_ode_chunk(mesh, device, fa, zeta: float, ode, steps: int, B: int, reps:
             torch.cuda.synchronize(device)
         dist.barrier()
 
-    run(state, dev)
+    state = run(state, dev)  # a call consumes its input and returns it advanced
     sync()
     t0 = time.perf_counter()
     for _ in range(reps):
-        run(state, dev)
+        state = run(state, dev)
         sync()
     return (time.perf_counter() - t0) / (reps * steps) * 1e3
 
@@ -803,7 +828,7 @@ def fused_against_plain(mesh, device, fa: FormulaArrays, engine: str, fixed: boo
 
         def run(plain):
             return make_shard_chunk(fa, zeta, ode, steps, group, device, plain)(
-                type(state)(*(t.to(device) for t in state)))
+                type(state)(*(t.to(device, copy=True) for t in state)))
     else:
         state = init_stoch_state(fa, B, "cpu")
         state = shard_stoch_inputs(state._replace(v=torch.as_tensor(rng.random((B, Np)) < 0.5)),
@@ -812,7 +837,7 @@ def fused_against_plain(mesh, device, fa: FormulaArrays, engine: str, fixed: boo
         def run(plain):
             return make_stoch_shard_chunk(fa, steps, device, mesh.clause_index, group,
                                           plain=plain)(
-                type(state)(*(t.to(device) for t in state)), 12345)
+                type(state)(*(t.to(device, copy=True) for t in state)), 12345)
     card = run(False)
     plain = run(True)
     err = max(bit_error(a.cpu().float(), b.cpu().float()) for a, b in zip(card, plain))

@@ -597,12 +597,12 @@ def test_single_device_runner_goes_through_b5(cuda, mode):
     fa = _sharded(1, widths=(3,))
     ode = ODEConfig(step_size=0.02 if mode == "fixed" else None)
     state = _state(fa, 16, 1, cuda)
+    host = type(state)(*(t.cpu() for t in state))  # the runner consumes its input
     before = ss.launches
     out = ss.make_single_device_runner(fa, 0.05, ode, 8, cuda)(state)
     torch.cuda.synchronize()
     assert ss.launches == before + (8 if mode == "fixed" else 16)
-    ref = ss.make_single_device_runner(fa, 0.05, ode, 8, "cpu")(
-        type(state)(*(t.cpu() for t in state)))
+    ref = ss.make_single_device_runner(fa, 0.05, ode, 8, "cpu")(host)
     for name in ("v", "xs", "xl", "dt"):
         torch.testing.assert_close(getattr(out, name).cpu(), getattr(ref, name), **F32)
 
@@ -775,7 +775,7 @@ def test_shard_chunk_runner_equals_b5_runner(cuda, B, mode):
     state = _state(fa, B, 1, cuda)
     state = state._replace(done=torch.arange(B, device=cuda) % 5 == 0)
     before = sch.launches
-    out = sch.make_shard_chunk(fa, 0.05, ode, 8, None, cuda)(state)
+    out = sch.make_shard_chunk(fa, 0.05, ode, 8, None, cuda)(copy_state(state))
     torch.cuda.synchronize()
     assert sch.launches == before + (9 if mode == "fixed" else 17)
     ref = ss.make_single_device_runner(fa, 0.05, ode, 8, cuda)(state)
@@ -829,8 +829,8 @@ def test_tiled_b5_runner_equals_b6_chunk_and_the_row_major_loop(cuda, B, mode):
     ode = ODEConfig(step_size=0.02 if mode == "fixed" else None)
     state = _state(fa, B, 2, cuda)
     state = state._replace(done=torch.arange(B, device=cuda) % 4 == 1)
-    out = ss.make_single_device_runner(fa, 0.05, ode, 8, cuda)(state)
-    b6 = sch.make_shard_chunk(fa, 0.05, ode, 8, None, cuda)(state)
+    out = ss.make_single_device_runner(fa, 0.05, ode, 8, cuda)(copy_state(state))
+    b6 = sch.make_shard_chunk(fa, 0.05, ode, 8, None, cuda)(copy_state(state))
     ref = _row_major_clause_loop(fa, ode, state, 8)
     torch.cuda.synchronize()
     for name, a, b, c in zip(state._fields, out, b6, ref):
@@ -879,6 +879,67 @@ def test_stoch_shard_chunk_kernel_equals_plain(cuda, B, n_shards, matmul_dtype, 
             assert sc.shard_chunk_launches == before + 1
             for a, c in zip(out, ref):
                 assert torch.equal(untile(a, B), c), (apply, evaluate)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [64, 45])
+@pytest.mark.parametrize("name", ["B6 fixed", "B6 adaptive", "B5", "B9", "B8"])
+def test_clause_runners_donate_and_allocate_nothing_on_a_second_chunk(cuda, name, B):
+    """Each clause-mesh runner returns its input's storage, equal to a run
+    from a copy; its second chunk of the shape, from another state,
+    allocates nothing and leaves the first result as it was, and so does
+    the first chunk of a runner of another length of the same formula."""
+    from odesat_tpu_torch.models.stoch import init_stoch_state
+    from odesat_tpu_torch.ops import shard_chunk as sch
+    from odesat_tpu_torch.ops import shard_stream as ss
+    from odesat_tpu_torch.parallel import sharded
+
+    fa = _sharded(1, widths=(3,))
+    if name in ("B9", "B8"):
+        def make(steps=6):
+            return sharded.make_clause_stoch_runner(fa, steps, cuda,
+                                                    torch.Generator().manual_seed(3), None,
+                                                    "float32", "auto" if name == "B9" else "off")
+
+        def state_of(seed):
+            st = init_stoch_state(fa, B, cuda)
+            g = torch.Generator(device=cuda).manual_seed(seed)
+            return st._replace(v=torch.rand(st.v.shape, generator=g, device=cuda) < 0.5)
+    else:
+        ode = ODEConfig(step_size=0.02 if name != "B6 adaptive" else None)
+        build = ss.make_single_device_runner if name == "B5" else \
+            (lambda *a: sch.make_shard_chunk(*a[:4], None, a[4]))
+
+        def make(steps=6):
+            return build(fa, 0.05, ode, steps, cuda)
+
+        def state_of(seed):
+            return _state(fa, B, seed, cuda)
+    run = make()
+    first = state_of(1)
+    want = make()(copy_state(first))
+    ptrs = [t.data_ptr() for t in first]
+    got = run(first)
+    assert [t.data_ptr() for t in got] == ptrs
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    kept = copy_state(got)
+    second = state_of(2)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    run(second)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == before
+    for a, b in zip(got, kept):
+        assert torch.equal(a, b)
+    # a runner of another length (a solve's tail or grown chunk) takes the
+    # formula's held buffers: its first call of the shape allocates nothing
+    tail, third = make(3), state_of(3)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    tail(third)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == before
 
 
 @pytest.mark.cuda

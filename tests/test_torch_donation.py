@@ -11,6 +11,14 @@ the contract) on the CPU.
   ``simulate_batch`` (with a harvest, with a checkpoint cadence, and over
   the multi-chunk dispatch), the stoch ``search`` (B3/B4's plain version
   and the twin) and ``hybrid_search``.
+* The clause mesh's runners (B6, B5, B9, B8), which tile and run in their
+  input's own storage: each returns its input's storage at a full and a
+  ragged batch, and a second call of the shape runs on the buffers it
+  holds and leaves a held result as it was; at S=2 (a gloo world)
+  ``simulate_batch`` through B6 and B5, a resume, the stoch ``search``
+  through B9 and B8 and ``hybrid_search`` give with the runners run on a
+  copy and their inputs poisoned (``tests/donation_worker.py``) what they
+  give as they run, and JAX's clause mesh's results.
 * The held-result rule (``device_loop.StateBuffers``) and the scan chunk's
   choice of buffers (``ScanChunk.captured``) on CPU tensors: a call from
   the result it returned runs in place with no copy and no new capture; a
@@ -37,28 +45,18 @@ from odesat_tpu_torch.models import stoch as tstoch  # noqa: E402
 from odesat_tpu_torch.ops import device_loop, scan_chunk  # noqa: E402
 from odesat_tpu_torch.utils.config import ODEConfig, SolverConfig  # noqa: E402
 from odesat_tpu_torch.utils.tts import solve_exact  # noqa: E402
-from tests.torch_parity import jax_state, numpy_state  # noqa: E402
-
-
-def _poison(state, out) -> int:
-    """Fill every field of ``state`` that shares no memory with ``out``, as
-    a consumed donated buffer may hold anything; returns how many."""
-    kept = {t.untyped_storage().data_ptr() for t in out}
-    n = 0
-    for t in state:
-        if t.numel() and t.untyped_storage().data_ptr() not in kept:
-            t.fill_(float("nan") if t.is_floating_point() else
-                    True if t.dtype == torch.bool else -1)
-            n += 1
-    return n
+from tests.donation_worker import consume_clause_runners, poison  # noqa: E402
+from tests.torch_parity import jax_state, numpy_state, port_formula  # noqa: E402
 
 
 def consuming(monkeypatch):
     """Make every chunk runner built with ``donate`` (the default) and every
-    multi-chunk dispatch consume its input, for as long as ``monkeypatch``'s
-    context lasts. Returns the count of fields filled, so that a case can
-    show that its path consumed something."""
+    multi-chunk dispatch consume its input, and every clause-mesh runner
+    run on a copy and poison its input (``tests/donation_worker.py``), for
+    as long as ``monkeypatch``'s context lasts. Returns the count of fields
+    filled, so that a case can show that its path consumed something."""
     filled = {"n": 0}
+    consume_clause_runners(monkeypatch.setattr, filled)
 
     def chunk_runners(build):
         def make(*a, **k):
@@ -68,7 +66,7 @@ def consuming(monkeypatch):
 
                 def run(state, *args):
                     out = fn(state, *args)
-                    filled["n"] += _poison(state, out)
+                    filled["n"] += poison(state, out)
                     return out
 
                 chunk.fn = run
@@ -82,7 +80,7 @@ def consuming(monkeypatch):
 
             def run(state, *args):
                 out, steps = multi(state, *args)
-                filled["n"] += _poison(state, out)
+                filled["n"] += poison(state, out)
                 return out, steps
 
             return run
@@ -340,3 +338,288 @@ def test_a_held_result_stays_and_a_result_passed_back_runs_in_place(donate):
     assert torch.equal(r3.v, v0 + 1)
     assert scan_chunk.captures == captures + (2 if donate else 3)
     assert len(chunk.graphs) == (2 if donate else 3)
+
+
+# ---------------------------------------------------------- the clause mesh
+#
+# B6, B5, B9 and B8's runners work in their input's own storage and hold
+# their buffers for each batch shape; with the wrappers of
+# tests/donation_worker.py each runs on a copy and poisons its input
+# instead. Both must give what JAX's clause mesh gives.
+
+CLAUSE_RUNNERS = ("B6 fixed", "B6 adaptive", "B5", "B9", "B8")
+
+
+def _clause_runner(name, fa, steps=6):
+    from odesat_tpu_torch.ops import shard_chunk as sch
+    from odesat_tpu_torch.ops import shard_stream as ss
+    from odesat_tpu_torch.parallel import sharded
+
+    if name in ("B9", "B8"):
+        return sharded.make_clause_stoch_runner(fa, steps, "cpu",
+                                                torch.Generator().manual_seed(3), None,
+                                                "float32", "auto" if name == "B9" else "off")
+    ode = ODEConfig(step_size=0.02) if name != "B6 adaptive" else ODEConfig(tolerance=1e-3)
+    if name == "B5":
+        return ss.make_single_device_runner(fa, 0.05, ode, steps, "cpu")
+    return sch.make_shard_chunk(fa, 0.05, ode, steps, None, "cpu")
+
+
+def _clause_state(name, fa, B, seed):
+    from odesat_tpu_torch.models.stoch import StochState
+
+    rng = np.random.default_rng(seed)
+    if name in ("B9", "B8"):
+        return StochState(torch.as_tensor(rng.random((B, fa.n_vars_padded)) < 0.5),
+                          torch.ones((B, fa.n_clauses_padded), dtype=torch.int32),
+                          torch.zeros(B, dtype=torch.bool))
+    v = rng.uniform(-1, 1, (B, fa.n_vars_padded)).astype(np.float32)
+    xs = np.broadcast_to(fa.xs_init, (B, fa.n_clauses_padded)).astype(np.float32)
+    return state_from_numpy(v, xs, np.ones_like(xs), np.full(B, 0.01, np.float32),
+                            np.arange(B) % 5 == 0, device="cpu")
+
+
+def _held_tensors(obj, out):
+    """Every tensor a runner holds (``run.held``), walked through its
+    containers and objects."""
+    if isinstance(obj, torch.Tensor):
+        out.append(obj)
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            _held_tensors(v, out)
+    elif isinstance(obj, (tuple, list)):
+        for v in obj:
+            _held_tensors(v, out)
+    elif hasattr(obj, "__dict__") and not callable(obj):
+        _held_tensors(vars(obj), out)
+    return out
+
+
+@pytest.mark.parametrize("B", [64, 45])
+@pytest.mark.parametrize("name", CLAUSE_RUNNERS)
+def test_a_clause_runner_returns_its_input_and_holds_its_buffers(name, B):
+    """At a full (64) and a ragged (45) batch: the result is the input's
+    storage and equals a run from a copy; a second call of the shape, from
+    another state, runs on the same held buffers (the same tensors, at the
+    same addresses) and leaves the first result, still held, as it was."""
+    from odesat_tpu_torch.models.loop import copy_state
+    from odesat_tpu_torch.ops.shard_stream import compile_stream_sharded
+
+    fa, _ = compile_stream_sharded(_normalized_port("small.cnf"), 1)
+    run = _clause_runner(name, fa)
+    first = _clause_state(name, fa, B, 1)
+    want = _clause_runner(name, fa)(copy_state(first))
+    ptrs = [t.data_ptr() for t in first]
+    got = run(first)
+    assert [t.data_ptr() for t in got] == ptrs
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    held = [(t.data_ptr(), tuple(t.shape)) for t in _held_tensors(run.held, [])]
+    assert held and len(run.held) == 1
+    kept = copy_state(got)
+    run(_clause_state(name, fa, B, 2))
+    assert [(t.data_ptr(), tuple(t.shape)) for t in _held_tensors(run.held, [])] == held
+    for a, b in zip(got, kept):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", CLAUSE_RUNNERS)
+def test_runners_of_every_chunk_length_share_one_set_of_buffers(name):
+    """A solve builds a runner for each chunk length it runs (its inner
+    chunk, a tail, the grown chunks): a formula's runners of one kind hold
+    one set of buffers a batch shape between them (``ops/tiles.held_pool``),
+    whatever their lengths, and give what a runner with a pool of its own
+    gives; the pool goes with the last of them."""
+    import gc
+
+    from odesat_tpu_torch.ops.shard_stream import compile_stream_sharded
+    from odesat_tpu_torch.ops.tiles import held_pool
+
+    fa, _ = compile_stream_sharded(_normalized_port("small.cnf"), 1)
+    long, short = _clause_runner(name, fa, 6), _clause_runner(name, fa, 3)
+    assert long.held is short.held
+    long(_clause_state(name, fa, 64, 1))
+    held = [(t.data_ptr(), tuple(t.shape)) for t in _held_tensors(long.held, [])]
+    got = short(_clause_state(name, fa, 64, 2))
+    assert len(short.held) == 1
+    assert [(t.data_ptr(), tuple(t.shape)) for t in _held_tensors(short.held, [])] == held
+    alone, _ = compile_stream_sharded(_normalized_port("small.cnf"), 1)
+    want = _clause_runner(name, alone, 3)(_clause_state(name, alone, 64, 2))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert held_pool(fa) is long.held
+    del long, short
+    gc.collect()
+    assert held_pool(fa) == {}
+
+
+def _normalized_port(name):
+    return port_formula(jnormalize(jparse(os.path.join(os.path.dirname(__file__), "data",
+                                                       name)))[1])
+
+
+SIM = dict(step_size=0.01, steps=32)
+
+
+def _sim_config(pkg, path, shard_chunk="auto", steps=32, resume=None):
+    ode = (JODE if pkg == "jax" else ODEConfig)(step_size=0.01, steps=steps,
+                                                shard_chunk=shard_chunk)
+    kw = dict(batch_size=8, seed=0, chunk_steps=16, checkpoint_path=str(path),
+              checkpoint_every_chunks=1)
+    if resume is not None:
+        kw["resume_from"] = str(resume)
+    return (JSC if pkg == "jax" else SolverConfig)(ode=ode, **kw)
+
+
+def _search_config(pkg, steps, shard_chunk="auto"):
+    ode = (JODE if pkg == "jax" else ODEConfig)(steps=steps, shard_chunk=shard_chunk)
+    return (JSC if pkg == "jax" else SolverConfig)(ode=ode, batch_size=8, seed=1, chunk_steps=16)
+
+
+def _jax_mesh():
+    """The JAX package's 1x2 clause mesh, on two of the CPU's devices."""
+    import jax
+
+    from odesat_tpu.parallel.mesh import make_mesh
+
+    return make_mesh(1, 2, jax.devices()[:2])
+
+
+MESH_CASES = ["simulate B6", "simulate B5", "resume B6", "stoch B9", "stoch B8", "hybrid",
+              "stoch B9 sat", "stoch B8 sat", "hybrid sat"]
+
+
+@pytest.fixture(scope="module")
+def clause_mesh_runs(tmp_path_factory):
+    """One 1x2 gloo world: each case of MESH_CASES as the package runs it
+    and with the clause runners consuming their inputs (donation_worker),
+    on hard.cnf (UNSAT: nothing solves, every run takes its whole budget)
+    from one NumPy state for the ODE, the resume from the 16-step snapshot
+    of a run of each kind; the "sat" cases on easy.cnf (satisfiable).
+    Returns ``(values, tmp, arrays, hard, easy)``."""
+    from odesat_tpu.parallel.sharded import compile_for_mesh as jcompile_for_mesh
+    from odesat_tpu_torch.parallel import launch
+    from tests import donation_worker as dw
+
+    tmp = tmp_path_factory.mktemp("clause_mesh")
+    hard = jnormalize(jparse(os.path.join(os.path.dirname(__file__), "data", "hard.cnf")))[1]
+    formula, sat = _normalized_port("hard.cnf"), _normalized_port("easy.cnf")
+    easy = jnormalize(jparse(os.path.join(os.path.dirname(__file__), "data", "easy.cnf")))[1]
+    jfa = jcompile_for_mesh(hard, _sim_config("jax", tmp / "x.npz"), _jax_mesh())
+    arrays = numpy_state(jfa, 8, seed=5)
+    calls = []
+    for consume in (False, True):
+        tag = "got" if consume else "plain"
+        for path in ("B6", "B5"):
+            calls.append((dw.mesh_run, ("simulate", consume, formula,
+                                        _sim_config("torch", tmp / f"{path}_{tag}.npz",
+                                                    "auto" if path == "B6" else "off"),
+                                        arrays)))
+        calls.append((dw.mesh_run, ("simulate", consume, formula,
+                                    _sim_config("torch", tmp / f"part_{tag}.npz", steps=16),
+                                    arrays)))
+        calls.append((dw.mesh_run, ("simulate", consume, formula,
+                                    _sim_config("torch", tmp / f"resumed_{tag}.npz",
+                                                resume=tmp / f"part_{tag}.npz"), arrays)))
+        for path in ("auto", "off"):
+            calls.append((dw.mesh_run, ("stoch", consume, formula,
+                                        _search_config("torch", 64, path))))
+        calls.append((dw.mesh_run, ("hybrid", consume, formula, _hybrid_config("torch", 64))))
+        for path in ("auto", "off"):
+            calls.append((dw.mesh_run, ("stoch", consume, sat,
+                                        _search_config("torch", SAT_STEPS, path))))
+        calls.append((dw.mesh_run, ("hybrid", consume, sat,
+                                    _hybrid_config("torch", SAT_STEPS))))
+    values = launch.spawn(launch.run_all, 1, 2, "gloo", "cpu", timeout_s=300, args=(calls,))
+    return values, tmp, arrays, hard, easy
+
+
+SAT_STEPS = 512  # the budget of the "sat" cases; JAX's 1x2 mesh solves easy.cnf in 32-48
+
+
+def _hybrid_config(pkg, steps):
+    return (JSC if pkg == "jax" else SolverConfig)(
+        ode=(JODE if pkg == "jax" else ODEConfig)(steps=steps, step_size=0.01), batch_size=8,
+        seed=0, chunk_steps=16)
+
+
+def _satisfies(assignment, formula) -> bool:
+    from odesat_tpu_torch.cnf import evaluate_cnf
+
+    return evaluate_cnf(dict(enumerate(map(bool, assignment))), port_formula(formula))
+
+
+@pytest.mark.parametrize("case", MESH_CASES)
+def test_clause_mesh_with_consumed_inputs_equals_unwrapped_and_jax(clause_mesh_runs, monkeypatch,
+                                                                   case):
+    """At S=2 (gloo, the plain versions of B6, B5, B9 and B8): each entry
+    point gives with consumed inputs what it gives as it runs, bit for bit
+    (results and snapshots), and consumed something on every rank; the ODE
+    runs' snapshots equal the JAX package's clause mesh (1x2 CPU mesh) from
+    the same state within rtol 2e-4 / atol 2e-5 (done exactly), a resumed
+    run's the whole run's bit for bit. The stoch search and the hybrid draw
+    their flips from the port's generators, not JAX's keys, so their runs
+    are held against JAX's on its 1x2 clause mesh by outcome: on hard.cnf
+    both end unsolved after exactly their budget, on easy.cnf both solve
+    and the port's assignment satisfies the formula. Flip for flip, B8's
+    plain version is held against JAX's Pallas kernel in
+    tests/test_torch_stoch_shard.py::test_eval_plain_equals_pallas, and the
+    S=2 path against S=1 in test_stoch_clause_mesh_s2_equals_s1_flip_for_flip."""
+    from odesat_tpu.models import ode as jode
+    from odesat_tpu.models.hybrid import hybrid_search as jhybrid
+    from odesat_tpu.models.stoch import search as jsearch
+    from odesat_tpu.parallel.sharded import simulate_batch_sharded as jsimulate
+    from tests import donation_worker as dw
+
+    values, tmp, arrays, hard, easy = clause_mesh_runs
+    half = len(values) // 2
+    i = {"simulate B6": 0, "simulate B5": 1, "resume B6": 3, "stoch B9": 4, "stoch B8": 5,
+         "hybrid": 6, "stoch B9 sat": 7, "stoch B8 sat": 8, "hybrid sat": 9}[case]
+    (plain, _), (got, filled) = values[i], values[half + i]
+    assert filled > 0
+    for name in ("steps", "solved_index", "engine", "solved"):
+        assert getattr(got, name, None) == getattr(plain, name, None), name
+    for name in ("done", "assignment"):  # a HybridResult has no done
+        if hasattr(plain, name):
+            np.testing.assert_array_equal(getattr(got, name), getattr(plain, name))
+    sat = case.endswith("sat")
+    formula, budget = (easy, SAT_STEPS) if sat else (hard, 64)
+    if case.startswith("stoch"):
+        want = jsearch(formula, _search_config("jax", budget), mesh=_jax_mesh())
+        if sat:
+            assert got.solved_index is not None and want.solved_index is not None
+            assert _satisfies(got.best_assignment(), formula)
+            assert got.steps <= budget
+        else:
+            assert got.solved_index is None and want.solved_index is None
+            assert got.steps == want.steps == 64
+        return
+    if case.startswith("hybrid"):
+        want = jhybrid(formula, _hybrid_config("jax", budget), mesh=_jax_mesh())
+        assert got.solved == want.solved == sat
+        if sat:
+            assert _satisfies(got.assignment, formula)
+        else:
+            assert (got.engine, got.steps) == (want.engine, want.steps) == ("none", 64)
+        return
+    path = "B6" if case != "simulate B5" else "B5"
+    name = "resumed" if case == "resume B6" else path
+    snaps = [dw.snapshot(tmp / f"{name}_{tag}.npz") for tag in ("plain", "got")]
+    if case == "resume B6":
+        snaps.append(dw.snapshot(tmp / "B6_plain.npz"))  # the whole run
+    fields = ("v", "xs", "xl", "dt", "done")
+    for snap in snaps[1:]:
+        assert int(snap["steps"]) == int(snaps[0]["steps"]) == 32
+        for f in fields:
+            np.testing.assert_array_equal(snap[f"field_{f}"], snaps[0][f"field_{f}"], err_msg=f)
+    monkeypatch.setattr(jode, "init_state", lambda *a, **k: jax_state(arrays))
+    jsimulate(hard, _sim_config("jax", tmp / f"jax_{path}.npz",
+                                "auto" if path == "B6" else "off"), _jax_mesh())
+    want = dw.snapshot(tmp / f"jax_{path}.npz")
+    assert int(want["steps"]) == 32
+    for f in fields:
+        a, b = snaps[0][f"field_{f}"], want[f"field_{f}"]
+        if f == "done":
+            np.testing.assert_array_equal(a, b)
+        else:
+            np.testing.assert_allclose(a, b, rtol=2e-4, atol=2e-5, err_msg=f)

@@ -31,6 +31,7 @@ from odesat_tpu.utils.config import ODEConfig as JODE  # noqa: E402
 from odesat_tpu.utils.generate import random_ksat  # noqa: E402
 from odesat_tpu_torch.cnf import CNFFormula, Literal  # noqa: E402
 from odesat_tpu_torch.interop import formula_arrays_from_numpy, state_from_numpy  # noqa: E402
+from odesat_tpu_torch.models.loop import copy_state  # noqa: E402
 from odesat_tpu_torch.models.stoch import StochState  # noqa: E402
 from odesat_tpu_torch.ops import shard_chunk as sch  # noqa: E402
 from odesat_tpu_torch.ops import shard_stream as ss  # noqa: E402
@@ -106,7 +107,8 @@ def test_tiled_runner_matches_jax_shard_chunk(mode, B):
                dev.clause_mask)
     run = sch.make_shard_chunk(formula_arrays_from_numpy(jfa), ZETA, ODEConfig(**ode), steps,
                                None, "cpu")
-    out = run(state_from_numpy(*arrays, device="cpu"))
+    # copies: the runner consumes its input, which would otherwise be arrays'
+    out = run(state_from_numpy(*(a.copy() for a in arrays), device="cpu"))
     for name, a, b in zip(("v", "xs", "xl"), out[:3], ref[:3]):
         assert a.shape == (B, *b.shape[1:])
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-4, atol=2e-5, err_msg=name)
@@ -135,7 +137,7 @@ def test_tiled_stoch_runner_matches_jax_shard_chunk(B):
                           jnp.asarray(sbias[0]), jnp.asarray(nsign[0]),
                           jnp.asarray(jfa.clause_mask))
     fn = sc.make_stoch_shard_chunk(tfa, chunk, "cpu")
-    out = fn(StochState(torch.as_tensor(v), torch.as_tensor(xl), torch.as_tensor(done)), seed)
+    out = fn(StochState(torch.tensor(v), torch.tensor(xl), torch.tensor(done)), seed)
     np.testing.assert_array_equal(out.v.numpy(), np.asarray(jv) > 0.5)
     np.testing.assert_array_equal(out.xl.numpy(), np.asarray(jxl).astype(np.int32))
     np.testing.assert_array_equal(out.done.numpy(), np.asarray(jdone))
@@ -152,7 +154,7 @@ def test_tiled_runner_equals_the_step_path(mode, B):
     v, xs, xl, dt, done = numpy_state(fa, B, 1)
     done[::3] = True
     state = state_from_numpy(v, xs, xl, dt, done, device="cpu")
-    a = sch.make_shard_chunk(fa, 0.05, ode, 12, None, "cpu")(state)
+    a = sch.make_shard_chunk(fa, 0.05, ode, 12, None, "cpu")(copy_state(state))
     b = ss.make_single_device_runner(fa, 0.05, ode, 12, "cpu")(state)
     for name, x, y in zip(state._fields, a, b):
         assert torch.equal(x, y), name

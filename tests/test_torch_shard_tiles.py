@@ -18,9 +18,16 @@ Both kernels run B6's and B9's device code over the tile layout of
 * the tiled runners (ODE fixed and adaptive, stoch) against the row-major
   step loop they replace, written out here as it ran before, and against
   the B6 and B9 runners: bit for bit;
-* the uniforms drawn in tile order against ``tile(uniform01(...))``;
+* the uniforms drawn in tile order against ``tile(uniform01(...))``, and
+  drawn in place into held buffers (``TiledUniforms``) against both;
 * the tiled plain entries row for row, whatever the padding rows hold;
-* the gates at the boundary Np: exactly what they took before.
+* the gates at the boundary Np: exactly what they took before;
+* the runners' tiling in the caller's own storage (``tile_``, ``untile_``
+  and ``Tiles``) bit for bit with ``tile`` and ``untile``: float32, int32
+  and bool fields of 1, 2 and 3 dimensions, full and ragged batches,
+  staging of 1 tile up to every tile; a full batch's tiles share the
+  input's storage, a ragged, non-contiguous or aliased field takes the
+  held buffers.
 
 The kernels themselves run only on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
@@ -43,13 +50,23 @@ from odesat_tpu.ops import stoch_pallas as jsp  # noqa: E402
 from odesat_tpu.utils.config import ODEConfig as JODE  # noqa: E402
 from odesat_tpu.utils.generate import random_ksat  # noqa: E402
 from odesat_tpu_torch.interop import formula_arrays_from_numpy, state_from_numpy  # noqa: E402
+from odesat_tpu_torch.models.loop import copy_state  # noqa: E402
 from odesat_tpu_torch.models.ode import ODEState  # noqa: E402
 from odesat_tpu_torch.models.stoch import StochState  # noqa: E402
 from odesat_tpu_torch.ops import shard_chunk as sch  # noqa: E402
 from odesat_tpu_torch.ops import shard_stream as ss  # noqa: E402
 from odesat_tpu_torch.ops import stoch_chunk as sc  # noqa: E402
 from odesat_tpu_torch.ops.fused_chunk import SMEM_LIMIT_BYTES, _clamp  # noqa: E402
-from odesat_tpu_torch.ops.tiles import TILE, n_tiles, tile, untile  # noqa: E402
+from odesat_tpu_torch.ops.tiles import (  # noqa: E402
+    TILE,
+    Tiles,
+    in_place,
+    n_tiles,
+    tile,
+    tile_,
+    untile,
+    untile_,
+)
 from odesat_tpu_torch.parallel import sharded  # noqa: E402
 from odesat_tpu_torch.utils.config import ODEConfig  # noqa: E402
 from tests.torch_parity import port_formula  # noqa: E402
@@ -225,16 +242,21 @@ def _row_major_clause_loop(fa, ode, state, steps):
 def test_tiled_runner_equals_row_major_loop_and_b6(mode, B):
     """B5's runner, tiled once a chunk, equals the row-major step loop it
     replaces and the B6 chunk bit for bit, through steps in which rows
-    finish; the caller's state is not written."""
+    finish; each runner returns its input's storage (it consumes its
+    input, as JAX's donated state), and the row-major loop writes nothing
+    of its own."""
     fa, _ = ss.compile_stream_sharded(port_formula(_mixed(seed=8)), 1)
     ode = ODEConfig(step_size=0.02) if mode == "fixed" else ODEConfig(tolerance=1e-3)
     arrays = _ode_inputs(fa, B, seed=5)
     state = state_from_numpy(*arrays, device="cpu")
-    out = ss.make_single_device_runner(fa, ZETA, ode, 9, "cpu")(state)
+    inputs = copy_state(state), copy_state(state)
+    out = ss.make_single_device_runner(fa, ZETA, ode, 9, "cpu")(inputs[0])
     ref = _row_major_clause_loop(fa, ode, state, 9)
-    b6 = sch.make_shard_chunk(fa, ZETA, ode, 9, None, "cpu")(state)
+    b6 = sch.make_shard_chunk(fa, ZETA, ode, 9, None, "cpu")(inputs[1])
     for name, a, b, c in zip(state._fields, out, ref, b6):
         assert torch.equal(a, b) and torch.equal(a, c), name
+    for res, inp in zip((out, b6), inputs):
+        assert all(a.data_ptr() == b.data_ptr() for a, b in zip(res, inp))
     for a, b in zip(state, arrays):
         np.testing.assert_array_equal(a.numpy(), b)
 
@@ -279,6 +301,13 @@ def test_uniforms_in_tile_order_equal_the_tiled_rows(B):
     assert torch.equal(untile(u, B), rows)
     assert torch.equal(u, tile(sc.uniform01(12345, torch.arange(G * TILE, dtype=torch.int64),
                                             Bb, 3, Np)))
+    # B8's runner draws them in place into held buffers: the same bits at
+    # every seed and step, the buffer overwritten draw after draw
+    held = sc.TiledUniforms(G, Bb, Np, "cpu")
+    for seed, step in ((12345, 3), (2**31 - 2, 0), (7, 70000)):
+        want = sc.uniform01_tiled(seed, G, Bb, step, Np, "cpu")
+        got = held.draw(seed, step)
+        assert torch.equal(got, want) and got.data_ptr() == held.u.data_ptr()
 
 
 # ------------------------------------------ the tiled entries, row for row
@@ -354,3 +383,91 @@ def test_stoch_gate_is_unchanged_at_the_boundary(Np):
     fa = SimpleNamespace(shard_plan=object(), min_width=1, n_vars_padded=Np)
     assert sc.stoch_shard_supported(fa) == (Np <= SMEM_LIMIT_BYTES)
     assert not sc.stoch_shard_supported(SimpleNamespace(shard_plan=None, n_vars_padded=128))
+
+
+# ------------------------------------------- tiling in the caller's storage
+
+FIELD_SHAPES = {"1-D": (), "2-D": (5,), "3-D": (3, 7)}
+G_FULL = 3  # tiles of a full batch
+
+
+def _field(B, X, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    if dtype == torch.bool:
+        return torch.rand((B, *X), generator=g) < 0.5
+    if dtype == torch.int32:
+        return torch.randint(-1000, 1000, (B, *X), generator=g, dtype=torch.int32)
+    return torch.randn((B, *X), generator=g)
+
+
+def _tile_bytes(x):
+    return TILE * int(np.prod(x.shape[1:], dtype=np.int64)) * x.element_size()
+
+
+@pytest.mark.parametrize("wave", range(1, G_FULL + 1))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.bool], ids=str)
+@pytest.mark.parametrize("shape", list(FIELD_SHAPES))
+def test_tile_in_place_equals_tile_and_untile_in_place_undoes_it(shape, dtype, wave):
+    """A full batch of G_FULL tiles, staging of ``wave`` tiles: the tiles
+    are tile's, in the input's own storage, and untile_ gives the input
+    back there."""
+    x = _field(G_FULL * TILE, FIELD_SHAPES[shape], dtype, seed=wave)
+    y = x.clone()
+    staging = torch.empty(wave * _tile_bytes(x), dtype=torch.uint8)
+    t = tile_(y, staging)
+    assert torch.equal(t, tile(x))
+    assert t.untyped_storage().data_ptr() == y.untyped_storage().data_ptr()
+    u = untile_(t, x.shape[0], staging)
+    assert torch.equal(u, x) and u.data_ptr() == y.data_ptr()
+
+
+@pytest.mark.parametrize("B", [G_FULL * TILE, 70])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.bool], ids=str)
+@pytest.mark.parametrize("shape", list(FIELD_SHAPES))
+def test_tiles_route_full_batches_in_place_and_ragged_ones_through_held_buffers(shape, dtype,
+                                                                                 B):
+    """Tiles.tile equals tile (padding rows the fill), in place for a full
+    batch and in a held buffer for a ragged one; untile writes a chunk's
+    result, from the tiles or from any other tensor, into the caller's
+    tensor, and a second call of the shape reuses the held buffers."""
+    X = FIELD_SHAPES[shape]
+    fill = True if dtype == torch.bool else 7
+    tiles = Tiles(staging_bytes=1)  # one tile a wave: the least staging
+    held = None
+    for seed in (1, 2):
+        x = _field(B, X, dtype, seed)
+        y = x.clone()
+        t = tiles.tile({"f": y}, {"f": fill})["f"]
+        assert torch.equal(t, tile(x, fill=fill))
+        shares = t.untyped_storage().data_ptr() == y.untyped_storage().data_ptr()
+        assert shares == (B % TILE == 0)
+        if not shares:
+            assert held in (None, t.data_ptr())
+            held = t.data_ptr()
+        result = tile(_field(B, X, dtype, seed + 10), fill=fill)
+        out = tiles.untile({"f": result if seed == 1 else t.copy_(result)})["f"]
+        assert out is y and torch.equal(out, untile(result, B))
+
+
+def test_fields_that_cannot_be_tiled_where_they_lie_take_held_buffers():
+    """A non-contiguous field and two fields of one storage are copied into
+    held buffers and back; the contiguous field beside them is tiled in
+    place."""
+    base = torch.randn(64, 12)
+    shared = torch.randn(64, 8)
+    fields = {"cols": base[:, :5], "own": torch.randn(64, 3),
+              "a": shared.view(64, 2, 4)[:, 0],  # not contiguous either
+              "b": shared.view(-1)[: 64 * 4].view(64, 4)}  # shares a's storage
+    assert in_place(fields) == {"cols": False, "a": False, "own": True, "b": False}
+    want = {k: tile(v) for k, v in fields.items()}
+    tiles = Tiles()
+    got = tiles.tile(fields)
+    for k, t in got.items():
+        assert torch.equal(t, want[k]), k
+        same = t.untyped_storage().data_ptr() == fields[k].untyped_storage().data_ptr()
+        assert same == (k == "own"), k
+    news = {k: t + 1 for k, t in got.items()}
+    out = tiles.untile(news)
+    for k, x in out.items():
+        assert x is fields[k] and torch.equal(x, untile(news[k], 64)), k
+    assert torch.equal(base[:, :5], out["cols"])  # written back into the view's storage
