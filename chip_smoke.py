@@ -154,7 +154,16 @@ Phases, each printing its lines; the first failure exits non-zero:
     through B6 and through B5 against S=1 (rtol 2e-4 / atol 2e-5, v
     bit-identical on the four ranks, B5 equal to B6 bit for bit), the stoch
     clause path through B9 and through B8 against S=1 flip for flip, the
-    race runs, B7's checks, timings and split;
+    race runs, B7's checks, timings and split; in phase 20's worlds (S=2
+    and S=4) and phase 21 (S=1) B5's fixed chunk and the B8 path's, each
+    captured as CUDA graphs with their B7 calls (ops/scan_chunk.py), against
+    the same 64 steps launched from Python: bit for bit, v identical over
+    the ranks, no allocation in a second chunk, both chunks' walls and
+    peaks, graph replays a chunk, device operations a host-paced step and
+    the host's share of each (torch.profiler, over 4 chunks back to back
+    each way at S=1, one on the shared card); at S=2 also B5 and B8
+    captured between B6 and B9 chunks on one B7 ring, equal to host-paced
+    bit for bit, every rank's flag on the card equal to the host's count;
 21. timing at the config 7 instance, B=1024, S=1: B5 fixed and second and
     B8 per launch on tiled buffers allocated once, as their runners run
     them, beside the one-CTA-a-trajectory (chain) kernels they replaced,
@@ -226,8 +235,8 @@ Phases, each printing its lines; the first failure exits non-zero:
     copy-first run of the plain version on the card bit for bit; a second
     chunk of the shape from another state allocates nothing and leaves the
     first result, still held, as it was; then each runner's 64-step chunk
-    walls and its peak bytes (and, in phase 20's world, each rank's peak
-    over a B6 and a B9 chunk at S=2);
+    walls and its peak bytes (B5's and B8's captured and host-paced; and,
+    in phase 20's world, each rank's peak over a B6 and a B9 chunk at S=2);
 26. the pod mesh (parallel/multihost.py): two CLI processes of one job on
     this host (the CLI's main in ``python -c``, ``--coordinator
     127.0.0.1:<free port> --num-processes 2 --process-id 0|1 --dist-backend
@@ -299,6 +308,9 @@ Phases, each printing its lines; the first failure exits non-zero:
     0.01 -n 16 --devices 1 --clause-shards 2 --dtype float64 through the
     CLI's mesh solve on both routes: the same steps, solved rows, verdict
     and assignment; B7's float64 call timed beside gloo's all-reduce;
+    29a's steps (fixed, 64-step chunks; adaptive, 16), the stoch clause
+    twin's on 29a's plain layout (config 7 B=1024 S=2, 64) and 29b's (64)
+    captured against host-paced, as phase 20 holds B5's;
 30. the stoch twin's chunk captured (ops/scan_chunk.StochScanChunk: the
     steps and their uniform draws as CUDA graphs, the device generator
     registered with them), host-paced between chunks: a. stoch
@@ -349,7 +361,9 @@ partials; the device loop, a chunk's cost beyond the chunk kernel; on a
 trajectory mesh, a B1
 chunk's cost beyond the two ranks' launches against the host loop's
 (phase 28a); the scan chunk, a captured 64-step chunk beside the same steps
-launched from Python; the stoch twin's chunk, the same at phase 30a) and
+launched from Python; the stoch twin's chunk, the same at phase 30a; the
+clause mesh's per-step chunk, B5's captured 64-step chunk at S=2 beside
+host-paced) and
 then ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or without the package beside this script, it exits non-zero
 and prints no result.
@@ -1711,7 +1725,7 @@ def time_mesh(root):
     # phase 25e's and 21's: each runner's 64-step chunk walls and peak at S=1,
     # and each rank's peak at S=2
     walls = clause_walls_and_peaks(torch, compile_stream_sharded(normalized, 1)[0])
-    for name in CLAUSE_RUNNERS:
+    for name in walls:
         say(clause_walls_line(name, walls[name], card, root))
     every = launch.spawn(mesh_chunk_peaks, 1, 2, "gloo", "cuda", timeout_s=600,
                          args=(compile_stream_sharded(normalized, 2)[0],))
@@ -2427,15 +2441,22 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card, loop_calls):
     calls += [cli.mesh_call(c7_stoch_argv)]
     checks = b7_checks(shape7)
     calls += checks
+    # the per-step chunks captured against host-paced, then phase 28's and
+    # 29's calls, last: their values and each one's counts on each rank
+    capture = capture_calls(fa7_2, 2)
     values = launch.spawn(launch.run_all, 1, 2, "gloo", "cuda", timeout_s=600,
-                          args=([*calls, *loop_calls],))
-    # phase 28's calls, last: their values and each one's counts on each rank
-    loop_values = values[len(calls):]
+                          args=([*calls, *capture, *loop_calls],))
+    n, m = len(calls), len(capture)
+    loop_values = values[n + m:]
     loop_reports = [[r["calls"][i] for r in launch.last_reports]
-                    for i in range(len(calls), len(calls) + len(loop_calls))]
-    values = values[:len(calls)]
+                    for i in range(n + m, n + m + len(loop_calls))]
+    capture_reports = [[r["calls"][i] for r in launch.last_reports] for i in range(n, n + m)]
+    capture_values = values[n:n + m]
+    main_chunks = sum(r["calls"][i]["mesh_step_chunk"] for r in launch.last_reports
+                      for i in (7, 8))
+    values = values[:n]
     for r in launch.last_reports:
-        r["calls"] = r["calls"][:len(calls)]
+        r["calls"] = r["calls"][:n]
     two, stoch_two = values[0], values[1:3]
     traj_two, allreduce_ms, (b7_ms, b7_plain), steps_two, b_off, c_off, hyb_two = values[3:10]
     n_resume = len(resume_runs)
@@ -2572,8 +2593,13 @@ def phase_mesh_main(torch, fa7_1, fa7_2, c7, uf250_formula, card, loop_calls):
     say(b7_split_line(2, split_two, card))
     say(mesh_step_line(2, steps_two, card))
     say(mesh_peaks_line(2, peaks_two, card))
+    captured, capture_err, _ = report_capture("20", 2, capture_values, capture_reports, card)
+    if main_chunks == 0:
+        fail("b, c --shard-chunk off: B5's and B8's chunks ran no captured graph")
+    totals["mesh_step_chunk"] = main_chunks
     b7 = {"S=2": {"ms": b7_ms, "plain_ms": b7_plain, "library_ms": allreduce_ms,
-                  "steps": steps_two, "split": split_two, "err": max(b7_err, race_err)}}
+                  "steps": steps_two, "split": split_two, "err": max(b7_err, race_err),
+                  "capture": captured, "capture_err": capture_err}}
     return totals, b7, (loop_values, loop_reports)
 
 
@@ -2696,7 +2722,13 @@ def phase_mesh_s4(torch, fa7_1, c7, b7_two, card):
     checks = b7_checks(shape7)
     checks64 = b7_checks(shape7, torch.float64)  # the float64 form (the twin's clause step)
     calls += checks + checks64
-    values = launch.spawn(launch.run_all, 1, 4, "gloo", "cuda", timeout_s=600, args=(calls,))
+    capture = capture_calls(fa7_4, 4)
+    values = launch.spawn(launch.run_all, 1, 4, "gloo", "cuda", timeout_s=600,
+                          args=([*calls, *capture],))
+    capture_values = values[len(calls):]
+    capture_reports = [[r["calls"][i] for r in launch.last_reports]
+                       for i in range(len(calls), len(calls) + len(capture))]
+    values = values[:len(calls)]
     names = ("shard_chunk", "stoch_shard_chunk", "shard_stream", "stoch_shard_eval", "butterfly",
              "butterfly_f64", "butterfly_fused")
     per_call = [{k: [r["calls"][i][k] for r in launch.last_reports] for k in names}
@@ -2763,9 +2795,11 @@ def phase_mesh_s4(torch, fa7_1, c7, b7_two, card):
                                          torch.float64)
     say(b7_split_line(4, split, card))
     say(mesh_step_line(4, steps, card))
+    captured, capture_err, _ = report_capture("20f", 4, capture_values, capture_reports, card)
     say(f"[mesh S=4] one world of four ranks in {time.perf_counter() - t0:.1f} s ({card})")
     b7_two["S=4"] = {"ms": b7_ms, "plain_ms": b7_plain, "library_ms": allreduce_ms,
-                     "steps": steps, "split": split, "err": max(b7_err, race_err)}
+                     "steps": steps, "split": split, "err": max(b7_err, race_err),
+                     "capture": captured, "capture_err": capture_err}
     return totals
 
 
@@ -3062,6 +3096,14 @@ def phase_shard_timing(torch, ss, sch, sc, fa7, b7, card):
         f"(TiledUniforms.draw into its held buffers, as the runner draws them) "
         f"{u_ms:.6f} ms (CUDA events), {u_ms / step_ms:.3f} of its {step_ms:.6f} ms ({card})")
     times["stoch_runner"] = chains
+    # B5's and the B8 path's chunks captured against the same steps from
+    # Python, with the host's share of each under torch.profiler
+    times["capture"] = {}
+    for label, kind, o in (("B5 fixed", "B5", ode), ("B8", "B8", None)):
+        r = times["capture"][label] = captured_against_host_paced(
+            None, "cuda", kind, fa7, o, B, CAPTURE_STEPS, profiled=PROFILED_CHUNKS)
+        check_capture(f"21 {label} S=1", r)
+        say(capture_line(f"21 config 7 B={B} S=1 {label}", r, CAPTURE_STEPS, card))
     # B7 at (B, Np+1) f32: S partials read and one result written, a rank
     nbytes = 4 * B * (fa7.n_vars_padded + 1)
     for S in (2, 4):
@@ -3115,6 +3157,314 @@ def phase_shard_timing(torch, ss, sch, sc, fa7, b7, card):
     times["b7_fused"] = fused[2]
     times["runner"] = rates
     return times
+
+
+# ------------- the clause mesh's per-step chunks captured (phases 20, 21, 29)
+
+CAPTURE_STEPS = 64  # a captured chunk's length where it is timed (the adaptive twin's: 16)
+# chunks in host_share's profiled window at S=1 (phase 21), where the host
+# runs ahead of the card; 1 on a shared card, where the reading is each
+# rank's own kernels, no host share, and what it counts is the launches
+PROFILED_CHUNKS = 4
+
+
+def mesh_case(mesh, device, kind, fa, ode, B, steps, seed):
+    """A clause-mesh path's runner maker and this rank's block of a global
+    state of ``B`` rows a trajectory rank made from ``seed`` on the host:
+    ``kind`` "B5" (``make_clause_chunk`` over B5's step), "B8" (the stoch
+    clause path with ``shard_chunk`` 'off'), "twin" (the twin's mesh step,
+    ``make_sharded_chunk_runner`` past the kernels' gates) or "stoch_twin"
+    (the stoch clause path on a formula with no shard plan). Returns
+    ``(make, state, dev)``: ``make()`` builds a fresh runner, ``run(state,
+    dev)`` or ``run(state)`` (``dev`` None), whose chunks draw the same
+    seeds as every other runner ``make`` builds."""
+    import numpy as np
+    import torch
+
+    from odesat_tpu_torch.interop import state_from_numpy
+    from odesat_tpu_torch.models.ode import formula_device, state_dtype
+    from odesat_tpu_torch.models.stoch import StochState
+    from odesat_tpu_torch.parallel import sharded
+
+    n_traj = 1 if mesh is None else mesh.n_traj
+    group = None if mesh is None else mesh.clause_group
+    rng = np.random.default_rng(seed)
+    rows = B * n_traj
+    Np, M = fa.n_vars_padded, fa.n_clauses_padded
+    if kind in ("B8", "stoch_twin"):
+        v = torch.as_tensor(rng.random((rows, Np)) < 0.5)
+        state = StochState(v, torch.ones((rows, M), dtype=torch.int32),
+                           torch.zeros(rows, dtype=torch.bool))
+        if mesh is not None:
+            state = sharded.shard_stoch_inputs(state, mesh)
+        state = StochState(*(t.to(device) for t in state))
+
+        def make():
+            return sharded.make_clause_stoch_runner(fa, steps, device,
+                                                    sharded.row_generator(seed, mesh), group,
+                                                    shard_chunk="off")
+        return make, state, None
+    np_dtype = np.float64 if ode.dtype == "float64" else np.float32
+    xs = np.broadcast_to(fa.xs_init, (rows, M)).astype(np_dtype)
+    state = state_from_numpy(rng.uniform(-1, 1, (rows, Np)).astype(np_dtype), xs,
+                             np.ones_like(xs), np.full(rows, 0.01, np_dtype),
+                             np.zeros(rows, bool), device=device)
+    zeta = ode.resolve_zeta(fa.density)
+    if kind == "twin":
+        state, dev = sharded.shard_inputs(
+            state, formula_device(fa, device, dtype=state_dtype(ode)), mesh)
+        return ((lambda: sharded.make_sharded_chunk_runner(fa, zeta, ode, steps, mesh, device)),
+                state, dev)
+    from odesat_tpu_torch.ops.shard_stream import make_clause_chunk, make_fused_clause_step
+
+    if mesh is not None:
+        state = sharded.shard_state(state, mesh)
+    return (lambda: make_clause_chunk(make_fused_clause_step(fa, zeta, ode, group, device),
+                                      steps)), state, None
+
+
+def captured_against_host_paced(mesh, device, kind, fa, ode=None, B=1024, steps=64, seed=7,
+                                profiled=0):
+    """One clause-mesh path (:func:`mesh_case`'s ``kind``) on this rank,
+    its chunk captured (``ops/scan_chunk.py``) against the same steps
+    launched from Python (``scan_chunk.host_paced``), from one state: two
+    chunks of ``steps`` steps each way, the second from the first's
+    result. Raises unless the clause ranks' v are bit-identical
+    (``sharded.check_replicated``). Returns ``{"err"}`` (the largest
+    ``bit_error`` over the fields, 0.0: bit for bit), ``"ms"`` and
+    ``"host_ms"`` (each second chunk's wall: the host clock from a device
+    sync and a barrier over the world to the next), ``"allocs"`` and
+    ``"host_allocs"`` (the allocator's allocations in each second chunk),
+    ``"peak"`` and ``"host_peak"`` (bytes above what was allocated before
+    each second chunk; a captured graph's temporaries live in its pool,
+    which that count does not see), ``"reserved"`` and ``"host_reserved"``
+    (bytes the allocator reserved over each first chunk, from an emptied
+    cache: a capture's pool and buffers, the host-paced steps' cached
+    temporaries), ``"replays"`` (graph launches a captured chunk), ``"b7"``
+    (B7 calls a chunk, both forms) and, with ``profiled`` chunks,
+    :func:`host_share`'s keys over that many."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from odesat_tpu_torch.models.loop import copy_state
+    from odesat_tpu_torch.ops import butterfly, scan_chunk
+    from odesat_tpu_torch.parallel import sharded
+    from odesat_tpu_torch.parallel.dist import bit_error
+
+    gc.collect()  # earlier runners' captures and buffers (their chunks hold cycles)
+    make, state0, dev = mesh_case(mesh, device, kind, fa, ode, B, steps, seed)
+    args = () if dev is None else (dev,)
+
+    def settle():
+        torch.cuda.synchronize(device)
+        if dist.is_initialized():
+            dist.barrier()
+
+    def two(run, got):
+        settle()
+        torch.cuda.empty_cache()  # so that what the first chunk reserves is its own
+        reserved = torch.cuda.memory_reserved(device)
+        st = run(copy_state(state0), *args)
+        settle()
+        got["reserved"] = torch.cuda.memory_reserved(device) - reserved
+        stats = torch.cuda.memory_stats(device)["allocation.all.allocated"]
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        t0 = time.perf_counter()
+        st = run(st, *args)
+        settle()
+        got["ms"] = (time.perf_counter() - t0) * 1e3
+        got["peak"] = torch.cuda.max_memory_allocated(device) - base
+        got["allocs"] = torch.cuda.memory_stats(device)["allocation.all.allocated"] - stats
+        return st
+
+    run, got = make(), {}
+    b7 = butterfly.launches + butterfly.launches_f64
+    ours = two(run, got)
+    b7 = (butterfly.launches + butterfly.launches_f64 - b7) / 2
+    sharded.check_replicated(ours.v, mesh)
+    host = {}
+    with scan_chunk.host_paced():
+        theirs = two(make(), host)
+    err = max(bit_error(a.float() if a.dtype in (torch.bool, torch.int32) else a,
+                        b.float() if b.dtype in (torch.bool, torch.int32) else b)
+              for a, b in zip(ours, theirs))
+    chunks = [c for c in (getattr(run, "chunks", {}).values() or [run])
+              if isinstance(c, scan_chunk.ScanChunk)]
+    chunks += [c for _, c in getattr(run, "twins", {}).values()]
+    replays = sum(t for c in chunks for cap in c.graphs.values() for _, t in cap.parts)
+    out = dict(got, err=err, host_ms=host["ms"], host_allocs=host["allocs"],
+               host_peak=host["peak"], host_reserved=host["reserved"], replays=replays, b7=b7)
+    if profiled:
+        out.update(host_share(run, make, ours, args, steps, settle, profiled))
+    return out
+
+
+def host_share(run, make, state, args, steps, settle, chunks):
+    """Under ``torch.profiler``, ``chunks`` chunks back to back each way,
+    captured (``run``, already warm) and host-paced (a runner from
+    ``make``, its first chunk outside the window): ``"kernels"`` (device
+    operations a host-paced step, each launched from Python),
+    ``"captured_share"``, ``"host_share"`` (the host's share of the
+    window's wall: 1 less the card's busy time, the union of its kernels'
+    spans, over it; None where the profiler read no device time) and
+    ``"profiled"`` (``chunks``). A window of several chunks lets the host
+    run ahead of the card, as in a solve: what stays is the host's share
+    of the steady state, not one chunk's start."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from odesat_tpu_torch.ops import scan_chunk
+
+    def busy(events):
+        spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        total, end = 0.0, -math.inf
+        for a, b in spans:
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        return total / 1e3, len(spans)
+
+    out = {"profiled": chunks}
+    for name, runner in (("captured", run), ("host", None)):
+        paced = scan_chunk.host_paced() if name == "host" else contextlib.nullcontext()
+        with paced:
+            if runner is None:
+                runner = make()
+                state = runner(state, *args)  # its first chunk outside the window
+            settle()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(chunks):
+                    state = runner(state, *args)
+                settle()
+                wall = (time.perf_counter() - t0) * 1e3
+        ms, n = busy(prof.events())
+        out[f"{name}_share"] = None if n == 0 else 1.0 - ms / wall
+        if name == "host":
+            out["kernels"] = n / (steps * chunks)
+    return out
+
+
+def mixed_chunks(mesh, device, fa, B=64, steps=6, rounds=2):
+    """``rounds`` rounds of a B5 chunk (captured), a B6 chunk, a B8 chunk
+    (captured) and a B9 chunk on this rank's clause group, all on B7's one
+    ring and counter, against the same rounds with B5's and B8's chunks
+    host-paced (``scan_chunk.host_paced``). Returns ``(err, count, flags)``
+    on every rank: the largest ``bit_error`` over both states' fields (0.0:
+    bit for bit), the host's count of the group's launches after both
+    sequences and every rank's flag on the card then (equal to it when the
+    ring stayed in order)."""
+    import torch
+
+    from odesat_tpu_torch.models.loop import copy_state
+    from odesat_tpu_torch.ops import butterfly, scan_chunk
+    from odesat_tpu_torch.ops.shard_chunk import make_shard_chunk
+    from odesat_tpu_torch.parallel import sharded
+    from odesat_tpu_torch.parallel.dist import bit_error
+    from odesat_tpu_torch.utils.config import ODEConfig
+
+    ode = ODEConfig(step_size=0.01)
+    zeta = ode.resolve_zeta(fa.density)
+    make5, ode0, _ = mesh_case(mesh, device, "B5", fa, ode, B, steps, 3)
+    make8, stoch0, _ = mesh_case(mesh, device, "B8", fa, None, B, steps, 4)
+    group = mesh.clause_group
+
+    def rounds_of():
+        b5, b8 = make5(), make8()
+        b6 = make_shard_chunk(fa, zeta, ode, steps, group, device)
+        b9 = sharded.make_clause_stoch_runner(fa, steps, device, sharded.row_generator(5, mesh),
+                                              group, shard_chunk="auto")
+        s, t = copy_state(ode0), copy_state(stoch0)
+        for _ in range(rounds):
+            s = b6(b5(s))
+            t = b9(b8(t))
+        return (*s, *t)
+
+    ours = rounds_of()
+    with scan_chunk.host_paced():
+        theirs = rounds_of()
+    err = max(bit_error(a.float() if a.dtype in (torch.bool, torch.int32) else a,
+                        b.float() if b.dtype in (torch.bool, torch.int32) else b)
+              for a, b in zip(ours, theirs))
+    comm = butterfly.communicator(group, device)
+    return err, comm.count, comm.flags_on_card()
+
+
+def capture_calls(fa, S):
+    """A world's calls of :func:`captured_against_host_paced`
+    at config 7 B=1024 (``fa`` laid out for S shards): B5 fixed and the B8
+    path, 64-step chunks, under torch.profiler too (a chunk); at S=2 also the ring
+    check of B5 and B8 captured between B6 and B9 chunks
+    (:func:`mixed_chunks`)."""
+    from odesat_tpu_torch.utils.config import ODEConfig
+
+    calls = [(captured_against_host_paced,
+              (kind, fa, ode, 1024, CAPTURE_STEPS, 7, 1))
+             for kind, ode in (("B5", ODEConfig(step_size=0.01)), ("B8", None))]
+    if S == 2:
+        calls.append((mixed_chunks, (fa, 64, 6)))
+    return calls
+
+
+CAPTURE_LABELS = ("B5 fixed", "B8")
+
+
+def check_capture(label, r):
+    if r["err"] != 0.0 or r["allocs"] or not r["replays"]:
+        fail(f"{label}: the captured chunk against host-paced max abs err {r['err']}, "
+             f"{r['allocs']} allocations in its second chunk, {r['replays']} graph replays")
+
+
+def capture_line(label, r, steps, card):
+    prof = ""
+    if r.get("kernels") is not None:
+        shares = ", ".join(f"{k} {r[f'{k}_share']:.4f}" if r[f"{k}_share"] is not None
+                           else f"{k} not measured" for k in ("captured", "host"))
+        prof = (f"; under torch.profiler {r['kernels']:.1f} device operations a host-paced "
+                f"step, each launched from Python, and the host's share of the wall of "
+                f"{r['profiled']} chunk(s) back to back (1 less the card's busy time over it): "
+                f"{shares}")
+    return (f"[mesh capture] {label}: a {steps}-step chunk captured {r['ms']:.6f} ms, "
+            f"host-paced {r['host_ms']:.6f} ms ({r['host_ms'] / r['ms']:.3f}x; host clock, "
+            f"the second chunk each way, ending in a sync on every rank), equal bit for bit "
+            f"(max abs err {r['err']}), v bit-identical over the clause ranks; {r['replays']} "
+            f"graph replay(s) a chunk, {r['b7']:.0f} B7 calls a chunk; allocations in the "
+            f"second chunk {r['allocs']} (host-paced {r['host_allocs']}); its peak {r['peak']} B "
+            f"above what was allocated before it (host-paced {r['host_peak']} B; a graph's "
+            f"temporaries live in its pool, which that count does not see); the first chunk "
+            f"reserved {r['reserved']} B from an emptied cache (its capture's pool and buffers; "
+            f"host-paced {r['host_reserved']} B){prof} ({card})")
+
+
+def report_capture(where, S, values, reports, card):
+    """Print and check a world's :func:`capture_calls` results; returns
+    ``({label: result}, largest error, mesh_step_chunk launches over the
+    ranks)``."""
+    out, worst, chunks = {}, 0.0, 0
+    for label, r, per_rank in zip(CAPTURE_LABELS, values, reports):
+        check_capture(f"{where} {label} S={S}", r)
+        launched = [c["mesh_step_chunk"] for c in per_rank]
+        if min(launched) == 0:
+            fail(f"{where} {label} S={S}: no captured chunk ran on some rank: {launched}")
+        chunks += sum(launched)
+        worst = max(worst, r["err"])
+        out[label] = r
+        say(capture_line(f"{where} config 7 B=1024 S={S} ({S} ranks sharing the card) {label}",
+                         r, CAPTURE_STEPS, card))
+    if S == 2:
+        err, count, flags = values[2]
+        if err != 0.0 or flags != [count] * S:
+            fail(f"{where}: B5 and B8 captured between B6 and B9 chunks: max abs err {err}, "
+                 f"the host's count {count}, the ranks' flags on the card {flags}")
+        say(f"[mesh capture] {where} config 7 B=64 S=2: two rounds of a B5 chunk (captured), a "
+            f"B6 chunk, a B8 chunk (captured) and a B9 chunk on one B7 ring equal the same "
+            f"rounds with B5 and B8 host-paced bit for bit (max abs err {err}); every rank's "
+            f"flag on the card {flags} equals the host's count {count} ({card})")
+    return out, worst, chunks
 
 
 # ------------------------------ the hybrid, resume and exact time to solution
@@ -3936,7 +4286,7 @@ def phase_clause_donation(torch, fa7, card, B=1024, steps=4):
         del run, plain, first, want, got, kept, second
         gc.collect()
     r = clause_walls_and_peaks(torch, fa7)
-    for name in CLAUSE_RUNNERS:
+    for name in r:
         if r[name]["allocs"]:
             fail(f"clause donation, {name}: its timed 64-step chunks made {r[name]['allocs']} "
                  f"allocations")
@@ -3954,21 +4304,27 @@ def clause_walls_and_peaks(torch, fa7, B=1024, steps=64, reps=2):
     bytes and the chunks' allocations."""
     import gc
 
+    from odesat_tpu_torch.ops import scan_chunk
+
+    # B5's and B8's captured chunks also host-paced, where the tree has both
+    paced = ("B5", "B8") if hasattr(scan_chunk, "host_paced") else ()
     out = {}
-    for name in CLAUSE_RUNNERS:
+    for name in (*CLAUSE_RUNNERS, *(f"{n} host-paced" for n in paced)):
+        base_name, _, how = name.partition(" host-paced")
         gc.collect()
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
-        run = clause_runner(torch, name, fa7, steps)
-        state = run(clause_state(name, fa7, B, seed=41))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        before, walls = allocations(torch), []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            state = run(state)
+        with scan_chunk.host_paced() if name != base_name else contextlib.nullcontext():
+            run = clause_runner(torch, base_name, fa7, steps)
+            state = run(clause_state(base_name, fa7, B, seed=41))
             torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.reset_peak_memory_stats()
+            before, walls = allocations(torch), []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                state = run(state)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
         out[name] = {"walls": walls, "peak": torch.cuda.max_memory_allocated() - base,
                      "state": sum(t.numel() * t.element_size() for t in state),
                      "allocs": allocations(torch) - before}
@@ -4796,7 +5152,8 @@ def twin_timing(mesh, device, fa, ode, B, steps=TWIN_STEPS, reps=2, route=None):
     a warm-up chunk, each ending in a sync on every rank; then one chunk
     with the host clock around each reduction the steps make
     (``parallel/dist.mesh_reduce``, or ``all_reduce`` in a tree from
-    before it), a device sync before and after each. Uses only entry points
+    before it), a device sync before and after each, its steps launched
+    from Python where the tree captures them. Uses only entry points
     that trees from before B7 took the twin's sums also have, so that
     ``--time-mesh`` runs it on an older tree. Returns rank 0's ``{"step_ms",
     "reduce_ms" (a step's reductions), "calls" (reductions a step),
@@ -4805,6 +5162,7 @@ def twin_timing(mesh, device, fa, ode, B, steps=TWIN_STEPS, reps=2, route=None):
     import torch
     import torch.distributed as dist
 
+    from odesat_tpu_torch.ops import scan_chunk
     from odesat_tpu_torch.parallel import dist as pdist
     from odesat_tpu_torch.parallel import sharded
 
@@ -4840,8 +5198,12 @@ def twin_timing(mesh, device, fa, ode, B, steps=TWIN_STEPS, reps=2, route=None):
             return out
 
         setattr(pdist, name, timed)
+        # a sync around each reduction: the steps from Python, where a tree
+        # captures the chunk
+        paced = getattr(scan_chunk, "host_paced", contextlib.nullcontext)
         try:  # built after the swap: an older tree binds all_reduce when it builds
-            sharded.make_sharded_chunk_runner(fa, zeta, ode, steps, mesh, device)(state, dev)
+            with paced():
+                sharded.make_sharded_chunk_runner(fa, zeta, ode, steps, mesh, device)(state, dev)
             settle()
         finally:
             setattr(pdist, name, plain)
@@ -5092,7 +5454,35 @@ def twin_calls(fa_twin, uf250, c7_path):
               (with_twin_route, ("dist", fn, *args)), (with_twin_route, (None, fn, *args)),
               (time_butterfly, (shape7, 20, 2, torch.float64)),
               (time_all_reduce, (shape7, 10, torch.float64))]
-    return calls + checks, argv, checks
+    return calls + twin_capture_calls(fa_twin, uf250) + checks, argv, checks
+
+
+def twin_capture_calls(fa_twin, uf250):
+    """Phase 29's captured chunks against host-paced
+    (:func:`captured_against_host_paced`): 29a config 7 S=2 f64 fixed
+    (64-step chunks) and adaptive (16), the stoch clause twin on the same
+    plain layout (64), 29b uf250 T=2 adaptive --dt-mode shared (2048 rows
+    a rank, 64)."""
+    from odesat_tpu_torch.parallel import launch
+
+    return [(captured_against_host_paced,
+             ("twin", fa_twin, twin_ode("fixed"), 1024, CAPTURE_STEPS)),
+            (captured_against_host_paced,
+             ("twin", fa_twin, twin_ode("adaptive"), 1024, TWIN_CAPTURE_ADAPTIVE)),
+            (captured_against_host_paced, ("stoch_twin", fa_twin, None, 1024, CAPTURE_STEPS)),
+            (launch.on_mesh, ((2, 1), captured_against_host_paced, "twin", uf250,
+                              twin_ode("adaptive", "float32", "shared"), 2048, CAPTURE_STEPS, 7,
+                              1))]
+
+
+TWIN_CAPTURE_ADAPTIVE = 16  # the adaptive f64 twin's captured chunk (61 ms a step)
+TWIN = "the twin's mesh step"
+TWIN_CAPTURE_LABELS = (("29a config 7 B=1024 S=2 f64 fixed", CAPTURE_STEPS, TWIN),
+                       ("29a config 7 B=1024 S=2 f64 adaptive", TWIN_CAPTURE_ADAPTIVE, TWIN),
+                       ("29 config 7 B=1024 S=2 (the plain layout, no shard plan)",
+                        CAPTURE_STEPS, "the stoch clause twin"),
+                       ("29b uf250 T=2 (2048 rows a rank) f32 adaptive --dt-mode shared",
+                        CAPTURE_STEPS, TWIN))
 
 
 def twin_line(label, r, card, origin="this tree"):
@@ -5122,6 +5512,17 @@ def phase_twin(values, reports, argv, checks, fa_twin, card):
     import numpy as np
 
     timing_fixed, timing_adaptive, timing_shared, prof, check, today, new, b7, lib = values[:9]
+    n_cap = len(TWIN_CAPTURE_LABELS)
+    captured = {}
+    for (label, steps, what), r, per_rank in zip(TWIN_CAPTURE_LABELS, values[9:9 + n_cap],
+                                                 reports[9:9 + n_cap]):
+        check_capture(label, r)
+        launched = [c["mesh_step_chunk"] for c in per_rank]
+        if min(launched) == 0 or r["b7"] == 0:
+            fail(f"{label}: captured chunks per rank {launched}, B7 calls a chunk {r['b7']}")
+        captured[label] = r
+        say(capture_line(f"{label} (two ranks sharing the card), {what}", r, steps, card))
+    values, reports = values[:9] + values[9 + n_cap:], reports[:9] + reports[9 + n_cap:]
     b7_ms, b7_plain = b7
     for label, r in zip(TWIN_LABELS, (timing_fixed, timing_adaptive, timing_shared)):
         say(twin_line(label, r, card))
@@ -5181,7 +5582,9 @@ def phase_twin(values, reports, argv, checks, fa_twin, card):
         f"in a sync on every rank), its plain version {b7_plain:.6f}, gloo's all-reduce "
         f"{lib:.6f}, bound {bound_ms:.6f} (3 x the buffer's bytes over 3.35 TB/s) ({card})")
     return {"ms": b7_ms, "plain_ms": b7_plain, "library_ms": lib, "bound_ms": bound_ms,
-            "err": b7_err, "launches": sum(launched)}
+            "err": b7_err, "launches": sum(launched), "capture": captured,
+            "capture_err": max(r["err"] for r in captured.values()),
+            "chunks": sum(c["mesh_step_chunk"] for c in counts[1])}
 
 
 SCAN_STRATEGIES = ("pallas", "gather", "segment_sum")
@@ -5999,6 +6402,19 @@ def main():
     b7_ms, b7_plain, b7_bound, b7_by, b7_library = shard_times["b7"]
     b7f_ms, b7f_plain, b7f_bound, b7f_by = shard_times["b7_fused"]
     b7_err = max(b7["S=2"]["err"], b7["S=4"]["err"])
+    # the clause mesh's per-step chunk captured: B5's at S=2 (phase 20's
+    # world), 64 steps, against the same steps from Python; bound: 64 of
+    # B5's fixed passes on a rank's shard and its B7 call at S=2
+    from odesat_tpu_torch.utils.config import ODEConfig
+
+    b5_two = b7["S=2"]["capture"]["B5 fixed"]
+    fixed = ODEConfig(step_size=0.01)
+    spec_two = ss.shard_spec(fa7_2, fixed.resolve_zeta(fa7_2.density), fixed, "cuda", 0)
+    call_ms = 3 * 4 * 1024 * (spec_two.Np + 1) / HBM_BYTES_PER_S * 1e3
+    mesh_chunk_bound = (CAPTURE_STEPS * (shard_bound(spec_two, 1024, "fixed")[0] + call_ms),
+                        "bytes")
+    capture_err = max(b7["S=2"]["capture_err"], b7["S=4"]["capture_err"], twin["capture_err"],
+                      *(r["err"] for r in shard_times["capture"].values()))
     say(json.dumps({"kernels": [
         row("fused_chunk", "csrc/fused_chunk.cu", "odesat_tpu/ops/fused_pallas.py:66", launches,
             worst, kernel_ms, plain_ms, ode_chunk_bound(hard, 16384, 256, True)),
@@ -6071,6 +6487,15 @@ def main():
             stoch_scan_chunks, stoch_scan_err, stoch_scan["replay_ms"],
             stoch_scan["host_ms"] * STOCH_SCAN_CHUNK,
             stoch_chunk_bound(hard, 16384, STOCH_SCAN_CHUNK)),
+        # the clause mesh's per-step chunk (no Pallas kernel: JAX's jitted,
+        # donated lax.scan of B5's step with its psum, or of the twin's mesh
+        # step): a captured 64-step chunk of B5 at config 7 B=1024 S=2, its
+        # B7 calls in the graph, against the same steps launched from Python
+        # (host clock); launches: the captured chunks of phase 20's
+        # --shard-chunk off solves and 29's inter on B7's route, every rank
+        row("mesh_step_chunk", "ops/scan_chunk.py", "odesat_tpu/parallel/sharded.py:597",
+            mesh_launches["mesh_step_chunk"] + twin["chunks"], capture_err, b5_two["ms"],
+            b5_two["host_ms"], mesh_chunk_bound),
     ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

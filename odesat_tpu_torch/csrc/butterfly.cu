@@ -34,6 +34,18 @@
 // step in float64, models/ode.py), one template of the same tree and the
 // same rules; the fused readers of B6 and B9 take float32 only.
 //
+// A chunk captured as a CUDA graph (ops/scan_chunk.py) holds its standalone
+// calls' flag operations as batch-memory-op nodes with the values of the
+// count at capture. Before each launch bfly_graph_launch rebases them: every
+// wait and write on a communicator's flags gets the count that
+// communicator stands at now plus its offset within the graph (cyclic, as
+// the GEQ wait compares), through cuGraphExecBatchMemOpNodeSetParams, then
+// launches the graph. The slots need no rebase: a graph makes a multiple of
+// the ring's SLOTS calls and starts at a count that is a multiple of it, so
+// its k-th call takes slot k mod SLOTS at capture and at every launch, as
+// the same calls made from the host would. The waits stay in the stream;
+// nothing spins on an SM.
+//
 // What bounds the standalone kernel on the card: device-memory bytes, S
 // partials read and one result written a call, (S + 1) * itemsize * n
 // bytes. The pass is a grid-stride loop with 16-byte loads (4 floats or 2
@@ -44,6 +56,7 @@
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
+#include <vector>
 
 #include "bfly_tree.cuh"
 
@@ -60,10 +73,18 @@ constexpr int kNoMemOps = (1 << 20) + 1;  // the device refuses stream memory op
 using WriteFn = CUresult (*)(CUstream, CUdeviceptr, cuuint32_t, unsigned int);
 using WaitFn = CUresult (*)(CUstream, CUdeviceptr, cuuint32_t, unsigned int);
 using ErrFn = CUresult (*)(CUresult, const char**);
+using GetNodesFn = CUresult (*)(CUgraph, CUgraphNode*, size_t*);
+using NodeTypeFn = CUresult (*)(CUgraphNode, CUgraphNodeType*);
+using MemOpGetFn = CUresult (*)(CUgraphNode, CUDA_BATCH_MEM_OP_NODE_PARAMS*);
+using MemOpSetFn = CUresult (*)(CUgraphExec, CUgraphNode, const CUDA_BATCH_MEM_OP_NODE_PARAMS*);
 
 WriteFn g_write = nullptr;
 WaitFn g_wait = nullptr;
 ErrFn g_error = nullptr;
+GetNodesFn g_nodes = nullptr;
+NodeTypeFn g_node_type = nullptr;
+MemOpGetFn g_memop_get = nullptr;
+MemOpSetFn g_memop_set = nullptr;
 
 template <typename F>
 bool resolve(const char* name, F* fn) {
@@ -177,6 +198,24 @@ int bfly_init(int device) {
     g_write = w;
     g_wait = wt;
   }
+  return 0;
+}
+
+// Resolve the graph entry points that bfly_graph_* use (after bfly_init).
+int bfly_init_graphs() {
+  if (g_memop_set != nullptr) return 0;
+  GetNodesFn n = nullptr;
+  NodeTypeFn t = nullptr;
+  MemOpGetFn g = nullptr;
+  MemOpSetFn st = nullptr;
+  if (!resolve("cuGraphGetNodes", &n) || !resolve("cuGraphNodeGetType", &t) ||
+      !resolve("cuGraphBatchMemOpNodeGetParams", &g) ||
+      !resolve("cuGraphExecBatchMemOpNodeSetParams", &st))
+    return kNoEntryPoint;
+  g_nodes = n;
+  g_node_type = t;
+  g_memop_get = g;
+  g_memop_set = st;
   return 0;
 }
 
@@ -356,6 +395,145 @@ int bfly_reduce_f64(const double* const* parts, unsigned int* const* flags, int 
                     unsigned int count, double* out, long long n, long long period,
                     long long n_max, int sms, void* stream) {
   return reduce_call(parts, flags, s, rank, count, out, n, period, n_max, sms, stream);
+}
+
+}  // extern "C"
+
+namespace {
+
+// A captured graph's flag operations, in node order, and the instantiated
+// graph they are rebased in.
+struct GraphOps {
+  cudaGraphExec_t exec = nullptr;
+  std::vector<CUgraphNode> nodes;
+  std::vector<CUDA_BATCH_MEM_OP_NODE_PARAMS> params;  // paramArray -> ops[i]
+  std::vector<std::vector<CUstreamBatchMemOpParams>> ops;
+  std::vector<std::vector<int>> comm;  // the communicator of each op, -1: left as captured
+  std::vector<std::vector<unsigned int>> offset;  // its value less that one's count at capture
+};
+
+bool is_flag_op(const CUstreamBatchMemOpParams& op) {
+  return op.operation == CU_STREAM_MEM_OP_WAIT_VALUE_32 ||
+         op.operation == CU_STREAM_MEM_OP_WRITE_VALUE_32;
+}
+
+// Every batch-memory-op node of `graph` and a copy of its operations, in
+// the order cuGraphGetNodes lists them.
+int scan(CUgraph graph, GraphOps* g) {
+  if (g_memop_set == nullptr) return kNoEntryPoint;
+  size_t n = 0;
+  CUresult r = g_nodes(graph, nullptr, &n);
+  if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+  std::vector<CUgraphNode> all(n);
+  if (n && (r = g_nodes(graph, all.data(), &n)) != CUDA_SUCCESS) return -static_cast<int>(r);
+  for (CUgraphNode node : all) {
+    CUgraphNodeType type;
+    if ((r = g_node_type(node, &type)) != CUDA_SUCCESS) return -static_cast<int>(r);
+    if (type != CU_GRAPH_NODE_TYPE_BATCH_MEM_OP) continue;
+    CUDA_BATCH_MEM_OP_NODE_PARAMS p;
+    std::memset(&p, 0, sizeof(p));
+    if ((r = g_memop_get(node, &p)) != CUDA_SUCCESS) return -static_cast<int>(r);
+    g->nodes.push_back(node);
+    g->params.push_back(p);
+    g->ops.emplace_back(p.paramArray, p.paramArray + p.count);
+    g->comm.emplace_back(p.count, -1);
+    g->offset.emplace_back(p.count, 0u);
+  }
+  for (size_t i = 0; i < g->nodes.size(); ++i) g->params[i].paramArray = g->ops[i].data();
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Read the captured `graph` (a cudaGraph_t) once, its batch-memory-op
+// nodes and their operations, and instantiate it; `*n` is how many 32-bit
+// flag waits and writes it holds. `*handle` owns both. Returns 0 or an
+// error code.
+int bfly_graph_create(void* graph, int* n, void** handle) {
+  *handle = nullptr;
+  auto* g = new GraphOps();
+  int rc = scan(static_cast<CUgraph>(graph), g);
+  if (rc == 0) {
+    const cudaError_t e = cudaGraphInstantiate(&g->exec, static_cast<cudaGraph_t>(graph), 0);
+    if (e != cudaSuccess) rc = static_cast<int>(e);
+  }
+  if (rc != 0) {
+    delete g;
+    return rc;
+  }
+  int k = 0;
+  for (const auto& ops : g->ops)
+    for (const auto& op : ops) k += is_flag_op(op);
+  *n = k;
+  *handle = g;
+  return 0;
+}
+
+// The flag operations of `handle`'s graph, node by node in
+// cuGraphGetNodes' order: for each 32-bit wait (kind 1) or write (kind 2),
+// its address and its value at capture, up to `cap` of them.
+void bfly_graph_ops(void* handle, unsigned long long* addrs, unsigned int* values, int* kinds,
+                    int cap) {
+  const auto* g = static_cast<const GraphOps*>(handle);
+  int k = 0;
+  for (const auto& ops : g->ops)
+    for (const auto& op : ops) {
+      if (!is_flag_op(op) || k >= cap) continue;
+      const bool wait = op.operation == CU_STREAM_MEM_OP_WAIT_VALUE_32;
+      addrs[k] = wait ? op.waitValue.address : op.writeValue.address;
+      values[k] = wait ? op.waitValue.value : op.writeValue.value;
+      kinds[k] = wait ? 1 : 2;
+      ++k;
+    }
+}
+
+// Bind the flag operations of `handle`'s graph, in bfly_graph_ops' order,
+// to communicator comm[k] at offset[k] (comm -1: left as captured); `n`
+// must be their number. Returns 0 or an error code.
+int bfly_graph_bind(void* handle, const int* comm, const unsigned int* offset, int n) {
+  auto* g = static_cast<GraphOps*>(handle);
+  int k = 0;
+  for (size_t i = 0; i < g->ops.size(); ++i)
+    for (size_t j = 0; j < g->ops[i].size(); ++j) {
+      if (!is_flag_op(g->ops[i][j])) continue;
+      if (k >= n) return static_cast<int>(cudaErrorInvalidValue);
+      g->comm[i][j] = comm[k];
+      g->offset[i][j] = offset[k];
+      ++k;
+    }
+  return k == n ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Rebase every bound flag operation to counts[comm] + offset and launch the
+// graph on `stream`. Returns 0 or an error code.
+int bfly_graph_launch(void* handle, const unsigned int* counts, void* stream) {
+  auto* g = static_cast<GraphOps*>(handle);
+  for (size_t i = 0; i < g->nodes.size(); ++i) {
+    bool bound = false;
+    for (size_t j = 0; j < g->ops[i].size(); ++j) {
+      const int c = g->comm[i][j];
+      if (c < 0) continue;
+      const unsigned int v = counts[c] + g->offset[i][j];
+      CUstreamBatchMemOpParams& op = g->ops[i][j];
+      if (op.operation == CU_STREAM_MEM_OP_WAIT_VALUE_32) op.waitValue.value = v;
+      else op.writeValue.value = v;
+      bound = true;
+    }
+    if (!bound) continue;
+    const CUresult r = g_memop_set(reinterpret_cast<CUgraphExec>(g->exec), g->nodes[i],
+                                   &g->params[i]);
+    if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+  }
+  return static_cast<int>(cudaGraphLaunch(g->exec, static_cast<cudaStream_t>(stream)));
+}
+
+void bfly_graph_destroy(void* handle) {
+  auto* g = static_cast<GraphOps*>(handle);
+  if (g == nullptr) return;
+  if (g->exec != nullptr) cudaGraphExecDestroy(g->exec);
+  delete g;
 }
 
 const char* bfly_error_string(int code) {

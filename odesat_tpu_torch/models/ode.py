@@ -211,9 +211,14 @@ def make_step_fn(fa: FormulaArrays, zeta: float, ode: ODEConfig, clause_group=No
     reads nothing back to the host and branches on no tensor, which is what
     capturing it into a CUDA graph needs (``ops/scan_chunk.py``); a state on
     another device has them built at its first step. A mesh's step on B7
-    keeps to that too (its calls wait for the peers in the stream), though
-    it is not captured: B7's call numbers are host state a capture would
-    freeze."""
+    keeps to that too (its calls wait for the peers in the stream), and is
+    captured the same way (``parallel/sharded.make_sharded_chunk_runner``):
+    ``step.calls(state)`` lists the B7 calls one step from ``state`` makes,
+    ``(group, shape, dtype)`` in order (a capture begins their buffers
+    first and rebases their flags at every replay, ``ops/butterfly.py``),
+    and ``step.prepare(state, dev)`` builds ahead what a step would build at
+    its first call (a clause shard's ``segment_sum`` table, read from
+    ``dev``)."""
     from odesat_tpu_torch.ops.fused_chunk import cuda_device
     from odesat_tpu_torch.parallel import dist as pdist
 
@@ -310,6 +315,29 @@ def make_step_fn(fa: FormulaArrays, zeta: float, ode: ODEConfig, clause_group=No
     def freeze(cond, new, old):
         return torch.where(cond.unsqueeze(-1), new, old)
 
+    def calls(state) -> list:
+        # a step's B7 calls, in its order: the dv/sat sum of each RHS, the
+        # adaptive error's max over the clause group, then the shared dt's
+        # over the trajectory group
+        out = []
+        if clause_group is not None and clause_route == "b7":
+            buf = (clause_group, (*state.v.shape[:-1], state.v.shape[-1] + 1), state.v.dtype)
+            out += [buf] if ode.step_size is not None else [
+                buf, buf, (clause_group, tuple(state.v.shape[:-1]), state.v.dtype)]
+        if (ode.step_size is None and ode.dt_mode == "shared" and traj_group is not None
+                and traj_route == "b7"):
+            out.append((traj_group, (1,), state.v.dtype))
+        return out
+
+    def prepare(state, dev):
+        constants(state.v.device, state.v.dtype)
+        if dv_strategy == "segment_sum" and state.v.is_cuda:
+            table(state.v.device, dev)
+
+    def _declared(step):
+        step.calls, step.prepare = calls, prepare
+        return step
+
     if ode.step_size is not None:
 
         def step(state: ODEState, dev: FormulaDevice) -> ODEState:
@@ -319,7 +347,7 @@ def make_step_fn(fa: FormulaArrays, zeta: float, ode: ODEConfig, clause_group=No
             v, xs, xl = update(state.v, state.xs, state.xl, dv, dxs, dxl, dt_b, k)
             return ODEState(v, xs, xl, state.dt, state.done | allsat)
 
-        return step
+        return _declared(step)
 
     def step(state: ODEState, dev: FormulaDevice) -> ODEState:
         k = constants(state.v.device, state.v.dtype)
@@ -360,7 +388,7 @@ def make_step_fn(fa: FormulaArrays, zeta: float, ode: ODEConfig, clause_group=No
         dt = torch.where(advance, new_dt, state.dt)
         return ODEState(v, xs, xl, dt, state.done | allsat)
 
-    return step
+    return _declared(step)
 
 
 def resolve_strategy(fa: FormulaArrays, ode: ODEConfig, device) -> str:

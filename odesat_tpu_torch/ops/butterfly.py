@@ -103,6 +103,29 @@ The design on the card (:class:`Communicator`, one a clause group):
   each runner alone and K - 1 are not, and runners of other K on one
   counter are safe on the one ring and not on their own K.
 
+* **Calls inside a CUDA graph.** The clause mesh's per-step chunks (B5's,
+  B8's, the twins', ``ops/scan_chunk.py``) are captured as CUDA graphs, as
+  JAX jits them, and their standalone calls with them
+  (:class:`GraphCalls`). The flag values are the count, which a graph
+  would freeze, so ``csrc/butterfly.cu`` ``bfly_graph_launch`` rebases
+  every wait and write of the graph before each launch to the count its
+  communicator stands at then (``cuGraphExecBatchMemOpNodeSetParams``):
+  the waits stay in the stream, where a kernel that polled a flag would
+  hold the card's time slice on every step. The slots are not rebased:
+  a graph makes a multiple of ``SLOTS`` calls (empty calls, a raise and a
+  wait with no slot, fill the rest) and starts at a count that is a
+  multiple of ``SLOTS`` (empty calls from the host first, where a launch
+  from elsewhere left the count between), so its call k takes slot k mod
+  ``SLOTS``, the slot the same call made from the host takes, and the
+  ring's argument above holds unchanged: a replay makes exactly the calls
+  its steps would make from the host, at the same counts and slots. How
+  many calls a graph makes is a function of its chunk alone (its steps'
+  calls, declared by each step and checked at capture, padded to a
+  multiple of ``SLOTS``), the same on every rank of the group. An empty
+  call writes and reads no slot; it raises the flag behind everything
+  before it, as any call does. A growth of the slots frees the buffers a
+  graph holds: the graph is then stale and captured anew.
+
 A rank's calls must follow its peers' in kind and order (as the runners do
 on every rank); a buffer size and dtype a group has not seen yet is agreed
 over the group first, and a size or dtype that differs between ranks
@@ -118,7 +141,7 @@ from __future__ import annotations
 import ctypes
 import math
 import socket
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -138,6 +161,7 @@ SLOTS = 3  # partial slots a rank's buffer holds, the ring every launch takes: t
 FLAG_BYTES = 256  # the flag page at the head of a rank's buffer
 _ALIGN = 256  # bytes: slots start on 256-byte boundaries
 _HANDLE = 64  # CUDA_IPC_HANDLE_SIZE
+_OUT_OF_MEMORY = 2  # cudaErrorMemoryAllocation
 _BUS = 32
 
 # the standalone call's forms: the dtype and its entry points' suffix
@@ -171,6 +195,16 @@ def _declare(lib) -> None:
         getattr(lib, name).restype = _I
     lib.bfly_error_string.argtypes = [_I]
     lib.bfly_error_string.restype = ctypes.c_char_p
+    lib.bfly_init_graphs.argtypes = []
+    lib.bfly_graph_create.argtypes = [_P, ctypes.POINTER(_I), ctypes.POINTER(_P)]
+    lib.bfly_graph_ops.argtypes = [_P, _P, _P, _P, _I]
+    lib.bfly_graph_ops.restype = None
+    lib.bfly_graph_bind.argtypes = [_P, _P, _P, _I]
+    lib.bfly_graph_launch.argtypes = [_P, _P, _P]
+    for name in ("bfly_init_graphs", "bfly_graph_create", "bfly_graph_bind", "bfly_graph_launch"):
+        getattr(lib, name).restype = _I
+    lib.bfly_graph_destroy.argtypes = [_P]
+    lib.bfly_graph_destroy.restype = None
 
 
 def load_library():
@@ -331,6 +365,8 @@ class Communicator:
         self.cap = 0  # bytes a slot
         self.count = 0  # launches since the buffers were mapped: the flag's value
         self.waited = 0  # the largest flag value this stream has waited for
+        self.maps = 0  # the buffers mapped so far: a graph holds the addresses of one map
+        self.capturing = False  # a graph is capturing this group's calls
         self.agreed: set = set()  # (bytes, dtype) of the buffers the group has agreed on
         self.bases: list = []  # every rank's buffer in this process (rank order)
         self._views: dict = {}
@@ -351,6 +387,7 @@ class Communicator:
         self.slot_views = [[torch.as_tensor(_Raw(ptr, cap), device=self.device)
                             for ptr in row] for row in slots]
         self.bases, self.cap, self.count, self.waited = bases, cap, 0, 0
+        self.maps += 1
         self.flags = (_P * self.size)(*bases)
         self.own_slots = [row[self.rank] for row in slots]
         self.slot_ptrs = [(_P * self.size)(*row) for row in slots]
@@ -382,6 +419,9 @@ class Communicator:
         numel = math.prod(shape)
         nbytes = numel * dtype.itemsize
         if (nbytes, dtype) not in self.agreed:
+            if self.capturing:
+                raise ValueError(f"a captured chunk calls B7 on a {tuple(shape)} {dtype} buffer "
+                                 "that its steps did not declare (b7_calls)")
             _agree(self.group, numel, dtype)
             if nbytes > self.cap:
                 self._map(nbytes)
@@ -411,6 +451,20 @@ class Communicator:
         _raise_for(self.lib, rc, "signal")
         self.count += 1
 
+    def pad(self) -> None:
+        """An empty call ``count`` on the current stream: the flag raised to
+        ``count`` + 1 and the peers awaited there, no slot written or read.
+        It takes a number of the ring as a call does (every rank of the
+        group makes it at the same count)."""
+        self.signal()
+        self.wait()
+
+    def align(self) -> None:
+        """Empty calls until ``count`` is a multiple of ``SLOTS``: where a
+        captured graph starts."""
+        while self.count % SLOTS:
+            self.pad()
+
     def parts(self, shape, dtype=torch.float32) -> list:
         """Every rank's slot of the current launch, rank order, as tensors
         of ``shape`` and ``dtype``: what a later launch that consumes it
@@ -431,6 +485,14 @@ class Communicator:
         ``shape`` and ``dtype``: the launch writes its partial there (after
         :meth:`wait`)."""
         return self.parts(shape, dtype)[self.rank]
+
+    def flags_on_card(self) -> list:
+        """Every rank's flag as the card holds it now, rank order (a read
+        that waits for the current stream): the count of the launches each
+        rank has finished."""
+        torch.cuda.current_stream(self.device).synchronize()
+        return [int(torch.as_tensor(_Raw(base, 4), device=self.device).view(torch.int32)
+                    .item()) & 0xFFFFFFFF for base in self.bases]
 
     # -- the standalone call
 
@@ -465,6 +527,137 @@ class Communicator:
         self.waited = self.count
         _count(dtype)
         return out
+
+
+class GraphCalls:
+    """The standalone calls of the communicators ``comms`` that one CUDA
+    graph captures (``ops/scan_chunk.py``), and its launch with their flag
+    values rebased (the module's docstring argues it). Build it on the
+    host just before the capture begins, call :meth:`end` while the
+    capture still runs (the empty calls that fill the graph to a multiple
+    of ``SLOTS``), :meth:`restore` once it has ended, however it ended,
+    and :meth:`bind` with the captured graph; then :meth:`launch` runs
+    the graph on the current stream, as often as needed."""
+
+    def __init__(self, comms: Sequence[Communicator]):
+        self.comms = tuple(comms)
+        self.saved = [(c.count, c.waited) for c in self.comms]
+        self.maps = [c.maps for c in self.comms]
+        self.start = []
+        for c in self.comms:
+            # the count a launch starts at, a multiple of SLOTS; the graph's
+            # first call waits for the peers whatever came before it
+            c.count = -(-c.count // SLOTS) * SLOTS
+            c.waited = -1
+            c.capturing = True
+            self.start.append(c.count)
+        self.calls: list = []  # a launch's calls (empty ones included) a communicator
+        self.handle = None
+        self.lib = self.comms[0].lib if self.comms else None
+
+    def end(self) -> None:
+        """Fill the captured calls to a multiple of ``SLOTS`` with empty
+        ones (still capturing)."""
+        for c, start in zip(self.comms, self.start):
+            while (c.count - start) % SLOTS:
+                c.pad()
+        self.calls = [c.count - start for c, start in zip(self.comms, self.start)]
+
+    def restore(self) -> None:
+        """The counts as they were before the capture, which ran nothing."""
+        for c, (count, waited) in zip(self.comms, self.saved):
+            c.count, c.waited, c.capturing = count, waited, False
+
+    def bind(self, graph: int) -> None:
+        """Instantiate ``graph`` (a ``cudaGraph_t``, the capture's), read
+        its flag operations in the same pass, and tie each to its
+        communicator and its offset from the count the capture started
+        at."""
+        lib = self.lib
+        _raise_for(lib, lib.bfly_init_graphs(), "graph set-up (driver entry points)")
+        n, handle = _I(), _P()
+
+        def create():
+            return lib.bfly_graph_create(graph, ctypes.byref(n), ctypes.byref(handle))
+
+        rc = create()
+        if rc == _OUT_OF_MEMORY:
+            # instantiating the graph takes device memory that the
+            # allocator may hold cached (a rank sharing the card holds its
+            # own cache too): give that back, and try once more
+            torch.cuda.empty_cache()
+            rc = create()
+        _raise_for(lib, rc, "instantiating the captured graph")
+        self.handle = handle  # destroyed with this object, whatever raises below
+        addrs = (ctypes.c_ulonglong * n.value)()
+        values = (ctypes.c_uint * n.value)()
+        kinds = (_I * n.value)()
+        lib.bfly_graph_ops(handle, addrs, values, kinds, n.value)
+        owner = {base: (i, k) for i, c in enumerate(self.comms) for k, base in enumerate(c.bases)}
+        comm, offset, writes = [], [], [0] * len(self.comms)
+        for addr, value, kind in zip(addrs, values, kinds):
+            if addr not in owner:
+                raise RuntimeError(f"the captured graph waits or writes at {addr:#x}, no flag of "
+                                   "its B7 groups")
+            i, k = owner[addr]
+            c = self.comms[i]
+            off = (value - self.start[i]) & 0xFFFFFFFF
+            if off > self.calls[i] or (kind == 2) != (k == c.rank):
+                raise RuntimeError(f"the captured graph's flag operation (kind {kind}, value "
+                                   f"{value}) is not one of its {self.calls[i]} calls on rank "
+                                   f"{c.rank}'s group")
+            writes[i] += kind == 2
+            comm.append(i)
+            offset.append(off)
+        if writes != self.calls:
+            raise RuntimeError(f"the captured graph holds {writes} flag writes for {self.calls} "
+                               "B7 calls: the stream memory operations were not captured as "
+                               "graph nodes")
+        _raise_for(lib, lib.bfly_graph_bind(handle, (_I * len(comm))(*comm),
+                                            (ctypes.c_uint * len(offset))(*offset), len(comm)),
+                   "binding the captured graph's flags")
+
+    def stale(self) -> bool:
+        """Whether a communicator has remapped or closed the buffers whose
+        addresses the graph holds."""
+        return any(c.maps != m or not c.bases for c, m in zip(self.comms, self.maps))
+
+    def launch(self) -> None:
+        """Run the graph on the current stream: each communicator brought
+        to a multiple of ``SLOTS`` (empty calls), the flag values rebased
+        to its count, the counts advanced by the graph's calls."""
+        if self.stale():
+            raise RuntimeError("B7's buffers were remapped since this graph was captured")
+        for c in self.comms:
+            c.align()
+        counts = (ctypes.c_uint * len(self.comms))(*(c.count & 0xFFFFFFFF for c in self.comms))
+        device = self.comms[0].device
+        with torch.cuda.device(self.comms[0].index):
+            rc = self.lib.bfly_graph_launch(self.handle, counts,
+                                            torch.cuda.current_stream(device).cuda_stream)
+        _raise_for(self.lib, rc, "graph launch")
+        for c, n in zip(self.comms, self.calls):
+            c.count += n
+            c.waited = c.count
+
+    def __del__(self):
+        if getattr(self, "handle", None) is not None:
+            self.lib.bfly_graph_destroy(self.handle)
+            self.handle = None
+
+
+def begin_calls(calls, device) -> list:
+    """The communicators of the standalone calls ``calls`` ((group, shape,
+    dtype), in a chunk's order; groups of one rank make none), each begun
+    with its calls' buffers (a collective the first time a group sees a
+    size), in order of first use: what a chunk's capture holds."""
+    comms: list = []
+    for group, shape, dtype in calls:
+        comm = communicator(group, device)
+        comm.begin(shape, dtype)
+        if comm not in comms:
+            comms.append(comm)
+    return comms
 
 
 def share_pages(lib, group, index: int, nbytes: int, what: str, layout: str) -> list:

@@ -60,12 +60,34 @@ it. That write is the host's, once a replay, so the stoch chunk cannot be
 a WHILE node's body (the node would replay it with one offset): the device
 loop refuses it, and its multi-chunk runner stays host-paced, as JAX's is.
 
+The clause mesh's per-step chunks are captured the same way
+(:data:`mesh_launches` counts their chunks), as JAX jits each into one
+donated ``lax.scan`` (``odesat_tpu/ops/shard_stream.py:340-358``,
+``odesat_tpu/parallel/sharded.py:597-624``, ``:721-759``, ``:782-794``):
+the twin's clause step (``models/ode.make_step_fn`` with a group, on
+``StateBuffers`` like any scan chunk), the stoch clause twin, and B5's and
+B8's steps on rows tiled in the caller's own storage (:class:`TiledChunk`:
+a capture keyed by the tiles' addresses, so that a call from the state the
+last one returned, in the same storage, replays with nothing copied).
+Their steps sum over a clause group (and the shared-dt twin over a
+trajectory group) through B7's standalone call: each step declares its
+calls (``calls(state) -> [(group, shape, dtype), ...]``), the capture
+begins those buffers first (a collective the first time a group sees a
+size), holds the calls in a ``butterfly.GraphCalls`` and checks that the
+graph made just those, and every launch rebases their flag values to the
+groups' counts (``ops/butterfly.py`` argues it). A chunk that calls B7
+runs host-paced between chunks, never in the device loop (the rebase is
+the host's, once a launch). The stoch chunks' seed lives in a word on the
+card (``ops/stoch_chunk.Uniforms.word``), which the runner sets once a
+chunk and each draw advances, so one graph serves every chunk.
+
 Counts: :data:`launches` grows by one for every chunk a captured graph runs
-(a replay, or a chunk of a device-loop dispatch); :data:`captures` by one a
-capture (a buffer set and its graphs). A kernel the step launches
-through a counted wrapper (B10's ``rhs_kernel.launches``) counts while the
-graph is captured, when nothing runs; the runner takes those counts back and
-adds them once for every chunk that runs.
+(a replay, or a chunk of a device-loop dispatch), the clause mesh's in
+:data:`mesh_launches`; :data:`captures` by one a capture (a buffer set and
+its graphs). A kernel the step launches through a counted wrapper (B10's
+``rhs_kernel.launches``, B5's, B8's and B7's, :func:`counters`) counts while
+the graph is captured, when nothing runs; the runner takes those counts
+back and adds them once for every chunk that runs.
 
 What bounds it: the step's own kernels (a step's bytes: v, xs and xl read
 and written, the derivatives written and read once); the graph removes the
@@ -92,14 +114,20 @@ from odesat_tpu_torch.ops.fused_chunk import cuda_device
 from odesat_tpu_torch.utils.logging import logger
 
 # Chunks run through a captured graph in this process: direct replays and
-# the chunks of device-loop dispatches; the stoch twin's (direct replays
-# only) apart. Plain integers that callers may reset.
+# the chunks of device-loop dispatches; the stoch twin's and the clause
+# mesh's (direct replays only) apart. Plain integers that callers may reset.
 launches = 0
 stoch_launches = 0
+mesh_launches = 0
 captures = 0
 # Seconds spent capturing and instantiating graphs in this process (each
 # capture also logs its own); a plain number that callers may reset.
 capture_seconds = 0.0
+
+# True inside host_paced(): every chunk runs its plain version, the steps
+# launched from Python, on the card too (what a captured chunk is held
+# against and timed beside). No flag sets it.
+HOST_PACED = False
 
 _POOLS: dict = {}  # device -> (the graph memory pool its scan chunks share, its graphs)
 _STREAMS: dict = {}  # device -> the side stream captures run on
@@ -125,6 +153,33 @@ def capture_stream(device: torch.device) -> torch.cuda.Stream:
     return stream
 
 
+@contextlib.contextmanager
+def host_paced():
+    """Inside, every scan chunk runs its steps from Python (its plain
+    version), on the card too: the yardstick of a captured chunk."""
+    global HOST_PACED
+    before, HOST_PACED = HOST_PACED, True
+    try:
+        yield
+    finally:
+        HOST_PACED = before
+
+
+def counters() -> tuple:
+    """The ``(module, attribute)`` launch counts of the kernels a captured
+    step may launch through their counted wrappers: B10, B5, B8 and B7's
+    standalone call (both forms)."""
+    from odesat_tpu_torch.ops import butterfly, shard_stream, stoch_chunk
+
+    return ((rhs_kernel, "launches"), (shard_stream, "launches"),
+            (stoch_chunk, "shard_launches"), (butterfly, "launches"),
+            (butterfly, "launches_f64"))
+
+
+def _read(counted) -> list:
+    return [getattr(m, a) for m, a in counted]
+
+
 # The most steps one graph holds. A capture costs the solve about half a
 # millisecond a step (B10's fixed step at hard.cnf B=4096 on an H100, more
 # adaptive), paid once a runner; a chunk of the CLI's 256 steps runs a
@@ -134,14 +189,29 @@ MAX_GRAPH_STEPS = 64
 
 class Captured(NamedTuple):
     """One chunk's capture: the state buffers it runs in place on (a
-    ``device_loop.StateBuffers``), its parts ``((graph, times), ...)`` (a
-    graph of at most :data:`MAX_GRAPH_STEPS` steps run ``times`` times, then
-    one of the rest), and the formula tensors whose addresses the graphs
-    hold."""
+    ``device_loop.StateBuffers``; a :class:`TiledChunk`'s tiled state), its
+    parts ``((graph, times), ...)`` (a graph of at most
+    :data:`MAX_GRAPH_STEPS` steps run ``times`` times, then one of the
+    rest), the formula tensors whose addresses the graphs hold, and for
+    each part the ``butterfly.GraphCalls`` of a graph that calls B7 (None
+    for one that does not; empty: none does)."""
 
-    buffers: device_loop.StateBuffers
+    buffers: object
     parts: tuple
     dev: tuple
+    calls: tuple = ()
+
+    def stale(self) -> bool:
+        return any(held is not None and held.stale() for held in self.calls)
+
+    def replay(self) -> None:
+        """Run the chunk's graphs on the current stream."""
+        for (graph, times), held in zip(self.parts, self.calls or (None,) * len(self.parts)):
+            for _ in range(times):
+                if held is None:
+                    graph.replay()
+                else:
+                    held.launch()
 
 
 class ScanChunk(KernelChunk):
@@ -156,18 +226,35 @@ class ScanChunk(KernelChunk):
     and over, so that a capture stays short. ``generators``: the device
     generators the step draws from, registered with every graph;
     ``counter``: the name of this module's count its chunks add to;
-    ``donate``: a call may run in place on its input (the default)."""
+    ``donate``: a call may run in place on its input (the default);
+    ``calls(state)``: the B7 standalone calls one step from ``state``
+    makes, ``[(group, shape, dtype), ...]`` in order (a clause mesh's
+    steps); ``prepare(state, dev)``: builds ahead, outside the capture,
+    what the step would build at its first call (its tables from the
+    formula tensors)."""
 
     def __init__(self, step: Callable, chunk_steps: int, device, generators=(),
-                 counter: str = "launches", donate: bool = True):
+                 counter: str = "launches", donate: bool = True, calls=None, prepare=None):
         super().__init__(fn=self._run, body=self._body, chunk_steps=chunk_steps,
                          counter=(sys.modules[__name__], counter), buffers=self._buffers,
                          donate=donate)
         self.step = step
         self.device = cuda_device(device)
         self.generators = tuple(generators)
+        self.calls = calls
+        self.prepare = prepare
         self.graphs: dict = {}
-        self.b10_per_chunk = 0  # B10 launches a chunk makes (pallas)
+        self.per_chunk: dict = {}  # (module, attribute) -> launches a chunk adds
+
+    def b7_calls(self, state) -> list:
+        """The B7 standalone calls one chunk from ``state`` makes, in order:
+        ``(group, shape, dtype)`` over groups of more than one rank."""
+        if self.calls is None:
+            return []
+        import torch.distributed as dist
+
+        return [c for c in self.calls(state) if c[0] is not None
+                and dist.get_world_size(c[0]) > 1] * self.chunk_steps
 
     def plain(self, state, dev):
         """The plain version: the steps one by one, on any device."""
@@ -175,26 +262,32 @@ class ScanChunk(KernelChunk):
             state = self.step(state, dev)
         return state
 
-    def _run(self, state, dev=()):
-        kind = state.v.device.type
-        if kind == "cpu" or state.v.shape[0] == 0:
-            return self.plain(state, dev)
+    def _plain_here(self, state) -> bool:
+        """Whether a call from ``state`` runs the plain version: a CPU state,
+        an empty batch, or inside :func:`host_paced`. Raises for a state on
+        another card than the step's."""
+        if state.v.device.type == "cpu" or state.v.shape[0] == 0 or HOST_PACED:
+            return True
         if state.v.device != self.device:
-            raise ValueError(f"the scan chunk's step was built for {self.device}; the state is "
-                             f"on {state.v.device}")
+            raise ValueError(f"the chunk's step was built for {self.device}; the state is on "
+                             f"{state.v.device}")
+        return False
+
+    def _run(self, state, dev=()):
+        if self._plain_here(state):
+            return self.plain(state, dev)
         cap = self.captured(state, dev, self.donate)
         cap.buffers.load(state)
-        for graph, times in cap.parts:
-            for _ in range(times):
-                graph.replay()
+        cap.replay()
         self.count(1)
         return cap.buffers.lend()
 
     def count(self, n: int) -> None:
-        """Add ``n`` chunks run by graphs: to this runner's count, and their
-        B10 launches to B10's count."""
+        """Add ``n`` chunks run by graphs: to this runner's count, and the
+        launches of its counted kernels to theirs."""
         super().count(n)
-        rhs_kernel.launches += n * self.b10_per_chunk
+        for (module, attr), k in self.per_chunk.items():
+            setattr(module, attr, getattr(module, attr) + n * k)
 
     def captured(self, state, dev, in_place: bool = True) -> Captured:
         """The capture that runs a call from ``state`` over ``dev``'s
@@ -203,68 +296,111 @@ class ScanChunk(KernelChunk):
         are free, else a new one."""
         key = (tuple(t.shape for t in state), state.v.dtype, state.v.device,
                tuple(t.data_ptr() for t in dev))
+        for k in [k for k, cap in self.graphs.items() if k[0] == key and cap.stale()]:
+            del self.graphs[k]  # its B7 buffers were remapped: captured anew
         caps = [cap for (k, _), cap in self.graphs.items() if k == key]
         i = device_loop.pick([cap.buffers for cap in caps], state, in_place)
         if i is not None:
             return caps[i]
-        cap = self.graphs[key, len(caps)] = self._capture(state, dev)
+        n = max((j for k, j in self.graphs if k == key), default=-1) + 1
+        cap = self.graphs[key, n] = self._capture(state, dev)
         return cap
 
     def _capture(self, state, dev) -> Captured:
-        global capture_seconds, captures
-        device = state.v.device
+        """The chunk captured on a new buffer set of ``state``'s shapes."""
         slots = device_loop.StateBuffers(state)
-        buffers = slots.tensors
+        return self._capture_on(slots, slots.tensors, dev)
+
+    def _capture_on(self, holder, buffers, dev) -> Captured:
+        """The chunk captured in place on ``buffers`` (a state of tensors),
+        which ``holder`` keeps (the capture's ``buffers``)."""
+        global capture_seconds, captures
+        from odesat_tpu_torch.ops import butterfly
+
+        device = buffers.v.device
+        if self.prepare is not None:
+            self.prepare(buffers, dev)
+        calls = self.b7_calls(buffers)
+        # the groups' buffers for a step's calls, begun before the capture (a
+        # collective the first time a group sees a size)
+        comms = butterfly.begin_calls(calls[:len(calls) // self.chunk_steps], device)
+        if comms:
+            # a capture cannot take back what the allocator holds cached, nor
+            # can its ranks' peers on a shared card, and a mesh twin's step
+            # needs gigabytes of temporaries: give the cache back first
+            torch.cuda.empty_cache()
         unit = min(self.chunk_steps, MAX_GRAPH_STEPS)
         times, rest = divmod(self.chunk_steps, unit)
-        before = rhs_kernel.launches
+        counted = counters()
+        before = _read(counted)
         t0 = time.perf_counter()
-        parts, b10 = [], 0
+        parts, calls_of, per = [], [], [0] * len(counted)
         try:
             for steps, n in ((unit, times), (rest, 1)):
                 if steps:
-                    counted = rhs_kernel.launches
-                    parts.append((self._graph(buffers, dev, steps), n))
-                    b10 += n * (rhs_kernel.launches - counted)
+                    at = _read(counted)
+                    graph, held = self._graph(buffers, dev, steps, comms)
+                    per = [p + n * (b - a) for p, a, b in zip(per, at, _read(counted))]
+                    parts.append((graph, n))
+                    calls_of.append(held)
         finally:
-            rhs_kernel.launches = before  # the capture launched nothing
+            for (module, attr), value in zip(counted, before):
+                setattr(module, attr, value)  # the capture launched nothing
+        made = sum(k for (module, _), k in zip(counted, per) if module is butterfly)
+        if made != len(calls):
+            raise RuntimeError(f"a captured chunk of {self.chunk_steps} steps made {made} B7 "
+                               f"calls; its steps declare {len(calls)}")
         t1 = time.perf_counter()
-        for graph, _ in parts:
-            graph.instantiate()
+        for (graph, _), held in zip(parts, calls_of):
+            if held is None:
+                graph.instantiate()
         t2 = time.perf_counter()
-        self.b10_per_chunk = b10
+        self.per_chunk = {c: k for c, k in zip(counted, per) if k}
         capture_seconds += t2 - t0
         captures += 1
         logger.info("scan chunk: %d steps at B=%d %s on %s captured in %.3f s, "
-                    "instantiated in %.3f s", self.chunk_steps, state.v.shape[0],
-                    str(state.v.dtype).replace("torch.", ""), device, t1 - t0, t2 - t1)
-        return Captured(slots, tuple(parts), dev)
+                    "instantiated in %.3f s%s", self.chunk_steps, buffers.v.shape[0],
+                    str(buffers.v.dtype).replace("torch.", ""), device, t1 - t0, t2 - t1,
+                    f", {len(calls)} B7 calls a chunk" if calls else "")
+        return Captured(holder, tuple(parts), dev, tuple(calls_of) if comms else ())
 
-    def _graph(self, buffers, dev, steps: int) -> torch.cuda.CUDAGraph:
-        """``steps`` steps captured in place on ``buffers`` (not yet
-        instantiated)."""
+    def _graph(self, buffers, dev, steps: int, comms=()) -> tuple:
+        """``steps`` steps captured in place on ``buffers``: the graph (not
+        yet instantiated, unless it calls B7) and its
+        ``butterfly.GraphCalls`` over ``comms`` (None without)."""
+        from odesat_tpu_torch.ops import butterfly
+
         device = buffers.v.device
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        # capture_begin on a side stream, not the torch.cuda.graph context:
-        # that one synchronizes and empties the allocator's cache first,
-        # which costs a solve tenths of a second for nothing the capture needs
-        with torch.cuda.device(device), torch.cuda.stream(capture_stream(device)):
-            for generator in self.generators:
-                graph.register_generator_state(generator)
-            pool, members = graph_pool(device)
-            graph.capture_begin(pool=pool, capture_error_mode="relaxed")
-            try:
-                self._steps_into(buffers, dev, steps)
-            except BaseException:
-                # a step the capture cannot take (a read to the host) ends the
-                # capture invalid, and ending it raises again: the step's error
-                # is the one to report
-                with contextlib.suppress(RuntimeError):
-                    graph.capture_end()
-                raise
-            graph.capture_end()
-            members.add(graph)
-        return graph
+        held = butterfly.GraphCalls(comms) if comms else None
+        try:
+            # capture_begin on a side stream, not the torch.cuda.graph context:
+            # that one synchronizes and empties the allocator's cache first,
+            # which costs a solve tenths of a second for nothing the capture needs
+            with torch.cuda.device(device), torch.cuda.stream(capture_stream(device)):
+                for generator in self.generators:
+                    graph.register_generator_state(generator)
+                pool, members = graph_pool(device)
+                graph.capture_begin(pool=pool, capture_error_mode="relaxed")
+                try:
+                    self._steps_into(buffers, dev, steps)
+                    if held is not None:
+                        held.end()
+                except BaseException:
+                    # a step the capture cannot take (a read to the host) ends
+                    # the capture invalid, and ending it raises again: the
+                    # step's error is the one to report
+                    with contextlib.suppress(RuntimeError):
+                        graph.capture_end()
+                    raise
+                graph.capture_end()
+                members.add(graph)
+        finally:
+            if held is not None:
+                held.restore()
+        if held is not None:
+            held.bind(graph.raw_cuda_graph())
+        return graph, held
 
     def _steps_into(self, buffers, dev, steps: int) -> None:
         # the steps' result back into the buffers; their last temporaries
@@ -280,13 +416,20 @@ class ScanChunk(KernelChunk):
         return self.captured(state, dev).buffers
 
     def _check_loop(self) -> None:
-        """Raise for a chunk that draws from a device generator: the device
-        loop would replay it without advancing the generator, which only the
-        host does, once a replay."""
+        """Raise for a chunk that draws from a device generator or declares
+        B7 calls (a clause mesh's, whose stoch chunks also read a seed word
+        the host sets): the device loop would replay it without advancing
+        the generator, rebasing its B7 calls' flags or setting its seed,
+        which only the host does, once a replay."""
         if self.generators:
             raise RuntimeError("the device loop cannot run a chunk that draws from a device "
                                "generator: a replay inside the WHILE node would not advance "
                                "it; run its chunks host-paced (models/loop.run_chunks)")
+        if self.calls is not None:
+            raise RuntimeError("the device loop cannot run a chunk that declares B7 calls: the "
+                               "host rebases their flags (and sets a stoch chunk's seed word) "
+                               "before each replay; run its chunks host-paced "
+                               "(models/loop.run_chunks)")
 
     def _body(self, buffers, stream, stop, stop_all, seeds, seed_index, at=0):
         """The device loop's body on its capture ``stream``: the graphs that
@@ -332,6 +475,70 @@ class StochScanChunk(ScanChunk):
         super().__init__(draw_step, chunk_steps, device, generators=(generator,),
                          counter="stoch_launches", donate=donate)
         self.device_generator = generator
+
+
+class TiledChunk(ScanChunk):
+    """A clause chunk on rows tiled in the caller's own storage: B5's
+    (``ops/shard_stream.make_clause_chunk``) and B8's
+    (``parallel/sharded.make_clause_stoch_runner``). ``tiles`` (an
+    ``ops/tiles.Tiles``) tiles a state's fields with ``fills`` at entry and
+    untiles them at exit; ``step(ts, dev)`` advances the tiled state one
+    step, writing into scratch that the runner holds for the batch shape;
+    ``restore()`` gives that scratch back what is its own (B5's second
+    copy of the clause memories, which its launches swap with the state's)
+    after the steps. Call it as ``chunk(state, dev=None)``: on a CUDA state
+    the tiles are the caller's storage (``ops/tiles.py``: in place for a
+    batch of whole tiles, else buffers held for the shape), so the capture
+    is keyed by their addresses, and a call from the state the last one
+    returned replays with nothing copied, as JAX's donated chunk runs; a
+    call from a state in other storage captures anew (the steps write no
+    new tensor, so a capture takes nothing from the pool, only its time).
+    :data:`KEEP` captures are kept, the oldest dropped. The plain version
+    tiles, runs the steps from Python and untiles, on any device."""
+
+    KEEP = 4
+
+    def __init__(self, step: Callable, chunk_steps: int, device, tiles, fills: dict,
+                 restore: Callable = lambda: None, calls=None):
+        super().__init__(step, chunk_steps, device, counter="mesh_launches", calls=calls)
+        self.tiles, self.fills, self.restore = tiles, fills, restore
+
+    def _tile(self, state):
+        return type(state)(**self.tiles.tile(state._asdict(), self.fills))
+
+    def _untile(self, state, ts):
+        return type(state)(**self.tiles.untile(ts._asdict()))
+
+    def plain(self, state, dev=None):
+        """The steps from Python on the tiled state, on any device."""
+        ts = self._tile(state)
+        for _ in range(self.chunk_steps):
+            ts = self.step(ts, dev)
+        # the newest clause memories may lie in the scratch's second copy:
+        # untiled into the caller's storage from there, and the scratch gets
+        # its own copy back, never the caller's storage
+        out = self._untile(state, ts)
+        self.restore()
+        return out
+
+    def _run(self, state, dev=None):
+        if self._plain_here(state):
+            return self.plain(state, dev)
+        ts = self._tile(state)
+        key = tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in ts)
+        cap = self.graphs.pop(key, None)
+        if cap is None or cap.stale():
+            cap = self._capture_on(ts, ts, dev)
+        self.graphs[key] = cap  # the newest last
+        while len(self.graphs) > self.KEEP:
+            del self.graphs[next(iter(self.graphs))]
+        cap.replay()
+        self.count(1)
+        return self._untile(state, ts)
+
+    def _steps_into(self, buffers, dev, steps: int) -> None:
+        super()._steps_into(buffers, dev, steps)
+        self.restore()
 
 
 def make_scan_chunk(step: Callable, chunk_steps: int, device, donate: bool = True) -> ScanChunk:

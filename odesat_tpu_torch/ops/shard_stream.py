@@ -688,7 +688,18 @@ def make_fused_clause_step(fa: FormulaArrays, zeta: float, ode, clause_group=Non
     def step(state, dev=None):
         return untile_state(tiled(tile_state(state)), state.v.shape[0])
 
-    step.tiled, step.spec, step.fa = tiled, spec, fa
+    def calls(ts) -> list:
+        """B7's calls over the clause group in one step from the tiled state
+        ``ts``, in order: the (dv | 1 - sat) sum; adaptive, also the second
+        evaluation's dv and the error's max."""
+        G = ts.v.shape[0]
+        f32 = torch.float32
+        out = [(clause_group, (G, Np + 1, TILE), f32)]
+        if ode.step_size is None:
+            out += [(clause_group, (G, Np, TILE), f32), (clause_group, (G, TILE), f32)]
+        return out
+
+    step.tiled, step.spec, step.fa, step.calls = tiled, spec, fa, calls
     return step
 
 
@@ -696,7 +707,12 @@ def make_clause_chunk(step, chunk_steps: int):
     """``run(state, dev=None) -> state``: ``chunk_steps`` calls of a clause
     step's ``tiled`` on the state tiled once at entry and untiled once at
     exit, every launch and torch update writing into a
-    :class:`ShardScratch`.
+    :class:`ShardScratch`: on a CUDA state one capture of the steps, their
+    B7 sums included, replayed (``ops/scan_chunk.TiledChunk``), as JAX
+    jits the chunk into one ``lax.scan`` (JAX :340-358 and, on a clause
+    mesh, ``odesat_tpu/parallel/sharded.py:597-624``); on a CPU state the
+    steps from Python, the plain version (inside
+    ``ops/scan_chunk.host_paced()`` on the card too).
 
     The call consumes its input, as JAX's ``donate_argnums=0`` on the mesh
     runners (``ops/device_loop.py`` states the contract): the rows are
@@ -708,9 +724,12 @@ def make_clause_chunk(step, chunk_steps: int):
     pool (``ops/tiles.held_pool``), which the runners of every chunk
     length share: a second call of a shape, by this runner or another of
     the formula's, allocates nothing on the card."""
+    from odesat_tpu_torch.ops.scan_chunk import TiledChunk
+
     spec = step.spec
     # ("B5", the shard's widths, batch, device) -> (Tiles, ShardScratch, its own xs2 and xl2)
     held = held_pool(step.fa)
+    chunks: dict = {}  # the same key -> this runner's chunk on those buffers
 
     def run(state, dev=None):
         B, device = state.v.shape[0], state.v.device
@@ -720,19 +739,20 @@ def make_clause_chunk(step, chunk_steps: int):
             scratch = ShardScratch(spec, n_tiles(B))
             own = (scratch.get("xs2"), scratch.get("xl2")) if device.type == "cuda" else None
             h = held[key] = Tiles(), scratch, own
-        tiles, scratch, own = h
-        ts = type(state)(**tiles.tile(state._asdict(), STATE_FILLS))
-        for _ in range(chunk_steps):
-            ts = step.tiled(ts, scratch)
-        # the newest clause memories may lie in the scratch's second copy:
-        # untiled into the caller's storage from there, and the scratch
-        # keeps its own copy, never the caller's storage
-        out = type(state)(**tiles.untile(ts._asdict()))
-        if own is not None:
-            scratch.bufs["xs2"], scratch.bufs["xl2"] = own
-        return out
+        chunk = chunks.get(key)
+        if chunk is None:
+            tiles, scratch, own = h
 
-    run.step, run.held = step, held
+            def restore():
+                if own is not None:
+                    scratch.bufs["xs2"], scratch.bufs["xl2"] = own
+
+            chunk = chunks[key] = TiledChunk(lambda ts, dev: step.tiled(ts, scratch),
+                                             chunk_steps, device, tiles, STATE_FILLS, restore,
+                                             step.calls)
+        return chunk(state, dev)
+
+    run.step, run.held, run.chunks = step, held, chunks
     return run
 
 

@@ -252,6 +252,13 @@ def _mul32(x: torch.Tensor, c: int, tmp: Optional[torch.Tensor] = None) -> torch
         .add_(lo).bitwise_and_(_MASK)
 
 
+def _at_step(step: int) -> int:
+    """The step's term of the hash, ``step * 0xC2B2AE3D mod 2**32``, in
+    16-bit halves as the kernels compute it."""
+    lo, hi = int(step) & 0xFFFF, int(step) >> 16
+    return ((((hi * 0xC2B2AE3D) & _MASK) << 16) + lo * 0xC2B2AE3D) & _MASK
+
+
 class Uniforms:
     """The counter-hash uniforms of chains ``chains`` and variable columns
     ``cols`` (int64 tensors that broadcast together), f32 in [0, 1), drawn
@@ -259,7 +266,16 @@ class Uniforms:
     the terms of the chain or the column alone are made once (and the
     step's as a Python integer, the same bits), so that a draw allocates
     nothing on the card. ``draw(seed, step)`` at launch-local ``step``
-    returns the f32 buffer, which the next draw overwrites."""
+    returns the f32 buffer, which the next draw overwrites.
+
+    A captured chunk (``ops/scan_chunk.py``) cannot take a new seed or
+    step as a Python number each chunk, so it draws with :meth:`next`
+    from ``word``, an int64 on the chains' device that holds ``(seed +
+    step * 0xC2B2AE3D) mod 2**32``: :meth:`set_seed` writes the seed
+    there at a chunk's start (a fill on the stream, no copy from the
+    host), and each draw advances it by one step. The hash adds the seed
+    and the step's term modulo 2**32, so the word's sum is the same bits
+    as ``draw(seed, step)``."""
 
     def __init__(self, chains: torch.Tensor, cols: torch.Tensor, Bb: int):
         shape = torch.broadcast_shapes(chains.shape, cols.shape)
@@ -270,13 +286,26 @@ class Uniforms:
         self.x = torch.empty(shape, dtype=torch.int64, device=chains.device)
         self.tmp = torch.empty_like(self.x)
         self.u = torch.empty(shape, dtype=torch.float32, device=chains.device)
+        self.word = torch.zeros((), dtype=torch.int64, device=chains.device)
 
     def draw(self, seed: int, step: int) -> torch.Tensor:
-        lo, hi = int(step) & 0xFFFF, int(step) >> 16
-        at_step = ((((hi * 0xC2B2AE3D) & _MASK) << 16) + lo * 0xC2B2AE3D) & _MASK
         # the per-chain terms meet first, so one pass at the full shape joins the columns
         base = torch.add(self.blk, int(seed), out=self.base).bitwise_and_(_MASK)
-        base.add_(at_step).bitwise_and_(_MASK).bitwise_xor_(self.row)
+        return self._hash(base.add_(_at_step(step)).bitwise_and_(_MASK))
+
+    def set_seed(self, seed: int) -> None:
+        """Start the seed word at ``seed``, step 0."""
+        self.word.fill_(int(seed) & _MASK)
+
+    def next(self) -> torch.Tensor:
+        """The draw at the word's seed and step (:meth:`set_seed`), which
+        it then advances by one step."""
+        base = torch.add(self.blk, self.word, out=self.base).bitwise_and_(_MASK)
+        self.word.add_(_at_step(1)).bitwise_and_(_MASK)
+        return self._hash(base)
+
+    def _hash(self, base: torch.Tensor) -> torch.Tensor:
+        base.bitwise_xor_(self.row)
         x, tmp = torch.bitwise_xor(base, self.col, out=self.x), self.tmp
         x.bitwise_xor_(torch.bitwise_right_shift(x, 16, out=tmp))
         _mul32(x, 0x7FEB352D, tmp)

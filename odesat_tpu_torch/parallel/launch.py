@@ -68,6 +68,7 @@ _COUNTERS = (
     ("butterfly_fused", "odesat_tpu_torch.ops.butterfly", "fused_launches"),
     ("device_loop", "odesat_tpu_torch.ops.device_loop", "launches"),
     ("device_loop_mesh", "odesat_tpu_torch.ops.device_loop", "mesh_launches"),
+    ("mesh_step_chunk", "odesat_tpu_torch.ops.scan_chunk", "mesh_launches"),
 )
 CUDA_SOURCES = ("fused_chunk", "stream_chunk", "stoch_chunk", "butterfly", "device_loop")
 

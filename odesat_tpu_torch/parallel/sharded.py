@@ -196,10 +196,11 @@ def make_sharded_chunk_runner(fa: FormulaArrays, zeta: float, ode, chunk_steps: 
     if n_clause == 1:
         if not shared_adaptive or mesh.n_traj == 1:
             return make_chunk_runner(fa, zeta, ode, chunk_steps, device)
+        routes = twin_routes(mesh, device, True)
         step = make_step_fn(fa, zeta, dataclasses.replace(
             ode, dv_strategy=resolve_strategy(fa, ode, device)), traj_group=mesh.traj_group,
-            **twin_routes(mesh, device, True))
-        return _step_chunk(step, chunk_steps)
+            device=device, **routes)
+        return _step_chunk(step, chunk_steps, mesh, device, routes)
 
     from odesat_tpu_torch.ops.shard_chunk import resolve_shard_chunk, shard_chunk_supported
 
@@ -252,19 +253,36 @@ def make_sharded_chunk_runner(fa: FormulaArrays, zeta: float, ode, chunk_steps: 
     logger.info("clause mesh %dx%d -> twin clause step (segment_sum) on %s", mesh.n_traj,
                 n_clause, device)
     _twin_on_card(device, "the formula or config is past the clause-shard kernels' gate")
+    routes = twin_routes(mesh, device, shared_adaptive)
     step = make_step_fn(fa, zeta, ode, clause_group=mesh.clause_group,
-                        traj_group=mesh.traj_group,
-                        **twin_routes(mesh, device, shared_adaptive))
-    return _step_chunk(step, chunk_steps)
+                        traj_group=mesh.traj_group, device=device, **routes)
+    return _step_chunk(step, chunk_steps, mesh, device, routes)
 
 
-def _step_chunk(step, chunk_steps):
-    def run(state, dev):
-        for _ in range(chunk_steps):
-            state = step(state, dev)
-        return state
+def _step_chunk(step, chunk_steps, mesh=None, device="cpu", routes=None):
+    """``chunk_steps`` of the twin's mesh step as one runner (JAX :597-624,
+    one jitted, donated ``lax.scan``): the scan chunk
+    (``ops/scan_chunk.py``), captured once a shape as a CUDA graph with
+    its B7 calls on a card and run in place on its buffers, the loop of
+    steps on the CPU. A group on the ``torch.distributed`` route
+    (:func:`twin_routes`: a trajectory group over hosts) cannot be
+    captured, so that runner stays host-paced, said at INFO."""
+    from odesat_tpu_torch.ops.scan_chunk import ScanChunk
 
-    return run
+    dist_route = [name for name, route in (routes or {}).items() if route == "dist"]
+    if dist_route and torch.device(device).type == "cuda":
+        logger.info("mesh %dx%d twin step's chunk -> host-paced on %s: %s takes "
+                    "torch.distributed, which a CUDA graph cannot hold", mesh.n_traj,
+                    mesh.n_clause, device, " and ".join(dist_route))
+
+        def run(state, dev):
+            for _ in range(chunk_steps):
+                state = step(state, dev)
+            return state
+
+        return run
+    return ScanChunk(step, chunk_steps, device, counter="mesh_launches",
+                     calls=getattr(step, "calls", None), prepare=getattr(step, "prepare", None))
 
 
 _HOSTS: dict = {}  # traj group -> its ranks' host names, rank order
@@ -402,27 +420,30 @@ def make_clause_stoch_runner(fa: FormulaArrays, chunk_steps: int, device, genera
     segment, with a warning on CUDA ('on' raises). The sums and the sat
     flag are all-reduced over ``clause_group``; every path takes one seed
     a chunk from ``generator`` and the same counter-hash uniforms, so they
-    flip alike. Runnable at S=1 without a group. B9's and B8's runs consume
-    their input, as JAX's ``donate_argnums=0``: the chains are tiled and
-    updated in the caller's storage and the result is returned in it, with
-    every buffer held for the batch shape (``ops/device_loop.py`` states
-    the contract)."""
+    flip alike. Runnable at S=1 without a group. Every route's run consumes
+    its input, as JAX's ``donate_argnums=0`` (``ops/device_loop.py`` states
+    the contract): B9's and B8's chains are tiled and updated in the
+    caller's storage and the result is returned in it, with every buffer
+    held for the batch shape; the twin's chunk runs on a scan chunk's
+    buffers. On a card B8's and the twin's steps run as one CUDA graph
+    replay a chunk (``ops/scan_chunk.py``), their seed in a word on the
+    card (``Uniforms.word``)."""
     import torch.distributed as dist
 
-    from odesat_tpu_torch.models.loop import copy_state
     from odesat_tpu_torch.models.stoch import (
         StochState,
         make_stoch_clause_eval,
         make_stoch_clause_step,
     )
+    from odesat_tpu_torch.ops.scan_chunk import ScanChunk, TiledChunk
     from odesat_tpu_torch.ops.shard_chunk import resolve_shard_chunk
     from odesat_tpu_torch.ops.stoch_chunk import (
         TiledUniforms,
+        Uniforms,
         make_stoch_shard_chunk,
         make_stoch_shard_eval,
         stoch_shard_supported,
         traj_block,
-        uniform01,
     )
     from odesat_tpu_torch.ops.tiles import TILE, Tiles, held_pool, n_tiles
 
@@ -443,35 +464,52 @@ def make_clause_stoch_runner(fa: FormulaArrays, chunk_steps: int, device, genera
         run_chunk.held = chunk.held
         return run_chunk
     Np = fa.n_vars_padded
+
+    def calls(acc_shape):
+        """A step's one B7 call: the (total | unsat | 1 - sat) sum."""
+        return lambda state: [(clause_group, acc_shape(state.v.shape), torch.float32)]
+
     if not eligible:
         n = 1 if clause_group is None else dist.get_world_size(clause_group)
         step = make_stoch_clause_step(make_stoch_clause_eval(fa, device, shard, n).packed,
                                       clause_group)
         logger.info("stoch clause path -> twin clause evaluation on %s", device)
         _twin_on_card(device, "the stoch formula has no clause-shard plan")
+        twins: dict = {}  # (batch, device) -> (the uniforms, the chunk drawing them)
 
         def run_twin(state):
+            # the steps and their draws as one scan chunk (JAX :782-794), its
+            # seed in the uniforms' word; the call consumes its input
             seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
-            B = state.v.shape[0]
-            chains = torch.arange(B, device=state.v.device, dtype=torch.int64)
-            state = copy_state(state)  # the steps flip in place; the caller's state stays
-            for t in range(chunk_steps):
-                state = step(state, uniform01(seed, chains, traj_block(B), t, Np))
-            return state
+            B, dev = state.v.shape[0], state.v.device
+            hit = twins.get((B, dev))
+            if hit is None:
+                chains = torch.arange(B, device=dev, dtype=torch.int64).unsqueeze(1)
+                uniforms = Uniforms(chains, torch.arange(Np, device=dev, dtype=torch.int64)
+                                    .unsqueeze(0), traj_block(B))
+                hit = twins[B, dev] = (uniforms, ScanChunk(
+                    lambda st, _, u=uniforms: step(st, u.next()), chunk_steps, dev,
+                    counter="mesh_launches", calls=calls(lambda s: (s[0], 2 * Np + 1))))
+            uniforms, chunk = hit
+            uniforms.set_seed(seed)
+            return chunk(state)
 
+        run_twin.twins = twins
         return run_twin
     ev = make_stoch_shard_eval(fa, device, shard, matmul_dtype)
     logger.info("stoch clause path -> stoch_shard_eval (B8) on %s", device)
     # ("B8", shard, batch, device) -> (Tiles, the uniforms, acc, w, the step's work pair)
     held = held_pool(fa)
-    steps: dict = {}  # the same key -> this runner's step on those buffers
+    chunks: dict = {}  # the same key -> this runner's chunk on those buffers
 
     def run(state):
         # the chains tiled once a chunk in their own storage (a ragged
         # batch through buffers held for it): B8's launches, the all-reduce,
-        # the uniforms (drawn in tile order) and the flips all work on the
-        # tiles, writing into buffers held for the batch shape, so the call
-        # consumes its input as JAX's donated one and returns its storage
+        # the uniforms (drawn in tile order from the seed word) and the
+        # flips all work on the tiles, writing into buffers held for the
+        # batch shape, so the call consumes its input as JAX's donated one
+        # and returns its storage; on a card the steps are one capture,
+        # replayed (JAX :721-759, one jitted lax.scan)
         seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
         B, dev = state.v.shape[0], state.v.device
         key = ("B8", shard, B, dev)
@@ -486,16 +524,17 @@ def make_clause_stoch_runner(fa: FormulaArrays, chunk_steps: int, device, genera
                     torch.empty((G, TILE), dtype=torch.bool, device=dev))
             h = held[key] = (Tiles(), TiledUniforms(G, traj_block(B), Np, dev), acc, w, work)
         tiles, uniforms, acc, w, work = h
-        step = steps.get(key)
-        if step is None:
-            step = steps[key] = make_stoch_clause_step(
+        chunk = chunks.get(key)
+        if chunk is None:
+            step = make_stoch_clause_step(
                 lambda v, xl, done: ev.tiled(v, xl, done, acc, w), clause_group, work)
-        tiled = StochState(**tiles.tile(state._asdict(), dict(xl=1, done=True)))
-        for t in range(chunk_steps):
-            tiled = step(tiled, uniforms.draw(seed, t))
-        return StochState(**tiles.untile(tiled._asdict()))
+            chunk = chunks[key] = TiledChunk(
+                lambda ts, _: step(ts, uniforms.next()), chunk_steps, dev, tiles,
+                dict(xl=1, done=True), calls=calls(lambda s: (s[0], 2 * Np + 1, TILE)))
+        uniforms.set_seed(seed)
+        return chunk(state)
 
-    run.held = held
+    run.held, run.chunks = held, chunks
     return run
 
 
@@ -848,3 +887,4 @@ def fused_against_plain(mesh, device, fa: FormulaArrays, engine: str, fixed: boo
     err = float(all_reduce(torch.tensor([err], dtype=torch.float64, device=device), group,
                            "max").item())
     return err, same
+

@@ -18,7 +18,9 @@ and S=4 ranks on the card equals its plain version bit for bit (a NaN equal
 to any NaN); the device loop (one graph launch a dispatch) equals the host
 loop over the same kernels bit for bit, steps included; the stoch twin's
 captured chunk equals its steps and draws launched from Python bit for
-bit, the device generator's state included.
+bit, the device generator's state included; the clause mesh's captured
+chunks (B5, B8, the twins; their B7 calls rebased in the graphs) equal
+the same steps launched from Python bit for bit.
 """
 
 import dataclasses
@@ -1988,3 +1990,94 @@ def test_a_held_result_is_unchanged_by_a_call_from_another_state(cuda, kind, cal
     torch.cuda.synchronize()
     for name, a, b, c, d in zip(held._fields, held, kept, other, alone):
         assert torch.equal(a, b) and torch.equal(c, d), name
+
+
+# ------------- the clause mesh's per-step chunks captured (ops/scan_chunk.py)
+
+
+def _capture_cases(S):
+    """(label, kind, formula, ode) of chip_smoke.captured_against_host_paced:
+    B5 fixed and adaptive and the B8 path on a shard plan, and on a mesh
+    the twins (a plain layout, float64 for the ODE's)."""
+    fa = _sharded(S)
+    cases = [("B5 fixed", "B5", fa, ODEConfig(step_size=0.01)),
+             ("B5 adaptive", "B5", fa, ODEConfig(tolerance=1e-3)),
+             ("B8", "B8", fa, None)]
+    if S > 1:
+        plain = compile_formula(_formula(seed=5), clause_pad=64 * S)
+        cases += [("twin fixed", "twin", plain, ODEConfig(dtype="float64", step_size=0.01)),
+                  ("twin adaptive", "twin", plain, ODEConfig(dtype="float64", tolerance=1e-3)),
+                  ("stoch twin", "stoch_twin", plain, None)]
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [64, 45])
+@pytest.mark.parametrize("case", range(3))
+def test_captured_clause_chunk_equals_host_paced(cuda, case, B):
+    """B5's chunk (fixed, adaptive) and the B8 path's at S=1, 70 steps (a
+    64-step graph, then one of 6): two captured chunks equal the same steps
+    launched from Python bit for bit, and the second captured chunk, from
+    the first's result in its storage, replays two graphs and allocates
+    nothing."""
+    import chip_smoke
+
+    label, kind, fa, ode = _capture_cases(1)[case]
+    r = chip_smoke.captured_against_host_paced(None, cuda, kind, fa, ode, B, steps=70)
+    assert r["err"] == 0.0, label
+    assert r["allocs"] == 0 and r["replays"] == 2 and r["b7"] == 0, (label, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2, 4])
+def test_captured_clause_chunks_equal_host_paced_across_ranks_on_one_card(cuda, S):
+    """At S ranks sharing the card, B5's chunk (fixed, adaptive), the B8
+    path's, the twin's clause step (float64, fixed and adaptive) and the
+    stoch clause twin's: two captured chunks of 70 steps, their B7 calls in
+    the graphs with their flags rebased at each launch, equal the same
+    steps launched from Python bit for bit on every rank, v bit-identical
+    over the ranks, the second chunk allocating nothing; the B7 calls a
+    chunk are its steps' (one a fixed step, three an adaptive one, one a
+    stoch step)."""
+    import chip_smoke
+    from odesat_tpu_torch.parallel import launch
+
+    cases = _capture_cases(S)
+    calls = [(chip_smoke.captured_against_host_paced, (kind, fa, ode, 32, 70))
+             for _, kind, fa, ode in cases]
+    values = launch.spawn(launch.run_all, 1, S, "gloo", "cuda", timeout_s=900, args=(calls,))
+    for (label, *_), r in zip(cases, values):
+        assert r["err"] == 0.0 and r["allocs"] == 0, (label, r)
+        assert r["b7"] == 70 * (3 if "adaptive" in label else 1), (label, r)
+    for report in launch.last_reports:
+        assert all(c["mesh_step_chunk"] > 0 for c in report["calls"])
+
+
+@pytest.mark.cuda
+def test_shared_twin_chunk_captured_on_a_trajectory_mesh(cuda):
+    """The trajectory mesh's shared-adaptive twin (T=2 sharing the card,
+    its error max over the trajectory group on B7 every step) captured
+    equals host-paced bit for bit."""
+    import chip_smoke
+    from odesat_tpu_torch.parallel import launch
+
+    fa = compile_formula(_formula(seed=5))
+    ode = ODEConfig(tolerance=1e-3, dt_mode="shared")
+    calls = [(chip_smoke.captured_against_host_paced, ("twin", fa, ode, 32, 40))]
+    (r,) = launch.spawn(launch.run_all, 2, 1, "gloo", "cuda", timeout_s=600, args=(calls,))
+    assert r["err"] == 0.0 and r["allocs"] == 0 and r["b7"] == 40, r
+
+
+@pytest.mark.cuda
+def test_host_and_card_counters_agree_after_mixed_chunks(cuda):
+    """Two ranks sharing the card run B5 (captured), B6, the B8 path
+    (captured) and B9 chunks in turn on one ring: the states equal the same
+    rounds with B5 and B8 host-paced bit for bit, and every rank's flag on
+    the card equals the host's count of the group's launches."""
+    import chip_smoke
+    from odesat_tpu_torch.parallel import launch
+
+    calls = [(chip_smoke.mixed_chunks, (_sharded(2), 64, 7))]
+    values = launch.spawn(launch.run_all, 1, 2, "gloo", "cuda", timeout_s=600, args=(calls,))
+    for (err, count, flags) in values:
+        assert err == 0.0 and flags == [count] * 2, (err, count, flags)
