@@ -26,6 +26,8 @@ import contextlib
 import os
 import time
 
+from odesat_tpu_torch.utils.logging import span
+
 GROW_AFTER = 8
 GROW_CAP = 32768
 
@@ -104,11 +106,14 @@ def profiled(profile_dir):
     ``jax.profiler`` the same way. A process's first session records every
     kernel; later sessions in the same process missed the first launch of
     each kernel (torch 2.11, CUDA 12.8, an H100), so trace a solve in a
-    process of its own, as the CLI does."""
-    if not profile_dir:
+    process of its own, as the CLI does. Inside a session already recording
+    (``models/ode.simulate_batch``'s around the whole solve, or a caller's)
+    it adds none: that session's trace holds the block."""
+    import torch
+
+    if not profile_dir or torch._C._autograd._profiler_enabled():
         yield
         return
-    import torch
     import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
 
@@ -208,48 +213,51 @@ def drive_chunks(
             else:
                 state = runner(state)
                 nominal = chunk_steps
-            advanced = None
-            if type(state) is tuple:  # NamedTuple states are excluded
-                state, advanced = state
-                advanced = int(advanced)
-                steps_run += advanced
-            else:
-                steps_run += nominal
-            chunks += 1
-            done = read_done(state)  # waits for the chunk
-            if can_grow and chunks % GROW_AFTER == 0 and chunk_steps < GROW_CAP:
-                bigger = min(chunk_steps * 16, GROW_CAP)
-                if budget is not None:
-                    bigger = min(bigger, max(budget - steps_run, 1))
-                if config.wall_clock_budget_s is not None:
-                    # the budget is only checked between chunks, so bound the
-                    # grown chunk's predicted duration by the remaining seconds
-                    last_chunk_s = seconds(chunk_t0)
-                    remaining_s = config.wall_clock_budget_s - seconds(t0)
-                    if last_chunk_s > 0 and remaining_s > 0:
-                        cap = int(remaining_s * chunk_steps / last_chunk_s)
-                        bigger = min(bigger, max(cap, 1))
-                    elif remaining_s <= 0:
-                        bigger = chunk_steps  # budget already spent
-                if bigger > chunk_steps:
-                    runner = make_runner(bigger)
-                    chunk_steps = bigger
+            # the host's decision after the slice: its done flags, growth, the
+            # stop, the wall-clock budget and the cadence
+            with span("loop.decide"):
+                advanced = None
+                if type(state) is tuple:  # NamedTuple states are excluded
+                    state, advanced = state
+                    advanced = int(advanced)
+                    steps_run += advanced
+                else:
+                    steps_run += nominal
+                chunks += 1
+                done = read_done(state)  # waits for the chunk
+                if can_grow and chunks % GROW_AFTER == 0 and chunk_steps < GROW_CAP:
+                    bigger = min(chunk_steps * 16, GROW_CAP)
+                    if budget is not None:
+                        bigger = min(bigger, max(budget - steps_run, 1))
+                    if config.wall_clock_budget_s is not None:
+                        # the budget is only checked between chunks, so bound the
+                        # grown chunk's predicted duration by the remaining seconds
+                        last_chunk_s = seconds(chunk_t0)
+                        remaining_s = config.wall_clock_budget_s - seconds(t0)
+                        if last_chunk_s > 0 and remaining_s > 0:
+                            cap = int(remaining_s * chunk_steps / last_chunk_s)
+                            bigger = min(bigger, max(cap, 1))
+                        elif remaining_s <= 0:
+                            bigger = chunk_steps  # budget already spent
+                    if bigger > chunk_steps:
+                        runner = make_runner(bigger)
+                        chunk_steps = bigger
 
-            if cadence_first:
-                cadence(state, steps_run, chunks)
-            if should_stop(state, done):
-                break
-            # a multi-chunk runner advances 0 steps only from a state its
-            # stop test already holds, which should_stop must see too:
-            # otherwise this loop would spin without advancing
-            if advanced == 0:
-                raise RuntimeError("a runner advanced 0 steps but should_stop did not fire")
-            if (
-                config.wall_clock_budget_s is not None
-                and seconds(t0) > config.wall_clock_budget_s
-            ):
-                break
-            if not cadence_first:
-                cadence(state, steps_run, chunks)
+                if cadence_first:
+                    cadence(state, steps_run, chunks)
+                if should_stop(state, done):
+                    break
+                # a multi-chunk runner advances 0 steps only from a state its
+                # stop test already holds, which should_stop must see too:
+                # otherwise this loop would spin without advancing
+                if advanced == 0:
+                    raise RuntimeError("a runner advanced 0 steps but should_stop did not fire")
+                if (
+                    config.wall_clock_budget_s is not None
+                    and seconds(t0) > config.wall_clock_budget_s
+                ):
+                    break
+                if not cadence_first:
+                    cadence(state, steps_run, chunks)
 
     return state, steps_run, time.perf_counter() - t0

@@ -59,7 +59,12 @@ from odesat_tpu_torch.constants import DT_INIT, DT_MAX, DT_MIN, EPSILON, XL_CAP_
 from odesat_tpu_torch.ops import rhs as rhs_ops
 from odesat_tpu_torch.parallel.dist import fetch
 from odesat_tpu_torch.utils.config import ODEConfig, SolverConfig
-from odesat_tpu_torch.utils.logging import logger
+from odesat_tpu_torch.utils.logging import logger, span
+
+# Bytes that :func:`simulate_batch`'s readouts copied to the host (the
+# assignment and the done flags, as fetched), in this process: a plain
+# integer that callers may reset.
+readout_bytes = 0
 
 
 class ODEState(NamedTuple):
@@ -569,50 +574,68 @@ def simulate_batch(
     this run's clause width (the trajectory width may differ, JAX
     :601-616). ``config.checkpoint_path`` with ``checkpoint_every_chunks``
     writes snapshots (rank 0 on a mesh, after every rank's gather).
+
+    ``config.profile_dir`` traces the whole call (``models/loop.profiled``).
+    Under a profiler each stage of the call is a span (``utils/logging.
+    span``): ``ode.solve`` around it, and inside ``ode.compile``,
+    ``ode.state``, ``ode.build`` (a runner built), the device loop's
+    ``device_loop.capture`` and ``device_loop.dispatch``, ``loop.decide``
+    (``models/loop.drive_chunks``), ``ode.readout`` and ``ode.release``.
     """
+    from odesat_tpu_torch.models.loop import profiled
+
+    with profiled(config.profile_dir), span("ode.solve"):
+        return _simulate_batch(formula_or_arrays, config, device, generator, v0, stop_on,
+                               harvest, mesh)
+
+
+def _simulate_batch(formula_or_arrays, config, device, generator, v0, stop_on, harvest, mesh):
+    global readout_bytes
     from odesat_tpu_torch.utils.device import entry_device
 
     device = entry_device(device)
     n_clause = 1 if mesh is None else mesh.n_clause
-    if mesh is not None and not isinstance(formula_or_arrays, FormulaArrays):
-        from odesat_tpu_torch.parallel.sharded import compile_for_mesh
+    with span("ode.compile"):
+        if mesh is not None and not isinstance(formula_or_arrays, FormulaArrays):
+            from odesat_tpu_torch.parallel.sharded import compile_for_mesh
 
-        fa = compile_for_mesh(formula_or_arrays, config, mesh)
-    else:
-        fa = compile_for_config(formula_or_arrays, config)
-    ode = config.ode
-    if n_clause == 1:
-        strategy = resolve_strategy(fa, ode, device)
-        if ode.dv_strategy == "auto":
-            logger.info("dv_strategy auto -> %s on %s", strategy, device)
-        ode = dataclasses.replace(ode, dv_strategy=strategy)
-    zeta = ode.resolve_zeta(fa.density)
+            fa = compile_for_mesh(formula_or_arrays, config, mesh)
+        else:
+            fa = compile_for_config(formula_or_arrays, config)
+        ode = config.ode
+        if n_clause == 1:
+            strategy = resolve_strategy(fa, ode, device)
+            if ode.dv_strategy == "auto":
+                logger.info("dv_strategy auto -> %s on %s", strategy, device)
+            ode = dataclasses.replace(ode, dv_strategy=strategy)
+        zeta = ode.resolve_zeta(fa.density)
     steps_resumed = 0
-    if config.resume_from:
-        from odesat_tpu_torch.interop import state_from_numpy
-        from odesat_tpu_torch.utils.checkpoint import load_state, validate_mesh_layout
+    with span("ode.state"):
+        if config.resume_from:
+            from odesat_tpu_torch.interop import state_from_numpy
+            from odesat_tpu_torch.utils.checkpoint import load_state, validate_mesh_layout
 
-        loaded, steps_resumed, saved_layout = load_state(config.resume_from, ODEState)
-        # the clause axis changes the compiled clause layout; the traj axis
-        # is data parallelism for the ODE state and may reshard
-        validate_mesh_layout(saved_layout, mesh, what="ODE snapshot", traj_sensitive=False)
-        state = state_from_numpy(*loaded, device=device)
-    else:
-        if generator is None:
-            if mesh is not None and config.seed is None:
-                raise ValueError("a mesh run needs a seed: every rank draws the same initial "
-                                 "state")
-            generator = seeded_generator(config, device)
-        state = init_state(fa, config.batch_size, generator, ode, device, v0=v0)
-    dev = formula_device(fa, device, dtype=state_dtype(ode))
-    sync = None
-    if mesh is not None:
-        from odesat_tpu_torch.parallel.dist import MeshSync
-        from odesat_tpu_torch.parallel.sharded import shard_inputs
+            loaded, steps_resumed, saved_layout = load_state(config.resume_from, ODEState)
+            # the clause axis changes the compiled clause layout; the traj axis
+            # is data parallelism for the ODE state and may reshard
+            validate_mesh_layout(saved_layout, mesh, what="ODE snapshot", traj_sensitive=False)
+            state = state_from_numpy(*loaded, device=device)
+        else:
+            if generator is None:
+                if mesh is not None and config.seed is None:
+                    raise ValueError("a mesh run needs a seed: every rank draws the same "
+                                     "initial state")
+                generator = seeded_generator(config, device)
+            state = init_state(fa, config.batch_size, generator, ode, device, v0=v0)
+        dev = formula_device(fa, device, dtype=state_dtype(ode))
+        sync = None
+        if mesh is not None:
+            from odesat_tpu_torch.parallel.dist import MeshSync
+            from odesat_tpu_torch.parallel.sharded import shard_inputs
 
-        check_mesh_shape(state.v.shape[0], fa, mesh)
-        state, dev = shard_inputs(state, dev, mesh)
-        sync = MeshSync(mesh, device)
+            check_mesh_shape(state.v.shape[0], fa, mesh)
+            state, dev = shard_inputs(state, dev, mesh)
+            sync = MeshSync(mesh, device)
 
     from odesat_tpu_torch.models.loop import device_dispatch_plan, drive_chunks
 
@@ -625,23 +648,25 @@ def simulate_batch(
     # few tail lengths and the grown chunks
     @functools.lru_cache(maxsize=8)
     def chunk_runner(n):
-        if mesh is None:
-            return make_chunk_runner(fa, zeta, ode, n, device)
-        from odesat_tpu_torch.parallel.sharded import make_sharded_chunk_runner
+        with span("ode.build"):
+            if mesh is None:
+                return make_chunk_runner(fa, zeta, ode, n, device)
+            from odesat_tpu_torch.parallel.sharded import make_sharded_chunk_runner
 
-        return make_sharded_chunk_runner(fa, zeta, ode, n, mesh, device)
+            return make_sharded_chunk_runner(fa, zeta, ode, n, mesh, device)
 
     def make_runner(n):
         r = chunk_runner(min(n, inner) if use_multi else n)
         if not use_multi or n <= inner:
             return lambda st: r(st, dev)
-        if mesh is None:
-            m = make_multi_chunk_runner(fa, zeta, ode, inner, n // inner, device,
-                                        stop_on=stop_on, chunk=r)
-            return lambda st: m(st, dev)
-        from odesat_tpu_torch.parallel.sharded import make_sharded_multi_runner
+        with span("ode.build"):
+            if mesh is None:
+                m = make_multi_chunk_runner(fa, zeta, ode, inner, n // inner, device,
+                                            stop_on=stop_on, chunk=r)
+                return lambda st: m(st, dev)
+            from odesat_tpu_torch.parallel.sharded import make_sharded_multi_runner
 
-        return make_sharded_multi_runner(r, inner, n // inner, mesh, device, stop_on, dev)
+            return make_sharded_multi_runner(r, inner, n // inner, mesh, device, stop_on, dev)
 
     if use_multi:
         chunk_steps = dispatch_steps  # nominal slice between host decisions
@@ -678,20 +703,27 @@ def simulate_batch(
                                       mesh_layout=mesh_layout_of(mesh), mesh=mesh),
     )
 
-    if mesh is not None:
-        from odesat_tpu_torch.parallel.sharded import check_replicated
+    with span("ode.readout"):
+        if mesh is not None:
+            from odesat_tpu_torch.parallel.sharded import check_replicated
 
-        check_replicated(state.v, mesh)
-    done = fetch(state.done, mesh)
-    solved = np.flatnonzero(done)
-    return SolveResult(
-        assignment=fetch(state.v[:, : fa.n_vars] > 0.0, mesh),
-        done=done,
-        steps=steps_run,
-        solved_index=int(solved[0]) if solved.size else None,
-        wall_time_s=wall_time,
-        harvested=harvested[0] if harvested else None,
-    )
+            check_replicated(state.v, mesh)
+        done = fetch(state.done, mesh)
+        solved = np.flatnonzero(done)
+        result = SolveResult(
+            assignment=fetch(state.v[:, : fa.n_vars] > 0.0, mesh),
+            done=done,
+            steps=steps_run,
+            solved_index=int(solved[0]) if solved.size else None,
+            wall_time_s=wall_time,
+            harvested=harvested[0] if harvested else None,
+        )
+        readout_bytes += result.assignment.nbytes + done.nbytes
+    # the solve's runners go here, and with them the device loop's graph,
+    # not at some later collection: nothing else holds them
+    with span("ode.release"):
+        chunk_runner.cache_clear()
+    return result
 
 
 def simulate(

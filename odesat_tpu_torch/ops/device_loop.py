@@ -130,16 +130,20 @@ import torch
 from torch.multiprocessing.reductions import StorageWeakRef
 
 from odesat_tpu_torch.ops import _cuda
+from odesat_tpu_torch.utils.logging import span
 
 # Graph launches (dispatches) made through :func:`run` in this process, and
 # of them those of a trajectory mesh's graphs (exchanging the stop between
 # ranks); and the calls that copied a state into a graph's buffers
 # (:meth:`StateBuffers.load`: the scan chunk's, from a state it did not
 # return last). Plain integers that callers may reset; the chunk kernels'
-# own counts grow by the chunks each dispatch ran.
+# own counts grow by the chunks each dispatch ran. ``captures`` counts the
+# graphs :class:`DeviceLoop` instantiated, ``releases`` those it destroyed.
 launches = 0
 mesh_launches = 0
 loads = 0
+captures = 0
+releases = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -375,6 +379,7 @@ class DeviceLoop:
 
     def __init__(self, chunk, state, stop_all: bool, seeded: bool, capacity: int,
                  buffers=None, peers=None):
+        global captures
         self.lib, _ = load_library()
         self.handle = None
         self.device = device = state.v.device
@@ -416,6 +421,7 @@ class DeviceLoop:
                 self.lib.device_loop_end_body(handle)  # ends the capture; the launch's error stands
                 raise
             check(self.lib, self.lib.device_loop_end_body(handle), "graph instantiation")
+        captures += 1
 
     def __call__(self, state, bound: int, seeds=None):
         """One dispatch from ``state``, which it consumes; returns ``(state,
@@ -456,9 +462,11 @@ class DeviceLoop:
         return (self.buffers.lend() if self.buffers is not None else state), ran
 
     def __del__(self):
+        global releases
         if getattr(self, "handle", None) is not None:
             self.lib.device_loop_destroy(self.handle)
             self.handle = None
+            releases += 1
 
 
 def run(chunk: KernelChunk, state, bound: int, stop_all: bool = False, seeds=None, dev=None,
@@ -495,8 +503,10 @@ def run(chunk: KernelChunk, state, bound: int, stop_all: bool = False, seeds=Non
     loop = chunk.loops.get(key)
     if loop is None or (seeded and loop.capacity < bound):
         chunk.loops.pop(key, None)
-        loop = chunk.loops[key] = DeviceLoop(chunk, state, stop_all, seeded,
-                                             max(bound, 1) if seeded else 0, buffers, peers)
-    out, ran = loop(state, bound, seeds)
+        with span("device_loop.capture"):
+            loop = chunk.loops[key] = DeviceLoop(chunk, state, stop_all, seeded,
+                                                 max(bound, 1) if seeded else 0, buffers, peers)
+    with span("device_loop.dispatch"):
+        out, ran = loop(state, bound, seeds)
     chunk.count(ran)
     return out, ran * chunk.chunk_steps

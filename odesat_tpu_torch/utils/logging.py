@@ -1,14 +1,18 @@
 """Progress metrics and observability (the port of
 ``odesat_tpu.utils.logging``): per-chunk steps, solved counts and the dt
-distribution, all read from the solver state, and a throughput counter."""
+distribution, all read from the solver state, a throughput counter, and
+the solve's stage spans on the profiler's clock."""
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import sys
 import time
 
 import numpy as np
+import torch
+from torch.autograd import profiler as autograd_profiler
 
 logger = logging.getLogger("odesat_tpu_torch")
 if not logger.handlers:
@@ -52,3 +56,18 @@ class Throughput:
     def rate(self) -> float:
         elapsed = time.perf_counter() - self.start
         return self.batch_size * self.steps / elapsed if elapsed > 0 else 0.0
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A span of the solve's stage ``name``: while a ``torch.profiler``
+    session records this thread (the benchmark's ``--trace 1``, the CLI's
+    ``--profile-dir``), a ``record_function`` range, on the clock of the
+    card's kernels in the same trace; otherwise one shared no-op context,
+    which enters no torch operation and allocates nothing. One client
+    thread runs a solve, so a span's parent is the span around it in time."""
+    if torch._C._autograd._profiler_enabled():
+        return autograd_profiler.record_function(name)
+    return _OFF

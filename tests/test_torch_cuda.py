@@ -1453,6 +1453,50 @@ def test_a_graph_that_cannot_be_built_raises(cuda, monkeypatch):
     assert steps == 32 and torch.equal(out.v, want.v) and torch.equal(out.done, want.done)
 
 
+@pytest.mark.cuda
+def test_device_loop_spans_match_its_counters_and_its_graph_goes_at_release(cuda, tmp_path):
+    """Under the profiler, solves through B1's device loop: the trace's
+    ``device_loop.capture`` and ``device_loop.dispatch`` spans are as many
+    as the graphs the loop counted instantiated and launched, every graph
+    instantiated is destroyed by the solve that made it, and every
+    ``cudaGraphExecDestroy`` lies inside that solve's ``ode.release``."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from odesat_tpu_torch.ops import device_loop
+
+    formula = _formula()
+    config = SolverConfig(ode=ODEConfig(step_size=0.02, steps=256), batch_size=64, seed=0,
+                          chunk_steps=16)
+    simulate_batch(formula, config, device=cuda)  # builds the kernels outside the trace
+    counts = (device_loop.captures, device_loop.releases, device_loop.launches)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for seed in range(3):
+            simulate_batch(formula, dataclasses.replace(config, seed=seed), device=cuda)
+            assert device_loop.captures - counts[0] == device_loop.releases - counts[1]
+    captures, releases, launches = (device_loop.captures - counts[0],
+                                    device_loop.releases - counts[1],
+                                    device_loop.launches - counts[2])
+    assert captures == releases == 3 and launches >= 3
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path, encoding="utf-8") as fh:
+        events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X"]
+
+    def spans(name, cat="user_annotation"):
+        return [(e["ts"], e["ts"] + e["dur"]) for e in events
+                if e["name"] == name and e.get("cat") == cat]
+
+    assert len(spans("device_loop.capture")) == captures
+    assert len(spans("device_loop.dispatch")) == launches
+    release = spans("ode.release")
+    destroyed = spans("cudaGraphExecDestroy", "cuda_runtime")
+    assert len(release) == 3 and destroyed
+    for a, b in destroyed:
+        assert any(lo <= a and b <= hi for lo, hi in release), (a, b)
+
+
 # ------------------------------------------ the trajectory mesh's device loop
 
 
