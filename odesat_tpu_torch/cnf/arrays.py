@@ -17,11 +17,18 @@ The CUDA chunk kernel builds its own compact tables from ``lit_var`` and
 
 Padded literal slots carry ``sign == 0`` and point at variable 0; padded
 clause rows are masked out of the satisfaction flag and memory dynamics.
+
+The compile runs on every solve, with the card idle, so it touches the
+Python clause objects once: one flat read of every literal into NumPy
+arrays, then whole-array operations (index arithmetic, one scatter a
+table, one sort for the occurrence table), with no Python loop over the
+clauses or literals (see :func:`compile_formula`).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from itertools import chain
 
 import numpy as np
 
@@ -74,25 +81,29 @@ class FormulaArrays:
         )
 
 
+def _bucket_order(widths: np.ndarray, min_bucket: int):
+    """The clause indices sorted by width (stable) and the sizes of the
+    width buckets that split them. Greedy: accumulate ascending widths
+    until a bucket holds at least ``min_bucket`` clauses, then close it at
+    the next width change."""
+    order = np.argsort(widths, kind="stable")
+    sizes, size = [], 0
+    for count in np.unique(widths, return_counts=True)[1].tolist():
+        if size and size >= min_bucket:
+            sizes.append(size)
+            size = 0
+        size += count
+    if size:
+        sizes.append(size)
+    return order, sizes
+
+
 def _make_buckets(widths, min_bucket: int):
-    """Group clause indices (pre-sorted by width) into width buckets.
-    Greedy: accumulate ascending widths until a bucket holds at least
-    ``min_bucket`` clauses, then close it at the next width change.
-    Returns a list of lists of clause indices."""
-    order = sorted(range(len(widths)), key=lambda i: (widths[i], i))
-    buckets = []
-    current = []
-    current_width = None
-    for idx in order:
-        w = widths[idx]
-        if current and w != current_width and len(current) >= min_bucket:
-            buckets.append(current)
-            current = []
-        current.append(idx)
-        current_width = w
-    if current:
-        buckets.append(current)
-    return buckets
+    """Group clause indices (pre-sorted by width) into width buckets by
+    :func:`_bucket_order`'s rule. Returns a list of lists of clause
+    indices."""
+    order, sizes = _bucket_order(np.asarray(widths, dtype=np.int64), min_bucket)
+    return [ix.tolist() for ix in np.split(order, np.cumsum(sizes)[:-1])] if sizes else []
 
 
 def slot_clause_map(fa: "FormulaArrays") -> np.ndarray:
@@ -136,76 +147,98 @@ def compile_formula(
     (big win after preprocessing, which emits wide resolvents). Clause
     order is an internal layout choice: the dynamics and the readout are
     clause-permutation invariant (up to float summation order).
+
+    How it is built: the clause widths and every literal's variable and
+    negation are read once (``np.fromiter``). The clause order comes from a
+    stable sort by width (the buckets) and, with ``window_sort``, a stable
+    sort of each bucket by its clauses' lowest variable; each literal's
+    column ``m``, slot ``k`` and contribution slot follow from cumulative
+    widths, and the clause-major tables are one fancy-index assignment
+    each. The occurrence table orders the literals by ``(variable, m, k)``,
+    the order of a walk over the laid-out clauses, in one sort, and places
+    each at its column within its variable's row by a cumulative count.
     """
-    if any(len(c) == 0 for c in formula.clauses):
-        raise ValueError("formula contains an empty clause (trivially UNSAT)")
-
-    M = formula.num_clauses
-    K = max(formula.max_clause_width, 1)
+    clauses = formula.clauses
+    M = len(clauses)
     N = formula.varnum
-    used = formula.variable_set()
-    if used and (min(used) < 0 or max(used) >= N):
+    widths = np.fromiter(map(len, clauses), dtype=np.int64, count=M)
+    if M and not widths.min():
+        raise ValueError("formula contains an empty clause (trivially UNSAT)")
+    K = max(int(widths.max()) if M else 0, 1)
+    L = int(widths.sum())
+    # every literal once: a Literal is a (variable, is_negated) pair
+    flat = np.fromiter(chain.from_iterable(chain.from_iterable(clauses)), dtype=np.int64,
+                       count=2 * L).reshape(L, 2)
+    var, neg = flat[:, 0], flat[:, 1].astype(bool)
+    if L and (var.min() < 0 or var.max() >= N):
         raise ValueError("formula is not normalized: variables must lie in [0, varnum)")
+    starts = np.cumsum(widths) - widths  # each clause's first literal
 
-    widths = [len(c) for c in formula.clauses]
-    if bucket and M and len(set(widths)) > 1:
-        index_buckets = _make_buckets(widths, min_bucket)
+    if bucket and M and widths.min() != widths.max():
+        order, sizes = _bucket_order(widths, min_bucket)
+        index_buckets = np.split(order, np.cumsum(sizes)[:-1])
     else:
-        index_buckets = [list(range(M))]
+        index_buckets = [np.arange(M)]
 
-    if window_sort:
+    if window_sort and M:
         # order clauses inside each bucket by their lowest variable so
         # consecutive clause spans touch a narrow variable window — the
         # streaming kernel's per-span windows shrink accordingly on
         # locally-structured instances (encoder-numbered variables).
-        # Clause order is an internal layout choice (see docstring).
-        index_buckets = [
-            sorted(ix, key=lambda i: min(l.variable for l in formula.clauses[i]))
-            for ix in index_buckets
-        ]
+        # Clause order is an internal layout choice (see docstring). The
+        # sort is stable: ties keep their order in the bucket.
+        low = np.minimum.reduceat(var, starts)
+        index_buckets = [ix[np.argsort(low[ix], kind="stable")] for ix in index_buckets]
 
-    # lay out each bucket as a padded slice of the clause axis
-    bucket_meta = []  # (m0, m1, K_b, clause_indices)
-    cursor = 0
-    for indices in index_buckets:
-        Kb = max((widths[i] for i in indices), default=1)
-        Mb = _round_up(len(indices), clause_pad)
-        bucket_meta.append((cursor, cursor + Mb, Kb, indices))
+    # lay out each bucket as a padded slice of the clause axis: per clause
+    # its column m, its bucket's padded length Mb and the bucket's first
+    # slot in the concatenated per-bucket (K_b, M_b) contribution layout
+    bucket_slices = []
+    m_of = np.zeros((M,), dtype=np.int64)
+    mb_of = np.zeros((M,), dtype=np.int64)
+    slot0_of = np.zeros((M,), dtype=np.int64)
+    cursor = n_slots = 0
+    for ix in index_buckets:
+        Kb = int(widths[ix].max()) if len(ix) else 1
+        Mb = _round_up(len(ix), clause_pad)
+        m_of[ix] = np.arange(cursor, cursor + len(ix))
+        mb_of[ix] = Mb
+        slot0_of[ix] = n_slots - cursor  # + k * Mb + m gives the slot
+        bucket_slices.append((cursor, cursor + Mb, Kb))
         cursor += Mb
+        n_slots += Kb * Mb
     Mp = cursor
     Np = _round_up(N, var_pad)
+
+    # per literal: its clause, its slot k in the clause, its column m
+    clause = np.repeat(np.arange(M), widths)
+    k = np.arange(L) - starts[clause]
+    m = m_of[clause]
+    slot = slot0_of[clause] + k * mb_of[clause] + m
 
     lit_var = np.zeros((K, Mp), dtype=np.int32)
     sign = np.zeros((K, Mp), dtype=dtype)
     lit_mask = np.zeros((K, Mp), dtype=dtype)
     clause_mask = np.zeros((Mp,), dtype=dtype)
     xs_init = np.full((Mp,), 1.0, dtype=dtype)
+    lit_var[k, m] = var
+    sign[k, m] = np.where(neg, -1.0, 1.0)
+    lit_mask[k, m] = 1.0
+    clause_mask[m_of] = 1.0
+    if M:
+        xs_init[m_of] = np.where(np.logical_or.reduceat(neg, starts), 1.0, -1.0)
 
-    occurrences = [[] for _ in range(Np)]  # var -> flat contribution slot
-    slot_offset = 0
-    for m0, m1, Kb, indices in bucket_meta:
-        Mb = m1 - m0
-        for j, ci in enumerate(indices):
-            m = m0 + j
-            clause = formula.clauses[ci]
-            clause_mask[m] = 1.0
-            xs_init[m] = 1.0 if any(lit.is_negated for lit in clause) else -1.0
-            for k, lit in enumerate(clause):
-                lit_var[k, m] = lit.variable
-                sign[k, m] = -1.0 if lit.is_negated else 1.0
-                lit_mask[k, m] = 1.0
-                # slot in the concatenated per-bucket (K_b, M_b) layout
-                occurrences[lit.variable].append(slot_offset + k * Mb + j)
-        slot_offset += Kb * Mb
-    n_slots = slot_offset
-
-    D = max((len(o) for o in occurrences), default=1) or 1
+    # variable-major occurrences, each variable's in the order of (m, k):
+    # one sort on a key unique to each literal
+    by_var = np.argsort((var * Mp + m) * K + k)
+    counts = np.bincount(var, minlength=Np)
+    D = int(counts.max()) or 1
+    var_sorted = var[by_var]
+    col = np.arange(L) - (np.cumsum(counts) - counts)[var_sorted]
     var_occ = np.zeros((Np, D), dtype=np.int32)
     occ_mask = np.zeros((Np, D), dtype=dtype)
-    for i, occ in enumerate(occurrences):
-        if occ:
-            var_occ[i, : len(occ)] = occ
-            occ_mask[i, : len(occ)] = 1.0
+    var_occ[var_sorted, col] = slot[by_var]
+    occ_mask[var_sorted, col] = 1.0
 
     return FormulaArrays(
         lit_var=lit_var,
@@ -220,9 +253,9 @@ def compile_formula(
         n_clauses=M,
         n_clauses_padded=Mp,
         max_width=K,
-        min_width=min(widths, default=1),
+        min_width=int(widths.min()) if M else 1,
         max_occ=D,
         density=formula.clause_density(),
-        bucket_slices=tuple((m0, m1, Kb) for m0, m1, Kb, _ in bucket_meta),
+        bucket_slices=tuple(bucket_slices),
         n_slots=n_slots,
     )

@@ -511,7 +511,7 @@ def compile_for_config(formula_or_arrays, config: SolverConfig) -> FormulaArrays
     bucket = config.bucket == "on" or (
         config.bucket == "auto"
         and formula.num_clauses >= 512
-        and formula.max_clause_width > min((len(c) for c in formula.clauses), default=1)
+        and len(set(map(len, formula.clauses))) > 1
     )
     return compile_formula(
         formula,

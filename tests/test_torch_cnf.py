@@ -63,6 +63,79 @@ def test_compile_matches_jax_on_random_formulas(seed, window_sort):
         np.testing.assert_array_equal(tcnf.slot_clause_map(tfa), jcnf.arrays.slot_clause_map(jfa))
 
 
+def _edge_formula(case):
+    """A JAX-package formula for one edge of the compile, normalized, and
+    the compile's keywords. ``uf250`` and ``auto_bucket`` use the solve
+    entry's defaults (``SolverConfig()``: padding 128, buckets "auto",
+    window sort on), so ``compile_for_config`` lays them out the same."""
+    Lit = jcnf.Literal
+    rng = np.random.default_rng(sum(map(ord, case)))
+    config_kw = dict(clause_pad=128, var_pad=128, window_sort=True)
+    if case == "uf250":
+        formula = jgen.random_ksat(250, 1065, k=3, seed=7, planted=True)
+        return jcnf.normalize_cnf_variables(formula)[1], dict(config_kw, bucket=False)
+    if case == "auto_bucket":  # >= 512 clauses of widths 1..6: "auto" buckets them
+        formula = random_formula(rng, 120, 600, max_width=6, min_width=1)
+        return jcnf.normalize_cnf_variables(formula)[1], dict(config_kw, bucket=True)
+    if case == "unused_variable":  # varnum 9 past the last variable used
+        _, norm = jcnf.normalize_cnf_variables(random_formula(rng, 30, 80, 4, 2))
+        return jcnf.CNFFormula(norm.clauses, norm.varnum + 9), dict(bucket=True, min_bucket=16)
+    if case == "repeated_variable":  # variables drawn with replacement inside a clause
+        clauses = [tuple(Lit(int(v), bool(g)) for v, g in zip(rng.integers(0, 20, w),
+                                                               rng.integers(0, 2, w)))
+                   for w in rng.integers(1, 6, 90)]
+        clauses += [(Lit(3), Lit(3)), (Lit(5), Lit(5, True), Lit(5)), (Lit(19, True),) * 4]
+        return jcnf.CNFFormula(clauses, 20), dict(bucket=True, min_bucket=8, clause_pad=8,
+                                                  var_pad=8, window_sort=True)
+    if case == "unit_clauses":  # most clauses of width 1
+        formula = random_formula(rng, 25, 70, max_width=3, min_width=1)
+        units = [(Lit(int(v) + 1, bool(v % 2)),) for v in rng.integers(0, 25, 40)]
+        formula = jcnf.CNFFormula(units + formula.clauses, 25)
+        return jcnf.normalize_cnf_variables(formula)[1], dict(bucket=True, min_bucket=4,
+                                                              window_sort=True)
+    if case == "mesh_padding":  # the clause mesh's plain layout at S=2 pads to 2 x 128
+        formula = random_formula(rng, 40, 150, max_width=4, min_width=2)
+        return jcnf.normalize_cnf_variables(formula)[1], dict(config_kw, clause_pad=256)
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["uf250", "auto_bucket", "unused_variable",
+                                  "repeated_variable", "unit_clauses", "mesh_padding"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_compile_matches_jax_on_edge_formulas(case, dtype):
+    """The whole-array compile against the JAX package's, every field,
+    dtype for dtype, at each edge of the layout; the two cases at the
+    solve entry's defaults also through ``compile_for_config``."""
+    from odesat_tpu_torch.models.ode import compile_for_config
+    from odesat_tpu_torch.utils.config import SolverConfig
+
+    jform, kw = _edge_formula(case)
+    tform = port_formula(jform)
+    tfa = tcnf.compile_formula(tform, dtype=dtype, **kw)
+    jfa = jcnf.compile_formula(jform, dtype=dtype, **kw)
+    assert_arrays_equal(tfa, jfa)
+    np.testing.assert_array_equal(tcnf.slot_clause_map(tfa), jcnf.arrays.slot_clause_map(jfa))
+    if case in ("uf250", "auto_bucket"):
+        cfa = compile_for_config(tform, SolverConfig())
+        assert (len(cfa.bucket_slices) > 1) == (case == "auto_bucket")
+        assert_arrays_equal(cfa, jcnf.compile_formula(jform, **kw))
+
+
+@pytest.mark.parametrize("case", ["empty_clause", "not_normalized"])
+def test_compile_refuses_as_jax_does(case):
+    """The same ValueError, word for word, as the JAX package's compile."""
+    Lit = jcnf.Literal
+    if case == "empty_clause":
+        jform = jcnf.CNFFormula([(Lit(0), Lit(1, True)), (), (Lit(1),)], 2)
+    else:
+        jform = jcnf.CNFFormula([(Lit(0), Lit(1, True)), (Lit(2),)], 2)
+    with pytest.raises(ValueError) as theirs:
+        jcnf.compile_formula(jform)
+    with pytest.raises(ValueError) as ours:
+        tcnf.compile_formula(port_formula(jform))
+    assert str(ours.value) == str(theirs.value)
+
+
 def test_formula_arrays_from_numpy_round_trip(data_dir):
     _, jnorm = jcnf.normalize_cnf_variables(
         jcnf.parse_dimacs_file(os.path.join(data_dir, "easy.cnf"))
